@@ -1,0 +1,1 @@
+"""app layer of the PyTorch port (mirrors digital_earth_tpu/app)."""

@@ -1,0 +1,1 @@
+"""assets layer of the PyTorch port (mirrors digital_earth_tpu/assets)."""

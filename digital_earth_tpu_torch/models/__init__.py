@@ -1,0 +1,1 @@
+"""models layer of the PyTorch port (mirrors digital_earth_tpu/models)."""

@@ -1,0 +1,1 @@
+"""render layer of the PyTorch port (mirrors digital_earth_tpu/render)."""

@@ -24,6 +24,27 @@ failure (exit code 1):
 7. holds each kernel against its plain PyTorch twin on the arguments kept in
    phase 4, lane by lane, and times both.
 
+The viewer's path (each run with the launch counts set to 0 just before it
+and read just after):
+
+8.  ``gen_rays`` against its plain twin on the 1920x1080 path-mode and the
+    480x270 preview-mode inputs: lane keys bit-equal, the rest within the
+    stated bounds;
+9.  ``film_postprocess`` (Triton) against its twin on the phase-6 buffer,
+    OpenDRT and AgX, a scalar spp and a per-pixel count;
+10. the preview frame: Apollo 11 at 480x270 (the viewer's preview of a
+    1920x1080 view), ``accumulate`` + ``fetch_image``, with ``atmos_march``
+    and ``land_march`` launched; ``atmos_march`` against its twin on the
+    arguments of bounces 0 and 1, lane by lane; the committed preview
+    golden (32x18) on the card;
+11. ``accumulate_interruptible(9)`` at 1920x1080 bit-equal to
+    ``accumulate()`` for the same seed and round;
+12. ``EarthViewer`` at 1920x1080 on an ephemeral port, driven over HTTP:
+    a preview frame, then a path frame with spp >= 1, a new preview frame
+    after ``/input?keys=w`` sent in the middle of a path spp (which polls
+    for input between bounces; latency printed), then with 3 chunks per
+    spp a path frame again, ``/frame.png`` a 1920x1080 PNG.
+
 The line before the last is the card's name and power limit; before it, one
 JSON line lists each kernel with its launches, error and times. The last
 line is {"ok": true, "device": {...}}.
@@ -46,6 +67,13 @@ DEEP_BOUNCE = 3
 MIN_LANE_AGREEMENT = 1.0 - 1e-5  # share of lanes with the same outcome and value
 T_RTOL = 1e-4                    # hit / event distance, relative (floor 1 m)
 RATIO_RTOL, RATIO_ATOL = 1e-4, 1e-6  # ratio-tracking transmittance
+# gen_rays: the twin's CUDA ops divide by a scalar as a multiply by its
+# reciprocal, the kernel divides, so directions and wavelengths move by an ulp.
+DIR_ATOL, WL_RTOL, RESP_ATOL, PDF_RTOL = 1e-6, 1e-6, 1e-4, 1e-4
+MARCH_RTOL = 1e-4   # atmos_march in-scatter / transmittance (atol 1e-6 of the max)
+FILM_ATOL = 1e-4    # film_postprocess display values in [0, 1]
+PREVIEW_RES = (480, 270)  # the viewer's preview (preview_scale=4) of RES
+MAIN_PATH = ("land_march", "rmo_delta_track", "cloud_track", "gen_rays", "film_postprocess")
 
 
 def fail(msg):
@@ -255,6 +283,305 @@ def check_golden(torch, dev):
         fail("the card's render disagrees with the committed reference golden")
 
 
+def _time_ms(torch, fn, reps):
+    """(result of a first call, mean ms of ``reps`` further calls), CUDA events."""
+    out = fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end) / reps
+
+
+def _plain_ms(torch, fn):
+    """(result, ms) of one warm call of a plain twin (after one call that
+    pays PyTorch's first-use setup), CUDA events."""
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def _apollo(renderer):
+    from digital_earth_tpu_torch.app.config_io import apply_config, load_config
+
+    apply_config(renderer, load_config(SCENE))
+    return renderer
+
+
+def check_gen_rays(torch, dev, atlas, luts):
+    """gen_rays against its twin on the path frame's 1920x1080 inputs and
+    the 480x270 preview's: a row for the JSON line (the 1080p times)."""
+    from digital_earth_tpu_torch.render import raygen
+    from digital_earth_tpu_torch.render.renderer import Renderer
+
+    row = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0)
+    for mode, res in (("path", RES), ("preview", PREVIEW_RES)):
+        r = _apollo(Renderer(dev, image_res=res, atlas=atlas, luts=luts, mode=mode))
+        block = r.block if mode == "preview" else (1, res[1])
+        args = (r._seed_key, 0, 0, res[0] * res[1], res, block, r.camera_params(), luts,
+                mode == "preview")
+        got, ms = _time_ms(torch, lambda: raygen.gen_rays(*args), 5)
+        want, plain_ms = _plain_ms(torch, lambda: raygen.gen_rays_plain(*args))
+        keys_equal = torch.equal(got.keys, want.keys)
+        dir_err = (got.dirs - want.dirs).abs().max().item()
+        wl_rel = ((got.wavelengths - want.wavelengths).abs() / want.wavelengths).max().item()
+        resp_err = (got.responses - want.responses).abs().max().item()
+        pdf_rel = ((got.pdf - want.pdf).abs() / want.pdf.abs().clamp(min=1e-6)).max().item()
+        ok = (keys_equal and dir_err <= DIR_ATOL and wl_rel <= WL_RTOL
+              and resp_err <= RESP_ATOL and pdf_rel <= PDF_RTOL)
+        print(f"gen_rays {mode} {res[0]}x{res[1]} block {block}: keys bit-equal {keys_equal}, "
+              f"dirs max abs err {dir_err:.3e}, wavelengths max rel err {wl_rel:.3e}, "
+              f"responses max abs err {resp_err:.3e}, pdf max rel err {pdf_rel:.3e}  "
+              f"kernel {ms:.3f} ms  plain {plain_ms:.1f} ms  {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"gen_rays disagrees with its plain twin in {mode} mode")
+        row["max_abs_err"] = max(row["max_abs_err"], dir_err)
+        if mode == "path":
+            row["ms"], row["plain_ms"] = ms, plain_ms
+    return row
+
+
+def check_film(torch, buf, crf_curves):
+    """film_postprocess against its twin on the 1080p main-path buffer."""
+    from digital_earth_tpu_torch.render import film
+
+    w, h = buf.shape[:2]
+    counts = (torch.arange(w * h, device=buf.device) % 4 + 1).to(torch.float32).view(w, h, 1)
+    row = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0)
+    for drt in ("opendrt", "agx"):
+        for spp in (3.0, counts):
+            args = (buf, spp, 2.432, 1.001, crf_curves, 12, drt)
+            got, ms = _time_ms(torch, lambda: film.postprocess(*args), 5)
+            want, plain_ms = _plain_ms(torch, lambda: film.postprocess_plain(*args))
+            err = (got - want).abs().max().item()
+            kind = "scalar spp" if isinstance(spp, float) else "per-pixel count"
+            print(f"film_postprocess {drt} {kind} {w}x{h}: max abs err {err:.3e}  "
+                  f"kernel {ms:.3f} ms  plain {plain_ms:.1f} ms  "
+                  f"{'ok' if err <= FILM_ATOL else 'FAIL'}")
+            if not err <= FILM_ATOL:
+                fail(f"film_postprocess disagrees with its plain twin ({drt}, {kind})")
+            row["max_abs_err"] = max(row["max_abs_err"], err)
+            if drt == "opendrt" and kind == "scalar spp":
+                row["ms"], row["plain_ms"] = ms, plain_ms
+    return row
+
+
+def preview_frame(torch, dev, atlas, luts):
+    """The preview frame at 480x270: timed, its launches counted, and
+    atmos_march held against its twin on the arguments of bounces 0 and 1.
+    Returns (launch counts of one frame, JSON row)."""
+    from digital_earth_tpu_torch import kernels
+    from digital_earth_tpu_torch.render import raymarcher
+    from digital_earth_tpu_torch.render.renderer import Renderer
+
+    r = _apollo(Renderer(dev, image_res=PREVIEW_RES, atlas=atlas, luts=luts, mode="preview"))
+    captured = []
+    original = raymarcher.ray_march_atmos
+
+    def keep(*args):
+        if len(captured) < 2:
+            captured.append(tuple(a.clone() for a in args))
+        return original(*args)
+
+    raymarcher.ray_march_atmos = keep
+    try:
+        r.accumulate()  # warm-up, and the capture of bounces 0 and 1
+        r.fetch_image()
+        torch.cuda.synchronize()
+    finally:
+        raymarcher.ray_march_atmos = original
+    times = []
+    for _ in range(3):
+        r.reset_framebuffer()
+        kernels.reset_launch_counts()
+        t0 = time.time()
+        r.accumulate()
+        img = r.fetch_image()
+        torch.cuda.synchronize()
+        times.append(time.time() - t0)
+        counts = kernels.launch_counts()
+    finite = bool(torch.isfinite(img).all()) and bool(torch.isfinite(r.color_buffer).all())
+    print(f"preview frame Apollo 11 {PREVIEW_RES[0]}x{PREVIEW_RES[1]} (accumulate + fetch_image, "
+          f"warm): {' '.join(f'{t * 1e3:.1f}' for t in times)} ms; launches {counts}; "
+          f"finite {finite}, buffer mean {r.color_buffer.mean().item():.6g}")
+    if not (counts["atmos_march"] > 0 and counts["land_march"] > 0 and counts["gen_rays"] > 0
+            and counts["film_postprocess"] > 0):
+        fail(f"the preview frame did not launch its kernels: {counts}")
+    if not (finite and r.color_buffer.mean().item() > 0.0):
+        fail("the preview frame is not finite with a positive mean")
+
+    row = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0)
+    for b, args in enumerate(captured):
+        active = args[-1]
+        got, ms = _time_ms(torch, lambda: raymarcher.ray_march_atmos(*args), 5)
+        want, plain_ms = _plain_ms(torch, lambda: raymarcher.ray_march_atmos_plain(*args))
+        lane_ok = torch.ones_like(active)
+        errs = []
+        for g, w in zip(got, want):
+            atol = 1e-6 * w[active].abs().max().clamp(min=1e-30)
+            lane_ok &= (g - w).abs() <= MARCH_RTOL * w.abs() + atol
+            errs.append((g - w)[active].abs().max().item())
+        agree = lane_ok[active].float().mean().item()
+        n_act = int(active.sum())
+        ok = agree >= MIN_LANE_AGREEMENT
+        print(f"atmos_march bounce {b}: {active.numel()} lanes ({n_act} active)  lanes agreeing "
+              f"{agree:.7f} ({n_act - int(lane_ok[active].sum())} not)  max abs err "
+              f"in-scatter {errs[0]:.3e} transmittance {errs[1]:.3e}  kernel {ms:.3f} ms  "
+              f"plain {plain_ms:.1f} ms  {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail("atmos_march disagrees with its plain twin")
+        row["max_abs_err"] = max(row["max_abs_err"], errs[0])
+        if b == 0:
+            row["ms"], row["plain_ms"] = ms, plain_ms
+    return counts, row
+
+
+def check_preview_golden(torch, dev):
+    """The committed 32x18 preview golden on the card, with the CPU test's
+    floors (tests/test_torch_preview.py)."""
+    import numpy as np
+
+    from digital_earth_tpu_torch.assets.procgen import generate_earth_textures
+    from digital_earth_tpu_torch.assets.textures import build_atlas
+    from digital_earth_tpu_torch.render.params import TraceConfig
+    from digital_earth_tpu_torch.render.renderer import Renderer
+
+    golden = np.load(os.path.join(ROOT, "tests", "golden", "apollo_preview.npz"))
+    atlas = build_atlas(generate_earth_textures((64, 128), seed=3), dev)
+    cfg = TraceConfig(max_bounces=3, land_march_steps=64, max_tracking_steps=256)
+    r = _apollo(Renderer(dev, image_res=(32, 18), atlas=atlas, tile_pixels=576, seed=0,
+                         cfg=cfg, mode="preview"))
+    for _ in range(int(golden["spp"])):
+        r.accumulate()
+    buf, ref = r.color_buffer.cpu().numpy(), golden["color_buffer"]
+    share = np.isclose(buf, ref, rtol=1e-3, atol=1e-7).all(-1).mean()
+    mean_rel = np.abs(buf.mean((0, 1)) / ref.mean((0, 1)) - 1.0).max()
+    print(f"golden apollo preview 32x18 on the card: {share:.4f} of pixels within rtol 1e-3, "
+          f"channel means within {mean_rel:.2e}")
+    if not (share >= 0.99 and mean_rel <= 1e-3):
+        fail("the card's preview disagrees with the committed preview golden")
+
+
+def check_chunked(torch, dev, atlas, luts):
+    """accumulate_interruptible(9) at 1920x1080 against accumulate(), same
+    seed and round: bit-equal. Returns (whole s, chunked s)."""
+    from digital_earth_tpu_torch.render.renderer import Renderer
+
+    a = _apollo(Renderer(dev, image_res=RES, atlas=atlas, luts=luts, seed=5))
+    b = _apollo(Renderer(dev, image_res=RES, atlas=atlas, luts=luts, seed=5))
+    torch.cuda.synchronize()
+    t0 = time.time()
+    a.accumulate()
+    torch.cuda.synchronize()
+    t_whole = time.time() - t0
+    polls = []
+    t0 = time.time()
+    done = b.accumulate_interruptible(9, interrupt=lambda: polls.append(1) or False)
+    torch.cuda.synchronize()
+    t_chunked = time.time() - t0
+    equal = torch.equal(a.color_buffer, b.color_buffer)
+    print(f"chunked spp {RES[0]}x{RES[1]}: accumulate {t_whole:.3f} s, "
+          f"accumulate_interruptible(9) {t_chunked:.3f} s ({len(polls)} polls: 8 between "
+          f"chunks, the rest between bounces), bit-equal {equal}")
+    # at least one bounce poll in each of the 9 chunks
+    if not (done and equal and len(polls) >= 8 + 9):
+        fail("the chunked spp is not bit-equal to the whole spp")
+    return t_whole, t_chunked
+
+
+def check_viewer(torch, dev, atlas, luts):
+    """EarthViewer at 1920x1080 driven over HTTP on an ephemeral port.
+    Returns the launch counts of the whole viewer run."""
+    import shutil
+    import struct
+    import threading
+    import urllib.request
+
+    from digital_earth_tpu_torch import kernels
+    from digital_earth_tpu_torch.app.viewer import EarthViewer
+
+    work = os.path.join(ROOT, "build", "chip_smoke", "viewer")
+    os.makedirs(work, exist_ok=True)
+    config = os.path.join(work, "config.txt")
+    shutil.copy(SCENE, config)
+    kernels.reset_launch_counts()
+    t_start = time.time()
+    v = EarthViewer(device=dev, image_res=RES, config_path=config,
+                    screenshot_dir=os.path.join(work, "shots"), port=0, atlas=atlas, luts=luts)
+    v._running = True
+    loop = threading.Thread(target=v._render_loop, daemon=True)
+    loop.start()
+    server = v.make_server(host="127.0.0.1", port=0)
+    serve = threading.Thread(target=server.serve_forever, daemon=True)
+    serve.start()
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+
+    def get(path):
+        with urllib.request.urlopen(url + path, timeout=60) as resp:
+            return resp.read()
+
+    def wait_for(pred, limit):
+        deadline = time.time() + limit
+        while time.time() < deadline:
+            s = json.loads(get("/state"))
+            if s["error"]:
+                fail(f"the viewer's render loop failed: {s['error']}")
+            if pred(s):
+                return s
+            time.sleep(0.01)
+        fail(f"the viewer did not reach the expected state within {limit} s: {s}")
+
+    try:
+        s = wait_for(lambda s: s["frames"] >= 1 and s["frame_source"] == "preview", 120)
+        t_first = time.time() - t_start
+        s = wait_for(lambda s: s["frame_source"] == "path" and s["spp"] >= 1, 120)
+        t_path = time.time() - t_start
+        time.sleep(0.5)  # into the next spp, which runs as one chunk
+        frames = s["frames"]
+        v.spp_chunks = 3  # read when the spp after the input starts
+        t0 = time.time()
+        get("/input?keys=w")
+        s = wait_for(lambda s: s["frame_source"] == "preview" and s["frames"] > frames, 60)
+        latency = time.time() - t0
+        preview_s = s["frame_time"]
+        t0 = time.time()
+        s = wait_for(lambda s: s["frame_source"] == "path" and s["spp"] >= 1, 120)
+        t_chunked = time.time() - t0
+        state_t0 = time.time()
+        get("/state")
+        state_s = time.time() - state_t0
+        png = get("/frame.png")
+        w, h = struct.unpack(">II", png[16:24])
+        print(f"viewer {RES[0]}x{RES[1]}: first preview frame after {t_first:.2f} s, first "
+              f"path spp after {t_path:.2f} s; input -> new preview frame "
+              f"{latency * 1e3:.1f} ms (preview frame_time {preview_s} s); then a 3-chunk "
+              f"path spp {t_chunked:.2f} s after the preview; "
+              f"/state answered in {state_s * 1e3:.1f} ms; /frame.png {len(png)} bytes {w}x{h}")
+        if not (png[:8] == b"\x89PNG\r\n\x1a\n" and png[12:16] == b"IHDR" and (w, h) == RES):
+            fail("/frame.png is not a 1920x1080 PNG")
+    finally:
+        v._running = False
+        server.shutdown()
+        server.server_close()
+        loop.join(timeout=120)
+    if loop.is_alive():
+        fail("the viewer's render loop did not stop")
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    print(f"launches in the viewer run: {counts}")
+    if not all(v > 0 for v in counts.values()):
+        fail(f"a kernel of the viewer's path never launched: {counts}")
+    return counts
+
+
 def main():
     try:
         import torch
@@ -289,7 +616,11 @@ def main():
 
     check_golden(torch, dev)
 
+    check_preview_golden(torch, dev)
+
     # --- the main path ---------------------------------------------------
+    from digital_earth_tpu_torch.app.viewer import encode_png
+
     w, h = RES
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -304,16 +635,17 @@ def main():
         r.accumulate()
     torch.cuda.synchronize()
     dt = (time.time() - t0) / 2
+    img = r.fetch_image()
+    torch.cuda.synchronize()
     counts = kernels.launch_counts()
     buf = r.color_buffer
     finite = bool(torch.isfinite(buf).all())
     mean = buf.mean().item()
-    img = r.fetch_image()
     print(f"render_offline Apollo 11 {w}x{h}, default TraceConfig, 3 spp: "
           f"warm-up {warmup_s:.2f} s, {dt:.3f} s/spp, {w * h / dt:.1f} paths/s, "
           f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     print(f"launches on the main path: {counts}; buffer finite {finite}, mean {mean:.6g}")
-    if not all(v > 0 for v in counts.values()):
+    if not all(counts[k] > 0 for k in MAIN_PATH):
         fail(f"a kernel of the main path never launched: {counts}")
     if not (finite and mean > 0.0):
         fail("the accumulated buffer is not finite with a positive mean")
@@ -321,18 +653,21 @@ def main():
         fail("fetch_image is not a finite (W, H, 3) image")
     out_dir = os.path.join(ROOT, "build", "chip_smoke")
     os.makedirs(out_dir, exist_ok=True)
-    try:
-        from PIL import Image
-        Image.fromarray(r.fetch_image_np()).save(
-            os.path.join(out_dir, "apollo11_1080p_3spp.png"))
-    except ImportError:
-        pass
-    del r, buf, img
+    with open(os.path.join(out_dir, "apollo11_1080p_3spp.png"), "wb") as f:
+        f.write(encode_png(r.fetch_image_np()))
 
     rows = compare_kernels(torch, captured)
     bad = [name for name, row in rows.items() if not row["ok"]]
     if bad:
         fail(f"kernels disagree with their plain versions: {bad}")
+
+    # --- the viewer's path -------------------------------------------------
+    rows["gen_rays"] = check_gen_rays(torch, dev, atlas, luts)
+    rows["film_postprocess"] = check_film(torch, buf, r.crf.curves)
+    del r, buf, img
+    preview_counts, rows["atmos_march"] = preview_frame(torch, dev, atlas, luts)
+    check_chunked(torch, dev, atlas, luts)
+    check_viewer(torch, dev, atlas, luts)
 
     loaded = sorted(k for k in sys.modules
                     if k.split(".")[0] in ("jax", "jaxlib", "digital_earth_tpu"))
@@ -340,18 +675,27 @@ def main():
         fail(f"JAX or the JAX package was imported: {loaded}")
 
     sources = {
-        "land_march": ("digital_earth_tpu_torch/csrc/land_march.cu",
+        "land_march": ("cuda", "digital_earth_tpu_torch/csrc/land_march.cu",
                        "digital_earth_tpu/render/pathtracer.py:211"),
-        "rmo_delta_track": ("digital_earth_tpu_torch/csrc/rmo_delta_track.cu",
+        "rmo_delta_track": ("cuda", "digital_earth_tpu_torch/csrc/rmo_delta_track.cu",
                             "digital_earth_tpu/render/pathtracer.py:631"),
-        "cloud_track": ("digital_earth_tpu_torch/csrc/cloud_track.cu",
+        "cloud_track": ("cuda", "digital_earth_tpu_torch/csrc/cloud_track.cu",
                         "digital_earth_tpu/render/pathtracer.py:906"),
+        "gen_rays": ("cuda", "digital_earth_tpu_torch/csrc/gen_rays.cu",
+                     "digital_earth_tpu/render/renderer.py:160"),
+        "atmos_march": ("cuda", "digital_earth_tpu_torch/csrc/atmos_march.cu",
+                        "digital_earth_tpu/render/raymarcher.py:56"),
+        "film_postprocess": ("triton", "digital_earth_tpu_torch/csrc/film_postprocess.py",
+                             "digital_earth_tpu/render/film.py:438"),
     }
+    # launches: the main path's run, or for the preview's kernel the
+    # preview frame's run
+    launches = dict(counts, atmos_march=preview_counts["atmos_march"])
     line = {"kernels": [
-        {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": counts[name], "max_abs_err": rows[name]["max_abs_err"],
+        {"name": name, "route": route, "source": src, "replaces": rep,
+         "launches": launches[name], "max_abs_err": rows[name]["max_abs_err"],
          "ms": rows[name]["ms"], "plain_ms": rows[name]["plain_ms"]}
-        for name, (src, rep) in sources.items()
+        for name, (route, src, rep) in sources.items()
     ]}
     print(json.dumps(line))
     print(nvidia_smi_line())

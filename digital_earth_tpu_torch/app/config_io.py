@@ -78,3 +78,23 @@ def apply_config(renderer, cfg: SceneConfig) -> None:
     renderer.set_sun_angle(cfg.sun_angle)
     renderer.set_sun_path_rot(cfg.sun_path_rot)
     renderer.reset_framebuffer()
+
+
+def snapshot_config(renderer, camera=None) -> SceneConfig:
+    """Collect the current renderer (and optional camera controller) state."""
+    if camera is not None:
+        pos, look, up = camera.position, camera.look_at, camera.up
+    else:
+        pos, look, up = renderer.camera_pos, renderer.look_at, renderer.up
+    return SceneConfig(
+        camera_pos=tuple(float(x) for x in pos),
+        look_at=tuple(float(x) for x in look),
+        up=tuple(float(x) for x in up),
+        fov=float(renderer.fov),
+        aspect_scale=float(renderer.aspect_scale),
+        exposure=float(renderer.exposure),
+        crf_index=int(renderer.selected_crf),
+        gamma=float(renderer.gamma),
+        sun_angle=float(renderer.sun_angle),
+        sun_path_rot=float(renderer.sun_path_rot),
+    )

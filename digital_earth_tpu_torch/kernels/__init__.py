@@ -1,13 +1,16 @@
-"""Build, bind and launch the hand-written CUDA kernels of ``csrc/``.
+"""Build, bind and launch the hand-written kernels of ``csrc/``.
 
-The sources are compiled with ``nvcc`` for Hopper (``sm_90a``) into one
-shared library with a plain C interface, at first CUDA use, into the
-git-ignored ``build/kernels/<source hash>/`` directory, and loaded with
-``ctypes``. Each launcher checks device, dtype, shape and contiguity, runs on
-``torch.cuda.current_stream()``, raises if the C entry returns a non-zero
-``cudaGetLastError()``, and adds one to its ``launches`` counter. Nothing
-here imports or builds anything until a kernel is launched; there is no
-fallback to the plain versions.
+CUDA C++: each ``.cu`` source is compiled with ``nvcc`` for Hopper
+(``sm_90a``) into an object, all sources at once in parallel, and the
+objects are linked into one shared library with a plain C interface, at
+first CUDA use, into the git-ignored ``build/kernels/<source hash>/``
+directory, and loaded with ``ctypes``. Triton: ``csrc/film_postprocess.py``
+is loaded from its path at first CUDA use, with ``TRITON_CACHE_DIR`` pointed
+at the git-ignored ``build/triton/``. Each launcher checks device, dtype,
+shape and contiguity, runs on ``torch.cuda.current_stream()``, raises if the
+launch fails (a non-zero ``cudaGetLastError()`` from a C entry), and adds
+one to its ``launches`` counter. Nothing here imports or builds anything
+until a kernel is launched; there is no fallback to the plain versions.
 
 Built with ``--fmad=false`` and without fast math, so the kernels round each
 operation as PyTorch's element-wise CUDA ops do (the one fused multiply-add,
@@ -21,9 +24,12 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import importlib.util
+import math
 import os
 import shutil
 import subprocess
+import sys
 import time
 
 import torch
@@ -31,9 +37,10 @@ import torch
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_ROOT, "csrc")
 BUILD_ROOT = os.path.join(os.path.dirname(_ROOT), "build", "kernels")
+TRITON_CACHE = os.path.join(os.path.dirname(_ROOT), "build", "triton")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
+    "--fmad=false", "-Xcompiler", "-fPIC",
 ]
 
 _lib = None
@@ -53,6 +60,13 @@ _SIGNATURES = {
     # trans, n, max_steps, k, ratio, stream
     "de_cloud_track": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P,
                        _I, _I, _I, _I, _P],
+    # pos, dir, t_start, t_max, sun_dir, ext_rmo, scattering, active,
+    # in_scatter, trans, n, rayl_k, mie_e, two_pi, log_term, stream
+    "de_atmos_march": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _F, _F, _F,
+                       _F, _P],
+    # float params, int64 params, g, cie_response, keys, dirs, wavelengths,
+    # responses, pdf, n, stream
+    "de_gen_rays": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P],
     # keys, n, data, count, out, stream
     "de_threefry_uniform": [_P, _I, ctypes.c_uint, _I, _P, _P],
 }
@@ -86,15 +100,28 @@ def library():
     if not os.path.exists(so):
         nvcc = nvcc_path()
         os.makedirs(out_dir, exist_ok=True)
-        tmp = f"{so}.tmp{os.getpid()}"
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp,
-               *[s for s in srcs if s.endswith(".cu")]]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        tag = f"tmp{os.getpid()}"
+        cus = [src for src in srcs if src.endswith(".cu")]
+        objs = [os.path.join(out_dir, os.path.basename(src) + f".{tag}.o") for src in cus]
+        procs = [
+            subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj, src],
+                             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for src, obj in zip(cus, objs)
+        ]
+        for src, proc in zip(cus, procs):
+            out, err = proc.communicate()
+            if proc.returncode != 0:
+                for other in procs:
+                    other.kill()
+                raise RuntimeError(f"nvcc failed on {src} ({proc.returncode}):\n{out}\n{err}")
+        tmp = f"{so}.{tag}"
+        proc = subprocess.run([nvcc, "-shared", "-o", tmp, *objs],
+                              capture_output=True, text=True)
         if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
-            )
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
         os.replace(tmp, so)
+        for obj in objs:
+            os.remove(obj)
     lib = ctypes.CDLL(so)
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
@@ -214,6 +241,112 @@ def cloud_track(keys, pos, direction, t_start, t_max, ext_w, active, clouds, *,
     return trans if ratio else (event, t)
 
 
+def atmos_march(pos, direction, t_start, t_max, sun_dir, ext_rmo, scattering,
+                active, *, mie_e: float):
+    """Launch ``atmos_march`` (csrc/atmos_march.cu): (in_scatter, trans),
+    (0, 1) on lanes that are not ``active``."""
+    dev = pos.device
+    n = pos.shape[0]
+    _check("pos", pos, torch.float32, (n, 3), dev)
+    _check("direction", direction, torch.float32, (n, 3), dev)
+    _check("t_start", t_start, torch.float32, (n,), dev)
+    _check("t_max", t_max, torch.float32, (n,), dev)
+    _check("sun_dir", sun_dir, torch.float32, (n, 3), dev)
+    _check("ext_rmo", ext_rmo, torch.float32, (n, 3), dev)
+    _check("scattering", scattering, torch.float32, (n, 2), dev)
+    _check("active", active, torch.bool, (n,), dev)
+    in_scatter = torch.empty((n,), dtype=torch.float32, device=dev)
+    trans = torch.empty((n,), dtype=torch.float32, device=dev)
+    if n:
+        f32 = lambda x: float(torch.tensor(x, dtype=torch.float32))  # noqa: E731
+        _launch(
+            "de_atmos_march", _ptr(pos), _ptr(direction), _ptr(t_start),
+            _ptr(t_max), _ptr(sun_dir), _ptr(ext_rmo), _ptr(scattering),
+            _ptr(active), _ptr(in_scatter), _ptr(trans), n,
+            f32(3.0 / (16.0 * math.pi)), f32(mie_e), f32(2.0 * math.pi),
+            float(torch.log(torch.tensor(2.0 * mie_e + 1.0, dtype=torch.float32))),
+        )
+        atmos_march.launches += 1
+    return in_scatter, trans
+
+
+def gen_rays(fparams, iparams, g, cie_response, n: int, n_lambdas: int):
+    """Launch ``gen_rays`` (csrc/gen_rays.cu) for ``n`` lanes: (keys (n, 2)
+    int64, dirs (n, 3), wavelengths (n, L), responses (n, L, 3), pdf (n, L)).
+    ``fparams`` (19 floats) and ``iparams`` (12 ints) are laid out as the C
+    entry de_gen_rays documents (render/raygen.py builds them)."""
+    dev = g.device
+    res = g.shape[0]
+    _check("g", g, torch.float32, (res,), dev)
+    _check("cie_response", cie_response, torch.float32, (res, 3), dev)
+    if len(fparams) != 19 or len(iparams) != 12:
+        raise ValueError("gen_rays: expected 19 float and 12 int parameters")
+    keys = torch.empty((n, 2), dtype=torch.int64, device=dev)
+    dirs = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    wavelengths = torch.empty((n, n_lambdas), dtype=torch.float32, device=dev)
+    responses = torch.empty((n, n_lambdas, 3), dtype=torch.float32, device=dev)
+    pdf = torch.empty((n, n_lambdas), dtype=torch.float32, device=dev)
+    if n:
+        fp = (ctypes.c_float * 19)(*fparams)
+        ip = (ctypes.c_int64 * 12)(*iparams)
+        _launch(
+            "de_gen_rays", ctypes.cast(fp, ctypes.c_void_p), ctypes.cast(ip, ctypes.c_void_p),
+            _ptr(g), _ptr(cie_response), _ptr(keys), _ptr(dirs), _ptr(wavelengths),
+            _ptr(responses), _ptr(pdf), n,
+        )
+        gen_rays.launches += 1
+    return keys, dirs, wavelengths, responses, pdf
+
+
+_film = None
+
+
+def _film_module():
+    """csrc/film_postprocess.py, imported from its path (it imports triton)."""
+    global _film
+    if _film is None:
+        os.environ["TRITON_CACHE_DIR"] = TRITON_CACHE
+        os.makedirs(TRITON_CACHE, exist_ok=True)
+        name = "digital_earth_tpu_torch_film_postprocess"
+        spec = importlib.util.spec_from_file_location(
+            name, os.path.join(CSRC, "film_postprocess.py"))
+        mod = importlib.util.module_from_spec(spec)
+        sys.modules[name] = mod
+        spec.loader.exec_module(mod)
+        _film = mod
+    return _film
+
+
+def film_postprocess(color_buffer, count, spp: float, exposure_scale: float,
+                     gamma: float, crf_curves, crf_index: int, drt: int,
+                     constants: dict):
+    """Launch the Triton kernel ``film_postprocess_kernel``
+    (csrc/film_postprocess.py): (W, H, 3) display sRGB. ``count`` is a
+    (W, H, 1) per-pixel sample count or None (then the scalar ``spp``);
+    ``drt`` is 0 (OpenDRT), 1 (AgX) or 2 (none); ``constants`` holds the
+    kernel's compile-time matrices and tone-scale constants."""
+    dev = color_buffer.device
+    w, h = color_buffer.shape[:2]
+    _check("color_buffer", color_buffer, torch.float32, (w, h, 3), dev)
+    _check("crf_curves", crf_curves, torch.float32, (crf_curves.shape[0], crf_curves.shape[1], 3), dev)
+    if count is not None:
+        _check("count", count, torch.float32, (w, h, 1), dev)
+    out = torch.empty((w, h, 3), dtype=torch.float32, device=dev)
+    n_pix = w * h
+    if n_pix:
+        mod = _film_module()
+        block = 256
+        with torch.cuda.device(dev):
+            mod.film_postprocess_kernel[((n_pix + block - 1) // block,)](
+                color_buffer, count if count is not None else color_buffer, crf_curves,
+                out, n_pix, w, h, float(spp), float(exposure_scale), float(gamma),
+                int(crf_index), crf_curves.shape[1], **constants, DRT=drt,
+                HAS_COUNT=count is not None, CRF_RES=crf_curves.shape[0], BLOCK=block,
+            )
+        film_postprocess.launches += 1
+    return out
+
+
 def threefry_uniform(keys, data: int, count: int):
     """Test launcher of the kernels' threefry header (not a path kernel):
     ``uniform(fold(keys, data), (count,))`` as (count, n), computed on the
@@ -225,7 +358,8 @@ def threefry_uniform(keys, data: int, count: int):
     return out
 
 
-PATH_KERNELS = (land_march, rmo_delta_track, cloud_track)
+PATH_KERNELS = (land_march, rmo_delta_track, cloud_track, gen_rays, atmos_march,
+                film_postprocess)
 for _k in PATH_KERNELS:
     _k.launches = 0
 

@@ -1,4 +1,4 @@
-"""Earth surface BRDF (port of digital_earth_tpu/models/surface.py:138):
+"""Earth surface BRDF (port of digital_earth_tpu/models/surface.py:138, 171):
 Disney diffuse + land GGX / ocean Beckmann-GGX blend."""
 
 from __future__ import annotations
@@ -123,3 +123,10 @@ def earth_brdf_parts(oceanness, bathymetry, v, n, l):
     specular_blender = smoothstep(0.6, 1.0, oceanness)
     specular = mix(land_specular, ocean_specular, specular_blender) * SPECULAR_FACTOR
     return diffuse * DIFFUSE_FACTOR, specular, n_dot_l
+
+
+def earth_brdf(albedo, oceanness, bathymetry, v, n, l):
+    """Full surface BRDF at one wavelength (surface.py:171):
+    (albedo * diffuse_term + specular_term, n_dot_l)."""
+    diffuse_term, specular_term, n_dot_l = earth_brdf_parts(oceanness, bathymetry, v, n, l)
+    return albedo * diffuse_term + specular_term, n_dot_l

@@ -101,3 +101,24 @@ def uniform(keys, shape=()):
     )
     u = bits_to_uniform(y0 ^ y1)  # (total, n)
     return u.reshape(tuple(shape) + (keys.shape[0],))
+
+
+def uniform_at(keys, counter):
+    """The draw at flat index ``counter`` of ``jax.random.uniform(key, shape)``
+    for each key: (..., 2) keys and a broadcastable int64 counter -> floats."""
+    c = _as_u32(counter, keys)
+    y0, y1 = threefry2x32(keys[..., 0], keys[..., 1], torch.zeros_like(c), c)
+    return bits_to_uniform(y0 ^ y1)
+
+
+def uniform_key(key, shape=()):
+    """``jax.random.uniform(key, shape)`` of one (2,) key: element j (flat
+    index) comes from the counter (0, j)."""
+    idx = torch.arange(math.prod(shape), dtype=torch.int64, device=key.device)
+    return uniform_at(key, idx).reshape(tuple(shape))
+
+
+def split(key, n: int):
+    """``jax.random.split(key, n)`` of one (2,) key: (n, 2). Under
+    jax_threefry_partitionable, key i of the split is ``fold_in(key, i)``."""
+    return lane_keys(key, torch.arange(n, dtype=torch.int64, device=key.device))

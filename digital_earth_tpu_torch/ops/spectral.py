@@ -38,28 +38,56 @@ def plancks(temperature, wavelength):
     return p1 / p2
 
 
+def cie_g(cie_cdf):
+    """The scalar CDF the inversion searches: saturate(mean of channels)."""
+    return saturate(cie_cdf.mean(dim=-1)).contiguous()
+
+
+def _cie_mid(u, g):
+    """Texture coordinate of the inverse CDF at ``u`` (``searchsorted``
+    side="left", index clipped to [1, res - 1])."""
+    res = g.shape[0]
+    idx = torch.clamp(torch.searchsorted(g, u.contiguous(), right=False), 1, res - 1)
+    g0 = g[idx - 1]
+    g1 = g[idx]
+    frac = torch.where(g1 > g0, (u - g0) / torch.clamp(g1 - g0, min=1e-12), 0.5)
+    return ((idx - 1).to(torch.float32) + 0.5 + saturate(frac)) / res
+
+
+def _cie_response(mids, cie_response):
+    """Bilinear fetch of the XYZ response row at texture coordinate ``mids``."""
+    res = cie_response.shape[0]
+    x = mids * res - 0.5
+    x0 = torch.clamp(torch.floor(x).to(torch.int64), 0, res - 1)
+    x1 = torch.clamp(x0 + 1, 0, res - 1)
+    t = (x - x0.to(torch.float32))[..., None]
+    return cie_response[x0] * (1.0 - t) + cie_response[x1] * t
+
+
+def spectrum_sample(u, cie_cdf, cie_response):
+    """One wavelength by CIE inverse-CDF (the preview's sampler,
+    digital_earth_tpu/ops/spectral.py:42). Returns (wavelength (...),
+    response (..., 3), rcp_pdf (...))."""
+    mid = _cie_mid(u, cie_g(cie_cdf))
+    wavelength = 390.0 + 441.0 * mid
+    response = _cie_response(mid, cie_response)
+    pdf = dot(response, cie_cdf[cie_cdf.shape[0] - 1])
+    ok = (pdf > 1e-3) & torch.isfinite(pdf)
+    rcp_pdf = torch.where(ok, rdiv(1.0, torch.clamp(pdf, min=1e-12)), 0.0)
+    return wavelength, response, rcp_pdf
+
+
 def spectrum_sample_hero(u, cie_cdf, cie_response, n_lambdas: int = 4):
     """Hero-wavelength packet (Wilkie et al. 2014): the hero by CIE
     inverse-CDF (``searchsorted`` side="left"), companions at equal spectral
     rotations. Returns (wavelengths (..., L), responses (..., L, 3),
     lambda_pdf (..., L))."""
     res = cie_cdf.shape[0]
-    g = saturate(cie_cdf.mean(dim=-1)).contiguous()
-    idx = torch.clamp(torch.searchsorted(g, u.contiguous(), right=False), 1, res - 1)
-    g0 = g[idx - 1]
-    g1 = g[idx]
-    frac = torch.where(g1 > g0, (u - g0) / torch.clamp(g1 - g0, min=1e-12), 0.5)
-    mid = ((idx - 1).to(torch.float32) + 0.5 + saturate(frac)) / res
-
+    mid = _cie_mid(u, cie_g(cie_cdf))
     shifts = torch.arange(n_lambdas, dtype=torch.float32, device=u.device) / n_lambdas
     mids = torch.remainder(mid[..., None] + shifts, 1.0)
     wavelengths = 390.0 + 441.0 * mids
-
-    x = mids * res - 0.5
-    x0 = torch.clamp(torch.floor(x).to(torch.int64), 0, res - 1)
-    x1 = torch.clamp(x0 + 1, 0, res - 1)
-    t = (x - x0.to(torch.float32))[..., None]
-    responses = cie_response[x0] * (1.0 - t) + cie_response[x1] * t
+    responses = _cie_response(mids, cie_response)
 
     pdf = dot(responses, cie_cdf[res - 1])
     ok = (pdf > 1e-3) & torch.isfinite(pdf)

@@ -19,17 +19,23 @@ class CameraParams(NamedTuple):
     aspect_scale: torch.Tensor
 
 
-def cast_dirs(cam: CameraParams, u, v, u_jitter, v_jitter, image_res):
+def camera_basis(cam: CameraParams):
+    """(forward, right, up) unit vectors of the film plane."""
+    d = normalize(cam.look_at - cam.position)
+    du = normalize(cross(d, cam.up))
+    dv = normalize(cross(du, d))
+    return d, du, dv
+
+
+def cast_dirs(cam: CameraParams, u, v, u_jitter, v_jitter, image_res, basis=None):
     """Jittered pinhole directions for pixel coords (u, v); u in [0, W),
     v in [0, H), with the reference's 1e-5 offsets and height-normalized
-    film plane."""
+    film plane. ``basis`` is ``camera_basis(cam)``, computed here if absent."""
     w, h = image_res
     aspect_ratio = w / h
-    d = normalize(cam.look_at - cam.position)
+    d, du, dv = camera_basis(cam) if basis is None else basis
     fu = (
         2.0 * cam.fov * (u + u_jitter) / h - cam.fov * aspect_ratio - 1e-5
     ) * cam.aspect_scale
     fv = 2.0 * cam.fov * (v + v_jitter) / h - cam.fov - 1e-5
-    du = normalize(cross(d, cam.up))
-    dv = normalize(cross(du, d))
     return normalize(d + fu[..., None] * du + fv[..., None] * dv)

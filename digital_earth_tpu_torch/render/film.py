@@ -1,7 +1,11 @@
 """HDR -> SDR film chain (port of digital_earth_tpu/render/film.py:237-469):
 OpenDRT (default) and AgX display transforms, measured camera response,
 vignette, exposure, gamma, sRGB encode. The gamut and AgX matrices are
-derived in numpy exactly as the reference derives them."""
+derived in numpy exactly as the reference derives them.
+
+``postprocess`` runs the plain PyTorch chain (``postprocess_plain``) for a
+CPU buffer and the Triton kernel ``film_postprocess``
+(csrc/film_postprocess.py) for a CUDA buffer."""
 
 from __future__ import annotations
 
@@ -11,6 +15,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from .. import kernels
 from ..ops.math_utils import mix, saturate
 from ..ops.spectral import lum3, srgb_transfer
 
@@ -269,13 +274,63 @@ VIGNETTE_RADIUS = 0.0
 VIGNETTE_CENTER = (0.5, 0.5)
 
 
+DRT_CODES = {"opendrt": 0, "agx": 1, "none": 2}
+
+
+def _matrix_constants(prefix, m):
+    return {f"{prefix}{i}{j}": float(np.float32(m[i][j])) for i in range(3) for j in range(3)}
+
+
+@lru_cache(maxsize=None)
+def kernel_constants(drt: str) -> dict:
+    """The ``film_postprocess`` kernel's compile-time constants for ``drt``:
+    its two 3x3 matrices (A, then B) and the OpenDRT tone-scale constants."""
+    if drt == "opendrt":
+        a, b = _rec709_matrices()
+    elif drt == "agx":
+        a, b = _AGX_SRGB_TO_XYZ, _AGX_XYZ_TO_ADJ
+    else:
+        a = b = np.eye(3, dtype=np.float32)
+    m_, s_, ds_, clamp_max = _drt_constants(LP)
+    w = np.array([RW, 1.0, BW], dtype=np.float32)
+    w = w / np.linalg.norm(w)
+    return dict(
+        **_matrix_constants("A", a), **_matrix_constants("B", b),
+        DRT_M=m_, DRT_S=s_, DRT_DS=ds_, DRT_CLAMP=clamp_max, DCH_S=DCH / s_,
+        LW0=float(w[0]), LW1=float(w[1]), LW2=float(w[2]),
+    )
+
+
 def postprocess(
     color_buffer, spp, exposure: float, gamma: float, crf_curves,
     crf_index: int, drt: str = "opendrt",
 ):
     """color_buffer (W, H, 3) accumulated linear RGB -> display sRGB in
-    [0, 1]: /spp, vignette, 2^exposure, DRT, camera response, gamma, sRGB.
-    ``spp`` is a count or a (W, H, 1) per-pixel count tensor."""
+    [0, 1]; ``spp`` is a count or a (W, H, 1) per-pixel count tensor. CPU
+    buffers: the plain chain; CUDA buffers: the ``film_postprocess`` kernel."""
+    if drt not in DRT_CODES:
+        raise ValueError(f"unknown display transform {drt!r}")
+    if color_buffer.device.type == "cpu":
+        return postprocess_plain(color_buffer, spp, exposure, gamma, crf_curves,
+                                 crf_index, drt)
+    per_pixel = isinstance(spp, torch.Tensor) and spp.ndim == 3
+    exposure_scale = torch.pow(
+        torch.tensor(2.0), torch.tensor(exposure, dtype=torch.float32)
+    ).item()
+    return kernels.film_postprocess(
+        color_buffer.contiguous(),
+        spp.to(torch.float32).contiguous() if per_pixel else None,
+        1.0 if per_pixel else max(float(spp), 1.0), exposure_scale, gamma,
+        crf_curves.contiguous(), crf_index, DRT_CODES[drt], kernel_constants(drt),
+    )
+
+
+def postprocess_plain(
+    color_buffer, spp, exposure: float, gamma: float, crf_curves,
+    crf_index: int, drt: str = "opendrt",
+):
+    """Plain PyTorch twin of the ``film_postprocess`` kernel: /spp,
+    vignette, 2^exposure, DRT, camera response, gamma, sRGB."""
     w, h = color_buffer.shape[:2]
     dev = color_buffer.device
     u = torch.arange(w, dtype=torch.float32, device=dev)[:, None] / w

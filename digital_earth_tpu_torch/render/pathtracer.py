@@ -412,14 +412,24 @@ def run_bounce(st: TraceState, bounce: int, scene: SceneParams, atlas, luts,
     )
 
 
+class Interrupted(Exception):
+    """``run_bounces`` abandoned its wavefront: the interrupt poll said so."""
+
+
 def run_bounces(st: TraceState, scene: SceneParams, atlas, luts,
-                cfg: TraceConfig, bounce_start: int, bounce_stop: int) -> TraceState:
+                cfg: TraceConfig, bounce_start: int, bounce_stop: int,
+                interrupt=None) -> TraceState:
     """Advance the wavefront over bounces [bounce_start, bounce_stop), each
-    bounce on the alive lanes only (stable gather, then scatter back)."""
+    bounce on the alive lanes only (stable gather, then scatter back).
+    ``interrupt()`` is polled before each bounce, once the device has
+    finished the previous one; ``Interrupted`` is raised when it returns
+    True."""
     for bounce in range(bounce_start, bounce_stop):
-        live = torch.nonzero(st.alive).squeeze(1)
+        live = torch.nonzero(st.alive).squeeze(1)  # waits for the device
         if live.numel() == 0:
             break
+        if interrupt is not None and interrupt():
+            raise Interrupted
         if live.numel() == st.alive.numel():
             st = run_bounce(st, bounce, scene, atlas, luts, cfg)
         else:

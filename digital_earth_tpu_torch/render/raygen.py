@@ -1,0 +1,147 @@
+"""Ray generation and wavelength sampling (port of ``gen_rays`` inside
+digital_earth_tpu/render/renderer.py:160-194 ``_trace_tile_range``, with
+render/camera.py:37 ``cast_dirs`` and ops/spectral.py:42, 88
+``spectrum_sample`` / ``spectrum_sample_hero``): the plain PyTorch twin
+``gen_rays_plain`` and the wrapper ``gen_rays``, which launches the CUDA
+kernel ``gen_rays`` (csrc/gen_rays.cu) for a CUDA render device.
+
+Lanes are numbered in tile-major order over (bw, bh) pixel blocks
+(renderer.py:168-172, ``_tile_pixel_coords`` 469-480). The preview needs
+that order, because its random draws are keyed by tile; the path tracer
+keys every draw by pixel and runs its lanes in pixel order, which is the
+same map with blocks of (1, H).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Tuple
+
+import numpy as np
+import torch
+
+from .. import kernels
+from ..ops import rng
+from ..ops import spectral as sp
+from .camera import CameraParams, camera_basis, cast_dirs
+
+# Frame-level RNG site and the R3 rQMC constants (renderer.py:41-53).
+_SITE_JITTER = 101
+_PIXEL_DOMAIN = 0x70697865
+_R3_G = 1.2207440846057596
+_R3_A32 = tuple(
+    int(round((1.0 / _R3_G**i % 1.0) * 2**32)) & 0xFFFFFFFF for i in (1, 2, 3)
+)
+# Wavelengths per hero packet (reference TraceConfig.hero_lambdas).
+HERO_LAMBDAS = 4
+
+
+def pick_block_dims(w: int, h: int, target: int) -> Tuple[int, int]:
+    """Near-square (bw, bh) with bw | w, bh | h and bw * bh <= target
+    (renderer.py:56 ``_pick_block_dims``)."""
+    divs_w = [d for d in range(1, w + 1) if w % d == 0]
+    divs_h = [d for d in range(1, h + 1) if h % d == 0]
+    best = (1, 1)
+    best_score = -1.0
+    for bw in divs_w:
+        for bh in divs_h:
+            n = bw * bh
+            if n > target:
+                continue
+            score = n * (0.5 + 0.5 * min(bw, bh) / max(bw, bh))
+            if score > best_score:
+                best_score = score
+                best = (bw, bh)
+    return best
+
+
+def tile_pixel_coords(lane, image_res, block):
+    """(tile index, in-tile lane, pu, pv) of flat tile-major lane ids."""
+    _, h = image_res
+    bw, bh = block
+    tile = bw * bh
+    nby = h // bh
+    tidx, li = lane // tile, lane % tile
+    pu = (tidx // nby) * bw + li // bh
+    pv = (tidx % nby) * bh + li % bh
+    return tidx, li, pu, pv
+
+
+class Rays(NamedTuple):
+    """Per-lane output of ray generation. ``pdf`` is the hero packet's
+    lambda pdf (L = 4), or 1 / pdf of the preview's single wavelength."""
+
+    keys: torch.Tensor         # (n, 2) int64 lane keys fold(spp_key, pid)
+    dirs: torch.Tensor         # (n, 3)
+    wavelengths: torch.Tensor  # (n, L)
+    responses: torch.Tensor    # (n, L, 3)
+    pdf: torch.Tensor          # (n, L)
+
+
+def _seq(spp: int):
+    """The R3 point of this spp, uint32 fixed point rounded to float32."""
+    return [float(np.float32((a * (spp + 1)) & rng.M32)) * 2.0**-32 for a in _R3_A32]
+
+
+def _cpu_camera(cam: CameraParams) -> CameraParams:
+    return CameraParams(*(t.detach().to("cpu", torch.float32) for t in cam))
+
+
+def gen_rays_plain(base_key, spp: int, lane0: int, n: int, image_res, block,
+                   cam: CameraParams, luts, preview: bool) -> Rays:
+    """Plain PyTorch twin of the ``gen_rays`` kernel for lanes
+    [lane0, lane0 + n); ``base_key`` is the frame key as two ints."""
+    _, h = image_res
+    dev = luts.cie_cdf.device
+    lane = torch.arange(lane0, lane0 + n, dtype=torch.int64, device=dev)
+    _, _, pu_i, pv_i = tile_pixel_coords(lane, image_res, block)
+    pid = pu_i * h + pv_i
+    base = torch.tensor(base_key, dtype=torch.int64, device=dev)
+    keys = rng.lane_keys(rng.fold(base, spp), pid)
+    pkeys = rng.lane_keys(rng.fold(base, _PIXEL_DOMAIN), pid)
+    shift = rng.uniform(rng.fold(pkeys, _SITE_JITTER), (3,))
+    seq = torch.tensor(_seq(spp), dtype=torch.float32, device=dev)
+    u3 = torch.remainder(shift + seq[:, None], 1.0)
+    basis = tuple(t.to(dev) for t in camera_basis(_cpu_camera(cam)))
+    dirs = cast_dirs(cam, pu_i.to(torch.float32), pv_i.to(torch.float32),
+                     u3[0], u3[1], image_res, basis)
+    if preview:
+        wl, resp, rcp_pdf = sp.spectrum_sample(u3[2], luts.cie_cdf, luts.cie_response)
+        return Rays(keys, dirs, wl[:, None], resp[:, None, :], rcp_pdf[:, None])
+    wl, resp, pdf = sp.spectrum_sample_hero(
+        u3[2], luts.cie_cdf, luts.cie_response, HERO_LAMBDAS
+    )
+    return Rays(keys, dirs, wl, resp, pdf)
+
+
+def kernel_params(base_key, spp: int, lane0: int, image_res, block,
+                  cam: CameraParams, cie_cdf, preview: bool):
+    """The ``gen_rays`` kernel's (19 float, 12 int) parameters: keys
+    derived on the host, the camera basis computed once in float32."""
+    w, h = image_res
+    cpu_cam = _cpu_camera(cam)
+    d, du, dv = camera_basis(cpu_cam)
+    fov = np.float32(cpu_cam.fov.item())
+    cdf_max = cie_cdf[cie_cdf.shape[0] - 1].tolist()
+    fparams = [*d.tolist(), *du.tolist(), *dv.tolist(), float(np.float32(2.0) * fov),
+               float(fov), float(fov * np.float32(w / h)), float(cpu_cam.aspect_scale.item()),
+               *_seq(spp), *cdf_max]
+    k0, k1 = base_key
+    spp_key = rng.threefry2x32(k0, k1, 0, spp & rng.M32)
+    pix_key = rng.threefry2x32(k0, k1, 0, _PIXEL_DOMAIN)
+    iparams = [*spp_key, *pix_key, lane0, w, h, block[0], block[1],
+               cie_cdf.shape[0], 1 if preview else HERO_LAMBDAS, int(preview)]
+    return fparams, iparams
+
+
+def gen_rays(base_key, spp: int, lane0: int, n: int, image_res, block,
+             cam: CameraParams, luts, preview: bool) -> Rays:
+    """Rays for lanes [lane0, lane0 + n): the plain version on a CPU render
+    device, the ``gen_rays`` kernel on a CUDA one."""
+    if luts.cie_cdf.device.type == "cpu":
+        return gen_rays_plain(base_key, spp, lane0, n, image_res, block, cam, luts, preview)
+    fparams, iparams = kernel_params(base_key, spp, lane0, image_res, block, cam,
+                                     luts.cie_cdf, preview)
+    return Rays(*kernels.gen_rays(
+        fparams, iparams, sp.cie_g(luts.cie_cdf), luts.cie_response.contiguous(), n,
+        1 if preview else HERO_LAMBDAS,
+    ))

@@ -1,13 +1,20 @@
 """Progressive spectral renderer (port of digital_earth_tpu/render/renderer.py):
-``set_*`` setters, ``accumulate()`` (one spp), ``fetch_image()`` /
-``fetch_image_np()`` (the film chain), ``reset_framebuffer()``.
+``set_*`` setters, ``accumulate()`` (one spp), ``accumulate_interruptible``
+(one spp in chunks, with an interrupt poll between chunks and bounces),
+``fetch_image()`` / ``fetch_image_np()`` (the film chain), ``reset_framebuffer()``,
+``save_checkpoint`` / ``load_checkpoint`` (the reference's file format).
+
+``mode="path"`` is the spectral path tracer, ``mode="preview"`` the
+deterministic single-scatter raymarcher (render/raymarcher.py).
 
 Schedule: the reference traces pixel blocks and compacts lane tiles
-between bounce windows for the TPU; its output does not depend on that
-layout, because every lane's randomness is keyed by its global pixel id
-(ops/rng.py). Here the whole frame is one wavefront: rays for every pixel,
-one bounce at a time over the live lanes (pathtracer.run_bounces), then
-radiance lands in the (W, H, 3) buffer at the lane's pixel.
+between bounce windows for the TPU; its path-traced output does not depend
+on that layout, because every lane's randomness is keyed by its global
+pixel id (ops/rng.py). Here a frame, or a chunk of it, is one wavefront of
+lanes: rays for every lane, one bounce at a time over the live lanes
+(pathtracer.run_bounces), then each lane's radiance lands in the (W, H, 3)
+buffer at its pixel. The preview keys its draws by pixel tile, so its lanes
+follow the reference's tile-major order (render/raygen.py).
 """
 
 from __future__ import annotations
@@ -26,54 +33,46 @@ from ..ops import rng
 from ..ops import spectral as sp
 from . import film
 from . import pathtracer as pt
-from .camera import CameraParams, cast_dirs
+from . import raygen
+from . import raymarcher
+from .camera import CameraParams
 from .params import SceneParams, TraceConfig, make_scene_params
 
-# Wavelengths per hero packet (reference TraceConfig.hero_lambdas).
-HERO_LAMBDAS = 4
-# Frame-level RNG site and the R3 rQMC constants (renderer.py:41-53).
-_SITE_JITTER = 101
-_PIXEL_DOMAIN = 0x70697865
-_R3_G = 1.2207440846057596
-_R3_A32 = tuple(
-    int(round((1.0 / _R3_G**i % 1.0) * 2**32)) & 0xFFFFFFFF for i in (1, 2, 3)
+ADAPTIVE_TODO = (
+    "adaptive sampling (per-pixel counts) is not ported yet: ROADMAP.md, "
+    "queue A #10 and B #13"
 )
 
 
-def trace_frame(base_key, spp: int, cam: CameraParams, scene: SceneParams,
-                atlas: TextureAtlas, luts: SpectralLUTs, image_res, cfg: TraceConfig):
-    """One sample for every pixel: (W, H, 3) linear RGB (renderer.py:125-348
-    with the ray generation of gen_rays, 160-194)."""
-    w, h = image_res
-    dev = base_key.device
-    pid = torch.arange(w * h, dtype=torch.int64, device=dev)  # = pu * h + pv
-    spp_key = rng.fold(base_key, spp)
-    lkeys = rng.lane_keys(spp_key, pid)
-    pu = (pid // h).to(torch.float32)
-    pv = (pid % h).to(torch.float32)
-    # randomized QMC primary dimensions (stratify_spp): per-pixel
-    # Cranley-Patterson shift (spp-free key) + the R3 point of this spp
-    pkeys = rng.lane_keys(rng.fold(base_key, _PIXEL_DOMAIN), pid)
-    shift = rng.uniform(rng.fold(pkeys, _SITE_JITTER), (3,))
-    seq = torch.tensor(
-        [(a * (spp + 1)) & 0xFFFFFFFF for a in _R3_A32],
-        dtype=torch.int64, device=dev,
-    ).to(torch.float32) * 2.0**-32
-    u3 = torch.remainder(shift + seq[:, None], 1.0)
-    u_jit, u = u3[:2], u3[2]
-    dirs = cast_dirs(cam, pu, pv, u_jit[0], u_jit[1], image_res)
-    pos = cam.position.expand(w * h, 3).contiguous()
-
-    wavelengths, responses, lambda_pdf = sp.spectrum_sample_hero(
-        u, luts.cie_cdf, luts.cie_response, HERO_LAMBDAS
-    )
-    st = pt.init_state(pos, dirs, wavelengths, lambda_pdf, lkeys)
-    st = pt.run_bounces(st, scene, atlas, luts, cfg, 0, 1)
-    st = pt.shade_primary_miss(st, scene, atlas, luts, cfg)
-    st = pt.run_bounces(st, scene, atlas, luts, cfg, 1, cfg.max_bounces)
-    radiance = pt.finalize_radiance(st)
-    xyz = mu.sum_last(radiance[:, None, :] * responses.transpose(1, 2))
-    return sp.xyz_to_rgb(xyz).reshape(w, h, 3)
+def trace_lanes(base_key, spp: int, lane0: int, n: int, cam: CameraParams,
+                scene: SceneParams, atlas: TextureAtlas, luts: SpectralLUTs,
+                image_res, block, cfg: TraceConfig, mode: str = "path", interrupt=None):
+    """One sample for lanes [lane0, lane0 + n) of the frame's tile-major
+    lane order over ``block``: (pid (n,), linear RGB (n, 3)), pid = pu * H + pv
+    (renderer.py:125-348; the preview branch is render_tile, 202-213). The
+    path tracer polls ``interrupt`` between bounces (pathtracer.run_bounces)."""
+    _, h = image_res
+    preview = mode == "preview"
+    rays = raygen.gen_rays(base_key, spp, lane0, n, image_res, block, cam, luts, preview)
+    dev = rays.dirs.device
+    lane = torch.arange(lane0, lane0 + n, dtype=torch.int64, device=dev)
+    tidx, li, pu, pv = raygen.tile_pixel_coords(lane, image_res, block)
+    pos = cam.position.expand(n, 3).contiguous()
+    if preview:
+        spp_key = rng.fold(torch.tensor(base_key, dtype=torch.int64, device=dev), spp)
+        radiance = raymarcher.march_paths(
+            rng.lane_keys(spp_key, tidx), pos, rays.dirs, rays.wavelengths[:, 0],
+            scene, atlas, luts, cfg, lane=li, tile=block[0] * block[1],
+        )
+        xyz = radiance[:, None] * rays.responses[:, 0] * rays.pdf
+    else:
+        st = pt.init_state(pos, rays.dirs, rays.wavelengths, rays.pdf, rays.keys)
+        st = pt.run_bounces(st, scene, atlas, luts, cfg, 0, 1, interrupt)
+        st = pt.shade_primary_miss(st, scene, atlas, luts, cfg)
+        st = pt.run_bounces(st, scene, atlas, luts, cfg, 1, cfg.max_bounces, interrupt)
+        radiance = pt.finalize_radiance(st)
+        xyz = mu.sum_last(radiance[:, None, :] * rays.responses.transpose(1, 2))
+    return pu * h + pv, sp.xyz_to_rgb(xyz)
 
 
 class Renderer:
@@ -87,18 +86,25 @@ class Renderer:
         atlas: Optional[TextureAtlas] = None,
         luts: Optional[SpectralLUTs] = None,
         crf: Optional[CRFPack] = None,
+        tile_pixels: int = 2048,
         seed: int = 0,
         cfg: TraceConfig = TraceConfig(),
         drt: str = "opendrt",
+        mode: str = "path",
     ):
+        if mode not in ("path", "preview"):
+            raise ValueError(f"unknown render mode {mode!r}")
         self.device = torch.device(device)
         self.image_res = tuple(image_res)
         self.cfg = cfg
         self.drt = drt
+        self.mode = mode
         self.atlas = atlas if atlas is not None else load_texture_atlas(self.device)
         self.luts = luts if luts is not None else load_spectral_luts(self.device)
         self.crf = crf if crf is not None else load_crf_pack(self.device)
         self.crf_names = list(self.crf.names)
+        self.block = raygen.pick_block_dims(image_res[0], image_res[1], tile_pixels)
+        self.tile = self.block[0] * self.block[1]
 
         self.camera_pos = np.zeros(3, dtype=np.float64)
         self.look_at = np.zeros(3, dtype=np.float64)
@@ -113,8 +119,11 @@ class Renderer:
         self.sun_path_rot = C.DEFAULT_SUN_PATH_ROT
         self.land_height_scale = C.DEFAULT_LAND_HEIGHT_SCALE
 
-        self._base_key = rng.prng_key(seed, self.device)
+        self._seed_key = (0, int(seed) & rng.M32)  # jax.random.PRNGKey(seed)
         self.current_spp = 0
+        self.total_samples = 0
+        self._rng_round = 0
+        self._adaptive_rounds = 0
         self.color_buffer = torch.zeros(
             (image_res[0], image_res[1], 3), dtype=torch.float32, device=self.device
         )
@@ -173,15 +182,64 @@ class Renderer:
     # --- main API -----------------------------------------------------------
     def reset_framebuffer(self):
         self.current_spp = 0
+        self.total_samples = 0
+        self._rng_round = 0
+        self._adaptive_rounds = 0
         self.color_buffer.zero_()
+
+    @property
+    def mean_spp(self) -> float:
+        """Average samples per pixel (== current_spp without adaptive passes)."""
+        return self.total_samples / (self.image_res[0] * self.image_res[1])
 
     def accumulate(self):
         """Trace one sample per pixel into the accumulation buffer."""
-        self.color_buffer += trace_frame(
-            self._base_key, self.current_spp, self.camera_params(),
-            self.scene_params(), self.atlas, self.luts, self.image_res, self.cfg,
-        )
+        self.accumulate_interruptible(1)
+
+    def accumulate_interruptible(self, n_chunks: int, interrupt=None) -> bool:
+        """Trace one spp in ``n_chunks`` contiguous lane ranges (pixel ids
+        in path mode), calling ``interrupt()`` between chunks once the device
+        has finished the chunk, and in path mode between bounces too; abort,
+        discarding the partial spp, when it returns True. Returns whether the
+        spp completed (renderer.py:719; the reference polls between chunks
+        only).
+
+        Every lane's randomness depends on its pixel (its tile in preview
+        mode) and the round only, so the spp does not depend on the cut:
+        bit-identical to ``accumulate()`` on the card."""
+        w, h = self.image_res
+        total = w * h
+        per = -(-total // max(1, min(int(n_chunks), total)))
+        block = self.block if self.mode == "preview" else (1, h)
+        cam, scene = self.camera_params(), self.scene_params()
+        # only an abortable spp needs a staging buffer: an abort must leave
+        # the accumulation buffer as it was
+        out = (self.color_buffer.view(total, 3) if interrupt is None
+               else torch.zeros((total, 3), dtype=torch.float32, device=self.device))
+        for lo in range(0, total, per):
+            n = min(per, total - lo)
+            try:
+                pid, rgb = trace_lanes(
+                    self._seed_key, self._rng_round, lo, n, cam, scene, self.atlas,
+                    self.luts, self.image_res, block, self.cfg, self.mode, interrupt,
+                )
+            except pt.Interrupted:
+                return False
+            if self.mode == "path":
+                out[lo:lo + n] += rgb  # (1, H) blocks: lane == pixel id
+            else:
+                out[pid] += rgb  # tile-major lanes, distinct pixel ids
+            if interrupt is not None and lo + n < total:
+                if self.device.type == "cuda":
+                    torch.cuda.current_stream(self.device).synchronize()  # releases the GIL
+                if interrupt():
+                    return False
+        if interrupt is not None:
+            self.color_buffer += out.view(w, h, 3)
         self.current_spp += 1
+        self._rng_round += 1
+        self.total_samples += total
+        return True
 
     def fetch_image(self):
         """Post-processed (W, H, 3) float sRGB."""
@@ -190,8 +248,43 @@ class Renderer:
             self.gamma, self.crf.curves, self.selected_crf, self.drt,
         )
 
+    def fetch_image_u8(self):
+        """(H, W, 3) uint8 on the render device, row 0 at top."""
+        img = (torch.clamp(self.fetch_image(), 0.0, 1.0) * 255.0 + 0.5).to(torch.uint8)
+        return img.transpose(0, 1).flip(0)
+
     def fetch_image_np(self) -> np.ndarray:
         """(H, W, 3) uint8, row 0 at top."""
-        img = self.fetch_image().cpu().numpy()
-        img = np.transpose(img, (1, 0, 2))[::-1]
-        return (np.clip(img, 0.0, 1.0) * 255.0 + 0.5).astype(np.uint8)
+        return self.fetch_image_u8().cpu().numpy()
+
+    # --- render-state checkpoints (renderer.py:812-853) ----------------------
+    def save_checkpoint(self, path: str):
+        """Write the resumable render state in the reference's file format."""
+        np.savez_compressed(
+            path,
+            color_buffer=self.color_buffer.cpu().numpy(),
+            current_spp=self.current_spp,
+            seed_key=np.asarray(self._seed_key, dtype=np.uint32),
+            rng_round=self._rng_round,
+            adaptive_rounds=self._adaptive_rounds,
+            total_samples=self.total_samples,
+        )
+
+    def load_checkpoint(self, path: str):
+        """Resume from a checkpoint written by either renderer."""
+        with np.load(path) as z:
+            if "count_buffer" in z:
+                raise NotImplementedError(f"checkpoint {path} holds per-pixel counts: {ADAPTIVE_TODO}")
+            buf = z["color_buffer"]
+            if buf.shape != (*self.image_res, 3):
+                raise ValueError(f"checkpoint buffer {buf.shape}, renderer {(*self.image_res, 3)}")
+            self.color_buffer = torch.as_tensor(buf, dtype=torch.float32).to(self.device)
+            self.current_spp = int(z["current_spp"])
+            self._seed_key = tuple(int(k) for k in z["seed_key"])
+            # pre-adaptive checkpoints carry no round counters
+            self._rng_round = int(z["rng_round"]) if "rng_round" in z else self.current_spp
+            self._adaptive_rounds = int(z["adaptive_rounds"]) if "adaptive_rounds" in z else 0
+            self.total_samples = (
+                int(z["total_samples"]) if "total_samples" in z
+                else self.current_spp * self.image_res[0] * self.image_res[1]
+            )

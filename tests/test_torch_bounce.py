@@ -60,11 +60,11 @@ def test_bounce_matches_eager_reference(raw_atlas, scene, monkeypatch):
     captured = {}
     run_bounces = pt.run_bounces
 
-    def keep(st, scene_params, atlas, luts, cfg, start, stop):
+    def keep(st, scene_params, atlas, luts, cfg, start, stop, interrupt=None):
         if start == 0:
             captured["in"] = {f: getattr(st, f).clone() for f in
                               ("pos", "direction", "wavelength", "lambda_pdf", "rng")}
-        out = run_bounces(st, scene_params, atlas, luts, cfg, start, stop)
+        out = run_bounces(st, scene_params, atlas, luts, cfg, start, stop, interrupt)
         if start == 0:
             captured["out"] = (out.radiance.clone(), out.throughput.clone())
         return out

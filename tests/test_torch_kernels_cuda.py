@@ -170,7 +170,87 @@ def test_main_path_uses_every_kernel_and_matches_golden(dev):
         atlas=build_atlas(generate_earth_textures((64, 128), seed=3), dev), seed=0,
         cfg=TraceConfig(max_bounces=3, land_march_steps=64, max_tracking_steps=256),
     )
-    assert all(v > 0 for v in kernels.launch_counts().values())
+    r.fetch_image()
+    counts = kernels.launch_counts()
+    main_path = ("land_march", "rmo_delta_track", "cloud_track", "gen_rays", "film_postprocess")
+    assert all(counts[k] > 0 for k in main_path), counts
+    assert counts["atmos_march"] == 0, counts  # the preview's kernel
     buf = r.color_buffer.cpu().numpy()
     share = np.isclose(buf, golden["color_buffer"], rtol=1e-3, atol=1e-7).all(-1).mean()
     assert share >= 0.90
+
+
+# --- the viewer path's kernels: gen_rays, atmos_march, film_postprocess -----
+# Stated tolerances (kernel vs twin, same inputs, on the card): lane keys
+# bit-equal; directions within 1e-6 absolute and wavelengths within 1e-6
+# relative (the twin's CUDA ops divide by a scalar as a multiply by its
+# reciprocal, the kernel divides); atmos_march in-scatter and transmittance
+# within 1e-4 relative on at least 99.9% of lanes; film output within 1e-4.
+
+
+def _apollo_renderer(dev, res, mode):
+    from digital_earth_tpu_torch.app.config_io import apply_config
+    from digital_earth_tpu_torch.render.renderer import Renderer
+
+    r = Renderer(dev, image_res=res, mode=mode,
+                 atlas=build_atlas(generate_earth_textures((64, 128), seed=3), dev))
+    apply_config(r, load_config(os.path.join(ROOT, "scenes", "config - Apollo 11.txt")))
+    return r
+
+
+@pytest.mark.parametrize("mode,res", [("path", (320, 180)), ("preview", (160, 90))])
+def test_gen_rays_kernel(dev, mode, res):
+    from digital_earth_tpu_torch import kernels
+    from digital_earth_tpu_torch.render import raygen
+
+    r = _apollo_renderer(dev, res, mode)
+    block = r.block if mode == "preview" else (1, res[1])
+    n = res[0] * res[1]
+    args = ((0, 3), 5, 0, n, res, block, r.camera_params(), r.luts, mode == "preview")
+    before = kernels.gen_rays.launches
+    got = raygen.gen_rays(*args)
+    assert kernels.gen_rays.launches == before + 1
+    want = raygen.gen_rays_plain(*args)
+    assert torch.equal(got.keys, want.keys)
+    assert (got.dirs - want.dirs).abs().max().item() <= 1e-6
+    assert ((got.wavelengths - want.wavelengths).abs() / want.wavelengths).max().item() <= 1e-6
+    assert (got.responses - want.responses).abs().max().item() <= 1e-4
+    assert torch.allclose(got.pdf, want.pdf, rtol=1e-4, atol=1e-6)
+
+
+def test_atmos_march_kernel(case):
+    from digital_earth_tpu_torch.ops import math_utils as mu
+    from digital_earth_tpu_torch.render import raymarcher
+
+    pos, dirs = case["pos"], case["dirs"]
+    a_near, a_far = mu.rsi(pos, dirs, C.ATMOS_UPPER_LIMIT)
+    t0 = torch.clamp(a_near, min=0.0)
+    sun = torch.nn.functional.normalize(torch.randn_like(pos) * 0.1 + dirs.roll(1, 0), dim=-1)
+    ext = case["ext_h"]
+    scat = torch.stack([ext[:, 0], ext[:, 1] * C.AEROSOL_ALBEDO], dim=-1)
+    active = case["active"] & (a_far >= 0.0)
+    args = (pos, dirs, t0, a_far, sun.contiguous(), ext, scat, active)
+    got = raymarcher.ray_march_atmos(*args)
+    want = raymarcher.ray_march_atmos_plain(*args)
+    for g, w in zip(got, want):
+        close = (g - w).abs() <= 1e-4 * w.abs() + 1e-30
+        assert close[active].float().mean().item() >= 0.999
+
+
+@pytest.mark.parametrize("drt", ["opendrt", "agx", "none"])
+@pytest.mark.parametrize("per_pixel", [False, True])
+def test_film_postprocess_kernel(dev, drt, per_pixel):
+    from digital_earth_tpu_torch import kernels
+    from digital_earth_tpu_torch.assets.luts import load_crf_pack
+    from digital_earth_tpu_torch.render import film
+
+    g = torch.Generator().manual_seed(1)
+    buf = (torch.rand((96, 54, 3), generator=g) ** 4 * 40.0).to(dev)
+    spp = (torch.randint(0, 6, (96, 54, 1), generator=g).float().to(dev)
+           if per_pixel else 3.0)
+    crf = load_crf_pack(dev).curves
+    before = kernels.film_postprocess.launches
+    got = film.postprocess(buf, spp, 1.5, 1.2, crf, 4, drt)
+    assert kernels.film_postprocess.launches == before + 1
+    want = film.postprocess_plain(buf, spp, 1.5, 1.2, crf, 4, drt)
+    assert (got - want).abs().max().item() <= 1e-4

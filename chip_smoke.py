@@ -45,9 +45,30 @@ and read just after):
     for input between bounces; latency printed), then with 3 chunks per
     spp a path frame again, ``/frame.png`` a 1920x1080 PNG.
 
+Adaptive tile sampling (Apollo 11 at 1920x1080, default ``TraceConfig()``):
+
+13. two ``accumulate_adaptive(frac=1.0)`` passes bit-equal to two
+    ``accumulate()`` calls, every count 2;
+14. the adaptive run: 2 warm-up passes and 6 passes at frac=0.25, each
+    adding exactly k * tile samples, pass and uniform-spp times printed,
+    ``fetch_image`` finite within [0, 1]; ``gen_rays`` against its twin on
+    the first frac=0.25 pass's own arguments (its list of k tiles);
+15. ``frame_end`` against its plain twin on the 1920x1080 frame's
+    end-of-sweep state (phase 4), on a frac=0.25 pass's tile list with
+    counts, and on the 480x270 preview frame's lanes;
+16. ``select_tiles`` against its plain twin on the buffers after the
+    warm-up and after 4 adaptive passes: the same tile ids in order;
+17. ``EarthViewer(adaptive_frac=0.25, adaptive_fps=0.25)`` over HTTP: the
+    mean spp goes fractional, input in the middle of a pass reaches a new
+    preview frame (latency printed), the frame-rate controller sets the
+    passes per frame.
+
 The line before the last is the card's name and power limit; before it, one
-JSON line lists each kernel with its launches, error and times. The last
-line is {"ok": true, "device": {...}}.
+JSON line lists each kernel with its launches (``select_tiles`` makes four
+per call), error, times and bound (the least time the card could take: the
+larger of the bytes it must move at 3.35 TB/s and the operations at 67
+TFLOP/s, counted from this run's inputs, a transcendental as one
+operation). The last line is {"ok": true, "device": {...}}.
 """
 
 import json
@@ -73,12 +94,48 @@ DIR_ATOL, WL_RTOL, RESP_ATOL, PDF_RTOL = 1e-6, 1e-6, 1e-4, 1e-4
 MARCH_RTOL = 1e-4   # atmos_march in-scatter / transmittance (atol 1e-6 of the max)
 FILM_ATOL = 1e-4    # film_postprocess display values in [0, 1]
 PREVIEW_RES = (480, 270)  # the viewer's preview (preview_scale=4) of RES
-MAIN_PATH = ("land_march", "rmo_delta_track", "cloud_track", "gen_rays", "film_postprocess")
+# frame_end: RGB and lum^2 within 1e-5 relative (atol 1e-6 of the largest
+# value, for channels that cancel in xyz_to_rgb), counts exact. The twin
+# rounds op by op in the kernel's order; both use the card's libm.
+END_RTOL = 1e-5
+ADAPTIVE_FRAC = 0.25
+MAIN_PATH = ("land_march", "rmo_delta_track", "cloud_track", "gen_rays", "frame_end",
+             "film_postprocess")
+# NVIDIA H100 SXM (NVIDIA's data sheet): HBM3 bytes/s and float32
+# operations/s outside the tensor cores, for each kernel's bound.
+PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
+# Operations per lane or pixel, counted from the kernel sources: each add,
+# multiply, divide, square root, min or max, and each expf, powf, log2f,
+# atan2f or asinf, as one operation. The peak table gives no rate for the
+# special-function unit, so a transcendental counts as the one operation it
+# is at least, and each bound below is a floor.
+# gen_rays: six threefry2x32 blocks of about 77 integer operations (20
+# rounds of add, rotate, xor; five key injections), the pinhole ray, the
+# 9-step search and 4 wavelengths: 680.
+GEN_RAYS_OPS = 680
+# atmos_march (csrc/atmos_march.cu): one density evaluation (elevation 7,
+# clamp 1, Rayleigh 6, the cheapest Mie branch 3, ozone 16) is 33; a march
+# step is a density, 33 of optical depth, in-scatter and advance, and the
+# 17 of the planet-occlusion test (rsi); a lane's setup is 22. A step whose
+# sun ray the planet does not occlude adds the atmosphere's rsi (17), the
+# step length (1), 16 sun steps of a density, optical depth and advance
+# (45 each) and the final exponential (6): 744.
+ATMOS_LANE_OPS = 22 + 64 * (33 + 33 + 17)
+ATMOS_SUN_OPS = 17 + 1 + 16 * 45 + 6
+# film_postprocess: the OpenDRT chain from /spp and the vignette to the
+# camera response and the sRGB encoding.
+FILM_OPS = 230
 
 
 def fail(msg):
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
+
+
+def bound(nbytes, ops):
+    """(ms, "bytes" or "operations"): the least time for the work on the card."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, (ops or 0) / PEAK_F32 * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def nvidia_smi_line():
@@ -120,10 +177,55 @@ def check_threefry(torch, dev):
     print("threefry: kernel header bit-equal to ops/rng.uniform on 65536 lanes x 12 draws x 3 folds")
 
 
+def capture_frame_end(torch, run):
+    """Run ``run()`` with render/frame_end.frame_end wrapped: the arguments
+    of its first call, kept (the renderer drops its references after the
+    call and neither version writes its inputs), the deposit targets only
+    by size."""
+    from digital_earth_tpu_torch.render import frame_end as fe
+
+    original = fe.frame_end
+    kept = {}
+
+    def keep(responses, pid, color, count=None, lum2=None, **kwargs):
+        if not kept:
+            kept.update(responses=responses, pid=pid, n_pix=color.shape[0],
+                        counts=count is not None, kwargs=kwargs)
+        return original(responses, pid, color, count, lum2, **kwargs)
+
+    fe.frame_end = keep
+    try:
+        run()
+    finally:
+        fe.frame_end = original
+    return kept
+
+
+def capture_tile_rays(torch, run):
+    """Run ``run()`` with render/raygen.gen_rays wrapped: the arguments of
+    its first call with a tile list, the tile list copied."""
+    from digital_earth_tpu_torch.render import raygen
+
+    original = raygen.gen_rays
+    kept = {}
+
+    def keep(*args):
+        if not kept and args[-1] is not None:
+            kept["args"] = (*args[:-1], args[-1].clone())
+        return original(*args)
+
+    raygen.gen_rays = keep
+    try:
+        run()
+    finally:
+        raygen.gen_rays = original
+    return kept
+
+
 def capture_inputs(torch, dev, atlas, luts):
     """One spp of the main path's frame with the kernels; keeps, per kernel
     call kind and bounce (0 and DEEP_BOUNCE), a copy of the arguments of the
-    call with the most active lanes."""
+    call with the most active lanes, and the frame's end-of-sweep state."""
     from digital_earth_tpu_torch.app.config_io import apply_config, load_config
     from digital_earth_tpu_torch.render import pathtracer as pt
     from digital_earth_tpu_torch.render.renderer import Renderer
@@ -166,7 +268,7 @@ def capture_inputs(torch, dev, atlas, luts):
     try:
         r = Renderer(dev, image_res=RES, atlas=atlas, luts=luts)
         apply_config(r, load_config(SCENE))
-        r.accumulate()
+        frame_end_args = capture_frame_end(torch, r.accumulate)
         torch.cuda.synchronize()
     finally:
         for name, fn in originals.items():
@@ -176,7 +278,7 @@ def capture_inputs(torch, dev, atlas, luts):
           + ", ".join(f"{k}@{b} ({captured[(k, b)][0]} active)" for k, b in sorted(captured)))
     if {k.split("/")[0] for k in kinds} != {"land_march", "rmo_delta_track", "cloud_track"}:
         fail(f"the capture frame did not reach every kernel: {kinds}")
-    return captured
+    return captured, frame_end_args
 
 
 def _t_close(torch, a, b):
@@ -243,12 +345,22 @@ def compare_kernels(torch, captured):
               f"lanes agreeing {agree:.7f} ({n - int(lane_ok.sum())} not)  "
               f"max abs err {max_abs:.3e}  max rel err {max_rel:.3e}  "
               f"kernel {ms:.3f} ms  plain {plain_ms:.1f} ms  {'ok' if ok else 'FAIL'}")
-        row = rows.setdefault(base, dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, ok=True))
+        row = rows.setdefault(base, dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, ok=True,
+                                         bytes=0, ops=None))
         row["max_abs_err"] = max(row["max_abs_err"], max_abs)
         row["ok"] = row["ok"] and ok
         if b == 0:  # the bounce-0 wavefront carries most of the frame's work
             row["ms"] += ms
             row["plain_ms"] += plain_ms
+            # each input read once, each output written once; the loops'
+            # operations depend on iteration counts this run does not see
+            n = args[1].shape[0]
+            if base == "land_march":  # topo; pos, dir, active, t_cap; t
+                row["bytes"] += args[0].numel() + 33 * n
+            elif base == "rmo_delta_track":  # keys, pos, dir, span, ext_h, active; event, t, iid
+                row["bytes"] += 65 * n
+            else:  # clouds; keys, pos, dir, span, ext_w, active; (event, t) or trans
+                row["bytes"] += args[6].numel() + 45 * n + (4 if "ratio" in kind else 8) * n
     return rows
 
 
@@ -316,10 +428,32 @@ def _apollo(renderer):
     return renderer
 
 
+def _hold_rays(torch, label, args):
+    """gen_rays against its twin on ``args``: lane keys bit-equal, the rest
+    within the stated bounds. (kernel result, dirs max abs err, ms, plain ms)."""
+    from digital_earth_tpu_torch.render import raygen
+
+    got, ms = _time_ms(torch, lambda: raygen.gen_rays(*args), 5)
+    want, plain_ms = _plain_ms(torch, lambda: raygen.gen_rays_plain(*args))
+    keys_equal = torch.equal(got.keys, want.keys)
+    dir_err = (got.dirs - want.dirs).abs().max().item()
+    wl_rel = ((got.wavelengths - want.wavelengths).abs() / want.wavelengths).max().item()
+    resp_err = (got.responses - want.responses).abs().max().item()
+    pdf_rel = ((got.pdf - want.pdf).abs() / want.pdf.abs().clamp(min=1e-6)).max().item()
+    ok = (keys_equal and dir_err <= DIR_ATOL and wl_rel <= WL_RTOL
+          and resp_err <= RESP_ATOL and pdf_rel <= PDF_RTOL)
+    print(f"gen_rays {label}: {args[3]} lanes, keys bit-equal {keys_equal}, "
+          f"dirs max abs err {dir_err:.3e}, wavelengths max rel err {wl_rel:.3e}, "
+          f"responses max abs err {resp_err:.3e}, pdf max rel err {pdf_rel:.3e}  "
+          f"kernel {ms:.3f} ms  plain {plain_ms:.1f} ms  {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"gen_rays disagrees with its plain twin ({label})")
+    return got, dir_err, ms, plain_ms
+
+
 def check_gen_rays(torch, dev, atlas, luts):
     """gen_rays against its twin on the path frame's 1920x1080 inputs and
     the 480x270 preview's: a row for the JSON line (the 1080p times)."""
-    from digital_earth_tpu_torch.render import raygen
     from digital_earth_tpu_torch.render.renderer import Renderer
 
     row = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0)
@@ -328,24 +462,16 @@ def check_gen_rays(torch, dev, atlas, luts):
         block = r.block if mode == "preview" else (1, res[1])
         args = (r._seed_key, 0, 0, res[0] * res[1], res, block, r.camera_params(), luts,
                 mode == "preview")
-        got, ms = _time_ms(torch, lambda: raygen.gen_rays(*args), 5)
-        want, plain_ms = _plain_ms(torch, lambda: raygen.gen_rays_plain(*args))
-        keys_equal = torch.equal(got.keys, want.keys)
-        dir_err = (got.dirs - want.dirs).abs().max().item()
-        wl_rel = ((got.wavelengths - want.wavelengths).abs() / want.wavelengths).max().item()
-        resp_err = (got.responses - want.responses).abs().max().item()
-        pdf_rel = ((got.pdf - want.pdf).abs() / want.pdf.abs().clamp(min=1e-6)).max().item()
-        ok = (keys_equal and dir_err <= DIR_ATOL and wl_rel <= WL_RTOL
-              and resp_err <= RESP_ATOL and pdf_rel <= PDF_RTOL)
-        print(f"gen_rays {mode} {res[0]}x{res[1]} block {block}: keys bit-equal {keys_equal}, "
-              f"dirs max abs err {dir_err:.3e}, wavelengths max rel err {wl_rel:.3e}, "
-              f"responses max abs err {resp_err:.3e}, pdf max rel err {pdf_rel:.3e}  "
-              f"kernel {ms:.3f} ms  plain {plain_ms:.1f} ms  {'ok' if ok else 'FAIL'}")
-        if not ok:
-            fail(f"gen_rays disagrees with its plain twin in {mode} mode")
+        got, dir_err, ms, plain_ms = _hold_rays(
+            torch, f"{mode} {res[0]}x{res[1]} block {block}", args)
         row["max_abs_err"] = max(row["max_abs_err"], dir_err)
         if mode == "path":
             row["ms"], row["plain_ms"] = ms, plain_ms
+            n = args[3]
+            L = got.wavelengths.shape[1]
+            # tables read once; keys, dirs, wavelengths, responses, pdf written
+            row["bytes"] = luts.cie_cdf.shape[0] * 16 + n * (16 + 12 + 20 * L)
+            row["ops"] = GEN_RAYS_OPS * n
     return row
 
 
@@ -371,13 +497,15 @@ def check_film(torch, buf, crf_curves):
             row["max_abs_err"] = max(row["max_abs_err"], err)
             if drt == "opendrt" and kind == "scalar spp":
                 row["ms"], row["plain_ms"] = ms, plain_ms
+                row["bytes"] = 24 * w * h + crf_curves.numel() * 4  # buffer in, image out
+                row["ops"] = FILM_OPS * w * h
     return row
 
 
 def preview_frame(torch, dev, atlas, luts):
     """The preview frame at 480x270: timed, its launches counted, and
     atmos_march held against its twin on the arguments of bounces 0 and 1.
-    Returns (launch counts of one frame, JSON row)."""
+    Returns (launch counts of one frame, JSON row, the frame_end arguments)."""
     from digital_earth_tpu_torch import kernels
     from digital_earth_tpu_torch.render import raymarcher
     from digital_earth_tpu_torch.render.renderer import Renderer
@@ -393,7 +521,8 @@ def preview_frame(torch, dev, atlas, luts):
 
     raymarcher.ray_march_atmos = keep
     try:
-        r.accumulate()  # warm-up, and the capture of bounces 0 and 1
+        # warm-up, and the capture of bounces 0 and 1 and of the frame's end
+        kept = capture_frame_end(torch, r.accumulate)
         r.fetch_image()
         torch.cuda.synchronize()
     finally:
@@ -441,7 +570,36 @@ def preview_frame(torch, dev, atlas, luts):
         row["max_abs_err"] = max(row["max_abs_err"], errs[0])
         if b == 0:
             row["ms"], row["plain_ms"] = ms, plain_ms
-    return counts, row
+            # 17 inputs and 2 outputs per lane; per active lane its 64 steps,
+            # and the sun march only of the steps that need it
+            n_sun = _atmos_sun_steps(torch, args)
+            print(f"atmos_march bounce 0 work: {n_sun} of {64 * n_act} steps need the "
+                  f"sun transmittance march ({n_sun / max(64 * n_act, 1):.4f})")
+            row["bytes"] = 73 * active.numel()
+            row["ops"] = ATMOS_LANE_OPS * n_act + ATMOS_SUN_OPS * n_sun
+    return counts, row, kept
+
+
+def _atmos_sun_steps(torch, args):
+    """The march steps of an atmos_march call whose sun ray the planet does
+    not occlude: the ones that run the 16-step sun transmittance. Positions
+    advance as in the plain twin; the test is the kernel's (rsi with the
+    planet, far root > 0)."""
+    from digital_earth_tpu_torch import constants as C
+    from digital_earth_tpu_torch.ops import math_utils as mu
+
+    pos, d, t_start, t_max, sun_dir = args[:5]
+    active = args[-1]
+    pos, d, sd = pos[active], d[active], sun_dir[active]
+    t0, t1 = t_start[active], t_max[active]
+    dd = ((t1 - t0) / 64)[:, None]
+    pos = pos + t0[:, None] * d
+    n = torch.zeros((), dtype=torch.int64, device=pos.device)
+    for _ in range(64):
+        _, planet_far = mu.rsi(pos, sd, C.PLANET_R)
+        n += (planet_far <= 0.0).sum()
+        pos = pos + dd * d
+    return int(n)
 
 
 def check_preview_golden(torch, dev):
@@ -497,41 +655,41 @@ def check_chunked(torch, dev, atlas, luts):
     return t_whole, t_chunked
 
 
-def check_viewer(torch, dev, atlas, luts):
-    """EarthViewer at 1920x1080 driven over HTTP on an ephemeral port.
-    Returns the launch counts of the whole viewer run."""
-    import shutil
-    import struct
-    import threading
-    import urllib.request
+class ViewerRun:
+    """An EarthViewer at 1920x1080 with its render loop and HTTP server on
+    an ephemeral port, driven over HTTP; ``close()`` stops both."""
 
-    from digital_earth_tpu_torch import kernels
-    from digital_earth_tpu_torch.app.viewer import EarthViewer
+    def __init__(self, dev, atlas, luts, name, **viewer_kwargs):
+        import shutil
+        import threading
 
-    work = os.path.join(ROOT, "build", "chip_smoke", "viewer")
-    os.makedirs(work, exist_ok=True)
-    config = os.path.join(work, "config.txt")
-    shutil.copy(SCENE, config)
-    kernels.reset_launch_counts()
-    t_start = time.time()
-    v = EarthViewer(device=dev, image_res=RES, config_path=config,
-                    screenshot_dir=os.path.join(work, "shots"), port=0, atlas=atlas, luts=luts)
-    v._running = True
-    loop = threading.Thread(target=v._render_loop, daemon=True)
-    loop.start()
-    server = v.make_server(host="127.0.0.1", port=0)
-    serve = threading.Thread(target=server.serve_forever, daemon=True)
-    serve.start()
-    url = f"http://127.0.0.1:{server.server_address[1]}"
+        from digital_earth_tpu_torch.app.viewer import EarthViewer
 
-    def get(path):
-        with urllib.request.urlopen(url + path, timeout=60) as resp:
+        work = os.path.join(ROOT, "build", "chip_smoke", name)
+        os.makedirs(work, exist_ok=True)
+        config = os.path.join(work, "config.txt")
+        shutil.copy(SCENE, config)
+        self.t_start = time.time()
+        self.v = EarthViewer(device=dev, image_res=RES, config_path=config,
+                             screenshot_dir=os.path.join(work, "shots"), port=0, atlas=atlas,
+                             luts=luts, **viewer_kwargs)
+        self.v._running = True
+        self.loop = threading.Thread(target=self.v._render_loop, daemon=True)
+        self.loop.start()
+        self.server = self.v.make_server(host="127.0.0.1", port=0)
+        threading.Thread(target=self.server.serve_forever, daemon=True).start()
+        self.url = f"http://127.0.0.1:{self.server.server_address[1]}"
+
+    def get(self, path):
+        import urllib.request
+
+        with urllib.request.urlopen(self.url + path, timeout=60) as resp:
             return resp.read()
 
-    def wait_for(pred, limit):
+    def wait_for(self, pred, limit):
         deadline = time.time() + limit
         while time.time() < deadline:
-            s = json.loads(get("/state"))
+            s = json.loads(self.get("/state"))
             if s["error"]:
                 fail(f"the viewer's render loop failed: {s['error']}")
             if pred(s):
@@ -539,26 +697,48 @@ def check_viewer(torch, dev, atlas, luts):
             time.sleep(0.01)
         fail(f"the viewer did not reach the expected state within {limit} s: {s}")
 
+    def close(self):
+        self.v._running = False
+        self.server.shutdown()
+        self.server.server_close()
+        self.loop.join(timeout=120)
+        if self.loop.is_alive():
+            fail("the viewer's render loop did not stop")
+
+
+VIEWER_KERNELS = ("land_march", "rmo_delta_track", "cloud_track", "gen_rays", "atmos_march",
+                  "film_postprocess", "frame_end")
+
+
+def check_viewer(torch, dev, atlas, luts):
+    """EarthViewer at 1920x1080 driven over HTTP on an ephemeral port.
+    Returns the launch counts of the whole viewer run."""
+    import struct
+
+    from digital_earth_tpu_torch import kernels
+
+    kernels.reset_launch_counts()
+    vs = ViewerRun(dev, atlas, luts, "viewer")
     try:
-        s = wait_for(lambda s: s["frames"] >= 1 and s["frame_source"] == "preview", 120)
-        t_first = time.time() - t_start
-        s = wait_for(lambda s: s["frame_source"] == "path" and s["spp"] >= 1, 120)
-        t_path = time.time() - t_start
+        s = vs.wait_for(lambda s: s["frames"] >= 1 and s["frame_source"] == "preview", 120)
+        t_first = time.time() - vs.t_start
+        s = vs.wait_for(lambda s: s["frame_source"] == "path" and s["spp"] >= 1, 120)
+        t_path = time.time() - vs.t_start
         time.sleep(0.5)  # into the next spp, which runs as one chunk
         frames = s["frames"]
-        v.spp_chunks = 3  # read when the spp after the input starts
+        vs.v.spp_chunks = 3  # read when the spp after the input starts
         t0 = time.time()
-        get("/input?keys=w")
-        s = wait_for(lambda s: s["frame_source"] == "preview" and s["frames"] > frames, 60)
+        vs.get("/input?keys=w")
+        s = vs.wait_for(lambda s: s["frame_source"] == "preview" and s["frames"] > frames, 60)
         latency = time.time() - t0
         preview_s = s["frame_time"]
         t0 = time.time()
-        s = wait_for(lambda s: s["frame_source"] == "path" and s["spp"] >= 1, 120)
+        s = vs.wait_for(lambda s: s["frame_source"] == "path" and s["spp"] >= 1, 120)
         t_chunked = time.time() - t0
         state_t0 = time.time()
-        get("/state")
+        vs.get("/state")
         state_s = time.time() - state_t0
-        png = get("/frame.png")
+        png = vs.get("/frame.png")
         w, h = struct.unpack(">II", png[16:24])
         print(f"viewer {RES[0]}x{RES[1]}: first preview frame after {t_first:.2f} s, first "
               f"path spp after {t_path:.2f} s; input -> new preview frame "
@@ -568,17 +748,217 @@ def check_viewer(torch, dev, atlas, luts):
         if not (png[:8] == b"\x89PNG\r\n\x1a\n" and png[12:16] == b"IHDR" and (w, h) == RES):
             fail("/frame.png is not a 1920x1080 PNG")
     finally:
-        v._running = False
-        server.shutdown()
-        server.server_close()
-        loop.join(timeout=120)
-    if loop.is_alive():
-        fail("the viewer's render loop did not stop")
+        vs.close()
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
     print(f"launches in the viewer run: {counts}")
-    if not all(v > 0 for v in counts.values()):
+    if not all(counts[k] > 0 for k in VIEWER_KERNELS):
         fail(f"a kernel of the viewer's path never launched: {counts}")
+    return counts
+
+
+def _clones(torch, r):
+    return tuple(t.clone() for t in (r.color_buffer, r.count_buffer, r.lum2_buffer))
+
+
+def check_adaptive(torch, dev, atlas, luts):
+    """Adaptive tile sampling at 1920x1080: a uniform pass bit-equal to
+    accumulate(), then 2 warm-up and 6 frac=0.25 passes, each adding exactly
+    k * tile samples. Returns the launch counts of the run, its tile-list
+    frame_end arguments, the buffers after the warm-up and after 4 adaptive
+    passes, and (block, k)."""
+    from digital_earth_tpu_torch import kernels
+    from digital_earth_tpu_torch.render.renderer import Renderer
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        fn()
+        torch.cuda.synchronize()
+        return time.time() - t0
+
+    a = _apollo(Renderer(dev, image_res=RES, atlas=atlas, luts=luts, seed=5))
+    b = _apollo(Renderer(dev, image_res=RES, atlas=atlas, luts=luts, seed=5))
+    t_acc, t_uni = [], []
+    for _ in range(2):
+        t_acc.append(timed(a.accumulate))
+        t_uni.append(timed(lambda: b.accumulate_adaptive(frac=1.0)))
+    equal = torch.equal(a.color_buffer, b.color_buffer)
+    all_two = bool((b.count_buffer == 2.0).all())
+    print(f"adaptive frac=1.0 x2 vs accumulate() x2 at {RES[0]}x{RES[1]}: color bit-equal "
+          f"{equal}, every count 2 {all_two}; accumulate {' '.join(f'{t:.3f}' for t in t_acc)} s, "
+          f"uniform pass {' '.join(f'{t:.3f}' for t in t_uni)} s")
+    if not (equal and all_two and b.current_spp == 2):
+        fail("a uniform adaptive pass is not bit-equal to accumulate()")
+    del a, b
+
+    r = _apollo(Renderer(dev, image_res=RES, atlas=atlas, luts=luts, seed=9))
+    w, h = RES
+    n_tiles = (w // r.block[0]) * (h // r.block[1])
+    k = max(1, int(n_tiles * ADAPTIVE_FRAC))
+    kernels.reset_launch_counts()
+    t_warm = [timed(lambda: r.accumulate_adaptive(frac=ADAPTIVE_FRAC)) for _ in range(2)]
+    warm_bufs = _clones(torch, r)
+    t_pass, kept, rays, after4 = [], {}, {}, None
+
+    def adaptive_pass():
+        r.accumulate_adaptive(frac=ADAPTIVE_FRAC)
+
+    for i in range(6):
+        before = r.count_buffer.double().sum().item()
+        if i == 0:  # also copies the pass's gen_rays and frame_end arguments, inside its time
+            t_pass.append(timed(lambda: rays.update(capture_tile_rays(
+                torch, lambda: kept.update(capture_frame_end(torch, adaptive_pass))))))
+        else:
+            t_pass.append(timed(adaptive_pass))
+        added = r.count_buffer.double().sum().item() - before
+        if added != k * r.tile:
+            fail(f"adaptive pass {i} added {added} samples, expected k * tile = {k * r.tile}")
+        if i == 3:
+            after4 = _clones(torch, r)
+    img = r.fetch_image()
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    ok_img = bool(torch.isfinite(img).all()) and img.min().item() >= 0.0 and img.max().item() <= 1.0
+    print(f"adaptive run {RES[0]}x{RES[1]}, block {r.block}, {n_tiles} tiles, k={k} "
+          f"({k * r.tile} lanes per pass): warm-up passes {' '.join(f'{t:.3f}' for t in t_warm)} s, "
+          f"frac={ADAPTIVE_FRAC} passes {' '.join(f'{t:.3f}' for t in t_pass)} s (the first copies "
+          f"its frame_end arguments); each added k * tile samples; mean spp {r.mean_spp:.4f}; "
+          f"fetch_image finite in [0, 1] {ok_img}; launches {counts}")
+    if not ok_img:
+        fail("fetch_image of the adaptive run is not finite within [0, 1]")
+    if not (counts["select_tiles"] == 6 * kernels.SELECT_TILES_STAGES and counts["frame_end"] == 8
+            and counts["gen_rays"] == 8):
+        fail(f"the adaptive run did not launch its kernels once per pass: {counts}")
+    tile_ids = rays["args"][-1]
+    if not (tile_ids.numel() == k and tile_ids.unique().numel() == k):
+        fail(f"the frac={ADAPTIVE_FRAC} pass traced {tile_ids.numel()} tiles, expected k={k} distinct")
+    return counts, kept, rays["args"], warm_bufs, after4, (r.block, k)
+
+
+def check_frame_end(torch, kept, label):
+    """frame_end against its twin on captured arguments, from zero buffers:
+    a JSON row (ms, plain_ms, bytes, ops)."""
+    from digital_earth_tpu_torch.render import frame_end as fe
+
+    dev = kept["pid"].device
+    n_pix = kept["n_pix"]
+
+    def buffers():
+        z = lambda *shape: torch.zeros(shape, dtype=torch.float32, device=dev)  # noqa: E731
+        return (z(n_pix, 3), z(n_pix), z(n_pix)) if kept["counts"] else (z(n_pix, 3), None, None)
+
+    def call(fn, bufs):
+        return lambda: fn(kept["responses"], kept["pid"], *bufs, **kept["kwargs"])
+
+    kb, pb = buffers(), buffers()
+    call(fe.frame_end, kb)()
+    call(fe.frame_end_plain, pb)()
+    torch.cuda.synchronize()
+    kc, pc = kb[0], pb[0]
+    atol = 1e-6 * pc.abs().max().clamp(min=1e-30)
+    ok = bool(((kc - pc).abs() <= END_RTOL * pc.abs() + atol).all())
+    err = (kc - pc).abs().max().item()
+    nz = pc != 0
+    rel = ((kc - pc).abs()[nz] / pc.abs()[nz]).max().item() if nz.any() else 0.0
+    same = (kc == pc).float().mean().item()
+    if kept["counts"]:
+        ok = ok and torch.equal(kb[1], pb[1]) and bool(
+            ((kb[2] - pb[2]).abs() <= END_RTOL * pb[2].abs() + 1e-6 * pb[2].abs().max()).all())
+    _, ms = _time_ms(torch, call(fe.frame_end, buffers()), 5)
+    _, plain_ms = _plain_ms(torch, call(fe.frame_end_plain, buffers()))
+    n, L = kept["responses"].shape[:2]
+    miss = kept["kwargs"].get("miss")
+    # each input read once, each output written once: per lane radiance,
+    # responses, pixel id and the pixel's colour read and written (with
+    # counts, count and lum2 too); per miss lane its shading inputs
+    nbytes = n * (16 * L + 8 + 24 + (16 if kept["counts"] else 0))
+    # operations (counted as for the other rows): per lane the clamp, the
+    # XYZ contraction, xyz_to_rgb and the deposit (with counts lum, +1 and
+    # lum^2); per miss lane the denominator, the sun test, the stars tap
+    # (68) and per wavelength the Planck term, the spectrum and both adds
+    ops = n * ((24 if miss is None else 10 * L + 15) + (8 if kept["counts"] else 0))
+    n_miss = 0
+    if miss is None:
+        nbytes += 4 * n
+    else:
+        n_miss = int(miss.st.primary_miss.sum())
+        # a miss lane's bilinear tap reads at most 4 RGB texels
+        stars = min(miss.atlas.stars.numel(), 4 * 3 * n_miss)
+        nbytes += n + n_miss * (12 + 16 * L) + stars + miss.luts.srgb2spec.numel() * 4
+        ops += n_miss * (81 + 34 * L)
+    print(f"frame_end {label}: {n} lanes ({n_miss} primary misses){', with counts' if kept['counts'] else ''}: "
+          f"rgb max abs err {err:.3e}, max rel err {rel:.3e}, bit-equal share {same:.6f}"
+          f"{', counts equal' if kept['counts'] else ''}  kernel {ms:.3f} ms  plain {plain_ms:.1f} ms  "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"frame_end disagrees with its plain twin ({label})")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bytes=nbytes, ops=ops)
+
+
+def check_select_tiles(torch, bufs, block, k, label):
+    """select_tiles against its twin on an adaptive run's buffers: the same
+    ids in order. A JSON row."""
+    from digital_earth_tpu_torch.render import adaptive
+
+    color, count, lum2 = bufs
+    got, ms = _time_ms(torch, lambda: adaptive.select_tiles(color, count, lum2, block, k), 5)
+    want, plain_ms = _plain_ms(torch, lambda: adaptive.select_tiles_plain(color, count, lum2, block, k))
+    equal = torch.equal(got, want)
+    w, h = count.shape
+    n_tiles = (w // block[0]) * (h // block[1])
+    print(f"select_tiles {label}: {n_tiles} tiles of {block}, k={k}: ids equal in order {equal}, "
+          f"first {got[:5].tolist()}  kernel {ms:.3f} ms  plain {plain_ms:.1f} ms  "
+          f"{'ok' if equal else 'FAIL'}")
+    if not equal:
+        fail(f"select_tiles disagrees with its plain twin ({label})")
+    # the three buffers read once, the ids written; per pixel 20 operations
+    # (luminance 5; n, the mean and its share of the frame sum 3; the score
+    # and its share of the tile sum 12) and two per comparison of the rank
+    # stage
+    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bytes=20 * w * h + 4 * k,
+                ops=20 * w * h + 2 * n_tiles * n_tiles)
+
+
+def check_adaptive_viewer(torch, dev, atlas, luts):
+    """EarthViewer(adaptive_frac=0.25, adaptive_fps=0.25) at 1920x1080 over
+    HTTP: a fractional mean spp, input in the middle of a pass answered by a
+    preview frame, the passes per frame set by the frame-rate controller."""
+    from digital_earth_tpu_torch import kernels
+
+    kernels.reset_launch_counts()
+    vs = ViewerRun(dev, atlas, luts, "viewer_adaptive", adaptive_frac=ADAPTIVE_FRAC,
+                       adaptive_fps=0.25)
+    per_frame = []
+    original = vs.v._accumulate_idle
+
+    def record(spp_per_frame):
+        per_frame.append(spp_per_frame)
+        return original(spp_per_frame)
+
+    vs.v._accumulate_idle = record
+    try:
+        s = vs.wait_for(lambda s: s["frame_source"] == "path" and s["spp"] > 2.0
+                        and s["spp"] != int(s["spp"]), 180)
+        t_frac = time.time() - vs.t_start
+        mean_spp = s["spp"]
+        time.sleep(0.3)  # into the next pass
+        frames = s["frames"]
+        t0 = time.time()
+        vs.get("/input?keys=w")
+        s = vs.wait_for(lambda s: s["frame_source"] == "preview" and s["frames"] > frames, 60)
+        latency = time.time() - t0
+        vs.wait_for(lambda s: s["frame_source"] == "path", 120)
+    finally:
+        vs.close()
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    print(f"adaptive viewer {RES[0]}x{RES[1]} (adaptive_frac={ADAPTIVE_FRAC}, adaptive_fps=0.25): "
+          f"/state spp {mean_spp} (a mean) after {t_frac:.2f} s; input -> new preview frame "
+          f"{latency * 1e3:.1f} ms (preview frame_time {s['frame_time']} s); passes per idle "
+          f"frame from the controller {per_frame}; launches {counts}")
+    if len(per_frame) < 3 or not all(counts[k] > 0 for k in VIEWER_KERNELS + ("select_tiles",)):
+        fail(f"the adaptive viewer did not run its passes and kernels: {per_frame} {counts}")
     return counts
 
 
@@ -612,7 +992,7 @@ def main():
     atlas = procedural_texture_atlas(dev, (1024, 2048), seed=7)
     print(f"procedural 1024x2048 atlas: {time.time() - t0:.1f} s")
     luts = load_spectral_luts(dev)
-    captured = capture_inputs(torch, dev, atlas, luts)
+    captured, frame_end_whole = capture_inputs(torch, dev, atlas, luts)
 
     check_golden(torch, dev)
 
@@ -665,9 +1045,28 @@ def main():
     rows["gen_rays"] = check_gen_rays(torch, dev, atlas, luts)
     rows["film_postprocess"] = check_film(torch, buf, r.crf.curves)
     del r, buf, img
-    preview_counts, rows["atmos_march"] = preview_frame(torch, dev, atlas, luts)
+    preview_counts, rows["atmos_march"], frame_end_preview = preview_frame(torch, dev, atlas, luts)
     check_chunked(torch, dev, atlas, luts)
     check_viewer(torch, dev, atlas, luts)
+
+    # --- adaptive tile sampling ------------------------------------------
+    adaptive_counts, frame_end_tiles, tile_rays, warm_bufs, after4, (block, k) = check_adaptive(
+        torch, dev, atlas, luts)
+    _, dir_err, _, _ = _hold_rays(torch, f"frac={ADAPTIVE_FRAC} tile list of {tile_rays[-1].numel()} "
+                                  f"tiles, round {tile_rays[1]}, {RES[0]}x{RES[1]}", tile_rays)
+    rows["gen_rays"]["max_abs_err"] = max(rows["gen_rays"]["max_abs_err"], dir_err)
+    del tile_rays
+    rows["frame_end"] = check_frame_end(torch, frame_end_whole, f"whole {RES[0]}x{RES[1]} frame")
+    del frame_end_whole
+    for kept, label in ((frame_end_tiles, f"frac={ADAPTIVE_FRAC} tile list"),
+                        (frame_end_preview, f"preview {PREVIEW_RES[0]}x{PREVIEW_RES[1]}")):
+        row = check_frame_end(torch, kept, label)
+        rows["frame_end"]["max_abs_err"] = max(rows["frame_end"]["max_abs_err"], row["max_abs_err"])
+    del frame_end_tiles, frame_end_preview
+    check_select_tiles(torch, warm_bufs, block, k, "after 2 warm-up passes")
+    rows["select_tiles"] = check_select_tiles(torch, after4, block, k, "after 4 adaptive passes")
+    del warm_bufs, after4
+    check_adaptive_viewer(torch, dev, atlas, luts)
 
     loaded = sorted(k for k in sys.modules
                     if k.split(".")[0] in ("jax", "jaxlib", "digital_earth_tpu"))
@@ -687,16 +1086,25 @@ def main():
                         "digital_earth_tpu/render/raymarcher.py:56"),
         "film_postprocess": ("triton", "digital_earth_tpu_torch/csrc/film_postprocess.py",
                              "digital_earth_tpu/render/film.py:438"),
+        "frame_end": ("cuda", "digital_earth_tpu_torch/csrc/frame_end.cu",
+                      "digital_earth_tpu/render/pathtracer.py:2000"),
+        "select_tiles": ("cuda", "digital_earth_tpu_torch/csrc/select_tiles.cu",
+                         "digital_earth_tpu/render/renderer.py:425"),
     }
     # launches: the main path's run, or for the preview's kernel the
-    # preview frame's run
-    launches = dict(counts, atmos_march=preview_counts["atmos_march"])
-    line = {"kernels": [
-        {"name": name, "route": route, "source": src, "replaces": rep,
-         "launches": launches[name], "max_abs_err": rows[name]["max_abs_err"],
-         "ms": rows[name]["ms"], "plain_ms": rows[name]["plain_ms"]}
-        for name, (route, src, rep) in sources.items()
-    ]}
+    # preview frame's run, for select_tiles the adaptive run's
+    launches = dict(counts, atmos_march=preview_counts["atmos_march"],
+                    select_tiles=adaptive_counts["select_tiles"])
+    entries = []
+    for name, (route, src, rep) in sources.items():
+        row = rows[name]
+        bound_ms, bound_by = bound(row["bytes"], row["ops"])
+        # no single PyTorch call computes any of these functions
+        entries.append({"name": name, "route": route, "source": src, "replaces": rep,
+                        "launches": launches[name], "max_abs_err": row["max_abs_err"],
+                        "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": bound_ms,
+                        "bound_by": bound_by, "library_ms": None})
+    line = {"kernels": entries}
     print(json.dumps(line))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {

@@ -8,7 +8,8 @@ gamma) plus config save/load ('i'/'o') and screenshots ('p'). While the
 camera moves, frames come from the preview raymarcher at a fraction of the
 resolution; once input stops they escalate to the path tracer, one spp at
 a time, polling for input between bounces: new input abandons the partial
-spp and gets a preview frame.
+spp and gets a preview frame. With ``adaptive_frac`` each idle frame is an
+adaptive pass over the noisiest tiles instead (Renderer.accumulate_adaptive).
 
 Needs nothing beyond the standard library, numpy and torch: PNG frames are
 encoded with ``zlib``, and the preview is upscaled on the device.
@@ -32,7 +33,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..render.renderer import ADAPTIVE_TODO, Renderer
+from ..render.renderer import Renderer
+from ..utils.profiling import AdaptiveSpp
 from .camera_controller import CameraController
 from .config_io import SceneConfig, apply_config, load_config, save_config, snapshot_config
 
@@ -142,6 +144,7 @@ class EarthViewer:
         preview_scale: int = 4,
         spp_chunks: int = 1,
         adaptive_frac: float = 0.0,
+        adaptive_fps: float = 0.0,
         **renderer_kwargs,
     ):
         """Without ``renderer``, builds ``Renderer(device, image_res, ...)``.
@@ -158,10 +161,15 @@ class EarthViewer:
         the wait for input; on the card each chunk pays the whole bounce
         loop's launches, so more chunks only slow convergence (PERF.md).
 
-        ``adaptive_frac`` > 0 (adaptive tile sampling) is not ported and
-        raises ``NotImplementedError``."""
-        if adaptive_frac > 0:
-            raise NotImplementedError(ADAPTIVE_TODO)
+        ``adaptive_frac`` > 0: each idle frame is one adaptive pass
+        (``accumulate_adaptive(adaptive_frac)``, polling for input between
+        bounces) that samples the noisiest ``adaptive_frac`` of the tiles
+        after a uniform warm-up; ``/state`` reports the mean samples per
+        pixel. Per-pixel counts are not tracked by chunks, so ``spp_chunks``
+        is 1.
+
+        ``adaptive_fps`` > 0: the samples (or passes) per idle frame follow
+        ``utils.profiling.AdaptiveSpp`` toward that frame rate."""
         if renderer is None:
             if device is None:
                 raise ValueError("EarthViewer needs a renderer or an explicit device")
@@ -181,7 +189,9 @@ class EarthViewer:
         self.config_path = config_path
         self.screenshot_dir = screenshot_dir
         self.port = port
-        self.spp_chunks = spp_chunks
+        self.adaptive_frac = adaptive_frac
+        self.adaptive_fps = adaptive_fps
+        self.spp_chunks = 1 if adaptive_frac > 0 else spp_chunks
         self._lock = threading.Lock()
         # serializes accumulate() against frame fetches and scene changes
         self._render_lock = threading.Lock()
@@ -259,8 +269,11 @@ class EarthViewer:
 
     def _state(self) -> dict:
         r = self.renderer
+        spp = r.current_spp
+        if self.adaptive_frac > 0 and r.count_buffer is not None:
+            spp = round(r.mean_spp, 2)  # average samples per pixel
         return {
-            "spp": r.current_spp,
+            "spp": spp,
             "paths_per_sec": self._paths_per_sec,
             "frame_source": self._frame_source,
             "frame_time": round(self._frame_time, 3),
@@ -322,9 +335,27 @@ class EarthViewer:
             self.error = repr(e)
             raise
 
+    def _accumulate_idle(self, spp_per_frame: int) -> bool:
+        """The idle frame's path-traced samples; False when input abandoned
+        a partial spp or pass (nothing of it was kept)."""
+        r = self.renderer
+        for _ in range(spp_per_frame):
+            if self.adaptive_frac > 0:
+                done = r.accumulate_adaptive(frac=self.adaptive_frac,
+                                             interrupt=self._input_pending)
+            else:
+                done = r.accumulate_interruptible(self.spp_chunks,
+                                                  interrupt=self._input_pending)
+            if not done:
+                return False
+            if self._input_pending():
+                break  # the samples landed; answer the input now
+        return True
+
     def _loop(self):
+        controller = AdaptiveSpp(target_fps=self.adaptive_fps) if self.adaptive_fps > 0 else None
+        spp_per_frame = 1
         elapsed = 0.05
-        n_pixels = self.renderer.image_res[0] * self.renderer.image_res[1]
         while self._running:
             with self._lock:
                 keys = set(self._pending_keys)
@@ -359,19 +390,17 @@ class EarthViewer:
                     continue
                 # on input, abandon the partial spp so the preview branch
                 # answers within one bounce
-                if hasattr(self.renderer, "accumulate_interruptible"):
-                    if not self.renderer.accumulate_interruptible(
-                        self.spp_chunks, interrupt=self._input_pending
-                    ):
-                        continue
-                else:
-                    self.renderer.accumulate()
+                samples0 = self.renderer.total_samples
+                if not self._accumulate_idle(spp_per_frame):
+                    continue
                 self._sync(self.renderer.color_buffer)
                 self._frame_source = "path"
                 self._snapshot_frame()
             elapsed = max(time.time() - t0, 1e-4)
             self._frame_time = elapsed
-            self._paths_per_sec = n_pixels / elapsed
+            self._paths_per_sec = (self.renderer.total_samples - samples0) / elapsed
+            if controller is not None:
+                spp_per_frame = controller.update(elapsed)
 
     def make_server(self, host: str = "0.0.0.0", port=None) -> ThreadingHTTPServer:
         """Build the HTTP server with the real request handler."""

@@ -6,7 +6,9 @@
 // stage of both the path-traced and the preview frame. Per lane:
 //   - the pixel of the lane from the tile map (tile-major lanes of
 //     (bw, bh) blocks; the path frame passes blocks of (1, H), which is
-//     pixel order), pid = pu * H + pv;
+//     pixel order), pid = pu * H + pv; with a tile list (an adaptive pass,
+//     renderer.py:304 _trace_tile_range(..., tile_ids=)), lane l lies in
+//     tile tile_ids[l / (bw * bh)];
 //   - the lane key fold(spp_key, pid);
 //   - the R3 rQMC point (host-computed, uint32 fixed point rounded to
 //     float32) plus the Cranley-Patterson shift
@@ -49,13 +51,14 @@ __global__ void gen_rays_kernel(const float* __restrict__ g,
                                 int64_t* __restrict__ keys, float* __restrict__ dirs,
                                 float* __restrict__ wavelengths,
                                 float* __restrict__ responses, float* __restrict__ pdf,
-                                int n, RayGenParams p) {
+                                const int32_t* __restrict__ tile_ids, int n, RayGenParams p) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const int64_t lane = p.lane0 + i;
   const int64_t tile = (int64_t)p.bw * p.bh;
   const int64_t nby = p.h / p.bh;
-  const int64_t tidx = lane / tile, li = lane % tile;
+  const int64_t li = lane % tile;
+  const int64_t tidx = tile_ids ? (int64_t)tile_ids[lane / tile] : lane / tile;
   const int64_t bx = tidx / nby, by = tidx % nby;
   const int64_t pu = bx * p.bw + li / p.bh;
   const int64_t pv = by * p.bh + li % p.bh;
@@ -123,10 +126,11 @@ __global__ void gen_rays_kernel(const float* __restrict__ g,
 //     cdf_max[3] (19 floats)
 // ip: spp_k0, spp_k1, pix_k0, pix_k1, lane0, w, h, bw, bh, res, n_lambdas,
 //     preview (12 int64)
+// tile_ids: int32 tile list on the device, or null for consecutive tiles
 extern "C" int de_gen_rays(const float* fp, const int64_t* ip, const float* g,
                            const float* cie_response, int64_t* keys, float* dirs,
-                           float* wavelengths, float* responses, float* pdf, int n,
-                           void* stream) {
+                           float* wavelengths, float* responses, float* pdf,
+                           const int32_t* tile_ids, int n, void* stream) {
   de::RayGenParams p;
   for (int c = 0; c < 3; ++c) {
     p.d[c] = fp[c];
@@ -153,6 +157,6 @@ extern "C" int de_gen_rays(const float* fp, const int64_t* ip, const float* g,
   p.preview = (int)ip[11];
   const int block = 128;
   de::gen_rays_kernel<<<(n + block - 1) / block, block, 0, (cudaStream_t)stream>>>(
-      g, cie_response, keys, dirs, wavelengths, responses, pdf, n, p);
+      g, cie_response, keys, dirs, wavelengths, responses, pdf, tile_ids, n, p);
   return (int)cudaGetLastError();
 }

@@ -1,7 +1,7 @@
-// Nearest equirect tap of a uint8 (H, W, C) texture at the direction of a
-// position, with the conventions of digital_earth_tpu/ops/texture.py:13-17
-// and :184-226: texel centres at (i + 0.5)/N, u wraps, v clamps, row 0 is
-// the north pole, round half to even, value/255.
+// Equirect taps of a uint8 (H, W, C) texture, with the conventions of
+// digital_earth_tpu/ops/texture.py:13-17 and :184-226: texel centres at
+// (i + 0.5)/N, u wraps, v clamps, row 0 is the north pole, value/255;
+// nearest rounds half to even, bilinear is an explicit float32 lerp.
 #pragma once
 #include <cstdint>
 
@@ -27,6 +27,44 @@ __device__ __forceinline__ void sphere_tap_nearest(
   const uint8_t* t = tex + ((size_t)iy * W + ix) * C;
 #pragma unroll
   for (int c = 0; c < C; ++c) out[c] = (float)t[c] * (1.0f / 255.0f);
+}
+
+// ops/texture.sample_dir_texture: the tap at unit direction (dx, dy, dz),
+// bilinear (sample_equirect's float32 lerp) or nearest.
+template <int C>
+__device__ __forceinline__ void dir_tap(const uint8_t* __restrict__ tex, int H, int W,
+                                        float dx, float dy, float dz, bool bilinear,
+                                        float out[C]) {
+  const float u = (atan2f(dz, -dx) / PI_F + 1.0f) / 2.0f;
+  const float v = asinf(fminf(fmaxf(dy, -1.0f), 1.0f)) / PI_F + 0.5f;
+  const float x = u * (float)W - 0.5f;
+  const float y = fminf(fmaxf((1.0f - v) * (float)H - 0.5f, 0.0f), (float)H - 1.0f);
+  if (!bilinear) {
+    int ix = (int)rintf(x) % W;
+    if (ix < 0) ix += W;
+    const int iy = min(max((int)rintf(y), 0), H - 1);
+    const uint8_t* t = tex + ((size_t)iy * W + ix) * C;
+#pragma unroll
+    for (int c = 0; c < C; ++c) out[c] = (float)t[c] * (1.0f / 255.0f);
+    return;
+  }
+  const float x0f = floorf(x), y0f = floorf(y);
+  const float tx = x - x0f, ty = y - y0f;
+  int x0 = (int)x0f % W;
+  if (x0 < 0) x0 += W;
+  const int x1 = (x0 + 1) % W;
+  const int y0 = min(max((int)y0f, 0), H - 1);
+  const int y1 = min(y0 + 1, H - 1);
+  const uint8_t* t00 = tex + ((size_t)y0 * W + x0) * C;
+  const uint8_t* t10 = tex + ((size_t)y0 * W + x1) * C;
+  const uint8_t* t01 = tex + ((size_t)y1 * W + x0) * C;
+  const uint8_t* t11 = tex + ((size_t)y1 * W + x1) * C;
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    const float v00 = (float)t00[c] * (1.0f / 255.0f), v10 = (float)t10[c] * (1.0f / 255.0f);
+    const float v01 = (float)t01[c] * (1.0f / 255.0f), v11 = (float)t11[c] * (1.0f / 255.0f);
+    out[c] = (v00 * (1.0f - tx) + v10 * tx) * (1.0f - ty) + (v01 * (1.0f - tx) + v11 * tx) * ty;
+  }
 }
 
 }  // namespace de

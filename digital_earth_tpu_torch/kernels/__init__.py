@@ -65,8 +65,15 @@ _SIGNATURES = {
     "de_atmos_march": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _F, _F, _F,
                        _F, _P],
     # float params, int64 params, g, cie_response, keys, dirs, wavelengths,
-    # responses, pdf, n, stream
-    "de_gen_rays": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P],
+    # responses, pdf, tile_ids, n, stream
+    "de_gen_rays": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P],
+    # float params, int params, radiance, responses, pdf, throughput, w_mis,
+    # lambda_pdf, wavelength, direction, primary_miss, light_dir,
+    # sun_cos_angle, stars, srgb2spec, pid, color, count, lum2, n, stream
+    "de_frame_end": [_P] * 19 + [_I, _P],
+    # float params, color, count, lum2, w, h, bw, bh, k, partial, m_bar,
+    # score, ids, stream
+    "de_select_tiles": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
     # keys, n, data, count, out, stream
     "de_threefry_uniform": [_P, _I, ctypes.c_uint, _I, _P, _P],
 }
@@ -158,6 +165,10 @@ def keys_i32(keys):
 
 def _ptr(t):
     return ctypes.c_void_p(t.data_ptr())
+
+
+def _ptr_or_null(t):
+    return None if t is None else _ptr(t)
 
 
 def land_march(topo, pos, direction, active, t_cap, scale: float, *,
@@ -270,15 +281,21 @@ def atmos_march(pos, direction, t_start, t_max, sun_dir, ext_rmo, scattering,
     return in_scatter, trans
 
 
-def gen_rays(fparams, iparams, g, cie_response, n: int, n_lambdas: int):
+def gen_rays(fparams, iparams, g, cie_response, n: int, n_lambdas: int, tile_ids=None):
     """Launch ``gen_rays`` (csrc/gen_rays.cu) for ``n`` lanes: (keys (n, 2)
     int64, dirs (n, 3), wavelengths (n, L), responses (n, L, 3), pdf (n, L)).
     ``fparams`` (19 floats) and ``iparams`` (12 ints) are laid out as the C
-    entry de_gen_rays documents (render/raygen.py builds them)."""
+    entry de_gen_rays documents (render/raygen.py builds them); ``tile_ids``
+    is an int32 tile list (lane l in tile tile_ids[l // tile]) or None."""
     dev = g.device
     res = g.shape[0]
     _check("g", g, torch.float32, (res,), dev)
     _check("cie_response", cie_response, torch.float32, (res, 3), dev)
+    if tile_ids is not None:
+        _check("tile_ids", tile_ids, torch.int32, (tile_ids.shape[0],), dev)
+        tile = iparams[7] * iparams[8]
+        if iparams[4] + n > tile_ids.shape[0] * tile:
+            raise ValueError("gen_rays: lanes beyond the tile list")
     if len(fparams) != 19 or len(iparams) != 12:
         raise ValueError("gen_rays: expected 19 float and 12 int parameters")
     keys = torch.empty((n, 2), dtype=torch.int64, device=dev)
@@ -292,10 +309,95 @@ def gen_rays(fparams, iparams, g, cie_response, n: int, n_lambdas: int):
         _launch(
             "de_gen_rays", ctypes.cast(fp, ctypes.c_void_p), ctypes.cast(ip, ctypes.c_void_p),
             _ptr(g), _ptr(cie_response), _ptr(keys), _ptr(dirs), _ptr(wavelengths),
-            _ptr(responses), _ptr(pdf), n,
+            _ptr(responses), _ptr(pdf), _ptr_or_null(tile_ids), n,
         )
         gen_rays.launches += 1
     return keys, dirs, wavelengths, responses, pdf
+
+
+def frame_end(fparams, iparams, radiance, responses, pid, color, count=None, lum2=None, *,
+              pdf=None, miss=None):
+    """Launch ``frame_end`` (csrc/frame_end.cu) for the n lanes of a frame,
+    chunk or tile list: deposit each lane's RGB into ``color`` (P, 3) at its
+    pixel ``pid`` (n,) int64, and with ``count``/``lum2`` (P,) add 1 and lum^2
+    there. The kernel uses no atomics: ``pid`` must hold distinct pixels, as
+    every pass's lanes do. Preview mode passes ``pdf`` (n, 1); path mode
+    passes ``miss``, the miss-shading inputs (throughput, w_mis, lambda_pdf,
+    wavelength, direction, primary_miss, light_direction, sun_cos_angle,
+    stars, srgb2spec). ``fparams`` (17 floats) and ``iparams`` (5 ints) are
+    laid out as de_frame_end documents (render/frame_end.py builds them)."""
+    dev = radiance.device
+    n = pid.shape[0]
+    n_l = iparams[0]
+    n_pix = color.shape[0]
+    if len(fparams) != 17 or len(iparams) != 5:
+        raise ValueError("frame_end: expected 17 float and 5 int parameters")
+    if (pdf is None) == (miss is None):
+        raise ValueError("frame_end: pass pdf (preview) or miss (path), not both")
+    if (count is None) != (lum2 is None):
+        raise ValueError("frame_end: pass count and lum2 together")
+    _check("radiance", radiance, torch.float32, (n, n_l), dev)
+    _check("responses", responses, torch.float32, (n, n_l, 3), dev)
+    _check("pid", pid, torch.int64, (n,), dev)
+    _check("color", color, torch.float32, (n_pix, 3), dev)
+    if count is not None:
+        _check("count", count, torch.float32, (n_pix,), dev)
+        _check("lum2", lum2, torch.float32, (n_pix,), dev)
+    if pdf is not None:
+        _check("pdf", pdf, torch.float32, (n, 1), dev)
+        ptrs = [_ptr(pdf)] + [None] * 10
+    else:
+        sh, sw = iparams[1], iparams[2]
+        shapes = [(n, n_l)] * 4 + [(n, 3), (n,), (3,), (), (sh, sw, 3), (300, 3)]
+        names = ("throughput", "w_mis", "lambda_pdf", "wavelength", "direction",
+                 "primary_miss", "light_direction", "sun_cos_angle", "stars", "srgb2spec")
+        dtypes = [torch.float32] * 5 + [torch.bool, torch.float32, torch.float32, torch.uint8,
+                                        torch.float32]
+        for name, t, dtype, shape in zip(names, miss, dtypes, shapes):
+            _check(name, t, dtype, shape, dev)
+        ptrs = [None] + [_ptr(t) for t in miss]
+    if n:
+        fp = (ctypes.c_float * 17)(*fparams)
+        ip = (ctypes.c_int * 5)(*iparams)
+        _launch(
+            "de_frame_end", ctypes.cast(fp, ctypes.c_void_p), ctypes.cast(ip, ctypes.c_void_p),
+            _ptr(radiance), _ptr(responses), *ptrs, _ptr(pid), _ptr(color),
+            _ptr_or_null(count), _ptr_or_null(lum2), n,
+        )
+        frame_end.launches += 1
+
+
+SELECT_TILES_STAGES = 4  # kernel launches per call (csrc/select_tiles.cu)
+
+
+def select_tiles(fparams, color, count, lum2, block, k: int):
+    """Launch ``select_tiles`` (csrc/select_tiles.cu): the (k,) int32 ids of
+    the tiles of ``block`` with the highest scores, in descending order, ties
+    to the lower id. ``color`` (W, H, 3), ``count`` and ``lum2`` (W, H);
+    ``fparams`` (5 floats) as de_select_tiles documents
+    (render/adaptive.py builds them)."""
+    dev = color.device
+    w, h = color.shape[:2]
+    bw, bh = block
+    n_tiles = (w // bw) * (h // bh)
+    _check("color", color, torch.float32, (w, h, 3), dev)
+    _check("count", count, torch.float32, (w, h), dev)
+    _check("lum2", lum2, torch.float32, (w, h), dev)
+    if len(fparams) != 5:
+        raise ValueError("select_tiles: expected 5 float parameters")
+    if not 1 <= k <= n_tiles or w % bw or h % bh:
+        raise ValueError(f"select_tiles: k={k} of {n_tiles} tiles of {block} in {w}x{h}")
+    partial = torch.empty((-(-w * h // 1024),), dtype=torch.float32, device=dev)
+    m_bar = torch.empty((1,), dtype=torch.float32, device=dev)
+    score = torch.empty((n_tiles,), dtype=torch.float32, device=dev)
+    ids = torch.empty((k,), dtype=torch.int32, device=dev)
+    fp = (ctypes.c_float * 5)(*fparams)
+    _launch(
+        "de_select_tiles", ctypes.cast(fp, ctypes.c_void_p), _ptr(color), _ptr(count),
+        _ptr(lum2), w, h, bw, bh, k, _ptr(partial), _ptr(m_bar), _ptr(score), _ptr(ids),
+    )
+    select_tiles.launches += SELECT_TILES_STAGES
+    return ids
 
 
 _film = None
@@ -359,7 +461,7 @@ def threefry_uniform(keys, data: int, count: int):
 
 
 PATH_KERNELS = (land_march, rmo_delta_track, cloud_track, gen_rays, atmos_march,
-                film_postprocess)
+                film_postprocess, frame_end, select_tiles)
 for _k in PATH_KERNELS:
     _k.launches = 0
 

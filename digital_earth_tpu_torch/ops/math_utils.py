@@ -113,10 +113,12 @@ def rsi(pos, direction, r):
     return t_near, t_far
 
 
-def sphere_uv_map(n):
-    """Equirectangular UV from a unit direction."""
-    u = (torch.atan2(n[..., 2], -n[..., 0]) / math.pi + 1.0) / 2.0
-    v = torch.asin(torch.clamp(n[..., 1], -1.0, 1.0)) / math.pi + 0.5
+def sphere_uv_map(n, pi=math.pi):
+    """Equirectangular UV from a unit direction. ``pi`` as a float32 tensor
+    makes the division a true one on a CUDA tensor too (a Python scalar
+    divisor is applied there as a multiply by its reciprocal)."""
+    u = (torch.atan2(n[..., 2], -n[..., 0]) / pi + 1.0) / 2.0
+    v = torch.asin(torch.clamp(n[..., 1], -1.0, 1.0)) / pi + 0.5
     return u, v
 
 

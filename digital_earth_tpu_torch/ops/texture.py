@@ -12,6 +12,8 @@ even (``jnp.round``); bilinear is an explicit float32 lerp.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from .math_utils import normalize, sphere_uv_map
@@ -59,6 +61,9 @@ def sample_sphere_texture(tex, pos, bilinear: bool = True):
 
 
 def sample_dir_texture(tex, direction, bilinear: bool = True):
-    """Sample an equirect texture by unit direction (stars background)."""
-    u, v = sphere_uv_map(direction)
+    """Sample an equirect texture by unit direction (stars background),
+    dividing the angles by pi as the reference and the ``frame_end`` kernel
+    do, on the CPU and on the card alike."""
+    pi = torch.tensor(math.pi, dtype=torch.float32, device=direction.device)
+    u, v = sphere_uv_map(direction, pi)
     return sample_equirect(tex, u, v, bilinear=bilinear)

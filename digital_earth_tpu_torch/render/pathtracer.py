@@ -13,7 +13,7 @@ schedule. The three per-lane loops the bounce launches live in
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass, fields
+from dataclasses import dataclass, fields, replace
 
 import torch
 
@@ -439,7 +439,10 @@ def run_bounces(st: TraceState, scene: SceneParams, atlas, luts,
 
 def shade_primary_miss(st: TraceState, scene: SceneParams, atlas, luts,
                        cfg: TraceConfig) -> TraceState:
-    """Sun disk + stars for primary-miss lanes (pathtracer.py:2000)."""
+    """Sun disk + stars for primary-miss lanes (pathtracer.py:2000), in a
+    new state (``st`` is left as it was). Valid after the last bounce: a
+    miss lane is dead from bounce 0 on, with its direction, throughput and
+    w_mis frozen."""
     final_denom = torch.clamp(mu.sum_last(st.lambda_pdf * st.w_mis), min=1e-12)[:, None]
     sun_power = sp.plancks(C.SUN_TEMPERATURE, st.wavelength)
     sun_hit = st.primary_miss & (
@@ -456,8 +459,7 @@ def shade_primary_miss(st: TraceState, scene: SceneParams, atlas, luts,
         st.throughput * stars_power * sun_power * C.STARS_SCALE / final_denom,
         0.0,
     )
-    st.radiance = radiance
-    return st
+    return replace(st, radiance=radiance)
 
 
 def finalize_radiance(st: TraceState):

@@ -9,7 +9,9 @@ Lanes are numbered in tile-major order over (bw, bh) pixel blocks
 (renderer.py:168-172, ``_tile_pixel_coords`` 469-480). The preview needs
 that order, because its random draws are keyed by tile; the path tracer
 keys every draw by pixel and runs its lanes in pixel order, which is the
-same map with blocks of (1, H).
+same map with blocks of (1, H). An adaptive pass traces a list of tiles
+(``tile_ids``, int32): lane ``l`` then lies in tile ``tile_ids[l // tile]``
+(renderer.py:304 ``_trace_tile_range(..., tile_ids=)``).
 """
 
 from __future__ import annotations
@@ -54,13 +56,16 @@ def pick_block_dims(w: int, h: int, target: int) -> Tuple[int, int]:
     return best
 
 
-def tile_pixel_coords(lane, image_res, block):
-    """(tile index, in-tile lane, pu, pv) of flat tile-major lane ids."""
+def tile_pixel_coords(lane, image_res, block, tile_ids=None):
+    """(tile index, in-tile lane, pu, pv) of flat tile-major lane ids, the
+    tiles taken from ``tile_ids`` when given."""
     _, h = image_res
     bw, bh = block
     tile = bw * bh
     nby = h // bh
     tidx, li = lane // tile, lane % tile
+    if tile_ids is not None:
+        tidx = tile_ids.to(torch.int64)[tidx]
     pu = (tidx // nby) * bw + li // bh
     pv = (tidx % nby) * bh + li % bh
     return tidx, li, pu, pv
@@ -87,13 +92,13 @@ def _cpu_camera(cam: CameraParams) -> CameraParams:
 
 
 def gen_rays_plain(base_key, spp: int, lane0: int, n: int, image_res, block,
-                   cam: CameraParams, luts, preview: bool) -> Rays:
+                   cam: CameraParams, luts, preview: bool, tile_ids=None) -> Rays:
     """Plain PyTorch twin of the ``gen_rays`` kernel for lanes
     [lane0, lane0 + n); ``base_key`` is the frame key as two ints."""
     _, h = image_res
     dev = luts.cie_cdf.device
     lane = torch.arange(lane0, lane0 + n, dtype=torch.int64, device=dev)
-    _, _, pu_i, pv_i = tile_pixel_coords(lane, image_res, block)
+    _, _, pu_i, pv_i = tile_pixel_coords(lane, image_res, block, tile_ids)
     pid = pu_i * h + pv_i
     base = torch.tensor(base_key, dtype=torch.int64, device=dev)
     keys = rng.lane_keys(rng.fold(base, spp), pid)
@@ -134,14 +139,16 @@ def kernel_params(base_key, spp: int, lane0: int, image_res, block,
 
 
 def gen_rays(base_key, spp: int, lane0: int, n: int, image_res, block,
-             cam: CameraParams, luts, preview: bool) -> Rays:
-    """Rays for lanes [lane0, lane0 + n): the plain version on a CPU render
-    device, the ``gen_rays`` kernel on a CUDA one."""
+             cam: CameraParams, luts, preview: bool, tile_ids=None) -> Rays:
+    """Rays for lanes [lane0, lane0 + n) (of the tiles ``tile_ids`` when
+    given): the plain version on a CPU render device, the ``gen_rays``
+    kernel on a CUDA one."""
     if luts.cie_cdf.device.type == "cpu":
-        return gen_rays_plain(base_key, spp, lane0, n, image_res, block, cam, luts, preview)
+        return gen_rays_plain(base_key, spp, lane0, n, image_res, block, cam, luts, preview,
+                              tile_ids)
     fparams, iparams = kernel_params(base_key, spp, lane0, image_res, block, cam,
                                      luts.cie_cdf, preview)
     return Rays(*kernels.gen_rays(
         fparams, iparams, sp.cie_g(luts.cie_cdf), luts.cie_response.contiguous(), n,
-        1 if preview else HERO_LAMBDAS,
+        1 if preview else HERO_LAMBDAS, tile_ids,
     ))

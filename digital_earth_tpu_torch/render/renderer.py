@@ -1,6 +1,7 @@
 """Progressive spectral renderer (port of digital_earth_tpu/render/renderer.py):
 ``set_*`` setters, ``accumulate()`` (one spp), ``accumulate_interruptible``
 (one spp in chunks, with an interrupt poll between chunks and bounces),
+``accumulate_adaptive`` (one pass over the noisiest tiles),
 ``fetch_image()`` / ``fetch_image_np()`` (the film chain), ``reset_framebuffer()``,
 ``save_checkpoint`` / ``load_checkpoint`` (the reference's file format).
 
@@ -10,11 +11,13 @@ deterministic single-scatter raymarcher (render/raymarcher.py).
 Schedule: the reference traces pixel blocks and compacts lane tiles
 between bounce windows for the TPU; its path-traced output does not depend
 on that layout, because every lane's randomness is keyed by its global
-pixel id (ops/rng.py). Here a frame, or a chunk of it, is one wavefront of
-lanes: rays for every lane, one bounce at a time over the live lanes
-(pathtracer.run_bounces), then each lane's radiance lands in the (W, H, 3)
-buffer at its pixel. The preview keys its draws by pixel tile, so its lanes
-follow the reference's tile-major order (render/raygen.py).
+pixel id (ops/rng.py). Here a frame, a chunk of it or an adaptive pass's
+list of tiles is one wavefront of lanes: rays for every lane, one bounce at
+a time over the live lanes (pathtracer.run_bounces), then one ``frame_end``
+that shades the misses and adds each lane's RGB into the (W, H, 3) buffer
+at its pixel (with the per-pixel count and sum of squared luminance once
+adaptive sampling is live). The preview keys its draws by pixel tile, so
+its lanes follow the reference's tile-major order (render/raygen.py).
 """
 
 from __future__ import annotations
@@ -28,35 +31,36 @@ from .. import constants as C
 
 from ..assets.luts import CRFPack, SpectralLUTs, load_crf_pack, load_spectral_luts
 from ..assets.textures import TextureAtlas, load_texture_atlas
-from ..ops import math_utils as mu
 from ..ops import rng
-from ..ops import spectral as sp
+from . import adaptive
 from . import film
+from . import frame_end as fe
 from . import pathtracer as pt
 from . import raygen
 from . import raymarcher
 from .camera import CameraParams
 from .params import SceneParams, TraceConfig, make_scene_params
 
-ADAPTIVE_TODO = (
-    "adaptive sampling (per-pixel counts) is not ported yet: ROADMAP.md, "
-    "queue A #10 and B #13"
-)
-
 
 def trace_lanes(base_key, spp: int, lane0: int, n: int, cam: CameraParams,
                 scene: SceneParams, atlas: TextureAtlas, luts: SpectralLUTs,
-                image_res, block, cfg: TraceConfig, mode: str = "path", interrupt=None):
+                image_res, block, cfg: TraceConfig, color, count=None, lum2=None,
+                mode: str = "path", interrupt=None, tile_ids=None):
     """One sample for lanes [lane0, lane0 + n) of the frame's tile-major
-    lane order over ``block``: (pid (n,), linear RGB (n, 3)), pid = pu * H + pv
-    (renderer.py:125-348; the preview branch is render_tile, 202-213). The
-    path tracer polls ``interrupt`` between bounces (pathtracer.run_bounces)."""
+    lane order over ``block`` (of the tiles ``tile_ids`` when given), added
+    into ``color`` (W * H, 3) at pixel pu * H + pv, and into ``count`` /
+    ``lum2`` (W * H,) when given (renderer.py:125-348 with the deposit of
+    503-509; the preview branch is render_tile, 202-213). The path tracer
+    polls ``interrupt`` between bounces (pathtracer.run_bounces) and raises
+    ``pathtracer.Interrupted`` before anything is deposited."""
     _, h = image_res
     preview = mode == "preview"
-    rays = raygen.gen_rays(base_key, spp, lane0, n, image_res, block, cam, luts, preview)
+    rays = raygen.gen_rays(base_key, spp, lane0, n, image_res, block, cam, luts, preview,
+                           tile_ids)
     dev = rays.dirs.device
     lane = torch.arange(lane0, lane0 + n, dtype=torch.int64, device=dev)
-    tidx, li, pu, pv = raygen.tile_pixel_coords(lane, image_res, block)
+    tidx, li, pu, pv = raygen.tile_pixel_coords(lane, image_res, block, tile_ids)
+    pid = pu * h + pv
     pos = cam.position.expand(n, 3).contiguous()
     if preview:
         spp_key = rng.fold(torch.tensor(base_key, dtype=torch.int64, device=dev), spp)
@@ -64,15 +68,16 @@ def trace_lanes(base_key, spp: int, lane0: int, n: int, cam: CameraParams,
             rng.lane_keys(spp_key, tidx), pos, rays.dirs, rays.wavelengths[:, 0],
             scene, atlas, luts, cfg, lane=li, tile=block[0] * block[1],
         )
-        xyz = radiance[:, None] * rays.responses[:, 0] * rays.pdf
-    else:
-        st = pt.init_state(pos, rays.dirs, rays.wavelengths, rays.pdf, rays.keys)
-        st = pt.run_bounces(st, scene, atlas, luts, cfg, 0, 1, interrupt)
-        st = pt.shade_primary_miss(st, scene, atlas, luts, cfg)
-        st = pt.run_bounces(st, scene, atlas, luts, cfg, 1, cfg.max_bounces, interrupt)
-        radiance = pt.finalize_radiance(st)
-        xyz = mu.sum_last(radiance[:, None, :] * rays.responses.transpose(1, 2))
-    return pu * h + pv, sp.xyz_to_rgb(xyz)
+        fe.frame_end(rays.responses, pid, color, count, lum2, radiance=radiance[:, None],
+                     pdf=rays.pdf)
+        return
+    st = pt.init_state(pos, rays.dirs, rays.wavelengths, rays.pdf, rays.keys)
+    st = pt.run_bounces(st, scene, atlas, luts, cfg, 0, cfg.max_bounces, interrupt)
+    # miss lanes die at bounce 0 with their direction, throughput and w_mis
+    # frozen, so shading them after the sweep is the reference's order
+    # (renderer.py:328-331)
+    fe.frame_end(rays.responses, pid, color, count, lum2,
+                 miss=fe.MissShading(st, scene, atlas, luts, cfg))
 
 
 class Renderer:
@@ -122,11 +127,17 @@ class Renderer:
         self._seed_key = (0, int(seed) & rng.M32)  # jax.random.PRNGKey(seed)
         self.current_spp = 0
         self.total_samples = 0
+        # the round of every lane key, shared by uniform and adaptive passes
+        # (== current_spp while only accumulate() runs)
         self._rng_round = 0
         self._adaptive_rounds = 0
         self.color_buffer = torch.zeros(
             (image_res[0], image_res[1], 3), dtype=torch.float32, device=self.device
         )
+        # adaptive sampling's per-pixel sample count and sum of squared
+        # luminance, (W, H); None until the first accumulate_adaptive
+        self.count_buffer = None
+        self.lum2_buffer = None
 
     # --- setters ------------------------------------------------------------
     def set_camera_pos(self, x, y, z):
@@ -186,6 +197,9 @@ class Renderer:
         self._rng_round = 0
         self._adaptive_rounds = 0
         self.color_buffer.zero_()
+        if self.count_buffer is not None:
+            self.count_buffer.zero_()
+            self.lum2_buffer.zero_()
 
     @property
     def mean_spp(self) -> float:
@@ -193,8 +207,63 @@ class Renderer:
         return self.total_samples / (self.image_res[0] * self.image_res[1])
 
     def accumulate(self):
-        """Trace one sample per pixel into the accumulation buffer."""
-        self.accumulate_interruptible(1)
+        """Trace one sample per pixel into the accumulation buffer (through
+        a uniform adaptive pass once per-pixel counts are live)."""
+        if self.count_buffer is not None:
+            self.accumulate_adaptive(frac=1.0)
+        else:
+            self.accumulate_interruptible(1)
+
+    def accumulate_adaptive(self, frac: float = 0.25, min_warmup: int = 2,
+                            interrupt=None) -> bool:
+        """One adaptive pass (renderer.py:662): the ``k = max(1, int(n_tiles
+        * frac))`` tiles with the highest estimated relative variance of their
+        mean (render/adaptive.select_tiles) each get one more sample per
+        pixel; the first ``min_warmup`` passes, and any with ``frac >= 1``,
+        sample every pixel. Each pixel keeps its own count, and fetch_image
+        divides by it. Keys are per (round, pixel), so a pixel's sample in a
+        round does not depend on the selection: a uniform pass equals
+        ``accumulate()`` bit for bit.
+
+        The path tracer polls ``interrupt()`` between bounces; when it
+        returns True the pass is dropped before anything is deposited (the
+        buffers and the round stay as they were) and this returns False."""
+        w, h = self.image_res
+        if self.count_buffer is None:
+            if self.current_spp:
+                raise ValueError(
+                    "adaptive accumulation must start from a reset framebuffer (per-pixel "
+                    "counts for the earlier uniform passes were not tracked)"
+                )
+            self.count_buffer = torch.zeros((w, h), dtype=torch.float32, device=self.device)
+            self.lum2_buffer = torch.zeros((w, h), dtype=torch.float32, device=self.device)
+        bw, bh = self.block
+        n_tiles = (w // bw) * (h // bh)
+        uniform = self._adaptive_rounds < min_warmup or frac >= 1.0
+        k = n_tiles if uniform else max(1, int(n_tiles * frac))
+        if k >= n_tiles:
+            # the whole frame: the path tracer's pixel order, as accumulate()
+            k, tile_ids = n_tiles, None
+            block = self.block if self.mode == "preview" else (1, h)
+        else:
+            tile_ids = adaptive.select_tiles(self.color_buffer, self.count_buffer,
+                                             self.lum2_buffer, self.block, k)
+            block = self.block
+        try:
+            trace_lanes(
+                self._seed_key, self._rng_round, 0, k * self.tile, self.camera_params(),
+                self.scene_params(), self.atlas, self.luts, self.image_res, block, self.cfg,
+                self.color_buffer.view(w * h, 3), self.count_buffer.view(-1),
+                self.lum2_buffer.view(-1), mode=self.mode, interrupt=interrupt, tile_ids=tile_ids,
+            )
+        except pt.Interrupted:
+            return False
+        self._rng_round += 1
+        self._adaptive_rounds += 1
+        self.total_samples += k * self.tile
+        if uniform:
+            self.current_spp += 1
+        return True
 
     def accumulate_interruptible(self, n_chunks: int, interrupt=None) -> bool:
         """Trace one spp in ``n_chunks`` contiguous lane ranges (pixel ids
@@ -202,39 +271,43 @@ class Renderer:
         has finished the chunk, and in path mode between bounces too; abort,
         discarding the partial spp, when it returns True. Returns whether the
         spp completed (renderer.py:719; the reference polls between chunks
-        only).
+        only). Raises ``ValueError`` while per-pixel counts are live, as the
+        reference does (use ``accumulate_adaptive`` or reset first).
 
         Every lane's randomness depends on its pixel (its tile in preview
         mode) and the round only, so the spp does not depend on the cut:
         bit-identical to ``accumulate()`` on the card."""
+        if self.count_buffer is not None:
+            raise ValueError(
+                "interruptible accumulation does not track the adaptive per-pixel counts; "
+                "use accumulate_adaptive or reset first"
+            )
         w, h = self.image_res
         total = w * h
         per = -(-total // max(1, min(int(n_chunks), total)))
         block = self.block if self.mode == "preview" else (1, h)
         cam, scene = self.camera_params(), self.scene_params()
-        # only an abortable spp needs a staging buffer: an abort must leave
-        # the accumulation buffer as it was
-        out = (self.color_buffer.view(total, 3) if interrupt is None
-               else torch.zeros((total, 3), dtype=torch.float32, device=self.device))
+        # an abort raises before the chunk's deposit, so only a spp that can
+        # be abandoned after a chunk has landed stages its chunks apart
+        staged = interrupt is not None and per < total
+        out = (torch.zeros((total, 3), dtype=torch.float32, device=self.device) if staged
+               else self.color_buffer.view(total, 3))
         for lo in range(0, total, per):
             n = min(per, total - lo)
             try:
-                pid, rgb = trace_lanes(
+                trace_lanes(
                     self._seed_key, self._rng_round, lo, n, cam, scene, self.atlas,
-                    self.luts, self.image_res, block, self.cfg, self.mode, interrupt,
+                    self.luts, self.image_res, block, self.cfg, out, mode=self.mode,
+                    interrupt=interrupt,
                 )
             except pt.Interrupted:
                 return False
-            if self.mode == "path":
-                out[lo:lo + n] += rgb  # (1, H) blocks: lane == pixel id
-            else:
-                out[pid] += rgb  # tile-major lanes, distinct pixel ids
             if interrupt is not None and lo + n < total:
                 if self.device.type == "cuda":
                     torch.cuda.current_stream(self.device).synchronize()  # releases the GIL
                 if interrupt():
                     return False
-        if interrupt is not None:
+        if staged:
             self.color_buffer += out.view(w, h, 3)
         self.current_spp += 1
         self._rng_round += 1
@@ -242,9 +315,12 @@ class Renderer:
         return True
 
     def fetch_image(self):
-        """Post-processed (W, H, 3) float sRGB."""
+        """Post-processed (W, H, 3) float sRGB; each pixel divided by its own
+        sample count once adaptive sampling is live."""
+        spp = (self.count_buffer[..., None] if self.count_buffer is not None
+               else float(self.current_spp))
         return film.postprocess(
-            self.color_buffer, float(self.current_spp), self.exposure,
+            self.color_buffer, spp, self.exposure,
             self.gamma, self.crf.curves, self.selected_crf, self.drt,
         )
 
@@ -259,7 +335,12 @@ class Renderer:
 
     # --- render-state checkpoints (renderer.py:812-853) ----------------------
     def save_checkpoint(self, path: str):
-        """Write the resumable render state in the reference's file format."""
+        """Write the resumable render state in the reference's file format,
+        with the per-pixel counts when adaptive sampling is live."""
+        extra = {}
+        if self.count_buffer is not None:
+            extra = dict(count_buffer=self.count_buffer.cpu().numpy(),
+                         lum2_buffer=self.lum2_buffer.cpu().numpy())
         np.savez_compressed(
             path,
             color_buffer=self.color_buffer.cpu().numpy(),
@@ -268,17 +349,22 @@ class Renderer:
             rng_round=self._rng_round,
             adaptive_rounds=self._adaptive_rounds,
             total_samples=self.total_samples,
+            **extra,
         )
 
     def load_checkpoint(self, path: str):
         """Resume from a checkpoint written by either renderer."""
+        f32 = dict(dtype=torch.float32, device=self.device)
         with np.load(path) as z:
-            if "count_buffer" in z:
-                raise NotImplementedError(f"checkpoint {path} holds per-pixel counts: {ADAPTIVE_TODO}")
             buf = z["color_buffer"]
             if buf.shape != (*self.image_res, 3):
                 raise ValueError(f"checkpoint buffer {buf.shape}, renderer {(*self.image_res, 3)}")
-            self.color_buffer = torch.as_tensor(buf, dtype=torch.float32).to(self.device)
+            self.color_buffer = torch.as_tensor(buf).to(**f32).contiguous()
+            if "count_buffer" in z:
+                self.count_buffer = torch.as_tensor(z["count_buffer"]).to(**f32).contiguous()
+                self.lum2_buffer = torch.as_tensor(z["lum2_buffer"]).to(**f32).contiguous()
+            else:
+                self.count_buffer = self.lum2_buffer = None
             self.current_spp = int(z["current_spp"])
             self._seed_key = tuple(int(k) for k in z["seed_key"])
             # pre-adaptive checkpoints carry no round counters

@@ -172,9 +172,10 @@ def test_main_path_uses_every_kernel_and_matches_golden(dev):
     )
     r.fetch_image()
     counts = kernels.launch_counts()
-    main_path = ("land_march", "rmo_delta_track", "cloud_track", "gen_rays", "film_postprocess")
+    main_path = ("land_march", "rmo_delta_track", "cloud_track", "gen_rays", "frame_end",
+                 "film_postprocess")
     assert all(counts[k] > 0 for k in main_path), counts
-    assert counts["atmos_march"] == 0, counts  # the preview's kernel
+    assert counts["atmos_march"] == counts["select_tiles"] == 0, counts  # other paths' kernels
     buf = r.color_buffer.cpu().numpy()
     share = np.isclose(buf, golden["color_buffer"], rtol=1e-3, atol=1e-7).all(-1).mean()
     assert share >= 0.90
@@ -254,3 +255,142 @@ def test_film_postprocess_kernel(dev, drt, per_pixel):
     assert kernels.film_postprocess.launches == before + 1
     want = film.postprocess_plain(buf, spp, 1.5, 1.2, crf, 4, drt)
     assert (got - want).abs().max().item() <= 1e-4
+
+
+# --- adaptive sampling's kernels: gen_rays from a tile list, frame_end,
+# select_tiles. Stated tolerances (kernel vs twin, same inputs, on the card):
+# gen_rays as above; frame_end RGB and lum^2 within 1e-5 relative (with a
+# floor of 1e-6 of the largest value for channels that cancel in xyz_to_rgb),
+# counts exact; select_tiles the same ids in the same order (both sum in the
+# same fixed order).
+
+
+def test_gen_rays_kernel_from_a_tile_list(dev):
+    from digital_earth_tpu_torch import kernels
+    from digital_earth_tpu_torch.render import raygen
+
+    r = _apollo_renderer(dev, (320, 180), "path")
+    bw, bh = r.block
+    n_tiles = (320 // bw) * (180 // bh)
+    ids = torch.randperm(n_tiles, generator=torch.Generator().manual_seed(2))[: n_tiles // 4]
+    ids = ids.to(torch.int32).to(dev)
+    args = ((0, 3), 5, 0, ids.numel() * bw * bh, (320, 180), r.block, r.camera_params(), r.luts,
+            False, ids)
+    before = kernels.gen_rays.launches
+    got = raygen.gen_rays(*args)
+    assert kernels.gen_rays.launches == before + 1
+    want = raygen.gen_rays_plain(*args)
+    assert torch.equal(got.keys, want.keys)
+    assert (got.dirs - want.dirs).abs().max().item() <= 1e-6
+    assert ((got.wavelengths - want.wavelengths).abs() / want.wavelengths).max().item() <= 1e-6
+
+
+def _rel_close(got, want, rtol=1e-5):
+    atol = 1e-6 * want.abs().max().clamp(min=1e-30)
+    return bool(((got - want).abs() <= rtol * want.abs() + atol).all())
+
+
+@pytest.mark.parametrize("counts", [False, True])
+def test_frame_end_kernel(dev, counts):
+    from digital_earth_tpu_torch import kernels
+    from digital_earth_tpu_torch.render import frame_end as fe
+    from digital_earth_tpu_torch.render.params import make_scene_params
+
+    g = torch.Generator().manual_seed(3)
+    n, L, n_pix = 50000, 4, 80000
+    d = torch.nn.functional.normalize(torch.randn((n, 3), generator=g), dim=-1)
+    scene = make_scene_params(dev, 1.0, -0.5)
+    d[:5000] = torch.nn.functional.normalize(
+        scene.light_direction.cpu() + 1e-3 * torch.randn((5000, 3), generator=g), dim=-1)
+    rad = torch.exp(torch.randn((n, L), generator=g) * 2 - 2)
+    rad[torch.rand((n, L), generator=g) < 0.02] = float("nan")
+    fields = dict(
+        pos=torch.zeros((n, 3)), direction=d, wavelength=torch.rand((n, L), generator=g) * 441 + 390,
+        lambda_pdf=torch.rand((n, L), generator=g) * 0.01,
+        throughput=torch.rand((n, L), generator=g) * 1.5, radiance=rad,
+        w_mis=torch.rand((n, L), generator=g) + 0.5, alive=torch.zeros(n, dtype=torch.bool),
+        primary_miss=torch.rand(n, generator=g) < 0.4, rng=torch.zeros((n, 2), dtype=torch.int64))
+    st = pt.TraceState(**{k: v.to(dev) for k, v in fields.items()})
+    atlas = build_atlas(generate_earth_textures((64, 128), seed=3), dev)
+    miss = fe.MissShading(st, scene, atlas, load_spectral_luts(dev), TraceConfig())
+    responses = (torch.rand((n, L, 3), generator=g) * 2).to(dev)
+    pid = torch.randperm(n_pix, generator=g)[:n].to(dev)
+    base = (torch.rand((n_pix, 3), generator=g) * 5).to(dev)
+    outs = []
+    for fn in (fe.frame_end, fe.frame_end_plain):
+        color = base.clone()
+        cnt = torch.ones(n_pix, device=dev) if counts else None
+        l2 = torch.ones(n_pix, device=dev) if counts else None
+        before = kernels.frame_end.launches
+        fn(responses, pid, color, cnt, l2, miss=miss)
+        outs.append((color, cnt, l2, kernels.frame_end.launches - before))
+    (kc, kn, kl, k_launch), (pc, pn, pl, p_launch) = outs
+    assert (k_launch, p_launch) == (1, 0)
+    assert _rel_close(kc, pc)
+    if counts:
+        assert torch.equal(kn, pn) and _rel_close(kl, pl)
+
+
+def test_frame_end_kernel_preview(dev):
+    from digital_earth_tpu_torch.render import frame_end as fe
+
+    g = torch.Generator().manual_seed(4)
+    n = 20000
+    rad = (torch.rand((n, 1), generator=g) * 3).to(dev)
+    resp = (torch.rand((n, 1, 3), generator=g) * 2).to(dev)
+    pdf = (torch.rand((n, 1), generator=g) * 300).to(dev)
+    pid = torch.randperm(n, generator=g).to(dev)
+    got, want = torch.zeros((n, 3), device=dev), torch.zeros((n, 3), device=dev)
+    fe.frame_end(resp, pid, got, radiance=rad, pdf=pdf)
+    fe.frame_end_plain(resp, pid, want, radiance=rad, pdf=pdf)
+    assert _rel_close(got, want)
+
+
+@pytest.mark.parametrize("res,tile_pixels", [((320, 180), 2048), ((1920, 1080), 2048)])
+def test_select_tiles_kernel(dev, res, tile_pixels):
+    from digital_earth_tpu_torch import kernels
+    from digital_earth_tpu_torch.render import adaptive, raygen
+
+    g = torch.Generator().manual_seed(5)
+    w, h = res
+    block = raygen.pick_block_dims(w, h, tile_pixels)
+    n_tiles = (w // block[0]) * (h // block[1])
+    count = torch.randint(1, 6, (w, h), generator=g).float()
+    count[: block[0], : block[1]] = 0.0  # a never-sampled tile
+    color = torch.exp(torch.randn((w, h, 3), generator=g)) * count[..., None]
+    lum2 = color.sum(-1) ** 2 / count.clamp(min=1) * (1 + torch.rand((w, h), generator=g))
+    bufs = [t.to(dev).contiguous() for t in (color, count, lum2)]
+    for k in (1, n_tiles // 4, n_tiles):
+        before = kernels.select_tiles.launches
+        got = adaptive.select_tiles(*bufs, block, k)
+        assert kernels.select_tiles.launches == before + kernels.SELECT_TILES_STAGES
+        want = adaptive.select_tiles_plain(*bufs, block, k)
+        assert got.dtype == torch.int32 and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("case", ["inf_color", "nan_color", "nan_lum2"])
+def test_select_tiles_kernel_with_nan_scores(dev, case):
+    """Non-finite buffer values give NaN scores: the kernel still writes k
+    distinct tiles in range, the same as its twin (XLA's total order)."""
+    from digital_earth_tpu_torch.render import adaptive, raygen
+
+    g = torch.Generator().manual_seed(6)
+    w, h = 320, 180
+    block = raygen.pick_block_dims(w, h, 2048)
+    n_tiles = (w // block[0]) * (h // block[1])
+    count = torch.randint(1, 6, (w, h), generator=g).float()
+    color = torch.exp(torch.randn((w, h, 3), generator=g)) * count[..., None]
+    lum2 = color.sum(-1) ** 2 / count * (1 + torch.rand((w, h), generator=g))
+    if case == "inf_color":
+        color[17, 40, 1] = float("inf")
+    elif case == "nan_color":
+        color[200, 100, 0] = float("nan")
+    else:
+        lum2[100, 50] = float("nan")
+    bufs = [t.to(dev).contiguous() for t in (color, count, lum2)]
+    assert torch.isnan(adaptive.tile_scores_plain(*bufs, block)).any()
+    for k in (1, n_tiles // 4, n_tiles):
+        got = adaptive.select_tiles(*bufs, block, k)
+        want = adaptive.select_tiles_plain(*bufs, block, k)
+        assert torch.equal(got, want)
+        assert got.unique().numel() == k and 0 <= got.min().item() and got.max().item() < n_tiles

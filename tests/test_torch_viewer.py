@@ -1,7 +1,7 @@
 """The port's viewer path on the CPU: chunked accumulation, checkpoints, the
-camera controller, PNG encoding and ``EarthViewer`` (HTTP routes, preview
-escalation, key impulses), against
-the JAX package where it has a counterpart.
+camera controller, PNG encoding, the frame-rate controller and
+``EarthViewer`` (HTTP routes, preview escalation, key impulses, adaptive
+passes), against the JAX package where it has a counterpart.
 
 - A chunked spp against the whole one: on the card the two are bit-equal
   (chip_smoke.py checks it at 1920x1080). On the CPU, PyTorch runs Sleef on
@@ -10,8 +10,10 @@ the JAX package where it has a counterpart.
   tolerance is share >= 0.99 of pixels within 1e-4 relative, with channel
   means within 1e-4 (measured: bit-equal at the test's size).
 - The viewer runs under tests/test_viewer.py's stub renderers (the same
-  scenarios as its TestViewerHTTP and TestProgressiveEscalation) and once
-  with a real port Renderer at 16x9.
+  scenarios as its TestViewerHTTP, TestProgressiveEscalation and
+  TestAdaptiveViewer) and once with a real port Renderer at 16x9. Every
+  check of the render loop's progress waits for its condition with a
+  deadline instead of asserting after a fixed sleep.
 """
 
 import json
@@ -29,6 +31,7 @@ import torch
 
 from digital_earth_tpu import constants as JC
 from digital_earth_tpu.app.camera_controller import CameraController as JaxCamera
+from digital_earth_tpu.utils import profiling as jprof
 from digital_earth_tpu_torch import __main__ as entry
 from digital_earth_tpu_torch.app.camera_controller import CameraController
 from digital_earth_tpu_torch.app.config_io import apply_config, load_config
@@ -37,7 +40,8 @@ from digital_earth_tpu_torch.assets.procgen import generate_earth_textures
 from digital_earth_tpu_torch.assets.textures import build_atlas
 from digital_earth_tpu_torch.render.params import TraceConfig
 from digital_earth_tpu_torch.render.renderer import Renderer
-from test_viewer import StubRenderer
+from digital_earth_tpu_torch.utils import profiling
+from test_viewer import AdaptiveStubRenderer, StubRenderer
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 APOLLO = os.path.join(ROOT, "scenes", "config - Apollo 11.txt")
@@ -125,13 +129,24 @@ def test_checkpoint_round_trip(atlas, tmp_path):
     assert torch.equal(r2.color_buffer, r.color_buffer)
 
 
-def test_checkpoint_with_adaptive_counts_is_refused(atlas, tmp_path):
+def test_checkpoint_with_adaptive_counts_loads(atlas, tmp_path):
     path = str(tmp_path / "adaptive.npz")
-    np.savez_compressed(path, color_buffer=np.zeros((16, 8, 3), np.float32), current_spp=2,
-                        seed_key=np.array([0, 7], np.uint32), count_buffer=np.ones((16, 8)),
-                        lum2_buffer=np.ones((16, 8)))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _mk(atlas, res=(16, 8)).load_checkpoint(path)
+    counts = np.arange(128, dtype=np.float32).reshape(16, 8) % 3 + 1
+    np.savez_compressed(path, color_buffer=np.ones((16, 8, 3), np.float32), current_spp=2,
+                        seed_key=np.array([0, 7], np.uint32), rng_round=3, adaptive_rounds=3,
+                        total_samples=int(counts.sum()), count_buffer=counts,
+                        lum2_buffer=np.full((16, 8), 0.5, np.float32))
+    r = _mk(atlas, res=(16, 8))
+    r.load_checkpoint(path)
+    assert (r.current_spp, r._rng_round, r._adaptive_rounds) == (2, 3, 3)
+    assert r.count_buffer.dtype == torch.float32
+    np.testing.assert_array_equal(r.count_buffer.numpy(), counts)
+    assert r.mean_spp == pytest.approx(counts.mean())
+    with pytest.raises(ValueError, match="adaptive"):
+        r.accumulate_interruptible(1)
+    assert r.accumulate_adaptive(frac=0.25)
+    assert r.count_buffer.sum().item() == counts.sum() + r.tile * max(
+        1, int((16 // r.block[0]) * (8 // r.block[1]) * 0.25))
 
 
 # --- the camera controller against the JAX class (test_app.py:59-105) -------
@@ -200,17 +215,51 @@ def test_render_offline_preview_writes_png(atlas, tmp_path):
     assert _decode_png(out.read_bytes())[:2] == (16, 9)
 
 
-@pytest.mark.parametrize("flag", ["--adaptive", "--multichip"])
-def test_entry_point_refuses_unported_flags(flag, capsys):
-    assert entry.main([flag]) == 2
+def test_entry_point_refuses_unported_flags(capsys):
+    assert entry.main(["--multichip"]) == 2
     assert "ROADMAP.md" in capsys.readouterr().err
+
+
+def test_entry_point_adaptive_starts_an_adaptive_viewer(monkeypatch):
+    from digital_earth_tpu_torch.app import viewer as viewer_mod
+
+    made = []
+
+    class Recorder:
+        def __init__(self, **kwargs):
+            made.append(kwargs)
+
+        def start(self):
+            made.append("started")
+
+    monkeypatch.setattr(viewer_mod, "EarthViewer", Recorder)
+    assert entry.main(["--adaptive", "--port", "8123"]) == 0
+    assert made == [dict(device="cuda", image_res=(1920, 1080), port=8123,
+                         adaptive_frac=0.25), "started"]
 
 
 def test_viewer_needs_a_renderer_or_a_device():
     with pytest.raises(ValueError, match="device"):
         EarthViewer(renderer=None)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        EarthViewer(renderer=StubRenderer(), adaptive_frac=0.25)
+
+
+def test_viewer_accepts_adaptive_frac(tmp_path):
+    v = EarthViewer(renderer=AdaptiveStubRenderer(), adaptive_frac=0.25, adaptive_fps=5.0,
+                    spp_chunks=4, config_path=str(tmp_path / "config.txt"),
+                    screenshot_dir=str(tmp_path / "shots"), port=0)
+    assert (v.adaptive_frac, v.adaptive_fps, v.spp_chunks) == (0.25, 5.0, 1)
+
+
+# --- the frame-rate controller against the JAX classes -----------------------
+
+
+@pytest.mark.parametrize("target_fps,max_spp", [(20.0, 6), (2.0, 64)])
+def test_adaptive_spp_matches_jax(target_fps, max_spp):
+    """AdaptiveSpp on a scripted sequence of frame times, step for step."""
+    elapsed = [0.01, 0.02, 0.5, 0.03, 0.2, 0.001, 1.5, 0.04, 0.04, 0.3, 0.7, 0.05]
+    port = profiling.AdaptiveSpp(target_fps=target_fps, max_spp=max_spp)
+    ref = jprof.AdaptiveSpp(target_fps=target_fps, max_spp=max_spp)
+    assert [port.update(e) for e in elapsed] == [ref.update(e) for e in elapsed]
 
 
 # --- EarthViewer over HTTP ----------------------------------------------------
@@ -239,9 +288,25 @@ def _get(v, path):
         return r.read()
 
 
+class PortStub(StubRenderer):
+    """The uniform stub with the port's surface: ``total_samples`` and an
+    abortable spp that polls the interrupt once."""
+
+    def __init__(self, image_res=(16, 9)):
+        super().__init__(image_res)
+        self.total_samples = 0
+
+    def accumulate_interruptible(self, n_chunks, interrupt=None):
+        if interrupt is not None and interrupt():
+            return False
+        self.accumulate()
+        self.total_samples += self.image_res[0] * self.image_res[1]
+        return True
+
+
 @pytest.fixture()
 def viewer(tmp_path):
-    v = EarthViewer(renderer=StubRenderer(), config_path=str(tmp_path / "config.txt"),
+    v = EarthViewer(renderer=PortStub(), config_path=str(tmp_path / "config.txt"),
                     screenshot_dir=str(tmp_path / "shots"), port=0)
     loop, server = _serve(v)
     yield v
@@ -250,7 +315,7 @@ def viewer(tmp_path):
 
 @pytest.fixture()
 def esc_viewer(tmp_path):
-    v = EarthViewer(renderer=StubRenderer(image_res=(32, 18)),
+    v = EarthViewer(renderer=PortStub(image_res=(32, 18)),
                     config_path=str(tmp_path / "config.txt"),
                     screenshot_dir=str(tmp_path / "shots"), port=0)
     v.preview_renderer = StubRenderer(image_res=(8, 5))
@@ -259,8 +324,16 @@ def esc_viewer(tmp_path):
     _stop(v, loop, server)
 
 
+def _wait(pred, limit=10.0):
+    """Poll ``pred`` until it holds or ``limit`` seconds pass; its last value."""
+    deadline = time.time() + limit
+    while not pred() and time.time() < deadline:
+        time.sleep(0.01)
+    return pred()
+
+
 def test_viewer_state_reports_accumulation(viewer):
-    time.sleep(0.2)
+    assert _wait(lambda: json.loads(_get(viewer, "/state"))["spp"] > 0)
     state = json.loads(_get(viewer, "/state"))
     assert state["spp"] > 0 and state["crf_name"] == "Neutral" and state["error"] is None
 
@@ -279,9 +352,8 @@ def test_viewer_slider_resets_but_exposure_does_not(viewer):
 def test_viewer_keys_move_the_camera(viewer):
     p0 = viewer.camera.position.copy()
     _get(viewer, "/input?keys=w")
-    time.sleep(0.3)
+    assert _wait(lambda: not np.array_equal(viewer.camera.position, p0))
     _get(viewer, "/input?keys=")
-    assert not np.array_equal(viewer.camera.position, p0)
 
 
 def test_viewer_save_load_and_screenshot(viewer):
@@ -306,8 +378,8 @@ def test_viewer_bad_requests(viewer):
 
 
 def test_viewer_idle_frames_are_path_traced(esc_viewer):
-    time.sleep(0.3)
-    assert esc_viewer._frame_source == "path" and esc_viewer.renderer.current_spp > 0
+    assert _wait(lambda: esc_viewer._frame_source == "path"
+                 and esc_viewer.renderer.current_spp > 0)
 
 
 def test_viewer_scene_change_previews_then_escalates(esc_viewer):
@@ -319,8 +391,7 @@ def test_viewer_scene_change_previews_then_escalates(esc_viewer):
         time.sleep(0.01)
     assert esc_viewer.preview_renderer.resets > p0
     assert esc_viewer.preview_renderer.sun_angle == pytest.approx(esc_viewer.renderer.sun_angle)
-    time.sleep(0.4)
-    assert esc_viewer._frame_source == "path"
+    assert _wait(lambda: esc_viewer._frame_source == "path")
 
 
 def test_viewer_key_impulse_ends_motion(esc_viewer):
@@ -362,6 +433,106 @@ def test_viewer_with_a_port_renderer(atlas, tmp_path):
             time.sleep(0.05)
         assert s["error"] is None and s["spp"] >= 1 and sources == {"preview", "path"}, s
         assert _decode_png(_get(v, "/frame.png"))[:2] == (16, 9)
+        frames = s["frames"]
+        _get(v, "/input?keys=w")
+        deadline = time.time() + 120
+        while time.time() < deadline:
+            s = json.loads(_get(v, "/state"))
+            if s["frame_source"] == "preview" and s["frames"] > frames:
+                break
+            time.sleep(0.02)
+        assert s["frame_source"] == "preview" and s["frames"] > frames, s
+    finally:
+        _stop(v, loop, server)
+
+
+# --- adaptive passes in the viewer (test_viewer.py:224-283) --------------------
+
+
+class PortAdaptiveStub(AdaptiveStubRenderer):
+    """The adaptive stub with the port's interrupt poll between bounces."""
+
+    def __init__(self, image_res=(16, 9)):
+        super().__init__(image_res)
+        self.polls = 0
+
+    def accumulate_adaptive(self, frac=0.25, min_warmup=2, interrupt=None):
+        if interrupt is not None:
+            self.polls += 1
+            if interrupt():
+                return False
+        super().accumulate_adaptive(frac, min_warmup)
+        return True
+
+
+@pytest.fixture()
+def ada_viewer(tmp_path):
+    v = EarthViewer(renderer=PortAdaptiveStub(), config_path=str(tmp_path / "config.txt"),
+                    screenshot_dir=str(tmp_path / "shots"), port=0, adaptive_frac=0.25)
+    loop, server = _serve(v)
+    yield v
+    _stop(v, loop, server)
+
+
+def test_adaptive_viewer_idle_frames_are_adaptive_passes(ada_viewer):
+    assert _wait(lambda: ada_viewer.renderer.adaptive_calls > 2)
+    assert ada_viewer.spp_chunks == 1
+    assert ada_viewer.renderer.polls >= ada_viewer.renderer.adaptive_calls
+
+
+def test_adaptive_viewer_state_reports_mean_spp(ada_viewer):
+    assert _wait(lambda: json.loads(_get(ada_viewer, "/state"))["paths_per_sec"] > 0)
+    s = json.loads(_get(ada_viewer, "/state"))
+    # the mean samples per pixel (a quarter of the pixels per pass), not the
+    # pass count
+    assert s["spp"] == pytest.approx(ada_viewer.renderer.mean_spp, abs=0.5)
+
+
+def test_adaptive_fps_sets_the_passes_per_frame(tmp_path):
+    class SlowStub(PortAdaptiveStub):
+        def accumulate_adaptive(self, frac=0.25, min_warmup=2, interrupt=None):
+            time.sleep(0.004)
+            return super().accumulate_adaptive(frac, min_warmup, interrupt)
+
+    v = EarthViewer(renderer=SlowStub(), config_path=str(tmp_path / "config.txt"),
+                    screenshot_dir=str(tmp_path / "shots"), port=0, adaptive_frac=0.25,
+                    adaptive_fps=10.0)
+    seen = []
+    original = v._accumulate_idle
+
+    def record(spp_per_frame):
+        seen.append(spp_per_frame)
+        return original(spp_per_frame)
+
+    v._accumulate_idle = record
+    loop, server = _serve(v)
+    try:
+        # a 0.1 s frame budget and ~5 ms passes: the controller adds a pass
+        # per frame, so frames come to hold several
+        assert _wait(lambda: max(seen, default=1) >= 3), seen
+    finally:
+        _stop(v, loop, server)
+    assert seen[0] == 1
+
+
+def test_adaptive_viewer_with_a_port_renderer(atlas, tmp_path):
+    """A real port Renderer at 16x9 under adaptive_frac: after the uniform
+    warm-up the mean spp goes fractional, and input gets a preview frame."""
+    config = tmp_path / "config.txt"
+    config.write_text(open(APOLLO).read())
+    r = Renderer("cpu", image_res=(16, 9), atlas=atlas, cfg=SMALL, tile_pixels=16)
+    v = EarthViewer(renderer=r, config_path=str(config), screenshot_dir=str(tmp_path / "shots"),
+                    port=0, adaptive_frac=0.25)
+    loop, server = _serve(v)
+    try:
+        deadline = time.time() + 120
+        while time.time() < deadline:
+            s = json.loads(_get(v, "/state"))
+            if s["frame_source"] == "path" and s["spp"] > 2:
+                break
+            time.sleep(0.05)
+        assert s["error"] is None and s["spp"] > 2 and s["spp"] != int(s["spp"]), s
+        assert r._adaptive_rounds >= 3 and r.count_buffer.min().item() >= 2
         frames = s["frames"]
         _get(v, "/input?keys=w")
         deadline = time.time() + 120

@@ -11,35 +11,52 @@ failure (exit code 1):
 1. toolchain: torch, CUDA, nvcc, Triton versions and the card
    (``nvidia-smi --query-gpu=name,power.limit``);
 2. builds the kernels of ``digital_earth_tpu_torch/csrc`` with nvcc for
-   sm_90a (timed);
-3. holds the threefry header bit for bit against the plain ``uniform``;
+   sm_90a (timed), and prints ptxas's registers and spills of ``bounce``
+   and ``compact_lanes``;
+3. holds the threefry header bit for bit against the plain ``uniform``,
+   and times it at the frame's shape;
 4. renders one spp of the main path's frame (Apollo 11, 1920x1080, default
-   ``TraceConfig()``) and keeps, per kernel call kind, the arguments the
-   bounce gave the kernel wrapper at bounce 0 and at bounce DEEP_BOUNCE;
-5. checks the port against the committed 32x18 golden render on the card;
+   ``TraceConfig()``) through the kernels, keeping the bounce's full input
+   state and live list at bounce 0 and at bounce DEEP_BOUNCE and the alive
+   vectors the deepest bounce's compaction saw; then runs the bounce's
+   plain twin on the card on each kept state (its loops launch the tracker
+   kernels) and keeps, per tracker call kind, the arguments of the call
+   with the most active lanes, and bounce 0's table-lookup arguments;
+5. checks the port against the committed 32x18 golden render on the card,
+   through the kernel path;
 6. the main path: ``render_offline`` of "scenes/config - Apollo 11.txt" at
    1920x1080, default ``TraceConfig()``, procedural 1024x2048 atlas, 1
-   warm-up + 2 timed spp, with every kernel's launch count > 0 and a finite
-   buffer of positive mean;
-7. holds each kernel against its plain PyTorch twin on the arguments kept in
-   phase 4, lane by lane, and times both.
+   warm-up + 2 timed spp: ``bounce`` and ``compact_lanes`` launch on every
+   bounce, ``land_march``, ``rmo_delta_track`` and ``cloud_track`` never
+   (their loops run inside ``bounce``), every other path kernel at least
+   once, a finite buffer of positive mean;
+7. holds each tracker kernel against its plain twin on the arguments kept
+   in phase 4, lane by lane, and times both;
+8. ``bounce`` against its plain twin on the states of bounces 0 and
+   DEEP_BOUNCE (outcome and values lane by lane, gates below);
+   ``compact_lanes`` bit-equal to its twin on the alive vectors of bounces
+   0, DEEP_BOUNCE and the deepest reached (timed beside
+   ``torch.argsort(stable=True)``); ``density_check`` (the bounce's table
+   lookups) against the plain lookups on bounce 0's flight segments and NEE
+   origins, and the bounce's sphere taps against the plain tap at bounce 0's
+   surface points (both through test launchers, timed).
 
 The viewer's path (each run with the launch counts set to 0 just before it
 and read just after):
 
-8.  ``gen_rays`` against its plain twin on the 1920x1080 path-mode and the
+9.  ``gen_rays`` against its plain twin on the 1920x1080 path-mode and the
     480x270 preview-mode inputs: lane keys bit-equal, the rest within the
     stated bounds;
-9.  ``film_postprocess`` (Triton) against its twin on the phase-6 buffer,
+10. ``film_postprocess`` (Triton) against its twin on the phase-6 buffer,
     OpenDRT and AgX, a scalar spp and a per-pixel count;
-10. the preview frame: Apollo 11 at 480x270 (the viewer's preview of a
+11. the preview frame: Apollo 11 at 480x270 (the viewer's preview of a
     1920x1080 view), ``accumulate`` + ``fetch_image``, with ``atmos_march``
     and ``land_march`` launched; ``atmos_march`` against its twin on the
     arguments of bounces 0 and 1, lane by lane; the committed preview
     golden (32x18) on the card;
-11. ``accumulate_interruptible(9)`` at 1920x1080 bit-equal to
+12. ``accumulate_interruptible(9)`` at 1920x1080 bit-equal to
     ``accumulate()`` for the same seed and round;
-12. ``EarthViewer`` at 1920x1080 on an ephemeral port, driven over HTTP:
+13. ``EarthViewer`` at 1920x1080 on an ephemeral port, driven over HTTP:
     a preview frame, then a path frame with spp >= 1, a new preview frame
     after ``/input?keys=w`` sent in the middle of a path spp (which polls
     for input between bounces; latency printed), then with 3 chunks per
@@ -47,25 +64,33 @@ and read just after):
 
 Adaptive tile sampling (Apollo 11 at 1920x1080, default ``TraceConfig()``):
 
-13. two ``accumulate_adaptive(frac=1.0)`` passes bit-equal to two
+14. two ``accumulate_adaptive(frac=1.0)`` passes bit-equal to two
     ``accumulate()`` calls, every count 2;
-14. the adaptive run: 2 warm-up passes and 6 passes at frac=0.25, each
+15. the adaptive run: 2 warm-up passes and 6 passes at frac=0.25, each
     adding exactly k * tile samples, pass and uniform-spp times printed,
     ``fetch_image`` finite within [0, 1]; ``gen_rays`` against its twin on
     the first frac=0.25 pass's own arguments (its list of k tiles);
-15. ``frame_end`` against its plain twin on the 1920x1080 frame's
+16. ``frame_end`` against its plain twin on the 1920x1080 frame's
     end-of-sweep state (phase 4), on a frac=0.25 pass's tile list with
     counts, and on the 480x270 preview frame's lanes;
-16. ``select_tiles`` against its plain twin on the buffers after the
+17. ``select_tiles`` against its plain twin on the buffers after the
     warm-up and after 4 adaptive passes: the same tile ids in order;
-17. ``EarthViewer(adaptive_frac=0.25, adaptive_fps=0.25)`` over HTTP: the
+18. ``EarthViewer(adaptive_frac=0.25, adaptive_fps=0.25)`` over HTTP: the
     mean spp goes fractional, input in the middle of a pass reaches a new
     preview frame (latency printed), the frame-rate controller sets the
     passes per frame.
 
+Last, since a profiler session can slow the launches after it:
+
+19. Apollo 11, florida and sunset hurricane at 1920x1080, default
+    ``TraceConfig()``: s/spp (1 warm-up, 1 timed), then one spp under
+    ``torch.profiler``: device kernels per spp (at most
+    MAX_KERNELS_PER_SPP), the device-busy share, the kernels with the most
+    device time.
+
 The line before the last is the card's name and power limit; before it, one
 JSON line lists each kernel with its launches (``select_tiles`` makes four
-per call), error, times and bound (the least time the card could take: the
+per call, ``compact_lanes`` three, counted as one), error, times and bound (the least time the card could take: the
 larger of the bytes it must move at 3.35 TB/s and the operations at 67
 TFLOP/s, counted from this run's inputs, a transcendental as one
 operation). The last line is {"ok": true, "device": {...}}.
@@ -99,8 +124,41 @@ PREVIEW_RES = (480, 270)  # the viewer's preview (preview_scale=4) of RES
 # rounds op by op in the kernel's order; both use the card's libm.
 END_RTOL = 1e-5
 ADAPTIVE_FRAC = 0.25
-MAIN_PATH = ("land_march", "rmo_delta_track", "cloud_track", "gen_rays", "frame_end",
-             "film_postprocess")
+# bounce vs its twin: the share of live lanes with the same alive,
+# primary_miss and work_class, and the share that also has pos, throughput,
+# radiance and w_mis within BOUNCE_RTOL (atol 1e-6 of each field's largest
+# value) and a direction within DIR_ANGLE (absolute, per component: a unit
+# vector's error is an angle). Kernel and twin draw the same numbers and
+# round op by op alike, so a lane's outcome differs only where an event or a
+# march hit sits within an ulp of its threshold. The directions of cloud
+# scatters that take the Draine lobe are the exception: float32 powf's last
+# bit differs between PyTorch's build and the kernel's (13% of such lanes),
+# the inverse CDF's cancellation turns that into up to 1e-6 in cos(theta),
+# and near back-scatter 1 / sin(theta) ~ 100 multiplies it (8.8e-5 measured
+# at bounce 3; the CPU tests hold the same sampler to JAX within 6e-4).
+BOUNCE_AGREEMENT = 1.0 - 1e-4
+BOUNCE_RTOL = 1e-4
+DIR_ANGLE = 2e-4
+DENSITY_RTOL = 1e-4  # density_check vs the plain lookups (atol 1e-6 of the max)
+# sphere tap vs ops/texture.sample_sphere_texture: both round the angles
+# (times float32(1/pi), as the twin's CUDA ops apply its Python divisor) and
+# the lerp op by op alike, so they agree to the last bit but for libm's
+# atan2f/asinf
+TAP_ATOL = 1e-5
+MAX_KERNELS_PER_SPP = 300
+MAIN_PATH = ("bounce", "compact_lanes", "gen_rays", "frame_end", "film_postprocess")
+# kernels whose loops now run inside bounce: none of their own launches on
+# the path tracer's run (held against their twins in their own phase)
+INLINED = ("land_march", "rmo_delta_track", "cloud_track")
+OTHER_SCENES = ("config - florida.txt", "config - sunset hurricane.txt")
+# bounce's bytes per live lane: its state read (pos, dir, wavelengths,
+# lambda_pdf, throughput, radiance, w_mis, flags, work class, keys, list
+# entry: 122 B) and written (pos, dir, throughput, radiance, w_mis, flags,
+# work class: 78 B). The textures and the density table are inputs read at
+# most once each, but which of their texels a run touches depends on the
+# loops' trip counts, which this run does not observe: they are not
+# counted, and the bound is a floor (as the lookup launchers' below)
+BOUNCE_LANE_BYTES = 122 + 78
 # NVIDIA H100 SXM (NVIDIA's data sheet): HBM3 bytes/s and float32
 # operations/s outside the tensor cores, for each kernel's bound.
 PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
@@ -175,6 +233,20 @@ def check_threefry(torch, dev):
         if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
             fail(f"threefry header disagrees with ops/rng.uniform (data={data})")
     print("threefry: kernel header bit-equal to ops/rng.uniform on 65536 lanes x 12 draws x 3 folds")
+    # at the bounce's shape: one site's key and its three draws (the phase
+    # sample) for every lane of a 1080p frame
+    n = RES[0] * RES[1]
+    keys = rng.lane_keys(rng.prng_key(7, dev), torch.arange(n, device=dev))
+    got, ms = _time_ms(torch, lambda: kernels.threefry_uniform(keys, 4, 3), 5)
+    want, plain_ms = _plain_ms(torch, lambda: rng.uniform(rng.fold(keys, 4), (3,)))
+    equal = torch.equal(got.view(torch.int32), want.view(torch.int32))
+    # keys read (8 B) and 3 draws written per lane; 4 threefry blocks of 77
+    # integer operations
+    b_ms, b_by = bound(20 * n, 4 * 77 * n)
+    print(f"threefry {n} lanes, a fold and 3 draws: bit-equal {equal}  kernel {ms:.3f} ms  "
+          f"plain {plain_ms:.2f} ms  bound {b_ms:.4f} ms ({b_by})  {'ok' if equal else 'FAIL'}")
+    if not equal:
+        fail("threefry header disagrees with ops/rng.uniform at the frame's shape")
 
 
 def capture_frame_end(torch, run):
@@ -222,27 +294,58 @@ def capture_tile_rays(torch, run):
     return kept
 
 
+def _clone_state(st):
+    from digital_earth_tpu_torch.render import pathtracer as pt
+
+    return pt.TraceState(**{k: v.clone() for k, v in vars(st).items()})
+
+
 def capture_inputs(torch, dev, atlas, luts):
-    """One spp of the main path's frame with the kernels; keeps, per kernel
-    call kind and bounce (0 and DEEP_BOUNCE), a copy of the arguments of the
-    call with the most active lanes, and the frame's end-of-sweep state."""
+    """One spp of the main path's frame through the kernels. Keeps the
+    bounce's full input state and live list at bounce 0 and DEEP_BOUNCE,
+    the alive vectors the deepest bounce's compaction saw, and the frame's
+    end-of-sweep state. Then runs the bounce's plain twin on the card on each
+    kept state (its tracker calls launch the tracker kernels), keeping its
+    output and, per tracker call kind, a copy of the arguments of the call
+    with the most active lanes, bounce 0's arguments of the two table
+    lookups (the flight's segment integrals, the NEE origins' transmittance)
+    and its surface points (the material tap's). Returns (tracker arguments, bounce states, deepest alive vectors, lookup
+    arguments, frame_end arguments)."""
     from digital_earth_tpu_torch.app.config_io import apply_config, load_config
     from digital_earth_tpu_torch.render import pathtracer as pt
     from digital_earth_tpu_torch.render.renderer import Renderer
 
-    captured = {}
+    states, deepest = {}, {}
+    run_bounce = pt.run_bounce
+
+    def keep_state(st, idx, b, *args):
+        deepest.update(bounce=b, alive=st.alive.clone(), work_class=st.work_class.clone())
+        if b in (0, DEEP_BOUNCE):
+            states[b] = dict(st=_clone_state(st), idx=idx.clone(), args=args[:4])
+        return run_bounce(st, idx, b, *args)
+
+    pt.run_bounce = keep_state
+    try:
+        r = Renderer(dev, image_res=RES, atlas=atlas, luts=luts)
+        apply_config(r, load_config(SCENE))
+        frame_end_args = capture_frame_end(torch, r.accumulate)
+        torch.cuda.synchronize()
+    finally:
+        pt.run_bounce = run_bounce
+    if set(states) != {0, DEEP_BOUNCE}:
+        fail(f"the capture frame did not reach bounce {DEEP_BOUNCE}: {sorted(states)}")
+
+    captured, lookups = {}, {}
     state = {"bounce": None}
     originals = {name: getattr(pt, name) for name in
-                 ("intersect_land", "delta_track_rmo", "track_cloud", "run_bounce")}
+                 ("intersect_land", "delta_track_rmo", "track_cloud", "spectral_flight_weights",
+                  "sample_transmittance", "get_land_material")}
+    copy = lambda x: x.clone() if isinstance(x, torch.Tensor) else x  # noqa: E731
 
     def keep(kind, args, kwargs, active):
-        b = state["bounce"]
-        if b not in (0, DEEP_BOUNCE):
-            return
-        key = (kind, b)
+        key = (kind, state["bounce"])
         n_act = int(active.sum())
         if key not in captured or n_act > captured[key][0]:
-            copy = lambda x: x.clone() if isinstance(x, torch.Tensor) else x  # noqa: E731
             captured[key] = (n_act, tuple(map(copy, args)),
                              {k: copy(v) for k, v in kwargs.items()})
 
@@ -259,26 +362,40 @@ def capture_inputs(torch, dev, atlas, luts):
         keep(f"cloud_track/{kwargs['mode']}", args, kwargs, args[7])
         return originals["track_cloud"](*args, **kwargs)
 
-    def bounce(st, b, *args, **kwargs):
-        state["bounce"] = b
-        return originals["run_bounce"](st, b, *args, **kwargs)
+    def flight(*args):
+        if state["bounce"] == 0:
+            lookups["flight"] = tuple(map(copy, args))
+        return originals["spectral_flight_weights"](*args)
 
-    pt.intersect_land, pt.delta_track_rmo, pt.track_cloud, pt.run_bounce = (
-        land, rmo, cloud, bounce)
+    def nee(*args):
+        if state["bounce"] == 0:
+            lookups["nee"] = tuple(map(copy, args))
+        return originals["sample_transmittance"](*args)
+
+    def material(atlas_, land_pos, bilinear=True):
+        if state["bounce"] == 0:
+            lookups["surface"] = land_pos.clone()
+        return originals["get_land_material"](atlas_, land_pos, bilinear)
+
+    (pt.intersect_land, pt.delta_track_rmo, pt.track_cloud, pt.spectral_flight_weights,
+     pt.sample_transmittance, pt.get_land_material) = (land, rmo, cloud, flight, nee, material)
     try:
-        r = Renderer(dev, image_res=RES, atlas=atlas, luts=luts)
-        apply_config(r, load_config(SCENE))
-        frame_end_args = capture_frame_end(torch, r.accumulate)
+        for b, c in sorted(states.items()):
+            state["bounce"] = b
+            c["twin"] = pt.run_bounce_plain(c["st"].take(c["idx"].long()), b, *c["args"])
         torch.cuda.synchronize()
     finally:
         for name, fn in originals.items():
             setattr(pt, name, fn)
     kinds = sorted({kind for kind, _ in captured})
-    print(f"captured kernel arguments at {RES[0]}x{RES[1]}: "
+    print(f"captured at {RES[0]}x{RES[1]}: the bounce's state and live list at bounces "
+          f"{sorted(states)} ({', '.join(str(c['idx'].numel()) for _, c in sorted(states.items()))}"
+          f" live lanes), the deepest bounce's alive vector (bounce {deepest['bounce']}); "
+          f"from the plain twin's run: "
           + ", ".join(f"{k}@{b} ({captured[(k, b)][0]} active)" for k, b in sorted(captured)))
     if {k.split("/")[0] for k in kinds} != {"land_march", "rmo_delta_track", "cloud_track"}:
-        fail(f"the capture frame did not reach every kernel: {kinds}")
-    return captured, frame_end_args
+        fail(f"the plain twin's run did not reach every tracker kernel: {kinds}")
+    return captured, states, deepest, lookups, frame_end_args
 
 
 def _t_close(torch, a, b):
@@ -362,6 +479,214 @@ def compare_kernels(torch, captured):
             else:  # clouds; keys, pos, dir, span, ext_w, active; (event, t) or trans
                 row["bytes"] += args[6].numel() + 45 * n + (4 if "ratio" in kind else 8) * n
     return rows
+
+
+def _event_ms(torch, fn, reps):
+    """Mean ms of ``reps`` launches timed one by one, CUDA events: ``fn()``
+    prepares a launch outside the timed region and returns it."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    total = 0.0
+    for _ in range(reps):
+        launch = fn()
+        torch.cuda.synchronize()
+        start.record()
+        launch()
+        end.record()
+        torch.cuda.synchronize()
+        total += start.elapsed_time(end)
+    return total / reps
+
+
+BOUNCE_FIELDS = ("pos", "direction", "throughput", "radiance", "w_mis")
+
+
+def check_bounce(torch, states):
+    """The bounce kernel against its plain twin on the captured states of
+    bounces 0 and DEEP_BOUNCE, lane by lane over the live list: a JSON row
+    (bounce 0's times)."""
+    from digital_earth_tpu_torch.render import pathtracer as pt
+
+    row = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0)
+    for b, c in sorted(states.items()):
+        idx, st0, args = c["idx"], c["st"], c["args"]
+        m = idx.numel()
+        frame = pt.BounceFrame(st0, *args)
+
+        def prepared():
+            st = _clone_state(st0)
+            return lambda: pt.run_bounce(st, idx, b, *args, frame)
+
+        st = _clone_state(st0)
+        pt.run_bounce(st, idx, b, *args, frame)
+        torch.cuda.synchronize()
+        ms = _event_ms(torch, prepared, 3)
+        got, want = st.take(idx.long()), c["twin"]
+        outcome = ((got.alive == want.alive) & (got.primary_miss == want.primary_miss)
+                   & (got.work_class == want.work_class))
+        lane_ok = outcome.clone()
+        errs = {}
+        for name in BOUNCE_FIELDS:
+            g, w = getattr(got, name), getattr(want, name)
+            atol = 1e-6 * w[outcome].abs().max().clamp(min=1e-30)
+            if name == "direction":
+                close = ((g - w).abs() <= DIR_ANGLE).all(-1)
+            else:
+                close = ((g - w).abs() <= BOUNCE_RTOL * w.abs() + atol).all(-1)
+            lane_ok &= close
+            d = (g - w)[outcome].abs()
+            rel = (d / w[outcome].abs().clamp(min=atol))[close[outcome]]
+            errs[name] = (d.max().item(), rel.max().item() if rel.numel() else 0.0)
+        share_outcome = outcome.float().mean().item()
+        share = lane_ok.float().mean().item()
+        ok = share_outcome >= BOUNCE_AGREEMENT and share >= BOUNCE_AGREEMENT
+        live_after = int(got.alive.sum())
+        classes = torch.bincount(got.work_class[got.alive].long(), minlength=3).tolist()
+        print(f"bounce {b}: {m} live lanes of {st0.alive.numel()}; {live_after} alive after, "
+              f"next classes (cloud, gas, surface) {classes}; same alive/primary_miss/work_class "
+              f"{share_outcome:.7f} ({m - int(outcome.sum())} not); same outcome and values "
+              f"within rtol {BOUNCE_RTOL} (direction {DIR_ANGLE} absolute) {share:.7f} "
+              f"({m - int(lane_ok.sum())} not); max abs err "
+              + ", ".join(f"{k} {v[0]:.3e}" for k, v in errs.items())
+              + "; max rel err on agreeing lanes "
+              + ", ".join(f"{k} {v[1]:.3e}" for k, v in errs.items())
+              + f"  kernel {ms:.3f} ms  {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"the bounce kernel disagrees with its plain twin at bounce {b}")
+        row["max_abs_err"] = max(row["max_abs_err"], errs["radiance"][0])
+        if b == 0:
+            _, plain_ms = _plain_ms(
+                torch, lambda: pt.run_bounce_plain(st0.take(idx.long()), b, *args))
+            print(f"bounce 0 plain twin (eager PyTorch + the tracker kernels): {plain_ms:.1f} ms")
+            row.update(ms=ms, plain_ms=plain_ms, bytes=BOUNCE_LANE_BYTES * m, ops=None)
+    return row
+
+
+def check_compact(torch, states, deepest):
+    """compact_lanes against its plain twin, bit for bit, on the alive
+    vectors of bounces 0, DEEP_BOUNCE and the deepest bounce reached: a JSON
+    row (DEEP_BOUNCE's times, torch.argsort(stable=True) as the yardstick)."""
+    from digital_earth_tpu_torch import kernels
+    from digital_earth_tpu_torch.render import compact
+
+    cases = [(b, c["st"].alive, c["st"].work_class) for b, c in sorted(states.items())]
+    cases.append((deepest["bounce"], deepest["alive"], deepest["work_class"]))
+    row = dict(max_abs_err=0.0)
+    for b, alive, wc in cases:
+        (k_idx, k_n), ms = _time_ms(torch, lambda: kernels.compact_lanes(alive, wc), 5)
+        (p_idx, p_n), plain_ms = _plain_ms(torch, lambda: compact.compact_by_alive_plain(alive, wc))
+        n = int(p_n)
+        equal = int(k_n) == n and torch.equal(k_idx[:n], p_idx[:n])
+        key = torch.where(alive, wc.clamp(0, 2), 3)
+        _, lib_ms = _time_ms(torch, lambda: torch.argsort(key, stable=True), 5)
+        print(f"compact_lanes bounce {b}: {alive.numel()} lanes, {n} alive; list and count "
+              f"bit-equal {equal}  kernel {ms:.3f} ms ({kernels.COMPACT_STAGES} launches)  "
+              f"plain {plain_ms:.2f} ms  torch.argsort(stable=True) {lib_ms:.3f} ms  "
+              f"{'ok' if equal else 'FAIL'}")
+        if not equal:
+            fail(f"compact_lanes disagrees with its plain twin at bounce {b}")
+        if b == DEEP_BOUNCE:
+            # alive and work_class read once, the live list and count written
+            row.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                       bytes=5 * alive.numel() + 4 * n + 4, ops=None)
+    return row
+
+
+def check_density(torch, lookups):
+    """density_check (the bounce kernel's table lookups) against the plain
+    lookups on bounce 0's flight segments and NEE origins, timed (the
+    launcher computes both lookups for each lane)."""
+    from digital_earth_tpu_torch.models import atmosphere_lut as atm
+
+    pos, d, t0, t_w, ext = lookups["flight"][:5]
+    t1 = torch.maximum(t_w, t0)
+    _, origin, light, ext_n, _, _, active = lookups["nee"][:7]
+    o, l, e = origin[active].contiguous(), light[active].contiguous(), ext_n[active].contiguous()
+    zero = torch.zeros_like(o[:, 0])
+    cases = (
+        ("flight segments", 0, (pos, d, t0, t1, ext),
+         lambda: atm.density_integral_segment(pos, d, t0, t1)),
+        ("NEE transmittance", 1, (o, l, zero, zero, e),
+         lambda: atm.rmo_transmittance_to_space(e, o, l)),
+    )
+    results = []
+    for label, which, args, plain in cases:
+        got, ms = _time_ms(torch, lambda: atm.density_check(*args), 5)
+        g = got[which]
+        w, plain_ms = _plain_ms(torch, plain)
+        atol = 1e-6 * w.abs().max().clamp(min=1e-30)
+        lane_ok = ((g - w).abs() <= DENSITY_RTOL * w.abs() + atol).all(-1)
+        share = lane_ok.float().mean().item() if lane_ok.numel() else 1.0
+        err = (g - w).abs().max().item() if g.numel() else 0.0
+        results.append(share >= MIN_LANE_AGREEMENT)
+        n = g.shape[0]
+        # pos, dir, t0, t1, ext (4 x 3) read, segments (3) and transmittance
+        # (4) written; the table's texels not counted (BOUNCE_LANE_BYTES)
+        b_ms, b_by = bound(n * (80 + 28), None)
+        print(f"density_check {label} (bounce 0): {n} lanes within rtol {DENSITY_RTOL} "
+              f"{share:.7f} ({n - int(lane_ok.sum())} not), max abs err {err:.3e}  kernel "
+              f"{ms:.3f} ms (both lookups)  plain {plain_ms:.2f} ms (this lookup)  bound "
+              f"{b_ms:.4f} ms ({b_by})  {'ok' if results[-1] else 'FAIL'}")
+    if not all(results):
+        fail("density_check disagrees with the plain table lookups")
+
+
+def check_texture(torch, lookups, atlas):
+    """The bounce's bilinear sphere taps (texture.cuh, through the
+    sphere_tap test launcher) against ops/texture.sample_sphere_texture at
+    bounce 0's surface points: the material (8 channels) and the
+    topography (4), bilinear and nearest."""
+    from digital_earth_tpu_torch import kernels
+    from digital_earth_tpu_torch.ops import texture as tx
+
+    land_pos = lookups["surface"]
+    n = land_pos.shape[0]
+    ok = True
+    for name, tex in (("material", atlas.material), ("topography", atlas.topography)):
+        for bilinear in (True, False):
+            got, ms = _time_ms(torch, lambda: kernels.sphere_tap(tex, land_pos, bilinear), 5)
+            want, plain_ms = _plain_ms(
+                torch, lambda: tx.sample_sphere_texture(tex, land_pos, bilinear=bilinear))
+            err = (got - want).abs().max().item() if n else 0.0
+            same = (got == want).all(-1).float().mean().item() if n else 1.0
+            this_ok = err <= TAP_ATOL
+            ok = ok and this_ok
+            c = tex.shape[2]
+            # pos read, the taps written; the texels not counted
+            # (BOUNCE_LANE_BYTES)
+            b_ms, b_by = bound(n * (12 + 4 * c), None)
+            print(f"sphere tap {name} {'bilinear' if bilinear else 'nearest'} at bounce 0's "
+                  f"{n} surface points: bit-equal share {same:.6f}, max abs err {err:.3e}  "
+                  f"kernel {ms:.3f} ms  plain {plain_ms:.2f} ms  bound {b_ms:.4f} ms ({b_by})  "
+                  f"{'ok' if this_ok else 'FAIL'}")
+    if not ok:
+        fail("the kernels' sphere tap disagrees with ops/texture.sample_sphere_texture")
+
+
+def profile_spp(torch, r, label):
+    """One accumulate() under torch.profiler: (device kernels, device-busy
+    seconds, wall seconds under the profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        r.accumulate()
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    dev_events = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels_only = [e for e in dev_events if not e.name.startswith(("Memcpy", "Memset"))]
+    busy = sum(e.time_range.elapsed_us() for e in dev_events) / 1e6
+    by_name = {}
+    for e in kernels_only:
+        by_name[e.name] = by_name.get(e.name, 0) + e.time_range.elapsed_us()
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
+    print(f"profile {label}: {len(kernels_only)} device kernels (+{len(dev_events) - len(kernels_only)}"
+          f" copies/sets) per spp, device busy {busy:.4f} s of {wall:.4f} s profiled wall "
+          f"({busy / wall:.3f}); most device time: "
+          + ", ".join(f"{name[:40]} {us / 1e3:.2f} ms" for name, us in top))
+    return len(kernels_only), busy, wall
 
 
 def check_golden(torch, dev):
@@ -706,7 +1031,7 @@ class ViewerRun:
             fail("the viewer's render loop did not stop")
 
 
-VIEWER_KERNELS = ("land_march", "rmo_delta_track", "cloud_track", "gen_rays", "atmos_march",
+VIEWER_KERNELS = ("land_march", "bounce", "compact_lanes", "gen_rays", "atmos_march",
                   "film_postprocess", "frame_end")
 
 
@@ -985,6 +1310,10 @@ def main():
     t0 = time.time()
     kernels.library()
     print(f"kernel build: {time.time() - t0:.1f} s (nvcc {' '.join(kernels.NVCC_FLAGS)})")
+    for src in ("bounce.cu", "compact_lanes.cu"):
+        for line in kernels.ptxas_log.get(src, "").splitlines():
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
+                print(f"ptxas {src}: {line.strip()}")
 
     check_threefry(torch, dev)
 
@@ -992,7 +1321,7 @@ def main():
     atlas = procedural_texture_atlas(dev, (1024, 2048), seed=7)
     print(f"procedural 1024x2048 atlas: {time.time() - t0:.1f} s")
     luts = load_spectral_luts(dev)
-    captured, frame_end_whole = capture_inputs(torch, dev, atlas, luts)
+    captured, states, deepest, lookups, frame_end_whole = capture_inputs(torch, dev, atlas, luts)
 
     check_golden(torch, dev)
 
@@ -1027,6 +1356,11 @@ def main():
     print(f"launches on the main path: {counts}; buffer finite {finite}, mean {mean:.6g}")
     if not all(counts[k] > 0 for k in MAIN_PATH):
         fail(f"a kernel of the main path never launched: {counts}")
+    if any(counts[k] for k in INLINED):
+        fail(f"the path tracer launched a loop kernel of its own instead of bounce: {counts}")
+    if not (counts["compact_lanes"] >= counts["bounce"] and counts["gen_rays"] == 3
+            and counts["bounce"] <= 3 * r.cfg.max_bounces):
+        fail(f"bounce and compact_lanes did not launch once per bounce: {counts}")
     if not (finite and mean > 0.0):
         fail("the accumulated buffer is not finite with a positive mean")
     if not (bool(torch.isfinite(img).all()) and img.shape == (w, h, 3)):
@@ -1040,6 +1374,11 @@ def main():
     bad = [name for name, row in rows.items() if not row["ok"]]
     if bad:
         fail(f"kernels disagree with their plain versions: {bad}")
+    rows["bounce"] = check_bounce(torch, states)
+    rows["compact_lanes"] = check_compact(torch, states, deepest)
+    check_density(torch, lookups)
+    check_texture(torch, lookups, atlas)
+    del states, deepest, lookups
 
     # --- the viewer's path -------------------------------------------------
     rows["gen_rays"] = check_gen_rays(torch, dev, atlas, luts)
@@ -1068,6 +1407,22 @@ def main():
     del warm_bufs, after4
     check_adaptive_viewer(torch, dev, atlas, luts)
 
+    # --- kernels per spp (last: a profiler session can slow later launches)
+    for scene in (SCENE,) + tuple(os.path.join(ROOT, "scenes", s) for s in OTHER_SCENES):
+        label = f"{os.path.basename(scene)[9:-4]} {w}x{h}"
+        r = render_offline(load_config(scene), dev, spp=1, image_res=RES, out_path=None,
+                           atlas=atlas, luts=luts)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        r.accumulate()
+        torch.cuda.synchronize()
+        print(f"render_offline {label}, default TraceConfig: {time.time() - t0:.3f} s/spp "
+              f"(1 warm-up spp, then 1 timed)")
+        n_kernels, _, _ = profile_spp(torch, r, label)
+        if not 0 < n_kernels <= MAX_KERNELS_PER_SPP:
+            fail(f"{n_kernels} device kernels per {label} spp (expected 1-{MAX_KERNELS_PER_SPP})")
+        del r
+
     loaded = sorted(k for k in sys.modules
                     if k.split(".")[0] in ("jax", "jaxlib", "digital_earth_tpu"))
     if loaded:
@@ -1090,20 +1445,27 @@ def main():
                       "digital_earth_tpu/render/pathtracer.py:2000"),
         "select_tiles": ("cuda", "digital_earth_tpu_torch/csrc/select_tiles.cu",
                          "digital_earth_tpu/render/renderer.py:425"),
+        "bounce": ("cuda", "digital_earth_tpu_torch/csrc/bounce.cu",
+                   "digital_earth_tpu/render/pathtracer.py:1554"),
+        "compact_lanes": ("cuda", "digital_earth_tpu_torch/csrc/compact_lanes.cu",
+                          "digital_earth_tpu/render/renderer.py:84"),
     }
-    # launches: the main path's run, or for the preview's kernel the
-    # preview frame's run, for select_tiles the adaptive run's
+    # launches: the main path's run (0 for the trackers, whose loops run
+    # inside bounce there), or for the preview's kernels the preview frame's
+    # run, for select_tiles the adaptive run's
     launches = dict(counts, atmos_march=preview_counts["atmos_march"],
+                    land_march=preview_counts["land_march"],
                     select_tiles=adaptive_counts["select_tiles"])
     entries = []
     for name, (route, src, rep) in sources.items():
         row = rows[name]
         bound_ms, bound_by = bound(row["bytes"], row["ops"])
-        # no single PyTorch call computes any of these functions
+        # one PyTorch call computes compact_lanes's order (a stable
+        # argsort), none the others' functions
         entries.append({"name": name, "route": route, "source": src, "replaces": rep,
                         "launches": launches[name], "max_abs_err": row["max_abs_err"],
                         "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": bound_ms,
-                        "bound_by": bound_by, "library_ms": None})
+                        "bound_by": bound_by, "library_ms": row.get("library_ms")})
     line = {"kernels": entries}
     print(json.dumps(line))
     print(nvidia_smi_line())

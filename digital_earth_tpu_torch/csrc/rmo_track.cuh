@@ -1,0 +1,77 @@
+// Woodcock (delta) tracking of a free-flight event through the Rayleigh /
+// Mie / ozone gases for one lane, as a device function: the body of the
+// rmo_delta_track kernel (rmo_delta_track.cu) and of the bounce kernel's
+// flight (bounce.cu).
+//
+// Per lane and iteration i it draws the reference's threefry stream
+// uniform(fold(key, i), (3, K)) (digital_earth_tpu/render/pathtracer.py:631
+// _delta_track_rmo), rebuilds the local hero majorant from the density
+// envelope at the minimum radius of the remaining segment, takes K
+// exponential steps (prefix sums in the reference's sequential order), and
+// resolves the first probe that is real or past t_max: species by the hero
+// extinction CMF, scatter vs absorb by albedo roulette. Cap max_steps
+// iterations.
+#pragma once
+#include <cstdint>
+
+#include "atmosphere.cuh"
+#include "threefry.cuh"
+
+namespace de {
+
+// (event, t, iid) of the flight from t_start toward t_max with the hero
+// extinction (e0, e1, e2); an invalid lane keeps (0, t_start, 0).
+__device__ __forceinline__ void rmo_track_lane(Key key, V3 o, V3 d, float t_start, float tm,
+                                               float e0, float e1, float e2, bool active,
+                                               int max_steps, int k, float o3_env_peak,
+                                               int& event_out, float& t_out, int& iid_out) {
+  const float albedo[3] = {1.0f, 0.95f, 0.0f};
+  float t = t_start;
+  const bool valid = active && (tm >= 0.0f) && (t < tm);
+  const float tms = fmaxf(tm, 0.0f);
+  const float rp = perigee_radius(o, d);
+  const float xp = dot(o, d);
+  const float x_end = tms + xp;
+
+  int event = 0, iid = 0;
+  bool done = !valid;
+  for (int i = 0; i < max_steps && !done; ++i) {
+    const Key ki = fold(key, (uint32_t)i);
+    const float r_min = segment_min_radius(rp, t + xp, x_end);
+    float env[3];
+    density_envelope(r_min - PLANET_R_F, o3_env_peak, env);
+    const float inv_max = 1.0f / fmaxf(dot3(e0, e1, e2, env[0], env[1], env[2]), 1e-20f);
+    float cs = 0.0f, ts = t;
+    for (int j = 0; j < k; ++j) {
+      const float u0 = uniform(ki, (uint32_t)j);
+      const float step = -logf(fmaxf(u0, 1e-12f)) * inv_max;
+      cs = j == 0 ? step : cs + step;
+      ts = t + cs;
+      const V3 p = along(o, fminf(ts, tms), d);
+      float dens[3];
+      get_density(sqrtf(dot(p, p)) - PLANET_R_F, dens);
+      const float total = dot3(dens[0], dens[1], dens[2], e0, e1, e2);
+      const bool over = ts >= tm;
+      const float u1 = uniform(ki, (uint32_t)(k + j));
+      if (over || u1 < total * inv_max) {
+        if (!over) {
+          const float r = u1 / inv_max;
+          const float c0 = dens[0] * e0;
+          const float c01 = c0 + dens[1] * e1;
+          const int id = r < c0 ? 0 : (r < c01 ? 1 : 2);
+          const float u2 = uniform(ki, (uint32_t)(2 * k + j));
+          event = u2 < albedo[id] ? 2 : 1;
+          iid = id;
+        }
+        done = true;
+        break;
+      }
+    }
+    t = ts;
+  }
+  event_out = event;
+  t_out = t;
+  iid_out = iid;
+}
+
+}  // namespace de

@@ -11,32 +11,15 @@ namespace de {
 
 // float32(math.pi)
 constexpr float PI_F = 3.14159265358979323846f;
+// The port's sphere_uv_map divides by the Python float pi, which PyTorch's
+// CUDA ops apply as a multiply by its float32 reciprocal.
+constexpr float INV_PI_F = 1.0f / PI_F;
 
+// sample_equirect at (u, v): bilinear (the float32 lerp in the plain
+// version's order) or nearest.
 template <int C>
-__device__ __forceinline__ void sphere_tap_nearest(
-    const uint8_t* __restrict__ tex, int H, int W, V3 p, float out[C]) {
-  const float l = fmaxf(length(p), 1e-20f);
-  const float nx = p.x / l, ny = p.y / l, nz = p.z / l;
-  const float u = (atan2f(nz, -nx) / PI_F + 1.0f) / 2.0f;
-  const float v = asinf(fminf(fmaxf(ny, -1.0f), 1.0f)) / PI_F + 0.5f;
-  const float x = u * (float)W - 0.5f;
-  const float y = fminf(fmaxf((1.0f - v) * (float)H - 0.5f, 0.0f), (float)H - 1.0f);
-  int ix = (int)rintf(x) % W;
-  if (ix < 0) ix += W;
-  const int iy = min(max((int)rintf(y), 0), H - 1);
-  const uint8_t* t = tex + ((size_t)iy * W + ix) * C;
-#pragma unroll
-  for (int c = 0; c < C; ++c) out[c] = (float)t[c] * (1.0f / 255.0f);
-}
-
-// ops/texture.sample_dir_texture: the tap at unit direction (dx, dy, dz),
-// bilinear (sample_equirect's float32 lerp) or nearest.
-template <int C>
-__device__ __forceinline__ void dir_tap(const uint8_t* __restrict__ tex, int H, int W,
-                                        float dx, float dy, float dz, bool bilinear,
-                                        float out[C]) {
-  const float u = (atan2f(dz, -dx) / PI_F + 1.0f) / 2.0f;
-  const float v = asinf(fminf(fmaxf(dy, -1.0f), 1.0f)) / PI_F + 0.5f;
+__device__ __forceinline__ void equirect_tap(const uint8_t* __restrict__ tex, int H, int W,
+                                             float u, float v, bool bilinear, float out[C]) {
   const float x = u * (float)W - 0.5f;
   const float y = fminf(fmaxf((1.0f - v) * (float)H - 0.5f, 0.0f), (float)H - 1.0f);
   if (!bilinear) {
@@ -65,6 +48,42 @@ __device__ __forceinline__ void dir_tap(const uint8_t* __restrict__ tex, int H, 
     const float v01 = (float)t01[c] * (1.0f / 255.0f), v11 = (float)t11[c] * (1.0f / 255.0f);
     out[c] = (v00 * (1.0f - tx) + v10 * tx) * (1.0f - ty) + (v01 * (1.0f - tx) + v11 * tx) * ty;
   }
+}
+
+// Nearest tap at the direction of p, as the trackers take it (the angles
+// divided by pi).
+template <int C>
+__device__ __forceinline__ void sphere_tap_nearest(
+    const uint8_t* __restrict__ tex, int H, int W, V3 p, float out[C]) {
+  const float l = fmaxf(length(p), 1e-20f);
+  const float nx = p.x / l, ny = p.y / l, nz = p.z / l;
+  const float u = (atan2f(nz, -nx) / PI_F + 1.0f) / 2.0f;
+  const float v = asinf(fminf(fmaxf(ny, -1.0f), 1.0f)) / PI_F + 0.5f;
+  equirect_tap<C>(tex, H, W, u, v, false, out);
+}
+
+// ops/texture.sample_sphere_texture at p as the port's twin computes it on
+// the card: normalize(p), the angles times float32(1/pi), then the bilinear
+// (or nearest) tap.
+template <int C>
+__device__ __forceinline__ void sphere_tap(const uint8_t* __restrict__ tex, int H, int W, V3 p,
+                                           bool bilinear, float out[C]) {
+  const float l = fmaxf(length(p), 1e-20f);
+  const float nx = p.x / l, ny = p.y / l, nz = p.z / l;
+  const float u = (atan2f(nz, -nx) * INV_PI_F + 1.0f) * 0.5f;
+  const float v = asinf(fminf(fmaxf(ny, -1.0f), 1.0f)) * INV_PI_F + 0.5f;
+  equirect_tap<C>(tex, H, W, u, v, bilinear, out);
+}
+
+// ops/texture.sample_dir_texture: the tap at unit direction (dx, dy, dz),
+// bilinear (sample_equirect's float32 lerp) or nearest.
+template <int C>
+__device__ __forceinline__ void dir_tap(const uint8_t* __restrict__ tex, int H, int W,
+                                        float dx, float dy, float dz, bool bilinear,
+                                        float out[C]) {
+  const float u = (atan2f(dz, -dx) / PI_F + 1.0f) / 2.0f;
+  const float v = asinf(fminf(fmaxf(dy, -1.0f), 1.0f)) / PI_F + 0.5f;
+  equirect_tap<C>(tex, H, W, u, v, bilinear, out);
 }
 
 }  // namespace de

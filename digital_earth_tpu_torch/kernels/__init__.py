@@ -4,7 +4,8 @@ CUDA C++: each ``.cu`` source is compiled with ``nvcc`` for Hopper
 (``sm_90a``) into an object, all sources at once in parallel, and the
 objects are linked into one shared library with a plain C interface, at
 first CUDA use, into the git-ignored ``build/kernels/<source hash>/``
-directory, and loaded with ``ctypes``. Triton: ``csrc/film_postprocess.py``
+directory, and loaded with ``ctypes``; ptxas's report of each source
+(registers, spills) is kept in ``ptxas_log``. Triton: ``csrc/film_postprocess.py``
 is loaded from its path at first CUDA use, with ``TRITON_CACHE_DIR`` pointed
 at the git-ignored ``build/triton/``. Each launcher checks device, dtype,
 shape and contiguity, runs on ``torch.cuda.current_stream()``, raises if the
@@ -40,11 +41,13 @@ BUILD_ROOT = os.path.join(os.path.dirname(_ROOT), "build", "kernels")
 TRITON_CACHE = os.path.join(os.path.dirname(_ROOT), "build", "triton")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "--fmad=false", "-Xcompiler", "-fPIC",
+    "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 _lib = None
 build_seconds = None
+# ptxas's report (registers, spills) per source of the last build, by file name
+ptxas_log = {}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
@@ -74,6 +77,16 @@ _SIGNATURES = {
     # float params, color, count, lum2, w, h, bw, bh, k, partial, m_bar,
     # score, ids, stream
     "de_select_tiles": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
+    # float params, int params, pos, dir, wavelength, lambda_pdf, throughput,
+    # radiance, w_mis, alive, primary_miss, work_class, keys, idx, m, n,
+    # topo, material, clouds, o3_crossec, srgb2spec, table, stream
+    "de_bounce": [_P] * 14 + [_I, _I] + [_P] * 7,
+    # alive, work_class, n, out, n_live, scratch, stream
+    "de_compact_lanes": [_P, _P, _I, _P, _P, _P, _P],
+    # pos, dir, t0, t1, ext_rmo, table, seg, trans, n, n_lambdas, stream
+    "de_density_check": [_P] * 8 + [_I, _I, _P],
+    # tex, H, W, C, pos, n, bilinear, out, stream
+    "de_sphere_tap": [_P, _I, _I, _I, _P, _I, _I, _P, _P],
     # keys, n, data, count, out, stream
     "de_threefry_uniform": [_P, _I, ctypes.c_uint, _I, _P, _P],
 }
@@ -121,6 +134,7 @@ def library():
                 for other in procs:
                     other.kill()
                 raise RuntimeError(f"nvcc failed on {src} ({proc.returncode}):\n{out}\n{err}")
+            ptxas_log[os.path.basename(src)] = out + err
         tmp = f"{so}.{tag}"
         proc = subprocess.run([nvcc, "-shared", "-o", tmp, *objs],
                               capture_output=True, text=True)
@@ -449,6 +463,116 @@ def film_postprocess(color_buffer, count, spp: float, exposure_scale: float,
     return out
 
 
+BOUNCE_LAMBDAS = 4  # the bounce kernel's hero packet (csrc/bounce.cu BOUNCE_L)
+
+
+def bounce(fparams, iparams, pos, direction, wavelength, lambda_pdf, throughput, radiance,
+           w_mis, alive, primary_miss, work_class, keys, idx, topo, material, clouds,
+           o3_crossec, srgb2spec, table):
+    """Launch ``bounce`` (csrc/bounce.cu): one bounce of the lanes ``idx``
+    (m,) int32 of the (N, ...) state, which it reads and writes in place
+    (an id outside [0, N) is skipped).
+    ``keys`` are the (N, 2) lane keys as int32 (``keys_i32``); ``fparams``
+    (13 floats) and ``iparams`` (15 ints) are laid out as de_bounce documents
+    (render/pathtracer.py builds them)."""
+    dev = pos.device
+    n = pos.shape[0]
+    m = idx.shape[0]
+    L = BOUNCE_LAMBDAS
+    if len(fparams) != 13 or len(iparams) != 15:
+        raise ValueError("bounce: expected 13 float and 15 int parameters")
+    if iparams[0] != L:
+        raise ValueError(f"bounce: {iparams[0]} wavelengths per lane, the kernel takes {L}")
+    for name, t in (("pos", pos), ("direction", direction)):
+        _check(name, t, torch.float32, (n, 3), dev)
+    for name, t in (("wavelength", wavelength), ("lambda_pdf", lambda_pdf),
+                    ("throughput", throughput), ("radiance", radiance), ("w_mis", w_mis)):
+        _check(name, t, torch.float32, (n, L), dev)
+    _check("alive", alive, torch.bool, (n,), dev)
+    _check("primary_miss", primary_miss, torch.bool, (n,), dev)
+    _check("work_class", work_class, torch.int32, (n,), dev)
+    _check("keys", keys, torch.int32, (n, 2), dev)
+    _check("idx", idx, torch.int32, (m,), dev)
+    if m > n:
+        raise ValueError(f"bounce: {m} lane ids for {n} lanes")
+    _check("topo", topo, torch.uint8, (*topo.shape[:2], 4), dev)
+    _check("material", material, torch.uint8, (*material.shape[:2], 8), dev)
+    _check("clouds", clouds, torch.uint8, (*clouds.shape[:2], 4), dev)
+    if tuple(iparams[9:15]) != (*topo.shape[:2], *material.shape[:2], *clouds.shape[:2]):
+        raise ValueError("bounce: texture sizes disagree with the int parameters")
+    _check("o3_crossec", o3_crossec, torch.float32, (441,), dev)
+    _check("srgb2spec", srgb2spec, torch.float32, (300, 3), dev)
+    _check("table", table, torch.float32, (384, 1024, 3), dev)
+    if m:
+        fp = (ctypes.c_float * 13)(*fparams)
+        ip = (ctypes.c_int * 15)(*iparams)
+        _launch(
+            "de_bounce", ctypes.cast(fp, ctypes.c_void_p), ctypes.cast(ip, ctypes.c_void_p),
+            _ptr(pos), _ptr(direction), _ptr(wavelength), _ptr(lambda_pdf), _ptr(throughput),
+            _ptr(radiance), _ptr(w_mis), _ptr(alive), _ptr(primary_miss), _ptr(work_class),
+            _ptr(keys), _ptr(idx), m, n, _ptr(topo), _ptr(material), _ptr(clouds),
+            _ptr(o3_crossec), _ptr(srgb2spec), _ptr(table),
+        )
+        bounce.launches += 1
+
+
+COMPACT_STAGES = 3  # kernel launches per compact_lanes call (csrc/compact_lanes.cu)
+
+
+def compact_lanes(alive, work_class):
+    """Launch ``compact_lanes`` (csrc/compact_lanes.cu): (idx (n,) int32
+    whose first n_live entries are the alive lanes binned by work class in
+    stable order, n_live (1,) int32), both on the device."""
+    dev = alive.device
+    n = alive.shape[0]
+    _check("alive", alive, torch.bool, (n,), dev)
+    _check("work_class", work_class, torch.int32, (n,), dev)
+    nb = -(-n // 1024)
+    idx = torch.empty((n,), dtype=torch.int32, device=dev)
+    n_live = torch.empty((1,), dtype=torch.int32, device=dev)
+    scratch = torch.empty((3 * nb + 4,), dtype=torch.int32, device=dev)
+    _launch("de_compact_lanes", _ptr(alive), _ptr(work_class), n, _ptr(idx), _ptr(n_live),
+            _ptr(scratch))
+    compact_lanes.launches += 1
+    return idx, n_live
+
+
+def density_check(pos, direction, t0, t1, ext_rmo, table):
+    """Test launcher of the kernels' density-table header (not a path
+    kernel): (segment integrals (n, 3) over [t0, t1], RMO transmittance to
+    space (n, 4)), computed on the card by csrc/density_check.cu."""
+    dev = pos.device
+    n = pos.shape[0]
+    L = BOUNCE_LAMBDAS
+    _check("pos", pos, torch.float32, (n, 3), dev)
+    _check("direction", direction, torch.float32, (n, 3), dev)
+    _check("t0", t0, torch.float32, (n,), dev)
+    _check("t1", t1, torch.float32, (n,), dev)
+    _check("ext_rmo", ext_rmo, torch.float32, (n, L, 3), dev)
+    _check("table", table, torch.float32, (384, 1024, 3), dev)
+    seg = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    trans = torch.empty((n, L), dtype=torch.float32, device=dev)
+    _launch("de_density_check", _ptr(pos), _ptr(direction), _ptr(t0), _ptr(t1), _ptr(ext_rmo),
+            _ptr(table), _ptr(seg), _ptr(trans), n, L)
+    return seg, trans
+
+
+def sphere_tap(tex, pos, bilinear: bool):
+    """Test launcher of the kernels' sphere tap (not a path kernel): the
+    (n, C) tap of a uint8 (H, W, C) texture, C 4 or 8, at the direction of
+    each ``pos``, computed on the card by csrc/texture_check.cu."""
+    dev = pos.device
+    n = pos.shape[0]
+    h, w, c = tex.shape
+    if c not in (4, 8):
+        raise ValueError(f"sphere_tap: {c} channels, the kernel takes 4 or 8")
+    _check("tex", tex, torch.uint8, (h, w, c), dev)
+    _check("pos", pos, torch.float32, (n, 3), dev)
+    out = torch.empty((n, c), dtype=torch.float32, device=dev)
+    _launch("de_sphere_tap", _ptr(tex), h, w, c, _ptr(pos), n, int(bilinear), _ptr(out))
+    return out
+
+
 def threefry_uniform(keys, data: int, count: int):
     """Test launcher of the kernels' threefry header (not a path kernel):
     ``uniform(fold(keys, data), (count,))`` as (count, n), computed on the
@@ -461,7 +585,7 @@ def threefry_uniform(keys, data: int, count: int):
 
 
 PATH_KERNELS = (land_march, rmo_delta_track, cloud_track, gen_rays, atmos_march,
-                film_postprocess, frame_end, select_tiles)
+                film_postprocess, frame_end, select_tiles, bounce, compact_lanes)
 for _k in PATH_KERNELS:
     _k.launches = 0
 

@@ -17,6 +17,7 @@ import torch
 
 from .. import constants as C
 
+from .. import kernels
 from ..ops.math_utils import dot, length
 from . import volume as vol
 
@@ -202,6 +203,17 @@ def rmo_transmittance_to_space(ext_rmo, pos, direction):
     d = density_integral_to_space(pos, direction)
     tau = dot(ext_rmo, d[:, None, :])
     return torch.exp(-tau)
+
+
+def density_check(pos, direction, t0, t1, ext_rmo):
+    """(density_integral_segment over [t0, t1] (n, 3),
+    rmo_transmittance_to_space (n, L)): the plain versions above for CPU
+    tensors; for CUDA tensors the test kernel ``density_check``, which runs
+    the bounce kernel's table lookups (csrc/density_lut.cuh)."""
+    if pos.device.type == "cpu":
+        return (density_integral_segment(pos, direction, t0, t1),
+                rmo_transmittance_to_space(ext_rmo, pos, direction))
+    return kernels.density_check(pos, direction, t0, t1, ext_rmo, density_table(pos.device))
 
 
 # ---------------------------------------------------------------------------

@@ -28,11 +28,18 @@ def xyz_to_rgb(xyz):
     return matvec3(_const(XYZ_TO_RGB_D65, xyz), xyz)
 
 
+PLANCK_H, PLANCK_C, PLANCK_K = 6.62607015e-16, 2.9e17, 1.38e-5  # nm-scaled
+
+
+def planck_kernel_constants():
+    """The kernels' float32 (2 h c^2, h c, k) of ``plancks``."""
+    h, c, k = PLANCK_H, PLANCK_C, PLANCK_K
+    return [float(np.float32(x)) for x in (2.0 * h * c * c, h * c, k)]
+
+
 def plancks(temperature, wavelength):
     """Blackbody SPD with nm-scaled constants; ``wavelength`` in nm."""
-    h = 6.62607015e-16
-    c = 2.9e17
-    k = 1.38e-5
+    h, c, k = PLANCK_H, PLANCK_C, PLANCK_K
     p1 = rdiv(2.0 * h * c * c, ipow(wavelength, 5))
     p2 = torch.exp(rdiv(h * c, wavelength * k * temperature)) - 1.0
     return p1 / p2

@@ -67,8 +67,7 @@ def _f32(x) -> float:
 
 def kernel_params(n_lambdas: int, miss=None):
     """The ``frame_end`` kernel's (17 float, 5 int) parameters."""
-    h, c, k = 6.62607015e-16, 2.9e17, 1.38e-5  # ops/spectral.plancks
-    fparams = [_f32(2.0 * h * c * c), _f32(h * c), _f32(k), _f32(C.SUN_TEMPERATURE),
+    fparams = [*sp.planck_kernel_constants(), _f32(C.SUN_TEMPERATURE),
                _f32(C.STARS_SCALE), *sp.XYZ_TO_RGB_D65.reshape(-1).tolist(),
                *sp.LUM_WEIGHTS.tolist()]
     if miss is None:

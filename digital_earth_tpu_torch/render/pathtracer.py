@@ -2,12 +2,14 @@
 digital_earth_tpu/render/pathtracer.py).
 
 One bounce of the reference's ``run_bounces`` body (pathtracer.py:1554-1924)
-is ``run_bounce``; ``run_bounces`` applies it one bounce at a time to the
-still-alive lanes only (a stable ``torch.nonzero`` gather before the bounce,
-a scatter after it). A dead lane is a no-op in the reference's body, and
-every random draw is keyed per lane, so the image does not depend on this
-schedule. The three per-lane loops the bounce launches live in
-``tracers.py`` with their CUDA kernels.
+is ``run_bounce``: for CUDA tensors one launch of the kernel ``bounce``
+(csrc/bounce.cu), for CPU tensors its plain twin ``run_bounce_plain`` (the
+eager body, with the three per-lane loops of ``tracers.py``). ``run_bounces``
+applies it one bounce at a time to the lanes that are still alive, listed by
+``compact.compact_by_alive`` (binned by work class, stable; the kernel
+``compact_lanes`` on the card). A dead lane is a no-op in the reference's
+body, and every random draw is keyed per lane, so the image does not depend
+on this schedule.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import torch
 
 from .. import constants as C
 
+from .. import kernels
 from ..models import atmosphere_lut as atm
 from ..models import surface as srf
 from ..models import volume as vol
@@ -27,10 +30,12 @@ from ..ops import rng
 from ..ops import sampling as smp
 from ..ops import spectral as sp
 from ..ops import texture as tx
+from . import compact
 from .params import SceneParams, TraceConfig
 from .tracers import (  # noqa: F401  (re-exported loop entry points)
-    ABSORB_EVENT, NULL_EVENT, SCATTER_EVENT, _CLOUD_VALID, _MIP_VALID_COARSE,
-    _MIP_VALID_FINE, delta_track_rmo, intersect_land, track_cloud,
+    ABSORB_EVENT, NULL_EVENT, SCATTER_EVENT, _CLOUD_VALID, _MARCH_STALL_PATIENCE,
+    _MIP_VALID_COARSE, _MIP_VALID_FINE, _march_floor, delta_track_rmo, intersect_land,
+    track_cloud,
 )
 
 # RNG site ids (pathtracer.py:62-71): lane key -> bounce -> site -> loop.
@@ -188,6 +193,9 @@ class TraceState:
     alive: torch.Tensor        # (N,) bool
     primary_miss: torch.Tensor # (N,) bool
     rng: torch.Tensor          # (N, 2) int64 lane keys
+    # class of the lane's next bounce, the live list's bin: 0 cloud scatter,
+    # 1 gas scatter, 2 surface bounce
+    work_class: torch.Tensor   # (N,) int32
 
     def take(self, idx) -> "TraceState":
         return TraceState(**{f.name: getattr(self, f.name)[idx] for f in fields(self)})
@@ -211,13 +219,15 @@ def init_state(ray_pos, ray_dir, wavelength, lambda_pdf, rng_keys) -> TraceState
         alive=torch.ones((n,), dtype=torch.bool, device=dev),
         primary_miss=torch.zeros((n,), dtype=torch.bool, device=dev),
         rng=rng_keys,
+        work_class=torch.zeros((n,), dtype=torch.int32, device=dev),
     )
 
 
-def run_bounce(st: TraceState, bounce: int, scene: SceneParams, atlas, luts,
-               cfg: TraceConfig) -> TraceState:
-    """One bounce of every lane in ``st`` (all alive): the reference's
-    ``run_bounces`` body at ``bounce`` (pathtracer.py:1554-1924)."""
+def run_bounce_plain(st: TraceState, bounce: int, scene: SceneParams, atlas, luts,
+                     cfg: TraceConfig) -> TraceState:
+    """Plain PyTorch twin of the ``bounce`` kernel: one bounce of every lane
+    in ``st`` (all alive), the reference's ``run_bounces`` body at
+    ``bounce`` (pathtracer.py:1554-1924), in a new state."""
     pos, direction = st.pos, st.direction
     wavelength, lambda_pdf = st.wavelength, st.lambda_pdf
     throughput, radiance, w_mis = st.throughput, st.radiance, st.w_mis
@@ -405,10 +415,63 @@ def run_bounce(st: TraceState, bounce: int, scene: SceneParams, atlas, luts,
         )
         alive = alive & ~killed
 
+    # class of the next bounce (pathtracer.py:1918-1919)
+    in_cloud = (iid == C.CLOUD_ID) | (iid == C.ISOTROPIC_CLOUD_ID)
+    cls = torch.where(scatter & in_cloud, 0, torch.where(scatter, 1, 2)).to(torch.int32)
     return TraceState(
         pos=new_pos, direction=new_dir, wavelength=wavelength,
         lambda_pdf=lambda_pdf, throughput=new_thr, radiance=radiance,
         w_mis=w_mis, alive=alive, primary_miss=primary_miss, rng=st.rng,
+        work_class=torch.where(alive, cls, st.work_class),
+    )
+
+
+class BounceFrame:
+    """The ``bounce`` kernel's arguments that hold for a whole wavefront: the
+    scene's scalars read from the device once, the lane keys as int32 once,
+    the density table (pathtracer.run_bounces builds one per call)."""
+
+    def __init__(self, st: TraceState, scene: SceneParams, atlas, luts, cfg: TraceConfig):
+        topo = atlas.topography
+        scale = scene.land_height_scale
+        # the twin's own device arithmetic, so the kernel gets its floats
+        scale_f, *light, cos_angle, solid_angle, offset_scale = torch.stack([
+            scale, *scene.light_direction, scene.sun_cos_angle,
+            mu.cone_angle_to_solid_angle(scene.sun_angular_radius),
+            1.0 + 0.0001 * scale / 12000.0,
+        ]).tolist()
+        step_floor, stall_thresh = _march_floor(topo, cfg)
+        self.fparams = [scale_f, step_floor, stall_thresh, atm._O3_ENV_PEAK, *light, cos_angle,
+                        solid_angle, offset_scale, *sp.planck_kernel_constants()]
+        self.iparams = [
+            st.wavelength.shape[1], 0, cfg.rr_start, cfg.land_march_steps, cfg.march_k,
+            _MARCH_STALL_PATIENCE, cfg.max_tracking_steps, cfg.tracking_k,
+            int(cfg.bilinear_materials), *topo.shape[:2], *atlas.material.shape[:2],
+            *atlas.clouds.shape[:2],
+        ]
+        self.keys = kernels.keys_i32(st.rng)
+        self.tables = (topo, atlas.material, atlas.clouds, luts.o3_crossec, luts.srgb2spec,
+                       atm.density_table(st.pos.device))
+
+
+def run_bounce(st: TraceState, idx, bounce: int, scene: SceneParams, atlas, luts,
+               cfg: TraceConfig, frame: BounceFrame = None):
+    """One bounce of the lanes ``idx`` (int32, all alive) of ``st``, in
+    place: the ``bounce`` kernel for CUDA tensors (``frame`` as built for
+    ``st``, or built here), its plain twin on ``st.take(idx)`` for CPU
+    tensors."""
+    if st.pos.device.type == "cpu":
+        idx = idx.to(torch.int64)
+        st.put(idx, run_bounce_plain(st.take(idx), bounce, scene, atlas, luts, cfg))
+        return
+    if frame is None:
+        frame = BounceFrame(st, scene, atlas, luts, cfg)
+    iparams = list(frame.iparams)
+    iparams[1] = bounce
+    kernels.bounce(
+        frame.fparams, iparams, st.pos, st.direction, st.wavelength, st.lambda_pdf,
+        st.throughput, st.radiance, st.w_mis, st.alive, st.primary_miss, st.work_class,
+        frame.keys, idx, *frame.tables,
     )
 
 
@@ -419,21 +482,20 @@ class Interrupted(Exception):
 def run_bounces(st: TraceState, scene: SceneParams, atlas, luts,
                 cfg: TraceConfig, bounce_start: int, bounce_stop: int,
                 interrupt=None) -> TraceState:
-    """Advance the wavefront over bounces [bounce_start, bounce_stop), each
-    bounce on the alive lanes only (stable gather, then scatter back).
+    """Advance the wavefront over bounces [bounce_start, bounce_stop) in
+    place, each bounce on the alive lanes only, listed by work class.
     ``interrupt()`` is polled before each bounce, once the device has
     finished the previous one; ``Interrupted`` is raised when it returns
     True."""
+    frame = None if st.pos.device.type == "cpu" else BounceFrame(st, scene, atlas, luts, cfg)
     for bounce in range(bounce_start, bounce_stop):
-        live = torch.nonzero(st.alive).squeeze(1)  # waits for the device
-        if live.numel() == 0:
+        idx, n_live = compact.compact_by_alive(st.alive, st.work_class)
+        m = int(n_live)  # waits for the device
+        if m == 0:
             break
         if interrupt is not None and interrupt():
             raise Interrupted
-        if live.numel() == st.alive.numel():
-            st = run_bounce(st, bounce, scene, atlas, luts, cfg)
-        else:
-            st.put(live, run_bounce(st.take(live), bounce, scene, atlas, luts, cfg))
+        run_bounce(st, idx[:m], bounce, scene, atlas, luts, cfg, frame)
     return st
 
 

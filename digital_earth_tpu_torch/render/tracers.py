@@ -20,7 +20,11 @@ same probe positions, the same first-stopping probe, the same threefry draw
 ``uniform(fold(key, i), (3, K))`` for lane iteration i.
 
 A wrapper takes the plain version only for tensors on the CPU; a CUDA tensor
-launches the kernel (``digital_earth_tpu_torch.kernels``) or raises.
+launches the kernel (``digital_earth_tpu_torch.kernels``) or raises. On the
+card the path tracer does not call these wrappers: its ``bounce`` kernel
+runs the same per-lane loops as device functions (csrc/land_march.cuh,
+rmo_track.cuh, cloud_track.cuh). They serve the preview (``intersect_land``)
+and the bounce's plain twin (``pathtracer.run_bounce_plain``).
 """
 
 from __future__ import annotations

@@ -259,7 +259,8 @@ def test_frame_end_matches_jax(atlases, end_state):
     assert es["n_sun"] > 50
     n = len(es["pid"])
     st = pt.TraceState(pos=torch.zeros((n, 3)), alive=torch.zeros(n, dtype=torch.bool),
-                       rng=torch.zeros((n, 2), dtype=torch.int64), **s)
+                       rng=torch.zeros((n, 2), dtype=torch.int64),
+                       work_class=torch.zeros(n, dtype=torch.int32), **s)
     miss = fe.MissShading(st, es["scenes"][1], atlases[1], tluts.load_spectral_luts("cpu"),
                           TraceConfig())
     color = torch.zeros((w * h, 3))

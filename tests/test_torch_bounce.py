@@ -67,6 +67,7 @@ def test_bounce_matches_eager_reference(raw_atlas, scene, monkeypatch):
         out = run_bounces(st, scene_params, atlas, luts, cfg, start, stop, interrupt)
         if start == 0:
             captured["out"] = (out.radiance.clone(), out.throughput.clone())
+            captured["class"] = (out.alive.clone(), out.work_class.clone())
         return out
 
     monkeypatch.setattr(pt, "run_bounces", keep)
@@ -87,3 +88,11 @@ def test_bounce_matches_eager_reference(raw_atlas, scene, monkeypatch):
         assert np.isfinite(got).all() and got.shape == want.shape
         share = np.isclose(got, want, rtol=1e-3, atol=1e-7).all(-1).mean()
         assert share >= floor, share
+
+    # the next bounce's work class: a lane agrees when both keep it alive
+    # with the same class or both end it; at least the radiance floor's share
+    alive, work_class = (t.numpy() for t in captured["class"])
+    same = alive == np.asarray(st.alive)
+    agree = same & (~alive | (work_class == np.asarray(st.work_class)))
+    assert agree.mean() >= FLOORS[scene][0], agree.mean()
+    assert set(np.unique(work_class[alive])) <= {0, 1, 2}

@@ -254,6 +254,28 @@ def test_density_integrals():
                  rtol=2e-4, atol=1e-6, share=0.999)
 
 
+def test_density_check_cpu_path():
+    """density_check's CPU path, the twins its kernel is held to on the card,
+    against the JAX lookups on seeded lanes (test_density_integrals's
+    tolerances)."""
+    r = np.random.default_rng(77)
+    n = 4096
+    v = r.normal(size=(n, 3))
+    pos = (v / np.linalg.norm(v, axis=1, keepdims=True)
+           * (C.PLANET_R + r.uniform(0, 60e3, (n, 1)))).astype(np.float32)
+    v = r.normal(size=(n, 3))
+    d = (v / np.linalg.norm(v, axis=1, keepdims=True)).astype(np.float32)
+    t0 = r.uniform(0, 1e5, n).astype(np.float32)
+    t1 = (t0 + r.uniform(0, 3e5, n)).astype(np.float32)
+    ext = r.uniform(0, 3e-5, (n, 4, 3)).astype(np.float32)
+    seg, trans = tatm.density_check(T(pos), T(d), T(t0), T(t1), T(ext))
+    assert seg.shape == (n, 3) and trans.shape == (n, 4)
+    mostly_close(seg, jatm.density_integral_segment(J(pos), J(d), J(t0), J(t1)),
+                 rtol=2e-3, atol=1.0, share=0.999)
+    mostly_close(trans, jatm.rmo_transmittance_to_space(J(ext), J(pos), J(d)),
+                 rtol=2e-4, atol=1e-6, share=0.999)
+
+
 # --- render/camera, render/params --------------------------------------------
 
 

@@ -9,7 +9,7 @@ it run it as
 Stated tolerances (kernel vs twin, same inputs, same CUDA libm, op-by-op
 rounding on both sides): hit/miss and event agreement >= 99.9%, median
 relative distance error < 1e-6, mean ratio transmittance within 1e-4; the
-threefry header is bit-equal.
+threefry header is bit-equal. The bounce's kernels state theirs below.
 """
 
 import os
@@ -172,10 +172,12 @@ def test_main_path_uses_every_kernel_and_matches_golden(dev):
     )
     r.fetch_image()
     counts = kernels.launch_counts()
-    main_path = ("land_march", "rmo_delta_track", "cloud_track", "gen_rays", "frame_end",
-                 "film_postprocess")
+    main_path = ("bounce", "compact_lanes", "gen_rays", "frame_end", "film_postprocess")
     assert all(counts[k] > 0 for k in main_path), counts
-    assert counts["atmos_march"] == counts["select_tiles"] == 0, counts  # other paths' kernels
+    assert counts["compact_lanes"] >= counts["bounce"], counts
+    # the loops run inside bounce; the other paths' kernels do not launch
+    others = ("land_march", "rmo_delta_track", "cloud_track", "atmos_march", "select_tiles")
+    assert all(counts[k] == 0 for k in others), counts
     buf = r.color_buffer.cpu().numpy()
     share = np.isclose(buf, golden["color_buffer"], rtol=1e-3, atol=1e-7).all(-1).mean()
     assert share >= 0.90
@@ -309,7 +311,8 @@ def test_frame_end_kernel(dev, counts):
         lambda_pdf=torch.rand((n, L), generator=g) * 0.01,
         throughput=torch.rand((n, L), generator=g) * 1.5, radiance=rad,
         w_mis=torch.rand((n, L), generator=g) + 0.5, alive=torch.zeros(n, dtype=torch.bool),
-        primary_miss=torch.rand(n, generator=g) < 0.4, rng=torch.zeros((n, 2), dtype=torch.int64))
+        primary_miss=torch.rand(n, generator=g) < 0.4, rng=torch.zeros((n, 2), dtype=torch.int64),
+        work_class=torch.zeros(n, dtype=torch.int32))
     st = pt.TraceState(**{k: v.to(dev) for k, v in fields.items()})
     atlas = build_atlas(generate_earth_textures((64, 128), seed=3), dev)
     miss = fe.MissShading(st, scene, atlas, load_spectral_luts(dev), TraceConfig())
@@ -394,3 +397,154 @@ def test_select_tiles_kernel_with_nan_scores(dev, case):
         want = adaptive.select_tiles_plain(*bufs, block, k)
         assert torch.equal(got, want)
         assert got.unique().numel() == k and 0 <= got.min().item() and got.max().item() < n_tiles
+
+
+# --- the bounce: bounce, compact_lanes, density_check ------------------------
+# Stated tolerances (kernel vs twin, same inputs, on the card): compact_lanes
+# bit-equal; bounce on at least 99% of a 32x18 frame's live lanes the same
+# alive, primary_miss and work_class and every value within 1e-4 relative
+# (atol 1e-6 of each field's largest value; one flipped lane is 0.2% of 576),
+# directions within 2e-4 absolute (chip_smoke.py DIR_ANGLE says why);
+# density_check within 1e-4 relative on at least 99.9% of lanes.
+
+
+def _golden_state(dev, bounce):
+    """The 32x18 golden frame's wavefront of Apollo 11 just before
+    ``bounce``, advanced there by the kernel path."""
+    from digital_earth_tpu_torch.app.config_io import apply_config
+    from digital_earth_tpu_torch.render import raygen
+    from digital_earth_tpu_torch.render.renderer import Renderer
+
+    cfg = TraceConfig(max_bounces=4, land_march_steps=64, max_tracking_steps=256)
+    r = Renderer(dev, image_res=(32, 18), cfg=cfg,
+                 atlas=build_atlas(generate_earth_textures((64, 128), seed=3), dev))
+    apply_config(r, load_config(os.path.join(ROOT, "scenes", "config - Apollo 11.txt")))
+    n = 32 * 18
+    rays = raygen.gen_rays(r._seed_key, 0, 0, n, (32, 18), (1, 18), r.camera_params(), r.luts,
+                           False)
+    pos = r.camera_params().position.expand(n, 3).contiguous()
+    st = pt.init_state(pos, rays.dirs, rays.wavelengths, rays.pdf, rays.keys)
+    args = (r.scene_params(), r.atlas, r.luts, cfg)
+    st = pt.run_bounces(st, *args, 0, bounce)
+    return st, args
+
+
+@pytest.mark.parametrize("bounce", [0, 3])
+def test_bounce_kernel(dev, bounce):
+    from digital_earth_tpu_torch import kernels
+    from digital_earth_tpu_torch.render import compact
+
+    st, args = _golden_state(dev, bounce)
+    idx, n_live = compact.compact_by_alive(st.alive, st.work_class)
+    idx = idx[: int(n_live)]
+    assert idx.numel() > 0
+    want = pt.run_bounce_plain(st.take(idx.long()), bounce, *args)
+    before = kernels.bounce.launches
+    pt.run_bounce(st, idx, bounce, *args)
+    assert kernels.bounce.launches == before + 1
+    got = st.take(idx.long())
+    outcome = ((got.alive == want.alive) & (got.primary_miss == want.primary_miss)
+               & (got.work_class == want.work_class))
+    ok = outcome.clone()
+    for name in ("pos", "throughput", "radiance", "w_mis"):
+        g, w = getattr(got, name), getattr(want, name)
+        atol = 1e-6 * w.abs().max().clamp(min=1e-30)
+        ok &= ((g - w).abs() <= 1e-4 * w.abs() + atol).all(-1)
+    ok &= ((got.direction - want.direction).abs() <= 2e-4).all(-1)
+    assert ok.float().mean().item() >= 0.99
+
+
+@pytest.mark.parametrize("case", ["empty", "all_dead", "all_alive", "mixed", "frame"])
+def test_compact_lanes_kernel(dev, case):
+    from digital_earth_tpu_torch import kernels
+    from digital_earth_tpu_torch.render import compact
+
+    g = torch.Generator().manual_seed(7)
+    n = {"empty": 0, "frame": 1920 * 1080}.get(case, 4099)
+    alive = torch.rand(n, generator=g) < 0.4
+    if case == "all_dead":
+        alive[:] = False
+    elif case == "all_alive":
+        alive[:] = True
+    wc = torch.randint(-1, 5, (n,), generator=g, dtype=torch.int32)
+    alive, wc = alive.to(dev), wc.to(dev)
+    before = kernels.compact_lanes.launches
+    idx, n_live = compact.compact_by_alive(alive, wc)
+    assert kernels.compact_lanes.launches == before + 1
+    want, want_n = compact.compact_by_alive_plain(alive, wc)
+    m = int(want_n)
+    assert int(n_live) == m == int(alive.sum())
+    assert torch.equal(idx[:m], want[:m])
+
+
+def test_density_check_kernel(case):
+    from digital_earth_tpu_torch.models import atmosphere_lut as atm
+
+    pos, d = case["pos"], case["dirs"]
+    g = torch.Generator().manual_seed(8)
+    t0 = (torch.rand(N, generator=g) * 1e5).to(pos.device)
+    t1 = t0 + (torch.rand(N, generator=g) * 3e5).to(pos.device)
+    ext = (torch.rand((N, 4, 3), generator=g) * 3e-5).to(pos.device)
+    seg, trans = atm.density_check(pos, d, t0, t1, ext)
+    want_seg = atm.density_integral_segment(pos, d, t0, t1)
+    want_trans = atm.rmo_transmittance_to_space(ext, pos, d)
+    for got, want in ((seg, want_seg), (trans, want_trans)):
+        atol = 1e-6 * want.abs().max()
+        close = ((got - want).abs() <= 1e-4 * want.abs() + atol).all(-1)
+        assert close.float().mean().item() >= 0.999
+
+
+def test_bounce_launchers_check_their_inputs(case):
+    from digital_earth_tpu_torch import kernels
+    from digital_earth_tpu_torch.models import atmosphere_lut as atm
+
+    dev = case["pos"].device
+    alive = torch.ones(8, dtype=torch.bool, device=dev)
+    with pytest.raises(ValueError, match="dtype"):
+        kernels.compact_lanes(alive, torch.zeros(8, dtype=torch.int64, device=dev))
+    with pytest.raises(ValueError, match="shape"):
+        kernels.compact_lanes(alive, torch.zeros(4, dtype=torch.int32, device=dev))
+    pos = case["pos"][:8].contiguous()
+    z = torch.zeros(8, device=dev)
+    with pytest.raises(ValueError, match="shape"):
+        kernels.density_check(pos, pos, z, z, torch.zeros((8, 3, 3), device=dev),
+                              atm.density_table(dev))
+    st, args = _golden_state(dev, 0)
+    frame = pt.BounceFrame(st, *args)
+    idx = torch.arange(8, dtype=torch.int32, device=dev)
+    fields = [st.pos, st.direction, st.wavelength, st.lambda_pdf, st.throughput, st.radiance,
+              st.w_mis, st.alive, st.primary_miss, st.work_class, frame.keys]
+    iparams = list(frame.iparams)
+    with pytest.raises(ValueError, match="dtype"):
+        kernels.bounce(frame.fparams, iparams, *fields, idx.long(), *frame.tables)
+    with pytest.raises(ValueError, match="wavelengths"):
+        kernels.bounce(frame.fparams, [3] + iparams[1:], *fields, idx, *frame.tables)
+    with pytest.raises(ValueError, match="contiguous"):
+        bad = list(fields)
+        bad[0] = st.direction.t().contiguous().t()
+        kernels.bounce(frame.fparams, iparams, *bad, idx, *frame.tables)
+    # lane ids outside the state are skipped, the rest advance as without them
+    n = st.alive.numel()
+    outside = torch.tensor([n + 5, -3], dtype=torch.int32, device=dev)
+    runs = []
+    for ids in (idx, torch.cat([idx, outside])):
+        s2 = pt.TraceState(**{k: v.clone() for k, v in vars(st).items()})
+        pt.run_bounce(s2, ids, 0, *args, frame)
+        runs.append(s2)
+    for name in ("pos", "direction", "throughput", "radiance", "w_mis", "alive", "work_class"):
+        assert torch.equal(getattr(runs[0], name), getattr(runs[1], name)), name
+
+
+@pytest.mark.parametrize("bilinear", [True, False])
+def test_sphere_tap_kernel(case, bilinear):
+    """The bounce's material (8-channel) and topography (4-channel) taps
+    against ops/texture.sample_sphere_texture: within 1e-5 (the same op-by-op
+    rounding; chip_smoke.py TAP_ATOL)."""
+    from digital_earth_tpu_torch import kernels
+    from digital_earth_tpu_torch.ops import texture as tx
+
+    for tex in (case["atlas"].material, case["atlas"].topography):
+        got = kernels.sphere_tap(tex, case["pos"], bilinear)
+        want = tx.sample_sphere_texture(tex, case["pos"], bilinear=bilinear)
+        assert got.shape == want.shape
+        assert (got - want).abs().max().item() <= 1e-5

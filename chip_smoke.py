@@ -80,17 +80,31 @@ Adaptive tile sampling (Apollo 11 at 1920x1080, default ``TraceConfig()``):
     preview frame (latency printed), the frame-rate controller sets the
     passes per frame.
 
+The tier-2 texture path (the launch counts set to 0 before the atlas is
+built and read after its render):
+
+19. ``upsampled_procedural_atlas(dev, (10800, 21600))`` from the shipped
+    1350x2700 base: host load, upload and the four ``upsample`` launches
+    timed apart, ``max_memory_allocated``; ``render_offline`` of Apollo 11
+    at 1920x1080, default ``TraceConfig()``, 1 warm-up + 2 timed spp on it
+    under phase 6's gates (and 4 ``upsample`` launches), s/spp beside
+    phase 6's; ``upsample`` bit-equal to its twin on the four full-size
+    planes (timed beside the twin and an expand + reshape copy); ``bounce``
+    against its twin at tier-2 bounce 0 under phase 8's gates; a 480x270
+    preview frame on the same atlas.
+
 Last, since a profiler session can slow the launches after it:
 
-19. Apollo 11, florida and sunset hurricane at 1920x1080, default
-    ``TraceConfig()``: s/spp (1 warm-up, 1 timed), then one spp under
-    ``torch.profiler``: device kernels per spp (at most
-    MAX_KERNELS_PER_SPP), the device-busy share, the kernels with the most
-    device time.
+20. Apollo 11 (on the 1024x2048 and on the tier-2 atlas), florida and
+    sunset hurricane at 1920x1080, default ``TraceConfig()``: s/spp (1
+    warm-up, 1 timed), then one spp under ``torch.profiler``: device
+    kernels per spp (at most MAX_KERNELS_PER_SPP), the device-busy share,
+    the kernels with the most device time, ``bounce``'s device time.
 
 The line before the last is the card's name and power limit; before it, one
 JSON line lists each kernel with its launches (``select_tiles`` makes four
-per call, ``compact_lanes`` three, counted as one), error, times and bound (the least time the card could take: the
+per call, ``compact_lanes`` three, counted as one; ``upsample`` four per
+atlas, its times the four planes' sums), error, times and bound (the least time the card could take: the
 larger of the bytes it must move at 3.35 TB/s and the operations at 67
 TFLOP/s, counted from this run's inputs, a transcendental as one
 operation). The last line is {"ok": true, "device": {...}}.
@@ -146,6 +160,13 @@ DENSITY_RTOL = 1e-4  # density_check vs the plain lookups (atol 1e-6 of the max)
 # atan2f/asinf
 TAP_ATOL = 1e-5
 MAX_KERNELS_PER_SPP = 300
+# The tier-2 atlas: the JAX bench's headline textures (bench.py --texture-res
+# 10800), the shipped 1350x2700 base upsampled 8x on the card.
+TIER2_RES = (10800, 21600)
+# upsample's operations per jittered texel (csrc/upsample.cu): the hash (the
+# seed's xor, three xor-shifts of 2, two multiplies: 9) and the scale (two
+# conversions, the 2^-32 scale, jitter * u, 1 - that, the multiply, rint: 7)
+UPSAMPLE_JITTER_OPS = 16
 MAIN_PATH = ("bounce", "compact_lanes", "gen_rays", "frame_end", "film_postprocess")
 # kernels whose loops now run inside bounce: none of their own launches on
 # the path tracer's run (held against their twins in their own phase)
@@ -300,17 +321,11 @@ def _clone_state(st):
     return pt.TraceState(**{k: v.clone() for k, v in vars(st).items()})
 
 
-def capture_inputs(torch, dev, atlas, luts):
-    """One spp of the main path's frame through the kernels. Keeps the
-    bounce's full input state and live list at bounce 0 and DEEP_BOUNCE,
-    the alive vectors the deepest bounce's compaction saw, and the frame's
-    end-of-sweep state. Then runs the bounce's plain twin on the card on each
-    kept state (its tracker calls launch the tracker kernels), keeping its
-    output and, per tracker call kind, a copy of the arguments of the call
-    with the most active lanes, bounce 0's arguments of the two table
-    lookups (the flight's segment integrals, the NEE origins' transmittance)
-    and its surface points (the material tap's). Returns (tracker arguments, bounce states, deepest alive vectors, lookup
-    arguments, frame_end arguments)."""
+def capture_states(torch, dev, atlas, luts, bounces):
+    """One spp of the main path's frame through the kernels on ``atlas``.
+    Keeps the bounce's full input state and live list at each of
+    ``bounces``, the alive vectors the deepest bounce's compaction saw, and
+    the frame's end-of-sweep state: (states, deepest, frame_end arguments)."""
     from digital_earth_tpu_torch.app.config_io import apply_config, load_config
     from digital_earth_tpu_torch.render import pathtracer as pt
     from digital_earth_tpu_torch.render.renderer import Renderer
@@ -320,7 +335,7 @@ def capture_inputs(torch, dev, atlas, luts):
 
     def keep_state(st, idx, b, *args):
         deepest.update(bounce=b, alive=st.alive.clone(), work_class=st.work_class.clone())
-        if b in (0, DEEP_BOUNCE):
+        if b in bounces:
             states[b] = dict(st=_clone_state(st), idx=idx.clone(), args=args[:4])
         return run_bounce(st, idx, b, *args)
 
@@ -332,9 +347,24 @@ def capture_inputs(torch, dev, atlas, luts):
         torch.cuda.synchronize()
     finally:
         pt.run_bounce = run_bounce
-    if set(states) != {0, DEEP_BOUNCE}:
-        fail(f"the capture frame did not reach bounce {DEEP_BOUNCE}: {sorted(states)}")
+    if set(states) != set(bounces):
+        fail(f"the capture frame did not reach bounces {bounces}: {sorted(states)}")
+    return states, deepest, frame_end_args
 
+
+def capture_inputs(torch, dev, atlas, luts):
+    """One spp of the main path's frame through the kernels
+    (``capture_states`` at bounces 0 and DEEP_BOUNCE). Then runs the
+    bounce's plain twin on the card on each kept state (its tracker calls
+    launch the tracker kernels), keeping its output and, per tracker call
+    kind, a copy of the arguments of the call with the most active lanes,
+    bounce 0's arguments of the two table lookups (the flight's segment
+    integrals, the NEE origins' transmittance) and its surface points (the
+    material tap's). Returns (tracker arguments, bounce states, deepest
+    alive vectors, lookup arguments, frame_end arguments)."""
+    from digital_earth_tpu_torch.render import pathtracer as pt
+
+    states, deepest, frame_end_args = capture_states(torch, dev, atlas, luts, (0, DEEP_BOUNCE))
     captured, lookups = {}, {}
     state = {"bounce": None}
     originals = {name: getattr(pt, name) for name in
@@ -551,6 +581,16 @@ def check_bounce(torch, states):
               + "; max rel err on agreeing lanes "
               + ", ".join(f"{k} {v[1]:.3e}" for k, v in errs.items())
               + f"  kernel {ms:.3f} ms  {'ok' if ok else 'FAIL'}")
+        if not bool(lane_ok.all()):
+            # the stage of the lanes that disagree: the class they entered
+            # the bounce with and the twin's next class (alive lanes only)
+            bad = ~lane_ok
+            entered = st0.work_class[idx.long()][bad].long().clamp(0, 2)
+            nxt = want.work_class[bad & want.alive].long().clamp(0, 2)
+            print(f"bounce {b}: lanes not agreeing by entering class (cloud, gas, surface) "
+                  f"{torch.bincount(entered, minlength=3).tolist()}, by the twin's next class "
+                  f"{torch.bincount(nxt, minlength=3).tolist()} "
+                  f"({int((bad & ~want.alive).sum())} dead in the twin)")
         if not ok:
             fail(f"the bounce kernel disagrees with its plain twin at bounce {b}")
         row["max_abs_err"] = max(row["max_abs_err"], errs["radiance"][0])
@@ -665,7 +705,7 @@ def check_texture(torch, lookups, atlas):
 
 def profile_spp(torch, r, label):
     """One accumulate() under torch.profiler: (device kernels, device-busy
-    seconds, wall seconds under the profiler)."""
+    seconds, wall seconds under the profiler, device us by kernel name)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -686,7 +726,7 @@ def profile_spp(torch, r, label):
           f" copies/sets) per spp, device busy {busy:.4f} s of {wall:.4f} s profiled wall "
           f"({busy / wall:.3f}); most device time: "
           + ", ".join(f"{name[:40]} {us / 1e3:.2f} ms" for name, us in top))
-    return len(kernels_only), busy, wall
+    return len(kernels_only), busy, wall, by_name
 
 
 def check_golden(torch, dev):
@@ -827,7 +867,7 @@ def check_film(torch, buf, crf_curves):
     return row
 
 
-def preview_frame(torch, dev, atlas, luts):
+def preview_frame(torch, dev, atlas, luts, label=""):
     """The preview frame at 480x270: timed, its launches counted, and
     atmos_march held against its twin on the arguments of bounces 0 and 1.
     Returns (launch counts of one frame, JSON row, the frame_end arguments)."""
@@ -863,7 +903,8 @@ def preview_frame(torch, dev, atlas, luts):
         times.append(time.time() - t0)
         counts = kernels.launch_counts()
     finite = bool(torch.isfinite(img).all()) and bool(torch.isfinite(r.color_buffer).all())
-    print(f"preview frame Apollo 11 {PREVIEW_RES[0]}x{PREVIEW_RES[1]} (accumulate + fetch_image, "
+    print(f"preview frame Apollo 11 {PREVIEW_RES[0]}x{PREVIEW_RES[1]}{' ' + label if label else ''} "
+          f"(accumulate + fetch_image, "
           f"warm): {' '.join(f'{t * 1e3:.1f}' for t in times)} ms; launches {counts}; "
           f"finite {finite}, buffer mean {r.color_buffer.mean().item():.6g}")
     if not (counts["atmos_march"] > 0 and counts["land_march"] > 0 and counts["gen_rays"] > 0
@@ -1287,6 +1328,175 @@ def check_adaptive_viewer(torch, dev, atlas, luts):
     return counts
 
 
+def check_main_path(torch, counts, r, img, label):
+    """Phase 6's gates on a main-path run's launch counts, buffer and image."""
+    buf = r.color_buffer
+    finite = bool(torch.isfinite(buf).all())
+    mean = buf.mean().item()
+    print(f"launches on the {label}: {counts}; buffer finite {finite}, mean {mean:.6g}")
+    if not all(counts[k] > 0 for k in MAIN_PATH):
+        fail(f"a kernel of the {label} never launched: {counts}")
+    if any(counts[k] for k in INLINED):
+        fail(f"the path tracer launched a loop kernel of its own instead of bounce: {counts}")
+    if not (counts["compact_lanes"] >= counts["bounce"] and counts["gen_rays"] == 3
+            and counts["bounce"] <= 3 * r.cfg.max_bounces):
+        fail(f"bounce and compact_lanes did not launch once per bounce: {counts}")
+    if not (finite and mean > 0.0):
+        fail(f"the accumulated buffer of the {label} is not finite with a positive mean")
+    if not (bool(torch.isfinite(img).all()) and img.shape == (*RES, 3)):
+        fail("fetch_image is not a finite (W, H, 3) image")
+
+
+def build_tier2_atlas(torch, dev):
+    """``upsampled_procedural_atlas(dev, TIER2_RES)`` from the shipped
+    1350x2700 base, through a fresh cache under build/: the host load (the
+    base's npz, its max-mips, the planes' cache), the upload and the four
+    ``upsample`` launches timed apart (host clock, synchronized). Returns
+    (atlas, each launch's arguments)."""
+    import shutil
+
+    from digital_earth_tpu_torch.assets import textures as tex
+    from digital_earth_tpu_torch.ops import texture as tx
+
+    cache = os.path.join(ROOT, "build", "chip_smoke", "texture_cache")
+    shutil.rmtree(cache, ignore_errors=True)
+    spent = {"host": 0.0, "kernel": []}
+    calls = []
+    cached, up = tex.cached_atlas_arrays, tx.upsample
+
+    def timed_cached(*args, **kwargs):
+        t0 = time.time()
+        out = cached(*args, **kwargs)
+        spent["host"] += time.time() - t0
+        return out
+
+    def timed_up(base, *args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = up(base, *args, **kwargs)
+        torch.cuda.synchronize()
+        spent["kernel"].append(time.time() - t0)
+        calls.append((base, args, kwargs))
+        return out
+
+    tex.cached_atlas_arrays, tx.upsample = timed_cached, timed_up
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        atlas = tex.upsampled_procedural_atlas(dev, TIER2_RES, cache_dir=cache)
+        torch.cuda.synchronize()
+        total = time.time() - t0
+    finally:
+        tex.cached_atlas_arrays, tx.upsample = cached, up
+    upload = total - spent["host"] - sum(spent["kernel"])
+    base_mb = sum(c[0].numel() for c in calls) / 1e6
+    shapes = {name: tuple(getattr(atlas, name).shape) for name in tex.TextureAtlas._fields}
+    print(f"tier-2 atlas {TIER2_RES[1]}x{TIER2_RES[0]}: {total:.3f} s = host load "
+          f"{spent['host']:.3f} s (shipped base, max-mips, plane cache) + upload {upload:.3f} s "
+          f"({base_mb:.1f} MB of base planes) + upsample launches "
+          f"{' '.join(f'{t * 1e3:.2f}' for t in spent['kernel'])} ms (host clock, synchronized); "
+          f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {shapes}")
+    want = {"material": 8, "topography": 4, "clouds": 4, "stars": 3}
+    if len(calls) != 4 or any(shapes[k] != (*TIER2_RES, c) for k, c in want.items()):
+        fail(f"the tier-2 atlas is not four upsampled {TIER2_RES} planes: {shapes}")
+    return atlas, calls
+
+
+def check_upsample(torch, calls, atlas):
+    """``upsample`` bit-equal to ``upsample_plain`` on the card on the four
+    full-size planes of the tier-2 atlas, each timed beside its twin and
+    the one PyTorch copy of the plain repeat: a JSON row for the atlas (the
+    four planes' sums)."""
+    from digital_earth_tpu_torch.assets.textures import TextureAtlas
+    from digital_earth_tpu_torch.ops import texture as tx
+
+    row = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0, ops=0)
+    for name, (base, args, kwargs) in zip(TextureAtlas._fields, calls):
+        got = getattr(atlas, name)
+        want = tx.upsample_plain(base, *args, **kwargs)
+        equal = torch.equal(got, want)
+        err = 0.0 if equal else (got.to(torch.int16) - want.to(torch.int16)).abs().max().item()
+        del want
+        _, ms = _time_ms(torch, lambda: tx.upsample(base, *args, **kwargs), 5)
+        _, plain_ms = _plain_ms(torch, lambda: tx.upsample_plain(base, *args, **kwargs))
+        h, w, c = base.shape
+        f = args[0]
+        _, lib_ms = _time_ms(
+            torch, lambda: base[:, None, :, None].expand(h, f, w, f, c).reshape(h * f, w * f, c), 5)
+        jittered = kwargs.get("jitter", 0.0) > 0.0
+        # the base read once, the plane written once; per jittered texel
+        # the hash and the scale
+        nbytes = base.numel() + got.numel()
+        b_ms, b_by = bound(nbytes, UPSAMPLE_JITTER_OPS * h * f * w * f if jittered else None)
+        print(f"upsample {name} {tuple(base.shape)} x{f} -> {tuple(got.shape)}"
+              f"{' jitter ' + str(kwargs['jitter']) + ' seed ' + hex(kwargs['jitter_seed']) if jittered else ''}: "
+              f"bit-equal {equal} (max abs err {err})  kernel {ms:.3f} ms  plain {plain_ms:.2f} ms  "
+              f"expand+reshape copy {lib_ms:.3f} ms{' (without the jitter)' if jittered else ''}  "
+              f"bound {b_ms:.4f} ms ({b_by})  {'ok' if equal else 'FAIL'}")
+        if not equal:
+            fail(f"upsample disagrees with its plain twin on the {name} plane")
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        for k, v in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", lib_ms), ("bytes", nbytes)):
+            row[k] += v
+        row["ops"] += UPSAMPLE_JITTER_OPS * h * f * w * f if jittered else 0
+    return row
+
+
+def check_tier2(torch, dev, luts, s_per_spp):
+    """The tier-2 texture path: the atlas built on the card (its launches
+    counted from 0 with the render's), Apollo 11 at 1920x1080 with default
+    ``TraceConfig()`` on it under phase 6's gates (s/spp beside the
+    1024x2048 atlas's ``s_per_spp`` of this run), ``upsample`` against its
+    twin, ``bounce`` against its twin at tier-2 bounce 0, and a 480x270
+    preview frame. Returns (atlas, the upsample JSON row, launch counts)."""
+    from digital_earth_tpu_torch import kernels
+    from digital_earth_tpu_torch.app.config_io import load_config
+    from digital_earth_tpu_torch.app.viewer import encode_png, render_offline
+    from digital_earth_tpu_torch.render import pathtracer as pt
+
+    w, h = RES
+    kernels.reset_launch_counts()
+    atlas, calls = build_tier2_atlas(torch, dev)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    r = render_offline(load_config(SCENE), dev, spp=1, image_res=RES, out_path=None,
+                       atlas=atlas, luts=luts)
+    torch.cuda.synchronize()
+    warmup_s = time.time() - t0
+    t0 = time.time()
+    for _ in range(2):
+        r.accumulate()
+    torch.cuda.synchronize()
+    dt = (time.time() - t0) / 2
+    img = r.fetch_image()
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    print(f"render_offline Apollo 11 {w}x{h} on the tier-2 {TIER2_RES[1]}x{TIER2_RES[0]} atlas, "
+          f"default TraceConfig, 3 spp: warm-up {warmup_s:.2f} s, {dt:.3f} s/spp "
+          f"({dt / s_per_spp:.2f}x the 1024x2048 atlas's {s_per_spp:.3f} s/spp in this run), "
+          f"{w * h / dt:.1f} paths/s, max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    check_main_path(torch, counts, r, img, "tier-2 main path")
+    if counts["upsample"] != 4:
+        fail(f"the tier-2 atlas did not take four upsample launches: {counts}")
+    with open(os.path.join(ROOT, "build", "chip_smoke", "apollo11_1080p_tier2_3spp.png"), "wb") as f:
+        f.write(encode_png(r.fetch_image_np()))
+    del r, img
+
+    row = check_upsample(torch, calls, atlas)
+    del calls
+    states, _, _ = capture_states(torch, dev, atlas, luts, (0,))
+    c = states[0]
+    c["twin"] = pt.run_bounce_plain(c["st"].take(c["idx"].long()), 0, *c["args"])
+    torch.cuda.synchronize()
+    print("tier-2 atlas, bounce against its twin:")
+    check_bounce(torch, states)
+    del states, c
+    preview_frame(torch, dev, atlas, luts, "on the tier-2 atlas")
+    return atlas, row, counts
+
+
 def main():
     try:
         import torch
@@ -1318,7 +1528,8 @@ def main():
     check_threefry(torch, dev)
 
     t0 = time.time()
-    atlas = procedural_texture_atlas(dev, (1024, 2048), seed=7)
+    atlas = procedural_texture_atlas(dev, (1024, 2048), seed=7,
+                                     cache_dir=os.path.join(ROOT, "build", "chip_smoke", "texture_cache"))
     print(f"procedural 1024x2048 atlas: {time.time() - t0:.1f} s")
     luts = load_spectral_luts(dev)
     captured, states, deepest, lookups, frame_end_whole = capture_inputs(torch, dev, atlas, luts)
@@ -1348,23 +1559,10 @@ def main():
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
     buf = r.color_buffer
-    finite = bool(torch.isfinite(buf).all())
-    mean = buf.mean().item()
     print(f"render_offline Apollo 11 {w}x{h}, default TraceConfig, 3 spp: "
           f"warm-up {warmup_s:.2f} s, {dt:.3f} s/spp, {w * h / dt:.1f} paths/s, "
           f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    print(f"launches on the main path: {counts}; buffer finite {finite}, mean {mean:.6g}")
-    if not all(counts[k] > 0 for k in MAIN_PATH):
-        fail(f"a kernel of the main path never launched: {counts}")
-    if any(counts[k] for k in INLINED):
-        fail(f"the path tracer launched a loop kernel of its own instead of bounce: {counts}")
-    if not (counts["compact_lanes"] >= counts["bounce"] and counts["gen_rays"] == 3
-            and counts["bounce"] <= 3 * r.cfg.max_bounces):
-        fail(f"bounce and compact_lanes did not launch once per bounce: {counts}")
-    if not (finite and mean > 0.0):
-        fail("the accumulated buffer is not finite with a positive mean")
-    if not (bool(torch.isfinite(img).all()) and img.shape == (w, h, 3)):
-        fail("fetch_image is not a finite (W, H, 3) image")
+    check_main_path(torch, counts, r, img, "main path")
     out_dir = os.path.join(ROOT, "build", "chip_smoke")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "apollo11_1080p_3spp.png"), "wb") as f:
@@ -1407,21 +1605,30 @@ def main():
     del warm_bufs, after4
     check_adaptive_viewer(torch, dev, atlas, luts)
 
+    # --- the tier-2 texture path -------------------------------------------
+    atlas2, rows["upsample"], tier2_counts = check_tier2(torch, dev, luts, dt)
+
     # --- kernels per spp (last: a profiler session can slow later launches)
-    for scene in (SCENE,) + tuple(os.path.join(ROOT, "scenes", s) for s in OTHER_SCENES):
-        label = f"{os.path.basename(scene)[9:-4]} {w}x{h}"
+    runs = [(SCENE, atlas, ""), (SCENE, atlas2, " tier-2 atlas")]
+    runs += [(os.path.join(ROOT, "scenes", s), atlas, "") for s in OTHER_SCENES]
+    for scene, run_atlas, suffix in runs:
+        label = f"{os.path.basename(scene)[9:-4]} {w}x{h}{suffix}"
         r = render_offline(load_config(scene), dev, spp=1, image_res=RES, out_path=None,
-                           atlas=atlas, luts=luts)
+                           atlas=run_atlas, luts=luts)
         torch.cuda.synchronize()
         t0 = time.time()
         r.accumulate()
         torch.cuda.synchronize()
         print(f"render_offline {label}, default TraceConfig: {time.time() - t0:.3f} s/spp "
               f"(1 warm-up spp, then 1 timed)")
-        n_kernels, _, _ = profile_spp(torch, r, label)
+        n_kernels, busy, _, by_name = profile_spp(torch, r, label)
+        bounce_us = sum(us for name, us in by_name.items() if "bounce_kernel" in name)
+        print(f"profile {label}: bounce {bounce_us / 1e3:.2f} ms of {busy * 1e3:.2f} ms "
+              f"device-busy per spp")
         if not 0 < n_kernels <= MAX_KERNELS_PER_SPP:
             fail(f"{n_kernels} device kernels per {label} spp (expected 1-{MAX_KERNELS_PER_SPP})")
         del r
+    del atlas2
 
     loaded = sorted(k for k in sys.modules
                     if k.split(".")[0] in ("jax", "jaxlib", "digital_earth_tpu"))
@@ -1449,19 +1656,24 @@ def main():
                    "digital_earth_tpu/render/pathtracer.py:1554"),
         "compact_lanes": ("cuda", "digital_earth_tpu_torch/csrc/compact_lanes.cu",
                           "digital_earth_tpu/render/renderer.py:84"),
+        "upsample": ("cuda", "digital_earth_tpu_torch/csrc/upsample.cu",
+                     "digital_earth_tpu/ops/texture.py:74"),
     }
     # launches: the main path's run (0 for the trackers, whose loops run
     # inside bounce there), or for the preview's kernels the preview frame's
-    # run, for select_tiles the adaptive run's
+    # run, for select_tiles the adaptive run's, for upsample the tier-2 run's
+    # (its atlas and render)
     launches = dict(counts, atmos_march=preview_counts["atmos_march"],
                     land_march=preview_counts["land_march"],
-                    select_tiles=adaptive_counts["select_tiles"])
+                    select_tiles=adaptive_counts["select_tiles"],
+                    upsample=tier2_counts["upsample"])
     entries = []
     for name, (route, src, rep) in sources.items():
         row = rows[name]
         bound_ms, bound_by = bound(row["bytes"], row["ops"])
         # one PyTorch call computes compact_lanes's order (a stable
-        # argsort), none the others' functions
+        # argsort) and upsample's repeat (expand + reshape; without the
+        # jitter on two of the four planes), none the others' functions
         entries.append({"name": name, "route": route, "source": src, "replaces": rep,
                         "launches": launches[name], "max_abs_err": row["max_abs_err"],
                         "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": bound_ms,

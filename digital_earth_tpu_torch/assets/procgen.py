@@ -1,7 +1,8 @@
 """Procedural Earth-like texture synthesis (numpy; a copy of
-digital_earth_tpu/assets/procgen.py without its disk cache, so the port
-imports nothing of the JAX package; tests/test_torch_elementwise.py holds
-the two outputs equal).
+digital_earth_tpu/assets/procgen.py, so the port imports nothing of the JAX
+package; tests/test_torch_elementwise.py holds the two outputs equal). The
+disk cache (``cached_earth_textures``) keeps the JAX package's lookup order
+in a directory of the port's own.
 
 The reference renders NASA equirect imagery downloaded out-of-band
 (reference README.md:28-29, lib/textures.py:10-46); when those files are not
@@ -15,9 +16,12 @@ All maps are (H, W[, C]) uint8, row 0 = north pole, u wraps in longitude.
 
 from __future__ import annotations
 
+import os
 from typing import Dict
 
 import numpy as np
+
+from .luts import DATA_DIR
 
 
 def _upsample_wrap(grid, h, w):
@@ -150,3 +154,31 @@ def generate_earth_textures(resolution=(1024, 2048), seed=7) -> Dict[str, np.nda
         "emissive": to_u8(emissive),
         "stars": to_u8(stars_rgb),
     }
+
+
+def default_cache_dir() -> str:
+    """``~/.cache/digital_earth_tpu_torch``: the port's own, so neither
+    package reads the other's cache."""
+    return os.path.join(os.path.expanduser("~"), ".cache", "digital_earth_tpu_torch")
+
+
+def cached_earth_textures(resolution=(1024, 2048), seed=7, cache_dir=None):
+    """Generate-or-load the procedural set from an npz cache (port of
+    digital_earth_tpu/assets/procgen.py:153-178): the cache directory first,
+    then the pre-generated ``procgen_{h}x{w}_s{seed}.npz`` shipped beside the
+    JAX package's assets (read as a file; the 1350x2700 seed-7 base of the
+    tier-2 atlas), else generate and save into the cache."""
+    name = f"procgen_{resolution[0]}x{resolution[1]}_s{seed}.npz"
+    cache_dir = default_cache_dir() if cache_dir is None else cache_dir
+    os.makedirs(cache_dir, exist_ok=True)
+    path = os.path.join(cache_dir, name)
+    if not os.path.exists(path):
+        shipped = os.path.join(DATA_DIR, name)
+        if os.path.exists(shipped):
+            path = shipped
+    if os.path.exists(path):
+        with np.load(path) as z:
+            return {k: z[k] for k in z.files}
+    tex = generate_earth_textures(resolution, seed)
+    np.savez_compressed(path, **tex)
+    return tex

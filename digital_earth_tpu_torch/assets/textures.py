@@ -1,22 +1,65 @@
 """Scene texture atlas as uint8 (H, W, C) tensors (port of
-digital_earth_tpu/assets/textures.py).
+digital_earth_tpu/assets/textures.py, with its semantics).
 
 The numpy atlas builders (``build_max_mip``, ``build_cloud_mip``,
 ``build_atlas_arrays``, textures.py:115-253) are copied here because the
-JAX module imports ``jax``; the procedural maps come from ``procgen``. Tier-0 NASA files
-load when present; the higher tiers and the device-upsampled tier-2
-procedural atlas (``Tex2D.from_upsampled``) wait for a later slice.
+JAX module imports ``jax``; the procedural maps come from ``procgen``. NASA
+files load per quality tier (``DE_TEXTURE_QUALITY``, tiers 0-2), each
+missing map filled procedurally. A fully procedural large tier is the
+device-upsampled atlas (``upsampled_procedural_atlas``): the cached
+1350x2700 base planes upsampled on the card by the ``upsample`` kernel
+(ops/texture.upsample), with the terrain-honesty jitter on topography and
+clouds.
 """
 
 from __future__ import annotations
 
 import os
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
-from .procgen import generate_earth_textures
+from ..ops import texture
+from .procgen import cached_earth_textures, default_cache_dir
+
+# Quality tiers (reference lib/textures.py:1-8); tier 0 (4K) is the default.
+TEXTURE_QUALITY = int(os.environ.get("DE_TEXTURE_QUALITY", "0"))
+TEX_RES_4K = (3840, 1920)
+TEX_RES_8K = (8100, 4050)
+TEX_RES_10K = (10800, 5400)
+TEX_RES_16K = (16200, 8100)
+TEX_RES_21K = (21600, 10800)
+
+_TIER_FILES = {
+    0: dict(
+        albedo="earth_color_4K.png",
+        topography="topography_4K.png",
+        ocean="earth_landocean_4K.png",
+        clouds="earth_clouds_4K.png",
+        bathymetry="earth_bathymetry_4k.png",
+        emissive="earth_nightlights_4K.png",
+        stars="stars_8K.jpg",
+    ),
+    1: dict(
+        albedo="earth_color_10K.png",
+        topography="topography_10K.png",
+        ocean="earth_landocean_8K.png",
+        clouds="earth_clouds_8K.png",
+        bathymetry="earth_bathymetry_10k.png",
+        emissive="earth_nightlights_10K.png",
+        stars="stars_16K.png",
+    ),
+    2: dict(
+        albedo="earth_color_21K.png",
+        topography="topography_21K.png",
+        ocean="earth_landocean_16K.png",
+        clouds="earth_clouds_21K.png",
+        bathymetry="earth_bathymetry_21k.png",
+        emissive="earth_nightlights_21K.png",
+        stars="stars_16K.png",
+    ),
+}
 
 
 class TextureAtlas(NamedTuple):
@@ -148,12 +191,32 @@ def build_atlas_arrays(arrays: dict) -> dict:
     }
 
 
-def pack_atlas(planes: dict, device) -> TextureAtlas:
-    """Image-space uint8 planes -> TextureAtlas on ``device``."""
-    return TextureAtlas(**{
-        name: torch.from_numpy(np.ascontiguousarray(planes[name])).to(device)
-        for name in TextureAtlas._fields
-    })
+# Terrain-honesty jitter of the device-upsampled tiers (JAX
+# assets/textures.py:243-250): each upsampled topography and cloud texel is
+# scaled by (1 - u * jitter), u a per-texel hash, downward only, so the
+# max-mips built from the base stay conservative.
+UPSAMPLE_JITTER = float(os.environ.get("DE_UPSAMPLE_JITTER", "0.06"))
+
+
+def pack_atlas(planes: dict, device, upsample: int = 1, jitter: float = None) -> TextureAtlas:
+    """Image-space uint8 planes -> TextureAtlas on ``device``, each plane
+    nearest-neighbour-upsampled there by the integer ``upsample`` when it
+    is above 1 (ops/texture.upsample), the topography and cloud maps with
+    the per-texel jitter (``UPSAMPLE_JITTER``; channel 0 only, so the mip
+    channels stay exact)."""
+    if jitter is None:
+        jitter = UPSAMPLE_JITTER
+
+    def plane(name, **kw):
+        t = torch.from_numpy(np.ascontiguousarray(planes[name])).to(device)
+        return texture.upsample(t, upsample, **kw) if upsample > 1 else t
+
+    return TextureAtlas(
+        material=plane("material"),
+        topography=plane("topography", jitter=jitter, jitter_seed=0x7071),
+        clouds=plane("clouds", jitter=jitter, jitter_seed=0xC10D),
+        stars=plane("stars"),
+    )
 
 
 def build_atlas(arrays: dict, device) -> TextureAtlas:
@@ -161,27 +224,57 @@ def build_atlas(arrays: dict, device) -> TextureAtlas:
     return pack_atlas(build_atlas_arrays(arrays), device)
 
 
-def procedural_texture_atlas(device, resolution=(1024, 2048), seed: int = 7) -> TextureAtlas:
-    """The deterministic procedural set of ``procgen.generate_earth_textures``."""
-    return build_atlas(generate_earth_textures(resolution, seed), device)
+# Bump when the packed-plane layout or the mip parameters above change: the
+# packed-atlas disk cache (cached_atlas_arrays) keys on it.
+ATLAS_PACK_VERSION = "r4a"
 
 
-_TIER0_FILES = dict(
-    albedo="earth_color_4K.png",
-    topography="topography_4K.png",
-    ocean="earth_landocean_4K.png",
-    clouds="earth_clouds_4K.png",
-    bathymetry="earth_bathymetry_4k.png",
-    emissive="earth_nightlights_4K.png",
-    stars="stars_8K.jpg",
-)
+def cached_atlas_arrays(resolution, seed: int = 7, cache_dir=None) -> dict:
+    """Build-or-load the packed procedural atlas planes for ``resolution``,
+    each plane cached as its own .npy (written through a .tmp file and
+    ``os.replace``) as soon as it is built."""
+    h, w = resolution
+    cache_dir = default_cache_dir() if cache_dir is None else cache_dir
+    os.makedirs(cache_dir, exist_ok=True)
+    stem = os.path.join(cache_dir, f"atlas_{ATLAS_PACK_VERSION}_{h}x{w}_s{seed}")
+    paths = {n: f"{stem}_{n}.npy" for n in TextureAtlas._fields}
+    if all(os.path.exists(p) for p in paths.values()):
+        return {n: np.load(p) for n, p in paths.items()}
+    packs = build_atlas_arrays(cached_earth_textures(resolution, seed, cache_dir))
+    for n, p in paths.items():
+        tmp = p + ".tmp"
+        with open(tmp, "wb") as f:  # np.save(path) would append ".npy"
+            np.save(f, packs[n])
+        os.replace(tmp, p)
+    return packs
+
+
+def upsampled_procedural_atlas(device, target_resolution, base_resolution=(1350, 2700),
+                               seed: int = 7, cache_dir=None,
+                               jitter: float = None) -> TextureAtlas:
+    """Tier-2-scale procedural atlas: the cached base planes upsampled on
+    ``device`` by an integer factor. It has the memory footprint and the
+    gather cost of a real ``target_resolution`` texture set; its content is
+    the base set block-repeated (plus the jitter), and the base's max-mips
+    bound the repeat exactly."""
+    th, tw = target_resolution
+    bh, bw = base_resolution
+    if th % bh or tw % bw or th // bh != tw // bw:
+        raise ValueError(
+            f"target {target_resolution} must be an integer multiple of "
+            f"base {base_resolution}"
+        )
+    packs = cached_atlas_arrays(base_resolution, seed, cache_dir)
+    return pack_atlas(packs, device, upsample=th // bh, jitter=jitter)
+
+
 _SINGLE_CHANNEL = ("topography", "ocean", "clouds", "bathymetry", "emissive")
 
 
 def _load_image(path: str, single_channel: bool) -> np.ndarray:
     from PIL import Image
 
-    Image.MAX_IMAGE_PIXELS = None
+    Image.MAX_IMAGE_PIXELS = None  # the 21600x10800 tier exceeds PIL's default cap
     img = np.asarray(Image.open(path))
     if single_channel:
         if img.ndim == 3:
@@ -196,24 +289,41 @@ def _load_image(path: str, single_channel: bool) -> np.ndarray:
 def load_texture_atlas(
     device,
     texture_dir: str = "textures",
+    quality: Optional[int] = None,
     procedural_resolution=(1024, 2048),
     procedural_seed: int = 7,
 ) -> TextureAtlas:
-    """Tier-0 NASA imagery where present under ``texture_dir``, each missing
-    map substituted procedurally. The device-upsampled tier-2 procedural
-    set (``Tex2D.from_upsampled``) is not ported yet."""
-    h, w = procedural_resolution
-    if h >= 4050 and h % 1350 == 0 and w == 2 * h:
-        raise NotImplementedError(
-            "the device-upsampled tier-2 procedural atlas is not ported yet"
-        )
+    """The tier's NASA files under ``texture_dir`` (``quality``, default
+    ``TEXTURE_QUALITY``), each missing map filled procedurally. With every
+    file missing, a large ``procedural_resolution`` (a multiple of 1350 rows
+    from 4050, 2:1) is the device-upsampled atlas, a small one the procedural
+    set built at that resolution."""
+    quality = TEXTURE_QUALITY if quality is None else quality
+    files = _TIER_FILES[quality]
     arrays = {}
-    for name, fn in _TIER0_FILES.items():
+    missing = []
+    for name, fn in files.items():
         path = os.path.join(texture_dir, fn)
         if os.path.exists(path):
             arrays[name] = _load_image(path, name in _SINGLE_CHANNEL)
-    if len(arrays) < len(_TIER0_FILES):
-        proc = generate_earth_textures(procedural_resolution, procedural_seed)
-        for name in _TIER0_FILES:
-            arrays.setdefault(name, proc[name])
+        else:
+            missing.append(name)
+    if len(missing) == len(files):
+        h, w = procedural_resolution
+        if h >= 4050 and h % 1350 == 0 and w == 2 * h:
+            return upsampled_procedural_atlas(
+                device, procedural_resolution, (1350, 2700), procedural_seed
+            )
+        return build_atlas(cached_earth_textures(procedural_resolution, procedural_seed), device)
+    if missing:
+        proc = cached_earth_textures(procedural_resolution, procedural_seed)
+        for name in missing:
+            arrays[name] = proc[name]
     return build_atlas(arrays, device)
+
+
+def procedural_texture_atlas(device, resolution=(1024, 2048), seed: int = 7,
+                             cache_dir=None) -> TextureAtlas:
+    """The deterministic procedural set of ``procgen.generate_earth_textures``,
+    through the disk cache (``cached_earth_textures``)."""
+    return build_atlas(cached_earth_textures(resolution, seed, cache_dir), device)

@@ -89,6 +89,8 @@ _SIGNATURES = {
     "de_sphere_tap": [_P, _I, _I, _I, _P, _I, _I, _P, _P],
     # keys, n, data, count, out, stream
     "de_threefry_uniform": [_P, _I, ctypes.c_uint, _I, _P, _P],
+    # base, w, C, factor, out, n (64-bit), jitter channel, jitter, seed, stream
+    "de_upsample": [_P, _I, _I, _I, _P, ctypes.c_int64, _I, _F, ctypes.c_uint, _P],
 }
 
 
@@ -584,8 +586,32 @@ def threefry_uniform(keys, data: int, count: int):
     return out
 
 
+def upsample(base, factor: int, jitter: float, jitter_channel: int, jitter_seed: int):
+    """Launch ``upsample`` (csrc/upsample.cu): the uint8 (h, w, C) ``base``
+    nearest-neighbour-upsampled to (h * factor, w * factor, C), channel
+    ``jitter_channel`` scaled down by the per-texel hash jitter when
+    ``jitter`` > 0 (ops/texture.upsample_plain is the twin)."""
+    dev = base.device
+    if dev.type != "cuda":
+        raise ValueError(f"base: on {dev}, expected a CUDA device")
+    if base.dim() != 3:
+        raise ValueError(f"base: shape {tuple(base.shape)}, expected (h, w, C)")
+    h, w, c = base.shape
+    f = int(factor)
+    if not 1 <= c <= 8 or f < 1:
+        raise ValueError(f"upsample: {c} channels (1-8), factor {f} (>= 1)")
+    _check("base", base, torch.uint8, (h, w, c), dev)
+    out = torch.empty((h * f, w * f, c), dtype=torch.uint8, device=dev)
+    n = h * f * w * f
+    jc = jitter_channel if jitter > 0.0 and 0 <= jitter_channel < c else -1
+    _launch("de_upsample", _ptr(base), w, c, f, _ptr(out), n, jc, jitter,
+            jitter_seed & 0xFFFFFFFF)
+    upsample.launches += 1
+    return out
+
+
 PATH_KERNELS = (land_march, rmo_delta_track, cloud_track, gen_rays, atmos_march,
-                film_postprocess, frame_end, select_tiles, bounce, compact_lanes)
+                film_postprocess, frame_end, select_tiles, bounce, compact_lanes, upsample)
 for _k in PATH_KERNELS:
     _k.launches = 0
 

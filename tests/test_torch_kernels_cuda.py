@@ -548,3 +548,39 @@ def test_sphere_tap_kernel(case, bilinear):
         want = tx.sample_sphere_texture(tex, case["pos"], bilinear=bilinear)
         assert got.shape == want.shape
         assert (got - want).abs().max().item() <= 1e-5
+
+
+@pytest.mark.parametrize("shape,factor,jitter,channel,seed", [
+    ((7, 13, 3), 5, 0.0, 0, 0), ((7, 13, 3), 5, 0.06, 0, 0xC10D),
+    ((9, 11, 4), 8, 0.06, 0, 0x7071), ((9, 11, 4), 1, 0.06, 0, 0x7071),
+    ((5, 17, 8), 3, 0.0, 0, 0), ((5, 17, 8), 3, 0.5, 6, 0x9E3779B9),
+    ((135, 270, 8), 8, 0.06, 0, 0x7071), ((3, 5), 4, 0.06, 0, 0x7071),
+])
+def test_upsample_kernel(dev, shape, factor, jitter, channel, seed):
+    """upsample (csrc/upsample.cu) bit-equal to ops/texture.upsample_plain
+    on odd shapes, C = 1/3/4/8, factor 1, with and without the jitter."""
+    from digital_earth_tpu_torch import kernels
+    from digital_earth_tpu_torch.ops import texture as tx
+
+    img = torch.from_numpy(np.random.default_rng(sum(shape) + factor).integers(
+        0, 256, shape, dtype=np.uint8)).to(dev)
+    before = kernels.upsample.launches
+    got = tx.upsample(img, factor, jitter, channel, seed)
+    want = tx.upsample_plain(img, factor, jitter, channel, seed)
+    torch.cuda.synchronize()
+    assert kernels.upsample.launches == before + 1
+    assert got.shape == want.shape and torch.equal(got, want)
+
+
+def test_upsample_launcher_checks_its_inputs(dev):
+    from digital_earth_tpu_torch import kernels
+
+    img = torch.zeros((4, 6, 4), dtype=torch.uint8, device=dev)
+    with pytest.raises(ValueError, match="dtype"):
+        kernels.upsample(img.float(), 2, 0.0, 0, 0)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.upsample(img.cpu(), 2, 0.0, 0, 0)
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels.upsample(img[:, ::2], 2, 0.0, 0, 0)
+    with pytest.raises(ValueError, match="channels"):
+        kernels.upsample(torch.zeros((4, 6, 9), dtype=torch.uint8, device=dev), 2, 0.0, 0, 0)

@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch + CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--mesh-only]
 
 Run from the root of a checkout on a machine with a CUDA card, ``nvcc`` and
-PyTorch built for CUDA. It imports nothing of JAX or of the JAX package
-``digital_earth_tpu`` (checked at the end). Phases, each of which raises on
-failure (exit code 1):
+PyTorch built for CUDA; ``--mesh-only`` runs phases 1-3 and 19 alone (say,
+on a machine with several cards, where phase 19 adds meshes over them). It
+imports nothing of JAX or of the JAX package ``digital_earth_tpu`` (checked
+at the end). Phases, each of which raises on failure (exit code 1):
 
 1. toolchain: torch, CUDA, nvcc, Triton versions and the card
    (``nvidia-smi --query-gpu=name,power.limit``);
@@ -80,10 +81,27 @@ Adaptive tile sampling (Apollo 11 at 1920x1080, default ``TraceConfig()``):
     preview frame (latency printed), the frame-rate controller sets the
     passes per frame.
 
+Multi-device rendering (parallel/mesh.py; Apollo 11 at 1920x1080, default
+``TraceConfig()``, the launch counts set to 0 before the mesh run and read
+after its adaptive pass):
+
+19. a (4, 1) mesh over ``[cuda:0] * 4`` bit-equal to ``Renderer`` over 2 spp;
+    a (2, 2) step within MESH_RTOL of those two spp; the (4, 1) mesh's
+    ``accumulate_interruptible(9)`` bit-equal; 2 warm-up and one frac=0.25
+    adaptive pass, each device refining exactly the tiles
+    ``select_tiles_shard_plain`` picks on its shard; the shard entries of
+    ``select_tiles`` against their twins (shard means bit-equal, ids equal in
+    order) on the warm-up buffers and after the pass; checkpoints (4, 1) ->
+    (2, 2), -> ``Renderer`` and, with counts, (4, 1) -> (2, 1), exact; s/spp
+    of the Renderer (before and after), the (4, 1) and the (2, 2) mesh; with
+    more than one card an (n, 1) mesh over distinct cards bit-equal to the
+    Renderer; ``EarthViewer`` over the ``--multichip`` renderer
+    (``make_render_mesh()``: (1, 1) on one card) driven over HTTP.
+
 The tier-2 texture path (the launch counts set to 0 before the atlas is
 built and read after its render):
 
-19. ``upsampled_procedural_atlas(dev, (10800, 21600))`` from the shipped
+20. ``upsampled_procedural_atlas(dev, (10800, 21600))`` from the shipped
     1350x2700 base: host load, upload and the four ``upsample`` launches
     timed apart, ``max_memory_allocated``; ``render_offline`` of Apollo 11
     at 1920x1080, default ``TraceConfig()``, 1 warm-up + 2 timed spp on it
@@ -95,15 +113,17 @@ built and read after its render):
 
 Last, since a profiler session can slow the launches after it:
 
-20. Apollo 11 (on the 1024x2048 and on the tier-2 atlas), florida and
-    sunset hurricane at 1920x1080, default ``TraceConfig()``: s/spp (1
-    warm-up, 1 timed), then one spp under ``torch.profiler``: device
-    kernels per spp (at most MAX_KERNELS_PER_SPP), the device-busy share,
+21. Apollo 11 (on the 1024x2048 and on the tier-2 atlas), florida and
+    sunset hurricane at 1920x1080, default ``TraceConfig()``, and Apollo 11
+    on phase 19's (4, 1) mesh: s/spp (1 warm-up, 1 timed), then one spp
+    under ``torch.profiler``: device kernels per spp (at most
+    MAX_KERNELS_PER_SPP, four times that on the mesh), the device-busy share,
     the kernels with the most device time, ``bounce``'s device time.
 
 The line before the last is the card's name and power limit; before it, one
 JSON line lists each kernel with its launches (``select_tiles`` makes four
-per call, ``compact_lanes`` three, counted as one; ``upsample`` four per
+per call, ``select_tiles_shard`` two per shard mean and two per shard
+selection, ``compact_lanes`` three, counted as one; ``upsample`` four per
 atlas, its times the four planes' sums), error, times and bound (the least time the card could take: the
 larger of the bytes it must move at 3.35 TB/s and the operations at 67
 TFLOP/s, counted from this run's inputs, a transcendental as one
@@ -1025,7 +1045,7 @@ class ViewerRun:
     """An EarthViewer at 1920x1080 with its render loop and HTTP server on
     an ephemeral port, driven over HTTP; ``close()`` stops both."""
 
-    def __init__(self, dev, atlas, luts, name, **viewer_kwargs):
+    def __init__(self, dev, atlas, luts, name, renderer=None, **viewer_kwargs):
         import shutil
         import threading
 
@@ -1036,9 +1056,10 @@ class ViewerRun:
         config = os.path.join(work, "config.txt")
         shutil.copy(SCENE, config)
         self.t_start = time.time()
-        self.v = EarthViewer(device=dev, image_res=RES, config_path=config,
-                             screenshot_dir=os.path.join(work, "shots"), port=0, atlas=atlas,
-                             luts=luts, **viewer_kwargs)
+        if renderer is None:
+            viewer_kwargs.update(device=dev, image_res=RES, atlas=atlas, luts=luts)
+        self.v = EarthViewer(renderer=renderer, config_path=config,
+                             screenshot_dir=os.path.join(work, "shots"), port=0, **viewer_kwargs)
         self.v._running = True
         self.loop = threading.Thread(target=self.v._render_loop, daemon=True)
         self.loop.start()
@@ -1328,6 +1349,253 @@ def check_adaptive_viewer(torch, dev, atlas, luts):
     return counts
 
 
+MESH_RTOL, MESH_ATOL = 1e-5, 1e-7  # a (2, 2) step against two (4, 1) steps
+MESH_KERNELS = ("bounce", "compact_lanes", "gen_rays", "frame_end", "select_tiles_shard",
+                "film_postprocess")
+
+
+def _mesh(torch, devices, n_spp, atlas, luts, seed):
+    from digital_earth_tpu_torch.parallel.mesh import MultiChipRenderer, make_render_mesh
+
+    return _apollo(MultiChipRenderer(make_render_mesh(devices, spp_axis=n_spp), RES, atlas=atlas,
+                                     luts=luts, seed=seed))
+
+
+def _spp_seconds(torch, r, steps):
+    """Seconds per spp of ``steps`` accumulate() calls (host clock, synchronized)."""
+    torch.cuda.synchronize()
+    t0 = time.time()
+    for _ in range(steps):
+        r.accumulate()
+    torch.cuda.synchronize()
+    return (time.time() - t0) / (steps * getattr(r, "spp_per_step", 1))
+
+
+def _shard_bufs(r, px):
+    return r._color[px], r._count[px], r._lum2[px]
+
+
+def check_select_tiles_shard(torch, shards, tile, k, label):
+    """The shard entries of select_tiles (de_shard_mean, de_select_tiles_shard)
+    against their twins on each px row's (color, count, lum2) shard: shard
+    means bit-equal, then each row's ids against the mean of the means,
+    equal in order. A JSON row for one row's two calls (ms, plain ms)."""
+    from digital_earth_tpu_torch.parallel.mesh import _sum_onto
+    from digital_earth_tpu_torch.render import adaptive
+
+    n_px = len(shards)
+    means = [adaptive.shard_mean(c, n) for c, n, _ in shards]
+    plain = [adaptive.shard_mean_plain(c, n) for c, n, _ in shards]
+    ok = all(torch.equal(a, b) for a, b in zip(means, plain))
+    m_bar = _sum_onto(means, shards[0][0].device) / n_px
+    ids = [adaptive.select_tiles_shard(*b, tile, k, m_bar) for b in shards]
+    want = [adaptive.select_tiles_shard_plain(*b, tile, k, m_bar) for b in shards]
+    ok = ok and all(torch.equal(a, b) and a.unique().numel() == k for a, b in zip(ids, want))
+    bufs = shards[0]
+    _, ms = _time_ms(torch, lambda: adaptive.select_tiles_shard(
+        *bufs, tile, k, adaptive.shard_mean(*bufs[:2])), 5)
+    _, plain_ms = _plain_ms(torch, lambda: adaptive.select_tiles_shard_plain(
+        *bufs, tile, k, adaptive.shard_mean_plain(*bufs[:2])))
+    n = bufs[1].shape[0]
+    print(f"select_tiles_shard {label}: {n_px} shards of {n // tile} tiles of {tile} pixels, "
+          f"k_local={k}: shard means bit-equal and ids equal in order {ok}, row 0 first "
+          f"{ids[0][:5].tolist()}  kernel {ms:.3f} ms  plain {plain_ms:.1f} ms (one shard's "
+          f"mean and selection)  {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"select_tiles_shard disagrees with its plain twin ({label})")
+    # a shard read twice (color and count for the mean, 16 B a pixel; the
+    # three buffers for the scores, 20 B), the ids written; per pixel 8
+    # operations for the mean and 20 for the score (as select_tiles), and
+    # two per comparison of the rank stage
+    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bytes=36 * n + 4 * k,
+                ops=28 * n + 2 * (n // tile) ** 2)
+
+
+def adaptive_mesh_pass(torch, devices, atlas, luts):
+    """A (len(devices), 1) mesh's 2 warm-up passes and one frac=ADAPTIVE_FRAC
+    pass at 1920x1080: warm-up counts all 2, then each device refines whole
+    tiles, exactly those ``select_tiles_shard_plain`` picks on its shard
+    against the mean of the shard means. Returns (renderer, the warm-up
+    shards, the pass's seconds)."""
+    from digital_earth_tpu_torch.parallel.mesh import _sum_onto
+    from digital_earth_tpu_torch.render import adaptive
+
+    n = len(devices)
+    ma = _mesh(torch, devices, 1, atlas, luts, 9)
+    ma.accumulate_adaptive(frac=ADAPTIVE_FRAC)
+    ma.accumulate_adaptive(frac=ADAPTIVE_FRAC)
+    k_local = max(1, min(ma.tiles_per_dev, int(ma.tiles_per_dev * ADAPTIVE_FRAC)))
+    warm_ok = all(bool((c == 2.0).all()) for c in ma._count)
+    warm = [tuple(t.clone() for t in _shard_bufs(ma, px)) for px in range(n)]
+    m_bar = _sum_onto([adaptive.shard_mean_plain(*b[:2]) for b in warm], ma.device) / n
+    want = [sorted(adaptive.select_tiles_shard_plain(*b, ma.tile, k_local, m_bar.to(b[0].device))
+                   .tolist()) for b in warm]
+    samples0 = ma.total_samples
+    torch.cuda.synchronize()
+    t0 = time.time()
+    ma.accumulate_adaptive(frac=ADAPTIVE_FRAC)
+    torch.cuda.synchronize()
+    t_pass = time.time() - t0
+    deltas = [(c - b[1]).view(-1, ma.tile) for c, b in zip(ma._count, warm)]
+    got = [torch.nonzero(d[:, 0] == 1.0).flatten().tolist() for d in deltas]
+    whole = all(torch.equal(d, d[:, :1].expand(-1, ma.tile)) for d in deltas)
+    added = ma.total_samples - samples0
+    ok = warm_ok and whole and got == want and added == n * k_local * ma.tile
+    print(f"mesh adaptive ({n}, 1) over {sorted({str(d) for d in devices})}: warm-up counts all 2 "
+          f"{warm_ok}; a frac={ADAPTIVE_FRAC} pass {t_pass:.3f} s refined per device the whole "
+          f"tiles select_tiles_shard_plain picks {whole and got == want} (k_local={k_local}, "
+          f"{added} samples)")
+    if not ok:
+        fail("the mesh's adaptive pass did not refine each device's own selection")
+    return ma, warm, t_pass
+
+
+def check_mesh(torch, dev, atlas, luts):
+    """Multi-device rendering at 1920x1080, Apollo 11, default TraceConfig:
+    meshes of logical devices on the one card (and over distinct cards where
+    the machine has them). Returns (launch counts of the mesh run, the
+    select_tiles_shard JSON row)."""
+    import struct
+
+    from digital_earth_tpu_torch import kernels
+    from digital_earth_tpu_torch.parallel.mesh import MultiChipRenderer, _sum_onto, make_render_mesh
+    from digital_earth_tpu_torch.render import adaptive
+    from digital_earth_tpu_torch.render.renderer import Renderer
+
+    card = nvidia_smi_line()
+    one = [dev] * 4
+    a = _apollo(Renderer(dev, image_res=RES, atlas=atlas, luts=luts, seed=5))
+    a.accumulate()
+    a.accumulate()
+    ref2 = a.color_buffer.clone()
+    t_single = [_spp_seconds(torch, a, 2)]
+    del a
+
+    kernels.reset_launch_counts()
+    m41 = _mesh(torch, one, 1, atlas, luts, 5)
+    m41.accumulate()
+    ref1 = m41.color_buffer
+    m41.accumulate()
+    equal41 = torch.equal(m41.color_buffer, ref2)
+    t41 = _spp_seconds(torch, m41, 2)
+    m22 = _mesh(torch, one, 2, atlas, luts, 5)
+    m22.accumulate()  # spp 0 and 1 in one step
+    close22 = torch.allclose(m22.color_buffer, ref2, rtol=MESH_RTOL, atol=MESH_ATOL)
+    err22 = (m22.color_buffer - ref2).abs().max().item()
+    t22 = _spp_seconds(torch, m22, 2)
+    del m22
+    mc = _mesh(torch, one, 1, atlas, luts, 5)
+    polls = []
+    done = mc.accumulate_interruptible(9, interrupt=lambda: polls.append(1) or False)
+    equal_chunked = done and torch.equal(mc.color_buffer, ref1)
+    del mc, ref1
+    print(f"mesh {RES[0]}x{RES[1]} over [cuda:0] x 4 ({card}): (4, 1) block {m41.block}, "
+          f"{m41.tiles_per_dev} tiles per device, bit-equal to Renderer over 2 spp {equal41}; "
+          f"(2, 2) one step within rtol {MESH_RTOL} of the sequential steps {close22} (max abs "
+          f"diff {err22:.3e}); accumulate_interruptible(9) bit-equal {equal_chunked} "
+          f"({len(polls)} polls)")
+    if not (equal41 and close22 and equal_chunked and len(polls) >= 8 + 9):
+        fail("the mesh's frame disagrees with the single-device Renderer")
+
+    ma, warm, t_pass = adaptive_mesh_pass(torch, one, atlas, luts)
+    img = ma.fetch_image()
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    print(f"launches in the mesh run: {counts}")
+    if not bool(torch.isfinite(img).all()):
+        fail("fetch_image of the mesh's adaptive run is not finite")
+    if not all(counts[k] > 0 for k in MESH_KERNELS) or counts["select_tiles"]:
+        fail(f"a kernel of the mesh's path never launched (or the whole-frame select_tiles did): "
+             f"{counts}")
+    k_local = max(1, min(ma.tiles_per_dev, int(ma.tiles_per_dev * ADAPTIVE_FRAC)))
+    row = check_select_tiles_shard(torch, warm, ma.tile, k_local, "after 2 warm-up passes")
+    check_select_tiles_shard(torch, [_shard_bufs(ma, px) for px in range(4)], ma.tile, k_local,
+                             f"after the frac={ADAPTIVE_FRAC} pass")
+    del warm
+
+    ckpt = os.path.join(ROOT, "build", "chip_smoke", "mesh_ckpt.npz")
+    os.makedirs(os.path.dirname(ckpt), exist_ok=True)
+    m41.save_checkpoint(ckpt)
+    back = _mesh(torch, one, 2, atlas, luts, 0)
+    back.load_checkpoint(ckpt)
+    single = Renderer(dev, image_res=RES, atlas=atlas, luts=luts)
+    single.load_checkpoint(ckpt)
+    ma.save_checkpoint(ckpt)
+    back_a = _mesh(torch, [dev] * 2, 1, atlas, luts, 0)
+    back_a.load_checkpoint(ckpt)
+    ck_ok = (torch.equal(back.color_buffer, m41.color_buffer)
+             and torch.equal(single.color_buffer, m41.color_buffer)
+             and back.current_spp == m41.current_spp
+             and torch.equal(back_a.count_buffer, ma.count_buffer)
+             and back_a.mean_spp == ma.mean_spp)
+    print(f"mesh checkpoints: (4, 1) -> (2, 2) and -> Renderer, adaptive (4, 1) -> (2, 1): "
+          f"round trip exact {ck_ok}")
+    if not ck_ok:
+        fail("a mesh checkpoint did not load back exactly")
+    del m41, ma, back, back_a, single
+
+    a = _apollo(Renderer(dev, image_res=RES, atlas=atlas, luts=luts, seed=5))
+    a.accumulate()
+    t_single.append(_spp_seconds(torch, a, 2))
+    del a
+    print(f"mesh s/spp at {RES[0]}x{RES[1]} ({card}): Renderer {t_single[0]:.4f} then "
+          f"{t_single[1]:.4f}; (4, 1) over [cuda:0] x 4 {t41:.4f} "
+          f"({t41 / min(t_single):.2f}x); (2, 2) over [cuda:0] x 4 {t22:.4f} "
+          f"({t22 / min(t_single):.2f}x)")
+
+    n_cards = torch.cuda.device_count()
+    if n_cards > 1:
+        cards = [torch.device(f"cuda:{i}") for i in range(n_cards)]
+        md = _mesh(torch, cards, 1, atlas, luts, 5)
+        md.accumulate()
+        md.accumulate()
+        equal_d = torch.equal(md.color_buffer, ref2)
+        t_d = _spp_seconds(torch, md, 2)
+        del md
+        spp_axis = 2 if n_cards % 2 == 0 else 1
+        m2 = _mesh(torch, cards, spp_axis, atlas, luts, 5)
+        m2.accumulate()
+        if spp_axis == 1:
+            m2.accumulate()
+        close_2 = torch.allclose(m2.color_buffer, ref2, rtol=MESH_RTOL, atol=MESH_ATOL)
+        t_2 = _spp_seconds(torch, m2, 2)
+        print(f"mesh over {n_cards} distinct cards ({card}): ({n_cards}, 1) bit-equal to Renderer "
+              f"over 2 spp {equal_d}, {t_d:.4f} s/spp ({t_d / min(t_single):.2f}x the Renderer's); "
+              f"{m2.mesh.shape} within rtol {MESH_RTOL} {close_2}, {t_2:.4f} s/spp "
+              f"({t_2 / min(t_single):.2f}x)")
+        del m2
+        if not (equal_d and close_2):
+            fail("the mesh over distinct cards disagrees with the single-device Renderer")
+        launched = kernels.select_tiles_shard.launches
+        md, _, _ = adaptive_mesh_pass(torch, cards, atlas, luts)
+        if kernels.select_tiles_shard.launches - launched != n_cards * kernels.SELECT_TILES_STAGES:
+            fail("the distinct cards did not each launch their shard's select_tiles_shard")
+        del md
+    else:
+        print("mesh over distinct cards: not run (this machine has 1 CUDA card)")
+
+    vr = MultiChipRenderer(make_render_mesh(), RES, atlas=atlas, luts=luts)
+    vs = ViewerRun(dev, atlas, luts, "viewer_multichip", renderer=vr)
+    try:
+        vs.wait_for(lambda s: s["frame_source"] == "path" and s["spp"] >= 1, 120)
+        frames = vs.wait_for(lambda s: True, 10)["frames"]
+        t0 = time.time()
+        vs.get("/input?keys=w")
+        vs.wait_for(lambda s: s["frame_source"] == "preview" and s["frames"] > frames, 60)
+        latency = time.time() - t0
+        s = vs.wait_for(lambda s: s["frame_source"] == "path" and s["spp"] >= 1, 120)
+        png = vs.get("/frame.png")
+    finally:
+        vs.close()
+    w, h = struct.unpack(">II", png[16:24])
+    print(f"viewer over the --multichip renderer (mesh {vr.mesh.shape}): path spp {s['spp']}, "
+          f"input -> new preview frame {latency * 1e3:.1f} ms, /frame.png {w}x{h}")
+    if (w, h) != RES:
+        fail("the --multichip viewer's /frame.png is not 1920x1080")
+    del ref2
+    return counts, row
+
+
 def check_main_path(torch, counts, r, img, label):
     """Phase 6's gates on a main-path run's launch counts, buffer and image."""
     buf = r.color_buffer
@@ -1498,6 +1766,9 @@ def check_tier2(torch, dev, luts, s_per_spp):
 
 
 def main():
+    mesh_only = sys.argv[1:] == ["--mesh-only"]
+    if sys.argv[1:] and not mesh_only:
+        fail(f"unknown arguments {sys.argv[1:]} (the one option is --mesh-only)")
     try:
         import torch
     except ImportError:
@@ -1532,6 +1803,14 @@ def main():
                                      cache_dir=os.path.join(ROOT, "build", "chip_smoke", "texture_cache"))
     print(f"procedural 1024x2048 atlas: {time.time() - t0:.1f} s")
     luts = load_spectral_luts(dev)
+    if mesh_only:
+        # phase 19 alone, e.g. on a machine with several cards
+        check_mesh(torch, dev, atlas, luts)
+        print(nvidia_smi_line())
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return
     captured, states, deepest, lookups, frame_end_whole = capture_inputs(torch, dev, atlas, luts)
 
     check_golden(torch, dev)
@@ -1605,6 +1884,9 @@ def main():
     del warm_bufs, after4
     check_adaptive_viewer(torch, dev, atlas, luts)
 
+    # --- multi-device rendering ---------------------------------------------
+    mesh_counts, rows["select_tiles_shard"] = check_mesh(torch, dev, atlas, luts)
+
     # --- the tier-2 texture path -------------------------------------------
     atlas2, rows["upsample"], tier2_counts = check_tier2(torch, dev, luts, dt)
 
@@ -1629,6 +1911,18 @@ def main():
             fail(f"{n_kernels} device kernels per {label} spp (expected 1-{MAX_KERNELS_PER_SPP})")
         del r
     del atlas2
+    # the (4, 1) mesh of phase 19: its bounce loop runs once per shard
+    label = f"Apollo 11 {w}x{h}, (4, 1) mesh over [cuda:0] x 4"
+    m = _mesh(torch, [dev] * 4, 1, atlas, luts, 0)
+    m.accumulate()
+    print(f"{label}: {_spp_seconds(torch, m, 1):.3f} s/spp (1 warm-up spp, then 1 timed)")
+    n_kernels, busy, _, by_name = profile_spp(torch, m, label)
+    bounce_us = sum(us for name, us in by_name.items() if "bounce_kernel" in name)
+    print(f"profile {label}: bounce {bounce_us / 1e3:.2f} ms of {busy * 1e3:.2f} ms "
+          f"device-busy per spp")
+    if not 0 < n_kernels <= 4 * MAX_KERNELS_PER_SPP:
+        fail(f"{n_kernels} device kernels per {label} spp (expected 1-{4 * MAX_KERNELS_PER_SPP})")
+    del m
 
     loaded = sorted(k for k in sys.modules
                     if k.split(".")[0] in ("jax", "jaxlib", "digital_earth_tpu"))
@@ -1652,6 +1946,8 @@ def main():
                       "digital_earth_tpu/render/pathtracer.py:2000"),
         "select_tiles": ("cuda", "digital_earth_tpu_torch/csrc/select_tiles.cu",
                          "digital_earth_tpu/render/renderer.py:425"),
+        "select_tiles_shard": ("cuda", "digital_earth_tpu_torch/csrc/select_tiles.cu",
+                               "digital_earth_tpu/parallel/mesh.py:156"),
         "bounce": ("cuda", "digital_earth_tpu_torch/csrc/bounce.cu",
                    "digital_earth_tpu/render/pathtracer.py:1554"),
         "compact_lanes": ("cuda", "digital_earth_tpu_torch/csrc/compact_lanes.cu",
@@ -1661,11 +1957,12 @@ def main():
     }
     # launches: the main path's run (0 for the trackers, whose loops run
     # inside bounce there), or for the preview's kernels the preview frame's
-    # run, for select_tiles the adaptive run's, for upsample the tier-2 run's
-    # (its atlas and render)
+    # run, for select_tiles the adaptive run's, for select_tiles_shard the
+    # mesh run's, for upsample the tier-2 run's (its atlas and render)
     launches = dict(counts, atmos_march=preview_counts["atmos_march"],
                     land_march=preview_counts["land_march"],
                     select_tiles=adaptive_counts["select_tiles"],
+                    select_tiles_shard=mesh_counts["select_tiles_shard"],
                     upsample=tier2_counts["upsample"])
     entries = []
     for name, (route, src, rep) in sources.items():

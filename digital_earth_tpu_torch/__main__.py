@@ -1,12 +1,15 @@
 """Entry point: serve the interactive Earth viewer at 1920x1080 on a CUDA
 card (counterpart of the JAX package's main.py).
 
-    python -m digital_earth_tpu_torch [--port 8000] [--adaptive]
+    python -m digital_earth_tpu_torch [--port 8000] [--adaptive] [--multichip]
 
 ``--adaptive`` makes idle frames adaptive passes over the noisiest quarter
 of the pixel tiles (``EarthViewer(adaptive_frac=0.25)``, as main.py:20
-does). ``--multichip`` (rendering over several cards) is not ported yet and
-exits with an error that names its ROADMAP.md item.
+does). ``--multichip`` renders over every CUDA card through the ("px", "spp")
+device mesh (``parallel/mesh.MultiChipRenderer``, as main.py:21-31 does):
+the same image bit for bit, one accumulate adding one spp per "spp" device;
+with ``--adaptive`` each px row refines its own noisiest tiles. On one card
+the mesh is (1, 1).
 """
 
 from __future__ import annotations
@@ -14,24 +17,28 @@ from __future__ import annotations
 import argparse
 import sys
 
-MULTICHIP_TODO = "multi-GPU rendering is not ported yet (ROADMAP.md, queue A #12 and B #14)"
-
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="python -m digital_earth_tpu_torch")
     parser.add_argument("--port", type=int, default=8000)
     parser.add_argument("--adaptive", action="store_true",
                         help="adaptive tile sampling when idle (a quarter of the tiles per pass)")
-    parser.add_argument("--multichip", action="store_true", help="not ported yet")
+    parser.add_argument("--multichip", action="store_true",
+                        help="render over every CUDA card (the px/spp device mesh)")
     args = parser.parse_args(argv)
-    if args.multichip:
-        print(f"--multichip: {MULTICHIP_TODO}", file=sys.stderr)
-        return 2
 
     from .app.viewer import EarthViewer
 
-    EarthViewer(device="cuda", image_res=(1920, 1080), port=args.port,
-                adaptive_frac=0.25 if args.adaptive else 0.0).start()
+    image_res = (1920, 1080)
+    adaptive_frac = 0.25 if args.adaptive else 0.0
+    if args.multichip:
+        from .parallel.mesh import MultiChipRenderer, make_render_mesh
+
+        renderer = MultiChipRenderer(make_render_mesh(), image_res)
+        EarthViewer(renderer=renderer, port=args.port, adaptive_frac=adaptive_frac).start()
+    else:
+        EarthViewer(device="cuda", image_res=image_res, port=args.port,
+                    adaptive_frac=adaptive_frac).start()
     return 0
 
 

@@ -21,6 +21,16 @@
 //      value, say from a loaded checkpoint) still gives every tile its own
 //      rank, and ids is always k distinct tiles.
 // A max with a bound keeps NaN, as torch.clamp and jnp.maximum do.
+//
+// Per device of a render mesh (digital_earth_tpu/parallel/mesh.py:189-204,
+// make_sharded_adaptive_step) the same statistic runs on one device's flat
+// tile-major shard, whose tile t holds pixels [t * tile, (t + 1) * tile) in
+// in-tile lane order, with the frame mean m_bar coming in from the caller
+// (the mean of the shards' means, each shard's from stages 1-2):
+//   de_shard_mean         stages 1-2 over the shard's pixels in lane order;
+//   de_select_tiles_shard stages 3-4 over the shard's tiles, given m_bar.
+// A device reads its shard twice (16 B per pixel for the mean, 20 B for the
+// scores: 18.7 MB for a quarter of 1920x1080) and ranks its own tiles.
 // Every sum is the same halving tree over a zero-padded power-of-two array,
 // s[i] += s[i + h] for h = p/2, ..., 1, which the plain version
 // (render/adaptive.select_tiles_plain) repeats, so the two agree bit for bit.
@@ -90,9 +100,11 @@ __global__ void frame_mean(const float* __restrict__ partial, int n_part, int p2
   if (threadIdx.x == 0) m_bar[0] = s[0] / n_pix;
 }
 
+// flat: the buffers are a tile-major shard (tile t at [t * bw * bh, ...)),
+// else a (W, H) image whose tile t is block (t / nby, t % nby).
 __global__ void tile_scores(const float* __restrict__ color, const float* __restrict__ count,
                             const float* __restrict__ lum2, const float* __restrict__ m_bar,
-                            int h, int bw, int bh, int pt, float* __restrict__ score,
+                            int h, int bw, int bh, int pt, int flat, float* __restrict__ score,
                             SelectParams p) {
   extern __shared__ float s[];
   const int tile = blockIdx.x;
@@ -106,7 +118,8 @@ __global__ void tile_scores(const float* __restrict__ color, const float* __rest
   for (int li = threadIdx.x; li < pt; li += blockDim.x) {
     float v = 0.0f;
     if (li < n_tile) {
-      const int64_t px = (int64_t)(bx * bw + li / bh) * h + (by * bh + li % bh);
+      const int64_t px = flat ? (int64_t)tile * n_tile + li
+                              : (int64_t)(bx * bw + li / bh) * h + (by * bh + li % bh);
       const float c = count[px];
       const float n = clamp_min(c, 1.0f);
       const float mean_lum = pixel_lum(color, px, p) / n;
@@ -144,6 +157,47 @@ static inline int next_pow2(int m) {
   return p;
 }
 
+static inline SelectParams params(const float* fp) {
+  SelectParams p;
+  for (int j = 0; j < 3; ++j) p.lum_w[j] = fp[j];
+  p.fifth = fp[3];
+  p.tiny = fp[4];
+  return p;
+}
+
+static inline int threads_for(int pt) { return pt >= 2048 ? 1024 : (pt >= 64 ? pt / 2 : 32); }
+
+// Stages 1-2: the mean of mean_lum over n_pix pixels in buffer order.
+static int mean_stages(const SelectParams& p, const float* color, const float* count,
+                       int64_t n_pix, float* partial, float* mean, cudaStream_t st) {
+  const int n_part = (int)((n_pix + CHUNK - 1) / CHUNK);
+  const int p2 = next_pow2(n_part);
+  if (p2 > MAX_SHARED) return (int)cudaErrorInvalidValue;
+  cudaError_t err;
+  chunk_sums<<<n_part, 512, 0, st>>>(color, count, n_pix, partial, p);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  frame_mean<<<1, 1024, p2 * sizeof(float), st>>>(partial, n_part, p2, (float)n_pix, mean);
+  return (int)cudaGetLastError();
+}
+
+// Stages 3-4: score the tiles against m_bar and write the k best ids.
+static int select_stages(const SelectParams& p, const float* color, const float* count,
+                         const float* lum2, const float* m_bar, int h, int bw, int bh,
+                         int n_tiles, int flat, int k, float* score, int32_t* ids,
+                         cudaStream_t st) {
+  const int pt = next_pow2(bw * bh);
+  if (pt > MAX_SHARED || n_tiles > MAX_SHARED || k < 1 || k > n_tiles)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err;
+  tile_scores<<<n_tiles, threads_for(pt), pt * sizeof(float), st>>>(
+      color, count, lum2, m_bar, h, bw, bh, pt, flat, score, p);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  const int block = 256;
+  rank_select<<<(n_tiles + block - 1) / block, block, n_tiles * sizeof(int32_t), st>>>(
+      score, n_tiles, k, ids);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace de
 
 // fp: lum_w[3], 0.2, 1e-20 as float32 (5 floats)
@@ -152,29 +206,29 @@ extern "C" int de_select_tiles(const float* fp, const float* color, const float*
                                const float* lum2, int w, int h, int bw, int bh, int k,
                                float* partial, float* m_bar, float* score, int32_t* ids,
                                void* stream) {
-  de::SelectParams p;
-  for (int j = 0; j < 3; ++j) p.lum_w[j] = fp[j];
-  p.fifth = fp[3];
-  p.tiny = fp[4];
+  const de::SelectParams p = de::params(fp);
   cudaStream_t st = (cudaStream_t)stream;
-  const int64_t n_pix = (int64_t)w * h;
-  const int n_part = (int)((n_pix + de::CHUNK - 1) / de::CHUNK);
-  const int n_tiles = (w / bw) * (h / bh);
-  const int p2 = de::next_pow2(n_part);
-  const int pt = de::next_pow2(bw * bh);
-  if (p2 > de::MAX_SHARED || pt > de::MAX_SHARED || n_tiles > de::MAX_SHARED || k < 1 ||
-      k > n_tiles)
-    return (int)cudaErrorInvalidValue;
-  cudaError_t err;
-  de::chunk_sums<<<n_part, 512, 0, st>>>(color, count, n_pix, partial, p);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  de::frame_mean<<<1, 1024, p2 * sizeof(float), st>>>(partial, n_part, p2, (float)n_pix, m_bar);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  de::tile_scores<<<n_tiles, pt >= 2048 ? 1024 : (pt >= 64 ? pt / 2 : 32), pt * sizeof(float),
-                    st>>>(color, count, lum2, m_bar, h, bw, bh, pt, score, p);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  const int block = 256;
-  de::rank_select<<<(n_tiles + block - 1) / block, block, n_tiles * sizeof(int32_t), st>>>(
-      score, n_tiles, k, ids);
-  return (int)cudaGetLastError();
+  const int rc = de::mean_stages(p, color, count, (int64_t)w * h, partial, m_bar, st);
+  if (rc != 0) return rc;
+  return de::select_stages(p, color, count, lum2, m_bar, h, bw, bh, (w / bw) * (h / bh), 0, k,
+                           score, ids, st);
+}
+
+// One shard's mean of mean_lum over its n_pix pixels, into mean (1,);
+// partial (ceil(n_pix / 1024),) is scratch.
+extern "C" int de_shard_mean(const float* fp, const float* color, const float* count, int n_pix,
+                             float* partial, float* mean, void* stream) {
+  return de::mean_stages(de::params(fp), color, count, n_pix, partial, mean,
+                         (cudaStream_t)stream);
+}
+
+// The k best of one shard's n_tiles tiles of tile pixels each, scored
+// against the frame mean m_bar (1,) on the device; score (n_tiles,) is
+// scratch, ids (k,) the shard-local tile ids.
+extern "C" int de_select_tiles_shard(const float* fp, const float* color, const float* count,
+                                     const float* lum2, int n_tiles, int tile, int k,
+                                     const float* m_bar, float* score, int32_t* ids,
+                                     void* stream) {
+  return de::select_stages(de::params(fp), color, count, lum2, m_bar, 1, tile, 1, n_tiles, 1, k,
+                           score, ids, (cudaStream_t)stream);
 }

@@ -8,9 +8,11 @@ directory, and loaded with ``ctypes``; ptxas's report of each source
 (registers, spills) is kept in ``ptxas_log``. Triton: ``csrc/film_postprocess.py``
 is loaded from its path at first CUDA use, with ``TRITON_CACHE_DIR`` pointed
 at the git-ignored ``build/triton/``. Each launcher checks device, dtype,
-shape and contiguity, runs on ``torch.cuda.current_stream()``, raises if the
-launch fails (a non-zero ``cudaGetLastError()`` from a C entry), and adds
-one to its ``launches`` counter. Nothing here imports or builds anything
+shape and contiguity, runs on ``torch.cuda.current_stream()`` of the calling
+thread's current device (parallel/mesh.py's worker threads each set theirs),
+raises if the launch fails (a non-zero ``cudaGetLastError()`` from a C
+entry), and adds one to its ``launches`` counter (under a lock: a mesh
+launches from several threads). Nothing here imports or builds anything
 until a kernel is launched; there is no fallback to the plain versions.
 
 Built with ``--fmad=false`` and without fast math, so the kernels round each
@@ -31,6 +33,7 @@ import os
 import shutil
 import subprocess
 import sys
+import threading
 import time
 
 import torch
@@ -45,6 +48,7 @@ NVCC_FLAGS = [
 ]
 
 _lib = None
+_lock = threading.Lock()  # the build, and the launch counters of worker threads
 build_seconds = None
 # ptxas's report (registers, spills) per source of the last build, by file name
 ptxas_log = {}
@@ -77,6 +81,11 @@ _SIGNATURES = {
     # float params, color, count, lum2, w, h, bw, bh, k, partial, m_bar,
     # score, ids, stream
     "de_select_tiles": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
+    # float params, color, count, n_pix, partial, mean, stream
+    "de_shard_mean": [_P, _P, _P, _I, _P, _P, _P],
+    # float params, color, count, lum2, n_tiles, tile, k, m_bar, score, ids,
+    # stream
+    "de_select_tiles_shard": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
     # float params, int params, pos, dir, wavelength, lambda_pdf, throughput,
     # radiance, w_mis, alive, primary_miss, work_class, keys, idx, m, n,
     # topo, material, clouds, o3_crossec, srgb2spec, table, stream
@@ -106,10 +115,15 @@ def _sources():
 
 
 def library():
-    """The loaded kernel library, built on first call."""
-    global _lib, build_seconds
+    """The loaded kernel library, built on first call (by one thread)."""
     if _lib is not None:
         return _lib
+    with _lock:
+        return _lib if _lib is not None else _build()
+
+
+def _build():
+    global _lib, build_seconds
     srcs = _sources()
     digest = hashlib.sha256()
     for path in srcs:
@@ -174,6 +188,11 @@ def _launch(fn_name, *args):
         raise RuntimeError(f"{fn_name}: CUDA error {rc}")
 
 
+def _count(fn, n):
+    with _lock:
+        fn.launches += n
+
+
 def keys_i32(keys):
     """(n, 2) int64 keys holding uint32 values -> the same bits as int32."""
     return torch.where(keys >= 2**31, keys - 2**32, keys).to(torch.int32).contiguous()
@@ -207,7 +226,7 @@ def land_march(topo, pos, direction, active, t_cap, scale: float, *,
             _ptr(active), _ptr(t_cap), _ptr(out), n, scale, step_floor,
             stall_thresh, steps, k, patience, int(any_hit),
         )
-        land_march.launches += 1
+        _count(land_march, 1)
     return out
 
 
@@ -234,7 +253,7 @@ def rmo_delta_track(keys, pos, direction, t_start, t_max, ext_h, active, *,
             _ptr(t_start), _ptr(t_max), _ptr(ext_h), _ptr(active), _ptr(event),
             _ptr(t), _ptr(iid), n, max_steps, k, o3_env_peak,
         )
-        rmo_delta_track.launches += 1
+        _count(rmo_delta_track, 1)
     return event, t, iid
 
 
@@ -264,7 +283,7 @@ def cloud_track(keys, pos, direction, t_start, t_max, ext_w, active, clouds, *,
             _ptr(clouds), h, w, _ptr(event), _ptr(t), _ptr(trans), n,
             max_steps, k, int(ratio),
         )
-        cloud_track.launches += 1
+        _count(cloud_track, 1)
     return trans if ratio else (event, t)
 
 
@@ -293,7 +312,7 @@ def atmos_march(pos, direction, t_start, t_max, sun_dir, ext_rmo, scattering,
             f32(3.0 / (16.0 * math.pi)), f32(mie_e), f32(2.0 * math.pi),
             float(torch.log(torch.tensor(2.0 * mie_e + 1.0, dtype=torch.float32))),
         )
-        atmos_march.launches += 1
+        _count(atmos_march, 1)
     return in_scatter, trans
 
 
@@ -327,7 +346,7 @@ def gen_rays(fparams, iparams, g, cie_response, n: int, n_lambdas: int, tile_ids
             _ptr(g), _ptr(cie_response), _ptr(keys), _ptr(dirs), _ptr(wavelengths),
             _ptr(responses), _ptr(pdf), _ptr_or_null(tile_ids), n,
         )
-        gen_rays.launches += 1
+        _count(gen_rays, 1)
     return keys, dirs, wavelengths, responses, pdf
 
 
@@ -380,7 +399,7 @@ def frame_end(fparams, iparams, radiance, responses, pid, color, count=None, lum
             _ptr(radiance), _ptr(responses), *ptrs, _ptr(pid), _ptr(color),
             _ptr_or_null(count), _ptr_or_null(lum2), n,
         )
-        frame_end.launches += 1
+        _count(frame_end, 1)
 
 
 SELECT_TILES_STAGES = 4  # kernel launches per call (csrc/select_tiles.cu)
@@ -412,7 +431,56 @@ def select_tiles(fparams, color, count, lum2, block, k: int):
         "de_select_tiles", ctypes.cast(fp, ctypes.c_void_p), _ptr(color), _ptr(count),
         _ptr(lum2), w, h, bw, bh, k, _ptr(partial), _ptr(m_bar), _ptr(score), _ptr(ids),
     )
-    select_tiles.launches += SELECT_TILES_STAGES
+    _count(select_tiles, SELECT_TILES_STAGES)
+    return ids
+
+
+def _check_shard(color, count, lum2=None):
+    dev = color.device
+    n_pix = count.shape[0]
+    _check("color", color, torch.float32, (n_pix, 3), dev)
+    _check("count", count, torch.float32, (n_pix,), dev)
+    if lum2 is not None:
+        _check("lum2", lum2, torch.float32, (n_pix,), dev)
+    return dev, n_pix
+
+
+def shard_mean(fparams, color, count):
+    """Launch stages 1-2 of ``select_tiles`` (csrc/select_tiles.cu,
+    de_shard_mean) on one device's flat shard: the (1,) mean over its pixels
+    of lum(color) / max(count, 1). ``color`` (P, 3), ``count`` (P,)."""
+    dev, n_pix = _check_shard(color, count)
+    if len(fparams) != 5 or n_pix < 1:
+        raise ValueError("shard_mean: expected 5 float parameters and a non-empty shard")
+    partial = torch.empty((-(-n_pix // 1024),), dtype=torch.float32, device=dev)
+    mean = torch.empty((1,), dtype=torch.float32, device=dev)
+    fp = (ctypes.c_float * 5)(*fparams)
+    _launch("de_shard_mean", ctypes.cast(fp, ctypes.c_void_p), _ptr(color), _ptr(count), n_pix,
+            _ptr(partial), _ptr(mean))
+    _count(select_tiles_shard, SELECT_TILES_STAGES // 2)
+    return mean
+
+
+def select_tiles_shard(fparams, color, count, lum2, tile: int, k: int, m_bar):
+    """Launch stages 3-4 of ``select_tiles`` (csrc/select_tiles.cu,
+    de_select_tiles_shard) on one device's flat tile-major shard of
+    ``tile``-pixel tiles: the (k,) int32 shard-local ids of the best tiles
+    scored against the frame mean ``m_bar`` (1,) on the same device, in
+    descending order, ties to the lower id. Its launches count with
+    ``shard_mean``'s."""
+    dev, n_pix = _check_shard(color, count, lum2)
+    _check("m_bar", m_bar, torch.float32, (1,), dev)
+    if len(fparams) != 5:
+        raise ValueError("select_tiles_shard: expected 5 float parameters")
+    if tile < 1 or n_pix % tile or not 1 <= k <= n_pix // tile:
+        raise ValueError(f"select_tiles_shard: k={k} of {n_pix} pixels in tiles of {tile}")
+    n_tiles = n_pix // tile
+    score = torch.empty((n_tiles,), dtype=torch.float32, device=dev)
+    ids = torch.empty((k,), dtype=torch.int32, device=dev)
+    fp = (ctypes.c_float * 5)(*fparams)
+    _launch("de_select_tiles_shard", ctypes.cast(fp, ctypes.c_void_p), _ptr(color), _ptr(count),
+            _ptr(lum2), n_tiles, tile, k, _ptr(m_bar), _ptr(score), _ptr(ids))
+    _count(select_tiles_shard, SELECT_TILES_STAGES // 2)
     return ids
 
 
@@ -461,7 +529,7 @@ def film_postprocess(color_buffer, count, spp: float, exposure_scale: float,
                 int(crf_index), crf_curves.shape[1], **constants, DRT=drt,
                 HAS_COUNT=count is not None, CRF_RES=crf_curves.shape[0], BLOCK=block,
             )
-        film_postprocess.launches += 1
+        _count(film_postprocess, 1)
     return out
 
 
@@ -515,7 +583,7 @@ def bounce(fparams, iparams, pos, direction, wavelength, lambda_pdf, throughput,
             _ptr(keys), _ptr(idx), m, n, _ptr(topo), _ptr(material), _ptr(clouds),
             _ptr(o3_crossec), _ptr(srgb2spec), _ptr(table),
         )
-        bounce.launches += 1
+        _count(bounce, 1)
 
 
 COMPACT_STAGES = 3  # kernel launches per compact_lanes call (csrc/compact_lanes.cu)
@@ -535,7 +603,7 @@ def compact_lanes(alive, work_class):
     scratch = torch.empty((3 * nb + 4,), dtype=torch.int32, device=dev)
     _launch("de_compact_lanes", _ptr(alive), _ptr(work_class), n, _ptr(idx), _ptr(n_live),
             _ptr(scratch))
-    compact_lanes.launches += 1
+    _count(compact_lanes, 1)
     return idx, n_live
 
 
@@ -606,12 +674,13 @@ def upsample(base, factor: int, jitter: float, jitter_channel: int, jitter_seed:
     jc = jitter_channel if jitter > 0.0 and 0 <= jitter_channel < c else -1
     _launch("de_upsample", _ptr(base), w, c, f, _ptr(out), n, jc, jitter,
             jitter_seed & 0xFFFFFFFF)
-    upsample.launches += 1
+    _count(upsample, 1)
     return out
 
 
 PATH_KERNELS = (land_march, rmo_delta_track, cloud_track, gen_rays, atmos_march,
-                film_postprocess, frame_end, select_tiles, bounce, compact_lanes, upsample)
+                film_postprocess, frame_end, select_tiles, select_tiles_shard, bounce,
+                compact_lanes, upsample)
 for _k in PATH_KERNELS:
     _k.launches = 0
 

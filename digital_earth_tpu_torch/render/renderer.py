@@ -45,13 +45,15 @@ from .params import SceneParams, TraceConfig, make_scene_params
 def trace_lanes(base_key, spp: int, lane0: int, n: int, cam: CameraParams,
                 scene: SceneParams, atlas: TextureAtlas, luts: SpectralLUTs,
                 image_res, block, cfg: TraceConfig, color, count=None, lum2=None,
-                mode: str = "path", interrupt=None, tile_ids=None):
+                mode: str = "path", interrupt=None, tile_ids=None, out_index=None):
     """One sample for lanes [lane0, lane0 + n) of the frame's tile-major
     lane order over ``block`` (of the tiles ``tile_ids`` when given), added
     into ``color`` (W * H, 3) at pixel pu * H + pv, and into ``count`` /
     ``lum2`` (W * H,) when given (renderer.py:125-348 with the deposit of
-    503-509; the preview branch is render_tile, 202-213). The path tracer
-    polls ``interrupt`` between bounces (pathtracer.run_bounces) and raises
+    503-509; the preview branch is render_tile, 202-213). ``out_index`` (n,)
+    int64 puts lane i at buffer row out_index[i] instead (a render mesh's
+    device deposits into its own flat shard). The path tracer polls
+    ``interrupt`` between bounces (pathtracer.run_bounces) and raises
     ``pathtracer.Interrupted`` before anything is deposited."""
     _, h = image_res
     preview = mode == "preview"
@@ -60,7 +62,7 @@ def trace_lanes(base_key, spp: int, lane0: int, n: int, cam: CameraParams,
     dev = rays.dirs.device
     lane = torch.arange(lane0, lane0 + n, dtype=torch.int64, device=dev)
     tidx, li, pu, pv = raygen.tile_pixel_coords(lane, image_res, block, tile_ids)
-    pid = pu * h + pv
+    pid = pu * h + pv if out_index is None else out_index
     pos = cam.position.expand(n, 3).contiguous()
     if preview:
         spp_key = rng.fold(torch.tensor(base_key, dtype=torch.int64, device=dev), spp)
@@ -175,8 +177,8 @@ class Renderer:
         self.land_height_scale = float(scale)
 
     # --- parameter assembly -------------------------------------------------
-    def camera_params(self) -> CameraParams:
-        f32 = dict(dtype=torch.float32, device=self.device)
+    def camera_params(self, device=None) -> CameraParams:
+        f32 = dict(dtype=torch.float32, device=device or self.device)
         return CameraParams(
             position=torch.tensor(self.camera_pos, **f32),
             look_at=torch.tensor(self.look_at, **f32),
@@ -185,9 +187,9 @@ class Renderer:
             aspect_scale=torch.tensor(self.aspect_scale, **f32),
         )
 
-    def scene_params(self) -> SceneParams:
+    def scene_params(self, device=None) -> SceneParams:
         return make_scene_params(
-            self.device, self.sun_angle, self.sun_path_rot, self.land_height_scale
+            device or self.device, self.sun_angle, self.sun_path_rot, self.land_height_scale
         )
 
     # --- main API -----------------------------------------------------------

@@ -176,7 +176,8 @@ def test_main_path_uses_every_kernel_and_matches_golden(dev):
     assert all(counts[k] > 0 for k in main_path), counts
     assert counts["compact_lanes"] >= counts["bounce"], counts
     # the loops run inside bounce; the other paths' kernels do not launch
-    others = ("land_march", "rmo_delta_track", "cloud_track", "atmos_march", "select_tiles")
+    others = ("land_march", "rmo_delta_track", "cloud_track", "atmos_march", "select_tiles",
+              "select_tiles_shard")
     assert all(counts[k] == 0 for k in others), counts
     buf = r.color_buffer.cpu().numpy()
     share = np.isclose(buf, golden["color_buffer"], rtol=1e-3, atol=1e-7).all(-1).mean()
@@ -397,6 +398,83 @@ def test_select_tiles_kernel_with_nan_scores(dev, case):
         want = adaptive.select_tiles_plain(*bufs, block, k)
         assert torch.equal(got, want)
         assert got.unique().numel() == k and 0 <= got.min().item() and got.max().item() < n_tiles
+
+
+# --- one device's shard of a render mesh: shard_mean, select_tiles_shard -----
+# Stated tolerance: the shard mean bit-equal to its twin (the same halving
+# trees), the ids equal in order; a (4, 1) mesh over one card bit-equal to
+# the Renderer (per-lane kernels, one add per pixel).
+
+
+@pytest.mark.parametrize("n_tiles,tile,case", [(270, 1920, "finite"), (8, 64, "finite"),
+                                               (270, 1920, "nan_lum2"), (100, 48, "inf_color")])
+def test_select_tiles_shard_kernel(dev, n_tiles, tile, case):
+    from digital_earth_tpu_torch import kernels
+    from digital_earth_tpu_torch.render import adaptive
+
+    g = torch.Generator().manual_seed(7)
+    n = n_tiles * tile
+    count = torch.randint(1, 6, (n,), generator=g).float()
+    count[:tile] = 0.0  # a never-sampled tile
+    color = torch.exp(torch.randn((n, 3), generator=g)) * count[:, None]
+    lum2 = color.sum(-1) ** 2 / count.clamp(min=1) * (1 + torch.rand((n,), generator=g))
+    if case == "nan_lum2":
+        lum2[n // 2] = float("nan")
+    elif case == "inf_color":
+        color[n // 3, 1] = float("inf")
+    bufs = [t.to(dev).contiguous() for t in (color, count, lum2)]
+    before = kernels.select_tiles_shard.launches
+    mean = adaptive.shard_mean(*bufs[:2])
+    assert torch.equal(mean, adaptive.shard_mean_plain(*bufs[:2]))
+    m_bar = mean * 0.8
+    for k in (1, n_tiles // 4, n_tiles):
+        got = adaptive.select_tiles_shard(*bufs, tile, k, m_bar)
+        want = adaptive.select_tiles_shard_plain(*bufs, tile, k, m_bar)
+        assert got.dtype == torch.int32 and torch.equal(got, want)
+        assert got.unique().numel() == k
+    assert kernels.select_tiles_shard.launches == before + 4 * kernels.SELECT_TILES_STAGES // 2
+
+
+def _mesh_renderers(devices, n_spp=1, res=(320, 180)):
+    from digital_earth_tpu_torch.app.config_io import apply_config
+    from digital_earth_tpu_torch.parallel.mesh import MultiChipRenderer, make_render_mesh
+    from digital_earth_tpu_torch.render.renderer import Renderer
+
+    atlas = build_atlas(generate_earth_textures((64, 128), seed=3), devices[0])
+    cfg = load_config(os.path.join(ROOT, "scenes", "config - Apollo 11.txt"))
+    m = MultiChipRenderer(make_render_mesh(devices, spp_axis=n_spp), res, atlas=atlas, seed=5)
+    s = Renderer(devices[0], res, atlas=atlas, seed=5)
+    for r in (m, s):
+        apply_config(r, cfg)
+    return m, s
+
+
+def test_mesh_on_one_card_matches_renderer(dev):
+    from digital_earth_tpu_torch import kernels
+
+    m, s = _mesh_renderers([torch.device("cuda:0")] * 4)
+    for _ in range(2):
+        m.accumulate()
+        s.accumulate()
+    assert torch.equal(m.color_buffer, s.color_buffer)
+    kernels.reset_launch_counts()
+    a, _ = _mesh_renderers([torch.device("cuda:0")] * 4)
+    for _ in range(3):
+        assert a.accumulate_adaptive(frac=0.25)
+    assert kernels.launch_counts()["select_tiles_shard"] == 4 * kernels.SELECT_TILES_STAGES
+    counts = torch.stack(a._count).view(4, a.tiles_per_dev, a.tile)[..., 0]
+    assert ((counts == 3.0).sum(1) == max(1, int(a.tiles_per_dev * 0.25))).all()
+
+
+def test_mesh_over_distinct_cards_matches_renderer(dev):
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two or more CUDA cards")
+    m, s = _mesh_renderers([torch.device(f"cuda:{i}") for i in range(n)])
+    for _ in range(2):
+        m.accumulate()
+        s.accumulate()
+    assert torch.equal(m.color_buffer, s.color_buffer)
 
 
 # --- the bounce: bounce, compact_lanes, density_check ------------------------

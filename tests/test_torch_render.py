@@ -148,8 +148,10 @@ def test_port_never_imports_jax():
     code = (
         "import importlib, pkgutil, sys\n"
         "import digital_earth_tpu_torch as p\n"
-        "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
-        "    importlib.import_module(m.name)\n"
+        "names = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
+        "assert 'digital_earth_tpu_torch.parallel.mesh' in names, names\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
         "assert 'jax' not in sys.modules, sorted(k for k in sys.modules if 'jax' in k)\n"
         "ref = sorted(k for k in sys.modules if k.split('.')[0] == 'digital_earth_tpu')\n"
         "assert not ref, ref\n"

@@ -215,9 +215,26 @@ def test_render_offline_preview_writes_png(atlas, tmp_path):
     assert _decode_png(out.read_bytes())[:2] == (16, 9)
 
 
-def test_entry_point_refuses_unported_flags(capsys):
-    assert entry.main(["--multichip"]) == 2
-    assert "ROADMAP.md" in capsys.readouterr().err
+def test_entry_point_multichip_serves_a_mesh_renderer(monkeypatch, tmp_path):
+    """``--multichip`` hands EarthViewer a MultiChipRenderer over every CUDA
+    card (here the mesh over one CPU device, a small atlas and no server)."""
+    from digital_earth_tpu_torch.parallel import mesh as mesh_mod
+    from digital_earth_tpu_torch.render import renderer as renderer_mod
+
+    started = []
+    make_mesh = mesh_mod.make_render_mesh
+    small = build_atlas(generate_earth_textures((16, 32), seed=3), "cpu")
+    monkeypatch.chdir(tmp_path)  # the viewer's config.txt and screenshot/
+    monkeypatch.setattr(mesh_mod, "make_render_mesh", lambda: make_mesh(["cpu"]))
+    monkeypatch.setattr(renderer_mod, "load_texture_atlas", lambda device: small)
+    monkeypatch.setattr(EarthViewer, "start", lambda self: started.append(self))
+    assert entry.main(["--multichip", "--adaptive", "--port", "8124"]) == 0
+    (v,) = started
+    r = v.renderer
+    assert isinstance(r, mesh_mod.MultiChipRenderer) and r.atlas is small
+    assert r.image_res == (1920, 1080) and r.mesh.shape == {"px": 1, "spp": 1}
+    assert (v.port, v.adaptive_frac) == (8124, 0.25)
+    assert v.preview_renderer.image_res == (480, 270) and v.preview_renderer.atlas is small
 
 
 def test_entry_point_adaptive_starts_an_adaptive_viewer(monkeypatch):

@@ -1,19 +1,23 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch + CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--mesh-only]
+    python3 chip_smoke.py [--mesh-only | --preview-bench [DIR]]
 
 Run from the root of a checkout on a machine with a CUDA card, ``nvcc`` and
 PyTorch built for CUDA; ``--mesh-only`` runs phases 1-3 and 19 alone (say,
-on a machine with several cards, where phase 19 adds meshes over them). It
+on a machine with several cards, where phase 19 adds meshes over them);
+``--preview-bench [DIR]`` prints the preview's end-to-end numbers (frame
+times and kernels per frame on both atlases, input to preview) for the port
+package in DIR (default this checkout), so that two versions of the port can
+be alternated in one call. It
 imports nothing of JAX or of the JAX package ``digital_earth_tpu`` (checked
 at the end). Phases, each of which raises on failure (exit code 1):
 
 1. toolchain: torch, CUDA, nvcc, Triton versions and the card
    (``nvidia-smi --query-gpu=name,power.limit``);
 2. builds the kernels of ``digital_earth_tpu_torch/csrc`` with nvcc for
-   sm_90a (timed), and prints ptxas's registers and spills of ``bounce``
-   and ``compact_lanes``;
+   sm_90a (timed), and prints ptxas's registers and spills of ``bounce``,
+   ``compact_lanes`` and ``preview``;
 3. holds the threefry header bit for bit against the plain ``uniform``,
    and times it at the frame's shape;
 4. renders one spp of the main path's frame (Apollo 11, 1920x1080, default
@@ -51,10 +55,13 @@ and read just after):
 10. ``film_postprocess`` (Triton) against its twin on the phase-6 buffer,
     OpenDRT and AgX, a scalar spp and a per-pixel count;
 11. the preview frame: Apollo 11 at 480x270 (the viewer's preview of a
-    1920x1080 view), ``accumulate`` + ``fetch_image``, with ``atmos_march``
-    and ``land_march`` launched; ``atmos_march`` against its twin on the
-    arguments of bounces 0 and 1, lane by lane; the committed preview
-    golden (32x18) on the card;
+    1920x1080 view), ``accumulate`` + ``fetch_image``, 3 warm frames timed:
+    ``preview`` launches once per frame, ``atmos_march`` and ``land_march``
+    never (their loops run inside it); ``preview`` against
+    ``march_paths_plain`` on the card on the frame's own lanes, lane by lane
+    (kernel and twin timed, the bound printed); ``atmos_march`` against its
+    twin on the arguments of bounces 0 and 1 of that twin's run; the
+    committed preview golden (32x18) on the card;
 12. ``accumulate_interruptible(9)`` at 1920x1080 bit-equal to
     ``accumulate()`` for the same seed and round;
 13. ``EarthViewer`` at 1920x1080 on an ephemeral port, driven over HTTP:
@@ -109,7 +116,7 @@ built and read after its render):
     phase 6's; ``upsample`` bit-equal to its twin on the four full-size
     planes (timed beside the twin and an expand + reshape copy); ``bounce``
     against its twin at tier-2 bounce 0 under phase 8's gates; a 480x270
-    preview frame on the same atlas.
+    preview frame on the same atlas under phase 11's gates.
 
 Last, since a profiler session can slow the launches after it:
 
@@ -118,13 +125,17 @@ Last, since a profiler session can slow the launches after it:
     on phase 19's (4, 1) mesh: s/spp (1 warm-up, 1 timed), then one spp
     under ``torch.profiler``: device kernels per spp (at most
     MAX_KERNELS_PER_SPP, four times that on the mesh), the device-busy share,
-    the kernels with the most device time, ``bounce``'s device time.
+    the kernels with the most device time, ``bounce``'s device time; then
+    one warm 480x270 preview frame: device kernels per frame (at most
+    MAX_KERNELS_PER_PREVIEW), the device-busy share, ``preview``'s device
+    time.
 
 The line before the last is the card's name and power limit; before it, one
 JSON line lists each kernel with its launches (``select_tiles`` makes four
 per call, ``select_tiles_shard`` two per shard mean and two per shard
 selection, ``compact_lanes`` three, counted as one; ``upsample`` four per
-atlas, its times the four planes' sums), error, times and bound (the least time the card could take: the
+atlas, its times the four planes' sums; ``preview`` one per preview frame,
+its launches from phase 11), error, times and bound (the least time the card could take: the
 larger of the bytes it must move at 3.35 TB/s and the operations at 67
 TFLOP/s, counted from this run's inputs, a transcendental as one
 operation). The last line is {"ok": true, "device": {...}}.
@@ -151,6 +162,11 @@ RATIO_RTOL, RATIO_ATOL = 1e-4, 1e-6  # ratio-tracking transmittance
 # reciprocal, the kernel divides, so directions and wavelengths move by an ulp.
 DIR_ATOL, WL_RTOL, RESP_ATOL, PDF_RTOL = 1e-6, 1e-6, 1e-4, 1e-4
 MARCH_RTOL = 1e-4   # atmos_march in-scatter / transmittance (atol 1e-6 of the max)
+# preview vs march_paths_plain: the share of lanes whose radiance is within
+# PREVIEW_RTOL (atol 1e-6 of the largest value) at least BOUNCE_AGREEMENT.
+# Both round op by op with the same libm and draw the same numbers; a lane
+# parts only where a march hit flips on an ulp.
+PREVIEW_RTOL = 1e-4
 FILM_ATOL = 1e-4    # film_postprocess display values in [0, 1]
 PREVIEW_RES = (480, 270)  # the viewer's preview (preview_scale=4) of RES
 # frame_end: RGB and lum^2 within 1e-5 relative (atol 1e-6 of the largest
@@ -221,6 +237,27 @@ GEN_RAYS_OPS = 680
 # (45 each) and the final exponential (6): 744.
 ATMOS_LANE_OPS = 22 + 64 * (33 + 33 + 17)
 ATMOS_SUN_OPS = 17 + 1 + 16 * 45 + 6
+# preview (csrc/preview.cu), counted the same way; the land-march probes and
+# the texture taps (normal, material, stars) are not counted, so its bound
+# is a floor. Every lane: two Planck terms and the sun irradiance (22), the
+# three extinctions (46), the scattering (2), the tile key's threefry block
+# (77), the clamp (2): 149. A lane per bounce it enters alive and crossing
+# the atmosphere: the atmosphere's rsi (17), the span (2), the cone key and
+# its two draws (3 threefry blocks, 231), the cone sample (56), the
+# accumulation (3), plus ATMOS_LANE_OPS and ATMOS_SUN_OPS per step that needs
+# the sun march: 309; a lane entering bounce 1 or 2, the key chain's block
+# (77). A surface lane: land_pos (6), the normal's four SDFs and difference
+# (52), the material grading (86), the albedo spectrum (18), the night
+# lights, offset and visibility (7), two BRDF evaluations (570), the direct
+# and bounce terms (11), the hemisphere key and draws (231), the hemisphere
+# sample (26): 1007. A primary miss: the sun test and add (6), the stars'
+# spectrum (18), its term (3): 27.
+PREVIEW_LANE_OPS, PREVIEW_BOUNCE_OPS, PREVIEW_CHAIN_OPS = 149, 309, 77
+PREVIEW_SURFACE_OPS, PREVIEW_MISS_OPS = 1007, 27
+# pos, dir (12 B each), wavelength (4), tile and in-tile index (8 each) read,
+# the radiance (4) written; the o3 and srgb2spec tables read once
+PREVIEW_LANE_BYTES, PREVIEW_TABLE_BYTES = 48, 441 * 4 + 300 * 12
+MAX_KERNELS_PER_PREVIEW = 100  # device kernels of one profiled preview frame
 # film_postprocess: the OpenDRT chain from /spp and the vignette to the
 # camera response and the sRGB encoding.
 FILM_OPS = 230
@@ -723,15 +760,16 @@ def check_texture(torch, lookups, atlas):
         fail("the kernels' sphere tap disagrees with ops/texture.sample_sphere_texture")
 
 
-def profile_spp(torch, r, label):
-    """One accumulate() under torch.profiler: (device kernels, device-busy
-    seconds, wall seconds under the profiler, device us by kernel name)."""
+def profile_spp(torch, r, label, run=None, unit="spp"):
+    """One accumulate() (or ``run()``) under torch.profiler: (device kernels,
+    device-busy seconds, wall seconds under the profiler, device us by
+    kernel name)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
-        r.accumulate()
+        (run or r.accumulate)()
         torch.cuda.synchronize()
         wall = time.time() - t0
     dev_events = [e for e in prof.events()
@@ -743,7 +781,7 @@ def profile_spp(torch, r, label):
         by_name[e.name] = by_name.get(e.name, 0) + e.time_range.elapsed_us()
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
     print(f"profile {label}: {len(kernels_only)} device kernels (+{len(dev_events) - len(kernels_only)}"
-          f" copies/sets) per spp, device busy {busy:.4f} s of {wall:.4f} s profiled wall "
+          f" copies/sets) per {unit}, device busy {busy:.4f} s of {wall:.4f} s profiled wall "
           f"({busy / wall:.3f}); most device time: "
           + ", ".join(f"{name[:40]} {us / 1e3:.2f} ms" for name, us in top))
     return len(kernels_only), busy, wall, by_name
@@ -888,30 +926,31 @@ def check_film(torch, buf, crf_curves):
 
 
 def preview_frame(torch, dev, atlas, luts, label=""):
-    """The preview frame at 480x270: timed, its launches counted, and
-    atmos_march held against its twin on the arguments of bounces 0 and 1.
-    Returns (launch counts of one frame, JSON row, the frame_end arguments)."""
+    """The preview frame at 480x270: 3 warm frames timed with their launches
+    counted (``preview`` once, ``atmos_march`` and ``land_march`` never);
+    then ``check_preview`` on the frame's own lanes. Returns (launch counts
+    of one frame, JSON rows of ``preview`` and ``atmos_march``, the
+    frame_end arguments)."""
     from digital_earth_tpu_torch import kernels
     from digital_earth_tpu_torch.render import raymarcher
     from digital_earth_tpu_torch.render.renderer import Renderer
 
     r = _apollo(Renderer(dev, image_res=PREVIEW_RES, atlas=atlas, luts=luts, mode="preview"))
-    captured = []
-    original = raymarcher.ray_march_atmos
+    march = {}
+    original = raymarcher.march_paths
 
-    def keep(*args):
-        if len(captured) < 2:
-            captured.append(tuple(a.clone() for a in args))
-        return original(*args)
+    def keep(*args, **kwargs):
+        march.update(args=args, kwargs=kwargs)
+        return original(*args, **kwargs)
 
-    raymarcher.ray_march_atmos = keep
+    raymarcher.march_paths = keep
     try:
-        # warm-up, and the capture of bounces 0 and 1 and of the frame's end
+        # warm-up, and the capture of the frame's lanes and of its end
         kept = capture_frame_end(torch, r.accumulate)
         r.fetch_image()
         torch.cuda.synchronize()
     finally:
-        raymarcher.ray_march_atmos = original
+        raymarcher.march_paths = original
     times = []
     for _ in range(3):
         r.reset_framebuffer()
@@ -923,47 +962,103 @@ def preview_frame(torch, dev, atlas, luts, label=""):
         times.append(time.time() - t0)
         counts = kernels.launch_counts()
     finite = bool(torch.isfinite(img).all()) and bool(torch.isfinite(r.color_buffer).all())
-    print(f"preview frame Apollo 11 {PREVIEW_RES[0]}x{PREVIEW_RES[1]}{' ' + label if label else ''} "
-          f"(accumulate + fetch_image, "
-          f"warm): {' '.join(f'{t * 1e3:.1f}' for t in times)} ms; launches {counts}; "
-          f"finite {finite}, buffer mean {r.color_buffer.mean().item():.6g}")
-    if not (counts["atmos_march"] > 0 and counts["land_march"] > 0 and counts["gen_rays"] > 0
+    where = f" {label}" if label else ""
+    print(f"preview frame Apollo 11 {PREVIEW_RES[0]}x{PREVIEW_RES[1]}{where} (accumulate + "
+          f"fetch_image, warm, {nvidia_smi_line()}): {' '.join(f'{t * 1e3:.1f}' for t in times)} "
+          f"ms; launches {counts}; finite {finite}, buffer mean {r.color_buffer.mean().item():.6g}")
+    if not (counts["preview"] == 1 and counts["atmos_march"] == 0 and counts["land_march"] == 0
+            and counts["gen_rays"] == 1 and counts["frame_end"] == 1
             and counts["film_postprocess"] > 0):
-        fail(f"the preview frame did not launch its kernels: {counts}")
+        fail(f"the preview frame did not run as one preview launch: {counts}")
     if not (finite and r.color_buffer.mean().item() > 0.0):
         fail("the preview frame is not finite with a positive mean")
+    rows = check_preview(torch, march["args"], march["kwargs"], counts["preview"], where)
+    return counts, rows, kept
 
-    row = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0)
-    for b, args in enumerate(captured):
-        active = args[-1]
-        got, ms = _time_ms(torch, lambda: raymarcher.ray_march_atmos(*args), 5)
-        want, plain_ms = _plain_ms(torch, lambda: raymarcher.ray_march_atmos_plain(*args))
-        lane_ok = torch.ones_like(active)
+
+def check_preview(torch, args, kwargs, launches, where):
+    """``preview`` against ``march_paths_plain`` on the card on one frame's
+    lanes, lane by lane (the share within PREVIEW_RTOL at least
+    BOUNCE_AGREEMENT), both timed; ``atmos_march`` against its twin on the
+    arguments of bounces 0 and 1 of that twin's run. Returns the JSON rows
+    of both kernels."""
+    from digital_earth_tpu_torch.render import raymarcher
+
+    scene, atlas, luts, cfg = args[4:8]
+    frame = raymarcher.PreviewFrame(scene, atlas, luts, cfg, kwargs["tile"])
+    got, ms = _time_ms(torch, lambda: raymarcher.march_paths(*args, **kwargs, frame=frame), 5)
+    atmos_args, marched = [], []
+    originals = raymarcher.ray_march_atmos, raymarcher.intersect_land
+
+    def atmos(*a):
+        atmos_args.append(tuple(x.clone() for x in a))
+        return originals[0](*a)
+
+    def land(*a, **k):
+        marched.append(int(a[4].sum()))  # the lanes each march has active
+        return originals[1](*a, **k)
+
+    raymarcher.ray_march_atmos, raymarcher.intersect_land = atmos, land
+    try:
+        want = raymarcher.march_paths_plain(*args, **kwargs)
+        torch.cuda.synchronize()
+    finally:
+        raymarcher.ray_march_atmos, raymarcher.intersect_land = originals
+    _, plain_ms = _plain_ms(torch, lambda: raymarcher.march_paths_plain(*args, **kwargs))
+    n = got.numel()
+    atol = 1e-6 * want.abs().max().clamp(min=1e-30)
+    lane_ok = (got - want).abs() <= PREVIEW_RTOL * want.abs() + atol
+    share = lane_ok.float().mean().item()
+    err = (got - want).abs().max().item()
+    rel = ((got - want).abs() / want.abs().clamp(min=atol))[lane_ok]
+    rel = rel.max().item() if rel.numel() else 0.0
+    same = (got == want).float().mean().item()
+    active = [int(a[-1].sum()) for a in atmos_args]
+    surface = marched[1::2]  # each bounce marches its live lanes, then the shadow rays
+    n_sun = [_atmos_sun_steps(torch, a) for a in atmos_args]
+    ops = (PREVIEW_LANE_OPS * n + (PREVIEW_BOUNCE_OPS + ATMOS_LANE_OPS) * sum(active)
+           + ATMOS_SUN_OPS * sum(n_sun) + PREVIEW_CHAIN_OPS * sum(active[1:])
+           + PREVIEW_SURFACE_OPS * sum(surface) + PREVIEW_MISS_OPS * (n - active[0]))
+    nbytes = PREVIEW_LANE_BYTES * n + PREVIEW_TABLE_BYTES
+    b_ms, b_by = bound(nbytes, ops)
+    ok = share >= BOUNCE_AGREEMENT
+    print(f"preview vs march_paths_plain{where}: {n} lanes; per bounce {active} crossing the "
+          f"atmosphere, {surface} on land, {n_sun} march steps with a sun march; within rtol "
+          f"{PREVIEW_RTOL} {share:.7f} ({n - int(lane_ok.sum())} not), bit-equal {same:.6f}, "
+          f"max abs err {err:.3e}, max rel err on agreeing lanes {rel:.3e}  kernel {ms:.3f} ms  "
+          f"plain {plain_ms:.1f} ms (eager, with the land_march and atmos_march kernels)  bound "
+          f"{b_ms:.4f} ms ({b_by}, a floor)  launches {launches}  {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"the preview kernel disagrees with march_paths_plain{where}")
+    if len(atmos_args) != 3 or len(marched) != 6:
+        fail(f"the twin did not run three bounces: {len(atmos_args)} marches")
+    rows = dict(preview=dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bytes=nbytes, ops=ops),
+                atmos_march=dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0))
+    row = rows["atmos_march"]
+    for b, a in enumerate(atmos_args[:2]):
+        act = a[-1]
+        got_a, ms_a = _time_ms(torch, lambda: raymarcher.ray_march_atmos(*a), 5)
+        want_a, plain_a = _plain_ms(torch, lambda: raymarcher.ray_march_atmos_plain(*a))
+        ok_a = torch.ones_like(act)
         errs = []
-        for g, w in zip(got, want):
-            atol = 1e-6 * w[active].abs().max().clamp(min=1e-30)
-            lane_ok &= (g - w).abs() <= MARCH_RTOL * w.abs() + atol
-            errs.append((g - w)[active].abs().max().item())
-        agree = lane_ok[active].float().mean().item()
-        n_act = int(active.sum())
-        ok = agree >= MIN_LANE_AGREEMENT
-        print(f"atmos_march bounce {b}: {active.numel()} lanes ({n_act} active)  lanes agreeing "
-              f"{agree:.7f} ({n_act - int(lane_ok[active].sum())} not)  max abs err "
-              f"in-scatter {errs[0]:.3e} transmittance {errs[1]:.3e}  kernel {ms:.3f} ms  "
-              f"plain {plain_ms:.1f} ms  {'ok' if ok else 'FAIL'}")
-        if not ok:
+        for g, w in zip(got_a, want_a):
+            tol = 1e-6 * w[act].abs().max().clamp(min=1e-30)
+            ok_a &= (g - w).abs() <= MARCH_RTOL * w.abs() + tol
+            errs.append((g - w)[act].abs().max().item())
+        agree = ok_a[act].float().mean().item()
+        print(f"atmos_march bounce {b}{where}: {act.numel()} lanes ({active[b]} active)  lanes "
+              f"agreeing {agree:.7f} ({active[b] - int(ok_a[act].sum())} not)  max abs err "
+              f"in-scatter {errs[0]:.3e} transmittance {errs[1]:.3e}  kernel {ms_a:.3f} ms  "
+              f"plain {plain_a:.1f} ms  {'ok' if agree >= MIN_LANE_AGREEMENT else 'FAIL'}")
+        if not agree >= MIN_LANE_AGREEMENT:
             fail("atmos_march disagrees with its plain twin")
         row["max_abs_err"] = max(row["max_abs_err"], errs[0])
         if b == 0:
-            row["ms"], row["plain_ms"] = ms, plain_ms
             # 17 inputs and 2 outputs per lane; per active lane its 64 steps,
             # and the sun march only of the steps that need it
-            n_sun = _atmos_sun_steps(torch, args)
-            print(f"atmos_march bounce 0 work: {n_sun} of {64 * n_act} steps need the "
-                  f"sun transmittance march ({n_sun / max(64 * n_act, 1):.4f})")
-            row["bytes"] = 73 * active.numel()
-            row["ops"] = ATMOS_LANE_OPS * n_act + ATMOS_SUN_OPS * n_sun
-    return counts, row, kept
+            row.update(ms=ms_a, plain_ms=plain_a, bytes=73 * act.numel(),
+                       ops=ATMOS_LANE_OPS * active[0] + ATMOS_SUN_OPS * n_sun[0])
+    return rows
 
 
 def _atmos_sun_steps(torch, args):
@@ -1093,8 +1188,8 @@ class ViewerRun:
             fail("the viewer's render loop did not stop")
 
 
-VIEWER_KERNELS = ("land_march", "bounce", "compact_lanes", "gen_rays", "atmos_march",
-                  "film_postprocess", "frame_end")
+VIEWER_KERNELS = ("bounce", "compact_lanes", "gen_rays", "preview", "film_postprocess",
+                  "frame_end")
 
 
 def check_viewer(torch, dev, atlas, luts):
@@ -1596,6 +1691,26 @@ def check_mesh(torch, dev, atlas, luts):
     return counts, row
 
 
+def profile_preview(torch, dev, atlas, luts):
+    """One warm 480x270 preview frame (accumulate + fetch_image) under
+    torch.profiler: device kernels per frame (at most
+    MAX_KERNELS_PER_PREVIEW) and the device-busy share."""
+    from digital_earth_tpu_torch.render.renderer import Renderer
+
+    r = _apollo(Renderer(dev, image_res=PREVIEW_RES, atlas=atlas, luts=luts, mode="preview"))
+    r.accumulate()
+    r.fetch_image()
+    label = f"Apollo 11 preview {PREVIEW_RES[0]}x{PREVIEW_RES[1]}"
+    n_kernels, busy, wall, by_name = profile_spp(
+        torch, r, label, run=lambda: (r.accumulate(), r.fetch_image()), unit="frame")
+    preview_us = sum(us for name, us in by_name.items() if "preview_kernel" in name)
+    print(f"profile {label}: preview {preview_us / 1e3:.3f} ms of {busy * 1e3:.3f} ms "
+          f"device-busy per frame ({nvidia_smi_line()})")
+    if not 0 < n_kernels <= MAX_KERNELS_PER_PREVIEW:
+        fail(f"{n_kernels} device kernels per preview frame (expected 1-{MAX_KERNELS_PER_PREVIEW})")
+    return n_kernels, busy, wall
+
+
 def check_main_path(torch, counts, r, img, label):
     """Phase 6's gates on a main-path run's launch counts, buffer and image."""
     buf = r.color_buffer
@@ -1765,10 +1880,76 @@ def check_tier2(torch, dev, luts, s_per_spp):
     return atlas, row, counts
 
 
+def _input_latencies(vs, samples):
+    """Seconds from ``/input?keys=w`` to a new preview frame, ``samples``
+    times, each sent 0.3 s into a path (or adaptive) frame."""
+    out = []
+    for _ in range(samples):
+        vs.wait_for(lambda s: s["frame_source"] == "path" and s["spp"] >= 1, 120)
+        time.sleep(0.3)
+        frames = vs.wait_for(lambda s: True, 10)["frames"]
+        t0 = time.time()
+        vs.get("/input?keys=w")
+        vs.wait_for(lambda s: s["frame_source"] == "preview" and s["frames"] > frames, 60)
+        out.append(time.time() - t0)
+    return out
+
+
+def preview_bench(torch, dev):
+    """``--preview-bench [DIR]``: the preview's end-to-end numbers for the
+    package imported from DIR (default this checkout), so that two versions
+    can be alternated in one call: the 480x270 preview frame (accumulate +
+    fetch_image, 2 warm-up and 10 timed frames, host clock to a
+    synchronize) and one profiled frame (device kernels, device-busy share)
+    on the 1024x2048 and on the tier-2 atlas; input to a new preview frame
+    through EarthViewer at 1920x1080 with uniform and with adaptive idle
+    frames, 5 samples each. Prints one JSON line."""
+    import digital_earth_tpu_torch as pkg
+    from digital_earth_tpu_torch.assets.luts import load_spectral_luts
+    from digital_earth_tpu_torch.assets.textures import (procedural_texture_atlas,
+                                                         upsampled_procedural_atlas)
+    from digital_earth_tpu_torch.render.renderer import Renderer
+
+    cache = os.path.join(ROOT, "build", "chip_smoke", "texture_cache")
+    luts = load_spectral_luts(dev)
+    atlas = procedural_texture_atlas(dev, (1024, 2048), seed=7, cache_dir=cache)
+    out = dict(package=os.path.dirname(os.path.abspath(pkg.__file__)), card=nvidia_smi_line(),
+               frame_ms={}, kernels_per_frame={}, busy_share={}, input_to_preview_ms={})
+    for name, at in (("1024x2048", atlas),
+                     ("tier-2", upsampled_procedural_atlas(dev, TIER2_RES, cache_dir=cache))):
+        r = _apollo(Renderer(dev, image_res=PREVIEW_RES, atlas=at, luts=luts, mode="preview"))
+        times = []
+        for i in range(12):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            r.accumulate()
+            r.fetch_image()
+            torch.cuda.synchronize()
+            if i >= 2:
+                times.append((time.time() - t0) * 1e3)
+        n_k, busy, wall, _ = profile_spp(torch, r, f"preview {name}",
+                                         run=lambda: (r.accumulate(), r.fetch_image()),
+                                         unit="frame")
+        out["frame_ms"][name] = [round(t, 2) for t in times]
+        out["kernels_per_frame"][name] = n_k
+        out["busy_share"][name] = round(busy / wall, 4)
+        del r, at
+    for mode, kw in (("uniform", {}), ("adaptive", dict(adaptive_frac=ADAPTIVE_FRAC))):
+        vs = ViewerRun(dev, atlas, luts, f"bench_{mode}", **kw)
+        try:
+            out["input_to_preview_ms"][mode] = [round(t * 1e3, 1)
+                                                for t in _input_latencies(vs, 5)]
+        finally:
+            vs.close()
+    print(json.dumps({"preview_bench": out}))
+
+
 def main():
-    mesh_only = sys.argv[1:] == ["--mesh-only"]
-    if sys.argv[1:] and not mesh_only:
-        fail(f"unknown arguments {sys.argv[1:]} (the one option is --mesh-only)")
+    args = sys.argv[1:]
+    mesh_only = args == ["--mesh-only"]
+    bench = args[:1] == ["--preview-bench"] and len(args) <= 2
+    if args and not (mesh_only or bench):
+        fail(f"unknown arguments {args} (the options are --mesh-only and --preview-bench [DIR])")
     try:
         import torch
     except ImportError:
@@ -1777,8 +1958,11 @@ def main():
         fail("torch.cuda.is_available() is False: this smoke test needs a CUDA card")
     if not os.path.isdir(os.path.join(ROOT, "digital_earth_tpu_torch")):
         fail("run from a checkout: digital_earth_tpu_torch/ is missing beside chip_smoke.py")
-    sys.path.insert(0, ROOT)
+    sys.path.insert(0, os.path.abspath(args[1]) if bench and len(args) == 2 else ROOT)
     dev = torch.device("cuda:0")
+    if bench:
+        preview_bench(torch, dev)
+        return
 
     from digital_earth_tpu_torch import kernels
     from digital_earth_tpu_torch.app.config_io import load_config
@@ -1791,7 +1975,7 @@ def main():
     t0 = time.time()
     kernels.library()
     print(f"kernel build: {time.time() - t0:.1f} s (nvcc {' '.join(kernels.NVCC_FLAGS)})")
-    for src in ("bounce.cu", "compact_lanes.cu"):
+    for src in ("bounce.cu", "compact_lanes.cu", "preview.cu"):
         for line in kernels.ptxas_log.get(src, "").splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"ptxas {src}: {line.strip()}")
@@ -1861,7 +2045,8 @@ def main():
     rows["gen_rays"] = check_gen_rays(torch, dev, atlas, luts)
     rows["film_postprocess"] = check_film(torch, buf, r.crf.curves)
     del r, buf, img
-    preview_counts, rows["atmos_march"], frame_end_preview = preview_frame(torch, dev, atlas, luts)
+    preview_counts, preview_rows, frame_end_preview = preview_frame(torch, dev, atlas, luts)
+    rows.update(preview_rows)
     check_chunked(torch, dev, atlas, luts)
     check_viewer(torch, dev, atlas, luts)
 
@@ -1923,6 +2108,7 @@ def main():
     if not 0 < n_kernels <= 4 * MAX_KERNELS_PER_SPP:
         fail(f"{n_kernels} device kernels per {label} spp (expected 1-{4 * MAX_KERNELS_PER_SPP})")
     del m
+    profile_preview(torch, dev, atlas, luts)
 
     loaded = sorted(k for k in sys.modules
                     if k.split(".")[0] in ("jax", "jaxlib", "digital_earth_tpu"))
@@ -1954,13 +2140,15 @@ def main():
                           "digital_earth_tpu/render/renderer.py:84"),
         "upsample": ("cuda", "digital_earth_tpu_torch/csrc/upsample.cu",
                      "digital_earth_tpu/ops/texture.py:74"),
+        "preview": ("cuda", "digital_earth_tpu_torch/csrc/preview.cu",
+                    "digital_earth_tpu/render/raymarcher.py:91"),
     }
     # launches: the main path's run (0 for the trackers, whose loops run
-    # inside bounce there), or for the preview's kernels the preview frame's
-    # run, for select_tiles the adaptive run's, for select_tiles_shard the
-    # mesh run's, for upsample the tier-2 run's (its atlas and render)
-    launches = dict(counts, atmos_march=preview_counts["atmos_march"],
-                    land_march=preview_counts["land_march"],
+    # inside bounce there, and for atmos_march, whose loop runs inside
+    # preview), or for preview the preview frame's run, for select_tiles the
+    # adaptive run's, for select_tiles_shard the mesh run's, for upsample the
+    # tier-2 run's (its atlas and render)
+    launches = dict(counts, preview=preview_counts["preview"],
                     select_tiles=adaptive_counts["select_tiles"],
                     select_tiles_shard=mesh_counts["select_tiles_shard"],
                     upsample=tier2_counts["upsample"])

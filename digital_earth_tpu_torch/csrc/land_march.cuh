@@ -1,6 +1,7 @@
 // The displaced-sphere land march with the reference's phantom crawl for one
 // lane, as a device function: the body of the land_march kernel
-// (land_march.cu) and of the bounce kernel's three march calls (bounce.cu).
+// (land_march.cu), of the bounce kernel's three march calls (bounce.cu) and
+// of the preview kernel's land and shadow marches (preview.cu).
 //
 // Per lane it computes what the TPU loop digital_earth_tpu/render/
 // pathtracer.py:211 intersect_land (masked lax.while_loop at :301-333, K

@@ -1,0 +1,229 @@
+// preview: the preview raymarcher's whole march_paths, one thread per lane.
+//
+// Replaces digital_earth_tpu/render/raymarcher.py:91-189 march_paths (one
+// jitted program) as the port's plain twin render/raymarcher.
+// march_paths_plain computes it. Per lane, in the reference's order:
+//   1. the wavelength's constants (:99-117): the sun's and the night lights'
+//      Planck terms, the sun irradiance over the sun's cone, the RMO
+//      extinctions, the Rayleigh and Mie scattering;
+//   2. per bounce b = 0, 1, 2 of a live lane (:128-178): the atmosphere span
+//      (rsi), primary_miss at bounce 0, the land march (land_march.cuh; no
+//      cap, not any-hit), the sun-cone draw, the 64-step single-scatter
+//      march (atmos_march.cuh), the in-scatter and throughput updates; on a
+//      surface hit the normal (4 taps), the material tap and its albedo
+//      spectrum, the night lights, the shadow march toward the sun (not
+//      any-hit: the reference's shadow ray marches without it), the direct
+//      term brdf * n.l with brdf = albedo * diffuse + specular, and the
+//      cosine-weighted bounce with its BRDF (surface.cuh); a lane that
+//      leaves the atmosphere or hits no land ends there;
+//   3. the miss shading of a primary miss (:181-187): the sun disk against
+//      the camera ray, the stars tap (dir_tap) through srgb_to_spectrum; then
+//      the finite, non-negative clamp of :189.
+// Draws: the tile key is fold(spp_key, tile index) (the key itself for one
+// tile of n lanes); bounce b's cone and hemisphere keys are
+// fold(fold^b(tile key, 2), 0 | 1), read at the lane's in-tile index li and
+// at tile + li, as render/raymarcher._bounce_draws draws them.
+// Built with --fmad=false: every step rounds op by op in the twin's order on
+// the card (whose land_march and atmos_march calls run these same device
+// functions), each masked add of the twin an add of the same term here.
+//
+// What bounds it on the H100: arithmetic and divergence. A lane reads 44 B
+// (ray, wavelength, tile and in-tile index) and writes 4; the time goes to
+// the atmosphere march (64 steps, each with a 16-step sun march where the
+// planet does not occlude the sun) and the land march's dependent texture
+// probes. Sky lanes end after one march, lanes that miss the atmosphere
+// after its test, and only surface lanes run bounces 1-2 and the shadow
+// marches, so a warp runs at its slowest lane's pace. One thread per lane to
+// its own end, as bounce.cu, with both marches inlined: as non-inlined calls
+// (bounce.cu's way) they kept more of the lane's values on the stack across
+// each call and ran slower on the card, with the same bits. One launch
+// replaces the eager glue's thousands of element-wise launches per frame.
+#include <cstdint>
+
+#include <cuda_runtime.h>
+
+#include "atmos_march.cuh"
+#include "land_march.cuh"
+#include "spectral.cuh"
+#include "surface.cuh"
+#include "threefry.cuh"
+#include "volume.cuh"
+
+namespace de {
+
+constexpr int PREVIEW_BOUNCES = 3;
+constexpr int PREVIEW_BLOCK = 128;
+
+struct PreviewParams {
+  float scale, step_floor, stall_thresh;
+  float light[3];
+  float sun_cos_angle, solid_angle, offset_scale;
+  float planck_a, planck_b, planck_k;
+  float sun_temperature, nightlight_temperature, nightlight_scale, stars_scale;
+  float rayleigh_albedo, aerosol_albedo;
+  PhaseConsts pc;
+  int march_steps, march_k, patience, bilinear, tile;
+  int topo_h, topo_w, mat_h, mat_w, stars_h, stars_w;
+  Key key;
+};
+
+struct PreviewArgs {
+  const float* pos;
+  const float* dir;
+  const float* wavelength;
+  const int64_t* tile_index;  // null: one tile, the key is the tile key
+  const int64_t* lane_index;  // null: the lane's own index
+  const uint8_t* topo;
+  const uint8_t* material;
+  const uint8_t* stars;
+  const float* o3;
+  const float* srgb2spec;
+  float* out;
+  int n;
+};
+
+__global__ void __launch_bounds__(PREVIEW_BLOCK) preview_kernel(PreviewArgs a, PreviewParams p) {
+  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= a.n) return;
+  const V3 ray_pos = load3(a.pos, lane), ray_dir = load3(a.dir, lane);
+  const float wl = a.wavelength[lane];
+
+  // 1. the wavelength's constants
+  const float sun_power = plancks(wl, p.sun_temperature, p.planck_a, p.planck_b, p.planck_k);
+  const float nl_power =
+      plancks(wl, p.nightlight_temperature, p.planck_a, p.planck_b, p.planck_k) *
+      p.nightlight_scale;
+  const float sun_irr = sun_power * p.solid_angle;
+  const float ext[3] = {spectra_extinction_rayleigh(wl), spectra_extinction_mie(wl),
+                        spectra_extinction_ozone(wl, a.o3)};
+  const float sc0 = ext[0] * p.rayleigh_albedo, sc1 = ext[1] * p.aerosol_albedo;
+
+  Key kb = p.key;
+  if (a.tile_index) kb = fold(kb, (uint32_t)a.tile_index[lane]);
+  const uint32_t li = a.lane_index ? (uint32_t)a.lane_index[lane] : (uint32_t)lane;
+  const uint32_t li2 = (uint32_t)p.tile + li;
+
+  // 2. three deterministic bounces
+  const TexView topo{a.topo, p.topo_h, p.topo_w};
+  const TexView material{a.material, p.mat_h, p.mat_w};
+  const bool bil = p.bilinear != 0;
+  const MarchParams mp{p.topo_h, p.topo_w, p.scale, p.step_floor, p.stall_thresh,
+                       p.march_steps, p.march_k, p.patience, 0};
+  const V3 light{p.light[0], p.light[1], p.light[2]};
+  const float no_cap = __int_as_float(0x7f800000);  // +inf: the twin's march has no t_cap
+  float accum = 0.0f, thr = 1.0f;
+  V3 pos = ray_pos, dir = ray_dir;
+  bool primary_miss = false;
+  for (int b = 0; b < PREVIEW_BOUNCES; ++b) {
+    if (b > 0) kb = fold(kb, 2u);
+    float a_near, a_far;
+    rsi(pos, dir, ATMOS_UPPER_F, a_near, a_far);
+    if (!(a_far >= 0.0f)) {  // leaves the atmosphere: ends (a primary miss at bounce 0)
+      primary_miss = b == 0;
+      break;
+    }
+    const float earth = land_march_lane(a.topo, mp, pos, dir, true, no_cap);
+    const float t_start = isnan(a_near) ? a_near : fmaxf(a_near, 0.0f);  // torch.clamp
+    const float t_max = earth > 0.0f ? earth : a_far;
+    const Key k_cone = fold(kb, 0u);
+    const V3 light_dir =
+        sample_cone_oriented(uniform(k_cone, li), uniform(k_cone, li2), p.sun_cos_angle, light);
+    float in_scatter, trans;
+    atmos_march_lane(pos, dir, t_start, t_max, light_dir, ext, sc0, sc1, p.pc, in_scatter, trans);
+    accum = accum + thr * in_scatter;
+    thr = thr * trans;
+    if (!(earth > 0.0f)) break;  // a sky lane ends after its march
+
+    const V3 land_pos = along(pos, earth, dir);
+    const V3 normal = land_normal(topo, land_pos, p.scale, bil);
+    const LandMaterial mat = get_land_material(material, land_pos, bil);
+    const float albedo = srgb_to_spectrum(a.srgb2spec, mat.albedo, wl);
+    accum = accum + (thr * mat.emissive) * nl_power;
+    const V3 offset_pos{land_pos.x * p.offset_scale, land_pos.y * p.offset_scale,
+                        land_pos.z * p.offset_scale};
+    const float shadow = land_march_lane(a.topo, mp, offset_pos, light_dir, true, no_cap);
+    const float visible = shadow < 0.0f ? 1.0f : 0.0f;
+    const V3 v{-dir.x, -dir.y, -dir.z};
+    const BrdfParts dp = earth_brdf_parts(mat.ocean, mat.bathymetry, v, normal, light_dir);
+    const float d_brdf = albedo * dp.diffuse + dp.specular;
+    accum = accum + (((thr * visible) * sun_irr) * d_brdf) * dp.n_dot_l;
+    const Key k_hemi = fold(kb, 1u);
+    const V3 hemi =
+        sample_hemisphere_cosine_weighted(uniform(k_hemi, li), uniform(k_hemi, li2), normal);
+    const BrdfParts bp = earth_brdf_parts(mat.ocean, mat.bathymetry, v, normal, hemi);
+    const float b_brdf = albedo * bp.diffuse + bp.specular;
+    dir = hemi;
+    pos = offset_pos;
+    thr = (thr * b_brdf) * PY(PI_D);
+  }
+
+  // 3. miss shading against the camera ray, then the clamp
+  if (primary_miss) {
+    if (dot(light, ray_dir) > p.sun_cos_angle) accum = accum + sun_power;
+    float star_rgb[3];
+    dir_tap<3>(a.stars, p.stars_h, p.stars_w, ray_dir.x, ray_dir.y, ray_dir.z, bil, star_rgb);
+    const float stars_power = srgb_to_spectrum(a.srgb2spec, star_rgb, wl);
+    accum = accum + (stars_power * sun_power) * p.stars_scale;
+  }
+  a.out[lane] = (isfinite(accum) && accum >= 0.0f) ? accum : 0.0f;
+}
+
+}  // namespace de
+
+// fp (22 floats): scale, step_floor, stall_thresh, light_direction[3],
+//     sun_cos_angle, solid_angle (of the sun's cone), offset_scale
+//     (1 + 1e-4 scale / 12000), planck_a, planck_b, planck_k,
+//     sun_temperature, nightlight_temperature, nightlight_scale, stars_scale,
+//     rayleigh_albedo, aerosol_albedo, rayl_k, mie_e, two_pi, log_term
+// ip (11 ints): land_march_steps, march_k, march_patience,
+//     bilinear_materials, tile (lanes per tile), topography H, W, material H,
+//     W, stars H, W
+// key (k0, k1): the spp key with tile_index (n,) int64, or the tile key of
+// one tile of n lanes without it; lane_index (n,) int64 the in-tile index,
+// or null for the lane's own. Lanes: pos, dir (n, 3), wavelength (n,);
+// textures: topography (H, W, 4), material (H, W, 8), stars (H, W, 3)
+// uint8; o3_crossec (441,), srgb2spec (300, 3) f32; out (n,) radiance.
+extern "C" int de_preview(const float* fp, const int* ip, uint32_t k0, uint32_t k1,
+                          const float* pos, const float* dir, const float* wavelength,
+                          const int64_t* tile_index, const int64_t* lane_index,
+                          const uint8_t* topo, const uint8_t* material, const uint8_t* stars,
+                          const float* o3, const float* srgb2spec, float* out, int n,
+                          void* stream) {
+  de::PreviewParams p;
+  p.scale = fp[0];
+  p.step_floor = fp[1];
+  p.stall_thresh = fp[2];
+  for (int j = 0; j < 3; ++j) p.light[j] = fp[3 + j];
+  p.sun_cos_angle = fp[6];
+  p.solid_angle = fp[7];
+  p.offset_scale = fp[8];
+  p.planck_a = fp[9];
+  p.planck_b = fp[10];
+  p.planck_k = fp[11];
+  p.sun_temperature = fp[12];
+  p.nightlight_temperature = fp[13];
+  p.nightlight_scale = fp[14];
+  p.stars_scale = fp[15];
+  p.rayleigh_albedo = fp[16];
+  p.aerosol_albedo = fp[17];
+  p.pc = de::PhaseConsts{fp[18], fp[19], fp[20], fp[21]};
+  p.march_steps = ip[0];
+  p.march_k = ip[1];
+  p.patience = ip[2];
+  p.bilinear = ip[3];
+  p.tile = ip[4];
+  p.topo_h = ip[5];
+  p.topo_w = ip[6];
+  p.mat_h = ip[7];
+  p.mat_w = ip[8];
+  p.stars_h = ip[9];
+  p.stars_w = ip[10];
+  p.key = de::Key{k0, k1};
+  const de::PreviewArgs a{pos, dir, wavelength, tile_index, lane_index, topo, material,
+                          stars, o3, srgb2spec, out, n};
+  if (n > 0) {
+    de::preview_kernel<<<(n + de::PREVIEW_BLOCK - 1) / de::PREVIEW_BLOCK, de::PREVIEW_BLOCK, 0,
+                         (cudaStream_t)stream>>>(a, p);
+  }
+  return (int)cudaGetLastError();
+}

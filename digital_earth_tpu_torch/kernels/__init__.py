@@ -100,6 +100,9 @@ _SIGNATURES = {
     "de_threefry_uniform": [_P, _I, ctypes.c_uint, _I, _P, _P],
     # base, w, C, factor, out, n (64-bit), jitter channel, jitter, seed, stream
     "de_upsample": [_P, _I, _I, _I, _P, ctypes.c_int64, _I, _F, ctypes.c_uint, _P],
+    # float params, int params, key k0, k1, pos, dir, wavelength, tile_index,
+    # lane_index, topo, material, stars, o3_crossec, srgb2spec, out, n, stream
+    "de_preview": [_P, _P, ctypes.c_uint, ctypes.c_uint] + [_P] * 11 + [_I, _P],
 }
 
 
@@ -287,6 +290,14 @@ def cloud_track(keys, pos, direction, t_start, t_max, ext_w, active, clouds, *,
     return trans if ratio else (event, t)
 
 
+def atmos_phase_constants(mie_e: float):
+    """The float32 phase constants of the single-scatter march (rayl_k,
+    mie_e, two_pi, log_term), as ``atmos_march`` and ``preview`` take them."""
+    f32 = lambda x: float(torch.tensor(x, dtype=torch.float32))  # noqa: E731
+    return [f32(3.0 / (16.0 * math.pi)), f32(mie_e), f32(2.0 * math.pi),
+            float(torch.log(torch.tensor(2.0 * mie_e + 1.0, dtype=torch.float32)))]
+
+
 def atmos_march(pos, direction, t_start, t_max, sun_dir, ext_rmo, scattering,
                 active, *, mie_e: float):
     """Launch ``atmos_march`` (csrc/atmos_march.cu): (in_scatter, trans),
@@ -304,13 +315,10 @@ def atmos_march(pos, direction, t_start, t_max, sun_dir, ext_rmo, scattering,
     in_scatter = torch.empty((n,), dtype=torch.float32, device=dev)
     trans = torch.empty((n,), dtype=torch.float32, device=dev)
     if n:
-        f32 = lambda x: float(torch.tensor(x, dtype=torch.float32))  # noqa: E731
         _launch(
             "de_atmos_march", _ptr(pos), _ptr(direction), _ptr(t_start),
             _ptr(t_max), _ptr(sun_dir), _ptr(ext_rmo), _ptr(scattering),
-            _ptr(active), _ptr(in_scatter), _ptr(trans), n,
-            f32(3.0 / (16.0 * math.pi)), f32(mie_e), f32(2.0 * math.pi),
-            float(torch.log(torch.tensor(2.0 * mie_e + 1.0, dtype=torch.float32))),
+            _ptr(active), _ptr(in_scatter), _ptr(trans), n, *atmos_phase_constants(mie_e),
         )
         _count(atmos_march, 1)
     return in_scatter, trans
@@ -678,9 +686,57 @@ def upsample(base, factor: int, jitter: float, jitter_channel: int, jitter_seed:
     return out
 
 
+PREVIEW_FLOATS, PREVIEW_INTS = 22, 11  # the preview kernel's parameter blocks
+
+
+def preview(fparams, iparams, key, pos, direction, wavelength, tile_index, lane_index, topo,
+            material, stars, o3_crossec, srgb2spec):
+    """Launch ``preview`` (csrc/preview.cu): the (n,) preview radiance of
+    each lane, the whole of ``march_paths``. ``key`` is (k0, k1): the spp key
+    with ``tile_index`` (n,) int64 (the lane's tile key is fold(key, tile
+    index)), or the tile key of one tile of n lanes with ``tile_index`` None;
+    ``lane_index`` (n,) int64 is the in-tile index (None with ``tile_index``
+    None). ``fparams`` (22 floats) and ``iparams`` (11 ints) are laid out as
+    de_preview documents (render/raymarcher.PreviewFrame builds them)."""
+    dev = pos.device
+    n = pos.shape[0]
+    if len(fparams) != PREVIEW_FLOATS or len(iparams) != PREVIEW_INTS:
+        raise ValueError(f"preview: expected {PREVIEW_FLOATS} float and {PREVIEW_INTS} int "
+                         "parameters")
+    if (tile_index is None) != (lane_index is None):
+        raise ValueError("preview: pass tile_index and lane_index together")
+    if iparams[4] < 1 or (tile_index is None and iparams[4] != n):
+        raise ValueError(f"preview: {iparams[4]} lanes per tile for {n} lanes")
+    _check("pos", pos, torch.float32, (n, 3), dev)
+    _check("direction", direction, torch.float32, (n, 3), dev)
+    _check("wavelength", wavelength, torch.float32, (n,), dev)
+    if tile_index is not None:
+        _check("tile_index", tile_index, torch.int64, (n,), dev)
+        _check("lane_index", lane_index, torch.int64, (n,), dev)
+    _check("topo", topo, torch.uint8, (*topo.shape[:2], 4), dev)
+    _check("material", material, torch.uint8, (*material.shape[:2], 8), dev)
+    _check("stars", stars, torch.uint8, (*stars.shape[:2], 3), dev)
+    if tuple(iparams[5:11]) != (*topo.shape[:2], *material.shape[:2], *stars.shape[:2]):
+        raise ValueError("preview: texture sizes disagree with the int parameters")
+    _check("o3_crossec", o3_crossec, torch.float32, (441,), dev)
+    _check("srgb2spec", srgb2spec, torch.float32, (300, 3), dev)
+    out = torch.empty((n,), dtype=torch.float32, device=dev)
+    if n:
+        fp = (ctypes.c_float * PREVIEW_FLOATS)(*fparams)
+        ip = (ctypes.c_int * PREVIEW_INTS)(*iparams)
+        _launch(
+            "de_preview", ctypes.cast(fp, ctypes.c_void_p), ctypes.cast(ip, ctypes.c_void_p),
+            key[0] & 0xFFFFFFFF, key[1] & 0xFFFFFFFF, _ptr(pos), _ptr(direction),
+            _ptr(wavelength), _ptr_or_null(tile_index), _ptr_or_null(lane_index), _ptr(topo),
+            _ptr(material), _ptr(stars), _ptr(o3_crossec), _ptr(srgb2spec), _ptr(out), n,
+        )
+        _count(preview, 1)
+    return out
+
+
 PATH_KERNELS = (land_march, rmo_delta_track, cloud_track, gen_rays, atmos_march,
                 film_postprocess, frame_end, select_tiles, select_tiles_shard, bounce,
-                compact_lanes, upsample)
+                compact_lanes, upsample, preview)
 for _k in PATH_KERNELS:
     _k.launches = 0
 

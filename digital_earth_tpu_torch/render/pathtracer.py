@@ -426,6 +426,20 @@ def run_bounce_plain(st: TraceState, bounce: int, scene: SceneParams, atlas, lut
     )
 
 
+def scene_floats(scene: SceneParams):
+    """The kernels' scene scalars, read from the device with one
+    ``.tolist()``: (land height scale, light direction (3), sun cos angle,
+    the sun cone's solid angle, the surface offset 1 + 1e-4 scale / 12000),
+    each computed by the twins' own device arithmetic."""
+    scale = scene.land_height_scale
+    scale_f, *light, cos_angle, solid_angle, offset_scale = torch.stack([
+        scale, *scene.light_direction, scene.sun_cos_angle,
+        mu.cone_angle_to_solid_angle(scene.sun_angular_radius),
+        1.0 + 0.0001 * scale / 12000.0,
+    ]).tolist()
+    return scale_f, light, cos_angle, solid_angle, offset_scale
+
+
 class BounceFrame:
     """The ``bounce`` kernel's arguments that hold for a whole wavefront: the
     scene's scalars read from the device once, the lane keys as int32 once,
@@ -433,13 +447,7 @@ class BounceFrame:
 
     def __init__(self, st: TraceState, scene: SceneParams, atlas, luts, cfg: TraceConfig):
         topo = atlas.topography
-        scale = scene.land_height_scale
-        # the twin's own device arithmetic, so the kernel gets its floats
-        scale_f, *light, cos_angle, solid_angle, offset_scale = torch.stack([
-            scale, *scene.light_direction, scene.sun_cos_angle,
-            mu.cone_angle_to_solid_angle(scene.sun_angular_radius),
-            1.0 + 0.0001 * scale / 12000.0,
-        ]).tolist()
+        scale_f, light, cos_angle, solid_angle, offset_scale = scene_floats(scene)
         step_floor, stall_thresh = _march_floor(topo, cfg)
         self.fparams = [scale_f, step_floor, stall_thresh, atm._O3_ENV_PEAK, *light, cos_angle,
                         solid_angle, offset_scale, *sp.planck_kernel_constants()]

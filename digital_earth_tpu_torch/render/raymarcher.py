@@ -3,10 +3,12 @@ digital_earth_tpu/render/raymarcher.py): fixed-step quadrature of single
 scattering (64 steps, each with a 16-step sun transmittance) plus the land
 surface shading, 3 bounces, noise-free at 1 spp.
 
-``ray_march_atmos`` is the loop nest that the viewer runs for every preview
-frame: a plain PyTorch twin (``ray_march_atmos_plain``) and the CUDA kernel
-``atmos_march`` (csrc/atmos_march.cu) for CUDA tensors. ``march_paths`` is
-eager glue around it and around the ``land_march`` kernel.
+``march_paths`` is the whole preview per lane: for CUDA tensors one launch
+of the kernel ``preview`` (csrc/preview.cu), for CPU tensors its plain twin
+``march_paths_plain`` (the eager body). On the card the twin's land marches
+and its single-scatter march run the ``land_march`` and ``atmos_march``
+kernels, whose device functions ``preview`` calls too; ``ray_march_atmos``
+is that march (``ray_march_atmos_plain`` its twin).
 
 The randomness is per pixel tile, as in the reference: the tile key is
 ``fold(spp_key, tile_index)``, split three ways per bounce, and a lane's
@@ -30,7 +32,8 @@ from ..ops import sampling as smp
 from ..ops import spectral as sp
 from ..ops import texture as tx
 from .params import SceneParams, TraceConfig
-from .pathtracer import get_land_material, intersect_land, land_normal
+from .pathtracer import (_MARCH_STALL_PATIENCE, _march_floor, get_land_material,
+                         intersect_land, land_normal, scene_floats)
 
 _TRANSMITTANCE_STEPS = 16
 _MARCH_STEPS = 64
@@ -106,18 +109,21 @@ def _bounce_draws(keys, lane, tile: int):
     return rng.uniform_at(sub[:, :, None], torch.stack([lane, tile + lane]))
 
 
-def march_paths(key, ray_pos, ray_dir, wavelength, scene: SceneParams, atlas,
-                luts, cfg: TraceConfig = TraceConfig(), lane=None, tile=None):
-    """Deterministic single-scatter radiance of one wavelength per lane
-    (raymarcher.py:92). ``key`` is the tile key, (2,) for one tile of
-    ``n`` lanes as the reference calls it, or (n, 2) per-lane tile keys with
-    ``lane`` (each lane's in-tile index) and ``tile`` (lanes per tile)."""
+def march_paths_plain(key, ray_pos, ray_dir, wavelength, scene: SceneParams, atlas, luts,
+                      cfg: TraceConfig = TraceConfig(), tile_index=None, lane=None, tile=None):
+    """Plain PyTorch twin of the ``preview`` kernel: the deterministic
+    single-scatter radiance of one wavelength per lane (raymarcher.py:92).
+    ``key`` (2,) is the tile key of one tile of ``n`` lanes, as the reference
+    calls it, or the spp key with ``tile_index`` (n,) (each lane's tile),
+    ``lane`` (n,) (its in-tile index) and ``tile`` (lanes per tile)."""
     n = ray_pos.shape[0]
     dev = ray_pos.device
-    if lane is None:
-        lane = torch.arange(n, dtype=torch.int64, device=dev)
-        tile = n
-    draws = _bounce_draws(key.expand(n, 2), lane, tile)
+    key = key.to(dev)
+    if tile_index is None:
+        keys, lane, tile = key.expand(n, 2), torch.arange(n, dtype=torch.int64, device=dev), n
+    else:
+        keys = rng.lane_keys(key, tile_index)
+    draws = _bounce_draws(keys, lane, tile)
     scale = scene.land_height_scale
     topo = atlas.topography
 
@@ -194,3 +200,47 @@ def march_paths(key, ray_pos, ray_dir, wavelength, scene: SceneParams, atlas,
     stars_power = sp.srgb_to_spectrum(luts.srgb2spec, stars_srgb, wavelength)
     accum = accum + torch.where(primary_miss, stars_power * sun_power * C.STARS_SCALE, 0.0)
     return torch.where(torch.isfinite(accum) & (accum >= 0.0), accum, 0.0)
+
+
+class PreviewFrame:
+    """The ``preview`` kernel's parameter blocks for a frame: the scene's
+    scalars (``pathtracer.scene_floats``), the march floor, the Planck and
+    phase constants (floats), the march budget, the lanes per tile and the
+    texture shapes (ints)."""
+
+    def __init__(self, scene: SceneParams, atlas, luts, cfg: TraceConfig, tile: int):
+        topo = atlas.topography
+        scale_f, light, cos_angle, solid_angle, offset_scale = scene_floats(scene)
+        step_floor, stall_thresh = _march_floor(topo, cfg)
+        self.fparams = [
+            scale_f, step_floor, stall_thresh, *light, cos_angle, solid_angle, offset_scale,
+            *sp.planck_kernel_constants(), C.SUN_TEMPERATURE, C.NIGHTLIGHT_TEMPERATURE,
+            C.NIGHTLIGHT_SCALE, C.STARS_SCALE, C.RAYLEIGH_ALBEDO, C.AEROSOL_ALBEDO,
+            *kernels.atmos_phase_constants(C.MIE_ASYMMETRY),
+        ]
+        self.iparams = [
+            cfg.land_march_steps, cfg.march_k, _MARCH_STALL_PATIENCE,
+            int(cfg.bilinear_materials), tile, *topo.shape[:2], *atlas.material.shape[:2],
+            *atlas.stars.shape[:2],
+        ]
+
+
+def march_paths(key, ray_pos, ray_dir, wavelength, scene: SceneParams, atlas, luts,
+                cfg: TraceConfig = TraceConfig(), tile_index=None, lane=None, tile=None,
+                frame: PreviewFrame = None):
+    """``march_paths_plain``'s function (same arguments): its plain version
+    for CPU tensors, one launch of the ``preview`` kernel for CUDA tensors
+    (``frame`` as built for the call, or built here). ``key`` should lie on
+    the CPU: the kernel takes it as two integers."""
+    if ray_pos.device.type == "cpu":
+        return march_paths_plain(key, ray_pos, ray_dir, wavelength, scene, atlas, luts, cfg,
+                                 tile_index, lane, tile)
+    n = ray_pos.shape[0]
+    if tile_index is None:
+        tile = n
+    if frame is None:
+        frame = PreviewFrame(scene, atlas, luts, cfg, tile)
+    return kernels.preview(
+        frame.fparams, frame.iparams, key.tolist(), ray_pos, ray_dir, wavelength, tile_index,
+        lane, atlas.topography, atlas.material, atlas.stars, luts.o3_crossec, luts.srgb2spec,
+    )

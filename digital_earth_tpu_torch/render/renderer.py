@@ -65,10 +65,11 @@ def trace_lanes(base_key, spp: int, lane0: int, n: int, cam: CameraParams,
     pid = pu * h + pv if out_index is None else out_index
     pos = cam.position.expand(n, 3).contiguous()
     if preview:
-        spp_key = rng.fold(torch.tensor(base_key, dtype=torch.int64, device=dev), spp)
+        # the spp key on the host: the preview kernel folds in each lane's tile
+        spp_key = rng.fold(torch.tensor(base_key, dtype=torch.int64), spp)
         radiance = raymarcher.march_paths(
-            rng.lane_keys(spp_key, tidx), pos, rays.dirs, rays.wavelengths[:, 0],
-            scene, atlas, luts, cfg, lane=li, tile=block[0] * block[1],
+            spp_key, pos, rays.dirs, rays.wavelengths[:, 0], scene, atlas, luts, cfg,
+            tile_index=tidx, lane=li, tile=block[0] * block[1],
         )
         fe.frame_end(rays.responses, pid, color, count, lum2, radiance=radiance[:, None],
                      pdf=rays.pdf)

@@ -177,19 +177,20 @@ def test_main_path_uses_every_kernel_and_matches_golden(dev):
     assert counts["compact_lanes"] >= counts["bounce"], counts
     # the loops run inside bounce; the other paths' kernels do not launch
     others = ("land_march", "rmo_delta_track", "cloud_track", "atmos_march", "select_tiles",
-              "select_tiles_shard")
+              "select_tiles_shard", "preview")
     assert all(counts[k] == 0 for k in others), counts
     buf = r.color_buffer.cpu().numpy()
     share = np.isclose(buf, golden["color_buffer"], rtol=1e-3, atol=1e-7).all(-1).mean()
     assert share >= 0.90
 
 
-# --- the viewer path's kernels: gen_rays, atmos_march, film_postprocess -----
+# --- the viewer path's kernels: gen_rays, atmos_march, preview, film --------
 # Stated tolerances (kernel vs twin, same inputs, on the card): lane keys
 # bit-equal; directions within 1e-6 absolute and wavelengths within 1e-6
 # relative (the twin's CUDA ops divide by a scalar as a multiply by its
 # reciprocal, the kernel divides); atmos_march in-scatter and transmittance
-# within 1e-4 relative on at least 99.9% of lanes; film output within 1e-4.
+# and the preview radiance within 1e-4 relative on at least 99.9% of lanes;
+# film output within 1e-4.
 
 
 def _apollo_renderer(dev, res, mode):
@@ -239,6 +240,75 @@ def test_atmos_march_kernel(case):
     for g, w in zip(got, want):
         close = (g - w).abs() <= 1e-4 * w.abs() + 1e-30
         assert close[active].float().mean().item() >= 0.999
+
+
+def _preview_lanes(dev, res, bilinear):
+    """The march_paths arguments of one Apollo 11 preview frame at ``res``
+    on a small procedural atlas, as render/renderer.trace_lanes builds them."""
+    from digital_earth_tpu_torch.render import raygen
+
+    r = _apollo_renderer(dev, res, "preview")
+    n = res[0] * res[1]
+    rays = raygen.gen_rays(r._seed_key, 0, 0, n, res, r.block, r.camera_params(), r.luts, True)
+    tidx, li, _, _ = raygen.tile_pixel_coords(torch.arange(n, device=dev), res, r.block)
+    pos = r.camera_params().position.expand(n, 3).contiguous()
+    cfg = TraceConfig(bilinear_materials=bilinear)
+    args = (rng.fold(torch.tensor(r._seed_key, dtype=torch.int64), 0), pos, rays.dirs,
+            rays.wavelengths[:, 0], r.scene_params(), r.atlas, r.luts, cfg)
+    return args, dict(tile_index=tidx, lane=li, tile=r.tile)
+
+
+@pytest.mark.parametrize("bilinear", [True, False])
+def test_preview_kernel(dev, bilinear):
+    """preview (csrc/preview.cu) against march_paths_plain on the card on a
+    160x90 frame's lanes: radiance within 1e-4 relative (atol 1e-6 of the
+    largest value) on at least 99.9% of lanes (chip_smoke.py holds the
+    480x270 frame to 1 - 1e-4: a march hit within an ulp of its threshold
+    sends a lane elsewhere)."""
+    from digital_earth_tpu_torch import kernels
+    from digital_earth_tpu_torch.render import raymarcher
+
+    args, kw = _preview_lanes(dev, (160, 90), bilinear)
+    before = (kernels.preview.launches, kernels.atmos_march.launches,
+              kernels.land_march.launches)
+    got = raymarcher.march_paths(*args, **kw)
+    assert (kernels.preview.launches, kernels.atmos_march.launches,
+            kernels.land_march.launches) == (before[0] + 1, before[1], before[2])
+    want = raymarcher.march_paths_plain(*args, **kw)
+    assert (want > 0).float().mean().item() > 0.3
+    atol = 1e-6 * want.abs().max()
+    assert ((got - want).abs() <= 1e-4 * want.abs() + atol).float().mean().item() >= 0.999
+
+
+def test_preview_launcher_checks_its_inputs(dev):
+    from digital_earth_tpu_torch import kernels
+    from digital_earth_tpu_torch.render import raymarcher
+
+    args, kw = _preview_lanes(dev, (64, 36), True)
+    key, pos, dirs, wl, scene, atlas, luts, cfg = args
+    frame = raymarcher.PreviewFrame(scene, atlas, luts, cfg, kw["tile"])
+    tables = (atlas.topography, atlas.material, atlas.stars, luts.o3_crossec, luts.srgb2spec)
+
+    def launch(pos=pos, dirs=dirs, wl=wl, tidx=kw["tile_index"], li=kw["lane"],
+               fparams=frame.fparams):
+        return kernels.preview(fparams, frame.iparams, key.tolist(), pos, dirs, wl, tidx, li,
+                               *tables)
+
+    assert launch().shape == wl.shape
+    with pytest.raises(ValueError, match="expected"):
+        launch(pos=pos.cpu())
+    with pytest.raises(ValueError, match="dtype"):
+        launch(wl=wl.double())
+    with pytest.raises(ValueError, match="dtype"):
+        launch(tidx=kw["tile_index"].to(torch.int32))
+    with pytest.raises(ValueError, match="shape"):
+        launch(dirs=dirs[:10].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        launch(dirs=dirs.t().contiguous().t())
+    with pytest.raises(ValueError, match="together"):
+        launch(li=None)
+    with pytest.raises(ValueError, match="parameters"):
+        launch(fparams=frame.fparams[:-1])
 
 
 @pytest.mark.parametrize("drt", ["opendrt", "agx", "none"])

@@ -6,8 +6,12 @@ on the same numpy-seeded inputs:
 - ``pick_block_dims`` and the tile-major lane map equal to the reference's
   ``_pick_block_dims`` / ``_tile_pixel_coords``;
 - the two atmosphere-march twins (``_ray_march_transmittance``,
-  ``_ray_march_atmos``) on 4096 lanes, and ``march_paths`` on 2048 lanes of
-  one tile key, against the reference functions;
+  ``_ray_march_atmos``) on 4096 lanes, and ``march_paths_plain`` (the
+  ``preview`` kernel's twin) on 2048 lanes of one tile key, against the
+  reference functions; ``march_paths`` on CPU tensors is that twin, bit for
+  bit; ``PreviewFrame``'s parameter blocks hold the twin's own float32
+  scalars; the kernel's key recipe, as a plain per-lane function, draws
+  ``_bounce_draws``'s numbers bit for bit;
 - the preview renderer against the committed 32x18 golden (one tile) and
   against the live JAX preview renderer at 64x36 with 192-pixel (16x12)
   tiles (12 tiles, so the per-tile keys are exercised);
@@ -223,8 +227,8 @@ def test_march_paths(luts, atlases):
     want = np.asarray(jrm.march_paths(jnp.asarray(key), jnp.asarray(pos), jnp.asarray(dirs),
                                       jnp.asarray(wl), jscene, jatlas, jl,
                                       jparams.TraceConfig(**SMALL)))
-    got = raymarcher.march_paths(T(key.astype(np.int64)), T(pos), T(dirs), T(wl), tscene,
-                                 tatlas, tl, TraceConfig(**SMALL)).numpy()
+    got = raymarcher.march_paths_plain(T(key.astype(np.int64)), T(pos), T(dirs), T(wl), tscene,
+                                       tatlas, tl, TraceConfig(**SMALL)).numpy()
     assert np.isfinite(got).all() and (got > 0).mean() > 0.8  # measured 0.883
     # measured: 0.906 of lanes within 1e-3 relative, 0.992 within 1e-2,
     # means within 5.5e-5. The reference run eagerly reads 0.912 / 0.998
@@ -233,6 +237,142 @@ def test_march_paths(luts, atlases):
     assert share_close(got, want, rtol=1e-3) >= 0.89
     assert share_close(got, want, rtol=1e-2) >= 0.98
     assert got.mean() == pytest.approx(want.mean(), rel=5e-4)
+
+
+def _apollo_lanes(n, seed):
+    """n camera rays of Apollo 11 toward the near side of the disk and its
+    limb, with wavelengths: (pos, dirs, wl, cpu scene)."""
+    r = np.random.default_rng(seed)
+    cfg = load_config(APOLLO)
+    cam = np.asarray(cfg.camera_pos)
+    tgt = _unit(r, n) * JC.PLANET_R * r.uniform(0.9, 1.03, (n, 1))
+    tgt = tgt * np.sign((tgt * cam).sum(-1, keepdims=True))
+    dirs = tgt - cam
+    dirs = (dirs / np.linalg.norm(dirs, axis=1, keepdims=True)).astype(np.float32)
+    pos = np.ascontiguousarray(np.broadcast_to(cam, (n, 3)).astype(np.float32))
+    wl = r.uniform(390.0, 830.0, n).astype(np.float32)
+    scene = tparams.make_scene_params("cpu", cfg.sun_angle, cfg.sun_path_rot, 7800.0)
+    return T(pos), T(dirs), T(wl), scene
+
+
+@pytest.mark.parametrize("tiled", [False, True])
+def test_march_paths_on_cpu_is_the_twin(luts, atlases, tiled):
+    """On CPU tensors march_paths is march_paths_plain, bit for bit, and
+    launches no kernel; with one tile key and with an spp key and tiles."""
+    from digital_earth_tpu_torch import kernels
+
+    _, tl = luts
+    n = 384
+    pos, dirs, wl, scene = _apollo_lanes(n, 8)
+    key = torch.tensor([0, 11], dtype=torch.int64)
+    kw = {}
+    if tiled:  # 8 tiles of 48 lanes, in a scrambled tile order
+        lane = torch.arange(n)
+        kw = dict(tile_index=(lane // 48) * 37 + 5, lane=lane % 48, tile=48)
+    before = kernels.preview.launches
+    got = raymarcher.march_paths(key, pos, dirs, wl, scene, atlases[1], tl,
+                                 TraceConfig(**SMALL), **kw)
+    want = raymarcher.march_paths_plain(key, pos, dirs, wl, scene, atlases[1], tl,
+                                        TraceConfig(**SMALL), **kw)
+    assert kernels.preview.launches == before
+    assert (want > 0).float().mean().item() > 0.5
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("bilinear", [True, False])
+def test_preview_frame_blocks(luts, atlases, bilinear):
+    """PreviewFrame's float block holds the twin's own float32 scalars: the
+    scene's, offset_scale and the march floor as the twin computes and
+    passes them, the Planck constants reproducing sp.plancks bit for bit,
+    the albedos and the phase constants; its int block the march budget,
+    the tile and the texture shapes."""
+    from digital_earth_tpu_torch import constants as C
+    from digital_earth_tpu_torch import kernels
+    from digital_earth_tpu_torch.ops import math_utils as mu
+    from digital_earth_tpu_torch.render.tracers import _MARCH_STALL_PATIENCE, _march_floor
+
+    _, tl = luts
+    atlas = atlases[1]
+    cfg = TraceConfig(**SMALL, bilinear_materials=bilinear)
+    _, _, wl, scene = _apollo_lanes(4096, 9)
+    frame = raymarcher.PreviewFrame(scene, atlas, tl, cfg, 192)
+    fp = np.asarray(frame.fparams, dtype=np.float32)  # as ctypes passes them
+    assert len(frame.fparams) == kernels.PREVIEW_FLOATS
+    scale = scene.land_height_scale
+    step_floor, stall = _march_floor(atlas.topography, cfg)
+    want = [scale, step_floor, stall, *scene.light_direction, scene.sun_cos_angle,
+            mu.cone_angle_to_solid_angle(scene.sun_angular_radius),
+            1.0 + 0.0001 * scale / 12000.0]
+    np.testing.assert_array_equal(fp[:9], np.array([float(x) for x in want], np.float32))
+    a, b, k, t_sun, t_nl, nl_scale, stars_scale, alb_r, alb_m = (
+        torch.tensor(x) for x in fp[9:18])
+
+    def planck(t):  # csrc/spectral.cuh plancks, op by op
+        wl2 = wl * wl
+        return (a / (wl * (wl2 * wl2))) / (torch.exp(b / ((wl * k) * t)) - 1.0)
+
+    bits = lambda x: x.view(torch.int32)  # noqa: E731
+    assert torch.equal(bits(planck(t_sun)), bits(tsp.plancks(C.SUN_TEMPERATURE, wl)))
+    assert torch.equal(bits(planck(t_nl) * nl_scale),
+                       bits(tsp.plancks(C.NIGHTLIGHT_TEMPERATURE, wl) * C.NIGHTLIGHT_SCALE))
+    assert float(stars_scale) == np.float32(C.STARS_SCALE)
+    ext = torch.stack([tv.spectra_extinction_rayleigh(wl), tv.spectra_extinction_mie(wl)], -1)
+    assert torch.equal(ext[:, 0] * alb_r, ext[:, 0] * C.RAYLEIGH_ALBEDO)
+    assert torch.equal(ext[:, 1] * alb_m, ext[:, 1] * C.AEROSOL_ALBEDO)
+    np.testing.assert_array_equal(fp[18:], np.array(
+        [3.0 / (16.0 * np.pi), C.MIE_ASYMMETRY, 2.0 * np.pi,
+         torch.log(torch.tensor(2.0 * C.MIE_ASYMMETRY + 1.0)).item()], np.float32))
+    assert frame.iparams == [cfg.land_march_steps, cfg.march_k, _MARCH_STALL_PATIENCE,
+                             int(bilinear), 192, *atlas.topography.shape[:2],
+                             *atlas.material.shape[:2], *atlas.stars.shape[:2]]
+
+
+def preview_draws_recipe(spp_key, tidx: int, li: int, tile: int):
+    """The preview kernel's key recipe for one lane in Python integers
+    (csrc/preview.cu): the tile key fold(spp_key, tidx); bounce b's key
+    fold^b(tile key, 2); its cone and hemisphere keys fold(., 0) and
+    fold(., 1), each read at li and tile + li. Returns [(cone u0, cone u1,
+    hemi u0, hemi u1)] for bounces 0, 1, 2."""
+    def fold(k, d):
+        return rng.threefry2x32(k[0], k[1], 0, d & rng.M32)
+
+    def uniform(k, j):
+        y0, y1 = rng.threefry2x32(k[0], k[1], 0, j & rng.M32)
+        word = np.array([((y0 ^ y1) >> 9) | 0x3F800000], np.uint32)
+        return word.view(np.float32)[0] - np.float32(1.0)
+
+    kb = fold(spp_key, tidx)
+    out = []
+    for b in range(3):
+        if b:
+            kb = fold(kb, 2)
+        kc, kh = fold(kb, 0), fold(kb, 1)
+        out.append((uniform(kc, li), uniform(kc, tile + li), uniform(kh, li),
+                    uniform(kh, tile + li)))
+    return out
+
+
+@pytest.mark.parametrize("res,tile_pixels,tile_list", [((480, 270), 2048, False),
+                                                        ((64, 36), 192, True)])
+def test_preview_key_recipe(res, tile_pixels, tile_list):
+    """The kernel's recipe (spp key, tile index, in-tile index, tile -> the
+    draws of each bounce) against _bounce_draws(rng.lane_keys(...)), bit for
+    bit, on lanes of a frame (or of a tile list) at round 3 of seed 9."""
+    block = raygen.pick_block_dims(*res, tile_pixels)
+    tile = block[0] * block[1]
+    n_tiles = (res[0] // block[0]) * (res[1] // block[1])
+    tile_ids = (torch.randperm(n_tiles, generator=torch.Generator().manual_seed(1))[:4]
+                if tile_list else None)
+    n = (4 if tile_list else n_tiles) * tile
+    lane = torch.from_numpy(np.random.default_rng(2).choice(n, 48, replace=False))
+    tidx, li, _, _ = raygen.tile_pixel_coords(lane, res, block, tile_ids)
+    spp_key = rng.fold(torch.tensor((0, 9), dtype=torch.int64), 3)
+    want = raymarcher._bounce_draws(rng.lane_keys(spp_key, tidx), li, tile).numpy()
+    k = tuple(int(x) for x in spp_key.tolist())
+    for j in range(lane.numel()):
+        got = np.array(preview_draws_recipe(k, int(tidx[j]), int(li[j]), tile), np.float32)
+        np.testing.assert_array_equal(got.view(np.int32),
+                                      want[:, :, :, j].reshape(3, 4).view(np.int32))
 
 
 # --- the preview renderer ----------------------------------------------------

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch + CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--mesh-only | --preview-bench [DIR]]
+    python3 chip_smoke.py [--mesh-only | --preview-bench [DIR] | --path-bench [DIR]]
 
 Run from the root of a checkout on a machine with a CUDA card, ``nvcc`` and
 PyTorch built for CUDA; ``--mesh-only`` runs phases 1-3 and 19 alone (say,
@@ -9,42 +9,65 @@ on a machine with several cards, where phase 19 adds meshes over them);
 ``--preview-bench [DIR]`` prints the preview's end-to-end numbers (frame
 times and kernels per frame on both atlases, input to preview) for the port
 package in DIR (default this checkout), so that two versions of the port can
-be alternated in one call. It
+be alternated in one call; ``--path-bench [DIR]`` does the same for the path
+tracer (s/spp of the three scenes at 1920x1080 with kernels per spp, the
+busy share and the bounce kernels' device time; the meshes' s/spp; the
+preview frame and input to preview; the ms of each bounce of an Apollo spp).
+It
 imports nothing of JAX or of the JAX package ``digital_earth_tpu`` (checked
 at the end). Phases, each of which raises on failure (exit code 1):
 
 1. toolchain: torch, CUDA, nvcc, Triton versions and the card
    (``nvidia-smi --query-gpu=name,power.limit``);
 2. builds the kernels of ``digital_earth_tpu_torch/csrc`` with nvcc for
-   sm_90a (timed), and prints ptxas's registers and spills of ``bounce``,
-   ``compact_lanes`` and ``preview``;
+   sm_90a (timed), and prints ptxas's registers and spills of the bounce
+   entries, ``compact_lanes`` and ``preview``;
 3. holds the threefry header bit for bit against the plain ``uniform``,
    and times it at the frame's shape;
 4. renders one spp of the main path's frame (Apollo 11, 1920x1080, default
-   ``TraceConfig()``) through the kernels, keeping the bounce's full input
-   state and live list at bounce 0 and at bounce DEEP_BOUNCE and the alive
-   vectors the deepest bounce's compaction saw; then runs the bounce's
-   plain twin on the card on each kept state (its loops launch the tracker
-   kernels) and keeps, per tracker call kind, the arguments of the call
-   with the most active lanes, and bounce 0's table-lookup arguments;
+   ``TraceConfig()``) through the kernels with one launch per bounce,
+   keeping the bounce's full input state and live list at every bounce and
+   the alive vectors the deepest bounce's compaction saw; then runs the
+   bounce's plain twin on the card on the states of bounces 0 and
+   DEEP_BOUNCE (its loops launch the tracker kernels) and keeps, per
+   tracker call kind, the arguments of the call with the most active lanes,
+   and bounce 0's table-lookup arguments;
 5. checks the port against the committed 32x18 golden render on the card,
    through the kernel path;
 6. the main path: ``render_offline`` of "scenes/config - Apollo 11.txt" at
    1920x1080, default ``TraceConfig()``, procedural 1024x2048 atlas, 1
-   warm-up + 2 timed spp: ``bounce`` and ``compact_lanes`` launch on every
-   bounce, ``land_march``, ``rmo_delta_track`` and ``cloud_track`` never
-   (their loops run inside ``bounce``), every other path kernel at least
-   once, a finite buffer of positive mean;
+   warm-up + 2 timed spp: ``bounce_flight`` and ``bounce_shade`` (the wide
+   bounces) and ``bounce_window`` launch, ``compact_lanes`` once per bounce
+   launch, ``land_march``,
+   ``rmo_delta_track`` and ``cloud_track`` never (their loops run inside the
+   bounce entries), every other path kernel at least once, a finite buffer
+   of positive mean;
 7. holds each tracker kernel against its plain twin on the arguments kept
    in phase 4, lane by lane, and times both;
-8. ``bounce`` against its plain twin on the states of bounces 0 and
-   DEEP_BOUNCE (outcome and values lane by lane, gates below);
-   ``compact_lanes`` bit-equal to its twin on the alive vectors of bounces
-   0, DEEP_BOUNCE and the deepest reached (timed beside
-   ``torch.argsort(stable=True)``); ``density_check`` (the bounce's table
+8. ``bounce_flight`` + ``bounce_shade`` against their plain twin on the
+   states of bounces 0 and DEEP_BOUNCE (outcome and values lane by lane,
+   gates below), the pair and each half timed, the entries' registers and
+   resident warps; the census (the census instances of ``bounce_flight``
+   and ``bounce_shade`` leave the timed instances' state, and their trip
+   counts at the six loop sites equal those of the twin's plain loops on
+   all but 1e-4 of the lanes); the per-bounce table of the frame (live
+   lanes, ms, ns per lane, the bound from bytes and from the census's
+   operations, mean trips and SIMT efficiency per loop site);
+   ``bounce_window`` against ``run_window_plain`` from the bounce at which
+   the frame enters the window (``bounce_schedule`` at
+   ``kernels.window_threshold``), and the window started a few bounces
+   earlier and later (the crossover); the Draine sampler step by step
+   bit-equal to its twin (ROADMAP C #2); ``compact_lanes`` bit-equal to its
+   twin on the alive vectors of bounces 0, DEEP_BOUNCE and the deepest
+   reached and with no lane alive, every lane alive and no lane at all
+   (timed per call from the host, back to back, and on the device from a
+   CUDA graph of 20 calls, ``torch.argsort(stable=True)`` alike);
+   ``density_check`` (the bounce's table
    lookups) against the plain lookups on bounce 0's flight segments and NEE
    origins, and the bounce's sphere taps against the plain tap at bounce 0's
-   surface points (both through test launchers, timed).
+   surface points (both through test launchers, timed); last, one 1920x1080
+   Apollo spp under the window schedule bit-equal to the same spp with one
+   launch per bounce, its launches as ``bounce_schedule`` predicts.
 
 The viewer's path (each run with the launch counts set to 0 just before it
 and read just after):
@@ -114,9 +137,10 @@ built and read after its render):
     at 1920x1080, default ``TraceConfig()``, 1 warm-up + 2 timed spp on it
     under phase 6's gates (and 4 ``upsample`` launches), s/spp beside
     phase 6's; ``upsample`` bit-equal to its twin on the four full-size
-    planes (timed beside the twin and an expand + reshape copy); ``bounce``
-    against its twin at tier-2 bounce 0 under phase 8's gates; a 480x270
-    preview frame on the same atlas under phase 11's gates.
+    planes (timed beside the twin and an expand + reshape copy);
+    ``bounce_flight`` + ``bounce_shade`` against their twin at tier-2
+    bounce 0 under phase 8's gates; a 480x270 preview frame on the same
+    atlas under phase 11's gates.
 
 Last, since a profiler session can slow the launches after it:
 
@@ -125,20 +149,24 @@ Last, since a profiler session can slow the launches after it:
     on phase 19's (4, 1) mesh: s/spp (1 warm-up, 1 timed), then one spp
     under ``torch.profiler``: device kernels per spp (at most
     MAX_KERNELS_PER_SPP, four times that on the mesh), the device-busy share,
-    the kernels with the most device time, ``bounce``'s device time; then
-    one warm 480x270 preview frame: device kernels per frame (at most
+    the kernels with the most device time, the bounce entries' device
+    time; then one warm 480x270 preview frame: device kernels per frame (at most
     MAX_KERNELS_PER_PREVIEW), the device-busy share, ``preview``'s device
     time.
 
 The line before the last is the card's name and power limit; before it, one
 JSON line lists each kernel with its launches (``select_tiles`` makes four
 per call, ``select_tiles_shard`` two per shard mean and two per shard
-selection, ``compact_lanes`` three, counted as one; ``upsample`` four per
-atlas, its times the four planes' sums; ``preview`` one per preview frame,
-its launches from phase 11), error, times and bound (the least time the card could take: the
-larger of the bytes it must move at 3.35 TB/s and the operations at 67
-TFLOP/s, counted from this run's inputs, a transcendental as one
-operation). The last line is {"ok": true, "device": {...}}.
+selection, ``compact_lanes`` two (the scratch reset and the kernel),
+counted as one; ``upsample`` four per atlas, its times the four planes'
+sums; ``preview`` one per preview frame, its launches from phase 11; the
+bounce entries' times at bounce 0, ``bounce_window``'s from the bounce the
+frame enters it; ``compact_lanes``'s per call from the host), error,
+times and bound (the least time the card could take: the larger of the
+bytes it must move at 3.35 TB/s and the operations at 67 TFLOP/s, counted
+from this run's inputs, a transcendental as one operation; the bounce
+entries' operations from the census's trip counts). The last line is
+{"ok": true, "device": {...}}.
 """
 
 import json
@@ -151,6 +179,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 SCENE = os.path.join(ROOT, "scenes", "config - Apollo 11.txt")
 RES = (1920, 1080)
 DEEP_BOUNCE = 3
+WINDOW_STARTS = 3  # window starts timed before the threshold's (check_window)
 
 # Stated tolerances, kernel vs plain twin on the same inputs on the card.
 # Both round op by op with the same CUDA libm, so a lane disagrees only
@@ -180,15 +209,15 @@ ADAPTIVE_FRAC = 0.25
 # value) and a direction within DIR_ANGLE (absolute, per component: a unit
 # vector's error is an angle). Kernel and twin draw the same numbers and
 # round op by op alike, so a lane's outcome differs only where an event or a
-# march hit sits within an ulp of its threshold. The directions of cloud
-# scatters that take the Draine lobe are the exception: float32 powf's last
-# bit differs between PyTorch's build and the kernel's (13% of such lanes),
-# the inverse CDF's cancellation turns that into up to 1e-6 in cos(theta),
-# and near back-scatter 1 / sin(theta) ~ 100 multiplies it (8.8e-5 measured
-# at bounce 3; the CPU tests hold the same sampler to JAX within 6e-4).
+# march hit sits within an ulp of its threshold. Directions were gated at
+# 2e-4 until the Draine lobe's last division was found to part (check_draine:
+# PyTorch's CUDA ops multiply by float32(1 / b) for a Python divisor b, the
+# kernel took 1.0f / float32(b)); since the kernel rounds it so, every
+# direction agrees bit for bit at bounces 0 and DEEP_BOUNCE and through the
+# window, and the gate is the other fields' absolute floor.
 BOUNCE_AGREEMENT = 1.0 - 1e-4
 BOUNCE_RTOL = 1e-4
-DIR_ANGLE = 2e-4
+DIR_ANGLE = 1e-6
 DENSITY_RTOL = 1e-4  # density_check vs the plain lookups (atol 1e-6 of the max)
 # sphere tap vs ops/texture.sample_sphere_texture: both round the angles
 # (times float32(1/pi), as the twin's CUDA ops apply its Python divisor) and
@@ -203,7 +232,8 @@ TIER2_RES = (10800, 21600)
 # seed's xor, three xor-shifts of 2, two multiplies: 9) and the scale (two
 # conversions, the 2^-32 scale, jitter * u, 1 - that, the multiply, rint: 7)
 UPSAMPLE_JITTER_OPS = 16
-MAIN_PATH = ("bounce", "compact_lanes", "gen_rays", "frame_end", "film_postprocess")
+MAIN_PATH = ("bounce_flight", "bounce_shade", "bounce_window", "compact_lanes", "gen_rays",
+             "frame_end", "film_postprocess")
 # kernels whose loops now run inside bounce: none of their own launches on
 # the path tracer's run (held against their twins in their own phase)
 INLINED = ("land_march", "rmo_delta_track", "cloud_track")
@@ -216,6 +246,76 @@ OTHER_SCENES = ("config - florida.txt", "config - sunset hurricane.txt")
 # loops' trip counts, which this run does not observe: they are not
 # counted, and the bound is a floor (as the lookup launchers' below)
 BOUNCE_LANE_BYTES = 122 + 78
+# bounce's operations (csrc/bounce.cu and the loop headers), counted from the
+# sources as the other rows are (below: an add, multiply, divide, square root,
+# min or max, an expf, logf, powf, atan2f or asinf each one operation; a
+# threefry block 77, a draw 80, a nearest 4-channel sphere tap 36). Every
+# live lane: the hero extinctions (45), the bounce key, the topography tap
+# and d_free, the spans (three rsi of 17, the cloud limits 41), the flight
+# keys (3 x 77): 487; then four wavelengths' extinctions (180), the MIS
+# weight (the segment integral 60, tau, w, denominator: 109), the sun cone
+# (key, two draws, sample: 293), the scatter point and its planet test (23)
+# and four wavelengths' Planck terms and three radiance terms (148): 774.
+BOUNCE_FLIGHT_OPS = 487
+BOUNCE_FIXED_OPS = BOUNCE_FLIGHT_OPS + 774
+# A lane whose flight ends on the surface (its shadow march ran): land_pos,
+# the normal's four SDFs, the material grading, four albedo spectra, the
+# offset, two BRDF evaluations, the terms, the hemisphere key, draws and
+# sample: 1081. A lane that takes the sun's transmittance (its NEE cloud
+# pass ran): the closed-form RMO term (60), the cloud limits (41), two keys
+# (154), the phase (30): 285. Lanes whose pass ran with no trips are not
+# counted, nor the phase sample and the roulette: the bound is a floor.
+BOUNCE_SURFACE_OPS = 1081
+BOUNCE_NEE_OPS = 285
+# Per loop site (pre-march, cloud, RMO, march after, shadow, NEE cloud): the
+# operations of a call that takes at least one trip, of one iteration
+# outside its probes, and of one probe. A march call: the bounding rsi, the
+# span and the crawl's setup (59); an iteration's stride update (4); a probe
+# (110: its tap 36, the three mip bounds 27, the SDF, the ocean root). An
+# RMO call: the perigee (19); an iteration: the key (77), the segment's
+# minimum radius (7), the density envelope (29), the majorant (7); a probe:
+# two draws (160), the step (6), the point (7), the three densities (51),
+# the test (6): 230. A cloud call (2); an iteration: the key (77), the
+# budget (2), the majorant (3); a probe at the skip mode's cost (45: the
+# point and its tap; a tracking probe, 225 with its two draws, is not
+# assumed). An iteration's K probes all count but the last iteration's,
+# which counts one (a probe can stop it), so the count is a floor.
+BOUNCE_CALL_OPS = (59, 2, 19, 59, 59, 2)
+BOUNCE_ITER_OPS = (4, 82, 120, 4, 4, 82)
+BOUNCE_PROBE_OPS = (110, 45, 230, 110, 110, 45)
+
+
+def bounce_ops(torch, trips, k, part="bounce"):
+    """The operations of one bounce of the lanes whose (m, 6) int32 trip
+    counts ``trips`` the census gives, with ``k`` probes per loop iteration
+    (the march's and the trackers' K): BOUNCE_FIXED_OPS per lane, the
+    surface and NEE extras of the lanes whose shadow march and NEE cloud pass
+    took trips, and per site each call's, iteration's and probe's operations
+    (a floor). ``part`` "flight" counts steps 1-3 alone (the first 487 of the
+    fixed operations, sites 0-3), "shade" the rest."""
+    t = trips.to(torch.float64)
+    call = torch.tensor(BOUNCE_CALL_OPS, dtype=torch.float64, device=t.device)
+    it = torch.tensor(BOUNCE_ITER_OPS, dtype=torch.float64, device=t.device)
+    probe = torch.tensor(BOUNCE_PROBE_OPS, dtype=torch.float64, device=t.device)
+    probes = torch.clamp(k * t - (k - 1), min=0.0)
+    per_site = ((t > 0) * call + t * it + probes * probe).sum(0)
+    extras = (BOUNCE_SURFACE_OPS * (t[:, 4] > 0).sum() + BOUNCE_NEE_OPS * (t[:, 5] > 0).sum())
+    flight = BOUNCE_FLIGHT_OPS * t.shape[0] + per_site[:4].sum()
+    shade = (BOUNCE_FIXED_OPS - BOUNCE_FLIGHT_OPS) * t.shape[0] + extras + per_site[4:].sum()
+    return float({"bounce": flight + shade, "flight": flight, "shade": shade}[part])
+
+
+def simt_efficiency(torch, trips, warp=32):
+    """Per loop site, the share of a warp's iterations that do a lane's work
+    under the launch's warp grouping (the list order): sum of the lanes'
+    trips over the sum over warps of ``warp`` times the warp's largest trip
+    count; None for a site no lane entered."""
+    m = trips.shape[0]
+    pad = (-m) % warp
+    t = torch.cat([trips, trips.new_zeros((pad, trips.shape[1]))]).to(torch.float64)
+    worst = t.view(-1, warp, t.shape[1]).amax(1).sum(0) * warp
+    work = t.sum(0)
+    return [None if w == 0 else float(a / w) for a, w in zip(work.tolist(), worst.tolist())]
 # NVIDIA H100 SXM (NVIDIA's data sheet): HBM3 bytes/s and float32
 # operations/s outside the tensor cores, for each kernel's bound.
 PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
@@ -378,33 +478,49 @@ def _clone_state(st):
     return pt.TraceState(**{k: v.clone() for k, v in vars(st).items()})
 
 
-def capture_states(torch, dev, atlas, luts, bounces):
-    """One spp of the main path's frame through the kernels on ``atlas``.
-    Keeps the bounce's full input state and live list at each of
-    ``bounces``, the alive vectors the deepest bounce's compaction saw, and
-    the frame's end-of-sweep state: (states, deepest, frame_end arguments)."""
+def _per_bounce(pt):
+    """The package's run_bounces with one launch per bounce (window_at=0),
+    where it has a window schedule."""
+    import functools
+    import inspect
+
+    run_bounces = pt.run_bounces
+    if "window_at" not in inspect.signature(run_bounces).parameters:
+        return run_bounces
+    return functools.partial(run_bounces, window_at=0)
+
+
+def capture_states(torch, dev, atlas, luts, bounces=None, scene=SCENE):
+    """One spp of ``scene``'s 1920x1080 frame through the kernels on
+    ``atlas``, one launch per bounce. Keeps the bounce's full input state and
+    live list at each of ``bounces`` (None: every bounce), the alive vectors
+    the deepest bounce's compaction saw, and the frame's end-of-sweep state:
+    (states, deepest, frame_end arguments). Works with this checkout's
+    package and with an earlier one's (``--path-bench``)."""
     from digital_earth_tpu_torch.app.config_io import apply_config, load_config
     from digital_earth_tpu_torch.render import pathtracer as pt
     from digital_earth_tpu_torch.render.renderer import Renderer
 
     states, deepest = {}, {}
-    run_bounce = pt.run_bounce
+    run_bounce, run_bounces = pt.run_bounce, pt.run_bounces
 
     def keep_state(st, idx, b, *args):
+        if len(args) > 5 and args[5] is not None:  # the live count on the device
+            idx = idx[: int(args[5])]
         deepest.update(bounce=b, alive=st.alive.clone(), work_class=st.work_class.clone())
-        if b in bounces:
+        if bounces is None or b in bounces:
             states[b] = dict(st=_clone_state(st), idx=idx.clone(), args=args[:4])
         return run_bounce(st, idx, b, *args)
 
-    pt.run_bounce = keep_state
+    pt.run_bounce, pt.run_bounces = keep_state, _per_bounce(pt)
     try:
         r = Renderer(dev, image_res=RES, atlas=atlas, luts=luts)
-        apply_config(r, load_config(SCENE))
+        apply_config(r, load_config(scene))
         frame_end_args = capture_frame_end(torch, r.accumulate)
         torch.cuda.synchronize()
     finally:
-        pt.run_bounce = run_bounce
-    if set(states) != set(bounces):
+        pt.run_bounce, pt.run_bounces = run_bounce, run_bounces
+    if bounces is not None and set(states) != set(bounces):
         fail(f"the capture frame did not reach bounces {bounces}: {sorted(states)}")
     return states, deepest, frame_end_args
 
@@ -421,7 +537,9 @@ def capture_inputs(torch, dev, atlas, luts):
     alive vectors, lookup arguments, frame_end arguments)."""
     from digital_earth_tpu_torch.render import pathtracer as pt
 
-    states, deepest, frame_end_args = capture_states(torch, dev, atlas, luts, (0, DEEP_BOUNCE))
+    states, deepest, frame_end_args = capture_states(torch, dev, atlas, luts)
+    if not {0, DEEP_BOUNCE} <= set(states):
+        fail(f"the capture frame did not reach bounces 0 and {DEEP_BOUNCE}: {sorted(states)}")
     captured, lookups = {}, {}
     state = {"bounce": None}
     originals = {name: getattr(pt, name) for name in
@@ -454,10 +572,10 @@ def capture_inputs(torch, dev, atlas, luts):
             lookups["flight"] = tuple(map(copy, args))
         return originals["spectral_flight_weights"](*args)
 
-    def nee(*args):
+    def nee(*args, **kwargs):
         if state["bounce"] == 0:
             lookups["nee"] = tuple(map(copy, args))
-        return originals["sample_transmittance"](*args)
+        return originals["sample_transmittance"](*args, **kwargs)
 
     def material(atlas_, land_pos, bilinear=True):
         if state["bounce"] == 0:
@@ -467,7 +585,8 @@ def capture_inputs(torch, dev, atlas, luts):
     (pt.intersect_land, pt.delta_track_rmo, pt.track_cloud, pt.spectral_flight_weights,
      pt.sample_transmittance, pt.get_land_material) = (land, rmo, cloud, flight, nee, material)
     try:
-        for b, c in sorted(states.items()):
+        for b in (0, DEEP_BOUNCE):
+            c = states[b]
             state["bounce"] = b
             c["twin"] = pt.run_bounce_plain(c["st"].take(c["idx"].long()), b, *c["args"])
         torch.cuda.synchronize()
@@ -588,105 +707,492 @@ def _event_ms(torch, fn, reps):
 BOUNCE_FIELDS = ("pos", "direction", "throughput", "radiance", "w_mis")
 
 
+def _hold_lanes(torch, got, want, entered, label):
+    """Kernel state ``got`` against the twin's ``want`` on the same lanes:
+    the outcome (alive, primary_miss, work_class) and every value under the
+    bounce's gates, lane by lane, printed; fails below BOUNCE_AGREEMENT.
+    ``entered`` are the lanes' work classes before. Returns the largest
+    radiance error."""
+    m = want.alive.numel()
+    outcome = ((got.alive == want.alive) & (got.primary_miss == want.primary_miss)
+               & (got.work_class == want.work_class))
+    lane_ok = outcome.clone()
+    errs = {}
+    for name in BOUNCE_FIELDS:
+        g, w = getattr(got, name), getattr(want, name)
+        atol = 1e-6 * w[outcome].abs().max().clamp(min=1e-30)
+        if name == "direction":
+            close = ((g - w).abs() <= DIR_ANGLE).all(-1)
+        else:
+            close = ((g - w).abs() <= BOUNCE_RTOL * w.abs() + atol).all(-1)
+        lane_ok &= close
+        d = (g - w)[outcome].abs()
+        rel = (d / w[outcome].abs().clamp(min=atol))[close[outcome]]
+        errs[name] = (d.max().item() if d.numel() else 0.0, rel.max().item() if rel.numel() else 0.0)
+    share_outcome = outcome.float().mean().item()
+    share = lane_ok.float().mean().item()
+    ok = share_outcome >= BOUNCE_AGREEMENT and share >= BOUNCE_AGREEMENT
+    live_after = int(got.alive.sum())
+    classes = torch.bincount(got.work_class[got.alive].long(), minlength=3).tolist()
+    print(f"{label}: {m} live lanes; {live_after} alive after, next classes (cloud, gas, "
+          f"surface) {classes}; same alive/primary_miss/work_class {share_outcome:.7f} "
+          f"({m - int(outcome.sum())} not); same outcome and values within rtol {BOUNCE_RTOL} "
+          f"(direction {DIR_ANGLE} absolute) {share:.7f} ({m - int(lane_ok.sum())} not); max "
+          "abs err " + ", ".join(f"{k} {v[0]:.3e}" for k, v in errs.items())
+          + "; max rel err on agreeing lanes "
+          + ", ".join(f"{k} {v[1]:.3e}" for k, v in errs.items())
+          + f"  {'ok' if ok else 'FAIL'}")
+    if not bool(lane_ok.all()):
+        # the stage of the lanes that disagree: the class they entered the
+        # bounce with and the twin's next class (alive lanes only)
+        bad = ~lane_ok
+        nxt = want.work_class[bad & want.alive].long().clamp(0, 2)
+        print(f"{label}: lanes not agreeing by entering class (cloud, gas, surface) "
+              f"{torch.bincount(entered[bad].long().clamp(0, 2), minlength=3).tolist()}, by the "
+              f"twin's next class {torch.bincount(nxt, minlength=3).tolist()} "
+              f"({int((bad & ~want.alive).sum())} dead in the twin)")
+    if not ok:
+        fail(f"{label} disagrees with its plain twin")
+    return errs["radiance"][0]
+
+
+def _bounce_ms(torch, st0, launch, reps=3):
+    """Mean ms of ``launch(st)`` on a fresh copy of ``st0`` each time."""
+    def prepared():
+        st = _clone_state(st0)
+        return lambda: launch(st)
+
+    return _event_ms(torch, prepared, reps)
+
+
 def check_bounce(torch, states):
-    """The bounce kernel against its plain twin on the captured states of
-    bounces 0 and DEEP_BOUNCE, lane by lane over the live list: a JSON row
-    (bounce 0's times)."""
+    """The path's wide-bounce kernels (bounce_flight + bounce_shade) against
+    their plain twin on the captured states with a twin (bounces 0 and
+    DEEP_BOUNCE), lane by lane over the live list; bounce 0's times of the
+    pair and of each half, and the entries' registers and resident warps.
+    Returns the bounce_flight and bounce_shade JSON rows (bounce 0's times;
+    the halves share the whole bounce's twin and error)."""
+    from digital_earth_tpu_torch import kernels
     from digital_earth_tpu_torch.render import pathtracer as pt
 
-    row = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0)
-    for b, c in sorted(states.items()):
+    rows = {name: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0)
+            for name in ("bounce_flight", "bounce_shade")}
+    for b in sorted(b for b, c in states.items() if "twin" in c):
+        c = states[b]
         idx, st0, args = c["idx"], c["st"], c["args"]
         m = idx.numel()
         frame = pt.BounceFrame(st0, *args)
-
-        def prepared():
-            st = _clone_state(st0)
-            return lambda: pt.run_bounce(st, idx, b, *args, frame)
-
+        ka = lambda s: pt._kernel_args(s, idx, b, *args, frame)  # noqa: E731
         st = _clone_state(st0)
         pt.run_bounce(st, idx, b, *args, frame)
         torch.cuda.synchronize()
-        ms = _event_ms(torch, prepared, 3)
-        got, want = st.take(idx.long()), c["twin"]
-        outcome = ((got.alive == want.alive) & (got.primary_miss == want.primary_miss)
-                   & (got.work_class == want.work_class))
-        lane_ok = outcome.clone()
-        errs = {}
-        for name in BOUNCE_FIELDS:
-            g, w = getattr(got, name), getattr(want, name)
-            atol = 1e-6 * w[outcome].abs().max().clamp(min=1e-30)
-            if name == "direction":
-                close = ((g - w).abs() <= DIR_ANGLE).all(-1)
-            else:
-                close = ((g - w).abs() <= BOUNCE_RTOL * w.abs() + atol).all(-1)
-            lane_ok &= close
-            d = (g - w)[outcome].abs()
-            rel = (d / w[outcome].abs().clamp(min=atol))[close[outcome]]
-            errs[name] = (d.max().item(), rel.max().item() if rel.numel() else 0.0)
-        share_outcome = outcome.float().mean().item()
-        share = lane_ok.float().mean().item()
-        ok = share_outcome >= BOUNCE_AGREEMENT and share >= BOUNCE_AGREEMENT
-        live_after = int(got.alive.sum())
-        classes = torch.bincount(got.work_class[got.alive].long(), minlength=3).tolist()
-        print(f"bounce {b}: {m} live lanes of {st0.alive.numel()}; {live_after} alive after, "
-              f"next classes (cloud, gas, surface) {classes}; same alive/primary_miss/work_class "
-              f"{share_outcome:.7f} ({m - int(outcome.sum())} not); same outcome and values "
-              f"within rtol {BOUNCE_RTOL} (direction {DIR_ANGLE} absolute) {share:.7f} "
-              f"({m - int(lane_ok.sum())} not); max abs err "
-              + ", ".join(f"{k} {v[0]:.3e}" for k, v in errs.items())
-              + "; max rel err on agreeing lanes "
-              + ", ".join(f"{k} {v[1]:.3e}" for k, v in errs.items())
-              + f"  kernel {ms:.3f} ms  {'ok' if ok else 'FAIL'}")
-        if not bool(lane_ok.all()):
-            # the stage of the lanes that disagree: the class they entered
-            # the bounce with and the twin's next class (alive lanes only)
-            bad = ~lane_ok
-            entered = st0.work_class[idx.long()][bad].long().clamp(0, 2)
-            nxt = want.work_class[bad & want.alive].long().clamp(0, 2)
-            print(f"bounce {b}: lanes not agreeing by entering class (cloud, gas, surface) "
-                  f"{torch.bincount(entered, minlength=3).tolist()}, by the twin's next class "
-                  f"{torch.bincount(nxt, minlength=3).tolist()} "
-                  f"({int((bad & ~want.alive).sum())} dead in the twin)")
-        if not ok:
-            fail(f"the bounce kernel disagrees with its plain twin at bounce {b}")
-        row["max_abs_err"] = max(row["max_abs_err"], errs["radiance"][0])
+        flight = kernels.bounce_flight(*ka(_clone_state(st0)))
+        t = {"pair": _bounce_ms(torch, st0, lambda s: pt.run_bounce(s, idx, b, *args, frame)),
+             "flight": _bounce_ms(torch, st0, lambda s: kernels.bounce_flight(*ka(s))),
+             "shade": _bounce_ms(torch, st0, lambda s: kernels.bounce_shade(*ka(s), flight=flight))}
+        print(f"bounce {b} ({m} lanes): bounce_flight + bounce_shade {t['pair']:.3f} ms "
+              f"(bounce_flight {t['flight']:.3f}, bounce_shade {t['shade']:.3f})")
+        err = _hold_lanes(torch, st.take(idx.long()), c["twin"], st0.work_class[idx.long()],
+                          f"bounce {b}")
+        for row in rows.values():
+            row["max_abs_err"] = max(row["max_abs_err"], err)
         if b == 0:
             _, plain_ms = _plain_ms(
                 torch, lambda: pt.run_bounce_plain(st0.take(idx.long()), b, *args))
             print(f"bounce 0 plain twin (eager PyTorch + the tracker kernels): {plain_ms:.1f} ms")
-            row.update(ms=ms, plain_ms=plain_ms, bytes=BOUNCE_LANE_BYTES * m, ops=None)
-    return row
+            # the flight reads pos, dir, the hero wavelength, the key and the
+            # list entry (40 B) and writes its 16 B outcome; the shade reads
+            # the state and the outcome, and writes the state
+            rows["bounce_flight"].update(ms=t["flight"], plain_ms=plain_ms, bytes=(40 + 16) * m)
+            rows["bounce_shade"].update(ms=t["shade"], plain_ms=plain_ms,
+                                        bytes=(BOUNCE_LANE_BYTES + 16) * m)
+    for name in kernels.OCCUPANCY_ENTRIES:
+        occ = kernels.bounce_occupancy(name)
+        print(f"occupancy {name}: {occ['registers']} registers, {occ['local_bytes']} B local per "
+              f"thread; {occ['blocks_per_sm']} blocks of {occ['block']} = {occ['warps_per_sm']} "
+              f"resident warps per SM")
+    return rows
+
+
+def _graph_ms(torch, fn, reps=20):
+    """Device ms per call of ``fn()``: ``reps`` calls captured in one CUDA
+    graph and replayed between two events, so no host time lies between
+    the launches."""
+    fn()
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _trips(torch, st0, idx, b, args, frame):
+    """The census instances of bounce_flight and bounce_shade on a copy of
+    ``st0``: ((m, 6) trips, the state they left)."""
+    from digital_earth_tpu_torch import kernels
+    from digital_earth_tpu_torch.render import pathtracer as pt
+
+    st = _clone_state(st0)
+    trips = torch.empty((idx.numel(), 6), dtype=torch.int32, device=idx.device)
+    ka = pt._kernel_args(st, idx, b, *args, frame)
+    kernels.bounce_shade(*ka, flight=kernels.bounce_flight(*ka, trips=trips), trips=trips)
+    return trips, st
+
+
+def _states_equal(torch, a, b):
+    return all(torch.equal(getattr(a, f), getattr(b, f)) for f in
+               ("pos", "direction", "throughput", "radiance", "w_mis", "alive",
+                "primary_miss", "work_class"))
+
+
+def check_census(torch, states):
+    """A's census: at bounces 0 and DEEP_BOUNCE the census instances of
+    bounce_flight and bounce_shade leave the timed instances' state bit for
+    bit, and their trip counts at the six loop sites equal those of the
+    twin's plain loops (run_bounce_plain(trips=...), on the card) on all but
+    a share 1 - BOUNCE_AGREEMENT of the lanes (where a plain loop and its
+    kernel part on an ulp). Returns {bounce: kernel trips}."""
+    from digital_earth_tpu_torch.render import pathtracer as pt
+
+    out = {}
+    for b in (0, DEEP_BOUNCE):
+        c = states[b]
+        idx, st0, args = c["idx"], c["st"], c["args"]
+        frame = pt.BounceFrame(st0, *args)
+        k_trips, st_census = _trips(torch, st0, idx, b, args, frame)
+        st_timed = _clone_state(st0)
+        pt.run_bounce(st_timed, idx, b, *args, frame)
+        same_state = _states_equal(torch, st_census, st_timed)
+        p_trips = torch.zeros_like(k_trips)
+        t0 = time.time()
+        pt.run_bounce_plain(st0.take(idx.long()), b, *args, trips=p_trips)
+        torch.cuda.synchronize()
+        plain_s = time.time() - t0
+        lane_eq = (k_trips == p_trips).all(1)
+        share = lane_eq.float().mean().item()
+        m = idx.numel()
+        per_site = ", ".join(
+            f"{name} {k_trips[:, j].float().mean().item():.3f}/{p_trips[:, j].float().mean().item():.3f}"
+            f" (max {int(k_trips[:, j].max())})" for j, name in enumerate(pt.CENSUS_SITES))
+        ok = same_state and share >= BOUNCE_AGREEMENT
+        print(f"census bounce {b}: {m} lanes; the census instance leaves the timed instance's "
+              f"state bit for bit {same_state}; trip counts equal to the twin's plain loops on "
+              f"{share:.7f} of lanes ({m - int(lane_eq.sum())} not); mean trips per lane kernel/"
+              f"twin: {per_site}  (twin {plain_s:.1f} s)  {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"the bounce census disagrees with the twin's loops at bounce {b}")
+        out[b] = k_trips
+    return out
+
+
+def bounce_table(torch, states, cfg, census=True):
+    """The per-bounce table of the captured Apollo frame: per bounce the live
+    lanes, the package's run_bounce's ms (one bounce, all its launches) and
+    ns per lane, and with ``census`` the bounds (bytes, operations from the
+    census's trips), the mean trips and SIMT efficiency of each loop site.
+    Returns {bounce: row}."""
+    from digital_earth_tpu_torch.render import pathtracer as pt
+
+    table = {}
+    for b, c in sorted(states.items()):
+        idx, st0, args = c["idx"], c["st"], c["args"]
+        m = idx.numel()
+        if m == 0:
+            continue
+        frame = pt.BounceFrame(st0, *args)
+        row = dict(live=m)
+        row["ms"] = _bounce_ms(torch, st0, lambda s: pt.run_bounce(s, idx, b, *args, frame))
+        if census:
+            trips, _ = _trips(torch, st0, idx, b, args, frame)
+            ops = bounce_ops(torch, trips, cfg.march_k)
+            row.update(ops=ops, ops_ms=ops / PEAK_F32 * 1e3,
+                       bytes_ms=BOUNCE_LANE_BYTES * m / PEAK_BYTES * 1e3,
+                       trips=[round(x, 3) for x in trips.float().mean(0).tolist()],
+                       simt=simt_efficiency(torch, trips))
+        row["ns_per_lane"] = row["ms"] * 1e6 / m
+        table[b] = row
+        extra = ""
+        if census:
+            simt = " ".join("-" if e is None else f"{e:.2f}" for e in row["simt"])
+            extra = (f"  bound {max(row['ops_ms'], row['bytes_ms']):.4f} ms (ops "
+                     f"{row['ops_ms']:.4f}, bytes {row['bytes_ms']:.4f})  mean trips "
+                     f"{row['trips']}  SIMT eff {simt}")
+        print(f"per-bounce {b:2d}: {m:8d} live  {row['ms']:.3f} ms  {row['ns_per_lane']:.2f} "
+              f"ns/lane{extra}")
+    return table
+
+
+def check_window(torch, states, table):
+    """bounce_window against run_window_plain from the bounce at which the
+    captured Apollo frame enters the window (bounce_schedule at
+    kernels.window_threshold), lane by lane under the bounce's gates; its ms
+    against the per-bounce launches it replaces; and the crossover: for
+    each start b from WINDOW_STARTS before the threshold's bounce to two
+    after it, the ms of one-launch-per-bounce from the first of them up to b
+    and the window from b. Returns (JSON row, the window's bounce, the
+    schedule, {b: that schedule's ms})."""
+    from digital_earth_tpu_torch import kernels
+    from digital_earth_tpu_torch.render import pathtracer as pt
+
+    bounces = sorted(states)
+    n = states[0]["st"].alive.numel()
+    cfg = states[0]["args"][3]
+    threshold = kernels.window_threshold(states[0]["st"].pos.device)
+    counts = [states[b]["idx"].numel() for b in bounces] + [0]
+    single, wb = pt.bounce_schedule(n, counts, threshold, 0, cfg.max_bounces)
+    print(f"window: threshold {threshold} lanes (SMs x bounce_window's resident threads); "
+          f"Apollo's live counts {counts[:-1]}: one launch per bounce for bounces {single}, "
+          f"the window from bounce {wb}")
+    if wb is None or wb not in states:
+        fail(f"the captured frame does not enter the window ({wb})")
+    c = states[wb]
+    idx, st0, args = c["idx"], c["st"], c["args"]
+    frame = pt.BounceFrame(st0, *args)
+    st = _clone_state(st0)
+    pt.run_window(st, idx, wb, cfg.max_bounces, *args, frame)
+    torch.cuda.synchronize()
+    ms = _bounce_ms(torch, st0, lambda s: pt.run_window(s, idx, wb, cfg.max_bounces, *args, frame))
+    twin = _clone_state(st0)
+    t0 = time.time()
+    pt.run_window_plain(twin, idx, wb, cfg.max_bounces, *args)
+    torch.cuda.synchronize()
+    plain_ms = (time.time() - t0) * 1e3
+    lanes = idx.long()
+    err = _hold_lanes(torch, st.take(lanes), twin.take(lanes), st0.work_class[lanes],
+                      f"bounce_window from bounce {wb}")
+    per_bounce = sum(table[b]["ms"] for b in table if b >= wb)
+    print(f"bounce_window from bounce {wb} ({idx.numel()} lanes, {cfg.max_bounces - wb} "
+          f"bounces): {ms:.3f} ms in one launch against {per_bounce:.3f} ms of bounce_flight + "
+          f"bounce_shade launches (their kernel time alone) from there; twin {plain_ms:.1f} ms")
+    ops = sum(table[b]["ops"] for b in table if b >= wb)
+    first = max(wb - WINDOW_STARTS, 0)
+    starts = {}
+    for b in range(first, min(wb + 3, cfg.max_bounces)):
+        if b not in states or b not in table:
+            break
+        c = states[b]
+        frame_b = pt.BounceFrame(c["st"], *c["args"])
+        w_ms = _bounce_ms(torch, c["st"], lambda s: pt.run_window(
+            s, c["idx"], b, cfg.max_bounces, *c["args"], frame_b))
+        starts[b] = sum(table[j]["ms"] for j in range(first, b)) + w_ms
+        print(f"window crossover: bounces {first}-{b - 1} one launch each "
+              f"({starts[b] - w_ms:.3f} ms), then bounce_window from bounce {b} "
+              f"({states[b]['idx'].numel()} lanes, {w_ms:.3f} ms): {starts[b]:.3f} ms"
+              + ("  <- the threshold's schedule" if b == wb else ""))
+    best = min(starts, key=starts.get)
+    print(f"window crossover: the least kernel time from bounce {first} starts the window at "
+          f"bounce {best} ({starts[best]:.3f} ms against {starts[wb]:.3f} at bounce {wb}; the "
+          f"kernels' time alone: each launch before the window also takes a compact_lanes and "
+          f"a host read)")
+    # each lane's state read and written once for the whole window
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bytes=BOUNCE_LANE_BYTES * idx.numel(),
+                ops=ops), wb, (single, wb), starts
+
+
+def _compact_times(torch, compact_lanes, alive, wc):
+    """compact_lanes's ms per call two ways, with torch.argsort(stable=True)
+    (the same order) timed alike: back to back from the host (``_time_ms``,
+    5 calls between two events: the host's launch cost included, the way a
+    bounce loop pays it) and on the device alone (``_graph_ms``, 20 calls
+    replayed in a CUDA graph: no host time between the launches). Returns
+    ((idx, n_live), {"call", "device", "library_call", "library_device"})."""
+    out, call = _time_ms(torch, lambda: compact_lanes(alive, wc), 5)
+    key = torch.where(alive, wc.clamp(0, 2), 3)
+    _, lib_call = _time_ms(torch, lambda: torch.argsort(key, stable=True), 5)
+    t = dict(call=call, device=_graph_ms(torch, lambda: compact_lanes(alive, wc)),
+             library_call=lib_call)
+    try:
+        t["library_device"] = _graph_ms(torch, lambda: torch.argsort(key, stable=True))
+    except RuntimeError as e:  # the yardstick's own launches may not capture
+        print(f"torch.argsort in a CUDA graph: {e}")
+        t["library_device"] = None
+    return out, t
 
 
 def check_compact(torch, states, deepest):
     """compact_lanes against its plain twin, bit for bit, on the alive
-    vectors of bounces 0, DEEP_BOUNCE and the deepest bounce reached: a JSON
-    row (DEEP_BOUNCE's times, torch.argsort(stable=True) as the yardstick)."""
+    vectors of bounces 0, DEEP_BOUNCE and the deepest bounce reached, and on
+    1920x1080 vectors with no lane alive, every lane alive and no lane at
+    all: a JSON row (DEEP_BOUNCE's times per call from the host, back to
+    back, as earlier rows were timed; torch.argsort(stable=True) alike as
+    the yardstick; the device times printed beside them)."""
     from digital_earth_tpu_torch import kernels
     from digital_earth_tpu_torch.render import compact
 
-    cases = [(b, c["st"].alive, c["st"].work_class) for b, c in sorted(states.items())]
-    cases.append((deepest["bounce"], deepest["alive"], deepest["work_class"]))
+    cases = [(f"bounce {b}", states[b]["st"].alive, states[b]["st"].work_class)
+             for b in (0, DEEP_BOUNCE)]
+    cases.append((f"bounce {deepest['bounce']} (deepest)", deepest["alive"],
+                  deepest["work_class"]))
+    wc = states[DEEP_BOUNCE]["st"].work_class
+    cases += [("all dead", torch.zeros_like(cases[0][1]), wc),
+              ("all alive", torch.ones_like(cases[0][1]), wc),
+              ("empty", cases[0][1][:0], wc[:0])]
     row = dict(max_abs_err=0.0)
-    for b, alive, wc in cases:
-        (k_idx, k_n), ms = _time_ms(torch, lambda: kernels.compact_lanes(alive, wc), 5)
+    for label, alive, wc in cases:
+        (k_idx, k_n), t = _compact_times(torch, kernels.compact_lanes, alive, wc)
         (p_idx, p_n), plain_ms = _plain_ms(torch, lambda: compact.compact_by_alive_plain(alive, wc))
         n = int(p_n)
         equal = int(k_n) == n and torch.equal(k_idx[:n], p_idx[:n])
-        key = torch.where(alive, wc.clamp(0, 2), 3)
-        _, lib_ms = _time_ms(torch, lambda: torch.argsort(key, stable=True), 5)
-        print(f"compact_lanes bounce {b}: {alive.numel()} lanes, {n} alive; list and count "
-              f"bit-equal {equal}  kernel {ms:.3f} ms ({kernels.COMPACT_STAGES} launches)  "
-              f"plain {plain_ms:.2f} ms  torch.argsort(stable=True) {lib_ms:.3f} ms  "
-              f"{'ok' if equal else 'FAIL'}")
+        lib_dev = "-" if t["library_device"] is None else f"{t['library_device']:.4f}"
+        print(f"compact_lanes {label}: {alive.numel()} lanes, {n} alive; list and count "
+              f"bit-equal {equal}  kernel {t['call']:.4f} ms per call from the host, back to "
+              f"back, {t['device']:.4f} ms on the device ({kernels.COMPACT_STAGES} launches per "
+              f"call: the scratch reset and one kernel)  plain {plain_ms:.2f} ms  "
+              f"torch.argsort(stable=True) {t['library_call']:.4f} ms per call, {lib_dev} ms on "
+              f"the device  {'ok' if equal else 'FAIL'}")
         if not equal:
-            fail(f"compact_lanes disagrees with its plain twin at bounce {b}")
-        if b == DEEP_BOUNCE:
+            fail(f"compact_lanes disagrees with its plain twin ({label})")
+        if label == f"bounce {DEEP_BOUNCE}":
             # alive and work_class read once, the live list and count written
-            row.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+            row.update(ms=t["call"], plain_ms=plain_ms, library_ms=t["library_call"],
                        bytes=5 * alive.numel() + 4 * n + 4, ops=None)
     return row
+
+
+def check_window_spp(torch, dev, atlas, luts, schedule):
+    """One 1920x1080 Apollo spp (the capture frame's seed and round) under
+    the window schedule bit-equal to the same spp with one launch per
+    bounce (window_at=0); the windowed run's launches of bounce and
+    bounce_window as bounce_schedule predicts from the capture's counts."""
+    import functools
+
+    from digital_earth_tpu_torch import kernels
+    from digital_earth_tpu_torch.render import pathtracer as pt
+    from digital_earth_tpu_torch.render.renderer import Renderer
+
+    bufs, runs = [], {}
+    run_bounces = pt.run_bounces
+    for label, window_at in (("per bounce", 0), ("windowed", None)):
+        r = _apollo(Renderer(dev, image_res=RES, atlas=atlas, luts=luts))
+        pt.run_bounces = functools.partial(run_bounces, window_at=window_at)
+        try:
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            t0 = time.time()
+            r.accumulate()
+            torch.cuda.synchronize()
+            runs[label] = (time.time() - t0, kernels.launch_counts())
+        finally:
+            pt.run_bounces = run_bounces
+        bufs.append(r.color_buffer)
+    equal = torch.equal(*bufs)
+    single, wb = schedule
+    counts = runs["windowed"][1]
+    wide = counts["bounce_flight"]
+    launches_ok = wide == len(single) and counts["bounce_window"] == (wb is not None)
+    print(f"windowed spp {RES[0]}x{RES[1]}: bit-equal to the per-bounce spp {equal}; "
+          f"{runs['windowed'][0]:.3f} s against {runs['per bounce'][0]:.3f} s (first spp of "
+          f"each); wide-bounce launches {wide} (schedule {len(single)}), bounce_window "
+          f"{counts['bounce_window']}, compact_lanes {counts['compact_lanes']}  "
+          f"{'ok' if equal and launches_ok else 'FAIL'}")
+    if not (equal and launches_ok):
+        fail("the windowed spp is not bit-equal to the per-bounce spp, or its launches are not "
+             "the schedule's")
+
+
+DRAINE_STEPS = ("t3", "t4a", "t4", "t4p3", "t6", "t5", "inner", "s", "cos")
+
+
+def draine_steps(torch, u):
+    """The twin's Draine sampler (models/volume.sample_draine_cos) step by
+    step, in its own operations: the intermediates DRAINE_STEPS."""
+    from digital_earth_tpu_torch.models import volume as vol
+    from digital_earth_tpu_torch.ops.math_utils import rdiv
+
+    g, a = vol.CLOUD_G_DRAINE, vol.CLOUD_ALPHA_DRAINE
+    g2 = g * g
+    g3, g4 = g * g2, g2 * g2
+    g6 = g2 * g4
+    pgp1_2 = (1.0 + g2) * (1.0 + g2)
+    t1a = -a + a * g4
+    t1a3 = t1a * t1a * t1a
+    t2 = -1296.0 * (-1.0 + g2) * (a - a * g2) * t1a * (4.0 * g2 + a * pgp1_2)
+    t3 = 3.0 * g2 * (1.0 + g * (-1.0 + 2.0 * u)) + a * (
+        2.0 + g2 + g3 * (1.0 + 2.0 * g2) * (-1.0 + 2.0 * u))
+    t4a = 432.0 * t1a3 + t2 + 432.0 * (a - a * g2) * t3 * t3
+    t4b = -144.0 * a * g2 + 288.0 * a * g4 - 144.0 * a * g6
+    t4 = t4a + torch.sqrt(torch.clamp(-4.0 * (t4b * t4b * t4b) + t4a * t4a, min=0.0))
+    t4p3 = torch.pow(t4, 1.0 / 3.0)
+    cbrt2 = 2.0 ** (1.0 / 3.0)
+    pre = (2.0 * t1a + rdiv(48.0 * cbrt2 * (-(a * g2) + 2.0 * a * g4 - a * g6), t4p3)
+           + t4p3 / (3.0 * cbrt2))
+    t6 = pre / (a - a * g2)
+    t5 = 6.0 * (1.0 + g2) + t6
+    inner = (6.0 * (1.0 + g2)
+             - (8.0 * t3) / (a * (-1.0 + g2) * torch.sqrt(torch.clamp(t5, min=1e-20))) - t6)
+    s = -0.5 * torch.sqrt(torch.clamp(t5, min=0.0)) + torch.sqrt(torch.clamp(inner, min=0.0)) / 2.0
+    cos = (1.0 + g2 - torch.pow(s, 2.0)) / (2.0 * g)
+    return [t3, t4a, t4, t4p3, t6, t5, inner, s, cos], pre
+
+
+def check_draine(torch, states):
+    """ROADMAP C #2: the bounce's Draine sampler (csrc/draine_check.cu
+    writes its intermediates) against the twin's operations step by step on
+    the bounce-DEEP_BOUNCE lanes' own Draine draws: per intermediate the
+    share of draws bit-equal; for the draw whose cos parts most, the first
+    intermediate at which they part, its inputs, the kernel's powf, PyTorch's
+    pow and the float64 cube root. Fails unless every step is bit-equal on
+    every draw and PyTorch divides by a Python scalar b as x * float32(1 /
+    b), the rounding the kernels copy. Returns the shares."""
+    from digital_earth_tpu_torch import kernels
+    from digital_earth_tpu_torch.models import volume as vol
+    from digital_earth_tpu_torch.ops import rng
+
+    c = states[DEEP_BOUNCE]
+    keys = c["st"].rng[c["idx"].long()]
+    u = rng.uniform(rng.fold(rng.fold(keys, DEEP_BOUNCE), 4), (3,))
+    u0 = u[1][u[0] < vol.CLOUD_W_DRAINE].contiguous()
+    trace, k64 = kernels.draine_check(u0)
+    twin, pre = draine_steps(torch, u0)
+    replica = torch.equal(torch.clamp(twin[-1], -1.0, 1.0),
+                          vol.sample_draine_cos(u0, vol.CLOUD_G_DRAINE, vol.CLOUD_ALPHA_DRAINE))
+    shares = [(trace[:, j] == t).float().mean().item() for j, t in enumerate(twin)]
+    print(f"Draine sampler on {u0.numel()} bounce-{DEEP_BOUNCE} Draine draws (the twin's steps "
+          f"reproduce models/volume.sample_draine_cos bit for bit: {replica}); kernel and twin "
+          "bit-equal per step: " + ", ".join(
+              f"{name} {share:.6f}" for name, share in zip(DRAINE_STEPS, shares))
+          + f"; float32(pow(float64(t4), 1/3)) == the twin's pow on "
+          f"{(k64 == twin[3]).float().mean().item():.6f}")
+    # t6 = pre / (a - a g^2): PyTorch's division of a CUDA tensor by a Python
+    # scalar b against the candidate roundings of it
+    g = vol.CLOUD_G_DRAINE
+    b = vol.CLOUD_ALPHA_DRAINE - vol.CLOUD_ALPHA_DRAINE * (g * g)
+    f32 = lambda x: torch.tensor(x, dtype=torch.float32, device=pre.device)  # noqa: E731
+    cands = {"x * float32(1 / b)": pre * f32(1.0 / b),
+             "x * (1 / float32(b))": pre * (f32(1.0) / f32(b)),
+             "x / float32(b)": pre / f32(b)}
+    print(f"t6 = x / {b!r} in PyTorch on the card equals " + ", ".join(
+        f"{k} on {(v == twin[4]).float().mean().item():.6f}" for k, v in cands.items()))
+    i = int((trace[:, -1] - twin[-1]).abs().argmax())
+    parts = [j for j in range(len(twin)) if trace[i, j] != twin[j][i]]
+    if parts:
+        j = parts[0]
+        prev = {DRAINE_STEPS[k]: (trace[i, k].item(), twin[k][i].item()) for k in range(j)}
+        print(f"Draine draw parting most (u0 {u0[i].item()!r}, cos kernel "
+              f"{trace[i, -1].item()!r} twin {twin[-1][i].item()!r}): first parting step "
+              f"{DRAINE_STEPS[j]}: kernel {trace[i, j].item()!r} twin {twin[j][i].item()!r}; "
+              f"steps before it equal {prev}; t4 {twin[2][i].item()!r}: kernel powf "
+              f"{trace[i, 3].item()!r}, torch.pow {twin[3][i].item()!r}, float64 "
+              f"{torch.pow(twin[2][i].double(), 1.0 / 3.0).item()!r}")
+    if not (replica and min(shares) == 1.0 and all(
+            bool((v == twin[4]).all()) for k, v in cands.items() if k.startswith("x * float32"))):
+        fail("the bounce's Draine sampler parts from its twin, or PyTorch no longer divides by a "
+             "Python scalar as the kernels assume")
+    return shares
 
 
 def check_density(torch, lookups):
@@ -1155,6 +1661,17 @@ class ViewerRun:
             viewer_kwargs.update(device=dev, image_res=RES, atlas=atlas, luts=luts)
         self.v = EarthViewer(renderer=renderer, config_path=config,
                              screenshot_dir=os.path.join(work, "shots"), port=0, **viewer_kwargs)
+        # every frame's source and time, as the render loop makes it: a
+        # preview frame can be replaced by a path frame within one fast spp,
+        # before a /state poll sees it
+        self.frames = []
+        snapshot = self.v._snapshot_frame
+
+        def record():
+            self.frames.append((self.v._frame_source, time.time()))
+            snapshot()
+
+        self.v._snapshot_frame = record
         self.v._running = True
         self.loop = threading.Thread(target=self.v._render_loop, daemon=True)
         self.loop.start()
@@ -1179,6 +1696,18 @@ class ViewerRun:
             time.sleep(0.01)
         fail(f"the viewer did not reach the expected state within {limit} s: {s}")
 
+    def frame_after(self, source, t0, limit):
+        """Seconds from ``t0`` to the first frame from ``source`` made after
+        it."""
+        deadline = time.time() + limit
+        while time.time() < deadline:
+            made = [t for src, t in self.frames[-1000:] if src == source and t > t0]
+            if made:
+                return made[0] - t0
+            self.wait_for(lambda s: True, 10)  # fails on a render loop error
+            time.sleep(0.01)
+        fail(f"the viewer made no {source} frame within {limit} s")
+
     def close(self):
         self.v._running = False
         self.server.shutdown()
@@ -1188,8 +1717,8 @@ class ViewerRun:
             fail("the viewer's render loop did not stop")
 
 
-VIEWER_KERNELS = ("bounce", "compact_lanes", "gen_rays", "preview", "film_postprocess",
-                  "frame_end")
+VIEWER_KERNELS = ("bounce_flight", "bounce_shade", "bounce_window", "compact_lanes", "gen_rays",
+                  "preview", "film_postprocess", "frame_end")
 
 
 def check_viewer(torch, dev, atlas, luts):
@@ -1202,18 +1731,17 @@ def check_viewer(torch, dev, atlas, luts):
     kernels.reset_launch_counts()
     vs = ViewerRun(dev, atlas, luts, "viewer")
     try:
-        s = vs.wait_for(lambda s: s["frames"] >= 1 and s["frame_source"] == "preview", 120)
-        t_first = time.time() - vs.t_start
+        vs.wait_for(lambda s: s["frames"] >= 1, 120)
+        if vs.frames[0][0] != "preview":
+            fail(f"the viewer's first frame is not a preview frame: {vs.frames[:3]}")
+        t_first = vs.frames[0][1] - vs.t_start
         s = vs.wait_for(lambda s: s["frame_source"] == "path" and s["spp"] >= 1, 120)
         t_path = time.time() - vs.t_start
         time.sleep(0.5)  # into the next spp, which runs as one chunk
-        frames = s["frames"]
         vs.v.spp_chunks = 3  # read when the spp after the input starts
         t0 = time.time()
         vs.get("/input?keys=w")
-        s = vs.wait_for(lambda s: s["frame_source"] == "preview" and s["frames"] > frames, 60)
-        latency = time.time() - t0
-        preview_s = s["frame_time"]
+        latency = vs.frame_after("preview", t0, 60)
         t0 = time.time()
         s = vs.wait_for(lambda s: s["frame_source"] == "path" and s["spp"] >= 1, 120)
         t_chunked = time.time() - t0
@@ -1224,7 +1752,7 @@ def check_viewer(torch, dev, atlas, luts):
         w, h = struct.unpack(">II", png[16:24])
         print(f"viewer {RES[0]}x{RES[1]}: first preview frame after {t_first:.2f} s, first "
               f"path spp after {t_path:.2f} s; input -> new preview frame "
-              f"{latency * 1e3:.1f} ms (preview frame_time {preview_s} s); then a 3-chunk "
+              f"{latency * 1e3:.1f} ms (to the frame's making); then a 3-chunk "
               f"path spp {t_chunked:.2f} s after the preview; "
               f"/state answered in {state_s * 1e3:.1f} ms; /frame.png {len(png)} bytes {w}x{h}")
         if not (png[:8] == b"\x89PNG\r\n\x1a\n" and png[12:16] == b"IHDR" and (w, h) == RES):
@@ -1425,11 +1953,9 @@ def check_adaptive_viewer(torch, dev, atlas, luts):
         t_frac = time.time() - vs.t_start
         mean_spp = s["spp"]
         time.sleep(0.3)  # into the next pass
-        frames = s["frames"]
         t0 = time.time()
         vs.get("/input?keys=w")
-        s = vs.wait_for(lambda s: s["frame_source"] == "preview" and s["frames"] > frames, 60)
-        latency = time.time() - t0
+        latency = vs.frame_after("preview", t0, 60)
         vs.wait_for(lambda s: s["frame_source"] == "path", 120)
     finally:
         vs.close()
@@ -1437,7 +1963,7 @@ def check_adaptive_viewer(torch, dev, atlas, luts):
     counts = kernels.launch_counts()
     print(f"adaptive viewer {RES[0]}x{RES[1]} (adaptive_frac={ADAPTIVE_FRAC}, adaptive_fps=0.25): "
           f"/state spp {mean_spp} (a mean) after {t_frac:.2f} s; input -> new preview frame "
-          f"{latency * 1e3:.1f} ms (preview frame_time {s['frame_time']} s); passes per idle "
+          f"{latency * 1e3:.1f} ms (to the frame's making); passes per idle "
           f"frame from the controller {per_frame}; launches {counts}")
     if len(per_frame) < 3 or not all(counts[k] > 0 for k in VIEWER_KERNELS + ("select_tiles",)):
         fail(f"the adaptive viewer did not run its passes and kernels: {per_frame} {counts}")
@@ -1445,8 +1971,8 @@ def check_adaptive_viewer(torch, dev, atlas, luts):
 
 
 MESH_RTOL, MESH_ATOL = 1e-5, 1e-7  # a (2, 2) step against two (4, 1) steps
-MESH_KERNELS = ("bounce", "compact_lanes", "gen_rays", "frame_end", "select_tiles_shard",
-                "film_postprocess")
+MESH_KERNELS = ("bounce_flight", "bounce_shade", "bounce_window", "compact_lanes", "gen_rays",
+                "frame_end", "select_tiles_shard", "film_postprocess")
 
 
 def _mesh(torch, devices, n_spp, atlas, luts, seed):
@@ -1673,11 +2199,9 @@ def check_mesh(torch, dev, atlas, luts):
     vs = ViewerRun(dev, atlas, luts, "viewer_multichip", renderer=vr)
     try:
         vs.wait_for(lambda s: s["frame_source"] == "path" and s["spp"] >= 1, 120)
-        frames = vs.wait_for(lambda s: True, 10)["frames"]
         t0 = time.time()
         vs.get("/input?keys=w")
-        vs.wait_for(lambda s: s["frame_source"] == "preview" and s["frames"] > frames, 60)
-        latency = time.time() - t0
+        latency = vs.frame_after("preview", t0, 60)
         s = vs.wait_for(lambda s: s["frame_source"] == "path" and s["spp"] >= 1, 120)
         png = vs.get("/frame.png")
     finally:
@@ -1720,10 +2244,13 @@ def check_main_path(torch, counts, r, img, label):
     if not all(counts[k] > 0 for k in MAIN_PATH):
         fail(f"a kernel of the {label} never launched: {counts}")
     if any(counts[k] for k in INLINED):
-        fail(f"the path tracer launched a loop kernel of its own instead of bounce: {counts}")
-    if not (counts["compact_lanes"] >= counts["bounce"] and counts["gen_rays"] == 3
-            and counts["bounce"] <= 3 * r.cfg.max_bounces):
-        fail(f"bounce and compact_lanes did not launch once per bounce: {counts}")
+        fail(f"the path tracer launched a loop kernel of its own: {counts}")
+    launches = counts["bounce_flight"] + counts["bounce_window"]
+    if not (counts["compact_lanes"] == launches and counts["gen_rays"] == 3
+            and counts["bounce_shade"] == counts["bounce_flight"]
+            and counts["bounce_window"] <= 3 and launches <= 3 * r.cfg.max_bounces):
+        fail(f"compact_lanes did not launch once per bounce launch, or the window more than "
+             f"once per spp: {counts}")
     if not (finite and mean > 0.0):
         fail(f"the accumulated buffer of the {label} is not finite with a positive mean")
     if not (bool(torch.isfinite(img).all()) and img.shape == (*RES, 3)):
@@ -1887,11 +2414,9 @@ def _input_latencies(vs, samples):
     for _ in range(samples):
         vs.wait_for(lambda s: s["frame_source"] == "path" and s["spp"] >= 1, 120)
         time.sleep(0.3)
-        frames = vs.wait_for(lambda s: True, 10)["frames"]
         t0 = time.time()
         vs.get("/input?keys=w")
-        vs.wait_for(lambda s: s["frame_source"] == "preview" and s["frames"] > frames, 60)
-        out.append(time.time() - t0)
+        out.append(vs.frame_after("preview", t0, 60))
     return out
 
 
@@ -1944,12 +2469,91 @@ def preview_bench(torch, dev):
     print(json.dumps({"preview_bench": out}))
 
 
+def path_bench(torch, dev):
+    """``--path-bench [DIR]``: the path tracer's end-to-end numbers for the
+    package imported from DIR (default this checkout), through its public
+    API, so that two versions can be alternated in one call: s/spp of Apollo
+    11, florida and sunset hurricane at 1920x1080 (1 warm-up, 3 timed spp),
+    then one profiled spp each (device kernels, device-busy share, the
+    bounce kernels' device ms); s/spp of the (4, 1) and (2, 2) meshes over
+    [cuda:0] x 4 (1 warm-up, 2 timed); the 480x270 preview frame (2 warm-up,
+    10 timed) and input to preview through EarthViewer with uniform idle
+    frames (5 samples); the ms of the package's run_bounce at each bounce
+    of one Apollo spp (one launch per bounce); and the package's
+    compact_lanes on that spp's alive vectors at bounces 0, DEEP_BOUNCE and
+    the deepest, timed both ways (``_compact_times``). Prints one JSON
+    line."""
+    import digital_earth_tpu_torch as pkg
+    from digital_earth_tpu_torch.app.config_io import load_config
+    from digital_earth_tpu_torch.app.viewer import render_offline
+    from digital_earth_tpu_torch.assets.luts import load_spectral_luts
+    from digital_earth_tpu_torch.assets.textures import procedural_texture_atlas
+    from digital_earth_tpu_torch.render.renderer import Renderer
+
+    cache = os.path.join(ROOT, "build", "chip_smoke", "texture_cache")
+    luts = load_spectral_luts(dev)
+    atlas = procedural_texture_atlas(dev, (1024, 2048), seed=7, cache_dir=cache)
+    out = dict(package=os.path.dirname(os.path.abspath(pkg.__file__)), card=nvidia_smi_line(),
+               s_per_spp={}, bounce_ms_per_spp={}, kernels_per_spp={}, busy_share={},
+               busy_ms_per_spp={}, busy_of_unprofiled_spp={}, mesh_s_per_spp={})
+    for scene in (SCENE, *(os.path.join(ROOT, "scenes", s) for s in OTHER_SCENES)):
+        name = os.path.basename(scene)[9:-4]
+        r = render_offline(load_config(scene), dev, spp=1, image_res=RES, out_path=None,
+                           atlas=atlas, luts=luts)
+        out["s_per_spp"][name] = round(_spp_seconds(torch, r, 3), 5)
+        n_k, busy, wall, by_name = profile_spp(torch, r, name)
+        out["kernels_per_spp"][name] = n_k
+        out["busy_share"][name] = round(busy / wall, 4)
+        # the profiler slows the host, not the device: the device's busy time
+        # over the unprofiled spp's wall time
+        out["busy_ms_per_spp"][name] = round(busy * 1e3, 3)
+        out["busy_of_unprofiled_spp"][name] = round(busy / out["s_per_spp"][name], 4)
+        out["bounce_ms_per_spp"][name] = round(
+            sum(us for k, us in by_name.items() if "bounce" in k) / 1e3, 3)
+        del r
+    for shape, n_spp in (("(4, 1)", 1), ("(2, 2)", 2)):
+        m = _mesh(torch, [dev] * 4, n_spp, atlas, luts, 0)
+        m.accumulate()
+        out["mesh_s_per_spp"][shape] = round(_spp_seconds(torch, m, 2), 5)
+        del m
+    r = _apollo(Renderer(dev, image_res=PREVIEW_RES, atlas=atlas, luts=luts, mode="preview"))
+    times = []
+    for i in range(12):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        r.accumulate()
+        r.fetch_image()
+        torch.cuda.synchronize()
+        if i >= 2:
+            times.append(round((time.time() - t0) * 1e3, 2))
+    out["preview_frame_ms"] = times
+    del r
+    vs = ViewerRun(dev, atlas, luts, "path_bench")
+    try:
+        out["input_to_preview_ms"] = [round(t * 1e3, 1) for t in _input_latencies(vs, 5)]
+    finally:
+        vs.close()
+    states, deepest, _ = capture_states(torch, dev, atlas, luts)
+    table = bounce_table(torch, states, states[0]["args"][3], census=False)
+    out["per_bounce_ms"] = {b: round(row["ms"], 4) for b, row in table.items()}
+    from digital_earth_tpu_torch import kernels
+
+    out["compact_lanes_ms"] = {}
+    cases = [(b, states[b]["st"].alive, states[b]["st"].work_class) for b in (0, DEEP_BOUNCE)]
+    for b, alive, wc in cases + [(deepest["bounce"], deepest["alive"], deepest["work_class"])]:
+        _, t = _compact_times(torch, kernels.compact_lanes, alive, wc)
+        out["compact_lanes_ms"][b] = {k: None if v is None else round(v, 5) for k, v in t.items()}
+    print(json.dumps({"path_bench": out}))
+
+
 def main():
     args = sys.argv[1:]
     mesh_only = args == ["--mesh-only"]
     bench = args[:1] == ["--preview-bench"] and len(args) <= 2
-    if args and not (mesh_only or bench):
-        fail(f"unknown arguments {args} (the options are --mesh-only and --preview-bench [DIR])")
+    pbench = args[:1] == ["--path-bench"] and len(args) <= 2
+    if args and not (mesh_only or bench or pbench):
+        fail(f"unknown arguments {args} (the options are --mesh-only, --preview-bench [DIR] "
+             "and --path-bench [DIR])")
     try:
         import torch
     except ImportError:
@@ -1958,10 +2562,13 @@ def main():
         fail("torch.cuda.is_available() is False: this smoke test needs a CUDA card")
     if not os.path.isdir(os.path.join(ROOT, "digital_earth_tpu_torch")):
         fail("run from a checkout: digital_earth_tpu_torch/ is missing beside chip_smoke.py")
-    sys.path.insert(0, os.path.abspath(args[1]) if bench and len(args) == 2 else ROOT)
+    sys.path.insert(0, os.path.abspath(args[1]) if (bench or pbench) and len(args) == 2 else ROOT)
     dev = torch.device("cuda:0")
     if bench:
         preview_bench(torch, dev)
+        return
+    if pbench:
+        path_bench(torch, dev)
         return
 
     from digital_earth_tpu_torch import kernels
@@ -1977,7 +2584,9 @@ def main():
     print(f"kernel build: {time.time() - t0:.1f} s (nvcc {' '.join(kernels.NVCC_FLAGS)})")
     for src in ("bounce.cu", "compact_lanes.cu", "preview.cu"):
         for line in kernels.ptxas_log.get(src, "").splitlines():
-            if "registers" in line or "spill" in line or "Compiling entry" in line:
+            # each entry's registers and spills (not those of its device calls)
+            if "registers" in line or "Compiling entry" in line or (
+                    "spill" in line and not line.strip().startswith("0 bytes stack")):
                 print(f"ptxas {src}: {line.strip()}")
 
     check_threefry(torch, dev)
@@ -2035,11 +2644,19 @@ def main():
     bad = [name for name, row in rows.items() if not row["ok"]]
     if bad:
         fail(f"kernels disagree with their plain versions: {bad}")
-    rows["bounce"] = check_bounce(torch, states)
+    rows.update(check_bounce(torch, states))
+    census = check_census(torch, states)
+    cfg = states[0]["args"][3]
+    for name, part in (("bounce_flight", "flight"), ("bounce_shade", "shade")):
+        rows[name]["ops"] = bounce_ops(torch, census[0], cfg.march_k, part)
+    table = bounce_table(torch, states, cfg)
+    rows["bounce_window"], _, schedule, _ = check_window(torch, states, table)
+    check_draine(torch, states)
     rows["compact_lanes"] = check_compact(torch, states, deepest)
     check_density(torch, lookups)
     check_texture(torch, lookups, atlas)
-    del states, deepest, lookups
+    del states, deepest, lookups, census, table
+    check_window_spp(torch, dev, atlas, luts, schedule)
 
     # --- the viewer's path -------------------------------------------------
     rows["gen_rays"] = check_gen_rays(torch, dev, atlas, luts)
@@ -2086,12 +2703,13 @@ def main():
         t0 = time.time()
         r.accumulate()
         torch.cuda.synchronize()
-        print(f"render_offline {label}, default TraceConfig: {time.time() - t0:.3f} s/spp "
+        t_spp = time.time() - t0
+        print(f"render_offline {label}, default TraceConfig: {t_spp:.3f} s/spp "
               f"(1 warm-up spp, then 1 timed)")
         n_kernels, busy, _, by_name = profile_spp(torch, r, label)
-        bounce_us = sum(us for name, us in by_name.items() if "bounce_kernel" in name)
+        bounce_us = sum(us for name, us in by_name.items() if "bounce" in name)
         print(f"profile {label}: bounce {bounce_us / 1e3:.2f} ms of {busy * 1e3:.2f} ms "
-              f"device-busy per spp")
+              f"device-busy per spp ({busy / t_spp:.3f} of the unprofiled spp's wall time)")
         if not 0 < n_kernels <= MAX_KERNELS_PER_SPP:
             fail(f"{n_kernels} device kernels per {label} spp (expected 1-{MAX_KERNELS_PER_SPP})")
         del r
@@ -2102,7 +2720,7 @@ def main():
     m.accumulate()
     print(f"{label}: {_spp_seconds(torch, m, 1):.3f} s/spp (1 warm-up spp, then 1 timed)")
     n_kernels, busy, _, by_name = profile_spp(torch, m, label)
-    bounce_us = sum(us for name, us in by_name.items() if "bounce_kernel" in name)
+    bounce_us = sum(us for name, us in by_name.items() if "bounce" in name)
     print(f"profile {label}: bounce {bounce_us / 1e3:.2f} ms of {busy * 1e3:.2f} ms "
           f"device-busy per spp")
     if not 0 < n_kernels <= 4 * MAX_KERNELS_PER_SPP:
@@ -2134,8 +2752,12 @@ def main():
                          "digital_earth_tpu/render/renderer.py:425"),
         "select_tiles_shard": ("cuda", "digital_earth_tpu_torch/csrc/select_tiles.cu",
                                "digital_earth_tpu/parallel/mesh.py:156"),
-        "bounce": ("cuda", "digital_earth_tpu_torch/csrc/bounce.cu",
-                   "digital_earth_tpu/render/pathtracer.py:1554"),
+        "bounce_flight": ("cuda", "digital_earth_tpu_torch/csrc/bounce.cu",
+                          "digital_earth_tpu/render/pathtracer.py:1554"),
+        "bounce_shade": ("cuda", "digital_earth_tpu_torch/csrc/bounce.cu",
+                         "digital_earth_tpu/render/pathtracer.py:1554"),
+        "bounce_window": ("cuda", "digital_earth_tpu_torch/csrc/bounce.cu",
+                          "digital_earth_tpu/render/pathtracer.py:1554"),
         "compact_lanes": ("cuda", "digital_earth_tpu_torch/csrc/compact_lanes.cu",
                           "digital_earth_tpu/render/renderer.py:84"),
         "upsample": ("cuda", "digital_earth_tpu_torch/csrc/upsample.cu",
@@ -2161,7 +2783,7 @@ def main():
         # jitter on two of the four planes), none the others' functions
         entries.append({"name": name, "route": route, "source": src, "replaces": rep,
                         "launches": launches[name], "max_abs_err": row["max_abs_err"],
-                        "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": bound_ms,
+                        "ms": row["ms"], "plain_ms": row.get("plain_ms"), "bound_ms": bound_ms,
                         "bound_by": bound_by, "library_ms": row.get("library_ms")})
     line = {"kernels": entries}
     print(json.dumps(line))

@@ -1,21 +1,24 @@
-// bounce: one bounce of every live lane of the wavefront, one thread per
-// lane, in place.
+// bounce_flight + bounce_shade: one bounce of every live lane of the
+// wavefront, one thread per lane, in place, split at the end of the flight;
+// bounce_window: every remaining bounce of a few live lanes in one launch.
 //
 // Replaces the body of the TPU loop digital_earth_tpu/render/pathtracer.py:
 // 1554-1924 run_bounces (as the port's plain twin render/pathtracer.
 // run_bounce_plain computes it for one bounce). Thread t takes lane idx[t] of
-// the full-size state, reads it, advances it one bounce and writes it back:
-// a lane owns its slots, so there are no atomics, and lanes not in the list
-// (the dead ones) are not touched. In order, per lane:
-//   1. per-wavelength Rayleigh / Mie / ozone extinctions (volume.cuh);
+// the full-size state, reads it, advances it and writes it back: a lane owns
+// its slots, so there are no atomics, and lanes not in the list (the dead
+// ones) are not touched. In order, per lane and bounce:
+//   1. the hero wavelength's Rayleigh / Mie / ozone extinctions (volume.cuh);
 //   2. march on demand: one nearest topography tap certifies a terrain-free
 //      ball; a lane below the cloud slab marches first (land_march.cuh);
 //   3. the flight: cloud delta tracking, then RMO delta tracking capped at
 //      the cloud event (cloud_track.cuh, rmo_track.cuh); the march after it
 //      with t_cap, demotion of an RMO event beyond the land hit and the
 //      cloud event's resurrection;
-//   4. the hero-packet MIS weight from the density-table segment integral
-//      (density_lut.cuh);
+//   -- the flight's outcome (event, interaction id, distance, land hit) --
+//   4. every wavelength's extinctions again (pure functions of the
+//      wavelength, so bit-equal), the hero-packet MIS weight from the
+//      density-table segment integral (density_lut.cuh);
 //   5. the sun-cone sample; the surface branch: normal (4 bilinear taps),
 //      material (1 bilinear tap), albedo spectrum, shadow march (any hit),
 //      both BRDF evaluations (surface.cuh);
@@ -25,20 +28,38 @@
 //   7. the phase sample, Russian roulette past rr_start, and the lane's next
 //      work class (0 cloud scatter, 1 gas scatter, 2 surface bounce).
 // Every draw follows the reference's key chain (lane key -> bounce -> site
-// -> sub-site -> loop iteration; sites pathtracer.py:62-71), so the kernel
-// draws the twin's numbers lane by lane. Built with --fmad=false; every step
+// -> sub-site -> loop iteration; sites pathtracer.py:62-71), so the kernels
+// draw the twin's numbers lane by lane. Built with --fmad=false; every step
 // rounds as the twin does on the card (volume.cuh states the rules).
 //
-// What bounds it on the H100: not bytes. A lane reads and writes about 190
-// B of state plus a few hundred bytes of texture and table taps, 0.3 ms of
-// HBM traffic for 2M lanes; the time goes to the three tracking loops,
-// whose trip counts differ lane to lane, so a warp runs at its slowest
-// lane's pace. The design keeps every intermediate in registers (one launch
-// replaces some 4,900 element-wise launches per bounce) and the three loops
-// as non-inlined calls shared by their call sites; regrouping lanes by work
-// class (compact_lanes.cu orders the list) narrows the spread within a warp.
-// Lane regrouping by physical permutation and a persistent lane queue are
-// later work.
+// Entries, all over the same device functions flight_lane (1-3) and
+// shade_lane (4-7), so every entry gives the same bits:
+//   - bounce_flight (steps 1-3, the outcome to a 16 B scratch entry per
+//     list entry) and bounce_shade (steps 4-7): one bounce of the wide
+//     wavefront. Split at the flight's end, the flight's loops run without
+//     the four-wavelength state live, at 64 registers and 32 resident warps
+//     per SM (steps 1-7 in one kernel: 120 and 16, 6.3 ms against the
+//     split's 3.1 at 1080p Apollo bounce 0, the same bits; minimum-block
+//     variants 4 and 6 of the flight measured within 4% of this one, 8;
+//     PERF.md). Their census instances also write each list entry's trip
+//     count at the six loop sites (pre-march, cloud flight, RMO flight,
+//     march after: bounce_flight; shadow march, NEE cloud ratio tracking:
+//     bounce_shade) into an (m, 6) int32 array, as the twin's masked loops
+//     count them; the timed instances have no such code;
+//   - bounce_window: each listed lane from the given bounce to max_bounces
+//     or its death, its state in registers, in blocks of 64 threads.
+// The live count comes as a device pointer: thread t returns at once when t
+// >= *n_live, so the host launches with an upper bound it already holds and
+// never waits for the count.
+//
+// What bounds it on the H100: neither bytes (a lane moves about 200 B of
+// state, 0.12 ms for 2M lanes) nor the loops' operations (counted per trip
+// in chip_smoke.py, BOUNCE_*_OPS: 0.07 ms), but their divergence: trip counts
+// differ lane to lane, so a warp runs at its slowest lane's pace, and the
+// wavefront's tail leaves most of the card idle. The design keeps every
+// intermediate in registers, lists lanes by work class (compact_lanes.cu),
+// carries the tail in one launch (bounce_window) and splits the wide
+// bounces so that the flight runs at twice the occupancy.
 #include <cstdint>
 
 #include <cuda_runtime.h>
@@ -56,6 +77,10 @@ namespace de {
 
 constexpr int BOUNCE_L = 4;  // wavelengths per hero packet
 constexpr int BOUNCE_BLOCK = 128;
+constexpr int WINDOW_BLOCK = 64;
+constexpr int FLIGHT_MIN_BLOCKS = 8;  // resident blocks of 128 per SM: 64 registers
+constexpr int BOUNCE_SITES = 6;
+enum { SITE_PRE_MARCH, SITE_CLOUD, SITE_RMO, SITE_POST_MARCH, SITE_SHADOW, SITE_NEE_CLOUD };
 
 struct BounceParams {
   float scale, step_floor, stall_thresh, o3_env_peak;
@@ -79,19 +104,42 @@ struct BounceState {
   int32_t* work_class;
   const int32_t* keys;
   const int32_t* idx;
+  const int32_t* n_live;  // the live count on the device, or null: m entries
   const uint8_t* topo;
   const uint8_t* material;
   const uint8_t* clouds;
   const float* o3;
   const float* srgb2spec;
   const float* table;
-  int m, n;  // list entries, lanes
+  int32_t* trips;  // (m, BOUNCE_SITES) trip counts, census instance only
+  int m, n;        // list entries (an upper bound of the live count), lanes
 };
 
-// The three loops as calls shared by their call sites (not inlined).
+// The list entry thread t works on, or -1.
+__device__ __forceinline__ int list_lane(const BounceState& s, int t) {
+  const int m = s.n_live ? min(*s.n_live, s.m) : s.m;
+  if (t >= m) return -1;
+  const int lane = s.idx[t];
+  return (lane < 0 || lane >= s.n) ? -1 : lane;  // an id outside the state is not a lane
+}
+
+// The loops as calls shared by their call sites (not inlined); the census
+// instance's calls also write the loop's trip count.
 __device__ __noinline__ float march_call(const uint8_t* __restrict__ topo, MarchParams p, V3 o,
                                          V3 d, float cap) {
   return land_march_lane(topo, p, o, d, true, cap);
+}
+
+__device__ __noinline__ float march_call_n(const uint8_t* __restrict__ topo, MarchParams p, V3 o,
+                                           V3 d, float cap, int* iters) {
+  return land_march_lane(topo, p, o, d, true, cap, iters);
+}
+
+template <bool COUNT>
+__device__ __forceinline__ float march(const uint8_t* __restrict__ topo, const MarchParams& p,
+                                       V3 o, V3 d, float cap, int* trips, int site) {
+  if constexpr (COUNT) return march_call_n(topo, p, o, d, cap, trips + site);
+  else return march_call(topo, p, o, d, cap);
 }
 
 struct CloudOut {
@@ -106,6 +154,28 @@ __device__ __noinline__ CloudOut cloud_call(Key key, V3 o, V3 d, float t0, float
   cloud_track_lane(key, o, d, t0, t1, ew, true, clouds, H, W, steps, k, ratio, out.event,
                    out.t, out.trans);
   return out;
+}
+
+__device__ __noinline__ CloudOut cloud_call_n(Key key, V3 o, V3 d, float t0, float t1, float ew,
+                                              const uint8_t* __restrict__ clouds, int H, int W,
+                                              int steps, int k, bool ratio, int* iters) {
+  CloudOut out;
+  cloud_track_lane(key, o, d, t0, t1, ew, true, clouds, H, W, steps, k, ratio, out.event,
+                   out.t, out.trans, iters);
+  return out;
+}
+
+template <bool COUNT>
+__device__ __forceinline__ CloudOut cloud(Key key, V3 o, V3 d, float t0, float t1, float ew,
+                                          const BounceState& s, const BounceParams& p, bool ratio,
+                                          int* trips, int site) {
+  if constexpr (COUNT) {
+    return cloud_call_n(key, o, d, t0, t1, ew, s.clouds, p.clouds_h, p.clouds_w,
+                        p.tracking_steps, p.tracking_k, ratio, trips + site);
+  } else {
+    return cloud_call(key, o, d, t0, t1, ew, s.clouds, p.clouds_h, p.clouds_w, p.tracking_steps,
+                      p.tracking_k, ratio);
+  }
 }
 
 // Parametric span of the cloud slab along the ray (intersect_cloud_limits).
@@ -141,29 +211,35 @@ __device__ __forceinline__ float clamp_min(float x, float lo) {
   return isnan(x) ? x : fmaxf(x, lo);
 }
 
-template <int L>
-__global__ void __launch_bounds__(BOUNCE_BLOCK) bounce_kernel(BounceState s, BounceParams p) {
-  const int t_id = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t_id >= s.m) return;
-  const int lane = s.idx[t_id];
-  if (lane < 0 || lane >= s.n) return;  // an id outside the state is not a lane
-  const V3 pos = load3(s.pos, lane), dir = load3(s.dir, lane);
+__device__ __forceinline__ MarchParams march_params(const BounceParams& p) {
+  return MarchParams{p.topo_h, p.topo_w, p.scale, p.step_floor, p.stall_thresh, p.march_steps,
+                     p.march_k, p.patience, 0};
+}
+
+__device__ __forceinline__ float cloud_ext_w(int bounce) {
+  return bounce > 9 ? PY(0.02) : PY(0.1);
+}
+
+// The flight's outcome: event (0 none, 1 absorb, 2 scatter), interaction
+// id before the multi-scatter relabel, event distance, land hit (-1 none).
+struct Flight {
+  int event, iid;
+  float t_int, earth;
+};
+
+// Steps 1-3 of one bounce of a lane at pos along dir with hero wavelength
+// wl0 and bounce key kb.
+template <bool COUNT>
+__device__ __forceinline__ Flight flight_lane(const BounceState& s, const BounceParams& p,
+                                              int bounce, V3 pos, V3 dir, float wl0, Key kb,
+                                              int* trips) {
   const float inf = __int_as_float(0x7f800000);
-  float wl[L], thr[L], wmis[L], ext[L][3];
-#pragma unroll
-  for (int l = 0; l < L; ++l) {
-    wl[l] = s.wavelength[lane * L + l];
-    thr[l] = s.throughput[lane * L + l];
-    wmis[l] = s.w_mis[lane * L + l];
-    ext[l][0] = spectra_extinction_rayleigh(wl[l]);
-    ext[l][1] = spectra_extinction_mie(wl[l]);
-    ext[l][2] = spectra_extinction_ozone(wl[l], s.o3);
-  }
-  const float ext_w = p.bounce > 9 ? PY(0.02) : PY(0.1);
-  const Key kb = fold(load_key(s.keys, lane), (uint32_t)p.bounce);
+  const float e0 = spectra_extinction_rayleigh(wl0);
+  const float e1 = spectra_extinction_mie(wl0);
+  const float e2 = spectra_extinction_ozone(wl0, s.o3);
+  const float ext_w = cloud_ext_w(bounce);
   const float scale = p.scale;
-  MarchParams mp{p.topo_h, p.topo_w, scale, p.step_floor, p.stall_thresh, p.march_steps,
-                 p.march_k, p.patience, 0};
+  const MarchParams mp = march_params(p);
 
   // 2. march on demand
   float tap[4];
@@ -177,7 +253,8 @@ __global__ void __launch_bounds__(BOUNCE_BLOCK) bounce_kernel(BounceState s, Bou
   rsi(pos, dir, PLANET_R_F, base_near, base_far);
   const float cap_proxy = base_near > 0.0f ? base_near : -1.0f;
   const bool below = r_len < CLOUDS_LOWER_F;
-  const float earth_pre = below ? march_call(s.topo, mp, pos, dir, inf) : -1.0f;
+  const float earth_pre = below ? march<COUNT>(s.topo, mp, pos, dir, inf, trips, SITE_PRE_MARCH)
+                                : -1.0f;
   const float land_proxy = below ? earth_pre : cap_proxy;
 
   // 3. the flight: clouds, then the gases capped at the cloud event
@@ -188,33 +265,101 @@ __global__ void __launch_bounds__(BOUNCE_BLOCK) bounce_kernel(BounceState s, Bou
   rmo_span(a_near, a_far, land_proxy, t_start, t_max);
   float c_start, c_max;
   cloud_limits(pos, dir, land_proxy, c_start, c_max);
-  const CloudOut cd = cloud_call(fold(k_flight, 2u), pos, dir, c_start, c_max, ext_w, s.clouds,
-                                 p.clouds_h, p.clouds_w, p.tracking_steps, p.tracking_k, false);
+  const CloudOut cd = cloud<COUNT>(fold(k_flight, 2u), pos, dir, c_start, c_max, ext_w, s, p,
+                                   false, trips, SITE_CLOUD);
   const float rmo_cap = cd.event > 0 ? fminf(t_max, cd.t) : t_max;
   int rmo_event, rmo_id;
   float rmo_t;
-  rmo_track_lane(fold(k_flight, 1u), pos, dir, t_start, rmo_cap, ext[0][0], ext[0][1],
-                 ext[0][2], true, p.tracking_steps, p.tracking_k, p.o3_env_peak, rmo_event,
-                 rmo_t, rmo_id);
+  rmo_track_lane(fold(k_flight, 1u), pos, dir, t_start, rmo_cap, e0, e1, e2, true,
+                 p.tracking_steps, p.tracking_k, p.o3_env_peak, rmo_event, rmo_t, rmo_id,
+                 COUNT ? trips + SITE_RMO : nullptr);
   const bool take_cloud = cd.event > 0 && rmo_event == 0;
-  int event = take_cloud ? cd.event : rmo_event;
-  float t_int = take_cloud ? cd.t : rmo_t;
-  int iid = take_cloud ? 3 : rmo_id;
+  Flight f;
+  f.event = take_cloud ? cd.event : rmo_event;
+  f.t_int = take_cloud ? cd.t : rmo_t;
+  f.iid = take_cloud ? 3 : rmo_id;
 
   const bool need_march =
-      !below && (event == 0 || (iid != 3 && t_int > fmaxf(d_free, 0.0f)));
-  float earth = earth_pre;
-  if (need_march) earth = march_call(s.topo, mp, pos, dir, event > 0 ? t_int : 1e30f);
-  // demote RMO events beyond the land hit; the cloud event takes over
-  const bool demote = event > 0 && iid != 3 && earth >= 0.0f && earth <= t_int;
-  const bool resurrect = demote && cd.event > 0;
-  if (demote) event = resurrect ? cd.event : 0;
-  if (resurrect) {
-    t_int = cd.t;
-    iid = 3;
+      !below && (f.event == 0 || (f.iid != 3 && f.t_int > fmaxf(d_free, 0.0f)));
+  f.earth = earth_pre;
+  if (need_march) {
+    f.earth = march<COUNT>(s.topo, mp, pos, dir, f.event > 0 ? f.t_int : 1e30f, trips,
+                           SITE_POST_MARCH);
   }
+  // demote RMO events beyond the land hit; the cloud event takes over
+  const bool demote = f.event > 0 && f.iid != 3 && f.earth >= 0.0f && f.earth <= f.t_int;
+  const bool resurrect = demote && cd.event > 0;
+  if (demote) f.event = resurrect ? cd.event : 0;
+  if (resurrect) {
+    f.t_int = cd.t;
+    f.iid = 3;
+  }
+  return f;
+}
+
+// A lane's per-bounce state in registers.
+template <int L>
+struct LaneRegs {
+  V3 pos, dir;
+  float wl[L], lpdf[L], thr[L], rad[L], wmis[L];
+  bool alive, miss0;  // alive after the bounce; a primary miss at bounce 0
+  int wc;             // the next work class, set when alive
+};
+
+template <int L>
+__device__ __forceinline__ void load_spectral(const BounceState& s, int lane, LaneRegs<L>& r) {
+#pragma unroll
+  for (int l = 0; l < L; ++l) {
+    r.wl[l] = s.wavelength[lane * L + l];
+    r.lpdf[l] = s.lambda_pdf[lane * L + l];
+    r.thr[l] = s.throughput[lane * L + l];
+    r.rad[l] = s.radiance[lane * L + l];
+    r.wmis[l] = s.w_mis[lane * L + l];
+  }
+}
+
+template <int L>
+__device__ __forceinline__ void store_lane(const BounceState& s, int lane, const LaneRegs<L>& r,
+                                           bool wc_set) {
+  if (wc_set) s.work_class[lane] = r.wc;
+  s.alive[lane] = r.alive;
+  if (r.miss0) s.primary_miss[lane] = true;
+  s.pos[3 * lane] = r.pos.x;
+  s.pos[3 * lane + 1] = r.pos.y;
+  s.pos[3 * lane + 2] = r.pos.z;
+  s.dir[3 * lane] = r.dir.x;
+  s.dir[3 * lane + 1] = r.dir.y;
+  s.dir[3 * lane + 2] = r.dir.z;
+#pragma unroll
+  for (int l = 0; l < L; ++l) {
+    s.throughput[lane * L + l] = r.thr[l];
+    s.radiance[lane * L + l] = r.rad[l];
+    s.w_mis[lane * L + l] = r.wmis[l];
+  }
+}
+
+// Steps 4-7 of one bounce of the lane in r, given its flight's outcome.
+template <bool COUNT, int L>
+__device__ __forceinline__ void shade_lane(const BounceState& s, const BounceParams& p,
+                                           int bounce, LaneRegs<L>& r, Key kb, Flight f,
+                                           int* trips) {
+  const V3 pos = r.pos, dir = r.dir;
+  const float inf = __int_as_float(0x7f800000);
+  const float ext_w = cloud_ext_w(bounce);
+  const float scale = p.scale;
+  float ext[L][3];
+#pragma unroll
+  for (int l = 0; l < L; ++l) {
+    ext[l][0] = spectra_extinction_rayleigh(r.wl[l]);
+    ext[l][1] = spectra_extinction_mie(r.wl[l]);
+    ext[l][2] = spectra_extinction_ozone(r.wl[l], s.o3);
+  }
+  int event = f.event, iid = f.iid;
+  const float t_int = f.t_int, earth = f.earth;
 
   // 4. hero-packet MIS weight of this bounce's flight outcome
+  float a_near, a_far;
+  rsi(pos, dir, ATMOS_UPPER_F, a_near, a_far);
   float rmo_t0, rmo_t1;
   rmo_span(a_near, a_far, earth, rmo_t0, rmo_t1);
   float t_w = event > 0 ? t_int : (earth > 0.0f ? earth : rmo_t1);
@@ -232,14 +377,14 @@ __global__ void __launch_bounds__(BOUNCE_BLOCK) bounce_kernel(BounceState s, Bou
     for (int l = 0; l < L; ++l) {
       float w = expf(-(tau[l] - tau[0]));
       if (rmo_collision) w = w * (ext[l][sp] / k0);
-      wmis[l] = wmis[l] * w;
-      thr[l] = thr[l] * w;
+      r.wmis[l] = r.wmis[l] * w;
+      r.thr[l] = r.thr[l] * w;
     }
   }
-  if (p.bounce > 9 && iid == 3) iid = 4;
-  float denom = s.lambda_pdf[lane * L] * wmis[0];
+  if (bounce > 9 && iid == 3) iid = 4;
+  float denom = r.lpdf[0] * r.wmis[0];
 #pragma unroll
-  for (int l = 1; l < L; ++l) denom = denom + s.lambda_pdf[lane * L + l] * wmis[l];
+  for (int l = 1; l < L; ++l) denom = denom + r.lpdf[l] * r.wmis[l];
   denom = clamp_min(denom, 1e-12f);
 
   // 5. sun cone; surface branch
@@ -269,9 +414,9 @@ __global__ void __launch_bounds__(BOUNCE_BLOCK) bounce_kernel(BounceState s, Bou
     const LandMaterial mat = get_land_material(material, land_pos, bil);
     offset_pos = V3{land_pos.x * p.offset_scale, land_pos.y * p.offset_scale,
                     land_pos.z * p.offset_scale};
-    MarchParams shadow = mp;
+    MarchParams shadow = march_params(p);
     shadow.any_hit = 1;
-    sur_vis = march_call(s.topo, shadow, offset_pos, light_dir, inf) < 0.0f;
+    sur_vis = march<COUNT>(s.topo, shadow, offset_pos, light_dir, inf, trips, SITE_SHADOW) < 0.0f;
     const V3 v{-dir.x, -dir.y, -dir.z};
     const BrdfParts dp = earth_brdf_parts(mat.ocean, mat.bathymetry, v, normal, light_dir);
     const Key k_hemi = fold(kb, 5u);
@@ -280,7 +425,7 @@ __global__ void __launch_bounds__(BOUNCE_BLOCK) bounce_kernel(BounceState s, Bou
     emissive = mat.emissive;
 #pragma unroll
     for (int l = 0; l < L; ++l) {
-      const float albedo = srgb_to_spectrum(s.srgb2spec, mat.albedo, wl[l]);
+      const float albedo = srgb_to_spectrum(s.srgb2spec, mat.albedo, r.wl[l]);
       d_term[l] = (albedo * dp.diffuse + dp.specular) * dp.n_dot_l;
       b_brdf[l] = albedo * bp.diffuse + bp.specular;
     }
@@ -296,93 +441,140 @@ __global__ void __launch_bounds__(BOUNCE_BLOCK) bounce_kernel(BounceState s, Bou
     rmo_transmittance_to_space<L>(s.table, ext, nee_origin, light_dir, trans);
     float n_start, n_max;
     cloud_limits(nee_origin, light_dir, -1.0f, n_start, n_max);
-    const CloudOut ct = cloud_call(fold(fold(kb, 3u), 2u), nee_origin, light_dir, n_start, n_max,
-                                   ext_w, s.clouds, p.clouds_h, p.clouds_w, p.tracking_steps,
-                                   p.tracking_k, true);
+    const CloudOut ct = cloud<COUNT>(fold(fold(kb, 3u), 2u), nee_origin, light_dir, n_start,
+                                     n_max, ext_w, s, p, true, trips, SITE_NEE_CLOUD);
 #pragma unroll
     for (int l = 0; l < L; ++l) trans[l] = trans[l] * ct.trans;
   }
-  const bool reduce_peak = p.bounce > 0;
+  const bool reduce_peak = bounce > 0;
   const float phase_d = vol_nee ? evaluate_phase(dir, light_dir, iid, reduce_peak) : 0.0f;
 #pragma unroll
   for (int l = 0; l < L; ++l) {
     const float sun_irr =
-        plancks(wl[l], PY(5778.0), p.planck_a, p.planck_b, p.planck_k) * p.solid_angle;
+        plancks(r.wl[l], PY(5778.0), p.planck_a, p.planck_b, p.planck_k) * p.solid_angle;
     // each term added as the twin adds where(mask, term, 0) to every lane
-    float rad = s.radiance[lane * L + l];
-    rad = rad + (vol_nee ? (((thr[l] * trans[l]) * sun_irr) * phase_d) / denom : 0.0f);
-    rad = rad + (surface ? ((thr[l] * emissive) *
-                            (plancks(wl[l], PY(2700.0), p.planck_a, p.planck_b, p.planck_k) *
+    float rad = r.rad[l];
+    rad = rad + (vol_nee ? (((r.thr[l] * trans[l]) * sun_irr) * phase_d) / denom : 0.0f);
+    rad = rad + (surface ? ((r.thr[l] * emissive) *
+                            (plancks(r.wl[l], PY(2700.0), p.planck_a, p.planck_b, p.planck_k) *
                              PY(1e-4))) / denom
                          : 0.0f);
-    rad = rad + (sur_nee ? (((thr[l] * trans[l]) * sun_irr) * d_term[l]) / denom : 0.0f);
-    s.radiance[lane * L + l] = rad;
+    rad = rad + (sur_nee ? (((r.thr[l] * trans[l]) * sun_irr) * d_term[l]) / denom : 0.0f);
+    r.rad[l] = rad;
   }
 
   // 7. the next direction, roulette, work class
-  V3 new_dir = dir, new_pos = pos;
   if (scatter) {
     const Key k_phase = fold(kb, 4u);
     float phase_w;
+    V3 new_dir;
     sample_phase_dir(uniform(k_phase, 0u), uniform(k_phase, 1u), uniform(k_phase, 2u), dir, iid,
                      reduce_peak, new_dir, phase_w);
-    new_pos = int_pos;
+    r.dir = new_dir;
+    r.pos = int_pos;
 #pragma unroll
-    for (int l = 0; l < L; ++l) thr[l] = thr[l] * phase_w;
+    for (int l = 0; l < L; ++l) r.thr[l] = r.thr[l] * phase_w;
   } else if (surface) {
-    new_dir = hemi_dir;
-    new_pos = offset_pos;
+    r.dir = hemi_dir;
+    r.pos = offset_pos;
 #pragma unroll
-    for (int l = 0; l < L; ++l) thr[l] = (thr[l] * b_brdf[l]) * PY(PI_D);
+    for (int l = 0; l < L; ++l) r.thr[l] = (r.thr[l] * b_brdf[l]) * PY(PI_D);
   }
   bool alive = scatter || surface;
-  if (p.bounce > p.rr_start) {
-    const float p_kill = clamp_min(1.0f - thr[0], 0.05f);
+  if (bounce > p.rr_start) {
+    const float p_kill = clamp_min(1.0f - r.thr[0], 0.05f);
     const bool killed = alive && uniform(fold(kb, 6u), 0u) < p_kill;
     if (alive && !killed) {
 #pragma unroll
-      for (int l = 0; l < L; ++l) thr[l] = thr[l] / (1.0f - p_kill);
+      for (int l = 0; l < L; ++l) r.thr[l] = r.thr[l] / (1.0f - p_kill);
     }
     alive = alive && !killed;
   }
   const bool in_cloud = iid == 3 || iid == 4;
-  if (alive) s.work_class[lane] = scatter && in_cloud ? 0 : (scatter ? 1 : 2);
-  s.alive[lane] = alive;
-  if (miss && p.bounce == 0) s.primary_miss[lane] = true;
-  s.pos[3 * lane] = new_pos.x;
-  s.pos[3 * lane + 1] = new_pos.y;
-  s.pos[3 * lane + 2] = new_pos.z;
-  s.dir[3 * lane] = new_dir.x;
-  s.dir[3 * lane + 1] = new_dir.y;
-  s.dir[3 * lane + 2] = new_dir.z;
-#pragma unroll
-  for (int l = 0; l < L; ++l) {
-    s.throughput[lane * L + l] = thr[l];
-    s.w_mis[lane * L + l] = wmis[l];
+  if (alive) r.wc = scatter && in_cloud ? 0 : (scatter ? 1 : 2);
+  r.alive = alive;
+  r.miss0 = r.miss0 || (miss && bounce == 0);
+}
+
+template <int L>
+__device__ __forceinline__ Key bounce_key(const BounceState& s, int lane, int bounce) {
+  return fold(load_key(s.keys, lane), (uint32_t)bounce);
+}
+
+// The census instance's trip counts of list entry t, sites [lo, hi) set
+// to 0; null in the timed instance.
+template <bool COUNT>
+__device__ __forceinline__ int* entry_trips(const BounceState& s, int t, int lo, int hi) {
+  if constexpr (COUNT) {
+    int* trips = s.trips + BOUNCE_SITES * t;
+    for (int j = lo; j < hi; ++j) trips[j] = 0;
+    return trips;
+  } else {
+    return nullptr;
   }
 }
 
-}  // namespace de
+// Steps 1-3 of one bounce: the outcome of list entry t into out[t]
+// (t_int, earth, event, iid as float bits); COUNT: the census instance
+// (sites 0-3).
+template <int L, bool COUNT>
+__global__ void __launch_bounds__(BOUNCE_BLOCK, FLIGHT_MIN_BLOCKS)
+    bounce_flight_kernel(BounceState s, BounceParams p, float4* __restrict__ out) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  const int lane = list_lane(s, t);
+  if (lane < 0) return;
+  int* trips = entry_trips<COUNT>(s, t, SITE_PRE_MARCH, SITE_SHADOW);
+  const Flight f = flight_lane<COUNT>(s, p, p.bounce, load3(s.pos, lane), load3(s.dir, lane),
+                                      s.wavelength[lane * L], bounce_key<L>(s, lane, p.bounce),
+                                      trips);
+  out[t] = make_float4(f.t_int, f.earth, __int_as_float(f.event), __int_as_float(f.iid));
+}
 
-// fp (13 floats): scale, step_floor, stall_thresh, o3_env_peak,
-//     light_direction[3], sun_cos_angle, solid_angle (of the sun's cone),
-//     offset_scale (1 + 1e-4 scale / 12000), planck_a, planck_b, planck_k
-// ip (15 ints): n_lambdas, bounce, rr_start, land_march_steps, march_k,
-//     march_patience, max_tracking_steps, tracking_k, bilinear_materials,
-//     topography H, W, material H, W, clouds H, W
-// State (n lanes, read and written in place at the m lanes of idx): pos,
-// dir (N, 3); wavelength, lambda_pdf, throughput, radiance, w_mis (N, L);
-// alive, primary_miss (N,) bool; work_class (N,) int32; keys (N, 2) int32.
-// Tables: topography (H, W, 4), material (H, W, 8), clouds (H, W, 4) uint8;
-// o3_crossec (441,), srgb2spec (300, 3), density table (384, 1024, 3) f32.
-extern "C" int de_bounce(const float* fp, const int* ip, float* pos, float* dir,
-                         const float* wavelength, const float* lambda_pdf, float* throughput,
-                         float* radiance, float* w_mis, bool* alive, bool* primary_miss,
-                         int32_t* work_class, const int32_t* keys, const int32_t* idx, int m,
-                         int n, const uint8_t* topo, const uint8_t* material, const uint8_t* clouds,
-                         const float* o3, const float* srgb2spec, const float* table,
-                         void* stream) {
-  de::BounceParams p;
+// Steps 4-7 of one bounce from bounce_flight's outcome; COUNT: the census
+// instance (sites 4-5).
+template <int L, bool COUNT>
+__global__ void __launch_bounds__(BOUNCE_BLOCK)
+    bounce_shade_kernel(BounceState s, BounceParams p, const float4* __restrict__ in) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  const int lane = list_lane(s, t);
+  if (lane < 0) return;
+  int* trips = entry_trips<COUNT>(s, t, SITE_SHADOW, BOUNCE_SITES);
+  const float4 o = in[t];
+  const Flight f{__float_as_int(o.z), __float_as_int(o.w), o.x, o.y};
+  LaneRegs<L> r;
+  r.pos = load3(s.pos, lane);
+  r.dir = load3(s.dir, lane);
+  r.miss0 = false;
+  load_spectral(s, lane, r);
+  shade_lane<COUNT, L>(s, p, p.bounce, r, bounce_key<L>(s, lane, p.bounce), f, trips);
+  store_lane(s, lane, r, r.alive);
+}
+
+// Bounces [p.bounce, stop) of each listed lane, until it dies.
+template <int L>
+__global__ void __launch_bounds__(WINDOW_BLOCK)
+    bounce_window_kernel(BounceState s, BounceParams p, int stop) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  const int lane = list_lane(s, t);
+  if (lane < 0) return;
+  LaneRegs<L> r;
+  r.pos = load3(s.pos, lane);
+  r.dir = load3(s.dir, lane);
+  r.miss0 = false;
+  r.alive = true;
+  load_spectral(s, lane, r);
+  const Key key = load_key(s.keys, lane);
+  bool wc_set = false;
+  for (int b = p.bounce; b < stop && r.alive; ++b) {
+    const Key kb = fold(key, (uint32_t)b);
+    const Flight f = flight_lane<false>(s, p, b, r.pos, r.dir, r.wl[0], kb, nullptr);
+    shade_lane<false, L>(s, p, b, r, kb, f, nullptr);
+    wc_set = wc_set || r.alive;
+  }
+  store_lane(s, lane, r, wc_set);
+}
+
+static int unpack_params(const float* fp, const int* ip, BounceParams& p) {
   p.scale = fp[0];
   p.step_floor = fp[1];
   p.stall_thresh = fp[2];
@@ -394,7 +586,7 @@ extern "C" int de_bounce(const float* fp, const int* ip, float* pos, float* dir,
   p.planck_a = fp[10];
   p.planck_b = fp[11];
   p.planck_k = fp[12];
-  if (ip[0] != de::BOUNCE_L) return (int)cudaErrorInvalidValue;
+  if (ip[0] != BOUNCE_L) return (int)cudaErrorInvalidValue;
   p.bounce = ip[1];
   p.rr_start = ip[2];
   p.march_steps = ip[3];
@@ -409,13 +601,115 @@ extern "C" int de_bounce(const float* fp, const int* ip, float* pos, float* dir,
   p.mat_w = ip[12];
   p.clouds_h = ip[13];
   p.clouds_w = ip[14];
-  const de::BounceState s{pos, dir, wavelength, lambda_pdf, throughput, radiance, w_mis,
-                          alive, primary_miss, work_class, keys, idx, topo, material, clouds,
-                          o3, srgb2spec, table, m, n};
+  return 0;
+}
+
+}  // namespace de
+
+// fp (13 floats): scale, step_floor, stall_thresh, o3_env_peak,
+//     light_direction[3], sun_cos_angle, solid_angle (of the sun's cone),
+//     offset_scale (1 + 1e-4 scale / 12000), planck_a, planck_b, planck_k
+// ip (15 ints): n_lambdas, bounce, rr_start, land_march_steps, march_k,
+//     march_patience, max_tracking_steps, tracking_k, bilinear_materials,
+//     topography H, W, material H, W, clouds H, W
+// State (n lanes, read and written in place at the lanes of idx): pos,
+// dir (N, 3); wavelength, lambda_pdf, throughput, radiance, w_mis (N, L);
+// alive, primary_miss (N,) bool; work_class (N,) int32; keys (N, 2) int32.
+// idx holds m entries (an upper bound of the live count); n_live, when not
+// null, is the live count on the device (entries at or past it are skipped).
+// Tables: topography (H, W, 4), material (H, W, 8), clouds (H, W, 4) uint8;
+// o3_crossec (441,), srgb2spec (300, 3), density table (384, 1024, 3) f32.
+// trips (bounce_flight, bounce_shade): null, or (m, 6) int32 trip counts
+// (the census instances).
+#define DE_BOUNCE_ARGS                                                                    \
+  const float *fp, const int *ip, float *pos, float *dir, const float *wavelength,        \
+      const float *lambda_pdf, float *throughput, float *radiance, float *w_mis,          \
+      bool *alive, bool *primary_miss, int32_t *work_class, const int32_t *keys,          \
+      const int32_t *idx, const int32_t *n_live, int m, int n, const uint8_t *topo,       \
+      const uint8_t *material, const uint8_t *clouds, const float *o3,                    \
+      const float *srgb2spec, const float *table
+#define DE_BOUNCE_STATE(trips)                                                            \
+  de::BounceState {                                                                       \
+    pos, dir, wavelength, lambda_pdf, throughput, radiance, w_mis, alive, primary_miss,   \
+        work_class, keys, idx, n_live, topo, material, clouds, o3, srgb2spec, table,      \
+        trips, m, n                                                                       \
+  }
+
+static int grid_of(int m, int block) { return (m + block - 1) / block; }
+
+// bounce_flight: the flight's outcome of each list entry into scratch (m,
+// float4); trips as DE_BOUNCE_ARGS documents (sites 0-3 written).
+extern "C" int de_bounce_flight(DE_BOUNCE_ARGS, void* scratch, int32_t* trips, void* stream) {
+  de::BounceParams p;
+  if (int rc = de::unpack_params(fp, ip, p)) return rc;
+  const de::BounceState s = DE_BOUNCE_STATE(trips);
   if (m > 0) {
-    de::bounce_kernel<de::BOUNCE_L>
-        <<<(m + de::BOUNCE_BLOCK - 1) / de::BOUNCE_BLOCK, de::BOUNCE_BLOCK, 0,
-           (cudaStream_t)stream>>>(s, p);
+    const int grid = grid_of(m, de::BOUNCE_BLOCK);
+    float4* out = static_cast<float4*>(scratch);
+    if (trips) {
+      de::bounce_flight_kernel<de::BOUNCE_L, true>
+          <<<grid, de::BOUNCE_BLOCK, 0, (cudaStream_t)stream>>>(s, p, out);
+    } else {
+      de::bounce_flight_kernel<de::BOUNCE_L, false>
+          <<<grid, de::BOUNCE_BLOCK, 0, (cudaStream_t)stream>>>(s, p, out);
+    }
   }
   return (int)cudaGetLastError();
+}
+
+// bounce_shade: steps 4-7 from bounce_flight's scratch (m, float4); trips
+// (sites 4-5 written).
+extern "C" int de_bounce_shade(DE_BOUNCE_ARGS, const void* scratch, int32_t* trips,
+                               void* stream) {
+  de::BounceParams p;
+  if (int rc = de::unpack_params(fp, ip, p)) return rc;
+  const de::BounceState s = DE_BOUNCE_STATE(trips);
+  if (m > 0) {
+    const int grid = grid_of(m, de::BOUNCE_BLOCK);
+    const float4* in = static_cast<const float4*>(scratch);
+    if (trips) {
+      de::bounce_shade_kernel<de::BOUNCE_L, true>
+          <<<grid, de::BOUNCE_BLOCK, 0, (cudaStream_t)stream>>>(s, p, in);
+    } else {
+      de::bounce_shade_kernel<de::BOUNCE_L, false>
+          <<<grid, de::BOUNCE_BLOCK, 0, (cudaStream_t)stream>>>(s, p, in);
+    }
+  }
+  return (int)cudaGetLastError();
+}
+
+// Bounces [ip[1], stop) of the listed lanes in one launch.
+extern "C" int de_bounce_window(DE_BOUNCE_ARGS, int stop, void* stream) {
+  de::BounceParams p;
+  if (int rc = de::unpack_params(fp, ip, p)) return rc;
+  const de::BounceState s = DE_BOUNCE_STATE(nullptr);
+  if (m > 0 && stop > p.bounce) {
+    de::bounce_window_kernel<de::BOUNCE_L>
+        <<<grid_of(m, de::WINDOW_BLOCK), de::WINDOW_BLOCK, 0, (cudaStream_t)stream>>>(s, p, stop);
+  }
+  return (int)cudaGetLastError();
+}
+
+// Occupancy of an entry on the current device: out = (resident blocks per
+// SM, threads per block, registers per thread, local memory bytes per
+// thread). which: 0 bounce_flight, 1 bounce_shade, 2 bounce_window.
+extern "C" int de_bounce_occupancy(int which, int* out) {
+  const void* fns[] = {
+      (const void*)de::bounce_flight_kernel<de::BOUNCE_L, false>,
+      (const void*)de::bounce_shade_kernel<de::BOUNCE_L, false>,
+      (const void*)de::bounce_window_kernel<de::BOUNCE_L>,
+  };
+  if (which < 0 || which > 2) return (int)cudaErrorInvalidValue;
+  const int block = which == 2 ? de::WINDOW_BLOCK : de::BOUNCE_BLOCK;
+  int blocks = 0;
+  cudaError_t rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fns[which], block, 0);
+  if (rc != cudaSuccess) return (int)rc;
+  cudaFuncAttributes attr;
+  rc = cudaFuncGetAttributes(&attr, fns[which]);
+  if (rc != cudaSuccess) return (int)rc;
+  out[0] = blocks;
+  out[1] = block;
+  out[2] = attr.numRegs;
+  out[3] = (int)attr.localSizeBytes;
+  return 0;
 }

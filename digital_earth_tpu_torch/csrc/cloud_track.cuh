@@ -35,13 +35,14 @@ __device__ __forceinline__ float shape_density(float tex, float r) {
 }
 
 // (event, t) in delta mode, the transmittance in ratio mode; an invalid lane
-// keeps (0, t_start, 1).
+// keeps (0, t_start, 1). With ``iters`` the loop's iterations are written
+// there.
 __device__ __forceinline__ void cloud_track_lane(Key key, V3 o, V3 d, float t_start, float tm,
                                                  float ew, bool active,
                                                  const uint8_t* __restrict__ clouds, int H,
                                                  int W, int max_steps, int k, bool ratio,
                                                  int& event_out, float& t_out,
-                                                 float& trans_out) {
+                                                 float& trans_out, int* iters = nullptr) {
   float t = t_start;
   const bool valid = active && (tm >= 0.0f) && (t < tm);
   const float tms = fmaxf(tm, 0.0f);
@@ -50,8 +51,9 @@ __device__ __forceinline__ void cloud_track_lane(Key key, V3 o, V3 d, float t_st
 
   bool done = !valid;
   float t_fetch = t, sig = 0.0f, stride = 6e3f, trans = 1.0f;
-  int event = 0;
+  int event = 0, it = 0;
   for (int i = 0; i < max_steps && !done; ++i) {
+    ++it;
     const Key ki = fold(key, (uint32_t)i);
     const bool skipping = sig <= 0.0f;
     const float budget_end = fminf(t_fetch + 8e3f, tm);
@@ -171,6 +173,7 @@ __device__ __forceinline__ void cloud_track_lane(Key key, V3 o, V3 d, float t_st
     sig = sig_new;
     stride = stride_new;
   }
+  if (iters) *iters = it;
   event_out = event;
   t_out = t;
   trans_out = trans;

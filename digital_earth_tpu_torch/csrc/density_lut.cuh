@@ -34,7 +34,9 @@ constexpr float LUT_INV_N_DEEP = 1.0f / 120.0f;
 constexpr float LUT_INV_D_MIN = 1.0f / 500.0f;
 constexpr double LUT_LOG_RATIO_D = 0x1.2e71e37ef0cc5p+3;         // log(R_LO / _D_MIN)
 constexpr float LUT_LOG_RATIO = (float)LUT_LOG_RATIO_D;
-constexpr float LUT_INV_LOG_RATIO = 1.0f / LUT_LOG_RATIO;
+// x / _LOG_RATIO with the Python float divisor is x * float32(1 / _LOG_RATIO)
+// on the card (volume.cuh states the rule); 1.0f / LUT_LOG_RATIO differs
+constexpr float LUT_INV_LOG_RATIO = (float)(1.0 / LUT_LOG_RATIO_D);
 constexpr float LUT_R_LO2 = (float)(LUT_R_LO_D * LUT_R_LO_D);
 constexpr float LUT_R_TOP2 = (float)(LUT_R_TOP_D * LUT_R_TOP_D);
 

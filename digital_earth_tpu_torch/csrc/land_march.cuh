@@ -25,10 +25,12 @@ struct MarchParams {
   int steps, k, patience, any_hit;
 };
 
-// Hit distance along o + t d, -1 on a miss; an inactive lane misses.
+// Hit distance along o + t d, -1 on a miss; an inactive lane misses. With
+// ``iters`` the march's iterations (K probes each; the phantom crawl's not
+// counted) are written there, as the plain twin's masked loop counts them.
 __device__ __forceinline__ float land_march_lane(const uint8_t* __restrict__ topo,
                                                  const MarchParams& p, V3 o, V3 d, bool act,
-                                                 float cap) {
+                                                 float cap, int* iters = nullptr) {
   const float valid3[3] = {25e3f, 115e3f, 8e3f};
 
   float bound_near, bound_far;
@@ -40,8 +42,9 @@ __device__ __forceinline__ float land_march_lane(const uint8_t* __restrict__ top
 
   float t = t0, stride = p.step_floor;
   bool done = !may_hit, missed = !may_hit;
-  int stall = 0;
+  int stall = 0, it = 0;
   for (int i = 0; i < p.steps && !done; i += p.k) {
+    ++it;
     bool any_stop = false, conv_stop = false, out_stop = false;
     float t_stop = 0.0f, step_stop = 0.0f, ts_last = 0.0f, step_last = 0.0f;
     for (int j = 0; j < p.k; ++j) {
@@ -112,6 +115,7 @@ __device__ __forceinline__ float land_march_lane(const uint8_t* __restrict__ top
     done = newly_done || stuck;
     t = t_next;
   }
+  if (iters) *iters = it;
   float result = (!missed && t < MAX_RAY_DIST_F) ? t : -1.0f;
 
   {  // phantom crawl

@@ -20,11 +20,13 @@
 namespace de {
 
 // (event, t, iid) of the flight from t_start toward t_max with the hero
-// extinction (e0, e1, e2); an invalid lane keeps (0, t_start, 0).
+// extinction (e0, e1, e2); an invalid lane keeps (0, t_start, 0). With
+// ``iters`` the loop's iterations are written there.
 __device__ __forceinline__ void rmo_track_lane(Key key, V3 o, V3 d, float t_start, float tm,
                                                float e0, float e1, float e2, bool active,
                                                int max_steps, int k, float o3_env_peak,
-                                               int& event_out, float& t_out, int& iid_out) {
+                                               int& event_out, float& t_out, int& iid_out,
+                                               int* iters = nullptr) {
   const float albedo[3] = {1.0f, 0.95f, 0.0f};
   float t = t_start;
   const bool valid = active && (tm >= 0.0f) && (t < tm);
@@ -35,7 +37,9 @@ __device__ __forceinline__ void rmo_track_lane(Key key, V3 o, V3 d, float t_star
 
   int event = 0, iid = 0;
   bool done = !valid;
+  int it = 0;
   for (int i = 0; i < max_steps && !done; ++i) {
+    ++it;
     const Key ki = fold(key, (uint32_t)i);
     const float r_min = segment_min_radius(rp, t + xp, x_end);
     float env[3];
@@ -69,6 +73,7 @@ __device__ __forceinline__ void rmo_track_lane(Key key, V3 o, V3 d, float t_star
     }
     t = ts;
   }
+  if (iters) *iters = it;
   event_out = event;
   t_out = t;
   iid_out = iid;

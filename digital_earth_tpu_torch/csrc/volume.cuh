@@ -7,9 +7,11 @@
 // Python constants enter as the float32 of the double the twin computes
 // (PY(x) below, the double arithmetic done at compile time in the twin's
 // order; values that need exp or pow are given as exact hex doubles). A
-// division by a Python constant is a multiply by its float32 reciprocal, as
-// PyTorch's CUDA ops apply a CPU scalar divisor; a division by a tensor, or
-// rdiv(a, x), is a true division. torch.pow(x, 2.0) is x * x on the card;
+// division by a Python constant b is a multiply by float32(1 / b), the
+// reciprocal taken in double and then rounded, as PyTorch's CUDA ops apply a
+// CPU scalar divisor (chip_smoke.py measures it; 1.0f / float32(b) differs
+// for some b, a - a g^2 of the Draine lobe among them); a division by a
+// tensor, or rdiv(a, x), is a true division. torch.pow(x, 2.0) is x * x on the card;
 // any other constant exponent is powf (PyTorch's pow kernel).
 #pragma once
 
@@ -60,7 +62,7 @@ __device__ __forceinline__ float spectra_extinction_rayleigh(float wl) {
   const float f_n2 = PY(1.034) + PY(3.17e-4) / wl2;
   const float f_o2 = (PY(1.096) + PY(1.385e-3) / wl2) + PY(1.448e-4) / (wl2 * wl2);
   const float king = (((PY(78.084) * f_n2 + PY(20.946) * f_o2) + PY(0.934)) + PY(0.0421 * 1.15)) *
-                     (1.0f / PY(78.084 + 20.946 + 0.934 + 0.0421));
+                     PY(1.0 / (78.084 + 20.946 + 0.934 + 0.0421));
   // air_ior(wavelength_um)
   const float wum = wl * PY(1e-3);
   const float rcp = 1.0f / (wum * wum);
@@ -139,13 +141,14 @@ __device__ __forceinline__ float sample_hg_cos(float u, float g) {
 
 __device__ __forceinline__ float sample_klein_nishina_cos(float u) {
   return ((-powf(PY(2.0 * MIE_ASYMMETRY_D + 1.0), 1.0f - u) + PY(MIE_ASYMMETRY_D)) + 1.0f) *
-         (1.0f / PY(MIE_ASYMMETRY_D));
+         PY(1.0 / MIE_ASYMMETRY_D);
 }
 
 // Exact Draine inverse-CDF cos(theta) (Jendersie & d'Eon 2023) for the cloud
 // droplet's (g, alpha); the g- and alpha-only terms are the twin's Python
-// doubles.
-__device__ __forceinline__ float sample_draine_cos(float u) {
+// doubles. With ``trace`` the intermediates t3, t4a, t4, t4p3, t6, t5, inner,
+// s and the unclamped cos are written there (draine_check.cu).
+__device__ __forceinline__ float sample_draine_cos(float u, float* trace = nullptr) {
   constexpr double g = CLOUD_G_DRAINE_D, a = CLOUD_ALPHA_DRAINE_D;
   constexpr double g2 = g * g, g3 = g * g2, g4 = g2 * g2, g6 = g2 * g4;
   constexpr double pgp1_2 = (1.0 + g2) * (1.0 + g2);
@@ -161,13 +164,17 @@ __device__ __forceinline__ float sample_draine_cos(float u) {
   const float t4 = t4a + sqrtf(fmaxf(PY(-4.0 * t4b3) + t4a * t4a, 0.0f));
   const float t4p3 = powf(t4, PY(1.0 / 3.0));
   const float t6 = ((PY(2.0 * t1a) + PY(48.0 * CBRT2_D * (-(a * g2) + 2.0 * a * g4 - a * g6)) / t4p3) +
-                    t4p3 * (1.0f / PY(3.0 * CBRT2_D))) *
-                   (1.0f / PY(a - a * g2));
+                    t4p3 * PY(1.0 / (3.0 * CBRT2_D))) *
+                   PY(1.0 / (a - a * g2));
   const float t5 = PY(6.0 * (1.0 + g2)) + t6;
   const float inner =
       (PY(6.0 * (1.0 + g2)) - (8.0f * t3) / (PY(a * (-1.0 + g2)) * sqrtf(fmaxf(t5, 1e-20f)))) - t6;
   const float s = -0.5f * sqrtf(fmaxf(t5, 0.0f)) + sqrtf(fmaxf(inner, 0.0f)) * 0.5f;
-  const float cos_t = (PY(1.0 + g2) - s * s) * (1.0f / PY(2.0 * g));
+  const float cos_t = (PY(1.0 + g2) - s * s) * PY(1.0 / (2.0 * g));
+  if (trace) {
+    const float t[9] = {t3, t4a, t4, t4p3, t6, t5, inner, s, cos_t};
+    for (int j = 0; j < 9; ++j) trace[j] = t[j];
+  }
   return fminf(fmaxf(cos_t, -1.0f), 1.0f);
 }
 

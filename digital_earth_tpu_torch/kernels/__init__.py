@@ -54,6 +54,7 @@ build_seconds = None
 ptxas_log = {}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_BOUNCE_ARGS = [_P] * 15 + [_I, _I] + [_P] * 6
 _SIGNATURES = {
     # topo, H, W, pos, dir, active, t_cap, out, n, scale, step_floor,
     # stall_thresh, steps, k, patience, any_hit, stream
@@ -87,11 +88,21 @@ _SIGNATURES = {
     # stream
     "de_select_tiles_shard": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
     # float params, int params, pos, dir, wavelength, lambda_pdf, throughput,
-    # radiance, w_mis, alive, primary_miss, work_class, keys, idx, m, n,
-    # topo, material, clouds, o3_crossec, srgb2spec, table, stream
-    "de_bounce": [_P] * 14 + [_I, _I] + [_P] * 7,
+    # radiance, w_mis, alive, primary_miss, work_class, keys, idx, n_live, m,
+    # n, topo, material, clouds, o3_crossec, srgb2spec, table; then scratch
+    # and trips (de_bounce_flight, de_bounce_shade) or the stop bounce
+    # (de_bounce_window); stream
+    "de_bounce_flight": _BOUNCE_ARGS + [_P, _P, _P],
+    "de_bounce_shade": _BOUNCE_ARGS + [_P, _P, _P],
+    "de_bounce_window": _BOUNCE_ARGS + [_I, _P],
+    # which, out (4 ints)
+    "de_bounce_occupancy": [_I, _P],
     # alive, work_class, n, out, n_live, scratch, stream
     "de_compact_lanes": [_P, _P, _I, _P, _P, _P, _P],
+    # n
+    "de_compact_scratch_words": [_I],
+    # u, trace, cbrt_f64, n, stream
+    "de_draine_check": [_P, _P, _P, _I, _P],
     # pos, dir, t0, t1, ext_rmo, table, seg, trans, n, n_lambdas, stream
     "de_density_check": [_P] * 8 + [_I, _I, _P],
     # tex, H, W, C, pos, n, bilinear, out, stream
@@ -542,17 +553,15 @@ def film_postprocess(color_buffer, count, spp: float, exposure_scale: float,
 
 
 BOUNCE_LAMBDAS = 4  # the bounce kernel's hero packet (csrc/bounce.cu BOUNCE_L)
+BOUNCE_SITES = 6  # the census's loop sites (csrc/bounce.cu SITE_*)
+# de_bounce_occupancy's entries
+OCCUPANCY_ENTRIES = ("bounce_flight", "bounce_shade", "bounce_window")
 
 
-def bounce(fparams, iparams, pos, direction, wavelength, lambda_pdf, throughput, radiance,
-           w_mis, alive, primary_miss, work_class, keys, idx, topo, material, clouds,
-           o3_crossec, srgb2spec, table):
-    """Launch ``bounce`` (csrc/bounce.cu): one bounce of the lanes ``idx``
-    (m,) int32 of the (N, ...) state, which it reads and writes in place
-    (an id outside [0, N) is skipped).
-    ``keys`` are the (N, 2) lane keys as int32 (``keys_i32``); ``fparams``
-    (13 floats) and ``iparams`` (15 ints) are laid out as de_bounce documents
-    (render/pathtracer.py builds them)."""
+def _bounce_args(fparams, iparams, pos, direction, wavelength, lambda_pdf, throughput, radiance,
+                 w_mis, alive, primary_miss, work_class, keys, idx, topo, material, clouds,
+                 o3_crossec, srgb2spec, table, n_live):
+    """Check a bounce launch's arguments: the C arguments up to the tables."""
     dev = pos.device
     n = pos.shape[0]
     m = idx.shape[0]
@@ -571,6 +580,8 @@ def bounce(fparams, iparams, pos, direction, wavelength, lambda_pdf, throughput,
     _check("work_class", work_class, torch.int32, (n,), dev)
     _check("keys", keys, torch.int32, (n, 2), dev)
     _check("idx", idx, torch.int32, (m,), dev)
+    if n_live is not None:
+        _check("n_live", n_live, torch.int32, (1,), dev)
     if m > n:
         raise ValueError(f"bounce: {m} lane ids for {n} lanes")
     _check("topo", topo, torch.uint8, (*topo.shape[:2], 4), dev)
@@ -581,20 +592,113 @@ def bounce(fparams, iparams, pos, direction, wavelength, lambda_pdf, throughput,
     _check("o3_crossec", o3_crossec, torch.float32, (441,), dev)
     _check("srgb2spec", srgb2spec, torch.float32, (300, 3), dev)
     _check("table", table, torch.float32, (384, 1024, 3), dev)
+    fp = (ctypes.c_float * 13)(*fparams)
+    ip = (ctypes.c_int * 15)(*iparams)
+    return [
+        ctypes.cast(fp, ctypes.c_void_p), ctypes.cast(ip, ctypes.c_void_p),
+        _ptr(pos), _ptr(direction), _ptr(wavelength), _ptr(lambda_pdf), _ptr(throughput),
+        _ptr(radiance), _ptr(w_mis), _ptr(alive), _ptr(primary_miss), _ptr(work_class),
+        _ptr(keys), _ptr(idx), _ptr_or_null(n_live), m, n, _ptr(topo), _ptr(material),
+        _ptr(clouds), _ptr(o3_crossec), _ptr(srgb2spec), _ptr(table),
+    ], (fp, ip)
+
+
+def _trips_arg(trips, m, dev):
+    if trips is not None:
+        _check("trips", trips, torch.int32, (m, BOUNCE_SITES), dev)
+    return _ptr_or_null(trips)
+
+
+def bounce_flight(*args, n_live=None, trips=None):
+    """Launch ``bounce_flight`` (csrc/bounce.cu), steps 1-3 of one bounce of
+    the lanes ``idx`` (m,) int32 of the (N, ...) state (an id outside [0, N)
+    is skipped): the (m, 4) float32 flight outcome of each list entry (t_int,
+    earth, event and iid as int32 bits), for ``bounce_shade``. Arguments:
+    fparams, iparams, pos, direction, wavelength, lambda_pdf, throughput,
+    radiance, w_mis, alive, primary_miss, work_class, keys, idx, topo,
+    material, clouds, o3_crossec, srgb2spec, table. ``keys`` are the (N, 2)
+    lane keys as int32 (``keys_i32``); ``fparams`` (13 floats) and
+    ``iparams`` (15 ints) are laid out as csrc/bounce.cu documents
+    (render/pathtracer.py builds them). With ``n_live``, the (1,) int32 live
+    count on the device, entries of ``idx`` at or past it are skipped
+    (``idx`` is then an upper bound's worth). With ``trips``, an (m, 6)
+    int32 tensor, the census instance also writes each entry's trip count
+    at the flight's four loop sites (columns 0-3)."""
+    c_args, _refs = _bounce_args(*args, n_live)
+    m = args[13].shape[0]
+    dev = args[2].device
+    trips_p = _trips_arg(trips, m, dev)
+    out = torch.empty((m, 4), dtype=torch.float32, device=dev)
     if m:
-        fp = (ctypes.c_float * 13)(*fparams)
-        ip = (ctypes.c_int * 15)(*iparams)
-        _launch(
-            "de_bounce", ctypes.cast(fp, ctypes.c_void_p), ctypes.cast(ip, ctypes.c_void_p),
-            _ptr(pos), _ptr(direction), _ptr(wavelength), _ptr(lambda_pdf), _ptr(throughput),
-            _ptr(radiance), _ptr(w_mis), _ptr(alive), _ptr(primary_miss), _ptr(work_class),
-            _ptr(keys), _ptr(idx), m, n, _ptr(topo), _ptr(material), _ptr(clouds),
-            _ptr(o3_crossec), _ptr(srgb2spec), _ptr(table),
-        )
-        _count(bounce, 1)
+        _launch("de_bounce_flight", *c_args, _ptr(out), trips_p)
+        _count(bounce_flight, 1)
+    return out
 
 
-COMPACT_STAGES = 3  # kernel launches per compact_lanes call (csrc/compact_lanes.cu)
+def bounce_shade(*args, flight, n_live=None, trips=None):
+    """Launch ``bounce_shade`` (csrc/bounce.cu), steps 4-7 of the bounce
+    (arguments as ``bounce_flight`` takes them; the state is read and written
+    in place), from ``bounce_flight``'s (m, 4) outcome ``flight`` of the same
+    list. With ``trips``, the census instance writes the trip counts of the
+    shadow march and NEE cloud tracking (columns 4-5)."""
+    c_args, _refs = _bounce_args(*args, n_live)
+    m = args[13].shape[0]
+    dev = args[2].device
+    _check("flight", flight, torch.float32, (m, 4), dev)
+    trips_p = _trips_arg(trips, m, dev)
+    if m:
+        _launch("de_bounce_shade", *c_args, _ptr(flight), trips_p)
+        _count(bounce_shade, 1)
+
+
+def bounce_window(*args, stop: int, n_live=None):
+    """Launch ``bounce_window`` (csrc/bounce.cu): bounces iparams[1] .. stop
+    - 1 of each listed lane (arguments as ``bounce_flight`` takes them) in one
+    launch, each lane until it dies, its state kept in registers."""
+    c_args, _refs = _bounce_args(*args, n_live)
+    m = args[13].shape[0]
+    if m and stop > args[1][1]:
+        _launch("de_bounce_window", *c_args, int(stop))
+        _count(bounce_window, 1)
+
+
+def bounce_occupancy(which: str) -> dict:
+    """ptxas's and the occupancy calculator's view of a bounce entry
+    (``OCCUPANCY_ENTRIES``) on the current device: resident blocks and warps
+    per SM, threads per block, registers and local bytes per thread."""
+    out = (ctypes.c_int * 4)()
+    rc = library().de_bounce_occupancy(OCCUPANCY_ENTRIES.index(which),
+                                       ctypes.cast(out, ctypes.c_void_p))
+    if rc != 0:
+        raise RuntimeError(f"de_bounce_occupancy: CUDA error {rc}")
+    blocks, block, regs, local = list(out)
+    return dict(blocks_per_sm=blocks, warps_per_sm=blocks * block // 32, block=block,
+                registers=regs, local_bytes=local)
+
+
+_window_lanes = {}
+
+
+def window_threshold(device) -> int:
+    """The lanes that fill the card with ``bounce_window``: SMs x its
+    resident threads per SM. Below it the path tracer runs the wavefront's
+    remaining bounces in one window launch (on an H100, 50,688 lanes:
+    bounce 12 of a 1080p Apollo spp, within 2% of the least kernel time
+    among window starts 9-14, PERF.md)."""
+    device = torch.device(device)
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    if index not in _window_lanes:
+        with torch.cuda.device(index):
+            occ = bounce_occupancy("bounce_window")
+        sms = torch.cuda.get_device_properties(index).multi_processor_count
+        _window_lanes[index] = sms * occ["blocks_per_sm"] * occ["block"]
+    return _window_lanes[index]
+
+
+# kernel launches per compact_lanes call (csrc/compact_lanes.cu): the scratch
+# reset (cudaMemsetAsync) and the one-pass kernel
+COMPACT_STAGES = 2
+_compact_words = {}  # scratch int32 words by lane count
 
 
 def compact_lanes(alive, work_class):
@@ -605,14 +709,31 @@ def compact_lanes(alive, work_class):
     n = alive.shape[0]
     _check("alive", alive, torch.bool, (n,), dev)
     _check("work_class", work_class, torch.int32, (n,), dev)
-    nb = -(-n // 1024)
-    idx = torch.empty((n,), dtype=torch.int32, device=dev)
-    n_live = torch.empty((1,), dtype=torch.int32, device=dev)
-    scratch = torch.empty((3 * nb + 4,), dtype=torch.int32, device=dev)
+    if n not in _compact_words:
+        _compact_words[n] = library().de_compact_scratch_words(n)
+    words = _compact_words[n]
+    # one allocation for the scratch (first: its 64-bit status words stay
+    # aligned), the count and the list, a call's host time being most of it
+    buf = torch.empty((words + 1 + n,), dtype=torch.int32, device=dev)
+    scratch, n_live, idx = buf[:words], buf[words:words + 1], buf[words + 1:]
     _launch("de_compact_lanes", _ptr(alive), _ptr(work_class), n, _ptr(idx), _ptr(n_live),
             _ptr(scratch))
     _count(compact_lanes, 1)
     return idx, n_live
+
+
+def draine_check(u):
+    """Test launcher of the bounce's Draine sampler (not a path kernel): for
+    each float32 draw ``u`` (n,), the (n, 9) intermediates of
+    csrc/volume.cuh sample_draine_cos (t3, t4a, t4, t4p3, t6, t5, inner, s,
+    the unclamped cos) and (n,) float32(pow(float64(t4), 1/3)), computed on
+    the card by csrc/draine_check.cu."""
+    n = u.shape[0]
+    _check("u", u, torch.float32, (n,), u.device)
+    trace = torch.empty((n, 9), dtype=torch.float32, device=u.device)
+    cbrt_f64 = torch.empty_like(u)
+    _launch("de_draine_check", _ptr(u), _ptr(trace), _ptr(cbrt_f64), n)
+    return trace, cbrt_f64
 
 
 def density_check(pos, direction, t0, t1, ext_rmo, table):
@@ -735,8 +856,8 @@ def preview(fparams, iparams, key, pos, direction, wavelength, tile_index, lane_
 
 
 PATH_KERNELS = (land_march, rmo_delta_track, cloud_track, gen_rays, atmos_march,
-                film_postprocess, frame_end, select_tiles, select_tiles_shard, bounce,
-                compact_lanes, upsample, preview)
+                film_postprocess, frame_end, select_tiles, select_tiles_shard, bounce_flight,
+                bounce_shade, bounce_window, compact_lanes, upsample, preview)
 for _k in PATH_KERNELS:
     _k.launches = 0
 

@@ -7,7 +7,7 @@ single-controller ``shard_map`` over its ("px", "spp") mesh does:
   n_px contiguous ranges of ``tiles_per_dev`` tiles of the global tile-major
   order; device (px, s) traces range px at round ``spp0 + s`` with the
   single-device pipeline (``render/renderer.trace_lanes``: the kernels
-  ``gen_rays``, ``bounce``, ``compact_lanes`` and ``frame_end``) and deposits
+  ``gen_rays``, the bounce entries, ``compact_lanes`` and ``frame_end``) and deposits
   each lane at its own row of row px's flat shard (tiles_per_dev * tile, 3),
   the reference's buffer layout (mesh.py:245-247);
 - the "spp" partials are summed onto device (px, 0) in spp order and added

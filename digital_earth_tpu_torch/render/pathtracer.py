@@ -2,14 +2,19 @@
 digital_earth_tpu/render/pathtracer.py).
 
 One bounce of the reference's ``run_bounces`` body (pathtracer.py:1554-1924)
-is ``run_bounce``: for CUDA tensors one launch of the kernel ``bounce``
-(csrc/bounce.cu), for CPU tensors its plain twin ``run_bounce_plain`` (the
-eager body, with the three per-lane loops of ``tracers.py``). ``run_bounces``
+is ``run_bounce``: for CUDA tensors the kernels ``bounce_flight`` and
+``bounce_shade`` (csrc/bounce.cu; their census instances count the loops'
+trips), for CPU tensors its plain
+twin ``run_bounce_plain`` (the eager body, with the three per-lane loops of
+``tracers.py``). ``run_bounces``
 applies it one bounce at a time to the lanes that are still alive, listed by
 ``compact.compact_by_alive`` (binned by work class, stable; the kernel
-``compact_lanes`` on the card). A dead lane is a no-op in the reference's
-body, and every random draw is keyed per lane, so the image does not depend
-on this schedule.
+``compact_lanes`` on the card). On the card, once the live count falls
+below the lanes that fill the card, one launch of ``bounce_window`` carries
+the remaining lanes through every remaining bounce (twin:
+``run_window_plain``; the schedule: ``bounce_schedule``). A dead lane is a
+no-op in the reference's body, and every random draw is keyed per lane, so
+the image does not depend on this schedule.
 """
 
 from __future__ import annotations
@@ -34,8 +39,8 @@ from . import compact
 from .params import SceneParams, TraceConfig
 from .tracers import (  # noqa: F401  (re-exported loop entry points)
     ABSORB_EVENT, NULL_EVENT, SCATTER_EVENT, _CLOUD_VALID, _MARCH_STALL_PATIENCE,
-    _MIP_VALID_COARSE, _MIP_VALID_FINE, _march_floor, delta_track_rmo, intersect_land,
-    track_cloud,
+    _MIP_VALID_COARSE, _MIP_VALID_FINE, _march_floor, delta_track_rmo, delta_track_rmo_plain,
+    intersect_land, intersect_land_plain, track_cloud, track_cloud_plain,
 )
 
 # RNG site ids (pathtracer.py:62-71): lane key -> bounce -> site -> loop.
@@ -47,6 +52,12 @@ _SITE_HEMI = 5
 _SITE_RR = 6
 _SUB_RMO = 1
 _SUB_CLOUD = 2
+
+# The bounce's loop sites, the columns of a trip-count census (csrc/bounce.cu
+# SITE_*): the march before the flight (lanes below the cloud slab), cloud
+# delta tracking, RMO delta tracking, the march after the flight, the
+# surface's shadow march, the sun's cloud ratio tracking.
+CENSUS_SITES = ("pre_march", "cloud", "rmo", "post_march", "shadow", "nee_cloud")
 
 
 def land_sdf(topo, pos, scale, bilinear=True):
@@ -123,23 +134,28 @@ def _rmo_span(ray_pos, ray_dir, land_isection):
 
 
 def sample_interaction(keys, ray_pos, ray_dir, land_isection, ext_rmo, ext_w,
-                       atlas, active, cfg: TraceConfig):
+                       atlas, active, cfg: TraceConfig, trips=None):
     """Cloud pass, then the RMO pass capped at the cloud event; the nearer
-    event wins (pathtracer.py:1236). Returns (event, t, iid, c_event, c_t)."""
+    event wins (pathtracer.py:1236). Returns (event, t, iid, c_event, c_t).
+    With ``trips`` (n, 6) int32 the plain loops run and add their iterations
+    to the census columns of the two passes."""
     k_rmo = rng.fold(keys, _SUB_RMO)
     k_cloud = rng.fold(keys, _SUB_CLOUD)
     t_start, t_max = _rmo_span(ray_pos, ray_dir, land_isection)
     c_start, c_max = intersect_cloud_limits(ray_pos, ray_dir, land_isection)
-    c_event, c_t = track_cloud(
-        k_cloud, ray_pos, ray_dir, c_start, c_max, ext_w, atlas.clouds,
-        active, cfg, mode="delta",
-    )
+    cloud_args = (k_cloud, ray_pos, ray_dir, c_start, c_max, ext_w, atlas.clouds, active, cfg)
+    if trips is None:
+        c_event, c_t = track_cloud(*cloud_args, mode="delta")
+    else:
+        c_event, c_t = track_cloud_plain(*cloud_args, mode="delta", trips=trips[:, 1])
     # the RMO pass only needs to reach the cloud event
     rmo_cap = torch.where(c_event > NULL_EVENT, torch.minimum(t_max, c_t), t_max)
-    rmo_event, rmo_t, rmo_id = delta_track_rmo(
-        k_rmo, ray_pos, ray_dir, t_start, rmo_cap,
-        ext_rmo[:, 0, :].contiguous(), active, cfg,
-    )
+    rmo_args = (k_rmo, ray_pos, ray_dir, t_start, rmo_cap, ext_rmo[:, 0, :].contiguous(),
+                active, cfg)
+    if trips is None:
+        rmo_event, rmo_t, rmo_id = delta_track_rmo(*rmo_args)
+    else:
+        rmo_event, rmo_t, rmo_id = delta_track_rmo_plain(*rmo_args, trips=trips[:, 2])
     take_cloud = (c_event > NULL_EVENT) & (rmo_event == NULL_EVENT)
     event = torch.where(take_cloud, c_event, rmo_event)
     t = torch.where(take_cloud, c_t, rmo_t)
@@ -148,17 +164,20 @@ def sample_interaction(keys, ray_pos, ray_dir, land_isection, ext_rmo, ext_w,
 
 
 def sample_transmittance(keys, ray_pos, ray_dir, ext_rmo, ext_w, atlas,
-                         active, cfg: TraceConfig):
+                         active, cfg: TraceConfig, trips=None):
     """Sun transmittance (n, L): the exact RMO closed form from the density
-    table times cloud ratio tracking (pathtracer.py:1326)."""
+    table times cloud ratio tracking (pathtracer.py:1326). With ``trips``
+    (n, 6) int32 the plain loop runs and adds its iterations to the census
+    column of the NEE cloud pass."""
     k_cloud = rng.fold(keys, _SUB_CLOUD)
     trans = atm.rmo_transmittance_to_space(ext_rmo, ray_pos, ray_dir)
     no_land = torch.full_like(ext_w, -1.0)
     c_start, c_max = intersect_cloud_limits(ray_pos, ray_dir, no_land)
-    cloud_trans = track_cloud(
-        k_cloud, ray_pos, ray_dir, c_start, c_max, ext_w, atlas.clouds,
-        active, cfg, mode="ratio",
-    )
+    cloud_args = (k_cloud, ray_pos, ray_dir, c_start, c_max, ext_w, atlas.clouds, active, cfg)
+    if trips is None:
+        cloud_trans = track_cloud(*cloud_args, mode="ratio")
+    else:
+        cloud_trans = track_cloud_plain(*cloud_args, mode="ratio", trips=trips[:, 5])
     return trans * cloud_trans[:, None]
 
 
@@ -224,10 +243,20 @@ def init_state(ray_pos, ray_dir, wavelength, lambda_pdf, rng_keys) -> TraceState
 
 
 def run_bounce_plain(st: TraceState, bounce: int, scene: SceneParams, atlas, luts,
-                     cfg: TraceConfig) -> TraceState:
-    """Plain PyTorch twin of the ``bounce`` kernel: one bounce of every lane
-    in ``st`` (all alive), the reference's ``run_bounces`` body at
-    ``bounce`` (pathtracer.py:1554-1924), in a new state."""
+                     cfg: TraceConfig, trips=None) -> TraceState:
+    """Plain PyTorch twin of one bounce (the kernels ``bounce_flight`` +
+    ``bounce_shade``, and each bounce of ``bounce_window``): one bounce of
+    every lane in ``st`` (all alive), the reference's ``run_bounces`` body
+    at ``bounce`` (pathtracer.py:1554-1924), in a new state. With ``trips``, an
+    (n, 6) int32 tensor, the loops run as their plain versions (on any
+    device) and add each lane's iterations at the six loop sites
+    (``CENSUS_SITES``), as the kernels' census instances count them."""
+
+    def land(*args, site, **kwargs):
+        if trips is None:
+            return intersect_land(*args, **kwargs)
+        return intersect_land_plain(*args, **kwargs, trips=trips[:, site])
+
     pos, direction = st.pos, st.direction
     wavelength, lambda_pdf = st.wavelength, st.lambda_pdf
     throughput, radiance, w_mis = st.throughput, st.radiance, st.w_mis
@@ -272,20 +301,18 @@ def run_bounce_plain(st: TraceState, bounce: int, scene: SceneParams, atlas, lut
     cap_proxy = torch.where(base_near > 0.0, base_near, -1.0)
     below = r_len < C.CLOUDS_LOWER_LIMIT
     pre = alive & below
-    earth_pre = intersect_land(topo, pos, direction, scale, pre, cfg)
+    earth_pre = land(topo, pos, direction, scale, pre, cfg, site=0)
     land_proxy = torch.where(below, earth_pre, cap_proxy)
     event, t_int, iid, c_event, c_t = sample_interaction(
         rng.fold(kb, _SITE_FLIGHT), pos, direction, land_proxy, ext_rmo,
-        ext_w, atlas, alive, cfg,
+        ext_w, atlas, alive, cfg, trips=trips,
     )
     need_march = alive & ~below & (
         (event == NULL_EVENT)
         | ((iid != C.CLOUD_ID) & (t_int > torch.clamp(d_free, min=0.0)))
     )
     t_cap = torch.where(event > NULL_EVENT, t_int, 1e30)
-    earth_post = intersect_land(
-        topo, pos, direction, scale, need_march, cfg, t_cap=t_cap
-    )
+    earth_post = land(topo, pos, direction, scale, need_march, cfg, t_cap=t_cap, site=3)
     earth = torch.where(below, earth_pre, earth_post)
     # demote RMO events beyond the land hit; the cloud event takes over
     demote = (
@@ -351,10 +378,14 @@ def run_bounce_plain(st: TraceState, bounce: int, scene: SceneParams, atlas, lut
             luts.srgb2spec, albedo_srgb[:, None, :], wavelength[s_idx]
         )
         s_offset = land_pos * (1.0 + 0.0001 * scale / 12000.0)
-        shadow_hit = intersect_land(
-            topo, s_offset, light_dir[s_idx].contiguous(), scale,
-            torch.ones_like(s_idx, dtype=torch.bool), cfg, any_hit=True,
-        )
+        s_trips = None if trips is None else torch.zeros_like(trips[s_idx])
+        shadow_args = (topo, s_offset, light_dir[s_idx].contiguous(), scale,
+                       torch.ones_like(s_idx, dtype=torch.bool), cfg)
+        if trips is None:
+            shadow_hit = intersect_land(*shadow_args, any_hit=True)
+        else:
+            shadow_hit = intersect_land_plain(*shadow_args, any_hit=True, trips=s_trips[:, 4])
+            trips[s_idx] += s_trips
         dd, ds, dn = srf.earth_brdf_parts(ocean, bathymetry, -s_dir, normal, light_dir[s_idx])
         s_hemi = smp.sample_hemisphere_cosine_weighted(u_h[0][s_idx], u_h[1][s_idx], normal)
         bd, bs, _ = srf.earth_brdf_parts(ocean, bathymetry, -s_dir, normal, s_hemi)
@@ -370,7 +401,7 @@ def run_bounce_plain(st: TraceState, bounce: int, scene: SceneParams, atlas, lut
     nee_active = vol_nee | sur_nee
     trans = sample_transmittance(
         rng.fold(kb, _SITE_TRANS), nee_origin, light_dir.contiguous(), ext_rmo,
-        ext_w, atlas, nee_active, cfg,
+        ext_w, atlas, nee_active, cfg, trips=trips,
     )
 
     reduce_peak = bounce > 0
@@ -441,7 +472,7 @@ def scene_floats(scene: SceneParams):
 
 
 class BounceFrame:
-    """The ``bounce`` kernel's arguments that hold for a whole wavefront: the
+    """The bounce kernels' arguments that hold for a whole wavefront: the
     scene's scalars read from the device once, the lane keys as int32 once,
     the density table (pathtracer.run_bounces builds one per call)."""
 
@@ -463,24 +494,82 @@ class BounceFrame:
 
 
 def run_bounce(st: TraceState, idx, bounce: int, scene: SceneParams, atlas, luts,
-               cfg: TraceConfig, frame: BounceFrame = None):
+               cfg: TraceConfig, frame: BounceFrame = None, n_live=None):
     """One bounce of the lanes ``idx`` (int32, all alive) of ``st``, in
-    place: the ``bounce`` kernel for CUDA tensors (``frame`` as built for
-    ``st``, or built here), its plain twin on ``st.take(idx)`` for CPU
-    tensors."""
+    place: for CUDA tensors the kernels ``bounce_flight`` and
+    ``bounce_shade`` (one bounce split at the flight's end, so that the
+    flight runs at twice the occupancy: 3.1 ms against 6.3 ms for the same
+    bits from one kernel at 1080p Apollo bounce 0 on an H100, PERF.md) with
+    ``frame`` as built for ``st`` (or built here), and with ``n_live``, the
+    (1,) live count on the device, the entries of ``idx`` at or past it
+    skipped; its plain twin on ``st.take(idx)`` for CPU tensors."""
     if st.pos.device.type == "cpu":
         idx = idx.to(torch.int64)
         st.put(idx, run_bounce_plain(st.take(idx), bounce, scene, atlas, luts, cfg))
         return
+    args = _kernel_args(st, idx, bounce, scene, atlas, luts, cfg, frame)
+    kernels.bounce_shade(*args, flight=kernels.bounce_flight(*args, n_live=n_live),
+                         n_live=n_live)
+
+
+def _kernel_args(st, idx, bounce, scene, atlas, luts, cfg, frame):
     if frame is None:
         frame = BounceFrame(st, scene, atlas, luts, cfg)
     iparams = list(frame.iparams)
     iparams[1] = bounce
-    kernels.bounce(
-        frame.fparams, iparams, st.pos, st.direction, st.wavelength, st.lambda_pdf,
-        st.throughput, st.radiance, st.w_mis, st.alive, st.primary_miss, st.work_class,
-        frame.keys, idx, *frame.tables,
-    )
+    return (frame.fparams, iparams, st.pos, st.direction, st.wavelength, st.lambda_pdf,
+            st.throughput, st.radiance, st.w_mis, st.alive, st.primary_miss, st.work_class,
+            frame.keys, idx, *frame.tables)
+
+
+def run_window(st: TraceState, idx, bounce_start: int, bounce_stop: int, scene: SceneParams,
+               atlas, luts, cfg: TraceConfig, frame: BounceFrame = None, n_live=None):
+    """Bounces [bounce_start, bounce_stop) of the lanes ``idx`` (int32, all
+    alive) of the CUDA state ``st``, in place, in one ``bounce_window``
+    launch: each lane runs until it dies, with no list in between (twin:
+    ``run_window_plain``); ``n_live`` as ``run_bounce`` takes it."""
+    kernels.bounce_window(*_kernel_args(st, idx, bounce_start, scene, atlas, luts, cfg, frame),
+                          stop=bounce_stop, n_live=n_live)
+
+
+def run_window_plain(st: TraceState, idx, bounce_start: int, bounce_stop: int,
+                     scene: SceneParams, atlas, luts, cfg: TraceConfig, trips=None):
+    """Plain twin of ``bounce_window``: bounces [bounce_start, bounce_stop) of
+    the fixed set of lanes ``idx`` of ``st`` (all alive at the start), in
+    place, each bounce ``run_bounce_plain`` on the set's lanes still alive,
+    listed as ``run_bounces`` lists them (binned, stable). With ``trips``, a
+    (bounce_stop - bounce_start, N, 6) int32 tensor, each bounce's trip
+    counts land at its lanes."""
+    lanes = torch.sort(idx.to(torch.int64)).values  # each bin in lane order, as run_bounces
+    for b in range(bounce_start, bounce_stop):
+        order, n_live = compact.compact_by_alive_plain(st.alive[lanes], st.work_class[lanes])
+        live = lanes[order[: int(n_live)].to(torch.int64)]
+        if live.numel() == 0:
+            break
+        t = None if trips is None else torch.zeros_like(trips[0, live])
+        st.put(live, run_bounce_plain(st.take(live), b, scene, atlas, luts, cfg, trips=t))
+        if trips is not None:
+            trips[b - bounce_start, live] = t
+    return st
+
+
+def bounce_schedule(n: int, counts, window_at: int, bounce_start: int, bounce_stop: int):
+    """The card's schedule of ``run_bounces`` for a wavefront of ``n`` lanes
+    whose live counts entering bounces bounce_start, bounce_start + 1, ...
+    are ``counts``: (the bounces launched one per launch, the bounce at which
+    one ``bounce_window`` launch takes the rest, or None). Each launch's grid
+    is the last count the host has read (n at first); the host reads a
+    bounce's count once that bounce is queued, stops once a count is 0, and
+    takes the window once the count it holds is below ``window_at``."""
+    single, bound = [], n
+    for b in range(bounce_start, bounce_stop):
+        if bound < window_at:
+            return single, b
+        single.append(b)
+        bound = counts[b - bounce_start]
+        if bound == 0:
+            break
+    return single, None
 
 
 class Interrupted(Exception):
@@ -489,21 +578,57 @@ class Interrupted(Exception):
 
 def run_bounces(st: TraceState, scene: SceneParams, atlas, luts,
                 cfg: TraceConfig, bounce_start: int, bounce_stop: int,
-                interrupt=None) -> TraceState:
+                interrupt=None, window_at=None) -> TraceState:
     """Advance the wavefront over bounces [bounce_start, bounce_stop) in
     place, each bounce on the alive lanes only, listed by work class.
-    ``interrupt()`` is polled before each bounce, once the device has
-    finished the previous one; ``Interrupted`` is raised when it returns
-    True."""
-    frame = None if st.pos.device.type == "cpu" else BounceFrame(st, scene, atlas, luts, cfg)
+
+    CPU tensors: each bounce lists the live lanes, reads the count (stopping
+    at 0), polls ``interrupt()``, then runs the bounce. CUDA tensors
+    (``bounce_schedule``): the live count stays on the device. Before each
+    bounce ``interrupt()`` is polled, then the live lanes are listed and the
+    bounce is launched with the last count the host read as its grid; the
+    list's count is copied to pinned host memory without blocking, and the
+    host waits for that copy (an event) once the bounce is queued, that is
+    until the previous bounce has ended: the device runs this bounce while
+    the host queues the next, so at most one bounce is queued ahead of the
+    running one. Once the count the host holds is below ``window_at``
+    (default ``kernels.window_threshold``: the lanes that fill the card), one
+    ``bounce_window`` launch runs every remaining bounce of the live lanes,
+    after one last poll. ``Interrupted`` is raised when the poll returns
+    True: on the card at most one bounce (or the window) already queued
+    runs past the poll that fires, and the caller drops the aborted spp, as
+    on the CPU."""
+    if st.pos.device.type == "cpu":
+        for bounce in range(bounce_start, bounce_stop):
+            idx, n_live = compact.compact_by_alive(st.alive, st.work_class)
+            m = int(n_live)
+            if m == 0:
+                break
+            if interrupt is not None and interrupt():
+                raise Interrupted
+            run_bounce(st, idx[:m], bounce, scene, atlas, luts, cfg)
+        return st
+    frame = BounceFrame(st, scene, atlas, luts, cfg)
+    if window_at is None:
+        window_at = kernels.window_threshold(st.pos.device)
+    bound = st.alive.shape[0]  # an upper bound of the live count, held by the host
+    count = torch.empty((1,), dtype=torch.int32, pin_memory=True)
+    read = torch.cuda.Event()
     for bounce in range(bounce_start, bounce_stop):
-        idx, n_live = compact.compact_by_alive(st.alive, st.work_class)
-        m = int(n_live)  # waits for the device
-        if m == 0:
-            break
         if interrupt is not None and interrupt():
             raise Interrupted
-        run_bounce(st, idx[:m], bounce, scene, atlas, luts, cfg, frame)
+        idx, n_live = compact.compact_by_alive(st.alive, st.work_class)
+        if bound < window_at:
+            run_window(st, idx[:bound], bounce, bounce_stop, scene, atlas, luts, cfg, frame,
+                       n_live)
+            break
+        count.copy_(n_live, non_blocking=True)
+        read.record()
+        run_bounce(st, idx[:bound], bounce, scene, atlas, luts, cfg, frame, n_live)
+        read.synchronize()  # this bounce's count: the previous bounce has ended
+        bound = int(count[0])
+        if bound == 0:
+            break
     return st
 
 

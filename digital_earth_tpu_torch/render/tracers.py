@@ -21,8 +21,8 @@ same probe positions, the same first-stopping probe, the same threefry draw
 
 A wrapper takes the plain version only for tensors on the CPU; a CUDA tensor
 launches the kernel (``digital_earth_tpu_torch.kernels``) or raises. On the
-card the path tracer does not call these wrappers: its ``bounce`` kernel
-runs the same per-lane loops as device functions (csrc/land_march.cuh,
+card the path tracer does not call these wrappers: its bounce kernels
+run the same per-lane loops as device functions (csrc/land_march.cuh,
 rmo_track.cuh, cloud_track.cuh). They serve the preview (``intersect_land``)
 and the bounce's plain twin (``pathtracer.run_bounce_plain``).
 """
@@ -64,14 +64,18 @@ _CLOUD_SKIP_COARSE = 100e3
 _CLOUD_SPLIT = 0.2
 
 
-def _run_lanes(budget: int, stride: int, state: dict, ctx: dict, body):
+def _run_lanes(budget: int, stride: int, state: dict, ctx: dict, body, trips=None):
     """Run ``body(i, state, ctx) -> state`` over the lanes whose
-    ``state["done"]`` is False, i = 0, stride, 2*stride, ... < budget."""
+    ``state["done"]`` is False, i = 0, stride, 2*stride, ... < budget. With
+    ``trips``, an (n,) int32 tensor (or a view of one), each lane's count of
+    the iterations it took part in is added there."""
     i = 0
     while i < budget:
         live = torch.nonzero(~state["done"]).squeeze(1)
         if live.numel() == 0:
             break
+        if trips is not None:
+            trips[live] += 1
         sub = body(
             i,
             {k: v[live] for k, v in state.items()},
@@ -115,9 +119,10 @@ def _march_floor(topo, cfg: TraceConfig):
 
 
 def intersect_land_plain(topo, pos, direction, scale, active, cfg: TraceConfig,
-                         t_cap=None, any_hit=False):
+                         t_cap=None, any_hit=False, trips=None):
     """Plain PyTorch twin of the ``land_march`` kernel: hit distance, -1 on
-    a miss."""
+    a miss. ``trips`` (n,) int32: the march's iterations per lane are added
+    there (the phantom crawl's are not)."""
     n = pos.shape[0]
     dev = pos.device
     k = cfg.march_k
@@ -214,7 +219,7 @@ def intersect_land_plain(topo, pos, direction, scale, active, cfg: TraceConfig,
         stall=torch.zeros((n,), dtype=torch.int32, device=dev),
     )
     ctx = dict(pos=pos, dir=direction, miss_beyond=miss_beyond)
-    state = _run_lanes(cfg.land_march_steps, k, state, ctx, body)
+    state = _run_lanes(cfg.land_march_steps, k, state, ctx, body, trips)
     t = state["t"]
     result = torch.where((~state["missed"]) & (t < _MAX_RAY_DIST), t, -1.0)
     return _phantom_crawl(pos, direction, active, result, t_cap, cfg)
@@ -282,9 +287,10 @@ _ALBEDOS = torch.from_numpy(C.SCATTERING_ALBEDOS)
 
 
 def delta_track_rmo_plain(keys, ray_pos, ray_dir, t_start, t_max, ext_h,
-                          active, cfg: TraceConfig):
+                          active, cfg: TraceConfig, trips=None):
     """Plain PyTorch twin of the ``rmo_delta_track`` kernel. ``ext_h`` is
-    the (n, 3) hero-wavelength extinction. Returns (event, t, iid)."""
+    the (n, 3) hero-wavelength extinction. Returns (event, t, iid); the
+    loop's iterations per lane are added to ``trips`` (n,) int32 if given."""
     n = t_start.shape[0]
     dev = t_start.device
     k = cfg.tracking_k
@@ -334,7 +340,7 @@ def delta_track_rmo_plain(keys, ray_pos, ray_dir, t_start, t_max, ext_h,
     )
     ctx = dict(keys=keys, pos=ray_pos, dir=ray_dir, t_max=t_max, tms=t_max_safe,
                ext_h=ext_h, rp=rp, xp=xp, x_end=t_max_safe + xp)
-    state = _run_lanes(cfg.max_tracking_steps, 1, state, ctx, body)
+    state = _run_lanes(cfg.max_tracking_steps, 1, state, ctx, body, trips)
     return state["event"], state["t"], state["iid"]
 
 
@@ -384,9 +390,10 @@ def cloud_band_radii(mip):
 
 
 def track_cloud_plain(keys, ray_pos, ray_dir, t_start, t_max, ext_w, clouds,
-                      active, cfg: TraceConfig, mode: str):
+                      active, cfg: TraceConfig, mode: str, trips=None):
     """Plain PyTorch twin of the ``cloud_track`` kernel: (event, t) in
-    ``mode="delta"``, the (n,) transmittance in ``mode="ratio"``."""
+    ``mode="delta"``, the (n,) transmittance in ``mode="ratio"``; the loop's
+    iterations per lane are added to ``trips`` (n,) int32 if given."""
     n = t_start.shape[0]
     dev = t_start.device
     k = cfg.tracking_k
@@ -558,7 +565,7 @@ def track_cloud_plain(keys, ray_pos, ray_dir, t_start, t_max, ext_w, clouds,
     )
     ctx = dict(keys=keys, pos=ray_pos, dir=ray_dir, t_max=t_max, tms=t_max_safe,
                ext_w=ext_w)
-    state = _run_lanes(cfg.max_tracking_steps, 1, state, ctx, body)
+    state = _run_lanes(cfg.max_tracking_steps, 1, state, ctx, body, trips)
     if is_delta:
         return state["event"], state["t"]
     return state["trans"]

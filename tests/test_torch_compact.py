@@ -100,3 +100,101 @@ def test_run_bounces_does_not_depend_on_the_lane_order(scene, monkeypatch):
         assert torch.isfinite(got).all(), name
         torch.testing.assert_close(got, want, rtol=1e-5, atol=0.0, msg=name)
     assert binned.alive.any() and classes  # lanes of at least one class survive
+
+
+# --- the card's schedule: one launch per bounce, then the window -----------
+
+
+@pytest.mark.parametrize("n,counts,window_at,want", [
+    # wide bounces until the count the host holds drops below the threshold
+    (100, [90, 50, 10, 5, 0], 20, ([0, 1, 2], 3)),
+    # a wavefront below the threshold is one window from its first bounce
+    (10, [9, 4], 20, ([], 0)),
+    # a count of 0 ends the loop before the window
+    (100, [90, 50, 30, 0, 0], 20, ([0, 1, 2, 3], None)),
+    # threshold 0: every bounce one launch, to the last
+    (100, [90, 50, 10, 5, 1], 0, ([0, 1, 2, 3, 4], None)),
+])
+def test_bounce_schedule(n, counts, window_at, want):
+    assert pt.bounce_schedule(n, counts, window_at, 0, len(counts)) == want
+    # from a later bounce the same rule holds, bounce numbers shifted
+    single, window = pt.bounce_schedule(n, counts, window_at, 3, 3 + len(counts))
+    assert single == [b + 3 for b in want[0]]
+    assert window == (None if want[1] is None else want[1] + 3)
+
+
+def _window_case(scene, k):
+    """The 32x18 wavefront of ``scene`` with 5 bounces, advanced to bounce
+    ``k`` on the CPU, and its live list there."""
+    st, r, _ = _bounce0_state(scene)
+    cfg = TraceConfig(max_bounces=5, land_march_steps=64, max_tracking_steps=256)
+    args = (r.scene_params(), r.atlas, r.luts, cfg)
+    st = pt.run_bounces(st, *args, 0, k)
+    idx, n_live = compact.compact_by_alive(st.alive, st.work_class)
+    return st, idx[: int(n_live)], args, cfg
+
+
+@pytest.mark.parametrize("scene", ["config - Apollo 11.txt", "config - florida.txt"])
+def test_window_twin_matches_the_per_bounce_schedule(scene):
+    """run_window_plain (bounce_window's twin) over bounces 1-4 of the live
+    lanes leaves the state of four more one-bounce steps, bit for bit: each
+    bounce it lists the set's live lanes as run_bounces lists them."""
+    st, idx, args, cfg = _window_case(scene, 1)
+    per_bounce = pt.run_bounces(_clone(st), *args, 1, cfg.max_bounces)
+    window = pt.run_window_plain(_clone(st), idx, 1, cfg.max_bounces, *args)
+    for name in ("pos", "direction", "throughput", "radiance", "w_mis", "alive",
+                 "primary_miss", "work_class"):
+        assert torch.equal(getattr(window, name), getattr(per_bounce, name)), name
+    assert per_bounce.radiance.sum() > 0 and idx.numel() > 0
+
+
+@pytest.mark.parametrize("scene", ["config - Apollo 11.txt", "config - florida.txt"])
+def test_twin_trip_counts_do_not_depend_on_the_schedule(scene):
+    """The twin's census (trips per lane at the six loop sites) is the same
+    bounce by bounce and through run_window_plain, and within the loops'
+    caps."""
+    st, idx, args, cfg = _window_case(scene, 1)
+    n, nb = st.alive.numel(), cfg.max_bounces - 1
+    per_bounce = torch.zeros((nb, n, 6), dtype=torch.int32)
+    st1 = _clone(st)
+    for b in range(1, cfg.max_bounces):
+        lanes, n_live = compact.compact_by_alive(st1.alive, st1.work_class)
+        lanes = lanes[: int(n_live)].long()
+        if lanes.numel() == 0:
+            break
+        t = torch.zeros((lanes.numel(), 6), dtype=torch.int32)
+        st1.put(lanes, pt.run_bounce_plain(st1.take(lanes), b, *args, trips=t))
+        per_bounce[b - 1, lanes] = t
+    window = torch.zeros_like(per_bounce)
+    pt.run_window_plain(_clone(st), idx, 1, cfg.max_bounces, *args, trips=window)
+    assert torch.equal(per_bounce, window)
+    march_cap = -(-cfg.land_march_steps // cfg.march_k)
+    caps = torch.tensor([march_cap, cfg.max_tracking_steps, cfg.max_tracking_steps, march_cap,
+                         march_cap, cfg.max_tracking_steps], dtype=torch.int32)
+    assert (window <= caps).all() and (window >= 0).all()
+    # the flight's passes run on every live lane; the rest where they apply
+    assert window[..., 1:3].sum() > 0 and window.sum() > window[..., 1:3].sum()
+
+
+def test_bounce_census_arithmetic():
+    """chip_smoke.py's operations from trip counts and SIMT efficiency, on a
+    hand-counted case."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    trips = torch.tensor([[0, 1, 2, 0, 0, 0], [0, 3, 2, 1, 1, 1]], dtype=torch.int32)
+    call, it, probe = cs.BOUNCE_CALL_OPS, cs.BOUNCE_ITER_OPS, cs.BOUNCE_PROBE_OPS
+    k = 4
+
+    def site(j, n):  # a call, n iterations, k probes each but the last's one
+        return 0 if n == 0 else call[j] + n * it[j] + (k * n - (k - 1)) * probe[j]
+
+    want = (2 * cs.BOUNCE_FIXED_OPS + cs.BOUNCE_SURFACE_OPS + cs.BOUNCE_NEE_OPS
+            + sum(site(j, int(trips[i, j])) for i in range(2) for j in range(6)))
+    assert cs.bounce_ops(torch, trips, k) == want
+    # warps of 2: per site the lanes' trips over 2 x the warp's largest
+    assert cs.simt_efficiency(torch, trips, warp=2) == [None, 4 / 6, 1.0, 0.5, 0.5, 0.5]
+    # a ragged last warp counts its idle lanes
+    assert cs.simt_efficiency(torch, trips[:1], warp=4)[2] == 2 / 8

@@ -403,9 +403,7 @@ def test_viewer_scene_change_previews_then_escalates(esc_viewer):
     time.sleep(0.2)
     p0 = esc_viewer.preview_renderer.resets
     _get(esc_viewer, "/set?sun_angle=12")
-    deadline = time.time() + 2.0
-    while time.time() < deadline and esc_viewer.preview_renderer.resets == p0:
-        time.sleep(0.01)
+    _wait(lambda: esc_viewer.preview_renderer.resets > p0)
     assert esc_viewer.preview_renderer.resets > p0
     assert esc_viewer.preview_renderer.sun_angle == pytest.approx(esc_viewer.renderer.sun_angle)
     assert _wait(lambda: esc_viewer._frame_source == "path")
@@ -414,12 +412,8 @@ def test_viewer_scene_change_previews_then_escalates(esc_viewer):
 def test_viewer_key_impulse_ends_motion(esc_viewer):
     time.sleep(0.3)
     _get(esc_viewer, "/input?keys=w")
-    deadline = time.time() + 3.0
-    while time.time() < deadline and esc_viewer._frame_source != "preview":
-        time.sleep(0.01)
-    deadline = time.time() + 3.0
-    while time.time() < deadline and esc_viewer._frame_source != "path":
-        time.sleep(0.02)
+    _wait(lambda: esc_viewer._frame_source == "preview")
+    _wait(lambda: esc_viewer._frame_source == "path")
     assert esc_viewer._frame_source == "path"
     assert not esc_viewer._pending_keys
 

@@ -21,7 +21,7 @@ import torch
 
 from .assets.luts import CRFPack, SpectralLUTs
 from .assets.textures import TextureAtlas
-from .render.camera import CameraParams
+from .render.camera import CameraParams, HostCamera
 from .render.params import SceneParams, TraceConfig
 
 LANES = 128
@@ -64,7 +64,8 @@ def scene_params_to_torch(scene, device) -> SceneParams:
 
 
 def camera_params_to_torch(cam, device) -> CameraParams:
-    return CameraParams(*(_f32(getattr(cam, f), device) for f in CameraParams._fields))
+    return HostCamera.of(*(np.asarray(getattr(cam, f), np.float64)
+                           for f in HostCamera._fields)).params(device)
 
 
 def trace_config(ref) -> TraceConfig:

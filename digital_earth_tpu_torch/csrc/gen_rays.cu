@@ -8,7 +8,8 @@
 //     (bw, bh) blocks; the path frame passes blocks of (1, H), which is
 //     pixel order), pid = pu * H + pv; with a tile list (an adaptive pass,
 //     renderer.py:304 _trace_tile_range(..., tile_ids=)), lane l lies in
-//     tile tile_ids[l / (bw * bh)];
+//     tile tile_ids[l / (bw * bh)]. The lane's pid is an output, and for
+//     the preview (keyed by tile) its tile index and in-tile lane too;
 //   - the lane key fold(spp_key, pid);
 //   - the R3 rQMC point (host-computed, uint32 fixed point rounded to
 //     float32) plus the Cranley-Patterson shift
@@ -19,105 +20,168 @@
 //     (searchsorted side="left"), clipped to [1, res - 1], then the hero
 //     packet's L rotations (L = 4) or the preview's single wavelength
 //     (L = 1, with 1 / pdf).
+// Each Python divisor of the plain twin (/ H in cast_dirs, / res in
+// _cie_mid, / L of the rotations) is a multiply by float32(1 / b), the
+// reciprocal taken in double, as PyTorch's CUDA ops apply it; so every
+// field agrees with the twin bit for bit.
 //
-// What bounds it on the H100: integer work (three threefry2x32 blocks of
-// 20 rounds for the keys and the shift) and a 9-step search in a 441-entry
-// table that stays in L1; it writes about 100 bytes per lane. One launch
-// per frame or chunk replaces some 700 element-wise PyTorch launches.
+// Design: lane arithmetic in 32 bits (the wrapper keeps lane0 + n < 2^31),
+// the tile map's divisions by per-launch constants as multiply-high
+// divisors; g and the XYZ response (4 res floats) staged in shared memory
+// by each block of 256 lanes for the search and the lerps; keys,
+// wavelengths, responses and pdf written as 16-byte stores (L = 4), the
+// block's directions through shared memory as one coalesced run. On the
+// H100 at 1080p one block per 256 lanes beat a grid of 8 resident blocks
+// per SM striding over the lanes (whose table staging it saved), and the
+// staged directions beat three 4-byte stores per lane.
+//
+// What bounds it on the H100: the bytes it writes, 116 per path lane (its
+// integer work, six threefry2x32 blocks of ~77 operations a lane, is 1e9
+// operations for a 1080p frame, under 0.02 ms at the float32 peak).
 #include <cstdint>
 
 #include <cuda_runtime.h>
 
+#include "fast_div.cuh"
 #include "threefry.cuh"
 
 namespace de {
 
 constexpr uint32_t SITE_JITTER = 101u;
+constexpr int RAY_THREADS = 256;
 
 struct RayGenParams {
   float d[3], du[3], dv[3];
   float two_fov, fov, fov_aspect, aspect_scale;
   float seq[3];
   float cdf_max[3];
+  float rcp_h, rcp_res, rcp_l;  // float32(1 / b) of the twin's Python divisors
   uint32_t spp_k0, spp_k1, pix_k0, pix_k1;
-  int64_t lane0;
-  int w, h, bw, bh, res, n_lambdas, preview;
+  uint32_t lane0, n, h, bw, bh;
+  FastDiv tile, nby, bh_div;  // bw * bh, h / bh, bh
+  int res, preview;
 };
 
 __device__ __forceinline__ float saturate_f(float x) { return fminf(fmaxf(x, 0.0f), 1.0f); }
 
-__global__ void gen_rays_kernel(const float* __restrict__ g,
-                                const float* __restrict__ cie_response,
-                                int64_t* __restrict__ keys, float* __restrict__ dirs,
-                                float* __restrict__ wavelengths,
-                                float* __restrict__ responses, float* __restrict__ pdf,
-                                const int32_t* __restrict__ tile_ids, int n, RayGenParams p) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const int64_t lane = p.lane0 + i;
-  const int64_t tile = (int64_t)p.bw * p.bh;
-  const int64_t nby = p.h / p.bh;
-  const int64_t li = lane % tile;
-  const int64_t tidx = tile_ids ? (int64_t)tile_ids[lane / tile] : lane / tile;
-  const int64_t bx = tidx / nby, by = tidx % nby;
-  const int64_t pu = bx * p.bw + li / p.bh;
-  const int64_t pv = by * p.bh + li % p.bh;
-  const uint32_t pid = (uint32_t)(pu * p.h + pv);
+template <int L>
+__global__ void __launch_bounds__(RAY_THREADS)
+gen_rays_kernel(const float* __restrict__ g, const float* __restrict__ cie_response,
+                int64_t* __restrict__ keys, float* __restrict__ dirs,
+                float* __restrict__ wavelengths, float* __restrict__ responses,
+                float* __restrict__ pdf, int64_t* __restrict__ pid_out,
+                int64_t* __restrict__ tile_out, int64_t* __restrict__ lane_out,
+                const int32_t* __restrict__ tile_ids, RayGenParams p) {
+  extern __shared__ float tables[];  // g (res), then the XYZ response (3 res)
+  __shared__ float sdir[3 * RAY_THREADS];  // the block's directions, stored coalesced
+  float* sg = tables;
+  float* sr = tables + p.res;
+  for (int i = threadIdx.x; i < p.res; i += RAY_THREADS) sg[i] = g[i];
+  for (int i = threadIdx.x; i < 3 * p.res; i += RAY_THREADS) sr[i] = cie_response[i];
+  __syncthreads();
 
-  const Key lk = fold(Key{p.spp_k0, p.spp_k1}, pid);
-  keys[2 * i] = (int64_t)lk.k0;
-  keys[2 * i + 1] = (int64_t)lk.k1;
-
-  const Key sk = fold(fold(Key{p.pix_k0, p.pix_k1}, pid), SITE_JITTER);
-  float u3[3];
-#pragma unroll
-  for (int j = 0; j < 3; ++j) {
-    const float x = uniform(sk, (uint32_t)j) + p.seq[j];
-    u3[j] = x - floorf(x);  // mod 1 of a value in [0, 2): exact
-  }
-
-  // cast_dirs
-  const float hf = (float)p.h;
-  const float fu = ((p.two_fov * ((float)pu + u3[0])) / hf - p.fov_aspect - 1e-5f) * p.aspect_scale;
-  const float fv = (p.two_fov * ((float)pv + u3[1])) / hf - p.fov - 1e-5f;
-  float v[3];
-#pragma unroll
-  for (int c = 0; c < 3; ++c) v[c] = p.d[c] + fu * p.du[c] + fv * p.dv[c];
-  const float len = fmaxf(sqrtf(v[0] * v[0] + v[1] * v[1] + v[2] * v[2]), 1e-20f);
-#pragma unroll
-  for (int c = 0; c < 3; ++c) dirs[3 * i + c] = v[c] / len;
-
-  // CIE inverse CDF (searchsorted side="left")
-  const float u = u3[2];
-  int lo = 0, hi = p.res;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (g[mid] < u) lo = mid + 1; else hi = mid;
-  }
-  const int idx = min(max(lo, 1), p.res - 1);
-  const float g0 = g[idx - 1], g1 = g[idx];
-  const float frac = g1 > g0 ? (u - g0) / fmaxf(g1 - g0, 1e-12f) : 0.5f;
-  const float mid = ((float)(idx - 1) + 0.5f + saturate_f(frac)) / (float)p.res;
-
-  for (int l = 0; l < p.n_lambdas; ++l) {
-    float m = mid + (float)l / (float)p.n_lambdas;
-    m = m - floorf(m);  // mod 1 (exact for m in [0, 2))
-    const int o = i * p.n_lambdas + l;
-    wavelengths[o] = 390.0f + 441.0f * m;
-    const float x = m * (float)p.res - 0.5f;
-    const int x0 = min(max((int)floorf(x), 0), p.res - 1);
-    const int x1 = min(x0 + 1, p.res - 1);
-    const float t = x - (float)x0;
-    float r[3];
-#pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      r[c] = cie_response[3 * x0 + c] * (1.0f - t) + cie_response[3 * x1 + c] * t;
-      responses[3 * o + c] = r[c];
+  const uint32_t base = blockIdx.x * RAY_THREADS;
+  const uint32_t i = base + threadIdx.x;
+  if (i < p.n) {
+    const uint32_t lane = p.lane0 + i;
+    const uint32_t t = fast_div(p.tile, lane);
+    const uint32_t li = lane - t * p.tile.d;
+    const uint32_t tidx = tile_ids ? (uint32_t)tile_ids[t] : t;
+    const uint32_t bx = fast_div(p.nby, tidx), by = tidx - bx * p.nby.d;
+    const uint32_t lu = fast_div(p.bh_div, li), lv = li - lu * p.bh;
+    const uint32_t pu = bx * p.bw + lu, pv = by * p.bh + lv;
+    const uint32_t pid = pu * p.h + pv;
+    pid_out[i] = (int64_t)pid;
+    if (tile_out) {
+      tile_out[i] = (int64_t)tidx;
+      lane_out[i] = (int64_t)li;
     }
-    const float q = r[0] * p.cdf_max[0] + r[1] * p.cdf_max[1] + r[2] * p.cdf_max[2];
-    const bool ok = (q > 1e-3f) && isfinite(q);
-    pdf[o] = p.preview ? (ok ? 1.0f / fmaxf(q, 1e-12f) : 0.0f) : (ok ? q : 0.0f);
+
+    const Key lk = fold(Key{p.spp_k0, p.spp_k1}, pid);
+    reinterpret_cast<longlong2*>(keys)[i] = make_longlong2((int64_t)lk.k0, (int64_t)lk.k1);
+
+    const Key sk = fold(fold(Key{p.pix_k0, p.pix_k1}, pid), SITE_JITTER);
+    float u3[3];
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      const float x = uniform(sk, (uint32_t)j) + p.seq[j];
+      u3[j] = x - floorf(x);  // mod 1 of a value in [0, 2): exact
+    }
+
+    // cast_dirs
+    const float fu =
+        ((p.two_fov * ((float)pu + u3[0])) * p.rcp_h - p.fov_aspect - 1e-5f) * p.aspect_scale;
+    const float fv = (p.two_fov * ((float)pv + u3[1])) * p.rcp_h - p.fov - 1e-5f;
+    float v[3];
+#pragma unroll
+    for (int c = 0; c < 3; ++c) v[c] = p.d[c] + fu * p.du[c] + fv * p.dv[c];
+    const float len = fmaxf(sqrtf(v[0] * v[0] + v[1] * v[1] + v[2] * v[2]), 1e-20f);
+#pragma unroll
+    for (int c = 0; c < 3; ++c) sdir[3 * threadIdx.x + c] = v[c] / len;
+
+    // CIE inverse CDF (searchsorted side="left")
+    const float u = u3[2];
+    int lo = 0, hi = p.res;
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if (sg[mid] < u) lo = mid + 1; else hi = mid;
+    }
+    const int idx = min(max(lo, 1), p.res - 1);
+    const float g0 = sg[idx - 1], g1 = sg[idx];
+    const float frac = g1 > g0 ? (u - g0) / fmaxf(g1 - g0, 1e-12f) : 0.5f;
+    const float mid = ((float)(idx - 1) + 0.5f + saturate_f(frac)) * p.rcp_res;
+
+    float wl[L], rs[3 * L], pd[L];
+#pragma unroll
+    for (int l = 0; l < L; ++l) {
+      float m = mid + (float)l * p.rcp_l;
+      m = m - floorf(m);  // mod 1 (exact for m in [0, 2))
+      wl[l] = 390.0f + 441.0f * m;
+      const float x = m * (float)p.res - 0.5f;
+      const int x0 = min(max((int)floorf(x), 0), p.res - 1);
+      const int x1 = min(x0 + 1, p.res - 1);
+      const float tt = x - (float)x0;
+#pragma unroll
+      for (int c = 0; c < 3; ++c)
+        rs[3 * l + c] = sr[3 * x0 + c] * (1.0f - tt) + sr[3 * x1 + c] * tt;
+      const float q = rs[3 * l] * p.cdf_max[0] + rs[3 * l + 1] * p.cdf_max[1] +
+                      rs[3 * l + 2] * p.cdf_max[2];
+      const bool ok = (q > 1e-3f) && isfinite(q);
+      pd[l] = p.preview ? (ok ? 1.0f / fmaxf(q, 1e-12f) : 0.0f) : (ok ? q : 0.0f);
+    }
+    if constexpr (L == 4) {
+      reinterpret_cast<float4*>(wavelengths)[i] = make_float4(wl[0], wl[1], wl[2], wl[3]);
+      reinterpret_cast<float4*>(pdf)[i] = make_float4(pd[0], pd[1], pd[2], pd[3]);
+      float4* r4 = reinterpret_cast<float4*>(responses) + 3 * (size_t)i;
+      r4[0] = make_float4(rs[0], rs[1], rs[2], rs[3]);
+      r4[1] = make_float4(rs[4], rs[5], rs[6], rs[7]);
+      r4[2] = make_float4(rs[8], rs[9], rs[10], rs[11]);
+    } else {
+#pragma unroll
+      for (int l = 0; l < L; ++l) {
+        wavelengths[(size_t)i * L + l] = wl[l];
+        pdf[(size_t)i * L + l] = pd[l];
+#pragma unroll
+        for (int c = 0; c < 3; ++c) responses[((size_t)i * L + l) * 3 + c] = rs[3 * l + c];
+      }
+    }
   }
+  __syncthreads();
+  const uint32_t m = 3 * min((uint32_t)RAY_THREADS, p.n - base);
+  float* __restrict__ out = dirs + 3 * (size_t)base;
+  for (uint32_t k = threadIdx.x; k < m; k += RAY_THREADS) out[k] = sdir[k];
+}
+
+template <int L>
+int launch_gen_rays(const float* g, const float* cie_response, int64_t* keys, float* dirs,
+                    float* wavelengths, float* responses, float* pdf, int64_t* pid,
+                    int64_t* tile_index, int64_t* lane_index, const int32_t* tile_ids,
+                    const RayGenParams& p, cudaStream_t stream) {
+  const uint32_t grid = (p.n + RAY_THREADS - 1) / RAY_THREADS;
+  gen_rays_kernel<L><<<grid, RAY_THREADS, 4 * p.res * sizeof(float), stream>>>(
+      g, cie_response, keys, dirs, wavelengths, responses, pdf, pid, tile_index, lane_index,
+      tile_ids, p);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace de
@@ -126,11 +190,22 @@ __global__ void gen_rays_kernel(const float* __restrict__ g,
 //     cdf_max[3] (19 floats)
 // ip: spp_k0, spp_k1, pix_k0, pix_k1, lane0, w, h, bw, bh, res, n_lambdas,
 //     preview (12 int64)
-// tile_ids: int32 tile list on the device, or null for consecutive tiles
+// keys (n, 2) int64, dirs (n, 3), wavelengths (n, L), responses (n, L, 3),
+// pdf (n, L), pid (n,) int64; tile_index, lane_index (n,) int64 or null;
+// tile_ids: int32 tile list on the device, or null for consecutive tiles.
+// L is 1 or 4; lane0 + n < 2^31; 4 res floats fit in 48 KiB of shared
+// memory; the outputs are 16-byte aligned (PyTorch's allocations are).
 extern "C" int de_gen_rays(const float* fp, const int64_t* ip, const float* g,
                            const float* cie_response, int64_t* keys, float* dirs,
-                           float* wavelengths, float* responses, float* pdf,
-                           const int32_t* tile_ids, int n, void* stream) {
+                           float* wavelengths, float* responses, float* pdf, int64_t* pid,
+                           int64_t* tile_index, int64_t* lane_index, const int32_t* tile_ids,
+                           int n, void* stream) {
+  if (n <= 0) return (int)cudaGetLastError();
+  const int64_t lane0 = ip[4], h = ip[6], bw = ip[7], bh = ip[8], res = ip[9], L = ip[10];
+  if (lane0 < 0 || lane0 + n >= (1ll << 31) || bw <= 0 || bh <= 0 || h % bh != 0 || res < 2 ||
+      4 * res * (int64_t)sizeof(float) > 48 * 1024 || (L != 1 && L != 4) ||
+      (tile_index == nullptr) != (lane_index == nullptr))
+    return (int)cudaErrorInvalidValue;
   de::RayGenParams p;
   for (int c = 0; c < 3; ++c) {
     p.d[c] = fp[c];
@@ -143,20 +218,27 @@ extern "C" int de_gen_rays(const float* fp, const int64_t* ip, const float* g,
   p.fov = fp[10];
   p.fov_aspect = fp[11];
   p.aspect_scale = fp[12];
+  p.rcp_h = (float)(1.0 / (double)h);
+  p.rcp_res = (float)(1.0 / (double)res);
+  p.rcp_l = (float)(1.0 / (double)L);
   p.spp_k0 = (uint32_t)ip[0];
   p.spp_k1 = (uint32_t)ip[1];
   p.pix_k0 = (uint32_t)ip[2];
   p.pix_k1 = (uint32_t)ip[3];
-  p.lane0 = ip[4];
-  p.w = (int)ip[5];
-  p.h = (int)ip[6];
-  p.bw = (int)ip[7];
-  p.bh = (int)ip[8];
-  p.res = (int)ip[9];
-  p.n_lambdas = (int)ip[10];
+  p.lane0 = (uint32_t)lane0;
+  p.n = (uint32_t)n;
+  p.h = (uint32_t)h;
+  p.bw = (uint32_t)bw;
+  p.bh = (uint32_t)bh;
+  p.tile = de::make_fast_div((uint32_t)(bw * bh));
+  p.nby = de::make_fast_div((uint32_t)(h / bh));
+  p.bh_div = de::make_fast_div((uint32_t)bh);
+  p.res = (int)res;
   p.preview = (int)ip[11];
-  const int block = 128;
-  de::gen_rays_kernel<<<(n + block - 1) / block, block, 0, (cudaStream_t)stream>>>(
-      g, cie_response, keys, dirs, wavelengths, responses, pdf, tile_ids, n, p);
-  return (int)cudaGetLastError();
+  cudaStream_t s = (cudaStream_t)stream;
+  if (L == 4)
+    return de::launch_gen_rays<4>(g, cie_response, keys, dirs, wavelengths, responses, pdf, pid,
+                                  tile_index, lane_index, tile_ids, p, s);
+  return de::launch_gen_rays<1>(g, cie_response, keys, dirs, wavelengths, responses, pdf, pid,
+                                tile_index, lane_index, tile_ids, p, s);
 }

@@ -73,8 +73,8 @@ _SIGNATURES = {
     "de_atmos_march": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _F, _F, _F,
                        _F, _P],
     # float params, int64 params, g, cie_response, keys, dirs, wavelengths,
-    # responses, pdf, tile_ids, n, stream
-    "de_gen_rays": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P],
+    # responses, pdf, pid, tile_index, lane_index, tile_ids, n, stream
+    "de_gen_rays": [_P] * 13 + [_I, _P],
     # float params, int params, radiance, responses, pdf, throughput, w_mis,
     # lambda_pdf, wavelength, direction, primary_miss, light_dir,
     # sun_cos_angle, stars, srgb2spec, pid, color, count, lum2, n, stream
@@ -335,38 +335,51 @@ def atmos_march(pos, direction, t_start, t_max, sun_dir, ext_rmo, scattering,
     return in_scatter, trans
 
 
-def gen_rays(fparams, iparams, g, cie_response, n: int, n_lambdas: int, tile_ids=None):
+def gen_rays(fparams, iparams, g, cie_response, n: int, n_lambdas: int, tile_ids=None,
+             tile_map: bool = False):
     """Launch ``gen_rays`` (csrc/gen_rays.cu) for ``n`` lanes: (keys (n, 2)
-    int64, dirs (n, 3), wavelengths (n, L), responses (n, L, 3), pdf (n, L)).
-    ``fparams`` (19 floats) and ``iparams`` (12 ints) are laid out as the C
-    entry de_gen_rays documents (render/raygen.py builds them); ``tile_ids``
-    is an int32 tile list (lane l in tile tile_ids[l // tile]) or None."""
+    int64, dirs (n, 3), wavelengths (n, L), responses (n, L, 3), pdf (n, L),
+    pid (n,) int64, and with ``tile_map`` each lane's tile index and in-tile
+    lane (n,) int64, else None, None). ``fparams`` (19 floats) and
+    ``iparams`` (12 ints) are laid out as the C entry de_gen_rays documents
+    (render/raygen.py builds them on the host); ``tile_ids`` is an int32
+    tile list (lane l in tile tile_ids[l // tile]) or None. Reads nothing
+    back from the card, so a CUDA graph can capture it."""
     dev = g.device
     res = g.shape[0]
+    if len(fparams) != 19 or len(iparams) != 12:
+        raise ValueError("gen_rays: expected 19 float and 12 int parameters")
     _check("g", g, torch.float32, (res,), dev)
     _check("cie_response", cie_response, torch.float32, (res, 3), dev)
+    if n_lambdas not in (1, 4) or not 2 <= res <= 3072:
+        raise ValueError(f"gen_rays: {n_lambdas} wavelengths (1 or 4), a table of {res} (2-3072)")
+    lane0 = iparams[4]
+    if lane0 < 0 or lane0 + n >= 2**31:
+        raise ValueError(f"gen_rays: lanes [{lane0}, {lane0 + n}) outside [0, 2^31)")
     if tile_ids is not None:
         _check("tile_ids", tile_ids, torch.int32, (tile_ids.shape[0],), dev)
         tile = iparams[7] * iparams[8]
-        if iparams[4] + n > tile_ids.shape[0] * tile:
+        if lane0 + n > tile_ids.shape[0] * tile:
             raise ValueError("gen_rays: lanes beyond the tile list")
-    if len(fparams) != 19 or len(iparams) != 12:
-        raise ValueError("gen_rays: expected 19 float and 12 int parameters")
     keys = torch.empty((n, 2), dtype=torch.int64, device=dev)
     dirs = torch.empty((n, 3), dtype=torch.float32, device=dev)
     wavelengths = torch.empty((n, n_lambdas), dtype=torch.float32, device=dev)
     responses = torch.empty((n, n_lambdas, 3), dtype=torch.float32, device=dev)
     pdf = torch.empty((n, n_lambdas), dtype=torch.float32, device=dev)
+    pid = torch.empty((n,), dtype=torch.int64, device=dev)
+    tidx = torch.empty((n,), dtype=torch.int64, device=dev) if tile_map else None
+    li = torch.empty((n,), dtype=torch.int64, device=dev) if tile_map else None
     if n:
         fp = (ctypes.c_float * 19)(*fparams)
         ip = (ctypes.c_int64 * 12)(*iparams)
         _launch(
             "de_gen_rays", ctypes.cast(fp, ctypes.c_void_p), ctypes.cast(ip, ctypes.c_void_p),
             _ptr(g), _ptr(cie_response), _ptr(keys), _ptr(dirs), _ptr(wavelengths),
-            _ptr(responses), _ptr(pdf), _ptr_or_null(tile_ids), n,
+            _ptr(responses), _ptr(pdf), _ptr(pid), _ptr_or_null(tidx), _ptr_or_null(li),
+            _ptr_or_null(tile_ids), n,
         )
         _count(gen_rays, 1)
-    return keys, dirs, wavelengths, responses, pdf
+    return keys, dirs, wavelengths, responses, pdf, pid, tidx, li
 
 
 def frame_end(fparams, iparams, radiance, responses, pid, color, count=None, lum2=None, *,

@@ -282,7 +282,7 @@ class MultiChipRenderer(Renderer):
 
     def _params(self):
         """Each distinct device's (camera, scene, atlas, luts)."""
-        return {dev: (self.camera_params(dev), self.scene_params(dev), *rep)
+        return {dev: (self.camera_params("cpu"), self.scene_params(dev), *rep)
                 for dev, rep in self._replicas.items()}
 
     def _trace(self, params, poll, px, s, out, lane0, n, tile_ids=None, out_index=None):

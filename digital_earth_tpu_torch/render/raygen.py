@@ -16,15 +16,17 @@ same map with blocks of (1, H). An adaptive pass traces a list of tiles
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+import functools
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from .. import kernels
+from ..assets.luts import ray_tables
 from ..ops import rng
 from ..ops import spectral as sp
-from .camera import CameraParams, camera_basis, cast_dirs
+from .camera import CameraParams, HostCamera, camera_basis, cast_dirs
 
 # Frame-level RNG site and the R3 rQMC constants (renderer.py:41-53).
 _SITE_JITTER = 101
@@ -73,13 +75,17 @@ def tile_pixel_coords(lane, image_res, block, tile_ids=None):
 
 class Rays(NamedTuple):
     """Per-lane output of ray generation. ``pdf`` is the hero packet's
-    lambda pdf (L = 4), or 1 / pdf of the preview's single wavelength."""
+    lambda pdf (L = 4), or 1 / pdf of the preview's single wavelength. The
+    preview (keyed by tile) also gets each lane's tile and in-tile index."""
 
     keys: torch.Tensor         # (n, 2) int64 lane keys fold(spp_key, pid)
     dirs: torch.Tensor         # (n, 3)
     wavelengths: torch.Tensor  # (n, L)
     responses: torch.Tensor    # (n, L, 3)
     pdf: torch.Tensor          # (n, L)
+    pid: torch.Tensor          # (n,) int64 pixel id pu * H + pv
+    tile_index: Optional[torch.Tensor] = None  # (n,) int64, preview only
+    lane_index: Optional[torch.Tensor] = None  # (n,) int64, preview only
 
 
 def _seq(spp: int):
@@ -87,8 +93,20 @@ def _seq(spp: int):
     return [float(np.float32((a * (spp + 1)) & rng.M32)) * 2.0**-32 for a in _R3_A32]
 
 
-def _cpu_camera(cam: CameraParams) -> CameraParams:
-    return CameraParams(*(t.detach().to("cpu", torch.float32) for t in cam))
+@functools.lru_cache(maxsize=64)
+def _host_key(k0: int, k1: int, data: int):
+    """fold((k0, k1), data) on the host: the spp key, the pixel-domain key."""
+    return tuple(rng.threefry2x32(k0, k1, 0, data & rng.M32))
+
+
+@functools.lru_cache(maxsize=16)
+def _camera_floats(host: HostCamera, w: int, h: int):
+    """The kernel's camera floats: the basis in float32 on the CPU (as the
+    twin computes it), 2 fov, fov, fov * aspect and the aspect scale."""
+    d, du, dv = camera_basis(host.params("cpu"))
+    fov = np.float32(host.fov)
+    return (*d.tolist(), *du.tolist(), *dv.tolist(), float(np.float32(2.0) * fov), float(fov),
+            float(fov * np.float32(w / h)), host.aspect_scale)
 
 
 def gen_rays_plain(base_key, spp: int, lane0: int, n: int, image_res, block,
@@ -98,7 +116,7 @@ def gen_rays_plain(base_key, spp: int, lane0: int, n: int, image_res, block,
     _, h = image_res
     dev = luts.cie_cdf.device
     lane = torch.arange(lane0, lane0 + n, dtype=torch.int64, device=dev)
-    _, _, pu_i, pv_i = tile_pixel_coords(lane, image_res, block, tile_ids)
+    tidx, li, pu_i, pv_i = tile_pixel_coords(lane, image_res, block, tile_ids)
     pid = pu_i * h + pv_i
     base = torch.tensor(base_key, dtype=torch.int64, device=dev)
     keys = rng.lane_keys(rng.fold(base, spp), pid)
@@ -106,35 +124,32 @@ def gen_rays_plain(base_key, spp: int, lane0: int, n: int, image_res, block,
     shift = rng.uniform(rng.fold(pkeys, _SITE_JITTER), (3,))
     seq = torch.tensor(_seq(spp), dtype=torch.float32, device=dev)
     u3 = torch.remainder(shift + seq[:, None], 1.0)
-    basis = tuple(t.to(dev) for t in camera_basis(_cpu_camera(cam)))
-    dirs = cast_dirs(cam, pu_i.to(torch.float32), pv_i.to(torch.float32),
+    cpu_cam = cam.host.params("cpu")
+    basis = tuple(t.to(dev) for t in camera_basis(cpu_cam))
+    dirs = cast_dirs(cpu_cam, pu_i.to(torch.float32), pv_i.to(torch.float32),
                      u3[0], u3[1], image_res, basis)
     if preview:
         wl, resp, rcp_pdf = sp.spectrum_sample(u3[2], luts.cie_cdf, luts.cie_response)
-        return Rays(keys, dirs, wl[:, None], resp[:, None, :], rcp_pdf[:, None])
+        return Rays(keys, dirs, wl[:, None], resp[:, None, :], rcp_pdf[:, None], pid, tidx, li)
     wl, resp, pdf = sp.spectrum_sample_hero(
         u3[2], luts.cie_cdf, luts.cie_response, HERO_LAMBDAS
     )
-    return Rays(keys, dirs, wl, resp, pdf)
+    return Rays(keys, dirs, wl, resp, pdf, pid)
 
 
 def kernel_params(base_key, spp: int, lane0: int, image_res, block,
-                  cam: CameraParams, cie_cdf, preview: bool):
-    """The ``gen_rays`` kernel's (19 float, 12 int) parameters: keys
-    derived on the host, the camera basis computed once in float32."""
+                  cam: CameraParams, luts, preview: bool):
+    """The ``gen_rays`` kernel's (19 float, 12 int) parameters from host
+    values alone: the camera's ``host`` floats (its basis computed once in
+    float32 on the CPU), the CIE CDF's totals recorded with ``luts``
+    (assets/luts.ray_tables), the keys derived on the host. Reads no tensor."""
     w, h = image_res
-    cpu_cam = _cpu_camera(cam)
-    d, du, dv = camera_basis(cpu_cam)
-    fov = np.float32(cpu_cam.fov.item())
-    cdf_max = cie_cdf[cie_cdf.shape[0] - 1].tolist()
-    fparams = [*d.tolist(), *du.tolist(), *dv.tolist(), float(np.float32(2.0) * fov),
-               float(fov), float(fov * np.float32(w / h)), float(cpu_cam.aspect_scale.item()),
-               *_seq(spp), *cdf_max]
+    _, cdf_max = ray_tables(luts)
+    fparams = [*_camera_floats(cam.host, w, h), *_seq(spp), *cdf_max]
     k0, k1 = base_key
-    spp_key = rng.threefry2x32(k0, k1, 0, spp & rng.M32)
-    pix_key = rng.threefry2x32(k0, k1, 0, _PIXEL_DOMAIN)
-    iparams = [*spp_key, *pix_key, lane0, w, h, block[0], block[1],
-               cie_cdf.shape[0], 1 if preview else HERO_LAMBDAS, int(preview)]
+    iparams = [*_host_key(k0, k1, spp), *_host_key(k0, k1, _PIXEL_DOMAIN), lane0, w, h,
+               block[0], block[1], luts.cie_cdf.shape[0], 1 if preview else HERO_LAMBDAS,
+               int(preview)]
     return fparams, iparams
 
 
@@ -142,13 +157,13 @@ def gen_rays(base_key, spp: int, lane0: int, n: int, image_res, block,
              cam: CameraParams, luts, preview: bool, tile_ids=None) -> Rays:
     """Rays for lanes [lane0, lane0 + n) (of the tiles ``tile_ids`` when
     given): the plain version on a CPU render device, the ``gen_rays``
-    kernel on a CUDA one."""
+    kernel on a CUDA one, which reads nothing back from the card."""
     if luts.cie_cdf.device.type == "cpu":
         return gen_rays_plain(base_key, spp, lane0, n, image_res, block, cam, luts, preview,
                               tile_ids)
-    fparams, iparams = kernel_params(base_key, spp, lane0, image_res, block, cam,
-                                     luts.cie_cdf, preview)
+    fparams, iparams = kernel_params(base_key, spp, lane0, image_res, block, cam, luts, preview)
+    g, _ = ray_tables(luts)
     return Rays(*kernels.gen_rays(
-        fparams, iparams, sp.cie_g(luts.cie_cdf), luts.cie_response.contiguous(), n,
-        1 if preview else HERO_LAMBDAS, tile_ids,
+        fparams, iparams, g, luts.cie_response, n, 1 if preview else HERO_LAMBDAS, tile_ids,
+        tile_map=preview,
     ))

@@ -38,7 +38,7 @@ from . import frame_end as fe
 from . import pathtracer as pt
 from . import raygen
 from . import raymarcher
-from .camera import CameraParams
+from .camera import CameraParams, HostCamera
 from .params import SceneParams, TraceConfig, make_scene_params
 
 
@@ -55,21 +55,20 @@ def trace_lanes(base_key, spp: int, lane0: int, n: int, cam: CameraParams,
     device deposits into its own flat shard). The path tracer polls
     ``interrupt`` between bounces (pathtracer.run_bounces) and raises
     ``pathtracer.Interrupted`` before anything is deposited."""
-    _, h = image_res
     preview = mode == "preview"
     rays = raygen.gen_rays(base_key, spp, lane0, n, image_res, block, cam, luts, preview,
                            tile_ids)
     dev = rays.dirs.device
-    lane = torch.arange(lane0, lane0 + n, dtype=torch.int64, device=dev)
-    tidx, li, pu, pv = raygen.tile_pixel_coords(lane, image_res, block, tile_ids)
-    pid = pu * h + pv if out_index is None else out_index
-    pos = cam.position.expand(n, 3).contiguous()
+    pid = rays.pid if out_index is None else out_index
+    # the rays' origin from the host camera: one copy that waits for nothing
+    origin = torch.tensor(cam.host.position, dtype=torch.float32)
+    pos = origin.to(dev, non_blocking=True).expand(n, 3).contiguous()
     if preview:
         # the spp key on the host: the preview kernel folds in each lane's tile
         spp_key = rng.fold(torch.tensor(base_key, dtype=torch.int64), spp)
         radiance = raymarcher.march_paths(
             spp_key, pos, rays.dirs, rays.wavelengths[:, 0], scene, atlas, luts, cfg,
-            tile_index=tidx, lane=li, tile=block[0] * block[1],
+            tile_index=rays.tile_index, lane=rays.lane_index, tile=block[0] * block[1],
         )
         fe.frame_end(rays.responses, pid, color, count, lum2, radiance=radiance[:, None],
                      pdf=rays.pdf)
@@ -126,6 +125,7 @@ class Renderer:
         self.sun_angle = C.DEFAULT_SUN_ANGLE
         self.sun_path_rot = C.DEFAULT_SUN_PATH_ROT
         self.land_height_scale = C.DEFAULT_LAND_HEIGHT_SCALE
+        self._scene_params = {}  # device -> (slider values, SceneParams)
 
         self._seed_key = (0, int(seed) & rng.M32)  # jax.random.PRNGKey(seed)
         self.current_spp = 0
@@ -178,20 +178,25 @@ class Renderer:
         self.land_height_scale = float(scale)
 
     # --- parameter assembly -------------------------------------------------
+    def host_camera(self) -> HostCamera:
+        return HostCamera.of(self.camera_pos, self.look_at, self.up, self.fov, self.aspect_scale)
+
     def camera_params(self, device=None) -> CameraParams:
-        f32 = dict(dtype=torch.float32, device=device or self.device)
-        return CameraParams(
-            position=torch.tensor(self.camera_pos, **f32),
-            look_at=torch.tensor(self.look_at, **f32),
-            up=torch.tensor(self.up, **f32),
-            fov=torch.tensor(self.fov, **f32),
-            aspect_scale=torch.tensor(self.aspect_scale, **f32),
-        )
+        """The camera as float32 tensors on ``device`` (the render device by
+        default) with its host values; the frame's passes take it on the
+        CPU, whose tensors cost the card no copy."""
+        return self.host_camera().params(device or self.device)
 
     def scene_params(self, device=None) -> SceneParams:
-        return make_scene_params(
-            device or self.device, self.sun_angle, self.sun_path_rot, self.land_height_scale
-        )
+        """The scene's tensors on ``device``, made again only when a slider
+        has moved (a tensor made from host values waits for the card)."""
+        device = torch.device(device or self.device)
+        key = (self.sun_angle, self.sun_path_rot, self.land_height_scale)
+        kept = self._scene_params.get(device)
+        if kept is None or kept[0] != key:
+            kept = (key, make_scene_params(device, *key))
+            self._scene_params[device] = kept
+        return kept[1]
 
     # --- main API -----------------------------------------------------------
     def reset_framebuffer(self):
@@ -254,7 +259,7 @@ class Renderer:
             block = self.block
         try:
             trace_lanes(
-                self._seed_key, self._rng_round, 0, k * self.tile, self.camera_params(),
+                self._seed_key, self._rng_round, 0, k * self.tile, self.camera_params("cpu"),
                 self.scene_params(), self.atlas, self.luts, self.image_res, block, self.cfg,
                 self.color_buffer.view(w * h, 3), self.count_buffer.view(-1),
                 self.lum2_buffer.view(-1), mode=self.mode, interrupt=interrupt, tile_ids=tile_ids,
@@ -289,7 +294,7 @@ class Renderer:
         total = w * h
         per = -(-total // max(1, min(int(n_chunks), total)))
         block = self.block if self.mode == "preview" else (1, h)
-        cam, scene = self.camera_params(), self.scene_params()
+        cam, scene = self.camera_params("cpu"), self.scene_params()
         # an abort raises before the chunk's deposit, so only a spp that can
         # be abandoned after a chunk has landed stages its chunks apart
         staged = interrupt is not None and per < total

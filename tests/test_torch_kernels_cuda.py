@@ -186,12 +186,11 @@ def test_main_path_uses_every_kernel_and_matches_golden(dev):
 
 
 # --- the viewer path's kernels: gen_rays, atmos_march, preview, film --------
-# Stated tolerances (kernel vs twin, same inputs, on the card): lane keys
-# bit-equal; directions within 1e-6 absolute and wavelengths within 1e-6
-# relative (the twin's CUDA ops divide by a scalar as a multiply by its
-# reciprocal, the kernel divides); atmos_march in-scatter and transmittance
-# and the preview radiance within 1e-4 relative on at least 99.9% of lanes;
-# film output within 1e-4.
+# Stated tolerances (kernel vs twin, same inputs, on the card): gen_rays
+# bit-equal in every field (the kernel multiplies by float32(1 / b) where the
+# twin's CUDA ops apply a Python divisor b); atmos_march in-scatter and
+# transmittance and the preview radiance within 1e-4 relative on at least
+# 99.9% of lanes; film output within 1e-4.
 
 
 def _apollo_renderer(dev, res, mode):
@@ -202,6 +201,17 @@ def _apollo_renderer(dev, res, mode):
                  atlas=build_atlas(generate_earth_textures((64, 128), seed=3), dev))
     apply_config(r, load_config(os.path.join(ROOT, "scenes", "config - Apollo 11.txt")))
     return r
+
+
+def _rays_equal(got, want):
+    """Every field of two Rays bit-equal (floats compared as their bits)."""
+    for name, g, w in zip(got._fields, got, want):
+        assert (g is None) == (w is None), name
+        if g is not None:
+            assert g.shape == w.shape and g.dtype == w.dtype, name
+            if g.is_floating_point():
+                g, w = g.view(torch.int32), w.view(torch.int32)
+            assert torch.equal(g, w), name
 
 
 @pytest.mark.parametrize("mode,res", [("path", (320, 180)), ("preview", (160, 90))])
@@ -216,12 +226,29 @@ def test_gen_rays_kernel(dev, mode, res):
     before = kernels.gen_rays.launches
     got = raygen.gen_rays(*args)
     assert kernels.gen_rays.launches == before + 1
+    _rays_equal(got, raygen.gen_rays_plain(*args))
+
+
+def test_gen_rays_kernel_captured_in_a_cuda_graph(dev):
+    """The wrapper reads nothing back from the card and launches nothing but
+    the kernel: a CUDA graph captures it, and its replay writes the rays."""
+    from digital_earth_tpu_torch import kernels
+    from digital_earth_tpu_torch.render import raygen
+
+    r = _apollo_renderer(dev, (320, 180), "path")
+    args = ((0, 3), 2, 0, 320 * 180, (320, 180), (1, 180), r.camera_params("cpu"), r.luts,
+            False)
     want = raygen.gen_rays_plain(*args)
-    assert torch.equal(got.keys, want.keys)
-    assert (got.dirs - want.dirs).abs().max().item() <= 1e-6
-    assert ((got.wavelengths - want.wavelengths).abs() / want.wavelengths).max().item() <= 1e-6
-    assert (got.responses - want.responses).abs().max().item() <= 1e-4
-    assert torch.allclose(got.pdf, want.pdf, rtol=1e-4, atol=1e-6)
+    raygen.gen_rays(*args)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    before = kernels.gen_rays.launches
+    with torch.cuda.graph(graph):
+        got = raygen.gen_rays(*args)
+    assert kernels.gen_rays.launches == before + 1
+    graph.replay()
+    torch.cuda.synchronize()
+    _rays_equal(got, want)
 
 
 def test_atmos_march_kernel(case):
@@ -339,24 +366,52 @@ def test_film_postprocess_kernel(dev, drt, per_pixel):
 # same fixed order).
 
 
-def test_gen_rays_kernel_from_a_tile_list(dev):
+@pytest.mark.parametrize("mode,lane0", [("path", 0), ("path", 2 * 64 + 17), ("preview", 100)])
+def test_gen_rays_kernel_from_a_tile_list(dev, mode, lane0):
     from digital_earth_tpu_torch import kernels
     from digital_earth_tpu_torch.render import raygen
 
-    r = _apollo_renderer(dev, (320, 180), "path")
+    r = _apollo_renderer(dev, (320, 180), mode)
     bw, bh = r.block
     n_tiles = (320 // bw) * (180 // bh)
     ids = torch.randperm(n_tiles, generator=torch.Generator().manual_seed(2))[: n_tiles // 4]
     ids = ids.to(torch.int32).to(dev)
-    args = ((0, 3), 5, 0, ids.numel() * bw * bh, (320, 180), r.block, r.camera_params(), r.luts,
-            False, ids)
+    args = ((0, 3), 5, lane0, ids.numel() * bw * bh - lane0, (320, 180), r.block,
+            r.camera_params(), r.luts, mode == "preview", ids)
     before = kernels.gen_rays.launches
     got = raygen.gen_rays(*args)
     assert kernels.gen_rays.launches == before + 1
-    want = raygen.gen_rays_plain(*args)
-    assert torch.equal(got.keys, want.keys)
-    assert (got.dirs - want.dirs).abs().max().item() <= 1e-6
-    assert ((got.wavelengths - want.wavelengths).abs() / want.wavelengths).max().item() <= 1e-6
+    _rays_equal(got, raygen.gen_rays_plain(*args))
+
+
+@pytest.mark.parametrize("mode", ["path", "preview"])
+def test_trace_lanes_pid_matches_the_twin(dev, mode, monkeypatch):
+    """trace_lanes deposits each lane at the pid the kernel wrote, which is
+    the twin's, without recomputing the pixel map."""
+    from digital_earth_tpu_torch.render import frame_end as fe
+    from digital_earth_tpu_torch.render import raygen
+
+    res = (64, 36)
+    r = _apollo_renderer(dev, res, mode)
+    r.cfg = TraceConfig(max_bounces=2, land_march_steps=64, max_tracking_steps=256)
+    seen = {}
+    deposit = fe.frame_end
+
+    def keep(responses, pid, *args, **kwargs):
+        seen["pid"] = pid.clone()
+        return deposit(responses, pid, *args, **kwargs)
+
+    block = r.block if mode == "preview" else (1, res[1])
+    want = raygen.gen_rays_plain(r._seed_key, 0, 0, res[0] * res[1], res, block,
+                                 r.camera_params("cpu"), r.luts, mode == "preview")
+
+    def recomputed(*args, **kwargs):
+        raise AssertionError("trace_lanes recomputed the pixel map")
+
+    monkeypatch.setattr(fe, "frame_end", keep)
+    monkeypatch.setattr(raygen, "tile_pixel_coords", recomputed)
+    r.accumulate()
+    assert torch.equal(seen["pid"], want.pid)
 
 
 def _rel_close(got, want, rtol=1e-5):
@@ -854,6 +909,37 @@ def test_upsample_kernel(dev, shape, factor, jitter, channel, seed):
     torch.cuda.synchronize()
     assert kernels.upsample.launches == before + 1
     assert got.shape == want.shape and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("f", [1, 2, 8])
+@pytest.mark.parametrize("c", range(1, 9))
+def test_upsample_kernel_odd_rows(dev, c, f):
+    """Rows of W C bytes off a multiple of 16 (the byte path: w = 7 or 9 with
+    C odd or f = 1, 2) and on it (the vector path), jittering channel c - 1,
+    bit-equal to the twin."""
+    from digital_earth_tpu_torch.ops import texture as tx
+
+    for w in (7, 9):
+        img = torch.from_numpy(np.random.default_rng(8 * c + f + w).integers(
+            0, 256, (5, w, c), dtype=np.uint8)).to(dev)
+        for jitter in (0.0, 0.3):
+            got = tx.upsample(img, f, jitter, c - 1, 0x7071)
+            want = tx.upsample_plain(img, f, jitter, c - 1, 0x7071)
+            assert torch.equal(got, want), (w, jitter)
+
+
+@pytest.mark.parametrize("c,jc", [(8, j) for j in range(8)] + [(4, j) for j in range(4)]
+                         + [(3, j) for j in range(3)])
+def test_upsample_kernel_tier2_widths(dev, c, jc):
+    """The tier-2 planes' widths (2700 base texels upsampled 8x to 21600) at
+    16 output rows, the jitter on each channel in turn."""
+    from digital_earth_tpu_torch.ops import texture as tx
+
+    img = torch.from_numpy(np.random.default_rng(10 * c + jc).integers(
+        0, 256, (2, 2700, c), dtype=np.uint8)).to(dev)
+    got = tx.upsample(img, 8, 0.06, jc, 0xC10D)
+    want = tx.upsample_plain(img, 8, 0.06, jc, 0xC10D)
+    assert got.shape == (16, 21600, c) and torch.equal(got, want)
 
 
 def test_upsample_launcher_checks_its_inputs(dev):

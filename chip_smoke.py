@@ -23,7 +23,8 @@ at the end). Phases, each of which raises on failure (exit code 1):
    (``nvidia-smi --query-gpu=name,power.limit``);
 2. builds the kernels of ``digital_earth_tpu_torch/csrc`` with nvcc for
    sm_90a (timed), and prints ptxas's registers and spills of the bounce
-   entries, ``compact_lanes`` and ``preview``;
+   entries, ``compact_lanes``, ``preview``, ``atmos_march`` and
+   ``select_tiles``;
 3. holds the threefry header bit for bit against the plain ``uniform``,
    and times it at the frame's shape;
 4. renders one spp of the main path's frame (Apollo 11, 1920x1080, default
@@ -83,13 +84,19 @@ and read just after):
 10. ``film_postprocess`` (Triton) against its twin on the phase-6 buffer,
     OpenDRT and AgX, a scalar spp and a per-pixel count;
 11. the preview frame: Apollo 11 at 480x270 (the viewer's preview of a
-    1920x1080 view), ``accumulate`` + ``fetch_image``, 3 warm frames timed:
-    ``preview`` launches once per frame, ``atmos_march`` and ``land_march``
-    never (their loops run inside it); ``preview`` against
-    ``march_paths_plain`` on the card on the frame's own lanes, lane by lane
-    (kernel and twin timed, the bound printed); ``atmos_march`` against its
-    twin on the arguments of bounces 0 and 1 of that twin's run; the
-    committed preview golden (32x18) on the card;
+    1920x1080 view), a warm ``accumulate`` under
+    ``torch.cuda.set_sync_debug_mode("error")`` (no synchronizing call),
+    then ``accumulate`` + ``fetch_image``, 3 warm frames timed: ``preview``
+    launches once per frame, ``atmos_march`` and ``land_march`` never
+    (their loops run inside it); ``preview`` against ``march_paths_plain``
+    on the card on the frame's own lanes, every lane bit-equal (the kernel
+    timed, with its registers and resident warps); the kernel's time split
+    into the march, the land and shadow marches (their test launchers on
+    the same lanes) and the rest, and by the census instance (each lane's
+    clock64 cycles in each); the twin timed, the bound printed;
+    ``atmos_march`` bit-equal to its twin on the arguments of bounces 0-2 of
+    that twin's run; the committed preview golden (32x18)
+    on the card;
 12. ``accumulate_interruptible(9)`` at 1920x1080 bit-equal to
     ``accumulate()`` for the same seed and round;
 13. ``EarthViewer`` at 1920x1080 on an ephemeral port, driven over HTTP:
@@ -110,7 +117,9 @@ Adaptive tile sampling (Apollo 11 at 1920x1080, default ``TraceConfig()``):
     end-of-sweep state (phase 4), on a frac=0.25 pass's tile list with
     counts, and on the 480x270 preview frame's lanes;
 17. ``select_tiles`` against its plain twin on the buffers after the
-    warm-up and after 4 adaptive passes: the same tile ids in order;
+    warm-up and after 4 adaptive passes: the same tile ids in order, m_bar
+    and every tile score bit-equal, two launches per call; timed per call
+    from the host and on the device (a CUDA graph of 20 calls);
 18. ``EarthViewer(adaptive_frac=0.25, adaptive_fps=0.25)`` over HTTP: the
     mean spp goes fractional, input in the middle of a pass reaches a new
     preview frame (latency printed), the frame-rate controller sets the
@@ -125,8 +134,9 @@ after its adaptive pass):
     ``accumulate_interruptible(9)`` bit-equal; 2 warm-up and one frac=0.25
     adaptive pass, each device refining exactly the tiles
     ``select_tiles_shard_plain`` picks on its shard; the shard entries of
-    ``select_tiles`` against their twins (shard means bit-equal, ids equal in
-    order) on the warm-up buffers and after the pass; checkpoints (4, 1) ->
+    ``select_tiles`` against their twins (shard means and every tile score
+    bit-equal, ids equal in order; timed per call and on the device) on the
+    warm-up buffers and after the pass; checkpoints (4, 1) ->
     (2, 2), -> ``Renderer`` and, with counts, (4, 1) -> (2, 1), exact; s/spp
     of the Renderer (before and after), the (4, 1) and the (2, 2) mesh; with
     more than one card an (n, 1) mesh over distinct cards bit-equal to the
@@ -156,12 +166,12 @@ Last, since a profiler session can slow the launches after it:
     MAX_KERNELS_PER_SPP, four times that on the mesh), the device-busy share,
     the kernels with the most device time, the bounce entries' device
     time; then one warm 480x270 preview frame: device kernels per frame (at most
-    MAX_KERNELS_PER_PREVIEW), the device-busy share, ``preview``'s device
-    time.
+    MAX_KERNELS_PER_PREVIEW: ``gen_rays``, ``preview``, ``frame_end``,
+    ``film_postprocess``), the device-busy share, ``preview``'s device time.
 
 The line before the last is the card's name and power limit; before it, one
-JSON line lists each kernel with its launches (``select_tiles`` makes four
-per call, ``select_tiles_shard`` two per shard mean and two per shard
+JSON line lists each kernel with its launches (``select_tiles`` makes two
+per call, ``select_tiles_shard`` one per shard mean and one per shard
 selection, ``compact_lanes`` two (the scratch reset and the kernel),
 counted as one; ``upsample`` four per atlas, its times the four planes'
 sums; ``preview`` one per preview frame, its launches from phase 11; the
@@ -171,7 +181,10 @@ host, their device times printed beside them), error,
 times and bound (the least time the card could take: the larger of the
 bytes it must move at 3.35 TB/s and the operations at 67 TFLOP/s, counted
 from this run's inputs, a transcendental as one operation; the bounce
-entries' operations from the census's trip counts). The last line is
+entries' operations from the census's trip counts; for ``preview`` and
+``atmos_march`` the largest of the bytes' time, their FP32 instructions
+at 128 per SM per clock and their special-function operations at 16 per
+SM per clock, at the card's largest SM clock). The last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -197,12 +210,10 @@ RATIO_RTOL, RATIO_ATOL = 1e-4, 1e-6  # ratio-tracking transmittance
 # Python divisor b (/ H, / res, / L) as a multiply by float32(1 / b), and the
 # kernel rounds it so; directions were gated at 1e-6 absolute, wavelengths
 # at 1e-6 and responses and pdf at 1e-4 relative while the kernel divided.
-MARCH_RTOL = 1e-4   # atmos_march in-scatter / transmittance (atol 1e-6 of the max)
-# preview vs march_paths_plain: the share of lanes whose radiance is within
-# PREVIEW_RTOL (atol 1e-6 of the largest value) at least BOUNCE_AGREEMENT.
-# Both round op by op with the same libm and draw the same numbers; a lane
-# parts only where a march hit flips on an ulp.
-PREVIEW_RTOL = 1e-4
+# preview and atmos_march: every lane bit-equal to march_paths_plain and
+# ray_march_atmos_plain (the warp-cooperative march replays the per-lane
+# march's operations in its order, the densities round Python divisors as
+# PyTorch's CUDA ops do).
 FILM_ATOL = 1e-4    # film_postprocess display values in [0, 1]
 PREVIEW_RES = (480, 270)  # the viewer's preview (preview_scale=4) of RES
 # frame_end: RGB and lum^2 within 1e-5 relative (atol 1e-6 of the largest
@@ -324,8 +335,11 @@ def simt_efficiency(torch, trips, warp=32):
     work = t.sum(0)
     return [None if w == 0 else float(a / w) for a, w in zip(work.tolist(), worst.tolist())]
 # NVIDIA H100 SXM (NVIDIA's data sheet): HBM3 bytes/s and float32
-# operations/s outside the tensor cores, for each kernel's bound.
+# operations/s outside the tensor cores, for each kernel's bound; its SMs,
+# FP32 lanes and special-function units per SM (the Hopper white paper) for
+# the bounds of preview and atmos_march, which count instructions.
 PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
+H100_SMS, FP32_PER_SM, SFU_PER_SM = 132, 128, 16
 # Operations per lane or pixel, counted from the kernel sources: each add,
 # multiply, divide, square root, min or max, and each expf, powf, log2f,
 # atan2f or asinf, as one operation. The peak table gives no rate for the
@@ -344,6 +358,16 @@ GEN_RAYS_OPS = 680
 # (45 each) and the final exponential (6): 744.
 ATMOS_LANE_OPS = 22 + 64 * (33 + 33 + 17)
 ATMOS_SUN_OPS = 17 + 1 + 16 * 45 + 6
+# The same march's special-function operations (each expf, sqrtf and true
+# division issues one on the SFU; a Python divisor is a multiply by its
+# reciprocal, and --fmad=false leaves every other multiply and add its own
+# FP32 instruction): a density evaluation has 5 (the elevation's sqrtf,
+# Rayleigh's expf, the one expf of the Mie branch that is kept, the ozone's
+# two), a march step a density, the step's expf and division and the
+# occlusion test's sqrtf (8), a sun march the atmosphere's sqrtf, 16
+# densities and its expf (82), a lane's setup the Mie phase's division (1).
+ATMOS_DENSITY_SFU = 5
+ATMOS_STEP_SFU, ATMOS_SUN_SFU, ATMOS_LANE_SFU = ATMOS_DENSITY_SFU + 3, 16 * ATMOS_DENSITY_SFU + 2, 1
 # preview (csrc/preview.cu), counted the same way; the land-march probes and
 # the texture taps (normal, material, stars) are not counted, so its bound
 # is a floor. Every lane: two Planck terms and the sun irradiance (22), the
@@ -361,10 +385,18 @@ ATMOS_SUN_OPS = 17 + 1 + 16 * 45 + 6
 # spectrum (18), its term (3): 27.
 PREVIEW_LANE_OPS, PREVIEW_BOUNCE_OPS, PREVIEW_CHAIN_OPS = 149, 309, 77
 PREVIEW_SURFACE_OPS, PREVIEW_MISS_OPS = 1007, 27
-# pos, dir (12 B each), wavelength (4), tile and in-tile index (8 each) read,
-# the radiance (4) written; the o3 and srgb2spec tables read once
-PREVIEW_LANE_BYTES, PREVIEW_TABLE_BYTES = 48, 441 * 4 + 300 * 12
-MAX_KERNELS_PER_PREVIEW = 100  # device kernels of one profiled preview frame
+# Its SFU operations beyond the marches': the two Planck terms' expf and
+# three divisions each (8) per lane; the land-march probes, the BRDFs and
+# the taps are not counted (a floor).
+PREVIEW_LANE_SFU = 8
+# dir (12 B), wavelength (4), tile and in-tile index (8 each) read, the
+# radiance (4) written (the origin comes by value); the o3 and srgb2spec
+# tables read once
+PREVIEW_LANE_BYTES, PREVIEW_TABLE_BYTES = 36, 441 * 4 + 300 * 12
+# device kernels of one profiled warm preview frame: gen_rays, preview,
+# frame_end, film_postprocess (nothing else runs: the scene's floats and the
+# rays' origin come from the host)
+MAX_KERNELS_PER_PREVIEW = 4
 # film_postprocess: the OpenDRT chain from /spp and the vignette to the
 # camera response and the sRGB encoding.
 FILM_OPS = 230
@@ -375,10 +407,28 @@ def fail(msg):
     sys.exit(1)
 
 
-def bound(nbytes, ops):
-    """(ms, "bytes" or "operations"): the least time for the work on the card."""
-    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, (ops or 0) / PEAK_F32 * 1e3
+def bound(nbytes, ops, sfu=None):
+    """(ms, "bytes" or "operations"): the least time for the work on the
+    card. With ``sfu`` (special-function operations), ``ops`` counts FP32
+    instructions, each issued alone (--fmad=false) at 128 per SM per clock,
+    and the SFU operations issue at 16 per SM per clock, at the card's
+    largest SM clock; else ``ops`` run at the FP32 peak."""
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    if sfu is None:
+        t_ops = (ops or 0) / PEAK_F32 * 1e3
+    else:
+        hz = sm_clock_mhz() * 1e6
+        t_ops = max(ops / (H100_SMS * FP32_PER_SM * hz), sfu / (H100_SMS * SFU_PER_SM * hz)) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def sm_clock_mhz():
+    """The card's largest SM clock (nvidia-smi clocks.max.sm), MHz."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True,
+    )
+    return float(out.stdout.strip().splitlines()[0])
 
 
 def nvidia_smi_line():
@@ -1450,11 +1500,12 @@ def check_film(torch, buf, crf_curves):
 
 
 def preview_frame(torch, dev, atlas, luts, label=""):
-    """The preview frame at 480x270: 3 warm frames timed with their launches
-    counted (``preview`` once, ``atmos_march`` and ``land_march`` never);
-    then ``check_preview`` on the frame's own lanes. Returns (launch counts
-    of one frame, JSON rows of ``preview`` and ``atmos_march``, the
-    frame_end arguments)."""
+    """The preview frame at 480x270: one accumulate() under
+    torch.cuda.set_sync_debug_mode("error") (it may make no synchronizing
+    call), then 3 warm frames timed with their launches counted (``preview``
+    once, ``atmos_march`` and ``land_march`` never); then ``check_preview``
+    on the frame's own lanes. Returns (launch counts of one frame, JSON rows
+    of ``preview`` and ``atmos_march``, the frame_end arguments)."""
     from digital_earth_tpu_torch import kernels
     from digital_earth_tpu_torch.render import raymarcher
     from digital_earth_tpu_torch.render.renderer import Renderer
@@ -1475,6 +1526,17 @@ def preview_frame(torch, dev, atlas, luts, label=""):
         torch.cuda.synchronize()
     finally:
         raymarcher.march_paths = original
+    where = f" {label}" if label else ""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        r.accumulate()
+    except RuntimeError as e:
+        fail(f"a warm preview accumulate(){where} made a synchronizing call: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    print(f"preview frame{where}: a warm accumulate() made no synchronizing call "
+          f"(torch.cuda.set_sync_debug_mode('error'))")
     times = []
     for _ in range(3):
         r.reset_framebuffer()
@@ -1486,7 +1548,6 @@ def preview_frame(torch, dev, atlas, luts, label=""):
         times.append(time.time() - t0)
         counts = kernels.launch_counts()
     finite = bool(torch.isfinite(img).all()) and bool(torch.isfinite(r.color_buffer).all())
-    where = f" {label}" if label else ""
     print(f"preview frame Apollo 11 {PREVIEW_RES[0]}x{PREVIEW_RES[1]}{where} (accumulate + "
           f"fetch_image, warm, {nvidia_smi_line()}): {' '.join(f'{t * 1e3:.1f}' for t in times)} "
           f"ms; launches {counts}; finite {finite}, buffer mean {r.color_buffer.mean().item():.6g}")
@@ -1500,18 +1561,40 @@ def preview_frame(torch, dev, atlas, luts, label=""):
     return counts, rows, kept
 
 
+def _twin_lanes(torch, args, kwargs):
+    """A captured march_paths call as its twin takes it: the lanes' origins
+    from the origin passed by value, without the kernel's blocks."""
+    kw = {k: v for k, v in kwargs.items() if k not in ("frame", "origin")}
+    if args[1] is None:
+        n = args[2].shape[0]
+        pos = torch.tensor(kwargs["origin"], dtype=torch.float32, device=args[2].device)
+        args = (args[0], pos.expand(n, 3).contiguous(), *args[2:])
+    return args, kw
+
+
 def check_preview(torch, args, kwargs, launches, where):
     """``preview`` against ``march_paths_plain`` on the card on one frame's
-    lanes, lane by lane (the share within PREVIEW_RTOL at least
-    BOUNCE_AGREEMENT), both timed; ``atmos_march`` against its twin on the
-    arguments of bounces 0 and 1 of that twin's run. Returns the JSON rows
-    of both kernels."""
+    lanes: every lane bit-equal (the kernel timed, 5 calls; the twin
+    timed), its registers and resident warps; the kernel's time split into
+    the march (the
+    ``atmos_march`` launcher on the arguments of the twin's three bounces),
+    the land marches (``land_march`` on the twin's six) and the rest;
+    ``atmos_march`` bit-equal to its twin at bounces 0-2. Returns the JSON rows of both kernels."""
+    from digital_earth_tpu_torch import constants as C
+    from digital_earth_tpu_torch import kernels
     from digital_earth_tpu_torch.render import raymarcher
 
-    scene, atlas, luts, cfg = args[4:8]
-    frame = raymarcher.PreviewFrame(scene, atlas, luts, cfg, kwargs["tile"])
-    got, ms = _time_ms(torch, lambda: raymarcher.march_paths(*args, **kwargs, frame=frame), 5)
-    atmos_args, marched = [], []
+    args, kw = _twin_lanes(torch, args, kwargs)
+    key, pos, dirs, wl, scene, atlas, luts, cfg = args
+    frame = raymarcher.PreviewFrame(scene, atlas, luts, cfg, kw["tile"])
+
+    def launch(**k):
+        return kernels.preview(
+            frame.fparams, frame.iparams, key.tolist(), None, dirs, wl, kw["tile_index"],
+            kw["lane"], atlas.topography, atlas.material, atlas.stars, luts.o3_crossec,
+            luts.srgb2spec, origin=pos[0].tolist(), **k)
+
+    atmos_args, land_args = [], []
     originals = raymarcher.ray_march_atmos, raymarcher.intersect_land
 
     def atmos(*a):
@@ -1519,69 +1602,98 @@ def check_preview(torch, args, kwargs, launches, where):
         return originals[0](*a)
 
     def land(*a, **k):
-        marched.append(int(a[4].sum()))  # the lanes each march has active
+        land_args.append((tuple(x.clone() if torch.is_tensor(x) else x for x in a), k))
         return originals[1](*a, **k)
 
     raymarcher.ray_march_atmos, raymarcher.intersect_land = atmos, land
     try:
-        want = raymarcher.march_paths_plain(*args, **kwargs)
+        want = raymarcher.march_paths_plain(*args, **kw)
         torch.cuda.synchronize()
     finally:
         raymarcher.ray_march_atmos, raymarcher.intersect_land = originals
-    _, plain_ms = _plain_ms(torch, lambda: raymarcher.march_paths_plain(*args, **kwargs))
-    n = got.numel()
-    atol = 1e-6 * want.abs().max().clamp(min=1e-30)
-    lane_ok = (got - want).abs() <= PREVIEW_RTOL * want.abs() + atol
-    share = lane_ok.float().mean().item()
+    _, plain_ms = _plain_ms(torch, lambda: raymarcher.march_paths_plain(*args, **kw))
+    if len(atmos_args) != 3 or len(land_args) != 6:
+        fail(f"the twin did not run three bounces: {len(atmos_args)} marches")
+    n = want.numel()
+    got, ms = _time_ms(torch, launch, 5)
+    occ = kernels.preview_occupancy()
+    same = torch.equal(got.view(torch.int32), want.view(torch.int32))
     err = (got - want).abs().max().item()
-    rel = ((got - want).abs() / want.abs().clamp(min=atol))[lane_ok]
-    rel = rel.max().item() if rel.numel() else 0.0
-    same = (got == want).float().mean().item()
+    # the split of the kernel's time, by the test launchers on the same lanes
+    march_ms = sum(_time_ms(torch, lambda a=a: raymarcher.ray_march_atmos(*a), 5)[1]
+                   for a in atmos_args)
+    from digital_earth_tpu_torch.render.tracers import _MARCH_STALL_PATIENCE, _march_floor
+
+    step_floor, stall = _march_floor(atlas.topography, cfg)
+    no_cap = torch.full((n,), float("inf"), device=dirs.device)
+
+    def land_march(a):
+        topo, p, d, _, act = a[:5]
+        return kernels.land_march(topo, p, d, act, no_cap, frame.fparams[0], step_floor=step_floor,
+                                  stall_thresh=stall, steps=cfg.land_march_steps, k=cfg.march_k,
+                                  patience=_MARCH_STALL_PATIENCE, any_hit=False)
+
+    land_ms = sum(_time_ms(torch, lambda a=a: land_march(a), 5)[1] for a, _ in land_args)
     active = [int(a[-1].sum()) for a in atmos_args]
-    surface = marched[1::2]  # each bounce marches its live lanes, then the shadow rays
+    surface = [int(a[4].sum()) for a, _ in land_args[1::2]]  # each bounce's shadow rays
     n_sun = [_atmos_sun_steps(torch, a) for a in atmos_args]
     ops = (PREVIEW_LANE_OPS * n + (PREVIEW_BOUNCE_OPS + ATMOS_LANE_OPS) * sum(active)
            + ATMOS_SUN_OPS * sum(n_sun) + PREVIEW_CHAIN_OPS * sum(active[1:])
            + PREVIEW_SURFACE_OPS * sum(surface) + PREVIEW_MISS_OPS * (n - active[0]))
+    sfu = (PREVIEW_LANE_SFU * n + (ATMOS_LANE_SFU + 64 * ATMOS_STEP_SFU) * sum(active)
+           + ATMOS_SUN_SFU * sum(n_sun))
     nbytes = PREVIEW_LANE_BYTES * n + PREVIEW_TABLE_BYTES
-    b_ms, b_by = bound(nbytes, ops)
-    ok = share >= BOUNCE_AGREEMENT
+    b_ms, b_by = bound(nbytes, ops, sfu)
+    floor_ms, _ = bound(nbytes, ops)
     print(f"preview vs march_paths_plain{where}: {n} lanes; per bounce {active} crossing the "
-          f"atmosphere, {surface} on land, {n_sun} march steps with a sun march; within rtol "
-          f"{PREVIEW_RTOL} {share:.7f} ({n - int(lane_ok.sum())} not), bit-equal {same:.6f}, "
-          f"max abs err {err:.3e}, max rel err on agreeing lanes {rel:.3e}  kernel {ms:.3f} ms  "
-          f"plain {plain_ms:.1f} ms (eager, with the land_march and atmos_march kernels)  bound "
-          f"{b_ms:.4f} ms ({b_by}, a floor)  launches {launches}  {'ok' if ok else 'FAIL'}")
-    if not ok:
-        fail(f"the preview kernel disagrees with march_paths_plain{where}")
-    if len(atmos_args) != 3 or len(marched) != 6:
-        fail(f"the twin did not run three bounces: {len(atmos_args)} marches")
-    rows = dict(preview=dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bytes=nbytes, ops=ops),
+          f"atmosphere, {surface} on land, {n_sun} march steps with a sun march; every lane "
+          f"bit-equal {same} (max abs err {err:.3e})  kernel {ms:.3f} ms ({occ['registers']} "
+          f"registers, {occ['local_bytes']} B local, {occ['warps_per_sm']} resident warps per "
+          f"SM)  plain {plain_ms:.1f} ms (eager, with the land_march and "
+          f"atmos_march kernels)  bound {b_ms:.4f} ms ({b_by}: {ops:.4g} FP32 and {sfu:.4g} SFU "
+          f"operations at {sm_clock_mhz():.0f} MHz, {nbytes} B; the FP32-peak floor "
+          f"{floor_ms:.4f})  launches {launches}  {'ok' if same else 'FAIL'}")
+    print(f"preview{where} time split (the launchers on the same lanes): the march "
+          f"{march_ms:.3f} ms, the land and shadow marches {land_ms:.3f} ms, the rest "
+          f"{ms - march_ms - land_ms:.3f} ms of {ms:.3f}")
+    # the census instance: each lane's clock64 cycles in its land and shadow
+    # marches, in the march and in all; its output must keep the bits
+    got_c, cycles = launch(census=True)
+    land_c, march_c, all_c = (float(x) for x in cycles.double().sum(0).tolist())
+    census_same = torch.equal(got_c.view(torch.int32), want.view(torch.int32))
+    print(f"preview{where} census (clock64 cycles summed over the lanes): the land and "
+          f"shadow marches {land_c / all_c:.3f}, the march {march_c / all_c:.3f}, the rest "
+          f"{1 - (land_c + march_c) / all_c:.3f} of {all_c:.4g} lane-cycles; as shares of the "
+          f"kernel's {ms:.3f} ms: {ms * land_c / all_c:.3f}, {ms * march_c / all_c:.3f}, "
+          f"{ms * (1 - (land_c + march_c) / all_c):.3f} ms; the census instance's "
+          f"radiance bit-equal {census_same}")
+    if not census_same:
+        fail(f"the preview census instance differs from march_paths_plain{where}")
+    if not same:
+        fail(f"the preview kernel differs from march_paths_plain{where}")
+    rows = dict(preview=dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bytes=nbytes, ops=ops,
+                             sfu=sfu),
                 atmos_march=dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0))
     row = rows["atmos_march"]
-    for b, a in enumerate(atmos_args[:2]):
+    occ = kernels.atmos_march_occupancy()
+    for b, a in enumerate(atmos_args):
         act = a[-1]
-        got_a, ms_a = _time_ms(torch, lambda: raymarcher.ray_march_atmos(*a), 5)
         want_a, plain_a = _plain_ms(torch, lambda: raymarcher.ray_march_atmos_plain(*a))
-        ok_a = torch.ones_like(act)
-        errs = []
-        for g, w in zip(got_a, want_a):
-            tol = 1e-6 * w[act].abs().max().clamp(min=1e-30)
-            ok_a &= (g - w).abs() <= MARCH_RTOL * w.abs() + tol
-            errs.append((g - w)[act].abs().max().item())
-        agree = ok_a[act].float().mean().item()
-        print(f"atmos_march bounce {b}{where}: {act.numel()} lanes ({active[b]} active)  lanes "
-              f"agreeing {agree:.7f} ({active[b] - int(ok_a[act].sum())} not)  max abs err "
-              f"in-scatter {errs[0]:.3e} transmittance {errs[1]:.3e}  kernel {ms_a:.3f} ms  "
-              f"plain {plain_a:.1f} ms  {'ok' if agree >= MIN_LANE_AGREEMENT else 'FAIL'}")
-        if not agree >= MIN_LANE_AGREEMENT:
-            fail("atmos_march disagrees with its plain twin")
-        row["max_abs_err"] = max(row["max_abs_err"], errs[0])
+        got_a, ms_a = _time_ms(torch, lambda: kernels.atmos_march(*a, mie_e=C.MIE_ASYMMETRY), 5)
+        ok_a = all(torch.equal(g.view(torch.int32), w.view(torch.int32))
+                   for g, w in zip(got_a, want_a))
+        print(f"atmos_march bounce {b}{where}: {act.numel()} lanes ({active[b]} active): "
+              f"{ms_a:.3f} ms ({occ['registers']} registers, {occ['warps_per_sm']} warps) "
+              f"bit-equal {ok_a}; plain {plain_a:.1f} ms")
+        if not ok_a:
+            fail(f"atmos_march differs from its plain twin at bounce {b}")
         if b == 0:
-            # 17 inputs and 2 outputs per lane; per active lane its 64 steps,
-            # and the sun march only of the steps that need it
+            # 17 inputs and 2 outputs per lane; per active lane its 64
+            # steps, and the sun march only of the steps that need it
             row.update(ms=ms_a, plain_ms=plain_a, bytes=73 * act.numel(),
-                       ops=ATMOS_LANE_OPS * active[0] + ATMOS_SUN_OPS * n_sun[0])
+                       ops=ATMOS_LANE_OPS * active[0] + ATMOS_SUN_OPS * n_sun[0],
+                       sfu=(ATMOS_LANE_SFU + 64 * ATMOS_STEP_SFU) * active[0]
+                       + ATMOS_SUN_SFU * n_sun[0])
     return rows
 
 
@@ -1855,7 +1967,8 @@ def check_adaptive(torch, dev, atlas, luts):
           f"fetch_image finite in [0, 1] {ok_img}; launches {counts}")
     if not ok_img:
         fail("fetch_image of the adaptive run is not finite within [0, 1]")
-    if not (counts["select_tiles"] == 6 * kernels.SELECT_TILES_STAGES and counts["frame_end"] == 8
+    if not (counts["select_tiles"] == 6 * 2 == 6 * kernels.SELECT_TILES_STAGES
+            and counts["frame_end"] == 8
             and counts["gen_rays"] == 8):
         fail(f"the adaptive run did not launch its kernels once per pass: {counts}")
     tile_ids = rays["args"][-1]
@@ -1926,26 +2039,44 @@ def check_frame_end(torch, kept, label):
 
 def check_select_tiles(torch, bufs, block, k, label):
     """select_tiles against its twin on an adaptive run's buffers: the same
-    ids in order. A JSON row."""
+    ids in order, m_bar and every tile score bit for bit; timed per call from
+    the host (5 calls back to back) and on the device (a CUDA graph of 20
+    calls). A JSON row."""
+    from digital_earth_tpu_torch import kernels
     from digital_earth_tpu_torch.render import adaptive
 
     color, count, lum2 = bufs
-    got, ms = _time_ms(torch, lambda: adaptive.select_tiles(color, count, lum2, block, k), 5)
+    got, m_bar, scores = kernels.select_tiles(adaptive._kernel_params(), *bufs, block, k,
+                                              stats=True)
+    _, ms = _time_ms(torch, lambda: adaptive.select_tiles(color, count, lum2, block, k), 5)
+    graph_ms = _graph_ms(torch, lambda: adaptive.select_tiles(color, count, lum2, block, k))
+    # launch A alone: the frame mean, as de_shard_mean runs it on the flat buffers
+    mean_ms = _graph_ms(torch, lambda: adaptive.shard_mean(color.view(-1, 3), count.view(-1)))
     want, plain_ms = _plain_ms(torch, lambda: adaptive.select_tiles_plain(color, count, lum2, block, k))
+    m_want = adaptive.shard_mean_plain(color.reshape(-1, 3), count.reshape(-1))
+    s_want = adaptive.tile_scores_plain(color, count, lum2, block)
+    bits = lambda x: x.view(torch.int32)  # noqa: E731
     equal = torch.equal(got, want)
+    stats_equal = torch.equal(bits(m_bar), bits(m_want)) and torch.equal(bits(scores), bits(s_want))
     w, h = count.shape
     n_tiles = (w // block[0]) * (h // block[1])
+    nbytes = 20 * w * h + 4 * k
+    b_ms, _ = bound(nbytes, None)
     print(f"select_tiles {label}: {n_tiles} tiles of {block}, k={k}: ids equal in order {equal}, "
-          f"first {got[:5].tolist()}  kernel {ms:.3f} ms  plain {plain_ms:.1f} ms  "
-          f"{'ok' if equal else 'FAIL'}")
-    if not equal:
+          f"m_bar and every score bit-equal {stats_equal}, first {got[:5].tolist()}  kernel "
+          f"{ms:.4f} ms per call from the host, {graph_ms:.4f} ms on the device (CUDA graph of 20; "
+          f"{b_ms / graph_ms:.2f} of the {b_ms:.4f} ms bound; the mean's launch {mean_ms:.4f}, "
+          f"the scores' and rank's {graph_ms - mean_ms:.4f}), {kernels.SELECT_TILES_STAGES} "
+          f"launches  plain {plain_ms:.1f} ms  {'ok' if equal and stats_equal else 'FAIL'}")
+    if not (equal and stats_equal):
         fail(f"select_tiles disagrees with its plain twin ({label})")
     # the three buffers read once, the ids written; per pixel 20 operations
     # (luminance 5; n, the mean and its share of the frame sum 3; the score
-    # and its share of the tile sum 12) and two per comparison of the rank
-    # stage
-    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bytes=20 * w * h + 4 * k,
-                ops=20 * w * h + 2 * n_tiles * n_tiles)
+    # and its share of the tile sum 12) and the rank's sort
+    n2 = 1 << max(0, (n_tiles - 1).bit_length())
+    log2 = n2.bit_length() - 1
+    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bytes=nbytes,
+                ops=20 * w * h + n2 // 2 * log2 * (log2 + 1) // 2, graph_ms=graph_ms)
 
 
 def check_adaptive_viewer(torch, dev, atlas, luts):
@@ -2018,36 +2149,54 @@ def check_select_tiles_shard(torch, shards, tile, k, label):
     """The shard entries of select_tiles (de_shard_mean, de_select_tiles_shard)
     against their twins on each px row's (color, count, lum2) shard: shard
     means bit-equal, then each row's ids against the mean of the means,
-    equal in order. A JSON row for one row's two calls (ms, plain ms)."""
+    equal in order, and every tile score bit-equal. A JSON row for one row's
+    two calls (ms per call from the host, and on the device from a CUDA
+    graph; plain ms)."""
+    from digital_earth_tpu_torch import kernels
     from digital_earth_tpu_torch.parallel.mesh import _sum_onto
     from digital_earth_tpu_torch.render import adaptive
 
+    bits = lambda x: x.view(torch.int32)  # noqa: E731
     n_px = len(shards)
     means = [adaptive.shard_mean(c, n) for c, n, _ in shards]
     plain = [adaptive.shard_mean_plain(c, n) for c, n, _ in shards]
-    ok = all(torch.equal(a, b) for a, b in zip(means, plain))
+    ok = all(torch.equal(bits(a), bits(b)) for a, b in zip(means, plain))
     m_bar = _sum_onto(means, shards[0][0].device) / n_px
-    ids = [adaptive.select_tiles_shard(*b, tile, k, m_bar) for b in shards]
-    want = [adaptive.select_tiles_shard_plain(*b, tile, k, m_bar) for b in shards]
-    ok = ok and all(torch.equal(a, b) and a.unique().numel() == k for a, b in zip(ids, want))
+    fp = adaptive._kernel_params()
+    for b in shards:
+        ids, scores = kernels.select_tiles_shard(fp, *b, tile, k, m_bar, stats=True)
+        want = adaptive.select_tiles_shard_plain(*b, tile, k, m_bar)
+        ok = ok and torch.equal(ids, want) and ids.unique().numel() == k and torch.equal(
+            bits(scores), bits(adaptive.shard_scores_plain(*b, tile, m_bar)))
     bufs = shards[0]
-    _, ms = _time_ms(torch, lambda: adaptive.select_tiles_shard(
-        *bufs, tile, k, adaptive.shard_mean(*bufs[:2])), 5)
+
+    def step():
+        return adaptive.select_tiles_shard(*bufs, tile, k, adaptive.shard_mean(*bufs[:2]))
+
+    _, ms = _time_ms(torch, step, 5)
+    graph_ms = _graph_ms(torch, step)
     _, plain_ms = _plain_ms(torch, lambda: adaptive.select_tiles_shard_plain(
         *bufs, tile, k, adaptive.shard_mean_plain(*bufs[:2])))
     n = bufs[1].shape[0]
+    nbytes = 36 * n + 4 * k
+    b_ms, _ = bound(nbytes, None)
     print(f"select_tiles_shard {label}: {n_px} shards of {n // tile} tiles of {tile} pixels, "
-          f"k_local={k}: shard means bit-equal and ids equal in order {ok}, row 0 first "
-          f"{ids[0][:5].tolist()}  kernel {ms:.3f} ms  plain {plain_ms:.1f} ms (one shard's "
-          f"mean and selection)  {'ok' if ok else 'FAIL'}")
+          f"k_local={k}: shard means bit-equal, ids equal in order and every score bit-equal "
+          f"{ok}, row 0 first {ids[:5].tolist()}  kernel {ms:.4f} ms per call from the host, "
+          f"{graph_ms:.4f} on the device (CUDA graph of 20; {b_ms / graph_ms:.2f} of the "
+          f"{b_ms:.4f} ms bound; one shard's mean and selection, 2 launches)  plain "
+          f"{plain_ms:.1f} ms  {'ok' if ok else 'FAIL'}")
     if not ok:
         fail(f"select_tiles_shard disagrees with its plain twin ({label})")
     # a shard read twice (color and count for the mean, 16 B a pixel; the
     # three buffers for the scores, 20 B), the ids written; per pixel 8
     # operations for the mean and 20 for the score (as select_tiles), and
-    # two per comparison of the rank stage
-    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bytes=36 * n + 4 * k,
-                ops=28 * n + 2 * (n // tile) ** 2)
+    # the rank's sort
+    n_t = n // tile
+    n2 = 1 << max(0, (n_t - 1).bit_length())
+    log2 = n2.bit_length() - 1
+    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bytes=nbytes,
+                ops=28 * n + n2 // 2 * log2 * (log2 + 1) // 2, graph_ms=graph_ms)
 
 
 def adaptive_mesh_pass(torch, devices, atlas, luts):
@@ -2247,7 +2396,8 @@ def profile_preview(torch, dev, atlas, luts):
         torch, r, label, run=lambda: (r.accumulate(), r.fetch_image()), unit="frame")
     preview_us = sum(us for name, us in by_name.items() if "preview_kernel" in name)
     print(f"profile {label}: preview {preview_us / 1e3:.3f} ms of {busy * 1e3:.3f} ms "
-          f"device-busy per frame ({nvidia_smi_line()})")
+          f"device-busy per frame ({nvidia_smi_line()}); its kernels: "
+          + ", ".join(name[:48] for name in by_name))
     if not 0 < n_kernels <= MAX_KERNELS_PER_PREVIEW:
         fail(f"{n_kernels} device kernels per preview frame (expected 1-{MAX_KERNELS_PER_PREVIEW})")
     return n_kernels, busy, wall
@@ -2449,21 +2599,30 @@ def preview_bench(torch, dev):
     package imported from DIR (default this checkout), so that two versions
     can be alternated in one call: the 480x270 preview frame (accumulate +
     fetch_image, 2 warm-up and 10 timed frames, host clock to a
-    synchronize) and one profiled frame (device kernels, device-busy share)
-    on the 1024x2048 and on the tier-2 atlas; input to a new preview frame
-    through EarthViewer at 1920x1080 with uniform and with adaptive idle
-    frames, 5 samples each. Prints one JSON line."""
+    synchronize) and one profiled frame (device kernels, device-busy share,
+    the preview kernel's device time) on the 1024x2048 and on the tier-2
+    atlas; the preview kernel alone on the first frame's lanes (5 calls back
+    to back) and its registers (ptxas, when this process built the kernels;
+    with its occupancy where the package reports it);
+    ``select_tiles`` at 1920x1080 on seeded buffers (k a quarter of the
+    tiles), per call from the host (5 calls back to back) and on the device
+    (a CUDA graph of 20 calls); input to a new preview frame through
+    EarthViewer at 1920x1080 with uniform and with adaptive idle frames, 5
+    samples each. Prints one JSON line."""
     import digital_earth_tpu_torch as pkg
+    from digital_earth_tpu_torch import kernels
     from digital_earth_tpu_torch.assets.luts import load_spectral_luts
     from digital_earth_tpu_torch.assets.textures import (procedural_texture_atlas,
                                                          upsampled_procedural_atlas)
+    from digital_earth_tpu_torch.render import adaptive, raygen, raymarcher
     from digital_earth_tpu_torch.render.renderer import Renderer
 
     cache = os.path.join(ROOT, "build", "chip_smoke", "texture_cache")
     luts = load_spectral_luts(dev)
     atlas = procedural_texture_atlas(dev, (1024, 2048), seed=7, cache_dir=cache)
     out = dict(package=os.path.dirname(os.path.abspath(pkg.__file__)), card=nvidia_smi_line(),
-               frame_ms={}, kernels_per_frame={}, busy_share={}, input_to_preview_ms={})
+               frame_ms={}, kernels_per_frame={}, busy_share={}, preview_profiled_ms={},
+               input_to_preview_ms={})
     for name, at in (("1024x2048", atlas),
                      ("tier-2", upsampled_procedural_atlas(dev, TIER2_RES, cache_dir=cache))):
         r = _apollo(Renderer(dev, image_res=PREVIEW_RES, atlas=at, luts=luts, mode="preview"))
@@ -2476,13 +2635,52 @@ def preview_bench(torch, dev):
             torch.cuda.synchronize()
             if i >= 2:
                 times.append((time.time() - t0) * 1e3)
-        n_k, busy, wall, _ = profile_spp(torch, r, f"preview {name}",
-                                         run=lambda: (r.accumulate(), r.fetch_image()),
-                                         unit="frame")
+        n_k, busy, wall, by_name = profile_spp(torch, r, f"preview {name}",
+                                               run=lambda: (r.accumulate(), r.fetch_image()),
+                                               unit="frame")
         out["frame_ms"][name] = [round(t, 2) for t in times]
         out["kernels_per_frame"][name] = n_k
         out["busy_share"][name] = round(busy / wall, 4)
+        out["preview_profiled_ms"][name] = round(
+            sum(us for k, us in by_name.items() if "preview_kernel" in k) / 1e3, 4)
+        if name == "1024x2048":
+            # the preview kernel alone on this frame's lanes, 5 calls back to
+            # back, with its blocks built beforehand
+            march = {}
+            original = raymarcher.march_paths
+
+            def keep(*args, **kwargs):
+                march.update(args=args, kwargs=kwargs)
+                return original(*args, **kwargs)
+
+            raymarcher.march_paths = keep
+            try:
+                r.accumulate()
+            finally:
+                raymarcher.march_paths = original
+            args, kw = march["args"], dict(march["kwargs"])
+            kw.setdefault("frame", raymarcher.PreviewFrame(*args[4:8], kw["tile"]))
+            _, out["preview_kernel_ms"] = _time_ms(
+                torch, lambda: raymarcher.march_paths(*args, **kw), 5)
+            log = kernels.ptxas_log.get("preview.cu", "")
+            out["preview_ptxas"] = [line.strip() for line in log.splitlines()
+                                    if "registers" in line]
+            if hasattr(kernels, "preview_occupancy"):
+                out["preview_occupancy"] = kernels.preview_occupancy()
         del r, at
+    # select_tiles at 1920x1080 on seeded buffers, k = a quarter of the tiles
+    g = torch.Generator().manual_seed(5)
+    w, h = RES
+    block = raygen.pick_block_dims(w, h, 2048)
+    k = (w // block[0]) * (h // block[1]) // 4
+    count = torch.randint(1, 6, (w, h), generator=g).float()
+    color = torch.exp(torch.randn((w, h, 3), generator=g)) * count[..., None]
+    lum2 = color.sum(-1) ** 2 / count * (1 + torch.rand((w, h), generator=g))
+    bufs = [t.to(dev).contiguous() for t in (color, count, lum2)]
+    _, out["select_tiles_ms_per_call"] = _time_ms(
+        torch, lambda: adaptive.select_tiles(*bufs, block, k), 5)
+    out["select_tiles_graph_ms"] = _graph_ms(torch, lambda: adaptive.select_tiles(*bufs, block, k))
+    out["select_tiles_launches_per_call"] = kernels.SELECT_TILES_STAGES
     for mode, kw in (("uniform", {}), ("adaptive", dict(adaptive_frac=ADAPTIVE_FRAC))):
         vs = ViewerRun(dev, atlas, luts, f"bench_{mode}", **kw)
         try:
@@ -2642,7 +2840,7 @@ def main():
     t0 = time.time()
     kernels.library()
     print(f"kernel build: {time.time() - t0:.1f} s (nvcc {' '.join(kernels.NVCC_FLAGS)})")
-    for src in ("bounce.cu", "compact_lanes.cu", "preview.cu"):
+    for src in ("bounce.cu", "compact_lanes.cu", "preview.cu", "atmos_march.cu", "select_tiles.cu"):
         for line in kernels.ptxas_log.get(src, "").splitlines():
             # each entry's registers and spills (not those of its device calls)
             if "registers" in line or "Compiling entry" in line or (
@@ -2847,7 +3045,7 @@ def main():
     entries = []
     for name, (route, src, rep) in sources.items():
         row = rows[name]
-        bound_ms, bound_by = bound(row["bytes"], row["ops"])
+        bound_ms, bound_by = bound(row["bytes"], row["ops"], row.get("sfu"))
         # one PyTorch call computes compact_lanes's order (a stable
         # argsort) and upsample's repeat (expand + reshape; without the
         # jitter on two of the four planes), none the others' functions

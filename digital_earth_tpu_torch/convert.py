@@ -22,7 +22,7 @@ import torch
 from .assets.luts import CRFPack, SpectralLUTs
 from .assets.textures import TextureAtlas
 from .render.camera import CameraParams, HostCamera
-from .render.params import SceneParams, TraceConfig
+from .render.params import SCENE_TENSORS, SceneParams, TraceConfig, scene_params
 
 LANES = 128
 
@@ -60,7 +60,9 @@ def crf_pack_to_torch(crf, device) -> CRFPack:
 
 
 def scene_params_to_torch(scene, device) -> SceneParams:
-    return SceneParams(*(_f32(getattr(scene, f), device) for f in SceneParams._fields))
+    """The reference's scene as float32 tensors on ``device``, with the host
+    record the kernels' parameter blocks read (computed there, read once)."""
+    return scene_params(*(_f32(getattr(scene, f), device) for f in SCENE_TENSORS))
 
 
 def camera_params_to_torch(cam, device) -> CameraParams:

@@ -3,7 +3,9 @@
 // (digital_earth_tpu/models/volume.py:303-348,
 // digital_earth_tpu/models/atmosphere_lut.py:245-252, 385-411).
 // Everything rounds op by op (--fmad=false), in the order of the plain
-// versions in ops/math_utils.py.
+// versions in ops/math_utils.py and models/volume.py; a division by a Python
+// constant b there is a multiply by float32(1 / b), the reciprocal taken in
+// double, as PyTorch's CUDA ops apply a CPU scalar divisor (volume.cuh).
 #pragma once
 
 namespace de {
@@ -60,18 +62,23 @@ __device__ __forceinline__ void rsi(V3 o, V3 d, float r, float& t_near, float& t
 __device__ __forceinline__ float sq(float x) { return x * x; }
 
 __device__ __forceinline__ float rayl_density(float h) {
-  return 3.68082f * expf(-sq(h + 24239.99f) / 532307548.4168f) / 1.225f;
+  return 3.68082f * expf(-sq(h + 24239.99f) * (float)(1.0 / 532307548.4168)) *
+         (float)(1.0 / 1.225);
 }
 
+// The twin evaluates all four branches and selects one; here the branch's
+// constants are selected first and one expf evaluated (the same operations
+// on the same operands for the branch that is kept: the bits of the twin's;
+// d_high's "+ 0" is exact, d_high being positive).
 __device__ __forceinline__ float mie_density(float h) {
-  const float d_high = 0.0918f * expf(-1.0e-6f * sq(h - 11500.0f));
-  const float d_mid = 0.3000f * expf(-2.5e-9f * sq(h + 2500.0f)) - 0.092f;
-  const float d_low = 0.6500f * expf(-5.0e-6f * sq(h - 1300.0f)) + 0.18899f;
-  const float d_ground = 1.0f - h / 8136.646f;
-  const float dens = h > 11500.0f ? d_high
-                   : h > 2400.0f  ? d_mid
-                   : h > 1300.0f  ? d_low
-                                  : d_ground;
+  const bool high = h > 11500.0f, mid = h > 2400.0f, low = h > 1300.0f;
+  const float c0 = high ? -11500.0f : mid ? 2500.0f : -1300.0f;
+  const float c1 = high ? -1.0e-6f : mid ? -2.5e-9f : -5.0e-6f;
+  const float scale = high ? 0.0918f : mid ? 0.3000f : 0.6500f;
+  const float add = high ? 0.0f : mid ? -0.092f : 0.18899f;
+  const float d_exp = scale * expf(c1 * sq(h + c0)) + add;
+  const float d_ground = 1.0f - h * (float)(1.0 / 8136.646);
+  const float dens = (high || mid || low) ? d_exp : d_ground;
   return dens * 1.06f;  // TURBIDITY
 }
 
@@ -79,8 +86,8 @@ __device__ __forceinline__ float ozone_density(float h) {
   const float h_km = h * 0.001f;
   const float rel = h_km - 25.0f;
   const float rel2 = rel * rel;
-  float d = 0.625f * expf(-rel2 / 49.0f);
-  d = d + 0.375f * expf(-rel2 / 256.0f);
+  float d = 0.625f * expf(-rel2 * (float)(1.0 / 49.0));
+  d = d + 0.375f * expf(-rel2 * (float)(1.0 / 256.0));
   const float c = h_km - 15.0f;
   d = d + fmaxf(-0.000015f * (c * c * c), 0.0f);
   return d;

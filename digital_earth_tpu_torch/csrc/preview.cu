@@ -9,7 +9,8 @@
 //   2. per bounce b = 0, 1, 2 of a live lane (:128-178): the atmosphere span
 //      (rsi), primary_miss at bounce 0, the land march (land_march.cuh; no
 //      cap, not any-hit), the sun-cone draw, the 64-step single-scatter
-//      march (atmos_march.cuh), the in-scatter and throughput updates; on a
+//      march (atmos_march.cuh, warp-cooperative), the in-scatter and
+//      throughput updates; on a
 //      surface hit the normal (4 taps), the material tap and its albedo
 //      spectrum, the night lights, the shadow march toward the sun (not
 //      any-hit: the reference's shadow ray marches without it), the direct
@@ -27,17 +28,23 @@
 // the card (whose land_march and atmos_march calls run these same device
 // functions), each masked add of the twin an add of the same term here.
 //
-// What bounds it on the H100: arithmetic and divergence. A lane reads 44 B
-// (ray, wavelength, tile and in-tile index) and writes 4; the time goes to
+// What bounds it on the H100: instruction issue (FP32 and SFU) and
+// divergence. A lane reads 32 B (ray direction, wavelength, tile and
+// in-tile index; the origin comes by value) and writes 4; the time goes to
 // the atmosphere march (64 steps, each with a 16-step sun march where the
-// planet does not occlude the sun) and the land march's dependent texture
-// probes. Sky lanes end after one march, lanes that miss the atmosphere
-// after its test, and only surface lanes run bounces 1-2 and the shadow
-// marches, so a warp runs at its slowest lane's pace. One thread per lane to
-// its own end, as bounce.cu, with both marches inlined: as non-inlined calls
-// (bounce.cu's way) they kept more of the lane's values on the stack across
-// each call and ran slower on the card, with the same bits. One launch
-// replaces the eager glue's thousands of element-wise launches per frame.
+// planet does not occlude the sun: four expf and a sqrtf per density) and
+// the land march's dependent texture probes. Sky lanes end after one march,
+// lanes that miss the atmosphere after its test, and only surface lanes run
+// bounces 1-2 and the shadow marches. So every thread of a warp stays in the
+// bounce loop to its end, finished lanes and threads past n as inactive, and
+// the march is warp-cooperative (atmos_march_warp): at each bounce the warp
+// ballots its active lanes and marches them 16 threads to a lane, so a warp
+// pays for the lanes it has, not for 64 steps of its slowest lane. The land
+// and shadow marches stay one thread per lane (land_march.cuh, shared with
+// the bounce entries). Both are inlined: as non-inlined calls (bounce.cu's
+// way) they kept more of the lane's values on the stack across each call
+// and ran slower on the card, with the same bits. One launch replaces the
+// eager glue's thousands of element-wise launches per frame.
 #include <cstdint>
 
 #include <cuda_runtime.h>
@@ -55,6 +62,7 @@ constexpr int PREVIEW_BOUNCES = 3;
 constexpr int PREVIEW_BLOCK = 128;
 
 struct PreviewParams {
+  float origin[3];  // every lane's origin when pos is null
   float scale, step_floor, stall_thresh;
   float light[3];
   float sun_cos_angle, solid_angle, offset_scale;
@@ -68,7 +76,7 @@ struct PreviewParams {
 };
 
 struct PreviewArgs {
-  const float* pos;
+  const float* pos;  // null: every lane starts at PreviewParams::origin
   const float* dir;
   const float* wavelength;
   const int64_t* tile_index;  // null: one tile, the key is the tile key
@@ -80,13 +88,24 @@ struct PreviewArgs {
   const float* srgb2spec;
   float* out;
   int n;
+  long long* cycles;  // census instance only: (n, 3) clock64 cycles per lane
 };
 
+// CENSUS: the census instance, which also writes each lane's clock64 cycles
+// in its land and shadow marches, in the march and in all (a.cycles); the
+// timed instances compile without it.
+template <bool CENSUS = false>
 __global__ void __launch_bounds__(PREVIEW_BLOCK) preview_kernel(PreviewArgs a, PreviewParams p) {
+  long long t_land = 0, t_march = 0, t_all = 0, c = 0;
+  if constexpr (CENSUS) t_all = clock64();
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= a.n) return;
-  const V3 ray_pos = load3(a.pos, lane), ray_dir = load3(a.dir, lane);
-  const float wl = a.wavelength[lane];
+  if ((lane & ~31) >= a.n) return;  // the whole warp lies past n
+  // every other thread stays to the end: the march needs the full warp
+  const bool in = lane < a.n;
+  const int l = in ? lane : 0;
+  const V3 ray_pos = a.pos ? load3(a.pos, l) : V3{p.origin[0], p.origin[1], p.origin[2]};
+  const V3 ray_dir = load3(a.dir, l);
+  const float wl = a.wavelength[l];
 
   // 1. the wavelength's constants
   const float sun_power = plancks(wl, p.sun_temperature, p.planck_a, p.planck_b, p.planck_k);
@@ -99,11 +118,12 @@ __global__ void __launch_bounds__(PREVIEW_BLOCK) preview_kernel(PreviewArgs a, P
   const float sc0 = ext[0] * p.rayleigh_albedo, sc1 = ext[1] * p.aerosol_albedo;
 
   Key kb = p.key;
-  if (a.tile_index) kb = fold(kb, (uint32_t)a.tile_index[lane]);
-  const uint32_t li = a.lane_index ? (uint32_t)a.lane_index[lane] : (uint32_t)lane;
+  if (a.tile_index) kb = fold(kb, (uint32_t)a.tile_index[l]);
+  const uint32_t li = a.lane_index ? (uint32_t)a.lane_index[l] : (uint32_t)l;
   const uint32_t li2 = (uint32_t)p.tile + li;
 
-  // 2. three deterministic bounces
+  // 2. three deterministic bounces; a lane that leaves the atmosphere or
+  // hits no land goes inactive and stays in the loop
   const TexView topo{a.topo, p.topo_h, p.topo_w};
   const TexView material{a.material, p.mat_h, p.mat_w};
   const bool bil = p.bilinear != 0;
@@ -113,26 +133,40 @@ __global__ void __launch_bounds__(PREVIEW_BLOCK) preview_kernel(PreviewArgs a, P
   const float no_cap = __int_as_float(0x7f800000);  // +inf: the twin's march has no t_cap
   float accum = 0.0f, thr = 1.0f;
   V3 pos = ray_pos, dir = ray_dir;
-  bool primary_miss = false;
-  for (int b = 0; b < PREVIEW_BOUNCES; ++b) {
-    if (b > 0) kb = fold(kb, 2u);
-    float a_near, a_far;
-    rsi(pos, dir, ATMOS_UPPER_F, a_near, a_far);
-    if (!(a_far >= 0.0f)) {  // leaves the atmosphere: ends (a primary miss at bounce 0)
-      primary_miss = b == 0;
-      break;
+  bool alive = in, primary_miss = false;
+  for (int b = 0; b < PREVIEW_BOUNCES && __any_sync(FULL_WARP, alive); ++b) {
+    float earth = -1.0f, t_start = 0.0f, t_max = 0.0f;
+    V3 light_dir{0.0f, 0.0f, 0.0f};
+    if (alive) {
+      if (b > 0) kb = fold(kb, 2u);
+      float a_near, a_far;
+      rsi(pos, dir, ATMOS_UPPER_F, a_near, a_far);
+      if (!(a_far >= 0.0f)) {  // leaves the atmosphere: ends (a primary miss at bounce 0)
+        primary_miss = b == 0;
+        alive = false;
+      } else {
+        if constexpr (CENSUS) c = clock64();
+        earth = land_march_lane(a.topo, mp, pos, dir, true, no_cap);
+        if constexpr (CENSUS) t_land += clock64() - c;
+        t_start = isnan(a_near) ? a_near : fmaxf(a_near, 0.0f);  // torch.clamp
+        t_max = earth > 0.0f ? earth : a_far;
+        const Key k_cone = fold(kb, 0u);
+        light_dir = sample_cone_oriented(uniform(k_cone, li), uniform(k_cone, li2),
+                                         p.sun_cos_angle, light);
+      }
     }
-    const float earth = land_march_lane(a.topo, mp, pos, dir, true, no_cap);
-    const float t_start = isnan(a_near) ? a_near : fmaxf(a_near, 0.0f);  // torch.clamp
-    const float t_max = earth > 0.0f ? earth : a_far;
-    const Key k_cone = fold(kb, 0u);
-    const V3 light_dir =
-        sample_cone_oriented(uniform(k_cone, li), uniform(k_cone, li2), p.sun_cos_angle, light);
-    float in_scatter, trans;
-    atmos_march_lane(pos, dir, t_start, t_max, light_dir, ext, sc0, sc1, p.pc, in_scatter, trans);
+    float in_scatter = 0.0f, trans = 1.0f;
+    if constexpr (CENSUS) c = clock64();
+    atmos_march_warp(alive, pos, dir, t_start, t_max, light_dir, ext, sc0, sc1, p.pc,
+                     in_scatter, trans);
+    if constexpr (CENSUS) t_march += clock64() - c;
+    if (!alive) continue;
     accum = accum + thr * in_scatter;
     thr = thr * trans;
-    if (!(earth > 0.0f)) break;  // a sky lane ends after its march
+    if (!(earth > 0.0f)) {  // a sky lane ends after its march
+      alive = false;
+      continue;
+    }
 
     const V3 land_pos = along(pos, earth, dir);
     const V3 normal = land_normal(topo, land_pos, p.scale, bil);
@@ -141,7 +175,9 @@ __global__ void __launch_bounds__(PREVIEW_BLOCK) preview_kernel(PreviewArgs a, P
     accum = accum + (thr * mat.emissive) * nl_power;
     const V3 offset_pos{land_pos.x * p.offset_scale, land_pos.y * p.offset_scale,
                         land_pos.z * p.offset_scale};
+    if constexpr (CENSUS) c = clock64();
     const float shadow = land_march_lane(a.topo, mp, offset_pos, light_dir, true, no_cap);
+    if constexpr (CENSUS) t_land += clock64() - c;
     const float visible = shadow < 0.0f ? 1.0f : 0.0f;
     const V3 v{-dir.x, -dir.y, -dir.z};
     const BrdfParts dp = earth_brdf_parts(mat.ocean, mat.bathymetry, v, normal, light_dir);
@@ -156,6 +192,7 @@ __global__ void __launch_bounds__(PREVIEW_BLOCK) preview_kernel(PreviewArgs a, P
     pos = offset_pos;
     thr = (thr * b_brdf) * PY(PI_D);
   }
+  if (!in) return;
 
   // 3. miss shading against the camera ray, then the clamp
   if (primary_miss) {
@@ -166,6 +203,11 @@ __global__ void __launch_bounds__(PREVIEW_BLOCK) preview_kernel(PreviewArgs a, P
     accum = accum + (stars_power * sun_power) * p.stars_scale;
   }
   a.out[lane] = (isfinite(accum) && accum >= 0.0f) ? accum : 0.0f;
+  if constexpr (CENSUS) {
+    a.cycles[3 * lane] = t_land;
+    a.cycles[3 * lane + 1] = t_march;
+    a.cycles[3 * lane + 2] = clock64() - t_all;
+  }
 }
 
 }  // namespace de
@@ -178,18 +220,24 @@ __global__ void __launch_bounds__(PREVIEW_BLOCK) preview_kernel(PreviewArgs a, P
 // ip (11 ints): land_march_steps, march_k, march_patience,
 //     bilinear_materials, tile (lanes per tile), topography H, W, material H,
 //     W, stars H, W
+// cycles: null, or (n, 3) int64 for the census instance: each lane's
+// clock64 cycles in its land and shadow marches, in the march
+// and in all.
 // key (k0, k1): the spp key with tile_index (n,) int64, or the tile key of
 // one tile of n lanes without it; lane_index (n,) int64 the in-tile index,
-// or null for the lane's own. Lanes: pos, dir (n, 3), wavelength (n,);
+// or null for the lane's own. Lanes: pos (n, 3), or null with origin (3
+// floats on the host) every lane's origin; dir (n, 3), wavelength (n,);
 // textures: topography (H, W, 4), material (H, W, 8), stars (H, W, 3)
 // uint8; o3_crossec (441,), srgb2spec (300, 3) f32; out (n,) radiance.
 extern "C" int de_preview(const float* fp, const int* ip, uint32_t k0, uint32_t k1,
-                          const float* pos, const float* dir, const float* wavelength,
-                          const int64_t* tile_index, const int64_t* lane_index,
-                          const uint8_t* topo, const uint8_t* material, const uint8_t* stars,
-                          const float* o3, const float* srgb2spec, float* out, int n,
+                          const float* origin, const float* pos, const float* dir,
+                          const float* wavelength, const int64_t* tile_index,
+                          const int64_t* lane_index, const uint8_t* topo,
+                          const uint8_t* material, const uint8_t* stars, const float* o3,
+                          const float* srgb2spec, float* out, long long* cycles, int n,
                           void* stream) {
   de::PreviewParams p;
+  for (int j = 0; j < 3; ++j) p.origin[j] = origin ? origin[j] : 0.0f;
   p.scale = fp[0];
   p.step_floor = fp[1];
   p.stall_thresh = fp[2];
@@ -219,11 +267,32 @@ extern "C" int de_preview(const float* fp, const int* ip, uint32_t k0, uint32_t 
   p.stars_h = ip[9];
   p.stars_w = ip[10];
   p.key = de::Key{k0, k1};
+  if (pos == nullptr && origin == nullptr) return (int)cudaErrorInvalidValue;
   const de::PreviewArgs a{pos, dir, wavelength, tile_index, lane_index, topo, material,
-                          stars, o3, srgb2spec, out, n};
+                          stars, o3, srgb2spec, out, n, cycles};
   if (n > 0) {
-    de::preview_kernel<<<(n + de::PREVIEW_BLOCK - 1) / de::PREVIEW_BLOCK, de::PREVIEW_BLOCK, 0,
-                         (cudaStream_t)stream>>>(a, p);
+    const int blocks = (n + de::PREVIEW_BLOCK - 1) / de::PREVIEW_BLOCK;
+    cudaStream_t st = (cudaStream_t)stream;
+    if (cycles) de::preview_kernel<true><<<blocks, de::PREVIEW_BLOCK, 0, st>>>(a, p);
+    else de::preview_kernel<><<<blocks, de::PREVIEW_BLOCK, 0, st>>>(a, p);
   }
   return (int)cudaGetLastError();
+}
+
+// Occupancy of the preview kernel: out = (resident blocks per SM, threads
+// per block, registers per thread, local memory bytes per thread).
+extern "C" int de_preview_occupancy(int* out) {
+  const void* fn = (const void*)de::preview_kernel<>;
+  int blocks = 0;
+  cudaError_t rc =
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, de::PREVIEW_BLOCK, 0);
+  if (rc != cudaSuccess) return (int)rc;
+  cudaFuncAttributes attr;
+  rc = cudaFuncGetAttributes(&attr, fn);
+  if (rc != cudaSuccess) return (int)rc;
+  out[0] = blocks;
+  out[1] = de::PREVIEW_BLOCK;
+  out[2] = attr.numRegs;
+  out[3] = (int)attr.localSizeBytes;
+  return 0;
 }

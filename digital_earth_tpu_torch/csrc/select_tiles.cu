@@ -9,35 +9,54 @@
 // the mean of its pixels' (tile index bx * nby + by); the k largest in
 // lax.top_k's order: descending, ties to the lower index.
 //
-// Four launches, deterministic, no float atomics, so the same buffers always
+// Two launches, deterministic, no float atomics, so the same buffers always
 // give the same tiles (checkpoint resume depends on it):
-//   1. mean_lum summed per chunk of 1024 consecutive pixels (pixel id order);
-//   2. one block sums the chunk sums into m_bar;
-//   3. one block per tile sums its pixels' scores (in-tile lane order);
-//   4. rank selection: tile i has rank #{j : s_j > s_i or (s_j == s_i and
-//      j < i)} and writes ids[rank] when rank < k. Scores compare in XLA's
-//      total order of float32, as lax.top_k does (-NaN < -inf < ... < -0 <
-//      +0 < ... < +inf < +NaN), so a NaN score (an infinite or NaN buffer
-//      value, say from a loaded checkpoint) still gives every tile its own
-//      rank, and ids is always k distinct tiles.
+//   A. (stages 1-2) mean_lum summed per chunk of 1024 consecutive pixels
+//      (pixel id order); the last block to finish, by a ticket, sums the
+//      chunk sums into m_bar;
+//   B. (stages 3-4) one block per tile sums its pixels' scores (in-tile lane
+//      order); the last block to finish ranks every tile by a bitonic sort
+//      of the 64-bit keys (descending score in XLA's total order of float32,
+//      as lax.top_k orders: -NaN < -inf < ... < -0 < +0 < ... < +inf <
+//      +NaN) << 32 | tile, ascending, so ties go to the lower index (M = 4
+//      keys per thread, 8 past 4096 tiles: strides below M in registers,
+//      below 32 M by warp shuffles, the rest through shared memory), and
+//      writes the first k
+//      tiles. A NaN score (an infinite or NaN buffer value, say from a loaded
+//      checkpoint) still gives every tile its own rank, and ids is always k
+//      distinct tiles.
+// The ticket: each block writes its result, __threadfence(), then one
+// atomicAdd on a counter in the caller's scratch; the block that draws the
+// last ticket reads every block's result (all fenced before their tickets)
+// and resets the counter to 0 for the next call. No block waits on another,
+// and a call makes no host call between its launches, so a CUDA graph can
+// capture it.
 // A max with a bound keeps NaN, as torch.clamp and jnp.maximum do.
 //
 // Per device of a render mesh (digital_earth_tpu/parallel/mesh.py:189-204,
 // make_sharded_adaptive_step) the same statistic runs on one device's flat
 // tile-major shard, whose tile t holds pixels [t * tile, (t + 1) * tile) in
 // in-tile lane order, with the frame mean m_bar coming in from the caller
-// (the mean of the shards' means, each shard's from stages 1-2):
-//   de_shard_mean         stages 1-2 over the shard's pixels in lane order;
-//   de_select_tiles_shard stages 3-4 over the shard's tiles, given m_bar.
+// (the mean of the shards' means, each shard's from launch A):
+//   de_shard_mean         launch A over the shard's pixels in lane order;
+//   de_select_tiles_shard launch B over the shard's tiles, given m_bar.
 // A device reads its shard twice (16 B per pixel for the mean, 20 B for the
 // scores: 18.7 MB for a quarter of 1920x1080) and ranks its own tiles.
 // Every sum is the same halving tree over a zero-padded power-of-two array,
 // s[i] += s[i + h] for h = p/2, ..., 1, which the plain version
-// (render/adaptive.select_tiles_plain) repeats, so the two agree bit for bit.
+// (render/adaptive.select_tiles_plain) repeats, so the two agree bit for bit:
+// the first level (h = p/2) adds in registers as each thread loads its pairs
+// of elements, the levels down to h = 64 in shared memory, and h = 32 ... 1 in
+// warp 0's registers by __shfl_down_sync (lane i adds lane i + h: the
+// operands of s[i] + s[i + h] in their order), so a 2048-element tree takes
+// 5 barriers (11 with every level in shared memory).
 //
 // What bounds it on the H100: bytes. It reads the three buffers once (20 B
-// per pixel, 41.5 MB at 1920x1080); about 20 flops per pixel, and the rank
-// stage's n_tiles^2 comparisons (1.2M for 1080 tiles) from shared memory.
+// per pixel, 41.5 MB at 1920x1080); about 20 flops per pixel. The chunk
+// stage reads color as 16-byte vectors staged in shared memory (a chunk is
+// 12 KB contiguous); a tile of the (W, H) image is bw runs of bh pixels,
+// read a float at a time.
+#include <algorithm>
 #include <cmath>
 #include <cstdint>
 
@@ -45,8 +64,19 @@
 
 namespace de {
 
-constexpr int CHUNK = 1024;      // pixels per partial sum of stage 1
-constexpr int MAX_SHARED = 8192;  // floats of one block's tree (32 KB)
+constexpr int CHUNK = 1024;         // pixels per partial sum of stage 1
+// Threads of a chunk block (two pairs of the tree's first level each) and at
+// most of a tile block's tree (a 1920-pixel tile: four pairs each): small
+// blocks with several loads in flight per thread, so that a 1080p frame's
+// chunks or tiles are resident at about once and their loads overlap.
+constexpr int CHUNK_THREADS = 256;
+constexpr int TILE_THREADS = 256;
+// Keys per thread of the rank's sort: 4 keeps the kernel at 30 registers, so
+// that 8 tile blocks of 256 threads are resident per SM (8 keys took 44);
+// past 4096 tiles a block of 1024 threads sorts 8 each.
+constexpr int SORT_M = 4, SORT_M_LARGE = 8;
+constexpr int MAX_SHARED = 8192;    // the largest tree (floats) and sort (keys)
+constexpr unsigned FULL_WARP = 0xffffffffu;
 
 struct SelectParams {
   float lum_w[3];
@@ -54,12 +84,33 @@ struct SelectParams {
   float tiny;    // float32(1e-20)
 };
 
-// The halving tree over s[0..p), p a power of two; the sum lands in s[0].
-__device__ __forceinline__ void tree_sum(float* s, int p) {
-  for (int h = p >> 1; h >= 1; h >>= 1) {
-    for (int i = threadIdx.x; i < h; i += blockDim.x) s[i] = s[i] + s[i + h];
+// The halving tree over x[0..p) (p a power of two, x[i] = get(i), 0 past
+// the data), s holding p/2 floats: s[i] = s[i] + s[i + h] for h = p/2, ...,
+// 1, the first level in registers, the levels down to h = 64 in s, the rest
+// in warp 0 by shuffles. The sum is valid in thread 0; a caller that reuses
+// s syncs first.
+template <class Get>
+__device__ __forceinline__ float tree_sum(Get get, int p, float* s) {
+  const int t = threadIdx.x, nt = blockDim.x;
+  float v = 0.0f;
+  if (p >= 128) {
+    const int half = p >> 1;
+    for (int i = t; i < half; i += nt) s[i] = get(i) + get(i + half);
     __syncthreads();
+    for (int h = half >> 1; h >= 64; h >>= 1) {
+      for (int i = t; i < h; i += nt) s[i] = s[i] + s[i + h];
+      __syncthreads();
+    }
+    if (t < 32) v = s[t] + s[t + 32];
+  } else if (p == 64) {
+    if (t < 32) v = get(t) + get(t + 32);
+  } else if (t < 32) {
+    v = t < p ? get(t) : 0.0f;
   }
+  if (t < 32) {
+    for (int h = min(16, p >> 1); h >= 1; h >>= 1) v = v + __shfl_down_sync(FULL_WARP, v, h);
+  }
+  return v;
 }
 
 __device__ __forceinline__ float clamp_min(float x, float lo) {
@@ -72,41 +123,151 @@ __device__ __forceinline__ int32_t order_key(float x) {
   return b < 0 ? b ^ 0x7FFFFFFF : b;
 }
 
+__device__ __forceinline__ float lum3(float c0, float c1, float c2, const SelectParams& p) {
+  return c0 * p.lum_w[0] + c1 * p.lum_w[1] + c2 * p.lum_w[2];
+}
+
 __device__ __forceinline__ float pixel_lum(const float* __restrict__ color, int64_t px,
                                            const SelectParams& p) {
-  return color[3 * px] * p.lum_w[0] + color[3 * px + 1] * p.lum_w[1] +
-         color[3 * px + 2] * p.lum_w[2];
+  return lum3(color[3 * px], color[3 * px + 1], color[3 * px + 2], p);
 }
 
-__global__ void chunk_sums(const float* __restrict__ color, const float* __restrict__ count,
-                           int64_t n_pix, float* __restrict__ partial, SelectParams p) {
-  __shared__ float s[CHUNK];
-  const int64_t base = (int64_t)blockIdx.x * CHUNK;
-  for (int i = threadIdx.x; i < CHUNK; i += blockDim.x) {
-    const int64_t px = base + i;
-    s[i] = px < n_pix ? pixel_lum(color, px, p) / clamp_min(count[px], 1.0f) : 0.0f;
+// True in every thread of the block that drew the grid's last ticket, after
+// this block's result was written (by thread 0) and fenced.
+__device__ __forceinline__ bool last_block(unsigned* counter) {
+  __shared__ bool last;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    last = atomicAdd(counter, 1u) == gridDim.x - 1;
   }
   __syncthreads();
-  tree_sum(s, CHUNK);
-  if (threadIdx.x == 0) partial[blockIdx.x] = s[0];
+  return last;
 }
 
-__global__ void frame_mean(const float* __restrict__ partial, int n_part, int p2, float n_pix,
-                           float* __restrict__ m_bar) {
-  extern __shared__ float s[];
-  for (int i = threadIdx.x; i < p2; i += blockDim.x) s[i] = i < n_part ? partial[i] : 0.0f;
+// Launch A: each block's chunk of 1024 pixels summed into partial[block];
+// the last block sums the n_part partials (in a tree of p2) into out[0] =
+// sum / n_pix. Dynamic shared memory: max(CHUNK * 3 + CHUNK / 2, p2 / 2) floats.
+__global__ void __launch_bounds__(CHUNK_THREADS)
+    frame_mean(const float* __restrict__ color, const float* __restrict__ count, int64_t n_pix,
+               float* __restrict__ partial, int p2, float* __restrict__ out, unsigned* counter,
+               SelectParams p) {
+  extern __shared__ float smem[];
+  float* rgb = smem;              // the chunk's color, CHUNK * 3 floats
+  float* s = smem + 3 * CHUNK;    // the tree, CHUNK / 2 floats
+  const int64_t base = (int64_t)blockIdx.x * CHUNK;
+  const int64_t rest = n_pix - base;
+  const int valid = rest < CHUNK ? (int)rest : CHUNK;
+  const float* c = color + 3 * base;
+  if (((uintptr_t)c & 15) == 0) {
+    const int full = (3 * valid) / 4;  // whole 16-byte vectors
+    for (int i = threadIdx.x; i < full; i += blockDim.x)
+      reinterpret_cast<float4*>(rgb)[i] = __ldg(reinterpret_cast<const float4*>(c) + i);
+    for (int i = 4 * full + threadIdx.x; i < 3 * valid; i += blockDim.x) rgb[i] = c[i];
+  } else {
+    for (int i = threadIdx.x; i < 3 * valid; i += blockDim.x) rgb[i] = c[i];
+  }
   __syncthreads();
-  tree_sum(s, p2);
-  if (threadIdx.x == 0) m_bar[0] = s[0] / n_pix;
+  const float* cnt = count + base;
+  const float sum = tree_sum(
+      [&](int i) {
+        return i < valid ? lum3(rgb[3 * i], rgb[3 * i + 1], rgb[3 * i + 2], p) /
+                               clamp_min(cnt[i], 1.0f)
+                         : 0.0f;
+      },
+      CHUNK, s);
+  if (threadIdx.x == 0) partial[blockIdx.x] = sum;
+  if (!last_block(counter)) return;
+  const int n_part = gridDim.x;
+  const float total = tree_sum(
+      [&](int i) { return i < n_part ? __ldcg(partial + i) : 0.0f; }, p2, smem);
+  if (threadIdx.x == 0) {
+    out[0] = total / (float)n_pix;
+    *counter = 0u;
+  }
 }
 
+// One in-thread stage of the bitonic sort: keys t M + m and t M + (m ^ J).
+template <int M, int J>
+__device__ __forceinline__ void sort_stage_in_thread(unsigned long long (&v)[M], int t,
+                                                     int size) {
+#pragma unroll
+  for (int m = 0; m < M; ++m) {
+    if ((m ^ J) > m) {
+      const bool asc = ((t * M + m) & size) == 0;
+      const unsigned long long a = v[m], b = v[m ^ J];
+      if ((a > b) == asc) {
+        v[m] = b;
+        v[m ^ J] = a;
+      }
+    }
+  }
+}
+
+// An ascending bitonic sort of n = M * (n / M) keys, thread t holding keys
+// [t M, t M + M) in v (threads t < n / M take part; n / M is a multiple of
+// 32; every thread of the block calls it): strides below M within a thread,
+// below 32 M across a warp by shuffles, the rest through shared memory
+// (key, n entries, slot m of thread t at m (n / M) + t, so a warp's
+// accesses are consecutive), so a 2048-key sort takes 20 barriers at M = 4.
+template <int M>
+__device__ __forceinline__ void bitonic_sort(unsigned long long (&v)[M], int n,
+                                             unsigned long long* key) {
+  static_assert(M == 4 || M == 8, "the in-thread strides below");
+  const int t = threadIdx.x, nt = n / M;
+  const bool act = t < nt;
+  for (int size = 2; size <= n; size <<= 1) {
+    for (int j = size >> 1; j > 0; j >>= 1) {
+      if (j >= 32 * M) {
+        if (act) {
+#pragma unroll
+          for (int m = 0; m < M; ++m) key[m * nt + t] = v[m];
+        }
+        __syncthreads();
+        if (act) {
+#pragma unroll
+          for (int m = 0; m < M; ++m) {
+            const int e = t * M + m;
+            const unsigned long long pv = key[m * nt + ((e ^ j) / M)];
+            const bool keep_min = ((e & j) == 0) == ((e & size) == 0);
+            v[m] = keep_min == (pv < v[m]) ? pv : v[m];
+          }
+        }
+        __syncthreads();
+      } else if (j >= M) {
+        if (act) {
+#pragma unroll
+          for (int m = 0; m < M; ++m) {
+            const int e = t * M + m;
+            const unsigned long long pv = __shfl_xor_sync(FULL_WARP, v[m], j / M);
+            const bool keep_min = ((e & j) == 0) == ((e & size) == 0);
+            v[m] = keep_min == (pv < v[m]) ? pv : v[m];
+          }
+        }
+      } else if (act) {
+        if constexpr (M == 8) {
+          if (j == 4) sort_stage_in_thread<M, 4>(v, t, size);
+        }
+        if (j == 2) sort_stage_in_thread<M, 2>(v, t, size);
+        else if (j == 1) sort_stage_in_thread<M, 1>(v, t, size);
+      }
+    }
+  }
+}
+
+// Launch B: one block per tile sums its pixels' scores against m_bar into
+// score[tile]; the last block sorts every tile's key (n2 keys, padded) and
+// writes ids[0..k), M keys to a thread.
 // flat: the buffers are a tile-major shard (tile t at [t * bw * bh, ...)),
-// else a (W, H) image whose tile t is block (t / nby, t % nby).
-__global__ void tile_scores(const float* __restrict__ color, const float* __restrict__ count,
-                            const float* __restrict__ lum2, const float* __restrict__ m_bar,
-                            int h, int bw, int bh, int pt, int flat, float* __restrict__ score,
-                            SelectParams p) {
-  extern __shared__ float s[];
+// else a (W, H) image whose tile t is block (t / nby, t % nby). Dynamic
+// shared memory: max(pt / 2 floats, n2 keys of 8 bytes).
+template <int M>
+__global__ void __launch_bounds__(1024, M == SORT_M ? 2 : 1)
+    tile_select(const float* __restrict__ color, const float* __restrict__ count,
+                const float* __restrict__ lum2, const float* __restrict__ m_bar, int h, int bw,
+                int bh, int pt, int flat, int n2, int k, float* __restrict__ score,
+                int32_t* __restrict__ ids, unsigned* counter, SelectParams p) {
+  extern __shared__ float smem[];
   const int tile = blockIdx.x;
   const int nby = h / bh;
   const int bx = tile / nby, by = tile % nby;
@@ -115,40 +276,42 @@ __global__ void tile_scores(const float* __restrict__ color, const float* __rest
   const float anchor = p.fifth * m + p.tiny;
   const float e = p.fifth * m;
   const float explore_num = e * e;
-  for (int li = threadIdx.x; li < pt; li += blockDim.x) {
-    float v = 0.0f;
-    if (li < n_tile) {
-      const int64_t px = flat ? (int64_t)tile * n_tile + li
-                              : (int64_t)(bx * bw + li / bh) * h + (by * bh + li % bh);
-      const float c = count[px];
-      const float n = clamp_min(c, 1.0f);
-      const float mean_lum = pixel_lum(color, px, p) / n;
-      const float var_mean = clamp_min(lum2[px] / n - mean_lum * mean_lum, 0.0f) / n;
-      const float explore = explore_num / (n * n);
-      const float d = mean_lum + anchor;
-      v = c < 1.0f ? INFINITY : (var_mean + explore) / (d * d);
-    }
-    s[li] = v;
-  }
-  __syncthreads();
-  tree_sum(s, pt);
-  if (threadIdx.x == 0) score[tile] = s[0] / (float)n_tile;
-}
+  const float sum = tree_sum(
+      [&](int li) {
+        if (li >= n_tile) return 0.0f;
+        const int64_t px = flat ? (int64_t)tile * n_tile + li
+                                : (int64_t)(bx * bw + li / bh) * h + (by * bh + li % bh);
+        const float c = count[px];
+        const float n = clamp_min(c, 1.0f);
+        const float mean_lum = pixel_lum(color, px, p) / n;
+        const float var_mean = clamp_min(lum2[px] / n - mean_lum * mean_lum, 0.0f) / n;
+        const float explore = explore_num / (n * n);
+        const float d = mean_lum + anchor;
+        return c < 1.0f ? INFINITY : (var_mean + explore) / (d * d);
+      },
+      pt, smem);
+  if (threadIdx.x == 0) score[tile] = sum / (float)n_tile;
+  if (!last_block(counter)) return;
 
-__global__ void rank_select(const float* __restrict__ score, int n_tiles, int k,
-                            int32_t* __restrict__ ids) {
-  extern __shared__ int32_t key[];
-  for (int j = threadIdx.x; j < n_tiles; j += blockDim.x) key[j] = order_key(score[j]);
-  __syncthreads();
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n_tiles) return;
-  const int32_t ki = key[i];
-  int rank = 0;
-  for (int j = 0; j < n_tiles; ++j) {
-    const int32_t kj = key[j];
-    rank += (kj > ki) || (kj == ki && j < i);
+  // the rank: an ascending sort of (~biased order key) << 32 | tile
+  const int n_tiles = gridDim.x;
+  unsigned long long v[M];
+#pragma unroll
+  for (int m = 0; m < M; ++m) {
+    const int i = threadIdx.x * M + m;
+    v[m] = ~0ull;  // padding sorts last
+    if (i < n_tiles) {
+      const uint32_t up = (uint32_t)order_key(__ldcg(score + i)) ^ 0x80000000u;
+      v[m] = ((unsigned long long)(~up) << 32) | (uint32_t)i;
+    }
   }
-  if (rank < k) ids[rank] = i;
+  bitonic_sort<M>(v, n2, reinterpret_cast<unsigned long long*>(smem));
+#pragma unroll
+  for (int m = 0; m < M; ++m) {
+    const int r = threadIdx.x * M + m;
+    if (threadIdx.x < n2 / M && r < k) ids[r] = (int32_t)(uint32_t)v[m];
+  }
+  if (threadIdx.x == 0) *counter = 0u;
 }
 
 static inline int next_pow2(int m) {
@@ -165,70 +328,89 @@ static inline SelectParams params(const float* fp) {
   return p;
 }
 
-static inline int threads_for(int pt) { return pt >= 2048 ? 1024 : (pt >= 64 ? pt / 2 : 32); }
+static int set_smem(const void* fn, size_t bytes) {
+  if (bytes <= 48 * 1024) return 0;
+  return (int)cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
 
-// Stages 1-2: the mean of mean_lum over n_pix pixels in buffer order.
-static int mean_stages(const SelectParams& p, const float* color, const float* count,
-                       int64_t n_pix, float* partial, float* mean, cudaStream_t st) {
-  const int n_part = (int)((n_pix + CHUNK - 1) / CHUNK);
-  const int p2 = next_pow2(n_part);
-  if (p2 > MAX_SHARED) return (int)cudaErrorInvalidValue;
-  cudaError_t err;
-  chunk_sums<<<n_part, 512, 0, st>>>(color, count, n_pix, partial, p);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  frame_mean<<<1, 1024, p2 * sizeof(float), st>>>(partial, n_part, p2, (float)n_pix, mean);
+// Launch A: the mean of mean_lum over n_pix pixels in buffer order.
+static int mean_stage(const SelectParams& p, const float* color, const float* count,
+                      int64_t n_pix, float* partial, float* mean, unsigned* counter,
+                      cudaStream_t st) {
+  const int64_t n_part = (n_pix + CHUNK - 1) / CHUNK;
+  if (n_pix < 1 || n_part > MAX_SHARED) return (int)cudaErrorInvalidValue;
+  const int p2 = next_pow2((int)n_part);
+  const size_t smem = sizeof(float) * (size_t)std::max(3 * CHUNK + CHUNK / 2, p2 / 2);
+  int rc = set_smem((const void*)frame_mean, smem);
+  if (rc != 0) return rc;
+  frame_mean<<<(int)n_part, CHUNK_THREADS, smem, st>>>(color, count, n_pix, partial, p2, mean,
+                                                       counter, p);
   return (int)cudaGetLastError();
 }
 
-// Stages 3-4: score the tiles against m_bar and write the k best ids.
-static int select_stages(const SelectParams& p, const float* color, const float* count,
-                         const float* lum2, const float* m_bar, int h, int bw, int bh,
-                         int n_tiles, int flat, int k, float* score, int32_t* ids,
-                         cudaStream_t st) {
+// Launch B: score the tiles against m_bar and write the k best ids.
+static int select_stage(const SelectParams& p, const float* color, const float* count,
+                        const float* lum2, const float* m_bar, int h, int bw, int bh,
+                        int n_tiles, int flat, int k, float* score, int32_t* ids,
+                        unsigned* counter, cudaStream_t st) {
   const int pt = next_pow2(bw * bh);
   if (pt > MAX_SHARED || n_tiles > MAX_SHARED || k < 1 || k > n_tiles)
     return (int)cudaErrorInvalidValue;
-  cudaError_t err;
-  tile_scores<<<n_tiles, threads_for(pt), pt * sizeof(float), st>>>(
-      color, count, lum2, m_bar, h, bw, bh, pt, flat, score, p);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  const int block = 256;
-  rank_select<<<(n_tiles + block - 1) / block, block, n_tiles * sizeof(int32_t), st>>>(
-      score, n_tiles, k, ids);
+  // the sort's keys: a power of two, at least a warp's M each; M keys to a
+  // thread, so that the sort's threads fit one block
+  const int m = next_pow2(n_tiles) > 1024 * SORT_M ? SORT_M_LARGE : SORT_M;
+  const int n2 = std::max(next_pow2(n_tiles), 32 * m);
+  // the tree's threads, one per pair of its first level up to TILE_THREADS,
+  // and at least the sort's
+  const int threads = std::max(std::min(TILE_THREADS, pt / 2), n2 / m);
+  const size_t smem = std::max(sizeof(float) * (size_t)std::max(pt / 2, 1),
+                               sizeof(unsigned long long) * (size_t)n2);
+  const void* fn = m == SORT_M ? (const void*)tile_select<SORT_M>
+                               : (const void*)tile_select<SORT_M_LARGE>;
+  int rc = set_smem(fn, smem);
+  if (rc != 0) return rc;
+  if (m == SORT_M)
+    tile_select<SORT_M><<<n_tiles, threads, smem, st>>>(color, count, lum2, m_bar, h, bw, bh, pt,
+                                                        flat, n2, k, score, ids, counter, p);
+  else
+    tile_select<SORT_M_LARGE><<<n_tiles, threads, smem, st>>>(
+        color, count, lum2, m_bar, h, bw, bh, pt, flat, n2, k, score, ids, counter, p);
   return (int)cudaGetLastError();
 }
 
 }  // namespace de
 
 // fp: lum_w[3], 0.2, 1e-20 as float32 (5 floats)
-// partial (ceil(w * h / 1024),), m_bar (1,) and score (n_tiles,) are scratch.
+// partial (ceil(w * h / 1024),), m_bar (1,) and score (n_tiles,) are
+// scratch the caller keeps, counter (2,) too: zero before the first call,
+// each launch's last block leaves its counter at zero again.
 extern "C" int de_select_tiles(const float* fp, const float* color, const float* count,
                                const float* lum2, int w, int h, int bw, int bh, int k,
-                               float* partial, float* m_bar, float* score, int32_t* ids,
-                               void* stream) {
+                               float* partial, float* m_bar, float* score, unsigned* counter,
+                               int32_t* ids, void* stream) {
   const de::SelectParams p = de::params(fp);
   cudaStream_t st = (cudaStream_t)stream;
-  const int rc = de::mean_stages(p, color, count, (int64_t)w * h, partial, m_bar, st);
+  const int rc = de::mean_stage(p, color, count, (int64_t)w * h, partial, m_bar, counter, st);
   if (rc != 0) return rc;
-  return de::select_stages(p, color, count, lum2, m_bar, h, bw, bh, (w / bw) * (h / bh), 0, k,
-                           score, ids, st);
+  return de::select_stage(p, color, count, lum2, m_bar, h, bw, bh, (w / bw) * (h / bh), 0, k,
+                          score, ids, counter + 1, st);
 }
 
 // One shard's mean of mean_lum over its n_pix pixels, into mean (1,);
-// partial (ceil(n_pix / 1024),) is scratch.
+// partial (ceil(n_pix / 1024),) and counter (1,) are scratch, as above.
 extern "C" int de_shard_mean(const float* fp, const float* color, const float* count, int n_pix,
-                             float* partial, float* mean, void* stream) {
-  return de::mean_stages(de::params(fp), color, count, n_pix, partial, mean,
-                         (cudaStream_t)stream);
+                             float* partial, unsigned* counter, float* mean, void* stream) {
+  return de::mean_stage(de::params(fp), color, count, n_pix, partial, mean, counter,
+                        (cudaStream_t)stream);
 }
 
 // The k best of one shard's n_tiles tiles of tile pixels each, scored
-// against the frame mean m_bar (1,) on the device; score (n_tiles,) is
-// scratch, ids (k,) the shard-local tile ids.
+// against the frame mean m_bar (1,) on the device; score (n_tiles,) and
+// counter (1,) are scratch, ids (k,) the shard-local tile ids.
 extern "C" int de_select_tiles_shard(const float* fp, const float* color, const float* count,
                                      const float* lum2, int n_tiles, int tile, int k,
-                                     const float* m_bar, float* score, int32_t* ids,
-                                     void* stream) {
-  return de::select_stages(de::params(fp), color, count, lum2, m_bar, 1, tile, 1, n_tiles, 1, k,
-                           score, ids, (cudaStream_t)stream);
+                                     const float* m_bar, float* score, unsigned* counter,
+                                     int32_t* ids, void* stream) {
+  return de::select_stage(de::params(fp), color, count, lum2, m_bar, 1, tile, 1, n_tiles, 1, k,
+                          score, ids, counter, (cudaStream_t)stream);
 }

@@ -72,6 +72,8 @@ _SIGNATURES = {
     # in_scatter, trans, n, rayl_k, mie_e, two_pi, log_term, stream
     "de_atmos_march": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _F, _F, _F,
                        _F, _P],
+    # out (4 ints)
+    "de_atmos_march_occupancy": [_P],
     # float params, int64 params, g, cie_response, keys, dirs, wavelengths,
     # responses, pdf, pid, tile_index, lane_index, tile_ids, n, stream
     "de_gen_rays": [_P] * 13 + [_I, _P],
@@ -80,13 +82,13 @@ _SIGNATURES = {
     # sun_cos_angle, stars, srgb2spec, pid, color, count, lum2, n, stream
     "de_frame_end": [_P] * 19 + [_I, _P],
     # float params, color, count, lum2, w, h, bw, bh, k, partial, m_bar,
-    # score, ids, stream
-    "de_select_tiles": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
-    # float params, color, count, n_pix, partial, mean, stream
-    "de_shard_mean": [_P, _P, _P, _I, _P, _P, _P],
-    # float params, color, count, lum2, n_tiles, tile, k, m_bar, score, ids,
-    # stream
-    "de_select_tiles_shard": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
+    # score, counter, ids, stream
+    "de_select_tiles": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
+    # float params, color, count, n_pix, partial, counter, mean, stream
+    "de_shard_mean": [_P, _P, _P, _I, _P, _P, _P, _P],
+    # float params, color, count, lum2, n_tiles, tile, k, m_bar, score,
+    # counter, ids, stream
+    "de_select_tiles_shard": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P],
     # float params, int params, pos, dir, wavelength, lambda_pdf, throughput,
     # radiance, w_mis, alive, primary_miss, work_class, keys, idx, n_live, m,
     # n, topo, material, clouds, o3_crossec, srgb2spec, table; then scratch
@@ -111,9 +113,12 @@ _SIGNATURES = {
     "de_threefry_uniform": [_P, _I, ctypes.c_uint, _I, _P, _P],
     # base, w, C, factor, out, n (64-bit), jitter channel, jitter, seed, stream
     "de_upsample": [_P, _I, _I, _I, _P, ctypes.c_int64, _I, _F, ctypes.c_uint, _P],
-    # float params, int params, key k0, k1, pos, dir, wavelength, tile_index,
-    # lane_index, topo, material, stars, o3_crossec, srgb2spec, out, n, stream
-    "de_preview": [_P, _P, ctypes.c_uint, ctypes.c_uint] + [_P] * 11 + [_I, _P],
+    # float params, int params, key k0, k1, origin, pos, dir, wavelength,
+    # tile_index, lane_index, topo, material, stars, o3_crossec, srgb2spec,
+    # out, cycles, n, stream
+    "de_preview": [_P, _P, ctypes.c_uint, ctypes.c_uint] + [_P] * 13 + [_I, _P],
+    # out (4 ints)
+    "de_preview_occupancy": [_P],
 }
 
 
@@ -434,15 +439,54 @@ def frame_end(fparams, iparams, radiance, responses, pid, color, count=None, lum
         _count(frame_end, 1)
 
 
-SELECT_TILES_STAGES = 4  # kernel launches per call (csrc/select_tiles.cu)
+SELECT_TILES_STAGES = 2  # kernel launches per call (csrc/select_tiles.cu)
+# the most tiles (the rank's sort in one block's shared memory) and chunk
+# partials of 1024 pixels a call takes (csrc/select_tiles.cu MAX_SHARED)
+SELECT_MAX = 8192
+_select_scratch = {}  # device -> _SelectScratch
 
 
-def select_tiles(fparams, color, count, lum2, block, k: int):
+class _SelectScratch:
+    """The scratch ``select_tiles`` and its shard entries keep per device,
+    each part its own tensor: the ticket counters (int32 (2,), [0] for
+    launch A, [1] for launch B; zero between calls), m_bar (1,), the tile
+    scores and the chunk partials (each grown when a call needs more; an
+    outgrown tensor is kept, so that a graph captured on it stays valid).
+    Kept, not allocated per call, so a call allocates only its outputs and
+    a CUDA graph can capture it, once a call outside the capture has made
+    the scratch at its size. Calls on one device use it in stream order."""
+
+    def __init__(self, dev):
+        self.counter = torch.zeros((2,), dtype=torch.int32, device=dev)
+        self.m_bar = torch.zeros((1,), dtype=torch.float32, device=dev)
+        self.score = torch.zeros((0,), dtype=torch.float32, device=dev)
+        self.partial = torch.zeros((0,), dtype=torch.float32, device=dev)
+        self.outgrown = []
+
+    @staticmethod
+    def get(dev, n_tiles: int = 0, n_part: int = 0):
+        scratch = _select_scratch.get(dev)
+        if scratch is None:
+            scratch = _select_scratch[dev] = _SelectScratch(dev)
+        if scratch.score.numel() < n_tiles:
+            scratch.outgrown.append(scratch.score)
+            scratch.score = torch.empty((n_tiles,), dtype=torch.float32, device=dev)
+        if scratch.partial.numel() < n_part:
+            scratch.outgrown.append(scratch.partial)
+            scratch.partial = torch.empty((n_part,), dtype=torch.float32, device=dev)
+        return scratch
+
+    def counter_ptr(self, launch: int):
+        return ctypes.c_void_p(self.counter.data_ptr() + 4 * launch)
+
+
+def select_tiles(fparams, color, count, lum2, block, k: int, stats: bool = False):
     """Launch ``select_tiles`` (csrc/select_tiles.cu): the (k,) int32 ids of
     the tiles of ``block`` with the highest scores, in descending order, ties
-    to the lower id. ``color`` (W, H, 3), ``count`` and ``lum2`` (W, H);
-    ``fparams`` (5 floats) as de_select_tiles documents
-    (render/adaptive.py builds them)."""
+    to the lower id; with ``stats``, (ids, m_bar (1,), scores (n_tiles,)),
+    copies of the scratch. ``color`` (W, H, 3), ``count`` and ``lum2`` (W,
+    H); ``fparams`` (5 floats) as de_select_tiles documents
+    (render/adaptive.py builds them). Two launches, no read of the card."""
     dev = color.device
     w, h = color.shape[:2]
     bw, bh = block
@@ -454,16 +498,20 @@ def select_tiles(fparams, color, count, lum2, block, k: int):
         raise ValueError("select_tiles: expected 5 float parameters")
     if not 1 <= k <= n_tiles or w % bw or h % bh:
         raise ValueError(f"select_tiles: k={k} of {n_tiles} tiles of {block} in {w}x{h}")
-    partial = torch.empty((-(-w * h // 1024),), dtype=torch.float32, device=dev)
-    m_bar = torch.empty((1,), dtype=torch.float32, device=dev)
-    score = torch.empty((n_tiles,), dtype=torch.float32, device=dev)
+    if n_tiles > SELECT_MAX or w * h > 1024 * SELECT_MAX or bw * bh > SELECT_MAX:
+        raise ValueError(f"select_tiles: {n_tiles} tiles of {block} in {w}x{h}; at most "
+                         f"{SELECT_MAX} tiles of {SELECT_MAX} pixels in {1024 * SELECT_MAX}")
+    scratch = _SelectScratch.get(dev, n_tiles, -(-w * h // 1024))
     ids = torch.empty((k,), dtype=torch.int32, device=dev)
     fp = (ctypes.c_float * 5)(*fparams)
     _launch(
         "de_select_tiles", ctypes.cast(fp, ctypes.c_void_p), _ptr(color), _ptr(count),
-        _ptr(lum2), w, h, bw, bh, k, _ptr(partial), _ptr(m_bar), _ptr(score), _ptr(ids),
+        _ptr(lum2), w, h, bw, bh, k, _ptr(scratch.partial), _ptr(scratch.m_bar),
+        _ptr(scratch.score), scratch.counter_ptr(0), _ptr(ids),
     )
     _count(select_tiles, SELECT_TILES_STAGES)
+    if stats:
+        return ids, scratch.m_bar.clone(), scratch.score[:n_tiles].clone()
     return ids
 
 
@@ -478,28 +526,31 @@ def _check_shard(color, count, lum2=None):
 
 
 def shard_mean(fparams, color, count):
-    """Launch stages 1-2 of ``select_tiles`` (csrc/select_tiles.cu,
-    de_shard_mean) on one device's flat shard: the (1,) mean over its pixels
-    of lum(color) / max(count, 1). ``color`` (P, 3), ``count`` (P,)."""
+    """Launch A of ``select_tiles`` (csrc/select_tiles.cu, de_shard_mean) on
+    one device's flat shard: the (1,) mean over its pixels of lum(color) /
+    max(count, 1). ``color`` (P, 3), ``count`` (P,)."""
     dev, n_pix = _check_shard(color, count)
     if len(fparams) != 5 or n_pix < 1:
         raise ValueError("shard_mean: expected 5 float parameters and a non-empty shard")
-    partial = torch.empty((-(-n_pix // 1024),), dtype=torch.float32, device=dev)
+    if n_pix > 1024 * SELECT_MAX:
+        raise ValueError(f"shard_mean: {n_pix} pixels, at most {1024 * SELECT_MAX}")
+    scratch = _SelectScratch.get(dev, n_part=-(-n_pix // 1024))
     mean = torch.empty((1,), dtype=torch.float32, device=dev)
     fp = (ctypes.c_float * 5)(*fparams)
     _launch("de_shard_mean", ctypes.cast(fp, ctypes.c_void_p), _ptr(color), _ptr(count), n_pix,
-            _ptr(partial), _ptr(mean))
+            _ptr(scratch.partial), scratch.counter_ptr(0), _ptr(mean))
     _count(select_tiles_shard, SELECT_TILES_STAGES // 2)
     return mean
 
 
-def select_tiles_shard(fparams, color, count, lum2, tile: int, k: int, m_bar):
-    """Launch stages 3-4 of ``select_tiles`` (csrc/select_tiles.cu,
+def select_tiles_shard(fparams, color, count, lum2, tile: int, k: int, m_bar,
+                       stats: bool = False):
+    """Launch B of ``select_tiles`` (csrc/select_tiles.cu,
     de_select_tiles_shard) on one device's flat tile-major shard of
     ``tile``-pixel tiles: the (k,) int32 shard-local ids of the best tiles
     scored against the frame mean ``m_bar`` (1,) on the same device, in
-    descending order, ties to the lower id. Its launches count with
-    ``shard_mean``'s."""
+    descending order, ties to the lower id; with ``stats``, (ids, scores).
+    Its launches count with ``shard_mean``'s."""
     dev, n_pix = _check_shard(color, count, lum2)
     _check("m_bar", m_bar, torch.float32, (1,), dev)
     if len(fparams) != 5:
@@ -507,13 +558,17 @@ def select_tiles_shard(fparams, color, count, lum2, tile: int, k: int, m_bar):
     if tile < 1 or n_pix % tile or not 1 <= k <= n_pix // tile:
         raise ValueError(f"select_tiles_shard: k={k} of {n_pix} pixels in tiles of {tile}")
     n_tiles = n_pix // tile
-    score = torch.empty((n_tiles,), dtype=torch.float32, device=dev)
+    if n_tiles > SELECT_MAX or tile > SELECT_MAX:
+        raise ValueError(f"select_tiles_shard: {n_tiles} tiles of {tile} pixels; at most "
+                         f"{SELECT_MAX} tiles of {SELECT_MAX} pixels")
+    scratch = _SelectScratch.get(dev, n_tiles)
     ids = torch.empty((k,), dtype=torch.int32, device=dev)
     fp = (ctypes.c_float * 5)(*fparams)
     _launch("de_select_tiles_shard", ctypes.cast(fp, ctypes.c_void_p), _ptr(color), _ptr(count),
-            _ptr(lum2), n_tiles, tile, k, _ptr(m_bar), _ptr(score), _ptr(ids))
+            _ptr(lum2), n_tiles, tile, k, _ptr(m_bar), _ptr(scratch.score),
+            scratch.counter_ptr(1), _ptr(ids))
     _count(select_tiles_shard, SELECT_TILES_STAGES // 2)
-    return ids
+    return (ids, scratch.score[:n_tiles].clone()) if stats else ids
 
 
 _film = None
@@ -824,24 +879,34 @@ PREVIEW_FLOATS, PREVIEW_INTS = 22, 11  # the preview kernel's parameter blocks
 
 
 def preview(fparams, iparams, key, pos, direction, wavelength, tile_index, lane_index, topo,
-            material, stars, o3_crossec, srgb2spec):
+            material, stars, o3_crossec, srgb2spec, *, origin=None, census: bool = False):
     """Launch ``preview`` (csrc/preview.cu): the (n,) preview radiance of
     each lane, the whole of ``march_paths``. ``key`` is (k0, k1): the spp key
     with ``tile_index`` (n,) int64 (the lane's tile key is fold(key, tile
     index)), or the tile key of one tile of n lanes with ``tile_index`` None;
     ``lane_index`` (n,) int64 is the in-tile index (None with ``tile_index``
-    None). ``fparams`` (22 floats) and ``iparams`` (11 ints) are laid out as
-    de_preview documents (render/raymarcher.PreviewFrame builds them)."""
-    dev = pos.device
-    n = pos.shape[0]
+    None). ``pos`` (n, 3), or None with ``origin`` (three floats) every
+    lane's origin, passed by value. ``fparams`` (22 floats) and ``iparams``
+    (11 ints) are laid out as de_preview documents
+    (render/raymarcher.PreviewFrame builds them). With ``census`` the
+    census instance runs and (out, cycles) comes back, cycles (n, 3) int64
+    each lane's clock64 cycles in its land and shadow marches, in the march
+    and in all."""
+    dev = direction.device
+    n = direction.shape[0]
     if len(fparams) != PREVIEW_FLOATS or len(iparams) != PREVIEW_INTS:
         raise ValueError(f"preview: expected {PREVIEW_FLOATS} float and {PREVIEW_INTS} int "
                          "parameters")
     if (tile_index is None) != (lane_index is None):
         raise ValueError("preview: pass tile_index and lane_index together")
+    if (pos is None) == (origin is None):
+        raise ValueError("preview: pass pos or origin, not both")
     if iparams[4] < 1 or (tile_index is None and iparams[4] != n):
         raise ValueError(f"preview: {iparams[4]} lanes per tile for {n} lanes")
-    _check("pos", pos, torch.float32, (n, 3), dev)
+    if pos is not None:
+        _check("pos", pos, torch.float32, (n, 3), dev)
+    elif len(origin) != 3:
+        raise ValueError("preview: origin takes three floats")
     _check("direction", direction, torch.float32, (n, 3), dev)
     _check("wavelength", wavelength, torch.float32, (n,), dev)
     if tile_index is not None:
@@ -855,17 +920,43 @@ def preview(fparams, iparams, key, pos, direction, wavelength, tile_index, lane_
     _check("o3_crossec", o3_crossec, torch.float32, (441,), dev)
     _check("srgb2spec", srgb2spec, torch.float32, (300, 3), dev)
     out = torch.empty((n,), dtype=torch.float32, device=dev)
+    cycles = torch.empty((n, 3), dtype=torch.int64, device=dev) if census else None
     if n:
         fp = (ctypes.c_float * PREVIEW_FLOATS)(*fparams)
         ip = (ctypes.c_int * PREVIEW_INTS)(*iparams)
+        org = (ctypes.c_float * 3)(*origin) if origin is not None else None
         _launch(
             "de_preview", ctypes.cast(fp, ctypes.c_void_p), ctypes.cast(ip, ctypes.c_void_p),
-            key[0] & 0xFFFFFFFF, key[1] & 0xFFFFFFFF, _ptr(pos), _ptr(direction),
+            key[0] & 0xFFFFFFFF, key[1] & 0xFFFFFFFF,
+            None if org is None else ctypes.cast(org, ctypes.c_void_p), _ptr_or_null(pos),
+            _ptr(direction),
             _ptr(wavelength), _ptr_or_null(tile_index), _ptr_or_null(lane_index), _ptr(topo),
-            _ptr(material), _ptr(stars), _ptr(o3_crossec), _ptr(srgb2spec), _ptr(out), n,
+            _ptr(material), _ptr(stars), _ptr(o3_crossec), _ptr(srgb2spec), _ptr(out),
+            _ptr_or_null(cycles), n,
         )
         _count(preview, 1)
-    return out
+    return (out, cycles) if census else out
+
+
+def _occupancy(entry):
+    out = (ctypes.c_int * 4)()
+    rc = getattr(library(), entry)(out)
+    if rc != 0:
+        raise RuntimeError(f"{entry}: CUDA error {rc}")
+    blocks, threads, regs, local = list(out)
+    return dict(blocks_per_sm=blocks, threads=threads, registers=regs, local_bytes=local,
+                warps_per_sm=blocks * threads // 32)
+
+
+def preview_occupancy():
+    """The ``preview`` kernel's registers per thread, local memory and
+    resident blocks and warps per SM on the current device."""
+    return _occupancy("de_preview_occupancy")
+
+
+def atmos_march_occupancy():
+    """The same for the ``atmos_march`` launcher."""
+    return _occupancy("de_atmos_march_occupancy")
 
 
 PATH_KERNELS = (land_march, rmo_delta_track, cloud_track, gen_rays, atmos_march,

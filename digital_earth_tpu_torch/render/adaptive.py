@@ -125,13 +125,19 @@ def shard_mean_plain(color, count):
     return _mean(_mean_lum(color, count)).reshape(1)
 
 
+def shard_scores_plain(color, count, lum2, tile: int, m_bar):
+    """The shard's (n_tiles,) tile scores against the frame mean ``m_bar``
+    (1,), in tile order."""
+    score = _pixel_scores(color, count, lum2, m_bar).view(-1, tile)
+    return tree_sum(score) / _scalar(float(tile), score)
+
+
 def select_tiles_shard_plain(color, count, lum2, tile: int, k: int, m_bar):
     """Plain twin of ``kernels.select_tiles_shard``: the (k,) int32
     shard-local ids of the shard's highest-scoring tiles against the frame
     mean ``m_bar`` (1,), descending in XLA's total order, ties to the lower
     id."""
-    score = _pixel_scores(color, count, lum2, m_bar).view(-1, tile)
-    scores = tree_sum(score) / _scalar(float(tile), score)
+    scores = shard_scores_plain(color, count, lum2, tile, m_bar)
     order = torch.sort(order_keys(scores), descending=True, stable=True).indices
     return order[:k].to(torch.int32)
 

@@ -17,6 +17,7 @@ distinct tiles), so the deposit needs no atomics and stays deterministic.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -65,11 +66,15 @@ def _f32(x) -> float:
     return float(torch.tensor(x, dtype=torch.float32))
 
 
+@functools.lru_cache(maxsize=1)
+def _kernel_floats():
+    return (*sp.planck_kernel_constants(), _f32(C.SUN_TEMPERATURE), _f32(C.STARS_SCALE),
+            *sp.XYZ_TO_RGB_D65.reshape(-1).tolist(), *sp.LUM_WEIGHTS.tolist())
+
+
 def kernel_params(n_lambdas: int, miss=None):
     """The ``frame_end`` kernel's (17 float, 5 int) parameters."""
-    fparams = [*sp.planck_kernel_constants(), _f32(C.SUN_TEMPERATURE),
-               _f32(C.STARS_SCALE), *sp.XYZ_TO_RGB_D65.reshape(-1).tolist(),
-               *sp.LUM_WEIGHTS.tolist()]
+    fparams = list(_kernel_floats())
     if miss is None:
         return fparams, [n_lambdas, 0, 0, 1, 0]
     sh, sw = miss.atlas.stars.shape[:2]

@@ -3,20 +3,60 @@
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple
+from typing import NamedTuple, Tuple
 
 import torch
 
 from .. import constants as C
+from ..ops import math_utils as mu
+
+
+class HostScene(NamedTuple):
+    """The scene's kernel scalars as the host holds them, Python floats each
+    a float32 value: what the kernels' parameter blocks take
+    (``pathtracer.scene_floats``), so that building them reads nothing from
+    the card."""
+
+    land_height_scale: float
+    light_direction: Tuple[float, float, float]
+    sun_cos_angle: float
+    solid_angle: float  # of the sun's cone
+    offset_scale: float  # 1 + 1e-4 scale / 12000, the surface offset factor
 
 
 class SceneParams(NamedTuple):
-    """Per-frame scene parameters (float32 tensors on the render device)."""
+    """Per-frame scene parameters: float32 tensors on the render device, and
+    ``host``, the kernels' scalars derived from them (``host_scene``)."""
 
     light_direction: torch.Tensor  # (3,)
     sun_cos_angle: torch.Tensor
     sun_angular_radius: torch.Tensor
     land_height_scale: torch.Tensor
+    host: HostScene
+
+
+SCENE_TENSORS = SceneParams._fields[:4]  # the fields the reference's SceneParams has
+
+
+def host_scene(light_direction, sun_cos_angle, sun_angular_radius, land_height_scale):
+    """The ``HostScene`` of the scene tensors, computed by the twins' own
+    float32 arithmetic on the tensors' device (the solid angle of the sun's
+    cone, the offset factor; PyTorch on the card applies a Python divisor as
+    a multiply by float32(1 / b), so the device decides the bits) and read
+    back with one ``.tolist()``: the one read of the card per scene."""
+    scale = land_height_scale
+    scale_f, *light, cos_angle, solid_angle, offset_scale = torch.stack([
+        scale, *light_direction, sun_cos_angle,
+        mu.cone_angle_to_solid_angle(sun_angular_radius), 1.0 + 0.0001 * scale / 12000.0,
+    ]).tolist()
+    return HostScene(scale_f, tuple(light), cos_angle, solid_angle, offset_scale)
+
+
+def scene_params(light_direction, sun_cos_angle, sun_angular_radius,
+                 land_height_scale) -> SceneParams:
+    """``SceneParams`` of the four scene tensors, with their host record."""
+    tensors = (light_direction, sun_cos_angle, sun_angular_radius, land_height_scale)
+    return SceneParams(*tensors, host=host_scene(*tensors))
 
 
 def make_scene_params(
@@ -26,7 +66,7 @@ def make_scene_params(
     land_height_scale: float = C.DEFAULT_LAND_HEIGHT_SCALE,
 ) -> SceneParams:
     """Light direction from the two sun sliders (float32 trigonometry, as
-    the reference evaluates it)."""
+    the reference evaluates it); the host record is read once, here."""
     f32 = dict(dtype=torch.float32, device=device)
     sun_angle = torch.tensor(sun_angle, **f32)
     sun_path_rot = torch.tensor(sun_path_rot, **f32)
@@ -34,11 +74,11 @@ def make_scene_params(
     light_direction = torch.cat(
         [-torch.sin(sun_angle)[None], torch.cos(sun_angle) * sun_rot]
     )
-    return SceneParams(
-        light_direction=light_direction,
-        sun_cos_angle=torch.tensor(C.SUN_COS_ANGLE, **f32),
-        sun_angular_radius=torch.tensor(C.SUN_ANGULAR_RADIUS, **f32),
-        land_height_scale=torch.tensor(land_height_scale, **f32),
+    return scene_params(
+        light_direction,
+        torch.tensor(C.SUN_COS_ANGLE, **f32),
+        torch.tensor(C.SUN_ANGULAR_RADIUS, **f32),
+        torch.tensor(land_height_scale, **f32),
     )
 
 

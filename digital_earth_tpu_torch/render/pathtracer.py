@@ -458,22 +458,19 @@ def run_bounce_plain(st: TraceState, bounce: int, scene: SceneParams, atlas, lut
 
 
 def scene_floats(scene: SceneParams):
-    """The kernels' scene scalars, read from the device with one
-    ``.tolist()``: (land height scale, light direction (3), sun cos angle,
-    the sun cone's solid angle, the surface offset 1 + 1e-4 scale / 12000),
-    each computed by the twins' own device arithmetic."""
-    scale = scene.land_height_scale
-    scale_f, *light, cos_angle, solid_angle, offset_scale = torch.stack([
-        scale, *scene.light_direction, scene.sun_cos_angle,
-        mu.cone_angle_to_solid_angle(scene.sun_angular_radius),
-        1.0 + 0.0001 * scale / 12000.0,
-    ]).tolist()
-    return scale_f, light, cos_angle, solid_angle, offset_scale
+    """The kernels' scene scalars: (land height scale, light direction (3),
+    sun cos angle, the sun cone's solid angle, the surface offset 1 + 1e-4
+    scale / 12000), from the scene's host record, touching no tensor. Each
+    was computed once, when the scene was made, by the twins' own float32
+    arithmetic on the scene's device (``params.host_scene``): the kernels
+    must take the bits the twins compute, and PyTorch rounds a Python
+    divisor on the card otherwise than on the CPU."""
+    return tuple(scene.host)
 
 
 class BounceFrame:
     """The bounce kernels' arguments that hold for a whole wavefront: the
-    scene's scalars read from the device once, the lane keys as int32 once,
+    scene's scalars from its host record, the lane keys as int32 once,
     the density table (pathtracer.run_bounces builds one per call)."""
 
     def __init__(self, st: TraceState, scene: SceneParams, atlas, luts, cfg: TraceConfig):

@@ -99,6 +99,14 @@ def _host_key(k0: int, k1: int, data: int):
     return tuple(rng.threefry2x32(k0, k1, 0, data & rng.M32))
 
 
+def spp_key(base_key, spp: int):
+    """The spp key fold(base_key, spp) on the host, as a (2,) int64 CPU
+    tensor (the preview kernel takes it as two integers): Python integer
+    arithmetic, where ``rng.fold`` on a CPU tensor runs threefry as some
+    hundred small tensor operations."""
+    return torch.tensor(_host_key(base_key[0], base_key[1], spp), dtype=torch.int64)
+
+
 @functools.lru_cache(maxsize=16)
 def _camera_floats(host: HostCamera, w: int, h: int):
     """The kernel's camera floats: the basis in float32 on the CPU (as the

@@ -204,9 +204,11 @@ def march_paths_plain(key, ray_pos, ray_dir, wavelength, scene: SceneParams, atl
 
 class PreviewFrame:
     """The ``preview`` kernel's parameter blocks for a frame: the scene's
-    scalars (``pathtracer.scene_floats``), the march floor, the Planck and
-    phase constants (floats), the march budget, the lanes per tile and the
-    texture shapes (ints)."""
+    scalars (``pathtracer.scene_floats``, the scene's host record), the
+    march floor, the Planck and phase constants (floats), the march budget,
+    the lanes per tile and the texture shapes (ints). Built from host values
+    only, so it reads nothing from the card; the ``Renderer`` keeps one per
+    scene, atlas, config and tile."""
 
     def __init__(self, scene: SceneParams, atlas, luts, cfg: TraceConfig, tile: int):
         topo = atlas.topography
@@ -227,15 +229,17 @@ class PreviewFrame:
 
 def march_paths(key, ray_pos, ray_dir, wavelength, scene: SceneParams, atlas, luts,
                 cfg: TraceConfig = TraceConfig(), tile_index=None, lane=None, tile=None,
-                frame: PreviewFrame = None):
+                frame: PreviewFrame = None, origin=None):
     """``march_paths_plain``'s function (same arguments): its plain version
     for CPU tensors, one launch of the ``preview`` kernel for CUDA tensors
-    (``frame`` as built for the call, or built here). ``key`` should lie on
-    the CPU: the kernel takes it as two integers."""
-    if ray_pos.device.type == "cpu":
+    (``frame`` as built for the call, or built here). On the card
+    ``ray_pos`` may be None with ``origin`` the lanes' shared origin, three
+    float32 values on the host, which the kernel takes by value. ``key``
+    should lie on the CPU: the kernel takes it as two integers."""
+    if ray_dir.device.type == "cpu":
         return march_paths_plain(key, ray_pos, ray_dir, wavelength, scene, atlas, luts, cfg,
                                  tile_index, lane, tile)
-    n = ray_pos.shape[0]
+    n = ray_dir.shape[0]
     if tile_index is None:
         tile = n
     if frame is None:
@@ -243,4 +247,5 @@ def march_paths(key, ray_pos, ray_dir, wavelength, scene: SceneParams, atlas, lu
     return kernels.preview(
         frame.fparams, frame.iparams, key.tolist(), ray_pos, ray_dir, wavelength, tile_index,
         lane, atlas.topography, atlas.material, atlas.stars, luts.o3_crossec, luts.srgb2spec,
+        origin=origin,
     )

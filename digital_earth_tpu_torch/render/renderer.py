@@ -45,7 +45,8 @@ from .params import SceneParams, TraceConfig, make_scene_params
 def trace_lanes(base_key, spp: int, lane0: int, n: int, cam: CameraParams,
                 scene: SceneParams, atlas: TextureAtlas, luts: SpectralLUTs,
                 image_res, block, cfg: TraceConfig, color, count=None, lum2=None,
-                mode: str = "path", interrupt=None, tile_ids=None, out_index=None):
+                mode: str = "path", interrupt=None, tile_ids=None, out_index=None,
+                frame: raymarcher.PreviewFrame = None):
     """One sample for lanes [lane0, lane0 + n) of the frame's tile-major
     lane order over ``block`` (of the tiles ``tile_ids`` when given), added
     into ``color`` (W * H, 3) at pixel pu * H + pv, and into ``count`` /
@@ -54,32 +55,42 @@ def trace_lanes(base_key, spp: int, lane0: int, n: int, cam: CameraParams,
     int64 puts lane i at buffer row out_index[i] instead (a render mesh's
     device deposits into its own flat shard). The path tracer polls
     ``interrupt`` between bounces (pathtracer.run_bounces) and raises
-    ``pathtracer.Interrupted`` before anything is deposited."""
+    ``pathtracer.Interrupted`` before anything is deposited. ``frame`` is
+    the preview kernel's parameter blocks (built here when None)."""
     preview = mode == "preview"
     rays = raygen.gen_rays(base_key, spp, lane0, n, image_res, block, cam, luts, preview,
                            tile_ids)
     dev = rays.dirs.device
     pid = rays.pid if out_index is None else out_index
-    # the rays' origin from the host camera: one copy that waits for nothing
-    origin = torch.tensor(cam.host.position, dtype=torch.float32)
-    pos = origin.to(dev, non_blocking=True).expand(n, 3).contiguous()
+    origin = cam.host.position
     if preview:
         # the spp key on the host: the preview kernel folds in each lane's tile
-        spp_key = rng.fold(torch.tensor(base_key, dtype=torch.int64), spp)
+        spp_key = raygen.spp_key(base_key, spp)
+        # on the card the kernel takes the shared origin by value
+        pos = None if dev.type == "cuda" else _lane_origins(origin, dev, n)
         radiance = raymarcher.march_paths(
             spp_key, pos, rays.dirs, rays.wavelengths[:, 0], scene, atlas, luts, cfg,
             tile_index=rays.tile_index, lane=rays.lane_index, tile=block[0] * block[1],
+            frame=frame, origin=origin,
         )
         fe.frame_end(rays.responses, pid, color, count, lum2, radiance=radiance[:, None],
                      pdf=rays.pdf)
         return
-    st = pt.init_state(pos, rays.dirs, rays.wavelengths, rays.pdf, rays.keys)
+    st = pt.init_state(_lane_origins(origin, dev, n), rays.dirs, rays.wavelengths, rays.pdf,
+                       rays.keys)
     st = pt.run_bounces(st, scene, atlas, luts, cfg, 0, cfg.max_bounces, interrupt)
     # miss lanes die at bounce 0 with their direction, throughput and w_mis
     # frozen, so shading them after the sweep is the reference's order
     # (renderer.py:328-331)
     fe.frame_end(rays.responses, pid, color, count, lum2,
                  miss=fe.MissShading(st, scene, atlas, luts, cfg))
+
+
+def _lane_origins(origin, dev, n: int):
+    """(n, 3) float32 copies of the host camera's ``origin``: one copy to the
+    device that waits for nothing."""
+    pos = torch.tensor(origin, dtype=torch.float32)
+    return pos.to(dev, non_blocking=True).expand(n, 3).contiguous()
 
 
 class Renderer:
@@ -126,6 +137,7 @@ class Renderer:
         self.sun_path_rot = C.DEFAULT_SUN_PATH_ROT
         self.land_height_scale = C.DEFAULT_LAND_HEIGHT_SCALE
         self._scene_params = {}  # device -> (slider values, SceneParams)
+        self._preview_frame = None  # (scene, atlas, luts, cfg, tile, PreviewFrame)
 
         self._seed_key = (0, int(seed) & rng.M32)  # jax.random.PRNGKey(seed)
         self.current_spp = 0
@@ -198,6 +210,20 @@ class Renderer:
             self._scene_params[device] = kept
         return kept[1]
 
+    def _frame(self, scene: SceneParams):
+        """The preview kernel's parameter blocks (None in path mode), made
+        again only when the scene, atlas, tables, config or tile changed
+        (they read no tensor). Kept on the CPU too, where the plain twin
+        takes none, so that the cache behaves the same on either device."""
+        if self.mode != "preview":
+            return None
+        key = (scene, self.atlas, self.luts, self.cfg, self.tile)
+        kept = self._preview_frame
+        if kept is None or any(a is not b for a, b in zip(kept[:5], key)):
+            kept = (*key, raymarcher.PreviewFrame(*key))
+            self._preview_frame = kept
+        return kept[5]
+
     # --- main API -----------------------------------------------------------
     def reset_framebuffer(self):
         self.current_spp = 0
@@ -257,12 +283,14 @@ class Renderer:
             tile_ids = adaptive.select_tiles(self.color_buffer, self.count_buffer,
                                              self.lum2_buffer, self.block, k)
             block = self.block
+        scene = self.scene_params()
         try:
             trace_lanes(
                 self._seed_key, self._rng_round, 0, k * self.tile, self.camera_params("cpu"),
-                self.scene_params(), self.atlas, self.luts, self.image_res, block, self.cfg,
+                scene, self.atlas, self.luts, self.image_res, block, self.cfg,
                 self.color_buffer.view(w * h, 3), self.count_buffer.view(-1),
                 self.lum2_buffer.view(-1), mode=self.mode, interrupt=interrupt, tile_ids=tile_ids,
+                frame=self._frame(scene),
             )
         except pt.Interrupted:
             return False
@@ -306,7 +334,7 @@ class Renderer:
                 trace_lanes(
                     self._seed_key, self._rng_round, lo, n, cam, scene, self.atlas,
                     self.luts, self.image_res, block, self.cfg, out, mode=self.mode,
-                    interrupt=interrupt,
+                    interrupt=interrupt, frame=self._frame(scene),
                 )
             except pt.Interrupted:
                 return False

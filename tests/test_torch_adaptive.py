@@ -179,6 +179,42 @@ def test_select_tiles_orders_nan_scores_as_top_k(case):
         np.testing.assert_array_equal(got, want)
 
 
+def _kernel_rank(scores):
+    """The select_tiles kernel's rank recipe (csrc/select_tiles.cu launch B),
+    as a plain function: 64-bit keys ~(order_key ^ 2^31) << 32 | tile,
+    sorted ascending."""
+    ok = adaptive.order_keys(scores).numpy().astype(np.int64)
+    biased = (ok + 2**31).astype(np.uint64)  # the signed key as an unsigned one
+    keys = ((np.uint64(0xFFFFFFFF) - biased) << np.uint64(32)) | np.arange(len(ok), dtype=np.uint64)
+    return (np.sort(keys) & np.uint64(0xFFFFFFFF)).astype(np.int32)
+
+
+@pytest.mark.parametrize("case", ["ties", "inf_color", "neg_inf_color", "nan_lum2",
+                                  "nan_everywhere"])
+def test_kernel_rank_keys_give_the_twins_order(case):
+    """Sorting the kernel's keys ranks the tiles as the twin's stable
+    descending sort of the total-order keys does: ties to the lower id,
+    +inf, +NaN and -NaN where lax.top_k puts them."""
+    w, h = 64, 36
+    block = raygen.pick_block_dims(w, h, 96)
+    n_tiles = (w // block[0]) * (h // block[1])
+    color, count, lum2 = _seeded_buffers(w, h, block, seed=11)
+    if case == "inf_color":
+        color[10, 7, 1] = np.inf
+    elif case == "neg_inf_color":
+        color[40, 30, 2] = -np.inf
+    elif case == "nan_lum2":
+        lum2[20, 3] = np.nan
+    elif case == "nan_everywhere":
+        lum2[::7, ::5] = np.nan
+        lum2[1::9, ::4] = -np.nan
+    scores = adaptive.tile_scores_plain(T(color), T(count), T(lum2), block)
+    got = _kernel_rank(scores)
+    want = adaptive.select_tiles_plain(T(color), T(count), T(lum2), block, n_tiles).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert sorted(got.tolist()) == list(range(n_tiles))
+
+
 def test_tree_sum_is_the_halving_order():
     x = torch.from_numpy(np.random.default_rng(0).random((3, 13)).astype(np.float32))
     p = torch.nn.functional.pad(x, (0, 3))

@@ -294,11 +294,12 @@ def test_camera_cast_dirs():
 def test_scene_params_and_trace_config():
     js_ = jparams.make_scene_params(5.08, -1.71, 7800.0)
     ts_ = tparams.make_scene_params("cpu", 5.08, -1.71, 7800.0)
-    for f in tparams.SceneParams._fields:
+    for f in tparams.SCENE_TENSORS:
         close(getattr(ts_, f), getattr(js_, f), atol=1e-7)
     conv = convert.scene_params_to_torch(js_, "cpu")
-    for f in tparams.SceneParams._fields:
+    for f in tparams.SCENE_TENSORS:
         np.testing.assert_array_equal(getattr(conv, f).numpy(), np.asarray(getattr(js_, f)))
+    assert conv.host == tparams.host_scene(*(getattr(conv, f) for f in tparams.SCENE_TENSORS))
     # the port's fields are reference fields with the reference's defaults
     jf = {f.name: f.default for f in jparams.TraceConfig.__dataclass_fields__.values()}
     tf = {f.name: f.default for f in tparams.TraceConfig.__dataclass_fields__.values()}

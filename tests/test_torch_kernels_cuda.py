@@ -252,22 +252,26 @@ def test_gen_rays_kernel_captured_in_a_cuda_graph(dev):
 
 
 def test_atmos_march_kernel(case):
+    """The warp-cooperative march (16 threads to a lane) bit-equal to its
+    twin on every lane, active or not; n not a multiple of the block."""
+    from digital_earth_tpu_torch import kernels
     from digital_earth_tpu_torch.ops import math_utils as mu
     from digital_earth_tpu_torch.render import raymarcher
 
-    pos, dirs = case["pos"], case["dirs"]
+    n = N - 45
+    pos, dirs = case["pos"][:n], case["dirs"][:n]
     a_near, a_far = mu.rsi(pos, dirs, C.ATMOS_UPPER_LIMIT)
     t0 = torch.clamp(a_near, min=0.0)
     sun = torch.nn.functional.normalize(torch.randn_like(pos) * 0.1 + dirs.roll(1, 0), dim=-1)
-    ext = case["ext_h"]
+    ext = case["ext_h"][:n].contiguous()
     scat = torch.stack([ext[:, 0], ext[:, 1] * C.AEROSOL_ALBEDO], dim=-1)
-    active = case["active"] & (a_far >= 0.0)
+    active = case["active"][:n] & (a_far >= 0.0)
     args = (pos, dirs, t0, a_far, sun.contiguous(), ext, scat, active)
-    got = raymarcher.ray_march_atmos(*args)
+    got = kernels.atmos_march(*args, mie_e=C.MIE_ASYMMETRY)
     want = raymarcher.ray_march_atmos_plain(*args)
+    assert 0.3 < active.float().mean().item() < 1.0
     for g, w in zip(got, want):
-        close = (g - w).abs() <= 1e-4 * w.abs() + 1e-30
-        assert close[active].float().mean().item() >= 0.999
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32))
 
 
 def _preview_lanes(dev, res, bilinear):
@@ -286,26 +290,100 @@ def _preview_lanes(dev, res, bilinear):
     return args, dict(tile_index=tidx, lane=li, tile=r.tile)
 
 
+def _bits_equal(a, b):
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
 @pytest.mark.parametrize("bilinear", [True, False])
 def test_preview_kernel(dev, bilinear):
-    """preview (csrc/preview.cu) against march_paths_plain on the card on a
-    160x90 frame's lanes: radiance within 1e-4 relative (atol 1e-6 of the
-    largest value) on at least 99.9% of lanes (chip_smoke.py holds the
-    480x270 frame to 1 - 1e-4: a march hit within an ulp of its threshold
-    sends a lane elsewhere)."""
+    """preview (csrc/preview.cu) bit-equal to march_paths_plain on every
+    lane of a 160x90 frame (surface, sky and atmosphere-miss lanes share
+    warps), with the origin by value as trace_lanes passes it."""
     from digital_earth_tpu_torch import kernels
     from digital_earth_tpu_torch.render import raymarcher
 
     args, kw = _preview_lanes(dev, (160, 90), bilinear)
     before = (kernels.preview.launches, kernels.atmos_march.launches,
               kernels.land_march.launches)
-    got = raymarcher.march_paths(*args, **kw)
+    frame = raymarcher.PreviewFrame(*args[4:8], kw["tile"])
+    key, pos = args[0], args[1]
+    got = kernels.preview(frame.fparams, frame.iparams, key.tolist(), None, *args[2:4],
+                          kw["tile_index"], kw["lane"], args[5].topography, args[5].material,
+                          args[5].stars, args[6].o3_crossec, args[6].srgb2spec,
+                          origin=pos[0].tolist())
     assert (kernels.preview.launches, kernels.atmos_march.launches,
             kernels.land_march.launches) == (before[0] + 1, before[1], before[2])
     want = raymarcher.march_paths_plain(*args, **kw)
     assert (want > 0).float().mean().item() > 0.3
-    atol = 1e-6 * want.abs().max()
-    assert ((got - want).abs() <= 1e-4 * want.abs() + atol).float().mean().item() >= 0.999
+    assert _bits_equal(got, want)
+    assert _bits_equal(raymarcher.march_paths(*args, **kw), want)
+
+
+def test_preview_census_keeps_the_bits(dev):
+    """The census instance gives the timed kernel's radiance, bit for bit,
+    and each lane's cycles in its land marches and its march within its
+    whole."""
+    from digital_earth_tpu_torch import kernels
+    from digital_earth_tpu_torch.render import raymarcher
+
+    args, kw = _preview_lanes(dev, (160, 90), True)
+    frame = raymarcher.PreviewFrame(*args[4:8], kw["tile"])
+    key, pos, dirs, wl, _, atlas, luts, _ = args
+    launch = lambda **k: kernels.preview(  # noqa: E731
+        frame.fparams, frame.iparams, key.tolist(), pos, dirs, wl, kw["tile_index"], kw["lane"],
+        atlas.topography, atlas.material, atlas.stars, luts.o3_crossec, luts.srgb2spec, **k)
+    got, cycles = launch(census=True)
+    assert _bits_equal(got, launch())
+    assert cycles.shape == (dirs.shape[0], 3) and (cycles >= 0).all()
+    assert (cycles[:, 0] + cycles[:, 1] <= cycles[:, 2]).all() and cycles[:, 1].sum() > 0
+
+
+@pytest.mark.parametrize("lanes", ["ragged", "tile_list", "one_tile"])
+def test_preview_kernel_lane_sets(dev, lanes):
+    """preview bit-equal to its twin on n not a multiple of the block (a
+    frame's lanes less 37), on lanes of a tile list (tiles out of order,
+    in-tile lanes shuffled) and on one tile of n lanes keyed by its tile key."""
+    from digital_earth_tpu_torch.render import raymarcher
+
+    args, kw = _preview_lanes(dev, (160, 90), True)
+    key, pos, dirs, wl = args[:4]
+    n = dirs.shape[0]
+    g = torch.Generator().manual_seed(3)
+    if lanes == "ragged":
+        sel = torch.arange(n - 37)
+    else:
+        sel = torch.randperm(n, generator=g)[: 3 * 1000 + 11]
+    sel = sel.to(dev)
+    args = (key, pos[sel].contiguous(), dirs[sel].contiguous(), wl[sel].contiguous(), *args[4:])
+    if lanes == "one_tile":
+        kw = {}
+        args = (rng.fold(key, 7), *args[1:])
+    elif lanes == "tile_list":
+        kw = dict(tile_index=(kw["tile_index"][sel] * 5 + 3) % 97, lane=kw["lane"][sel],
+                  tile=kw["tile"])
+    else:
+        kw = dict(tile_index=kw["tile_index"][sel], lane=kw["lane"][sel], tile=kw["tile"])
+    got = raymarcher.march_paths(*args, **kw)
+    want = raymarcher.march_paths_plain(*args, **kw)
+    assert _bits_equal(got, want)
+
+
+def test_preview_frame_bit_equal_with_the_kept_blocks(dev, monkeypatch):
+    """A 64x36 preview frame on the card is the same, bit for bit, with the
+    Renderer's kept parameter blocks as with blocks built on each call (the
+    kernel reads them; the CPU twin takes none)."""
+    from digital_earth_tpu_torch.render import renderer as trenderer
+
+    kept = _apollo_renderer(dev, (64, 36), "preview")
+    fresh = _apollo_renderer(dev, (64, 36), "preview")
+    kept.accumulate()
+    kept.accumulate()
+    monkeypatch.setattr(trenderer.Renderer, "_frame", lambda self, scene: None)
+    fresh.accumulate()
+    fresh.accumulate()
+    assert kept._preview_frame is not None and fresh._preview_frame is None
+    assert _bits_equal(kept.color_buffer, fresh.color_buffer)
+    assert (kept.color_buffer > 0).float().mean().item() > 0.3
 
 
 def test_preview_launcher_checks_its_inputs(dev):
@@ -337,6 +415,9 @@ def test_preview_launcher_checks_its_inputs(dev):
         launch(li=None)
     with pytest.raises(ValueError, match="parameters"):
         launch(fparams=frame.fparams[:-1])
+    with pytest.raises(ValueError, match="pos or origin"):
+        kernels.preview(frame.fparams, frame.iparams, key.tolist(), pos, dirs, wl,
+                        kw["tile_index"], kw["lane"], *tables, origin=(0.0, 0.0, 7e6))
 
 
 @pytest.mark.parametrize("drt", ["opendrt", "agx", "none"])
@@ -476,54 +557,131 @@ def test_frame_end_kernel_preview(dev):
     assert _rel_close(got, want)
 
 
-@pytest.mark.parametrize("res,tile_pixels", [((320, 180), 2048), ((1920, 1080), 2048)])
-def test_select_tiles_kernel(dev, res, tile_pixels):
-    from digital_earth_tpu_torch import kernels
-    from digital_earth_tpu_torch.render import adaptive, raygen
-
-    g = torch.Generator().manual_seed(5)
+def _select_bufs(dev, res, block, seed, case="finite"):
+    g = torch.Generator().manual_seed(seed)
     w, h = res
-    block = raygen.pick_block_dims(w, h, tile_pixels)
-    n_tiles = (w // block[0]) * (h // block[1])
     count = torch.randint(1, 6, (w, h), generator=g).float()
     count[: block[0], : block[1]] = 0.0  # a never-sampled tile
     color = torch.exp(torch.randn((w, h, 3), generator=g)) * count[..., None]
     lum2 = color.sum(-1) ** 2 / count.clamp(min=1) * (1 + torch.rand((w, h), generator=g))
-    bufs = [t.to(dev).contiguous() for t in (color, count, lum2)]
-    for k in (1, n_tiles // 4, n_tiles):
-        before = kernels.select_tiles.launches
-        got = adaptive.select_tiles(*bufs, block, k)
-        assert kernels.select_tiles.launches == before + kernels.SELECT_TILES_STAGES
-        want = adaptive.select_tiles_plain(*bufs, block, k)
-        assert got.dtype == torch.int32 and torch.equal(got, want)
+    bw, bh = block
+    for arr in (color, count, lum2):  # an exact tie: tile 2 copied onto tile 5
+        nby = h // bh
+        (ax, ay), (cx, cy) = divmod(2, nby), divmod(5, nby)
+        arr[cx * bw:(cx + 1) * bw, cy * bh:(cy + 1) * bh] = arr[ax * bw:(ax + 1) * bw,
+                                                                  ay * bh:(ay + 1) * bh]
+    if case == "inf_color":
+        color[17, 40, 1] = float("inf")
+    elif case == "neg_inf_color":
+        color[33, 20, 2] = float("-inf")
+    elif case == "nan_color":
+        color[200, 100, 0] = float("nan")
+    elif case == "nan_lum2":
+        lum2[100, 50] = float("nan")
+    return [t.to(dev).contiguous() for t in (color, count, lum2)]
 
 
-@pytest.mark.parametrize("case", ["inf_color", "nan_color", "nan_lum2"])
-def test_select_tiles_kernel_with_nan_scores(dev, case):
-    """Non-finite buffer values give NaN scores: the kernel still writes k
-    distinct tiles in range, the same as its twin (XLA's total order)."""
+def _select_stats_plain(bufs, block):
+    from digital_earth_tpu_torch.render import adaptive
+
+    color, count, lum2 = bufs
+    m_bar = adaptive.shard_mean_plain(color.reshape(-1, 3), count.reshape(-1))
+    return m_bar, adaptive.tile_scores_plain(color, count, lum2, block)
+
+
+@pytest.mark.parametrize("res,tile_pixels", [((320, 180), 2048), ((1920, 1080), 2048),
+                                             ((96, 60), 64), ((1000, 30), 600),
+                                             ((3200, 1800), 1024)])
+def test_select_tiles_kernel(dev, res, tile_pixels):
+    """ids, m_bar and every tile score bit-equal to the twin's, k = 1 ...
+    n_tiles, two launches a call, calls back to back (each launch's ticket
+    reset by its last block); tile counts that are not powers of two, and
+    6000 tiles (past 4096, where the rank sorts 8 keys to a thread)."""
+    from digital_earth_tpu_torch import kernels
     from digital_earth_tpu_torch.render import adaptive, raygen
 
-    g = torch.Generator().manual_seed(6)
+    w, h = res
+    block = raygen.pick_block_dims(w, h, tile_pixels)
+    n_tiles = (w // block[0]) * (h // block[1])
+    bufs = _select_bufs(dev, res, block, 5)
+    m_want, s_want = _select_stats_plain(bufs, block)
+    for k in (1, max(1, n_tiles // 4), n_tiles, n_tiles):
+        before = kernels.select_tiles.launches
+        got, m_bar, scores = kernels.select_tiles(adaptive._kernel_params(), *bufs, block, k,
+                                                  stats=True)
+        assert kernels.select_tiles.launches == before + kernels.SELECT_TILES_STAGES == before + 2
+        want = adaptive.select_tiles_plain(*bufs, block, k)
+        assert got.dtype == torch.int32 and torch.equal(got, want)
+        assert _bits_equal(m_bar, m_want.reshape(1)) and _bits_equal(scores, s_want)
+        assert torch.equal(adaptive.select_tiles(*bufs, block, k), want)
+
+
+def test_select_tiles_kernel_refuses_more_tiles_than_its_sort(dev):
+    """Past 8192 tiles (the rank's sort in one block's shared memory) the
+    wrappers raise before a launch."""
+    from digital_earth_tpu_torch import kernels
+    from digital_earth_tpu_torch.render import adaptive
+
+    block = (32, 30)  # 3840x2160: 8640 tiles
+    bufs = [torch.zeros(shape, device=dev) for shape in ((3840, 2160, 3), (3840, 2160),
+                                                          (3840, 2160))]
+    with pytest.raises(ValueError, match="8192"):
+        kernels.select_tiles(adaptive._kernel_params(), *bufs, block, 10)
+    flat = [b.reshape(-1, 3) if b.dim() == 3 else b.reshape(-1) for b in bufs]
+    with pytest.raises(ValueError, match="8192"):
+        kernels.select_tiles_shard(adaptive._kernel_params(), *flat, 960, 10,
+                                   torch.ones((1,), device=dev))
+
+
+@pytest.mark.parametrize("case", ["inf_color", "neg_inf_color", "nan_color", "nan_lum2"])
+def test_select_tiles_kernel_with_nan_scores(dev, case):
+    """Non-finite buffer values give NaN or infinite scores: the kernel
+    still writes k distinct tiles in range, the same as its twin (XLA's total
+    order), with the same m_bar and scores, bit for bit."""
+    from digital_earth_tpu_torch import kernels
+    from digital_earth_tpu_torch.render import adaptive, raygen
+
     w, h = 320, 180
     block = raygen.pick_block_dims(w, h, 2048)
     n_tiles = (w // block[0]) * (h // block[1])
-    count = torch.randint(1, 6, (w, h), generator=g).float()
-    color = torch.exp(torch.randn((w, h, 3), generator=g)) * count[..., None]
-    lum2 = color.sum(-1) ** 2 / count * (1 + torch.rand((w, h), generator=g))
-    if case == "inf_color":
-        color[17, 40, 1] = float("inf")
-    elif case == "nan_color":
-        color[200, 100, 0] = float("nan")
-    else:
-        lum2[100, 50] = float("nan")
-    bufs = [t.to(dev).contiguous() for t in (color, count, lum2)]
-    assert torch.isnan(adaptive.tile_scores_plain(*bufs, block)).any()
+    bufs = _select_bufs(dev, (w, h), block, 6, case)
+    m_want, s_want = _select_stats_plain(bufs, block)
+    assert not torch.isfinite(s_want).all()
     for k in (1, n_tiles // 4, n_tiles):
-        got = adaptive.select_tiles(*bufs, block, k)
+        got, m_bar, scores = kernels.select_tiles(adaptive._kernel_params(), *bufs, block, k,
+                                                  stats=True)
         want = adaptive.select_tiles_plain(*bufs, block, k)
         assert torch.equal(got, want)
+        assert _bits_equal(m_bar, m_want.reshape(1)) and _bits_equal(scores, s_want)
         assert got.unique().numel() == k and 0 <= got.min().item() and got.max().item() < n_tiles
+
+
+def test_select_tiles_kernel_captured_in_a_cuda_graph(dev):
+    """A call reads nothing back from the card and allocates only its ids,
+    so a CUDA graph captures it; replayed on new buffers (copied into the
+    captured ones) it gives the twin's ids."""
+    from digital_earth_tpu_torch.render import adaptive, raygen
+
+    res = (320, 180)
+    block = raygen.pick_block_dims(*res, 2048)
+    bufs = _select_bufs(dev, res, block, 8)
+    k = 7
+    adaptive.select_tiles(*bufs, block, k)  # the scratch, made outside the capture
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        adaptive.select_tiles(*bufs, block, k)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        ids = adaptive.select_tiles(*bufs, block, k)
+    for seed in (9, 10):
+        for dst, src in zip(bufs, _select_bufs(dev, res, block, seed)):
+            dst.copy_(src)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(ids, adaptive.select_tiles_plain(*bufs, block, k))
 
 
 # --- one device's shard of a render mesh: shard_mean, select_tiles_shard -----
@@ -532,33 +690,80 @@ def test_select_tiles_kernel_with_nan_scores(dev, case):
 # the Renderer (per-lane kernels, one add per pixel).
 
 
-@pytest.mark.parametrize("n_tiles,tile,case", [(270, 1920, "finite"), (8, 64, "finite"),
-                                               (270, 1920, "nan_lum2"), (100, 48, "inf_color")])
-def test_select_tiles_shard_kernel(dev, n_tiles, tile, case):
-    from digital_earth_tpu_torch import kernels
-    from digital_earth_tpu_torch.render import adaptive
-
+def _shard_bufs(dev, n_tiles, tile, case="finite"):
     g = torch.Generator().manual_seed(7)
     n = n_tiles * tile
     count = torch.randint(1, 6, (n,), generator=g).float()
     count[:tile] = 0.0  # a never-sampled tile
     color = torch.exp(torch.randn((n, 3), generator=g)) * count[:, None]
     lum2 = color.sum(-1) ** 2 / count.clamp(min=1) * (1 + torch.rand((n,), generator=g))
+    for arr in (color, count, lum2):  # an exact tie: tile 2 copied onto tile 5
+        arr[5 * tile:6 * tile] = arr[2 * tile:3 * tile]
     if case == "nan_lum2":
         lum2[n // 2] = float("nan")
     elif case == "inf_color":
         color[n // 3, 1] = float("inf")
-    bufs = [t.to(dev).contiguous() for t in (color, count, lum2)]
+    elif case == "neg_inf_color":
+        color[n // 3, 2] = float("-inf")
+    return [t.to(dev).contiguous() for t in (color, count, lum2)]
+
+
+@pytest.mark.parametrize("n_tiles,tile,case", [(270, 1920, "finite"), (8, 64, "finite"),
+                                               (270, 1920, "nan_lum2"), (100, 48, "inf_color"),
+                                               (100, 48, "neg_inf_color"),
+                                               (5000, 64, "finite")])
+def test_select_tiles_shard_kernel(dev, n_tiles, tile, case):
+    """The shard entries against their twins: the shard mean, the ids and
+    every tile score bit-equal, with ties, NaN and +-inf, k = 1 ... n_tiles
+    (twice in a row), one launch per entry."""
+    from digital_earth_tpu_torch import kernels
+    from digital_earth_tpu_torch.render import adaptive
+
+    bufs = _shard_bufs(dev, n_tiles, tile, case)
     before = kernels.select_tiles_shard.launches
     mean = adaptive.shard_mean(*bufs[:2])
-    assert torch.equal(mean, adaptive.shard_mean_plain(*bufs[:2]))
+    assert _bits_equal(mean, adaptive.shard_mean_plain(*bufs[:2]))
     m_bar = mean * 0.8
-    for k in (1, n_tiles // 4, n_tiles):
-        got = adaptive.select_tiles_shard(*bufs, tile, k, m_bar)
+    for k in (1, n_tiles // 4, n_tiles, n_tiles):
+        got, scores = kernels.select_tiles_shard(adaptive._kernel_params(), *bufs, tile, k, m_bar,
+                                                 stats=True)
         want = adaptive.select_tiles_shard_plain(*bufs, tile, k, m_bar)
         assert got.dtype == torch.int32 and torch.equal(got, want)
+        assert _bits_equal(scores, adaptive.shard_scores_plain(*bufs, tile, m_bar))
         assert got.unique().numel() == k
-    assert kernels.select_tiles_shard.launches == before + 4 * kernels.SELECT_TILES_STAGES // 2
+    # one launch per shard mean, one per shard selection
+    assert kernels.select_tiles_shard.launches == before + 5 * kernels.SELECT_TILES_STAGES // 2
+    assert kernels.SELECT_TILES_STAGES // 2 == 1
+
+
+def test_select_tiles_shard_step_captured_in_a_cuda_graph(dev):
+    """A shard's mean and selection read nothing back from the card: a CUDA
+    graph captures both; replayed on new buffers it gives the twins' ids."""
+    from digital_earth_tpu_torch.render import adaptive
+
+    n_tiles, tile, k = 100, 48, 9
+    bufs = _shard_bufs(dev, n_tiles, tile)
+
+    def step():
+        return adaptive.select_tiles_shard(*bufs, tile, k, adaptive.shard_mean(*bufs[:2]))
+
+    step()  # the scratch, made outside the capture
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        ids = step()
+    for case in ("inf_color", "nan_lum2"):
+        for dst, src in zip(bufs, _shard_bufs(dev, n_tiles, tile, case)):
+            dst.copy_(src)
+        graph.replay()
+        torch.cuda.synchronize()
+        m_bar = adaptive.shard_mean_plain(*bufs[:2])
+        assert torch.equal(ids, adaptive.select_tiles_shard_plain(*bufs, tile, k, m_bar))
 
 
 def _mesh_renderers(devices, n_spp=1, res=(320, 180)):

@@ -463,3 +463,133 @@ def test_port_checkpoint_resumes_in_jax(preview_pair, tmp_path):
     share, mean_err = _agree(tr.color_buffer.numpy(), np.asarray(jr.color_buffer))
     # measured: 0.970 of pixels within rtol 1e-3, channel means within 1.2e-4
     assert share >= 0.95 and mean_err <= 1e-3, (share, mean_err)
+
+
+# --- the scene's host record and the kept preview frame -------------------------
+
+SCENES = ("config - Apollo 11.txt", "config - florida.txt", "config - sunset hurricane.txt")
+
+
+def _read_back(scene):
+    """The kernels' scene scalars as they were read from the tensors before
+    the scene carried them: the twins' own float32 arithmetic on the scene's
+    device, then one ``.tolist()``."""
+    from digital_earth_tpu_torch.ops import math_utils as mu
+
+    scale = scene.land_height_scale
+    return torch.stack([scale, *scene.light_direction, scene.sun_cos_angle,
+                        mu.cone_angle_to_solid_angle(scene.sun_angular_radius),
+                        1.0 + 0.0001 * scale / 12000.0]).tolist()
+
+
+def _flat(host):
+    return [host.land_height_scale, *host.light_direction, host.sun_cos_angle,
+            host.solid_angle, host.offset_scale]
+
+
+def _bits(values):
+    return np.asarray(values, np.float32).view(np.int32)
+
+
+@pytest.mark.parametrize("sliders", [None, (0.31, -1.2, 2000.0), (2.9, 0.75, 15000.0)])
+@pytest.mark.parametrize("scene", SCENES)
+def test_host_scene_is_the_tensors_read_back(atlases, scene, sliders):
+    """The scene's host record holds, bit for bit, what the kernels' scalars
+    read back from its tensors were; scene_floats returns it."""
+    from digital_earth_tpu_torch.render import pathtracer as pt
+
+    r = Renderer("cpu", image_res=(32, 18), atlas=atlases[1], mode="preview")
+    apply_config(r, load_config(os.path.join(ROOT, "scenes", scene)))
+    if sliders is not None:
+        r.set_sun_angle(sliders[0])
+        r.set_sun_path_rot(sliders[1])
+        r.set_land_height_scale(sliders[2])
+    s = r.scene_params()
+    np.testing.assert_array_equal(_bits(_flat(s.host)), _bits(_read_back(s)))
+    assert pt.scene_floats(s) == tuple(s.host)
+    assert all(isinstance(x, float) for x in _flat(s.host))
+
+
+@pytest.mark.parametrize("scene,scale", [(s, h) for s in SCENES[:2] for h in (7800.0, 2500.0)])
+def test_converted_scene_carries_its_host_record(scene, scale):
+    """A scene carried over from JAX has the host record of its tensors."""
+    from digital_earth_tpu_torch import convert
+
+    cfg = load_config(os.path.join(ROOT, "scenes", scene))
+    conv = convert.scene_params_to_torch(
+        jparams.make_scene_params(cfg.sun_angle, cfg.sun_path_rot, scale), "cpu")
+    np.testing.assert_array_equal(_bits(_flat(conv.host)), _bits(_read_back(conv)))
+
+
+def _on_meta(scene):
+    return tparams.SceneParams(*(getattr(scene, f).to("meta") for f in tparams.SCENE_TENSORS),
+                               host=scene.host)
+
+
+@pytest.mark.parametrize("bilinear", [True, False])
+def test_frames_read_no_scene_tensor(luts, atlases, bilinear):
+    """PreviewFrame and BounceFrame build from a scene whose tensors lie on
+    ``meta`` (they hold no data) the same blocks as from the CPU scene: they
+    read the host record alone, so neither reads the card."""
+    from digital_earth_tpu_torch.render import pathtracer as pt
+
+    _, tl = luts
+    atlas = atlases[1]
+    cfg = TraceConfig(**SMALL, bilinear_materials=bilinear)
+    scene = tparams.make_scene_params("cpu", 1.1, -0.4, 9000.0)
+    meta = _on_meta(scene)
+    assert meta.light_direction.is_meta and meta.land_height_scale.is_meta
+    want = raymarcher.PreviewFrame(scene, atlas, tl, cfg, 192)
+    got = raymarcher.PreviewFrame(meta, atlas, tl, cfg, 192)
+    assert (got.fparams, got.iparams) == (want.fparams, want.iparams)
+    n = 64
+    r = np.random.default_rng(2)
+    st = pt.init_state(T(_unit(r, n) * 7e6), T(_unit(r, n)), T(r.uniform(400, 700, (n, 4))),
+                       torch.ones((n, 4)), torch.zeros((n, 2), dtype=torch.int64))
+    want = pt.BounceFrame(st, scene, atlas, tl, cfg)
+    got = pt.BounceFrame(st, meta, atlas, tl, cfg)
+    assert (got.fparams, got.iparams) == (want.fparams, want.iparams)
+
+
+def _preview_renderer(atlas):
+    r = Renderer("cpu", image_res=(32, 18), atlas=atlas, tile_pixels=192, seed=4,
+                 cfg=TraceConfig(**SMALL), mode="preview")
+    apply_config(r, load_config(APOLLO))
+    return r
+
+
+def test_renderer_keeps_the_preview_frame(atlases, monkeypatch):
+    """The Renderer builds the preview kernel's blocks once for several
+    frames, and again once a slider has moved."""
+    built = []
+
+    class Counted(raymarcher.PreviewFrame):
+        def __init__(self, *args, **kwargs):
+            built.append(args[-1])
+            super().__init__(*args, **kwargs)
+
+    monkeypatch.setattr(raymarcher, "PreviewFrame", Counted)
+    r = _preview_renderer(atlases[1])
+    r.accumulate()
+    r.accumulate_interruptible(3)
+    assert built == [r.tile]
+    r.set_sun_angle(r.sun_angle + 0.2)
+    r.accumulate()
+    assert built == [r.tile, r.tile]
+
+
+def test_preview_frame_bit_equal_with_the_kept_blocks(atlases, monkeypatch):
+    """A 32x18 preview frame (three 192-pixel tiles) is the same, bit for
+    bit, with the Renderer's kept blocks as with blocks built on each call.
+    On the CPU the twin takes no blocks, so this covers the frame's other
+    host-side changes: the origin from the host camera and the spp key
+    folded on the host (tests/test_torch_kernels_cuda.py holds the kept
+    blocks against fresh ones on the card)."""
+    from digital_earth_tpu_torch.render import renderer as trenderer
+
+    kept, fresh = _preview_renderer(atlases[1]), _preview_renderer(atlases[1])
+    kept.accumulate()
+    monkeypatch.setattr(trenderer.Renderer, "_frame", lambda self, scene: None)
+    fresh.accumulate()
+    assert kept._preview_frame is not None and fresh._preview_frame is None
+    assert torch.equal(kept.color_buffer.view(torch.int32), fresh.color_buffer.view(torch.int32))

@@ -190,6 +190,15 @@ def test_parameter_block_reads_no_tensor(atlas, luts, scene):
         assert got == want
 
 
+@pytest.mark.parametrize("seed", [0, 5, 2**31 + 7])
+def test_spp_key_on_the_host_is_fold(seed):
+    """The preview's spp key from Python integers equals rng.fold's."""
+    base = (0, seed & rng.M32)
+    for spp in (0, 1, 17, 2**20 + 3):
+        want = rng.fold(torch.tensor(base, dtype=torch.int64), spp)
+        assert torch.equal(raygen.spp_key(base, spp), want)
+
+
 def test_host_camera_rounds_as_torch_does():
     g = np.random.default_rng(5)
     vals = g.normal(size=3) * 1e7, g.normal(size=3), g.normal(size=3), g.uniform(), g.uniform()

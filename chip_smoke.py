@@ -897,17 +897,55 @@ def _graph_ms(torch, fn, reps=20):
     return start.elapsed_time(end) / reps
 
 
-def _trips(torch, st0, idx, b, args, frame):
+def _census(torch, st0, idx, b, args, frame):
     """The census instances of bounce_flight and bounce_shade on a copy of
-    ``st0``: ((m, 6) trips, the state they left)."""
+    ``st0``: ((m, 6) trips, the state they left, (m, 8) clock64 cycles, or
+    None where the package's census has no clock)."""
+    import inspect
+
     from digital_earth_tpu_torch import kernels
     from digital_earth_tpu_torch.render import pathtracer as pt
 
     st = _clone_state(st0)
-    trips = torch.empty((idx.numel(), 6), dtype=torch.int32, device=idx.device)
+    m = idx.numel()
+    trips = torch.empty((m, 6), dtype=torch.int32, device=idx.device)
+    kw = dict(trips=trips)
+    cycles = None
+    if "cycles" in inspect.signature(kernels.bounce_flight).parameters:
+        cycles = kw["cycles"] = torch.empty((m, kernels.BOUNCE_CYCLE_COLS), dtype=torch.int64,
+                                            device=idx.device)
     ka = pt._kernel_args(st, idx, b, *args, frame)
-    kernels.bounce_shade(*ka, flight=kernels.bounce_flight(*ka, trips=trips), trips=trips)
+    kernels.bounce_shade(*ka, flight=kernels.bounce_flight(*ka, **kw), **kw)
+    return trips, st, cycles
+
+
+def _trips(torch, st0, idx, b, args, frame):
+    trips, st, _ = _census(torch, st0, idx, b, args, frame)
     return trips, st
+
+
+def cycle_split(torch, cycles, warp=32):
+    """The bounce's time by the census's clock64 columns: a warp of the
+    launch (32 consecutive list entries) spends at a site the most cycles
+    any of its threads spent there (its lanes wait on one another), and in
+    a kernel its longest thread's. Returns (each site's share of the two
+    kernels' summed warp cycles, bounce_flight's share, bounce_shade's)."""
+    m = cycles.shape[0]
+    pad = (-m) % warp
+    c = torch.cat([cycles, cycles.new_zeros((pad, cycles.shape[1]))])
+    per_warp = c.view(-1, warp, c.shape[1]).amax(1).sum(0).to(torch.float64)
+    total = float(per_warp[6] + per_warp[7])
+    shares = [float(x) / total for x in per_warp.tolist()]
+    return shares[:6], shares[6], shares[7]
+
+
+def split_text(split):
+    sites, flight, shade = split
+    names = ("pre-march", "cloud", "RMO", "march after", "shadow march", "NEE cloud")
+    return (f"flight {flight:.3f} (" + ", ".join(f"{n} {x:.3f}" for n, x in zip(names[:4], sites))
+            + f", rest {flight - sum(sites[:4]):.3f}), shade {shade:.3f} ("
+            + ", ".join(f"{n} {x:.3f}" for n, x in zip(names[4:], sites[4:]))
+            + f", rest {shade - sum(sites[4:]):.3f})")
 
 
 def _states_equal(torch, a, b):
@@ -974,8 +1012,9 @@ def bounce_table(torch, states, cfg, census=True):
         row = dict(live=m)
         row["ms"] = _bounce_ms(torch, st0, lambda s: pt.run_bounce(s, idx, b, *args, frame))
         if census:
-            trips, _ = _trips(torch, st0, idx, b, args, frame)
+            trips, _, cycles = _census(torch, st0, idx, b, args, frame)
             ops = bounce_ops(torch, trips, cfg.march_k)
+            row["split"] = cycle_split(torch, cycles) if cycles is not None else None
             row.update(ops=ops, ops_ms=ops / PEAK_F32 * 1e3,
                        bytes_ms=BOUNCE_LANE_BYTES * m / PEAK_BYTES * 1e3,
                        trips=[round(x, 3) for x in trips.float().mean(0).tolist()],
@@ -990,7 +1029,29 @@ def bounce_table(torch, states, cfg, census=True):
                      f"{row['trips']}  SIMT eff {simt}")
         print(f"per-bounce {b:2d}: {m:8d} live  {row['ms']:.3f} ms  {row['ns_per_lane']:.2f} "
               f"ns/lane{extra}")
+        if census and row["split"] is not None:
+            print(f"per-bounce {b:2d} cycle split (census, clock64 warp cycles): "
+                  f"{split_text(row['split'])}")
     return table
+
+
+def census_split_scenes(torch, dev, atlas, luts):
+    """The census's cycle split and SIMT efficiency per loop site at bounces
+    0 and DEEP_BOUNCE of one spp of florida and sunset hurricane (1920x1080,
+    default TraceConfig; Apollo's are in the per-bounce table)."""
+    from digital_earth_tpu_torch.render import pathtracer as pt
+
+    for name in OTHER_SCENES:
+        states, _, _ = capture_states(torch, dev, atlas, luts, bounces=(0, DEEP_BOUNCE),
+                                      scene=os.path.join(ROOT, "scenes", name))
+        for b, c in sorted(states.items()):
+            idx, st0, args = c["idx"], c["st"], c["args"]
+            frame = pt.BounceFrame(st0, *args)
+            trips, _, cycles = _census(torch, st0, idx, b, args, frame)
+            simt = " ".join("-" if e is None else f"{e:.2f}" for e in simt_efficiency(torch, trips))
+            print(f"census {name[9:-4]} bounce {b}: {idx.numel()} live; SIMT eff {simt}; cycle "
+                  f"split {split_text(cycle_split(torch, cycles))}")
+        del states
 
 
 def check_window(torch, states, table):
@@ -2066,7 +2127,7 @@ def check_select_tiles(torch, bufs, block, k, label):
           f"m_bar and every score bit-equal {stats_equal}, first {got[:5].tolist()}  kernel "
           f"{ms:.4f} ms per call from the host, {graph_ms:.4f} ms on the device (CUDA graph of 20; "
           f"{b_ms / graph_ms:.2f} of the {b_ms:.4f} ms bound; the mean's launch {mean_ms:.4f}, "
-          f"the scores' and rank's {graph_ms - mean_ms:.4f}), {kernels.SELECT_TILES_STAGES} "
+          f"the scores' and rank's {graph_ms - mean_ms:.4f}), {kernels.select_launches(n_tiles)} "
           f"launches  plain {plain_ms:.1f} ms  {'ok' if equal and stats_equal else 'FAIL'}")
     if not (equal and stats_equal):
         fail(f"select_tiles disagrees with its plain twin ({label})")
@@ -2077,6 +2138,26 @@ def check_select_tiles(torch, bufs, block, k, label):
     log2 = n2.bit_length() - 1
     return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bytes=nbytes,
                 ops=20 * w * h + n2 // 2 * log2 * (log2 + 1) // 2, graph_ms=graph_ms)
+
+
+def check_select_tiles_past_cap(torch, dev):
+    """select_tiles past the sizes it once refused (more than 8192 tiles:
+    3840x2160 at 512-pixel tiles, 17,280 tiles of 20x24), on seeded
+    buffers of an adaptive run's kind (1-5 samples a pixel, one
+    never-sampled tile), under check_select_tiles's gates."""
+    from digital_earth_tpu_torch.render import raygen
+
+    w, h = 3840, 2160
+    block = raygen.pick_block_dims(w, h, 512)
+    g = torch.Generator(device=dev).manual_seed(11)
+    count = torch.randint(1, 6, (w, h), generator=g, device=dev).float()
+    count[:block[0], :block[1]] = 0.0
+    color = torch.exp(torch.randn((w, h, 3), generator=g, device=dev)) * count[..., None]
+    lum2 = color.sum(-1) ** 2 / count.clamp(min=1) * (1 + torch.rand((w, h), generator=g,
+                                                                      device=dev))
+    n_tiles = (w // block[0]) * (h // block[1])
+    return check_select_tiles(torch, (color, count, lum2), block, n_tiles // 4,
+                              f"{w}x{h} seeded, past 8192 tiles")
 
 
 def check_adaptive_viewer(torch, dev, atlas, luts):
@@ -2918,6 +2999,7 @@ def main():
     for name, part in (("bounce_flight", "flight"), ("bounce_shade", "shade")):
         rows[name]["ops"] = bounce_ops(torch, census[0], cfg.march_k, part)
     table = bounce_table(torch, states, cfg)
+    census_split_scenes(torch, dev, atlas, luts)
     rows["bounce_window"], _, schedule, _ = check_window(torch, states, table)
     check_draine(torch, states)
     rows["compact_lanes"] = check_compact(torch, states, deepest)
@@ -2952,6 +3034,7 @@ def main():
     check_select_tiles(torch, warm_bufs, block, k, "after 2 warm-up passes")
     rows["select_tiles"] = check_select_tiles(torch, after4, block, k, "after 4 adaptive passes")
     del warm_bufs, after4
+    check_select_tiles_past_cap(torch, dev)
     check_adaptive_viewer(torch, dev, atlas, luts)
 
     # --- multi-device rendering ---------------------------------------------

@@ -45,7 +45,9 @@
 //     count at the six loop sites (pre-march, cloud flight, RMO flight,
 //     march after: bounce_flight; shadow march, NEE cloud ratio tracking:
 //     bounce_shade) into an (m, 6) int32 array, as the twin's masked loops
-//     count them; the timed instances have no such code;
+//     count them, and, given an (m, 8) int64 array, each entry's clock64
+//     cycles at the six sites and in each kernel as a whole (columns 6
+//     flight, 7 shade); the timed instances have no such code;
 //   - bounce_window: each listed lane from the given bounce to max_bounces
 //     or its death, its state in registers, in blocks of 64 threads.
 // The live count comes as a device pointer: thread t returns at once when t
@@ -81,6 +83,9 @@ constexpr int WINDOW_BLOCK = 64;
 constexpr int FLIGHT_MIN_BLOCKS = 8;  // resident blocks of 128 per SM: 64 registers
 constexpr int BOUNCE_SITES = 6;
 enum { SITE_PRE_MARCH, SITE_CLOUD, SITE_RMO, SITE_POST_MARCH, SITE_SHADOW, SITE_NEE_CLOUD };
+// The census's cycle columns: the six sites, then each kernel's whole.
+constexpr int CYCLE_COLS = BOUNCE_SITES + 2;
+enum { CYC_FLIGHT = BOUNCE_SITES, CYC_SHADE };
 
 struct BounceParams {
   float scale, step_floor, stall_thresh, o3_env_peak;
@@ -111,9 +116,26 @@ struct BounceState {
   const float* o3;
   const float* srgb2spec;
   const float* table;
-  int32_t* trips;  // (m, BOUNCE_SITES) trip counts, census instance only
-  int m, n;        // list entries (an upper bound of the live count), lanes
+  int32_t* trips;     // (m, BOUNCE_SITES) trip counts, census instance only
+  long long* cycles;  // (m, CYCLE_COLS) clock64 cycles, census instance only (or null)
+  int m, n;           // list entries (an upper bound of the live count), lanes
 };
+
+// The census instance's clock: tick() before a site, tock() after it writes
+// the cycles between into the entry's column (a thread's own clock64: the
+// cycles its warp spent there, waiting on its other lanes included).
+template <bool COUNT>
+__device__ __forceinline__ long long tick() {
+  if constexpr (COUNT) return clock64();
+  else return 0;
+}
+
+template <bool COUNT>
+__device__ __forceinline__ void tock(long long* cyc, int col, long long c0) {
+  if constexpr (COUNT) {
+    if (cyc) cyc[col] = clock64() - c0;
+  }
+}
 
 // The list entry thread t works on, or -1.
 __device__ __forceinline__ int list_lane(const BounceState& s, int t) {
@@ -232,7 +254,7 @@ struct Flight {
 template <bool COUNT>
 __device__ __forceinline__ Flight flight_lane(const BounceState& s, const BounceParams& p,
                                               int bounce, V3 pos, V3 dir, float wl0, Key kb,
-                                              int* trips) {
+                                              int* trips, long long* cyc) {
   const float inf = __int_as_float(0x7f800000);
   const float e0 = spectra_extinction_rayleigh(wl0);
   const float e1 = spectra_extinction_mie(wl0);
@@ -253,8 +275,10 @@ __device__ __forceinline__ Flight flight_lane(const BounceState& s, const Bounce
   rsi(pos, dir, PLANET_R_F, base_near, base_far);
   const float cap_proxy = base_near > 0.0f ? base_near : -1.0f;
   const bool below = r_len < CLOUDS_LOWER_F;
+  long long c0 = tick<COUNT>();
   const float earth_pre = below ? march<COUNT>(s.topo, mp, pos, dir, inf, trips, SITE_PRE_MARCH)
                                 : -1.0f;
+  tock<COUNT>(cyc, SITE_PRE_MARCH, c0);
   const float land_proxy = below ? earth_pre : cap_proxy;
 
   // 3. the flight: clouds, then the gases capped at the cloud event
@@ -265,14 +289,18 @@ __device__ __forceinline__ Flight flight_lane(const BounceState& s, const Bounce
   rmo_span(a_near, a_far, land_proxy, t_start, t_max);
   float c_start, c_max;
   cloud_limits(pos, dir, land_proxy, c_start, c_max);
+  c0 = tick<COUNT>();
   const CloudOut cd = cloud<COUNT>(fold(k_flight, 2u), pos, dir, c_start, c_max, ext_w, s, p,
                                    false, trips, SITE_CLOUD);
+  tock<COUNT>(cyc, SITE_CLOUD, c0);
   const float rmo_cap = cd.event > 0 ? fminf(t_max, cd.t) : t_max;
   int rmo_event, rmo_id;
   float rmo_t;
+  c0 = tick<COUNT>();
   rmo_track_lane(fold(k_flight, 1u), pos, dir, t_start, rmo_cap, e0, e1, e2, true,
                  p.tracking_steps, p.tracking_k, p.o3_env_peak, rmo_event, rmo_t, rmo_id,
                  COUNT ? trips + SITE_RMO : nullptr);
+  tock<COUNT>(cyc, SITE_RMO, c0);
   const bool take_cloud = cd.event > 0 && rmo_event == 0;
   Flight f;
   f.event = take_cloud ? cd.event : rmo_event;
@@ -282,10 +310,12 @@ __device__ __forceinline__ Flight flight_lane(const BounceState& s, const Bounce
   const bool need_march =
       !below && (f.event == 0 || (f.iid != 3 && f.t_int > fmaxf(d_free, 0.0f)));
   f.earth = earth_pre;
+  c0 = tick<COUNT>();
   if (need_march) {
     f.earth = march<COUNT>(s.topo, mp, pos, dir, f.event > 0 ? f.t_int : 1e30f, trips,
                            SITE_POST_MARCH);
   }
+  tock<COUNT>(cyc, SITE_POST_MARCH, c0);
   // demote RMO events beyond the land hit; the cloud event takes over
   const bool demote = f.event > 0 && f.iid != 3 && f.earth >= 0.0f && f.earth <= f.t_int;
   const bool resurrect = demote && cd.event > 0;
@@ -342,7 +372,7 @@ __device__ __forceinline__ void store_lane(const BounceState& s, int lane, const
 template <bool COUNT, int L>
 __device__ __forceinline__ void shade_lane(const BounceState& s, const BounceParams& p,
                                            int bounce, LaneRegs<L>& r, Key kb, Flight f,
-                                           int* trips) {
+                                           int* trips, long long* cyc) {
   const V3 pos = r.pos, dir = r.dir;
   const float inf = __int_as_float(0x7f800000);
   const float ext_w = cloud_ext_w(bounce);
@@ -416,7 +446,9 @@ __device__ __forceinline__ void shade_lane(const BounceState& s, const BouncePar
                     land_pos.z * p.offset_scale};
     MarchParams shadow = march_params(p);
     shadow.any_hit = 1;
+    const long long c0 = tick<COUNT>();
     sur_vis = march<COUNT>(s.topo, shadow, offset_pos, light_dir, inf, trips, SITE_SHADOW) < 0.0f;
+    tock<COUNT>(cyc, SITE_SHADOW, c0);
     const V3 v{-dir.x, -dir.y, -dir.z};
     const BrdfParts dp = earth_brdf_parts(mat.ocean, mat.bathymetry, v, normal, light_dir);
     const Key k_hemi = fold(kb, 5u);
@@ -441,8 +473,10 @@ __device__ __forceinline__ void shade_lane(const BounceState& s, const BouncePar
     rmo_transmittance_to_space<L>(s.table, ext, nee_origin, light_dir, trans);
     float n_start, n_max;
     cloud_limits(nee_origin, light_dir, -1.0f, n_start, n_max);
+    const long long c0 = tick<COUNT>();
     const CloudOut ct = cloud<COUNT>(fold(fold(kb, 3u), 2u), nee_origin, light_dir, n_start,
                                      n_max, ext_w, s, p, true, trips, SITE_NEE_CLOUD);
+    tock<COUNT>(cyc, SITE_NEE_CLOUD, c0);
 #pragma unroll
     for (int l = 0; l < L; ++l) trans[l] = trans[l] * ct.trans;
   }
@@ -514,20 +548,38 @@ __device__ __forceinline__ int* entry_trips(const BounceState& s, int t, int lo,
   }
 }
 
+// The census instance's cycle columns of list entry t, [lo, hi) set to 0
+// (a site a lane skips stays 0); null in the timed instance or without a
+// cycles array.
+template <bool COUNT>
+__device__ __forceinline__ long long* entry_cycles(const BounceState& s, int t, int lo, int hi) {
+  if constexpr (COUNT) {
+    if (!s.cycles) return nullptr;
+    long long* cyc = s.cycles + CYCLE_COLS * t;
+    for (int j = lo; j < hi; ++j) cyc[j] = 0;
+    return cyc;
+  } else {
+    return nullptr;
+  }
+}
+
 // Steps 1-3 of one bounce: the outcome of list entry t into out[t]
 // (t_int, earth, event, iid as float bits); COUNT: the census instance
 // (sites 0-3).
 template <int L, bool COUNT>
 __global__ void __launch_bounds__(BOUNCE_BLOCK, FLIGHT_MIN_BLOCKS)
     bounce_flight_kernel(BounceState s, BounceParams p, float4* __restrict__ out) {
+  const long long c_all = tick<COUNT>();
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
   const int lane = list_lane(s, t);
   if (lane < 0) return;
   int* trips = entry_trips<COUNT>(s, t, SITE_PRE_MARCH, SITE_SHADOW);
+  long long* cyc = entry_cycles<COUNT>(s, t, SITE_PRE_MARCH, SITE_SHADOW);
   const Flight f = flight_lane<COUNT>(s, p, p.bounce, load3(s.pos, lane), load3(s.dir, lane),
                                       s.wavelength[lane * L], bounce_key<L>(s, lane, p.bounce),
-                                      trips);
+                                      trips, cyc);
   out[t] = make_float4(f.t_int, f.earth, __int_as_float(f.event), __int_as_float(f.iid));
+  tock<COUNT>(cyc, CYC_FLIGHT, c_all);
 }
 
 // Steps 4-7 of one bounce from bounce_flight's outcome; COUNT: the census
@@ -535,10 +587,12 @@ __global__ void __launch_bounds__(BOUNCE_BLOCK, FLIGHT_MIN_BLOCKS)
 template <int L, bool COUNT>
 __global__ void __launch_bounds__(BOUNCE_BLOCK)
     bounce_shade_kernel(BounceState s, BounceParams p, const float4* __restrict__ in) {
+  const long long c_all = tick<COUNT>();
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
   const int lane = list_lane(s, t);
   if (lane < 0) return;
   int* trips = entry_trips<COUNT>(s, t, SITE_SHADOW, BOUNCE_SITES);
+  long long* cyc = entry_cycles<COUNT>(s, t, SITE_SHADOW, BOUNCE_SITES);
   const float4 o = in[t];
   const Flight f{__float_as_int(o.z), __float_as_int(o.w), o.x, o.y};
   LaneRegs<L> r;
@@ -546,8 +600,9 @@ __global__ void __launch_bounds__(BOUNCE_BLOCK)
   r.dir = load3(s.dir, lane);
   r.miss0 = false;
   load_spectral(s, lane, r);
-  shade_lane<COUNT, L>(s, p, p.bounce, r, bounce_key<L>(s, lane, p.bounce), f, trips);
+  shade_lane<COUNT, L>(s, p, p.bounce, r, bounce_key<L>(s, lane, p.bounce), f, trips, cyc);
   store_lane(s, lane, r, r.alive);
+  tock<COUNT>(cyc, CYC_SHADE, c_all);
 }
 
 // Bounces [p.bounce, stop) of each listed lane, until it dies.
@@ -567,8 +622,8 @@ __global__ void __launch_bounds__(WINDOW_BLOCK)
   bool wc_set = false;
   for (int b = p.bounce; b < stop && r.alive; ++b) {
     const Key kb = fold(key, (uint32_t)b);
-    const Flight f = flight_lane<false>(s, p, b, r.pos, r.dir, r.wl[0], kb, nullptr);
-    shade_lane<false, L>(s, p, b, r, kb, f, nullptr);
+    const Flight f = flight_lane<false>(s, p, b, r.pos, r.dir, r.wl[0], kb, nullptr, nullptr);
+    shade_lane<false, L>(s, p, b, r, kb, f, nullptr, nullptr);
     wc_set = wc_set || r.alive;
   }
   store_lane(s, lane, r, wc_set);
@@ -620,7 +675,8 @@ static int unpack_params(const float* fp, const int* ip, BounceParams& p) {
 // Tables: topography (H, W, 4), material (H, W, 8), clouds (H, W, 4) uint8;
 // o3_crossec (441,), srgb2spec (300, 3), density table (384, 1024, 3) f32.
 // trips (bounce_flight, bounce_shade): null, or (m, 6) int32 trip counts
-// (the census instances).
+// (the census instances); cycles: null, or with trips (m, 8) int64 clock64
+// cycles (SITE_* columns, then the flight's and the shade's whole).
 #define DE_BOUNCE_ARGS                                                                    \
   const float *fp, const int *ip, float *pos, float *dir, const float *wavelength,        \
       const float *lambda_pdf, float *throughput, float *radiance, float *w_mis,          \
@@ -628,21 +684,23 @@ static int unpack_params(const float* fp, const int* ip, BounceParams& p) {
       const int32_t *idx, const int32_t *n_live, int m, int n, const uint8_t *topo,       \
       const uint8_t *material, const uint8_t *clouds, const float *o3,                    \
       const float *srgb2spec, const float *table
-#define DE_BOUNCE_STATE(trips)                                                            \
+#define DE_BOUNCE_STATE(trips, cycles)                                                    \
   de::BounceState {                                                                       \
     pos, dir, wavelength, lambda_pdf, throughput, radiance, w_mis, alive, primary_miss,   \
         work_class, keys, idx, n_live, topo, material, clouds, o3, srgb2spec, table,      \
-        trips, m, n                                                                       \
+        trips, cycles, m, n                                                               \
   }
 
 static int grid_of(int m, int block) { return (m + block - 1) / block; }
 
 // bounce_flight: the flight's outcome of each list entry into scratch (m,
-// float4); trips as DE_BOUNCE_ARGS documents (sites 0-3 written).
-extern "C" int de_bounce_flight(DE_BOUNCE_ARGS, void* scratch, int32_t* trips, void* stream) {
+// float4); trips and cycles as DE_BOUNCE_ARGS documents (sites 0-3 and
+// the flight's whole written).
+extern "C" int de_bounce_flight(DE_BOUNCE_ARGS, void* scratch, int32_t* trips, long long* cycles,
+                                void* stream) {
   de::BounceParams p;
   if (int rc = de::unpack_params(fp, ip, p)) return rc;
-  const de::BounceState s = DE_BOUNCE_STATE(trips);
+  const de::BounceState s = DE_BOUNCE_STATE(trips, cycles);
   if (m > 0) {
     const int grid = grid_of(m, de::BOUNCE_BLOCK);
     float4* out = static_cast<float4*>(scratch);
@@ -658,12 +716,12 @@ extern "C" int de_bounce_flight(DE_BOUNCE_ARGS, void* scratch, int32_t* trips, v
 }
 
 // bounce_shade: steps 4-7 from bounce_flight's scratch (m, float4); trips
-// (sites 4-5 written).
+// and cycles (sites 4-5 and the shade's whole written).
 extern "C" int de_bounce_shade(DE_BOUNCE_ARGS, const void* scratch, int32_t* trips,
-                               void* stream) {
+                               long long* cycles, void* stream) {
   de::BounceParams p;
   if (int rc = de::unpack_params(fp, ip, p)) return rc;
-  const de::BounceState s = DE_BOUNCE_STATE(trips);
+  const de::BounceState s = DE_BOUNCE_STATE(trips, cycles);
   if (m > 0) {
     const int grid = grid_of(m, de::BOUNCE_BLOCK);
     const float4* in = static_cast<const float4*>(scratch);
@@ -682,7 +740,7 @@ extern "C" int de_bounce_shade(DE_BOUNCE_ARGS, const void* scratch, int32_t* tri
 extern "C" int de_bounce_window(DE_BOUNCE_ARGS, int stop, void* stream) {
   de::BounceParams p;
   if (int rc = de::unpack_params(fp, ip, p)) return rc;
-  const de::BounceState s = DE_BOUNCE_STATE(nullptr);
+  const de::BounceState s = DE_BOUNCE_STATE(nullptr, nullptr);
   if (m > 0 && stop > p.bounce) {
     de::bounce_window_kernel<de::BOUNCE_L>
         <<<grid_of(m, de::WINDOW_BLOCK), de::WINDOW_BLOCK, 0, (cudaStream_t)stream>>>(s, p, stop);

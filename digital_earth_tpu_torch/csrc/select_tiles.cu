@@ -9,8 +9,9 @@
 // the mean of its pixels' (tile index bx * nby + by); the k largest in
 // lax.top_k's order: descending, ties to the lower index.
 //
-// Two launches, deterministic, no float atomics, so the same buffers always
-// give the same tiles (checkpoint resume depends on it):
+// Two launches up to SORT_MAX tiles, four past it; deterministic, no float
+// atomics, so the same buffers always give the same tiles (checkpoint resume
+// depends on it):
 //   A. (stages 1-2) mean_lum summed per chunk of 1024 consecutive pixels
 //      (pixel id order); the last block to finish, by a ticket, sums the
 //      chunk sums into m_bar;
@@ -25,6 +26,16 @@
 //      tiles. A NaN score (an infinite or NaN buffer value, say from a loaded
 //      checkpoint) still gives every tile its own rank, and ids is always k
 //      distinct tiles.
+//   Past SORT_MAX = 8192 tiles (more than one block's sort holds) launch B
+//   only scores, and the rank takes two launches of its own:
+//   C. one block per run of 8192 tiles sorts the run's keys as above (8 a
+//      thread) into scratch;
+//   D. one thread per key adds its place in its own run to the count of
+//      smaller keys in every other run (a binary search in each: the keys
+//      are distinct, score bits << 32 | tile), which is its place in the
+//      whole order, and writes its tile there if that is below k. Any
+//      correct sort of distinct keys gives the same order, so the ids are
+//      the twin's at every size.
 // The ticket: each block writes its result, __threadfence(), then one
 // atomicAdd on a counter in the caller's scratch; the block that draws the
 // last ticket reads every block's result (all fenced before their tickets)
@@ -45,11 +56,16 @@
 // Every sum is the same halving tree over a zero-padded power-of-two array,
 // s[i] += s[i + h] for h = p/2, ..., 1, which the plain version
 // (render/adaptive.select_tiles_plain) repeats, so the two agree bit for bit:
-// the first level (h = p/2) adds in registers as each thread loads its pairs
-// of elements, the levels down to h = 64 in shared memory, and h = 32 ... 1 in
+// the levels down to h = TREE_SLOTS (4096; only the first, h = p/2, up to
+// p = 8192) add in registers as each thread loads its slot's p / TREE_SLOTS
+// elements, the levels down to h = 64 in shared memory, and h = 32 ... 1 in
 // warp 0's registers by __shfl_down_sync (lane i adds lane i + h: the
 // operands of s[i] + s[i + h] in their order), so a 2048-element tree takes
-// 5 barriers (11 with every level in shared memory).
+// 5 barriers (11 with every level in shared memory). A slot's upper levels
+// are the halving tree over its elements x[i + j TREE_SLOTS], j < r: folded
+// in the tree's in-order, leaf j = bit-reversal of the visit count, with a
+// stack of log2(r) partial sums, so a tile of any size or a frame of any
+// number of chunks sums in the twin's order with the same shared memory.
 //
 // What bounds it on the H100: bytes. It reads the three buffers once (20 B
 // per pixel, 41.5 MB at 1920x1080); about 20 flops per pixel. The chunk
@@ -75,7 +91,11 @@ constexpr int TILE_THREADS = 256;
 // that 8 tile blocks of 256 threads are resident per SM (8 keys took 44);
 // past 4096 tiles a block of 1024 threads sorts 8 each.
 constexpr int SORT_M = 4, SORT_M_LARGE = 8;
-constexpr int MAX_SHARED = 8192;    // the largest tree (floats) and sort (keys)
+// The most tiles one block ranks (1024 threads of SORT_M_LARGE keys), and the
+// keys of each run that launch C sorts past it.
+constexpr int SORT_MAX = 1024 * SORT_M_LARGE;
+constexpr int TREE_SLOTS = 4096;    // the tree's shared slots (floats)
+constexpr int RANK_THREADS = 256;
 constexpr unsigned FULL_WARP = 0xffffffffu;
 
 struct SelectParams {
@@ -84,18 +104,41 @@ struct SelectParams {
   float tiny;    // float32(1e-20)
 };
 
+// Slot i of the halving tree's level h = w over x[0..w r) (w, r powers of
+// two, r >= 2): the tree over the r elements x[i + j w], which pairs j with
+// j + r/2 first. Its in-order visits leaf j = bit-reversal of the visit
+// count k (log2 r bits), and after each leaf a trailing one of k closes a
+// subtree: the stack's top plus the value so far, left operand first.
+template <class Get>
+__device__ __forceinline__ float fold_slot(Get get, int i, int w, int r) {
+  float stack[32];
+  int depth = 0;
+  const int bits = __ffs(r) - 1;
+  for (int k = 0; k < r; ++k) {
+    float v = get(i + (int)(__brev((unsigned)k) >> (32 - bits)) * w);
+    for (int c = k; c & 1; c >>= 1) v = stack[--depth] + v;
+    stack[depth++] = v;
+  }
+  return stack[0];
+}
+
 // The halving tree over x[0..p) (p a power of two, x[i] = get(i), 0 past
-// the data), s holding p/2 floats: s[i] = s[i] + s[i + h] for h = p/2, ...,
-// 1, the first level in registers, the levels down to h = 64 in s, the rest
-// in warp 0 by shuffles. The sum is valid in thread 0; a caller that reuses
-// s syncs first.
+// the data), s holding min(p/2, TREE_SLOTS) floats: s[i] = s[i] + s[i + h]
+// for h = p/2, ..., 1, the levels down to h = min(p/2, TREE_SLOTS) in
+// registers, the levels down to h = 64 in s, the rest in warp 0 by
+// shuffles. The sum is valid in thread 0; a caller that reuses s syncs
+// first.
 template <class Get>
 __device__ __forceinline__ float tree_sum(Get get, int p, float* s) {
   const int t = threadIdx.x, nt = blockDim.x;
   float v = 0.0f;
   if (p >= 128) {
-    const int half = p >> 1;
-    for (int i = t; i < half; i += nt) s[i] = get(i) + get(i + half);
+    const int half = min(p >> 1, TREE_SLOTS);
+    if (p == 2 * half) {
+      for (int i = t; i < half; i += nt) s[i] = get(i) + get(i + half);
+    } else {
+      for (int i = t; i < half; i += nt) s[i] = fold_slot(get, i, half, p / half);
+    }
     __syncthreads();
     for (int h = half >> 1; h >= 64; h >>= 1) {
       for (int i = t; i < h; i += nt) s[i] = s[i] + s[i + h];
@@ -147,7 +190,8 @@ __device__ __forceinline__ bool last_block(unsigned* counter) {
 
 // Launch A: each block's chunk of 1024 pixels summed into partial[block];
 // the last block sums the n_part partials (in a tree of p2) into out[0] =
-// sum / n_pix. Dynamic shared memory: max(CHUNK * 3 + CHUNK / 2, p2 / 2) floats.
+// sum / n_pix. Dynamic shared memory: max(CHUNK * 3 + CHUNK / 2, min(p2 / 2,
+// TREE_SLOTS)) floats.
 __global__ void __launch_bounds__(CHUNK_THREADS)
     frame_mean(const float* __restrict__ color, const float* __restrict__ count, int64_t n_pix,
                float* __restrict__ partial, int p2, float* __restrict__ out, unsigned* counter,
@@ -255,14 +299,22 @@ __device__ __forceinline__ void bitonic_sort(unsigned long long (&v)[M], int n,
   }
 }
 
+// Tile i's rank key: (~biased order key) << 32 | i, ascending = descending
+// score, ties to the lower tile.
+__device__ __forceinline__ unsigned long long rank_key(const float* score, int i) {
+  const uint32_t up = (uint32_t)order_key(__ldcg(score + i)) ^ 0x80000000u;
+  return ((unsigned long long)(~up) << 32) | (uint32_t)i;
+}
+
 // Launch B: one block per tile sums its pixels' scores against m_bar into
-// score[tile]; the last block sorts every tile's key (n2 keys, padded) and
-// writes ids[0..k), M keys to a thread.
+// score[tile]; with M > 0 the last block sorts every tile's key (n2 keys,
+// padded) and writes ids[0..k), M keys to a thread (M = 0: launches C and D
+// rank them).
 // flat: the buffers are a tile-major shard (tile t at [t * bw * bh, ...)),
 // else a (W, H) image whose tile t is block (t / nby, t % nby). Dynamic
-// shared memory: max(pt / 2 floats, n2 keys of 8 bytes).
+// shared memory: max(min(pt / 2, TREE_SLOTS) floats, n2 keys of 8 bytes).
 template <int M>
-__global__ void __launch_bounds__(1024, M == SORT_M ? 2 : 1)
+__global__ void __launch_bounds__(M == 0 ? TILE_THREADS : 1024, M == SORT_M ? 2 : 1)
     tile_select(const float* __restrict__ color, const float* __restrict__ count,
                 const float* __restrict__ lum2, const float* __restrict__ m_bar, int h, int bw,
                 int bh, int pt, int flat, int n2, int k, float* __restrict__ score,
@@ -291,27 +343,75 @@ __global__ void __launch_bounds__(1024, M == SORT_M ? 2 : 1)
       },
       pt, smem);
   if (threadIdx.x == 0) score[tile] = sum / (float)n_tile;
-  if (!last_block(counter)) return;
+  if constexpr (M > 0) {
+    if (!last_block(counter)) return;
 
-  // the rank: an ascending sort of (~biased order key) << 32 | tile
-  const int n_tiles = gridDim.x;
+    // the rank: an ascending sort of the tiles' keys
+    const int n_tiles = gridDim.x;
+    unsigned long long v[M];
+#pragma unroll
+    for (int m = 0; m < M; ++m) {
+      const int i = threadIdx.x * M + m;
+      v[m] = i < n_tiles ? rank_key(score, i) : ~0ull;  // padding sorts last
+    }
+    bitonic_sort<M>(v, n2, reinterpret_cast<unsigned long long*>(smem));
+#pragma unroll
+    for (int m = 0; m < M; ++m) {
+      const int r = threadIdx.x * M + m;
+      if (threadIdx.x < n2 / M && r < k) ids[r] = (int32_t)(uint32_t)v[m];
+    }
+    if (threadIdx.x == 0) *counter = 0u;
+  }
+}
+
+// Launch C (past SORT_MAX tiles): block b sorts the keys of tiles [b SORT_MAX,
+// (b + 1) SORT_MAX) into runs[b SORT_MAX ...], padded with ~0 (which sorts
+// after every tile's key: a key's low word is its tile, below 2^31). Dynamic
+// shared memory: SORT_MAX keys of 8 bytes.
+__global__ void __launch_bounds__(SORT_MAX / SORT_M_LARGE)
+    sort_runs(const float* __restrict__ score, int n_tiles, unsigned long long* __restrict__ runs) {
+  extern __shared__ unsigned long long keys[];
+  constexpr int M = SORT_M_LARGE;
+  const int64_t base = (int64_t)blockIdx.x * SORT_MAX;
   unsigned long long v[M];
 #pragma unroll
   for (int m = 0; m < M; ++m) {
-    const int i = threadIdx.x * M + m;
-    v[m] = ~0ull;  // padding sorts last
-    if (i < n_tiles) {
-      const uint32_t up = (uint32_t)order_key(__ldcg(score + i)) ^ 0x80000000u;
-      v[m] = ((unsigned long long)(~up) << 32) | (uint32_t)i;
-    }
+    const int64_t i = base + threadIdx.x * M + m;
+    v[m] = i < n_tiles ? rank_key(score, (int)i) : ~0ull;
   }
-  bitonic_sort<M>(v, n2, reinterpret_cast<unsigned long long*>(smem));
+  bitonic_sort<M>(v, SORT_MAX, keys);
 #pragma unroll
-  for (int m = 0; m < M; ++m) {
-    const int r = threadIdx.x * M + m;
-    if (threadIdx.x < n2 / M && r < k) ids[r] = (int32_t)(uint32_t)v[m];
+  for (int m = 0; m < M; ++m) runs[base + threadIdx.x * M + m] = v[m];
+}
+
+// The number of keys in the sorted run[0..SORT_MAX) below key.
+__device__ __forceinline__ int keys_below(const unsigned long long* __restrict__ run,
+                                          unsigned long long key) {
+  int lo = 0, hi = SORT_MAX;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (run[mid] < key) lo = mid + 1;
+    else hi = mid;
   }
-  if (threadIdx.x == 0) *counter = 0u;
+  return lo;
+}
+
+// Launch D: the key in slot g of the runs goes to its place in the whole
+// order, its place in its run plus the keys below it in the other runs;
+// places below k write their tile to ids.
+__global__ void __launch_bounds__(RANK_THREADS)
+    rank_runs(const unsigned long long* __restrict__ runs, int n_runs, int k,
+              int32_t* __restrict__ ids) {
+  const int64_t g = (int64_t)blockIdx.x * RANK_THREADS + threadIdx.x;
+  if (g >= (int64_t)n_runs * SORT_MAX) return;
+  const unsigned long long key = runs[g];
+  if (key == ~0ull) return;
+  const int own = (int)(g / SORT_MAX);
+  int64_t place = g - (int64_t)own * SORT_MAX;
+  for (int q = 0; q < n_runs; ++q) {
+    if (q != own) place += keys_below(runs + (int64_t)q * SORT_MAX, key);
+  }
+  if (place < k) ids[place] = (int32_t)(uint32_t)key;
 }
 
 static inline int next_pow2(int m) {
@@ -338,9 +438,10 @@ static int mean_stage(const SelectParams& p, const float* color, const float* co
                       int64_t n_pix, float* partial, float* mean, unsigned* counter,
                       cudaStream_t st) {
   const int64_t n_part = (n_pix + CHUNK - 1) / CHUNK;
-  if (n_pix < 1 || n_part > MAX_SHARED) return (int)cudaErrorInvalidValue;
+  if (n_pix < 1 || n_part > INT32_MAX / 2) return (int)cudaErrorInvalidValue;
   const int p2 = next_pow2((int)n_part);
-  const size_t smem = sizeof(float) * (size_t)std::max(3 * CHUNK + CHUNK / 2, p2 / 2);
+  const size_t smem =
+      sizeof(float) * (size_t)std::max(3 * CHUNK + CHUNK / 2, std::min(p2 / 2, TREE_SLOTS));
   int rc = set_smem((const void*)frame_mean, smem);
   if (rc != 0) return rc;
   frame_mean<<<(int)n_part, CHUNK_THREADS, smem, st>>>(color, count, n_pix, partial, p2, mean,
@@ -348,27 +449,44 @@ static int mean_stage(const SelectParams& p, const float* color, const float* co
   return (int)cudaGetLastError();
 }
 
-// Launch B: score the tiles against m_bar and write the k best ids.
+// Launch B: score the tiles against m_bar and write the k best ids; past
+// SORT_MAX tiles launches C and D rank them through runs (the tile count
+// rounded up to SORT_MAX keys).
 static int select_stage(const SelectParams& p, const float* color, const float* count,
                         const float* lum2, const float* m_bar, int h, int bw, int bh,
                         int n_tiles, int flat, int k, float* score, int32_t* ids,
-                        unsigned* counter, cudaStream_t st) {
-  const int pt = next_pow2(bw * bh);
-  if (pt > MAX_SHARED || n_tiles > MAX_SHARED || k < 1 || k > n_tiles)
+                        unsigned* counter, unsigned long long* runs, cudaStream_t st) {
+  if (bw < 1 || bh < 1 || (int64_t)bw * bh > INT32_MAX / 2 || k < 1 || k > n_tiles)
     return (int)cudaErrorInvalidValue;
+  const int pt = next_pow2(bw * bh);
+  const int tree = std::min(pt / 2, TREE_SLOTS);
+  // the tree's threads, one per slot up to TILE_THREADS
+  const int tree_threads = std::min(TILE_THREADS, std::max(tree, 1));
+  int rc;
+  if (n_tiles > SORT_MAX) {
+    const size_t smem = sizeof(float) * (size_t)std::max(tree, 1);
+    tile_select<0><<<n_tiles, tree_threads, smem, st>>>(color, count, lum2, m_bar, h, bw, bh, pt,
+                                                        flat, 0, k, score, ids, counter, p);
+    if ((rc = (int)cudaGetLastError()) != 0) return rc;
+    const int n_runs = (n_tiles + SORT_MAX - 1) / SORT_MAX;
+    const size_t keys = sizeof(unsigned long long) * SORT_MAX;
+    if ((rc = set_smem((const void*)sort_runs, keys)) != 0) return rc;
+    sort_runs<<<n_runs, SORT_MAX / SORT_M_LARGE, keys, st>>>(score, n_tiles, runs);
+    if ((rc = (int)cudaGetLastError()) != 0) return rc;
+    rank_runs<<<n_runs * (SORT_MAX / RANK_THREADS), RANK_THREADS, 0, st>>>(runs, n_runs, k, ids);
+    return (int)cudaGetLastError();
+  }
   // the sort's keys: a power of two, at least a warp's M each; M keys to a
   // thread, so that the sort's threads fit one block
   const int m = next_pow2(n_tiles) > 1024 * SORT_M ? SORT_M_LARGE : SORT_M;
   const int n2 = std::max(next_pow2(n_tiles), 32 * m);
-  // the tree's threads, one per pair of its first level up to TILE_THREADS,
-  // and at least the sort's
-  const int threads = std::max(std::min(TILE_THREADS, pt / 2), n2 / m);
-  const size_t smem = std::max(sizeof(float) * (size_t)std::max(pt / 2, 1),
+  // at least the sort's threads
+  const int threads = std::max(tree_threads, n2 / m);
+  const size_t smem = std::max(sizeof(float) * (size_t)std::max(tree, 1),
                                sizeof(unsigned long long) * (size_t)n2);
   const void* fn = m == SORT_M ? (const void*)tile_select<SORT_M>
                                : (const void*)tile_select<SORT_M_LARGE>;
-  int rc = set_smem(fn, smem);
-  if (rc != 0) return rc;
+  if ((rc = set_smem(fn, smem)) != 0) return rc;
   if (m == SORT_M)
     tile_select<SORT_M><<<n_tiles, threads, smem, st>>>(color, count, lum2, m_bar, h, bw, bh, pt,
                                                         flat, n2, k, score, ids, counter, p);
@@ -381,19 +499,21 @@ static int select_stage(const SelectParams& p, const float* color, const float* 
 }  // namespace de
 
 // fp: lum_w[3], 0.2, 1e-20 as float32 (5 floats)
-// partial (ceil(w * h / 1024),), m_bar (1,) and score (n_tiles,) are
-// scratch the caller keeps, counter (2,) too: zero before the first call,
-// each launch's last block leaves its counter at zero again.
+// partial (ceil(w * h / 1024),), m_bar (1,), score (n_tiles,) and, past
+// 8192 tiles, runs (n_tiles rounded up to 8192, 64-bit keys) are scratch the
+// caller keeps, counter (2,) too: zero before the first call, each launch's
+// last block leaves its counter at zero again.
 extern "C" int de_select_tiles(const float* fp, const float* color, const float* count,
                                const float* lum2, int w, int h, int bw, int bh, int k,
                                float* partial, float* m_bar, float* score, unsigned* counter,
-                               int32_t* ids, void* stream) {
+                               unsigned long long* runs, int32_t* ids, void* stream) {
   const de::SelectParams p = de::params(fp);
   cudaStream_t st = (cudaStream_t)stream;
   const int rc = de::mean_stage(p, color, count, (int64_t)w * h, partial, m_bar, counter, st);
   if (rc != 0) return rc;
+  if (bw < 1 || bh < 1) return (int)cudaErrorInvalidValue;
   return de::select_stage(p, color, count, lum2, m_bar, h, bw, bh, (w / bw) * (h / bh), 0, k,
-                          score, ids, counter + 1, st);
+                          score, ids, counter + 1, runs, st);
 }
 
 // One shard's mean of mean_lum over its n_pix pixels, into mean (1,);
@@ -405,12 +525,13 @@ extern "C" int de_shard_mean(const float* fp, const float* color, const float* c
 }
 
 // The k best of one shard's n_tiles tiles of tile pixels each, scored
-// against the frame mean m_bar (1,) on the device; score (n_tiles,) and
-// counter (1,) are scratch, ids (k,) the shard-local tile ids.
+// against the frame mean m_bar (1,) on the device; score (n_tiles,),
+// counter (1,) and runs (as de_select_tiles takes them) are scratch, ids (k,)
+// the shard-local tile ids.
 extern "C" int de_select_tiles_shard(const float* fp, const float* color, const float* count,
                                      const float* lum2, int n_tiles, int tile, int k,
                                      const float* m_bar, float* score, unsigned* counter,
-                                     int32_t* ids, void* stream) {
+                                     unsigned long long* runs, int32_t* ids, void* stream) {
   return de::select_stage(de::params(fp), color, count, lum2, m_bar, 1, tile, 1, n_tiles, 1, k,
-                          score, ids, counter, (cudaStream_t)stream);
+                          score, ids, counter, runs, (cudaStream_t)stream);
 }

@@ -82,20 +82,20 @@ _SIGNATURES = {
     # sun_cos_angle, stars, srgb2spec, pid, color, count, lum2, n, stream
     "de_frame_end": [_P] * 19 + [_I, _P],
     # float params, color, count, lum2, w, h, bw, bh, k, partial, m_bar,
-    # score, counter, ids, stream
-    "de_select_tiles": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
+    # score, counter, runs, ids, stream
+    "de_select_tiles": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
     # float params, color, count, n_pix, partial, counter, mean, stream
     "de_shard_mean": [_P, _P, _P, _I, _P, _P, _P, _P],
     # float params, color, count, lum2, n_tiles, tile, k, m_bar, score,
-    # counter, ids, stream
-    "de_select_tiles_shard": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P],
+    # counter, runs, ids, stream
+    "de_select_tiles_shard": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P],
     # float params, int params, pos, dir, wavelength, lambda_pdf, throughput,
     # radiance, w_mis, alive, primary_miss, work_class, keys, idx, n_live, m,
-    # n, topo, material, clouds, o3_crossec, srgb2spec, table; then scratch
-    # and trips (de_bounce_flight, de_bounce_shade) or the stop bounce
+    # n, topo, material, clouds, o3_crossec, srgb2spec, table; then scratch,
+    # trips and cycles (de_bounce_flight, de_bounce_shade) or the stop bounce
     # (de_bounce_window); stream
-    "de_bounce_flight": _BOUNCE_ARGS + [_P, _P, _P],
-    "de_bounce_shade": _BOUNCE_ARGS + [_P, _P, _P],
+    "de_bounce_flight": _BOUNCE_ARGS + [_P, _P, _P, _P],
+    "de_bounce_shade": _BOUNCE_ARGS + [_P, _P, _P, _P],
     "de_bounce_window": _BOUNCE_ARGS + [_I, _P],
     # which, out (4 ints)
     "de_bounce_occupancy": [_I, _P],
@@ -439,19 +439,26 @@ def frame_end(fparams, iparams, radiance, responses, pid, color, count=None, lum
         _count(frame_end, 1)
 
 
-SELECT_TILES_STAGES = 2  # kernel launches per call (csrc/select_tiles.cu)
-# the most tiles (the rank's sort in one block's shared memory) and chunk
-# partials of 1024 pixels a call takes (csrc/select_tiles.cu MAX_SHARED)
-SELECT_MAX = 8192
+SELECT_TILES_STAGES = 2  # kernel launches per call up to SELECT_SORT_MAX tiles
+# the most tiles one block ranks (csrc/select_tiles.cu SORT_MAX); past it
+# the rank sorts runs of this many keys and merges them in two more launches
+SELECT_SORT_MAX = 8192
 _select_scratch = {}  # device -> _SelectScratch
+
+
+def select_launches(n_tiles: int) -> int:
+    """Kernel launches of one ``select_tiles`` call over ``n_tiles`` tiles
+    (a shard step's: one fewer, its mean being ``shard_mean``'s)."""
+    return SELECT_TILES_STAGES + (2 if n_tiles > SELECT_SORT_MAX else 0)
 
 
 class _SelectScratch:
     """The scratch ``select_tiles`` and its shard entries keep per device,
     each part its own tensor: the ticket counters (int32 (2,), [0] for
     launch A, [1] for launch B; zero between calls), m_bar (1,), the tile
-    scores and the chunk partials (each grown when a call needs more; an
-    outgrown tensor is kept, so that a graph captured on it stays valid).
+    scores, the chunk partials and, past SELECT_SORT_MAX tiles, the sorted
+    runs of rank keys (each grown when a call needs more; an outgrown tensor
+    is kept, so that a graph captured on it stays valid).
     Kept, not allocated per call, so a call allocates only its outputs and
     a CUDA graph can capture it, once a call outside the capture has made
     the scratch at its size. Calls on one device use it in stream order."""
@@ -461,6 +468,7 @@ class _SelectScratch:
         self.m_bar = torch.zeros((1,), dtype=torch.float32, device=dev)
         self.score = torch.zeros((0,), dtype=torch.float32, device=dev)
         self.partial = torch.zeros((0,), dtype=torch.float32, device=dev)
+        self.runs = torch.zeros((0,), dtype=torch.int64, device=dev)
         self.outgrown = []
 
     @staticmethod
@@ -468,12 +476,12 @@ class _SelectScratch:
         scratch = _select_scratch.get(dev)
         if scratch is None:
             scratch = _select_scratch[dev] = _SelectScratch(dev)
-        if scratch.score.numel() < n_tiles:
-            scratch.outgrown.append(scratch.score)
-            scratch.score = torch.empty((n_tiles,), dtype=torch.float32, device=dev)
-        if scratch.partial.numel() < n_part:
-            scratch.outgrown.append(scratch.partial)
-            scratch.partial = torch.empty((n_part,), dtype=torch.float32, device=dev)
+        n_keys = -(-n_tiles // SELECT_SORT_MAX) * SELECT_SORT_MAX if n_tiles > SELECT_SORT_MAX else 0
+        for name, n, dtype in (("score", n_tiles, torch.float32),
+                               ("partial", n_part, torch.float32), ("runs", n_keys, torch.int64)):
+            if getattr(scratch, name).numel() < n:
+                scratch.outgrown.append(getattr(scratch, name))
+                setattr(scratch, name, torch.empty((n,), dtype=dtype, device=dev))
         return scratch
 
     def counter_ptr(self, launch: int):
@@ -486,7 +494,8 @@ def select_tiles(fparams, color, count, lum2, block, k: int, stats: bool = False
     to the lower id; with ``stats``, (ids, m_bar (1,), scores (n_tiles,)),
     copies of the scratch. ``color`` (W, H, 3), ``count`` and ``lum2`` (W,
     H); ``fparams`` (5 floats) as de_select_tiles documents
-    (render/adaptive.py builds them). Two launches, no read of the card."""
+    (render/adaptive.py builds them). Two launches, four past
+    ``SELECT_SORT_MAX`` tiles; no read of the card."""
     dev = color.device
     w, h = color.shape[:2]
     bw, bh = block
@@ -498,18 +507,15 @@ def select_tiles(fparams, color, count, lum2, block, k: int, stats: bool = False
         raise ValueError("select_tiles: expected 5 float parameters")
     if not 1 <= k <= n_tiles or w % bw or h % bh:
         raise ValueError(f"select_tiles: k={k} of {n_tiles} tiles of {block} in {w}x{h}")
-    if n_tiles > SELECT_MAX or w * h > 1024 * SELECT_MAX or bw * bh > SELECT_MAX:
-        raise ValueError(f"select_tiles: {n_tiles} tiles of {block} in {w}x{h}; at most "
-                         f"{SELECT_MAX} tiles of {SELECT_MAX} pixels in {1024 * SELECT_MAX}")
     scratch = _SelectScratch.get(dev, n_tiles, -(-w * h // 1024))
     ids = torch.empty((k,), dtype=torch.int32, device=dev)
     fp = (ctypes.c_float * 5)(*fparams)
     _launch(
         "de_select_tiles", ctypes.cast(fp, ctypes.c_void_p), _ptr(color), _ptr(count),
         _ptr(lum2), w, h, bw, bh, k, _ptr(scratch.partial), _ptr(scratch.m_bar),
-        _ptr(scratch.score), scratch.counter_ptr(0), _ptr(ids),
+        _ptr(scratch.score), scratch.counter_ptr(0), _ptr(scratch.runs), _ptr(ids),
     )
-    _count(select_tiles, SELECT_TILES_STAGES)
+    _count(select_tiles, select_launches(n_tiles))
     if stats:
         return ids, scratch.m_bar.clone(), scratch.score[:n_tiles].clone()
     return ids
@@ -532,8 +538,6 @@ def shard_mean(fparams, color, count):
     dev, n_pix = _check_shard(color, count)
     if len(fparams) != 5 or n_pix < 1:
         raise ValueError("shard_mean: expected 5 float parameters and a non-empty shard")
-    if n_pix > 1024 * SELECT_MAX:
-        raise ValueError(f"shard_mean: {n_pix} pixels, at most {1024 * SELECT_MAX}")
     scratch = _SelectScratch.get(dev, n_part=-(-n_pix // 1024))
     mean = torch.empty((1,), dtype=torch.float32, device=dev)
     fp = (ctypes.c_float * 5)(*fparams)
@@ -550,7 +554,8 @@ def select_tiles_shard(fparams, color, count, lum2, tile: int, k: int, m_bar,
     ``tile``-pixel tiles: the (k,) int32 shard-local ids of the best tiles
     scored against the frame mean ``m_bar`` (1,) on the same device, in
     descending order, ties to the lower id; with ``stats``, (ids, scores).
-    Its launches count with ``shard_mean``'s."""
+    Its launches count with ``shard_mean``'s: one, three past
+    ``SELECT_SORT_MAX`` tiles."""
     dev, n_pix = _check_shard(color, count, lum2)
     _check("m_bar", m_bar, torch.float32, (1,), dev)
     if len(fparams) != 5:
@@ -558,16 +563,13 @@ def select_tiles_shard(fparams, color, count, lum2, tile: int, k: int, m_bar,
     if tile < 1 or n_pix % tile or not 1 <= k <= n_pix // tile:
         raise ValueError(f"select_tiles_shard: k={k} of {n_pix} pixels in tiles of {tile}")
     n_tiles = n_pix // tile
-    if n_tiles > SELECT_MAX or tile > SELECT_MAX:
-        raise ValueError(f"select_tiles_shard: {n_tiles} tiles of {tile} pixels; at most "
-                         f"{SELECT_MAX} tiles of {SELECT_MAX} pixels")
     scratch = _SelectScratch.get(dev, n_tiles)
     ids = torch.empty((k,), dtype=torch.int32, device=dev)
     fp = (ctypes.c_float * 5)(*fparams)
     _launch("de_select_tiles_shard", ctypes.cast(fp, ctypes.c_void_p), _ptr(color), _ptr(count),
             _ptr(lum2), n_tiles, tile, k, _ptr(m_bar), _ptr(scratch.score),
-            scratch.counter_ptr(1), _ptr(ids))
-    _count(select_tiles_shard, SELECT_TILES_STAGES // 2)
+            scratch.counter_ptr(1), _ptr(scratch.runs), _ptr(ids))
+    _count(select_tiles_shard, select_launches(n_tiles) - SELECT_TILES_STAGES // 2)
     return (ids, scratch.score[:n_tiles].clone()) if stats else ids
 
 
@@ -622,6 +624,9 @@ def film_postprocess(color_buffer, count, spp: float, exposure_scale: float,
 
 BOUNCE_LAMBDAS = 4  # the bounce kernel's hero packet (csrc/bounce.cu BOUNCE_L)
 BOUNCE_SITES = 6  # the census's loop sites (csrc/bounce.cu SITE_*)
+# the census's clock64 columns: the six sites, then bounce_flight's and
+# bounce_shade's whole (csrc/bounce.cu CYCLE_COLS)
+BOUNCE_CYCLE_COLS = BOUNCE_SITES + 2
 # de_bounce_occupancy's entries
 OCCUPANCY_ENTRIES = ("bounce_flight", "bounce_shade", "bounce_window")
 
@@ -671,13 +676,17 @@ def _bounce_args(fparams, iparams, pos, direction, wavelength, lambda_pdf, throu
     ], (fp, ip)
 
 
-def _trips_arg(trips, m, dev):
+def _census_args(trips, cycles, m, dev):
     if trips is not None:
         _check("trips", trips, torch.int32, (m, BOUNCE_SITES), dev)
-    return _ptr_or_null(trips)
+    if cycles is not None:
+        if trips is None:
+            raise ValueError("bounce: cycles come from the census instance: pass trips too")
+        _check("cycles", cycles, torch.int64, (m, BOUNCE_CYCLE_COLS), dev)
+    return _ptr_or_null(trips), _ptr_or_null(cycles)
 
 
-def bounce_flight(*args, n_live=None, trips=None):
+def bounce_flight(*args, n_live=None, trips=None, cycles=None):
     """Launch ``bounce_flight`` (csrc/bounce.cu), steps 1-3 of one bounce of
     the lanes ``idx`` (m,) int32 of the (N, ...) state (an id outside [0, N)
     is skipped): the (m, 4) float32 flight outcome of each list entry (t_int,
@@ -691,31 +700,34 @@ def bounce_flight(*args, n_live=None, trips=None):
     count on the device, entries of ``idx`` at or past it are skipped
     (``idx`` is then an upper bound's worth). With ``trips``, an (m, 6)
     int32 tensor, the census instance also writes each entry's trip count
-    at the flight's four loop sites (columns 0-3)."""
+    at the flight's four loop sites (columns 0-3), and with ``cycles``, an
+    (m, 8) int64 tensor, its clock64 cycles there and in the whole kernel
+    (column 6)."""
     c_args, _refs = _bounce_args(*args, n_live)
     m = args[13].shape[0]
     dev = args[2].device
-    trips_p = _trips_arg(trips, m, dev)
+    census = _census_args(trips, cycles, m, dev)
     out = torch.empty((m, 4), dtype=torch.float32, device=dev)
     if m:
-        _launch("de_bounce_flight", *c_args, _ptr(out), trips_p)
+        _launch("de_bounce_flight", *c_args, _ptr(out), *census)
         _count(bounce_flight, 1)
     return out
 
 
-def bounce_shade(*args, flight, n_live=None, trips=None):
+def bounce_shade(*args, flight, n_live=None, trips=None, cycles=None):
     """Launch ``bounce_shade`` (csrc/bounce.cu), steps 4-7 of the bounce
     (arguments as ``bounce_flight`` takes them; the state is read and written
     in place), from ``bounce_flight``'s (m, 4) outcome ``flight`` of the same
     list. With ``trips``, the census instance writes the trip counts of the
-    shadow march and NEE cloud tracking (columns 4-5)."""
+    shadow march and NEE cloud tracking (columns 4-5), with ``cycles`` their
+    clock64 cycles and the whole kernel's (column 7)."""
     c_args, _refs = _bounce_args(*args, n_live)
     m = args[13].shape[0]
     dev = args[2].device
     _check("flight", flight, torch.float32, (m, 4), dev)
-    trips_p = _trips_arg(trips, m, dev)
+    census = _census_args(trips, cycles, m, dev)
     if m:
-        _launch("de_bounce_shade", *c_args, _ptr(flight), trips_p)
+        _launch("de_bounce_shade", *c_args, _ptr(flight), *census)
         _count(bounce_shade, 1)
 
 

@@ -215,6 +215,110 @@ def test_kernel_rank_keys_give_the_twins_order(case):
     assert sorted(got.tolist()) == list(range(n_tiles))
 
 
+# Past the sizes the select_tiles kernel once refused (more than 8192 tiles,
+# a tile of more than 8192 pixels, more than 1024 x 8192 pixels). Stated
+# tolerance: the ids equal to the reference's in order; m_bar within rtol
+# 1e-6 of jnp.mean and every tile score within rtol 1e-4 of the reference's
+# (each sums in its own order; XLA's CPU reduce over a 1920-pixel tile
+# parts by up to 1.2e-5). The buffers keep every two finite tile scores at
+# least 1e-3 apart but for the exact tie, so that neither order can swap
+# them.
+
+
+def _separated_buffers(w, h, block, seed):
+    """Two samples per pixel, every pixel's mean luminance about 0.5 and its
+    variance g_t of its tile t, g on a geometric grid of ratio 1.002 in a
+    seeded order (lum2 jittered by 1e-6 per pixel, so the tile sums' order
+    matters to the last bits); two never-sampled tiles (+inf, tied) and
+    tile 2 copied onto tile 5 (an exact tie)."""
+    r = np.random.default_rng(seed)
+    bw, bh = block
+    nby = h // bh
+    n_tiles = (w // bw) * nby
+    g = 0.05 * 1.002 ** r.permutation(n_tiles)
+    tile = (np.arange(w)[:, None] // bw) * nby + np.arange(h)[None, :] // bh
+    count = np.full((w, h), 2.0, np.float32)
+    color = np.full((w, h, 3), 1.0, np.float32)
+    lum = color[0, 0] @ jsp.LUM_WEIGHTS / 2.0
+    lum2 = (2.0 * (lum * lum + 2.0 * g[tile]) * (1.0 + 1e-6 * r.standard_normal((w, h))))
+    lum2 = lum2.astype(np.float32)
+    if n_tiles > 5:
+        lum2[tile == 5] = lum2[tile == 2]
+    for t in (1, n_tiles - 1):
+        count[tile == t] = 0.0
+    return color, count, lum2
+
+
+def _reference_tile_scores(color, count, lum2, block):
+    """The reference's tile scores (renderer.py:439-464) in jnp."""
+    w, h = count.shape
+    bw, bh = block
+    n = jnp.maximum(count, 1.0)
+    mean_lum = jsp.lum(color) / n
+    var_mean = jnp.maximum(lum2 / n - mean_lum**2, 0.0) / n
+    m_bar = jnp.mean(mean_lum)
+    explore = (0.2 * m_bar) ** 2 / n**2
+    score = (var_mean + explore) / (mean_lum + 0.2 * m_bar + 1e-20) ** 2
+    score = jnp.where(count < 1.0, jnp.inf, score)
+    return m_bar, score.reshape(w // bw, bw, h // bh, bh).mean(axis=(1, 3)).reshape(-1)
+
+
+@pytest.mark.parametrize("w,h,tile_pixels,n_tiles", [
+    (1024, 576, 64, 9216),      # more than 8192 tiles
+    (256, 128, 16384, 2),       # tiles of 16384 pixels
+    (4096, 2160, 2048, 4608),   # more than 1024 x 8192 pixels
+])
+def test_select_tiles_past_the_old_caps_matches_jax(w, h, tile_pixels, n_tiles):
+    block = raygen.pick_block_dims(w, h, tile_pixels)
+    assert (w // block[0]) * (h // block[1]) == n_tiles
+    color, count, lum2 = _separated_buffers(w, h, block, seed=n_tiles)
+    m_want, s_want = _reference_tile_scores(*(jnp.asarray(a) for a in (color, count, lum2)),
+                                            block)
+    m_bar = adaptive.shard_mean_plain(T(color).reshape(-1, 3), T(count).reshape(-1))
+    np.testing.assert_allclose(m_bar.numpy(), [float(m_want)], rtol=1e-6)
+    scores = adaptive.tile_scores_plain(T(color), T(count), T(lum2), block).numpy()
+    np.testing.assert_allclose(scores, np.asarray(s_want), rtol=1e-4)
+    finite = np.sort(scores[np.isfinite(scores)])
+    gaps = np.diff(finite) / finite[1:]
+    assert (gaps[gaps > 0] > 1e-3).all()
+    for k in sorted({1, max(1, n_tiles // 4), n_tiles}):
+        got = adaptive.select_tiles_plain(T(color), T(count), T(lum2), block, k)
+        want = np.asarray(jrend._select_tiles(jnp.asarray(color), jnp.asarray(count),
+                                              jnp.asarray(lum2), (w, h), block, k))
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_shard_selection_past_the_old_caps_matches_top_k():
+    """A shard of 9216 tiles (tile-major, 64 pixels each) against
+    lax.top_k's ids, and the mean of a 4096x2160-pixel shard against
+    jnp.mean (rtol 1e-6)."""
+    import jax
+
+    w, h, block = 1024, 576, (8, 8)
+    color, count, lum2 = _separated_buffers(w, h, block, seed=3)
+    tile = block[0] * block[1]
+
+    def tile_major(a):
+        return np.ascontiguousarray(a.reshape(w // 8, 8, h // 8, 8, *a.shape[2:])
+                                    .swapaxes(1, 2).reshape(w * h, *a.shape[2:]))
+
+    c, n, l2 = (tile_major(a) for a in (color, count, lum2))
+    m_bar = adaptive.shard_mean_plain(T(c), T(n)) * 1.25
+    mb = jnp.float32(m_bar.item())
+    nj = jnp.maximum(jnp.asarray(n), 1.0)
+    mean_lum = jsp.lum(jnp.asarray(c)) / nj
+    var_mean = jnp.maximum(jnp.asarray(l2) / nj - mean_lum**2, 0.0) / nj
+    score = (var_mean + (0.2 * mb) ** 2 / nj**2) / (mean_lum + 0.2 * mb + 1e-20) ** 2
+    score = jnp.where(jnp.asarray(n) < 1.0, jnp.inf, score).reshape(-1, tile).mean(axis=1)
+    for k in (1, 2304, 9216):
+        got = adaptive.select_tiles_shard_plain(T(c), T(n), T(l2), tile, k, m_bar)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(jax.lax.top_k(score, k)[1]))
+    big = _separated_buffers(4096, 2160, (32, 60), seed=5)
+    got = adaptive.shard_mean_plain(T(big[0]).reshape(-1, 3), T(big[1]).reshape(-1))
+    want = jnp.mean(jsp.lum(jnp.asarray(big[0])) / jnp.maximum(jnp.asarray(big[1]), 1.0))
+    np.testing.assert_allclose(got.numpy(), [float(want)], rtol=1e-6)
+
+
 def test_tree_sum_is_the_halving_order():
     x = torch.from_numpy(np.random.default_rng(0).random((3, 13)).astype(np.float32))
     p = torch.nn.functional.pad(x, (0, 3))

@@ -616,21 +616,60 @@ def test_select_tiles_kernel(dev, res, tile_pixels):
         assert torch.equal(adaptive.select_tiles(*bufs, block, k), want)
 
 
-def test_select_tiles_kernel_refuses_more_tiles_than_its_sort(dev):
-    """Past 8192 tiles (the rank's sort in one block's shared memory) the
-    wrappers raise before a launch."""
+@pytest.mark.parametrize("res,tile_pixels,n_tiles,launches", [
+    ((4096, 2160), 2048, 4608, 2),     # more than 1024 x 8192 pixels: 4608 tiles of 32x60
+    ((3840, 2160), 512, 17280, 4),     # more than 8192 tiles: 17280 of 20x24
+    ((7680, 4320), 2048, 16200, 4),    # both
+    ((512, 256), 16384, 8, 2),         # tiles of more than 8192 pixels: 128x128
+])
+def test_select_tiles_kernel_past_the_old_caps(dev, res, tile_pixels, n_tiles, launches):
+    """The sizes the kernel once refused: ids, m_bar and every tile score
+    bit-equal to the twin's, k = 1 ... n_tiles; past 8192 tiles the rank
+    takes two more launches (sorted runs of 8192 keys, then each key's place
+    among the runs)."""
     from digital_earth_tpu_torch import kernels
-    from digital_earth_tpu_torch.render import adaptive
+    from digital_earth_tpu_torch.render import adaptive, raygen
 
-    block = (32, 30)  # 3840x2160: 8640 tiles
-    bufs = [torch.zeros(shape, device=dev) for shape in ((3840, 2160, 3), (3840, 2160),
-                                                          (3840, 2160))]
-    with pytest.raises(ValueError, match="8192"):
-        kernels.select_tiles(adaptive._kernel_params(), *bufs, block, 10)
-    flat = [b.reshape(-1, 3) if b.dim() == 3 else b.reshape(-1) for b in bufs]
-    with pytest.raises(ValueError, match="8192"):
-        kernels.select_tiles_shard(adaptive._kernel_params(), *flat, 960, 10,
-                                   torch.ones((1,), device=dev))
+    w, h = res
+    block = raygen.pick_block_dims(w, h, tile_pixels)
+    assert (w // block[0]) * (h // block[1]) == n_tiles
+    assert kernels.select_launches(n_tiles) == launches
+    bufs = _select_bufs(dev, res, block, 12)
+    m_want, s_want = _select_stats_plain(bufs, block)
+    for k in (1, max(1, n_tiles // 4), n_tiles, n_tiles):
+        before = kernels.select_tiles.launches
+        got, m_bar, scores = kernels.select_tiles(adaptive._kernel_params(), *bufs, block, k,
+                                                  stats=True)
+        assert kernels.select_tiles.launches == before + launches
+        assert torch.equal(got, adaptive.select_tiles_plain(*bufs, block, k))
+        assert _bits_equal(m_bar, m_want.reshape(1)) and _bits_equal(scores, s_want)
+
+
+def test_select_tiles_kernel_past_the_old_caps_in_a_cuda_graph(dev):
+    """17280 tiles (four launches) captured in a CUDA graph and replayed on
+    new buffers: the twin's ids."""
+    from digital_earth_tpu_torch.render import adaptive, raygen
+
+    res = (3840, 2160)
+    block = raygen.pick_block_dims(*res, 512)
+    bufs = _select_bufs(dev, res, block, 13)
+    k = 4320
+    adaptive.select_tiles(*bufs, block, k)  # the scratch, made outside the capture
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        adaptive.select_tiles(*bufs, block, k)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        ids = adaptive.select_tiles(*bufs, block, k)
+    for seed in (14, 15):
+        for dst, src in zip(bufs, _select_bufs(dev, res, block, seed)):
+            dst.copy_(src)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(ids, adaptive.select_tiles_plain(*bufs, block, k))
 
 
 @pytest.mark.parametrize("case", ["inf_color", "neg_inf_color", "nan_color", "nan_lum2"])
@@ -711,11 +750,13 @@ def _shard_bufs(dev, n_tiles, tile, case="finite"):
 @pytest.mark.parametrize("n_tiles,tile,case", [(270, 1920, "finite"), (8, 64, "finite"),
                                                (270, 1920, "nan_lum2"), (100, 48, "inf_color"),
                                                (100, 48, "neg_inf_color"),
-                                               (5000, 64, "finite")])
+                                               (5000, 64, "finite"), (9216, 64, "finite"),
+                                               (9216, 64, "nan_lum2"), (4608, 1920, "finite")])
 def test_select_tiles_shard_kernel(dev, n_tiles, tile, case):
     """The shard entries against their twins: the shard mean, the ids and
     every tile score bit-equal, with ties, NaN and +-inf, k = 1 ... n_tiles
-    (twice in a row), one launch per entry."""
+    (twice in a row), one launch per entry (three for a selection past 8192
+    tiles); past 8192 tiles and past 1024 x 8192 pixels (4608 x 1920)."""
     from digital_earth_tpu_torch import kernels
     from digital_earth_tpu_torch.render import adaptive
 
@@ -731,9 +772,10 @@ def test_select_tiles_shard_kernel(dev, n_tiles, tile, case):
         assert got.dtype == torch.int32 and torch.equal(got, want)
         assert _bits_equal(scores, adaptive.shard_scores_plain(*bufs, tile, m_bar))
         assert got.unique().numel() == k
-    # one launch per shard mean, one per shard selection
-    assert kernels.select_tiles_shard.launches == before + 5 * kernels.SELECT_TILES_STAGES // 2
-    assert kernels.SELECT_TILES_STAGES // 2 == 1
+    # one launch per shard mean, one per shard selection (three past 8192 tiles)
+    per_selection = kernels.select_launches(n_tiles) - 1
+    assert per_selection == (3 if n_tiles > 8192 else 1)
+    assert kernels.select_tiles_shard.launches == before + 1 + 4 * per_selection
 
 
 def test_select_tiles_shard_step_captured_in_a_cuda_graph(dev):
@@ -910,6 +952,32 @@ def test_bounce_census_matches_the_twins_loops(dev, bounce):
     pt.run_bounce_plain(st.take(idx.long()), bounce, *args, trips=want)
     assert int((trips != want).any(1).sum()) <= 1
     assert trips[:, 1:3].sum() > 0
+
+
+@pytest.mark.parametrize("bounce", [0, 3])
+def test_bounce_clock_census_keeps_the_bits(dev, bounce):
+    """The census instances with their clock64 columns leave the timed
+    instances' state bit for bit and write each entry's cycles: each site's
+    within its kernel's whole."""
+    from digital_earth_tpu_torch import kernels
+
+    st, args = _golden_state(dev, bounce)
+    idx, n_live = _live(st)
+    idx = idx[: int(n_live)]
+    frame = pt.BounceFrame(st, *args)
+    timed, census = _clone_state(st), _clone_state(st)
+    pt.run_bounce(timed, idx, bounce, *args, frame)
+    m = idx.numel()
+    trips = torch.full((m, 6), -1, dtype=torch.int32, device=dev)
+    cycles = torch.full((m, kernels.BOUNCE_CYCLE_COLS), -1, dtype=torch.int64, device=dev)
+    ka = pt._kernel_args(census, idx, bounce, *args, frame)
+    flight = kernels.bounce_flight(*ka, trips=trips, cycles=cycles)
+    kernels.bounce_shade(*ka, flight=flight, trips=trips, cycles=cycles)
+    assert _same_state(timed, census)
+    assert (cycles >= 0).all() and (cycles[:, 6:] > 0).all()
+    assert (cycles[:, :4] <= cycles[:, 6:7]).all() and (cycles[:, 4:6] <= cycles[:, 7:8]).all()
+    with pytest.raises(ValueError, match="trips"):
+        kernels.bounce_flight(*ka, cycles=cycles)
 
 
 def test_bounce_takes_the_live_count_from_the_device(dev):

@@ -81,8 +81,9 @@ and read just after):
     wavelengths, responses, pdf, the pixel map); timed per call from the
     host and on the device alone, from a CUDA graph of 20 calls (the
     wrapper reads nothing back from the card, or the capture would fail);
-10. ``film_postprocess`` (Triton) against its twin on the phase-6 buffer,
-    OpenDRT and AgX, a scalar spp and a per-pixel count;
+10. ``film_postprocess`` against its twin on the phase-6 buffer, OpenDRT
+    and AgX, a scalar spp and a per-pixel count; on the device from a CUDA
+    graph of 20 calls against its bound (bytes, FP32 instructions, SFU);
 11. the preview frame: Apollo 11 at 480x270 (the viewer's preview of a
     1920x1080 view), a warm ``accumulate`` under
     ``torch.cuda.set_sync_debug_mode("error")`` (no synchronizing call),
@@ -334,6 +335,34 @@ def simt_efficiency(torch, trips, warp=32):
     worst = t.view(-1, warp, t.shape[1]).amax(1).sum(0) * warp
     work = t.sum(0)
     return [None if w == 0 else float(a / w) for a, w in zip(work.tolist(), worst.tolist())]
+
+
+MARCH_SITES = (0, 3, 4)  # pre-march, march after the flight, shadow march
+
+
+def march_simt(torch, trips, k, warp=32):
+    """SIMT efficiency of the warp-cooperative land march
+    (csrc/land_march.cuh land_march_warp) at MARCH_SITES: lane iterations
+    over the lane-iteration slots its warps issue. A warp of c marching
+    lanes (those with trips) marches them in one pass, each on T threads,
+    T the most of k, k / 2, ..., 1 with c T <= 32: 32 / T slots an
+    iteration, for its longest lane's iterations. None for a site no lane
+    entered."""
+    m = trips.shape[0]
+    pad = (-m) % warp
+    t = torch.cat([trips, trips.new_zeros((pad, trips.shape[1]))]).to(torch.int64)
+    out = []
+    for site in MARCH_SITES:
+        x = t[:, site].view(-1, warp)
+        c = (x > 0).sum(1)
+        lanes = torch.full_like(c, warp // k)  # lanes a pass holds: 32 / T
+        for _ in range(k.bit_length()):
+            lanes = torch.where(c > lanes, lanes * 2, lanes)
+        work, total = int(x.sum()), int((torch.clamp(lanes, max=warp) * x.amax(1)).sum())
+        out.append(None if total == 0 else work / total)
+    return out
+
+
 # NVIDIA H100 SXM (NVIDIA's data sheet): HBM3 bytes/s and float32
 # operations/s outside the tensor cores, for each kernel's bound; its SMs,
 # FP32 lanes and special-function units per SM (the Hopper white paper) for
@@ -397,9 +426,17 @@ PREVIEW_LANE_BYTES, PREVIEW_TABLE_BYTES = 36, 441 * 4 + 300 * 12
 # frame_end, film_postprocess (nothing else runs: the scene's floats and the
 # rays' origin come from the host)
 MAX_KERNELS_PER_PREVIEW = 4
-# film_postprocess: the OpenDRT chain from /spp and the vignette to the
-# camera response and the sRGB encoding.
-FILM_OPS = 230
+# film_postprocess (csrc/film_postprocess.py), per pixel, counted as
+# preview's are: FP32 instructions, each add, multiply, compare, select, min,
+# max, floor or conversion one and each division, square root and pow one
+# as well (a floor): the vignette and /spp (22), the two 3x3 matrices (30),
+# the OpenDRT chain (164: hue, purity, luminance, tone scale, chroma
+# compression, the clamp), three response-table lerps (60) and three sRGB
+# encodes (33); special-function operations, one per division and square
+# root and two per pow (its log2 and exp2): the vignette's two divisions and
+# square root, /spp's three divisions, OpenDRT's 14 divisions and two
+# square roots, the encodes' six pows (12).
+FILM_OPS, FILM_SFU = 309, 34
 
 
 def fail(msg):
@@ -919,33 +956,34 @@ def _census(torch, st0, idx, b, args, frame):
     return trips, st, cycles
 
 
-def _trips(torch, st0, idx, b, args, frame):
-    trips, st, _ = _census(torch, st0, idx, b, args, frame)
-    return trips, st
-
-
-def cycle_split(torch, cycles, warp=32):
-    """The bounce's time by the census's clock64 columns: a warp of the
-    launch (32 consecutive list entries) spends at a site the most cycles
-    any of its threads spent there (its lanes wait on one another), and in
-    a kernel its longest thread's. Returns (each site's share of the two
-    kernels' summed warp cycles, bounce_flight's share, bounce_shade's)."""
+def warp_cycles(torch, cycles, warp=32):
+    """The census's clock64 columns summed over the launch's warps (32
+    consecutive list entries): a warp spends at a site the most cycles any
+    of its threads spent there (its lanes wait on one another), and in a
+    kernel its longest thread's. A float64 tensor of the 8 columns."""
     m = cycles.shape[0]
     pad = (-m) % warp
     c = torch.cat([cycles, cycles.new_zeros((pad, cycles.shape[1]))])
-    per_warp = c.view(-1, warp, c.shape[1]).amax(1).sum(0).to(torch.float64)
+    return c.view(-1, warp, c.shape[1]).amax(1).sum(0).to(torch.float64)
+
+
+def cycle_split(torch, cycles):
+    """The bounce's time by the census's clock64 columns (``warp_cycles``):
+    (each site's share of the two kernels' summed warp cycles,
+    bounce_flight's share, bounce_shade's, that sum)."""
+    per_warp = cycles if cycles.dim() == 1 else warp_cycles(torch, cycles)
     total = float(per_warp[6] + per_warp[7])
     shares = [float(x) / total for x in per_warp.tolist()]
-    return shares[:6], shares[6], shares[7]
+    return shares[:6], shares[6], shares[7], total
 
 
 def split_text(split):
-    sites, flight, shade = split
+    sites, flight, shade, total = split
     names = ("pre-march", "cloud", "RMO", "march after", "shadow march", "NEE cloud")
     return (f"flight {flight:.3f} (" + ", ".join(f"{n} {x:.3f}" for n, x in zip(names[:4], sites))
             + f", rest {flight - sum(sites[:4]):.3f}), shade {shade:.3f} ("
             + ", ".join(f"{n} {x:.3f}" for n, x in zip(names[4:], sites[4:]))
-            + f", rest {shade - sum(sites[4:]):.3f})")
+            + f", rest {shade - sum(sites[4:]):.3f}) of {total:.4g} warp cycles")
 
 
 def _states_equal(torch, a, b):
@@ -968,7 +1006,7 @@ def check_census(torch, states):
         c = states[b]
         idx, st0, args = c["idx"], c["st"], c["args"]
         frame = pt.BounceFrame(st0, *args)
-        k_trips, st_census = _trips(torch, st0, idx, b, args, frame)
+        k_trips, st_census, _ = _census(torch, st0, idx, b, args, frame)
         st_timed = _clone_state(st0)
         pt.run_bounce(st_timed, idx, b, *args, frame)
         same_state = _states_equal(torch, st_census, st_timed)
@@ -1003,6 +1041,7 @@ def bounce_table(torch, states, cfg, census=True):
     from digital_earth_tpu_torch.render import pathtracer as pt
 
     table = {}
+    calls, spp_cycles = [0] * 6, None  # over the spp: lanes with trips per site, warp cycles
     for b, c in sorted(states.items()):
         idx, st0, args = c["idx"], c["st"], c["args"]
         m = idx.numel()
@@ -1013,7 +1052,12 @@ def bounce_table(torch, states, cfg, census=True):
         row["ms"] = _bounce_ms(torch, st0, lambda s: pt.run_bounce(s, idx, b, *args, frame))
         if census:
             trips, _, cycles = _census(torch, st0, idx, b, args, frame)
+            calls = [a + n for a, n in zip(calls, (trips > 0).sum(0).tolist())]
+            if cycles is not None:
+                wc = warp_cycles(torch, cycles)
+                spp_cycles = wc if spp_cycles is None else spp_cycles + wc
             ops = bounce_ops(torch, trips, cfg.march_k)
+            row["march_simt"] = march_simt(torch, trips, cfg.march_k)
             row["split"] = cycle_split(torch, cycles) if cycles is not None else None
             row.update(ops=ops, ops_ms=ops / PEAK_F32 * 1e3,
                        bytes_ms=BOUNCE_LANE_BYTES * m / PEAK_BYTES * 1e3,
@@ -1031,8 +1075,17 @@ def bounce_table(torch, states, cfg, census=True):
               f"ns/lane{extra}")
         if census and row["split"] is not None:
             print(f"per-bounce {b:2d} cycle split (census, clock64 warp cycles): "
-                  f"{split_text(row['split'])}")
+                  f"{split_text(row['split'])}; {march_simt_text(row['march_simt'])}")
+    if census:
+        print(f"census over the spp (every bounce one launch each): lanes taking trips per site "
+              f"{dict(zip(pt.CENSUS_SITES, calls))} per spp, x 3 per 3 spp; cycle split "
+              + ("not measured" if spp_cycles is None else split_text(cycle_split(torch, spp_cycles))))
     return table
+
+
+def march_simt_text(simt):
+    return "the land march's SIMT eff as launched (pre, after, shadow) " + " ".join(
+        "-" if e is None else f"{e:.2f}" for e in simt)
 
 
 def census_split_scenes(torch, dev, atlas, luts):
@@ -1049,8 +1102,10 @@ def census_split_scenes(torch, dev, atlas, luts):
             frame = pt.BounceFrame(st0, *args)
             trips, _, cycles = _census(torch, st0, idx, b, args, frame)
             simt = " ".join("-" if e is None else f"{e:.2f}" for e in simt_efficiency(torch, trips))
-            print(f"census {name[9:-4]} bounce {b}: {idx.numel()} live; SIMT eff {simt}; cycle "
-                  f"split {split_text(cycle_split(torch, cycles))}")
+            k = args[3].march_k
+            print(f"census {name[9:-4]} bounce {b}: {idx.numel()} live; SIMT eff {simt}; "
+                  f"{march_simt_text(march_simt(torch, trips, k))}; "
+                  f"cycle split {split_text(cycle_split(torch, cycles))}")
         del states
 
 
@@ -1556,7 +1611,14 @@ def check_film(torch, buf, crf_curves):
             if drt == "opendrt" and kind == "scalar spp":
                 row["ms"], row["plain_ms"] = ms, plain_ms
                 row["bytes"] = 24 * w * h + crf_curves.numel() * 4  # buffer in, image out
-                row["ops"] = FILM_OPS * w * h
+                row["ops"], row["sfu"] = FILM_OPS * w * h, FILM_SFU * w * h
+                row["graph_ms"] = _graph_ms(torch, lambda: film.postprocess(*args))
+                b_ms, by = bound(row["bytes"], row["ops"], row["sfu"])
+                print(f"film_postprocess {drt} {kind} {w}x{h} on the device (CUDA graph of 20): "
+                      f"{row['graph_ms']:.4f} ms, {b_ms / row['graph_ms']:.2f} of the {b_ms:.4f} "
+                      f"ms bound ({by}; bytes {bound(row['bytes'], None)[0]:.4f}, FP32 "
+                      f"instructions {row['ops'] / (H100_SMS * FP32_PER_SM * sm_clock_mhz() * 1e3):.4f}, "
+                      f"SFU {row['sfu'] / (H100_SMS * SFU_PER_SM * sm_clock_mhz() * 1e3):.4f})")
     return row
 
 
@@ -2846,6 +2908,64 @@ def path_bench(torch, dev):
     table = bounce_table(torch, states, states[0]["args"][3], census=False)
     out["per_bounce_ms"] = {b: round(row["ms"], 4) for b, row in table.items()}
     from digital_earth_tpu_torch import kernels
+    from digital_earth_tpu_torch.render import pathtracer as pt
+
+    # bounce_flight and bounce_shade apart at bounces 0 and DEEP_BOUNCE, the
+    # census's cycle split where the package's census has a clock, and the
+    # window from the bounce its threshold picks
+    out["flight_shade_ms"], out["cycle_split"] = {}, {}
+    for b in (0, DEEP_BOUNCE):
+        c = states[b]
+        idx, st0, args = c["idx"], c["st"], c["args"]
+        frame = pt.BounceFrame(st0, *args)
+        ka = lambda st: pt._kernel_args(st, idx, b, *args, frame)  # noqa: E731
+        flight = kernels.bounce_flight(*ka(_clone_state(st0)))
+        out["flight_shade_ms"][b] = [
+            round(_bounce_ms(torch, st0, lambda st: kernels.bounce_flight(*ka(st))), 4),
+            round(_bounce_ms(torch, st0, lambda st: kernels.bounce_shade(*ka(st), flight=flight)), 4)]
+        trips, _, cycles = _census(torch, st0, idx, b, args, frame)
+        if cycles is not None:
+            sites, fl, sh, total = cycle_split(torch, cycles)
+            out["cycle_split"][b] = [round(x, 4) for x in sites] + [round(fl, 4), round(sh, 4),
+                                                                    total]
+    cfg = states[0]["args"][3]
+    counts = [states[b]["idx"].numel() for b in sorted(states)] + [0]
+    _, wb = pt.bounce_schedule(states[0]["st"].alive.numel(), counts,
+                               kernels.window_threshold(dev), 0, cfg.max_bounces)
+    c = states[wb]
+    frame = pt.BounceFrame(c["st"], *c["args"])
+    out["window_ms"] = [wb, round(_bounce_ms(torch, c["st"], lambda st: pt.run_window(
+        st, c["idx"], wb, cfg.max_bounces, *c["args"], frame)), 4)]
+    # select_tiles on the device (a CUDA graph of 20 calls) on seeded
+    # buffers: 1920x1080 (1,080 tiles) and 3840x2160 at 512-pixel tiles
+    # (17,280 tiles: None where the package refuses it)
+    from digital_earth_tpu_torch.render import adaptive, raygen
+
+    # film_postprocess on the device (a CUDA graph of 20 calls): OpenDRT,
+    # scalar spp, on a seeded 1920x1080 buffer
+    from digital_earth_tpu_torch.assets.luts import load_crf_pack
+    from digital_earth_tpu_torch.render import film
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    buf = torch.rand((*RES, 3), generator=g, device=dev) ** 4 * 40.0
+    crf = load_crf_pack(dev).curves
+    out["film_graph_ms"] = round(_graph_ms(
+        torch, lambda: film.postprocess(buf, 3.0, 2.432, 1.001, crf, 12, "opendrt")), 5)
+    del buf
+    out["select_tiles_graph_ms"] = {}
+    for (w, h), tp in ((RES, 2048), ((3840, 2160), 512)):
+        g = torch.Generator(device=dev).manual_seed(11)
+        count = torch.randint(1, 6, (w, h), generator=g, device=dev).float()
+        color = torch.exp(torch.randn((w, h, 3), generator=g, device=dev)) * count[..., None]
+        lum2 = color.sum(-1) ** 2 / count * (1 + torch.rand((w, h), generator=g, device=dev))
+        block = raygen.pick_block_dims(w, h, tp)
+        k = (w // block[0]) * (h // block[1]) // 4
+        try:
+            ms = round(_graph_ms(torch, lambda: adaptive.select_tiles(color, count, lum2, block, k)), 5)
+        except ValueError:
+            ms = None
+        out["select_tiles_graph_ms"][f"{w}x{h}/{tp}"] = ms
+        del color, count, lum2
 
     out["compact_lanes_ms"] = {}
     cases = [(b, states[b]["st"].alive, states[b]["st"].work_class) for b in (0, DEEP_BOUNCE)]
@@ -3095,7 +3215,7 @@ def main():
                      "digital_earth_tpu/render/renderer.py:160"),
         "atmos_march": ("cuda", "digital_earth_tpu_torch/csrc/atmos_march.cu",
                         "digital_earth_tpu/render/raymarcher.py:56"),
-        "film_postprocess": ("triton", "digital_earth_tpu_torch/csrc/film_postprocess.py",
+        "film_postprocess": ("cuda", "digital_earth_tpu_torch/csrc/film_postprocess.cu",
                              "digital_earth_tpu/render/film.py:438"),
         "frame_end": ("cuda", "digital_earth_tpu_torch/csrc/frame_end.cu",
                       "digital_earth_tpu/render/pathtracer.py:2000"),

@@ -50,9 +50,15 @@
 //     flight, 7 shade); the timed instances have no such code;
 //   - bounce_window: each listed lane from the given bounce to max_bounces
 //     or its death, its state in registers, in blocks of 64 threads.
-// The live count comes as a device pointer: thread t returns at once when t
-// >= *n_live, so the host launches with an upper bound it already holds and
-// never waits for the count.
+// The live count comes as a device pointer: a warp whose threads all lie at
+// or past *n_live returns at once, so the host launches with an upper bound
+// it already holds and never waits for the count. The three land marches
+// (pre-march, march after the flight, shadow march) are warp-cooperative
+// (land_march_warp: a lane's K probes on K threads, the warp's idle threads
+// on its marching lanes' probes), so every other thread of a warp reaches
+// each march call, with no lane or with a lane that does not march there:
+// the marches' inputs are set in their branches and the calls made where
+// the whole warp passes.
 //
 // What bounds it on the H100: neither bytes (a lane moves about 200 B of
 // state, 0.12 ms for 2M lanes) nor the loops' operations (counted per trip
@@ -60,8 +66,9 @@
 // differ lane to lane, so a warp runs at its slowest lane's pace, and the
 // wavefront's tail leaves most of the card idle. The design keeps every
 // intermediate in registers, lists lanes by work class (compact_lanes.cu),
-// carries the tail in one launch (bounce_window) and splits the wide
-// bounces so that the flight runs at twice the occupancy.
+// carries the tail in one launch (bounce_window), splits the wide bounces
+// so that the flight runs at twice the occupancy, and marches land with the
+// warp's threads on the marching lanes' probes.
 #include <cstdint>
 
 #include <cuda_runtime.h>
@@ -137,31 +144,48 @@ __device__ __forceinline__ void tock(long long* cyc, int col, long long c0) {
   }
 }
 
+// The entries in the list: m, or the live count on the device below it.
+__device__ __forceinline__ int list_size(const BounceState& s) {
+  return s.n_live ? min(*s.n_live, s.m) : s.m;
+}
+
 // The list entry thread t works on, or -1.
 __device__ __forceinline__ int list_lane(const BounceState& s, int t) {
-  const int m = s.n_live ? min(*s.n_live, s.m) : s.m;
-  if (t >= m) return -1;
+  if (t >= list_size(s)) return -1;
   const int lane = s.idx[t];
   return (lane < 0 || lane >= s.n) ? -1 : lane;  // an id outside the state is not a lane
 }
 
+// True in every thread of a warp whose threads all lie past the list: it
+// returns at once. Every other thread stays to the end of its kernel, with
+// or without a lane, since the land march needs the full warp.
+__device__ __forceinline__ bool warp_past_list(const BounceState& s, int t) {
+  return (t & ~31) >= list_size(s);
+}
+
 // The loops as calls shared by their call sites (not inlined); the census
-// instance's calls also write the loop's trip count.
+// instance's calls also write the loop's trip count. Every thread of the
+// warp calls the march (land_march_warp), act set where its lane marches.
 __device__ __noinline__ float march_call(const uint8_t* __restrict__ topo, MarchParams p, V3 o,
-                                         V3 d, float cap) {
-  return land_march_lane(topo, p, o, d, true, cap);
+                                         V3 d, bool act, float cap) {
+  return land_march_warp(topo, p, o, d, act, cap);
 }
 
 __device__ __noinline__ float march_call_n(const uint8_t* __restrict__ topo, MarchParams p, V3 o,
-                                           V3 d, float cap, int* iters) {
-  return land_march_lane(topo, p, o, d, true, cap, iters);
+                                           V3 d, bool act, float cap, int* iters) {
+  return land_march_warp(topo, p, o, d, act, cap, iters);
 }
 
+// A warp none of whose lanes marches here skips the call: a miss, no trips.
 template <bool COUNT>
 __device__ __forceinline__ float march(const uint8_t* __restrict__ topo, const MarchParams& p,
-                                       V3 o, V3 d, float cap, int* trips, int site) {
-  if constexpr (COUNT) return march_call_n(topo, p, o, d, cap, trips + site);
-  else return march_call(topo, p, o, d, cap);
+                                       V3 o, V3 d, bool act, float cap, int* trips, int site) {
+  if (!__any_sync(MARCH_FULL_WARP, act)) {
+    if (COUNT && trips) trips[site] = 0;
+    return -1.0f;
+  }
+  if constexpr (COUNT) return march_call_n(topo, p, o, d, act, cap, trips ? trips + site : nullptr);
+  else return march_call(topo, p, o, d, act, cap);
 }
 
 struct CloudOut {
@@ -250,15 +274,14 @@ struct Flight {
 };
 
 // Steps 1-3 of one bounce of a lane at pos along dir with hero wavelength
-// wl0 and bounce key kb.
+// wl0 and bounce key kb. Every thread of the warp calls it (the marches
+// need the full warp); act false: no lane (its outcome is not used, and it
+// runs no tracker).
 template <bool COUNT>
 __device__ __forceinline__ Flight flight_lane(const BounceState& s, const BounceParams& p,
-                                              int bounce, V3 pos, V3 dir, float wl0, Key kb,
-                                              int* trips, long long* cyc) {
+                                              int bounce, bool act, V3 pos, V3 dir, float wl0,
+                                              Key kb, int* trips, long long* cyc) {
   const float inf = __int_as_float(0x7f800000);
-  const float e0 = spectra_extinction_rayleigh(wl0);
-  const float e1 = spectra_extinction_mie(wl0);
-  const float e2 = spectra_extinction_ozone(wl0, s.o3);
   const float ext_w = cloud_ext_w(bounce);
   const float scale = p.scale;
   const MarchParams mp = march_params(p);
@@ -276,46 +299,50 @@ __device__ __forceinline__ Flight flight_lane(const BounceState& s, const Bounce
   const float cap_proxy = base_near > 0.0f ? base_near : -1.0f;
   const bool below = r_len < CLOUDS_LOWER_F;
   long long c0 = tick<COUNT>();
-  const float earth_pre = below ? march<COUNT>(s.topo, mp, pos, dir, inf, trips, SITE_PRE_MARCH)
-                                : -1.0f;
+  const float earth_pre =
+      march<COUNT>(s.topo, mp, pos, dir, act && below, inf, trips, SITE_PRE_MARCH);
   tock<COUNT>(cyc, SITE_PRE_MARCH, c0);
   const float land_proxy = below ? earth_pre : cap_proxy;
 
   // 3. the flight: clouds, then the gases capped at the cloud event
-  const Key k_flight = fold(kb, 1u);
-  float a_near, a_far;
-  rsi(pos, dir, ATMOS_UPPER_F, a_near, a_far);
-  float t_start, t_max;
-  rmo_span(a_near, a_far, land_proxy, t_start, t_max);
-  float c_start, c_max;
-  cloud_limits(pos, dir, land_proxy, c_start, c_max);
-  c0 = tick<COUNT>();
-  const CloudOut cd = cloud<COUNT>(fold(k_flight, 2u), pos, dir, c_start, c_max, ext_w, s, p,
-                                   false, trips, SITE_CLOUD);
-  tock<COUNT>(cyc, SITE_CLOUD, c0);
-  const float rmo_cap = cd.event > 0 ? fminf(t_max, cd.t) : t_max;
-  int rmo_event, rmo_id;
-  float rmo_t;
-  c0 = tick<COUNT>();
-  rmo_track_lane(fold(k_flight, 1u), pos, dir, t_start, rmo_cap, e0, e1, e2, true,
-                 p.tracking_steps, p.tracking_k, p.o3_env_peak, rmo_event, rmo_t, rmo_id,
-                 COUNT ? trips + SITE_RMO : nullptr);
-  tock<COUNT>(cyc, SITE_RMO, c0);
-  const bool take_cloud = cd.event > 0 && rmo_event == 0;
-  Flight f;
-  f.event = take_cloud ? cd.event : rmo_event;
-  f.t_int = take_cloud ? cd.t : rmo_t;
-  f.iid = take_cloud ? 3 : rmo_id;
+  Flight f{0, 0, 0.0f, -1.0f};
+  CloudOut cd{0, 0.0f, 1.0f};
+  if (act) {
+    const float e0 = spectra_extinction_rayleigh(wl0);
+    const float e1 = spectra_extinction_mie(wl0);
+    const float e2 = spectra_extinction_ozone(wl0, s.o3);
+    const Key k_flight = fold(kb, 1u);
+    float a_near, a_far;
+    rsi(pos, dir, ATMOS_UPPER_F, a_near, a_far);
+    float t_start, t_max;
+    rmo_span(a_near, a_far, land_proxy, t_start, t_max);
+    float c_start, c_max;
+    cloud_limits(pos, dir, land_proxy, c_start, c_max);
+    c0 = tick<COUNT>();
+    cd = cloud<COUNT>(fold(k_flight, 2u), pos, dir, c_start, c_max, ext_w, s, p, false, trips,
+                      SITE_CLOUD);
+    tock<COUNT>(cyc, SITE_CLOUD, c0);
+    const float rmo_cap = cd.event > 0 ? fminf(t_max, cd.t) : t_max;
+    int rmo_event, rmo_id;
+    float rmo_t;
+    c0 = tick<COUNT>();
+    rmo_track_lane(fold(k_flight, 1u), pos, dir, t_start, rmo_cap, e0, e1, e2, true,
+                   p.tracking_steps, p.tracking_k, p.o3_env_peak, rmo_event, rmo_t, rmo_id,
+                   COUNT ? trips + SITE_RMO : nullptr);
+    tock<COUNT>(cyc, SITE_RMO, c0);
+    const bool take_cloud = cd.event > 0 && rmo_event == 0;
+    f.event = take_cloud ? cd.event : rmo_event;
+    f.t_int = take_cloud ? cd.t : rmo_t;
+    f.iid = take_cloud ? 3 : rmo_id;
+  }
 
   const bool need_march =
-      !below && (f.event == 0 || (f.iid != 3 && f.t_int > fmaxf(d_free, 0.0f)));
-  f.earth = earth_pre;
+      act && !below && (f.event == 0 || (f.iid != 3 && f.t_int > fmaxf(d_free, 0.0f)));
   c0 = tick<COUNT>();
-  if (need_march) {
-    f.earth = march<COUNT>(s.topo, mp, pos, dir, f.event > 0 ? f.t_int : 1e30f, trips,
-                           SITE_POST_MARCH);
-  }
+  const float earth_post = march<COUNT>(s.topo, mp, pos, dir, need_march,
+                                        f.event > 0 ? f.t_int : 1e30f, trips, SITE_POST_MARCH);
   tock<COUNT>(cyc, SITE_POST_MARCH, c0);
+  f.earth = need_march ? earth_post : earth_pre;
   // demote RMO events beyond the land hit; the cloud event takes over
   const bool demote = f.event > 0 && f.iid != 3 && f.earth >= 0.0f && f.earth <= f.t_int;
   const bool resurrect = demote && cd.event > 0;
@@ -369,10 +396,12 @@ __device__ __forceinline__ void store_lane(const BounceState& s, int lane, const
 }
 
 // Steps 4-7 of one bounce of the lane in r, given its flight's outcome.
+// Every thread of the warp calls it (the shadow march needs the full warp);
+// act false: no lane, and r is left as it was.
 template <bool COUNT, int L>
 __device__ __forceinline__ void shade_lane(const BounceState& s, const BounceParams& p,
-                                           int bounce, LaneRegs<L>& r, Key kb, Flight f,
-                                           int* trips, long long* cyc) {
+                                           int bounce, bool act, LaneRegs<L>& r, Key kb,
+                                           Flight f, int* trips, long long* cyc) {
   const V3 pos = r.pos, dir = r.dir;
   const float inf = __int_as_float(0x7f800000);
   const float ext_w = cloud_ext_w(bounce);
@@ -395,7 +424,7 @@ __device__ __forceinline__ void shade_lane(const BounceState& s, const BouncePar
   float t_w = event > 0 ? t_int : (earth > 0.0f ? earth : rmo_t1);
   t_w = fminf(fmaxf(t_w, rmo_t0), fmaxf(rmo_t1, rmo_t0));
   const bool rmo_collision = event > 0 && iid != 3;
-  {
+  if (act) {
     float d_seg[3];
     density_integral_segment(s.table, pos, dir, rmo_t0, fmaxf(t_w, rmo_t0), d_seg);
     float tau[L];
@@ -423,32 +452,38 @@ __device__ __forceinline__ void shade_lane(const BounceState& s, const BouncePar
                                             p.sun_cos_angle,
                                             V3{p.light[0], p.light[1], p.light[2]});
   const bool scatter = event == 2;
-  const bool surface = event == 0 && earth > 0.0f;
+  const bool surface = act && event == 0 && earth > 0.0f;
   const bool miss = event == 0 && !(earth > 0.0f);
   const V3 int_pos = along(pos, scatter ? t_int : 0.0f, dir);
   float pn, planet_far;
   rsi(int_pos, light_dir, PLANET_R_F, pn, planet_far);
   const bool vol_nee = scatter && !(planet_far > 0.0f);
 
-  V3 offset_pos = pos, hemi_dir{0.0f, 1.0f, 0.0f};
-  bool sur_vis = false;
-  float emissive = 0.0f, d_term[L], b_brdf[L];
-#pragma unroll
-  for (int l = 0; l < L; ++l) d_term[l] = b_brdf[l] = 0.0f;
+  V3 offset_pos = pos, hemi_dir{0.0f, 1.0f, 0.0f}, normal{0.0f, 0.0f, 0.0f};
+  LandMaterial mat{};
   if (surface) {
     const TexView topo{s.topo, p.topo_h, p.topo_w};
     const TexView material{s.material, p.mat_h, p.mat_w};
     const bool bil = p.bilinear != 0;
     const V3 land_pos = along(pos, earth, dir);
-    const V3 normal = land_normal(topo, land_pos, scale, bil);
-    const LandMaterial mat = get_land_material(material, land_pos, bil);
+    normal = land_normal(topo, land_pos, scale, bil);
+    mat = get_land_material(material, land_pos, bil);
     offset_pos = V3{land_pos.x * p.offset_scale, land_pos.y * p.offset_scale,
                     land_pos.z * p.offset_scale};
-    MarchParams shadow = march_params(p);
-    shadow.any_hit = 1;
-    const long long c0 = tick<COUNT>();
-    sur_vis = march<COUNT>(s.topo, shadow, offset_pos, light_dir, inf, trips, SITE_SHADOW) < 0.0f;
-    tock<COUNT>(cyc, SITE_SHADOW, c0);
+  }
+  // the shadow march of the surface lanes, where the whole warp calls it
+  MarchParams shadow = march_params(p);
+  shadow.any_hit = 1;
+  const long long c0 = tick<COUNT>();
+  const float shadow_hit =
+      march<COUNT>(s.topo, shadow, offset_pos, light_dir, surface, inf, trips, SITE_SHADOW);
+  tock<COUNT>(cyc, SITE_SHADOW, c0);
+  if (!act) return;
+  const bool sur_vis = surface && shadow_hit < 0.0f;
+  float emissive = 0.0f, d_term[L], b_brdf[L];
+#pragma unroll
+  for (int l = 0; l < L; ++l) d_term[l] = b_brdf[l] = 0.0f;
+  if (surface) {
     const V3 v{-dir.x, -dir.y, -dir.z};
     const BrdfParts dp = earth_brdf_parts(mat.ocean, mat.bathymetry, v, normal, light_dir);
     const Key k_hemi = fold(kb, 5u);
@@ -473,10 +508,10 @@ __device__ __forceinline__ void shade_lane(const BounceState& s, const BouncePar
     rmo_transmittance_to_space<L>(s.table, ext, nee_origin, light_dir, trans);
     float n_start, n_max;
     cloud_limits(nee_origin, light_dir, -1.0f, n_start, n_max);
-    const long long c0 = tick<COUNT>();
+    const long long c1 = tick<COUNT>();
     const CloudOut ct = cloud<COUNT>(fold(fold(kb, 3u), 2u), nee_origin, light_dir, n_start,
                                      n_max, ext_w, s, p, true, trips, SITE_NEE_CLOUD);
-    tock<COUNT>(cyc, SITE_NEE_CLOUD, c0);
+    tock<COUNT>(cyc, SITE_NEE_CLOUD, c1);
 #pragma unroll
     for (int l = 0; l < L; ++l) trans[l] = trans[l] * ct.trans;
   }
@@ -571,14 +606,16 @@ __global__ void __launch_bounds__(BOUNCE_BLOCK, FLIGHT_MIN_BLOCKS)
     bounce_flight_kernel(BounceState s, BounceParams p, float4* __restrict__ out) {
   const long long c_all = tick<COUNT>();
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (warp_past_list(s, t)) return;
   const int lane = list_lane(s, t);
-  if (lane < 0) return;
-  int* trips = entry_trips<COUNT>(s, t, SITE_PRE_MARCH, SITE_SHADOW);
-  long long* cyc = entry_cycles<COUNT>(s, t, SITE_PRE_MARCH, SITE_SHADOW);
-  const Flight f = flight_lane<COUNT>(s, p, p.bounce, load3(s.pos, lane), load3(s.dir, lane),
-                                      s.wavelength[lane * L], bounce_key<L>(s, lane, p.bounce),
-                                      trips, cyc);
-  out[t] = make_float4(f.t_int, f.earth, __int_as_float(f.event), __int_as_float(f.iid));
+  const bool act = lane >= 0;
+  const int l = act ? lane : 0;  // a thread with no lane reads lane 0 and writes nothing
+  int* trips = act ? entry_trips<COUNT>(s, t, SITE_PRE_MARCH, SITE_SHADOW) : nullptr;
+  long long* cyc = act ? entry_cycles<COUNT>(s, t, SITE_PRE_MARCH, SITE_SHADOW) : nullptr;
+  const Flight f = flight_lane<COUNT>(s, p, p.bounce, act, load3(s.pos, l), load3(s.dir, l),
+                                      s.wavelength[l * L], bounce_key<L>(s, l, p.bounce), trips,
+                                      cyc);
+  if (act) out[t] = make_float4(f.t_int, f.earth, __int_as_float(f.event), __int_as_float(f.iid));
   tock<COUNT>(cyc, CYC_FLIGHT, c_all);
 }
 
@@ -589,44 +626,51 @@ __global__ void __launch_bounds__(BOUNCE_BLOCK)
     bounce_shade_kernel(BounceState s, BounceParams p, const float4* __restrict__ in) {
   const long long c_all = tick<COUNT>();
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (warp_past_list(s, t)) return;
   const int lane = list_lane(s, t);
-  if (lane < 0) return;
-  int* trips = entry_trips<COUNT>(s, t, SITE_SHADOW, BOUNCE_SITES);
-  long long* cyc = entry_cycles<COUNT>(s, t, SITE_SHADOW, BOUNCE_SITES);
-  const float4 o = in[t];
+  const bool act = lane >= 0;
+  const int l = act ? lane : 0;  // a thread with no lane reads lane 0 and writes nothing
+  int* trips = act ? entry_trips<COUNT>(s, t, SITE_SHADOW, BOUNCE_SITES) : nullptr;
+  long long* cyc = act ? entry_cycles<COUNT>(s, t, SITE_SHADOW, BOUNCE_SITES) : nullptr;
+  const float4 o = act ? in[t] : make_float4(0.0f, -1.0f, 0.0f, 0.0f);
   const Flight f{__float_as_int(o.z), __float_as_int(o.w), o.x, o.y};
   LaneRegs<L> r;
-  r.pos = load3(s.pos, lane);
-  r.dir = load3(s.dir, lane);
+  r.pos = load3(s.pos, l);
+  r.dir = load3(s.dir, l);
   r.miss0 = false;
-  load_spectral(s, lane, r);
-  shade_lane<COUNT, L>(s, p, p.bounce, r, bounce_key<L>(s, lane, p.bounce), f, trips, cyc);
-  store_lane(s, lane, r, r.alive);
+  load_spectral(s, l, r);
+  shade_lane<COUNT, L>(s, p, p.bounce, act, r, bounce_key<L>(s, l, p.bounce), f, trips, cyc);
+  if (act) store_lane(s, lane, r, r.alive);
   tock<COUNT>(cyc, CYC_SHADE, c_all);
 }
 
-// Bounces [p.bounce, stop) of each listed lane, until it dies.
+// Bounces [p.bounce, stop) of each listed lane, until it dies; the warp
+// goes on while any of its lanes lives (the marches need the full warp),
+// a dead lane's thread with act false.
 template <int L>
 __global__ void __launch_bounds__(WINDOW_BLOCK)
     bounce_window_kernel(BounceState s, BounceParams p, int stop) {
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (warp_past_list(s, t)) return;
   const int lane = list_lane(s, t);
-  if (lane < 0) return;
+  const int l = lane >= 0 ? lane : 0;  // a thread with no lane reads lane 0 and writes nothing
   LaneRegs<L> r;
-  r.pos = load3(s.pos, lane);
-  r.dir = load3(s.dir, lane);
+  r.pos = load3(s.pos, l);
+  r.dir = load3(s.dir, l);
   r.miss0 = false;
-  r.alive = true;
-  load_spectral(s, lane, r);
-  const Key key = load_key(s.keys, lane);
+  r.alive = lane >= 0;
+  load_spectral(s, l, r);
+  const Key key = load_key(s.keys, l);
   bool wc_set = false;
-  for (int b = p.bounce; b < stop && r.alive; ++b) {
+  for (int b = p.bounce; b < stop && __any_sync(MARCH_FULL_WARP, r.alive); ++b) {
     const Key kb = fold(key, (uint32_t)b);
-    const Flight f = flight_lane<false>(s, p, b, r.pos, r.dir, r.wl[0], kb, nullptr, nullptr);
-    shade_lane<false, L>(s, p, b, r, kb, f, nullptr, nullptr);
+    const bool act = r.alive;
+    const Flight f =
+        flight_lane<false>(s, p, b, act, r.pos, r.dir, r.wl[0], kb, nullptr, nullptr);
+    shade_lane<false, L>(s, p, b, act, r, kb, f, nullptr, nullptr);
     wc_set = wc_set || r.alive;
   }
-  store_lane(s, lane, r, wc_set);
+  if (lane >= 0) store_lane(s, lane, r, wc_set);
 }
 
 static int unpack_params(const float* fp, const int* ip, BounceParams& p) {
@@ -646,6 +690,7 @@ static int unpack_params(const float* fp, const int* ip, BounceParams& p) {
   p.rr_start = ip[2];
   p.march_steps = ip[3];
   p.march_k = ip[4];
+  if (p.march_k < 1 || 32 % p.march_k != 0) return (int)cudaErrorInvalidValue;
   p.patience = ip[5];
   p.tracking_steps = ip[6];
   p.tracking_k = ip[7];

@@ -5,9 +5,7 @@ CUDA C++: each ``.cu`` source is compiled with ``nvcc`` for Hopper
 objects are linked into one shared library with a plain C interface, at
 first CUDA use, into the git-ignored ``build/kernels/<source hash>/``
 directory, and loaded with ``ctypes``; ptxas's report of each source
-(registers, spills) is kept in ``ptxas_log``. Triton: ``csrc/film_postprocess.py``
-is loaded from its path at first CUDA use, with ``TRITON_CACHE_DIR`` pointed
-at the git-ignored ``build/triton/``. Each launcher checks device, dtype,
+(registers, spills) is kept in ``ptxas_log``. Each launcher checks device, dtype,
 shape and contiguity, runs on ``torch.cuda.current_stream()`` of the calling
 thread's current device (parallel/mesh.py's worker threads each set theirs),
 raises if the launch fails (a non-zero ``cudaGetLastError()`` from a C
@@ -27,12 +25,10 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
-import importlib.util
 import math
 import os
 import shutil
 import subprocess
-import sys
 import threading
 import time
 
@@ -41,7 +37,6 @@ import torch
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_ROOT, "csrc")
 BUILD_ROOT = os.path.join(os.path.dirname(_ROOT), "build", "kernels")
-TRITON_CACHE = os.path.join(os.path.dirname(_ROOT), "build", "triton")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -119,6 +114,8 @@ _SIGNATURES = {
     "de_preview": [_P, _P, ctypes.c_uint, ctypes.c_uint] + [_P] * 13 + [_I, _P],
     # out (4 ints)
     "de_preview_occupancy": [_P],
+    # float params, int params, color buffer, count, response table, out, stream
+    "de_film_postprocess": [_P] * 7,
 }
 
 
@@ -225,12 +222,20 @@ def _ptr_or_null(t):
     return None if t is None else _ptr(t)
 
 
+def _check_march_k(k: int):
+    if k < 1 or 32 % k:
+        raise ValueError(f"march_k={k}: the land march spreads a lane's k probes over k threads "
+                         "of a warp, so k must divide 32")
+
+
 def land_march(topo, pos, direction, active, t_cap, scale: float, *,
                step_floor: float, stall_thresh: float, steps: int, k: int,
                patience: int, any_hit: bool):
     """Launch ``land_march`` (csrc/land_march.cu): (n,) hit distance, -1 on
-    a miss."""
+    a miss. The march gives each marching lane ``k`` threads of its warp:
+    ``k`` must divide 32."""
     dev = pos.device
+    _check_march_k(k)
     n = pos.shape[0]
     h, w = topo.shape[:2]
     _check("topo", topo, torch.uint8, (h, w, 4), dev)
@@ -573,51 +578,37 @@ def select_tiles_shard(fparams, color, count, lum2, tile: int, k: int, m_bar,
     return (ids, scratch.score[:n_tiles].clone()) if stats else ids
 
 
-_film = None
-
-
-def _film_module():
-    """csrc/film_postprocess.py, imported from its path (it imports triton)."""
-    global _film
-    if _film is None:
-        os.environ["TRITON_CACHE_DIR"] = TRITON_CACHE
-        os.makedirs(TRITON_CACHE, exist_ok=True)
-        name = "digital_earth_tpu_torch_film_postprocess"
-        spec = importlib.util.spec_from_file_location(
-            name, os.path.join(CSRC, "film_postprocess.py"))
-        mod = importlib.util.module_from_spec(spec)
-        sys.modules[name] = mod
-        spec.loader.exec_module(mod)
-        _film = mod
-    return _film
+# film_postprocess's float parameters after the two matrices, by name in
+# render/film.kernel_constants
+_FILM_CONSTANTS = ("DRT_M", "DRT_S", "DRT_DS", "DRT_CLAMP", "DCH_S", "LW0", "LW1", "LW2")
 
 
 def film_postprocess(color_buffer, count, spp: float, exposure_scale: float,
                      gamma: float, crf_curves, crf_index: int, drt: int,
                      constants: dict):
-    """Launch the Triton kernel ``film_postprocess_kernel``
-    (csrc/film_postprocess.py): (W, H, 3) display sRGB. ``count`` is a
-    (W, H, 1) per-pixel sample count or None (then the scalar ``spp``);
-    ``drt`` is 0 (OpenDRT), 1 (AgX) or 2 (none); ``constants`` holds the
-    kernel's compile-time matrices and tone-scale constants."""
+    """Launch ``film_postprocess`` (csrc/film_postprocess.cu): (W, H, 3)
+    display sRGB. ``count`` is a (W, H, 1) per-pixel sample count or None
+    (then the scalar ``spp``); ``drt`` is 0 (OpenDRT), 1 (AgX) or 2 (none);
+    ``constants`` holds the display transform's matrices (A00 ... B22) and
+    tone-scale constants (render/film.kernel_constants)."""
     dev = color_buffer.device
     w, h = color_buffer.shape[:2]
+    res, n_films = crf_curves.shape[:2]
     _check("color_buffer", color_buffer, torch.float32, (w, h, 3), dev)
-    _check("crf_curves", crf_curves, torch.float32, (crf_curves.shape[0], crf_curves.shape[1], 3), dev)
+    _check("crf_curves", crf_curves, torch.float32, (res, n_films, 3), dev)
     if count is not None:
         _check("count", count, torch.float32, (w, h, 1), dev)
+    if drt not in (0, 1, 2) or not 0 <= crf_index < n_films:
+        raise ValueError(f"film_postprocess: drt={drt}, film {crf_index} of {n_films}")
     out = torch.empty((w, h, 3), dtype=torch.float32, device=dev)
-    n_pix = w * h
-    if n_pix:
-        mod = _film_module()
-        block = 256
-        with torch.cuda.device(dev):
-            mod.film_postprocess_kernel[((n_pix + block - 1) // block,)](
-                color_buffer, count if count is not None else color_buffer, crf_curves,
-                out, n_pix, w, h, float(spp), float(exposure_scale), float(gamma),
-                int(crf_index), crf_curves.shape[1], **constants, DRT=drt,
-                HAS_COUNT=count is not None, CRF_RES=crf_curves.shape[0], BLOCK=block,
-            )
+    if w * h:
+        mats = [constants[f"{m}{i}{j}"] for m in "AB" for i in range(3) for j in range(3)]
+        fp = (ctypes.c_float * 29)(*mats, *(constants[k] for k in _FILM_CONSTANTS), float(spp),
+                                   float(exposure_scale), float(gamma))
+        ip = (ctypes.c_int * 7)(drt, int(count is not None), res, n_films, crf_index, w, h)
+        _launch("de_film_postprocess", ctypes.cast(fp, ctypes.c_void_p),
+                ctypes.cast(ip, ctypes.c_void_p), _ptr(color_buffer), _ptr_or_null(count),
+                _ptr(crf_curves), _ptr(out))
         _count(film_postprocess, 1)
     return out
 
@@ -643,6 +634,7 @@ def _bounce_args(fparams, iparams, pos, direction, wavelength, lambda_pdf, throu
         raise ValueError("bounce: expected 13 float and 15 int parameters")
     if iparams[0] != L:
         raise ValueError(f"bounce: {iparams[0]} wavelengths per lane, the kernel takes {L}")
+    _check_march_k(iparams[4])
     for name, t in (("pos", pos), ("direction", direction)):
         _check(name, t, torch.float32, (n, 3), dev)
     for name, t in (("wavelength", wavelength), ("lambda_pdf", lambda_pdf),

@@ -4,8 +4,8 @@ vignette, exposure, gamma, sRGB encode. The gamut and AgX matrices are
 derived in numpy exactly as the reference derives them.
 
 ``postprocess`` runs the plain PyTorch chain (``postprocess_plain``) for a
-CPU buffer and the Triton kernel ``film_postprocess``
-(csrc/film_postprocess.py) for a CUDA buffer."""
+CPU buffer and the CUDA kernel ``film_postprocess``
+(csrc/film_postprocess.cu) for a CUDA buffer."""
 
 from __future__ import annotations
 

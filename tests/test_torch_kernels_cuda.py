@@ -106,6 +106,33 @@ def test_land_march_kernel(case, any_hit, capped):
     assert rel.median().item() < 1e-6
 
 
+@pytest.mark.parametrize("per_warp", [1, 3, 8, 9, 32])
+def test_land_march_kernel_warp_cooperative(case, per_warp):
+    """The warp-cooperative march (march_k = 4 threads to a marching lane,
+    8 lanes a pass) on a ragged n with ``per_warp`` active lanes in each
+    warp: every lane bit-equal to intersect_land_plain, and each active
+    lane bit-equal to its march in a warp with every lane active (a lane's
+    result does not depend on the lanes it shares its passes with)."""
+    dev = case["pos"].device
+    n = N - 13
+    r = np.random.default_rng(per_warp)
+    mask = np.zeros(n, bool)
+    for w0 in range(0, n, 32):
+        width = min(32, n - w0)
+        mask[w0 + r.choice(width, min(per_warp, width), replace=False)] = True
+    active = torch.from_numpy(mask).to(dev)
+    base = (case["atlas"].topography, case["pos"][:n].contiguous(),
+            case["dirs"][:n].contiguous(), torch.tensor(7800.0, device=dev))
+    for any_hit in (False, True):
+        got = tracers.intersect_land(*base, active, TraceConfig(), any_hit=any_hit)
+        want = tracers.intersect_land_plain(*base, active, TraceConfig(), any_hit=any_hit)
+        assert _bits_equal(got, want)
+        full = tracers.intersect_land(*base, torch.ones(n, dtype=torch.bool, device=dev),
+                                      TraceConfig(), any_hit=any_hit)
+        assert _bits_equal(got[active], full[active])
+        assert (got[~active] == -1.0).all()
+
+
 def test_rmo_delta_track_kernel(case):
     t0, t1 = pt._rmo_span(case["pos"], case["dirs"],
                           torch.full((N,), -1.0, device=case["pos"].device))
@@ -619,7 +646,7 @@ def test_select_tiles_kernel(dev, res, tile_pixels):
 @pytest.mark.parametrize("res,tile_pixels,n_tiles,launches", [
     ((4096, 2160), 2048, 4608, 2),     # more than 1024 x 8192 pixels: 4608 tiles of 32x60
     ((3840, 2160), 512, 17280, 4),     # more than 8192 tiles: 17280 of 20x24
-    ((7680, 4320), 2048, 16200, 4),    # both
+    ((7680, 4320), 2048, 17280, 4),    # both: 17280 tiles of 40x48
     ((512, 256), 16384, 8, 2),         # tiles of more than 8192 pixels: 128x128
 ])
 def test_select_tiles_kernel_past_the_old_caps(dev, res, tile_pixels, n_tiles, launches):

@@ -102,6 +102,22 @@ def test_land_march_matches_jax(case, any_hit, capped):
     assert np.median(np.abs(t[both] - j[both]) / np.maximum(j[both], 1.0)) < 5e-4
 
 
+@pytest.mark.parametrize("k", [3, 5, 6, 64])
+def test_land_march_kernel_refuses_march_k_off_the_warp(k):
+    """The land march kernel spreads a lane's march_k probes over march_k
+    threads of a warp: its wrapper rejects a march_k that does not divide
+    32 before any launch (the plain version takes any march_k)."""
+    from digital_earth_tpu_torch import kernels
+
+    n = 4
+    topo = torch.zeros((8, 16, 4), dtype=torch.uint8)
+    with pytest.raises(ValueError, match="divide 32"):
+        kernels.land_march(topo, torch.zeros((n, 3)), torch.zeros((n, 3)),
+                           torch.ones(n, dtype=torch.bool), torch.full((n,), np.inf), 7800.0,
+                           step_floor=1.0, stall_thresh=1.0, steps=8, k=k, patience=5,
+                           any_hit=False)
+
+
 def _rmo_spans(case):
     t0, t1 = jpt._rmo_span(jnp.asarray(case["pos"]), jnp.asarray(case["dirs"]),
                            jnp.full((N,), -1.0))

@@ -54,8 +54,8 @@
 // or past *n_live returns at once, so the host launches with an upper bound
 // it already holds and never waits for the count. The three land marches
 // (pre-march, march after the flight, shadow march) are warp-cooperative
-// (land_march_warp: a lane's K probes on K threads, the warp's idle threads
-// on its marching lanes' probes), so every other thread of a warp reaches
+// (land_march_warp: a lane's K probes on as many threads as the warp's
+// marching lanes leave idle), so every other thread of a warp reaches
 // each march call, with no lane or with a lane that does not march there:
 // the marches' inputs are set in their branches and the calls made where
 // the whole warp passes.

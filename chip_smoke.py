@@ -426,17 +426,22 @@ PREVIEW_LANE_BYTES, PREVIEW_TABLE_BYTES = 36, 441 * 4 + 300 * 12
 # frame_end, film_postprocess (nothing else runs: the scene's floats and the
 # rays' origin come from the host)
 MAX_KERNELS_PER_PREVIEW = 4
-# film_postprocess (csrc/film_postprocess.py), per pixel, counted as
-# preview's are: FP32 instructions, each add, multiply, compare, select, min,
-# max, floor or conversion one and each division, square root and pow one
-# as well (a floor): the vignette and /spp (22), the two 3x3 matrices (30),
-# the OpenDRT chain (164: hue, purity, luminance, tone scale, chroma
-# compression, the clamp), three response-table lerps (60) and three sRGB
-# encodes (33); special-function operations, one per division and square
-# root and two per pow (its log2 and exp2): the vignette's two divisions and
-# square root, /spp's three divisions, OpenDRT's 14 divisions and two
-# square roots, the encodes' six pows (12).
-FILM_OPS, FILM_SFU = 309, 34
+# film_postprocess (csrc/film_postprocess.cu), per pixel of the OpenDRT
+# chain with a scalar spp, counted from the kernel's source: FP32
+# instructions, each add, multiply, fused multiply-add (the kernel's fmaf),
+# compare, select, min, max, floor or conversion one, and each division,
+# square root and pow one as well (the multiply by a reciprocal, by
+# y log2 x); a value used twice (a denominator's test and reciprocal, a
+# product) counted once, and values of the parameters alone (1/spp, the
+# clamps' bounds) not at all: the vignette, /spp and exposure (17), the two
+# 3x3 matrices (18: a multiply and two fused multiply-adds a row), the
+# OpenDRT chain (127: hue, purity, luminance, tone scale, chroma
+# compression, the clamp) and per channel the response-table lerp, the
+# gamma and the sRGB encode (26, 78 for three); special-function operations,
+# one per reciprocal and square root and two per pow (its log2 and exp2):
+# the vignette's square root, OpenDRT's seven reciprocals (of its seven
+# distinct denominators) and two square roots, the six pows (12).
+FILM_OPS, FILM_SFU = 240, 22
 
 
 def fail(msg):
@@ -447,9 +452,11 @@ def fail(msg):
 def bound(nbytes, ops, sfu=None):
     """(ms, "bytes" or "operations"): the least time for the work on the
     card. With ``sfu`` (special-function operations), ``ops`` counts FP32
-    instructions, each issued alone (--fmad=false) at 128 per SM per clock,
-    and the SFU operations issue at 16 per SM per clock, at the card's
-    largest SM clock; else ``ops`` run at the FP32 peak."""
+    instructions at 128 per SM per clock (an add, a multiply and a fused
+    multiply-add one each: under --fmad=false a multiply and an add fuse
+    only where the source writes fmaf), and the SFU operations issue at 16
+    per SM per clock, at the card's largest SM clock; else ``ops`` run at
+    the FP32 peak."""
     t_bytes = nbytes / PEAK_BYTES * 1e3
     if sfu is None:
         t_ops = (ops or 0) / PEAK_F32 * 1e3
@@ -573,15 +580,10 @@ def _clone_state(st):
 
 
 def _per_bounce(pt):
-    """The package's run_bounces with one launch per bounce (window_at=0),
-    where it has a window schedule."""
+    """The package's run_bounces with one launch per bounce (window_at=0)."""
     import functools
-    import inspect
 
-    run_bounces = pt.run_bounces
-    if "window_at" not in inspect.signature(run_bounces).parameters:
-        return run_bounces
-    return functools.partial(run_bounces, window_at=0)
+    return functools.partial(pt.run_bounces, window_at=0)
 
 
 def capture_states(torch, dev, atlas, luts, bounces=None, scene=SCENE):
@@ -936,21 +938,15 @@ def _graph_ms(torch, fn, reps=20):
 
 def _census(torch, st0, idx, b, args, frame):
     """The census instances of bounce_flight and bounce_shade on a copy of
-    ``st0``: ((m, 6) trips, the state they left, (m, 8) clock64 cycles, or
-    None where the package's census has no clock)."""
-    import inspect
-
+    ``st0``: ((m, 6) trips, the state they left, (m, 8) clock64 cycles)."""
     from digital_earth_tpu_torch import kernels
     from digital_earth_tpu_torch.render import pathtracer as pt
 
     st = _clone_state(st0)
     m = idx.numel()
     trips = torch.empty((m, 6), dtype=torch.int32, device=idx.device)
-    kw = dict(trips=trips)
-    cycles = None
-    if "cycles" in inspect.signature(kernels.bounce_flight).parameters:
-        cycles = kw["cycles"] = torch.empty((m, kernels.BOUNCE_CYCLE_COLS), dtype=torch.int64,
-                                            device=idx.device)
+    cycles = torch.empty((m, kernels.BOUNCE_CYCLE_COLS), dtype=torch.int64, device=idx.device)
+    kw = dict(trips=trips, cycles=cycles)
     ka = pt._kernel_args(st, idx, b, *args, frame)
     kernels.bounce_shade(*ka, flight=kernels.bounce_flight(*ka, **kw), **kw)
     return trips, st, cycles
@@ -1041,7 +1037,7 @@ def bounce_table(torch, states, cfg, census=True):
     from digital_earth_tpu_torch.render import pathtracer as pt
 
     table = {}
-    calls, spp_cycles = [0] * 6, None  # over the spp: lanes with trips per site, warp cycles
+    calls, spp_cycles = [0] * 6, 0.0  # over the spp: lanes with trips per site, warp cycles
     for b, c in sorted(states.items()):
         idx, st0, args = c["idx"], c["st"], c["args"]
         m = idx.numel()
@@ -1053,12 +1049,10 @@ def bounce_table(torch, states, cfg, census=True):
         if census:
             trips, _, cycles = _census(torch, st0, idx, b, args, frame)
             calls = [a + n for a, n in zip(calls, (trips > 0).sum(0).tolist())]
-            if cycles is not None:
-                wc = warp_cycles(torch, cycles)
-                spp_cycles = wc if spp_cycles is None else spp_cycles + wc
+            spp_cycles = spp_cycles + warp_cycles(torch, cycles)
             ops = bounce_ops(torch, trips, cfg.march_k)
             row["march_simt"] = march_simt(torch, trips, cfg.march_k)
-            row["split"] = cycle_split(torch, cycles) if cycles is not None else None
+            row["split"] = cycle_split(torch, cycles)
             row.update(ops=ops, ops_ms=ops / PEAK_F32 * 1e3,
                        bytes_ms=BOUNCE_LANE_BYTES * m / PEAK_BYTES * 1e3,
                        trips=[round(x, 3) for x in trips.float().mean(0).tolist()],
@@ -1073,13 +1067,13 @@ def bounce_table(torch, states, cfg, census=True):
                      f"{row['trips']}  SIMT eff {simt}")
         print(f"per-bounce {b:2d}: {m:8d} live  {row['ms']:.3f} ms  {row['ns_per_lane']:.2f} "
               f"ns/lane{extra}")
-        if census and row["split"] is not None:
+        if census:
             print(f"per-bounce {b:2d} cycle split (census, clock64 warp cycles): "
                   f"{split_text(row['split'])}; {march_simt_text(row['march_simt'])}")
     if census:
         print(f"census over the spp (every bounce one launch each): lanes taking trips per site "
               f"{dict(zip(pt.CENSUS_SITES, calls))} per spp, x 3 per 3 spp; cycle split "
-              + ("not measured" if spp_cycles is None else split_text(cycle_split(torch, spp_cycles))))
+              + split_text(cycle_split(torch, spp_cycles)))
     return table
 
 
@@ -2911,8 +2905,7 @@ def path_bench(torch, dev):
     from digital_earth_tpu_torch.render import pathtracer as pt
 
     # bounce_flight and bounce_shade apart at bounces 0 and DEEP_BOUNCE, the
-    # census's cycle split where the package's census has a clock, and the
-    # window from the bounce its threshold picks
+    # census's cycle split, and the window from the bounce its threshold picks
     out["flight_shade_ms"], out["cycle_split"] = {}, {}
     for b in (0, DEEP_BOUNCE):
         c = states[b]
@@ -2923,11 +2916,9 @@ def path_bench(torch, dev):
         out["flight_shade_ms"][b] = [
             round(_bounce_ms(torch, st0, lambda st: kernels.bounce_flight(*ka(st))), 4),
             round(_bounce_ms(torch, st0, lambda st: kernels.bounce_shade(*ka(st), flight=flight)), 4)]
-        trips, _, cycles = _census(torch, st0, idx, b, args, frame)
-        if cycles is not None:
-            sites, fl, sh, total = cycle_split(torch, cycles)
-            out["cycle_split"][b] = [round(x, 4) for x in sites] + [round(fl, 4), round(sh, 4),
-                                                                    total]
+        _, _, cycles = _census(torch, st0, idx, b, args, frame)
+        sites, fl, sh, total = cycle_split(torch, cycles)
+        out["cycle_split"][b] = [round(x, 4) for x in sites] + [round(fl, 4), round(sh, 4), total]
     cfg = states[0]["args"][3]
     counts = [states[b]["idx"].numel() for b in sorted(states)] + [0]
     _, wb = pt.bounce_schedule(states[0]["st"].alive.numel(), counts,
@@ -2938,7 +2929,7 @@ def path_bench(torch, dev):
         st, c["idx"], wb, cfg.max_bounces, *c["args"], frame)), 4)]
     # select_tiles on the device (a CUDA graph of 20 calls) on seeded
     # buffers: 1920x1080 (1,080 tiles) and 3840x2160 at 512-pixel tiles
-    # (17,280 tiles: None where the package refuses it)
+    # (17,280 tiles)
     from digital_earth_tpu_torch.render import adaptive, raygen
 
     # film_postprocess on the device (a CUDA graph of 20 calls): OpenDRT,
@@ -2960,11 +2951,8 @@ def path_bench(torch, dev):
         lum2 = color.sum(-1) ** 2 / count * (1 + torch.rand((w, h), generator=g, device=dev))
         block = raygen.pick_block_dims(w, h, tp)
         k = (w // block[0]) * (h // block[1]) // 4
-        try:
-            ms = round(_graph_ms(torch, lambda: adaptive.select_tiles(color, count, lum2, block, k)), 5)
-        except ValueError:
-            ms = None
-        out["select_tiles_graph_ms"][f"{w}x{h}/{tp}"] = ms
+        out["select_tiles_graph_ms"][f"{w}x{h}/{tp}"] = round(
+            _graph_ms(torch, lambda: adaptive.select_tiles(color, count, lum2, block, k)), 5)
         del color, count, lum2
 
     out["compact_lanes_ms"] = {}

@@ -7,12 +7,13 @@
 // port's plain twin render/film.postprocess_plain computes them, within
 // 1e-4 of its display values.
 //
-// What bounds it on the H100: instruction issue, just above its bytes. A
-// pixel reads 12 bytes (16 with a per-pixel count) and writes 12: 0.0149
-// ms at 1920x1080; its chain is about 309 FP32 instructions (0.0192 ms at
-// 132 SMs x 128 a clock) and 34 special-function operations (divisions,
-// square roots and the six pows' log2 and exp2: 0.0169 ms at 132 x 16 a
-// clock; chip_smoke.py FILM_OPS, FILM_SFU). So the design spends as few
+// What bounds it on the H100: its bytes, with its instructions just below.
+// A pixel reads 12 bytes (16 with a per-pixel count) and writes 12: 0.0149
+// ms at 1920x1080; its OpenDRT chain is about 240 FP32 instructions, a
+// fused multiply-add one (0.0149 ms at 132 SMs x 128 a clock), and 22
+// special-function operations (reciprocals, square roots and the six pows'
+// log2 and exp2: 0.0109 ms at 132 x 16 a clock; chip_smoke.py FILM_OPS,
+// FILM_SFU). So the design spends as few
 // instructions as the 1e-4 allows: the divisions are the SFU's reciprocal
 // and a multiply, the pows its exp2 and log2, the multiply-adds fused, the
 // pixel's column an integer multiply-high, AgX's pivot scales computed once

@@ -1,8 +1,8 @@
 // The displaced-sphere land march with the reference's phantom crawl, as
-// device functions: land_march_warp, warp-cooperative, the body of the
-// land_march kernel (land_march.cu) and of the bounce entries' three march
-// calls (bounce.cu); land_march_lane, one thread per lane, the preview
-// kernel's land and shadow marches (preview.cu). Both give the same bits.
+// one warp-cooperative device function, land_march_warp: the body of the
+// land_march kernel (land_march.cu), of the bounce entries' three march
+// calls (bounce.cu) and of the preview kernel's land and shadow marches
+// (preview.cu).
 //
 // Per lane it computes what the TPU loop digital_earth_tpu/render/
 // pathtracer.py:211 intersect_land (masked lax.while_loop at :301-333, K
@@ -150,38 +150,15 @@ __device__ __forceinline__ float phantom_crawl(const MarchParams& p, V3 o, V3 d,
   return result;
 }
 
+constexpr unsigned MARCH_FULL_WARP = 0xffffffffu;
+
 // Hit distance along o + t d, -1 on a miss; an inactive lane misses. With
 // ``iters`` the march's iterations (K probes each; the phantom crawl's not
 // counted) are written there, as the plain twin's masked loop counts them.
-// One thread per lane, its K probes one after another.
-__device__ __forceinline__ float land_march_lane(const uint8_t* __restrict__ topo,
-                                                 const MarchParams& p, V3 o, V3 d, bool act,
-                                                 float cap, int* iters = nullptr) {
-  const MarchSpan sp = march_span(p, o, d, act, cap);
-  MarchState m{sp.t0, p.step_floor, 0, 0, !sp.may_hit, !sp.may_hit};
-  for (int i = 0; i < p.steps && !m.done; i += p.k) {
-    ++m.it;
-    Probe q;
-    bool any_stop = false;
-    for (int j = 0; j < p.k; ++j) {
-      q = march_probe(topo, p, o, d, m.t + (float)j * m.stride, m.stride, sp.miss_beyond);
-      if (q.stop) {
-        any_stop = true;
-        break;
-      }
-    }
-    march_advance(m, p, any_stop, q);
-  }
-  if (iters) *iters = m.it;
-  return phantom_crawl(p, o, d, act, cap, (!m.missed && m.t < MAX_RAY_DIST_F) ? m.t : -1.0f);
-}
-
-constexpr unsigned MARCH_FULL_WARP = 0xffffffffu;
-
-// The same march, warp-cooperative: every thread of the warp must call it
-// (it shuffles across the full warp), active or not; each returns its own
-// lane's result (and iteration count), bit for bit what land_march_lane
-// gives. K = p.k must divide 32 (the host checks it).
+// Every thread of the warp must call it (it shuffles across the full warp),
+// active or not; each returns its own lane's result (and iteration count),
+// bit for bit what one thread running its lane's K probes in turn gives.
+// K = p.k must divide 32 (the host checks it).
 //
 // An iteration's K probes depend only on the iteration's t and stride
 // (ts = t + j stride), and the iteration ends at the first probe that

@@ -40,8 +40,12 @@
 // the march is warp-cooperative (atmos_march_warp): at each bounce the warp
 // ballots its active lanes and marches them 16 threads to a lane, so a warp
 // pays for the lanes it has, not for 64 steps of its slowest lane. The land
-// and shadow marches stay one thread per lane (land_march.cuh, shared with
-// the bounce entries). Both are inlined: as non-inlined calls (bounce.cu's
+// and shadow marches are the bounce entries' warp-cooperative march
+// (land_march_warp, land_march.cuh), made by every thread of the warp with
+// act set where its lane marches: a bounce's first march runs one thread to
+// a lane in the warps the planet fills, the shadow march spreads the
+// surface lanes' probes (PERF.md has its times against one thread per lane
+// on an H100). The marches are inlined: as non-inlined calls (bounce.cu's
 // way) they kept more of the lane's values on the stack across each call
 // and ran slower on the card, with the same bits. One launch replaces the
 // eager glue's thousands of element-wise launches per frame.
@@ -92,7 +96,8 @@ struct PreviewArgs {
 };
 
 // CENSUS: the census instance, which also writes each lane's clock64 cycles
-// in its land and shadow marches, in the march and in all (a.cycles); the
+// in the land and shadow march calls (which every thread of the warp makes),
+// in the march and in all (a.cycles); the
 // timed instances compile without it.
 template <bool CENSUS = false>
 __global__ void __launch_bounds__(PREVIEW_BLOCK) preview_kernel(PreviewArgs a, PreviewParams p) {
@@ -135,49 +140,58 @@ __global__ void __launch_bounds__(PREVIEW_BLOCK) preview_kernel(PreviewArgs a, P
   V3 pos = ray_pos, dir = ray_dir;
   bool alive = in, primary_miss = false;
   for (int b = 0; b < PREVIEW_BOUNCES && __any_sync(FULL_WARP, alive); ++b) {
-    float earth = -1.0f, t_start = 0.0f, t_max = 0.0f;
+    float t_start = 0.0f, t_max = 0.0f, a_far = 0.0f;
     V3 light_dir{0.0f, 0.0f, 0.0f};
+    bool crossing = false;  // alive and crossing the atmosphere: marches
     if (alive) {
       if (b > 0) kb = fold(kb, 2u);
-      float a_near, a_far;
+      float a_near;
       rsi(pos, dir, ATMOS_UPPER_F, a_near, a_far);
       if (!(a_far >= 0.0f)) {  // leaves the atmosphere: ends (a primary miss at bounce 0)
         primary_miss = b == 0;
         alive = false;
       } else {
-        if constexpr (CENSUS) c = clock64();
-        earth = land_march_lane(a.topo, mp, pos, dir, true, no_cap);
-        if constexpr (CENSUS) t_land += clock64() - c;
+        crossing = true;
         t_start = isnan(a_near) ? a_near : fmaxf(a_near, 0.0f);  // torch.clamp
-        t_max = earth > 0.0f ? earth : a_far;
         const Key k_cone = fold(kb, 0u);
         light_dir = sample_cone_oriented(uniform(k_cone, li), uniform(k_cone, li2),
                                          p.sun_cos_angle, light);
       }
     }
+    // the land march, every thread of the warp (-1 where a lane does not march)
+    if constexpr (CENSUS) c = clock64();
+    const float earth = land_march_warp(a.topo, mp, pos, dir, crossing, no_cap);
+    if constexpr (CENSUS) t_land += clock64() - c;
+    if (crossing) t_max = earth > 0.0f ? earth : a_far;
     float in_scatter = 0.0f, trans = 1.0f;
     if constexpr (CENSUS) c = clock64();
     atmos_march_warp(alive, pos, dir, t_start, t_max, light_dir, ext, sc0, sc1, p.pc,
                      in_scatter, trans);
     if constexpr (CENSUS) t_march += clock64() - c;
-    if (!alive) continue;
-    accum = accum + thr * in_scatter;
-    thr = thr * trans;
-    if (!(earth > 0.0f)) {  // a sky lane ends after its march
-      alive = false;
-      continue;
+    V3 offset_pos{0.0f, 0.0f, 0.0f};
+    bool surface = false;  // alive and on the land: marches toward the sun
+    if (alive) {
+      accum = accum + thr * in_scatter;
+      thr = thr * trans;
+      surface = earth > 0.0f;
+      alive = surface;  // a sky lane ends after its march
+      if (surface) {
+        const V3 land_pos = along(pos, earth, dir);
+        offset_pos = V3{land_pos.x * p.offset_scale, land_pos.y * p.offset_scale,
+                        land_pos.z * p.offset_scale};
+      }
     }
+    // the shadow march, every thread of the warp
+    if constexpr (CENSUS) c = clock64();
+    const float shadow = land_march_warp(a.topo, mp, offset_pos, light_dir, surface, no_cap);
+    if constexpr (CENSUS) t_land += clock64() - c;
+    if (!surface) continue;
 
     const V3 land_pos = along(pos, earth, dir);
     const V3 normal = land_normal(topo, land_pos, p.scale, bil);
     const LandMaterial mat = get_land_material(material, land_pos, bil);
     const float albedo = srgb_to_spectrum(a.srgb2spec, mat.albedo, wl);
     accum = accum + (thr * mat.emissive) * nl_power;
-    const V3 offset_pos{land_pos.x * p.offset_scale, land_pos.y * p.offset_scale,
-                        land_pos.z * p.offset_scale};
-    if constexpr (CENSUS) c = clock64();
-    const float shadow = land_march_lane(a.topo, mp, offset_pos, light_dir, true, no_cap);
-    if constexpr (CENSUS) t_land += clock64() - c;
     const float visible = shadow < 0.0f ? 1.0f : 0.0f;
     const V3 v{-dir.x, -dir.y, -dir.z};
     const BrdfParts dp = earth_brdf_parts(mat.ocean, mat.bathymetry, v, normal, light_dir);

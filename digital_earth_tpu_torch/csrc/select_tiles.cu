@@ -460,8 +460,9 @@ static int select_stage(const SelectParams& p, const float* color, const float* 
     return (int)cudaErrorInvalidValue;
   const int pt = next_pow2(bw * bh);
   const int tree = std::min(pt / 2, TREE_SLOTS);
-  // the tree's threads, one per slot up to TILE_THREADS
-  const int tree_threads = std::min(TILE_THREADS, std::max(tree, 1));
+  // the tree's threads, one per slot up to TILE_THREADS, and at least warp 0
+  // whole: tree_sum's last levels shuffle across all of its 32 lanes
+  const int tree_threads = std::min(TILE_THREADS, std::max(tree, 32));
   int rc;
   if (n_tiles > SORT_MAX) {
     const size_t smem = sizeof(float) * (size_t)std::max(tree, 1);

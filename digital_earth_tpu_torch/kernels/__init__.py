@@ -907,6 +907,7 @@ def preview(fparams, iparams, key, pos, direction, wavelength, tile_index, lane_
         raise ValueError("preview: pass pos or origin, not both")
     if iparams[4] < 1 or (tile_index is None and iparams[4] != n):
         raise ValueError(f"preview: {iparams[4]} lanes per tile for {n} lanes")
+    _check_march_k(iparams[1])
     if pos is not None:
         _check("pos", pos, torch.float32, (n, 3), dev)
     elif len(origin) != 3:

@@ -265,6 +265,8 @@ def _reference_tile_scores(color, count, lum2, block):
 
 @pytest.mark.parametrize("w,h,tile_pixels,n_tiles", [
     (1024, 576, 64, 9216),      # more than 8192 tiles
+    (128, 72, 1, 9216),         # more than 8192 tiles of one pixel
+    (512, 288, 16, 9216),       # more than 8192 tiles of 4x4
     (256, 128, 16384, 2),       # tiles of 16384 pixels
     (4096, 2160, 2048, 4608),   # more than 1024 x 8192 pixels
 ])

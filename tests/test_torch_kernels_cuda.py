@@ -648,12 +648,17 @@ def test_select_tiles_kernel(dev, res, tile_pixels):
     ((3840, 2160), 512, 17280, 4),     # more than 8192 tiles: 17280 of 20x24
     ((7680, 4320), 2048, 17280, 4),    # both: 17280 tiles of 40x48
     ((512, 256), 16384, 8, 2),         # tiles of more than 8192 pixels: 128x128
+    # more than 8192 tiles of fewer than 64 pixels, whose sums take warp 0 alone
+    ((128, 72), 1, 9216, 4),           # 1x1
+    ((512, 288), 16, 9216, 4),         # 4x4
+    ((512, 576), 32, 9216, 4),         # 4x8
+    ((1920, 1080), 16, 129600, 4),     # 1080p at 4x4
 ])
 def test_select_tiles_kernel_past_the_old_caps(dev, res, tile_pixels, n_tiles, launches):
     """The sizes the kernel once refused: ids, m_bar and every tile score
     bit-equal to the twin's, k = 1 ... n_tiles; past 8192 tiles the rank
     takes two more launches (sorted runs of 8192 keys, then each key's place
-    among the runs)."""
+    among the runs), with tiles of any size down to one pixel."""
     from digital_earth_tpu_torch import kernels
     from digital_earth_tpu_torch.render import adaptive, raygen
 
@@ -778,12 +783,15 @@ def _shard_bufs(dev, n_tiles, tile, case="finite"):
                                                (270, 1920, "nan_lum2"), (100, 48, "inf_color"),
                                                (100, 48, "neg_inf_color"),
                                                (5000, 64, "finite"), (9216, 64, "finite"),
-                                               (9216, 64, "nan_lum2"), (4608, 1920, "finite")])
+                                               (9216, 64, "nan_lum2"), (4608, 1920, "finite"),
+                                               (9216, 1, "finite"), (9216, 16, "finite"),
+                                               (9216, 32, "finite")])
 def test_select_tiles_shard_kernel(dev, n_tiles, tile, case):
     """The shard entries against their twins: the shard mean, the ids and
     every tile score bit-equal, with ties, NaN and +-inf, k = 1 ... n_tiles
     (twice in a row), one launch per entry (three for a selection past 8192
-    tiles); past 8192 tiles and past 1024 x 8192 pixels (4608 x 1920)."""
+    tiles); past 8192 tiles (with tiles of 64, 32, 16 and 1 pixels) and past
+    1024 x 8192 pixels (4608 x 1920)."""
     from digital_earth_tpu_torch import kernels
     from digital_earth_tpu_torch.render import adaptive
 

@@ -327,6 +327,24 @@ def test_preview_frame_blocks(luts, atlases, bilinear):
                              *atlas.material.shape[:2], *atlas.stars.shape[:2]]
 
 
+@pytest.mark.parametrize("k", [3, 64])
+def test_preview_kernel_refuses_march_k_off_the_warp(k):
+    """The preview kernel's land and shadow marches spread a lane's march_k
+    probes over march_k threads of a warp: its wrapper rejects a march_k
+    that does not divide 32 before any launch (the plain twin takes any)."""
+    from digital_earth_tpu_torch import kernels
+
+    n = 4
+    iparams = [8, k, 5, 0, n, 8, 16, 8, 16, 8, 16]
+    with pytest.raises(ValueError, match="divide 32"):
+        kernels.preview([0.0] * kernels.PREVIEW_FLOATS, iparams, (0, 0), None,
+                        torch.zeros((n, 3)), torch.zeros(n), None, None,
+                        torch.zeros((8, 16, 4), dtype=torch.uint8),
+                        torch.zeros((8, 16, 8), dtype=torch.uint8),
+                        torch.zeros((8, 16, 3), dtype=torch.uint8), torch.zeros(441),
+                        torch.zeros((300, 3)), origin=(0.0, 0.0, 0.0))
+
+
 def preview_draws_recipe(spp_key, tidx: int, li: int, tile: int):
     """The preview kernel's key recipe for one lane in Python integers
     (csrc/preview.cu): the tile key fold(spp_key, tidx); bounce b's key

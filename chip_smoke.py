@@ -13,8 +13,11 @@ be alternated in one call; ``--path-bench [DIR]`` does the same for the path
 tracer (s/spp of the three scenes at 1920x1080 with kernels per spp, the
 busy share and the bounce kernels' device time; the meshes' s/spp; the
 preview frame and input to preview; the ms of each bounce of an Apollo spp;
-``compact_lanes`` and ``gen_rays`` per call and on the device; the tier-2
-atlas's build split and ``upsample`` per plane).
+the bounce entries' registers and spills, the tracker and march launchers,
+per scene the entries' bit-equality with their twin, the census's cycle
+split and the trackers' SIMT efficiency; ``compact_lanes`` and
+``gen_rays`` per call and on the device; the tier-2 atlas's build split
+and ``upsample`` per plane).
 It
 imports nothing of JAX or of the JAX package ``digital_earth_tpu`` (checked
 at the end). Phases, each of which raises on failure (exit code 1):
@@ -47,16 +50,22 @@ at the end). Phases, each of which raises on failure (exit code 1):
    taken from ``gen_rays`` (never recomputed), a finite buffer of positive
    mean;
 7. holds each tracker kernel against its plain twin on the arguments kept
-   in phase 4, lane by lane, and times both;
+   in phase 4, lane by lane, and times both; counts the trackers'
+   iterations on those arguments (the twin's count) for their operations
+   bound;
 8. ``bounce_flight`` + ``bounce_shade`` against their plain twin on the
    states of bounces 0 and DEEP_BOUNCE (outcome and values lane by lane,
-   gates below), the pair and each half timed, the entries' registers and
-   resident warps; the census (the census instances of ``bounce_flight``
+   gates below, and every lane bit-equal), the pair and each half timed,
+   the entries' registers, spills and resident warps; the census (the
+   census instances of ``bounce_flight``
    and ``bounce_shade`` leave the timed instances' state, and their trip
    counts at the six loop sites equal those of the twin's plain loops on
    all but 1e-4 of the lanes); the per-bounce table of the frame (live
    lanes, ms, ns per lane, the bound from bytes and from the census's
-   operations, mean trips and SIMT efficiency per loop site);
+   operations, mean trips and SIMT efficiency per loop site, the land
+   march's SIMT under its design and the trackers'); florida and sunset
+   hurricane at bounces 0 and DEEP_BOUNCE: the entries bit-equal to their
+   twin, the census's cycle split and SIMT efficiency;
    ``bounce_window`` against ``run_window_plain`` from the bounce at which
    the frame enters the window (``bounce_schedule`` at
    ``kernels.window_threshold``), and the window started a few bounces
@@ -182,7 +191,8 @@ host, their device times printed beside them), error,
 times and bound (the least time the card could take: the larger of the
 bytes it must move at 3.35 TB/s and the operations at 67 TFLOP/s, counted
 from this run's inputs, a transcendental as one operation; the bounce
-entries' operations from the census's trip counts; for ``preview`` and
+entries' operations from the census's trip counts, the trackers' from
+their iterations on phase 7's arguments; for ``preview`` and
 ``atmos_march`` the largest of the bytes' time, their FP32 instructions
 at 128 per SM per clock and their special-function operations at 16 per
 SM per clock, at the card's largest SM clock). The last line is
@@ -294,34 +304,58 @@ BOUNCE_NEE_OPS = 285
 # RMO call: the perigee (19); an iteration: the key (77), the segment's
 # minimum radius (7), the density envelope (29), the majorant (7); a probe:
 # two draws (160), the step (6), the point (7), the three densities (51),
-# the test (6): 230. A cloud call (2); an iteration: the key (77), the
-# budget (2), the majorant (3); a probe at the skip mode's cost (45: the
-# point and its tap; a tracking probe, 225 with its two draws, is not
-# assumed). An iteration's K probes all count but the last iteration's,
-# which counts one (a probe can stop it), so the count is a floor.
+# the test (6): 230. A cloud call (2); an iteration: the budget (2), the
+# majorant (3) (its key, 77, only in a tracking iteration, which the trip
+# count does not tell apart: not counted); a probe at the skip mode's cost
+# (45: the point and its tap; a tracking probe, 225 with its two draws, is
+# not assumed). A march iteration's K probes all count but the last
+# iteration's, which counts one (a probe can stop it); a tracker iteration
+# computes its first group's min(K, TRACK_G) probes whole, the stop's group
+# included (csrc/threefry.cuh TRACK_G), and only those count. The counts are
+# floors.
 BOUNCE_CALL_OPS = (59, 2, 19, 59, 59, 2)
-BOUNCE_ITER_OPS = (4, 82, 120, 4, 4, 82)
+BOUNCE_ITER_OPS = (4, 5, 120, 4, 4, 5)
 BOUNCE_PROBE_OPS = (110, 45, 230, 110, 110, 45)
+TRACKER_SITES = (1, 2, 5)  # cloud, RMO, NEE cloud
+TRACK_G = 2  # csrc/threefry.cuh TRACK_G
 
 
-def bounce_ops(torch, trips, k, part="bounce"):
+def site_probes(torch, t, march_k, tracking_k):
+    """Probes a floor counts per site from the (m, 6) float64 trips ``t``."""
+    probes = torch.clamp(march_k * t - (march_k - 1), min=0.0)
+    tracker = torch.zeros(t.shape[1], dtype=torch.bool, device=t.device)
+    tracker[list(TRACKER_SITES)] = True
+    return torch.where(tracker, min(tracking_k, TRACK_G) * t, probes)
+
+
+def bounce_ops(torch, trips, march_k, tracking_k, part="bounce"):
     """The operations of one bounce of the lanes whose (m, 6) int32 trip
-    counts ``trips`` the census gives, with ``k`` probes per loop iteration
-    (the march's and the trackers' K): BOUNCE_FIXED_OPS per lane, the
-    surface and NEE extras of the lanes whose shadow march and NEE cloud pass
-    took trips, and per site each call's, iteration's and probe's operations
-    (a floor). ``part`` "flight" counts steps 1-3 alone (the first 487 of the
-    fixed operations, sites 0-3), "shade" the rest."""
+    counts ``trips`` the census gives, with ``march_k`` probes per march
+    iteration and ``tracking_k`` per tracker iteration: BOUNCE_FIXED_OPS per
+    lane, the surface and NEE extras of the lanes whose shadow march and NEE
+    cloud pass took trips, and per site each call's, iteration's and probe's
+    operations (a floor). ``part`` "flight" counts steps 1-3 alone (the
+    first 487 of the fixed operations, sites 0-3), "shade" the rest."""
     t = trips.to(torch.float64)
     call = torch.tensor(BOUNCE_CALL_OPS, dtype=torch.float64, device=t.device)
     it = torch.tensor(BOUNCE_ITER_OPS, dtype=torch.float64, device=t.device)
     probe = torch.tensor(BOUNCE_PROBE_OPS, dtype=torch.float64, device=t.device)
-    probes = torch.clamp(k * t - (k - 1), min=0.0)
-    per_site = ((t > 0) * call + t * it + probes * probe).sum(0)
+    per_site = ((t > 0) * call + t * it + site_probes(torch, t, march_k, tracking_k) * probe).sum(0)
     extras = (BOUNCE_SURFACE_OPS * (t[:, 4] > 0).sum() + BOUNCE_NEE_OPS * (t[:, 5] > 0).sum())
     flight = BOUNCE_FLIGHT_OPS * t.shape[0] + per_site[:4].sum()
     shade = (BOUNCE_FIXED_OPS - BOUNCE_FLIGHT_OPS) * t.shape[0] + extras + per_site[4:].sum()
     return float({"bounce": flight + shade, "flight": flight, "shade": shade}[part])
+
+
+def tracker_ops(torch, trips, k, site):
+    """The operations of a tracker launcher (``rmo_delta_track`` at the RMO
+    site's counts, ``cloud_track`` at the cloud site's) whose lanes took the
+    (n,) int32 iterations ``trips`` (the twin's count) with ``k`` probes per
+    iteration: each call's, iteration's and probe's operations as
+    ``bounce_ops`` counts them (a floor)."""
+    t = trips.to(torch.float64)
+    return float(((t > 0) * BOUNCE_CALL_OPS[site] + t * BOUNCE_ITER_OPS[site]
+                  + min(k, TRACK_G) * t * BOUNCE_PROBE_OPS[site]).sum())
 
 
 def simt_efficiency(torch, trips, warp=32):
@@ -771,15 +805,25 @@ def compare_kernels(torch, captured):
         if b == 0:  # the bounce-0 wavefront carries most of the frame's work
             row["ms"] += ms
             row["plain_ms"] += plain_ms
-            # each input read once, each output written once; the loops'
-            # operations depend on iteration counts this run does not see
+            # each input read once, each output written once; the trackers'
+            # operations from their iterations on these inputs (the twin's
+            # count); the march's depend on trip counts this run does not see
             n = args[1].shape[0]
             if base == "land_march":  # topo; pos, dir, active, t_cap; t
                 row["bytes"] += args[0].numel() + 33 * n
-            elif base == "rmo_delta_track":  # keys, pos, dir, span, ext_h, active; event, t, iid
+                continue
+            if base == "rmo_delta_track":  # keys, pos, dir, span, ext_h, active; event, t, iid
                 row["bytes"] += 65 * n
+                cfg, site = args[7], 2
             else:  # clouds; keys, pos, dir, span, ext_w, active; (event, t) or trans
                 row["bytes"] += args[6].numel() + 45 * n + (4 if "ratio" in kind else 8) * n
+                cfg, site = args[8], 1
+            trips = torch.zeros(n, dtype=torch.int32, device=args[1].device)
+            plain_fn(*args, **kwargs, trips=trips)
+            ops = tracker_ops(torch, trips, cfg.tracking_k, site)
+            row["ops"] = (row["ops"] or 0.0) + ops
+            print(f"{kind:20s} bounce {b}: {int(trips.sum())} iterations ({int((trips > 0).sum())} "
+                  f"lanes), {ops:.4g} operations: bound {bound(0, ops)[0]:.4f} ms (operations)")
     return rows
 
 
@@ -803,13 +847,26 @@ def _event_ms(torch, fn, reps):
 BOUNCE_FIELDS = ("pos", "direction", "throughput", "radiance", "w_mis")
 
 
-def _hold_lanes(torch, got, want, entered, label):
+def lanes_not_bit_equal(torch, got, want):
+    """The lanes of two states (the same lanes) that differ in any bit of
+    any field the bounce writes."""
+    diff = torch.zeros_like(want.alive)
+    for name in BOUNCE_FIELDS + ("alive", "primary_miss", "work_class"):
+        g, w = getattr(got, name), getattr(want, name)
+        ne = g.view(torch.int32) != w.view(torch.int32) if g.is_floating_point() else g != w
+        diff |= ne if ne.dim() == 1 else ne.any(-1)
+    return int(diff.sum())
+
+
+def _hold_lanes(torch, got, want, entered, label, exact=False):
     """Kernel state ``got`` against the twin's ``want`` on the same lanes:
     the outcome (alive, primary_miss, work_class) and every value under the
-    bounce's gates, lane by lane, printed; fails below BOUNCE_AGREEMENT.
+    bounce's gates, lane by lane, printed; fails below BOUNCE_AGREEMENT, and
+    with ``exact`` if any lane differs from the twin's in any bit.
     ``entered`` are the lanes' work classes before. Returns the largest
     radiance error."""
     m = want.alive.numel()
+    not_exact = lanes_not_bit_equal(torch, got, want)
     outcome = ((got.alive == want.alive) & (got.primary_miss == want.primary_miss)
                & (got.work_class == want.work_class))
     lane_ok = outcome.clone()
@@ -828,6 +885,7 @@ def _hold_lanes(torch, got, want, entered, label):
     share_outcome = outcome.float().mean().item()
     share = lane_ok.float().mean().item()
     ok = share_outcome >= BOUNCE_AGREEMENT and share >= BOUNCE_AGREEMENT
+    ok = ok and not (exact and not_exact)
     live_after = int(got.alive.sum())
     classes = torch.bincount(got.work_class[got.alive].long(), minlength=3).tolist()
     print(f"{label}: {m} live lanes; {live_after} alive after, next classes (cloud, gas, "
@@ -837,7 +895,7 @@ def _hold_lanes(torch, got, want, entered, label):
           "abs err " + ", ".join(f"{k} {v[0]:.3e}" for k, v in errs.items())
           + "; max rel err on agreeing lanes "
           + ", ".join(f"{k} {v[1]:.3e}" for k, v in errs.items())
-          + f"  {'ok' if ok else 'FAIL'}")
+          + f"; bit-equal on all but {not_exact} lanes  {'ok' if ok else 'FAIL'}")
     if not bool(lane_ok.all()):
         # the stage of the lanes that disagree: the class they entered the
         # bounce with and the twin's next class (alive lanes only)
@@ -889,7 +947,7 @@ def check_bounce(torch, states):
         print(f"bounce {b} ({m} lanes): bounce_flight + bounce_shade {t['pair']:.3f} ms "
               f"(bounce_flight {t['flight']:.3f}, bounce_shade {t['shade']:.3f})")
         err = _hold_lanes(torch, st.take(idx.long()), c["twin"], st0.work_class[idx.long()],
-                          f"bounce {b}")
+                          f"bounce {b}", exact=True)
         for row in rows.values():
             row["max_abs_err"] = max(row["max_abs_err"], err)
         if b == 0:
@@ -902,12 +960,42 @@ def check_bounce(torch, states):
             rows["bounce_flight"].update(ms=t["flight"], plain_ms=plain_ms, bytes=(40 + 16) * m)
             rows["bounce_shade"].update(ms=t["shade"], plain_ms=plain_ms,
                                         bytes=(BOUNCE_LANE_BYTES + 16) * m)
+    for name, occ in bounce_registers(kernels).items():
+        print(f"occupancy {name}: {occ['registers']} registers, {occ['local_bytes']} B local per "
+              f"thread, spill stores {occ['spill_stores']} B, loads {occ['spill_loads']} B "
+              f"(ptxas); {occ['warps_per_sm']} resident warps per SM")
+    return rows
+
+
+# the timed instances of the bounce entries as ptxas names them
+BOUNCE_ENTRY_SYMBOLS = {"bounce_flight": "bounce_flight_kernelILi4ELb0E",
+                        "bounce_shade": "bounce_shade_kernelILi4ELb0E",
+                        "bounce_window": "bounce_window_kernelILi4E"}
+
+
+def bounce_registers(kernels):
+    """Per bounce entry (the timed instances): registers and local bytes
+    per thread and resident warps per SM (``kernels.bounce_occupancy``),
+    and the spill stores and loads in bytes from ptxas's report (None where
+    this process did not build the kernels)."""
+    import re
+
+    spills, entry = {}, None
+    for line in kernels.ptxas_log.get("bounce.cu", "").splitlines():
+        if "Function properties for" in line:
+            entry = next((n for n, sym in BOUNCE_ENTRY_SYMBOLS.items() if sym in line), None)
+        elif entry and "spill stores" in line:
+            got = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            spills[entry] = (int(got[1]), int(got[2]))
+            entry = None
+    out = {}
     for name in kernels.OCCUPANCY_ENTRIES:
         occ = kernels.bounce_occupancy(name)
-        print(f"occupancy {name}: {occ['registers']} registers, {occ['local_bytes']} B local per "
-              f"thread; {occ['blocks_per_sm']} blocks of {occ['block']} = {occ['warps_per_sm']} "
-              f"resident warps per SM")
-    return rows
+        stores, loads = spills.get(name, (None, None))
+        out[name] = dict(registers=occ["registers"], local_bytes=occ["local_bytes"],
+                         warps_per_sm=occ["warps_per_sm"], spill_stores=stores,
+                         spill_loads=loads)
+    return out
 
 
 def _graph_ms(torch, fn, reps=20):
@@ -1050,8 +1138,9 @@ def bounce_table(torch, states, cfg, census=True):
             trips, _, cycles = _census(torch, st0, idx, b, args, frame)
             calls = [a + n for a, n in zip(calls, (trips > 0).sum(0).tolist())]
             spp_cycles = spp_cycles + warp_cycles(torch, cycles)
-            ops = bounce_ops(torch, trips, cfg.march_k)
+            ops = bounce_ops(torch, trips, cfg.march_k, cfg.tracking_k)
             row["march_simt"] = march_simt(torch, trips, cfg.march_k)
+            row["tracker_simt"] = tracker_simt(torch, trips)
             row["split"] = cycle_split(torch, cycles)
             row.update(ops=ops, ops_ms=ops / PEAK_F32 * 1e3,
                        bytes_ms=BOUNCE_LANE_BYTES * m / PEAK_BYTES * 1e3,
@@ -1069,7 +1158,8 @@ def bounce_table(torch, states, cfg, census=True):
               f"ns/lane{extra}")
         if census:
             print(f"per-bounce {b:2d} cycle split (census, clock64 warp cycles): "
-                  f"{split_text(row['split'])}; {march_simt_text(row['march_simt'])}")
+                  f"{split_text(row['split'])}; "
+                  f"{simt_text(row['march_simt'], row['tracker_simt'])}")
     if census:
         print(f"census over the spp (every bounce one launch each): lanes taking trips per site "
               f"{dict(zip(pt.CENSUS_SITES, calls))} per spp, x 3 per 3 spp; cycle split "
@@ -1077,28 +1167,55 @@ def bounce_table(torch, states, cfg, census=True):
     return table
 
 
-def march_simt_text(simt):
-    return "the land march's SIMT eff as launched (pre, after, shadow) " + " ".join(
-        "-" if e is None else f"{e:.2f}" for e in simt)
+def tracker_simt(torch, trips, warp=32):
+    """SIMT efficiency of the trackers at TRACKER_SITES (cloud, RMO, NEE
+    cloud): a thread runs its lane's iterations, each with its group's
+    probes in flight (csrc/cloud_track.cuh, rmo_track.cuh), so a warp's
+    slots are 32 a trip of its longest lane, as ``simt_efficiency``
+    counts them."""
+    simt = simt_efficiency(torch, trips, warp)
+    return [simt[site] for site in TRACKER_SITES]
 
 
-def census_split_scenes(torch, dev, atlas, luts):
-    """The census's cycle split and SIMT efficiency per loop site at bounces
-    0 and DEEP_BOUNCE of one spp of florida and sunset hurricane (1920x1080,
-    default TraceConfig; Apollo's are in the per-bounce table)."""
+def simt_text(march, tracker):
+    return ("the land march's SIMT eff as launched (pre, after, shadow) "
+            + " ".join("-" if e is None else f"{e:.2f}" for e in march)
+            + "; the trackers' (cloud, RMO, NEE cloud) "
+            + " ".join("-" if e is None else f"{e:.2f}" for e in tracker))
+
+
+def _bounce_and_twin(torch, c, b):
+    """On the live lanes of the captured state ``c`` of bounce ``b``: the
+    state run_bounce leaves, the state run_bounce_plain leaves, and the
+    census instances' (m, 6) trips and (m, 8) cycles."""
     from digital_earth_tpu_torch.render import pathtracer as pt
 
+    idx, st0, args = c["idx"], c["st"], c["args"]
+    frame = pt.BounceFrame(st0, *args)
+    lanes = idx.long()
+    st = _clone_state(st0)
+    pt.run_bounce(st, idx, b, *args, frame)
+    trips, _, cycles = _census(torch, st0, idx, b, args, frame)
+    return st.take(lanes), pt.run_bounce_plain(st0.take(lanes), b, *args), trips, cycles
+
+
+def check_scenes(torch, dev, atlas, luts):
+    """florida and sunset hurricane (1920x1080, default TraceConfig) at
+    bounces 0 and DEEP_BOUNCE of one spp: bounce_flight + bounce_shade
+    against run_bounce_plain, every lane bit-equal; the census's cycle
+    split and SIMT efficiency per loop site (Apollo's are in the per-bounce
+    table)."""
     for name in OTHER_SCENES:
         states, _, _ = capture_states(torch, dev, atlas, luts, bounces=(0, DEEP_BOUNCE),
                                       scene=os.path.join(ROOT, "scenes", name))
         for b, c in sorted(states.items()):
-            idx, st0, args = c["idx"], c["st"], c["args"]
-            frame = pt.BounceFrame(st0, *args)
-            trips, _, cycles = _census(torch, st0, idx, b, args, frame)
+            got, want, trips, cycles = _bounce_and_twin(torch, c, b)
+            _hold_lanes(torch, got, want, c["st"].work_class[c["idx"].long()],
+                        f"{name[9:-4]} bounce {b}", exact=True)
             simt = " ".join("-" if e is None else f"{e:.2f}" for e in simt_efficiency(torch, trips))
-            k = args[3].march_k
-            print(f"census {name[9:-4]} bounce {b}: {idx.numel()} live; SIMT eff {simt}; "
-                  f"{march_simt_text(march_simt(torch, trips, k))}; "
+            k = c["args"][3].march_k
+            print(f"census {name[9:-4]} bounce {b}: {c['idx'].numel()} live; SIMT eff {simt}; "
+                  f"{simt_text(march_simt(torch, trips, k), tracker_simt(torch, trips))}; "
                   f"cycle split {split_text(cycle_split(torch, cycles))}")
         del states
 
@@ -2838,7 +2955,11 @@ def path_bench(torch, dev):
     [cuda:0] x 4 (1 warm-up, 2 timed); the 480x270 preview frame (2 warm-up,
     10 timed) and input to preview through EarthViewer with uniform idle
     frames (5 samples); the ms of the package's run_bounce at each bounce
-    of one Apollo spp (one launch per bounce); and the package's
+    of one Apollo spp (one launch per bounce); the bounce entries'
+    registers and spills; the tracker and march launchers on that spp's
+    arguments at bounces 0 and DEEP_BOUNCE; per scene at those bounces the
+    lanes of the bounce entries not bit-equal to their twin, the census's
+    cycle split and the trackers' SIMT efficiency; and the package's
     compact_lanes on that spp's alive vectors at bounces 0, DEEP_BOUNCE and
     the deepest, timed both ways (``_compact_times``); ``gen_rays`` on the
     1080p path frame per call from the host and from a CUDA graph (where
@@ -2898,15 +3019,26 @@ def path_bench(torch, dev):
         out["input_to_preview_ms"] = [round(t * 1e3, 1) for t in _input_latencies(vs, 5)]
     finally:
         vs.close()
-    states, deepest, _ = capture_states(torch, dev, atlas, luts)
+    captured, states, deepest, _, _ = capture_inputs(torch, dev, atlas, luts)
     table = bounce_table(torch, states, states[0]["args"][3], census=False)
     out["per_bounce_ms"] = {b: round(row["ms"], 4) for b, row in table.items()}
     from digital_earth_tpu_torch import kernels
     from digital_earth_tpu_torch.render import pathtracer as pt
+    from digital_earth_tpu_torch.render import tracers
 
-    # bounce_flight and bounce_shade apart at bounces 0 and DEEP_BOUNCE, the
-    # census's cycle split, and the window from the bounce its threshold picks
-    out["flight_shade_ms"], out["cycle_split"] = {}, {}
+    out["bounce_registers"] = bounce_registers(kernels)
+    # the tracker and march launchers on the path's arguments (per kind the
+    # captured call with the most active lanes at bounces 0 and DEEP_BOUNCE)
+    launchers = {"land_march": tracers.intersect_land, "rmo_delta_track": tracers.delta_track_rmo,
+                 "cloud_track": tracers.track_cloud}
+    out["launcher_ms"] = {}
+    for (kind, b), (_, a, kw) in sorted(captured.items()):
+        fn = launchers[kind.split("/")[0]]
+        out["launcher_ms"][f"{kind}@{b}"] = round(_time_ms(torch, lambda: fn(*a, **kw), 5)[1], 4)
+    del captured
+    # bounce_flight and bounce_shade apart at bounces 0 and DEEP_BOUNCE, and
+    # the window from the bounce its threshold picks
+    out["flight_shade_ms"] = {}
     for b in (0, DEEP_BOUNCE):
         c = states[b]
         idx, st0, args = c["idx"], c["st"], c["args"]
@@ -2916,9 +3048,24 @@ def path_bench(torch, dev):
         out["flight_shade_ms"][b] = [
             round(_bounce_ms(torch, st0, lambda st: kernels.bounce_flight(*ka(st))), 4),
             round(_bounce_ms(torch, st0, lambda st: kernels.bounce_shade(*ka(st), flight=flight)), 4)]
-        _, _, cycles = _census(torch, st0, idx, b, args, frame)
-        sites, fl, sh, total = cycle_split(torch, cycles)
-        out["cycle_split"][b] = [round(x, 4) for x in sites] + [round(fl, 4), round(sh, 4), total]
+    # per scene at bounces 0 and DEEP_BOUNCE: the lanes of bounce_flight +
+    # bounce_shade not bit-equal to run_bounce_plain, the census's cycle
+    # split (the six sites, the flight's and the shade's shares, the warp
+    # cycles) and the trackers' SIMT efficiency
+    out["bounce_not_bit_equal"], out["cycle_split"], out["tracker_simt"] = {}, {}, {}
+    for scene in (SCENE, *(os.path.join(ROOT, "scenes", s) for s in OTHER_SCENES)):
+        name = os.path.basename(scene)[9:-4]
+        sts = states if scene == SCENE else capture_states(
+            torch, dev, atlas, luts, bounces=(0, DEEP_BOUNCE), scene=scene)[0]
+        for b in (0, DEEP_BOUNCE):
+            got, want, trips, cycles = _bounce_and_twin(torch, sts[b], b)
+            out["bounce_not_bit_equal"][f"{name}@{b}"] = lanes_not_bit_equal(torch, got, want)
+            sites, fl, sh, total = cycle_split(torch, cycles)
+            out["cycle_split"][f"{name}@{b}"] = [round(x, 4) for x in sites] + [
+                round(fl, 4), round(sh, 4), total]
+            out["tracker_simt"][f"{name}@{b}"] = [
+                None if e is None else round(e, 4) for e in tracker_simt(torch, trips)]
+        del sts
     cfg = states[0]["args"][3]
     counts = [states[b]["idx"].numel() for b in sorted(states)] + [0]
     _, wb = pt.bounce_schedule(states[0]["st"].alive.numel(), counts,
@@ -3105,9 +3252,9 @@ def main():
     census = check_census(torch, states)
     cfg = states[0]["args"][3]
     for name, part in (("bounce_flight", "flight"), ("bounce_shade", "shade")):
-        rows[name]["ops"] = bounce_ops(torch, census[0], cfg.march_k, part)
+        rows[name]["ops"] = bounce_ops(torch, census[0], cfg.march_k, cfg.tracking_k, part)
     table = bounce_table(torch, states, cfg)
-    census_split_scenes(torch, dev, atlas, luts)
+    check_scenes(torch, dev, atlas, luts)
     rows["bounce_window"], _, schedule, _ = check_window(torch, states, table)
     check_draine(torch, states)
     rows["compact_lanes"] = check_compact(torch, states, deepest)

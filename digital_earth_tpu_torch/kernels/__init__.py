@@ -5,9 +5,10 @@ CUDA C++: each ``.cu`` source is compiled with ``nvcc`` for Hopper
 objects are linked into one shared library with a plain C interface, at
 first CUDA use, into the git-ignored ``build/kernels/<source hash>/``
 directory, and loaded with ``ctypes``; ptxas's report of each source
-(registers, spills) is kept in ``ptxas_log``. Each launcher checks device, dtype,
-shape and contiguity, runs on ``torch.cuda.current_stream()`` of the calling
-thread's current device (parallel/mesh.py's worker threads each set theirs),
+(registers, spills) is kept in ``ptxas_log``. Each launcher checks device,
+dtype, shape and contiguity (and a 4-channel texture's 4-byte alignment),
+runs on ``torch.cuda.current_stream()`` of the calling thread's current
+device (parallel/mesh.py's worker threads each set theirs),
 raises if the launch fails (a non-zero ``cudaGetLastError()`` from a C
 entry), and adds one to its ``launches`` counter (under a lock: a mesh
 launches from several threads). Nothing here imports or builds anything
@@ -196,6 +197,15 @@ def _check(name, t, dtype, shape, device):
         raise ValueError(f"{name}: not contiguous")
 
 
+def _check_tex4(name, t, device):
+    """A uint8 (H, W, 4) texture: the kernels read a texel as one 32-bit
+    word (csrc/texture.cuh texel4), so its data must be 4-byte aligned."""
+    _check(name, t, torch.uint8, (*t.shape[:2], 4), device)
+    if t.data_ptr() % 4:
+        raise ValueError(f"{name}: data not 4-byte aligned (the kernels read a 4-channel texel "
+                         "as one 32-bit word)")
+
+
 def _launch(fn_name, *args):
     rc = getattr(library(), fn_name)(
         *args, ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
@@ -238,7 +248,7 @@ def land_march(topo, pos, direction, active, t_cap, scale: float, *,
     _check_march_k(k)
     n = pos.shape[0]
     h, w = topo.shape[:2]
-    _check("topo", topo, torch.uint8, (h, w, 4), dev)
+    _check_tex4("topo", topo, dev)
     _check("pos", pos, torch.float32, (n, 3), dev)
     _check("direction", direction, torch.float32, (n, 3), dev)
     _check("active", active, torch.bool, (n,), dev)
@@ -296,7 +306,7 @@ def cloud_track(keys, pos, direction, t_start, t_max, ext_w, active, clouds, *,
     _check("t_max", t_max, torch.float32, (n,), dev)
     _check("ext_w", ext_w, torch.float32, (n,), dev)
     _check("active", active, torch.bool, (n,), dev)
-    _check("clouds", clouds, torch.uint8, (h, w, 4), dev)
+    _check_tex4("clouds", clouds, dev)
     event = torch.empty((n,), dtype=torch.int32, device=dev)
     t = torch.empty((n,), dtype=torch.float32, device=dev)
     trans = torch.empty((n,), dtype=torch.float32, device=dev)
@@ -649,9 +659,9 @@ def _bounce_args(fparams, iparams, pos, direction, wavelength, lambda_pdf, throu
         _check("n_live", n_live, torch.int32, (1,), dev)
     if m > n:
         raise ValueError(f"bounce: {m} lane ids for {n} lanes")
-    _check("topo", topo, torch.uint8, (*topo.shape[:2], 4), dev)
+    _check_tex4("topo", topo, dev)
     _check("material", material, torch.uint8, (*material.shape[:2], 8), dev)
-    _check("clouds", clouds, torch.uint8, (*clouds.shape[:2], 4), dev)
+    _check_tex4("clouds", clouds, dev)
     if tuple(iparams[9:15]) != (*topo.shape[:2], *material.shape[:2], *clouds.shape[:2]):
         raise ValueError("bounce: texture sizes disagree with the int parameters")
     _check("o3_crossec", o3_crossec, torch.float32, (441,), dev)
@@ -837,7 +847,10 @@ def sphere_tap(tex, pos, bilinear: bool):
     h, w, c = tex.shape
     if c not in (4, 8):
         raise ValueError(f"sphere_tap: {c} channels, the kernel takes 4 or 8")
-    _check("tex", tex, torch.uint8, (h, w, c), dev)
+    if c == 4:
+        _check_tex4("tex", tex, dev)
+    else:
+        _check("tex", tex, torch.uint8, (h, w, c), dev)
     _check("pos", pos, torch.float32, (n, 3), dev)
     out = torch.empty((n, c), dtype=torch.float32, device=dev)
     _launch("de_sphere_tap", _ptr(tex), h, w, c, _ptr(pos), n, int(bilinear), _ptr(out))
@@ -917,7 +930,7 @@ def preview(fparams, iparams, key, pos, direction, wavelength, tile_index, lane_
     if tile_index is not None:
         _check("tile_index", tile_index, torch.int64, (n,), dev)
         _check("lane_index", lane_index, torch.int64, (n,), dev)
-    _check("topo", topo, torch.uint8, (*topo.shape[:2], 4), dev)
+    _check_tex4("topo", topo, dev)
     _check("material", material, torch.uint8, (*material.shape[:2], 8), dev)
     _check("stars", stars, torch.uint8, (*stars.shape[:2], 3), dev)
     if tuple(iparams[5:11]) != (*topo.shape[:2], *material.shape[:2], *stars.shape[:2]):

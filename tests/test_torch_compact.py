@@ -188,13 +188,25 @@ def test_bounce_census_arithmetic():
     call, it, probe = cs.BOUNCE_CALL_OPS, cs.BOUNCE_ITER_OPS, cs.BOUNCE_PROBE_OPS
     k = 4
 
-    def site(j, n):  # a call, n iterations, k probes each but the last's one
-        return 0 if n == 0 else call[j] + n * it[j] + (k * n - (k - 1)) * probe[j]
+    def site(j, n, tracking_k):
+        # a call and n iterations; a march iteration's k probes but the last
+        # iteration's one, a tracker iteration's first group of probes whole
+        if n == 0:
+            return 0
+        probes = min(tracking_k, cs.TRACK_G) * n if j in (1, 2, 5) else k * n - (k - 1)
+        return call[j] + n * it[j] + probes * probe[j]
 
-    want = (2 * cs.BOUNCE_FIXED_OPS + cs.BOUNCE_SURFACE_OPS + cs.BOUNCE_NEE_OPS
-            + sum(site(j, int(trips[i, j])) for i in range(2) for j in range(6)))
-    assert cs.bounce_ops(torch, trips, k) == want
+    for tracking_k in (4, 6):
+        want = (2 * cs.BOUNCE_FIXED_OPS + cs.BOUNCE_SURFACE_OPS + cs.BOUNCE_NEE_OPS
+                + sum(site(j, int(trips[i, j]), tracking_k) for i in range(2) for j in range(6)))
+        assert cs.bounce_ops(torch, trips, k, tracking_k) == want
+        assert cs.tracker_ops(torch, trips[:, 2], tracking_k, 2) == (
+            site(2, 2, tracking_k) + site(2, 2, tracking_k))
+    # chip_smoke.py's TRACK_G is the trackers' group (csrc/threefry.cuh)
+    with open(os.path.join(ROOT, "digital_earth_tpu_torch", "csrc", "threefry.cuh")) as f:
+        assert f"constexpr int TRACK_G = {cs.TRACK_G};" in f.read()
     # warps of 2: per site the lanes' trips over 2 x the warp's largest
     assert cs.simt_efficiency(torch, trips, warp=2) == [None, 4 / 6, 1.0, 0.5, 0.5, 0.5]
+    assert cs.tracker_simt(torch, trips, warp=2) == [4 / 6, 1.0, 0.5]
     # a ragged last warp counts its idle lanes
     assert cs.simt_efficiency(torch, trips[:1], warp=4)[2] == 2 / 8

@@ -133,11 +133,18 @@ def test_land_march_kernel_warp_cooperative(case, per_warp):
         assert (got[~active] == -1.0).all()
 
 
-def test_rmo_delta_track_kernel(case):
+# tracking_k: the trackers run an iteration's probes in groups of
+# csrc/threefry.cuh TRACK_G (2); 1 and 3 leave a group part empty, 3 to 8
+# take two to four groups
+TRACKING_KS = [1, 3, 4, 6, 8]
+
+
+@pytest.mark.parametrize("k", TRACKING_KS)
+def test_rmo_delta_track_kernel(case, k):
     t0, t1 = pt._rmo_span(case["pos"], case["dirs"],
                           torch.full((N,), -1.0, device=case["pos"].device))
     args = (case["keys"], case["pos"], case["dirs"], t0, t1, case["ext_h"],
-            case["active"], TraceConfig())
+            case["active"], TraceConfig(tracking_k=k))
     ge, gt, gid = tracers.delta_track_rmo(*args)
     we, wt, wid = tracers.delta_track_rmo_plain(*args)
     assert (ge == we).float().mean().item() >= 0.999
@@ -146,13 +153,14 @@ def test_rmo_delta_track_kernel(case):
     assert ((gt - wt).abs() / wt.abs().clamp(min=1.0))[same].median().item() < 1e-6
 
 
+@pytest.mark.parametrize("k", TRACKING_KS)
 @pytest.mark.parametrize("mode", ["delta", "ratio"])
-def test_cloud_track_kernel(case, mode):
+def test_cloud_track_kernel(case, mode, k):
     no_land = torch.full((N,), -1.0, device=case["pos"].device)
     cs, cm = pt.intersect_cloud_limits(case["pos"], case["dirs"], no_land)
     ext_w = torch.full((N,), C.CLOUDS_EXTINCT, device=case["pos"].device)
     args = (case["keys"], case["pos"], case["dirs"], cs, cm, ext_w,
-            case["atlas"].clouds, case["active"], TraceConfig(), mode)
+            case["atlas"].clouds, case["active"], TraceConfig(tracking_k=k), mode)
     got = tracers.track_cloud(*args)
     want = tracers.track_cloud_plain(*args)
     if mode == "delta":
@@ -895,14 +903,15 @@ def test_mesh_over_distinct_cards_matches_renderer(dev):
 # density_check within 1e-4 relative on at least 99.9% of lanes.
 
 
-def _golden_state(dev, bounce):
+def _golden_state(dev, bounce, tracking_k=4):
     """The 32x18 golden frame's wavefront of Apollo 11 just before
     ``bounce``, advanced there by the kernel path."""
     from digital_earth_tpu_torch.app.config_io import apply_config
     from digital_earth_tpu_torch.render import raygen
     from digital_earth_tpu_torch.render.renderer import Renderer
 
-    cfg = TraceConfig(max_bounces=4, land_march_steps=64, max_tracking_steps=256)
+    cfg = TraceConfig(max_bounces=4, land_march_steps=64, max_tracking_steps=256,
+                      tracking_k=tracking_k)
     r = Renderer(dev, image_res=(32, 18), cfg=cfg,
                  atlas=build_atlas(generate_earth_textures((64, 128), seed=3), dev))
     apply_config(r, load_config(os.path.join(ROOT, "scenes", "config - Apollo 11.txt")))
@@ -931,6 +940,27 @@ def test_bounce_kernel(dev, bounce):
     assert (kernels.bounce_flight.launches, kernels.bounce_shade.launches) == (
         before[0] + 1, before[1] + 1)
     assert _agreeing(st.take(idx.long()), want) >= 0.99
+
+
+@pytest.mark.parametrize("bounce", [0, 3])
+@pytest.mark.parametrize("tracking_k", [4, 6])
+def test_bounce_kernel_bit_equal(dev, bounce, tracking_k):
+    """bounce_flight + bounce_shade bit-equal to run_bounce_plain on every
+    live lane, at the default tracking_k and at 6, where the trackers' probes
+    run in two and three groups of csrc/threefry.cuh TRACK_G (2)."""
+    from digital_earth_tpu_torch.render import compact
+
+    st, args = _golden_state(dev, bounce, tracking_k)
+    idx, n_live = compact.compact_by_alive(st.alive, st.work_class)
+    idx = idx[: int(n_live)]
+    assert idx.numel() > 0
+    want = pt.run_bounce_plain(st.take(idx.long()), bounce, *args)
+    pt.run_bounce(st, idx, bounce, *args)
+    got = st.take(idx.long())
+    for name in ("pos", "direction", "throughput", "radiance", "w_mis"):
+        assert _bits_equal(getattr(got, name), getattr(want, name)), name
+    for name in ("alive", "primary_miss", "work_class"):
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
 
 
 def _agreeing(got, want):

@@ -118,6 +118,66 @@ def test_land_march_kernel_refuses_march_k_off_the_warp(k):
                            any_hit=False)
 
 
+def _misaligned_texture(h, w):
+    """A contiguous uint8 (h, w, 4) texture whose data starts one byte into
+    its buffer: not 4-byte aligned."""
+    tex = torch.zeros(h * w * 4 + 1, dtype=torch.uint8)[1:].view(h, w, 4)
+    assert tex.is_contiguous() and tex.data_ptr() % 4
+    return tex
+
+
+def _texture_call(wrapper, tex):
+    """A call of ``wrapper`` (kernels' function, "/texture" naming the one
+    it gets where it takes two) on CPU tensors of 4 lanes, ``tex`` in place
+    of its 4-channel texture."""
+    from digital_earth_tpu_torch import kernels
+
+    n, (h, w) = 4, tex.shape[:2]
+    z3, z = torch.zeros((n, 3)), torch.zeros(n)
+    act = torch.ones(n, dtype=torch.bool)
+    good = torch.zeros((h, w, 4), dtype=torch.uint8)
+    material = torch.zeros((h, w, 8), dtype=torch.uint8)
+    o3, srgb2spec = torch.zeros(441), torch.zeros((300, 3))
+    name, _, which = wrapper.partition("/")
+    if name == "cloud_track":
+        return lambda: kernels.cloud_track(torch.zeros((n, 2), dtype=torch.int64), z3, z3, z, z,
+                                           z, act, tex, max_steps=8, k=4, ratio=False)
+    if name == "land_march":
+        return lambda: kernels.land_march(tex, z3, z3, act, z, 7800.0, step_floor=1.0,
+                                          stall_thresh=1.0, steps=8, k=4, patience=5,
+                                          any_hit=False)
+    if name == "sphere_tap":
+        return lambda: kernels.sphere_tap(tex, z3, False)
+    if name == "preview":
+        ip = [0, 4, 0, 0, n, h, w, h, w, h, w]
+        return lambda: kernels.preview([0.0] * 22, ip, (0, 0), None, z3, z, None, None, tex,
+                                       material, torch.zeros((h, w, 3), dtype=torch.uint8), o3,
+                                       srgb2spec, origin=(0.0, 0.0, 0.0))
+    z4 = torch.zeros((n, 4))
+    ip = [4, 0, 0, 8, 4, 2, 8, 4, 0, h, w, h, w, h, w]
+    args = ([0.0] * 13, ip, z3, z3, z4, z4, z4, z4, z4, act, act.clone(),
+            torch.zeros(n, dtype=torch.int32), torch.zeros((n, 2), dtype=torch.int32),
+            torch.arange(n, dtype=torch.int32), tex if which == "topo" else good, material,
+            tex if which == "clouds" else good, o3, srgb2spec, torch.zeros((384, 1024, 3)))
+    return {"bounce_flight": lambda: kernels.bounce_flight(*args),
+            "bounce_shade": lambda: kernels.bounce_shade(*args, flight=torch.zeros((n, 4))),
+            "bounce_window": lambda: kernels.bounce_window(*args, stop=3)}[name]
+
+
+@pytest.mark.parametrize("wrapper", [
+    "cloud_track", "land_march", "sphere_tap", "preview", "bounce_flight/topo",
+    "bounce_flight/clouds", "bounce_shade/topo", "bounce_shade/clouds", "bounce_window/topo",
+    "bounce_window/clouds",
+])
+def test_kernel_wrappers_refuse_a_misaligned_4_channel_texture(wrapper):
+    """The kernels read a nearest 4-channel texel as one 32-bit word
+    (csrc/texture.cuh texel4): every wrapper that passes a 4-channel
+    texture to a kernel rejects a contiguous one whose data is not 4-byte
+    aligned, before any launch."""
+    with pytest.raises(ValueError, match="4-byte aligned"):
+        _texture_call(wrapper, _misaligned_texture(8, 16))()
+
+
 def _rmo_spans(case):
     t0, t1 = jpt._rmo_span(jnp.asarray(case["pos"]), jnp.asarray(case["dirs"]),
                            jnp.full((N,), -1.0))

@@ -308,24 +308,27 @@ BOUNCE_NEE_OPS = 285
 # majorant (3) (its key, 77, only in a tracking iteration, which the trip
 # count does not tell apart: not counted); a probe at the skip mode's cost
 # (45: the point and its tap; a tracking probe, 225 with its two draws, is
-# not assumed). A march iteration's K probes all count but the last
-# iteration's, which counts one (a probe can stop it); a tracker iteration
-# computes its first group's min(K, TRACK_G) probes whole, the stop's group
-# included (csrc/threefry.cuh TRACK_G), and only those count. The counts are
-# floors.
+# not assumed). A march or RMO iteration's K probes all count but the last
+# iteration's, which counts one (its first stopping probe ends the loop); a
+# cloud iteration counts one (a stop ends its sweep, not the loop). The
+# counts are floors.
 BOUNCE_CALL_OPS = (59, 2, 19, 59, 59, 2)
 BOUNCE_ITER_OPS = (4, 5, 120, 4, 4, 5)
 BOUNCE_PROBE_OPS = (110, 45, 230, 110, 110, 45)
 TRACKER_SITES = (1, 2, 5)  # cloud, RMO, NEE cloud
-TRACK_G = 2  # csrc/threefry.cuh TRACK_G
 
 
-def site_probes(torch, t, march_k, tracking_k):
-    """Probes a floor counts per site from the (m, 6) float64 trips ``t``."""
-    probes = torch.clamp(march_k * t - (march_k - 1), min=0.0)
-    tracker = torch.zeros(t.shape[1], dtype=torch.bool, device=t.device)
-    tracker[list(TRACKER_SITES)] = True
-    return torch.where(tracker, min(tracking_k, TRACK_G) * t, probes)
+def site_probes(torch, t, k):
+    """Probes a floor counts for the float64 trips ``t`` of sites whose
+    iterations run ``k`` probes (a tensor broadcast against ``t``): k an
+    iteration but the last's one."""
+    return torch.clamp(k * t - (k - 1), min=0.0)
+
+
+def site_k(march_k, tracking_k):
+    """Per site, the probes a floor counts in an iteration that does not
+    end the loop: the march's K, the RMO tracker's K, the cloud passes' 1."""
+    return (march_k, 1, tracking_k, march_k, march_k, 1)
 
 
 def bounce_ops(torch, trips, march_k, tracking_k, part="bounce"):
@@ -340,7 +343,8 @@ def bounce_ops(torch, trips, march_k, tracking_k, part="bounce"):
     call = torch.tensor(BOUNCE_CALL_OPS, dtype=torch.float64, device=t.device)
     it = torch.tensor(BOUNCE_ITER_OPS, dtype=torch.float64, device=t.device)
     probe = torch.tensor(BOUNCE_PROBE_OPS, dtype=torch.float64, device=t.device)
-    per_site = ((t > 0) * call + t * it + site_probes(torch, t, march_k, tracking_k) * probe).sum(0)
+    k = torch.tensor(site_k(march_k, tracking_k), dtype=torch.float64, device=t.device)
+    per_site = ((t > 0) * call + t * it + site_probes(torch, t, k) * probe).sum(0)
     extras = (BOUNCE_SURFACE_OPS * (t[:, 4] > 0).sum() + BOUNCE_NEE_OPS * (t[:, 5] > 0).sum())
     flight = BOUNCE_FLIGHT_OPS * t.shape[0] + per_site[:4].sum()
     shade = (BOUNCE_FIXED_OPS - BOUNCE_FLIGHT_OPS) * t.shape[0] + extras + per_site[4:].sum()
@@ -354,8 +358,9 @@ def tracker_ops(torch, trips, k, site):
     iteration: each call's, iteration's and probe's operations as
     ``bounce_ops`` counts them (a floor)."""
     t = trips.to(torch.float64)
+    probes = site_probes(torch, t, site_k(k, k)[site])
     return float(((t > 0) * BOUNCE_CALL_OPS[site] + t * BOUNCE_ITER_OPS[site]
-                  + min(k, TRACK_G) * t * BOUNCE_PROBE_OPS[site]).sum())
+                  + probes * BOUNCE_PROBE_OPS[site]).sum())
 
 
 def simt_efficiency(torch, trips, warp=32):
@@ -751,10 +756,17 @@ def compare_kernels(torch, captured):
             "rmo_delta_track": (tracers.delta_track_rmo, tracers.delta_track_rmo_plain),
             "cloud_track": (tracers.track_cloud, tracers.track_cloud_plain),
         }[base]
+        # the trackers' iterations at bounce 0 for their operations bound:
+        # counted by the compared twin run itself (one indexed add per
+        # iteration of its loop, within its plain ms)
+        n = args[1].shape[0]
+        trips = (torch.zeros(n, dtype=torch.int32, device=args[1].device)
+                 if b == 0 and base != "land_march" else None)
+        count = {} if trips is None else {"trips": trips}
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        p_out = plain_fn(*args, **kwargs)
+        p_out = plain_fn(*args, **kwargs, **count)
         end.record()
         torch.cuda.synchronize()
         plain_ms = start.elapsed_time(end)
@@ -808,7 +820,6 @@ def compare_kernels(torch, captured):
             # each input read once, each output written once; the trackers'
             # operations from their iterations on these inputs (the twin's
             # count); the march's depend on trip counts this run does not see
-            n = args[1].shape[0]
             if base == "land_march":  # topo; pos, dir, active, t_cap; t
                 row["bytes"] += args[0].numel() + 33 * n
                 continue
@@ -818,8 +829,6 @@ def compare_kernels(torch, captured):
             else:  # clouds; keys, pos, dir, span, ext_w, active; (event, t) or trans
                 row["bytes"] += args[6].numel() + 45 * n + (4 if "ratio" in kind else 8) * n
                 cfg, site = args[8], 1
-            trips = torch.zeros(n, dtype=torch.int32, device=args[1].device)
-            plain_fn(*args, **kwargs, trips=trips)
             ops = tracker_ops(torch, trips, cfg.tracking_k, site)
             row["ops"] = (row["ops"] or 0.0) + ops
             print(f"{kind:20s} bounce {b}: {int(trips.sum())} iterations ({int((trips > 0).sum())} "
@@ -967,27 +976,29 @@ def check_bounce(torch, states):
     return rows
 
 
-# the timed instances of the bounce entries as ptxas names them
-BOUNCE_ENTRY_SYMBOLS = {"bounce_flight": "bounce_flight_kernelILi4ELb0E",
-                        "bounce_shade": "bounce_shade_kernelILi4ELb0E",
-                        "bounce_window": "bounce_window_kernelILi4E"}
-
-
 def bounce_registers(kernels):
-    """Per bounce entry (the timed instances): registers and local bytes
-    per thread and resident warps per SM (``kernels.bounce_occupancy``),
-    and the spill stores and loads in bytes from ptxas's report (None where
-    this process did not build the kernels)."""
+    """Per bounce entry (``kernels.OCCUPANCY_ENTRIES``, the timed instances):
+    registers and local bytes per thread and resident warps per SM
+    (``kernels.bounce_occupancy``), and the spill stores and loads in bytes
+    from ptxas's report of ``<entry>_kernel<L>`` or ``<entry>_kernel<L,
+    false>`` (not the census instance, ``<L, true>``). None where this
+    process did not build the kernels (no report); fails where it did and an
+    entry's spill line is missing."""
     import re
 
+    log = kernels.ptxas_log.get("bounce.cu", "")
     spills, entry = {}, None
-    for line in kernels.ptxas_log.get("bounce.cu", "").splitlines():
+    for line in log.splitlines():
         if "Function properties for" in line:
-            entry = next((n for n, sym in BOUNCE_ENTRY_SYMBOLS.items() if sym in line), None)
+            entry = next((n for n in kernels.OCCUPANCY_ENTRIES
+                          if re.search(rf"{n}_kernelILi\d+E(?:Lb0E)?E", line)), None)
         elif entry and "spill stores" in line:
             got = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
             spills[entry] = (int(got[1]), int(got[2]))
             entry = None
+    if log and set(spills) != set(kernels.OCCUPANCY_ENTRIES):
+        fail(f"ptxas's report of bounce.cu has no spill line for "
+             f"{sorted(set(kernels.OCCUPANCY_ENTRIES) - set(spills))}")
     out = {}
     for name in kernels.OCCUPANCY_ENTRIES:
         occ = kernels.bounce_occupancy(name)
@@ -1169,10 +1180,9 @@ def bounce_table(torch, states, cfg, census=True):
 
 def tracker_simt(torch, trips, warp=32):
     """SIMT efficiency of the trackers at TRACKER_SITES (cloud, RMO, NEE
-    cloud): a thread runs its lane's iterations, each with its group's
-    probes in flight (csrc/cloud_track.cuh, rmo_track.cuh), so a warp's
-    slots are 32 a trip of its longest lane, as ``simt_efficiency``
-    counts them."""
+    cloud): a thread runs its lane's iterations (csrc/cloud_track.cuh,
+    rmo_track.cuh), so a warp's slots are 32 a trip of its longest lane, as
+    ``simt_efficiency`` counts them."""
     simt = simt_efficiency(torch, trips, warp)
     return [simt[site] for site in TRACKER_SITES]
 

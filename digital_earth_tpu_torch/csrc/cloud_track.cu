@@ -7,13 +7,10 @@
 // which the bounce kernel calls too. This kernel launches it on its own for
 // the comparison with the plain twin.
 //
-// What bounds it on the H100: latency and divergence. Each probe is an
-// atan2/asin pair and one 32-bit texture read; a warp runs until its
-// slowest lane leaves the slab (up to 8192 iterations for grazing sun
+// What bounds it on the H100: latency and divergence. Each probe is one
+// dependent 32-bit texture read plus an atan2/asin pair; a warp runs until
+// its slowest lane leaves the slab (up to 8192 iterations for grazing sun
 // chords), so the cost is per-warp worst-lane trip count, not bandwidth.
-// Each thread issues an iteration's probes in groups of TRACK_G, their
-// reads in flight together, before it resolves the first stop: the
-// latencies of a group overlap in one thread, in dense warps and sparse.
 #include <cstdint>
 
 #include <cuda_runtime.h>

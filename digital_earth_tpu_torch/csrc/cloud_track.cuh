@@ -15,19 +15,9 @@
 //     (pathtracer.py:590 _cloud_shape_density);
 //   - then the analytic radial-band skip (pathtracer.py:603
 //     _cloud_band_radii) from the stopping tap.
-// No probe depends on an earlier probe's tap (skip positions are t + j
-// stride, tracking positions prefix sums of draws), so the probes run in
-// groups of TRACK_G (threefry.cuh) as the TPU loop runs all K at once: a
-// group's draws (uniform_n), prefix sums and taps (one 32-bit read each)
-// are all issued before its first stop is resolved in order of j, and the
-// latencies of its taps overlap in one thread. Both modes place their
-// probes first and share one tap sequence, so a warp with lanes in both
-// modes issues its taps once. Probes after the stop are computed and
-// discarded (they do not change the result); the next group starts only if
-// none stopped. Delta mode draws u1 for each probe it tests and u2 at the
-// stop; ratio mode takes the transmittance product in order of j up to the
-// budget crossing. Only a tracking iteration folds the iteration key: a
-// skipping one draws nothing.
+// Probes after the first stopping one do not change the result; the sweep
+// stops there (ratio mode: at the first budget crossing). Only a tracking
+// iteration folds the iteration key: a skipping one draws nothing.
 #pragma once
 #include <cstdint>
 
@@ -57,7 +47,7 @@ __device__ __forceinline__ void cloud_track_lane(Key key, V3 o, V3 d, float t_st
   float t = t_start;
   const bool valid = active && (tm >= 0.0f) && (t < tm);
   const float tms = fmaxf(tm, 0.0f);
-  // mip channels of a tap: 1 tight (8 km), 2 coarse (115 km), 3 wide (25 km)
+  // mip channels of a tap: s[1] tight (8 km), s[2] coarse (115 km), s[3] wide (25 km)
   const float band_valid[3] = {8e3f, 25e3f, 115e3f};  // tight, wide, coarse
 
   bool done = !valid;
@@ -66,80 +56,62 @@ __device__ __forceinline__ void cloud_track_lane(Key key, V3 o, V3 d, float t_st
   for (int i = 0; i < max_steps && !done; ++i) {
     ++it;
     const bool skipping = sig <= 0.0f;
-    const float budget_end = fminf(t_fetch + 8e3f, tm);
-    // a probe at ts crosses at cross_at (skipping: t_max; tracking: the
-    // majorant's budget) and taps at min(ts, clamp_at)
-    const float cross_at = skipping ? tm : budget_end;
-    const float clamp_at = skipping ? tms : fminf(budget_end, tms);
-    // skipping: the channel that certifies emptiness at the stride's level
-    const int level = stride > 30000.0f ? 2 : (stride > 9000.0f ? 3 : 1);
-    const float sigc = fmaxf(sig, 1e-20f);
     const Key ki = skipping ? Key{0u, 0u} : fold(key, (uint32_t)i);
-    float t_new = t, cs = 0.0f;
-    uint32_t w_stop = 0u;  // the texel of the stopping probe, else of the last
+    const float budget_end = fminf(t_fetch + 8e3f, tm);
+    float t_new = t, mf = 0.0f, mc = 0.0f, mw = 0.0f;
     bool stopped = false, wood_real = false;
     float u2_stop = 0.0f, block = 1.0f;
-    for (int j0 = 0; j0 < k && !stopped; j0 += TRACK_G) {
-      float ts[TRACK_G];
-      uint32_t w[TRACK_G];
-      if (!skipping) {
-        uint32_t idx[TRACK_G];
-#pragma unroll
-        for (int g = 0; g < TRACK_G; ++g) idx[g] = (uint32_t)(j0 + g);
-        uniform_n<TRACK_G>(ki, idx, ts);
-      }
-#pragma unroll
-      for (int g = 0; g < TRACK_G; ++g) {  // the positions; tracking: prefix sums in order
-        const int j = j0 + g;
-        if (skipping) {
-          ts[g] = t + (float)j * stride;
-        } else if (j < k) {
-          const float step = -logf(fmaxf(ts[g], 1e-12f)) / sigc;
-          cs = j == 0 ? step : cs + step;
-          ts[g] = t + cs;
-        }
-      }
-#pragma unroll
-      for (int g = 0; g < TRACK_G; ++g) {
-        const int j = j0 + g;
-        w[g] = j < k ? sphere_texel4(clouds, H, W, along(o, fminf(ts[g], clamp_at), d)) : 0u;
-      }
-#pragma unroll
-      for (int g = 0; g < TRACK_G; ++g) {
-        const int j = j0 + g;
-        if (j >= k) break;
-        const float tsc = fminf(ts[g], clamp_at);
-        const bool crossed = ts[g] >= cross_at;
-        w_stop = w[g];
-        if (skipping) {
-          if (((w[g] >> (8 * level)) & 0xFFu) != 0u || crossed) {
-            t_new = tsc;
-            stopped = true;
-            break;
-          }
-          continue;
-        }
-        t_new = tsc;
-        if (crossed) {  // the budget crossing ends the sweep in both modes
+
+    if (skipping) {
+      const bool lvl_coarse = stride > 30000.0f;
+      const bool lvl_wide = !lvl_coarse && (stride > 9000.0f);
+      for (int j = 0; j < k; ++j) {
+        const float ts = t + (float)j * stride;
+        const bool crossed = ts >= tm;
+        const float tsc = fminf(ts, tms);
+        float s[4];
+        sphere_tap_nearest<4>(clouds, H, W, along(o, tsc, d), s);
+        mf = s[1];
+        mc = s[2];
+        mw = s[3];
+        const bool occ = lvl_coarse ? (mc > 0.0f) : (lvl_wide ? (mw > 0.0f) : (mf > 0.0f));
+        if (occ || crossed) {
+          t_new = tsc;
           stopped = true;
           break;
         }
-        const float ratio_j =
-            ew * shape_density(texel_channel(w[g], 0), length(along(o, tsc, d))) / sigc;
+      }
+      if (!stopped) t_new = t + (float)k * stride;
+    } else {
+      const float sigc = fmaxf(sig, 1e-20f);
+      const float clamp_end = fminf(budget_end, tms);
+      float cs = 0.0f;
+      for (int j = 0; j < k; ++j) {
+        const float u0 = uniform(ki, (uint32_t)j);
+        const float step = -logf(fmaxf(u0, 1e-12f)) / sigc;
+        cs = j == 0 ? step : cs + step;
+        const float ts = t + cs;
+        const bool crossed = ts >= budget_end;
+        const float tsc = fminf(ts, clamp_end);
+        const V3 p = along(o, tsc, d);
+        float s[4];
+        sphere_tap_nearest<4>(clouds, H, W, p, s);
+        t_new = tsc;
+        mf = s[1];
+        mc = s[2];
+        mw = s[3];
+        if (crossed) break;  // the budget crossing ends the sweep in both modes
+        const float ratio_j = ew * shape_density(s[0], length(p)) / sigc;
         if (ratio) {
           block = block * (1.0f - ratio_j);
         } else if (uniform(ki, (uint32_t)(k + j)) < ratio_j) {
           wood_real = true;
           u2_stop = uniform(ki, (uint32_t)(2 * k + j));
-          stopped = true;
           break;
         }
       }
     }
-    if (skipping && !stopped) t_new = t + (float)k * stride;
 
-    const float mf = texel_channel(w_stop, 1), mc = texel_channel(w_stop, 2),
-                mw = texel_channel(w_stop, 3);
     float sig_new = mf > 0.0f ? ew * CLOUDS_DENSITY_F * fmaxf(mf, 0.4f) : 0.0f;
     const float stride_new = mc <= 0.0f ? 100e3f : (mw <= 0.0f ? 20e3f : 6e3f);
     float t_fetch_new = t_new;
@@ -165,8 +137,7 @@ __device__ __forceinline__ void cloud_track_lane(Key key, V3 o, V3 d, float t_st
       done = done || (trans < 1e-5f);
     }
 
-    // analytic radial-band skip from the stop tap (every tracking iteration
-    // ends at a tap)
+    // analytic radial-band skip from the stop tap
     const bool at_tap = !skipping || stopped;
     float jump = 0.0f;
     if (!done && at_tap) {

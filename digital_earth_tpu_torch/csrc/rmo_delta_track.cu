@@ -9,10 +9,7 @@
 // What bounds it on the H100: latency and divergence. No memory is read in
 // the loop (the densities are analytic); each iteration is ~13 threefry
 // blocks plus K exp/log evaluations, and a warp runs until its slowest lane
-// stops, so the cost is the worst lane's iteration count per warp. Each
-// thread issues a group of TRACK_G probes' draws (2 TRACK_G independent
-// threefry chains) and densities before it resolves the first stop, so
-// their dependent chains overlap in one thread.
+// stops, so the cost is the worst lane's iteration count per warp.
 #include <cstdint>
 
 #include <cuda_runtime.h>

@@ -11,15 +11,6 @@
 // resolves the first probe that is real or past t_max: species by the hero
 // extinction CMF, scatter vs absorb by albedo roulette. Cap max_steps
 // iterations.
-//
-// The probes are independent of one another but for the prefix sum, so
-// they run in groups of TRACK_G (threefry.cuh) as the TPU loop runs all K
-// at once: a group's 2 TRACK_G draws (u0 and u1, independent threefry
-// chains interleaved by uniform_n), its prefix sums in order and its
-// densities are all issued before its first stop is resolved in order of
-// j; u2 is drawn at the stop alone, where the stop's densities are
-// evaluated again (the same bits) for the species. Probes after the stop
-// are computed and discarded; the next group starts only if none stopped.
 #pragma once
 #include <cstdint>
 
@@ -55,59 +46,29 @@ __device__ __forceinline__ void rmo_track_lane(Key key, V3 o, V3 d, float t_star
     density_envelope(r_min - PLANET_R_F, o3_env_peak, env);
     const float inv_max = 1.0f / fmaxf(dot3(e0, e1, e2, env[0], env[1], env[2]), 1e-20f);
     float cs = 0.0f, ts = t;
-    for (int j0 = 0; j0 < k && !done; j0 += TRACK_G) {
-      float u[2 * TRACK_G], tj[TRACK_G], total[TRACK_G];
-      uint32_t idx[2 * TRACK_G];
-#pragma unroll
-      for (int g = 0; g < TRACK_G; ++g) {
-        idx[g] = (uint32_t)(j0 + g);
-        idx[TRACK_G + g] = (uint32_t)(k + j0 + g);
-      }
-      uniform_n<2 * TRACK_G>(ki, idx, u);
-      const float* u0 = u;
-      const float* u1 = u + TRACK_G;
-#pragma unroll
-      for (int g = 0; g < TRACK_G; ++g) {  // the prefix sums, in order
-        const int j = j0 + g;
-        if (j < k) {
-          const float step = -logf(fmaxf(u0[g], 1e-12f)) * inv_max;
-          cs = j == 0 ? step : cs + step;
+    for (int j = 0; j < k; ++j) {
+      const float u0 = uniform(ki, (uint32_t)j);
+      const float step = -logf(fmaxf(u0, 1e-12f)) * inv_max;
+      cs = j == 0 ? step : cs + step;
+      ts = t + cs;
+      const V3 p = along(o, fminf(ts, tms), d);
+      float dens[3];
+      get_density(sqrtf(dot(p, p)) - PLANET_R_F, dens);
+      const float total = dot3(dens[0], dens[1], dens[2], e0, e1, e2);
+      const bool over = ts >= tm;
+      const float u1 = uniform(ki, (uint32_t)(k + j));
+      if (over || u1 < total * inv_max) {
+        if (!over) {
+          const float r = u1 / inv_max;
+          const float c0 = dens[0] * e0;
+          const float c01 = c0 + dens[1] * e1;
+          const int id = r < c0 ? 0 : (r < c01 ? 1 : 2);
+          const float u2 = uniform(ki, (uint32_t)(2 * k + j));
+          event = u2 < albedo[id] ? 2 : 1;
+          iid = id;
         }
-        tj[g] = t + cs;
-      }
-#pragma unroll
-      for (int g = 0; g < TRACK_G; ++g) {
-        const int j = j0 + g;
-        total[g] = 0.0f;
-        if (j < k) {
-          const V3 p = along(o, fminf(tj[g], tms), d);
-          float dens[3];
-          get_density(sqrtf(dot(p, p)) - PLANET_R_F, dens);
-          total[g] = dot3(dens[0], dens[1], dens[2], e0, e1, e2);
-        }
-      }
-#pragma unroll
-      for (int g = 0; g < TRACK_G; ++g) {
-        const int j = j0 + g;
-        if (j >= k) break;
-        ts = tj[g];
-        const bool over = ts >= tm;
-        if (over || u1[g] < total[g] * inv_max) {
-          if (!over) {
-            const V3 p = along(o, fminf(ts, tms), d);
-            float dens[3];
-            get_density(sqrtf(dot(p, p)) - PLANET_R_F, dens);
-            const float r = u1[g] / inv_max;
-            const float c0 = dens[0] * e0;
-            const float c01 = c0 + dens[1] * e1;
-            const int id = r < c0 ? 0 : (r < c01 ? 1 : 2);
-            const float u2 = uniform(ki, (uint32_t)(2 * k + j));
-            event = u2 < albedo[id] ? 2 : 1;
-            iid = id;
-          }
-          done = true;
-          break;
-        }
+        done = true;
+        break;
       }
     }
     t = ts;

@@ -16,16 +16,6 @@ constexpr float PI_F = 3.14159265358979323846f;
 // CUDA ops apply as a multiply by its float32 reciprocal.
 constexpr float INV_PI_F = 1.0f / PI_F;
 
-// The index of the nearest texel to (u, v).
-__device__ __forceinline__ size_t nearest_texel(int H, int W, float u, float v) {
-  const float x = u * (float)W - 0.5f;
-  const float y = fminf(fmaxf((1.0f - v) * (float)H - 0.5f, 0.0f), (float)H - 1.0f);
-  int ix = (int)rintf(x) % W;
-  if (ix < 0) ix += W;
-  const int iy = min(max((int)rintf(y), 0), H - 1);
-  return (size_t)iy * W + ix;
-}
-
 // Texel i of a 4-channel texture in one 32-bit read, channel c in bits
 // 8c to 8c + 7. The base must be 4-byte aligned: every wrapper that passes
 // a 4-channel texture refuses one that is not.
@@ -33,22 +23,22 @@ __device__ __forceinline__ uint32_t texel4(const uint8_t* __restrict__ tex, size
   return __ldg(reinterpret_cast<const uint32_t*>(tex) + i);
 }
 
-// Channel c of a texel word, value/255.
-__device__ __forceinline__ float texel_channel(uint32_t w, int c) {
-  return (float)((w >> (8 * c)) & 0xFFu) * (1.0f / 255.0f);
-}
-
 // sample_equirect at (u, v): bilinear (the float32 lerp in the plain
 // version's order) or nearest.
 template <int C>
 __device__ __forceinline__ void equirect_tap(const uint8_t* __restrict__ tex, int H, int W,
                                              float u, float v, bool bilinear, float out[C]) {
+  const float x = u * (float)W - 0.5f;
+  const float y = fminf(fmaxf((1.0f - v) * (float)H - 0.5f, 0.0f), (float)H - 1.0f);
   if (!bilinear) {
-    const size_t i = nearest_texel(H, W, u, v);
+    int ix = (int)rintf(x) % W;
+    if (ix < 0) ix += W;
+    const int iy = min(max((int)rintf(y), 0), H - 1);
+    const size_t i = (size_t)iy * W + ix;
     if constexpr (C == 4) {
       const uint32_t w = texel4(tex, i);
 #pragma unroll
-      for (int c = 0; c < C; ++c) out[c] = texel_channel(w, c);
+      for (int c = 0; c < C; ++c) out[c] = (float)((w >> (8 * c)) & 0xFFu) * (1.0f / 255.0f);
     } else {
       const uint8_t* t = tex + i * C;
 #pragma unroll
@@ -56,8 +46,6 @@ __device__ __forceinline__ void equirect_tap(const uint8_t* __restrict__ tex, in
     }
     return;
   }
-  const float x = u * (float)W - 0.5f;
-  const float y = fminf(fmaxf((1.0f - v) * (float)H - 0.5f, 0.0f), (float)H - 1.0f);
   const float x0f = floorf(x), y0f = floorf(y);
   const float tx = x - x0f, ty = y - y0f;
   int x0 = (int)x0f % W;
@@ -77,31 +65,16 @@ __device__ __forceinline__ void equirect_tap(const uint8_t* __restrict__ tex, in
   }
 }
 
-// The (u, v) of the direction of p as the trackers and the land march take
-// it (the angles divided by pi).
-__device__ __forceinline__ void sphere_uv_nearest(V3 p, float& u, float& v) {
-  const float l = fmaxf(length(p), 1e-20f);
-  const float nx = p.x / l, ny = p.y / l, nz = p.z / l;
-  u = (atan2f(nz, -nx) / PI_F + 1.0f) / 2.0f;
-  v = asinf(fminf(fmaxf(ny, -1.0f), 1.0f)) / PI_F + 0.5f;
-}
-
-// Nearest tap at the direction of p, as the land march takes it.
+// Nearest tap at the direction of p, as the trackers take it (the angles
+// divided by pi).
 template <int C>
 __device__ __forceinline__ void sphere_tap_nearest(
     const uint8_t* __restrict__ tex, int H, int W, V3 p, float out[C]) {
-  float u, v;
-  sphere_uv_nearest(p, u, v);
+  const float l = fmaxf(length(p), 1e-20f);
+  const float nx = p.x / l, ny = p.y / l, nz = p.z / l;
+  const float u = (atan2f(nz, -nx) / PI_F + 1.0f) / 2.0f;
+  const float v = asinf(fminf(fmaxf(ny, -1.0f), 1.0f)) / PI_F + 0.5f;
   equirect_tap<C>(tex, H, W, u, v, false, out);
-}
-
-// The same tap of a 4-channel texture as its texel word, as the trackers
-// take it (texel_channel unpacks it).
-__device__ __forceinline__ uint32_t sphere_texel4(const uint8_t* __restrict__ tex, int H, int W,
-                                                  V3 p) {
-  float u, v;
-  sphere_uv_nearest(p, u, v);
-  return texel4(tex, nearest_texel(H, W, u, v));
 }
 
 // ops/texture.sample_sphere_texture at p as the port's twin computes it on

@@ -15,15 +15,6 @@ struct Key {
   uint32_t k0, k1;
 };
 
-// Probes in flight in the trackers (cloud_track.cuh, rmo_track.cuh): an
-// iteration's K probes run in groups of TRACK_G, each group's draws (and
-// taps) issued before its first stop is resolved. The probes of a group
-// after its stop are computed and discarded, so a wider group costs more
-// than its overlap saves on an H100: at 1080p the bounce's device time per
-// spp grew with the width, G = 2 the least of the grouped widths measured
-// (PERF.md, Findings).
-constexpr int TRACK_G = 2;
-
 __device__ __forceinline__ uint32_t rotl32(uint32_t x, int r) {
   return (x << r) | (x >> (32 - r));
 }
@@ -55,47 +46,6 @@ __device__ __forceinline__ Key fold(Key k, uint32_t d) {
   uint32_t x0 = 0u, x1 = d;
   threefry2x32(k.k0, k.k1, x0, x1);
   return Key{x0, x1};
-}
-
-// uniform(k, idx[n]) for n < N at once, the same bits: the N threefry
-// chains interleaved round by round, the 20 rounds run as 5 blocks of 4 in
-// a loop (one block's code for all five, the key schedule rotated a word
-// a block), so the chains' latencies overlap without N copies of the
-// unrolled rounds.
-template <int N>
-__device__ __forceinline__ void uniform_n(Key k, const uint32_t idx[N], float out[N]) {
-  uint32_t x0[N], x1[N];
-  uint32_t ka = k.k0, kb = k.k1, kc = k.k0 ^ k.k1 ^ 0x1BD11BDAu;
-#pragma unroll
-  for (int n = 0; n < N; ++n) {
-    x0[n] = ka;
-    x1[n] = idx[n] + kb;
-  }
-#pragma unroll 1
-  for (int b = 0; b < 5; ++b) {
-    const bool odd = (b & 1) != 0;
-    const int rot[4] = {odd ? 17 : 13, odd ? 29 : 15, odd ? 16 : 26, odd ? 24 : 6};
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-#pragma unroll
-      for (int n = 0; n < N; ++n) {
-        x0[n] += x1[n];
-        x1[n] = __funnelshift_l(x1[n], x1[n], rot[r]);
-        x1[n] ^= x0[n];
-      }
-    }
-#pragma unroll
-    for (int n = 0; n < N; ++n) {  // the key schedule's injection after block b
-      x0[n] += kb;
-      x1[n] += kc + (uint32_t)(b + 1);
-    }
-    const uint32_t k_first = ka;
-    ka = kb;
-    kb = kc;
-    kc = k_first;
-  }
-#pragma unroll
-  for (int n = 0; n < N; ++n) out[n] = __uint_as_float(((x0[n] ^ x1[n]) >> 9) | 0x3F800000u) - 1.0f;
 }
 
 __device__ __forceinline__ float uniform(Key k, uint32_t idx) {

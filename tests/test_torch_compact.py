@@ -176,37 +176,83 @@ def test_twin_trip_counts_do_not_depend_on_the_schedule(scene):
     assert window[..., 1:3].sum() > 0 and window.sum() > window[..., 1:3].sum()
 
 
-def test_bounce_census_arithmetic():
-    """chip_smoke.py's operations from trip counts and SIMT efficiency, on a
-    hand-counted case."""
+def _chip_smoke():
     import importlib.util
 
     spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
     cs = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(cs)
+    return cs
+
+
+def test_bounce_census_arithmetic():
+    """chip_smoke.py's operations from trip counts and SIMT efficiency, on a
+    hand-counted case."""
+    cs = _chip_smoke()
     trips = torch.tensor([[0, 1, 2, 0, 0, 0], [0, 3, 2, 1, 1, 1]], dtype=torch.int32)
     call, it, probe = cs.BOUNCE_CALL_OPS, cs.BOUNCE_ITER_OPS, cs.BOUNCE_PROBE_OPS
     k = 4
 
     def site(j, n, tracking_k):
-        # a call and n iterations; a march iteration's k probes but the last
-        # iteration's one, a tracker iteration's first group of probes whole
+        # a call and n iterations; a march or RMO iteration's K probes but
+        # the last iteration's one, a cloud iteration's one
         if n == 0:
             return 0
-        probes = min(tracking_k, cs.TRACK_G) * n if j in (1, 2, 5) else k * n - (k - 1)
-        return call[j] + n * it[j] + probes * probe[j]
+        kj = 1 if j in (1, 5) else (tracking_k if j == 2 else k)
+        return call[j] + n * it[j] + (kj * n - (kj - 1)) * probe[j]
 
     for tracking_k in (4, 6):
         want = (2 * cs.BOUNCE_FIXED_OPS + cs.BOUNCE_SURFACE_OPS + cs.BOUNCE_NEE_OPS
                 + sum(site(j, int(trips[i, j]), tracking_k) for i in range(2) for j in range(6)))
         assert cs.bounce_ops(torch, trips, k, tracking_k) == want
-        assert cs.tracker_ops(torch, trips[:, 2], tracking_k, 2) == (
-            site(2, 2, tracking_k) + site(2, 2, tracking_k))
-    # chip_smoke.py's TRACK_G is the trackers' group (csrc/threefry.cuh)
-    with open(os.path.join(ROOT, "digital_earth_tpu_torch", "csrc", "threefry.cuh")) as f:
-        assert f"constexpr int TRACK_G = {cs.TRACK_G};" in f.read()
+        for j in (1, 2):
+            assert cs.tracker_ops(torch, trips[:, j], tracking_k, j) == (
+                site(j, int(trips[0, j]), tracking_k) + site(j, int(trips[1, j]), tracking_k))
     # warps of 2: per site the lanes' trips over 2 x the warp's largest
     assert cs.simt_efficiency(torch, trips, warp=2) == [None, 4 / 6, 1.0, 0.5, 0.5, 0.5]
     assert cs.tracker_simt(torch, trips, warp=2) == [4 / 6, 1.0, 0.5]
     # a ragged last warp counts its idle lanes
     assert cs.simt_efficiency(torch, trips[:1], warp=4)[2] == 2 / 8
+
+# ptxas's report of bounce.cu as nvcc 12.9 prints it (sm_90a, BOUNCE_L 4):
+# the timed instances, a census instance and a device function between them
+_PTXAS_BOUNCE = """\
+ptxas info    : Function properties for _ZN2de20bounce_window_kernelILi4EEEvNS_11BounceStateENS_12BounceParamsEi
+    80 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Function properties for _ZN2de10cloud_callENS_3KeyENS_2V3ES1_fffPKhiiiib
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Function properties for _ZN2de19bounce_shade_kernelILi4ELb1EEEvNS_11BounceStateENS_12BounceParamsEPK6float4
+    112 bytes stack frame, 40 bytes spill stores, 40 bytes spill loads
+ptxas info    : Function properties for _ZN2de19bounce_shade_kernelILi4ELb0EEEvNS_11BounceStateENS_12BounceParamsEPK6float4
+    80 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Function properties for _ZN2de20bounce_flight_kernelILi8ELb0EEEvNS_11BounceStateENS_12BounceParamsEP6float4
+    56 bytes stack frame, 24 bytes spill stores, 28 bytes spill loads
+"""
+
+
+@pytest.mark.parametrize("drop", [None, "bounce_flight"])
+def test_bounce_registers_reads_the_timed_instances(drop):
+    """chip_smoke.py's spill bytes per bounce entry come from the timed
+    instances (any lane width, not the census's), and a report that lacks
+    an entry fails."""
+    import types
+
+    cs = _chip_smoke()
+    log = "\n".join(l for l in _PTXAS_BOUNCE.splitlines(keepends=False)
+                    if not (drop and "flight" in l and "Function" in l))
+    occ = dict(registers=64, local_bytes=56, warps_per_sm=32)
+    kern = types.SimpleNamespace(ptxas_log={"bounce.cu": log},
+                                 OCCUPANCY_ENTRIES=("bounce_flight", "bounce_shade",
+                                                    "bounce_window"),
+                                 bounce_occupancy=lambda name: occ)
+    if drop:
+        with pytest.raises(SystemExit):
+            cs.bounce_registers(kern)
+        return
+    got = cs.bounce_registers(kern)
+    assert {n: (r["spill_stores"], r["spill_loads"]) for n, r in got.items()} == {
+        "bounce_flight": (24, 28), "bounce_shade": (0, 0), "bounce_window": (0, 0)}
+    assert got["bounce_flight"]["registers"] == 64
+    # no report (a build from an earlier process): no spills, no failure
+    kern.ptxas_log = {}
+    assert all(r["spill_stores"] is None for r in cs.bounce_registers(kern).values())

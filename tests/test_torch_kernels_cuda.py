@@ -133,9 +133,8 @@ def test_land_march_kernel_warp_cooperative(case, per_warp):
         assert (got[~active] == -1.0).all()
 
 
-# tracking_k: the trackers run an iteration's probes in groups of
-# csrc/threefry.cuh TRACK_G (2); 1 and 3 leave a group part empty, 3 to 8
-# take two to four groups
+# tracking_k: the trackers take any count of probes an iteration (the
+# default 4, odd counts, more than the default)
 TRACKING_KS = [1, 3, 4, 6, 8]
 
 
@@ -946,8 +945,7 @@ def test_bounce_kernel(dev, bounce):
 @pytest.mark.parametrize("tracking_k", [4, 6])
 def test_bounce_kernel_bit_equal(dev, bounce, tracking_k):
     """bounce_flight + bounce_shade bit-equal to run_bounce_plain on every
-    live lane, at the default tracking_k and at 6, where the trackers' probes
-    run in two and three groups of csrc/threefry.cuh TRACK_G (2)."""
+    live lane, at the default tracking_k and at 6."""
     from digital_earth_tpu_torch.render import compact
 
     st, args = _golden_state(dev, bounce, tracking_k)

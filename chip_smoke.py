@@ -59,7 +59,7 @@ at the end). Phases, each of which raises on failure (exit code 1):
    the entries' registers, spills and resident warps; the census (the
    census instances of ``bounce_flight``
    and ``bounce_shade`` leave the timed instances' state, and their trip
-   counts at the six loop sites equal those of the twin's plain loops on
+   counts at the seven loop sites equal those of the twin's plain loops on
    all but 1e-4 of the lanes); the per-bounce table of the frame (live
    lanes, ms, ns per lane, the bound from bytes and from the census's
    operations, mean trips and SIMT efficiency per loop site, the land
@@ -81,6 +81,23 @@ at the end). Phases, each of which raises on failure (exit code 1):
    surface points (both through test launchers, timed); last, one 1920x1080
    Apollo spp under the window schedule bit-equal to the same spp with one
    launch per bounce, its launches as ``bounce_schedule`` predicts.
+8b. the reference's own estimator (REF_ESTIMATOR: ``hero_lambdas=1``,
+   ``stratify_spp=False``, ``analytic_transmittance=False``): the
+   ``rmo_ratio_track`` kernel against its twin on the NEE lanes of Apollo
+   bounce 0 (captured from the twin's bounce, at four wavelengths with the
+   ratio tracking alone and at one with all three options), every lane
+   bit-equal and its iterations the twin's, timed with its bound; the
+   bounce entries' instances of the estimator against their twin on the
+   three scenes at bounces 0 and DEEP_BOUNCE, every lane bit-equal, with
+   the census's NEE RMO site (its lanes, iterations and share of the warp
+   cycles); ``gen_rays`` at each new mode against its twin; the
+   estimator's path (``render_offline``, 3 spp, counts set to 0 before it
+   and read after) under phase 6's gates, and ``frame_end`` at one
+   wavelength against its twin; ``accumulate_interruptible(3)``, an
+   adaptive pass over every tile and a (4, 1) ``MultiChipRenderer`` over
+   the card, each bit-equal to one ``Renderer`` spp at the estimator; s/spp
+   of Apollo at the default, each option alone and all three, and of
+   florida and sunset at the default and all three.
 
 The viewer's path (each run with the launch counts set to 0 just before it
 and read just after):
@@ -199,6 +216,7 @@ SM per clock, at the card's largest SM clock). The last line is
 {"ok": true, "device": {...}}.
 """
 
+import functools
 import json
 import os
 import subprocess
@@ -265,7 +283,7 @@ MAIN_PATH = ("bounce_flight", "bounce_shade", "bounce_window", "compact_lanes", 
              "frame_end", "film_postprocess")
 # kernels whose loops now run inside bounce: none of their own launches on
 # the path tracer's run (held against their twins in their own phase)
-INLINED = ("land_march", "rmo_delta_track", "cloud_track")
+INLINED = ("land_march", "rmo_delta_track", "rmo_ratio_track", "cloud_track")
 OTHER_SCENES = ("config - florida.txt", "config - sunset hurricane.txt")
 # bounce's bytes per live lane: its state read (pos, dir, wavelengths,
 # lambda_pdf, throughput, radiance, w_mis, flags, work class, keys, list
@@ -275,7 +293,7 @@ OTHER_SCENES = ("config - florida.txt", "config - sunset hurricane.txt")
 # loops' trip counts, which this run does not observe: they are not
 # counted, and the bound is a floor (as the lookup launchers' below)
 BOUNCE_LANE_BYTES = 122 + 78
-# bounce's operations (csrc/bounce.cu and the loop headers), counted from the
+# bounce's operations (csrc/bounce.cuh and the loop headers), counted from the
 # sources as the other rows are (below: an add, multiply, divide, square root,
 # min or max, an expf, logf, powf, atan2f or asinf each one operation; a
 # threefry block 77, a draw 80, a nearest 4-channel sphere tap 36). Every
@@ -285,37 +303,53 @@ BOUNCE_LANE_BYTES = 122 + 78
 # weight (the segment integral 60, tau, w, denominator: 109), the sun cone
 # (key, two draws, sample: 293), the scatter point and its planet test (23)
 # and four wavelengths' Planck terms and three radiance terms (148): 774.
-BOUNCE_FLIGHT_OPS = 487
-BOUNCE_FIXED_OPS = BOUNCE_FLIGHT_OPS + 774
+# Each count's *_INT share is threefry's integer work (adds, rotates, xors:
+# a key 77, a draw 80), which runs at the integer rate (``bound``): the
+# flight's bounce key and three flight keys (308), the shade's cone key and
+# draws (237).
+BOUNCE_FLIGHT_OPS, BOUNCE_FLIGHT_INT = 487, 308
+BOUNCE_FIXED_OPS, BOUNCE_FIXED_INT = BOUNCE_FLIGHT_OPS + 774, BOUNCE_FLIGHT_INT + 237
 # A lane whose flight ends on the surface (its shadow march ran): land_pos,
 # the normal's four SDFs, the material grading, four albedo spectra, the
 # offset, two BRDF evaluations, the terms, the hemisphere key, draws and
-# sample: 1081. A lane that takes the sun's transmittance (its NEE cloud
-# pass ran): the closed-form RMO term (60), the cloud limits (41), two keys
-# (154), the phase (30): 285. Lanes whose pass ran with no trips are not
-# counted, nor the phase sample and the roulette: the bound is a floor.
-BOUNCE_SURFACE_OPS = 1081
-BOUNCE_NEE_OPS = 285
-# Per loop site (pre-march, cloud, RMO, march after, shadow, NEE cloud): the
-# operations of a call that takes at least one trip, of one iteration
-# outside its probes, and of one probe. A march call: the bounding rsi, the
-# span and the crawl's setup (59); an iteration's stride update (4); a probe
-# (110: its tap 36, the three mip bounds 27, the SDF, the ocean root). An
-# RMO call: the perigee (19); an iteration: the key (77), the segment's
-# minimum radius (7), the density envelope (29), the majorant (7); a probe:
-# two draws (160), the step (6), the point (7), the three densities (51),
-# the test (6): 230. A cloud call (2); an iteration: the budget (2), the
-# majorant (3) (its key, 77, only in a tracking iteration, which the trip
+# sample: 1081 (237 integer). A lane that takes the sun's transmittance (its
+# NEE cloud pass ran): the cloud limits (41), two keys (154, integer), the
+# phase (30): 225; and with the closed form (no NEE RMO trips) its term
+# (60). Lanes whose pass ran with no trips are not counted, nor the phase
+# sample and the roulette: the bound is a floor.
+BOUNCE_SURFACE_OPS, BOUNCE_SURFACE_INT = 1081, 237
+BOUNCE_NEE_OPS, BOUNCE_NEE_INT = 225, 154
+BOUNCE_CLOSED_FORM_OPS = 60
+# Per loop site (pre-march, cloud, RMO, march after, shadow, NEE cloud, NEE
+# RMO): the operations of a call that takes at least one trip, of one
+# iteration outside its probes, and of one probe. A march call: the bounding
+# rsi, the span and the crawl's setup (59); an iteration's stride update
+# (4); a probe (110: its tap 36, the three mip bounds 27, the SDF, the ocean
+# root). An RMO call: the perigee (19); an iteration: the key (77), the
+# segment's minimum radius (7), the density envelope (29), the majorant (7);
+# a probe: two draws (160), the step (6), the point (7), the three densities
+# (51), the test (6): 230. A cloud call (2); an iteration: the budget (2),
+# the majorant (3) (its key, 77, only in a tracking iteration, which the trip
 # count does not tell apart: not counted); a probe at the skip mode's cost
 # (45: the point and its tap; a tracking probe, 225 with its two draws, is
-# not assumed). A march or RMO iteration's K probes all count but the last
-# iteration's, which counts one (its first stopping probe ends the loop); a
-# cloud iteration counts one (a stop ends its sweep, not the loop). The
-# counts are floors.
-BOUNCE_CALL_OPS = (59, 2, 19, 59, 59, 2)
-BOUNCE_ITER_OPS = (4, 5, 120, 4, 4, 5)
-BOUNCE_PROBE_OPS = (110, 45, 230, 110, 110, 45)
-TRACKER_SITES = (1, 2, 5)  # cloud, RMO, NEE cloud
+# not assumed). An NEE RMO call (the ratio tracker, csrc/rmo_track.cuh
+# rmo_ratio_lane, counted at one wavelength, a floor for four): its key (77),
+# the majorant (5), the span (19), the setup (5): 106; an iteration: the key
+# (77), the transmittance's update and the stop test (3): 80; a probe: a
+# draw (80), the step (6), the prefix sums (2), the test (1), the point (7),
+# the three densities (51), the factor (8): 155. A march, RMO or NEE RMO
+# iteration's K probes all count but the last iteration's, which counts one
+# (its first stopping probe ends the loop); a cloud iteration counts one (a
+# stop ends its sweep, not the loop). The counts are floors; the *_INT
+# tables are their threefry shares.
+BOUNCE_CALL_OPS = (59, 2, 19, 59, 59, 2, 106)
+BOUNCE_ITER_OPS = (4, 5, 120, 4, 4, 5, 80)
+BOUNCE_PROBE_OPS = (110, 45, 230, 110, 110, 45, 155)
+BOUNCE_CALL_INT = (0, 0, 0, 0, 0, 0, 77)
+BOUNCE_ITER_INT = (0, 0, 77, 0, 0, 0, 77)
+BOUNCE_PROBE_INT = (0, 0, 160, 0, 0, 0, 80)
+TRACKER_SITES = (1, 2, 5, 6)  # cloud, RMO, NEE cloud, NEE RMO
+NEE_RMO = 6  # the census column of the NEE RMO ratio tracker
 
 
 def site_probes(torch, t, k):
@@ -327,40 +361,54 @@ def site_probes(torch, t, k):
 
 def site_k(march_k, tracking_k):
     """Per site, the probes a floor counts in an iteration that does not
-    end the loop: the march's K, the RMO tracker's K, the cloud passes' 1."""
-    return (march_k, 1, tracking_k, march_k, march_k, 1)
+    end the loop: the march's K, the RMO trackers' K, the cloud passes' 1."""
+    return (march_k, 1, tracking_k, march_k, march_k, 1, tracking_k)
 
 
-def bounce_ops(torch, trips, march_k, tracking_k, part="bounce"):
-    """The operations of one bounce of the lanes whose (m, 6) int32 trip
-    counts ``trips`` the census gives, with ``march_k`` probes per march
-    iteration and ``tracking_k`` per tracker iteration: BOUNCE_FIXED_OPS per
-    lane, the surface and NEE extras of the lanes whose shadow march and NEE
-    cloud pass took trips, and per site each call's, iteration's and probe's
-    operations (a floor). ``part`` "flight" counts steps 1-3 alone (the
-    first 487 of the fixed operations, sites 0-3), "shade" the rest."""
+def bounce_ops(torch, trips, march_k, tracking_k, part="bounce", integer=False):
+    """The operations of one bounce of the lanes whose (m, sites) int32 trip
+    counts ``trips`` the census gives (7 sites, or a census of 6 without the
+    NEE RMO column), with ``march_k`` probes per march iteration and
+    ``tracking_k`` per tracker iteration: BOUNCE_FIXED_OPS per lane, the
+    surface and NEE extras of the lanes whose shadow march and NEE cloud
+    pass took trips (the closed form's where the NEE RMO tracker took none),
+    and per site each call's, iteration's and probe's operations (a floor).
+    ``part`` "flight" counts steps 1-3 alone (the first 487 of the fixed
+    operations, sites 0-3), "shade" the rest; ``integer`` their threefry
+    share alone."""
     t = trips.to(torch.float64)
-    call = torch.tensor(BOUNCE_CALL_OPS, dtype=torch.float64, device=t.device)
-    it = torch.tensor(BOUNCE_ITER_OPS, dtype=torch.float64, device=t.device)
-    probe = torch.tensor(BOUNCE_PROBE_OPS, dtype=torch.float64, device=t.device)
-    k = torch.tensor(site_k(march_k, tracking_k), dtype=torch.float64, device=t.device)
+    n = t.shape[1]
+    tables = ((BOUNCE_CALL_INT, BOUNCE_ITER_INT, BOUNCE_PROBE_INT) if integer
+              else (BOUNCE_CALL_OPS, BOUNCE_ITER_OPS, BOUNCE_PROBE_OPS))
+    call, it, probe = (torch.tensor(x[:n], dtype=torch.float64, device=t.device) for x in tables)
+    k = torch.tensor(site_k(march_k, tracking_k)[:n], dtype=torch.float64, device=t.device)
     per_site = ((t > 0) * call + t * it + site_probes(torch, t, k) * probe).sum(0)
-    extras = (BOUNCE_SURFACE_OPS * (t[:, 4] > 0).sum() + BOUNCE_NEE_OPS * (t[:, 5] > 0).sum())
-    flight = BOUNCE_FLIGHT_OPS * t.shape[0] + per_site[:4].sum()
-    shade = (BOUNCE_FIXED_OPS - BOUNCE_FLIGHT_OPS) * t.shape[0] + extras + per_site[4:].sum()
+    nee = t[:, 5] > 0
+    closed = nee & (t[:, NEE_RMO] == 0) if n > NEE_RMO else nee
+    if integer:
+        fixed, fixed_flight = BOUNCE_FIXED_INT, BOUNCE_FLIGHT_INT
+        extras = BOUNCE_SURFACE_INT * (t[:, 4] > 0).sum() + BOUNCE_NEE_INT * nee.sum()
+    else:
+        fixed, fixed_flight = BOUNCE_FIXED_OPS, BOUNCE_FLIGHT_OPS
+        extras = (BOUNCE_SURFACE_OPS * (t[:, 4] > 0).sum() + BOUNCE_NEE_OPS * nee.sum()
+                  + BOUNCE_CLOSED_FORM_OPS * closed.sum())
+    flight = fixed_flight * t.shape[0] + per_site[:4].sum()
+    shade = (fixed - fixed_flight) * t.shape[0] + extras + per_site[4:].sum()
     return float({"bounce": flight + shade, "flight": flight, "shade": shade}[part])
 
 
-def tracker_ops(torch, trips, k, site):
+def tracker_ops(torch, trips, k, site, integer=False):
     """The operations of a tracker launcher (``rmo_delta_track`` at the RMO
-    site's counts, ``cloud_track`` at the cloud site's) whose lanes took the
-    (n,) int32 iterations ``trips`` (the twin's count) with ``k`` probes per
-    iteration: each call's, iteration's and probe's operations as
-    ``bounce_ops`` counts them (a floor)."""
+    site's counts, ``cloud_track`` at the cloud site's, ``rmo_ratio_track``
+    at the NEE RMO site's) whose lanes took the (n,) int32 iterations
+    ``trips`` with ``k`` probes per iteration: each call's, iteration's and
+    probe's operations as ``bounce_ops`` counts them (a floor); with
+    ``integer`` their threefry share."""
+    call, it, probe = ((BOUNCE_CALL_INT, BOUNCE_ITER_INT, BOUNCE_PROBE_INT) if integer
+                       else (BOUNCE_CALL_OPS, BOUNCE_ITER_OPS, BOUNCE_PROBE_OPS))
     t = trips.to(torch.float64)
     probes = site_probes(torch, t, site_k(k, k)[site])
-    return float(((t > 0) * BOUNCE_CALL_OPS[site] + t * BOUNCE_ITER_OPS[site]
-                  + probes * BOUNCE_PROBE_OPS[site]).sum())
+    return float(((t > 0) * call[site] + t * it[site] + probes * probe[site]).sum())
 
 
 def simt_efficiency(torch, trips, warp=32):
@@ -405,9 +453,13 @@ def march_simt(torch, trips, k, warp=32):
 # NVIDIA H100 SXM (NVIDIA's data sheet): HBM3 bytes/s and float32
 # operations/s outside the tensor cores, for each kernel's bound; its SMs,
 # FP32 lanes and special-function units per SM (the Hopper white paper) for
-# the bounds of preview and atmos_march, which count instructions.
+# the bounds of preview and atmos_march, which count instructions. 32-bit
+# integer add, shift and logic operations (threefry's adds, rotates and
+# xors) issue at 64 per SM per clock on compute capability 9.0, half the
+# FP32 rate (the CUDA C++ Programming Guide's table of arithmetic
+# instruction throughput), at the card's largest SM clock.
 PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
-H100_SMS, FP32_PER_SM, SFU_PER_SM = 132, 128, 16
+H100_SMS, FP32_PER_SM, SFU_PER_SM, INT32_PER_SM = 132, 128, 16, 64
 # Operations per lane or pixel, counted from the kernel sources: each add,
 # multiply, divide, square root, min or max, and each expf, powf, log2f,
 # atan2f or asinf, as one operation. The peak table gives no rate for the
@@ -415,8 +467,8 @@ H100_SMS, FP32_PER_SM, SFU_PER_SM = 132, 128, 16
 # is at least, and each bound below is a floor.
 # gen_rays: six threefry2x32 blocks of about 77 integer operations (20
 # rounds of add, rotate, xor; five key injections), the pinhole ray, the
-# 9-step search and 4 wavelengths: 680.
-GEN_RAYS_OPS = 680
+# 9-step search and 4 wavelengths: 680, the six blocks' 462 of them integer.
+GEN_RAYS_OPS, GEN_RAYS_INT = 680, 462
 # atmos_march (csrc/atmos_march.cu): one density evaluation (elevation 7,
 # clamp 1, Rayleigh 6, the cheapest Mie branch 3, ozone 16) is 33; a march
 # step is a density, 33 of optical depth, in-scatter and advance, and the
@@ -488,23 +540,28 @@ def fail(msg):
     sys.exit(1)
 
 
-def bound(nbytes, ops, sfu=None):
+def bound(nbytes, ops, sfu=None, int_ops=0.0):
     """(ms, "bytes" or "operations"): the least time for the work on the
     card. With ``sfu`` (special-function operations), ``ops`` counts FP32
     instructions at 128 per SM per clock (an add, a multiply and a fused
     multiply-add one each: under --fmad=false a multiply and an add fuse
     only where the source writes fmaf), and the SFU operations issue at 16
     per SM per clock, at the card's largest SM clock; else ``ops`` run at
-    the FP32 peak."""
+    the FP32 peak, but for ``int_ops`` of them, 32-bit integer operations,
+    which run at INT32_PER_SM per SM per clock: the larger of the two
+    times (the two pipes issue side by side)."""
     t_bytes = nbytes / PEAK_BYTES * 1e3
     if sfu is None:
-        t_ops = (ops or 0) / PEAK_F32 * 1e3
+        t_ops = ((ops or 0) - int_ops) / PEAK_F32 * 1e3
+        if int_ops:
+            t_ops = max(t_ops, int_ops / (H100_SMS * INT32_PER_SM * sm_clock_mhz() * 1e6) * 1e3)
     else:
         hz = sm_clock_mhz() * 1e6
         t_ops = max(ops / (H100_SMS * FP32_PER_SM * hz), sfu / (H100_SMS * SFU_PER_SM * hz)) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+@functools.lru_cache(maxsize=None)
 def sm_clock_mhz():
     """The card's largest SM clock (nvidia-smi clocks.max.sm), MHz."""
     out = subprocess.run(
@@ -559,8 +616,8 @@ def check_threefry(torch, dev):
     want, plain_ms = _plain_ms(torch, lambda: rng.uniform(rng.fold(keys, 4), (3,)))
     equal = torch.equal(got.view(torch.int32), want.view(torch.int32))
     # keys read (8 B) and 3 draws written per lane; 4 threefry blocks of 77
-    # integer operations
-    b_ms, b_by = bound(20 * n, 4 * 77 * n)
+    # integer operations, at the integer rate
+    b_ms, b_by = bound(20 * n, 4 * 77 * n, int_ops=4 * 77 * n)
     print(f"threefry {n} lanes, a fold and 3 draws: bit-equal {equal}  kernel {ms:.3f} ms  "
           f"plain {plain_ms:.2f} ms  bound {b_ms:.4f} ms ({b_by})  {'ok' if equal else 'FAIL'}")
     if not equal:
@@ -599,10 +656,10 @@ def capture_tile_rays(torch, run):
     original = raygen.gen_rays
     kept = {}
 
-    def keep(*args):
+    def keep(*args, **kwargs):
         if not kept and args[-1] is not None:
             kept["args"] = (*args[:-1], args[-1].clone())
-        return original(*args)
+        return original(*args, **kwargs)
 
     raygen.gen_rays = keep
     try:
@@ -620,18 +677,17 @@ def _clone_state(st):
 
 def _per_bounce(pt):
     """The package's run_bounces with one launch per bounce (window_at=0)."""
-    import functools
-
     return functools.partial(pt.run_bounces, window_at=0)
 
 
-def capture_states(torch, dev, atlas, luts, bounces=None, scene=SCENE):
+def capture_states(torch, dev, atlas, luts, bounces=None, scene=SCENE, cfg=None):
     """One spp of ``scene``'s 1920x1080 frame through the kernels on
-    ``atlas``, one launch per bounce. Keeps the bounce's full input state and
-    live list at each of ``bounces`` (None: every bounce), the alive vectors
-    the deepest bounce's compaction saw, and the frame's end-of-sweep state:
-    (states, deepest, frame_end arguments). Works with this checkout's
-    package and with an earlier one's (``--path-bench``)."""
+    ``atlas`` (at the TraceConfig ``cfg``, default the default), one launch
+    per bounce. Keeps the bounce's full input state and live list at each of
+    ``bounces`` (None: every bounce), the alive vectors the deepest bounce's
+    compaction saw, and the frame's end-of-sweep state: (states, deepest,
+    frame_end arguments). Works with this checkout's package and with an
+    earlier one's (``--path-bench``)."""
     from digital_earth_tpu_torch.app.config_io import apply_config, load_config
     from digital_earth_tpu_torch.render import pathtracer as pt
     from digital_earth_tpu_torch.render.renderer import Renderer
@@ -649,7 +705,8 @@ def capture_states(torch, dev, atlas, luts, bounces=None, scene=SCENE):
 
     pt.run_bounce, pt.run_bounces = keep_state, _per_bounce(pt)
     try:
-        r = Renderer(dev, image_res=RES, atlas=atlas, luts=luts)
+        r = Renderer(dev, image_res=RES, atlas=atlas, luts=luts,
+                     **({} if cfg is None else {"cfg": cfg}))
         apply_config(r, load_config(scene))
         frame_end_args = capture_frame_end(torch, r.accumulate)
         torch.cuda.synchronize()
@@ -811,7 +868,7 @@ def compare_kernels(torch, captured):
               f"max abs err {max_abs:.3e}  max rel err {max_rel:.3e}  "
               f"kernel {ms:.3f} ms  plain {plain_ms:.1f} ms  {'ok' if ok else 'FAIL'}")
         row = rows.setdefault(base, dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, ok=True,
-                                         bytes=0, ops=None))
+                                         bytes=0, ops=None, int_ops=0.0))
         row["max_abs_err"] = max(row["max_abs_err"], max_abs)
         row["ok"] = row["ok"] and ok
         if b == 0:  # the bounce-0 wavefront carries most of the frame's work
@@ -830,9 +887,13 @@ def compare_kernels(torch, captured):
                 row["bytes"] += args[6].numel() + 45 * n + (4 if "ratio" in kind else 8) * n
                 cfg, site = args[8], 1
             ops = tracker_ops(torch, trips, cfg.tracking_k, site)
+            int_ops = tracker_ops(torch, trips, cfg.tracking_k, site, integer=True)
             row["ops"] = (row["ops"] or 0.0) + ops
+            row["int_ops"] += int_ops
             print(f"{kind:20s} bounce {b}: {int(trips.sum())} iterations ({int((trips > 0).sum())} "
-                  f"lanes), {ops:.4g} operations: bound {bound(0, ops)[0]:.4f} ms (operations)")
+                  f"lanes), {ops:.4g} operations ({int_ops:.4g} integer): bound "
+                  f"{bound(0, ops, int_ops=int_ops)[0]:.4f} ms (operations; "
+                  f"{bound(0, ops)[0]:.4f} all at the FP32 rate)")
     return rows
 
 
@@ -980,10 +1041,11 @@ def bounce_registers(kernels):
     """Per bounce entry (``kernels.OCCUPANCY_ENTRIES``, the timed instances):
     registers and local bytes per thread and resident warps per SM
     (``kernels.bounce_occupancy``), and the spill stores and loads in bytes
-    from ptxas's report of ``<entry>_kernel<L>`` or ``<entry>_kernel<L,
-    false>`` (not the census instance, ``<L, true>``). None where this
-    process did not build the kernels (no report); fails where it did and an
-    entry's spill line is missing."""
+    from ptxas's report of bounce.cu (the default instances: L = 4, the
+    closed-form transmittance) of ``<entry>_kernel<L>``, ``<entry>_kernel<L,
+    false>`` or ``<entry>_kernel<L, false, false>`` (not a census instance,
+    ``<L, true, ...>``). None where this process did not build the kernels
+    (no report); fails where it did and an entry's spill line is missing."""
     import re
 
     log = kernels.ptxas_log.get("bounce.cu", "")
@@ -991,7 +1053,7 @@ def bounce_registers(kernels):
     for line in log.splitlines():
         if "Function properties for" in line:
             entry = next((n for n in kernels.OCCUPANCY_ENTRIES
-                          if re.search(rf"{n}_kernelILi\d+E(?:Lb0E)?E", line)), None)
+                          if re.search(rf"{n}_kernelILi\d+E(?:Lb0E){{0,2}}E", line)), None)
         elif entry and "spill stores" in line:
             got = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
             spills[entry] = (int(got[1]), int(got[2]))
@@ -1037,13 +1099,14 @@ def _graph_ms(torch, fn, reps=20):
 
 def _census(torch, st0, idx, b, args, frame):
     """The census instances of bounce_flight and bounce_shade on a copy of
-    ``st0``: ((m, 6) trips, the state they left, (m, 8) clock64 cycles)."""
+    ``st0``: ((m, sites) trips, the state they left, (m, sites + 2) clock64
+    cycles), sites the package's ``kernels.BOUNCE_SITES``."""
     from digital_earth_tpu_torch import kernels
     from digital_earth_tpu_torch.render import pathtracer as pt
 
     st = _clone_state(st0)
     m = idx.numel()
-    trips = torch.empty((m, 6), dtype=torch.int32, device=idx.device)
+    trips = torch.empty((m, kernels.BOUNCE_SITES), dtype=torch.int32, device=idx.device)
     cycles = torch.empty((m, kernels.BOUNCE_CYCLE_COLS), dtype=torch.int64, device=idx.device)
     kw = dict(trips=trips, cycles=cycles)
     ka = pt._kernel_args(st, idx, b, *args, frame)
@@ -1055,7 +1118,7 @@ def warp_cycles(torch, cycles, warp=32):
     """The census's clock64 columns summed over the launch's warps (32
     consecutive list entries): a warp spends at a site the most cycles any
     of its threads spent there (its lanes wait on one another), and in a
-    kernel its longest thread's. A float64 tensor of the 8 columns."""
+    kernel its longest thread's. A float64 tensor of the columns."""
     m = cycles.shape[0]
     pad = (-m) % warp
     c = torch.cat([cycles, cycles.new_zeros((pad, cycles.shape[1]))])
@@ -1063,18 +1126,20 @@ def warp_cycles(torch, cycles, warp=32):
 
 
 def cycle_split(torch, cycles):
-    """The bounce's time by the census's clock64 columns (``warp_cycles``):
-    (each site's share of the two kernels' summed warp cycles,
-    bounce_flight's share, bounce_shade's, that sum)."""
+    """The bounce's time by the census's clock64 columns (``warp_cycles``;
+    the sites, then the two kernels' whole): (each site's share of the two
+    kernels' summed warp cycles, bounce_flight's share, bounce_shade's, that
+    sum)."""
     per_warp = cycles if cycles.dim() == 1 else warp_cycles(torch, cycles)
-    total = float(per_warp[6] + per_warp[7])
+    n = per_warp.numel() - 2
+    total = float(per_warp[n] + per_warp[n + 1])
     shares = [float(x) / total for x in per_warp.tolist()]
-    return shares[:6], shares[6], shares[7], total
+    return shares[:n], shares[n], shares[n + 1], total
 
 
 def split_text(split):
     sites, flight, shade, total = split
-    names = ("pre-march", "cloud", "RMO", "march after", "shadow march", "NEE cloud")
+    names = ("pre-march", "cloud", "RMO", "march after", "shadow march", "NEE cloud", "NEE RMO")
     return (f"flight {flight:.3f} (" + ", ".join(f"{n} {x:.3f}" for n, x in zip(names[:4], sites))
             + f", rest {flight - sum(sites[:4]):.3f}), shade {shade:.3f} ("
             + ", ".join(f"{n} {x:.3f}" for n, x in zip(names[4:], sites[4:]))
@@ -1090,7 +1155,7 @@ def _states_equal(torch, a, b):
 def check_census(torch, states):
     """A's census: at bounces 0 and DEEP_BOUNCE the census instances of
     bounce_flight and bounce_shade leave the timed instances' state bit for
-    bit, and their trip counts at the six loop sites equal those of the
+    bit, and their trip counts at the seven loop sites equal those of the
     twin's plain loops (run_bounce_plain(trips=...), on the card) on all but
     a share 1 - BOUNCE_AGREEMENT of the lanes (where a plain loop and its
     kernel part on an ulp). Returns {bounce: kernel trips}."""
@@ -1136,7 +1201,8 @@ def bounce_table(torch, states, cfg, census=True):
     from digital_earth_tpu_torch.render import pathtracer as pt
 
     table = {}
-    calls, spp_cycles = [0] * 6, 0.0  # over the spp: lanes with trips per site, warp cycles
+    # over the spp: lanes with trips per site, warp cycles
+    calls, spp_cycles = [0] * len(pt.CENSUS_SITES), 0.0
     for b, c in sorted(states.items()):
         idx, st0, args = c["idx"], c["st"], c["args"]
         m = idx.numel()
@@ -1150,10 +1216,11 @@ def bounce_table(torch, states, cfg, census=True):
             calls = [a + n for a, n in zip(calls, (trips > 0).sum(0).tolist())]
             spp_cycles = spp_cycles + warp_cycles(torch, cycles)
             ops = bounce_ops(torch, trips, cfg.march_k, cfg.tracking_k)
+            int_ops = bounce_ops(torch, trips, cfg.march_k, cfg.tracking_k, integer=True)
             row["march_simt"] = march_simt(torch, trips, cfg.march_k)
             row["tracker_simt"] = tracker_simt(torch, trips)
             row["split"] = cycle_split(torch, cycles)
-            row.update(ops=ops, ops_ms=ops / PEAK_F32 * 1e3,
+            row.update(ops=ops, int_ops=int_ops, ops_ms=bound(0, ops, int_ops=int_ops)[0],
                        bytes_ms=BOUNCE_LANE_BYTES * m / PEAK_BYTES * 1e3,
                        trips=[round(x, 3) for x in trips.float().mean(0).tolist()],
                        simt=simt_efficiency(torch, trips))
@@ -1180,24 +1247,24 @@ def bounce_table(torch, states, cfg, census=True):
 
 def tracker_simt(torch, trips, warp=32):
     """SIMT efficiency of the trackers at TRACKER_SITES (cloud, RMO, NEE
-    cloud): a thread runs its lane's iterations (csrc/cloud_track.cuh,
-    rmo_track.cuh), so a warp's slots are 32 a trip of its longest lane, as
-    ``simt_efficiency`` counts them."""
+    cloud, NEE RMO where the census has it): a thread runs its lane's
+    iterations (csrc/cloud_track.cuh, rmo_track.cuh), so a warp's slots are
+    32 a trip of its longest lane, as ``simt_efficiency`` counts them."""
     simt = simt_efficiency(torch, trips, warp)
-    return [simt[site] for site in TRACKER_SITES]
+    return [simt[site] for site in TRACKER_SITES if site < len(simt)]
 
 
 def simt_text(march, tracker):
     return ("the land march's SIMT eff as launched (pre, after, shadow) "
             + " ".join("-" if e is None else f"{e:.2f}" for e in march)
-            + "; the trackers' (cloud, RMO, NEE cloud) "
+            + "; the trackers' (cloud, RMO, NEE cloud, NEE RMO) "
             + " ".join("-" if e is None else f"{e:.2f}" for e in tracker))
 
 
 def _bounce_and_twin(torch, c, b):
     """On the live lanes of the captured state ``c`` of bounce ``b``: the
     state run_bounce leaves, the state run_bounce_plain leaves, and the
-    census instances' (m, 6) trips and (m, 8) cycles."""
+    census instances' (m, sites) trips and (m, sites + 2) cycles."""
     from digital_earth_tpu_torch.render import pathtracer as pt
 
     idx, st0, args = c["idx"], c["st"], c["args"]
@@ -1228,6 +1295,203 @@ def check_scenes(torch, dev, atlas, luts):
                   f"{simt_text(march_simt(torch, trips, k), tracker_simt(torch, trips))}; "
                   f"cycle split {split_text(cycle_split(torch, cycles))}")
         del states
+
+
+# The reference's own estimator (TraceConfig): one wavelength a path,
+# independent uniform primary samples, the gases' sun transmittance by ratio
+# tracking; and each option alone.
+REF_ESTIMATOR = dict(hero_lambdas=1, stratify_spp=False, analytic_transmittance=False)
+REF_OPTIONS = (("hero_lambdas=1", dict(hero_lambdas=1)),
+               ("stratify_spp=False", dict(stratify_spp=False)),
+               ("analytic_transmittance=False", dict(analytic_transmittance=False)),
+               ("all three", REF_ESTIMATOR))
+
+
+def capture_ratio_args(torch, c, b):
+    """The arguments of the ratio tracker's call (the NEE lanes) in the
+    bounce's plain twin, run on the card on the captured state ``c`` of
+    bounce ``b`` with ``pathtracer.ratio_track_rmo`` wrapped, copied."""
+    from digital_earth_tpu_torch.render import pathtracer as pt
+
+    original, kept = pt.ratio_track_rmo, {}
+
+    def keep(*args):
+        kept["args"] = tuple(a.clone() if isinstance(a, torch.Tensor) else a for a in args)
+        return original(*args)
+
+    pt.ratio_track_rmo = keep
+    try:
+        pt.run_bounce_plain(c["st"].take(c["idx"].long()), b, *c["args"])
+        torch.cuda.synchronize()
+    finally:
+        pt.ratio_track_rmo = original
+    if "args" not in kept:
+        fail(f"the twin's bounce {b} made no call of the ratio tracker")
+    return kept["args"]
+
+
+def check_ratio_track(torch, args, label):
+    """rmo_ratio_track against its twin on captured arguments: every lane's
+    transmittance bit-equal, its iterations equal to the twin's loop count;
+    timed, with its bound from bytes and from the operations of those
+    iterations (threefry's at the integer rate). A JSON row."""
+    from digital_earth_tpu_torch import kernels
+    from digital_earth_tpu_torch.render import tracers
+
+    keys, pos, d, t0, t1, ext, max_ext, active, cfg = args
+    n, L = ext.shape[:2]
+    kw = dict(max_steps=cfg.max_tracking_steps, k=cfg.tracking_k)
+    (got, iters), ms = _time_ms(torch, lambda: kernels.rmo_ratio_track(
+        keys, pos, d, t0, t1, ext, max_ext, active, iters=True, **kw), 5)
+    trips = torch.zeros(n, dtype=torch.int32, device=pos.device)
+    want = tracers.ratio_track_rmo_plain(*args, trips=trips)
+    _, plain_ms = _plain_ms(torch, lambda: tracers.ratio_track_rmo_plain(*args))
+    parted = int((got.view(torch.int32) != want.view(torch.int32)).any(-1).sum())
+    same_iters = torch.equal(iters, trips)
+    err = (got - want).abs().max().item()
+    # keys, pos, dir, span, extinctions, majorant and the active flag read
+    # once, the transmittance written
+    nbytes = n * (8 + 24 + 8 + 12 * L + 4 + 1 + 4 * L)
+    ops = tracker_ops(torch, iters, cfg.tracking_k, NEE_RMO)
+    int_ops = tracker_ops(torch, iters, cfg.tracking_k, NEE_RMO, integer=True)
+    b_ms, b_by = bound(nbytes, ops, int_ops=int_ops)
+    lanes = iters > 0
+    ok = parted == 0 and same_iters
+    print(f"rmo_ratio_track {label}: {n} lanes ({int(active.sum())} NEE, L = {L}, K = "
+          f"{cfg.tracking_k}); transmittance bit-equal to the twin's on all but {parted} lanes, "
+          f"iterations equal {same_iters}; mean trans {got.mean().item():.6f}; "
+          f"{int(iters.sum())} iterations ({iters[lanes].float().mean().item():.3f} a tracked "
+          f"lane, max {int(iters.max())}); kernel {ms:.4f} ms, plain {plain_ms:.1f} ms; bound "
+          f"{b_ms:.4f} ms ({b_by}; {ops:.4g} operations, {int_ops:.4g} integer; bytes "
+          f"{nbytes / PEAK_BYTES * 1e3:.4f} ms)  {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"rmo_ratio_track disagrees with its plain twin ({label})")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bytes=nbytes, ops=ops,
+                int_ops=int_ops), iters
+
+
+def check_reference_estimator(torch, dev, atlas, luts):
+    """The reference's own estimator (REF_ESTIMATOR) at 1920x1080:
+    ``rmo_ratio_track`` against its twin on Apollo bounce 0's NEE lanes (at
+    four wavelengths, the ratio tracking alone, and at one, all three
+    options); the bounce entries' instances of the estimator against their
+    twin on the three scenes at bounces 0 and DEEP_BOUNCE, every lane
+    bit-equal, with the census's cycle split (the NEE RMO site's share) and
+    the ratio tracker's iterations per NEE lane; ``gen_rays`` at each new
+    mode against its twin; the path (``render_offline``, 3 spp) at the
+    estimator under phase 6's gates, with the launch counts set to 0 before
+    it and read after, and ``frame_end`` at one wavelength against its
+    twin; the chunked, adaptive and mesh entry points bit-equal to the
+    Renderer's spp; then s/spp of Apollo 11 at the default, each option alone and all
+    three, and of florida and sunset at the default and all three, in this
+    call. Returns (the rmo_ratio_track row, the path's launch counts)."""
+    from digital_earth_tpu_torch import kernels
+    from digital_earth_tpu_torch.app.config_io import load_config
+    from digital_earth_tpu_torch.app.viewer import render_offline
+    from digital_earth_tpu_torch.render import raygen
+    from digital_earth_tpu_torch.render.params import TraceConfig
+    from digital_earth_tpu_torch.render.renderer import Renderer
+
+    card = nvidia_smi_line()
+    ref = TraceConfig(**REF_ESTIMATOR)
+    for label, cfg in (("analytic_transmittance=False", TraceConfig(analytic_transmittance=False)),
+                       ("all three", ref)):
+        states, _, _ = capture_states(torch, dev, atlas, luts, bounces=(0,), cfg=cfg)
+        row, _ = check_ratio_track(torch, capture_ratio_args(torch, states[0], 0),
+                                   f"Apollo 11 {RES[0]}x{RES[1]} bounce 0, {label} ({card})")
+        del states
+    for scene in (SCENE, *(os.path.join(ROOT, "scenes", s) for s in OTHER_SCENES)):
+        name = os.path.basename(scene)[9:-4]
+        states, _, _ = capture_states(torch, dev, atlas, luts, bounces=(0, DEEP_BOUNCE),
+                                      scene=scene, cfg=ref)
+        for b, c in sorted(states.items()):
+            got, want, trips, cycles = _bounce_and_twin(torch, c, b)
+            _hold_lanes(torch, got, want, c["st"].work_class[c["idx"].long()],
+                        f"reference estimator {name} bounce {b}", exact=True)
+            nee = trips[:, NEE_RMO]
+            if not bool((nee > 0).any()):
+                fail(f"reference estimator {name} bounce {b}: no lane ran the ratio tracker")
+            simt = simt_text(march_simt(torch, trips, ref.march_k), tracker_simt(torch, trips))
+            print(f"census reference estimator {name} bounce {b}: {c['idx'].numel()} live; NEE RMO "
+                  f"ratio tracking on {int((nee > 0).sum())} lanes, "
+                  f"{nee[nee > 0].float().mean().item():.3f} iterations a lane (max "
+                  f"{int(nee.max())}); {simt}; cycle split {split_text(cycle_split(torch, cycles))} "
+                  f"({card})")
+        del states
+    r = _apollo(Renderer(dev, image_res=RES, atlas=atlas, luts=luts))
+    for label, options in REF_OPTIONS[:2] + REF_OPTIONS[3:]:
+        args = (r._seed_key, 0, 0, RES[0] * RES[1], RES, (1, RES[1]), r.camera_params(), luts,
+                False, None, TraceConfig(**options))
+        _hold_rays(torch, f"path {RES[0]}x{RES[1]} {label}", args)
+    r = _apollo(Renderer(dev, image_res=PREVIEW_RES, atlas=atlas, luts=luts, mode="preview"))
+    _hold_rays(torch, f"preview {PREVIEW_RES[0]}x{PREVIEW_RES[1]} stratify_spp=False",
+               (r._seed_key, 0, 0, PREVIEW_RES[0] * PREVIEW_RES[1], PREVIEW_RES, r.block,
+                r.camera_params(), luts, True, None, TraceConfig(stratify_spp=False)))
+    del r
+    # the estimator's path, through the entry point a user calls
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    r = render_offline(load_config(SCENE), dev, spp=1, image_res=RES, out_path=None, atlas=atlas,
+                       luts=luts, cfg=ref)
+    for _ in range(2):
+        r.accumulate()
+    img = r.fetch_image()
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    check_main_path(torch, counts, r, img, "reference estimator's path")
+    # one wavelength a path: a hero whose CIE pdf is below the sampler's
+    # 1e-3 cut has lambda_pdf 0, and its radiance is divided by the
+    # denominator's 1e-12 floor, as in the reference (ROADMAP C #5)
+    rays = raygen.gen_rays(r._seed_key, 0, 0, RES[0] * RES[1], RES, (1, RES[1]),
+                           r.camera_params(), luts, False, None, ref)
+    lum = r.color_buffer.sum(-1).flatten()
+    top = torch.topk(lum, 8).values
+    print(f"reference estimator's path: {int((rays.pdf == 0).sum())} of {RES[0] * RES[1]} lanes of "
+          f"an spp with lambda_pdf 0; the buffer's 8 largest pixel sums {top.tolist()}, its mean "
+          f"{r.color_buffer.mean().item():.6g}, without those 8 pixels "
+          f"{(lum.sum() - top.sum()).item() / (3 * (lum.numel() - 8)):.6g}")
+    del rays
+    check_frame_end(torch, capture_frame_end(torch, r.accumulate),
+                    f"path {RES[0]}x{RES[1]}, one wavelength a lane")
+    del r, img
+    # the other entry points at the estimator, each bit-equal to one
+    # Renderer spp: a chunked spp, an adaptive pass over every tile, and a
+    # (4, 1) mesh over this card
+    from digital_earth_tpu_torch.parallel.mesh import MultiChipRenderer, make_render_mesh
+
+    def spp(run, renderer):
+        run(_apollo(renderer))
+        torch.cuda.synchronize()
+        return renderer.color_buffer
+
+    want = spp(lambda r: r.accumulate(), Renderer(dev, image_res=RES, atlas=atlas, luts=luts,
+                                                  seed=5, cfg=ref))
+    same = {
+        "accumulate_interruptible(3)": spp(lambda r: r.accumulate_interruptible(3), Renderer(
+            dev, image_res=RES, atlas=atlas, luts=luts, seed=5, cfg=ref)),
+        "accumulate_adaptive(frac=1)": spp(lambda r: r.accumulate_adaptive(frac=1.0), Renderer(
+            dev, image_res=RES, atlas=atlas, luts=luts, seed=5, cfg=ref)),
+        "MultiChipRenderer (4, 1)": spp(lambda r: r.accumulate(), MultiChipRenderer(
+            make_render_mesh([dev] * 4, spp_axis=1), RES, atlas=atlas, luts=luts, seed=5,
+            cfg=ref)),
+    }
+    same = {name: torch.equal(buf, want) for name, buf in same.items()}
+    print(f"reference estimator's entry points at {RES[0]}x{RES[1]}, one spp bit-equal to "
+          f"Renderer.accumulate(): {same}")
+    if not all(same.values()):
+        fail(f"an entry point at the reference estimator parts from the Renderer: {same}")
+    del want
+    # s/spp in this call: 1 warm-up spp, then 2 timed, each configuration
+    runs = [(SCENE, label, options) for label, options in (("default", {}),) + REF_OPTIONS]
+    runs += [(os.path.join(ROOT, "scenes", s), label, options) for s in OTHER_SCENES
+             for label, options in (("default", {}), REF_OPTIONS[3])]
+    for scene, label, options in runs:
+        r = render_offline(load_config(scene), dev, spp=1, image_res=RES, out_path=None,
+                           atlas=atlas, luts=luts, cfg=TraceConfig(**options))
+        print(f"reference estimator s/spp {os.path.basename(scene)[9:-4]} {RES[0]}x{RES[1]} "
+              f"{label}: {_spp_seconds(torch, r, 2):.5f} ({card})")
+        del r
+    return row, counts
 
 
 def check_window(torch, states, table):
@@ -1273,6 +1537,7 @@ def check_window(torch, states, table):
           f"bounces): {ms:.3f} ms in one launch against {per_bounce:.3f} ms of bounce_flight + "
           f"bounce_shade launches (their kernel time alone) from there; twin {plain_ms:.1f} ms")
     ops = sum(table[b]["ops"] for b in table if b >= wb)
+    int_ops = sum(table[b]["int_ops"] for b in table if b >= wb)
     first = max(wb - WINDOW_STARTS, 0)
     starts = {}
     for b in range(first, min(wb + 3, cfg.max_bounces)):
@@ -1294,7 +1559,7 @@ def check_window(torch, states, table):
           f"a host read)")
     # each lane's state read and written once for the whole window
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bytes=BOUNCE_LANE_BYTES * idx.numel(),
-                ops=ops), wb, (single, wb), starts
+                ops=ops, int_ops=int_ops), wb, (single, wb), starts
 
 
 def _compact_times(torch, compact_lanes, alive, wc):
@@ -1701,11 +1966,12 @@ def check_gen_rays(torch, dev, atlas, luts):
         # tables read once; keys, dirs, wavelengths, responses, pdf and pid
         # written (and the preview's tile and in-tile lane)
         nbytes = luts.cie_cdf.shape[0] * 16 + n * (16 + 12 + 20 * L + 8 + (16 if L == 1 else 0))
-        b_ms, b_by = bound(nbytes, GEN_RAYS_OPS * n)
+        b_ms, b_by = bound(nbytes, GEN_RAYS_OPS * n, int_ops=GEN_RAYS_INT * n)
         print(f"gen_rays {mode} {res[0]}x{res[1]}: bound {b_ms:.4f} ms ({b_by}); the device "
               f"time is {b_ms / dev_ms:.2f} of it, the time per call {b_ms / ms:.2f}")
         if mode == "path":
-            row.update(ms=ms, plain_ms=plain_ms, bytes=nbytes, ops=GEN_RAYS_OPS * n)
+            row.update(ms=ms, plain_ms=plain_ms, bytes=nbytes, ops=GEN_RAYS_OPS * n,
+                       int_ops=GEN_RAYS_INT * n)
     return row
 
 
@@ -2961,7 +3227,8 @@ def path_bench(torch, dev):
     API, so that two versions can be alternated in one call: s/spp of Apollo
     11, florida and sunset hurricane at 1920x1080 (1 warm-up, 3 timed spp),
     then one profiled spp each (device kernels, device-busy share, the
-    bounce kernels' device ms); s/spp of the (4, 1) and (2, 2) meshes over
+    bounce kernels' device ms); their s/spp at the reference's own estimator
+    (REF_ESTIMATOR), where the package has its options; s/spp of the (4, 1) and (2, 2) meshes over
     [cuda:0] x 4 (1 warm-up, 2 timed); the 480x270 preview frame (2 warm-up,
     10 timed) and input to preview through EarthViewer with uniform idle
     frames (5 samples); the ms of the package's run_bounce at each bounce
@@ -3007,6 +3274,17 @@ def path_bench(torch, dev):
         out["gen_rays_kernel_ms"][name] = round(
             sum(us for k, us in by_name.items() if "gen_rays" in k) / 1e3, 4)
         del r
+    # the reference's own estimator, where the package has its options
+    from digital_earth_tpu_torch.render.params import TraceConfig
+
+    if "analytic_transmittance" in TraceConfig.__dataclass_fields__:
+        out["reference_estimator_s_per_spp"] = {}
+        for scene in (SCENE, *(os.path.join(ROOT, "scenes", s) for s in OTHER_SCENES)):
+            r = render_offline(load_config(scene), dev, spp=1, image_res=RES, out_path=None,
+                               atlas=atlas, luts=luts, cfg=TraceConfig(**REF_ESTIMATOR))
+            out["reference_estimator_s_per_spp"][os.path.basename(scene)[9:-4]] = round(
+                _spp_seconds(torch, r, 3), 5)
+            del r
     for shape, n_spp in (("(4, 1)", 1), ("(2, 2)", 2)):
         m = _mesh(torch, [dev] * 4, n_spp, atlas, luts, 0)
         m.accumulate()
@@ -3060,7 +3338,7 @@ def path_bench(torch, dev):
             round(_bounce_ms(torch, st0, lambda st: kernels.bounce_shade(*ka(st), flight=flight)), 4)]
     # per scene at bounces 0 and DEEP_BOUNCE: the lanes of bounce_flight +
     # bounce_shade not bit-equal to run_bounce_plain, the census's cycle
-    # split (the six sites, the flight's and the shade's shares, the warp
+    # split (the sites, the flight's and the shade's shares, the warp
     # cycles) and the trackers' SIMT efficiency
     out["bounce_not_bit_equal"], out["cycle_split"], out["tracker_simt"] = {}, {}, {}
     for scene in (SCENE, *(os.path.join(ROOT, "scenes", s) for s in OTHER_SCENES)):
@@ -3186,7 +3464,9 @@ def main():
     t0 = time.time()
     kernels.library()
     print(f"kernel build: {time.time() - t0:.1f} s (nvcc {' '.join(kernels.NVCC_FLAGS)})")
-    for src in ("bounce.cu", "compact_lanes.cu", "preview.cu", "atmos_march.cu", "select_tiles.cu"):
+    for src in ("bounce.cu", "bounce_l1.cu", "bounce_ratio.cu", "bounce_l1_ratio.cu",
+                "rmo_ratio_track.cu", "compact_lanes.cu", "preview.cu", "atmos_march.cu",
+                "select_tiles.cu"):
         for line in kernels.ptxas_log.get(src, "").splitlines():
             # each entry's registers and spills (not those of its device calls)
             if "registers" in line or "Compiling entry" in line or (
@@ -3263,6 +3543,8 @@ def main():
     cfg = states[0]["args"][3]
     for name, part in (("bounce_flight", "flight"), ("bounce_shade", "shade")):
         rows[name]["ops"] = bounce_ops(torch, census[0], cfg.march_k, cfg.tracking_k, part)
+        rows[name]["int_ops"] = bounce_ops(torch, census[0], cfg.march_k, cfg.tracking_k, part,
+                                           integer=True)
     table = bounce_table(torch, states, cfg)
     check_scenes(torch, dev, atlas, luts)
     rows["bounce_window"], _, schedule, _ = check_window(torch, states, table)
@@ -3272,6 +3554,7 @@ def main():
     check_texture(torch, lookups, atlas)
     del states, deepest, lookups, census, table
     check_window_spp(torch, dev, atlas, luts, schedule)
+    rows["rmo_ratio_track"], _ = check_reference_estimator(torch, dev, atlas, luts)
 
     # --- the viewer's path -------------------------------------------------
     rows["gen_rays"] = check_gen_rays(torch, dev, atlas, luts)
@@ -3354,6 +3637,8 @@ def main():
                        "digital_earth_tpu/render/pathtracer.py:211"),
         "rmo_delta_track": ("cuda", "digital_earth_tpu_torch/csrc/rmo_delta_track.cu",
                             "digital_earth_tpu/render/pathtracer.py:631"),
+        "rmo_ratio_track": ("cuda", "digital_earth_tpu_torch/csrc/rmo_ratio_track.cu",
+                            "digital_earth_tpu/render/pathtracer.py:814"),
         "cloud_track": ("cuda", "digital_earth_tpu_torch/csrc/cloud_track.cu",
                         "digital_earth_tpu/render/pathtracer.py:906"),
         "gen_rays": ("cuda", "digital_earth_tpu_torch/csrc/gen_rays.cu",
@@ -3393,7 +3678,7 @@ def main():
     entries = []
     for name, (route, src, rep) in sources.items():
         row = rows[name]
-        bound_ms, bound_by = bound(row["bytes"], row["ops"], row.get("sfu"))
+        bound_ms, bound_by = bound(row["bytes"], row["ops"], row.get("sfu"), row.get("int_ops", 0))
         # one PyTorch call computes compact_lanes's order (a stable
         # argsort) and upsample's repeat (expand + reshape; without the
         # jitter on two of the four planes), none the others' functions

@@ -1,677 +1,15 @@
-// bounce_flight + bounce_shade: one bounce of every live lane of the
-// wavefront, one thread per lane, in place, split at the end of the flight;
-// bounce_window: every remaining bounce of a few live lanes in one launch.
-//
-// Replaces the body of the TPU loop digital_earth_tpu/render/pathtracer.py:
-// 1554-1924 run_bounces (as the port's plain twin render/pathtracer.
-// run_bounce_plain computes it for one bounce). Thread t takes lane idx[t] of
-// the full-size state, reads it, advances it and writes it back: a lane owns
-// its slots, so there are no atomics, and lanes not in the list (the dead
-// ones) are not touched. In order, per lane and bounce:
-//   1. the hero wavelength's Rayleigh / Mie / ozone extinctions (volume.cuh);
-//   2. march on demand: one nearest topography tap certifies a terrain-free
-//      ball; a lane below the cloud slab marches first (land_march.cuh);
-//   3. the flight: cloud delta tracking, then RMO delta tracking capped at
-//      the cloud event (cloud_track.cuh, rmo_track.cuh); the march after it
-//      with t_cap, demotion of an RMO event beyond the land hit and the
-//      cloud event's resurrection;
-//   -- the flight's outcome (event, interaction id, distance, land hit) --
-//   4. every wavelength's extinctions again (pure functions of the
-//      wavelength, so bit-equal), the hero-packet MIS weight from the
-//      density-table segment integral (density_lut.cuh);
-//   5. the sun-cone sample; the surface branch: normal (4 bilinear taps),
-//      material (1 bilinear tap), albedo spectrum, shadow march (any hit),
-//      both BRDF evaluations (surface.cuh);
-//   6. sun transmittance: the closed-form RMO term from the table times
-//      cloud ratio tracking; the three radiance terms over the MIS
-//      denominator;
-//   7. the phase sample, Russian roulette past rr_start, and the lane's next
-//      work class (0 cloud scatter, 1 gas scatter, 2 surface bounce).
-// Every draw follows the reference's key chain (lane key -> bounce -> site
-// -> sub-site -> loop iteration; sites pathtracer.py:62-71), so the kernels
-// draw the twin's numbers lane by lane. Built with --fmad=false; every step
-// rounds as the twin does on the card (volume.cuh states the rules).
-//
-// Entries, all over the same device functions flight_lane (1-3) and
-// shade_lane (4-7), so every entry gives the same bits:
-//   - bounce_flight (steps 1-3, the outcome to a 16 B scratch entry per
-//     list entry) and bounce_shade (steps 4-7): one bounce of the wide
-//     wavefront. Split at the flight's end, the flight's loops run without
-//     the four-wavelength state live, at 64 registers and 32 resident warps
-//     per SM (steps 1-7 in one kernel: 120 and 16, 6.3 ms against the
-//     split's 3.1 at 1080p Apollo bounce 0, the same bits; minimum-block
-//     variants 4 and 6 of the flight measured within 4% of this one, 8;
-//     PERF.md). Their census instances also write each list entry's trip
-//     count at the six loop sites (pre-march, cloud flight, RMO flight,
-//     march after: bounce_flight; shadow march, NEE cloud ratio tracking:
-//     bounce_shade) into an (m, 6) int32 array, as the twin's masked loops
-//     count them, and, given an (m, 8) int64 array, each entry's clock64
-//     cycles at the six sites and in each kernel as a whole (columns 6
-//     flight, 7 shade); the timed instances have no such code;
-//   - bounce_window: each listed lane from the given bounce to max_bounces
-//     or its death, its state in registers, in blocks of 64 threads.
-// The live count comes as a device pointer: a warp whose threads all lie at
-// or past *n_live returns at once, so the host launches with an upper bound
-// it already holds and never waits for the count. The three land marches
-// (pre-march, march after the flight, shadow march) are warp-cooperative
-// (land_march_warp: a lane's K probes on as many threads as the warp's
-// marching lanes leave idle), so every other thread of a warp reaches
-// each march call, with no lane or with a lane that does not march there:
-// the marches' inputs are set in their branches and the calls made where
-// the whole warp passes.
-//
-// What bounds it on the H100: neither bytes (a lane moves about 200 B of
-// state, 0.12 ms for 2M lanes) nor the loops' operations (counted per trip
-// in chip_smoke.py, BOUNCE_*_OPS: 0.07 ms), but their divergence: trip counts
-// differ lane to lane, so a warp runs at its slowest lane's pace, and the
-// wavefront's tail leaves most of the card idle. The design keeps every
-// intermediate in registers, lists lanes by work class (compact_lanes.cu),
-// carries the tail in one launch (bounce_window), splits the wide bounces
-// so that the flight runs at twice the occupancy, and marches land with the
-// warp's threads on the marching lanes' probes.
-#include <cstdint>
-
-#include <cuda_runtime.h>
-
-#include "cloud_track.cuh"
-#include "density_lut.cuh"
-#include "land_march.cuh"
-#include "rmo_track.cuh"
-#include "spectral.cuh"
-#include "surface.cuh"
-#include "threefry.cuh"
-#include "volume.cuh"
+// The bounce entries' C interface and their default instances: a packet of
+// L = 4 wavelengths, the gases' sun transmittance in closed form. The
+// device code and the launchers are in bounce.cuh, which says what the
+// entries compute, what bounds them on the H100 and how they are built: the
+// other instances are in bounce_l1.cu, bounce_ratio.cu and
+// bounce_l1_ratio.cu. A launch takes the instance its parameters ask for
+// (ip[0], ip[15]).
+#include "bounce.cuh"
 
 namespace de {
 
-constexpr int BOUNCE_L = 4;  // wavelengths per hero packet
-constexpr int BOUNCE_BLOCK = 128;
-constexpr int WINDOW_BLOCK = 64;
-constexpr int FLIGHT_MIN_BLOCKS = 8;  // resident blocks of 128 per SM: 64 registers
-constexpr int BOUNCE_SITES = 6;
-enum { SITE_PRE_MARCH, SITE_CLOUD, SITE_RMO, SITE_POST_MARCH, SITE_SHADOW, SITE_NEE_CLOUD };
-// The census's cycle columns: the six sites, then each kernel's whole.
-constexpr int CYCLE_COLS = BOUNCE_SITES + 2;
-enum { CYC_FLIGHT = BOUNCE_SITES, CYC_SHADE };
-
-struct BounceParams {
-  float scale, step_floor, stall_thresh, o3_env_peak;
-  float light[3];
-  float sun_cos_angle, solid_angle, offset_scale;
-  float planck_a, planck_b, planck_k;
-  int bounce, rr_start, march_steps, march_k, patience, tracking_steps, tracking_k, bilinear;
-  int topo_h, topo_w, mat_h, mat_w, clouds_h, clouds_w;
-};
-
-struct BounceState {
-  float* pos;
-  float* dir;
-  const float* wavelength;
-  const float* lambda_pdf;
-  float* throughput;
-  float* radiance;
-  float* w_mis;
-  bool* alive;
-  bool* primary_miss;
-  int32_t* work_class;
-  const int32_t* keys;
-  const int32_t* idx;
-  const int32_t* n_live;  // the live count on the device, or null: m entries
-  const uint8_t* topo;
-  const uint8_t* material;
-  const uint8_t* clouds;
-  const float* o3;
-  const float* srgb2spec;
-  const float* table;
-  int32_t* trips;     // (m, BOUNCE_SITES) trip counts, census instance only
-  long long* cycles;  // (m, CYCLE_COLS) clock64 cycles, census instance only (or null)
-  int m, n;           // list entries (an upper bound of the live count), lanes
-};
-
-// The census instance's clock: tick() before a site, tock() after it writes
-// the cycles between into the entry's column (a thread's own clock64: the
-// cycles its warp spent there, waiting on its other lanes included).
-template <bool COUNT>
-__device__ __forceinline__ long long tick() {
-  if constexpr (COUNT) return clock64();
-  else return 0;
-}
-
-template <bool COUNT>
-__device__ __forceinline__ void tock(long long* cyc, int col, long long c0) {
-  if constexpr (COUNT) {
-    if (cyc) cyc[col] = clock64() - c0;
-  }
-}
-
-// The entries in the list: m, or the live count on the device below it.
-__device__ __forceinline__ int list_size(const BounceState& s) {
-  return s.n_live ? min(*s.n_live, s.m) : s.m;
-}
-
-// The list entry thread t works on, or -1.
-__device__ __forceinline__ int list_lane(const BounceState& s, int t) {
-  if (t >= list_size(s)) return -1;
-  const int lane = s.idx[t];
-  return (lane < 0 || lane >= s.n) ? -1 : lane;  // an id outside the state is not a lane
-}
-
-// True in every thread of a warp whose threads all lie past the list: it
-// returns at once. Every other thread stays to the end of its kernel, with
-// or without a lane, since the land march needs the full warp.
-__device__ __forceinline__ bool warp_past_list(const BounceState& s, int t) {
-  return (t & ~31) >= list_size(s);
-}
-
-// The loops as calls shared by their call sites (not inlined); the census
-// instance's calls also write the loop's trip count. Every thread of the
-// warp calls the march (land_march_warp), act set where its lane marches.
-__device__ __noinline__ float march_call(const uint8_t* __restrict__ topo, MarchParams p, V3 o,
-                                         V3 d, bool act, float cap) {
-  return land_march_warp(topo, p, o, d, act, cap);
-}
-
-__device__ __noinline__ float march_call_n(const uint8_t* __restrict__ topo, MarchParams p, V3 o,
-                                           V3 d, bool act, float cap, int* iters) {
-  return land_march_warp(topo, p, o, d, act, cap, iters);
-}
-
-// A warp none of whose lanes marches here skips the call: a miss, no trips.
-template <bool COUNT>
-__device__ __forceinline__ float march(const uint8_t* __restrict__ topo, const MarchParams& p,
-                                       V3 o, V3 d, bool act, float cap, int* trips, int site) {
-  if (!__any_sync(MARCH_FULL_WARP, act)) {
-    if (COUNT && trips) trips[site] = 0;
-    return -1.0f;
-  }
-  if constexpr (COUNT) return march_call_n(topo, p, o, d, act, cap, trips ? trips + site : nullptr);
-  else return march_call(topo, p, o, d, act, cap);
-}
-
-struct CloudOut {
-  int event;
-  float t, trans;
-};
-
-__device__ __noinline__ CloudOut cloud_call(Key key, V3 o, V3 d, float t0, float t1, float ew,
-                                            const uint8_t* __restrict__ clouds, int H, int W,
-                                            int steps, int k, bool ratio) {
-  CloudOut out;
-  cloud_track_lane(key, o, d, t0, t1, ew, true, clouds, H, W, steps, k, ratio, out.event,
-                   out.t, out.trans);
-  return out;
-}
-
-__device__ __noinline__ CloudOut cloud_call_n(Key key, V3 o, V3 d, float t0, float t1, float ew,
-                                              const uint8_t* __restrict__ clouds, int H, int W,
-                                              int steps, int k, bool ratio, int* iters) {
-  CloudOut out;
-  cloud_track_lane(key, o, d, t0, t1, ew, true, clouds, H, W, steps, k, ratio, out.event,
-                   out.t, out.trans, iters);
-  return out;
-}
-
-template <bool COUNT>
-__device__ __forceinline__ CloudOut cloud(Key key, V3 o, V3 d, float t0, float t1, float ew,
-                                          const BounceState& s, const BounceParams& p, bool ratio,
-                                          int* trips, int site) {
-  if constexpr (COUNT) {
-    return cloud_call_n(key, o, d, t0, t1, ew, s.clouds, p.clouds_h, p.clouds_w,
-                        p.tracking_steps, p.tracking_k, ratio, trips + site);
-  } else {
-    return cloud_call(key, o, d, t0, t1, ew, s.clouds, p.clouds_h, p.clouds_w, p.tracking_steps,
-                      p.tracking_k, ratio);
-  }
-}
-
-// Parametric span of the cloud slab along the ray (intersect_cloud_limits).
-__device__ __forceinline__ void cloud_limits(V3 o, V3 d, float land, float& t_start,
-                                             float& t_max) {
-  const float r = length(o);
-  float lo_n, lo_f, up_n, up_f;
-  rsi(o, d, CLOUDS_LOWER_F, lo_n, lo_f);
-  rsi(o, d, CLOUDS_UPPER_F, up_n, up_f);
-  const bool above = r >= CLOUDS_UPPER_F;
-  const bool inside = !above && r >= CLOUDS_LOWER_F;
-  if (above) {
-    t_start = fmaxf(up_n, 0.0f);
-    t_max = up_f < 0.0f ? -1.0f : (lo_f >= 0.0f ? lo_n : up_f);
-  } else if (inside) {
-    t_start = 0.0f;
-    t_max = lo_f >= 0.0f ? lo_n : up_f;
-  } else {
-    t_start = lo_f;
-    t_max = land > 0.0f ? -1.0f : up_f;
-  }
-}
-
-// Atmosphere span clipped by the land hit (_rmo_span).
-__device__ __forceinline__ void rmo_span(float a_near, float a_far, float land, float& t_start,
-                                         float& t_max) {
-  t_start = fmaxf(a_near, 0.0f);
-  t_max = a_far < 0.0f ? -1.0f : (land >= 0.0f ? land : a_far);
-}
-
-// torch.clamp(x, min=lo), which keeps a NaN
-__device__ __forceinline__ float clamp_min(float x, float lo) {
-  return isnan(x) ? x : fmaxf(x, lo);
-}
-
-__device__ __forceinline__ MarchParams march_params(const BounceParams& p) {
-  return MarchParams{p.topo_h, p.topo_w, p.scale, p.step_floor, p.stall_thresh, p.march_steps,
-                     p.march_k, p.patience, 0};
-}
-
-__device__ __forceinline__ float cloud_ext_w(int bounce) {
-  return bounce > 9 ? PY(0.02) : PY(0.1);
-}
-
-// The flight's outcome: event (0 none, 1 absorb, 2 scatter), interaction
-// id before the multi-scatter relabel, event distance, land hit (-1 none).
-struct Flight {
-  int event, iid;
-  float t_int, earth;
-};
-
-// Steps 1-3 of one bounce of a lane at pos along dir with hero wavelength
-// wl0 and bounce key kb. Every thread of the warp calls it (the marches
-// need the full warp); act false: no lane (its outcome is not used, and it
-// runs no tracker).
-template <bool COUNT>
-__device__ __forceinline__ Flight flight_lane(const BounceState& s, const BounceParams& p,
-                                              int bounce, bool act, V3 pos, V3 dir, float wl0,
-                                              Key kb, int* trips, long long* cyc) {
-  const float inf = __int_as_float(0x7f800000);
-  const float ext_w = cloud_ext_w(bounce);
-  const float scale = p.scale;
-  const MarchParams mp = march_params(p);
-
-  // 2. march on demand
-  float tap[4];
-  sphere_tap<4>(s.topo, p.topo_h, p.topo_w, pos, false, tap);
-  const float r_len = length(pos);
-  const float d_free =
-      fmaxf(fmaxf(fminf(r_len - (PLANET_R_F + scale * tap[1]), 25e3f),
-                  fminf(r_len - (PLANET_R_F + scale * tap[2]), 115e3f)),
-            fminf(r_len - (PLANET_R_F + scale * tap[3]), 8e3f));
-  float base_near, base_far;
-  rsi(pos, dir, PLANET_R_F, base_near, base_far);
-  const float cap_proxy = base_near > 0.0f ? base_near : -1.0f;
-  const bool below = r_len < CLOUDS_LOWER_F;
-  long long c0 = tick<COUNT>();
-  const float earth_pre =
-      march<COUNT>(s.topo, mp, pos, dir, act && below, inf, trips, SITE_PRE_MARCH);
-  tock<COUNT>(cyc, SITE_PRE_MARCH, c0);
-  const float land_proxy = below ? earth_pre : cap_proxy;
-
-  // 3. the flight: clouds, then the gases capped at the cloud event
-  Flight f{0, 0, 0.0f, -1.0f};
-  CloudOut cd{0, 0.0f, 1.0f};
-  if (act) {
-    const float e0 = spectra_extinction_rayleigh(wl0);
-    const float e1 = spectra_extinction_mie(wl0);
-    const float e2 = spectra_extinction_ozone(wl0, s.o3);
-    const Key k_flight = fold(kb, 1u);
-    float a_near, a_far;
-    rsi(pos, dir, ATMOS_UPPER_F, a_near, a_far);
-    float t_start, t_max;
-    rmo_span(a_near, a_far, land_proxy, t_start, t_max);
-    float c_start, c_max;
-    cloud_limits(pos, dir, land_proxy, c_start, c_max);
-    c0 = tick<COUNT>();
-    cd = cloud<COUNT>(fold(k_flight, 2u), pos, dir, c_start, c_max, ext_w, s, p, false, trips,
-                      SITE_CLOUD);
-    tock<COUNT>(cyc, SITE_CLOUD, c0);
-    const float rmo_cap = cd.event > 0 ? fminf(t_max, cd.t) : t_max;
-    int rmo_event, rmo_id;
-    float rmo_t;
-    c0 = tick<COUNT>();
-    rmo_track_lane(fold(k_flight, 1u), pos, dir, t_start, rmo_cap, e0, e1, e2, true,
-                   p.tracking_steps, p.tracking_k, p.o3_env_peak, rmo_event, rmo_t, rmo_id,
-                   COUNT ? trips + SITE_RMO : nullptr);
-    tock<COUNT>(cyc, SITE_RMO, c0);
-    const bool take_cloud = cd.event > 0 && rmo_event == 0;
-    f.event = take_cloud ? cd.event : rmo_event;
-    f.t_int = take_cloud ? cd.t : rmo_t;
-    f.iid = take_cloud ? 3 : rmo_id;
-  }
-
-  const bool need_march =
-      act && !below && (f.event == 0 || (f.iid != 3 && f.t_int > fmaxf(d_free, 0.0f)));
-  c0 = tick<COUNT>();
-  const float earth_post = march<COUNT>(s.topo, mp, pos, dir, need_march,
-                                        f.event > 0 ? f.t_int : 1e30f, trips, SITE_POST_MARCH);
-  tock<COUNT>(cyc, SITE_POST_MARCH, c0);
-  f.earth = need_march ? earth_post : earth_pre;
-  // demote RMO events beyond the land hit; the cloud event takes over
-  const bool demote = f.event > 0 && f.iid != 3 && f.earth >= 0.0f && f.earth <= f.t_int;
-  const bool resurrect = demote && cd.event > 0;
-  if (demote) f.event = resurrect ? cd.event : 0;
-  if (resurrect) {
-    f.t_int = cd.t;
-    f.iid = 3;
-  }
-  return f;
-}
-
-// A lane's per-bounce state in registers.
-template <int L>
-struct LaneRegs {
-  V3 pos, dir;
-  float wl[L], lpdf[L], thr[L], rad[L], wmis[L];
-  bool alive, miss0;  // alive after the bounce; a primary miss at bounce 0
-  int wc;             // the next work class, set when alive
-};
-
-template <int L>
-__device__ __forceinline__ void load_spectral(const BounceState& s, int lane, LaneRegs<L>& r) {
-#pragma unroll
-  for (int l = 0; l < L; ++l) {
-    r.wl[l] = s.wavelength[lane * L + l];
-    r.lpdf[l] = s.lambda_pdf[lane * L + l];
-    r.thr[l] = s.throughput[lane * L + l];
-    r.rad[l] = s.radiance[lane * L + l];
-    r.wmis[l] = s.w_mis[lane * L + l];
-  }
-}
-
-template <int L>
-__device__ __forceinline__ void store_lane(const BounceState& s, int lane, const LaneRegs<L>& r,
-                                           bool wc_set) {
-  if (wc_set) s.work_class[lane] = r.wc;
-  s.alive[lane] = r.alive;
-  if (r.miss0) s.primary_miss[lane] = true;
-  s.pos[3 * lane] = r.pos.x;
-  s.pos[3 * lane + 1] = r.pos.y;
-  s.pos[3 * lane + 2] = r.pos.z;
-  s.dir[3 * lane] = r.dir.x;
-  s.dir[3 * lane + 1] = r.dir.y;
-  s.dir[3 * lane + 2] = r.dir.z;
-#pragma unroll
-  for (int l = 0; l < L; ++l) {
-    s.throughput[lane * L + l] = r.thr[l];
-    s.radiance[lane * L + l] = r.rad[l];
-    s.w_mis[lane * L + l] = r.wmis[l];
-  }
-}
-
-// Steps 4-7 of one bounce of the lane in r, given its flight's outcome.
-// Every thread of the warp calls it (the shadow march needs the full warp);
-// act false: no lane, and r is left as it was.
-template <bool COUNT, int L>
-__device__ __forceinline__ void shade_lane(const BounceState& s, const BounceParams& p,
-                                           int bounce, bool act, LaneRegs<L>& r, Key kb,
-                                           Flight f, int* trips, long long* cyc) {
-  const V3 pos = r.pos, dir = r.dir;
-  const float inf = __int_as_float(0x7f800000);
-  const float ext_w = cloud_ext_w(bounce);
-  const float scale = p.scale;
-  float ext[L][3];
-#pragma unroll
-  for (int l = 0; l < L; ++l) {
-    ext[l][0] = spectra_extinction_rayleigh(r.wl[l]);
-    ext[l][1] = spectra_extinction_mie(r.wl[l]);
-    ext[l][2] = spectra_extinction_ozone(r.wl[l], s.o3);
-  }
-  int event = f.event, iid = f.iid;
-  const float t_int = f.t_int, earth = f.earth;
-
-  // 4. hero-packet MIS weight of this bounce's flight outcome
-  float a_near, a_far;
-  rsi(pos, dir, ATMOS_UPPER_F, a_near, a_far);
-  float rmo_t0, rmo_t1;
-  rmo_span(a_near, a_far, earth, rmo_t0, rmo_t1);
-  float t_w = event > 0 ? t_int : (earth > 0.0f ? earth : rmo_t1);
-  t_w = fminf(fmaxf(t_w, rmo_t0), fmaxf(rmo_t1, rmo_t0));
-  const bool rmo_collision = event > 0 && iid != 3;
-  if (act) {
-    float d_seg[3];
-    density_integral_segment(s.table, pos, dir, rmo_t0, fmaxf(t_w, rmo_t0), d_seg);
-    float tau[L];
-#pragma unroll
-    for (int l = 0; l < L; ++l) tau[l] = dot3(ext[l][0], ext[l][1], ext[l][2], d_seg[0], d_seg[1], d_seg[2]);
-    const int sp = min(iid, 2);
-    const float k0 = clamp_min(ext[0][sp], 1e-20f);
-#pragma unroll
-    for (int l = 0; l < L; ++l) {
-      float w = expf(-(tau[l] - tau[0]));
-      if (rmo_collision) w = w * (ext[l][sp] / k0);
-      r.wmis[l] = r.wmis[l] * w;
-      r.thr[l] = r.thr[l] * w;
-    }
-  }
-  if (bounce > 9 && iid == 3) iid = 4;
-  float denom = r.lpdf[0] * r.wmis[0];
-#pragma unroll
-  for (int l = 1; l < L; ++l) denom = denom + r.lpdf[l] * r.wmis[l];
-  denom = clamp_min(denom, 1e-12f);
-
-  // 5. sun cone; surface branch
-  const Key k_cone = fold(kb, 2u);
-  const V3 light_dir = sample_cone_oriented(uniform(k_cone, 0u), uniform(k_cone, 1u),
-                                            p.sun_cos_angle,
-                                            V3{p.light[0], p.light[1], p.light[2]});
-  const bool scatter = event == 2;
-  const bool surface = act && event == 0 && earth > 0.0f;
-  const bool miss = event == 0 && !(earth > 0.0f);
-  const V3 int_pos = along(pos, scatter ? t_int : 0.0f, dir);
-  float pn, planet_far;
-  rsi(int_pos, light_dir, PLANET_R_F, pn, planet_far);
-  const bool vol_nee = scatter && !(planet_far > 0.0f);
-
-  V3 offset_pos = pos, hemi_dir{0.0f, 1.0f, 0.0f}, normal{0.0f, 0.0f, 0.0f};
-  LandMaterial mat{};
-  if (surface) {
-    const TexView topo{s.topo, p.topo_h, p.topo_w};
-    const TexView material{s.material, p.mat_h, p.mat_w};
-    const bool bil = p.bilinear != 0;
-    const V3 land_pos = along(pos, earth, dir);
-    normal = land_normal(topo, land_pos, scale, bil);
-    mat = get_land_material(material, land_pos, bil);
-    offset_pos = V3{land_pos.x * p.offset_scale, land_pos.y * p.offset_scale,
-                    land_pos.z * p.offset_scale};
-  }
-  // the shadow march of the surface lanes, where the whole warp calls it
-  MarchParams shadow = march_params(p);
-  shadow.any_hit = 1;
-  const long long c0 = tick<COUNT>();
-  const float shadow_hit =
-      march<COUNT>(s.topo, shadow, offset_pos, light_dir, surface, inf, trips, SITE_SHADOW);
-  tock<COUNT>(cyc, SITE_SHADOW, c0);
-  if (!act) return;
-  const bool sur_vis = surface && shadow_hit < 0.0f;
-  float emissive = 0.0f, d_term[L], b_brdf[L];
-#pragma unroll
-  for (int l = 0; l < L; ++l) d_term[l] = b_brdf[l] = 0.0f;
-  if (surface) {
-    const V3 v{-dir.x, -dir.y, -dir.z};
-    const BrdfParts dp = earth_brdf_parts(mat.ocean, mat.bathymetry, v, normal, light_dir);
-    const Key k_hemi = fold(kb, 5u);
-    hemi_dir = sample_hemisphere_cosine_weighted(uniform(k_hemi, 0u), uniform(k_hemi, 1u), normal);
-    const BrdfParts bp = earth_brdf_parts(mat.ocean, mat.bathymetry, v, normal, hemi_dir);
-    emissive = mat.emissive;
-#pragma unroll
-    for (int l = 0; l < L; ++l) {
-      const float albedo = srgb_to_spectrum(s.srgb2spec, mat.albedo, r.wl[l]);
-      d_term[l] = (albedo * dp.diffuse + dp.specular) * dp.n_dot_l;
-      b_brdf[l] = albedo * bp.diffuse + bp.specular;
-    }
-  }
-  const bool sur_nee = surface && sur_vis;
-
-  // 6. sun transmittance and the radiance terms
-  float trans[L];
-#pragma unroll
-  for (int l = 0; l < L; ++l) trans[l] = 1.0f;
-  if (vol_nee || sur_nee) {
-    const V3 nee_origin = surface ? offset_pos : int_pos;
-    rmo_transmittance_to_space<L>(s.table, ext, nee_origin, light_dir, trans);
-    float n_start, n_max;
-    cloud_limits(nee_origin, light_dir, -1.0f, n_start, n_max);
-    const long long c1 = tick<COUNT>();
-    const CloudOut ct = cloud<COUNT>(fold(fold(kb, 3u), 2u), nee_origin, light_dir, n_start,
-                                     n_max, ext_w, s, p, true, trips, SITE_NEE_CLOUD);
-    tock<COUNT>(cyc, SITE_NEE_CLOUD, c1);
-#pragma unroll
-    for (int l = 0; l < L; ++l) trans[l] = trans[l] * ct.trans;
-  }
-  const bool reduce_peak = bounce > 0;
-  const float phase_d = vol_nee ? evaluate_phase(dir, light_dir, iid, reduce_peak) : 0.0f;
-#pragma unroll
-  for (int l = 0; l < L; ++l) {
-    const float sun_irr =
-        plancks(r.wl[l], PY(5778.0), p.planck_a, p.planck_b, p.planck_k) * p.solid_angle;
-    // each term added as the twin adds where(mask, term, 0) to every lane
-    float rad = r.rad[l];
-    rad = rad + (vol_nee ? (((r.thr[l] * trans[l]) * sun_irr) * phase_d) / denom : 0.0f);
-    rad = rad + (surface ? ((r.thr[l] * emissive) *
-                            (plancks(r.wl[l], PY(2700.0), p.planck_a, p.planck_b, p.planck_k) *
-                             PY(1e-4))) / denom
-                         : 0.0f);
-    rad = rad + (sur_nee ? (((r.thr[l] * trans[l]) * sun_irr) * d_term[l]) / denom : 0.0f);
-    r.rad[l] = rad;
-  }
-
-  // 7. the next direction, roulette, work class
-  if (scatter) {
-    const Key k_phase = fold(kb, 4u);
-    float phase_w;
-    V3 new_dir;
-    sample_phase_dir(uniform(k_phase, 0u), uniform(k_phase, 1u), uniform(k_phase, 2u), dir, iid,
-                     reduce_peak, new_dir, phase_w);
-    r.dir = new_dir;
-    r.pos = int_pos;
-#pragma unroll
-    for (int l = 0; l < L; ++l) r.thr[l] = r.thr[l] * phase_w;
-  } else if (surface) {
-    r.dir = hemi_dir;
-    r.pos = offset_pos;
-#pragma unroll
-    for (int l = 0; l < L; ++l) r.thr[l] = (r.thr[l] * b_brdf[l]) * PY(PI_D);
-  }
-  bool alive = scatter || surface;
-  if (bounce > p.rr_start) {
-    const float p_kill = clamp_min(1.0f - r.thr[0], 0.05f);
-    const bool killed = alive && uniform(fold(kb, 6u), 0u) < p_kill;
-    if (alive && !killed) {
-#pragma unroll
-      for (int l = 0; l < L; ++l) r.thr[l] = r.thr[l] / (1.0f - p_kill);
-    }
-    alive = alive && !killed;
-  }
-  const bool in_cloud = iid == 3 || iid == 4;
-  if (alive) r.wc = scatter && in_cloud ? 0 : (scatter ? 1 : 2);
-  r.alive = alive;
-  r.miss0 = r.miss0 || (miss && bounce == 0);
-}
-
-template <int L>
-__device__ __forceinline__ Key bounce_key(const BounceState& s, int lane, int bounce) {
-  return fold(load_key(s.keys, lane), (uint32_t)bounce);
-}
-
-// The census instance's trip counts of list entry t, sites [lo, hi) set
-// to 0; null in the timed instance.
-template <bool COUNT>
-__device__ __forceinline__ int* entry_trips(const BounceState& s, int t, int lo, int hi) {
-  if constexpr (COUNT) {
-    int* trips = s.trips + BOUNCE_SITES * t;
-    for (int j = lo; j < hi; ++j) trips[j] = 0;
-    return trips;
-  } else {
-    return nullptr;
-  }
-}
-
-// The census instance's cycle columns of list entry t, [lo, hi) set to 0
-// (a site a lane skips stays 0); null in the timed instance or without a
-// cycles array.
-template <bool COUNT>
-__device__ __forceinline__ long long* entry_cycles(const BounceState& s, int t, int lo, int hi) {
-  if constexpr (COUNT) {
-    if (!s.cycles) return nullptr;
-    long long* cyc = s.cycles + CYCLE_COLS * t;
-    for (int j = lo; j < hi; ++j) cyc[j] = 0;
-    return cyc;
-  } else {
-    return nullptr;
-  }
-}
-
-// Steps 1-3 of one bounce: the outcome of list entry t into out[t]
-// (t_int, earth, event, iid as float bits); COUNT: the census instance
-// (sites 0-3).
-template <int L, bool COUNT>
-__global__ void __launch_bounds__(BOUNCE_BLOCK, FLIGHT_MIN_BLOCKS)
-    bounce_flight_kernel(BounceState s, BounceParams p, float4* __restrict__ out) {
-  const long long c_all = tick<COUNT>();
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (warp_past_list(s, t)) return;
-  const int lane = list_lane(s, t);
-  const bool act = lane >= 0;
-  const int l = act ? lane : 0;  // a thread with no lane reads lane 0 and writes nothing
-  int* trips = act ? entry_trips<COUNT>(s, t, SITE_PRE_MARCH, SITE_SHADOW) : nullptr;
-  long long* cyc = act ? entry_cycles<COUNT>(s, t, SITE_PRE_MARCH, SITE_SHADOW) : nullptr;
-  const Flight f = flight_lane<COUNT>(s, p, p.bounce, act, load3(s.pos, l), load3(s.dir, l),
-                                      s.wavelength[l * L], bounce_key<L>(s, l, p.bounce), trips,
-                                      cyc);
-  if (act) out[t] = make_float4(f.t_int, f.earth, __int_as_float(f.event), __int_as_float(f.iid));
-  tock<COUNT>(cyc, CYC_FLIGHT, c_all);
-}
-
-// Steps 4-7 of one bounce from bounce_flight's outcome; COUNT: the census
-// instance (sites 4-5).
-template <int L, bool COUNT>
-__global__ void __launch_bounds__(BOUNCE_BLOCK)
-    bounce_shade_kernel(BounceState s, BounceParams p, const float4* __restrict__ in) {
-  const long long c_all = tick<COUNT>();
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (warp_past_list(s, t)) return;
-  const int lane = list_lane(s, t);
-  const bool act = lane >= 0;
-  const int l = act ? lane : 0;  // a thread with no lane reads lane 0 and writes nothing
-  int* trips = act ? entry_trips<COUNT>(s, t, SITE_SHADOW, BOUNCE_SITES) : nullptr;
-  long long* cyc = act ? entry_cycles<COUNT>(s, t, SITE_SHADOW, BOUNCE_SITES) : nullptr;
-  const float4 o = act ? in[t] : make_float4(0.0f, -1.0f, 0.0f, 0.0f);
-  const Flight f{__float_as_int(o.z), __float_as_int(o.w), o.x, o.y};
-  LaneRegs<L> r;
-  r.pos = load3(s.pos, l);
-  r.dir = load3(s.dir, l);
-  r.miss0 = false;
-  load_spectral(s, l, r);
-  shade_lane<COUNT, L>(s, p, p.bounce, act, r, bounce_key<L>(s, l, p.bounce), f, trips, cyc);
-  if (act) store_lane(s, lane, r, r.alive);
-  tock<COUNT>(cyc, CYC_SHADE, c_all);
-}
-
-// Bounces [p.bounce, stop) of each listed lane, until it dies; the warp
-// goes on while any of its lanes lives (the marches need the full warp),
-// a dead lane's thread with act false.
-template <int L>
-__global__ void __launch_bounds__(WINDOW_BLOCK)
-    bounce_window_kernel(BounceState s, BounceParams p, int stop) {
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (warp_past_list(s, t)) return;
-  const int lane = list_lane(s, t);
-  const int l = lane >= 0 ? lane : 0;  // a thread with no lane reads lane 0 and writes nothing
-  LaneRegs<L> r;
-  r.pos = load3(s.pos, l);
-  r.dir = load3(s.dir, l);
-  r.miss0 = false;
-  r.alive = lane >= 0;
-  load_spectral(s, l, r);
-  const Key key = load_key(s.keys, l);
-  bool wc_set = false;
-  for (int b = p.bounce; b < stop && __any_sync(MARCH_FULL_WARP, r.alive); ++b) {
-    const Key kb = fold(key, (uint32_t)b);
-    const bool act = r.alive;
-    const Flight f =
-        flight_lane<false>(s, p, b, act, r.pos, r.dir, r.wl[0], kb, nullptr, nullptr);
-    shade_lane<false, L>(s, p, b, act, r, kb, f, nullptr, nullptr);
-    wc_set = wc_set || r.alive;
-  }
-  if (lane >= 0) store_lane(s, lane, r, wc_set);
-}
+DE_BOUNCE_INSTANCE(4, false);
 
 static int unpack_params(const float* fp, const int* ip, BounceParams& p) {
   p.scale = fp[0];
@@ -685,7 +23,9 @@ static int unpack_params(const float* fp, const int* ip, BounceParams& p) {
   p.planck_a = fp[10];
   p.planck_b = fp[11];
   p.planck_k = fp[12];
-  if (ip[0] != BOUNCE_L) return (int)cudaErrorInvalidValue;
+  for (int j = 0; j < 3; ++j) p.max_dens[j] = fp[13 + j];
+  p.n_lambdas = ip[0];
+  if (p.n_lambdas != 1 && p.n_lambdas != 4) return (int)cudaErrorInvalidValue;
   p.bounce = ip[1];
   p.rr_start = ip[2];
   p.march_steps = ip[3];
@@ -701,17 +41,33 @@ static int unpack_params(const float* fp, const int* ip, BounceParams& p) {
   p.mat_w = ip[12];
   p.clouds_h = ip[13];
   p.clouds_w = ip[14];
+  p.ratio = ip[15];
+  if (p.ratio != 0 && p.ratio != 1) return (int)cudaErrorInvalidValue;
   return 0;
+}
+
+// Launch an entry at the width and transmittance the parameters ask for.
+static int launch_bounce(int entry, const BounceState& s, const BounceParams& p, void* scratch,
+                         int stop, cudaStream_t stream) {
+  if (p.n_lambdas == 4) {
+    return p.ratio ? launch_entry<4, true>(entry, s, p, scratch, stop, stream)
+                   : launch_entry<4, false>(entry, s, p, scratch, stop, stream);
+  }
+  return p.ratio ? launch_entry<1, true>(entry, s, p, scratch, stop, stream)
+                 : launch_entry<1, false>(entry, s, p, scratch, stop, stream);
 }
 
 }  // namespace de
 
-// fp (13 floats): scale, step_floor, stall_thresh, o3_env_peak,
+// fp (16 floats): scale, step_floor, stall_thresh, o3_env_peak,
 //     light_direction[3], sun_cos_angle, solid_angle (of the sun's cone),
-//     offset_scale (1 + 1e-4 scale / 12000), planck_a, planck_b, planck_k
-// ip (15 ints): n_lambdas, bounce, rr_start, land_march_steps, march_k,
-//     march_patience, max_tracking_steps, tracking_k, bilinear_materials,
-//     topography H, W, material H, W, clouds H, W
+//     offset_scale (1 + 1e-4 scale / 12000), planck_a, planck_b, planck_k,
+//     the gases' majorant densities[3] (read with ratio tracking)
+// ip (16 ints): n_lambdas (L, 1 or 4), bounce, rr_start, land_march_steps,
+//     march_k, march_patience, max_tracking_steps, tracking_k,
+//     bilinear_materials, topography H, W, material H, W, clouds H, W,
+//     ratio (1: the gases' sun transmittance by ratio tracking, the
+//     reference's estimator; 0: the closed form)
 // State (n lanes, read and written in place at the lanes of idx): pos,
 // dir (N, 3); wavelength, lambda_pdf, throughput, radiance, w_mis (N, L);
 // alive, primary_miss (N,) bool; work_class (N,) int32; keys (N, 2) int32.
@@ -719,8 +75,8 @@ static int unpack_params(const float* fp, const int* ip, BounceParams& p) {
 // null, is the live count on the device (entries at or past it are skipped).
 // Tables: topography (H, W, 4), material (H, W, 8), clouds (H, W, 4) uint8;
 // o3_crossec (441,), srgb2spec (300, 3), density table (384, 1024, 3) f32.
-// trips (bounce_flight, bounce_shade): null, or (m, 6) int32 trip counts
-// (the census instances); cycles: null, or with trips (m, 8) int64 clock64
+// trips (bounce_flight, bounce_shade): null, or (m, 7) int32 trip counts
+// (the census instances); cycles: null, or with trips (m, 9) int64 clock64
 // cycles (SITE_* columns, then the flight's and the shade's whole).
 #define DE_BOUNCE_ARGS                                                                    \
   const float *fp, const int *ip, float *pos, float *dir, const float *wavelength,        \
@@ -736,8 +92,6 @@ static int unpack_params(const float* fp, const int* ip, BounceParams& p) {
         trips, cycles, m, n                                                               \
   }
 
-static int grid_of(int m, int block) { return (m + block - 1) / block; }
-
 // bounce_flight: the flight's outcome of each list entry into scratch (m,
 // float4); trips and cycles as DE_BOUNCE_ARGS documents (sites 0-3 and
 // the flight's whole written).
@@ -745,62 +99,41 @@ extern "C" int de_bounce_flight(DE_BOUNCE_ARGS, void* scratch, int32_t* trips, l
                                 void* stream) {
   de::BounceParams p;
   if (int rc = de::unpack_params(fp, ip, p)) return rc;
-  const de::BounceState s = DE_BOUNCE_STATE(trips, cycles);
-  if (m > 0) {
-    const int grid = grid_of(m, de::BOUNCE_BLOCK);
-    float4* out = static_cast<float4*>(scratch);
-    if (trips) {
-      de::bounce_flight_kernel<de::BOUNCE_L, true>
-          <<<grid, de::BOUNCE_BLOCK, 0, (cudaStream_t)stream>>>(s, p, out);
-    } else {
-      de::bounce_flight_kernel<de::BOUNCE_L, false>
-          <<<grid, de::BOUNCE_BLOCK, 0, (cudaStream_t)stream>>>(s, p, out);
-    }
-  }
-  return (int)cudaGetLastError();
+  if (m <= 0) return (int)cudaGetLastError();
+  p.ratio = 0;  // the flight does not depend on it: one instance per width
+  return de::launch_bounce(de::ENTRY_FLIGHT, DE_BOUNCE_STATE(trips, cycles), p, scratch, 0,
+                           (cudaStream_t)stream);
 }
 
 // bounce_shade: steps 4-7 from bounce_flight's scratch (m, float4); trips
-// and cycles (sites 4-5 and the shade's whole written).
+// and cycles (sites 4-6 and the shade's whole written).
 extern "C" int de_bounce_shade(DE_BOUNCE_ARGS, const void* scratch, int32_t* trips,
                                long long* cycles, void* stream) {
   de::BounceParams p;
   if (int rc = de::unpack_params(fp, ip, p)) return rc;
-  const de::BounceState s = DE_BOUNCE_STATE(trips, cycles);
-  if (m > 0) {
-    const int grid = grid_of(m, de::BOUNCE_BLOCK);
-    const float4* in = static_cast<const float4*>(scratch);
-    if (trips) {
-      de::bounce_shade_kernel<de::BOUNCE_L, true>
-          <<<grid, de::BOUNCE_BLOCK, 0, (cudaStream_t)stream>>>(s, p, in);
-    } else {
-      de::bounce_shade_kernel<de::BOUNCE_L, false>
-          <<<grid, de::BOUNCE_BLOCK, 0, (cudaStream_t)stream>>>(s, p, in);
-    }
-  }
-  return (int)cudaGetLastError();
+  if (m <= 0) return (int)cudaGetLastError();
+  return de::launch_bounce(de::ENTRY_SHADE, DE_BOUNCE_STATE(trips, cycles), p,
+                           const_cast<void*>(scratch), 0, (cudaStream_t)stream);
 }
 
 // Bounces [ip[1], stop) of the listed lanes in one launch.
 extern "C" int de_bounce_window(DE_BOUNCE_ARGS, int stop, void* stream) {
   de::BounceParams p;
   if (int rc = de::unpack_params(fp, ip, p)) return rc;
-  const de::BounceState s = DE_BOUNCE_STATE(nullptr, nullptr);
-  if (m > 0 && stop > p.bounce) {
-    de::bounce_window_kernel<de::BOUNCE_L>
-        <<<grid_of(m, de::WINDOW_BLOCK), de::WINDOW_BLOCK, 0, (cudaStream_t)stream>>>(s, p, stop);
-  }
-  return (int)cudaGetLastError();
+  if (m <= 0 || stop <= p.bounce) return (int)cudaGetLastError();
+  return de::launch_bounce(de::ENTRY_WINDOW, DE_BOUNCE_STATE(nullptr, nullptr), p, nullptr, stop,
+                           (cudaStream_t)stream);
 }
 
 // Occupancy of an entry on the current device: out = (resident blocks per
 // SM, threads per block, registers per thread, local memory bytes per
-// thread). which: 0 bounce_flight, 1 bounce_shade, 2 bounce_window.
+// thread). which: 0 bounce_flight, 1 bounce_shade, 2 bounce_window, each
+// the default instance (L = 4, the closed-form transmittance).
 extern "C" int de_bounce_occupancy(int which, int* out) {
   const void* fns[] = {
-      (const void*)de::bounce_flight_kernel<de::BOUNCE_L, false>,
-      (const void*)de::bounce_shade_kernel<de::BOUNCE_L, false>,
-      (const void*)de::bounce_window_kernel<de::BOUNCE_L>,
+      (const void*)de::bounce_flight_kernel<4, false>,
+      (const void*)de::bounce_shade_kernel<4, false, false>,
+      (const void*)de::bounce_window_kernel<4, false>,
   };
   if (which < 0 || which > 2) return (int)cudaErrorInvalidValue;
   const int block = which == 2 ? de::WINDOW_BLOCK : de::BOUNCE_BLOCK;

@@ -13,13 +13,16 @@
 //   - the lane key fold(spp_key, pid);
 //   - the R3 rQMC point (host-computed, uint32 fixed point rounded to
 //     float32) plus the Cranley-Patterson shift
-//     uniform(fold(fold(pixel_domain_key, pid), 101), 0..2), mod 1;
+//     uniform(fold(fold(pixel_domain_key, pid), 101), 0..2), mod 1; or,
+//     unstratified (TraceConfig.stratify_spp False, renderer.py:189-191),
+//     the jitter uniform(fold(lane_key, 101), 0..1) and the wavelength's
+//     uniform(fold(lane_key, 102), 0);
 //   - the jittered pinhole direction from the camera basis (computed once
 //     on the host);
 //   - the CIE inverse CDF: binary search for the first g[i] >= u
 //     (searchsorted side="left"), clipped to [1, res - 1], then the hero
-//     packet's L rotations (L = 4) or the preview's single wavelength
-//     (L = 1, with 1 / pdf).
+//     packet's L rotations (L = 4 or 1, TraceConfig.hero_lambdas; the
+//     pdf q of each) or the preview's single wavelength (L = 1, 1 / q).
 // Each Python divisor of the plain twin (/ H in cast_dirs, / res in
 // _cie_mid, / L of the rotations) is a multiply by float32(1 / b), the
 // reciprocal taken in double, as PyTorch's CUDA ops apply it; so every
@@ -29,7 +32,8 @@
 // the tile map's divisions by per-launch constants as multiply-high
 // divisors; g and the XYZ response (4 res floats) staged in shared memory
 // by each block of 256 lanes for the search and the lerps; keys,
-// wavelengths, responses and pdf written as 16-byte stores (L = 4), the
+// wavelengths, responses and pdf written as 16-byte stores (L = 4; L = 1
+// stores each float), the
 // block's directions through shared memory as one coalesced run. On the
 // H100 at 1080p one block per 256 lanes beat a grid of 8 resident blocks
 // per SM striding over the lanes (whose table staging it saved), and the
@@ -48,6 +52,7 @@
 namespace de {
 
 constexpr uint32_t SITE_JITTER = 101u;
+constexpr uint32_t SITE_WL = 102u;
 constexpr int RAY_THREADS = 256;
 
 struct RayGenParams {
@@ -59,7 +64,7 @@ struct RayGenParams {
   uint32_t spp_k0, spp_k1, pix_k0, pix_k1;
   uint32_t lane0, n, h, bw, bh;
   FastDiv tile, nby, bh_div;  // bw * bh, h / bh, bh
-  int res, preview;
+  int res, preview, stratify;
 };
 
 __device__ __forceinline__ float saturate_f(float x) { return fminf(fmaxf(x, 0.0f), 1.0f); }
@@ -100,12 +105,19 @@ gen_rays_kernel(const float* __restrict__ g, const float* __restrict__ cie_respo
     const Key lk = fold(Key{p.spp_k0, p.spp_k1}, pid);
     reinterpret_cast<longlong2*>(keys)[i] = make_longlong2((int64_t)lk.k0, (int64_t)lk.k1);
 
-    const Key sk = fold(fold(Key{p.pix_k0, p.pix_k1}, pid), SITE_JITTER);
     float u3[3];
+    if (p.stratify) {
+      const Key sk = fold(fold(Key{p.pix_k0, p.pix_k1}, pid), SITE_JITTER);
 #pragma unroll
-    for (int j = 0; j < 3; ++j) {
-      const float x = uniform(sk, (uint32_t)j) + p.seq[j];
-      u3[j] = x - floorf(x);  // mod 1 of a value in [0, 2): exact
+      for (int j = 0; j < 3; ++j) {
+        const float x = uniform(sk, (uint32_t)j) + p.seq[j];
+        u3[j] = x - floorf(x);  // mod 1 of a value in [0, 2): exact
+      }
+    } else {
+      const Key jk = fold(lk, SITE_JITTER);
+      u3[0] = uniform(jk, 0u);
+      u3[1] = uniform(jk, 1u);
+      u3[2] = uniform(fold(lk, SITE_WL), 0u);
     }
 
     // cast_dirs
@@ -189,7 +201,8 @@ int launch_gen_rays(const float* g, const float* cie_response, int64_t* keys, fl
 // fp: d[3], du[3], dv[3], two_fov, fov, fov_aspect, aspect_scale, seq[3],
 //     cdf_max[3] (19 floats)
 // ip: spp_k0, spp_k1, pix_k0, pix_k1, lane0, w, h, bw, bh, res, n_lambdas,
-//     preview (12 int64)
+//     preview, stratify (13 int64; stratify 1: the R3 point under the
+//     pixel's shift, 0: independent uniforms from the lane key)
 // keys (n, 2) int64, dirs (n, 3), wavelengths (n, L), responses (n, L, 3),
 // pdf (n, L), pid (n,) int64; tile_index, lane_index (n,) int64 or null;
 // tile_ids: int32 tile list on the device, or null for consecutive tiles.
@@ -235,6 +248,7 @@ extern "C" int de_gen_rays(const float* fp, const int64_t* ip, const float* g,
   p.bh_div = de::make_fast_div((uint32_t)bh);
   p.res = (int)res;
   p.preview = (int)ip[11];
+  p.stratify = (int)ip[12];
   cudaStream_t s = (cudaStream_t)stream;
   if (L == 4)
     return de::launch_gen_rays<4>(g, cie_response, keys, dirs, wavelengths, responses, pdf, pid,

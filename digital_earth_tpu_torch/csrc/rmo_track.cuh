@@ -1,7 +1,10 @@
 // Woodcock (delta) tracking of a free-flight event through the Rayleigh /
 // Mie / ozone gases for one lane, as a device function: the body of the
 // rmo_delta_track kernel (rmo_delta_track.cu) and of the bounce kernel's
-// flight (bounce.cu).
+// flight (bounce.cuh). Below it, ratio tracking of the gases'
+// transmittance (rmo_ratio_lane): the body of the rmo_ratio_track kernel
+// (rmo_ratio_track.cu) and of the bounce's sun transmittance when
+// TraceConfig.analytic_transmittance is False.
 //
 // Per lane and iteration i it draws the reference's threefry stream
 // uniform(fold(key, i), (3, K)) (digital_earth_tpu/render/pathtracer.py:631
@@ -77,6 +80,64 @@ __device__ __forceinline__ void rmo_track_lane(Key key, V3 o, V3 d, float t_star
   event_out = event;
   t_out = t;
   iid_out = iid;
+}
+
+// Residual ratio tracking of the gases' transmittance over [t_start, tm]
+// for the L wavelengths of one lane (digital_earth_tpu/render/pathtracer.py
+// :814 _ratio_track_rmo), one free-flight stream at the packet majorant
+// max_ext. Iteration i draws uniform(fold(key, i), (K,)); probe j steps by
+// -log(max(u_j, 1e-12)) / max_ext from the iteration's start (prefix sums in
+// the reference's sequential order), and a probe before tm multiplies
+// wavelength l's factor by 1 - ext[l] . dens / max_ext, the factors taken
+// in order of j, then the transmittance by the iteration's factor. The
+// probes after the first one at or past tm change nothing and end the lane,
+// so they are not drawn. A lane also ends once every wavelength's
+// transmittance is below 1e-5, or after max_steps iterations. An invalid
+// lane keeps 1. With ``iters`` the loop's iterations are written there.
+template <int L>
+__device__ __forceinline__ void rmo_ratio_lane(Key key, V3 o, V3 d, float t_start, float tm,
+                                               const float (&ext)[L][3], float max_ext,
+                                               bool active, int max_steps, int k, float (&trans)[L],
+                                               int* iters = nullptr) {
+#pragma unroll
+  for (int l = 0; l < L; ++l) trans[l] = 1.0f;
+  const bool valid = active && (tm >= 0.0f) && (t_start < tm);
+  const float inv_max = 1.0f / max_ext;
+  const float tms = fmaxf(tm, 0.0f);
+  float t = t_start;
+  bool done = !valid;
+  int it = 0;
+  for (int i = 0; i < max_steps && !done; ++i) {
+    ++it;
+    const Key ki = fold(key, (uint32_t)i);
+    float block[L];
+#pragma unroll
+    for (int l = 0; l < L; ++l) block[l] = 1.0f;
+    float cs = 0.0f, ts = t;
+    for (int j = 0; j < k; ++j) {
+      const float step = -logf(fmaxf(uniform(ki, (uint32_t)j), 1e-12f)) * inv_max;
+      cs = j == 0 ? step : cs + step;
+      ts = t + cs;
+      if (!(ts < tm)) break;  // this probe and the later ones (ts grows) stay 1
+      const V3 p = along(o, fminf(ts, tms), d);
+      float dens[3];
+      get_density(sqrtf(dot(p, p)) - PLANET_R_F, dens);
+#pragma unroll
+      for (int l = 0; l < L; ++l) {
+        const float total = dot3(dens[0], dens[1], dens[2], ext[l][0], ext[l][1], ext[l][2]);
+        block[l] = block[l] * (1.0f - total * inv_max);
+      }
+    }
+    float most = 0.0f;
+#pragma unroll
+    for (int l = 0; l < L; ++l) {
+      trans[l] = trans[l] * block[l];
+      most = l == 0 ? trans[l] : fmaxf(most, trans[l]);
+    }
+    t = ts;
+    done = ts >= tm || most < 1e-5f;
+  }
+  if (iters) *iters = it;
 }
 
 }  // namespace de

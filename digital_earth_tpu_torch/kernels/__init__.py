@@ -60,6 +60,9 @@ _SIGNATURES = {
     # max_steps, k, o3_env_peak, stream
     "de_rmo_delta_track": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                            _I, _I, _F, _P],
+    # keys, pos, dir, t_start, t_max, ext, max_ext, active, trans, iters, n,
+    # n_lambdas, max_steps, k, stream
+    "de_rmo_ratio_track": [_P] * 10 + [_I, _I, _I, _I, _P],
     # keys, pos, dir, t_start, t_max, ext_w, active, clouds, H, W, event, t,
     # trans, n, max_steps, k, ratio, stream
     "de_cloud_track": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P,
@@ -291,6 +294,39 @@ def rmo_delta_track(keys, pos, direction, t_start, t_max, ext_h, active, *,
     return event, t, iid
 
 
+def rmo_ratio_track(keys, pos, direction, t_start, t_max, ext, max_ext, active, *,
+                    max_steps: int, k: int, iters: bool = False):
+    """Launch ``rmo_ratio_track`` (csrc/rmo_ratio_track.cu): the (n, L)
+    transmittance of the gases by ratio tracking at the (n,) packet majorant
+    ``max_ext``, ``ext`` the (n, L, 3) extinctions, L in ``BOUNCE_WIDTHS``;
+    with ``iters``, (trans, the (n,) int32 iterations of each lane)."""
+    dev = pos.device
+    n = pos.shape[0]
+    L = ext.shape[1] if ext.dim() == 3 else 0
+    if L not in BOUNCE_WIDTHS:
+        raise ValueError(f"rmo_ratio_track: {L} wavelengths per lane, the kernel takes "
+                         f"{' or '.join(map(str, BOUNCE_WIDTHS))}")
+    keys = keys_i32(keys)
+    _check("keys", keys, torch.int32, (n, 2), dev)
+    _check("pos", pos, torch.float32, (n, 3), dev)
+    _check("direction", direction, torch.float32, (n, 3), dev)
+    _check("t_start", t_start, torch.float32, (n,), dev)
+    _check("t_max", t_max, torch.float32, (n,), dev)
+    _check("ext", ext, torch.float32, (n, L, 3), dev)
+    _check("max_ext", max_ext, torch.float32, (n,), dev)
+    _check("active", active, torch.bool, (n,), dev)
+    trans = torch.empty((n, L), dtype=torch.float32, device=dev)
+    it = torch.empty((n,), dtype=torch.int32, device=dev) if iters else None
+    if n:
+        _launch(
+            "de_rmo_ratio_track", _ptr(keys), _ptr(pos), _ptr(direction), _ptr(t_start),
+            _ptr(t_max), _ptr(ext), _ptr(max_ext), _ptr(active), _ptr(trans), _ptr_or_null(it),
+            n, L, max_steps, k,
+        )
+        _count(rmo_ratio_track, 1)
+    return (trans, it) if iters else trans
+
+
 def cloud_track(keys, pos, direction, t_start, t_max, ext_w, active, clouds, *,
                 max_steps: int, k: int, ratio: bool):
     """Launch ``cloud_track`` (csrc/cloud_track.cu): (event int32, t) in
@@ -361,18 +397,22 @@ def gen_rays(fparams, iparams, g, cie_response, n: int, n_lambdas: int, tile_ids
     int64, dirs (n, 3), wavelengths (n, L), responses (n, L, 3), pdf (n, L),
     pid (n,) int64, and with ``tile_map`` each lane's tile index and in-tile
     lane (n,) int64, else None, None). ``fparams`` (19 floats) and
-    ``iparams`` (12 ints) are laid out as the C entry de_gen_rays documents
+    ``iparams`` (13 ints; the last is 1 for the stratified primary samples,
+    0 for independent ones) are laid out as the C entry de_gen_rays documents
     (render/raygen.py builds them on the host); ``tile_ids`` is an int32
     tile list (lane l in tile tile_ids[l // tile]) or None. Reads nothing
     back from the card, so a CUDA graph can capture it."""
     dev = g.device
     res = g.shape[0]
-    if len(fparams) != 19 or len(iparams) != 12:
-        raise ValueError("gen_rays: expected 19 float and 12 int parameters")
+    if len(fparams) != 19 or len(iparams) != 13:
+        raise ValueError("gen_rays: expected 19 float and 13 int parameters")
     _check("g", g, torch.float32, (res,), dev)
     _check("cie_response", cie_response, torch.float32, (res, 3), dev)
-    if n_lambdas not in (1, 4) or not 2 <= res <= 3072:
+    if n_lambdas not in BOUNCE_WIDTHS or not 2 <= res <= 3072:
         raise ValueError(f"gen_rays: {n_lambdas} wavelengths (1 or 4), a table of {res} (2-3072)")
+    if iparams[10] != n_lambdas or iparams[12] not in (0, 1):
+        raise ValueError(f"gen_rays: {iparams[10]} wavelengths in the parameters for {n_lambdas}, "
+                         f"stratify flag {iparams[12]} (0 or 1)")
     lane0 = iparams[4]
     if lane0 < 0 or lane0 + n >= 2**31:
         raise ValueError(f"gen_rays: lanes [{lane0}, {lane0 + n}) outside [0, 2^31)")
@@ -391,7 +431,7 @@ def gen_rays(fparams, iparams, g, cie_response, n: int, n_lambdas: int, tile_ids
     li = torch.empty((n,), dtype=torch.int64, device=dev) if tile_map else None
     if n:
         fp = (ctypes.c_float * 19)(*fparams)
-        ip = (ctypes.c_int64 * 12)(*iparams)
+        ip = (ctypes.c_int64 * 13)(*iparams)
         _launch(
             "de_gen_rays", ctypes.cast(fp, ctypes.c_void_p), ctypes.cast(ip, ctypes.c_void_p),
             _ptr(g), _ptr(cie_response), _ptr(keys), _ptr(dirs), _ptr(wavelengths),
@@ -623,10 +663,13 @@ def film_postprocess(color_buffer, count, spp: float, exposure_scale: float,
     return out
 
 
-BOUNCE_LAMBDAS = 4  # the bounce kernel's hero packet (csrc/bounce.cu BOUNCE_L)
-BOUNCE_SITES = 6  # the census's loop sites (csrc/bounce.cu SITE_*)
-# the census's clock64 columns: the six sites, then bounce_flight's and
-# bounce_shade's whole (csrc/bounce.cu CYCLE_COLS)
+# wavelengths per lane the bounce entries, gen_rays and the ratio tracker are
+# built for (csrc/bounce.cuh; TraceConfig.hero_lambdas takes these)
+BOUNCE_WIDTHS = (1, 4)
+BOUNCE_FLOATS, BOUNCE_INTS = 16, 16  # the bounce entries' parameter blocks (csrc/bounce.cu)
+BOUNCE_SITES = 7  # the census's loop sites (csrc/bounce.cuh SITE_*)
+# the census's clock64 columns: the seven sites, then bounce_flight's and
+# bounce_shade's whole (csrc/bounce.cuh CYCLE_COLS)
 BOUNCE_CYCLE_COLS = BOUNCE_SITES + 2
 # de_bounce_occupancy's entries
 OCCUPANCY_ENTRIES = ("bounce_flight", "bounce_shade", "bounce_window")
@@ -639,11 +682,15 @@ def _bounce_args(fparams, iparams, pos, direction, wavelength, lambda_pdf, throu
     dev = pos.device
     n = pos.shape[0]
     m = idx.shape[0]
-    L = BOUNCE_LAMBDAS
-    if len(fparams) != 13 or len(iparams) != 15:
-        raise ValueError("bounce: expected 13 float and 15 int parameters")
-    if iparams[0] != L:
-        raise ValueError(f"bounce: {iparams[0]} wavelengths per lane, the kernel takes {L}")
+    if len(fparams) != BOUNCE_FLOATS or len(iparams) != BOUNCE_INTS:
+        raise ValueError(f"bounce: expected {BOUNCE_FLOATS} float and {BOUNCE_INTS} int "
+                         "parameters")
+    L = iparams[0]
+    if L not in BOUNCE_WIDTHS:
+        raise ValueError(f"bounce: {L} wavelengths per lane, the kernels take "
+                         f"{' or '.join(map(str, BOUNCE_WIDTHS))}")
+    if iparams[15] not in (0, 1):
+        raise ValueError(f"bounce: ratio flag {iparams[15]}, expected 0 or 1")
     _check_march_k(iparams[4])
     for name, t in (("pos", pos), ("direction", direction)):
         _check(name, t, torch.float32, (n, 3), dev)
@@ -667,8 +714,8 @@ def _bounce_args(fparams, iparams, pos, direction, wavelength, lambda_pdf, throu
     _check("o3_crossec", o3_crossec, torch.float32, (441,), dev)
     _check("srgb2spec", srgb2spec, torch.float32, (300, 3), dev)
     _check("table", table, torch.float32, (384, 1024, 3), dev)
-    fp = (ctypes.c_float * 13)(*fparams)
-    ip = (ctypes.c_int * 15)(*iparams)
+    fp = (ctypes.c_float * BOUNCE_FLOATS)(*fparams)
+    ip = (ctypes.c_int * BOUNCE_INTS)(*iparams)
     return [
         ctypes.cast(fp, ctypes.c_void_p), ctypes.cast(ip, ctypes.c_void_p),
         _ptr(pos), _ptr(direction), _ptr(wavelength), _ptr(lambda_pdf), _ptr(throughput),
@@ -696,15 +743,17 @@ def bounce_flight(*args, n_live=None, trips=None, cycles=None):
     fparams, iparams, pos, direction, wavelength, lambda_pdf, throughput,
     radiance, w_mis, alive, primary_miss, work_class, keys, idx, topo,
     material, clouds, o3_crossec, srgb2spec, table. ``keys`` are the (N, 2)
-    lane keys as int32 (``keys_i32``); ``fparams`` (13 floats) and
-    ``iparams`` (15 ints) are laid out as csrc/bounce.cu documents
+    lane keys as int32 (``keys_i32``); ``fparams`` (16 floats) and
+    ``iparams`` (16 ints) are laid out as csrc/bounce.cu documents
     (render/pathtracer.py builds them). With ``n_live``, the (1,) int32 live
     count on the device, entries of ``idx`` at or past it are skipped
-    (``idx`` is then an upper bound's worth). With ``trips``, an (m, 6)
+    (``idx`` is then an upper bound's worth). With ``trips``, an (m, 7)
     int32 tensor, the census instance also writes each entry's trip count
     at the flight's four loop sites (columns 0-3), and with ``cycles``, an
-    (m, 8) int64 tensor, its clock64 cycles there and in the whole kernel
-    (column 6)."""
+    (m, 9) int64 tensor, its clock64 cycles there and in the whole kernel
+    (column 7). The wavelengths per lane (``iparams[0]``, one of
+    ``BOUNCE_WIDTHS``) and the sun transmittance (``iparams[15]``: 1 ratio
+    tracking, 0 the closed form) pick the kernels' instance."""
     c_args, _refs = _bounce_args(*args, n_live)
     m = args[13].shape[0]
     dev = args[2].device
@@ -721,8 +770,9 @@ def bounce_shade(*args, flight, n_live=None, trips=None, cycles=None):
     (arguments as ``bounce_flight`` takes them; the state is read and written
     in place), from ``bounce_flight``'s (m, 4) outcome ``flight`` of the same
     list. With ``trips``, the census instance writes the trip counts of the
-    shadow march and NEE cloud tracking (columns 4-5), with ``cycles`` their
-    clock64 cycles and the whole kernel's (column 7)."""
+    shadow march, NEE cloud tracking and NEE RMO ratio tracking (columns
+    4-6; column 6 is 0 with the closed form), with ``cycles`` their clock64
+    cycles and the whole kernel's (column 8)."""
     c_args, _refs = _bounce_args(*args, n_live)
     m = args[13].shape[0]
     dev = args[2].device
@@ -824,7 +874,7 @@ def density_check(pos, direction, t0, t1, ext_rmo, table):
     space (n, 4)), computed on the card by csrc/density_check.cu."""
     dev = pos.device
     n = pos.shape[0]
-    L = BOUNCE_LAMBDAS
+    L = 4  # csrc/density_check.cu CHECK_L
     _check("pos", pos, torch.float32, (n, 3), dev)
     _check("direction", direction, torch.float32, (n, 3), dev)
     _check("t0", t0, torch.float32, (n,), dev)
@@ -977,9 +1027,9 @@ def atmos_march_occupancy():
     return _occupancy("de_atmos_march_occupancy")
 
 
-PATH_KERNELS = (land_march, rmo_delta_track, cloud_track, gen_rays, atmos_march,
-                film_postprocess, frame_end, select_tiles, select_tiles_shard, bounce_flight,
-                bounce_shade, bounce_window, compact_lanes, upsample, preview)
+PATH_KERNELS = (land_march, rmo_delta_track, rmo_ratio_track, cloud_track, gen_rays,
+                atmos_march, film_postprocess, frame_end, select_tiles, select_tiles_shard,
+                bounce_flight, bounce_shade, bounce_window, compact_lanes, upsample, preview)
 for _k in PATH_KERNELS:
     _k.launches = 0
 

@@ -302,3 +302,21 @@ def get_density(h):
 def get_elevation(pos):
     """Elevation above the sphere of radius PLANET_R."""
     return length(pos) - C.PLANET_R
+
+
+# The gases' majorant densities: Rayleigh and Mie at sea level, ozone at its
+# 25 km peak (reference pathtracer.py:79 _MAX_DENS_RMO), float32 values.
+MAX_DENS_RMO = tuple(
+    float(f(torch.tensor(h, dtype=torch.float32)))
+    for f, h in ((get_rayl_density, 0.0), (get_mie_density, 0.0),
+                 (get_ozone_density, C.OZONE_PEAK_HEIGHT))
+)
+
+
+def max_extinction_rmo(ext_rmo):
+    """The packet majorant of the gases (pathtracer.py:1539): over the
+    wavelengths of each (n, L, 3) extinction row, the largest sum of the
+    three extinctions at their majorant densities, summed left to right."""
+    m = ext_rmo.new_tensor(MAX_DENS_RMO)
+    scaled = ext_rmo * m
+    return torch.amax(scaled[..., 0] + scaled[..., 1] + scaled[..., 2], dim=-1)

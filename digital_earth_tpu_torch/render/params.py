@@ -8,6 +8,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from .. import constants as C
+from ..kernels import BOUNCE_WIDTHS as HERO_WIDTHS  # the packets the kernels are built for
 from ..ops import math_utils as mu
 
 
@@ -87,6 +88,13 @@ class TraceConfig:
     """The trace budgets and estimator options the port implements; names
     and defaults are the reference's (digital_earth_tpu/render/params.py).
 
+    ``hero_lambdas``, ``stratify_spp`` and ``analytic_transmittance`` at
+    1, False and False make up the reference's own estimator: single
+    wavelength paths, independent uniform primary samples, and ratio
+    tracking of the gases' sun transmittance in place of the closed form.
+    ``hero_lambdas`` takes the packet widths the bounce kernels are built
+    for, ``HERO_WIDTHS``.
+
     The reference's other fields select TPU experiments, parity-bisection
     paths or TPU scheduling; the port implements each at its default.
     ``convert.trace_config`` carries a reference config across and rejects
@@ -100,3 +108,14 @@ class TraceConfig:
     tracking_k: int = 4
     march_k: int = 4
     march_floor_frac: float = 0.005
+    hero_lambdas: int = 4
+    stratify_spp: bool = True
+    analytic_transmittance: bool = True
+
+    def __post_init__(self):
+        if self.hero_lambdas not in HERO_WIDTHS:
+            raise ValueError(
+                f"TraceConfig.hero_lambdas={self.hero_lambdas!r}: the port's kernels are built "
+                f"for packets of {' or '.join(map(str, HERO_WIDTHS))} wavelengths"
+            )
+

@@ -1,12 +1,14 @@
-"""Wavefront spectral volumetric path tracer, default configuration (port of
-digital_earth_tpu/render/pathtracer.py).
+"""Wavefront spectral volumetric path tracer (port of
+digital_earth_tpu/render/pathtracer.py), at the default configuration and
+at the reference's estimator (``TraceConfig`` hero_lambdas 1 or 4,
+analytic_transmittance True or False).
 
 One bounce of the reference's ``run_bounces`` body (pathtracer.py:1554-1924)
 is ``run_bounce``: for CUDA tensors the kernels ``bounce_flight`` and
-``bounce_shade`` (csrc/bounce.cu; their census instances count the loops'
-trips), for CPU tensors its plain
-twin ``run_bounce_plain`` (the eager body, with the three per-lane loops of
-``tracers.py``). ``run_bounces``
+``bounce_shade`` (csrc/bounce.cu, at the instance of the packet width and
+the sun transmittance; their census instances count the loops' trips), for
+CPU tensors its plain twin ``run_bounce_plain`` (the eager body, with the
+per-lane loops of ``tracers.py``). ``run_bounces``
 applies it one bounce at a time to the lanes that are still alive, listed by
 ``compact.compact_by_alive`` (binned by work class, stable; the kernel
 ``compact_lanes`` on the card). On the card, once the live count falls
@@ -40,7 +42,8 @@ from .params import SceneParams, TraceConfig
 from .tracers import (  # noqa: F401  (re-exported loop entry points)
     ABSORB_EVENT, NULL_EVENT, SCATTER_EVENT, _CLOUD_VALID, _MARCH_STALL_PATIENCE,
     _MIP_VALID_COARSE, _MIP_VALID_FINE, _march_floor, delta_track_rmo, delta_track_rmo_plain,
-    intersect_land, intersect_land_plain, track_cloud, track_cloud_plain,
+    intersect_land, intersect_land_plain, ratio_track_rmo, ratio_track_rmo_plain, track_cloud,
+    track_cloud_plain,
 )
 
 # RNG site ids (pathtracer.py:62-71): lane key -> bounce -> site -> loop.
@@ -53,11 +56,12 @@ _SITE_RR = 6
 _SUB_RMO = 1
 _SUB_CLOUD = 2
 
-# The bounce's loop sites, the columns of a trip-count census (csrc/bounce.cu
+# The bounce's loop sites, the columns of a trip-count census (csrc/bounce.cuh
 # SITE_*): the march before the flight (lanes below the cloud slab), cloud
 # delta tracking, RMO delta tracking, the march after the flight, the
-# surface's shadow march, the sun's cloud ratio tracking.
-CENSUS_SITES = ("pre_march", "cloud", "rmo", "post_march", "shadow", "nee_cloud")
+# surface's shadow march, the sun's cloud ratio tracking and, with
+# ``TraceConfig.analytic_transmittance`` False, the sun's RMO ratio tracking.
+CENSUS_SITES = ("pre_march", "cloud", "rmo", "post_march", "shadow", "nee_cloud", "nee_rmo")
 
 
 def land_sdf(topo, pos, scale, bilinear=True):
@@ -165,13 +169,24 @@ def sample_interaction(keys, ray_pos, ray_dir, land_isection, ext_rmo, ext_w,
 
 def sample_transmittance(keys, ray_pos, ray_dir, ext_rmo, ext_w, atlas,
                          active, cfg: TraceConfig, trips=None):
-    """Sun transmittance (n, L): the exact RMO closed form from the density
-    table times cloud ratio tracking (pathtracer.py:1326). With ``trips``
-    (n, 6) int32 the plain loop runs and adds its iterations to the census
-    column of the NEE cloud pass."""
+    """Sun transmittance (n, L): the gases' term times cloud ratio tracking
+    (pathtracer.py:1326). The gases' term is the exact closed form from the
+    density table, or with ``cfg.analytic_transmittance`` False the
+    reference's estimator, ratio tracking to space at the packet majorant
+    (:1348-1354). With ``trips`` (n, 7) int32 the plain loops run and add
+    their iterations to the census columns of the NEE passes."""
     k_cloud = rng.fold(keys, _SUB_CLOUD)
-    trans = atm.rmo_transmittance_to_space(ext_rmo, ray_pos, ray_dir)
     no_land = torch.full_like(ext_w, -1.0)
+    if cfg.analytic_transmittance:
+        trans = atm.rmo_transmittance_to_space(ext_rmo, ray_pos, ray_dir)
+    else:
+        t_start, t_max = _rmo_span(ray_pos, ray_dir, no_land)
+        rmo_args = (rng.fold(keys, _SUB_RMO), ray_pos, ray_dir, t_start, t_max, ext_rmo,
+                    vol.max_extinction_rmo(ext_rmo), active, cfg)
+        if trips is None:
+            trans = ratio_track_rmo(*rmo_args)
+        else:
+            trans = ratio_track_rmo_plain(*rmo_args, trips=trips[:, 6])
     c_start, c_max = intersect_cloud_limits(ray_pos, ray_dir, no_land)
     cloud_args = (k_cloud, ray_pos, ray_dir, c_start, c_max, ext_w, atlas.clouds, active, cfg)
     if trips is None:
@@ -248,8 +263,8 @@ def run_bounce_plain(st: TraceState, bounce: int, scene: SceneParams, atlas, lut
     ``bounce_shade``, and each bounce of ``bounce_window``): one bounce of
     every lane in ``st`` (all alive), the reference's ``run_bounces`` body
     at ``bounce`` (pathtracer.py:1554-1924), in a new state. With ``trips``, an
-    (n, 6) int32 tensor, the loops run as their plain versions (on any
-    device) and add each lane's iterations at the six loop sites
+    (n, 7) int32 tensor, the loops run as their plain versions (on any
+    device) and add each lane's iterations at the seven loop sites
     (``CENSUS_SITES``), as the kernels' census instances count them."""
 
     def land(*args, site, **kwargs):
@@ -478,12 +493,13 @@ class BounceFrame:
         scale_f, light, cos_angle, solid_angle, offset_scale = scene_floats(scene)
         step_floor, stall_thresh = _march_floor(topo, cfg)
         self.fparams = [scale_f, step_floor, stall_thresh, atm._O3_ENV_PEAK, *light, cos_angle,
-                        solid_angle, offset_scale, *sp.planck_kernel_constants()]
+                        solid_angle, offset_scale, *sp.planck_kernel_constants(),
+                        *vol.MAX_DENS_RMO]
         self.iparams = [
             st.wavelength.shape[1], 0, cfg.rr_start, cfg.land_march_steps, cfg.march_k,
             _MARCH_STALL_PATIENCE, cfg.max_tracking_steps, cfg.tracking_k,
             int(cfg.bilinear_materials), *topo.shape[:2], *atlas.material.shape[:2],
-            *atlas.clouds.shape[:2],
+            *atlas.clouds.shape[:2], int(not cfg.analytic_transmittance),
         ]
         self.keys = kernels.keys_i32(st.rng)
         self.tables = (topo, atlas.material, atlas.clouds, luts.o3_crossec, luts.srgb2spec,
@@ -535,7 +551,7 @@ def run_window_plain(st: TraceState, idx, bounce_start: int, bounce_stop: int,
     the fixed set of lanes ``idx`` of ``st`` (all alive at the start), in
     place, each bounce ``run_bounce_plain`` on the set's lanes still alive,
     listed as ``run_bounces`` lists them (binned, stable). With ``trips``, a
-    (bounce_stop - bounce_start, N, 6) int32 tensor, each bounce's trip
+    (bounce_stop - bounce_start, N, 7) int32 tensor, each bounce's trip
     counts land at its lanes."""
     lanes = torch.sort(idx.to(torch.int64)).values  # each bin in lane order, as run_bounces
     for b in range(bounce_start, bounce_stop):

@@ -12,6 +12,12 @@ keys every draw by pixel and runs its lanes in pixel order, which is the
 same map with blocks of (1, H). An adaptive pass traces a list of tiles
 (``tile_ids``, int32): lane ``l`` then lies in tile ``tile_ids[l // tile]``
 (renderer.py:304 ``_trace_tile_range(..., tile_ids=)``).
+
+The trace config picks the primary samples and the packet, as the
+reference's: ``stratify_spp`` the R3 point under the pixel's
+Cranley-Patterson shift, or (False) independent uniforms from the lane key
+(renderer.py:176-191), in the path and the preview alike; ``hero_lambdas``
+the path's packet width (the preview traces one wavelength).
 """
 
 from __future__ import annotations
@@ -27,16 +33,16 @@ from ..assets.luts import ray_tables
 from ..ops import rng
 from ..ops import spectral as sp
 from .camera import CameraParams, HostCamera, camera_basis, cast_dirs
+from .params import TraceConfig
 
-# Frame-level RNG site and the R3 rQMC constants (renderer.py:41-53).
+# Frame-level RNG sites and the R3 rQMC constants (renderer.py:41-53).
 _SITE_JITTER = 101
+_SITE_WL = 102
 _PIXEL_DOMAIN = 0x70697865
 _R3_G = 1.2207440846057596
 _R3_A32 = tuple(
     int(round((1.0 / _R3_G**i % 1.0) * 2**32)) & 0xFFFFFFFF for i in (1, 2, 3)
 )
-# Wavelengths per hero packet (reference TraceConfig.hero_lambdas).
-HERO_LAMBDAS = 4
 
 
 def pick_block_dims(w: int, h: int, target: int) -> Tuple[int, int]:
@@ -75,7 +81,8 @@ def tile_pixel_coords(lane, image_res, block, tile_ids=None):
 
 class Rays(NamedTuple):
     """Per-lane output of ray generation. ``pdf`` is the hero packet's
-    lambda pdf (L = 4), or 1 / pdf of the preview's single wavelength. The
+    lambda pdf (L = ``hero_lambdas``), or 1 / pdf of the preview's single
+    wavelength. The
     preview (keyed by tile) also gets each lane's tile and in-tile index."""
 
     keys: torch.Tensor         # (n, 2) int64 lane keys fold(spp_key, pid)
@@ -118,7 +125,8 @@ def _camera_floats(host: HostCamera, w: int, h: int):
 
 
 def gen_rays_plain(base_key, spp: int, lane0: int, n: int, image_res, block,
-                   cam: CameraParams, luts, preview: bool, tile_ids=None) -> Rays:
+                   cam: CameraParams, luts, preview: bool, tile_ids=None,
+                   cfg: TraceConfig = TraceConfig()) -> Rays:
     """Plain PyTorch twin of the ``gen_rays`` kernel for lanes
     [lane0, lane0 + n); ``base_key`` is the frame key as two ints."""
     _, h = image_res
@@ -128,10 +136,14 @@ def gen_rays_plain(base_key, spp: int, lane0: int, n: int, image_res, block,
     pid = pu_i * h + pv_i
     base = torch.tensor(base_key, dtype=torch.int64, device=dev)
     keys = rng.lane_keys(rng.fold(base, spp), pid)
-    pkeys = rng.lane_keys(rng.fold(base, _PIXEL_DOMAIN), pid)
-    shift = rng.uniform(rng.fold(pkeys, _SITE_JITTER), (3,))
-    seq = torch.tensor(_seq(spp), dtype=torch.float32, device=dev)
-    u3 = torch.remainder(shift + seq[:, None], 1.0)
+    if cfg.stratify_spp:
+        pkeys = rng.lane_keys(rng.fold(base, _PIXEL_DOMAIN), pid)
+        shift = rng.uniform(rng.fold(pkeys, _SITE_JITTER), (3,))
+        seq = torch.tensor(_seq(spp), dtype=torch.float32, device=dev)
+        u3 = torch.remainder(shift + seq[:, None], 1.0)
+    else:
+        u3 = torch.cat([rng.uniform(rng.fold(keys, _SITE_JITTER), (2,)),
+                        rng.uniform(rng.fold(keys, _SITE_WL), (1,))])
     cpu_cam = cam.host.params("cpu")
     basis = tuple(t.to(dev) for t in camera_basis(cpu_cam))
     dirs = cast_dirs(cpu_cam, pu_i.to(torch.float32), pv_i.to(torch.float32),
@@ -140,38 +152,41 @@ def gen_rays_plain(base_key, spp: int, lane0: int, n: int, image_res, block,
         wl, resp, rcp_pdf = sp.spectrum_sample(u3[2], luts.cie_cdf, luts.cie_response)
         return Rays(keys, dirs, wl[:, None], resp[:, None, :], rcp_pdf[:, None], pid, tidx, li)
     wl, resp, pdf = sp.spectrum_sample_hero(
-        u3[2], luts.cie_cdf, luts.cie_response, HERO_LAMBDAS
+        u3[2], luts.cie_cdf, luts.cie_response, cfg.hero_lambdas
     )
     return Rays(keys, dirs, wl, resp, pdf, pid)
 
 
 def kernel_params(base_key, spp: int, lane0: int, image_res, block,
-                  cam: CameraParams, luts, preview: bool):
-    """The ``gen_rays`` kernel's (19 float, 12 int) parameters from host
+                  cam: CameraParams, luts, preview: bool, cfg: TraceConfig = TraceConfig()):
+    """The ``gen_rays`` kernel's (19 float, 13 int) parameters from host
     values alone: the camera's ``host`` floats (its basis computed once in
     float32 on the CPU), the CIE CDF's totals recorded with ``luts``
-    (assets/luts.ray_tables), the keys derived on the host. Reads no tensor."""
+    (assets/luts.ray_tables), the keys derived on the host, the packet width
+    and the primary samples' mode from ``cfg``. Reads no tensor."""
     w, h = image_res
     _, cdf_max = ray_tables(luts)
     fparams = [*_camera_floats(cam.host, w, h), *_seq(spp), *cdf_max]
     k0, k1 = base_key
     iparams = [*_host_key(k0, k1, spp), *_host_key(k0, k1, _PIXEL_DOMAIN), lane0, w, h,
-               block[0], block[1], luts.cie_cdf.shape[0], 1 if preview else HERO_LAMBDAS,
-               int(preview)]
+               block[0], block[1], luts.cie_cdf.shape[0], 1 if preview else cfg.hero_lambdas,
+               int(preview), int(cfg.stratify_spp)]
     return fparams, iparams
 
 
 def gen_rays(base_key, spp: int, lane0: int, n: int, image_res, block,
-             cam: CameraParams, luts, preview: bool, tile_ids=None) -> Rays:
+             cam: CameraParams, luts, preview: bool, tile_ids=None,
+             cfg: TraceConfig = TraceConfig()) -> Rays:
     """Rays for lanes [lane0, lane0 + n) (of the tiles ``tile_ids`` when
-    given): the plain version on a CPU render device, the ``gen_rays``
-    kernel on a CUDA one, which reads nothing back from the card."""
+    given) under ``cfg``'s primary samples and packet width: the plain
+    version on a CPU render device, the ``gen_rays`` kernel on a CUDA one,
+    which reads nothing back from the card."""
     if luts.cie_cdf.device.type == "cpu":
         return gen_rays_plain(base_key, spp, lane0, n, image_res, block, cam, luts, preview,
-                              tile_ids)
-    fparams, iparams = kernel_params(base_key, spp, lane0, image_res, block, cam, luts, preview)
+                              tile_ids, cfg)
+    fparams, iparams = kernel_params(base_key, spp, lane0, image_res, block, cam, luts, preview,
+                                     cfg)
     g, _ = ray_tables(luts)
     return Rays(*kernels.gen_rays(
-        fparams, iparams, g, luts.cie_response, n, 1 if preview else HERO_LAMBDAS, tile_ids,
-        tile_map=preview,
+        fparams, iparams, g, luts.cie_response, n, iparams[10], tile_ids, tile_map=preview,
     ))

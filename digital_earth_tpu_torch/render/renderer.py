@@ -59,7 +59,7 @@ def trace_lanes(base_key, spp: int, lane0: int, n: int, cam: CameraParams,
     the preview kernel's parameter blocks (built here when None)."""
     preview = mode == "preview"
     rays = raygen.gen_rays(base_key, spp, lane0, n, image_res, block, cam, luts, preview,
-                           tile_ids)
+                           tile_ids, cfg=cfg)
     dev = rays.dirs.device
     pid = rays.pid if out_index is None else out_index
     origin = cam.host.position

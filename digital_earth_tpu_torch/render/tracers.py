@@ -1,4 +1,4 @@
-"""The three per-lane tracing loops of the bounce, each as a plain PyTorch
+"""The per-lane tracing loops of the bounce, each as a plain PyTorch
 version and a wrapper that launches the hand-written CUDA kernel
 (``csrc/``) for CUDA tensors:
 
@@ -8,6 +8,10 @@ version and a wrapper that launches the hand-written CUDA kernel
 - ``delta_track_rmo``: Woodcock flight through Rayleigh/Mie/ozone with the
   local hero majorant (pathtracer.py:631 _delta_track_rmo) -> kernel
   ``rmo_delta_track``;
+- ``ratio_track_rmo``: ratio tracking of the gases' sun transmittance at
+  the packet majorant, the reference's estimator when
+  ``TraceConfig.analytic_transmittance`` is False (pathtracer.py:814
+  _ratio_track_rmo) -> kernel ``rmo_ratio_track``;
 - ``track_cloud``: space-skipping cloud-slab tracking, delta and ratio modes
   (pathtracer.py:906 _track_cloud) -> kernel ``cloud_track``.
 
@@ -17,7 +21,8 @@ lane's loop only reads its own state and a shared iteration counter, so the
 plain versions here iterate over the still-live lanes only, and the kernels
 run one thread per lane to its own end. Both keep the K-probe results: the
 same probe positions, the same first-stopping probe, the same threefry draw
-``uniform(fold(key, i), (3, K))`` for lane iteration i.
+``uniform(fold(key, i), (3, K))`` (``(K,)`` for the ratio tracker) for
+lane iteration i.
 
 A wrapper takes the plain version only for tensors on the CPU; a CUDA tensor
 launches the kernel (``digital_earth_tpu_torch.kernels``) or raises. On the
@@ -280,7 +285,7 @@ def intersect_land(topo, pos, direction, scale, active, cfg: TraceConfig,
 
 
 # ---------------------------------------------------------------------------
-# RMO delta tracking (pathtracer.py:631-746)
+# RMO delta tracking (pathtracer.py:631-746) and ratio tracking (:814-903)
 # ---------------------------------------------------------------------------
 
 _ALBEDOS = torch.from_numpy(C.SCATTERING_ALBEDOS)
@@ -357,6 +362,65 @@ def delta_track_rmo(keys, ray_pos, ray_dir, t_start, t_max, ext_h, active,
         keys, ray_pos, ray_dir, t_start, t_max, ext_h, active,
         max_steps=cfg.max_tracking_steps, k=cfg.tracking_k,
         o3_env_peak=atm._O3_ENV_PEAK,
+    )
+
+
+def ratio_track_rmo_plain(keys, ray_pos, ray_dir, t_start, t_max, ext, max_ext, active,
+                          cfg: TraceConfig, trips=None):
+    """Plain PyTorch twin of the ``rmo_ratio_track`` kernel: residual ratio
+    tracking of the gases' transmittance over [t_start, t_max] (pathtracer.py
+    :814 _ratio_track_rmo). ``ext`` is the (n, L, 3) extinction, ``max_ext``
+    the (n,) packet majorant: one free-flight stream for all L wavelengths.
+    Per iteration i, K steps drawn from uniform(fold(key, i), (K,)); a probe
+    before t_max multiplies each wavelength's transmittance by 1 - ext . dens
+    / max_ext, the K factors taken in order of j. A lane stops once a probe
+    passes t_max or every wavelength's transmittance is below 1e-5. Returns
+    (n, L); the loop's iterations per lane are added to ``trips`` (n,) int32
+    if given. The products are loops over j (not ``torch.prod``), so the
+    kernel rounds them in the same order."""
+    n, L = ext.shape[:2]
+    k = cfg.tracking_k
+    valid = active & (t_max >= 0.0) & (t_start < t_max)
+    inv_max = 1.0 / max_ext
+
+    def body(i, s, c):
+        t = s["t"]
+        u = rng.uniform(rng.fold(c["keys"], i), (k,))  # (k, m)
+        steps = -torch.log(torch.clamp(u, min=1e-12)) * c["inv_max"][None]
+        ts = t[None, :] + _cumsum(steps)
+        pos = c["pos"][None] + torch.minimum(ts, c["tms"][None])[..., None] * c["dir"][None]
+        dens = vol.get_density(vol.get_elevation(pos))  # (k, m, 3)
+        inside = ts < c["t_max"][None]
+        trans = s["trans"]
+        block = None
+        for j in range(k):
+            total = dot(dens[j][:, None, :], c["ext"])  # (m, L)
+            f = torch.where(inside[j][:, None], 1.0 - total * c["inv_max"][:, None], 1.0)
+            block = f if block is None else block * f
+        trans = trans * block
+        done = (ts[-1] >= c["t_max"]) | (torch.amax(trans, dim=-1) < 1e-5)
+        return dict(t=ts[-1], done=done, trans=trans)
+
+    state = dict(t=t_start.clone(), done=~valid,
+                 trans=torch.ones((n, L), dtype=ext.dtype, device=ext.device))
+    ctx = dict(keys=keys, pos=ray_pos, dir=ray_dir, t_max=t_max,
+               tms=torch.clamp(t_max, min=0.0), ext=ext, inv_max=inv_max)
+    state = _run_lanes(cfg.max_tracking_steps, 1, state, ctx, body, trips)
+    return state["trans"]
+
+
+def ratio_track_rmo(keys, ray_pos, ray_dir, t_start, t_max, ext, max_ext, active,
+                    cfg: TraceConfig):
+    """The gases' (n, L) transmittance over [t_start, t_max] by ratio
+    tracking at the packet majorant ``max_ext``. CPU tensors: the plain
+    version; CUDA tensors: the ``rmo_ratio_track`` kernel."""
+    if ray_pos.device.type == "cpu":
+        return ratio_track_rmo_plain(
+            keys, ray_pos, ray_dir, t_start, t_max, ext, max_ext, active, cfg
+        )
+    return kernels.rmo_ratio_track(
+        keys, ray_pos, ray_dir, t_start, t_max, ext, max_ext, active,
+        max_steps=cfg.max_tracking_steps, k=cfg.tracking_k,
     )
 
 

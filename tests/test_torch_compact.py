@@ -150,19 +150,19 @@ def test_window_twin_matches_the_per_bounce_schedule(scene):
 
 @pytest.mark.parametrize("scene", ["config - Apollo 11.txt", "config - florida.txt"])
 def test_twin_trip_counts_do_not_depend_on_the_schedule(scene):
-    """The twin's census (trips per lane at the six loop sites) is the same
+    """The twin's census (trips per lane at the seven loop sites) is the same
     bounce by bounce and through run_window_plain, and within the loops'
     caps."""
     st, idx, args, cfg = _window_case(scene, 1)
     n, nb = st.alive.numel(), cfg.max_bounces - 1
-    per_bounce = torch.zeros((nb, n, 6), dtype=torch.int32)
+    per_bounce = torch.zeros((nb, n, 7), dtype=torch.int32)
     st1 = _clone(st)
     for b in range(1, cfg.max_bounces):
         lanes, n_live = compact.compact_by_alive(st1.alive, st1.work_class)
         lanes = lanes[: int(n_live)].long()
         if lanes.numel() == 0:
             break
-        t = torch.zeros((lanes.numel(), 6), dtype=torch.int32)
+        t = torch.zeros((lanes.numel(), 7), dtype=torch.int32)
         st1.put(lanes, pt.run_bounce_plain(st1.take(lanes), b, *args, trips=t))
         per_bounce[b - 1, lanes] = t
     window = torch.zeros_like(per_bounce)
@@ -170,7 +170,7 @@ def test_twin_trip_counts_do_not_depend_on_the_schedule(scene):
     assert torch.equal(per_bounce, window)
     march_cap = -(-cfg.land_march_steps // cfg.march_k)
     caps = torch.tensor([march_cap, cfg.max_tracking_steps, cfg.max_tracking_steps, march_cap,
-                         march_cap, cfg.max_tracking_steps], dtype=torch.int32)
+                         march_cap, cfg.max_tracking_steps, 0], dtype=torch.int32)
     assert (window <= caps).all() and (window >= 0).all()
     # the flight's passes run on every live lane; the rest where they apply
     assert window[..., 1:3].sum() > 0 and window.sum() > window[..., 1:3].sum()
@@ -186,33 +186,54 @@ def _chip_smoke():
 
 
 def test_bounce_census_arithmetic():
-    """chip_smoke.py's operations from trip counts and SIMT efficiency, on a
-    hand-counted case."""
+    """chip_smoke.py's operations from trip counts (all of them, and their
+    integer share) and SIMT efficiency, on a hand-counted case: the second
+    lane took the sun's transmittance by ratio tracking (NEE RMO trips), so
+    it counts no closed-form term; a census of six sites (a package without
+    the NEE RMO column) counts as the seven's first six."""
     cs = _chip_smoke()
-    trips = torch.tensor([[0, 1, 2, 0, 0, 0], [0, 3, 2, 1, 1, 1]], dtype=torch.int32)
-    call, it, probe = cs.BOUNCE_CALL_OPS, cs.BOUNCE_ITER_OPS, cs.BOUNCE_PROBE_OPS
+    trips = torch.tensor([[0, 1, 2, 0, 0, 1, 0], [0, 3, 2, 1, 1, 1, 2]], dtype=torch.int32)
     k = 4
 
-    def site(j, n, tracking_k):
+    def site(j, n, tracking_k, tables):
         # a call and n iterations; a march or RMO iteration's K probes but
         # the last iteration's one, a cloud iteration's one
+        call, it, probe = tables
         if n == 0:
             return 0
-        kj = 1 if j in (1, 5) else (tracking_k if j == 2 else k)
+        kj = 1 if j in (1, 5) else (tracking_k if j in (2, 6) else k)
         return call[j] + n * it[j] + (kj * n - (kj - 1)) * probe[j]
 
+    ops_tables = (cs.BOUNCE_CALL_OPS, cs.BOUNCE_ITER_OPS, cs.BOUNCE_PROBE_OPS)
+    int_tables = (cs.BOUNCE_CALL_INT, cs.BOUNCE_ITER_INT, cs.BOUNCE_PROBE_INT)
     for tracking_k in (4, 6):
-        want = (2 * cs.BOUNCE_FIXED_OPS + cs.BOUNCE_SURFACE_OPS + cs.BOUNCE_NEE_OPS
-                + sum(site(j, int(trips[i, j]), tracking_k) for i in range(2) for j in range(6)))
+        sites = lambda tables, cols=7: sum(  # noqa: E731
+            site(j, int(trips[i, j]), tracking_k, tables) for i in range(2) for j in range(cols))
+        want = (2 * cs.BOUNCE_FIXED_OPS + cs.BOUNCE_SURFACE_OPS + 2 * cs.BOUNCE_NEE_OPS
+                + cs.BOUNCE_CLOSED_FORM_OPS + sites(ops_tables))
         assert cs.bounce_ops(torch, trips, k, tracking_k) == want
-        for j in (1, 2):
-            assert cs.tracker_ops(torch, trips[:, j], tracking_k, j) == (
-                site(j, int(trips[0, j]), tracking_k) + site(j, int(trips[1, j]), tracking_k))
+        want_int = (2 * cs.BOUNCE_FIXED_INT + cs.BOUNCE_SURFACE_INT + 2 * cs.BOUNCE_NEE_INT
+                    + sites(int_tables))
+        assert cs.bounce_ops(torch, trips, k, tracking_k, integer=True) == want_int
+        six = (2 * cs.BOUNCE_FIXED_OPS + cs.BOUNCE_SURFACE_OPS
+               + 2 * (cs.BOUNCE_NEE_OPS + cs.BOUNCE_CLOSED_FORM_OPS) + sites(ops_tables, 6))
+        assert cs.bounce_ops(torch, trips[:, :6], k, tracking_k) == six
+        for j in (1, 2, 6):
+            for tables, integer in ((ops_tables, False), (int_tables, True)):
+                assert cs.tracker_ops(torch, trips[:, j], tracking_k, j, integer=integer) == (
+                    site(j, int(trips[0, j]), tracking_k, tables)
+                    + site(j, int(trips[1, j]), tracking_k, tables))
     # warps of 2: per site the lanes' trips over 2 x the warp's largest
-    assert cs.simt_efficiency(torch, trips, warp=2) == [None, 4 / 6, 1.0, 0.5, 0.5, 0.5]
-    assert cs.tracker_simt(torch, trips, warp=2) == [4 / 6, 1.0, 0.5]
+    assert cs.simt_efficiency(torch, trips, warp=2) == [None, 4 / 6, 1.0, 0.5, 0.5, 1.0, 0.5]
+    assert cs.tracker_simt(torch, trips, warp=2) == [4 / 6, 1.0, 1.0, 0.5]
+    assert cs.tracker_simt(torch, trips[:, :6], warp=2) == [4 / 6, 1.0, 1.0]
     # a ragged last warp counts its idle lanes
     assert cs.simt_efficiency(torch, trips[:1], warp=4)[2] == 2 / 8
+    # the clock64 columns: the sites, then the flight's and the shade's whole
+    cycles = torch.tensor([[1, 2, 3, 4, 5, 6, 7, 40, 60]], dtype=torch.int64)
+    sites, flight, shade, total = cs.cycle_split(torch, cycles)
+    assert total == 100.0 and (flight, shade) == (0.4, 0.6) and sites == [
+        x / 100 for x in range(1, 8)]
 
 # ptxas's report of bounce.cu as nvcc 12.9 prints it (sm_90a, BOUNCE_L 4):
 # the timed instances, a census instance and a device function between them

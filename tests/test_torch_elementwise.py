@@ -319,6 +319,23 @@ def test_scene_params_and_trace_config():
             convert.trace_config(jparams.TraceConfig(**{knob: value}))
 
 
+@pytest.mark.parametrize("options", [
+    dict(hero_lambdas=1), dict(stratify_spp=False), dict(analytic_transmittance=False),
+    dict(hero_lambdas=1, stratify_spp=False, analytic_transmittance=False),
+    dict(hero_lambdas=4, stratify_spp=True, analytic_transmittance=True, tracking_k=1),
+])
+def test_trace_config_carries_the_reference_estimator(options):
+    """``convert.trace_config`` carries the reference estimator's three
+    options across (alone and together), and the port's TraceConfig names
+    its packet widths when given another."""
+    got = convert.trace_config(jparams.TraceConfig(**options))
+    assert got == tparams.TraceConfig(**options)
+    for name, value in options.items():
+        assert getattr(got, name) == value
+    with pytest.raises(ValueError, match="1 or 4"):
+        tparams.TraceConfig(hero_lambdas=3)
+
+
 def test_angles_are_float32():
     """make_scene_params evaluates its trigonometry in float32 like JAX."""
     s = tparams.make_scene_params("cpu", math.radians(60.0), math.radians(-45.0))

@@ -70,7 +70,7 @@ def case(dev):
     ], dim=-1)
     return dict(
         pos=t(pos), dirs=t(dirs), active=t(r.random(N) < 0.95, torch.bool),
-        ext_h=ext[:, 0, :].contiguous(),
+        ext=ext, ext_h=ext[:, 0, :].contiguous(),
         atlas=build_atlas(generate_earth_textures((128, 256), seed=3), dev),
         keys=rng.lane_keys(rng.prng_key(5, dev), torch.arange(N, device=dev)),
     )
@@ -150,6 +150,30 @@ def test_rmo_delta_track_kernel(case, k):
     same = (ge == we) & (ge > 0)
     assert (gid == wid)[same].float().mean().item() >= 0.999
     assert ((gt - wt).abs() / wt.abs().clamp(min=1.0))[same].median().item() < 1e-6
+
+
+@pytest.mark.parametrize("k", [1, 3, 4, 8])
+@pytest.mark.parametrize("L", [1, 4])
+def test_rmo_ratio_track_kernel(case, k, L):
+    """The gases' ratio tracker (the reference's sun transmittance) bit-equal
+    to its twin on every lane, active or not, at one and four wavelengths,
+    each lane's iterations the twin's loop count."""
+    from digital_earth_tpu_torch import kernels
+
+    dev = case["pos"].device
+    t0, t1 = pt._rmo_span(case["pos"], case["dirs"], torch.full((N,), -1.0, device=dev))
+    ext = case["ext"][:, :L].contiguous()
+    args = (case["keys"], case["pos"], case["dirs"], t0, t1, ext, vol.max_extinction_rmo(ext),
+            case["active"], TraceConfig(tracking_k=k))
+    before = kernels.rmo_ratio_track.launches
+    got = tracers.ratio_track_rmo(*args)
+    assert kernels.rmo_ratio_track.launches == before + 1
+    trips = torch.zeros(N, dtype=torch.int32, device=dev)
+    want = tracers.ratio_track_rmo_plain(*args, trips=trips)
+    assert got.shape == (N, L) and _bits_equal(got, want)
+    _, iters = kernels.rmo_ratio_track(*args[:8], max_steps=8192, k=k, iters=True)
+    assert torch.equal(iters, trips) and iters.max() > 1
+    assert (got[~case["active"]] == 1.0).all() and got.min() < 0.5
 
 
 @pytest.mark.parametrize("k", TRACKING_KS)
@@ -246,6 +270,26 @@ def _rays_equal(got, want):
             if g.is_floating_point():
                 g, w = g.view(torch.int32), w.view(torch.int32)
             assert torch.equal(g, w), name
+
+
+@pytest.mark.parametrize("options", [
+    dict(stratify_spp=False), dict(hero_lambdas=1),
+    dict(hero_lambdas=1, stratify_spp=False, analytic_transmittance=False),
+])
+@pytest.mark.parametrize("mode,res", [("path", (320, 180)), ("preview", (160, 90))])
+def test_gen_rays_kernel_reference_estimator(dev, mode, res, options):
+    """gen_rays at the reference estimator's modes (independent uniform
+    primary samples; one wavelength a path lane) bit-equal to its twin."""
+    from digital_earth_tpu_torch.render import raygen
+
+    r = _apollo_renderer(dev, res, mode)
+    block = r.block if mode == "preview" else (1, res[1])
+    n = res[0] * res[1]
+    args = ((0, 3), 5, 0, n, res, block, r.camera_params(), r.luts, mode == "preview", None,
+            TraceConfig(**options))
+    got = raygen.gen_rays(*args)
+    assert got.wavelengths.shape[1] == (1 if mode == "preview" else options.get("hero_lambdas", 4))
+    _rays_equal(got, raygen.gen_rays_plain(*args))
 
 
 @pytest.mark.parametrize("mode,res", [("path", (320, 180)), ("preview", (160, 90))])
@@ -902,21 +946,22 @@ def test_mesh_over_distinct_cards_matches_renderer(dev):
 # density_check within 1e-4 relative on at least 99.9% of lanes.
 
 
-def _golden_state(dev, bounce, tracking_k=4):
+def _golden_state(dev, bounce, tracking_k=4, options=None):
     """The 32x18 golden frame's wavefront of Apollo 11 just before
-    ``bounce``, advanced there by the kernel path."""
+    ``bounce``, advanced there by the kernel path (at the TraceConfig
+    ``options``)."""
     from digital_earth_tpu_torch.app.config_io import apply_config
     from digital_earth_tpu_torch.render import raygen
     from digital_earth_tpu_torch.render.renderer import Renderer
 
     cfg = TraceConfig(max_bounces=4, land_march_steps=64, max_tracking_steps=256,
-                      tracking_k=tracking_k)
+                      tracking_k=tracking_k, **(options or {}))
     r = Renderer(dev, image_res=(32, 18), cfg=cfg,
                  atlas=build_atlas(generate_earth_textures((64, 128), seed=3), dev))
     apply_config(r, load_config(os.path.join(ROOT, "scenes", "config - Apollo 11.txt")))
     n = 32 * 18
     rays = raygen.gen_rays(r._seed_key, 0, 0, n, (32, 18), (1, 18), r.camera_params(), r.luts,
-                           False)
+                           False, cfg=cfg)
     pos = r.camera_params().position.expand(n, 3).contiguous()
     st = pt.init_state(pos, rays.dirs, rays.wavelengths, rays.pdf, rays.keys)
     args = (r.scene_params(), r.atlas, r.luts, cfg)
@@ -959,6 +1004,68 @@ def test_bounce_kernel_bit_equal(dev, bounce, tracking_k):
         assert _bits_equal(getattr(got, name), getattr(want, name)), name
     for name in ("alive", "primary_miss", "work_class"):
         assert torch.equal(getattr(got, name), getattr(want, name)), name
+
+
+REFERENCE_OPTIONS = [
+    dict(hero_lambdas=1), dict(analytic_transmittance=False),
+    dict(hero_lambdas=1, stratify_spp=False, analytic_transmittance=False),
+]
+
+
+@pytest.mark.parametrize("bounce", [0, 3])
+@pytest.mark.parametrize("options", REFERENCE_OPTIONS)
+def test_bounce_kernel_bit_equal_at_the_reference_estimator(dev, bounce, options):
+    """The bounce entries' instances at one wavelength and with the gases'
+    sun transmittance by ratio tracking (and both) bit-equal to
+    run_bounce_plain on every live lane; their census instances leave the
+    timed instances' state and count the twin's trips, the NEE RMO site
+    with the ratio tracking alone."""
+    from digital_earth_tpu_torch import kernels
+    from digital_earth_tpu_torch.render import compact
+
+    st, args = _golden_state(dev, bounce, options=options)
+    assert st.wavelength.shape[1] == options.get("hero_lambdas", 4)
+    idx, n_live = compact.compact_by_alive(st.alive, st.work_class)
+    idx = idx[: int(n_live)]
+    assert idx.numel() > 0
+    frame = pt.BounceFrame(st, *args)
+    before, census = _clone_state(st), _clone_state(st)
+    want = pt.run_bounce_plain(before.take(idx.long()), bounce, *args)
+    pt.run_bounce(st, idx, bounce, *args, frame)
+    got = st.take(idx.long())
+    for name in ("pos", "direction", "throughput", "radiance", "w_mis"):
+        assert _bits_equal(getattr(got, name), getattr(want, name)), name
+    for name in ("alive", "primary_miss", "work_class"):
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+    m = idx.numel()
+    trips = torch.full((m, kernels.BOUNCE_SITES), -1, dtype=torch.int32, device=dev)
+    cycles = torch.full((m, kernels.BOUNCE_CYCLE_COLS), -1, dtype=torch.int64, device=dev)
+    ka = pt._kernel_args(census, idx, bounce, *args, frame)
+    kernels.bounce_shade(*ka, flight=kernels.bounce_flight(*ka, trips=trips, cycles=cycles),
+                         trips=trips, cycles=cycles)
+    assert _same_state(st, census)
+    plain = torch.zeros_like(trips)
+    pt.run_bounce_plain(before.take(idx.long()), bounce, *args, trips=plain)
+    assert int((trips != plain).any(1).sum()) <= 1
+    ratio = not options.get("analytic_transmittance", True)
+    assert (trips[:, 6].sum() > 0) == ratio
+    assert (cycles[:, 4:7] <= cycles[:, 8:9]).all()
+
+
+@pytest.mark.parametrize("options", REFERENCE_OPTIONS)
+def test_bounce_window_kernel_bit_equal_at_the_reference_estimator(dev, options):
+    """bounce_window's instances of the estimator from bounce 1 to the last
+    against run_window_plain, every lane bit-equal."""
+    st, args = _golden_state(dev, 1, options=options)
+    idx, n_live = _live(st)
+    idx = idx[: int(n_live)]
+    cfg = args[3]
+    got, want = _clone_state(st), _clone_state(st)
+    before = kernels_launches("bounce_window")
+    pt.run_window(got, idx, 1, cfg.max_bounces, *args)
+    assert kernels_launches("bounce_window") == before + 1
+    pt.run_window_plain(want, idx, 1, cfg.max_bounces, *args)
+    assert _same_state(got, want)
 
 
 def _agreeing(got, want):
@@ -1007,7 +1114,7 @@ def test_bounce_census_matches_the_twins_loops(dev, bounce):
     frame = pt.BounceFrame(st, *args)
     timed, census = _clone_state(st), _clone_state(st)
     pt.run_bounce(timed, idx, bounce, *args, frame)
-    trips = torch.full((idx.numel(), 6), -1, dtype=torch.int32, device=dev)
+    trips = torch.full((idx.numel(), kernels.BOUNCE_SITES), -1, dtype=torch.int32, device=dev)
     ka = pt._kernel_args(census, idx, bounce, *args, frame)
     kernels.bounce_shade(*ka, flight=kernels.bounce_flight(*ka, trips=trips), trips=trips)
     assert _same_state(timed, census)
@@ -1031,14 +1138,15 @@ def test_bounce_clock_census_keeps_the_bits(dev, bounce):
     timed, census = _clone_state(st), _clone_state(st)
     pt.run_bounce(timed, idx, bounce, *args, frame)
     m = idx.numel()
-    trips = torch.full((m, 6), -1, dtype=torch.int32, device=dev)
+    trips = torch.full((m, kernels.BOUNCE_SITES), -1, dtype=torch.int32, device=dev)
     cycles = torch.full((m, kernels.BOUNCE_CYCLE_COLS), -1, dtype=torch.int64, device=dev)
     ka = pt._kernel_args(census, idx, bounce, *args, frame)
     flight = kernels.bounce_flight(*ka, trips=trips, cycles=cycles)
     kernels.bounce_shade(*ka, flight=flight, trips=trips, cycles=cycles)
     assert _same_state(timed, census)
-    assert (cycles >= 0).all() and (cycles[:, 6:] > 0).all()
-    assert (cycles[:, :4] <= cycles[:, 6:7]).all() and (cycles[:, 4:6] <= cycles[:, 7:8]).all()
+    assert (cycles >= 0).all() and (cycles[:, 7:] > 0).all()
+    assert (cycles[:, :4] <= cycles[:, 7:8]).all() and (cycles[:, 4:7] <= cycles[:, 8:9]).all()
+    assert (cycles[:, 6] == 0).all() and (trips[:, 6] == 0).all()  # the closed form: no NEE RMO
     with pytest.raises(ValueError, match="trips"):
         kernels.bounce_flight(*ka, cycles=cycles)
 

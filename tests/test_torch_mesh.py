@@ -86,14 +86,15 @@ def atlases():
     return jax_build_atlas(raw), build_atlas(raw, "cpu")
 
 
-def _mesh(atlases, n_px, n_spp=1, res=(32, 8), tile_pixels=32, seed=5):
+def _mesh(atlases, n_px, n_spp=1, res=(32, 8), tile_pixels=32, seed=5, options=None):
     m = make_render_mesh([CPU] * (n_px * n_spp), spp_axis=n_spp)
-    return _pose(MultiChipRenderer(m, res, atlas=atlases[1], cfg=TraceConfig(**CFG),
+    return _pose(MultiChipRenderer(m, res, atlas=atlases[1],
+                                   cfg=TraceConfig(**CFG, **(options or {})),
                                    tile_pixels=tile_pixels, seed=seed))
 
 
-def _single(atlases, res=(32, 8), tile_pixels=32, seed=5):
-    return _pose(Renderer("cpu", res, atlas=atlases[1], cfg=TraceConfig(**CFG),
+def _single(atlases, res=(32, 8), tile_pixels=32, seed=5, options=None):
+    return _pose(Renderer("cpu", res, atlas=atlases[1], cfg=TraceConfig(**CFG, **(options or {})),
                           tile_pixels=tile_pixels, seed=seed))
 
 
@@ -155,6 +156,33 @@ def test_mesh_matches_renderer_at_32x8(atlases):
     a, b = r.color_buffer, s.color_buffer
     torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-7)
     assert (a == b).all(-1).float().mean().item() >= 0.99
+
+
+@pytest.mark.parametrize("options", [
+    dict(hero_lambdas=1), dict(stratify_spp=False), dict(analytic_transmittance=False),
+    dict(hero_lambdas=1, stratify_spp=False, analytic_transmittance=False),
+])
+def test_entry_points_render_the_reference_estimator(atlases, options):
+    """Each of the reference estimator's options, and all three: a (4, 1)
+    mesh bit-equal to the Renderer over a spp at 16x8, the Renderer's
+    interruptible spp bit-equal to a whole one, an adaptive pass on the
+    mesh adding whole tiles; the frame differs from the default config's."""
+    r, s = _mesh(atlases, 4, res=(16, 8), options=options), _single(atlases, (16, 8),
+                                                                     options=options)
+    r.accumulate()
+    s.accumulate()
+    assert s.color_buffer.any() and torch.equal(r.color_buffer, s.color_buffer)
+    c = _single(atlases, (16, 8), options=options)
+    assert c.accumulate_interruptible(3)
+    assert torch.equal(c.color_buffer, s.color_buffer)
+    default = _single(atlases, (16, 8))
+    default.accumulate()
+    assert not torch.equal(default.color_buffer, s.color_buffer)
+    a = _mesh(atlases, 4, tile_pixels=8, options=options)
+    for _ in range(3):
+        assert a.accumulate_adaptive(frac=0.5)
+    assert a.mean_spp == pytest.approx(2.5)
+    assert torch.isfinite(a.fetch_image()).all()
 
 
 def test_spp_axis_matches_sequential_steps(atlases):

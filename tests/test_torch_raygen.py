@@ -142,7 +142,7 @@ def _block_read_back(base_key, spp, lane0, image_res, block, cam, cie_cdf, previ
     spp_key = rng.threefry2x32(k0, k1, 0, spp & rng.M32)
     pix_key = rng.threefry2x32(k0, k1, 0, raygen._PIXEL_DOMAIN)
     iparams = [*spp_key, *pix_key, lane0, w, h, block[0], block[1],
-               cie_cdf.shape[0], 1 if preview else raygen.HERO_LAMBDAS, int(preview)]
+               cie_cdf.shape[0], 1 if preview else TraceConfig().hero_lambdas, int(preview), 1]
     return fparams, iparams
 
 
@@ -169,7 +169,7 @@ def test_parameter_block_from_host_values(atlas, luts, scene, res, mode):
         want = _block_read_back(r._seed_key, spp, lane0, res, block,
                                 _tensor_camera(r, "cpu"), luts.cie_cdf, preview)
         assert got == want
-        assert len(got[0]) == 19 and len(got[1]) == 12
+        assert len(got[0]) == 19 and len(got[1]) == 13
 
 
 @pytest.mark.parametrize("scene", SCENES)
@@ -215,7 +215,7 @@ def test_host_camera_rounds_as_torch_does():
 def test_launcher_checks_lanes_and_packet(luts, lane0, n, n_lambdas, match):
     g, _ = tluts.ray_tables(luts)
     fparams = [0.0] * 19
-    iparams = [0, 0, 0, 0, lane0, 32, 18, 1, 18, g.shape[0], n_lambdas, 0]
+    iparams = [0, 0, 0, 0, lane0, 32, 18, 1, 18, g.shape[0], n_lambdas, 0, 1]
     with pytest.raises(ValueError, match=match):
         kernels.gen_rays(fparams, iparams, g, luts.cie_response, n, n_lambdas)
 
@@ -271,3 +271,79 @@ def test_trace_lanes_frame_bit_equal_after_the_map_moved(atlas, mode, tiles):
     for got, want in zip(*outs):
         assert torch.equal(got, want)
     assert outs[0][1].sum().item() == n and outs[0][0].abs().sum().item() > 0
+
+
+# --- the reference estimator's primary samples and packet ---------------------------
+
+def _jax_rays(res, spp, cam_args, luts_j, stratify, n_lambdas, preview):
+    """The reference's gen_rays and wavelength sampling (renderer.py:160-194,
+    202-216) on every lane of a path-ordered frame (blocks of (1, H)),
+    composed from the JAX package's own functions."""
+    import jax
+
+    from digital_earth_tpu.ops import rng as jrng
+    from digital_earth_tpu.ops import spectral as jsp
+    from digital_earth_tpu.render import camera as jcam
+
+    w, h = res
+    pid = jnp.arange(w * h)
+    pu, pv = (pid // h).astype(jnp.float32), (pid % h).astype(jnp.float32)
+    base = jax.random.PRNGKey(KEY[1])
+    lkeys = jrng.lane_keys(jax.random.fold_in(base, spp), pid)
+    if stratify:
+        pkeys = jrng.lane_keys(jax.random.fold_in(base, jrend._PIXEL_DOMAIN), pid)
+        shift = jrng.uniform(jrng.fold(pkeys, jrend._SITE_JITTER), (3,))
+        seq = (jnp.asarray(jrend._R3_A32, jnp.uint32) * jnp.uint32(spp + 1)).astype(
+            jnp.float32) * jnp.float32(2.0**-32)
+        u3 = jnp.mod(shift + seq[:, None], 1.0)
+        u_jit, u = u3[:2], u3[2]
+    else:
+        u_jit = jrng.uniform(jrng.fold(lkeys, jrend._SITE_JITTER), (2,))
+        u = jrng.uniform(jrng.fold(lkeys, jrend._SITE_WL))
+    dirs = jcam.cast_dirs(jcam.make_camera_params(**cam_args), pu, pv, u_jit[0], u_jit[1], res)
+    if preview:
+        wl, _, pdf = jsp.spectrum_sample(u, luts_j.cie_cdf, luts_j.cie_response)
+        wl, pdf = wl[:, None], pdf[:, None]
+    else:
+        wl, _, pdf = jsp.spectrum_sample_hero(u, luts_j.cie_cdf, luts_j.cie_response, n_lambdas)
+    return (np.asarray(lkeys).astype(np.int64), np.asarray(dirs), np.asarray(wl),
+            np.asarray(pdf))
+
+
+@pytest.mark.parametrize("stratify,n_lambdas,preview", [
+    (False, 4, False), (True, 1, False), (False, 1, False), (False, 1, True),
+])
+def test_reference_estimator_rays_match_jax(luts, stratify, n_lambdas, preview):
+    """``gen_rays_plain`` at ``stratify_spp=False`` (the reference's
+    independent jitter and wavelength draws from the lane key) and at
+    ``hero_lambdas=1`` against the reference's ray generation on the same
+    48x27 frame: the lane keys bit-equal, the directions within cast_dirs'
+    atol 1e-6, the wavelengths and the lambda pdf within
+    spectrum_sample_hero's rtol 1e-5 / atol 1e-6 on 0.999 of the values
+    (tests/test_torch_elementwise.py); the preview (one wavelength, 1 / pdf)
+    takes the unstratified draws as the reference's preview does, within
+    spectrum_sample's rtol 5e-6 and 2e-4 (tests/test_torch_preview.py)."""
+    from digital_earth_tpu.assets.luts import load_spectral_luts as jax_luts
+    from digital_earth_tpu_torch import convert
+    from digital_earth_tpu.render import camera as jcam
+
+    res, spp = (48, 27), 5
+    cam_args = dict(position=(3.6e7, 1.2e7, -4.2e7), look_at=(2.3e7, 8.3e6, -2.6e7),
+                    up=(0.26, 0.675, -0.69), fov=0.127, aspect_scale=0.997)
+    cam = convert.camera_params_to_torch(jcam.make_camera_params(**cam_args), "cpu")
+    cfg = TraceConfig(stratify_spp=stratify, hero_lambdas=n_lambdas)
+    n = res[0] * res[1]
+    rays = raygen.gen_rays_plain(KEY, spp, 0, n, res, (1, res[1]), cam, luts, preview, cfg=cfg)
+    keys, dirs, wl, pdf = _jax_rays(res, spp, cam_args, jax_luts(), stratify, n_lambdas, preview)
+    np.testing.assert_array_equal(rays.keys.numpy(), keys)
+    np.testing.assert_allclose(rays.dirs.numpy(), dirs, atol=1e-6)
+    assert rays.wavelengths.shape == rays.pdf.shape == (n, 1 if preview else n_lambdas)
+    if preview:
+        np.testing.assert_allclose(rays.wavelengths.numpy(), wl, rtol=5e-6)
+        np.testing.assert_allclose(rays.pdf.numpy(), pdf, rtol=2e-4)
+    else:
+        for got, want in ((rays.wavelengths, wl), (rays.pdf, pdf)):
+            assert np.isclose(got.numpy(), want, rtol=1e-5, atol=1e-6).mean() >= 0.999
+    # the kernel's parameter block carries the mode and the packet width
+    _, ip = raygen.kernel_params(KEY, spp, 0, res, (1, res[1]), cam, luts, preview, cfg)
+    assert ip[10:] == [1 if preview else n_lambdas, int(preview), int(stratify)]

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch + CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--mesh-only | --preview-bench [DIR] | --path-bench [DIR]]
+    python3 chip_smoke.py [--mesh-only | --preview-bench [DIR] | --path-bench [DIR]
+                           | --threefry-bench [DIR] | --spp-bench [DIR]]
 
 Run from the root of a checkout on a machine with a CUDA card, ``nvcc`` and
 PyTorch built for CUDA; ``--mesh-only`` runs phases 1-3 and 19 alone (say,
@@ -17,7 +18,13 @@ the bounce entries' registers and spills, the tracker and march launchers,
 per scene the entries' bit-equality with their twin, the census's cycle
 split and the trackers' SIMT efficiency; ``compact_lanes`` and
 ``gen_rays`` per call and on the device; the tier-2 atlas's build split
-and ``upsample`` per plane).
+and ``upsample`` per plane; the threefry launcher and its SASS; every
+entry's registers and spills; ``rmo_ratio_track`` at one and four
+wavelengths and the reference estimator's census); ``--threefry-bench
+[DIR]`` prints the threefry launcher's times, the SASS of a block and the
+entries' registers and spills alone; ``--spp-bench [DIR]`` the three
+scenes' s/spp and the bounce kernels' device ms of 3 profiled spp each, at
+the default config and at the reference's estimator.
 It
 imports nothing of JAX or of the JAX package ``digital_earth_tpu`` (checked
 at the end). Phases, each of which raises on failure (exit code 1):
@@ -28,8 +35,14 @@ at the end). Phases, each of which raises on failure (exit code 1):
    sm_90a (timed), and prints ptxas's registers and spills of the bounce
    entries, ``compact_lanes``, ``preview``, ``atmos_march`` and
    ``select_tiles``;
-3. holds the threefry header bit for bit against the plain ``uniform``,
-   and times it at the frame's shape;
+3. reads the SASS of one threefry block from the built library
+   (``cuobjdump``: the depth-2 fold launcher less the depth-1, by opcode
+   and by pipe; it fails if there is no threefry kernel), which sets the
+   integer work of every bound below; holds the threefry header (a fold
+   and 12 draws, the fold at depths 1 and 2, draws at counters past 2^31
+   and 2^32) bit for bit against ops/rng.py on edge keys, data and
+   counters, and times the launcher at the frame's shape per call and on
+   the device (a CUDA graph of 20 calls);
 4. renders one spp of the main path's frame (Apollo 11, 1920x1080, default
    ``TraceConfig()``) through the kernels with one launch per bounce,
    keeping the bounce's full input state and live list at every bounce and
@@ -207,7 +220,9 @@ frame enters it; ``compact_lanes``'s and ``gen_rays``'s per call from the
 host, their device times printed beside them), error,
 times and bound (the least time the card could take: the larger of the
 bytes it must move at 3.35 TB/s and the operations at 67 TFLOP/s, counted
-from this run's inputs, a transcendental as one operation; the bounce
+from this run's inputs, a transcendental as one operation, threefry's
+blocks as this build's SASS instructions at the integer rate of the pipe
+that issues each (phase 3); the bounce
 entries' operations from the census's trip counts, the trackers' from
 their iterations on phase 7's arguments; for ``preview`` and
 ``atmos_march`` the largest of the bytes' time, their FP32 instructions
@@ -303,22 +318,24 @@ BOUNCE_LANE_BYTES = 122 + 78
 # weight (the segment integral 60, tau, w, denominator: 109), the sun cone
 # (key, two draws, sample: 293), the scatter point and its planet test (23)
 # and four wavelengths' Planck terms and three radiance terms (148): 774.
-# Each count's *_INT share is threefry's integer work (adds, rotates, xors:
-# a key 77, a draw 80), which runs at the integer rate (``bound``): the
-# flight's bounce key and three flight keys (308), the shade's cone key and
-# draws (237).
-BOUNCE_FLIGHT_OPS, BOUNCE_FLIGHT_INT = 487, 308
-BOUNCE_FIXED_OPS, BOUNCE_FIXED_INT = BOUNCE_FLIGHT_OPS + 774, BOUNCE_FLIGHT_INT + 237
+# Each count's *_TF share is threefry's integer work, as (blocks, draws):
+# the flight's bounce key and three flight keys (4 blocks), the shade's cone
+# key and draws (1, 2). The counts above took a block as 77 operations and a
+# draw as 80; ``bounce_ops`` takes the *_OPS less those and adds the blocks'
+# and draws' SASS instructions by pipe (``tf_int``), which run at the
+# integer rate (``bound``).
+BOUNCE_FLIGHT_OPS, BOUNCE_FLIGHT_TF = 487, (4, 0)
+BOUNCE_FIXED_OPS, BOUNCE_FIXED_TF = BOUNCE_FLIGHT_OPS + 774, (5, 2)
 # A lane whose flight ends on the surface (its shadow march ran): land_pos,
 # the normal's four SDFs, the material grading, four albedo spectra, the
 # offset, two BRDF evaluations, the terms, the hemisphere key, draws and
-# sample: 1081 (237 integer). A lane that takes the sun's transmittance (its
-# NEE cloud pass ran): the cloud limits (41), two keys (154, integer), the
-# phase (30): 225; and with the closed form (no NEE RMO trips) its term
-# (60). Lanes whose pass ran with no trips are not counted, nor the phase
-# sample and the roulette: the bound is a floor.
-BOUNCE_SURFACE_OPS, BOUNCE_SURFACE_INT = 1081, 237
-BOUNCE_NEE_OPS, BOUNCE_NEE_INT = 225, 154
+# sample: 1081 (a block and two draws). A lane that takes the sun's
+# transmittance (its NEE cloud pass ran): the cloud limits (41), two keys
+# (154, two blocks), the phase (30): 225; and with the closed form (no NEE
+# RMO trips) its term (60). Lanes whose pass ran with no trips are not
+# counted, nor the phase sample and the roulette: the bound is a floor.
+BOUNCE_SURFACE_OPS, BOUNCE_SURFACE_TF = 1081, (1, 2)
+BOUNCE_NEE_OPS, BOUNCE_NEE_TF = 225, (2, 0)
 BOUNCE_CLOSED_FORM_OPS = 60
 # Per loop site (pre-march, cloud, RMO, march after, shadow, NEE cloud, NEE
 # RMO): the operations of a call that takes at least one trip, of one
@@ -340,14 +357,16 @@ BOUNCE_CLOSED_FORM_OPS = 60
 # the three densities (51), the factor (8): 155. A march, RMO or NEE RMO
 # iteration's K probes all count but the last iteration's, which counts one
 # (its first stopping probe ends the loop); a cloud iteration counts one (a
-# stop ends its sweep, not the loop). The counts are floors; the *_INT
-# tables are their threefry shares.
+# stop ends its sweep, not the loop). The counts are floors; the *_TF tables
+# are their threefry shares as (blocks, draws).
 BOUNCE_CALL_OPS = (59, 2, 19, 59, 59, 2, 106)
 BOUNCE_ITER_OPS = (4, 5, 120, 4, 4, 5, 80)
 BOUNCE_PROBE_OPS = (110, 45, 230, 110, 110, 45, 155)
-BOUNCE_CALL_INT = (0, 0, 0, 0, 0, 0, 77)
-BOUNCE_ITER_INT = (0, 0, 77, 0, 0, 0, 77)
-BOUNCE_PROBE_INT = (0, 0, 160, 0, 0, 0, 80)
+BOUNCE_CALL_TF = tuple((b, 0) for b in (0, 0, 0, 0, 0, 0, 1))
+BOUNCE_ITER_TF = tuple((b, 0) for b in (0, 0, 1, 0, 0, 0, 1))
+BOUNCE_PROBE_TF = tuple((0, d) for d in (0, 0, 2, 0, 0, 0, 1))
+# the source's count of a block and of a draw, in the *_OPS above
+SRC_BLOCK_OPS, SRC_DRAW_OPS = 77, 80
 TRACKER_SITES = (1, 2, 5, 6)  # cloud, RMO, NEE cloud, NEE RMO
 NEE_RMO = 6  # the census column of the NEE RMO ratio tracker
 
@@ -365,6 +384,21 @@ def site_k(march_k, tracking_k):
     return (march_k, 1, tracking_k, march_k, march_k, 1, tracking_k)
 
 
+def _src_tf_ops(tf):
+    """The source's operations of (blocks, draws) (SRC_BLOCK_OPS each block,
+    SRC_DRAW_OPS each draw), the share of the *_OPS counts that
+    ``tf_int`` replaces."""
+    return tf[0] * SRC_BLOCK_OPS + tf[1] * SRC_DRAW_OPS
+
+
+def _ops_split(blocks, draws, other, integer):
+    """Operations of ``other`` non-threefry operations and threefry's
+    ``blocks`` and ``draws`` (``tf_int``): all of them, or with ``integer``
+    True the ALU pipe's threefry instructions, "fma" the FMA pipe's."""
+    alu, fma = tf_int(blocks, draws)
+    return float({False: other + alu + fma, True: alu, "fma": fma}[integer])
+
+
 def bounce_ops(torch, trips, march_k, tracking_k, part="bounce", integer=False):
     """The operations of one bounce of the lanes whose (m, sites) int32 trip
     counts ``trips`` the census gives (7 sites, or a census of 6 without the
@@ -372,29 +406,47 @@ def bounce_ops(torch, trips, march_k, tracking_k, part="bounce", integer=False):
     ``tracking_k`` per tracker iteration: BOUNCE_FIXED_OPS per lane, the
     surface and NEE extras of the lanes whose shadow march and NEE cloud
     pass took trips (the closed form's where the NEE RMO tracker took none),
-    and per site each call's, iteration's and probe's operations (a floor).
-    ``part`` "flight" counts steps 1-3 alone (the first 487 of the fixed
-    operations, sites 0-3), "shade" the rest; ``integer`` their threefry
-    share alone."""
+    and per site each call's, iteration's and probe's operations (a floor),
+    threefry's blocks and draws at this build's SASS instructions
+    (``tf_int``). ``part`` "flight" counts steps 1-3 alone (the first 487 of
+    the fixed operations, sites 0-3), "shade" the rest; ``integer`` True
+    threefry's ALU-pipe instructions alone, "fma" its FMA-pipe ones."""
     t = trips.to(torch.float64)
-    n = t.shape[1]
-    tables = ((BOUNCE_CALL_INT, BOUNCE_ITER_INT, BOUNCE_PROBE_INT) if integer
-              else (BOUNCE_CALL_OPS, BOUNCE_ITER_OPS, BOUNCE_PROBE_OPS))
-    call, it, probe = (torch.tensor(x[:n], dtype=torch.float64, device=t.device) for x in tables)
-    k = torch.tensor(site_k(march_k, tracking_k)[:n], dtype=torch.float64, device=t.device)
-    per_site = ((t > 0) * call + t * it + site_probes(torch, t, k) * probe).sum(0)
+    m, n = t.shape
+
+    def tab(x):
+        return torch.tensor(x[:n], dtype=torch.float64, device=t.device)
+
+    k = tab(site_k(march_k, tracking_k))
+    calls, probes = (t > 0).to(torch.float64), site_probes(torch, t, k)
+    # per site: the other operations, threefry's blocks and its draws
+    src = [tab([_src_tf_ops(x) for x in tf]) for tf in (BOUNCE_CALL_TF, BOUNCE_ITER_TF,
+                                                         BOUNCE_PROBE_TF)]
+    other = (calls * (tab(BOUNCE_CALL_OPS) - src[0]) + t * (tab(BOUNCE_ITER_OPS) - src[1])
+             + probes * (tab(BOUNCE_PROBE_OPS) - src[2])).sum(0)
+    blocks = (calls * tab([x[0] for x in BOUNCE_CALL_TF])
+              + t * tab([x[0] for x in BOUNCE_ITER_TF])).sum(0)
+    draws = (probes * tab([x[1] for x in BOUNCE_PROBE_TF])).sum(0)
     nee = t[:, 5] > 0
     closed = nee & (t[:, NEE_RMO] == 0) if n > NEE_RMO else nee
-    if integer:
-        fixed, fixed_flight = BOUNCE_FIXED_INT, BOUNCE_FLIGHT_INT
-        extras = BOUNCE_SURFACE_INT * (t[:, 4] > 0).sum() + BOUNCE_NEE_INT * nee.sum()
-    else:
-        fixed, fixed_flight = BOUNCE_FIXED_OPS, BOUNCE_FLIGHT_OPS
-        extras = (BOUNCE_SURFACE_OPS * (t[:, 4] > 0).sum() + BOUNCE_NEE_OPS * nee.sum()
-                  + BOUNCE_CLOSED_FORM_OPS * closed.sum())
-    flight = fixed_flight * t.shape[0] + per_site[:4].sum()
-    shade = (fixed - fixed_flight) * t.shape[0] + extras + per_site[4:].sum()
-    return float({"bounce": flight + shade, "flight": flight, "shade": shade}[part])
+    surf, n_nee = float((t[:, 4] > 0).sum()), float(nee.sum())
+    flight_tf = BOUNCE_FLIGHT_TF
+    shade_tf = tuple(a - b for a, b in zip(BOUNCE_FIXED_TF, BOUNCE_FLIGHT_TF))
+    parts = {
+        "flight": (m * flight_tf[0] + float(blocks[:4].sum()),
+                   m * flight_tf[1] + float(draws[:4].sum()),
+                   m * (BOUNCE_FLIGHT_OPS - _src_tf_ops(flight_tf)) + float(other[:4].sum())),
+        "shade": (m * shade_tf[0] + surf * BOUNCE_SURFACE_TF[0] + n_nee * BOUNCE_NEE_TF[0]
+                  + float(blocks[4:].sum()),
+                  m * shade_tf[1] + surf * BOUNCE_SURFACE_TF[1] + n_nee * BOUNCE_NEE_TF[1]
+                  + float(draws[4:].sum()),
+                  m * (BOUNCE_FIXED_OPS - BOUNCE_FLIGHT_OPS - _src_tf_ops(shade_tf))
+                  + surf * (BOUNCE_SURFACE_OPS - _src_tf_ops(BOUNCE_SURFACE_TF))
+                  + n_nee * (BOUNCE_NEE_OPS - _src_tf_ops(BOUNCE_NEE_TF))
+                  + BOUNCE_CLOSED_FORM_OPS * float(closed.sum()) + float(other[4:].sum())),
+    }
+    parts["bounce"] = tuple(a + b for a, b in zip(parts["flight"], parts["shade"]))
+    return _ops_split(*parts[part], integer)
 
 
 def tracker_ops(torch, trips, k, site, integer=False):
@@ -402,13 +454,18 @@ def tracker_ops(torch, trips, k, site, integer=False):
     site's counts, ``cloud_track`` at the cloud site's, ``rmo_ratio_track``
     at the NEE RMO site's) whose lanes took the (n,) int32 iterations
     ``trips`` with ``k`` probes per iteration: each call's, iteration's and
-    probe's operations as ``bounce_ops`` counts them (a floor); with
-    ``integer`` their threefry share."""
-    call, it, probe = ((BOUNCE_CALL_INT, BOUNCE_ITER_INT, BOUNCE_PROBE_INT) if integer
-                       else (BOUNCE_CALL_OPS, BOUNCE_ITER_OPS, BOUNCE_PROBE_OPS))
+    probe's operations as ``bounce_ops`` counts them (a floor); ``integer``
+    as there."""
     t = trips.to(torch.float64)
-    probes = site_probes(torch, t, site_k(k, k)[site])
-    return float(((t > 0) * call[site] + t * it[site] + probes * probe[site]).sum())
+    calls, probes = float((t > 0).sum()), float(site_probes(torch, t, site_k(k, k)[site]).sum())
+    iters = float(t.sum())
+    tf = (BOUNCE_CALL_TF[site], BOUNCE_ITER_TF[site], BOUNCE_PROBE_TF[site])
+    blocks = calls * tf[0][0] + iters * tf[1][0] + probes * tf[2][0]
+    draws = calls * tf[0][1] + iters * tf[1][1] + probes * tf[2][1]
+    other = (calls * (BOUNCE_CALL_OPS[site] - _src_tf_ops(tf[0]))
+             + iters * (BOUNCE_ITER_OPS[site] - _src_tf_ops(tf[1]))
+             + probes * (BOUNCE_PROBE_OPS[site] - _src_tf_ops(tf[2])))
+    return _ops_split(blocks, draws, other, integer)
 
 
 def simt_efficiency(torch, trips, warp=32):
@@ -465,10 +522,11 @@ H100_SMS, FP32_PER_SM, SFU_PER_SM, INT32_PER_SM = 132, 128, 16, 64
 # atan2f or asinf, as one operation. The peak table gives no rate for the
 # special-function unit, so a transcendental counts as the one operation it
 # is at least, and each bound below is a floor.
-# gen_rays: six threefry2x32 blocks of about 77 integer operations (20
-# rounds of add, rotate, xor; five key injections), the pinhole ray, the
-# 9-step search and 4 wavelengths: 680, the six blocks' 462 of them integer.
-GEN_RAYS_OPS, GEN_RAYS_INT = 680, 462
+# gen_rays: the pinhole ray, the 9-step search and 4 wavelengths (218), and
+# threefry's three folds and three draws (counted once as six blocks of 77
+# integer operations: 680 in all), at this build's SASS instructions by pipe
+# (``tf_int``).
+GEN_RAYS_OPS, GEN_RAYS_TF = 218, (3, 3)
 # atmos_march (csrc/atmos_march.cu): one density evaluation (elevation 7,
 # clamp 1, Rayleigh 6, the cheapest Mie branch 3, ozone 16) is 33; a march
 # step is a density, 33 of optical depth, in-scatter and advance, and the
@@ -540,21 +598,26 @@ def fail(msg):
     sys.exit(1)
 
 
-def bound(nbytes, ops, sfu=None, int_ops=0.0):
+def bound(nbytes, ops, sfu=None, int_ops=0.0, fma_ops=0.0):
     """(ms, "bytes" or "operations"): the least time for the work on the
     card. With ``sfu`` (special-function operations), ``ops`` counts FP32
     instructions at 128 per SM per clock (an add, a multiply and a fused
     multiply-add one each: under --fmad=false a multiply and an add fuse
     only where the source writes fmaf), and the SFU operations issue at 16
     per SM per clock, at the card's largest SM clock; else ``ops`` run at
-    the FP32 peak, but for ``int_ops`` of them, 32-bit integer operations,
-    which run at INT32_PER_SM per SM per clock: the larger of the two
-    times (the two pipes issue side by side)."""
+    the FP32 peak, but for ``int_ops`` of them, 32-bit integer instructions
+    on the ALU pipe (threefry's rotates, xors and three-input adds), which
+    run at INT32_PER_SM per SM per clock, and ``fma_ops``, integer
+    multiply-adds on the FMA pipe (threefry's adds issued as IMAD), which
+    the same table gives the same rate: the largest of the three times (the
+    pipes issue side by side; FP32 work beside the IMADs is not charged to
+    their pipe, so the bound is a floor)."""
     t_bytes = nbytes / PEAK_BYTES * 1e3
     if sfu is None:
-        t_ops = ((ops or 0) - int_ops) / PEAK_F32 * 1e3
-        if int_ops:
-            t_ops = max(t_ops, int_ops / (H100_SMS * INT32_PER_SM * sm_clock_mhz() * 1e6) * 1e3)
+        t_ops = ((ops or 0) - int_ops - fma_ops) / PEAK_F32 * 1e3
+        int_hz = H100_SMS * INT32_PER_SM * sm_clock_mhz() * 1e6
+        if int_ops or fma_ops:
+            t_ops = max(t_ops, int_ops / int_hz * 1e3, fma_ops / int_hz * 1e3)
     else:
         hz = sm_clock_mhz() * 1e6
         t_ops = max(ops / (H100_SMS * FP32_PER_SM * hz), sfu / (H100_SMS * SFU_PER_SM * hz)) * 1e3
@@ -596,32 +659,222 @@ def toolchain(torch):
     print(f"card: {nvidia_smi_line()}")
 
 
+# SASS opcodes by the pipe that issues them on compute capability 9.0: the
+# integer ALU pipe (16 lanes per SM sub-partition) and the FMA pipe, which
+# takes the integer multiply-adds (IMAD and its forms .IADD, .MOV, .SHL,
+# .WIDE) beside FP32 arithmetic; any other opcode counts as "other"
+SASS_ALU = {"IADD3", "LOP3", "SHF", "PRMT", "LEA", "ISETP", "SEL", "IMNMX", "IABS", "MOV",
+            "PLOP3", "FLO", "POPC", "BMSK", "SGXT"}
+SASS_FMA = {"IMAD", "FFMA", "FADD", "FMUL"}
+# a draw is a threefry block and the word's conversion: y0 ^ y1, >> 9 and
+# | 0x3F800000 on the ALU pipe (its - 1.0f, an FP32 add, is not counted)
+DRAW_ALU = 3
+# one threefry block's instructions by pipe, from the SASS of this run's
+# build (``sass_census``); until that is read, the source's count: 77
+# integer operations, all taken as ALU-pipe work
+TF_BLOCK = {"alu": 77.0, "fma": 0.0}
+
+
+def tf_int(blocks, draws):
+    """(ALU-pipe, FMA-pipe) instructions of ``blocks`` threefry blocks and
+    ``draws`` draws at TF_BLOCK's counts."""
+    return (blocks * TF_BLOCK["alu"] + draws * (TF_BLOCK["alu"] + DRAW_ALU),
+            (blocks + draws) * TF_BLOCK["fma"])
+
+
+def parse_sass(text):
+    """{mangled function name: [opcode, ...]} of ``cuobjdump -sass`` output,
+    NOPs left out; an opcode keeps its modifiers (``SHF.L.W.U32.HI``,
+    ``IMAD.IADD``)."""
+    import re
+
+    funcs, ops = {}, None
+    for line in text.splitlines():
+        head = re.match(r"\s*Function : (\S+)", line)
+        if head:
+            ops = funcs.setdefault(head[1], [])
+            continue
+        ins = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line)
+        if ins and ops is not None and ins[1] != "NOP":
+            ops.append(ins[1])
+    return funcs
+
+
+def sass_functions(so):
+    """``parse_sass`` of the shared library ``so`` (``cuobjdump -sass``, the
+    tool next to nvcc)."""
+    from digital_earth_tpu_torch import kernels
+
+    tool = os.path.join(os.path.dirname(kernels.nvcc_path()), "cuobjdump")
+    return parse_sass(subprocess.run([tool, "-sass", so], capture_output=True, text=True,
+                                     check=True).stdout)
+
+
+def sass_histogram(ops):
+    """(opcode -> count, {"alu", "fma", "other"} -> count) of a list of SASS
+    opcodes, the pipe by SASS_ALU and SASS_FMA."""
+    hist, pipes = {}, {"alu": 0, "fma": 0, "other": 0}
+    for op in ops:
+        hist[op] = hist.get(op, 0) + 1
+        base = op.split(".")[0]
+        pipes["alu" if base in SASS_ALU else "fma" if base in SASS_FMA else "other"] += 1
+    return hist, pipes
+
+
+def sass_census(kernels, label="", funcs=None):
+    """The SASS of one threefry block in the built library: the depth-2
+    fold launcher's instructions less the depth-1's (csrc/threefry_check.cu),
+    by opcode and by pipe; sets TF_BLOCK (the bounds' per-block integer
+    work) from it; prints the block and the instruction mix of
+    ``threefry_uniform_kernel`` and of the default ``bounce_flight``.
+    Fails if the disassembly has no threefry kernel. ``funcs``: the
+    library's ``sass_functions``, where already read. A dict."""
+    so = kernels.library()._name
+    funcs = funcs if funcs is not None else sass_functions(so)
+    fold = {d: next((f for n, f in funcs.items() if f"threefry_fold_kernelILi{d}E" in n), None)
+            for d in (1, 2)}
+    if fold[1] is None or fold[2] is None:
+        fail(f"the disassembly of {so} has no threefry fold kernel "
+             f"({len(funcs)} functions, threefry: {[n for n in funcs if 'threefry' in n]})")
+    h1, p1 = sass_histogram(fold[1])
+    h2, p2 = sass_histogram(fold[2])
+    block = {op: h2.get(op, 0) - h1.get(op, 0) for op in sorted(set(h1) | set(h2))}
+    block = {op: c for op, c in block.items() if c}
+    pipes = {k: p2[k] - p1[k] for k in p1}
+    TF_BLOCK.update(alu=float(pipes["alu"]), fma=float(pipes["fma"]))
+    total = sum(block.values())
+    print(f"threefry SASS{label}, one block (fold depth 2 less depth 1): {total} instructions, "
+          f"ALU pipe {pipes['alu']}, FMA pipe {pipes['fma']}, other {pipes['other']}: "
+          + ", ".join(f"{op} {c}" for op, c in sorted(block.items(), key=lambda x: -x[1])))
+    out = dict(block=block, block_pipes=pipes, block_total=total)
+    for key, pattern in (("threefry_uniform_kernel", "threefry_uniform_kernel"),
+                         ("bounce_flight", "bounce_flight_kernelILi4ELb0E")):
+        name = next((n for n in funcs if pattern in n), None)
+        if name is None:
+            continue
+        hist, pp = sass_histogram(funcs[name])
+        top = sorted(hist.items(), key=lambda x: -x[1])[:8]
+        print(f"SASS{label} {key}: {len(funcs[name])} instructions, ALU {pp['alu']}, FMA "
+              f"{pp['fma']}, other {pp['other']}; " + ", ".join(f"{op} {c}" for op, c in top))
+        out[key] = dict(total=len(funcs[name]), pipes=pp, top=dict(top))
+    return out
+
+
+def sass_main_body(ops):
+    """A kernel's SASS opcodes up to the EXIT that ends its body: the
+    subroutines after it (the slow paths of IEEE divisions, ending in RET)
+    and the padding left out."""
+    ret = next((i for i, op in enumerate(ops) if op.startswith("RET")), len(ops))
+    exits = [i for i, op in enumerate(ops[:ret]) if op == "EXIT"]
+    return ops[:exits[-1] + 1] if exits else ops[:ret]
+
+
+# special-function and conversion opcodes (the XU pipe, 16 per SM per
+# clock on compute capability 9.0: the CUDA C++ Programming Guide's
+# throughput table); FP32 arithmetic, compares, selects and min / max at the
+# FP32 rate (128), a floor for any that issue slower
+SASS_XU = {"MUFU", "I2F", "F2I", "F2F", "FRND"}
+SASS_F32 = {"FFMA", "FADD", "FMUL", "FMNMX", "FSEL", "FSETP", "FCHK", "I2FP", "F2FP"}
+
+
+def sass_ops_bound(ops, n):
+    """(ms, {pipe: ms}) of ``n`` executions of the SASS opcodes ``ops``, each
+    pipe at its rate on the card (FP32 128, the integer ALU and IMAD 64, the
+    XU pipe 16 per SM per clock at the largest SM clock): the slowest
+    pipe's time, a floor (loads, stores and branches not counted)."""
+    rates = {"f32": FP32_PER_SM, "alu": INT32_PER_SM, "imad": INT32_PER_SM, "xu": SFU_PER_SM}
+    count = dict.fromkeys(rates, 0)
+    for op in ops:
+        base = op.split(".")[0]
+        pipe = ("xu" if base in SASS_XU else "f32" if base in SASS_F32 else
+                "imad" if base == "IMAD" else "alu" if base in SASS_ALU else None)
+        if pipe:
+            count[pipe] += 1
+    hz = H100_SMS * sm_clock_mhz() * 1e6
+    ms = {p: n * count[p] / (rates[p] * hz) * 1e3 for p in rates}
+    return max(ms.values()), ms, count
+
+
+def threefry_keys(torch, dev, n):
+    """(n, 2) int64 keys of a seeded batch whose first lanes are edge keys:
+    k0 = k1 (0, 1, 0x7FFFFFFF, 0xFFFFFFFF), ks[2] = 0 (k0 ^ k1 =
+    0x1BD11BDA) and one word 0 or all ones."""
+    from digital_earth_tpu_torch.ops import rng
+
+    par = 0x1BD11BDA
+    edge = [(v, v) for v in (0, 1, 0x7FFFFFFF, 0xFFFFFFFF)]
+    edge += [(a, a ^ par) for a in (0, 1, 0x7FFFFFFF, 0xFFFFFFFF, 0x12345678)]
+    edge += [(0, 0xFFFFFFFF), (0xFFFFFFFF, 0), (par, 0), (0, par)]
+    keys = rng.lane_keys(rng.prng_key(7, dev), torch.arange(n, device=dev) * 7919)
+    keys[:len(edge)] = torch.tensor(edge, dtype=torch.int64, device=dev)
+    return keys
+
+
+# fold data and draw counters the threefry check covers: 0, 1, the sign
+# bit's edges and 2^32 - 1 (and counter runs that wrap past it)
+THREEFRY_DATA = (0, 1, 5, 0x7FFFFFFF, 0x80000000, 0xFFFFFFFF)
+THREEFRY_BASES = (0, 0x7FFFFFFA, 0xFFFFFFFA)
+
+
 def check_threefry(torch, dev):
+    """The threefry header bit for bit against ops/rng.py on 65,536 lanes
+    (edge keys first): a fold and 12 draws, the fold at depths 1 and 2 (at
+    edge data), and 12 draws from each key at counter runs that cross 2^31
+    and 2^32; then
+    the launcher at the frame's shape (a fold and 3 draws for each of
+    1920 x 1080 lanes) per call and on the device alone, with its bound
+    from the SASS of a block. A JSON row."""
     from digital_earth_tpu_torch import kernels
     from digital_earth_tpu_torch.ops import rng
 
-    keys = rng.lane_keys(rng.prng_key(7, dev), torch.arange(1 << 16, device=dev) * 7919)
-    for data in (0, 5, 0xFFFFFFFF):
+    census = sass_census(kernels)
+    keys = threefry_keys(torch, dev, 1 << 16)
+    checks = 0
+    for data in THREEFRY_DATA:
         got = kernels.threefry_uniform(keys, data, 12)
         want = rng.uniform(rng.fold(keys, data), (12,))
-        torch.cuda.synchronize()
-        if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
-            fail(f"threefry header disagrees with ops/rng.uniform (data={data})")
-    print("threefry: kernel header bit-equal to ops/rng.uniform on 65536 lanes x 12 draws x 3 folds")
+        k1 = rng.fold(keys, data)
+        same = [torch.equal(got.view(torch.int32), want.view(torch.int32)),
+                torch.equal(kernels.threefry_fold(keys, data, 1), kernels.keys_i32(k1)),
+                torch.equal(kernels.threefry_fold(keys, data, 2),
+                            kernels.keys_i32(rng.fold(k1, data)))]
+        checks += len(same)
+        if not all(same):
+            fail(f"threefry header disagrees with ops/rng.py at data {data:#x} (uniform, fold "
+                 f"depth 1, depth 2: {same})")
+    for base in THREEFRY_BASES:
+        ctr = (base + torch.arange(12, device=dev))[:, None]
+        want = rng.uniform_at(keys[None], ctr).view(torch.int32)
+        checks += 1
+        if not torch.equal(kernels.threefry_draws(keys, base, 12).view(torch.int32), want):
+            fail(f"threefry draws disagree with ops/rng.uniform_at at counters {base:#x} + 0..11")
+    torch.cuda.synchronize()
+    print(f"threefry: header bit-equal to ops/rng.py on 65536 lanes (17 edge keys first) in "
+          f"{checks} checks: uniform(fold(key, d), 0..11), fold depth 1 and 2 at d in "
+          f"{[hex(d) for d in THREEFRY_DATA]}; uniform(key, c) at counters "
+          f"{[hex(b) for b in THREEFRY_BASES]} + 0..11")
     # at the bounce's shape: one site's key and its three draws (the phase
-    # sample) for every lane of a 1080p frame
+    # sample) for every lane of a 1080p frame; the keys given as int32, so
+    # the launcher's time is its kernel's
     n = RES[0] * RES[1]
     keys = rng.lane_keys(rng.prng_key(7, dev), torch.arange(n, device=dev))
-    got, ms = _time_ms(torch, lambda: kernels.threefry_uniform(keys, 4, 3), 5)
+    k32 = kernels.keys_i32(keys)
+    got, ms = _time_ms(torch, lambda: kernels.threefry_uniform(k32, 4, 3), 20)
+    graph_ms = _graph_ms(torch, lambda: kernels.threefry_uniform(k32, 4, 3))
     want, plain_ms = _plain_ms(torch, lambda: rng.uniform(rng.fold(keys, 4), (3,)))
     equal = torch.equal(got.view(torch.int32), want.view(torch.int32))
-    # keys read (8 B) and 3 draws written per lane; 4 threefry blocks of 77
-    # integer operations, at the integer rate
-    b_ms, b_by = bound(20 * n, 4 * 77 * n, int_ops=4 * 77 * n)
-    print(f"threefry {n} lanes, a fold and 3 draws: bit-equal {equal}  kernel {ms:.3f} ms  "
-          f"plain {plain_ms:.2f} ms  bound {b_ms:.4f} ms ({b_by})  {'ok' if equal else 'FAIL'}")
+    # keys read (8 B) and 3 draws written per lane; a fold and 3 draws of
+    # this build's SASS block on the ALU and FMA pipes, at the integer rate
+    alu, fma = tf_int(n, 3 * n)
+    b_ms, b_by = bound(20 * n, alu + fma, int_ops=alu, fma_ops=fma)
+    print(f"threefry {n} lanes, a fold and 3 draws: bit-equal {equal}  kernel {ms:.4f} ms per "
+          f"call, {graph_ms:.4f} ms on the device (CUDA graph)  plain {plain_ms:.2f} ms  bound "
+          f"{b_ms:.4f} ms ({b_by}; {alu:.4g} ALU-pipe and {fma:.4g} FMA-pipe instructions)  "
+          f"{'ok' if equal else 'FAIL'}")
     if not equal:
         fail("threefry header disagrees with ops/rng.uniform at the frame's shape")
+    return dict(max_abs_err=0.0, ms=ms, graph_ms=graph_ms, plain_ms=plain_ms, bytes=20 * n,
+                ops=alu + fma, int_ops=alu, fma_ops=fma, sass=census)
 
 
 def capture_frame_end(torch, run):
@@ -868,7 +1121,7 @@ def compare_kernels(torch, captured):
               f"max abs err {max_abs:.3e}  max rel err {max_rel:.3e}  "
               f"kernel {ms:.3f} ms  plain {plain_ms:.1f} ms  {'ok' if ok else 'FAIL'}")
         row = rows.setdefault(base, dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, ok=True,
-                                         bytes=0, ops=None, int_ops=0.0))
+                                         bytes=0, ops=None, int_ops=0.0, fma_ops=0.0))
         row["max_abs_err"] = max(row["max_abs_err"], max_abs)
         row["ok"] = row["ok"] and ok
         if b == 0:  # the bounce-0 wavefront carries most of the frame's work
@@ -888,12 +1141,14 @@ def compare_kernels(torch, captured):
                 cfg, site = args[8], 1
             ops = tracker_ops(torch, trips, cfg.tracking_k, site)
             int_ops = tracker_ops(torch, trips, cfg.tracking_k, site, integer=True)
+            fma_ops = tracker_ops(torch, trips, cfg.tracking_k, site, integer="fma")
             row["ops"] = (row["ops"] or 0.0) + ops
             row["int_ops"] += int_ops
+            row["fma_ops"] += fma_ops
             print(f"{kind:20s} bounce {b}: {int(trips.sum())} iterations ({int((trips > 0).sum())} "
-                  f"lanes), {ops:.4g} operations ({int_ops:.4g} integer): bound "
-                  f"{bound(0, ops, int_ops=int_ops)[0]:.4f} ms (operations; "
-                  f"{bound(0, ops)[0]:.4f} all at the FP32 rate)")
+                  f"lanes), {ops:.4g} operations ({int_ops:.4g} threefry ALU-pipe, {fma_ops:.4g} "
+                  f"FMA-pipe): bound {bound(0, ops, int_ops=int_ops, fma_ops=fma_ops)[0]:.4f} ms "
+                  f"(operations; {bound(0, ops)[0]:.4f} all at the FP32 rate)")
     return rows
 
 
@@ -1043,21 +1298,18 @@ def bounce_registers(kernels):
     (``kernels.bounce_occupancy``), and the spill stores and loads in bytes
     from ptxas's report of bounce.cu (the default instances: L = 4, the
     closed-form transmittance) of ``<entry>_kernel<L>``, ``<entry>_kernel<L,
-    false>`` or ``<entry>_kernel<L, false, false>`` (not a census instance,
-    ``<L, true, ...>``). None where this process did not build the kernels
-    (no report); fails where it did and an entry's spill line is missing."""
+    0>`` or ``<entry>_kernel<L, 0, 0>`` (not a census instance, ``<L, 1,
+    ...>``). None where this process did not build the kernels (no report);
+    fails where it did and an entry's spill line is missing."""
     import re
 
     log = kernels.ptxas_log.get("bounce.cu", "")
-    spills, entry = {}, None
-    for line in log.splitlines():
-        if "Function properties for" in line:
-            entry = next((n for n in kernels.OCCUPANCY_ENTRIES
-                          if re.search(rf"{n}_kernelILi\d+E(?:Lb0E){{0,2}}E", line)), None)
-        elif entry and "spill stores" in line:
-            got = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
-            spills[entry] = (int(got[1]), int(got[2]))
-            entry = None
+    entries = ptxas_entries(log)
+    spills = {}
+    for n in kernels.OCCUPANCY_ENTRIES:
+        name = next((k for k in entries if re.fullmatch(rf"{n}_kernel<\d+(?:,0){{0,2}}>", k)), None)
+        if name is not None and entries[name][1] is not None:
+            spills[n] = tuple(entries[name][1:])
     if log and set(spills) != set(kernels.OCCUPANCY_ENTRIES):
         fail(f"ptxas's report of bounce.cu has no spill line for "
              f"{sorted(set(kernels.OCCUPANCY_ENTRIES) - set(spills))}")
@@ -1069,6 +1321,49 @@ def bounce_registers(kernels):
                          warps_per_sm=occ["warps_per_sm"], spill_stores=stores,
                          spill_loads=loads)
     return out
+
+
+# the sources whose entries' registers and spills --path-bench reports
+PTXAS_SOURCES = ("bounce.cu", "bounce_l1.cu", "bounce_ratio.cu", "bounce_l1_ratio.cu",
+                 "rmo_delta_track.cu", "rmo_ratio_track.cu", "cloud_track.cu", "gen_rays.cu",
+                 "preview.cu", "threefry_check.cu")
+
+
+def ptxas_entries(log):
+    """{entry: [registers, spill stores, spill loads]} of the kernels in
+    one source's ptxas report (``-Xptxas -v``), each named by its mangled
+    name's identifier and template arguments (``bounce_shade_kernel<4,0>``;
+    None where the report has no such line); device functions are left
+    out."""
+    import re
+
+    out, entry, props = {}, None, None
+    for line in log.splitlines():
+        got = re.search(r"Compiling entry function '(\S+)'", line)
+        if got:
+            entry = got[1]
+            continue
+        got = re.search(r"Function properties for (\S+)", line)
+        if got:
+            props = got[1]
+            continue
+        got = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if got and props:
+            out.setdefault(props, [None, None, None])[1:] = [int(got[1]), int(got[2])]
+            props = None
+            continue
+        got = re.search(r"Used (\d+) registers", line)
+        if got and entry:
+            out.setdefault(entry, [None, None, None])[0] = int(got[1])
+            entry = None
+    named = {}
+    for mangled, row in out.items():
+        got = re.match(r"_ZN2de\d+(\w+?_kernel)(I.*?E)?E", mangled)
+        if got is None:  # a device function's properties
+            continue
+        named[got[1] + ("<" + ",".join(re.findall(r"L[ib](\d+)E", got[2])) + ">"
+                        if got[2] else "")] = row
+    return named
 
 
 def _graph_ms(torch, fn, reps=20):
@@ -1217,10 +1512,12 @@ def bounce_table(torch, states, cfg, census=True):
             spp_cycles = spp_cycles + warp_cycles(torch, cycles)
             ops = bounce_ops(torch, trips, cfg.march_k, cfg.tracking_k)
             int_ops = bounce_ops(torch, trips, cfg.march_k, cfg.tracking_k, integer=True)
+            fma_ops = bounce_ops(torch, trips, cfg.march_k, cfg.tracking_k, integer="fma")
             row["march_simt"] = march_simt(torch, trips, cfg.march_k)
             row["tracker_simt"] = tracker_simt(torch, trips)
             row["split"] = cycle_split(torch, cycles)
-            row.update(ops=ops, int_ops=int_ops, ops_ms=bound(0, ops, int_ops=int_ops)[0],
+            row.update(ops=ops, int_ops=int_ops, fma_ops=fma_ops,
+                       ops_ms=bound(0, ops, int_ops=int_ops, fma_ops=fma_ops)[0],
                        bytes_ms=BOUNCE_LANE_BYTES * m / PEAK_BYTES * 1e3,
                        trips=[round(x, 3) for x in trips.float().mean(0).tolist()],
                        simt=simt_efficiency(torch, trips))
@@ -1354,7 +1651,8 @@ def check_ratio_track(torch, args, label):
     nbytes = n * (8 + 24 + 8 + 12 * L + 4 + 1 + 4 * L)
     ops = tracker_ops(torch, iters, cfg.tracking_k, NEE_RMO)
     int_ops = tracker_ops(torch, iters, cfg.tracking_k, NEE_RMO, integer=True)
-    b_ms, b_by = bound(nbytes, ops, int_ops=int_ops)
+    fma_ops = tracker_ops(torch, iters, cfg.tracking_k, NEE_RMO, integer="fma")
+    b_ms, b_by = bound(nbytes, ops, int_ops=int_ops, fma_ops=fma_ops)
     lanes = iters > 0
     ok = parted == 0 and same_iters
     print(f"rmo_ratio_track {label}: {n} lanes ({int(active.sum())} NEE, L = {L}, K = "
@@ -1362,12 +1660,13 @@ def check_ratio_track(torch, args, label):
           f"iterations equal {same_iters}; mean trans {got.mean().item():.6f}; "
           f"{int(iters.sum())} iterations ({iters[lanes].float().mean().item():.3f} a tracked "
           f"lane, max {int(iters.max())}); kernel {ms:.4f} ms, plain {plain_ms:.1f} ms; bound "
-          f"{b_ms:.4f} ms ({b_by}; {ops:.4g} operations, {int_ops:.4g} integer; bytes "
+          f"{b_ms:.4f} ms ({b_by}; {ops:.4g} operations, {int_ops:.4g} threefry ALU-pipe, "
+          f"{fma_ops:.4g} FMA-pipe; bytes "
           f"{nbytes / PEAK_BYTES * 1e3:.4f} ms)  {'ok' if ok else 'FAIL'}")
     if not ok:
         fail(f"rmo_ratio_track disagrees with its plain twin ({label})")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bytes=nbytes, ops=ops,
-                int_ops=int_ops), iters
+                int_ops=int_ops, fma_ops=fma_ops), iters
 
 
 def check_reference_estimator(torch, dev, atlas, luts):
@@ -1538,6 +1837,7 @@ def check_window(torch, states, table):
           f"bounce_shade launches (their kernel time alone) from there; twin {plain_ms:.1f} ms")
     ops = sum(table[b]["ops"] for b in table if b >= wb)
     int_ops = sum(table[b]["int_ops"] for b in table if b >= wb)
+    fma_ops = sum(table[b]["fma_ops"] for b in table if b >= wb)
     first = max(wb - WINDOW_STARTS, 0)
     starts = {}
     for b in range(first, min(wb + 3, cfg.max_bounces)):
@@ -1559,7 +1859,7 @@ def check_window(torch, states, table):
           f"a host read)")
     # each lane's state read and written once for the whole window
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bytes=BOUNCE_LANE_BYTES * idx.numel(),
-                ops=ops, int_ops=int_ops), wb, (single, wb), starts
+                ops=ops, int_ops=int_ops, fma_ops=fma_ops), wb, (single, wb), starts
 
 
 def _compact_times(torch, compact_lanes, alive, wc):
@@ -1793,11 +2093,17 @@ def check_density(torch, lookups):
         fail("density_check disagrees with the plain table lookups")
 
 
-def check_texture(torch, lookups, atlas):
+def check_texture(torch, lookups, atlas, march_probes=0):
     """The bounce's bilinear sphere taps (texture.cuh, through the
     sphere_tap test launcher) against ops/texture.sample_sphere_texture at
     bounce 0's surface points: the material (8 channels) and the
-    topography (4), bilinear and nearest."""
+    topography (4), bilinear and nearest. Then the nearest topography tap
+    (the land march's) at ``march_probes`` points, bounce 0's march probes
+    (the census's pre-march, march-after and shadow lanes x their probes;
+    the surface points repeated), on the device alone (a CUDA graph of 20
+    calls), with an operations bound from the SASS of the launcher's
+    nearest instance (its atan2f, asinf, divisions and conversions, the
+    divisions' slow paths left out) beside its bytes. A dict."""
     from digital_earth_tpu_torch import kernels
     from digital_earth_tpu_torch.ops import texture as tx
 
@@ -1823,6 +2129,29 @@ def check_texture(torch, lookups, atlas):
                   f"{'ok' if this_ok else 'FAIL'}")
     if not ok:
         fail("the kernels' sphere tap disagrees with ops/texture.sample_sphere_texture")
+    if not march_probes or not n:
+        return {}
+    funcs = sass_functions(kernels.library()._name)
+    name = next((f for f in funcs if "sphere_tap_kernelILi4ELb0E" in f), None)
+    if name is None:
+        fail("the disassembly has no nearest 4-channel sphere_tap instance")
+    body = sass_main_body(funcs[name])
+    hist, _ = sass_histogram(body)
+    tex = atlas.topography
+    pos = land_pos.repeat((march_probes + n - 1) // n, 1)[:march_probes].contiguous()
+    _, ms = _time_ms(torch, lambda: kernels.sphere_tap(tex, pos, False), 5)
+    graph_ms = _graph_ms(torch, lambda: kernels.sphere_tap(tex, pos, False))
+    nbytes = march_probes * (12 + 16)
+    ops_ms, per_pipe, count = sass_ops_bound(body, march_probes)
+    b_ms, b_by = max((nbytes / PEAK_BYTES * 1e3, "bytes"), (ops_ms, "operations"))
+    mufu = {op: c for op, c in hist.items() if op.split(".")[0] in SASS_XU}
+    print(f"sphere tap topography nearest at bounce 0's {march_probes} march probes: "
+          f"{ms:.4f} ms per call, {graph_ms:.4f} ms on the device (CUDA graph); bound "
+          f"{b_ms:.4f} ms ({b_by}; bytes {nbytes / PEAK_BYTES * 1e3:.4f}, the SASS body's "
+          f"{len(body)} instructions a tap by pipe {count} ("
+          + ", ".join(f"{p} {t:.4f}" for p, t in per_pipe.items()) + f" ms); XU {mufu})")
+    return dict(probes=march_probes, ms=ms, graph_ms=graph_ms, bound_ms=b_ms, bound_by=b_by,
+                pipes=count, body=len(body))
 
 
 def profile_spp(torch, r, label, run=None, unit="spp"):
@@ -1966,12 +2295,13 @@ def check_gen_rays(torch, dev, atlas, luts):
         # tables read once; keys, dirs, wavelengths, responses, pdf and pid
         # written (and the preview's tile and in-tile lane)
         nbytes = luts.cie_cdf.shape[0] * 16 + n * (16 + 12 + 20 * L + 8 + (16 if L == 1 else 0))
-        b_ms, b_by = bound(nbytes, GEN_RAYS_OPS * n, int_ops=GEN_RAYS_INT * n)
+        ops, alu, fma = (_ops_split(GEN_RAYS_TF[0] * n, GEN_RAYS_TF[1] * n, GEN_RAYS_OPS * n, x)
+                         for x in (False, True, "fma"))
+        b_ms, b_by = bound(nbytes, ops, int_ops=alu, fma_ops=fma)
         print(f"gen_rays {mode} {res[0]}x{res[1]}: bound {b_ms:.4f} ms ({b_by}); the device "
               f"time is {b_ms / dev_ms:.2f} of it, the time per call {b_ms / ms:.2f}")
         if mode == "path":
-            row.update(ms=ms, plain_ms=plain_ms, bytes=nbytes, ops=GEN_RAYS_OPS * n,
-                       int_ops=GEN_RAYS_INT * n)
+            row.update(ms=ms, plain_ms=plain_ms, bytes=nbytes, ops=ops, int_ops=alu, fma_ops=fma)
     return row
 
 
@@ -3221,6 +3551,72 @@ def preview_bench(torch, dev):
     print(json.dumps({"preview_bench": out}))
 
 
+def threefry_bench(torch, dev, kernels):
+    """The package's threefry launcher at the frame's shape (a fold and 3
+    draws for each of 1920 x 1080 lanes; the keys given as int32 words to
+    its C entry, so the time is its kernel's, in any version of the
+    package): per call from the host, back to back, and on the device (a
+    CUDA graph of 20 calls), bit-equal to the plain version or not; and the
+    SASS census of a block where the library has the fold launcher. A
+    dict."""
+    from digital_earth_tpu_torch.ops import rng
+
+    n = RES[0] * RES[1]
+    keys = rng.lane_keys(rng.prng_key(7, dev), torch.arange(n, device=dev))
+    k32 = kernels.keys_i32(keys)
+    out = torch.empty((3, n), dtype=torch.float32, device=dev)
+
+    def launch():
+        kernels._launch("de_threefry_uniform", kernels._ptr(k32), n, 4, 3, kernels._ptr(out))
+
+    _, ms = _time_ms(torch, launch, 20)
+    graph_ms = _graph_ms(torch, launch)
+    want = rng.uniform(rng.fold(keys, 4), (3,))
+    res = dict(ms=round(ms, 5), graph_ms=round(graph_ms, 5),
+               bit_equal=torch.equal(out.view(torch.int32), want.view(torch.int32)))
+    funcs = sass_functions(kernels.library()._name)
+    if any("threefry_fold_kernel" in name for name in funcs):
+        import digital_earth_tpu_torch as pkg
+
+        res["sass"] = sass_census(kernels, f" ({os.path.dirname(os.path.abspath(pkg.__file__))})",
+                                  funcs)
+    return res
+
+
+def spp_bench(torch, dev, reps=3):
+    """``--spp-bench [DIR]``: per scene (Apollo 11, florida, sunset
+    hurricane at 1920x1080) at the default config and at the reference's
+    estimator: s/spp of 3 spp after 1 warm-up, then ``reps`` profiled spp
+    (the bounce kernels' device ms and the device kernels of each), for the
+    package imported from DIR; lighter than ``--path-bench``, so versions
+    can be alternated more often in one call. Prints one JSON line."""
+    import digital_earth_tpu_torch as pkg
+    from digital_earth_tpu_torch.app.config_io import load_config
+    from digital_earth_tpu_torch.app.viewer import render_offline
+    from digital_earth_tpu_torch.assets.luts import load_spectral_luts
+    from digital_earth_tpu_torch.assets.textures import procedural_texture_atlas
+    from digital_earth_tpu_torch.render.params import TraceConfig
+
+    cache = os.path.join(ROOT, "build", "chip_smoke", "texture_cache")
+    luts = load_spectral_luts(dev)
+    atlas = procedural_texture_atlas(dev, (1024, 2048), seed=7, cache_dir=cache)
+    out = dict(package=os.path.dirname(os.path.abspath(pkg.__file__)), card=nvidia_smi_line())
+    for label, cfg in (("default", TraceConfig()), ("estimator", TraceConfig(**REF_ESTIMATOR))):
+        for scene in (SCENE, *(os.path.join(ROOT, "scenes", s) for s in OTHER_SCENES)):
+            name = f"{label} {os.path.basename(scene)[9:-4]}"
+            r = render_offline(load_config(scene), dev, spp=1, image_res=RES, out_path=None,
+                               atlas=atlas, luts=luts, cfg=cfg)
+            row = dict(s_per_spp=round(_spp_seconds(torch, r, 3), 5), bounce_ms=[], kernels=[])
+            for _ in range(reps):
+                n_k, _, _, by_name = profile_spp(torch, r, name)
+                row["bounce_ms"].append(round(
+                    sum(us for k, us in by_name.items() if "bounce" in k) / 1e3, 3))
+                row["kernels"].append(n_k)
+            out[name] = row
+            del r
+    print(json.dumps({"spp_bench": out}))
+
+
 def path_bench(torch, dev):
     """``--path-bench [DIR]``: the path tracer's end-to-end numbers for the
     package imported from DIR (default this checkout), through its public
@@ -3315,6 +3711,11 @@ def path_bench(torch, dev):
     from digital_earth_tpu_torch.render import tracers
 
     out["bounce_registers"] = bounce_registers(kernels)
+    # every entry's registers and spills (ptxas) of the sources that draw
+    # from the threefry header
+    out["ptxas"] = {src: ptxas_entries(kernels.ptxas_log.get(src, "")) for src in PTXAS_SOURCES
+                    if src in kernels.ptxas_log}
+    out["threefry"] = threefry_bench(torch, dev, kernels)
     # the tracker and march launchers on the path's arguments (per kind the
     # captured call with the most active lanes at bounces 0 and DEEP_BOUNCE)
     launchers = {"land_march": tracers.intersect_land, "rmo_delta_track": tracers.delta_track_rmo,
@@ -3362,6 +3763,29 @@ def path_bench(torch, dev):
     frame = pt.BounceFrame(c["st"], *c["args"])
     out["window_ms"] = [wb, round(_bounce_ms(torch, c["st"], lambda st: pt.run_window(
         st, c["idx"], wb, cfg.max_bounces, *c["args"], frame)), 4)]
+    del c, frame
+    # the reference estimator: rmo_ratio_track on Apollo bounce 0's NEE lanes
+    # at four wavelengths (ratio tracking alone) and at one (all three
+    # options), per call; the estimator's census at bounce 0 on each scene
+    if "analytic_transmittance" in TraceConfig.__dataclass_fields__:
+        out["ratio_track_ms"], out["estimator_cycle_split"] = {}, {}
+        for label, cfg_r in (("L4", TraceConfig(analytic_transmittance=False)),
+                             ("L1", TraceConfig(**REF_ESTIMATOR))):
+            sts, _, _ = capture_states(torch, dev, atlas, luts, bounces=(0,), cfg=cfg_r)
+            keys, pos, d, t0, t1, ext, max_ext, active, cfg_a = capture_ratio_args(
+                torch, sts[0], 0)
+            kw = dict(max_steps=cfg_a.max_tracking_steps, k=cfg_a.tracking_k)
+            out["ratio_track_ms"][label] = round(_time_ms(torch, lambda: kernels.rmo_ratio_track(
+                keys, pos, d, t0, t1, ext, max_ext, active, **kw), 5)[1], 4)
+            del sts
+        for scene in (SCENE, *(os.path.join(ROOT, "scenes", s) for s in OTHER_SCENES)):
+            sts, _, _ = capture_states(torch, dev, atlas, luts, bounces=(0,), scene=scene,
+                                       cfg=TraceConfig(**REF_ESTIMATOR))
+            _, _, _, cycles = _bounce_and_twin(torch, sts[0], 0)
+            sites, fl, sh, total = cycle_split(torch, cycles)
+            out["estimator_cycle_split"][os.path.basename(scene)[9:-4]] = [
+                round(x, 4) for x in sites] + [round(fl, 4), round(sh, 4), total]
+            del sts
     # select_tiles on the device (a CUDA graph of 20 calls) on seeded
     # buffers: 1920x1080 (1,080 tiles) and 3840x2160 at 512-pixel tiles
     # (17,280 tiles)
@@ -3433,9 +3857,11 @@ def main():
     mesh_only = args == ["--mesh-only"]
     bench = args[:1] == ["--preview-bench"] and len(args) <= 2
     pbench = args[:1] == ["--path-bench"] and len(args) <= 2
-    if args and not (mesh_only or bench or pbench):
-        fail(f"unknown arguments {args} (the options are --mesh-only, --preview-bench [DIR] "
-             "and --path-bench [DIR])")
+    tbench = args[:1] == ["--threefry-bench"] and len(args) <= 2
+    sbench = args[:1] == ["--spp-bench"] and len(args) <= 2
+    if args and not (mesh_only or bench or pbench or tbench or sbench):
+        fail(f"unknown arguments {args} (the options are --mesh-only, --preview-bench [DIR], "
+             "--path-bench [DIR], --threefry-bench [DIR] and --spp-bench [DIR])")
     try:
         import torch
     except ImportError:
@@ -3444,10 +3870,24 @@ def main():
         fail("torch.cuda.is_available() is False: this smoke test needs a CUDA card")
     if not os.path.isdir(os.path.join(ROOT, "digital_earth_tpu_torch")):
         fail("run from a checkout: digital_earth_tpu_torch/ is missing beside chip_smoke.py")
-    sys.path.insert(0, os.path.abspath(args[1]) if (bench or pbench) and len(args) == 2 else ROOT)
+    sys.path.insert(0, os.path.abspath(args[1]) if (bench or pbench or tbench or sbench)
+                    and len(args) == 2 else ROOT)
     dev = torch.device("cuda:0")
     if bench:
         preview_bench(torch, dev)
+        return
+    if sbench:
+        spp_bench(torch, dev)
+        return
+    if tbench:
+        from digital_earth_tpu_torch import kernels
+
+        kernels.library()
+        out = dict(card=nvidia_smi_line(), build_s=round(kernels.build_seconds, 1),
+                   ptxas={src: ptxas_entries(kernels.ptxas_log.get(src, ""))
+                          for src in PTXAS_SOURCES if src in kernels.ptxas_log},
+                   threefry=threefry_bench(torch, dev, kernels))
+        print(json.dumps({"threefry_bench": out}))
         return
     if pbench:
         path_bench(torch, dev)
@@ -3543,15 +3983,20 @@ def main():
     cfg = states[0]["args"][3]
     for name, part in (("bounce_flight", "flight"), ("bounce_shade", "shade")):
         rows[name]["ops"] = bounce_ops(torch, census[0], cfg.march_k, cfg.tracking_k, part)
-        rows[name]["int_ops"] = bounce_ops(torch, census[0], cfg.march_k, cfg.tracking_k, part,
-                                           integer=True)
+        for key, integer in (("int_ops", True), ("fma_ops", "fma")):
+            rows[name][key] = bounce_ops(torch, census[0], cfg.march_k, cfg.tracking_k, part,
+                                         integer=integer)
     table = bounce_table(torch, states, cfg)
     check_scenes(torch, dev, atlas, luts)
     rows["bounce_window"], _, schedule, _ = check_window(torch, states, table)
     check_draine(torch, states)
     rows["compact_lanes"] = check_compact(torch, states, deepest)
     check_density(torch, lookups)
-    check_texture(torch, lookups, atlas)
+    march_k = states[0]["args"][3].march_k
+    trips0 = census[0].to(torch.float64)
+    probes = int(sum(float(site_probes(torch, trips0[:, site], march_k).sum())
+                     for site in MARCH_SITES))
+    check_texture(torch, lookups, atlas, probes)
     del states, deepest, lookups, census, table
     check_window_spp(torch, dev, atlas, luts, schedule)
     rows["rmo_ratio_track"], _ = check_reference_estimator(torch, dev, atlas, luts)
@@ -3678,7 +4123,8 @@ def main():
     entries = []
     for name, (route, src, rep) in sources.items():
         row = rows[name]
-        bound_ms, bound_by = bound(row["bytes"], row["ops"], row.get("sfu"), row.get("int_ops", 0))
+        bound_ms, bound_by = bound(row["bytes"], row["ops"], row.get("sfu"), row.get("int_ops", 0),
+                                   row.get("fma_ops", 0))
         # one PyTorch call computes compact_lanes's order (a stable
         # argsort) and upsample's repeat (expand + reshape; without the
         # jitter on two of the four planes), none the others' functions

@@ -1,11 +1,26 @@
 // Threefry-2x32 (20 rounds) and the per-lane key chain of JAX's
 // ``jax.random.fold_in`` / ``jax.random.uniform`` under
-// jax_threefry_partitionable=True, bit for bit (digital_earth_tpu/ops/rng.py,
-// mirrored in Python by digital_earth_tpu_torch/ops/rng.py).
+// jax_threefry_partitionable=True, bit for bit (replaces
+// digital_earth_tpu/ops/rng.py:33-64, mirrored in Python by
+// digital_earth_tpu_torch/ops/rng.py).
 //
 //   fold(key, d)        = threefry2x32(key; (0, d))
 //   uniform(key, j)     = float from the word y0 ^ y1 of threefry2x32(key; (0, j)),
 //                         ((bits >> 9) | 0x3F800000) - 1, j the flat draw index
+//
+// What bounds it on the H100: integer issue on the ALU pipe, which takes 16
+// lanes a clock per SM sub-partition. ptxas compiles a block to 68 SASS
+// instructions (chip_smoke.py reads them from csrc/threefry_check.cu): on
+// the ALU pipe 20 rotates of one funnel shift each (SHF.L.W), 21 LOP3 (the
+// xors and ks[2]) and 9 IADD3, on the FMA pipe 17 IMAD.IADD, and a VIADD.
+// That is the fewest a block allows with an add, a rotate and a xor a
+// round: ptxas itself folds x0 = 0 and each key injection into the next
+// round's three-input add, and issues the rounds' two-input adds on the
+// FMA pipe. So the loop below stays as written. Written out by hand (the
+// folded injections, the adds forced onto IMAD, a key's ks[2] made once, a
+// site's draws from one key interleaved), the block stayed the same 68
+// instructions and the bounce entries' device time did not move; rotates
+// as 64-bit multiplies on the FMA pipe (IMAD.WIDE) were slower (PERF.md).
 #pragma once
 #include <cstdint>
 

@@ -110,6 +110,10 @@ _SIGNATURES = {
     "de_sphere_tap": [_P, _I, _I, _I, _P, _I, _I, _P, _P],
     # keys, n, data, count, out, stream
     "de_threefry_uniform": [_P, _I, ctypes.c_uint, _I, _P, _P],
+    # keys, n, data, depth, out, stream
+    "de_threefry_fold": [_P, _I, ctypes.c_uint, _I, _P, _P],
+    # keys, n, base, count, out, stream
+    "de_threefry_draws": [_P, _I, ctypes.c_uint, _I, _P, _P],
     # base, w, C, factor, out, n (64-bit), jitter channel, jitter, seed, stream
     "de_upsample": [_P, _I, _I, _I, _P, ctypes.c_int64, _I, _F, ctypes.c_uint, _P],
     # float params, int params, key k0, k1, origin, pos, dir, wavelength,
@@ -907,14 +911,49 @@ def sphere_tap(tex, pos, bilinear: bool):
     return out
 
 
+def _threefry_keys(keys):
+    """(n, 2) keys on a CUDA device as the launchers take them: int32 words
+    (an int64 batch holding uint32 values is converted, int32 passes)."""
+    if keys.device.type != "cuda":
+        raise ValueError(f"keys: on {keys.device}, expected a CUDA device (the threefry "
+                         "launchers have no CPU mode: ops/rng.py is the plain version)")
+    k32 = keys if keys.dtype == torch.int32 else keys_i32(keys)
+    _check("keys", k32, torch.int32, (keys.shape[0], 2), keys.device)
+    return k32
+
+
 def threefry_uniform(keys, data: int, count: int):
     """Test launcher of the kernels' threefry header (not a path kernel):
     ``uniform(fold(keys, data), (count,))`` as (count, n), computed on the
     card by csrc/threefry_check.cu."""
-    n = keys.shape[0]
-    k32 = keys_i32(keys)
+    k32 = _threefry_keys(keys)
+    n = k32.shape[0]
     out = torch.empty((count, n), dtype=torch.float32, device=keys.device)
     _launch("de_threefry_uniform", _ptr(k32), n, data & 0xFFFFFFFF, count, _ptr(out))
+    return out
+
+
+def threefry_draws(keys, base: int, count: int):
+    """Test launcher of the header's uniform (not a path kernel): (count, n)
+    draws ``uniform(key, base + j)`` (counters mod 2**32) from each key
+    itself, computed on the card by csrc/threefry_check.cu;
+    ``ops/rng.uniform_at`` is the plain version."""
+    k32 = _threefry_keys(keys)
+    n = k32.shape[0]
+    out = torch.empty((count, n), dtype=torch.float32, device=keys.device)
+    _launch("de_threefry_draws", _ptr(k32), n, base & 0xFFFFFFFF, count, _ptr(out))
+    return out
+
+
+def threefry_fold(keys, data: int, depth: int):
+    """Test launcher of the header's fold (not a path kernel): (n, 2) int32
+    words of ``fold`` applied ``depth`` (1 or 2) times with ``data``,
+    computed on the card by csrc/threefry_check.cu."""
+    if depth not in (1, 2):
+        raise ValueError(f"threefry_fold: depth {depth}, the launcher has 1 and 2")
+    k32 = _threefry_keys(keys)
+    out = torch.empty_like(k32)
+    _launch("de_threefry_fold", _ptr(k32), k32.shape[0], data & 0xFFFFFFFF, depth, _ptr(out))
     return out
 
 

@@ -186,11 +186,14 @@ def _chip_smoke():
 
 
 def test_bounce_census_arithmetic():
-    """chip_smoke.py's operations from trip counts (all of them, and their
-    integer share) and SIMT efficiency, on a hand-counted case: the second
-    lane took the sun's transmittance by ratio tracking (NEE RMO trips), so
-    it counts no closed-form term; a census of six sites (a package without
-    the NEE RMO column) counts as the seven's first six."""
+    """chip_smoke.py's operations from trip counts (all of them, and
+    threefry's share on the ALU and on the FMA pipe) and SIMT efficiency, on
+    a hand-counted case, at the source's count of a threefry block (77
+    ALU-pipe operations, the totals as counted before the SASS was read) and
+    at a SASS-like split: the second lane took the sun's transmittance by
+    ratio tracking (NEE RMO trips), so it counts no closed-form term; a
+    census of six sites (a package without the NEE RMO column) counts as the
+    seven's first six."""
     cs = _chip_smoke()
     trips = torch.tensor([[0, 1, 2, 0, 0, 1, 0], [0, 3, 2, 1, 1, 1, 2]], dtype=torch.int32)
     k = 4
@@ -204,25 +207,49 @@ def test_bounce_census_arithmetic():
         kj = 1 if j in (1, 5) else (tracking_k if j in (2, 6) else k)
         return call[j] + n * it[j] + (kj * n - (kj - 1)) * probe[j]
 
+    tf_tables = (cs.BOUNCE_CALL_TF, cs.BOUNCE_ITER_TF, cs.BOUNCE_PROBE_TF)
     ops_tables = (cs.BOUNCE_CALL_OPS, cs.BOUNCE_ITER_OPS, cs.BOUNCE_PROBE_OPS)
-    int_tables = (cs.BOUNCE_CALL_INT, cs.BOUNCE_ITER_INT, cs.BOUNCE_PROBE_INT)
-    for tracking_k in (4, 6):
-        sites = lambda tables, cols=7: sum(  # noqa: E731
-            site(j, int(trips[i, j]), tracking_k, tables) for i in range(2) for j in range(cols))
-        want = (2 * cs.BOUNCE_FIXED_OPS + cs.BOUNCE_SURFACE_OPS + 2 * cs.BOUNCE_NEE_OPS
-                + cs.BOUNCE_CLOSED_FORM_OPS + sites(ops_tables))
-        assert cs.bounce_ops(torch, trips, k, tracking_k) == want
-        want_int = (2 * cs.BOUNCE_FIXED_INT + cs.BOUNCE_SURFACE_INT + 2 * cs.BOUNCE_NEE_INT
-                    + sites(int_tables))
-        assert cs.bounce_ops(torch, trips, k, tracking_k, integer=True) == want_int
-        six = (2 * cs.BOUNCE_FIXED_OPS + cs.BOUNCE_SURFACE_OPS
-               + 2 * (cs.BOUNCE_NEE_OPS + cs.BOUNCE_CLOSED_FORM_OPS) + sites(ops_tables, 6))
-        assert cs.bounce_ops(torch, trips[:, :6], k, tracking_k) == six
-        for j in (1, 2, 6):
-            for tables, integer in ((ops_tables, False), (int_tables, True)):
-                assert cs.tracker_ops(torch, trips[:, j], tracking_k, j, integer=integer) == (
-                    site(j, int(trips[0, j]), tracking_k, tables)
-                    + site(j, int(trips[1, j]), tracking_k, tables))
+    blk_tables = tuple(tuple(x[0] for x in t) for t in tf_tables)
+    drw_tables = tuple(tuple(x[1] for x in t) for t in tf_tables)
+    fixed = (cs.BOUNCE_FIXED_TF, cs.BOUNCE_SURFACE_TF, cs.BOUNCE_NEE_TF)
+    for alu_b, fma_b in ((77.0, 0.0), (49.0, 18.0)):
+        cs.TF_BLOCK.update(alu=alu_b, fma=fma_b)
+
+        def split(blocks, draws):
+            # (the source's count, ALU-pipe, FMA-pipe) of threefry's work
+            return (77 * blocks + 80 * draws, blocks * alu_b + draws * (alu_b + 3),
+                    (blocks + draws) * fma_b)
+
+        for tracking_k in (4, 6):
+            sites = lambda tables, cols=7: sum(  # noqa: E731
+                site(j, int(trips[i, j]), tracking_k, tables) for i in range(2)
+                for j in range(cols))
+            for cols, closed in ((7, 1), (6, 2)):
+                blocks = (2 * fixed[0][0] + fixed[1][0] + 2 * fixed[2][0]
+                          + sites(blk_tables, cols))
+                draws = (2 * fixed[0][1] + fixed[1][1] + 2 * fixed[2][1]
+                         + sites(drw_tables, cols))
+                src, alu, fma = split(blocks, draws)
+                counted = (2 * cs.BOUNCE_FIXED_OPS + cs.BOUNCE_SURFACE_OPS + 2 * cs.BOUNCE_NEE_OPS
+                           + closed * cs.BOUNCE_CLOSED_FORM_OPS + sites(ops_tables, cols))
+                t = trips[:, :cols]
+                assert cs.bounce_ops(torch, t, k, tracking_k) == counted - src + alu + fma
+                assert cs.bounce_ops(torch, t, k, tracking_k, integer=True) == alu
+                assert cs.bounce_ops(torch, t, k, tracking_k, integer="fma") == fma
+                if alu_b == 77.0:  # the source's count: the totals as they were
+                    assert cs.bounce_ops(torch, t, k, tracking_k) == counted
+            for j in (1, 2, 6):
+                per = [sum(site(j, int(trips[i, j]), tracking_k, tab) for i in range(2))
+                       for tab in (ops_tables, blk_tables, drw_tables)]
+                src, alu, fma = split(per[1], per[2])
+                assert cs.tracker_ops(torch, trips[:, j], tracking_k, j) == per[0] - src + alu + fma
+                assert cs.tracker_ops(torch, trips[:, j], tracking_k, j, integer=True) == alu
+                assert cs.tracker_ops(torch, trips[:, j], tracking_k, j, integer="fma") == fma
+    # the FMA pipe's integer work has its own rate beside the ALU pipe's
+    cs.sm_clock_mhz = lambda: 1980.0
+    int_hz = cs.H100_SMS * cs.INT32_PER_SM * 1980.0e6
+    assert cs.bound(0, 3e9, int_ops=2e9, fma_ops=1e9)[0] == 2e9 / int_hz * 1e3
+    assert cs.bound(0, 3e9, int_ops=1e9, fma_ops=2e9)[0] == 2e9 / int_hz * 1e3
     # warps of 2: per site the lanes' trips over 2 x the warp's largest
     assert cs.simt_efficiency(torch, trips, warp=2) == [None, 4 / 6, 1.0, 0.5, 0.5, 1.0, 0.5]
     assert cs.tracker_simt(torch, trips, warp=2) == [4 / 6, 1.0, 1.0, 0.5]
@@ -277,3 +304,101 @@ def test_bounce_registers_reads_the_timed_instances(drop):
     # no report (a build from an earlier process): no spills, no failure
     kern.ptxas_log = {}
     assert all(r["spill_stores"] is None for r in cs.bounce_registers(kern).values())
+
+# cuobjdump -sass as CUDA 12 prints it: two fold launchers that differ by one
+# block (here five instructions), predicates, NOPs and encodings
+_SASS = """\
+\tcode for sm_90a
+\t\tFunction : _ZN2de20threefry_fold_kernelILi2EEEvPKiijPi
+\t.headerflags\t@"EF_CUDA_TEXMODE_UNIFIED EF_CUDA_64BIT_ADDRESS"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;                 /* 0x00000a00ff017b82 */
+                                                                           /* 0x000fe40000000800 */
+        /*0010*/              @!P0 EXIT ;                                 /* 0x000000000000094d */
+        /*0020*/                   IADD3 R3, R2, R5, RZ ;
+        /*0030*/                   SHF.L.W.U32.HI R4, R3, 0xd, R3 ;
+        /*0040*/                   LOP3.LUT R4, R4, R3, RZ, 0x3c, !PT ;
+        /*0050*/                   IMAD R6, R4, c[0x3][0x0], R3 ;
+        /*0060*/                   SHF.L.W.U32.HI R4, R6, 0xf, R6 ;
+        /*0070*/                   IADD3 R3, R2, R5, RZ ;
+        /*0080*/                   SHF.L.W.U32.HI R4, R3, 0xd, R3 ;
+        /*0090*/                   LOP3.LUT R4, R4, R3, RZ, 0x3c, !PT ;
+        /*00a0*/                   IMAD.IADD R6, R4, 0x1, R3 ;
+        /*00b0*/                   EXIT ;
+        /*00c0*/                   BRA 0xc0;
+        /*00d0*/                   NOP;
+\t\t..........
+\t\tFunction : _ZN2de20threefry_fold_kernelILi1EEEvPKiijPi
+        /*0000*/                   LDC R1, c[0x0][0x28] ;
+        /*0010*/              @!P0 EXIT ;
+        /*0020*/                   IADD3 R3, R2, R5, RZ ;
+        /*0030*/                   SHF.L.W.U32.HI R4, R3, 0xd, R3 ;
+        /*0040*/                   LOP3.LUT R4, R4, R3, RZ, 0x3c, !PT ;
+        /*0050*/                   IMAD R6, R4, c[0x3][0x0], R3 ;
+        /*0060*/                   SHF.L.W.U32.HI R4, R6, 0xf, R6 ;
+        /*0070*/                   EXIT ;
+        /*0080*/                   BRA 0x80;
+"""
+
+
+def test_sass_census_counts_one_block():
+    """chip_smoke.py reads the SASS of one threefry block as the depth-2
+    fold launcher's instructions less the depth-1's, by opcode and by pipe
+    (IMAD on the FMA pipe, IADD3, LOP3 and SHF on the ALU pipe), sets the
+    bounds' per-block counts from it, and fails where the disassembly has
+    no threefry kernel."""
+    import types
+
+    cs = _chip_smoke()
+    funcs = cs.parse_sass(_SASS)
+    assert sorted(funcs) == ["_ZN2de20threefry_fold_kernelILi1EEEvPKiijPi",
+                             "_ZN2de20threefry_fold_kernelILi2EEEvPKiijPi"]
+    assert funcs["_ZN2de20threefry_fold_kernelILi1EEEvPKiijPi"] == [
+        "LDC", "EXIT", "IADD3", "SHF.L.W.U32.HI", "LOP3.LUT", "IMAD", "SHF.L.W.U32.HI", "EXIT",
+        "BRA"]
+    hist, pipes = cs.sass_histogram(["IMAD.IADD", "IADD3", "SHF.L.W.U32.HI", "LDC"])
+    assert hist["IMAD.IADD"] == 1 and pipes == {"alu": 2, "fma": 1, "other": 1}
+    kern = types.SimpleNamespace(library=lambda: types.SimpleNamespace(_name="lib.so"))
+    got = cs.sass_census(kern, funcs=funcs)
+    assert got["block"] == {"IADD3": 1, "SHF.L.W.U32.HI": 1, "LOP3.LUT": 1, "IMAD.IADD": 1}
+    assert got["block_pipes"] == {"alu": 3, "fma": 1, "other": 0} and got["block_total"] == 4
+    assert cs.TF_BLOCK == {"alu": 3.0, "fma": 1.0}
+    assert cs.tf_int(2, 1) == (2 * 3 + 1 * (3 + cs.DRAW_ALU), 3 * 1)
+    with pytest.raises(SystemExit):
+        cs.sass_census(kern, funcs={"_ZN2de12other_kernelEv": ["EXIT"]})
+
+
+def test_ptxas_entries_reads_every_kernel():
+    """chip_smoke.py's ptxas reader: each entry's registers and spill bytes
+    by a readable name, device functions left out."""
+    cs = _chip_smoke()
+    log = """\
+ptxas info    : Compiling entry function '_ZN2de19bounce_shade_kernelILi1ELb0ELb1EEEvNS_11BounceStateENS_12BounceParamsEPK6float4' for 'sm_90a'
+ptxas info    : Function properties for _ZN2de19bounce_shade_kernelILi1ELb0ELb1EEEvNS_11BounceStateENS_12BounceParamsEPK6float4
+    80 bytes stack frame, 8 bytes spill stores, 12 bytes spill loads
+ptxas info    : Used 124 registers, used 0 barriers, 80 bytes cumulative stack size
+ptxas info    : Function properties for _ZN2de10cloud_callENS_3KeyENS_2V3ES1_fffPKhiiiib
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Compiling entry function '_ZN2de20threefry_fold_kernelILi2EEEvPKiijPi' for 'sm_90a'
+ptxas info    : Function properties for _ZN2de20threefry_fold_kernelILi2EEEvPKiijPi
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 12 registers, used 0 barriers
+"""
+    assert cs.ptxas_entries(log) == {"bounce_shade_kernel<1,0,1>": [124, 8, 12],
+                                     "threefry_fold_kernel<2>": [12, 0, 0]}
+
+
+def test_sass_tap_bound_counts_the_body_by_pipe():
+    """The tap's operations bound reads the kernel's body up to its last
+    EXIT before the division's slow-path subroutine (ending in RET), and
+    times each pipe at its rate: XU (MUFU, conversions) 16, FP32 128, the
+    integer ALU and IMAD 64 per SM per clock."""
+    cs = _chip_smoke()
+    ops = ["S2R", "MUFU.RCP", "FFMA", "FFMA", "I2F.U32", "IADD3", "IMAD", "EXIT",
+           "CALL.REL.NOINC", "EXIT", "BRA", "FFMA", "MUFU.RCP", "RET.REL.NODEC", "BRA"]
+    body = cs.sass_main_body(ops)
+    assert body == ops[:10]
+    cs.sm_clock_mhz = lambda: 1000.0
+    ms, per_pipe, count = cs.sass_ops_bound(body, 132 * 16 * 1000)
+    assert count == {"f32": 2, "alu": 1, "imad": 1, "xu": 2}
+    assert per_pipe["xu"] == 2 * 1e-6 * 1e3 and ms == per_pipe["xu"]
+    assert per_pipe["f32"] == 2 * 16 / 128 * 1e-6 * 1e3

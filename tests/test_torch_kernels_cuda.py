@@ -76,14 +76,53 @@ def case(dev):
     )
 
 
-def test_threefry_header_bit_equal(dev):
+# edge keys of the threefry header's checks: k0 = k1, ks[2] = k0 ^ k1 ^
+# 0x1BD11BDA = 0, one word 0 or all ones; edge data and counter runs that
+# cross 2^31 and wrap past 2^32
+_TF_PARITY = 0x1BD11BDA
+_TF_EDGE_KEYS = ([(v, v) for v in (0, 1, 0x7FFFFFFF, 0xFFFFFFFF)]
+                 + [(a, a ^ _TF_PARITY) for a in (0, 1, 0x7FFFFFFF, 0xFFFFFFFF, 0x12345678)]
+                 + [(0, 0xFFFFFFFF), (0xFFFFFFFF, 0), (_TF_PARITY, 0), (0, _TF_PARITY)])
+_TF_DATA = (0, 1, 5, 0x7FFFFFFF, 0x80000000, 0xFFFFFFFF)
+
+
+def _threefry_keys(dev):
+    keys = rng.lane_keys(rng.prng_key(7, dev), torch.arange(4096, device=dev) * 7919)
+    keys[:len(_TF_EDGE_KEYS)] = torch.tensor(_TF_EDGE_KEYS, dtype=torch.int64, device=dev)
+    return keys
+
+
+@pytest.mark.parametrize("data", _TF_DATA)
+def test_threefry_header_bit_equal(dev, data):
+    """The header's fold, then 12 draws, and its fold at depths 1 and 2, on
+    edge keys and data, bit for bit ops/rng.py."""
     from digital_earth_tpu_torch import kernels
 
-    keys = rng.lane_keys(rng.prng_key(7, dev), torch.arange(4096, device=dev) * 7919)
-    for data in (0, 5, 0xFFFFFFFF):
-        got = kernels.threefry_uniform(keys, data, 12)
-        want = rng.uniform(rng.fold(keys, data), (12,))
-        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    keys = _threefry_keys(dev)
+    got = kernels.threefry_uniform(keys, data, 12)
+    want = rng.uniform(rng.fold(keys, data), (12,))
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    k1 = rng.fold(keys, data)
+    assert torch.equal(kernels.threefry_fold(keys, data, 1), kernels.keys_i32(k1))
+    assert torch.equal(kernels.threefry_fold(keys, data, 2), kernels.keys_i32(rng.fold(k1, data)))
+
+
+@pytest.mark.parametrize("base", [0, 0x7FFFFFFA, 0xFFFFFFFA])
+def test_threefry_draws_at_edge_counters_bit_equal(dev, base):
+    """Draws from edge keys at counter runs that cross 2^31 and wrap past
+    2^32, bit for bit ops/rng.uniform_at; the launchers refuse a CPU tensor
+    and a fold depth they do not have."""
+    from digital_earth_tpu_torch import kernels
+
+    keys = _threefry_keys(dev)
+    ctr = (base + torch.arange(12, device=dev))[:, None]
+    want = rng.uniform_at(keys[None], ctr)
+    got = kernels.threefry_draws(keys, base, 12)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    with pytest.raises(ValueError):
+        kernels.threefry_draws(keys.cpu(), base, 12)
+    with pytest.raises(ValueError):
+        kernels.threefry_fold(keys, base, 3)
 
 
 @pytest.mark.parametrize("any_hit,capped", [(False, False), (True, False), (False, True)])

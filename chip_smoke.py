@@ -2,7 +2,7 @@
 """Smoke test of the PyTorch + CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py [--mesh-only | --preview-bench [DIR] | --path-bench [DIR]
-                           | --threefry-bench [DIR] | --spp-bench [DIR]]
+                           | --spp-bench [DIR]]
 
 Run from the root of a checkout on a machine with a CUDA card, ``nvcc`` and
 PyTorch built for CUDA; ``--mesh-only`` runs phases 1-3 and 19 alone (say,
@@ -20,12 +20,9 @@ split and the trackers' SIMT efficiency; ``compact_lanes`` and
 ``gen_rays`` per call and on the device; the tier-2 atlas's build split
 and ``upsample`` per plane; the threefry launcher and its SASS; every
 entry's registers and spills; ``rmo_ratio_track`` at one and four
-wavelengths and the reference estimator's census); ``--threefry-bench
-[DIR]`` prints the threefry launcher's times, the SASS of a block and the
-entries' registers and spills alone; ``--spp-bench [DIR]`` the three
-scenes' s/spp and the bounce kernels' device ms of 3 profiled spp each, at
-the default config and at the reference's estimator.
-It
+wavelengths and the reference estimator's census); ``--spp-bench [DIR]``
+the three scenes' s/spp and the bounce kernels' device ms of 3 profiled
+spp each, at the default config and at the reference's estimator. It
 imports nothing of JAX or of the JAX package ``digital_earth_tpu`` (checked
 at the end). Phases, each of which raises on failure (exit code 1):
 
@@ -37,12 +34,13 @@ at the end). Phases, each of which raises on failure (exit code 1):
    ``select_tiles``;
 3. reads the SASS of one threefry block from the built library
    (``cuobjdump``: the depth-2 fold launcher less the depth-1, by opcode
-   and by pipe; it fails if there is no threefry kernel), which sets the
-   integer work of every bound below; holds the threefry header (a fold
-   and 12 draws, the fold at depths 1 and 2, draws at counters past 2^31
-   and 2^32) bit for bit against ops/rng.py on edge keys, data and
-   counters, and times the launcher at the frame's shape per call and on
-   the device (a CUDA graph of 20 calls);
+   and by pipe) and of one draw (the two-word sum launcher less the
+   one-word); it fails if either pair is missing, and every bound below
+   takes threefry's integer work from this census; holds the threefry
+   header (a fold and 12 draws, the fold at depths 1 and 2, draws at
+   counters past 2^31 and 2^32, the sums) bit for bit against ops/rng.py
+   on edge keys, data and counters, and times the launcher at the frame's
+   shape per call and on the device (a CUDA graph of 20 calls);
 4. renders one spp of the main path's frame (Apollo 11, 1920x1080, default
    ``TraceConfig()``) through the kernels with one launch per bounce,
    keeping the bounce's full input state and live list at every bounce and
@@ -91,7 +89,10 @@ at the end). Phases, each of which raises on failure (exit code 1):
    ``density_check`` (the bounce's table
    lookups) against the plain lookups on bounce 0's flight segments and NEE
    origins, and the bounce's sphere taps against the plain tap at bounce 0's
-   surface points (both through test launchers, timed); last, one 1920x1080
+   surface points (both through test launchers, timed), the nearest
+   topography tap also at the points of bounce 0's own march probes (timed
+   on the device, its bounds from their distinct texels and its SASS); last,
+   one 1920x1080
    Apollo spp under the window schedule bit-equal to the same spp with one
    launch per bounce, its launches as ``bounce_schedule`` predicts.
 8b. the reference's own estimator (REF_ESTIMATOR: ``hero_lambdas=1``,
@@ -311,62 +312,59 @@ BOUNCE_LANE_BYTES = 122 + 78
 # bounce's operations (csrc/bounce.cuh and the loop headers), counted from the
 # sources as the other rows are (below: an add, multiply, divide, square root,
 # min or max, an expf, logf, powf, atan2f or asinf each one operation; a
-# threefry block 77, a draw 80, a nearest 4-channel sphere tap 36). Every
-# live lane: the hero extinctions (45), the bounce key, the topography tap
-# and d_free, the spans (three rsi of 17, the cloud limits 41), the flight
-# keys (3 x 77): 487; then four wavelengths' extinctions (180), the MIS
-# weight (the segment integral 60, tau, w, denominator: 109), the sun cone
-# (key, two draws, sample: 293), the scatter point and its planet test (23)
-# and four wavelengths' Planck terms and three radiance terms (148): 774.
-# Each count's *_TF share is threefry's integer work, as (blocks, draws):
-# the flight's bounce key and three flight keys (4 blocks), the shade's cone
-# key and draws (1, 2). The counts above took a block as 77 operations and a
-# draw as 80; ``bounce_ops`` takes the *_OPS less those and adds the blocks'
-# and draws' SASS instructions by pipe (``tf_int``), which run at the
-# integer rate (``bound``).
-BOUNCE_FLIGHT_OPS, BOUNCE_FLIGHT_TF = 487, (4, 0)
-BOUNCE_FIXED_OPS, BOUNCE_FIXED_TF = BOUNCE_FLIGHT_OPS + 774, (5, 2)
+# nearest 4-channel sphere tap 36), threefry's apart: each *_OPS count leaves
+# it out, and its *_TF twin gives it as (blocks, draws), which ``tf_ops``
+# turns into this build's SASS instructions by pipe (``sass_census``), at
+# the integer rate in ``bound``. Every live lane: the hero extinctions (45),
+# the topography tap and d_free, the spans (three rsi of 17, the cloud
+# limits 41): 179, and the bounce key and three flight keys (4 blocks); then
+# four wavelengths' extinctions (180), the MIS weight (the segment integral
+# 60, tau, w, denominator: 109), the sun cone's sample (56), the scatter
+# point and its planet test (23) and four wavelengths' Planck terms and
+# three radiance terms (148): 537 as first counted (the parts named here
+# sum to 516; the count is kept), and the cone's key and two draws.
+BOUNCE_FLIGHT_OPS, BOUNCE_FLIGHT_TF = 179, (4, 0)
+BOUNCE_FIXED_OPS, BOUNCE_FIXED_TF = BOUNCE_FLIGHT_OPS + 537, (5, 2)
 # A lane whose flight ends on the surface (its shadow march ran): land_pos,
 # the normal's four SDFs, the material grading, four albedo spectra, the
-# offset, two BRDF evaluations, the terms, the hemisphere key, draws and
-# sample: 1081 (a block and two draws). A lane that takes the sun's
-# transmittance (its NEE cloud pass ran): the cloud limits (41), two keys
-# (154, two blocks), the phase (30): 225; and with the closed form (no NEE
-# RMO trips) its term (60). Lanes whose pass ran with no trips are not
-# counted, nor the phase sample and the roulette: the bound is a floor.
-BOUNCE_SURFACE_OPS, BOUNCE_SURFACE_TF = 1081, (1, 2)
-BOUNCE_NEE_OPS, BOUNCE_NEE_TF = 225, (2, 0)
+# offset, two BRDF evaluations, the terms and the hemisphere sample: 844,
+# and the hemisphere key and draws (a block and two draws). A lane that
+# takes the sun's transmittance (its NEE cloud pass ran): the cloud limits
+# (41), the phase (30): 71, and two keys (two blocks); and with the closed
+# form (no NEE RMO trips) its term (60). Lanes whose pass ran with no trips
+# are not counted, nor the phase sample and the roulette: the bound is a
+# floor.
+BOUNCE_SURFACE_OPS, BOUNCE_SURFACE_TF = 844, (1, 2)
+BOUNCE_NEE_OPS, BOUNCE_NEE_TF = 71, (2, 0)
 BOUNCE_CLOSED_FORM_OPS = 60
 # Per loop site (pre-march, cloud, RMO, march after, shadow, NEE cloud, NEE
 # RMO): the operations of a call that takes at least one trip, of one
-# iteration outside its probes, and of one probe. A march call: the bounding
-# rsi, the span and the crawl's setup (59); an iteration's stride update
-# (4); a probe (110: its tap 36, the three mip bounds 27, the SDF, the ocean
-# root). An RMO call: the perigee (19); an iteration: the key (77), the
-# segment's minimum radius (7), the density envelope (29), the majorant (7);
-# a probe: two draws (160), the step (6), the point (7), the three densities
-# (51), the test (6): 230. A cloud call (2); an iteration: the budget (2),
-# the majorant (3) (its key, 77, only in a tracking iteration, which the trip
-# count does not tell apart: not counted); a probe at the skip mode's cost
-# (45: the point and its tap; a tracking probe, 225 with its two draws, is
+# iteration outside its probes, and of one probe, and (the *_TF tables)
+# their threefry blocks and draws. A march call: the bounding rsi, the span
+# and the crawl's setup (59); an iteration's stride update (4); a probe
+# (110: its tap 36, the three mip bounds 27, the SDF, the ocean root). An
+# RMO call: the perigee (19); an iteration: the segment's minimum radius
+# (7), the density envelope (29), the majorant (7): 43, and the key (a
+# block); a probe: the step (6), the point (7), the three densities (51),
+# the test (6): 70, and two draws. A cloud call (2); an iteration: the
+# budget (2), the majorant (3) (its key only in a tracking iteration, which
+# the trip count does not tell apart: not counted); a probe at the skip
+# mode's cost (45: the point and its tap; a tracking probe's two draws are
 # not assumed). An NEE RMO call (the ratio tracker, csrc/rmo_track.cuh
-# rmo_ratio_lane, counted at one wavelength, a floor for four): its key (77),
-# the majorant (5), the span (19), the setup (5): 106; an iteration: the key
-# (77), the transmittance's update and the stop test (3): 80; a probe: a
-# draw (80), the step (6), the prefix sums (2), the test (1), the point (7),
-# the three densities (51), the factor (8): 155. A march, RMO or NEE RMO
-# iteration's K probes all count but the last iteration's, which counts one
-# (its first stopping probe ends the loop); a cloud iteration counts one (a
-# stop ends its sweep, not the loop). The counts are floors; the *_TF tables
-# are their threefry shares as (blocks, draws).
-BOUNCE_CALL_OPS = (59, 2, 19, 59, 59, 2, 106)
-BOUNCE_ITER_OPS = (4, 5, 120, 4, 4, 5, 80)
-BOUNCE_PROBE_OPS = (110, 45, 230, 110, 110, 45, 155)
+# rmo_ratio_lane, counted at one wavelength, a floor for four): the
+# majorant (5), the span (19), the setup (5): 29, and its key; an
+# iteration: the transmittance's update and the stop test (3), and the key;
+# a probe: the step (6), the prefix sums (2), the test (1), the point (7),
+# the three densities (51), the factor (8): 75, and a draw. A march, RMO or
+# NEE RMO iteration's K probes all count but the last iteration's, which
+# counts one (its first stopping probe ends the loop); a cloud iteration
+# counts one (a stop ends its sweep, not the loop). The counts are floors.
+BOUNCE_CALL_OPS = (59, 2, 19, 59, 59, 2, 29)
+BOUNCE_ITER_OPS = (4, 5, 43, 4, 4, 5, 3)
+BOUNCE_PROBE_OPS = (110, 45, 70, 110, 110, 45, 75)
 BOUNCE_CALL_TF = tuple((b, 0) for b in (0, 0, 0, 0, 0, 0, 1))
 BOUNCE_ITER_TF = tuple((b, 0) for b in (0, 0, 1, 0, 0, 0, 1))
 BOUNCE_PROBE_TF = tuple((0, d) for d in (0, 0, 2, 0, 0, 0, 1))
-# the source's count of a block and of a draw, in the *_OPS above
-SRC_BLOCK_OPS, SRC_DRAW_OPS = 77, 80
 TRACKER_SITES = (1, 2, 5, 6)  # cloud, RMO, NEE cloud, NEE RMO
 NEE_RMO = 6  # the census column of the NEE RMO ratio tracker
 
@@ -384,33 +382,18 @@ def site_k(march_k, tracking_k):
     return (march_k, 1, tracking_k, march_k, march_k, 1, tracking_k)
 
 
-def _src_tf_ops(tf):
-    """The source's operations of (blocks, draws) (SRC_BLOCK_OPS each block,
-    SRC_DRAW_OPS each draw), the share of the *_OPS counts that
-    ``tf_int`` replaces."""
-    return tf[0] * SRC_BLOCK_OPS + tf[1] * SRC_DRAW_OPS
-
-
-def _ops_split(blocks, draws, other, integer):
-    """Operations of ``other`` non-threefry operations and threefry's
-    ``blocks`` and ``draws`` (``tf_int``): all of them, or with ``integer``
-    True the ALU pipe's threefry instructions, "fma" the FMA pipe's."""
-    alu, fma = tf_int(blocks, draws)
-    return float({False: other + alu + fma, True: alu, "fma": fma}[integer])
-
-
-def bounce_ops(torch, trips, march_k, tracking_k, part="bounce", integer=False):
+def bounce_ops(torch, trips, march_k, tracking_k, tf, part="bounce"):
     """The operations of one bounce of the lanes whose (m, sites) int32 trip
     counts ``trips`` the census gives (7 sites, or a census of 6 without the
     NEE RMO column), with ``march_k`` probes per march iteration and
-    ``tracking_k`` per tracker iteration: BOUNCE_FIXED_OPS per lane, the
-    surface and NEE extras of the lanes whose shadow march and NEE cloud
+    ``tracking_k`` per tracker iteration, as (other operations, threefry's
+    ALU-pipe instructions, its FMA-pipe ones): BOUNCE_FIXED_OPS per lane,
+    the surface and NEE extras of the lanes whose shadow march and NEE cloud
     pass took trips (the closed form's where the NEE RMO tracker took none),
-    and per site each call's, iteration's and probe's operations (a floor),
-    threefry's blocks and draws at this build's SASS instructions
-    (``tf_int``). ``part`` "flight" counts steps 1-3 alone (the first 487 of
-    the fixed operations, sites 0-3), "shade" the rest; ``integer`` True
-    threefry's ALU-pipe instructions alone, "fma" its FMA-pipe ones."""
+    and per site each call's, iteration's and probe's operations (a floor);
+    threefry's blocks and draws (the *_TF tables) at the SASS census ``tf``
+    (``tf_ops``). ``part`` "flight" counts steps 1-3 alone
+    (BOUNCE_FLIGHT_OPS, sites 0-3), "shade" the rest."""
     t = trips.to(torch.float64)
     m, n = t.shape
 
@@ -420,10 +403,8 @@ def bounce_ops(torch, trips, march_k, tracking_k, part="bounce", integer=False):
     k = tab(site_k(march_k, tracking_k))
     calls, probes = (t > 0).to(torch.float64), site_probes(torch, t, k)
     # per site: the other operations, threefry's blocks and its draws
-    src = [tab([_src_tf_ops(x) for x in tf]) for tf in (BOUNCE_CALL_TF, BOUNCE_ITER_TF,
-                                                         BOUNCE_PROBE_TF)]
-    other = (calls * (tab(BOUNCE_CALL_OPS) - src[0]) + t * (tab(BOUNCE_ITER_OPS) - src[1])
-             + probes * (tab(BOUNCE_PROBE_OPS) - src[2])).sum(0)
+    other = (calls * tab(BOUNCE_CALL_OPS) + t * tab(BOUNCE_ITER_OPS)
+             + probes * tab(BOUNCE_PROBE_OPS)).sum(0)
     blocks = (calls * tab([x[0] for x in BOUNCE_CALL_TF])
               + t * tab([x[0] for x in BOUNCE_ITER_TF])).sum(0)
     draws = (probes * tab([x[1] for x in BOUNCE_PROBE_TF])).sum(0)
@@ -433,39 +414,38 @@ def bounce_ops(torch, trips, march_k, tracking_k, part="bounce", integer=False):
     flight_tf = BOUNCE_FLIGHT_TF
     shade_tf = tuple(a - b for a, b in zip(BOUNCE_FIXED_TF, BOUNCE_FLIGHT_TF))
     parts = {
-        "flight": (m * flight_tf[0] + float(blocks[:4].sum()),
-                   m * flight_tf[1] + float(draws[:4].sum()),
-                   m * (BOUNCE_FLIGHT_OPS - _src_tf_ops(flight_tf)) + float(other[:4].sum())),
-        "shade": (m * shade_tf[0] + surf * BOUNCE_SURFACE_TF[0] + n_nee * BOUNCE_NEE_TF[0]
+        "flight": (m * BOUNCE_FLIGHT_OPS + float(other[:4].sum()),
+                   m * flight_tf[0] + float(blocks[:4].sum()),
+                   m * flight_tf[1] + float(draws[:4].sum())),
+        "shade": (m * (BOUNCE_FIXED_OPS - BOUNCE_FLIGHT_OPS) + surf * BOUNCE_SURFACE_OPS
+                  + n_nee * BOUNCE_NEE_OPS + BOUNCE_CLOSED_FORM_OPS * float(closed.sum())
+                  + float(other[4:].sum()),
+                  m * shade_tf[0] + surf * BOUNCE_SURFACE_TF[0] + n_nee * BOUNCE_NEE_TF[0]
                   + float(blocks[4:].sum()),
                   m * shade_tf[1] + surf * BOUNCE_SURFACE_TF[1] + n_nee * BOUNCE_NEE_TF[1]
-                  + float(draws[4:].sum()),
-                  m * (BOUNCE_FIXED_OPS - BOUNCE_FLIGHT_OPS - _src_tf_ops(shade_tf))
-                  + surf * (BOUNCE_SURFACE_OPS - _src_tf_ops(BOUNCE_SURFACE_TF))
-                  + n_nee * (BOUNCE_NEE_OPS - _src_tf_ops(BOUNCE_NEE_TF))
-                  + BOUNCE_CLOSED_FORM_OPS * float(closed.sum()) + float(other[4:].sum())),
+                  + float(draws[4:].sum())),
     }
     parts["bounce"] = tuple(a + b for a, b in zip(parts["flight"], parts["shade"]))
-    return _ops_split(*parts[part], integer)
+    other, blocks, draws = parts[part]
+    return (other, *tf_ops(blocks, draws, tf))
 
 
-def tracker_ops(torch, trips, k, site, integer=False):
+def tracker_ops(torch, trips, k, site, tf):
     """The operations of a tracker launcher (``rmo_delta_track`` at the RMO
     site's counts, ``cloud_track`` at the cloud site's, ``rmo_ratio_track``
     at the NEE RMO site's) whose lanes took the (n,) int32 iterations
     ``trips`` with ``k`` probes per iteration: each call's, iteration's and
-    probe's operations as ``bounce_ops`` counts them (a floor); ``integer``
-    as there."""
+    probe's operations as ``bounce_ops`` counts them (a floor), the same
+    triple."""
     t = trips.to(torch.float64)
     calls, probes = float((t > 0).sum()), float(site_probes(torch, t, site_k(k, k)[site]).sum())
     iters = float(t.sum())
-    tf = (BOUNCE_CALL_TF[site], BOUNCE_ITER_TF[site], BOUNCE_PROBE_TF[site])
-    blocks = calls * tf[0][0] + iters * tf[1][0] + probes * tf[2][0]
-    draws = calls * tf[0][1] + iters * tf[1][1] + probes * tf[2][1]
-    other = (calls * (BOUNCE_CALL_OPS[site] - _src_tf_ops(tf[0]))
-             + iters * (BOUNCE_ITER_OPS[site] - _src_tf_ops(tf[1]))
-             + probes * (BOUNCE_PROBE_OPS[site] - _src_tf_ops(tf[2])))
-    return _ops_split(blocks, draws, other, integer)
+    per = (BOUNCE_CALL_TF[site], BOUNCE_ITER_TF[site], BOUNCE_PROBE_TF[site])
+    blocks = calls * per[0][0] + iters * per[1][0] + probes * per[2][0]
+    draws = calls * per[0][1] + iters * per[1][1] + probes * per[2][1]
+    other = (calls * BOUNCE_CALL_OPS[site] + iters * BOUNCE_ITER_OPS[site]
+             + probes * BOUNCE_PROBE_OPS[site])
+    return (other, *tf_ops(blocks, draws, tf))
 
 
 def simt_efficiency(torch, trips, warp=32):
@@ -523,9 +503,8 @@ H100_SMS, FP32_PER_SM, SFU_PER_SM, INT32_PER_SM = 132, 128, 16, 64
 # special-function unit, so a transcendental counts as the one operation it
 # is at least, and each bound below is a floor.
 # gen_rays: the pinhole ray, the 9-step search and 4 wavelengths (218), and
-# threefry's three folds and three draws (counted once as six blocks of 77
-# integer operations: 680 in all), at this build's SASS instructions by pipe
-# (``tf_int``).
+# threefry's three folds and three draws, at this build's SASS instructions
+# by pipe (``tf_ops``).
 GEN_RAYS_OPS, GEN_RAYS_TF = 218, (3, 3)
 # atmos_march (csrc/atmos_march.cu): one density evaluation (elevation 7,
 # clamp 1, Rayleigh 6, the cheapest Mie branch 3, ozone 16) is 33; a march
@@ -660,26 +639,34 @@ def toolchain(torch):
 
 
 # SASS opcodes by the pipe that issues them on compute capability 9.0: the
-# integer ALU pipe (16 lanes per SM sub-partition) and the FMA pipe, which
-# takes the integer multiply-adds (IMAD and its forms .IADD, .MOV, .SHL,
-# .WIDE) beside FP32 arithmetic; any other opcode counts as "other"
+# integer ALU pipe (16 lanes per SM sub-partition); the FMA pipe, which takes
+# the integer multiply-adds (IMAD and its forms .IADD, .MOV, .SHL, .WIDE)
+# at the integer rate and FP32 arithmetic, compares, selects and min / max
+# at the FP32 rate (a floor for any that issue slower); the XU pipe,
+# special functions and conversions (16 per SM per clock: the CUDA C++
+# Programming Guide's throughput table); any other opcode is "other"
 SASS_ALU = {"IADD3", "LOP3", "SHF", "PRMT", "LEA", "ISETP", "SEL", "IMNMX", "IABS", "MOV",
             "PLOP3", "FLO", "POPC", "BMSK", "SGXT"}
-SASS_FMA = {"IMAD", "FFMA", "FADD", "FMUL"}
-# a draw is a threefry block and the word's conversion: y0 ^ y1, >> 9 and
-# | 0x3F800000 on the ALU pipe (its - 1.0f, an FP32 add, is not counted)
-DRAW_ALU = 3
-# one threefry block's instructions by pipe, from the SASS of this run's
-# build (``sass_census``); until that is read, the source's count: 77
-# integer operations, all taken as ALU-pipe work
-TF_BLOCK = {"alu": 77.0, "fma": 0.0}
+SASS_F32 = {"FFMA", "FADD", "FMUL", "FMNMX", "FSEL", "FSETP", "FCHK", "I2FP", "F2FP"}
+SASS_XU = {"MUFU", "I2F", "F2I", "F2F", "FRND"}
 
 
-def tf_int(blocks, draws):
-    """(ALU-pipe, FMA-pipe) instructions of ``blocks`` threefry blocks and
-    ``draws`` draws at TF_BLOCK's counts."""
-    return (blocks * TF_BLOCK["alu"] + draws * (TF_BLOCK["alu"] + DRAW_ALU),
-            (blocks + draws) * TF_BLOCK["fma"])
+def sass_pipe(op):
+    """The pipe of a SASS opcode: "alu", "imad", "f32", "xu" or "other"."""
+    base = op.split(".")[0]
+    return ("xu" if base in SASS_XU else "f32" if base in SASS_F32 else
+            "imad" if base == "IMAD" else "alu" if base in SASS_ALU else "other")
+
+
+def tf_ops(blocks, draws, tf):
+    """(ALU-pipe, FMA-pipe) integer instructions of ``blocks`` threefry
+    blocks and ``draws`` draws at the SASS census ``tf`` (``sass_census``'s
+    "tf": a block's and a draw's ALU and IMAD instructions). Fails without
+    one: no bound takes the source's count."""
+    if not tf:
+        fail("no SASS census of the threefry stream: the bounds' integer work comes from it")
+    return (blocks * tf["block"]["alu"] + draws * tf["draw"]["alu"],
+            blocks * tf["block"]["imad"] + draws * tf["draw"]["imad"])
 
 
 def parse_sass(text):
@@ -711,42 +698,51 @@ def sass_functions(so):
 
 
 def sass_histogram(ops):
-    """(opcode -> count, {"alu", "fma", "other"} -> count) of a list of SASS
-    opcodes, the pipe by SASS_ALU and SASS_FMA."""
-    hist, pipes = {}, {"alu": 0, "fma": 0, "other": 0}
+    """(opcode -> count, pipe -> count) of a list of SASS opcodes, the pipe
+    by ``sass_pipe``."""
+    hist, pipes = {}, dict.fromkeys(("alu", "imad", "f32", "xu", "other"), 0)
     for op in ops:
         hist[op] = hist.get(op, 0) + 1
-        base = op.split(".")[0]
-        pipes["alu" if base in SASS_ALU else "fma" if base in SASS_FMA else "other"] += 1
+        pipes[sass_pipe(op)] += 1
     return hist, pipes
 
 
+# the threefry launchers of csrc/threefry_check.cu whose instance 2 less
+# instance 1 is one block (a fold of the fold's output) and one draw (a
+# key's second word: its block, its conversion and the sum's FP32 add)
+SASS_PAIRS = (("block", "threefry_fold_kernelILi{}E", "fold depth 2 less depth 1"),
+              ("draw", "threefry_draw_sum_kernelILi{}E", "two-word sum less one-word"))
+
+
 def sass_census(kernels, label="", funcs=None):
-    """The SASS of one threefry block in the built library: the depth-2
-    fold launcher's instructions less the depth-1's (csrc/threefry_check.cu),
-    by opcode and by pipe; sets TF_BLOCK (the bounds' per-block integer
-    work) from it; prints the block and the instruction mix of
-    ``threefry_uniform_kernel`` and of the default ``bounce_flight``.
-    Fails if the disassembly has no threefry kernel. ``funcs``: the
-    library's ``sass_functions``, where already read. A dict."""
+    """The SASS of one threefry block and of one draw in the built library
+    (SASS_PAIRS: each launcher's instance 2 less its instance 1), by opcode
+    and by pipe, and their integer instructions as "tf" (the bounds' count
+    of threefry's work, ``tf_ops``: a block's and a draw's ALU-pipe and IMAD
+    instructions); prints them and the instruction mix of
+    ``threefry_uniform_kernel`` and of the default ``bounce_flight``. Fails
+    if the disassembly lacks either pair. ``funcs``: the library's
+    ``sass_functions``, where already read. A dict."""
     so = kernels.library()._name
     funcs = funcs if funcs is not None else sass_functions(so)
-    fold = {d: next((f for n, f in funcs.items() if f"threefry_fold_kernelILi{d}E" in n), None)
-            for d in (1, 2)}
-    if fold[1] is None or fold[2] is None:
-        fail(f"the disassembly of {so} has no threefry fold kernel "
-             f"({len(funcs)} functions, threefry: {[n for n in funcs if 'threefry' in n]})")
-    h1, p1 = sass_histogram(fold[1])
-    h2, p2 = sass_histogram(fold[2])
-    block = {op: h2.get(op, 0) - h1.get(op, 0) for op in sorted(set(h1) | set(h2))}
-    block = {op: c for op, c in block.items() if c}
-    pipes = {k: p2[k] - p1[k] for k in p1}
-    TF_BLOCK.update(alu=float(pipes["alu"]), fma=float(pipes["fma"]))
-    total = sum(block.values())
-    print(f"threefry SASS{label}, one block (fold depth 2 less depth 1): {total} instructions, "
-          f"ALU pipe {pipes['alu']}, FMA pipe {pipes['fma']}, other {pipes['other']}: "
-          + ", ".join(f"{op} {c}" for op, c in sorted(block.items(), key=lambda x: -x[1])))
-    out = dict(block=block, block_pipes=pipes, block_total=total)
+    out, tf = {}, {}
+    for what, pattern, how in SASS_PAIRS:
+        pair = [next((f for n, f in funcs.items() if pattern.format(c) in n), None)
+                for c in (1, 2)]
+        if None in pair:
+            fail(f"the disassembly of {so} lacks the threefry launchers {pattern.format('1, 2')} "
+                 f"({len(funcs)} functions, threefry: {[n for n in funcs if 'threefry' in n]})")
+        (h1, p1), (h2, p2) = sass_histogram(pair[0]), sass_histogram(pair[1])
+        delta = {op: h2.get(op, 0) - h1.get(op, 0) for op in sorted(set(h1) | set(h2))}
+        delta = {op: c for op, c in delta.items() if c}
+        pipes = {k: p2[k] - p1[k] for k in p1}
+        tf[what] = {"alu": float(pipes["alu"]), "imad": float(pipes["imad"])}
+        total = sum(delta.values())
+        print(f"threefry SASS{label}, one {what} ({how}): {total} instructions, "
+              + ", ".join(f"{k} {v}" for k, v in pipes.items()) + ": "
+              + ", ".join(f"{op} {c}" for op, c in sorted(delta.items(), key=lambda x: -x[1])))
+        out[what] = dict(ops=delta, pipes=pipes, total=total)
+    out["tf"] = tf
     for key, pattern in (("threefry_uniform_kernel", "threefry_uniform_kernel"),
                          ("bounce_flight", "bounce_flight_kernelILi4ELb0E")):
         name = next((n for n in funcs if pattern in n), None)
@@ -754,8 +750,9 @@ def sass_census(kernels, label="", funcs=None):
             continue
         hist, pp = sass_histogram(funcs[name])
         top = sorted(hist.items(), key=lambda x: -x[1])[:8]
-        print(f"SASS{label} {key}: {len(funcs[name])} instructions, ALU {pp['alu']}, FMA "
-              f"{pp['fma']}, other {pp['other']}; " + ", ".join(f"{op} {c}" for op, c in top))
+        print(f"SASS{label} {key}: {len(funcs[name])} instructions, "
+              + ", ".join(f"{k} {v}" for k, v in pp.items()) + "; "
+              + ", ".join(f"{op} {c}" for op, c in top))
         out[key] = dict(total=len(funcs[name]), pipes=pp, top=dict(top))
     return out
 
@@ -769,27 +766,15 @@ def sass_main_body(ops):
     return ops[:exits[-1] + 1] if exits else ops[:ret]
 
 
-# special-function and conversion opcodes (the XU pipe, 16 per SM per
-# clock on compute capability 9.0: the CUDA C++ Programming Guide's
-# throughput table); FP32 arithmetic, compares, selects and min / max at the
-# FP32 rate (128), a floor for any that issue slower
-SASS_XU = {"MUFU", "I2F", "F2I", "F2F", "FRND"}
-SASS_F32 = {"FFMA", "FADD", "FMUL", "FMNMX", "FSEL", "FSETP", "FCHK", "I2FP", "F2FP"}
-
-
 def sass_ops_bound(ops, n):
-    """(ms, {pipe: ms}) of ``n`` executions of the SASS opcodes ``ops``, each
-    pipe at its rate on the card (FP32 128, the integer ALU and IMAD 64, the
-    XU pipe 16 per SM per clock at the largest SM clock): the slowest
-    pipe's time, a floor (loads, stores and branches not counted)."""
+    """(ms, {pipe: ms}, {pipe: count}) of ``n`` executions of the SASS
+    opcodes ``ops``, each pipe at its rate on the card (FP32 128, the
+    integer ALU and IMAD 64, the XU pipe 16 per SM per clock at the largest
+    SM clock): the slowest pipe's time, a floor (loads, stores and branches
+    not counted)."""
     rates = {"f32": FP32_PER_SM, "alu": INT32_PER_SM, "imad": INT32_PER_SM, "xu": SFU_PER_SM}
-    count = dict.fromkeys(rates, 0)
-    for op in ops:
-        base = op.split(".")[0]
-        pipe = ("xu" if base in SASS_XU else "f32" if base in SASS_F32 else
-                "imad" if base == "IMAD" else "alu" if base in SASS_ALU else None)
-        if pipe:
-            count[pipe] += 1
+    _, pipes = sass_histogram(ops)
+    count = {p: pipes[p] for p in rates}
     hz = H100_SMS * sm_clock_mhz() * 1e6
     ms = {p: n * count[p] / (rates[p] * hz) * 1e3 for p in rates}
     return max(ms.values()), ms, count
@@ -820,10 +805,12 @@ def check_threefry(torch, dev):
     """The threefry header bit for bit against ops/rng.py on 65,536 lanes
     (edge keys first): a fold and 12 draws, the fold at depths 1 and 2 (at
     edge data), and 12 draws from each key at counter runs that cross 2^31
-    and 2^32; then
-    the launcher at the frame's shape (a fold and 3 draws for each of
-    1920 x 1080 lanes) per call and on the device alone, with its bound
-    from the SASS of a block. A JSON row."""
+    and 2^32, and the one- and two-word sums whose SASS gives a draw's
+    count; then the launcher at the
+    frame's shape (a fold and 3 draws for each of 1920 x 1080 lanes) per
+    call and on the device alone, with its bound from the SASS census. A
+    JSON row; its "tf" is the census every bound of threefry's work takes
+    (``tf_ops``)."""
     from digital_earth_tpu_torch import kernels
     from digital_earth_tpu_torch.ops import rng
 
@@ -844,15 +831,20 @@ def check_threefry(torch, dev):
                  f"depth 1, depth 2: {same})")
     for base in THREEFRY_BASES:
         ctr = (base + torch.arange(12, device=dev))[:, None]
-        want = rng.uniform_at(keys[None], ctr).view(torch.int32)
-        checks += 1
-        if not torch.equal(kernels.threefry_draws(keys, base, 12).view(torch.int32), want):
-            fail(f"threefry draws disagree with ops/rng.uniform_at at counters {base:#x} + 0..11")
+        want = rng.uniform_at(keys[None], ctr)
+        same = [torch.equal(kernels.threefry_draws(keys, base, 12).view(torch.int32),
+                            want.view(torch.int32)),
+                 torch.equal(kernels.threefry_draw_sum(keys, base, 1), want[0]),
+                 torch.equal(kernels.threefry_draw_sum(keys, base, 2), want[0] + want[1])]
+        checks += len(same)
+        if not all(same):
+            fail(f"threefry draws disagree with ops/rng.uniform_at at counters {base:#x} + 0..11 "
+                 f"(the draws, the sums of 1 and 2: {same})")
     torch.cuda.synchronize()
     print(f"threefry: header bit-equal to ops/rng.py on 65536 lanes (17 edge keys first) in "
           f"{checks} checks: uniform(fold(key, d), 0..11), fold depth 1 and 2 at d in "
           f"{[hex(d) for d in THREEFRY_DATA]}; uniform(key, c) at counters "
-          f"{[hex(b) for b in THREEFRY_BASES]} + 0..11")
+          f"{[hex(b) for b in THREEFRY_BASES]} + 0..11, and the sums of the first 1 and 2")
     # at the bounce's shape: one site's key and its three draws (the phase
     # sample) for every lane of a 1080p frame; the keys given as int32, so
     # the launcher's time is its kernel's
@@ -863,9 +855,10 @@ def check_threefry(torch, dev):
     graph_ms = _graph_ms(torch, lambda: kernels.threefry_uniform(k32, 4, 3))
     want, plain_ms = _plain_ms(torch, lambda: rng.uniform(rng.fold(keys, 4), (3,)))
     equal = torch.equal(got.view(torch.int32), want.view(torch.int32))
-    # keys read (8 B) and 3 draws written per lane; a fold and 3 draws of
-    # this build's SASS block on the ALU and FMA pipes, at the integer rate
-    alu, fma = tf_int(n, 3 * n)
+    # keys read (8 B) and 3 draws written per lane; a fold and 3 draws at
+    # this build's SASS on the ALU and FMA pipes, at the integer rate (each
+    # draw at a key's second word's count: a floor for its first)
+    alu, fma = tf_ops(n, 3 * n, census["tf"])
     b_ms, b_by = bound(20 * n, alu + fma, int_ops=alu, fma_ops=fma)
     print(f"threefry {n} lanes, a fold and 3 draws: bit-equal {equal}  kernel {ms:.4f} ms per "
           f"call, {graph_ms:.4f} ms on the device (CUDA graph)  plain {plain_ms:.2f} ms  bound "
@@ -874,7 +867,7 @@ def check_threefry(torch, dev):
     if not equal:
         fail("threefry header disagrees with ops/rng.uniform at the frame's shape")
     return dict(max_abs_err=0.0, ms=ms, graph_ms=graph_ms, plain_ms=plain_ms, bytes=20 * n,
-                ops=alu + fma, int_ops=alu, fma_ops=fma, sass=census)
+                ops=alu + fma, int_ops=alu, fma_ops=fma, sass=census, tf=census["tf"])
 
 
 def capture_frame_end(torch, run):
@@ -977,9 +970,10 @@ def capture_inputs(torch, dev, atlas, luts):
     launch the tracker kernels), keeping its output and, per tracker call
     kind, a copy of the arguments of the call with the most active lanes,
     bounce 0's arguments of the two table lookups (the flight's segment
-    integrals, the NEE origins' transmittance) and its surface points (the
-    material tap's). Returns (tracker arguments, bounce states, deepest
-    alive vectors, lookup arguments, frame_end arguments)."""
+    integrals, the NEE origins' transmittance), its surface points (the
+    material tap's) and the arguments of each of its land-march calls.
+    Returns (tracker arguments, bounce states, deepest alive vectors, lookup
+    arguments, frame_end arguments)."""
     from digital_earth_tpu_torch.render import pathtracer as pt
 
     states, deepest, frame_end_args = capture_states(torch, dev, atlas, luts)
@@ -1002,6 +996,9 @@ def capture_inputs(torch, dev, atlas, luts):
     def land(*args, **kwargs):
         kind = "land_march/any_hit" if kwargs.get("any_hit") else "land_march"
         keep(kind, args, kwargs, args[4])
+        if state["bounce"] == 0:
+            lookups.setdefault("marches", []).append(
+                (tuple(map(copy, args)), {k: copy(v) for k, v in kwargs.items()}))
         return originals["intersect_land"](*args, **kwargs)
 
     def rmo(*args, **kwargs):
@@ -1053,9 +1050,10 @@ def _t_close(torch, a, b):
     return (a - b).abs() <= T_RTOL * torch.clamp(b.abs(), min=1e4)
 
 
-def compare_kernels(torch, captured):
+def compare_kernels(torch, captured, tf):
     """Each kernel against its plain twin on the captured inputs, lane by
-    lane: (rows for the JSON line, True if all agree)."""
+    lane: (rows for the JSON line, True if all agree); the trackers'
+    operations with threefry's at the SASS census ``tf``."""
     from digital_earth_tpu_torch.render import tracers
 
     rows = {}
@@ -1139,9 +1137,8 @@ def compare_kernels(torch, captured):
             else:  # clouds; keys, pos, dir, span, ext_w, active; (event, t) or trans
                 row["bytes"] += args[6].numel() + 45 * n + (4 if "ratio" in kind else 8) * n
                 cfg, site = args[8], 1
-            ops = tracker_ops(torch, trips, cfg.tracking_k, site)
-            int_ops = tracker_ops(torch, trips, cfg.tracking_k, site, integer=True)
-            fma_ops = tracker_ops(torch, trips, cfg.tracking_k, site, integer="fma")
+            other, int_ops, fma_ops = tracker_ops(torch, trips, cfg.tracking_k, site, tf)
+            ops = other + int_ops + fma_ops
             row["ops"] = (row["ops"] or 0.0) + ops
             row["int_ops"] += int_ops
             row["fma_ops"] += fma_ops
@@ -1487,12 +1484,13 @@ def check_census(torch, states):
     return out
 
 
-def bounce_table(torch, states, cfg, census=True):
+def bounce_table(torch, states, cfg, tf=None):
     """The per-bounce table of the captured Apollo frame: per bounce the live
     lanes, the package's run_bounce's ms (one bounce, all its launches) and
-    ns per lane, and with ``census`` the bounds (bytes, operations from the
-    census's trips), the mean trips and SIMT efficiency of each loop site.
-    Returns {bounce: row}."""
+    ns per lane, and with the SASS census ``tf`` (``tf_ops``) the census's
+    columns: the bounds (bytes, operations from the census's trips), the
+    mean trips and SIMT efficiency of each loop site. Returns {bounce:
+    row}."""
     from digital_earth_tpu_torch.render import pathtracer as pt
 
     table = {}
@@ -1506,13 +1504,12 @@ def bounce_table(torch, states, cfg, census=True):
         frame = pt.BounceFrame(st0, *args)
         row = dict(live=m)
         row["ms"] = _bounce_ms(torch, st0, lambda s: pt.run_bounce(s, idx, b, *args, frame))
-        if census:
+        if tf:
             trips, _, cycles = _census(torch, st0, idx, b, args, frame)
             calls = [a + n for a, n in zip(calls, (trips > 0).sum(0).tolist())]
             spp_cycles = spp_cycles + warp_cycles(torch, cycles)
-            ops = bounce_ops(torch, trips, cfg.march_k, cfg.tracking_k)
-            int_ops = bounce_ops(torch, trips, cfg.march_k, cfg.tracking_k, integer=True)
-            fma_ops = bounce_ops(torch, trips, cfg.march_k, cfg.tracking_k, integer="fma")
+            other, int_ops, fma_ops = bounce_ops(torch, trips, cfg.march_k, cfg.tracking_k, tf)
+            ops = other + int_ops + fma_ops
             row["march_simt"] = march_simt(torch, trips, cfg.march_k)
             row["tracker_simt"] = tracker_simt(torch, trips)
             row["split"] = cycle_split(torch, cycles)
@@ -1524,18 +1521,18 @@ def bounce_table(torch, states, cfg, census=True):
         row["ns_per_lane"] = row["ms"] * 1e6 / m
         table[b] = row
         extra = ""
-        if census:
+        if tf:
             simt = " ".join("-" if e is None else f"{e:.2f}" for e in row["simt"])
             extra = (f"  bound {max(row['ops_ms'], row['bytes_ms']):.4f} ms (ops "
                      f"{row['ops_ms']:.4f}, bytes {row['bytes_ms']:.4f})  mean trips "
                      f"{row['trips']}  SIMT eff {simt}")
         print(f"per-bounce {b:2d}: {m:8d} live  {row['ms']:.3f} ms  {row['ns_per_lane']:.2f} "
               f"ns/lane{extra}")
-        if census:
+        if tf:
             print(f"per-bounce {b:2d} cycle split (census, clock64 warp cycles): "
                   f"{split_text(row['split'])}; "
                   f"{simt_text(row['march_simt'], row['tracker_simt'])}")
-    if census:
+    if tf:
         print(f"census over the spp (every bounce one launch each): lanes taking trips per site "
               f"{dict(zip(pt.CENSUS_SITES, calls))} per spp, x 3 per 3 spp; cycle split "
               + split_text(cycle_split(torch, spp_cycles)))
@@ -1627,11 +1624,12 @@ def capture_ratio_args(torch, c, b):
     return kept["args"]
 
 
-def check_ratio_track(torch, args, label):
+def check_ratio_track(torch, args, label, tf):
     """rmo_ratio_track against its twin on captured arguments: every lane's
     transmittance bit-equal, its iterations equal to the twin's loop count;
     timed, with its bound from bytes and from the operations of those
-    iterations (threefry's at the integer rate). A JSON row."""
+    iterations (threefry's at the integer rate, from the SASS census
+    ``tf``). A JSON row."""
     from digital_earth_tpu_torch import kernels
     from digital_earth_tpu_torch.render import tracers
 
@@ -1649,9 +1647,8 @@ def check_ratio_track(torch, args, label):
     # keys, pos, dir, span, extinctions, majorant and the active flag read
     # once, the transmittance written
     nbytes = n * (8 + 24 + 8 + 12 * L + 4 + 1 + 4 * L)
-    ops = tracker_ops(torch, iters, cfg.tracking_k, NEE_RMO)
-    int_ops = tracker_ops(torch, iters, cfg.tracking_k, NEE_RMO, integer=True)
-    fma_ops = tracker_ops(torch, iters, cfg.tracking_k, NEE_RMO, integer="fma")
+    other, int_ops, fma_ops = tracker_ops(torch, iters, cfg.tracking_k, NEE_RMO, tf)
+    ops = other + int_ops + fma_ops
     b_ms, b_by = bound(nbytes, ops, int_ops=int_ops, fma_ops=fma_ops)
     lanes = iters > 0
     ok = parted == 0 and same_iters
@@ -1669,7 +1666,7 @@ def check_ratio_track(torch, args, label):
                 int_ops=int_ops, fma_ops=fma_ops), iters
 
 
-def check_reference_estimator(torch, dev, atlas, luts):
+def check_reference_estimator(torch, dev, atlas, luts, tf):
     """The reference's own estimator (REF_ESTIMATOR) at 1920x1080:
     ``rmo_ratio_track`` against its twin on Apollo bounce 0's NEE lanes (at
     four wavelengths, the ratio tracking alone, and at one, all three
@@ -1683,7 +1680,8 @@ def check_reference_estimator(torch, dev, atlas, luts):
     twin; the chunked, adaptive and mesh entry points bit-equal to the
     Renderer's spp; then s/spp of Apollo 11 at the default, each option alone and all
     three, and of florida and sunset at the default and all three, in this
-    call. Returns (the rmo_ratio_track row, the path's launch counts)."""
+    call; the tracker's bound from the SASS census ``tf``. Returns (the
+    rmo_ratio_track row, the path's launch counts)."""
     from digital_earth_tpu_torch import kernels
     from digital_earth_tpu_torch.app.config_io import load_config
     from digital_earth_tpu_torch.app.viewer import render_offline
@@ -1697,7 +1695,7 @@ def check_reference_estimator(torch, dev, atlas, luts):
                        ("all three", ref)):
         states, _, _ = capture_states(torch, dev, atlas, luts, bounces=(0,), cfg=cfg)
         row, _ = check_ratio_track(torch, capture_ratio_args(torch, states[0], 0),
-                                   f"Apollo 11 {RES[0]}x{RES[1]} bounce 0, {label} ({card})")
+                                   f"Apollo 11 {RES[0]}x{RES[1]} bounce 0, {label} ({card})", tf)
         del states
     for scene in (SCENE, *(os.path.join(ROOT, "scenes", s) for s in OTHER_SCENES)):
         name = os.path.basename(scene)[9:-4]
@@ -2093,17 +2091,52 @@ def check_density(torch, lookups):
         fail("density_check disagrees with the plain table lookups")
 
 
+def march_probe_points(torch, marches):
+    """The points at which the land march's plain twin taps the topography
+    in the march calls ``marches`` (bounce 0's, ``capture_inputs``): every
+    probe of every iteration its lanes run (K an iteration, the probes past
+    an iteration's first stop included, which the kernel skips), in the
+    twin's order (call, iteration, probe, lane), as (P, 3) float32, and the
+    flat index of each probe's texel, (P,) int64."""
+    from digital_earth_tpu_torch.ops import texture as tx
+    from digital_earth_tpu_torch.render import tracers
+
+    points, texels = [], []
+    tap, fetch = tx.sample_sphere_texture, tx.fetch_texel
+
+    def recording_tap(tex, pos, bilinear=True):
+        points.append(pos.reshape(-1, 3).clone())
+        return tap(tex, pos, bilinear)
+
+    def recording_fetch(tex, iy, ix):
+        texels.append((iy * tex.shape[1] + ix).reshape(-1))
+        return fetch(tex, iy, ix)
+
+    tx.sample_sphere_texture, tx.fetch_texel = recording_tap, recording_fetch
+    try:
+        for args, kwargs in marches:
+            tracers.intersect_land_plain(*args, **kwargs)
+        torch.cuda.synchronize()
+    finally:
+        tx.sample_sphere_texture, tx.fetch_texel = tap, fetch
+    return torch.cat(points), torch.cat(texels)
+
+
 def check_texture(torch, lookups, atlas, march_probes=0):
     """The bounce's bilinear sphere taps (texture.cuh, through the
     sphere_tap test launcher) against ops/texture.sample_sphere_texture at
     bounce 0's surface points: the material (8 channels) and the
     topography (4), bilinear and nearest. Then the nearest topography tap
-    (the land march's) at ``march_probes`` points, bounce 0's march probes
-    (the census's pre-march, march-after and shadow lanes x their probes;
-    the surface points repeated), on the device alone (a CUDA graph of 20
-    calls), with an operations bound from the SASS of the launcher's
-    nearest instance (its atan2f, asinf, divisions and conversions, the
-    divisions' slow paths left out) beside its bytes. A dict."""
+    (the land march's) at bounce 0's own march probes (``march_probe_points``:
+    its three marches' points, more than the census's floor of
+    ``march_probes``, which counts an iteration's probes up to its first
+    stop), within TAP_ATOL of the twin's taps there, timed per call and on the
+    device alone (a CUDA graph of 20 calls), with two bounds: the tap's own
+    (the distinct texels those probes read, 4 B each, and the operations of
+    the SASS of the launcher's nearest instance: its atan2f, asinf,
+    divisions and conversions, the divisions' slow paths left out) and the
+    launcher's (that and its 12 B point read and 16 B tap written a probe).
+    A dict."""
     from digital_earth_tpu_torch import kernels
     from digital_earth_tpu_torch.ops import texture as tx
 
@@ -2129,7 +2162,7 @@ def check_texture(torch, lookups, atlas, march_probes=0):
                   f"{'ok' if this_ok else 'FAIL'}")
     if not ok:
         fail("the kernels' sphere tap disagrees with ops/texture.sample_sphere_texture")
-    if not march_probes or not n:
+    if not march_probes or not lookups.get("marches"):
         return {}
     funcs = sass_functions(kernels.library()._name)
     name = next((f for f in funcs if "sphere_tap_kernelILi4ELb0E" in f), None)
@@ -2138,19 +2171,33 @@ def check_texture(torch, lookups, atlas, march_probes=0):
     body = sass_main_body(funcs[name])
     hist, _ = sass_histogram(body)
     tex = atlas.topography
-    pos = land_pos.repeat((march_probes + n - 1) // n, 1)[:march_probes].contiguous()
-    _, ms = _time_ms(torch, lambda: kernels.sphere_tap(tex, pos, False), 5)
+    pos, texels = march_probe_points(torch, lookups["marches"])
+    p = pos.shape[0]
+    got, ms = _time_ms(torch, lambda: kernels.sphere_tap(tex, pos, False), 5)
     graph_ms = _graph_ms(torch, lambda: kernels.sphere_tap(tex, pos, False))
-    nbytes = march_probes * (12 + 16)
-    ops_ms, per_pipe, count = sass_ops_bound(body, march_probes)
-    b_ms, b_by = max((nbytes / PEAK_BYTES * 1e3, "bytes"), (ops_ms, "operations"))
-    mufu = {op: c for op, c in hist.items() if op.split(".")[0] in SASS_XU}
-    print(f"sphere tap topography nearest at bounce 0's {march_probes} march probes: "
-          f"{ms:.4f} ms per call, {graph_ms:.4f} ms on the device (CUDA graph); bound "
-          f"{b_ms:.4f} ms ({b_by}; bytes {nbytes / PEAK_BYTES * 1e3:.4f}, the SASS body's "
-          f"{len(body)} instructions a tap by pipe {count} ("
-          + ", ".join(f"{p} {t:.4f}" for p, t in per_pipe.items()) + f" ms); XU {mufu})")
-    return dict(probes=march_probes, ms=ms, graph_ms=graph_ms, bound_ms=b_ms, bound_by=b_by,
+    want = tx.sample_sphere_texture(tex, pos, bilinear=False)
+    parted = int((got != want).any(-1).sum())
+    err = (got - want).abs().max().item()
+    distinct = int(torch.unique(texels).numel())
+    ops_ms, per_pipe, count = sass_ops_bound(body, p)
+    tap_bytes, launcher_bytes = 4 * distinct, 4 * distinct + 28 * p
+    tap_ms, tap_by = max((tap_bytes / PEAK_BYTES * 1e3, "bytes"), (ops_ms, "operations"))
+    launcher_ms = max(launcher_bytes / PEAK_BYTES * 1e3, ops_ms)
+    mufu = {op: c for op, c in hist.items() if sass_pipe(op) == "xu"}
+    print(f"sphere tap topography nearest at bounce 0's own march probes: {p} points of "
+          f"{len(lookups['marches'])} march calls (the census's floor {march_probes}), "
+          f"{distinct} distinct texels; bit-equal to the twin's taps on all but {parted} (max abs "
+          f"err {err:.3e}); "
+          f"{ms:.4f} ms per call, {graph_ms:.4f} ms on the device (CUDA graph); the tap's bound "
+          f"{tap_ms:.4f} ms ({tap_by}; texels {tap_bytes / PEAK_BYTES * 1e3:.5f}, the SASS "
+          f"body's {len(body)} instructions a tap by pipe {count} ("
+          + ", ".join(f"{pp} {t:.4f}" for pp, t in per_pipe.items()) + f" ms); XU {mufu}); "
+          f"the launcher's {launcher_ms:.4f} ms (with its points read and taps written, "
+          f"{launcher_bytes / PEAK_BYTES * 1e3:.4f} ms of bytes)")
+    if not err <= TAP_ATOL:
+        fail("the nearest sphere tap disagrees with the twin at the march's probes")
+    return dict(probes=p, floor_probes=march_probes, distinct_texels=distinct, ms=ms,
+                graph_ms=graph_ms, bound_ms=tap_ms, bound_by=tap_by, launcher_bound_ms=launcher_ms,
                 pipes=count, body=len(body))
 
 
@@ -2276,9 +2323,10 @@ def _hold_rays(torch, label, args):
     return got, err, ms, plain_ms, dev_ms
 
 
-def check_gen_rays(torch, dev, atlas, luts):
+def check_gen_rays(torch, dev, atlas, luts, tf):
     """gen_rays against its twin on the path frame's 1920x1080 inputs and
-    the 480x270 preview's: a row for the JSON line (the 1080p times)."""
+    the 480x270 preview's: a row for the JSON line (the 1080p times; its
+    bound with threefry's work at the SASS census ``tf``)."""
     from digital_earth_tpu_torch.render.renderer import Renderer
 
     row = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0)
@@ -2295,8 +2343,8 @@ def check_gen_rays(torch, dev, atlas, luts):
         # tables read once; keys, dirs, wavelengths, responses, pdf and pid
         # written (and the preview's tile and in-tile lane)
         nbytes = luts.cie_cdf.shape[0] * 16 + n * (16 + 12 + 20 * L + 8 + (16 if L == 1 else 0))
-        ops, alu, fma = (_ops_split(GEN_RAYS_TF[0] * n, GEN_RAYS_TF[1] * n, GEN_RAYS_OPS * n, x)
-                         for x in (False, True, "fma"))
+        alu, fma = tf_ops(GEN_RAYS_TF[0] * n, GEN_RAYS_TF[1] * n, tf)
+        ops = GEN_RAYS_OPS * n + alu + fma
         b_ms, b_by = bound(nbytes, ops, int_ops=alu, fma_ops=fma)
         print(f"gen_rays {mode} {res[0]}x{res[1]}: bound {b_ms:.4f} ms ({b_by}); the device "
               f"time is {b_ms / dev_ms:.2f} of it, the time per call {b_ms / ms:.2f}")
@@ -3557,8 +3605,8 @@ def threefry_bench(torch, dev, kernels):
     its C entry, so the time is its kernel's, in any version of the
     package): per call from the host, back to back, and on the device (a
     CUDA graph of 20 calls), bit-equal to the plain version or not; and the
-    SASS census of a block where the library has the fold launcher. A
-    dict."""
+    SASS census of a block and a draw where the library has their
+    launchers. A dict."""
     from digital_earth_tpu_torch.ops import rng
 
     n = RES[0] * RES[1]
@@ -3575,7 +3623,7 @@ def threefry_bench(torch, dev, kernels):
     res = dict(ms=round(ms, 5), graph_ms=round(graph_ms, 5),
                bit_equal=torch.equal(out.view(torch.int32), want.view(torch.int32)))
     funcs = sass_functions(kernels.library()._name)
-    if any("threefry_fold_kernel" in name for name in funcs):
+    if all(any(pattern.format(2) in name for name in funcs) for _, pattern, _ in SASS_PAIRS):
         import digital_earth_tpu_torch as pkg
 
         res["sass"] = sass_census(kernels, f" ({os.path.dirname(os.path.abspath(pkg.__file__))})",
@@ -3583,16 +3631,38 @@ def threefry_bench(torch, dev, kernels):
     return res
 
 
-def spp_bench(torch, dev, reps=3):
-    """``--spp-bench [DIR]``: per scene (Apollo 11, florida, sunset
-    hurricane at 1920x1080) at the default config and at the reference's
-    estimator: s/spp of 3 spp after 1 warm-up, then ``reps`` profiled spp
-    (the bounce kernels' device ms and the device kernels of each), for the
-    package imported from DIR; lighter than ``--path-bench``, so versions
-    can be alternated more often in one call. Prints one JSON line."""
-    import digital_earth_tpu_torch as pkg
+def scene_runs(torch, dev, atlas, luts, profiled, cfg=None):
+    """Per scene (Apollo 11, florida, sunset hurricane at 1920x1080; at
+    ``cfg``, else the package's default config) through ``render_offline``:
+    (name, s/spp of 3 spp after 1 warm-up, the ``profile_spp`` tuples of
+    ``profiled`` more spp), for the package imported; a generator."""
     from digital_earth_tpu_torch.app.config_io import load_config
     from digital_earth_tpu_torch.app.viewer import render_offline
+
+    kw = {} if cfg is None else dict(cfg=cfg)
+    for scene in (SCENE, *(os.path.join(ROOT, "scenes", s) for s in OTHER_SCENES)):
+        name = os.path.basename(scene)[9:-4]
+        r = render_offline(load_config(scene), dev, spp=1, image_res=RES, out_path=None,
+                           atlas=atlas, luts=luts, **kw)
+        s_spp = _spp_seconds(torch, r, 3)
+        profiles = [profile_spp(torch, r, name) for _ in range(profiled)]
+        del r
+        yield name, s_spp, profiles
+
+
+def _bounce_device_ms(by_name):
+    """The bounce kernels' device ms in a ``profile_spp`` breakdown."""
+    return sum(us for k, us in by_name.items() if "bounce" in k) / 1e3
+
+
+def spp_bench(torch, dev, reps=3):
+    """``--spp-bench [DIR]``: per scene (``scene_runs``) at the default
+    config and at the reference's estimator: s/spp, then ``reps`` profiled
+    spp (the bounce kernels' device ms and the device kernels of each), for
+    the package imported from DIR; lighter than ``--path-bench``, so
+    versions can be alternated more often in one call. Prints one JSON
+    line."""
+    import digital_earth_tpu_torch as pkg
     from digital_earth_tpu_torch.assets.luts import load_spectral_luts
     from digital_earth_tpu_torch.assets.textures import procedural_texture_atlas
     from digital_earth_tpu_torch.render.params import TraceConfig
@@ -3602,18 +3672,10 @@ def spp_bench(torch, dev, reps=3):
     atlas = procedural_texture_atlas(dev, (1024, 2048), seed=7, cache_dir=cache)
     out = dict(package=os.path.dirname(os.path.abspath(pkg.__file__)), card=nvidia_smi_line())
     for label, cfg in (("default", TraceConfig()), ("estimator", TraceConfig(**REF_ESTIMATOR))):
-        for scene in (SCENE, *(os.path.join(ROOT, "scenes", s) for s in OTHER_SCENES)):
-            name = f"{label} {os.path.basename(scene)[9:-4]}"
-            r = render_offline(load_config(scene), dev, spp=1, image_res=RES, out_path=None,
-                               atlas=atlas, luts=luts, cfg=cfg)
-            row = dict(s_per_spp=round(_spp_seconds(torch, r, 3), 5), bounce_ms=[], kernels=[])
-            for _ in range(reps):
-                n_k, _, _, by_name = profile_spp(torch, r, name)
-                row["bounce_ms"].append(round(
-                    sum(us for k, us in by_name.items() if "bounce" in k) / 1e3, 3))
-                row["kernels"].append(n_k)
-            out[name] = row
-            del r
+        for name, s_spp, profiles in scene_runs(torch, dev, atlas, luts, reps, cfg):
+            out[f"{label} {name}"] = dict(
+                s_per_spp=round(s_spp, 5), bounce_ms=[round(_bounce_device_ms(p[3]), 3) for p in profiles],
+                kernels=[p[0] for p in profiles])
     print(json.dumps({"spp_bench": out}))
 
 
@@ -3640,8 +3702,6 @@ def path_bench(torch, dev):
     spp; the tier-2 atlas's build split and each plane's ``upsample`` ms
     beside the expand+reshape copy. Prints one JSON line."""
     import digital_earth_tpu_torch as pkg
-    from digital_earth_tpu_torch.app.config_io import load_config
-    from digital_earth_tpu_torch.app.viewer import render_offline
     from digital_earth_tpu_torch.assets.luts import load_spectral_luts
     from digital_earth_tpu_torch.assets.textures import procedural_texture_atlas
     from digital_earth_tpu_torch.render.renderer import Renderer
@@ -3653,34 +3713,24 @@ def path_bench(torch, dev):
                s_per_spp={}, bounce_ms_per_spp={}, kernels_per_spp={}, busy_share={},
                busy_ms_per_spp={}, busy_of_unprofiled_spp={}, mesh_s_per_spp={},
                gen_rays_kernel_ms={})
-    for scene in (SCENE, *(os.path.join(ROOT, "scenes", s) for s in OTHER_SCENES)):
-        name = os.path.basename(scene)[9:-4]
-        r = render_offline(load_config(scene), dev, spp=1, image_res=RES, out_path=None,
-                           atlas=atlas, luts=luts)
-        out["s_per_spp"][name] = round(_spp_seconds(torch, r, 3), 5)
-        n_k, busy, wall, by_name = profile_spp(torch, r, name)
+    for name, s_spp, ((n_k, busy, wall, by_name),) in scene_runs(torch, dev, atlas, luts, 1):
+        out["s_per_spp"][name] = round(s_spp, 5)
         out["kernels_per_spp"][name] = n_k
         out["busy_share"][name] = round(busy / wall, 4)
         # the profiler slows the host, not the device: the device's busy time
         # over the unprofiled spp's wall time
         out["busy_ms_per_spp"][name] = round(busy * 1e3, 3)
         out["busy_of_unprofiled_spp"][name] = round(busy / out["s_per_spp"][name], 4)
-        out["bounce_ms_per_spp"][name] = round(
-            sum(us for k, us in by_name.items() if "bounce" in k) / 1e3, 3)
+        out["bounce_ms_per_spp"][name] = round(_bounce_device_ms(by_name), 3)
         out["gen_rays_kernel_ms"][name] = round(
             sum(us for k, us in by_name.items() if "gen_rays" in k) / 1e3, 4)
-        del r
     # the reference's own estimator, where the package has its options
     from digital_earth_tpu_torch.render.params import TraceConfig
 
     if "analytic_transmittance" in TraceConfig.__dataclass_fields__:
-        out["reference_estimator_s_per_spp"] = {}
-        for scene in (SCENE, *(os.path.join(ROOT, "scenes", s) for s in OTHER_SCENES)):
-            r = render_offline(load_config(scene), dev, spp=1, image_res=RES, out_path=None,
-                               atlas=atlas, luts=luts, cfg=TraceConfig(**REF_ESTIMATOR))
-            out["reference_estimator_s_per_spp"][os.path.basename(scene)[9:-4]] = round(
-                _spp_seconds(torch, r, 3), 5)
-            del r
+        out["reference_estimator_s_per_spp"] = {
+            name: round(s_spp, 5) for name, s_spp, _ in
+            scene_runs(torch, dev, atlas, luts, 0, TraceConfig(**REF_ESTIMATOR))}
     for shape, n_spp in (("(4, 1)", 1), ("(2, 2)", 2)):
         m = _mesh(torch, [dev] * 4, n_spp, atlas, luts, 0)
         m.accumulate()
@@ -3704,7 +3754,7 @@ def path_bench(torch, dev):
     finally:
         vs.close()
     captured, states, deepest, _, _ = capture_inputs(torch, dev, atlas, luts)
-    table = bounce_table(torch, states, states[0]["args"][3], census=False)
+    table = bounce_table(torch, states, states[0]["args"][3])
     out["per_bounce_ms"] = {b: round(row["ms"], 4) for b, row in table.items()}
     from digital_earth_tpu_torch import kernels
     from digital_earth_tpu_torch.render import pathtracer as pt
@@ -3857,11 +3907,10 @@ def main():
     mesh_only = args == ["--mesh-only"]
     bench = args[:1] == ["--preview-bench"] and len(args) <= 2
     pbench = args[:1] == ["--path-bench"] and len(args) <= 2
-    tbench = args[:1] == ["--threefry-bench"] and len(args) <= 2
     sbench = args[:1] == ["--spp-bench"] and len(args) <= 2
-    if args and not (mesh_only or bench or pbench or tbench or sbench):
+    if args and not (mesh_only or bench or pbench or sbench):
         fail(f"unknown arguments {args} (the options are --mesh-only, --preview-bench [DIR], "
-             "--path-bench [DIR], --threefry-bench [DIR] and --spp-bench [DIR])")
+             "--path-bench [DIR] and --spp-bench [DIR])")
     try:
         import torch
     except ImportError:
@@ -3870,7 +3919,7 @@ def main():
         fail("torch.cuda.is_available() is False: this smoke test needs a CUDA card")
     if not os.path.isdir(os.path.join(ROOT, "digital_earth_tpu_torch")):
         fail("run from a checkout: digital_earth_tpu_torch/ is missing beside chip_smoke.py")
-    sys.path.insert(0, os.path.abspath(args[1]) if (bench or pbench or tbench or sbench)
+    sys.path.insert(0, os.path.abspath(args[1]) if (bench or pbench or sbench)
                     and len(args) == 2 else ROOT)
     dev = torch.device("cuda:0")
     if bench:
@@ -3878,16 +3927,6 @@ def main():
         return
     if sbench:
         spp_bench(torch, dev)
-        return
-    if tbench:
-        from digital_earth_tpu_torch import kernels
-
-        kernels.library()
-        out = dict(card=nvidia_smi_line(), build_s=round(kernels.build_seconds, 1),
-                   ptxas={src: ptxas_entries(kernels.ptxas_log.get(src, ""))
-                          for src in PTXAS_SOURCES if src in kernels.ptxas_log},
-                   threefry=threefry_bench(torch, dev, kernels))
-        print(json.dumps({"threefry_bench": out}))
         return
     if pbench:
         path_bench(torch, dev)
@@ -3913,7 +3952,7 @@ def main():
                     "spill" in line and not line.strip().startswith("0 bytes stack")):
                 print(f"ptxas {src}: {line.strip()}")
 
-    check_threefry(torch, dev)
+    tf = check_threefry(torch, dev)["tf"]
 
     t0 = time.time()
     atlas = procedural_texture_atlas(dev, (1024, 2048), seed=7,
@@ -3974,7 +4013,7 @@ def main():
     with open(os.path.join(out_dir, "apollo11_1080p_3spp.png"), "wb") as f:
         f.write(encode_png(r.fetch_image_np()))
 
-    rows = compare_kernels(torch, captured)
+    rows = compare_kernels(torch, captured, tf)
     bad = [name for name, row in rows.items() if not row["ok"]]
     if bad:
         fail(f"kernels disagree with their plain versions: {bad}")
@@ -3982,11 +4021,9 @@ def main():
     census = check_census(torch, states)
     cfg = states[0]["args"][3]
     for name, part in (("bounce_flight", "flight"), ("bounce_shade", "shade")):
-        rows[name]["ops"] = bounce_ops(torch, census[0], cfg.march_k, cfg.tracking_k, part)
-        for key, integer in (("int_ops", True), ("fma_ops", "fma")):
-            rows[name][key] = bounce_ops(torch, census[0], cfg.march_k, cfg.tracking_k, part,
-                                         integer=integer)
-    table = bounce_table(torch, states, cfg)
+        other, alu, fma = bounce_ops(torch, census[0], cfg.march_k, cfg.tracking_k, tf, part)
+        rows[name].update(ops=other + alu + fma, int_ops=alu, fma_ops=fma)
+    table = bounce_table(torch, states, cfg, tf)
     check_scenes(torch, dev, atlas, luts)
     rows["bounce_window"], _, schedule, _ = check_window(torch, states, table)
     check_draine(torch, states)
@@ -3999,10 +4036,10 @@ def main():
     check_texture(torch, lookups, atlas, probes)
     del states, deepest, lookups, census, table
     check_window_spp(torch, dev, atlas, luts, schedule)
-    rows["rmo_ratio_track"], _ = check_reference_estimator(torch, dev, atlas, luts)
+    rows["rmo_ratio_track"], _ = check_reference_estimator(torch, dev, atlas, luts, tf)
 
     # --- the viewer's path -------------------------------------------------
-    rows["gen_rays"] = check_gen_rays(torch, dev, atlas, luts)
+    rows["gen_rays"] = check_gen_rays(torch, dev, atlas, luts, tf)
     rows["film_postprocess"] = check_film(torch, buf, r.crf.curves)
     del r, buf, img
     preview_counts, preview_rows, frame_end_preview = preview_frame(torch, dev, atlas, luts)

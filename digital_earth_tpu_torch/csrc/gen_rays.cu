@@ -40,9 +40,9 @@
 // staged directions beat three 4-byte stores per lane.
 //
 // What bounds it on the H100: the bytes it writes, 116 per path lane (its
-// threefry work, three folds and three draws of 68 SASS instructions a
-// block, 50 of them on the integer ALU pipe, is 6.4e8 ALU-pipe instructions
-// for a 1080p frame, 0.038 ms at that pipe's rate).
+// threefry work, three folds and three draws of 68 and 71 SASS
+// instructions, 50 and 51 of them on the integer ALU pipe, is 6.3e8
+// ALU-pipe instructions for a 1080p frame, 0.038 ms at that pipe's rate).
 #include <cstdint>
 
 #include <cuda_runtime.h>

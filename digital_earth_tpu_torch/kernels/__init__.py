@@ -114,6 +114,7 @@ _SIGNATURES = {
     "de_threefry_fold": [_P, _I, ctypes.c_uint, _I, _P, _P],
     # keys, n, base, count, out, stream
     "de_threefry_draws": [_P, _I, ctypes.c_uint, _I, _P, _P],
+    "de_threefry_draw_sum": [_P, _I, ctypes.c_uint, _I, _P, _P],
     # base, w, C, factor, out, n (64-bit), jitter channel, jitter, seed, stream
     "de_upsample": [_P, _I, _I, _I, _P, ctypes.c_int64, _I, _F, ctypes.c_uint, _P],
     # float params, int params, key k0, k1, origin, pos, dir, wavelength,
@@ -942,6 +943,19 @@ def threefry_draws(keys, base: int, count: int):
     n = k32.shape[0]
     out = torch.empty((count, n), dtype=torch.float32, device=keys.device)
     _launch("de_threefry_draws", _ptr(k32), n, base & 0xFFFFFFFF, count, _ptr(out))
+    return out
+
+
+def threefry_draw_sum(keys, base: int, count: int):
+    """Test launcher of the header's uniform (not a path kernel): (n,) the
+    float32 sum of ``uniform(key, base + j)`` for j < ``count`` (1 or 2),
+    in order, computed on the card by csrc/threefry_check.cu (whose two
+    instances give chip_smoke.py a draw's SASS instructions)."""
+    if count not in (1, 2):
+        raise ValueError(f"threefry_draw_sum: count {count}, the launcher has 1 and 2")
+    k32 = _threefry_keys(keys)
+    out = torch.empty((k32.shape[0],), dtype=torch.float32, device=keys.device)
+    _launch("de_threefry_draw_sum", _ptr(k32), k32.shape[0], base & 0xFFFFFFFF, count, _ptr(out))
     return out
 
 

@@ -186,14 +186,16 @@ def _chip_smoke():
 
 
 def test_bounce_census_arithmetic():
-    """chip_smoke.py's operations from trip counts (all of them, and
-    threefry's share on the ALU and on the FMA pipe) and SIMT efficiency, on
-    a hand-counted case, at the source's count of a threefry block (77
-    ALU-pipe operations, the totals as counted before the SASS was read) and
-    at a SASS-like split: the second lane took the sun's transmittance by
-    ratio tracking (NEE RMO trips), so it counts no closed-form term; a
+    """chip_smoke.py's operations from trip counts, as (other operations,
+    threefry's ALU-pipe instructions, its FMA-pipe ones) at a SASS census of
+    a block and a draw, and SIMT efficiency, on a hand-counted case, at the
+    source's count of threefry (77 ALU-pipe operations a block, 80 a draw)
+    and at a SASS-like split: the second lane took the sun's transmittance
+    by ratio tracking (NEE RMO trips), so it counts no closed-form term; a
     census of six sites (a package without the NEE RMO column) counts as the
-    seven's first six."""
+    seven's first six; the flight and the shade add up to the bounce; the
+    tables without threefry plus its source count are the first counts; no
+    census, no count."""
     cs = _chip_smoke()
     trips = torch.tensor([[0, 1, 2, 0, 0, 1, 0], [0, 3, 2, 1, 1, 1, 2]], dtype=torch.int32)
     k = 4
@@ -212,13 +214,14 @@ def test_bounce_census_arithmetic():
     blk_tables = tuple(tuple(x[0] for x in t) for t in tf_tables)
     drw_tables = tuple(tuple(x[1] for x in t) for t in tf_tables)
     fixed = (cs.BOUNCE_FIXED_TF, cs.BOUNCE_SURFACE_TF, cs.BOUNCE_NEE_TF)
-    for alu_b, fma_b in ((77.0, 0.0), (49.0, 18.0)):
-        cs.TF_BLOCK.update(alu=alu_b, fma=fma_b)
+    source = {"block": {"alu": 77.0, "imad": 0.0}, "draw": {"alu": 80.0, "imad": 0.0}}
+    sass_like = {"block": {"alu": 50.0, "imad": 17.0}, "draw": {"alu": 46.0, "imad": 17.0}}
+    for tf in (source, sass_like):
 
         def split(blocks, draws):
-            # (the source's count, ALU-pipe, FMA-pipe) of threefry's work
-            return (77 * blocks + 80 * draws, blocks * alu_b + draws * (alu_b + 3),
-                    (blocks + draws) * fma_b)
+            # threefry's (ALU-pipe, FMA-pipe) instructions
+            return (blocks * tf["block"]["alu"] + draws * tf["draw"]["alu"],
+                    blocks * tf["block"]["imad"] + draws * tf["draw"]["imad"])
 
         for tracking_k in (4, 6):
             sites = lambda tables, cols=7: sum(  # noqa: E731
@@ -229,22 +232,34 @@ def test_bounce_census_arithmetic():
                           + sites(blk_tables, cols))
                 draws = (2 * fixed[0][1] + fixed[1][1] + 2 * fixed[2][1]
                          + sites(drw_tables, cols))
-                src, alu, fma = split(blocks, draws)
-                counted = (2 * cs.BOUNCE_FIXED_OPS + cs.BOUNCE_SURFACE_OPS + 2 * cs.BOUNCE_NEE_OPS
-                           + closed * cs.BOUNCE_CLOSED_FORM_OPS + sites(ops_tables, cols))
+                other = (2 * cs.BOUNCE_FIXED_OPS + cs.BOUNCE_SURFACE_OPS + 2 * cs.BOUNCE_NEE_OPS
+                         + closed * cs.BOUNCE_CLOSED_FORM_OPS + sites(ops_tables, cols))
                 t = trips[:, :cols]
-                assert cs.bounce_ops(torch, t, k, tracking_k) == counted - src + alu + fma
-                assert cs.bounce_ops(torch, t, k, tracking_k, integer=True) == alu
-                assert cs.bounce_ops(torch, t, k, tracking_k, integer="fma") == fma
-                if alu_b == 77.0:  # the source's count: the totals as they were
-                    assert cs.bounce_ops(torch, t, k, tracking_k) == counted
+                got = cs.bounce_ops(torch, t, k, tracking_k, tf)
+                assert got == (other, *split(blocks, draws))
+                halves = [cs.bounce_ops(torch, t, k, tracking_k, tf, part)
+                          for part in ("flight", "shade")]
+                assert tuple(a + b for a, b in zip(*halves)) == got
             for j in (1, 2, 6):
                 per = [sum(site(j, int(trips[i, j]), tracking_k, tab) for i in range(2))
                        for tab in (ops_tables, blk_tables, drw_tables)]
-                src, alu, fma = split(per[1], per[2])
-                assert cs.tracker_ops(torch, trips[:, j], tracking_k, j) == per[0] - src + alu + fma
-                assert cs.tracker_ops(torch, trips[:, j], tracking_k, j, integer=True) == alu
-                assert cs.tracker_ops(torch, trips[:, j], tracking_k, j, integer="fma") == fma
+                assert cs.tracker_ops(torch, trips[:, j], tracking_k, j, tf) == (
+                    per[0], *split(per[1], per[2]))
+    # the tables without threefry, plus 77 a block and 80 a draw, are the
+    # counts as first made from the source
+    src = lambda x: 77 * x[0] + 80 * x[1]  # noqa: E731
+    for ops, tfs, first in ((cs.BOUNCE_CALL_OPS, cs.BOUNCE_CALL_TF, (59, 2, 19, 59, 59, 2, 106)),
+                            (cs.BOUNCE_ITER_OPS, cs.BOUNCE_ITER_TF, (4, 5, 120, 4, 4, 5, 80)),
+                            (cs.BOUNCE_PROBE_OPS, cs.BOUNCE_PROBE_TF,
+                             (110, 45, 230, 110, 110, 45, 155))):
+        assert tuple(o + src(x) for o, x in zip(ops, tfs)) == first
+    assert cs.BOUNCE_FLIGHT_OPS + src(cs.BOUNCE_FLIGHT_TF) == 487
+    assert cs.BOUNCE_FIXED_OPS + src(cs.BOUNCE_FIXED_TF) == 487 + 774
+    assert cs.BOUNCE_SURFACE_OPS + src(cs.BOUNCE_SURFACE_TF) == 1081
+    assert cs.BOUNCE_NEE_OPS + src(cs.BOUNCE_NEE_TF) == 225
+    assert cs.GEN_RAYS_OPS + 77 * sum(cs.GEN_RAYS_TF) == 680  # a draw counted as a block there
+    with pytest.raises(SystemExit):
+        cs.tf_ops(1, 1, None)
     # the FMA pipe's integer work has its own rate beside the ALU pipe's
     cs.sm_clock_mhz = lambda: 1980.0
     int_hz = cs.H100_SMS * cs.INT32_PER_SM * 1980.0e6
@@ -337,34 +352,55 @@ _SASS = """\
         /*0060*/                   SHF.L.W.U32.HI R4, R6, 0xf, R6 ;
         /*0070*/                   EXIT ;
         /*0080*/                   BRA 0x80;
+		..........
+		Function : _ZN2de24threefry_draw_sum_kernelILi1EEEvPKiijPf
+        /*0000*/                   IADD3 R3, R2, R5, RZ ;
+        /*0010*/                   FADD R4, R3, -1 ;
+        /*0020*/                   EXIT ;
+		Function : _ZN2de24threefry_draw_sum_kernelILi2EEEvPKiijPf
+        /*0000*/                   IADD3 R3, R2, R5, RZ ;
+        /*0010*/                   FADD R4, R3, -1 ;
+        /*0020*/                   LOP3.LUT R4, R4, R3, RZ, 0x3c, !PT ;
+        /*0030*/                   IMAD.IADD R6, R4, 0x1, R3 ;
+        /*0040*/                   FADD R4, R3, -1 ;
+        /*0050*/                   FADD R4, R4, R6 ;
+        /*0060*/                   EXIT ;
 """
 
 
 def test_sass_census_counts_one_block():
     """chip_smoke.py reads the SASS of one threefry block as the depth-2
-    fold launcher's instructions less the depth-1's, by opcode and by pipe
-    (IMAD on the FMA pipe, IADD3, LOP3 and SHF on the ALU pipe), sets the
-    bounds' per-block counts from it, and fails where the disassembly has
-    no threefry kernel."""
+    fold launcher's instructions less the depth-1's, and of one draw as the
+    two-word sum launcher's less the one-word's, by opcode and by pipe
+    (IMAD on the FMA pipe, IADD3, LOP3 and SHF on the ALU pipe, FADD at the
+    FP32 rate, apart), returns their integer instructions for the bounds,
+    and fails where the disassembly lacks either pair."""
     import types
 
     cs = _chip_smoke()
     funcs = cs.parse_sass(_SASS)
     assert sorted(funcs) == ["_ZN2de20threefry_fold_kernelILi1EEEvPKiijPi",
-                             "_ZN2de20threefry_fold_kernelILi2EEEvPKiijPi"]
+                             "_ZN2de20threefry_fold_kernelILi2EEEvPKiijPi",
+                             "_ZN2de24threefry_draw_sum_kernelILi1EEEvPKiijPf",
+                             "_ZN2de24threefry_draw_sum_kernelILi2EEEvPKiijPf"]
     assert funcs["_ZN2de20threefry_fold_kernelILi1EEEvPKiijPi"] == [
         "LDC", "EXIT", "IADD3", "SHF.L.W.U32.HI", "LOP3.LUT", "IMAD", "SHF.L.W.U32.HI", "EXIT",
         "BRA"]
-    hist, pipes = cs.sass_histogram(["IMAD.IADD", "IADD3", "SHF.L.W.U32.HI", "LDC"])
-    assert hist["IMAD.IADD"] == 1 and pipes == {"alu": 2, "fma": 1, "other": 1}
+    hist, pipes = cs.sass_histogram(["IMAD.IADD", "IADD3", "SHF.L.W.U32.HI", "LDC", "FADD",
+                                     "MUFU.RCP"])
+    assert hist["IMAD.IADD"] == 1
+    assert pipes == {"alu": 2, "imad": 1, "f32": 1, "xu": 1, "other": 1}
     kern = types.SimpleNamespace(library=lambda: types.SimpleNamespace(_name="lib.so"))
     got = cs.sass_census(kern, funcs=funcs)
-    assert got["block"] == {"IADD3": 1, "SHF.L.W.U32.HI": 1, "LOP3.LUT": 1, "IMAD.IADD": 1}
-    assert got["block_pipes"] == {"alu": 3, "fma": 1, "other": 0} and got["block_total"] == 4
-    assert cs.TF_BLOCK == {"alu": 3.0, "fma": 1.0}
-    assert cs.tf_int(2, 1) == (2 * 3 + 1 * (3 + cs.DRAW_ALU), 3 * 1)
-    with pytest.raises(SystemExit):
-        cs.sass_census(kern, funcs={"_ZN2de12other_kernelEv": ["EXIT"]})
+    assert got["block"]["ops"] == {"IADD3": 1, "SHF.L.W.U32.HI": 1, "LOP3.LUT": 1, "IMAD.IADD": 1}
+    assert got["block"]["pipes"] == {"alu": 3, "imad": 1, "f32": 0, "xu": 0, "other": 0}
+    assert got["block"]["total"] == 4
+    assert got["draw"]["ops"] == {"LOP3.LUT": 1, "IMAD.IADD": 1, "FADD": 2}
+    assert got["tf"] == {"block": {"alu": 3.0, "imad": 1.0}, "draw": {"alu": 1.0, "imad": 1.0}}
+    assert cs.tf_ops(2, 1, got["tf"]) == (2 * 3 + 1 * 1, 2 * 1 + 1 * 1)
+    for drop in ("fold", "draw_sum"):
+        with pytest.raises(SystemExit):
+            cs.sass_census(kern, funcs={n: f for n, f in funcs.items() if drop not in n})
 
 
 def test_ptxas_entries_reads_every_kernel():

@@ -110,8 +110,9 @@ def test_threefry_header_bit_equal(dev, data):
 @pytest.mark.parametrize("base", [0, 0x7FFFFFFA, 0xFFFFFFFA])
 def test_threefry_draws_at_edge_counters_bit_equal(dev, base):
     """Draws from edge keys at counter runs that cross 2^31 and wrap past
-    2^32, bit for bit ops/rng.uniform_at; the launchers refuse a CPU tensor
-    and a fold depth they do not have."""
+    2^32, and the one- and two-word sums whose SASS gives a draw's count,
+    bit for bit ops/rng.uniform_at; the launchers refuse a CPU tensor and a
+    fold depth or a sum's count they do not have."""
     from digital_earth_tpu_torch import kernels
 
     keys = _threefry_keys(dev)
@@ -119,8 +120,12 @@ def test_threefry_draws_at_edge_counters_bit_equal(dev, base):
     want = rng.uniform_at(keys[None], ctr)
     got = kernels.threefry_draws(keys, base, 12)
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert torch.equal(kernels.threefry_draw_sum(keys, base, 1), want[0])
+    assert torch.equal(kernels.threefry_draw_sum(keys, base, 2), want[0] + want[1])
     with pytest.raises(ValueError):
         kernels.threefry_draws(keys.cpu(), base, 12)
+    with pytest.raises(ValueError):
+        kernels.threefry_draw_sum(keys, base, 3)
     with pytest.raises(ValueError):
         kernels.threefry_fold(keys, base, 3)
 

@@ -20,7 +20,8 @@ split and the trackers' SIMT efficiency; ``compact_lanes`` and
 ``gen_rays`` per call and on the device; the tier-2 atlas's build split
 and ``upsample`` per plane; the threefry launcher and its SASS; every
 entry's registers and spills; ``rmo_ratio_track`` at one and four
-wavelengths and the reference estimator's census); ``--spp-bench [DIR]``
+wavelengths and the reference estimator's census at bounces 0 and
+DEEP_BOUNCE with its tracking lanes per warp); ``--spp-bench [DIR]``
 the three scenes' s/spp and the bounce kernels' device ms of 3 profiled
 spp each, at the default config and at the reference's estimator. It
 imports nothing of JAX or of the JAX package ``digital_earth_tpu`` (checked
@@ -101,10 +102,11 @@ at the end). Phases, each of which raises on failure (exit code 1):
    bounce 0 (captured from the twin's bounce, at four wavelengths with the
    ratio tracking alone and at one with all three options), every lane
    bit-equal and its iterations the twin's, timed with its bound; the
-   bounce entries' instances of the estimator against their twin on the
-   three scenes at bounces 0 and DEEP_BOUNCE, every lane bit-equal, with
-   the census's NEE RMO site (its lanes, iterations and share of the warp
-   cycles); ``gen_rays`` at each new mode against its twin; the
+   bounce entries' instances of the estimator against their twin on
+   the three scenes at bounces 0 and DEEP_BOUNCE, every lane bit-equal,
+   with the census's NEE RMO site (its lanes, iterations, share of the warp
+   cycles and its tracking lanes per warp); ``gen_rays`` at each new mode
+   against its twin; the
    estimator's path (``render_offline``, 3 spp, counts set to 0 before it
    and read after) under phase 6's gates, and ``frame_end`` at one
    wavelength against its twin; ``accumulate_interruptible(3)``, an
@@ -1548,6 +1550,28 @@ def tracker_simt(torch, trips, warp=32):
     return [simt[site] for site in TRACKER_SITES if site < len(simt)]
 
 
+def lanes_per_warp(torch, trips, warp=32):
+    """Tracking lanes per warp at the NEE RMO site: the census's (m, sites)
+    trips cut into the launch's warps (32 consecutive list entries); entry
+    c counts the warps with c lanes that took trips there, c = 0 ... 32."""
+    col = trips[:, NEE_RMO]
+    col = torch.cat([col, col.new_zeros((-col.numel()) % warp)])
+    return torch.bincount((col.view(-1, warp) > 0).sum(1), minlength=warp + 1).tolist()
+
+
+def per_warp_text(hist):
+    """``lanes_per_warp``'s histogram in bins, and the share of tracking
+    lanes in warps of at most 16: those whose warp leaves a thread or more
+    to each of them, which a design that spreads a lane's probes over a
+    warp's idle threads could take (PERF.md §6)."""
+    lanes = sum(c * w for c, w in enumerate(hist))
+    sparse = sum(c * w for c, w in enumerate(hist[:17]))
+    bins = ((0, 0), (1, 2), (3, 4), (5, 8), (9, 16), (17, 32))
+    return ("tracking lanes per warp (warps) " + ", ".join(
+        f"{a}-{b} {sum(hist[a:b + 1])}" for a, b in bins)
+        + f"; {sparse / max(lanes, 1):.3f} of the tracking lanes in warps of at most 16")
+
+
 def simt_text(march, tracker):
     return ("the land march's SIMT eff as launched (pre, after, shadow) "
             + " ".join("-" if e is None else f"{e:.2f}" for e in march)
@@ -1659,11 +1683,31 @@ def check_ratio_track(torch, args, label, tf):
           f"lane, max {int(iters.max())}); kernel {ms:.4f} ms, plain {plain_ms:.1f} ms; bound "
           f"{b_ms:.4f} ms ({b_by}; {ops:.4g} operations, {int_ops:.4g} threefry ALU-pipe, "
           f"{fma_ops:.4g} FMA-pipe; bytes "
-          f"{nbytes / PEAK_BYTES * 1e3:.4f} ms)  {'ok' if ok else 'FAIL'}")
+          f"{nbytes / PEAK_BYTES * 1e3:.4f} ms); one thread a lane  {'ok' if ok else 'FAIL'}")
     if not ok:
         fail(f"rmo_ratio_track disagrees with its plain twin ({label})")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bytes=nbytes, ops=ops,
                 int_ops=int_ops, fma_ops=fma_ops), iters
+
+
+SPARSE_PER_WARP = (2, 4, 8, 16)  # tracking lanes a warp of the sparse launches
+
+
+def ratio_args_per_warp(torch, args, c):
+    """``rmo_ratio_track``'s first eight arguments with the tracking lanes
+    of ``args`` (active, t_max >= 0, t_start < t_max) moved c to a warp of
+    32, into its first c threads, in their order; every other thread
+    inactive, on a copy of the first tracking lane."""
+    keys, pos, d, t0, t1, ext, max_ext, active = args
+    lanes = torch.nonzero(active & (t1 >= 0.0) & (t0 < t1)).squeeze(1)
+    i = torch.arange(lanes.numel(), device=lanes.device)
+    slot = (i // c) * 32 + i % c
+    m = (-(-lanes.numel() // c)) * 32
+    src = torch.full((m,), int(lanes[0]), dtype=torch.long, device=lanes.device)
+    src[slot] = lanes
+    act = torch.zeros(m, dtype=torch.bool, device=lanes.device)
+    act[slot] = True
+    return tuple(a[src].contiguous() for a in (keys, pos, d, t0, t1, ext, max_ext)) + (act,)
 
 
 def check_reference_estimator(torch, dev, atlas, luts, tf):
@@ -1712,8 +1756,8 @@ def check_reference_estimator(torch, dev, atlas, luts, tf):
             print(f"census reference estimator {name} bounce {b}: {c['idx'].numel()} live; NEE RMO "
                   f"ratio tracking on {int((nee > 0).sum())} lanes, "
                   f"{nee[nee > 0].float().mean().item():.3f} iterations a lane (max "
-                  f"{int(nee.max())}); {simt}; cycle split {split_text(cycle_split(torch, cycles))} "
-                  f"({card})")
+                  f"{int(nee.max())}); {per_warp_text(lanes_per_warp(torch, trips))}; {simt}; "
+                  f"cycle split {split_text(cycle_split(torch, cycles))} ({card})")
         del states
     r = _apollo(Renderer(dev, image_res=RES, atlas=atlas, luts=luts))
     for label, options in REF_OPTIONS[:2] + REF_OPTIONS[3:]:
@@ -3816,7 +3860,10 @@ def path_bench(torch, dev):
     del c, frame
     # the reference estimator: rmo_ratio_track on Apollo bounce 0's NEE lanes
     # at four wavelengths (ratio tracking alone) and at one (all three
-    # options), per call; the estimator's census at bounce 0 on each scene
+    # options), per call and on the device (a CUDA graph of 20 calls); the
+    # estimator's bounce entries at bounces 0 and DEEP_BOUNCE on each scene:
+    # lanes not bit-equal to the twin, the census's cycle split, the
+    # trackers' SIMT and the NEE RMO site's tracking lanes per warp
     if "analytic_transmittance" in TraceConfig.__dataclass_fields__:
         out["ratio_track_ms"], out["estimator_cycle_split"] = {}, {}
         for label, cfg_r in (("L4", TraceConfig(analytic_transmittance=False)),
@@ -3825,16 +3872,34 @@ def path_bench(torch, dev):
             keys, pos, d, t0, t1, ext, max_ext, active, cfg_a = capture_ratio_args(
                 torch, sts[0], 0)
             kw = dict(max_steps=cfg_a.max_tracking_steps, k=cfg_a.tracking_k)
-            out["ratio_track_ms"][label] = round(_time_ms(torch, lambda: kernels.rmo_ratio_track(
-                keys, pos, d, t0, t1, ext, max_ext, active, **kw), 5)[1], 4)
+            call = lambda: kernels.rmo_ratio_track(  # noqa: E731
+                keys, pos, d, t0, t1, ext, max_ext, active, **kw)
+            out["ratio_track_ms"][label] = [round(_time_ms(torch, call, 5)[1], 4),
+                                            round(_graph_ms(torch, call), 4)]
+            # the same tracking lanes, c to a warp (the rest of each warp
+            # inactive): the per-lane loop where a warp has threads to spare
+            for c in SPARSE_PER_WARP:
+                sparse = ratio_args_per_warp(torch, (keys, pos, d, t0, t1, ext, max_ext, active),
+                                             c)
+                out["ratio_track_ms"][f"{label} {c} a warp"] = round(_graph_ms(
+                    torch, lambda: kernels.rmo_ratio_track(*sparse, **kw)), 4)
+                del sparse
             del sts
+        for key in ("not_bit_equal", "tracker_simt", "lanes_per_warp"):
+            out[f"estimator_{key}"] = {}
         for scene in (SCENE, *(os.path.join(ROOT, "scenes", s) for s in OTHER_SCENES)):
-            sts, _, _ = capture_states(torch, dev, atlas, luts, bounces=(0,), scene=scene,
-                                       cfg=TraceConfig(**REF_ESTIMATOR))
-            _, _, _, cycles = _bounce_and_twin(torch, sts[0], 0)
-            sites, fl, sh, total = cycle_split(torch, cycles)
-            out["estimator_cycle_split"][os.path.basename(scene)[9:-4]] = [
-                round(x, 4) for x in sites] + [round(fl, 4), round(sh, 4), total]
+            sts, _, _ = capture_states(torch, dev, atlas, luts, bounces=(0, DEEP_BOUNCE),
+                                       scene=scene, cfg=TraceConfig(**REF_ESTIMATOR))
+            for b in (0, DEEP_BOUNCE):
+                at = f"{os.path.basename(scene)[9:-4]}@{b}"
+                got, want, trips, cycles = _bounce_and_twin(torch, sts[b], b)
+                sites, fl, sh, total = cycle_split(torch, cycles)
+                out["estimator_cycle_split"][at] = [
+                    round(x, 4) for x in sites] + [round(fl, 4), round(sh, 4), total]
+                out["estimator_not_bit_equal"][at] = lanes_not_bit_equal(torch, got, want)
+                out["estimator_tracker_simt"][at] = [
+                    None if e is None else round(e, 4) for e in tracker_simt(torch, trips)]
+                out["estimator_lanes_per_warp"][at] = lanes_per_warp(torch, trips)
             del sts
     # select_tiles on the device (a CUDA graph of 20 calls) on seeded
     # buffers: 1920x1080 (1,080 tiles) and 3840x2160 at 512-pixel tiles

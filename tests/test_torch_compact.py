@@ -438,3 +438,48 @@ def test_sass_tap_bound_counts_the_body_by_pipe():
     assert count == {"f32": 2, "alu": 1, "imad": 1, "xu": 2}
     assert per_pipe["xu"] == 2 * 1e-6 * 1e3 and ms == per_pipe["xu"]
     assert per_pipe["f32"] == 2 * 16 / 128 * 1e-6 * 1e3
+
+
+def test_lanes_per_warp_counts_the_ratio_trackers_lanes():
+    """chip_smoke.py's tracking lanes per warp at the NEE RMO site (column
+    6 of the census's trips): warps are 32 consecutive list entries, the
+    last one padded; the histogram counts warps by their lanes with trips
+    there, and its text bins them by the spread they allow and gives the
+    share of tracking lanes in warps of at most 16."""
+    cs = _chip_smoke()
+    m = 32 * 3 + 5
+    trips = torch.zeros((m, 7), dtype=torch.int32)
+    trips[:3, 6] = 4                   # warp 0: 3 tracking lanes
+    trips[32:52, 6] = 1                # warp 1: 20
+    trips[32:64, 5] = 2                # another site's trips do not count
+    trips[96:101, 6] = 7               # warp 3 (5 entries): 5
+    hist = cs.lanes_per_warp(torch, trips)
+    assert len(hist) == 33 and sum(hist) == 4
+    assert hist[0] == 1 and hist[3] == 1 and hist[5] == 1 and hist[20] == 1
+    text = cs.per_warp_text(hist)
+    assert "0-0 1, 1-2 0, 3-4 1, 5-8 1, 9-16 0, 17-32 1" in text
+    assert f"{8 / 28:.3f} of the tracking lanes in warps of at most 16" in text
+
+
+def test_ratio_args_per_warp_moves_the_tracking_lanes():
+    """chip_smoke.py's sparse layout for the ratio tracker's launcher: the
+    tracking lanes (active, t_max >= 0, t_start < t_max), in order, c to a
+    warp in its first c threads; every other thread inactive."""
+    cs = _chip_smoke()
+    n = 50
+    t0 = torch.zeros(n)
+    t1 = torch.ones(n)
+    t1[3] = -1.0                       # t_max < 0: not tracking
+    t0[4] = 2.0                        # t_start past t_max: not tracking
+    active = torch.ones(n, dtype=torch.bool)
+    active[7] = False
+    keys = torch.arange(2 * n).view(n, 2)
+    pos = torch.arange(3.0 * n).view(n, 3)
+    ext = torch.arange(12.0 * n).view(n, 4, 3)
+    out = cs.ratio_args_per_warp(torch, (keys, pos, pos, t0, t1, ext, t0, active), 4)
+    lanes = [i for i in range(n) if i not in (3, 4, 7)]
+    assert out[7].shape == (32 * 12,) and int(out[7].sum()) == len(lanes)
+    slots = torch.nonzero(out[7]).squeeze(1)
+    assert ((slots % 32) < 4).all()
+    assert torch.equal(out[0][slots], keys[lanes]) and torch.equal(out[5][slots], ext[lanes])
+    assert all(a.shape[0] == 32 * 12 for a in out)

@@ -196,12 +196,43 @@ def test_rmo_delta_track_kernel(case, k):
     assert ((gt - wt).abs() / wt.abs().clamp(min=1.0))[same].median().item() < 1e-6
 
 
+# tracking lanes per warp, from one to all 32: the layouts of the bounce's
+# NEE lanes (warps empty, sparse or full; chip_smoke.py's census counts
+# them) and of chip_smoke.py's sparse launches
+RATIO_PER_WARP = [1, 2, 3, 5, 8, 9, 16, 17, 32]
+
+
+def _per_warp_mask(eligible, counts, seed):
+    """A mask with counts[w % len(counts)] of the eligible lanes (or all of
+    them, if fewer) in each warp w of 32 consecutive lanes."""
+    r = np.random.default_rng(seed)
+    elig = eligible.cpu().numpy()
+    mask = np.zeros(elig.size, bool)
+    for w, w0 in enumerate(range(0, elig.size, 32)):
+        lanes = np.flatnonzero(elig[w0:w0 + 32]) + w0
+        want = min(counts[w % len(counts)], lanes.size)
+        mask[r.choice(lanes, want, replace=False)] = True
+    return torch.from_numpy(mask).to(eligible.device)
+
+
+def _ratio_both(args, k, max_steps=8192):
+    """(kernel's trans, iterations; the twin's trans, iterations)."""
+    from digital_earth_tpu_torch import kernels
+
+    got, iters = kernels.rmo_ratio_track(*args, max_steps=max_steps, k=k, iters=True)
+    trips = torch.zeros(args[0].shape[0], dtype=torch.int32, device=got.device)
+    want = tracers.ratio_track_rmo_plain(
+        *args, TraceConfig(tracking_k=k, max_tracking_steps=max_steps), trips=trips)
+    return got, iters, want, trips
+
+
 @pytest.mark.parametrize("k", [1, 3, 4, 8])
 @pytest.mark.parametrize("L", [1, 4])
 def test_rmo_ratio_track_kernel(case, k, L):
     """The gases' ratio tracker (the reference's sun transmittance) bit-equal
     to its twin on every lane, active or not, at one and four wavelengths,
-    each lane's iterations the twin's loop count."""
+    each lane's iterations the twin's loop count: on the case, and on a
+    ragged n with 1 ... 32 tracking lanes in a warp."""
     from digital_earth_tpu_torch import kernels
 
     dev = case["pos"].device
@@ -218,6 +249,51 @@ def test_rmo_ratio_track_kernel(case, k, L):
     _, iters = kernels.rmo_ratio_track(*args[:8], max_steps=8192, k=k, iters=True)
     assert torch.equal(iters, trips) and iters.max() > 1
     assert (got[~case["active"]] == 1.0).all() and got.min() < 0.5
+
+    n = N - 13
+    lanes = [a[:n].contiguous() for a in args[:7]]
+    valid = (lanes[4] >= 0.0) & (lanes[3] < lanes[4])
+    for per_warp in RATIO_PER_WARP:
+        tracking = _per_warp_mask(valid, [per_warp], per_warp)
+        got, iters, want, trips = _ratio_both((*lanes, tracking), k)
+        assert _bits_equal(got, want) and torch.equal(iters, trips)
+        assert torch.equal(iters > 0, tracking) and (got[~tracking] == 1.0).all()
+
+
+@pytest.mark.parametrize("k", [1, 3, 4, 8])
+@pytest.mark.parametrize("L", [1, 4])
+def test_rmo_ratio_track_kernel_edges(case, k, L):
+    """The ratio tracker's stops, bit-equal to its twin with its iterations,
+    in warps of 1 ... 32 active lanes on a ragged n: lanes with t_start at
+    or past t_max, with t_max < 0, whose first probe passes t_max (one
+    iteration, no factor), thick chords (extinctions x 300) that end on
+    the 1e-5 test, and max_steps 1 and 2, where the cap ends lanes."""
+    dev = case["pos"].device
+    n = 32 * 72 + 7
+    r = np.random.default_rng(10 * k + L)
+    kind = torch.from_numpy(r.integers(0, 5, n)).to(dev)
+    t0, t1 = pt._rmo_span(case["pos"][:n], case["dirs"][:n], torch.full((n,), -1.0, device=dev))
+    t0 = torch.where(kind == 1, t1 + torch.from_numpy(r.choice([0.0, 10.0], n)).float().to(dev), t0)
+    t1 = torch.where(kind == 2, torch.full_like(t1, -1.0), t1)
+    t0 = torch.where(kind == 3, 0.0, t0)
+    t1 = torch.where(kind == 3, 1e-4, t1)  # under a step's least, 0.002 m
+    ext = case["ext"][:n, :L] * torch.where(kind == 4, 300.0, 1.0)[:, None, None]
+    active = _per_warp_mask(torch.ones(n, dtype=torch.bool, device=dev), RATIO_PER_WARP, k)
+    args = (case["keys"][:n], case["pos"][:n].contiguous(), case["dirs"][:n].contiguous(), t0,
+            t1, ext.contiguous(), vol.max_extinction_rmo(ext), active)
+    full = None
+    for max_steps in (8192, 1, 2):
+        got, iters, want, trips = _ratio_both(args, k, max_steps)
+        assert _bits_equal(got, want) and torch.equal(iters, trips)
+        assert (iters[active & ((kind == 1) | (kind == 2))] == 0).all()
+        first = active & (kind == 3)
+        assert first.any() and (iters[first] == 1).all() and (got[first] == 1.0).all()
+        if max_steps == 8192:
+            full = iters
+            thick = active & (kind == 4) & (got.amax(-1) < 1e-5)
+            assert thick.any() and (iters[thick] < max_steps).all()
+        else:
+            assert iters.max() == max_steps and (full > max_steps).any()
 
 
 @pytest.mark.parametrize("k", TRACKING_KS)

@@ -262,3 +262,50 @@ def test_rmo_ratio_track_matches_jax(case, k, L):
     assert j.min() < 0.5 < j.max()  # thick and thin chords, as the case mixes them
     assert np.isclose(t, j, rtol=1e-4, atol=1e-6).mean() >= 0.99
     assert abs(t.mean() - j.mean()) < 1e-6
+
+
+# The stops the ratio tracker's kernel must keep (its card tests hold it bit
+# for bit against the twin there): the cap of max_tracking_steps cutting
+# lanes short, and lanes ending on the 1e-5 test (the extinctions of the
+# even near-terrain lanes scaled up, so the case mixes thick and thin
+# chords, and the thick ones end within a few dozen iterations).
+@pytest.mark.parametrize("k,L,max_steps,scale", [
+    (4, 4, 1, 1.0), (4, 4, 2, 1.0), (4, 1, 2, 1.0), (1, 4, 2, 1.0),
+    (4, 4, 8192, 300.0), (4, 1, 8192, 300.0), (3, 4, 8192, 300.0),
+])
+def test_rmo_ratio_track_stops_match_jax(case, k, L, max_steps, scale):
+    """The ratio tracker's twin against the reference's ``_ratio_track_rmo``
+    where its lanes stop on the iteration cap or on the transmittance test,
+    at the tolerance of ``test_rmo_ratio_track_matches_jax`` (the share of
+    values within rtol 1e-4, atol 1e-6 at least 0.99, the mean within
+    1e-6); each case reaches the stop it names."""
+    from digital_earth_tpu_torch.models import volume as tvol
+
+    t0, t1 = _rmo_spans(case)
+    thick = (np.arange(N) >= N // 2) & (np.arange(N) % 2 == 0)
+    ext = case["ext"][:, :L] * np.where(thick, scale, 1.0)[:, None, None]
+    ext = np.ascontiguousarray(ext, np.float32)
+    j_max = np.asarray(jnp.max(jnp.sum(jnp.asarray(ext) * jpt._MAX_DENS_RMO, -1), -1))
+    t_max = tvol.max_extinction_rmo(T(ext))
+    np.testing.assert_array_equal(t_max.numpy(), j_max)
+    j = np.asarray(jpt._ratio_track_rmo(
+        case["jkeys"], jnp.asarray(case["pos"]), jnp.asarray(case["dirs"]), jnp.asarray(t0),
+        jnp.asarray(t1), jnp.asarray(ext), jnp.asarray(j_max), jnp.asarray(case["active"]),
+        JaxConfig(tracking_k=k, max_tracking_steps=max_steps),
+    ))
+    args = (case["tkeys"], T(case["pos"]), T(case["dirs"]), T(t0), T(t1), T(ext), t_max,
+            T(case["active"]))
+    trips = torch.zeros(N, dtype=torch.int32)
+    t = tracers.ratio_track_rmo_plain(
+        *args, TraceConfig(tracking_k=k, max_tracking_steps=max_steps), trips=trips).numpy()
+    assert t.shape == j.shape == (N, L)
+    assert np.isclose(t, j, rtol=1e-4, atol=1e-6).mean() >= 0.99
+    assert abs(t.mean() - j.mean()) < 1e-6
+    trips = trips.numpy()
+    if max_steps < 8192:  # lanes the cap cut short of their end
+        full = torch.zeros(N, dtype=torch.int32)
+        tracers.ratio_track_rmo_plain(*args, TraceConfig(tracking_k=k), trips=full)
+        assert trips.max() == max_steps and (full.numpy() > max_steps).any()
+    else:  # lanes that ended on the transmittance test, before t_max
+        ended = (j.max(-1) < 1e-5) & (t.max(-1) < 1e-5)
+        assert ended.any() and (trips[ended] < max_steps).all()

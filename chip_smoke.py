@@ -114,6 +114,32 @@ at the end). Phases, each of which raises on failure (exit code 1):
    the card, each bit-equal to one ``Renderer`` spp at the estimator; s/spp
    of Apollo at the default, each option alone and all three, and of
    florida and sunset at the default and all three.
+8c. the scene and march options (``check_options``; OPTION_CASES: each of
+   ``enable_clouds``, ``enable_land``, ``bilinear_tracking``, ``lazy_march``,
+   ``march_exact_ocean``, ``march_ref_phantom`` and ``march_stall_patience``
+   alone on the scene its CPU test uses, all seven off their defaults on the
+   three scenes, and the five that act on land and clouds off their defaults
+   with land and clouds on, on florida and sunset; the stall patience alone
+   runs the default instances, which take it at run time): the options
+   instances' ptxas registers and spills and
+   resident warps beside the default instances'; the bounce entries' options
+   instances against their twin at bounces 0 and DEEP_BOUNCE and
+   ``bounce_window`` against ``run_window_plain`` from the bounce the frame
+   enters it, every lane bit-equal, timed beside the default instances on each
+   scene's default frame; each (L, RATIO) options instance forced at the
+   defaults bit-equal to the default instance at bounces 0 and DEEP_BOUNCE
+   (flight, shade and window) and timed beside it; the ``land_march`` launcher
+   at each march option and ``cloud_track`` with bilinear taps on phase 4's
+   arguments, under phase 7's gates (the default instances' there); the 480x270
+   preview frame at each march option under phase 11's gates and check (the
+   options instance, bit-equal); the path (``render_offline``, 3 spp) with all
+   seven on Apollo, then with the five on florida, under phase 6's gates,
+   every bounce launch the options instances'; s/spp of Apollo at each option
+   alone and with all seven, of florida and sunset with all seven and with
+   the five, each against its scene's default in five alternated rounds of 2
+   spp (the ratio's median and spread). Phase 8's sphere taps add the bilinear topography tap
+   at the march's probe points beside the nearest, its bound from its four
+   texels a tap and its SASS.
 
 The viewer's path (each run with the launch counts set to 0 just before it
 and read just after):
@@ -213,7 +239,12 @@ Last, since a profiler session can slow the launches after it:
     ``film_postprocess``), the device-busy share, ``preview``'s device time.
 
 The line before the last is the card's name and power limit; before it, one
-JSON line lists each kernel with its launches (``select_tiles`` makes two
+JSON line lists each kernel, and each options instance as
+``"<kernel>/options"`` (its launches from phase 8c's path with the five on
+florida, the preview's from its frame at ``bilinear_tracking``; the bounce
+entries' times with the five on florida, the launchers' and the preview's at
+``bilinear_tracking``; its bound the default row's bytes and operations,
+with the SASS's extra instructions a bilinear tap), with its launches (``select_tiles`` makes two
 per call, ``select_tiles_shard`` one per shard mean and one per shard
 selection, ``compact_lanes`` two (the scratch reset and the kernel),
 counted as one; ``upsample`` four per atlas, its times the four planes'
@@ -746,7 +777,7 @@ def sass_census(kernels, label="", funcs=None):
         out[what] = dict(ops=delta, pipes=pipes, total=total)
     out["tf"] = tf
     for key, pattern in (("threefry_uniform_kernel", "threefry_uniform_kernel"),
-                         ("bounce_flight", "bounce_flight_kernelILi4ELb0E")):
+                         ("bounce_flight", "bounce_flight_kernelILi4ELb0ELb0E")):
         name = next((n for n in funcs if pattern in n), None)
         if name is None:
             continue
@@ -1296,9 +1327,10 @@ def bounce_registers(kernels):
     registers and local bytes per thread and resident warps per SM
     (``kernels.bounce_occupancy``), and the spill stores and loads in bytes
     from ptxas's report of bounce.cu (the default instances: L = 4, the
-    closed-form transmittance) of ``<entry>_kernel<L>``, ``<entry>_kernel<L,
-    0>`` or ``<entry>_kernel<L, 0, 0>`` (not a census instance, ``<L, 1,
-    ...>``). None where this process did not build the kernels (no report);
+    closed-form transmittance, not the options instance) of
+    ``<entry>_kernel<L>`` with up to three more 0 arguments (not a census
+    instance, ``<L, 1, ...>``, nor an options instance, its last argument
+    1). None where this process did not build the kernels (no report);
     fails where it did and an entry's spill line is missing."""
     import re
 
@@ -1306,7 +1338,7 @@ def bounce_registers(kernels):
     entries = ptxas_entries(log)
     spills = {}
     for n in kernels.OCCUPANCY_ENTRIES:
-        name = next((k for k in entries if re.fullmatch(rf"{n}_kernel<\d+(?:,0){{0,2}}>", k)), None)
+        name = next((k for k in entries if re.fullmatch(rf"{n}_kernel<\d+(?:,0){{0,3}}>", k)), None)
         if name is not None and entries[name][1] is not None:
             spills[n] = tuple(entries[name][1:])
     if log and set(spills) != set(kernels.OCCUPANCY_ENTRIES):
@@ -1835,6 +1867,401 @@ def check_reference_estimator(torch, dev, atlas, luts, tf):
     return row, counts
 
 
+# The scene and march options (render/params.SCENE_OPTIONS): each alone on
+# the scene its CPU case uses (tests/test_torch_options.py), all seven off
+# their defaults on the three scenes, and the five that act on land and
+# clouds off their defaults with land and clouds on, on florida and sunset.
+# Without land and clouds the other five have nothing to act on: all seven
+# is the gases alone.
+FLORIDA = os.path.join(ROOT, "scenes", "config - florida.txt")
+SUNSET = os.path.join(ROOT, "scenes", "config - sunset hurricane.txt")
+MARCH_FIVE = dict(bilinear_tracking=True, lazy_march=False, march_exact_ocean=False,
+                  march_ref_phantom=False, march_stall_patience=0)
+ALL_SEVEN = dict(enable_clouds=False, enable_land=False, **MARCH_FIVE)
+OPTION_CASES = (("enable_clouds=False", dict(enable_clouds=False), SUNSET),
+                ("enable_land=False", dict(enable_land=False), FLORIDA),
+                ("bilinear_tracking=True", dict(bilinear_tracking=True), FLORIDA),
+                ("lazy_march=False", dict(lazy_march=False), SUNSET),
+                ("march_exact_ocean=False", dict(march_exact_ocean=False), FLORIDA),
+                ("march_ref_phantom=False", dict(march_ref_phantom=False), SUNSET),
+                ("march_stall_patience=0", dict(march_stall_patience=0), SUNSET))
+ALL_SEVEN_CASES = tuple(("all seven", ALL_SEVEN, s) for s in (SCENE, FLORIDA, SUNSET))
+FIVE_LABEL = "five with land and clouds"
+FIVE_CASES = tuple((FIVE_LABEL, MARCH_FIVE, s) for s in (FLORIDA, SUNSET))
+# the march's options, for the land_march launcher and the preview
+MARCH_OPTIONS = tuple(c for c in OPTION_CASES if c[0].split("=")[0] in (
+    "enable_land", "bilinear_tracking", "march_exact_ocean", "march_ref_phantom",
+    "march_stall_patience")) + FIVE_CASES[:1]
+# the (L, RATIO) sets of the bounce entries
+ENTRY_SETS = (("L = 4, closed form", {}), ("L = 1, closed form", dict(hero_lambdas=1)),
+              ("L = 4, ratio", dict(analytic_transmittance=False)),
+              ("L = 1, ratio", dict(hero_lambdas=1, analytic_transmittance=False)))
+# the options instances' sources: the bounce entries' sets, and the march
+# and cloud launchers' and the preview's (beside their default instances)
+OPTIONS_SOURCES = ("bounce_opts.cu", "bounce_l1_opts.cu", "bounce_ratio_opts.cu",
+                   "bounce_l1_ratio_opts.cu", "land_march.cu", "cloud_track.cu", "preview.cu")
+
+
+def takes_options(options):
+    """Whether a launch at ``options`` runs the options instance: a flag off
+    its default (every instance takes the stall patience)."""
+    return any(name != "march_stall_patience" for name in options)
+
+
+def _one_launch(fn, options, run, what):
+    """``run()``, failing unless it made one launch of ``fn``, of its
+    options instance exactly when ``takes_options(options)``."""
+    before = fn.launches, fn.options_launches
+    out = run()
+    made = fn.launches - before[0], fn.options_launches - before[1]
+    if made != (1, int(takes_options(options))):
+        fail(f"{what}: {made[0]} launches of {fn.__name__}, {made[1]} of its options instance")
+    return out
+
+
+def options_registers(kernels):
+    """ptxas's registers and spill bytes of every options instance (its
+    template's last argument 1, or the bounce sets' sources), printed with
+    the default instances' beside them, and the resident warps of the
+    options bounce entries and preview. {source: {entry: [regs, stores,
+    loads]}}."""
+    out = {}
+    for src in OPTIONS_SOURCES + ("bounce.cu",):
+        entries = ptxas_entries(kernels.ptxas_log.get(src, ""))
+        out[src] = entries
+        for name, (regs, stores, loads) in sorted(entries.items()):
+            print(f"ptxas {src} {name}: {regs} registers, spill stores {stores} B, loads {loads} B")
+    for name in kernels.OCCUPANCY_ENTRIES:
+        d, o = kernels.bounce_occupancy(name), kernels.bounce_occupancy(name, options=True)
+        print(f"occupancy {name}: default {d['registers']} registers, {d['warps_per_sm']} warps "
+              f"per SM; options instance {o['registers']} registers, {o['local_bytes']} B local, "
+              f"{o['warps_per_sm']} warps per SM")
+    d, o = kernels.preview_occupancy(), kernels.preview_occupancy(options=True)
+    print(f"occupancy preview: default {d['registers']} registers, {d['warps_per_sm']} warps per "
+          f"SM; options instance {o['registers']} registers, {o['local_bytes']} B local, "
+          f"{o['warps_per_sm']} warps per SM")
+    return out
+
+
+def bilinear_tap_extra(kernels):
+    """The SASS instructions a bilinear 4-channel sphere tap adds to a
+    nearest one (the main bodies of the sphere_tap launcher's two
+    instances, csrc/texture_check.cu): the lerps and the three more texels'
+    addresses, counted as operations per bilinear tap."""
+    funcs = sass_functions(kernels.library()._name)
+    body = {}
+    for b in (0, 1):
+        name = next((f for f in funcs if f"sphere_tap_kernelILi4ELb{b}E" in f), None)
+        if name is None:
+            fail(f"the disassembly has no 4-channel sphere_tap instance <4, {b}>")
+        body[b] = sass_main_body(funcs[name])
+    extra = len(body[1]) - len(body[0])
+    print(f"sphere tap SASS: nearest {len(body[0])}, bilinear {len(body[1])} instructions: "
+          f"{extra} more a bilinear tap (counted as operations in the options rows' bounds)")
+    return extra, body
+
+
+def _option_probes(torch, trips, march_k):
+    """The texture taps a floor counts in a bounce's census ``trips``: the
+    march sites' probes and one a cloud iteration (sites 1 and 5)."""
+    t = trips.to(torch.float64)
+    march = sum(float(site_probes(torch, t[:, s], march_k).sum()) for s in MARCH_SITES)
+    return march + float(t[:, 1].sum() + t[:, 5].sum())
+
+
+def check_options(torch, dev, atlas, luts, captured, tf):
+    """The scene and march options (OPTION_CASES, ALL_SEVEN_CASES,
+    FIVE_CASES), at 1920x1080 on ``atlas``: the options instances' registers
+    and spills; the bounce entries' instances the options take against their
+    twin at bounces 0 and DEEP_BOUNCE, and bounce_window against
+    run_window_plain from the bounce the frame enters it, every lane
+    bit-equal; each (L, RATIO) options instance forced at the defaults
+    bit-equal to the default instance (and timed beside it); the land_march
+    and cloud_track launchers at the options on phase 4's arguments
+    (``captured``) against their twins under phase 7's gates, as their
+    default instances (their bit-equality printed); preview at the march
+    options against march_paths_plain (phase 11's check); the path
+    (``render_offline``, 3 spp) with all seven on Apollo 11 and with the five
+    on florida under phase 6's gates, every bounce launch the options
+    instance's; s/spp at each option against its scene's default
+    (``spp_ratio``). Returns (the JSON rows of the options instances, named
+    "<kernel>/options"; the launch counts of the path with the five; the
+    preview frame's at bilinear_tracking)."""
+    from digital_earth_tpu_torch import kernels
+    from digital_earth_tpu_torch.app.config_io import load_config
+    from digital_earth_tpu_torch.app.viewer import render_offline
+    from digital_earth_tpu_torch.render import pathtracer as pt
+    from digital_earth_tpu_torch.render import tracers
+    from digital_earth_tpu_torch.render.params import TraceConfig
+
+    card = nvidia_smi_line()
+    options_registers(kernels)
+    extra, _ = bilinear_tap_extra(kernels)
+    rows = {}
+    # the default instances' times on each scene's default bounce 0, beside
+    # the options instances' below
+    default_ms = {}
+    for scene in (SCENE, FLORIDA, SUNSET):
+        states, _, _ = capture_states(torch, dev, atlas, luts, bounces=(0,), scene=scene)
+        c = states[0]
+        frame = pt.BounceFrame(c["st"], *c["args"])
+        ka = lambda s: pt._kernel_args(s, c["idx"], 0, *c["args"], frame)  # noqa: E731
+        flight = kernels.bounce_flight(*ka(_clone_state(c["st"])))
+        default_ms[scene] = (_bounce_ms(torch, c["st"], lambda s: kernels.bounce_flight(*ka(s))),
+                             _bounce_ms(torch, c["st"],
+                                        lambda s: kernels.bounce_shade(*ka(s), flight=flight)))
+        del states, flight
+    for label, options, scene in OPTION_CASES + ALL_SEVEN_CASES + FIVE_CASES:
+        name = f"{os.path.basename(scene)[9:-4]}"
+        cfg = TraceConfig(**options)
+        states, _, _ = capture_states(torch, dev, atlas, luts, scene=scene, cfg=cfg)
+        if 0 not in states:
+            fail(f"options {label} {name}: the frame has no bounce 0")
+        for b in (0, DEEP_BOUNCE):
+            if b not in states:
+                print(f"options {label} {name}: no live lane at bounce {b}")
+                continue
+            c = states[b]
+            got, want, trips, _ = _bounce_and_twin(torch, c, b)
+            _hold_lanes(torch, got, want, c["st"].work_class[c["idx"].long()],
+                        f"options {label} {name} bounce {b}", exact=True)
+            if not cfg.lazy_march and bool(trips[:, 3].any()):
+                fail(f"options {label} {name} bounce {b}: a march after the flight")
+            if b != 0:
+                continue
+            idx, st0, args = c["idx"], c["st"], c["args"]
+            frame = pt.BounceFrame(st0, *args)
+            ka = lambda s: pt._kernel_args(s, idx, 0, *args, frame)  # noqa: E731
+            flight = _one_launch(kernels.bounce_flight, options,
+                                 lambda: kernels.bounce_flight(*ka(_clone_state(st0))),
+                                 f"options {label} {name}")
+            t_f = _bounce_ms(torch, st0, lambda s: kernels.bounce_flight(*ka(s)))
+            t_s = _bounce_ms(torch, st0, lambda s: kernels.bounce_shade(*ka(s), flight=flight))
+            _, plain_ms = _plain_ms(torch, lambda: pt.run_bounce_plain(st0.take(idx.long()), 0,
+                                                                        *args))
+            d_f, d_s = default_ms[scene]
+            m = idx.numel()
+            probes = _option_probes(torch, trips, cfg.march_k) if cfg.bilinear_tracking else 0.0
+            print(f"options {label} {name} bounce 0 ({m} lanes, {card}): bounce_flight "
+                  f"{t_f:.3f} ms, bounce_shade {t_s:.3f} ms "
+                  f"({'options' if takes_options(options) else 'default'} instances); the default "
+                  f"instances at the default config on the same scene {d_f:.3f}, {d_s:.3f} ms; "
+                  f"twin {plain_ms:.1f} ms; census taps {probes:.0f}")
+            if label == FIVE_LABEL and "bounce_flight/options" not in rows:
+                print(f"the options rows of bounce_flight and bounce_shade: {label} {name}")
+                for part, ms in (("flight", t_f), ("shade", t_s)):
+                    other, alu, fma = bounce_ops(torch, trips, cfg.march_k, cfg.tracking_k, tf,
+                                                 part)
+                    half = trips.clone()  # the part's own sites: 0-3 the flight's
+                    if part == "flight":
+                        half[:, 4:] = 0
+                    else:
+                        half[:, :4] = 0
+                    taps = _option_probes(torch, half, cfg.march_k)
+                    nbytes = ((40 + 16) * m if part == "flight" else (BOUNCE_LANE_BYTES + 16) * m)
+                    # the lanes' bytes as the default rows count them (the
+                    # textures' texels not counted), and the bilinear taps'
+                    # extra instructions
+                    rows[f"bounce_{part}/options"] = dict(
+                        max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bytes=nbytes,
+                        ops=other + alu + fma + extra * taps, int_ops=alu, fma_ops=fma)
+        # the window from the bounce at which the frame enters it
+        bounces = sorted(states)
+        n = states[0]["st"].alive.numel()
+        counts = [states[b]["idx"].numel() for b in bounces] + [0]
+        _, wb = pt.bounce_schedule(n, counts, kernels.window_threshold(dev), 0, cfg.max_bounces)
+        if wb is not None and wb in states:
+            c = states[wb]
+            idx, st0, args = c["idx"], c["st"], c["args"]
+            frame = pt.BounceFrame(st0, *args)
+            st = _clone_state(st0)
+            _one_launch(kernels.bounce_window, options,
+                        lambda: pt.run_window(st, idx, wb, cfg.max_bounces, *args, frame),
+                        f"options {label} {name} bounce_window")
+            twin = _clone_state(st0)
+            t0 = time.time()
+            pt.run_window_plain(twin, idx, wb, cfg.max_bounces, *args)
+            torch.cuda.synchronize()
+            w_plain = (time.time() - t0) * 1e3
+            lanes = idx.long()
+            _hold_lanes(torch, st.take(lanes), twin.take(lanes), st0.work_class[lanes],
+                        f"options {label} {name} bounce_window from bounce {wb}", exact=True)
+            w_ms = _bounce_ms(torch, st0, lambda s: pt.run_window(s, idx, wb, cfg.max_bounces,
+                                                                    *args, frame))
+            print(f"options {label} {name} bounce_window from bounce {wb} ({idx.numel()} lanes, "
+                  f"{card}): {w_ms:.3f} ms; twin {w_plain:.1f} ms")
+            if label == FIVE_LABEL and "bounce_window/options" not in rows:
+                print(f"the options row of bounce_window: {label} {name}")
+                rows["bounce_window/options"] = dict(max_abs_err=0.0, ms=w_ms, plain_ms=w_plain,
+                                                     bytes=BOUNCE_LANE_BYTES * idx.numel(),
+                                                     ops=None)
+        else:
+            print(f"options {label} {name}: the frame does not enter the window (live counts "
+                  f"{counts[:-1]})")
+        del states
+
+    # each (L, RATIO) options instance forced at the defaults
+    for label, options in ENTRY_SETS:
+        states, _, _ = capture_states(torch, dev, atlas, luts, bounces=(0, DEEP_BOUNCE),
+                                      cfg=TraceConfig(**options))
+        for b, c in sorted(states.items()):
+            idx, st0, args = c["idx"], c["st"], c["args"]
+            frame = pt.BounceFrame(st0, *args)
+            ka = lambda s: pt._kernel_args(s, idx, b, *args, frame)  # noqa: E731
+            f1 = kernels.bounce_flight(*ka(_clone_state(st0)), options=True)
+            f0 = kernels.bounce_flight(*ka(_clone_state(st0)))
+            same = {"flight": torch.equal(f1.view(torch.int32), f0.view(torch.int32))}
+            got, want = _clone_state(st0), _clone_state(st0)
+            kernels.bounce_shade(*ka(got), flight=f0, options=True)
+            kernels.bounce_shade(*ka(want), flight=f0)
+            same["shade"] = _states_equal(torch, got, want)
+            got, want = _clone_state(st0), _clone_state(st0)
+            stop = args[3].max_bounces
+            kernels.bounce_window(*ka(got), stop=stop, options=True)
+            kernels.bounce_window(*ka(want), stop=stop)
+            same["window"] = _states_equal(torch, got, want)
+            t = {o: (_bounce_ms(torch, st0, lambda s: kernels.bounce_flight(*ka(s), options=o)),
+                     _bounce_ms(torch, st0, lambda s: kernels.bounce_window(*ka(s), stop=stop,
+                                                                            options=o)))
+                 for o in (False, True)}
+            print(f"options instance at the defaults, {label}, Apollo 11 bounce {b} "
+                  f"({idx.numel()} lanes, {card}): bit-equal to the default instance "
+                  f"{same}; bounce_flight {t[True][0]:.3f} ms (default {t[False][0]:.3f}), "
+                  f"bounce_window from here {t[True][1]:.3f} ms (default {t[False][1]:.3f})")
+            del f0, f1, got, want
+            if not all(same.values()):
+                fail(f"the options instance at the defaults ({label}, bounce {b}) parts from "
+                     f"the default instance: {same}")
+        del states
+
+    # the launchers at the options on phase 4's arguments
+    for (kind, b), (n_act, args, kwargs) in sorted(captured.items()):
+        base = kind.split("/")[0]
+        if base == "land_march":
+            cases = [(label, o) for label, o, _ in MARCH_OPTIONS]
+        elif base == "cloud_track":
+            cases = [("bilinear_tracking=True", dict(bilinear_tracking=True))]
+        else:
+            continue
+        at = 5 if base == "land_march" else 8
+        for label, options in cases:
+            a = args[:at] + (TraceConfig(**options),) + args[at + 1:]
+            kern, plain = ((tracers.intersect_land, tracers.intersect_land_plain)
+                           if base == "land_march" else
+                           (tracers.track_cloud, tracers.track_cloud_plain))
+            fn = getattr(kernels, base)
+            before = fn.launches, fn.options_launches
+            got, ms = _time_ms(torch, lambda: kern(*a, **kwargs), 5)
+            if (fn.launches - before[0], fn.options_launches - before[1]) != (
+                    6, 6 * takes_options(options)):
+                fail(f"{kind} at {label}: not the instance its options take")
+            want, plain_ms = _plain_ms(torch, lambda: plain(*a, **kwargs))
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            same = all(torch.equal(g.view(torch.int32), w.view(torch.int32))
+                       for g, w in zip(got, want))
+            err = max(float((g.float() - w.float()).abs().max()) if g.numel() else 0.0
+                      for g, w in zip(got, want))
+            # phase 7's gates of the default instances (compare_kernels)
+            if base == "land_march":
+                kh, ph = got[0] >= 0, want[0] >= 0
+                lane_ok = (kh == ph) & (~(kh & ph) | _t_close(torch, got[0], want[0]))
+            elif kind == "cloud_track/ratio":
+                lane_ok = (got[0] - want[0]).abs() <= RATIO_ATOL + RATIO_RTOL * want[0].abs()
+            else:
+                ev = (got[0] == want[0]) & (want[0] > 0)
+                lane_ok = (got[0] == want[0]) & (~ev | _t_close(torch, got[1], want[1]))
+            ok = lane_ok.float().mean().item() >= MIN_LANE_AGREEMENT
+            print(f"{kind} options instance at {label}, bounce {b} ({got[0].numel()} lanes, "
+                  f"{n_act} active, {card}): bit-equal {same}, max abs err {err:.3e}; kernel "
+                  f"{ms:.3f} ms, plain {plain_ms:.1f} ms  {'ok' if ok else 'FAIL'}")
+            if not ok:
+                fail(f"{kind} at {label} parts from its twin")
+            if b == 0 and label == "bilinear_tracking=True":
+                row = rows.setdefault(f"{base}/options", dict(max_abs_err=0.0, ms=0.0,
+                                                              plain_ms=0.0, bytes=0, ops=None))
+                row["max_abs_err"] = max(row["max_abs_err"], err)
+                row["ms"] += ms
+                row["plain_ms"] += plain_ms
+                n = a[1].shape[0]
+                row["bytes"] += (a[0].numel() + 33 * n if base == "land_march"
+                                 else a[6].numel() + 45 * n + (4 if "ratio" in kind else 8) * n)
+                if base == "cloud_track":
+                    trips = torch.zeros(n, dtype=torch.int32, device=dev)
+                    plain(*a, **kwargs, trips=trips)
+                    other, int_ops, fma_ops = tracker_ops(torch, trips, a[8].tracking_k, 1, tf)
+                    row["ops"] = ((row["ops"] or 0.0) + other + int_ops + fma_ops
+                                  + extra * float(trips.sum()))
+                    row["int_ops"] = row.get("int_ops", 0.0) + int_ops
+                    row["fma_ops"] = row.get("fma_ops", 0.0) + fma_ops
+
+    # the preview at the march options, phase 11's check on the options instance
+    preview_counts = None
+    for label, options, _ in MARCH_OPTIONS:
+        counts, prow, _ = preview_frame(torch, dev, atlas, luts, f"at {label}",
+                                        cfg=TraceConfig(**options))
+        if counts["preview/options"] != counts["preview"] * takes_options(options):
+            fail(f"the preview frame at {label} did not launch the instance its options take: "
+                 f"{counts}")
+        if label == "bilinear_tracking=True":
+            rows["preview/options"] = prow["preview"]
+            preview_counts = counts
+
+    # the path with all seven off their defaults on Apollo 11, then with the
+    # five on florida (land and clouds on: the launches the kernels line
+    # reports)
+    for label, options, scene in (("all seven", ALL_SEVEN, SCENE), FIVE_CASES[0]):
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        r = render_offline(load_config(scene), dev, spp=1, image_res=RES, out_path=None,
+                           atlas=atlas, luts=luts, cfg=TraceConfig(**options))
+        for _ in range(2):
+            r.accumulate()
+        img = r.fetch_image()
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        check_main_path(torch, counts, r, img, f"{label} options' path on "
+                        f"{os.path.basename(scene)[9:-4]}")
+        if any(counts[f"{k}/options"] != counts[k] for k in
+               ("bounce_flight", "bounce_shade", "bounce_window")):
+            fail(f"a bounce launch of the options path ran the default instance: {counts}")
+        del r, img
+
+    # s/spp in this call, each configuration against its scene's default in
+    # alternation
+    runs = [(SCENE, label, o) for label, o, _ in OPTION_CASES + ALL_SEVEN_CASES[:1]]
+    runs += [(s, label, o) for s in (FLORIDA, SUNSET)
+             for label, o in (("all seven", ALL_SEVEN), (FIVE_LABEL, MARCH_FIVE))]
+    for scene, label, options in runs:
+        make = lambda o: render_offline(load_config(scene), dev, spp=1, image_res=RES,  # noqa: E731
+                                        out_path=None, atlas=atlas, luts=luts,
+                                        cfg=TraceConfig(**o))
+        d, o, ratios = spp_ratio(torch, make({}), make(options))
+        print(f"options s/spp {os.path.basename(scene)[9:-4]} {RES[0]}x{RES[1]} {label}: "
+              f"{o:.5f} against the default's {d:.5f}, ratio median "
+              f"{ratios[len(ratios) // 2]:.3f} (min-max {ratios[0]:.3f}-{ratios[-1]:.3f} over "
+              f"{len(ratios)} alternated rounds of {SPP_RATIO_STEPS} spp; {card})")
+    return rows, counts, preview_counts
+
+
+SPP_RATIO_ROUNDS, SPP_RATIO_STEPS = 5, 2
+
+
+def spp_ratio(torch, default, other):
+    """s/spp of the renderers ``default`` and ``other``, each warmed with one
+    spp (render_offline's), then timed in SPP_RATIO_ROUNDS alternated rounds
+    of SPP_RATIO_STEPS spp each: (the default's median s/spp, the other's,
+    each round's ratio other / default, sorted)."""
+    import statistics
+
+    t = ([], [])
+    for _ in range(SPP_RATIO_ROUNDS):
+        for times, r in zip(t, (default, other)):
+            times.append(_spp_seconds(torch, r, SPP_RATIO_STEPS))
+    return (statistics.median(t[0]), statistics.median(t[1]),
+            sorted(b / a for a, b in zip(*t)))
+
+
 def check_window(torch, states, table):
     """bounce_window against run_window_plain from the bounce at which the
     captured Apollo frame enters the window (bounce_schedule at
@@ -2180,7 +2607,9 @@ def check_texture(torch, lookups, atlas, march_probes=0):
     the SASS of the launcher's nearest instance: its atan2f, asinf,
     divisions and conversions, the divisions' slow paths left out) and the
     launcher's (that and its 12 B point read and 16 B tap written a probe).
-    A dict."""
+    Then the bilinear tap at the same points (the options instances' march
+    taps at bilinear_tracking), its bound from its four texels a tap (the
+    distinct ones) and its instance's SASS. A dict."""
     from digital_earth_tpu_torch import kernels
     from digital_earth_tpu_torch.ops import texture as tx
 
@@ -2240,6 +2669,37 @@ def check_texture(torch, lookups, atlas, march_probes=0):
           f"{launcher_bytes / PEAK_BYTES * 1e3:.4f} ms of bytes)")
     if not err <= TAP_ATOL:
         fail("the nearest sphere tap disagrees with the twin at the march's probes")
+    # the bilinear tap (the options instances' march taps) at the same points:
+    # its four texels a tap, the distinct ones read once, and its SASS body
+    bil = sass_main_body(funcs[next((f for f in funcs if "sphere_tap_kernelILi4ELb1E" in f),
+                                    name)])
+    corners, fetch = [], tx.fetch_texel
+
+    def corner_fetch(tex_, iy, ix):
+        corners.append((iy * tex_.shape[1] + ix).reshape(-1))
+        return fetch(tex_, iy, ix)
+
+    tx.fetch_texel = corner_fetch
+    try:
+        want_b = tx.sample_sphere_texture(tex, pos, bilinear=True)
+    finally:
+        tx.fetch_texel = fetch
+    got_b, ms_b = _time_ms(torch, lambda: kernels.sphere_tap(tex, pos, True), 5)
+    graph_b = _graph_ms(torch, lambda: kernels.sphere_tap(tex, pos, True))
+    err_b = (got_b - want_b).abs().max().item()
+    distinct_b = int(torch.unique(torch.cat(corners)).numel())
+    del corners, want_b, got_b
+    ops_b, per_pipe_b, count_b = sass_ops_bound(bil, p)
+    bil_ms, bil_by = max((4 * distinct_b / PEAK_BYTES * 1e3, "bytes"), (ops_b, "operations"))
+    print(f"sphere tap topography bilinear at the same {p} march probes ({nvidia_smi_line()}): "
+          f"{distinct_b} distinct texels of their four a tap; max abs err {err_b:.3e}; "
+          f"{ms_b:.4f} ms per call, {graph_b:.4f} ms on the device (the nearest tap "
+          f"{graph_ms:.4f}); the tap's bound {bil_ms:.4f} ms ({bil_by}; texels "
+          f"{4 * distinct_b / PEAK_BYTES * 1e3:.5f}, the SASS body's {len(bil)} instructions a "
+          f"tap ({len(bil) - len(body)} more than the nearest's) by pipe {count_b} ("
+          + ", ".join(f"{pp} {t:.4f}" for pp, t in per_pipe_b.items()) + " ms))")
+    if not err_b <= TAP_ATOL:
+        fail("the bilinear sphere tap disagrees with the twin at the march's probes")
     return dict(probes=p, floor_probes=march_probes, distinct_texels=distinct, ms=ms,
                 graph_ms=graph_ms, bound_ms=tap_ms, bound_by=tap_by, launcher_bound_ms=launcher_ms,
                 pipes=count, body=len(body))
@@ -2431,18 +2891,20 @@ def check_film(torch, buf, crf_curves):
     return row
 
 
-def preview_frame(torch, dev, atlas, luts, label=""):
+def preview_frame(torch, dev, atlas, luts, label="", cfg=None):
     """The preview frame at 480x270: one accumulate() under
     torch.cuda.set_sync_debug_mode("error") (it may make no synchronizing
     call), then 3 warm frames timed with their launches counted (``preview``
     once, ``atmos_march`` and ``land_march`` never); then ``check_preview``
-    on the frame's own lanes. Returns (launch counts of one frame, JSON rows
-    of ``preview`` and ``atmos_march``, the frame_end arguments)."""
+    on the frame's own lanes (at the TraceConfig ``cfg``, default the
+    default). Returns (launch counts of one frame, JSON rows of ``preview``
+    and ``atmos_march``, the frame_end arguments)."""
     from digital_earth_tpu_torch import kernels
     from digital_earth_tpu_torch.render import raymarcher
     from digital_earth_tpu_torch.render.renderer import Renderer
 
-    r = _apollo(Renderer(dev, image_res=PREVIEW_RES, atlas=atlas, luts=luts, mode="preview"))
+    r = _apollo(Renderer(dev, image_res=PREVIEW_RES, atlas=atlas, luts=luts, mode="preview",
+                         **({} if cfg is None else {"cfg": cfg})))
     march = {}
     original = raymarcher.march_paths
 
@@ -2548,13 +3010,14 @@ def check_preview(torch, args, kwargs, launches, where):
         fail(f"the twin did not run three bounces: {len(atmos_args)} marches")
     n = want.numel()
     got, ms = _time_ms(torch, launch, 5)
-    occ = kernels.preview_occupancy()
+    options = takes_options(cfg.options())  # the options instance has no census
+    occ = kernels.preview_occupancy(options=options)
     same = torch.equal(got.view(torch.int32), want.view(torch.int32))
     err = (got - want).abs().max().item()
     # the split of the kernel's time, by the test launchers on the same lanes
     march_ms = sum(_time_ms(torch, lambda a=a: raymarcher.ray_march_atmos(*a), 5)[1]
                    for a in atmos_args)
-    from digital_earth_tpu_torch.render.tracers import _MARCH_STALL_PATIENCE, _march_floor
+    from digital_earth_tpu_torch.render.tracers import _march_floor, march_options
 
     step_floor, stall = _march_floor(atlas.topography, cfg)
     no_cap = torch.full((n,), float("inf"), device=dirs.device)
@@ -2563,7 +3026,7 @@ def check_preview(torch, args, kwargs, launches, where):
         topo, p, d, _, act = a[:5]
         return kernels.land_march(topo, p, d, act, no_cap, frame.fparams[0], step_floor=step_floor,
                                   stall_thresh=stall, steps=cfg.land_march_steps, k=cfg.march_k,
-                                  patience=_MARCH_STALL_PATIENCE, any_hit=False)
+                                  any_hit=False, **march_options(cfg))
 
     land_ms = sum(_time_ms(torch, lambda a=a: land_march(a), 5)[1] for a, _ in land_args)
     active = [int(a[-1].sum()) for a in atmos_args]
@@ -2588,6 +3051,13 @@ def check_preview(torch, args, kwargs, launches, where):
     print(f"preview{where} time split (the launchers on the same lanes): the march "
           f"{march_ms:.3f} ms, the land and shadow marches {land_ms:.3f} ms, the rest "
           f"{ms - march_ms - land_ms:.3f} ms of {ms:.3f}")
+    if not same:
+        fail(f"the preview kernel differs from march_paths_plain{where}")
+    rows = dict(preview=dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bytes=nbytes, ops=ops,
+                             sfu=sfu),
+                atmos_march=dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0))
+    if options:
+        return rows
     # the census instance: each lane's clock64 cycles in its land and shadow
     # marches, in the march and in all; its output must keep the bits
     got_c, cycles = launch(census=True)
@@ -2601,11 +3071,6 @@ def check_preview(torch, args, kwargs, launches, where):
           f"radiance bit-equal {census_same}")
     if not census_same:
         fail(f"the preview census instance differs from march_paths_plain{where}")
-    if not same:
-        fail(f"the preview kernel differs from march_paths_plain{where}")
-    rows = dict(preview=dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bytes=nbytes, ops=ops,
-                             sfu=sfu),
-                atmos_march=dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0))
     row = rows["atmos_march"]
     occ = kernels.atmos_march_occupancy()
     for b, a in enumerate(atmos_args):
@@ -4102,6 +4567,15 @@ def main():
     del states, deepest, lookups, census, table
     check_window_spp(torch, dev, atlas, luts, schedule)
     rows["rmo_ratio_track"], _ = check_reference_estimator(torch, dev, atlas, luts, tf)
+    option_rows, option_counts, option_preview = check_options(torch, dev, atlas, luts,
+                                                               captured, tf)
+    missing = {f"{k}/options" for k in ("land_march", "cloud_track", "bounce_flight",
+                                        "bounce_shade", "bounce_window", "preview")}
+    missing -= set(option_rows)
+    if missing:
+        fail(f"the options phase measured no row for {sorted(missing)}")
+    rows.update(option_rows)
+    del captured
 
     # --- the viewer's path -------------------------------------------------
     rows["gen_rays"] = check_gen_rays(torch, dev, atlas, luts, tf)
@@ -4213,15 +4687,29 @@ def main():
         "preview": ("cuda", "digital_earth_tpu_torch/csrc/preview.cu",
                     "digital_earth_tpu/render/raymarcher.py:91"),
     }
+    # the options instances (TraceConfig's scene and march options read at
+    # run time), each beside its default instance: the bounce entries' set
+    # of L = 4 and the closed form in its own source
+    for name in ("land_march", "cloud_track", "preview"):
+        sources[f"{name}/options"] = sources[name]
+    for name in ("bounce_flight", "bounce_shade", "bounce_window"):
+        sources[f"{name}/options"] = ("cuda", "digital_earth_tpu_torch/csrc/bounce_opts.cu",
+                                      sources[name][2])
     # launches: the main path's run (0 for the trackers, whose loops run
     # inside bounce there, and for atmos_march, whose loop runs inside
     # preview), or for preview the preview frame's run, for select_tiles the
     # adaptive run's, for select_tiles_shard the mesh run's, for upsample the
     # tier-2 run's (its atlas and render)
+    # the options instances' from the path with the five on florida (the
+    # preview's from its frame at bilinear_tracking)
     launches = dict(counts, preview=preview_counts["preview"],
                     select_tiles=adaptive_counts["select_tiles"],
                     select_tiles_shard=mesh_counts["select_tiles_shard"],
-                    upsample=tier2_counts["upsample"])
+                    upsample=tier2_counts["upsample"],
+                    **{f"{k}/options": option_counts[f"{k}/options"] for k in
+                       ("land_march", "cloud_track", "bounce_flight", "bounce_shade",
+                        "bounce_window")},
+                    **{"preview/options": option_preview["preview/options"]})
     entries = []
     for name, (route, src, rep) in sources.items():
         row = rows[name]

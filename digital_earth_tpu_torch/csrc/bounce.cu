@@ -3,15 +3,20 @@
 // device code and the launchers are in bounce.cuh, which says what the
 // entries compute, what bounds them on the H100 and how they are built: the
 // other instances are in bounce_l1.cu, bounce_ratio.cu and
-// bounce_l1_ratio.cu. A launch takes the instance its parameters ask for
-// (ip[0], ip[15]).
+// bounce_l1_ratio.cu, and the options instances in their *_opts.cu twins. A
+// launch takes the instance its parameters ask for (ip[0], ip[15], ip[22]).
 #include "bounce.cuh"
 
 namespace de {
 
-DE_BOUNCE_INSTANCE(4, false);
+DE_BOUNCE_INSTANCE(4, false, false);
+template int entry_occupancy<false>(int, int*);
 
-static int unpack_params(const float* fp, const int* ip, BounceParams& p) {
+static bool is_flag(int v) { return v == 0 || v == 1; }
+
+// The parameters, the options and whether the options instance runs.
+static int unpack_params(const float* fp, const int* ip, BounceParams& p, BounceOptions& o,
+                         bool& opts) {
   p.scale = fp[0];
   p.step_floor = fp[1];
   p.stall_thresh = fp[2];
@@ -42,19 +47,39 @@ static int unpack_params(const float* fp, const int* ip, BounceParams& p) {
   p.clouds_h = ip[13];
   p.clouds_w = ip[14];
   p.ratio = ip[15];
-  if (p.ratio != 0 && p.ratio != 1) return (int)cudaErrorInvalidValue;
+  if (!is_flag(p.ratio)) return (int)cudaErrorInvalidValue;
+  o.enable_clouds = ip[16];
+  o.mo = MarchOpts{ip[17], ip[18], ip[20], ip[21]};
+  o.lazy_march = ip[19];
+  opts = ip[22] != 0;
+  for (int j = 16; j <= 22; ++j) {
+    if (!is_flag(ip[j])) return (int)cudaErrorInvalidValue;
+  }
+  // the default instances run the options' defaults only
+  const bool defaults = o.enable_clouds == 1 && o.mo.enable == 1 && o.mo.bilinear == 0 &&
+                        o.lazy_march == 1 && o.mo.exact_ocean == 1 && o.mo.ref_phantom == 1;
+  if (!opts && !defaults) return (int)cudaErrorInvalidValue;
   return 0;
 }
 
-// Launch an entry at the width and transmittance the parameters ask for.
-static int launch_bounce(int entry, const BounceState& s, const BounceParams& p, void* scratch,
-                         int stop, cudaStream_t stream) {
+// Launch an entry at the width and transmittance the parameters ask for,
+// its options instance where they ask for it.
+template <bool OPTS>
+static int launch_bounce(int entry, const BounceState& s, const BounceParams& p,
+                         const BounceOptions& o, void* scratch, int stop, cudaStream_t stream) {
   if (p.n_lambdas == 4) {
-    return p.ratio ? launch_entry<4, true>(entry, s, p, scratch, stop, stream)
-                   : launch_entry<4, false>(entry, s, p, scratch, stop, stream);
+    return p.ratio ? launch_entry<4, true, OPTS>(entry, s, p, o, scratch, stop, stream)
+                   : launch_entry<4, false, OPTS>(entry, s, p, o, scratch, stop, stream);
   }
-  return p.ratio ? launch_entry<1, true>(entry, s, p, scratch, stop, stream)
-                 : launch_entry<1, false>(entry, s, p, scratch, stop, stream);
+  return p.ratio ? launch_entry<1, true, OPTS>(entry, s, p, o, scratch, stop, stream)
+                 : launch_entry<1, false, OPTS>(entry, s, p, o, scratch, stop, stream);
+}
+
+static int launch_bounce(int entry, const BounceState& s, const BounceParams& p,
+                         const BounceOptions& o, bool opts, void* scratch, int stop,
+                         cudaStream_t stream) {
+  return opts ? launch_bounce<true>(entry, s, p, o, scratch, stop, stream)
+              : launch_bounce<false>(entry, s, p, o, scratch, stop, stream);
 }
 
 }  // namespace de
@@ -63,11 +88,15 @@ static int launch_bounce(int entry, const BounceState& s, const BounceParams& p,
 //     light_direction[3], sun_cos_angle, solid_angle (of the sun's cone),
 //     offset_scale (1 + 1e-4 scale / 12000), planck_a, planck_b, planck_k,
 //     the gases' majorant densities[3] (read with ratio tracking)
-// ip (16 ints): n_lambdas (L, 1 or 4), bounce, rr_start, land_march_steps,
+// ip (23 ints): n_lambdas (L, 1 or 4), bounce, rr_start, land_march_steps,
 //     march_k, march_patience, max_tracking_steps, tracking_k,
 //     bilinear_materials, topography H, W, material H, W, clouds H, W,
 //     ratio (1: the gases' sun transmittance by ratio tracking, the
-//     reference's estimator; 0: the closed form)
+//     reference's estimator; 0: the closed form); the scene and march
+//     options enable_clouds, enable_land, bilinear_tracking, lazy_march,
+//     march_exact_ocean, march_ref_phantom (each 0 or 1); the instance (1:
+//     the options instance; 0: the default, which takes the options'
+//     defaults only; every instance takes any march_patience)
 // State (n lanes, read and written in place at the lanes of idx): pos,
 // dir (N, 3); wavelength, lambda_pdf, throughput, radiance, w_mis (N, L);
 // alive, primary_miss (N,) bool; work_class (N,) int32; keys (N, 2) int32.
@@ -98,11 +127,13 @@ static int launch_bounce(int entry, const BounceState& s, const BounceParams& p,
 extern "C" int de_bounce_flight(DE_BOUNCE_ARGS, void* scratch, int32_t* trips, long long* cycles,
                                 void* stream) {
   de::BounceParams p;
-  if (int rc = de::unpack_params(fp, ip, p)) return rc;
+  de::BounceOptions o;
+  bool opts;
+  if (int rc = de::unpack_params(fp, ip, p, o, opts)) return rc;
   if (m <= 0) return (int)cudaGetLastError();
   p.ratio = 0;  // the flight does not depend on it: one instance per width
-  return de::launch_bounce(de::ENTRY_FLIGHT, DE_BOUNCE_STATE(trips, cycles), p, scratch, 0,
-                           (cudaStream_t)stream);
+  return de::launch_bounce(de::ENTRY_FLIGHT, DE_BOUNCE_STATE(trips, cycles), p, o, opts, scratch,
+                           0, (cudaStream_t)stream);
 }
 
 // bounce_shade: steps 4-7 from bounce_flight's scratch (m, float4); trips
@@ -110,42 +141,31 @@ extern "C" int de_bounce_flight(DE_BOUNCE_ARGS, void* scratch, int32_t* trips, l
 extern "C" int de_bounce_shade(DE_BOUNCE_ARGS, const void* scratch, int32_t* trips,
                                long long* cycles, void* stream) {
   de::BounceParams p;
-  if (int rc = de::unpack_params(fp, ip, p)) return rc;
+  de::BounceOptions o;
+  bool opts;
+  if (int rc = de::unpack_params(fp, ip, p, o, opts)) return rc;
   if (m <= 0) return (int)cudaGetLastError();
-  return de::launch_bounce(de::ENTRY_SHADE, DE_BOUNCE_STATE(trips, cycles), p,
+  return de::launch_bounce(de::ENTRY_SHADE, DE_BOUNCE_STATE(trips, cycles), p, o, opts,
                            const_cast<void*>(scratch), 0, (cudaStream_t)stream);
 }
 
 // Bounces [ip[1], stop) of the listed lanes in one launch.
 extern "C" int de_bounce_window(DE_BOUNCE_ARGS, int stop, void* stream) {
   de::BounceParams p;
-  if (int rc = de::unpack_params(fp, ip, p)) return rc;
+  de::BounceOptions o;
+  bool opts;
+  if (int rc = de::unpack_params(fp, ip, p, o, opts)) return rc;
   if (m <= 0 || stop <= p.bounce) return (int)cudaGetLastError();
-  return de::launch_bounce(de::ENTRY_WINDOW, DE_BOUNCE_STATE(nullptr, nullptr), p, nullptr, stop,
-                           (cudaStream_t)stream);
+  return de::launch_bounce(de::ENTRY_WINDOW, DE_BOUNCE_STATE(nullptr, nullptr), p, o, opts,
+                           nullptr, stop, (cudaStream_t)stream);
 }
 
 // Occupancy of an entry on the current device: out = (resident blocks per
 // SM, threads per block, registers per thread, local memory bytes per
 // thread). which: 0 bounce_flight, 1 bounce_shade, 2 bounce_window, each
-// the default instance (L = 4, the closed-form transmittance).
-extern "C" int de_bounce_occupancy(int which, int* out) {
-  const void* fns[] = {
-      (const void*)de::bounce_flight_kernel<4, false>,
-      (const void*)de::bounce_shade_kernel<4, false, false>,
-      (const void*)de::bounce_window_kernel<4, false>,
-  };
-  if (which < 0 || which > 2) return (int)cudaErrorInvalidValue;
-  const int block = which == 2 ? de::WINDOW_BLOCK : de::BOUNCE_BLOCK;
-  int blocks = 0;
-  cudaError_t rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fns[which], block, 0);
-  if (rc != cudaSuccess) return (int)rc;
-  cudaFuncAttributes attr;
-  rc = cudaFuncGetAttributes(&attr, fns[which]);
-  if (rc != cudaSuccess) return (int)rc;
-  out[0] = blocks;
-  out[1] = block;
-  out[2] = attr.numRegs;
-  out[3] = (int)attr.localSizeBytes;
-  return 0;
+// at L = 4 and the closed-form transmittance: the default instance, or with
+// opts the options instance (bounce_opts.cu).
+extern "C" int de_bounce_occupancy(int which, int opts, int* out) {
+  if (opts != 0 && opts != 1) return (int)cudaErrorInvalidValue;
+  return opts ? de::entry_occupancy<true>(which, out) : de::entry_occupancy<false>(which, out);
 }

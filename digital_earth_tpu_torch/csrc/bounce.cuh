@@ -37,14 +37,30 @@
 // draw the twin's numbers lane by lane. Built with --fmad=false; every step
 // rounds as the twin does on the card (volume.cuh states the rules).
 //
+// The scene and march options (TraceConfig.enable_clouds, enable_land,
+// bilinear_tracking, lazy_march, march_exact_ocean, march_ref_phantom; the
+// stall patience is a run-time parameter of every instance) are compiled in
+// at their defaults in the default instances, which keep their code: code
+// that a warp never runs still costs registers and time there (PERF.md).
+// Each (L, RATIO) set also has an options instance (OPTS), which reads them
+// from the parameters: no clouds skips both cloud passes, no land all three
+// march sites (each a miss with no trips); bilinear tracking filters the
+// origin tap of step 2, the march's and the cloud trackers' taps; lazy_march
+// false marches first (with every live lane, at the pre-march's census
+// site) and caps the flight at the hit, with no march after it and no
+// demotion (pathtracer.py:1582-1591).
+//
 // Entries, all over the same device functions flight_lane (1-3) and
 // shade_lane (4-7), so every entry gives the same bits. Each is built for
 // a packet of L = 4 wavelengths (the default) or L = 1 (TraceConfig.
 // hero_lambdas), and bounce_shade and bounce_window also for RATIO, so that
-// the default instances keep their code and registers. Each (L, RATIO) set
-// of instances is built in a source of its own, which nvcc compiles in
-// parallel with the others: bounce.cu (4, closed form), bounce_l1.cu (1,
-// closed form), bounce_ratio.cu (4, ratio), bounce_l1_ratio.cu (1, ratio).
+// the default instances keep their code and registers, and each of these
+// (L, RATIO) sets again with OPTS. Each (L, RATIO, OPTS) set of instances
+// is built in a source of its own, which nvcc compiles in parallel with the
+// others: bounce.cu (4, closed form), bounce_l1.cu (1, closed form),
+// bounce_ratio.cu (4, ratio), bounce_l1_ratio.cu (1, ratio), and their
+// options sets bounce_opts.cu, bounce_l1_opts.cu, bounce_ratio_opts.cu and
+// bounce_l1_ratio_opts.cu.
 //   - bounce_flight (steps 1-3, the outcome to a 16 B scratch entry per
 //     list entry) and bounce_shade (steps 4-7): one bounce of the wide
 //     wavefront. Split at the flight's end, the flight's loops run without
@@ -83,6 +99,7 @@
 // warp's threads on the marching lanes' probes.
 #pragma once
 #include <cstdint>
+#include <type_traits>
 
 #include <cuda_runtime.h>
 
@@ -118,6 +135,33 @@ struct BounceParams {
   int bounce, rr_start, march_steps, march_k, patience, tracking_steps, tracking_k, bilinear;
   int topo_h, topo_w, mat_h, mat_w, clouds_h, clouds_w;
 };
+
+// The scene and march options, which the options instances read: the
+// march's (enable_land, bilinear_tracking, which also filters the cloud
+// trackers' and the origin's taps, march_exact_ocean, march_ref_phantom),
+// enable_clouds and lazy_march.
+struct BounceOptions {
+  MarchOpts mo;
+  int enable_clouds, lazy_march;
+};
+
+// An options instance's kernel parameters: the default's, then the
+// options. The default instances take BounceParams alone: a larger
+// parameter block changed their SASS (28 B of padding added 6-122
+// instructions to the parent's entries), so they keep its size.
+struct BounceParamsOpts : BounceParams {
+  BounceOptions o;
+};
+template <bool OPTS>
+using EntryParams = std::conditional_t<OPTS, BounceParamsOpts, BounceParams>;
+
+// The options an entry reads: its parameters' (OPTS), or none (the default
+// instances read no option).
+template <bool OPTS>
+__device__ __forceinline__ const BounceOptions* entry_options(const EntryParams<OPTS>& p) {
+  if constexpr (OPTS) return &p.o;
+  else return nullptr;
+}
 
 struct BounceState {
   float* pos;
@@ -181,8 +225,9 @@ __device__ __forceinline__ bool warp_past_list(const BounceState& s, int t) {
 
 // The loops as calls shared by their call sites (not inlined; static: each
 // source of instances has its own); the census instance's calls also write
-// the loop's trip count. Every thread of the warp calls the march
-// (land_march_warp), act set where its lane marches.
+// the loop's trip count; the options instance's (_o) take the march's
+// options. Every thread of the warp calls the march (land_march_warp), act
+// set where its lane marches.
 static __device__ __noinline__ float march_call(const uint8_t* __restrict__ topo, MarchParams p,
                                                 V3 o, V3 d, bool act, float cap) {
   return land_march_warp(topo, p, o, d, act, cap);
@@ -193,16 +238,35 @@ static __device__ __noinline__ float march_call_n(const uint8_t* __restrict__ to
   return land_march_warp(topo, p, o, d, act, cap, iters);
 }
 
-// A warp none of whose lanes marches here skips the call: a miss, no trips.
-template <bool COUNT>
+static __device__ __noinline__ float march_call_o(const uint8_t* __restrict__ topo, MarchParams p,
+                                                  MarchOpts mo, V3 o, V3 d, bool act, float cap,
+                                                  int* iters) {
+  return land_march_warp<true>(topo, p, o, d, act, cap, iters, &mo);
+}
+
+// A warp none of whose lanes marches here skips the call: a miss, no trips
+// (and with OPTS every warp where the options ``op`` say no land).
+template <bool COUNT, bool OPTS>
 __device__ __forceinline__ float march(const uint8_t* __restrict__ topo, const MarchParams& p,
-                                       V3 o, V3 d, bool act, float cap, int* trips, int site) {
+                                       const BounceOptions* op, V3 o, V3 d, bool act, float cap,
+                                       int* trips, int site) {
+  if constexpr (OPTS) {
+    if (!op->mo.enable) {
+      if (COUNT && trips) trips[site] = 0;
+      return -1.0f;
+    }
+  }
   if (!__any_sync(MARCH_FULL_WARP, act)) {
     if (COUNT && trips) trips[site] = 0;
     return -1.0f;
   }
-  if constexpr (COUNT) return march_call_n(topo, p, o, d, act, cap, trips ? trips + site : nullptr);
-  else return march_call(topo, p, o, d, act, cap);
+  if constexpr (OPTS) {
+    return march_call_o(topo, p, op->mo, o, d, act, cap, COUNT && trips ? trips + site : nullptr);
+  } else if constexpr (COUNT) {
+    return march_call_n(topo, p, o, d, act, cap, trips ? trips + site : nullptr);
+  } else {
+    return march_call(topo, p, o, d, act, cap);
+  }
 }
 
 struct CloudOut {
@@ -229,11 +293,26 @@ static __device__ __noinline__ CloudOut cloud_call_n(Key key, V3 o, V3 d, float 
   return out;
 }
 
-template <bool COUNT>
+static __device__ __noinline__ CloudOut cloud_call_o(Key key, V3 o, V3 d, float t0, float t1,
+                                                     float ew, const uint8_t* __restrict__ clouds,
+                                                     int H, int W, int steps, int k, bool ratio,
+                                                     int* iters, bool bilinear) {
+  CloudOut out;
+  cloud_track_lane<true>(key, o, d, t0, t1, ew, true, clouds, H, W, steps, k, ratio, out.event,
+                         out.t, out.trans, iters, bilinear);
+  return out;
+}
+
+// OPTS: the options instance's call, its taps as the options ``op`` say.
+template <bool COUNT, bool OPTS>
 __device__ __forceinline__ CloudOut cloud(Key key, V3 o, V3 d, float t0, float t1, float ew,
                                           const BounceState& s, const BounceParams& p, bool ratio,
-                                          int* trips, int site) {
-  if constexpr (COUNT) {
+                                          int* trips, int site, const BounceOptions* op) {
+  if constexpr (OPTS) {
+    return cloud_call_o(key, o, d, t0, t1, ew, s.clouds, p.clouds_h, p.clouds_w, p.tracking_steps,
+                        p.tracking_k, ratio, COUNT ? trips + site : nullptr,
+                        op->mo.bilinear != 0);
+  } else if constexpr (COUNT) {
     return cloud_call_n(key, o, d, t0, t1, ew, s.clouds, p.clouds_h, p.clouds_w,
                         p.tracking_steps, p.tracking_k, ratio, trips + site);
   } else {
@@ -294,19 +373,24 @@ struct Flight {
 // Steps 1-3 of one bounce of a lane at pos along dir with hero wavelength
 // wl0 and bounce key kb. Every thread of the warp calls it (the marches
 // need the full warp); act false: no lane (its outcome is not used, and it
-// runs no tracker).
-template <bool COUNT>
+// runs no tracker). OPTS: the options ``op`` (the header's comment); march
+// first (lazy_march false) is the march on demand with every live lane
+// marching at the first site, the flight capped at that hit, and no march
+// after it nor demotion.
+template <bool COUNT, bool OPTS>
 __device__ __forceinline__ Flight flight_lane(const BounceState& s, const BounceParams& p,
-                                              int bounce, bool act, V3 pos, V3 dir, float wl0,
-                                              Key kb, int* trips, long long* cyc) {
+                                              const BounceOptions* op, int bounce, bool act,
+                                              V3 pos, V3 dir, float wl0, Key kb, int* trips,
+                                              long long* cyc) {
   const float inf = __int_as_float(0x7f800000);
   const float ext_w = cloud_ext_w(bounce);
   const float scale = p.scale;
   const MarchParams mp = march_params(p);
+  const bool first = OPTS && !op->lazy_march;  // uniform over the launch
 
   // 2. march on demand
   float tap[4];
-  sphere_tap<4>(s.topo, p.topo_h, p.topo_w, pos, false, tap);
+  sphere_tap<4>(s.topo, p.topo_h, p.topo_w, pos, OPTS && op->mo.bilinear, tap);
   const float r_len = length(pos);
   const float d_free =
       fmaxf(fmaxf(fminf(r_len - (PLANET_R_F + scale * tap[1]), 25e3f),
@@ -317,10 +401,10 @@ __device__ __forceinline__ Flight flight_lane(const BounceState& s, const Bounce
   const float cap_proxy = base_near > 0.0f ? base_near : -1.0f;
   const bool below = r_len < CLOUDS_LOWER_F;
   long long c0 = tick<COUNT>();
-  const float earth_pre =
-      march<COUNT>(s.topo, mp, pos, dir, act && below, inf, trips, SITE_PRE_MARCH);
+  const float earth_pre = march<COUNT, OPTS>(s.topo, mp, op, pos, dir, act && (first || below),
+                                             inf, trips, SITE_PRE_MARCH);
   tock<COUNT>(cyc, SITE_PRE_MARCH, c0);
-  const float land_proxy = below ? earth_pre : cap_proxy;
+  const float land_proxy = (first || below) ? earth_pre : cap_proxy;
 
   // 3. the flight: clouds, then the gases capped at the cloud event
   Flight f{0, 0, 0.0f, -1.0f};
@@ -336,10 +420,12 @@ __device__ __forceinline__ Flight flight_lane(const BounceState& s, const Bounce
     rmo_span(a_near, a_far, land_proxy, t_start, t_max);
     float c_start, c_max;
     cloud_limits(pos, dir, land_proxy, c_start, c_max);
-    c0 = tick<COUNT>();
-    cd = cloud<COUNT>(fold(k_flight, 2u), pos, dir, c_start, c_max, ext_w, s, p, false, trips,
-                      SITE_CLOUD);
-    tock<COUNT>(cyc, SITE_CLOUD, c0);
+    if (!OPTS || op->enable_clouds) {
+      c0 = tick<COUNT>();
+      cd = cloud<COUNT, OPTS>(fold(k_flight, 2u), pos, dir, c_start, c_max, ext_w, s, p, false,
+                              trips, SITE_CLOUD, op);
+      tock<COUNT>(cyc, SITE_CLOUD, c0);
+    }
     const float rmo_cap = cd.event > 0 ? fminf(t_max, cd.t) : t_max;
     int rmo_event, rmo_id;
     float rmo_t;
@@ -354,15 +440,17 @@ __device__ __forceinline__ Flight flight_lane(const BounceState& s, const Bounce
     f.iid = take_cloud ? 3 : rmo_id;
   }
 
-  const bool need_march =
-      act && !below && (f.event == 0 || (f.iid != 3 && f.t_int > fmaxf(d_free, 0.0f)));
+  const bool need_march = !first && act && !below &&
+                          (f.event == 0 || (f.iid != 3 && f.t_int > fmaxf(d_free, 0.0f)));
   c0 = tick<COUNT>();
-  const float earth_post = march<COUNT>(s.topo, mp, pos, dir, need_march,
-                                        f.event > 0 ? f.t_int : 1e30f, trips, SITE_POST_MARCH);
+  const float earth_post = march<COUNT, OPTS>(s.topo, mp, op, pos, dir, need_march,
+                                              f.event > 0 ? f.t_int : 1e30f, trips,
+                                              SITE_POST_MARCH);
   tock<COUNT>(cyc, SITE_POST_MARCH, c0);
   f.earth = need_march ? earth_post : earth_pre;
   // demote RMO events beyond the land hit; the cloud event takes over
-  const bool demote = f.event > 0 && f.iid != 3 && f.earth >= 0.0f && f.earth <= f.t_int;
+  const bool demote =
+      !first && f.event > 0 && f.iid != 3 && f.earth >= 0.0f && f.earth <= f.t_int;
   const bool resurrect = demote && cd.event > 0;
   if (demote) f.event = resurrect ? cd.event : 0;
   if (resurrect) {
@@ -416,11 +504,13 @@ __device__ __forceinline__ void store_lane(const BounceState& s, int lane, const
 // Steps 4-7 of one bounce of the lane in r, given its flight's outcome.
 // Every thread of the warp calls it (the shadow march needs the full warp);
 // act false: no lane, and r is left as it was. RATIO: the gases' sun
-// transmittance by ratio tracking, else the closed form.
-template <bool COUNT, int L, bool RATIO>
+// transmittance by ratio tracking, else the closed form. OPTS: the options
+// ``op``.
+template <bool COUNT, int L, bool RATIO, bool OPTS>
 __device__ __forceinline__ void shade_lane(const BounceState& s, const BounceParams& p,
-                                           int bounce, bool act, LaneRegs<L>& r, Key kb,
-                                           Flight f, int* trips, long long* cyc) {
+                                           const BounceOptions* op, int bounce, bool act,
+                                           LaneRegs<L>& r, Key kb, Flight f, int* trips,
+                                           long long* cyc) {
   const V3 pos = r.pos, dir = r.dir;
   const float inf = __int_as_float(0x7f800000);
   const float ext_w = cloud_ext_w(bounce);
@@ -495,7 +585,8 @@ __device__ __forceinline__ void shade_lane(const BounceState& s, const BouncePar
   shadow.any_hit = 1;
   const long long c0 = tick<COUNT>();
   const float shadow_hit =
-      march<COUNT>(s.topo, shadow, offset_pos, light_dir, surface, inf, trips, SITE_SHADOW);
+      march<COUNT, OPTS>(s.topo, shadow, op, offset_pos, light_dir, surface, inf, trips,
+                         SITE_SHADOW);
   tock<COUNT>(cyc, SITE_SHADOW, c0);
   if (!act) return;
   const bool sur_vis = surface && shadow_hit < 0.0f;
@@ -545,14 +636,16 @@ __device__ __forceinline__ void shade_lane(const BounceState& s, const BouncePar
     } else {
       rmo_transmittance_to_space<L>(s.table, ext, nee_origin, light_dir, trans);
     }
-    float n_start, n_max;
-    cloud_limits(nee_origin, light_dir, -1.0f, n_start, n_max);
-    const long long c1 = tick<COUNT>();
-    const CloudOut ct = cloud<COUNT>(fold(k_trans, 2u), nee_origin, light_dir, n_start,
-                                     n_max, ext_w, s, p, true, trips, SITE_NEE_CLOUD);
-    tock<COUNT>(cyc, SITE_NEE_CLOUD, c1);
+    if (!OPTS || op->enable_clouds) {
+      float n_start, n_max;
+      cloud_limits(nee_origin, light_dir, -1.0f, n_start, n_max);
+      const long long c1 = tick<COUNT>();
+      const CloudOut ct = cloud<COUNT, OPTS>(fold(k_trans, 2u), nee_origin, light_dir, n_start,
+                                           n_max, ext_w, s, p, true, trips, SITE_NEE_CLOUD, op);
+      tock<COUNT>(cyc, SITE_NEE_CLOUD, c1);
 #pragma unroll
-    for (int l = 0; l < L; ++l) trans[l] = trans[l] * ct.trans;
+      for (int l = 0; l < L; ++l) trans[l] = trans[l] * ct.trans;
+    }
   }
   const bool reduce_peak = bounce > 0;
   const float phase_d = vol_nee ? evaluate_phase(dir, light_dir, iid, reduce_peak) : 0.0f;
@@ -639,10 +732,10 @@ __device__ __forceinline__ long long* entry_cycles(const BounceState& s, int t, 
 
 // Steps 1-3 of one bounce: the outcome of list entry t into out[t]
 // (t_int, earth, event, iid as float bits); COUNT: the census instance
-// (sites 0-3).
-template <int L, bool COUNT>
+// (sites 0-3); OPTS: the options instance.
+template <int L, bool COUNT, bool OPTS>
 __global__ void __launch_bounds__(BOUNCE_BLOCK, FLIGHT_MIN_BLOCKS)
-    bounce_flight_kernel(BounceState s, BounceParams p, float4* __restrict__ out) {
+    bounce_flight_kernel(BounceState s, EntryParams<OPTS> p, float4* __restrict__ out) {
   const long long c_all = tick<COUNT>();
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
   if (warp_past_list(s, t)) return;
@@ -651,18 +744,18 @@ __global__ void __launch_bounds__(BOUNCE_BLOCK, FLIGHT_MIN_BLOCKS)
   const int l = act ? lane : 0;  // a thread with no lane reads lane 0 and writes nothing
   int* trips = act ? entry_trips<COUNT>(s, t, SITE_PRE_MARCH, SITE_SHADOW) : nullptr;
   long long* cyc = act ? entry_cycles<COUNT>(s, t, SITE_PRE_MARCH, SITE_SHADOW) : nullptr;
-  const Flight f = flight_lane<COUNT>(s, p, p.bounce, act, load3(s.pos, l), load3(s.dir, l),
-                                      s.wavelength[l * L], bounce_key<L>(s, l, p.bounce), trips,
-                                      cyc);
+  const Flight f = flight_lane<COUNT, OPTS>(s, p, entry_options<OPTS>(p), p.bounce, act,
+                                            load3(s.pos, l), load3(s.dir, l), s.wavelength[l * L],
+                                            bounce_key<L>(s, l, p.bounce), trips, cyc);
   if (act) out[t] = make_float4(f.t_int, f.earth, __int_as_float(f.event), __int_as_float(f.iid));
   tock<COUNT>(cyc, CYC_FLIGHT, c_all);
 }
 
 // Steps 4-7 of one bounce from bounce_flight's outcome; COUNT: the census
-// instance (sites 4-6).
-template <int L, bool COUNT, bool RATIO>
+// instance (sites 4-6); OPTS: the options instance.
+template <int L, bool COUNT, bool RATIO, bool OPTS>
 __global__ void __launch_bounds__(BOUNCE_BLOCK)
-    bounce_shade_kernel(BounceState s, BounceParams p, const float4* __restrict__ in) {
+    bounce_shade_kernel(BounceState s, EntryParams<OPTS> p, const float4* __restrict__ in) {
   const long long c_all = tick<COUNT>();
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
   if (warp_past_list(s, t)) return;
@@ -678,8 +771,8 @@ __global__ void __launch_bounds__(BOUNCE_BLOCK)
   r.dir = load3(s.dir, l);
   r.miss0 = false;
   load_spectral(s, l, r);
-  shade_lane<COUNT, L, RATIO>(s, p, p.bounce, act, r, bounce_key<L>(s, l, p.bounce), f, trips,
-                              cyc);
+  shade_lane<COUNT, L, RATIO, OPTS>(s, p, entry_options<OPTS>(p), p.bounce, act, r,
+                                    bounce_key<L>(s, l, p.bounce), f, trips, cyc);
   if (act) store_lane(s, lane, r, r.alive);
   tock<COUNT>(cyc, CYC_SHADE, c_all);
 }
@@ -687,9 +780,9 @@ __global__ void __launch_bounds__(BOUNCE_BLOCK)
 // Bounces [p.bounce, stop) of each listed lane, until it dies; the warp
 // goes on while any of its lanes lives (the marches need the full warp),
 // a dead lane's thread with act false.
-template <int L, bool RATIO>
+template <int L, bool RATIO, bool OPTS>
 __global__ void __launch_bounds__(WINDOW_BLOCK)
-    bounce_window_kernel(BounceState s, BounceParams p, int stop) {
+    bounce_window_kernel(BounceState s, EntryParams<OPTS> p, int stop) {
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
   if (warp_past_list(s, t)) return;
   const int lane = list_lane(s, t);
@@ -705,9 +798,10 @@ __global__ void __launch_bounds__(WINDOW_BLOCK)
   for (int b = p.bounce; b < stop && __any_sync(MARCH_FULL_WARP, r.alive); ++b) {
     const Key kb = fold(key, (uint32_t)b);
     const bool act = r.alive;
-    const Flight f =
-        flight_lane<false>(s, p, b, act, r.pos, r.dir, r.wl[0], kb, nullptr, nullptr);
-    shade_lane<false, L, RATIO>(s, p, b, act, r, kb, f, nullptr, nullptr);
+    const Flight f = flight_lane<false, OPTS>(s, p, entry_options<OPTS>(p), b, act, r.pos, r.dir,
+                                              r.wl[0], kb, nullptr, nullptr);
+    shade_lane<false, L, RATIO, OPTS>(s, p, entry_options<OPTS>(p), b, act, r, kb, f, nullptr,
+                                      nullptr);
     wc_set = wc_set || r.alive;
   }
   if (lane >= 0) store_lane(s, lane, r, wc_set);
@@ -717,50 +811,87 @@ static int grid_of(int m, int block) { return (m + block - 1) / block; }
 
 enum { ENTRY_FLIGHT, ENTRY_SHADE, ENTRY_WINDOW };
 
-// Launch one entry of the (L, RATIO) instances on the list s (m > 0):
-// bounce_flight (its outcome into scratch; RATIO false only, the flight
-// does not depend on it), bounce_shade (from scratch), each as its census
-// instance where s.trips is set, or bounce_window (bounces [p.bounce,
-// stop)). Each (L, RATIO) set is instantiated in one source (the header's
-// comment names them); the others declare it extern below.
-template <int L, bool RATIO>
-int launch_entry(int entry, const BounceState& s, const BounceParams& p, void* scratch, int stop,
-                 cudaStream_t stream) {
+// Launch one entry of the (L, RATIO) instances, or with OPTS their options
+// instances, on the list s (m > 0): bounce_flight (its outcome into scratch;
+// RATIO false only, the flight does not depend on it), bounce_shade (from
+// scratch), each as its census instance where s.trips is set, or
+// bounce_window (bounces [p.bounce, stop)). Each (L, RATIO, OPTS) set is
+// instantiated in one source (the header's comment names them); the others
+// declare it extern below.
+template <int L, bool RATIO, bool OPTS>
+int launch_entry(int entry, const BounceState& s, const BounceParams& bp, const BounceOptions& o,
+                 void* scratch, int stop, cudaStream_t stream) {
+  EntryParams<OPTS> p;
+  static_cast<BounceParams&>(p) = bp;
+  if constexpr (OPTS) p.o = o;
   if (entry == ENTRY_FLIGHT) {
     if constexpr (RATIO) {
       return (int)cudaErrorInvalidValue;
     } else {
       float4* out = static_cast<float4*>(scratch);
       if (s.trips) {
-        bounce_flight_kernel<L, true><<<grid_of(s.m, BOUNCE_BLOCK), BOUNCE_BLOCK, 0, stream>>>(
-            s, p, out);
+        bounce_flight_kernel<L, true, OPTS>
+            <<<grid_of(s.m, BOUNCE_BLOCK), BOUNCE_BLOCK, 0, stream>>>(s, p, out);
       } else {
-        bounce_flight_kernel<L, false><<<grid_of(s.m, BOUNCE_BLOCK), BOUNCE_BLOCK, 0, stream>>>(
-            s, p, out);
+        bounce_flight_kernel<L, false, OPTS>
+            <<<grid_of(s.m, BOUNCE_BLOCK), BOUNCE_BLOCK, 0, stream>>>(s, p, out);
       }
     }
   } else if (entry == ENTRY_SHADE) {
     const float4* in = static_cast<const float4*>(scratch);
     if (s.trips) {
-      bounce_shade_kernel<L, true, RATIO><<<grid_of(s.m, BOUNCE_BLOCK), BOUNCE_BLOCK, 0, stream>>>(
-          s, p, in);
+      bounce_shade_kernel<L, true, RATIO, OPTS>
+          <<<grid_of(s.m, BOUNCE_BLOCK), BOUNCE_BLOCK, 0, stream>>>(s, p, in);
     } else {
-      bounce_shade_kernel<L, false, RATIO>
+      bounce_shade_kernel<L, false, RATIO, OPTS>
           <<<grid_of(s.m, BOUNCE_BLOCK), BOUNCE_BLOCK, 0, stream>>>(s, p, in);
     }
   } else {
-    bounce_window_kernel<L, RATIO><<<grid_of(s.m, WINDOW_BLOCK), WINDOW_BLOCK, 0, stream>>>(
+    bounce_window_kernel<L, RATIO, OPTS><<<grid_of(s.m, WINDOW_BLOCK), WINDOW_BLOCK, 0, stream>>>(
         s, p, stop);
   }
   return (int)cudaGetLastError();
 }
 
-#define DE_BOUNCE_INSTANCE(L, RATIO)                                                       \
-  template int launch_entry<L, RATIO>(int, const BounceState&, const BounceParams&, void*, \
-                                      int, cudaStream_t)
-extern DE_BOUNCE_INSTANCE(4, false);
-extern DE_BOUNCE_INSTANCE(1, false);
-extern DE_BOUNCE_INSTANCE(4, true);
-extern DE_BOUNCE_INSTANCE(1, true);
+// Occupancy of an entry (which: 0 bounce_flight, 1 bounce_shade, 2
+// bounce_window) at L = 4 and the closed form, the default instance or the
+// options instance (OPTS), on the current device: out = (resident blocks
+// per SM, threads per block, registers per thread, local memory bytes per
+// thread). Instantiated with that set (bounce.cu, bounce_opts.cu).
+template <bool OPTS>
+int entry_occupancy(int which, int* out) {
+  const void* fns[] = {
+      (const void*)bounce_flight_kernel<4, false, OPTS>,
+      (const void*)bounce_shade_kernel<4, false, false, OPTS>,
+      (const void*)bounce_window_kernel<4, false, OPTS>,
+  };
+  if (which < 0 || which > 2) return (int)cudaErrorInvalidValue;
+  const int block = which == 2 ? WINDOW_BLOCK : BOUNCE_BLOCK;
+  int blocks = 0;
+  cudaError_t rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fns[which], block, 0);
+  if (rc != cudaSuccess) return (int)rc;
+  cudaFuncAttributes attr;
+  rc = cudaFuncGetAttributes(&attr, fns[which]);
+  if (rc != cudaSuccess) return (int)rc;
+  out[0] = blocks;
+  out[1] = block;
+  out[2] = attr.numRegs;
+  out[3] = (int)attr.localSizeBytes;
+  return 0;
+}
+extern template int entry_occupancy<false>(int, int*);
+extern template int entry_occupancy<true>(int, int*);
+
+#define DE_BOUNCE_INSTANCE(L, RATIO, OPTS)                                               \
+  template int launch_entry<L, RATIO, OPTS>(int, const BounceState&, const BounceParams&, \
+                                            const BounceOptions&, void*, int, cudaStream_t)
+extern DE_BOUNCE_INSTANCE(4, false, false);
+extern DE_BOUNCE_INSTANCE(1, false, false);
+extern DE_BOUNCE_INSTANCE(4, true, false);
+extern DE_BOUNCE_INSTANCE(1, true, false);
+extern DE_BOUNCE_INSTANCE(4, false, true);
+extern DE_BOUNCE_INSTANCE(1, false, true);
+extern DE_BOUNCE_INSTANCE(4, true, true);
+extern DE_BOUNCE_INSTANCE(1, true, true);
 
 }  // namespace de

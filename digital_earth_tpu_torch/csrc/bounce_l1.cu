@@ -7,6 +7,6 @@
 
 namespace de {
 
-DE_BOUNCE_INSTANCE(1, false);
+DE_BOUNCE_INSTANCE(1, false, false);
 
 }  // namespace de

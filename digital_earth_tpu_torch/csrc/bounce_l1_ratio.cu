@@ -6,6 +6,6 @@
 
 namespace de {
 
-DE_BOUNCE_INSTANCE(1, true);
+DE_BOUNCE_INSTANCE(1, true, false);
 
 }  // namespace de

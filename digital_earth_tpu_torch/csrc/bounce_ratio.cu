@@ -6,6 +6,6 @@
 
 namespace de {
 
-DE_BOUNCE_INSTANCE(4, true);
+DE_BOUNCE_INSTANCE(4, true, false);
 
 }  // namespace de

@@ -11,6 +11,9 @@
 // dependent 32-bit texture read plus an atan2/asin pair; a warp runs until
 // its slowest lane leaves the slab (up to 8192 iterations for grazing sun
 // chords), so the cost is per-warp worst-lane trip count, not bandwidth.
+//
+// Two instances: the default (nearest taps) and the options instance (OPTS:
+// bilinear taps where asked), as the bounce entries run them.
 #include <cstdint>
 
 #include <cuda_runtime.h>
@@ -19,20 +22,21 @@
 
 namespace de {
 
+template <bool OPTS>
 __global__ void cloud_track_kernel(
     const int32_t* __restrict__ keys, const float* __restrict__ pos,
     const float* __restrict__ dir, const float* __restrict__ t_start,
     const float* __restrict__ t_max, const float* __restrict__ ext_w,
     const uint8_t* __restrict__ active, const uint8_t* __restrict__ clouds,
     int H, int W, int32_t* __restrict__ event_out, float* __restrict__ t_out,
-    float* __restrict__ trans_out, int n, int max_steps, int k, int ratio) {
+    float* __restrict__ trans_out, int n, int max_steps, int k, int ratio, int bilinear) {
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= n) return;
   int event;
   float t, trans;
-  cloud_track_lane(load_key(keys, lane), load3(pos, lane), load3(dir, lane), t_start[lane],
-                   t_max[lane], ext_w[lane], active[lane] != 0, clouds, H, W, max_steps, k,
-                   ratio != 0, event, t, trans);
+  cloud_track_lane<OPTS>(load_key(keys, lane), load3(pos, lane), load3(dir, lane),
+                         t_start[lane], t_max[lane], ext_w[lane], active[lane] != 0, clouds, H,
+                         W, max_steps, k, ratio != 0, event, t, trans, nullptr, bilinear != 0);
   event_out[lane] = event;
   t_out[lane] = t;
   trans_out[lane] = trans;
@@ -46,10 +50,18 @@ extern "C" int de_cloud_track(const int32_t* keys, const float* pos,
                               const uint8_t* active, const uint8_t* clouds,
                               int H, int W, int32_t* event, float* t,
                               float* trans, int n, int max_steps, int k,
-                              int ratio, void* stream) {
+                              int ratio, int opts, int bilinear, void* stream) {
+  if (!opts && bilinear) return (int)cudaErrorInvalidValue;  // the default runs nearest taps
   const int block = 128;
-  de::cloud_track_kernel<<<(n + block - 1) / block, block, 0, (cudaStream_t)stream>>>(
-      keys, pos, dir, t_start, t_max, ext_w, active, clouds, H, W, event, t,
-      trans, n, max_steps, k, ratio);
+  const int grid = (n + block - 1) / block;
+  if (opts) {
+    de::cloud_track_kernel<true><<<grid, block, 0, (cudaStream_t)stream>>>(
+        keys, pos, dir, t_start, t_max, ext_w, active, clouds, H, W, event, t, trans, n,
+        max_steps, k, ratio, bilinear);
+  } else {
+    de::cloud_track_kernel<false><<<grid, block, 0, (cudaStream_t)stream>>>(
+        keys, pos, dir, t_start, t_max, ext_w, active, clouds, H, W, event, t, trans, n,
+        max_steps, k, ratio, bilinear);
+  }
   return (int)cudaGetLastError();
 }

@@ -18,6 +18,11 @@
 // Probes after the first stopping one do not change the result; the sweep
 // stops there (ratio mode: at the first budget crossing). Only a tracking
 // iteration folds the iteration key: a skipping one draws nothing.
+//
+// OPTS: the options instance, whose taps are bilinear where ``bilinear``
+// (TraceConfig.bilinear_tracking; the twin's sample_sphere_texture as it
+// rounds on the card, texture.cuh sphere_tap); OPTS false compiles in the
+// nearest taps of the default.
 #pragma once
 #include <cstdint>
 
@@ -38,12 +43,14 @@ __device__ __forceinline__ float shape_density(float tex, float r) {
 // (event, t) in delta mode, the transmittance in ratio mode; an invalid lane
 // keeps (0, t_start, 1). With ``iters`` the loop's iterations are written
 // there.
+template <bool OPTS = false>
 __device__ __forceinline__ void cloud_track_lane(Key key, V3 o, V3 d, float t_start, float tm,
                                                  float ew, bool active,
                                                  const uint8_t* __restrict__ clouds, int H,
                                                  int W, int max_steps, int k, bool ratio,
                                                  int& event_out, float& t_out,
-                                                 float& trans_out, int* iters = nullptr) {
+                                                 float& trans_out, int* iters = nullptr,
+                                                 bool bilinear = false) {
   float t = t_start;
   const bool valid = active && (tm >= 0.0f) && (t < tm);
   const float tms = fmaxf(tm, 0.0f);
@@ -70,7 +77,8 @@ __device__ __forceinline__ void cloud_track_lane(Key key, V3 o, V3 d, float t_st
         const bool crossed = ts >= tm;
         const float tsc = fminf(ts, tms);
         float s[4];
-        sphere_tap_nearest<4>(clouds, H, W, along(o, tsc, d), s);
+        if (OPTS && bilinear) sphere_tap<4>(clouds, H, W, along(o, tsc, d), true, s);
+        else sphere_tap_nearest<4>(clouds, H, W, along(o, tsc, d), s);
         mf = s[1];
         mc = s[2];
         mw = s[3];
@@ -95,7 +103,8 @@ __device__ __forceinline__ void cloud_track_lane(Key key, V3 o, V3 d, float t_st
         const float tsc = fminf(ts, clamp_end);
         const V3 p = along(o, tsc, d);
         float s[4];
-        sphere_tap_nearest<4>(clouds, H, W, p, s);
+        if (OPTS && bilinear) sphere_tap<4>(clouds, H, W, p, true, s);
+        else sphere_tap_nearest<4>(clouds, H, W, p, s);
         t_new = tsc;
         mf = s[1];
         mc = s[2];

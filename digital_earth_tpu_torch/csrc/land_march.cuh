@@ -12,6 +12,13 @@
 // exact ocean root, stall termination, the t_cap, the any-hit mode and the
 // probe budget; probes after the first stopping one do not change the
 // result, so the sweep stops there.
+//
+// OPTS (a template parameter): the options instance, which reads the
+// march's options from MarchOpts at run time (TraceConfig.enable_land,
+// bilinear_tracking, march_exact_ocean, march_ref_phantom; the stall
+// patience is MarchParams::patience in both). OPTS false compiles them in at
+// their defaults (land, nearest taps, the ocean root, the phantom crawl), the
+// code of the default instances.
 #pragma once
 #include <cstdint>
 
@@ -24,6 +31,11 @@ struct MarchParams {
   int H, W;
   float scale, step_floor, stall_thresh;
   int steps, k, patience, any_hit;
+};
+
+// The march's options, read by the options instance (OPTS) only.
+struct MarchOpts {
+  int enable, bilinear, exact_ocean, ref_phantom;
 };
 
 // The march's bracket: the bounding-sphere cull, the start and the miss
@@ -52,13 +64,23 @@ struct Probe {
   bool stop, conv, out;
 };
 
+// OPTS: the options ``mo``: bilinear taps (the twin's sample_sphere_texture
+// as it rounds on the card, texture.cuh sphere_tap) where mo->bilinear, the
+// ocean root only where mo->exact_ocean.
+template <bool OPTS = false>
 __device__ __forceinline__ Probe march_probe(const uint8_t* __restrict__ topo,
                                              const MarchParams& p, V3 o, V3 d, float ts,
-                                             float stride, float miss_beyond) {
+                                             float stride, float miss_beyond,
+                                             const MarchOpts* mo = nullptr) {
   const float valid3[3] = {25e3f, 115e3f, 8e3f};
   const V3 ro = along(o, ts, d);
   float s[4];
-  sphere_tap_nearest<4>(topo, p.H, p.W, ro, s);
+  if constexpr (OPTS) {
+    if (mo->bilinear) sphere_tap<4>(topo, p.H, p.W, ro, true, s);
+    else sphere_tap_nearest<4>(topo, p.H, p.W, ro, s);
+  } else {
+    sphere_tap_nearest<4>(topo, p.H, p.W, ro, s);
+  }
   const float b = dot(ro, d);
   const V3 cr = cross(ro, d);
   const float h2b = dot(cr, cr);
@@ -82,6 +104,9 @@ __device__ __forceinline__ Probe march_probe(const uint8_t* __restrict__ topo,
                      : (far_ < 0.0f ? valid3[m] : 0.0f);
     s_region = m == 0 ? skip : fmaxf(s_region, skip);
     ocean_hit = ocean_hit || ((mip <= 0.0f) && (p_near > 0.0f) && (p_near <= valid3[m]));
+  }
+  if constexpr (OPTS) {
+    if (!mo->exact_ocean) ocean_hit = false;
   }
   Probe q;
   q.step = f < 0.0f ? f : fmaxf(fmaxf(f, s_region), p.step_floor);
@@ -152,7 +177,9 @@ __device__ __forceinline__ float phantom_crawl(const MarchParams& p, V3 o, V3 d,
 
 constexpr unsigned MARCH_FULL_WARP = 0xffffffffu;
 
-// Hit distance along o + t d, -1 on a miss; an inactive lane misses. With
+// Hit distance along o + t d, -1 on a miss; an inactive lane misses (and
+// with OPTS every lane where the options ``mo`` say no land, with no
+// trips; without the phantom crawl where they say so). With
 // ``iters`` the march's iterations (K probes each; the phantom crawl's not
 // counted) are written there, as the plain twin's masked loop counts them.
 // Every thread of the warp must call it (it shuffles across the full warp),
@@ -174,9 +201,17 @@ constexpr unsigned MARCH_FULL_WARP = 0xffffffffu;
 // to its iterations where the warp has threads to spare, and a warp of
 // marching lanes only runs one thread per lane as before. The phantom
 // crawl, a serial chain, stays with the lane's own thread.
+template <bool OPTS = false>
 __device__ __forceinline__ float land_march_warp(const uint8_t* __restrict__ topo,
                                                  const MarchParams& p, V3 o, V3 d, bool act,
-                                                 float cap, int* iters = nullptr) {
+                                                 float cap, int* iters = nullptr,
+                                                 const MarchOpts* mo = nullptr) {
+  if constexpr (OPTS) {
+    if (!mo->enable) {  // uniform over the launch
+      if (iters) *iters = 0;
+      return -1.0f;
+    }
+  }
   const MarchSpan sp = march_span(p, o, d, act, cap);
   const unsigned marching = __ballot_sync(MARCH_FULL_WARP, sp.may_hit);
   float t_out = sp.t0;
@@ -206,7 +241,8 @@ __device__ __forceinline__ float land_march_warp(const uint8_t* __restrict__ top
       Probe q{0.0f, 0.0f, false, false, false};
       if (!m.done) {
         for (int j = sub * per; j < (sub + 1) * per; ++j) {
-          q = march_probe(topo, p, so, sd, m.t + (float)j * m.stride, m.stride, miss_beyond);
+          q = march_probe<OPTS>(topo, p, so, sd, m.t + (float)j * m.stride, m.stride,
+                                miss_beyond, mo);
           if (q.stop) break;
         }
       }
@@ -237,6 +273,9 @@ __device__ __forceinline__ float land_march_warp(const uint8_t* __restrict__ top
     }
   }
   if (iters) *iters = it_out;
+  if constexpr (OPTS) {
+    if (!mo->ref_phantom) return (!missed_out && t_out < MAX_RAY_DIST_F) ? t_out : -1.0f;
+  }
   return phantom_crawl(p, o, d, act, cap, (!missed_out && t_out < MAX_RAY_DIST_F) ? t_out : -1.0f);
 }
 

@@ -49,6 +49,12 @@
 // way) they kept more of the lane's values on the stack across each call
 // and ran slower on the card, with the same bits. One launch replaces the
 // eager glue's thousands of element-wise launches per frame.
+//
+// Instances: the default (the march's options compiled in at their
+// defaults), its census instance, and the options instance (OPTS), whose
+// land and shadow marches read TraceConfig.enable_land, bilinear_tracking,
+// march_exact_ocean and march_ref_phantom at run time (land_march.cuh; the
+// stall patience is a parameter of every instance).
 #include <cstdint>
 
 #include <cuda_runtime.h>
@@ -77,6 +83,7 @@ struct PreviewParams {
   int march_steps, march_k, patience, bilinear, tile;
   int topo_h, topo_w, mat_h, mat_w, stars_h, stars_w;
   Key key;
+  MarchOpts mo;  // the options instance's
 };
 
 struct PreviewArgs {
@@ -95,11 +102,18 @@ struct PreviewArgs {
   long long* cycles;  // census instance only: (n, 3) clock64 cycles per lane
 };
 
+// The march's options of an instance: the parameters' (OPTS), else none.
+template <bool OPTS>
+__device__ __forceinline__ const MarchOpts* options(const PreviewParams& p) {
+  if constexpr (OPTS) return &p.mo;
+  else return nullptr;
+}
+
 // CENSUS: the census instance, which also writes each lane's clock64 cycles
 // in the land and shadow march calls (which every thread of the warp makes),
 // in the march and in all (a.cycles); the
-// timed instances compile without it.
-template <bool CENSUS = false>
+// timed instances compile without it. OPTS: the options instance.
+template <bool CENSUS = false, bool OPTS = false>
 __global__ void __launch_bounds__(PREVIEW_BLOCK) preview_kernel(PreviewArgs a, PreviewParams p) {
   long long t_land = 0, t_march = 0, t_all = 0, c = 0;
   if constexpr (CENSUS) t_all = clock64();
@@ -160,7 +174,8 @@ __global__ void __launch_bounds__(PREVIEW_BLOCK) preview_kernel(PreviewArgs a, P
     }
     // the land march, every thread of the warp (-1 where a lane does not march)
     if constexpr (CENSUS) c = clock64();
-    const float earth = land_march_warp(a.topo, mp, pos, dir, crossing, no_cap);
+    const float earth =
+        land_march_warp<OPTS>(a.topo, mp, pos, dir, crossing, no_cap, nullptr, options<OPTS>(p));
     if constexpr (CENSUS) t_land += clock64() - c;
     if (crossing) t_max = earth > 0.0f ? earth : a_far;
     float in_scatter = 0.0f, trans = 1.0f;
@@ -183,7 +198,8 @@ __global__ void __launch_bounds__(PREVIEW_BLOCK) preview_kernel(PreviewArgs a, P
     }
     // the shadow march, every thread of the warp
     if constexpr (CENSUS) c = clock64();
-    const float shadow = land_march_warp(a.topo, mp, offset_pos, light_dir, surface, no_cap);
+    const float shadow = land_march_warp<OPTS>(a.topo, mp, offset_pos, light_dir, surface, no_cap,
+                                               nullptr, options<OPTS>(p));
     if constexpr (CENSUS) t_land += clock64() - c;
     if (!surface) continue;
 
@@ -231,9 +247,12 @@ __global__ void __launch_bounds__(PREVIEW_BLOCK) preview_kernel(PreviewArgs a, P
 //     (1 + 1e-4 scale / 12000), planck_a, planck_b, planck_k,
 //     sun_temperature, nightlight_temperature, nightlight_scale, stars_scale,
 //     rayleigh_albedo, aerosol_albedo, rayl_k, mie_e, two_pi, log_term
-// ip (11 ints): land_march_steps, march_k, march_patience,
+// ip (16 ints): land_march_steps, march_k, march_patience,
 //     bilinear_materials, tile (lanes per tile), topography H, W, material H,
-//     W, stars H, W
+//     W, stars H, W; the march options enable_land, bilinear_tracking,
+//     march_exact_ocean, march_ref_phantom (each 0 or 1); the instance (1:
+//     the options instance; 0: the default, which takes the options'
+//     defaults only; every instance takes any march_patience)
 // cycles: null, or (n, 3) int64 for the census instance: each lane's
 // clock64 cycles in its land and shadow marches, in the march
 // and in all.
@@ -281,6 +300,15 @@ extern "C" int de_preview(const float* fp, const int* ip, uint32_t k0, uint32_t 
   p.stars_h = ip[9];
   p.stars_w = ip[10];
   p.key = de::Key{k0, k1};
+  p.mo = de::MarchOpts{ip[11], ip[12], ip[13], ip[14]};
+  const int opts = ip[15];
+  for (int j = 11; j <= 15; ++j) {
+    if (ip[j] != 0 && ip[j] != 1) return (int)cudaErrorInvalidValue;
+  }
+  if (!opts && !(p.mo.enable == 1 && p.mo.bilinear == 0 && p.mo.exact_ocean == 1 &&
+                 p.mo.ref_phantom == 1))
+    return (int)cudaErrorInvalidValue;  // the default instance runs the defaults only
+  if (opts && cycles) return (int)cudaErrorInvalidValue;  // no census of the options instance
   if (pos == nullptr && origin == nullptr) return (int)cudaErrorInvalidValue;
   const de::PreviewArgs a{pos, dir, wavelength, tile_index, lane_index, topo, material,
                           stars, o3, srgb2spec, out, n, cycles};
@@ -288,15 +316,18 @@ extern "C" int de_preview(const float* fp, const int* ip, uint32_t k0, uint32_t 
     const int blocks = (n + de::PREVIEW_BLOCK - 1) / de::PREVIEW_BLOCK;
     cudaStream_t st = (cudaStream_t)stream;
     if (cycles) de::preview_kernel<true><<<blocks, de::PREVIEW_BLOCK, 0, st>>>(a, p);
+    else if (opts) de::preview_kernel<false, true><<<blocks, de::PREVIEW_BLOCK, 0, st>>>(a, p);
     else de::preview_kernel<><<<blocks, de::PREVIEW_BLOCK, 0, st>>>(a, p);
   }
   return (int)cudaGetLastError();
 }
 
-// Occupancy of the preview kernel: out = (resident blocks per SM, threads
-// per block, registers per thread, local memory bytes per thread).
-extern "C" int de_preview_occupancy(int* out) {
-  const void* fn = (const void*)de::preview_kernel<>;
+// Occupancy of the preview kernel, the default instance or with opts the
+// options instance: out = (resident blocks per SM, threads per block,
+// registers per thread, local memory bytes per thread).
+extern "C" int de_preview_occupancy(int opts, int* out) {
+  const void* fn = opts ? (const void*)de::preview_kernel<false, true>
+                        : (const void*)de::preview_kernel<>;
   int blocks = 0;
   cudaError_t rc =
       cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, de::PREVIEW_BLOCK, 0);

@@ -14,6 +14,16 @@ entry), and adds one to its ``launches`` counter (under a lock: a mesh
 launches from several threads). Nothing here imports or builds anything
 until a kernel is launched; there is no fallback to the plain versions.
 
+The land march, the cloud tracker, the bounce entries and the preview each
+have an options instance, built beside the default one: it reads the scene
+and march options (``render/params.SCENE_OPTIONS``) from its parameters at
+run time, where the default instance compiles them in at their defaults
+(every instance reads the stall patience at run time). A wrapper launches
+the options instance when any flag it is given differs from its default, or
+when its ``options`` keyword asks for it (a check that
+it gives the default instance's bits at the defaults); such a launch also
+adds one to the wrapper's ``options_launches``.
+
 Built with ``--fmad=false`` and without fast math, so the kernels round each
 operation as PyTorch's element-wise CUDA ops do (the one fused multiply-add,
 in the perigee radius, is ``fmaf`` here and a float64 multiply-add in the
@@ -53,9 +63,10 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _BOUNCE_ARGS = [_P] * 15 + [_I, _I] + [_P] * 6
 _SIGNATURES = {
     # topo, H, W, pos, dir, active, t_cap, out, n, scale, step_floor,
-    # stall_thresh, steps, k, patience, any_hit, stream
+    # stall_thresh, steps, k, patience, any_hit, the options instance,
+    # enable_land, bilinear, exact_ocean, ref_phantom, stream
     "de_land_march": [_P, _I, _I, _P, _P, _P, _P, _P, _I, _F, _F, _F,
-                      _I, _I, _I, _I, _P],
+                      _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # keys, pos, dir, t_start, t_max, ext_h, active, event, t, iid, n,
     # max_steps, k, o3_env_peak, stream
     "de_rmo_delta_track": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
@@ -64,9 +75,9 @@ _SIGNATURES = {
     # n_lambdas, max_steps, k, stream
     "de_rmo_ratio_track": [_P] * 10 + [_I, _I, _I, _I, _P],
     # keys, pos, dir, t_start, t_max, ext_w, active, clouds, H, W, event, t,
-    # trans, n, max_steps, k, ratio, stream
+    # trans, n, max_steps, k, ratio, the options instance, bilinear, stream
     "de_cloud_track": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P,
-                       _I, _I, _I, _I, _P],
+                       _I, _I, _I, _I, _I, _I, _P],
     # pos, dir, t_start, t_max, sun_dir, ext_rmo, scattering, active,
     # in_scatter, trans, n, rayl_k, mie_e, two_pi, log_term, stream
     "de_atmos_march": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _F, _F, _F,
@@ -96,8 +107,8 @@ _SIGNATURES = {
     "de_bounce_flight": _BOUNCE_ARGS + [_P, _P, _P, _P],
     "de_bounce_shade": _BOUNCE_ARGS + [_P, _P, _P, _P],
     "de_bounce_window": _BOUNCE_ARGS + [_I, _P],
-    # which, out (4 ints)
-    "de_bounce_occupancy": [_I, _P],
+    # which, the options instance, out (4 ints)
+    "de_bounce_occupancy": [_I, _I, _P],
     # alive, work_class, n, out, n_live, scratch, stream
     "de_compact_lanes": [_P, _P, _I, _P, _P, _P, _P],
     # n
@@ -121,8 +132,8 @@ _SIGNATURES = {
     # tile_index, lane_index, topo, material, stars, o3_crossec, srgb2spec,
     # out, cycles, n, stream
     "de_preview": [_P, _P, ctypes.c_uint, ctypes.c_uint] + [_P] * 13 + [_I, _P],
-    # out (4 ints)
-    "de_preview_occupancy": [_P],
+    # the options instance, out (4 ints)
+    "de_preview_occupancy": [_I, _P],
     # float params, int params, color buffer, count, response table, out, stream
     "de_film_postprocess": [_P] * 7,
 }
@@ -222,9 +233,20 @@ def _launch(fn_name, *args):
         raise RuntimeError(f"{fn_name}: CUDA error {rc}")
 
 
-def _count(fn, n):
+def _count(fn, n, options=False):
     with _lock:
         fn.launches += n
+        if options:
+            fn.options_launches += n
+
+
+# The scene and march flags' defaults (render/params.SCENE_OPTIONS), at
+# which the default instances are built, and the march's flags in the order
+# the march launcher and the preview's int block take them (the stall
+# patience is a run-time parameter of every instance)
+OPTION_DEFAULTS = dict(enable_clouds=1, enable_land=1, bilinear_tracking=0, lazy_march=1,
+                       march_exact_ocean=1, march_ref_phantom=1)
+MARCH_OPTIONS = ("enable_land", "bilinear_tracking", "march_exact_ocean", "march_ref_phantom")
 
 
 def keys_i32(keys):
@@ -248,12 +270,18 @@ def _check_march_k(k: int):
 
 def land_march(topo, pos, direction, active, t_cap, scale: float, *,
                step_floor: float, stall_thresh: float, steps: int, k: int,
-               patience: int, any_hit: bool):
+               patience: int, any_hit: bool, enable: bool = True, bilinear: bool = False,
+               exact_ocean: bool = True, ref_phantom: bool = True, options: bool = False):
     """Launch ``land_march`` (csrc/land_march.cu): (n,) hit distance, -1 on
     a miss. The march gives each marching lane ``k`` threads of its warp:
-    ``k`` must divide 32."""
+    ``k`` must divide 32. The march's options (``enable`` False: no land,
+    every ray misses; ``bilinear`` taps; the exact ocean root; the phantom
+    crawl) or ``options`` launch the options instance; every instance takes
+    any ``patience``."""
     dev = pos.device
     _check_march_k(k)
+    flags = (int(enable), int(bilinear), int(exact_ocean), int(ref_phantom))
+    opts = options or flags != tuple(OPTION_DEFAULTS[name] for name in MARCH_OPTIONS)
     n = pos.shape[0]
     h, w = topo.shape[:2]
     _check_tex4("topo", topo, dev)
@@ -266,9 +294,9 @@ def land_march(topo, pos, direction, active, t_cap, scale: float, *,
         _launch(
             "de_land_march", _ptr(topo), h, w, _ptr(pos), _ptr(direction),
             _ptr(active), _ptr(t_cap), _ptr(out), n, scale, step_floor,
-            stall_thresh, steps, k, patience, int(any_hit),
+            stall_thresh, steps, k, patience, int(any_hit), int(opts), *flags,
         )
-        _count(land_march, 1)
+        _count(land_march, 1, opts)
     return out
 
 
@@ -333,9 +361,12 @@ def rmo_ratio_track(keys, pos, direction, t_start, t_max, ext, max_ext, active, 
 
 
 def cloud_track(keys, pos, direction, t_start, t_max, ext_w, active, clouds, *,
-                max_steps: int, k: int, ratio: bool):
+                max_steps: int, k: int, ratio: bool, bilinear: bool = False,
+                options: bool = False):
     """Launch ``cloud_track`` (csrc/cloud_track.cu): (event int32, t) in
-    delta mode, the (n,) transmittance in ratio mode."""
+    delta mode, the (n,) transmittance in ratio mode. ``bilinear`` taps (or
+    ``options``) launch the options instance."""
+    opts = options or bilinear
     dev = pos.device
     n = pos.shape[0]
     h, w = clouds.shape[:2]
@@ -356,9 +387,9 @@ def cloud_track(keys, pos, direction, t_start, t_max, ext_w, active, clouds, *,
             "de_cloud_track", _ptr(keys), _ptr(pos), _ptr(direction),
             _ptr(t_start), _ptr(t_max), _ptr(ext_w), _ptr(active),
             _ptr(clouds), h, w, _ptr(event), _ptr(t), _ptr(trans), n,
-            max_steps, k, int(ratio),
+            max_steps, k, int(ratio), int(opts), int(bilinear),
         )
-        _count(cloud_track, 1)
+        _count(cloud_track, 1, opts)
     return trans if ratio else (event, t)
 
 
@@ -671,7 +702,13 @@ def film_postprocess(color_buffer, count, spp: float, exposure_scale: float,
 # wavelengths per lane the bounce entries, gen_rays and the ratio tracker are
 # built for (csrc/bounce.cuh; TraceConfig.hero_lambdas takes these)
 BOUNCE_WIDTHS = (1, 4)
-BOUNCE_FLOATS, BOUNCE_INTS = 16, 16  # the bounce entries' parameter blocks (csrc/bounce.cu)
+# the scene and march flags that follow the bounce entries' sixteen ints, in
+# order (the stall patience, int 5, is a run-time parameter of every instance)
+BOUNCE_OPTIONS = ("enable_clouds", "enable_land", "bilinear_tracking", "lazy_march",
+                  "march_exact_ocean", "march_ref_phantom")
+# the bounce entries' parameter blocks as the wrappers take them; the C
+# entries' int block has one more, the instance (csrc/bounce.cu)
+BOUNCE_FLOATS, BOUNCE_INTS = 16, 16 + len(BOUNCE_OPTIONS)
 BOUNCE_SITES = 7  # the census's loop sites (csrc/bounce.cuh SITE_*)
 # the census's clock64 columns: the seven sites, then bounce_flight's and
 # bounce_shade's whole (csrc/bounce.cuh CYCLE_COLS)
@@ -680,10 +717,21 @@ BOUNCE_CYCLE_COLS = BOUNCE_SITES + 2
 OCCUPANCY_ENTRIES = ("bounce_flight", "bounce_shade", "bounce_window")
 
 
+def _options_instance(iparams, first: int, names, force: bool) -> bool:
+    """Whether a launch takes the options instance: ``force``, or a flag of
+    the int block (``names`` from int ``first`` on) off its default. Raises
+    on a flag other than 0 or 1."""
+    flags = iparams[first:first + len(names)]
+    if any(v not in (0, 1) for v in flags):
+        raise ValueError(f"options {dict(zip(names, flags))}: each flag 0 or 1")
+    return bool(force or any(v != OPTION_DEFAULTS[name] for name, v in zip(names, flags)))
+
+
 def _bounce_args(fparams, iparams, pos, direction, wavelength, lambda_pdf, throughput, radiance,
                  w_mis, alive, primary_miss, work_class, keys, idx, topo, material, clouds,
-                 o3_crossec, srgb2spec, table, n_live):
-    """Check a bounce launch's arguments: the C arguments up to the tables."""
+                 o3_crossec, srgb2spec, table, n_live, options=False):
+    """Check a bounce launch's arguments: (the C arguments up to the tables,
+    the ctypes blocks they point to, whether the options instance runs)."""
     dev = pos.device
     n = pos.shape[0]
     m = idx.shape[0]
@@ -719,15 +767,16 @@ def _bounce_args(fparams, iparams, pos, direction, wavelength, lambda_pdf, throu
     _check("o3_crossec", o3_crossec, torch.float32, (441,), dev)
     _check("srgb2spec", srgb2spec, torch.float32, (300, 3), dev)
     _check("table", table, torch.float32, (384, 1024, 3), dev)
+    opts = _options_instance(iparams, 16, BOUNCE_OPTIONS, options)
     fp = (ctypes.c_float * BOUNCE_FLOATS)(*fparams)
-    ip = (ctypes.c_int * BOUNCE_INTS)(*iparams)
+    ip = (ctypes.c_int * (BOUNCE_INTS + 1))(*iparams, int(opts))
     return [
         ctypes.cast(fp, ctypes.c_void_p), ctypes.cast(ip, ctypes.c_void_p),
         _ptr(pos), _ptr(direction), _ptr(wavelength), _ptr(lambda_pdf), _ptr(throughput),
         _ptr(radiance), _ptr(w_mis), _ptr(alive), _ptr(primary_miss), _ptr(work_class),
         _ptr(keys), _ptr(idx), _ptr_or_null(n_live), m, n, _ptr(topo), _ptr(material),
         _ptr(clouds), _ptr(o3_crossec), _ptr(srgb2spec), _ptr(table),
-    ], (fp, ip)
+    ], (fp, ip), opts
 
 
 def _census_args(trips, cycles, m, dev):
@@ -740,7 +789,7 @@ def _census_args(trips, cycles, m, dev):
     return _ptr_or_null(trips), _ptr_or_null(cycles)
 
 
-def bounce_flight(*args, n_live=None, trips=None, cycles=None):
+def bounce_flight(*args, n_live=None, trips=None, cycles=None, options=False):
     """Launch ``bounce_flight`` (csrc/bounce.cu), steps 1-3 of one bounce of
     the lanes ``idx`` (m,) int32 of the (N, ...) state (an id outside [0, N)
     is skipped): the (m, 4) float32 flight outcome of each list entry (t_int,
@@ -749,7 +798,8 @@ def bounce_flight(*args, n_live=None, trips=None, cycles=None):
     radiance, w_mis, alive, primary_miss, work_class, keys, idx, topo,
     material, clouds, o3_crossec, srgb2spec, table. ``keys`` are the (N, 2)
     lane keys as int32 (``keys_i32``); ``fparams`` (16 floats) and
-    ``iparams`` (16 ints) are laid out as csrc/bounce.cu documents
+    ``iparams`` (22 ints: the 16 of csrc/bounce.cu, then the options
+    ``BOUNCE_OPTIONS``) are laid out as csrc/bounce.cu documents
     (render/pathtracer.py builds them). With ``n_live``, the (1,) int32 live
     count on the device, entries of ``idx`` at or past it are skipped
     (``idx`` is then an upper bound's worth). With ``trips``, an (m, 7)
@@ -758,19 +808,20 @@ def bounce_flight(*args, n_live=None, trips=None, cycles=None):
     (m, 9) int64 tensor, its clock64 cycles there and in the whole kernel
     (column 7). The wavelengths per lane (``iparams[0]``, one of
     ``BOUNCE_WIDTHS``) and the sun transmittance (``iparams[15]``: 1 ratio
-    tracking, 0 the closed form) pick the kernels' instance."""
-    c_args, _refs = _bounce_args(*args, n_live)
+    tracking, 0 the closed form) pick the kernels' instance, an option off
+    its default (or ``options``) the options instance of it."""
+    c_args, _refs, opts = _bounce_args(*args, n_live, options)
     m = args[13].shape[0]
     dev = args[2].device
     census = _census_args(trips, cycles, m, dev)
     out = torch.empty((m, 4), dtype=torch.float32, device=dev)
     if m:
         _launch("de_bounce_flight", *c_args, _ptr(out), *census)
-        _count(bounce_flight, 1)
+        _count(bounce_flight, 1, opts)
     return out
 
 
-def bounce_shade(*args, flight, n_live=None, trips=None, cycles=None):
+def bounce_shade(*args, flight, n_live=None, trips=None, cycles=None, options=False):
     """Launch ``bounce_shade`` (csrc/bounce.cu), steps 4-7 of the bounce
     (arguments as ``bounce_flight`` takes them; the state is read and written
     in place), from ``bounce_flight``'s (m, 4) outcome ``flight`` of the same
@@ -778,33 +829,35 @@ def bounce_shade(*args, flight, n_live=None, trips=None, cycles=None):
     shadow march, NEE cloud tracking and NEE RMO ratio tracking (columns
     4-6; column 6 is 0 with the closed form), with ``cycles`` their clock64
     cycles and the whole kernel's (column 8)."""
-    c_args, _refs = _bounce_args(*args, n_live)
+    c_args, _refs, opts = _bounce_args(*args, n_live, options)
     m = args[13].shape[0]
     dev = args[2].device
     _check("flight", flight, torch.float32, (m, 4), dev)
     census = _census_args(trips, cycles, m, dev)
     if m:
         _launch("de_bounce_shade", *c_args, _ptr(flight), *census)
-        _count(bounce_shade, 1)
+        _count(bounce_shade, 1, opts)
 
 
-def bounce_window(*args, stop: int, n_live=None):
+def bounce_window(*args, stop: int, n_live=None, options=False):
     """Launch ``bounce_window`` (csrc/bounce.cu): bounces iparams[1] .. stop
     - 1 of each listed lane (arguments as ``bounce_flight`` takes them) in one
     launch, each lane until it dies, its state kept in registers."""
-    c_args, _refs = _bounce_args(*args, n_live)
+    c_args, _refs, opts = _bounce_args(*args, n_live, options)
     m = args[13].shape[0]
     if m and stop > args[1][1]:
         _launch("de_bounce_window", *c_args, int(stop))
-        _count(bounce_window, 1)
+        _count(bounce_window, 1, opts)
 
 
-def bounce_occupancy(which: str) -> dict:
+def bounce_occupancy(which: str, options: bool = False) -> dict:
     """ptxas's and the occupancy calculator's view of a bounce entry
-    (``OCCUPANCY_ENTRIES``) on the current device: resident blocks and warps
-    per SM, threads per block, registers and local bytes per thread."""
+    (``OCCUPANCY_ENTRIES``; its default instance, L = 4 and the closed form,
+    or with ``options`` its options instance) on the current device:
+    resident blocks and warps per SM, threads per block, registers and local
+    bytes per thread."""
     out = (ctypes.c_int * 4)()
-    rc = library().de_bounce_occupancy(OCCUPANCY_ENTRIES.index(which),
+    rc = library().de_bounce_occupancy(OCCUPANCY_ENTRIES.index(which), int(options),
                                        ctypes.cast(out, ctypes.c_void_p))
     if rc != 0:
         raise RuntimeError(f"de_bounce_occupancy: CUDA error {rc}")
@@ -995,11 +1048,16 @@ def upsample(base, factor: int, jitter: float, jitter_channel: int, jitter_seed:
     return out
 
 
-PREVIEW_FLOATS, PREVIEW_INTS = 22, 11  # the preview kernel's parameter blocks
+# the preview kernel's parameter blocks as the wrapper takes them: eleven
+# ints, then MARCH_OPTIONS (the stall patience, int 2, is a run-time
+# parameter of every instance); the C entry's int
+# block has one more, the instance (csrc/preview.cu)
+PREVIEW_FLOATS, PREVIEW_INTS = 22, 11 + len(MARCH_OPTIONS)
 
 
 def preview(fparams, iparams, key, pos, direction, wavelength, tile_index, lane_index, topo,
-            material, stars, o3_crossec, srgb2spec, *, origin=None, census: bool = False):
+            material, stars, o3_crossec, srgb2spec, *, origin=None, census: bool = False,
+            options: bool = False):
     """Launch ``preview`` (csrc/preview.cu): the (n,) preview radiance of
     each lane, the whole of ``march_paths``. ``key`` is (k0, k1): the spp key
     with ``tile_index`` (n,) int64 (the lane's tile key is fold(key, tile
@@ -1007,11 +1065,13 @@ def preview(fparams, iparams, key, pos, direction, wavelength, tile_index, lane_
     ``lane_index`` (n,) int64 is the in-tile index (None with ``tile_index``
     None). ``pos`` (n, 3), or None with ``origin`` (three floats) every
     lane's origin, passed by value. ``fparams`` (22 floats) and ``iparams``
-    (11 ints) are laid out as de_preview documents
-    (render/raymarcher.PreviewFrame builds them). With ``census`` the
-    census instance runs and (out, cycles) comes back, cycles (n, 3) int64
-    each lane's clock64 cycles in its land and shadow marches, in the march
-    and in all."""
+    (15 ints: de_preview's first 11, then the march options
+    ``MARCH_OPTIONS``) are laid out as de_preview documents
+    (render/raymarcher.PreviewFrame builds them); an option off its default
+    (or ``options``) runs the options instance. With ``census`` the census
+    instance (of the default) runs and (out, cycles) comes back, cycles (n,
+    3) int64 each lane's clock64 cycles in its land and shadow marches, in
+    the march and in all."""
     dev = direction.device
     n = direction.shape[0]
     if len(fparams) != PREVIEW_FLOATS or len(iparams) != PREVIEW_INTS:
@@ -1040,11 +1100,15 @@ def preview(fparams, iparams, key, pos, direction, wavelength, tile_index, lane_
         raise ValueError("preview: texture sizes disagree with the int parameters")
     _check("o3_crossec", o3_crossec, torch.float32, (441,), dev)
     _check("srgb2spec", srgb2spec, torch.float32, (300, 3), dev)
+    opts = _options_instance(iparams, 11, MARCH_OPTIONS, options)
+    if census and opts:
+        raise ValueError("preview: the census instance is the default instance's; the "
+                         "options instance has none")
     out = torch.empty((n,), dtype=torch.float32, device=dev)
     cycles = torch.empty((n, 3), dtype=torch.int64, device=dev) if census else None
     if n:
         fp = (ctypes.c_float * PREVIEW_FLOATS)(*fparams)
-        ip = (ctypes.c_int * PREVIEW_INTS)(*iparams)
+        ip = (ctypes.c_int * (PREVIEW_INTS + 1))(*iparams, int(opts))
         org = (ctypes.c_float * 3)(*origin) if origin is not None else None
         _launch(
             "de_preview", ctypes.cast(fp, ctypes.c_void_p), ctypes.cast(ip, ctypes.c_void_p),
@@ -1055,13 +1119,13 @@ def preview(fparams, iparams, key, pos, direction, wavelength, tile_index, lane_
             _ptr(material), _ptr(stars), _ptr(o3_crossec), _ptr(srgb2spec), _ptr(out),
             _ptr_or_null(cycles), n,
         )
-        _count(preview, 1)
+        _count(preview, 1, opts)
     return (out, cycles) if census else out
 
 
-def _occupancy(entry):
+def _occupancy(entry, *args):
     out = (ctypes.c_int * 4)()
-    rc = getattr(library(), entry)(out)
+    rc = getattr(library(), entry)(*args, out)
     if rc != 0:
         raise RuntimeError(f"{entry}: CUDA error {rc}")
     blocks, threads, regs, local = list(out)
@@ -1069,10 +1133,11 @@ def _occupancy(entry):
                 warps_per_sm=blocks * threads // 32)
 
 
-def preview_occupancy():
+def preview_occupancy(options: bool = False):
     """The ``preview`` kernel's registers per thread, local memory and
-    resident blocks and warps per SM on the current device."""
-    return _occupancy("de_preview_occupancy")
+    resident blocks and warps per SM on the current device (its default
+    instance, or with ``options`` its options instance)."""
+    return _occupancy("de_preview_occupancy", int(options))
 
 
 def atmos_march_occupancy():
@@ -1083,14 +1148,21 @@ def atmos_march_occupancy():
 PATH_KERNELS = (land_march, rmo_delta_track, rmo_ratio_track, cloud_track, gen_rays,
                 atmos_march, film_postprocess, frame_end, select_tiles, select_tiles_shard,
                 bounce_flight, bounce_shade, bounce_window, compact_lanes, upsample, preview)
-for _k in PATH_KERNELS:
-    _k.launches = 0
+# the kernels with an options instance
+OPTIONS_KERNELS = (land_march, cloud_track, bounce_flight, bounce_shade, bounce_window, preview)
 
 
 def reset_launch_counts():
     for fn in PATH_KERNELS:
-        fn.launches = 0
+        fn.launches = fn.options_launches = 0
+
+
+reset_launch_counts()
 
 
 def launch_counts() -> dict:
-    return {fn.__name__: fn.launches for fn in PATH_KERNELS}
+    """Each path kernel's launches (any instance), then as ``"<name>/options"``
+    those of each options instance."""
+    counts = {fn.__name__: fn.launches for fn in PATH_KERNELS}
+    counts.update({f"{fn.__name__}/options": fn.options_launches for fn in OPTIONS_KERNELS})
+    return counts

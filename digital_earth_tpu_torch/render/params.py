@@ -95,6 +95,18 @@ class TraceConfig:
     ``hero_lambdas`` takes the packet widths the bounce kernels are built
     for, ``HERO_WIDTHS``.
 
+    The scene and march options (``SCENE_OPTIONS``) change the image:
+    ``enable_clouds`` and ``enable_land`` take the cloud slab and the
+    terrain out of the scene; ``bilinear_tracking`` filters the march's and
+    the cloud trackers' in-loop taps (and the lazy march's origin tap)
+    bilinearly, as the original renderer filters everything;
+    ``lazy_march`` False marches before the flight (the reference's order)
+    instead of on demand after it; ``march_exact_ocean``,
+    ``march_ref_phantom`` and ``march_stall_patience`` are the march's
+    exact ocean root, its phantom crawl and its stall patience. At any of
+    the six flags off its default the kernels run their options instances;
+    every instance takes the stall patience at run time.
+
     The reference's other fields select TPU experiments, parity-bisection
     paths or TPU scheduling; the port implements each at its default.
     ``convert.trace_config`` carries a reference config across and rejects
@@ -103,14 +115,21 @@ class TraceConfig:
     max_bounces: int = C.MAX_BOUNCES
     land_march_steps: int = C.LAND_MARCH_STEPS
     max_tracking_steps: int = 8192
+    enable_clouds: bool = True
+    enable_land: bool = True
     rr_start: int = C.RUSSIAN_ROULETTE_START
+    bilinear_tracking: bool = False
     bilinear_materials: bool = True
     tracking_k: int = 4
     march_k: int = 4
     march_floor_frac: float = 0.005
+    march_ref_phantom: bool = True
     hero_lambdas: int = 4
     stratify_spp: bool = True
     analytic_transmittance: bool = True
+    march_exact_ocean: bool = True
+    march_stall_patience: int = 2
+    lazy_march: bool = True
 
     def __post_init__(self):
         if self.hero_lambdas not in HERO_WIDTHS:
@@ -118,4 +137,17 @@ class TraceConfig:
                 f"TraceConfig.hero_lambdas={self.hero_lambdas!r}: the port's kernels are built "
                 f"for packets of {' or '.join(map(str, HERO_WIDTHS))} wavelengths"
             )
+
+    def options(self) -> dict:
+        """The scene and march options that differ from their defaults."""
+        return {name: getattr(self, name) for name, default in SCENE_OPTIONS.items()
+                if getattr(self, name) != default}
+
+
+# The scene and march options with their (the reference's) defaults: the
+# bounce, march and preview kernels run their options instances when a flag
+# among them differs (every instance takes the stall patience).
+SCENE_OPTIONS = {name: TraceConfig.__dataclass_fields__[name].default for name in (
+    "enable_clouds", "enable_land", "bilinear_tracking", "lazy_march", "march_exact_ocean",
+    "march_ref_phantom", "march_stall_patience")}
 

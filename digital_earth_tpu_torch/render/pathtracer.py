@@ -3,6 +3,10 @@ digital_earth_tpu/render/pathtracer.py), at the default configuration and
 at the reference's estimator (``TraceConfig`` hero_lambdas 1 or 4,
 analytic_transmittance True or False).
 
+The scene and march options of ``TraceConfig`` (``params.SCENE_OPTIONS``)
+run through the twins and, at any of the six flags off its default, the
+kernels' options instances (every instance takes the stall patience).
+
 One bounce of the reference's ``run_bounces`` body (pathtracer.py:1554-1924)
 is ``run_bounce``: for CUDA tensors the kernels ``bounce_flight`` and
 ``bounce_shade`` (csrc/bounce.cu, at the instance of the packet width and
@@ -40,10 +44,9 @@ from ..ops import texture as tx
 from . import compact
 from .params import SceneParams, TraceConfig
 from .tracers import (  # noqa: F401  (re-exported loop entry points)
-    ABSORB_EVENT, NULL_EVENT, SCATTER_EVENT, _CLOUD_VALID, _MARCH_STALL_PATIENCE,
-    _MIP_VALID_COARSE, _MIP_VALID_FINE, _march_floor, delta_track_rmo, delta_track_rmo_plain,
-    intersect_land, intersect_land_plain, ratio_track_rmo, ratio_track_rmo_plain, track_cloud,
-    track_cloud_plain,
+    ABSORB_EVENT, NULL_EVENT, SCATTER_EVENT, _CLOUD_VALID, _MIP_VALID_COARSE, _MIP_VALID_FINE,
+    _march_floor, delta_track_rmo, delta_track_rmo_plain, intersect_land, intersect_land_plain,
+    ratio_track_rmo, ratio_track_rmo_plain, track_cloud, track_cloud_plain,
 )
 
 # RNG site ids (pathtracer.py:62-71): lane key -> bounce -> site -> loop.
@@ -140,26 +143,34 @@ def _rmo_span(ray_pos, ray_dir, land_isection):
 def sample_interaction(keys, ray_pos, ray_dir, land_isection, ext_rmo, ext_w,
                        atlas, active, cfg: TraceConfig, trips=None):
     """Cloud pass, then the RMO pass capped at the cloud event; the nearer
-    event wins (pathtracer.py:1236). Returns (event, t, iid, c_event, c_t).
-    With ``trips`` (n, 6) int32 the plain loops run and add their iterations
-    to the census columns of the two passes."""
+    event wins (pathtracer.py:1236). Returns (event, t, iid, c_event, c_t);
+    without clouds (``cfg.enable_clouds`` False) the RMO pass alone, with a
+    zero cloud event (:1315). With ``trips`` (n, 7) int32 the plain loops
+    run and add their iterations to the census columns of the two passes."""
     k_rmo = rng.fold(keys, _SUB_RMO)
     k_cloud = rng.fold(keys, _SUB_CLOUD)
     t_start, t_max = _rmo_span(ray_pos, ray_dir, land_isection)
-    c_start, c_max = intersect_cloud_limits(ray_pos, ray_dir, land_isection)
-    cloud_args = (k_cloud, ray_pos, ray_dir, c_start, c_max, ext_w, atlas.clouds, active, cfg)
-    if trips is None:
-        c_event, c_t = track_cloud(*cloud_args, mode="delta")
+    if cfg.enable_clouds:
+        c_start, c_max = intersect_cloud_limits(ray_pos, ray_dir, land_isection)
+        cloud_args = (k_cloud, ray_pos, ray_dir, c_start, c_max, ext_w, atlas.clouds, active,
+                      cfg)
+        if trips is None:
+            c_event, c_t = track_cloud(*cloud_args, mode="delta")
+        else:
+            c_event, c_t = track_cloud_plain(*cloud_args, mode="delta", trips=trips[:, 1])
+        # the RMO pass only needs to reach the cloud event
+        rmo_cap = torch.where(c_event > NULL_EVENT, torch.minimum(t_max, c_t), t_max)
     else:
-        c_event, c_t = track_cloud_plain(*cloud_args, mode="delta", trips=trips[:, 1])
-    # the RMO pass only needs to reach the cloud event
-    rmo_cap = torch.where(c_event > NULL_EVENT, torch.minimum(t_max, c_t), t_max)
+        rmo_cap = t_max
     rmo_args = (k_rmo, ray_pos, ray_dir, t_start, rmo_cap, ext_rmo[:, 0, :].contiguous(),
                 active, cfg)
     if trips is None:
         rmo_event, rmo_t, rmo_id = delta_track_rmo(*rmo_args)
     else:
         rmo_event, rmo_t, rmo_id = delta_track_rmo_plain(*rmo_args, trips=trips[:, 2])
+    if not cfg.enable_clouds:
+        return (rmo_event, rmo_t, rmo_id, torch.zeros_like(rmo_event),
+                torch.zeros_like(rmo_t))
     take_cloud = (c_event > NULL_EVENT) & (rmo_event == NULL_EVENT)
     event = torch.where(take_cloud, c_event, rmo_event)
     t = torch.where(take_cloud, c_t, rmo_t)
@@ -173,8 +184,9 @@ def sample_transmittance(keys, ray_pos, ray_dir, ext_rmo, ext_w, atlas,
     (pathtracer.py:1326). The gases' term is the exact closed form from the
     density table, or with ``cfg.analytic_transmittance`` False the
     reference's estimator, ratio tracking to space at the packet majorant
-    (:1348-1354). With ``trips`` (n, 7) int32 the plain loops run and add
-    their iterations to the census columns of the NEE passes."""
+    (:1348-1354); without clouds the gases' term alone (:1355). With
+    ``trips`` (n, 7) int32 the plain loops run and add their iterations to
+    the census columns of the NEE passes."""
     k_cloud = rng.fold(keys, _SUB_CLOUD)
     no_land = torch.full_like(ext_w, -1.0)
     if cfg.analytic_transmittance:
@@ -187,6 +199,8 @@ def sample_transmittance(keys, ray_pos, ray_dir, ext_rmo, ext_w, atlas,
             trans = ratio_track_rmo(*rmo_args)
         else:
             trans = ratio_track_rmo_plain(*rmo_args, trips=trips[:, 6])
+    if not cfg.enable_clouds:
+        return trans
     c_start, c_max = intersect_cloud_limits(ray_pos, ray_dir, no_land)
     cloud_args = (k_cloud, ray_pos, ray_dir, c_start, c_max, ext_w, atlas.clouds, active, cfg)
     if trips is None:
@@ -302,8 +316,12 @@ def run_bounce_plain(st: TraceState, bounce: int, scene: SceneParams, atlas, lut
     kb = rng.fold(st.rng, bounce)
 
     # March on demand: one topography tap at the origin certifies a
-    # terrain-free ball; only lanes whose flight leaves it march.
-    tap = tx.sample_sphere_texture(topo, pos, bilinear=False)
+    # terrain-free ball; only lanes whose flight leaves it march. March
+    # first (``cfg.lazy_march`` False, the reference's order, pathtracer.py:
+    # 1582-1591): every live lane marches at the first site, the flight is
+    # capped at its hit, and no lane marches after it nor is demoted.
+    first = not cfg.lazy_march
+    tap = tx.sample_sphere_texture(topo, pos, bilinear=cfg.bilinear_tracking)
     r_len = mu.length(pos)
     d_free = torch.maximum(
         torch.maximum(
@@ -314,7 +332,7 @@ def run_bounce_plain(st: TraceState, bounce: int, scene: SceneParams, atlas, lut
     )
     base_near, _ = mu.rsi(pos, direction, C.PLANET_R)
     cap_proxy = torch.where(base_near > 0.0, base_near, -1.0)
-    below = r_len < C.CLOUDS_LOWER_LIMIT
+    below = (r_len < C.CLOUDS_LOWER_LIMIT) | first
     pre = alive & below
     earth_pre = land(topo, pos, direction, scale, pre, cfg, site=0)
     land_proxy = torch.where(below, earth_pre, cap_proxy)
@@ -332,7 +350,7 @@ def run_bounce_plain(st: TraceState, bounce: int, scene: SceneParams, atlas, lut
     # demote RMO events beyond the land hit; the cloud event takes over
     demote = (
         (event > NULL_EVENT) & (iid != C.CLOUD_ID)
-        & (earth >= 0.0) & (earth <= t_int)
+        & (earth >= 0.0) & (earth <= t_int) & (not first)
     )
     resurrect = demote & (c_event > NULL_EVENT)
     event = torch.where(
@@ -485,8 +503,10 @@ def scene_floats(scene: SceneParams):
 
 class BounceFrame:
     """The bounce kernels' arguments that hold for a whole wavefront: the
-    scene's scalars from its host record, the lane keys as int32 once,
-    the density table (pathtracer.run_bounces builds one per call)."""
+    scene's scalars from its host record, the budgets and options of
+    ``cfg`` (the scene and march options after the sixteen ints the
+    default instances read), the lane keys as int32 once, the density
+    table (pathtracer.run_bounces builds one per call)."""
 
     def __init__(self, st: TraceState, scene: SceneParams, atlas, luts, cfg: TraceConfig):
         topo = atlas.topography
@@ -497,9 +517,10 @@ class BounceFrame:
                         *vol.MAX_DENS_RMO]
         self.iparams = [
             st.wavelength.shape[1], 0, cfg.rr_start, cfg.land_march_steps, cfg.march_k,
-            _MARCH_STALL_PATIENCE, cfg.max_tracking_steps, cfg.tracking_k,
+            cfg.march_stall_patience, cfg.max_tracking_steps, cfg.tracking_k,
             int(cfg.bilinear_materials), *topo.shape[:2], *atlas.material.shape[:2],
             *atlas.clouds.shape[:2], int(not cfg.analytic_transmittance),
+            *(int(getattr(cfg, name)) for name in kernels.BOUNCE_OPTIONS),
         ]
         self.keys = kernels.keys_i32(st.rng)
         self.tables = (topo, atlas.material, atlas.clouds, luts.o3_crossec, luts.srgb2spec,

@@ -32,8 +32,8 @@ from ..ops import sampling as smp
 from ..ops import spectral as sp
 from ..ops import texture as tx
 from .params import SceneParams, TraceConfig
-from .pathtracer import (_MARCH_STALL_PATIENCE, _march_floor, get_land_material,
-                         intersect_land, land_normal, scene_floats)
+from .pathtracer import (_march_floor, get_land_material, intersect_land, land_normal,
+                         scene_floats)
 
 _TRANSMITTANCE_STEPS = 16
 _MARCH_STEPS = 64
@@ -206,7 +206,7 @@ class PreviewFrame:
     """The ``preview`` kernel's parameter blocks for a frame: the scene's
     scalars (``pathtracer.scene_floats``, the scene's host record), the
     march floor, the Planck and phase constants (floats), the march budget,
-    the lanes per tile and the texture shapes (ints). Built from host values
+    the lanes per tile, the texture shapes and the march's options (ints). Built from host values
     only, so it reads nothing from the card; the ``Renderer`` keeps one per
     scene, atlas, config and tile."""
 
@@ -221,9 +221,9 @@ class PreviewFrame:
             *kernels.atmos_phase_constants(C.MIE_ASYMMETRY),
         ]
         self.iparams = [
-            cfg.land_march_steps, cfg.march_k, _MARCH_STALL_PATIENCE,
+            cfg.land_march_steps, cfg.march_k, cfg.march_stall_patience,
             int(cfg.bilinear_materials), tile, *topo.shape[:2], *atlas.material.shape[:2],
-            *atlas.stars.shape[:2],
+            *atlas.stars.shape[:2], *(int(getattr(cfg, name)) for name in kernels.MARCH_OPTIONS),
         ]
 
 

@@ -4,7 +4,8 @@ version and a wrapper that launches the hand-written CUDA kernel
 
 - ``intersect_land``: displaced-sphere march + phantom crawl
   (digital_earth_tpu/render/pathtracer.py:211 intersect_land, :515
-  _phantom_crawl) -> kernel ``land_march``;
+  _phantom_crawl) -> kernel ``land_march``; ``TraceConfig.enable_land``
+  False makes every ray miss;
 - ``delta_track_rmo``: Woodcock flight through Rayleigh/Mie/ozone with the
   local hero majorant (pathtracer.py:631 _delta_track_rmo) -> kernel
   ``rmo_delta_track``;
@@ -56,7 +57,6 @@ SCATTER_EVENT = 2
 _MIP_VALID_FINE = 25e3
 _MIP_VALID_COARSE = 115e3
 _PHANTOM_PRUNE_ALT = 16e3
-_MARCH_STALL_PATIENCE = 2  # reference TraceConfig.march_stall_patience
 _MAX_RAY_DIST = C.PLANET_R * 10.0
 
 # Cloud majorant-mip ladder (pathtracer.py:894-903).
@@ -127,9 +127,13 @@ def intersect_land_plain(topo, pos, direction, scale, active, cfg: TraceConfig,
                          t_cap=None, any_hit=False, trips=None):
     """Plain PyTorch twin of the ``land_march`` kernel: hit distance, -1 on
     a miss. ``trips`` (n,) int32: the march's iterations per lane are added
-    there (the phantom crawl's are not)."""
+    there (the phantom crawl's are not). ``cfg``'s march options: no land
+    (every ray misses, no trips), bilinear taps, the exact ocean root, the
+    stall patience and the phantom crawl."""
     n = pos.shape[0]
     dev = pos.device
+    if not cfg.enable_land:
+        return torch.full((n,), -1.0, device=dev)
     k = cfg.march_k
     step_floor, stall_thresh = _march_floor(topo, cfg)
     if t_cap is None:
@@ -151,7 +155,7 @@ def intersect_land_plain(topo, pos, direction, scale, active, cfg: TraceConfig,
         t, stride = s["t"], s["stride"]
         ts = t[None, :] + arange_k * stride[None, :]  # (k, m)
         ro = c["pos"][None] + ts[..., None] * c["dir"][None]
-        sample = tx.sample_sphere_texture(topo, ro, bilinear=False)  # (k, m, 4)
+        sample = tx.sample_sphere_texture(topo, ro, bilinear=cfg.bilinear_tracking)  # (k, m, 4)
         dir_b = c["dir"][None].expand_as(ro)
         b = dot(ro, dir_b)
         cr = cross(ro, dir_b)
@@ -182,13 +186,13 @@ def intersect_land_plain(topo, pos, direction, scale, active, cfg: TraceConfig,
         p_near = torch.where(
             pdisc < 0.0, -1.0, -b - torch.sqrt(torch.clamp(pdisc, min=0.0))
         )
-        ocean_hit = torch.any(
-            (mips <= 0.0) & (p_near[None] > 0.0) & (p_near[None] <= valid3),
-            dim=0,
-        )
         converged = torch.abs(f) < ts * 1e-4
         t_conv = torch.where(converged, ts, ts + p_near)
-        converged = converged | ocean_hit
+        if cfg.march_exact_ocean:
+            converged = converged | torch.any(
+                (mips <= 0.0) & (p_near[None] > 0.0) & (p_near[None] <= valid3),
+                dim=0,
+            )
         if any_hit:
             converged = converged | (f < 0.0)
             t_conv = torch.where(f < 0.0, ts, t_conv)
@@ -211,7 +215,7 @@ def intersect_land_plain(topo, pos, direction, scale, active, cfg: TraceConfig,
         t_next = torch.where(newly_done, t_stop, t_new)
         stalled_now = (~newly_done) & (t_next - t < stall_thresh)
         stall = torch.where(stalled_now, s["stall"] + 1, 0)
-        stuck = stall >= _MARCH_STALL_PATIENCE
+        stuck = stall >= cfg.march_stall_patience
         stride = torch.where(newly_done | stuck, stride, stride_new)
         return dict(t=t_next, stride=stride, done=newly_done | stuck,
                     missed=missed, stall=stall)
@@ -227,6 +231,8 @@ def intersect_land_plain(topo, pos, direction, scale, active, cfg: TraceConfig,
     state = _run_lanes(cfg.land_march_steps, k, state, ctx, body, trips)
     t = state["t"]
     result = torch.where((~state["missed"]) & (t < _MAX_RAY_DIST), t, -1.0)
+    if not cfg.march_ref_phantom:
+        return result
     return _phantom_crawl(pos, direction, active, result, t_cap, cfg)
 
 
@@ -279,9 +285,15 @@ def intersect_land(topo, pos, direction, scale, active, cfg: TraceConfig,
     return kernels.land_march(
         topo, pos, direction, active, t_cap, float(scale),
         step_floor=step_floor, stall_thresh=stall_thresh,
-        steps=cfg.land_march_steps, k=cfg.march_k,
-        patience=_MARCH_STALL_PATIENCE, any_hit=any_hit,
+        steps=cfg.land_march_steps, k=cfg.march_k, any_hit=any_hit, **march_options(cfg),
     )
+
+
+def march_options(cfg: TraceConfig) -> dict:
+    """The march's options as ``kernels.land_march`` takes them."""
+    return dict(patience=cfg.march_stall_patience, enable=cfg.enable_land,
+                bilinear=cfg.bilinear_tracking, exact_ocean=cfg.march_exact_ocean,
+                ref_phantom=cfg.march_ref_phantom)
 
 
 # ---------------------------------------------------------------------------
@@ -499,7 +511,7 @@ def track_cloud_plain(keys, ray_pos, ray_dir, t_start, t_max, ext_w, clouds,
             )[None, :],
         )
         pos = c["pos"][None] + ts_c[..., None] * c["dir"][None]
-        sample = tx.sample_sphere_texture(clouds, pos, bilinear=False)  # (k, m, 4)
+        sample = tx.sample_sphere_texture(clouds, pos, bilinear=cfg.bilinear_tracking)
         rlen = length(pos)
         fine_ext = ext_w[None, :] * cloud_shape_density(sample[..., 0], rlen)
         mips_k = sample[..., 1:4]  # (k, m, 3): tight, coarse, wide
@@ -650,5 +662,5 @@ def track_cloud(keys, ray_pos, ray_dir, t_start, t_max, ext_w, clouds, active,
     return kernels.cloud_track(
         keys, ray_pos, ray_dir, t_start, t_max, ext_w, active, clouds,
         max_steps=cfg.max_tracking_steps, k=cfg.tracking_k,
-        ratio=mode == "ratio",
+        ratio=mode == "ratio", bilinear=cfg.bilinear_tracking,
     )

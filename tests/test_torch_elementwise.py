@@ -311,9 +311,7 @@ def test_scene_params_and_trace_config():
     for knob, value in [("loop_narrow", 256), ("scalar_ray_geom", True),
                         ("fast_loop_rng", True), ("naive_march", True),
                         ("nee_off", True), ("work_bins", 5), ("cloud_rr_keep", 0.5),
-                        ("march_floor_frac_secondary", 0.002),
-                        ("bilinear_tracking", True), ("lazy_march", False),
-                        ("march_stall_patience", 3), ("hero_lambdas", 2),
+                        ("march_floor_frac_secondary", 0.002), ("hero_lambdas", 2),
                         ("flight_newton_iters", 7), ("loop_narrow_after", 5)]:
         with pytest.raises(ValueError):
             convert.trace_config(jparams.TraceConfig(**{knob: value}))
@@ -334,6 +332,28 @@ def test_trace_config_carries_the_reference_estimator(options):
         assert getattr(got, name) == value
     with pytest.raises(ValueError, match="1 or 4"):
         tparams.TraceConfig(hero_lambdas=3)
+
+
+@pytest.mark.parametrize("option,value", [
+    ("enable_clouds", False), ("enable_land", False), ("bilinear_tracking", True),
+    ("lazy_march", False), ("march_exact_ocean", False), ("march_ref_phantom", False),
+    ("march_stall_patience", 0), ("march_stall_patience", 8),
+])
+def test_trace_config_carries_the_scene_and_march_options(option, value):
+    """``convert.trace_config`` carries each of the reference's seven scene
+    and march options across, alone and with the other six at their
+    non-default values; the port's defaults are the reference's."""
+    assert tparams.SCENE_OPTIONS == {
+        name: jparams.TraceConfig.__dataclass_fields__[name].default
+        for name in tparams.SCENE_OPTIONS}
+    got = convert.trace_config(jparams.TraceConfig(**{option: value}))
+    assert getattr(got, option) == value
+    assert got == tparams.TraceConfig(**{option: value})
+    assert got.options() == {option: value}
+    every = {name: not default if isinstance(default, bool) else 0
+             for name, default in tparams.SCENE_OPTIONS.items()}
+    every[option] = value
+    assert convert.trace_config(jparams.TraceConfig(**every)) == tparams.TraceConfig(**every)
 
 
 def test_angles_are_float32():

@@ -1188,6 +1188,201 @@ def test_bounce_window_kernel_bit_equal_at_the_reference_estimator(dev, options)
     assert _same_state(got, want)
 
 
+# The scene and march options (render/params.SCENE_OPTIONS): each alone, all
+# seven off their defaults, and the five that act on land and clouds with
+# land and clouds on; the reference estimator's (L, RATIO) sets with two
+# options that act on land and clouds
+MARCH_FIVE = dict(bilinear_tracking=True, lazy_march=False, march_exact_ocean=False,
+                  march_ref_phantom=False, march_stall_patience=0)
+SCENE_OPTION_CASES = [
+    dict(enable_clouds=False), dict(enable_land=False), dict(bilinear_tracking=True),
+    dict(lazy_march=False), dict(march_exact_ocean=False), dict(march_ref_phantom=False),
+    dict(march_stall_patience=0), dict(enable_clouds=False, enable_land=False, **MARCH_FIVE),
+    MARCH_FIVE,
+] + [dict(lazy_march=False, bilinear_tracking=True, **o) for o in REFERENCE_OPTIONS]
+
+
+def _options_launch(options) -> int:
+    """1 if ``options`` runs the options instance (a flag off its default),
+    else 0: every instance takes the stall patience."""
+    return int(any(name != "march_stall_patience" for name in options))
+
+
+def _bounce_both(st, idx, bounce, args, frame, **kw):
+    """bounce_flight + bounce_shade on a copy of ``st`` (``kw`` to both)."""
+    from digital_earth_tpu_torch import kernels
+
+    got = _clone_state(st)
+    ka = pt._kernel_args(got, idx, bounce, *args, frame)
+    kernels.bounce_shade(*ka, flight=kernels.bounce_flight(*ka, **kw), **kw)
+    return got
+
+
+@pytest.mark.parametrize("bounce", [0, 3])
+@pytest.mark.parametrize("options", SCENE_OPTION_CASES)
+def test_bounce_options_instance_bit_equal(dev, bounce, options):
+    """The bounce entries' options instances bit-equal to run_bounce_plain on
+    every live lane at each option (the default instance at the stall
+    patience alone); the census instance leaves the timed one's state and
+    counts the twin's trips."""
+    from digital_earth_tpu_torch import kernels
+
+    st, args = _golden_state(dev, bounce, options=options)
+    idx, n_live = _live(st)
+    idx = idx[: int(n_live)]
+    assert idx.numel() > 0
+    frame = pt.BounceFrame(st, *args)
+    before = kernels.bounce_flight.launches, kernels.bounce_flight.options_launches
+    got = _bounce_both(st, idx, bounce, args, frame)
+    assert (kernels.bounce_flight.launches, kernels.bounce_flight.options_launches) == (
+        before[0] + 1, before[1] + _options_launch(options))
+    want = pt.run_bounce_plain(st.take(idx.long()), bounce, *args)
+    assert _same_state(got.take(idx.long()), want)
+    m = idx.numel()
+    trips = torch.full((m, kernels.BOUNCE_SITES), -1, dtype=torch.int32, device=dev)
+    assert _same_state(_bounce_both(st, idx, bounce, args, frame, trips=trips), got)
+    plain = torch.zeros_like(trips)
+    pt.run_bounce_plain(st.take(idx.long()), bounce, *args, trips=plain)
+    assert int((trips != plain).any(1).sum()) <= 1
+    if not options.get("lazy_march", True):
+        assert not bool(trips[:, 3].any())
+
+
+@pytest.mark.parametrize("options", SCENE_OPTION_CASES)
+def test_bounce_window_options_instance_bit_equal(dev, options):
+    """bounce_window's options instances from bounce 1 to the last against
+    run_window_plain, every lane bit-equal (the default instance at the
+    stall patience alone)."""
+    from digital_earth_tpu_torch import kernels
+
+    st, args = _golden_state(dev, 1, options=options)
+    idx, n_live = _live(st)
+    idx = idx[: int(n_live)]
+    got, want = _clone_state(st), _clone_state(st)
+    before = kernels.bounce_window.launches, kernels.bounce_window.options_launches
+    pt.run_window(got, idx, 1, args[3].max_bounces, *args)
+    assert (kernels.bounce_window.launches, kernels.bounce_window.options_launches) == (
+        before[0] + 1, before[1] + _options_launch(options))
+    pt.run_window_plain(want, idx, 1, args[3].max_bounces, *args)
+    assert _same_state(got, want)
+
+
+@pytest.mark.parametrize("options", [{}] + REFERENCE_OPTIONS)
+def test_bounce_options_instance_at_defaults_is_the_default(dev, options):
+    """Each (L, RATIO) options instance, forced at the options' defaults,
+    gives the default instance's bits: bounce_flight's outcome, the
+    state after bounce_shade, and bounce_window's."""
+    from digital_earth_tpu_torch import kernels
+
+    for bounce in (0, 3):
+        st, args = _golden_state(dev, bounce, options=options)
+        idx, n_live = _live(st)
+        idx = idx[: int(n_live)]
+        frame = pt.BounceFrame(st, *args)
+        ka = pt._kernel_args(st, idx, bounce, *args, frame)
+        before = kernels.bounce_flight.options_launches
+        assert torch.equal(kernels.bounce_flight(*ka, options=True).view(torch.int32),
+                           kernels.bounce_flight(*ka).view(torch.int32))
+        assert kernels.bounce_flight.options_launches == before + 1
+        assert _same_state(_bounce_both(st, idx, bounce, args, frame, options=True),
+                           _bounce_both(st, idx, bounce, args, frame))
+        wins = []
+        for forced in (True, False):
+            w = _clone_state(st)
+            kernels.bounce_window(*pt._kernel_args(w, idx, bounce, *args, frame),
+                                  stop=args[3].max_bounces, options=forced)
+            wins.append(w)
+        assert _same_state(*wins)
+
+
+MARCH_OPTION_CASES = [dict(bilinear_tracking=True), dict(march_exact_ocean=False),
+                      dict(march_ref_phantom=False), dict(march_stall_patience=0),
+                      dict(enable_land=False), MARCH_FIVE]
+
+
+@pytest.mark.parametrize("options", MARCH_OPTION_CASES)
+def test_land_march_options_instance(case, options):
+    """land_march's options instance bit-equal to intersect_land_plain at
+    each march option (the default instance at the stall patience alone),
+    plain, any-hit and capped; forced at the defaults,
+    bit-equal to the default instance."""
+    from digital_earth_tpu_torch import kernels
+
+    dev = case["pos"].device
+    args = (case["atlas"].topography, case["pos"], case["dirs"],
+            torch.tensor(7800.0, device=dev), case["active"], TraceConfig(**options))
+    t_cap = torch.rand(N, device=dev) * 3e7 + 1e3
+    for kw in (dict(), dict(any_hit=True), dict(t_cap=t_cap)):
+        before = kernels.land_march.launches, kernels.land_march.options_launches
+        got = tracers.intersect_land(*args, **kw)
+        assert (kernels.land_march.launches, kernels.land_march.options_launches) == (
+            before[0] + 1, before[1] + _options_launch(options))
+        assert _bits_equal(got, tracers.intersect_land_plain(*args, **kw))
+    step_floor, stall = tracers._march_floor(args[0], TraceConfig())
+    cap = torch.full((N,), float("inf"), device=dev)
+    launch = lambda **o: kernels.land_march(  # noqa: E731
+        args[0], args[1], args[2], args[4], cap, 7800.0, step_floor=step_floor,
+        stall_thresh=stall, steps=250, k=4, patience=2, any_hit=False, **o)
+    assert _bits_equal(launch(options=True), launch())
+
+
+@pytest.mark.parametrize("mode", ["delta", "ratio"])
+def test_cloud_track_bilinear_options_instance(case, mode):
+    """cloud_track's options instance with bilinear taps against
+    track_cloud_plain (the stated tolerances); forced at the defaults
+    (nearest taps), bit-equal to the default instance."""
+    from digital_earth_tpu_torch import kernels
+
+    no_land = torch.full((N,), -1.0, device=case["pos"].device)
+    cs, cm = pt.intersect_cloud_limits(case["pos"], case["dirs"], no_land)
+    ext_w = torch.full((N,), C.CLOUDS_EXTINCT, device=case["pos"].device)
+    args = (case["keys"], case["pos"], case["dirs"], cs, cm, ext_w, case["atlas"].clouds,
+            case["active"], TraceConfig(bilinear_tracking=True), mode)
+    before = kernels.cloud_track.options_launches
+    got = tracers.track_cloud(*args)
+    assert kernels.cloud_track.options_launches == before + 1
+    want = tracers.track_cloud_plain(*args)
+    if mode == "delta":
+        assert (got[0] == want[0]).float().mean().item() >= 0.999
+        same = (got[0] == want[0]) & (got[0] > 0)
+        rel = ((got[1] - want[1]).abs() / want[1].clamp(min=1.0))[same]
+        assert rel.median().item() < 1e-6
+    else:
+        assert abs(got.mean().item() - want.mean().item()) < 1e-4
+    launch = lambda **o: kernels.cloud_track(  # noqa: E731
+        case["keys"], case["pos"], case["dirs"], cs, cm, ext_w, case["active"],
+        case["atlas"].clouds, max_steps=8192, k=4, ratio=mode == "ratio", **o)
+    for a, b in zip(*(((x,) if mode == "ratio" else x) for x in (launch(options=True),
+                                                                 launch()))):
+        assert _bits_equal(a, b)
+
+
+@pytest.mark.parametrize("options", MARCH_OPTION_CASES)
+def test_preview_options_instance(dev, options):
+    """preview's options instance bit-equal to march_paths_plain on every
+    lane of a 160x90 frame at each march option (the default instance at
+    the stall patience alone); forced at the defaults,
+    bit-equal to the default instance."""
+    from digital_earth_tpu_torch import kernels
+    from digital_earth_tpu_torch.render import raymarcher
+
+    args, kw = _preview_lanes(dev, (160, 90), True)
+    args = args[:7] + (TraceConfig(bilinear_materials=True, **options),)
+    frame = raymarcher.PreviewFrame(*args[4:8], kw["tile"])
+    key, pos, dirs, wl, _, atlas, luts, _ = args
+    launch = lambda fr, **o: kernels.preview(  # noqa: E731
+        fr.fparams, fr.iparams, key.tolist(), pos, dirs, wl, kw["tile_index"], kw["lane"],
+        atlas.topography, atlas.material, atlas.stars, luts.o3_crossec, luts.srgb2spec, **o)
+    before = kernels.preview.launches, kernels.preview.options_launches
+    got = launch(frame)
+    assert (kernels.preview.launches, kernels.preview.options_launches) == (
+        before[0] + 1, before[1] + _options_launch(options))
+    assert _bits_equal(got, raymarcher.march_paths_plain(*args, **kw))
+    default = raymarcher.PreviewFrame(*args[4:7], TraceConfig(bilinear_materials=True),
+                                      kw["tile"])
+    assert _bits_equal(launch(default, options=True), launch(default))
+
+
 def _agreeing(got, want):
     """The share of lanes with the twin's outcome and values (the bounce's
     stated tolerances)."""

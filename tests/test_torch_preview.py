@@ -285,11 +285,12 @@ def test_preview_frame_blocks(luts, atlases, bilinear):
     scene's, offset_scale and the march floor as the twin computes and
     passes them, the Planck constants reproducing sp.plancks bit for bit,
     the albedos and the phase constants; its int block the march budget,
-    the tile and the texture shapes."""
+    the tile, the texture shapes and the march options (at their
+    defaults)."""
     from digital_earth_tpu_torch import constants as C
     from digital_earth_tpu_torch import kernels
     from digital_earth_tpu_torch.ops import math_utils as mu
-    from digital_earth_tpu_torch.render.tracers import _MARCH_STALL_PATIENCE, _march_floor
+    from digital_earth_tpu_torch.render.tracers import _march_floor
 
     _, tl = luts
     atlas = atlases[1]
@@ -322,9 +323,10 @@ def test_preview_frame_blocks(luts, atlases, bilinear):
     np.testing.assert_array_equal(fp[18:], np.array(
         [3.0 / (16.0 * np.pi), C.MIE_ASYMMETRY, 2.0 * np.pi,
          torch.log(torch.tensor(2.0 * C.MIE_ASYMMETRY + 1.0)).item()], np.float32))
-    assert frame.iparams == [cfg.land_march_steps, cfg.march_k, _MARCH_STALL_PATIENCE,
+    assert frame.iparams == [cfg.land_march_steps, cfg.march_k, cfg.march_stall_patience,
                              int(bilinear), 192, *atlas.topography.shape[:2],
-                             *atlas.material.shape[:2], *atlas.stars.shape[:2]]
+                             *atlas.material.shape[:2], *atlas.stars.shape[:2], 1, 0, 1, 1]
+    assert len(frame.iparams) == kernels.PREVIEW_INTS
 
 
 @pytest.mark.parametrize("k", [3, 64])
@@ -335,7 +337,7 @@ def test_preview_kernel_refuses_march_k_off_the_warp(k):
     from digital_earth_tpu_torch import kernels
 
     n = 4
-    iparams = [8, k, 5, 0, n, 8, 16, 8, 16, 8, 16]
+    iparams = [8, k, 5, 0, n, 8, 16, 8, 16, 8, 16, 1, 0, 1, 1]
     with pytest.raises(ValueError, match="divide 32"):
         kernels.preview([0.0] * kernels.PREVIEW_FLOATS, iparams, (0, 0), None,
                         torch.zeros((n, 3)), torch.zeros(n), None, None,

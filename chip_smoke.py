@@ -2,7 +2,7 @@
 """Smoke test of the PyTorch + CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py [--mesh-only | --preview-bench [DIR] | --path-bench [DIR]
-                           | --spp-bench [DIR]]
+                           | --spp-bench [DIR] | --options-bench [DIR] | --sass-counts [DIR]]
 
 Run from the root of a checkout on a machine with a CUDA card, ``nvcc`` and
 PyTorch built for CUDA; ``--mesh-only`` runs phases 1-3 and 19 alone (say,
@@ -23,7 +23,11 @@ entry's registers and spills; ``rmo_ratio_track`` at one and four
 wavelengths and the reference estimator's census at bounces 0 and
 DEEP_BOUNCE with its tracking lanes per warp); ``--spp-bench [DIR]``
 the three scenes' s/spp and the bounce kernels' device ms of 3 profiled
-spp each, at the default config and at the reference's estimator. It
+spp each, at the default config and at the reference's estimator;
+``--options-bench [DIR]`` phase 8c's settings (bounce 0's two kernels of
+the options instances, s/spp against the scene's default) and
+``--sass-counts [DIR]`` the bounce entries' SASS sizes and the options
+sources' ptxas report, for the package in DIR. It
 imports nothing of JAX or of the JAX package ``digital_earth_tpu`` (checked
 at the end). Phases, each of which raises on failure (exit code 1):
 
@@ -140,6 +144,28 @@ at the end). Phases, each of which raises on failure (exit code 1):
    spp (the ratio's median and spread). Phase 8's sphere taps add the bilinear topography tap
    at the march's probe points beside the nearest, its bound from its four
    texels a tap and its SASS.
+8d. the reference-faithful naive arm (``check_naive``; NAIVE_CASES:
+   ``naive_tracking`` at one wavelength, ``naive_march``,
+   ``naive_cloud_tracking`` and ``naive_shadow``, each alone): the default
+   bounce instances' SASS instruction counts against PARENT_DEFAULT_SASS
+   (the naive code lives in the options instances only); the naive
+   launchers (``naive_march``, ``naive_delta_track`` and
+   ``naive_ratio_track``, gases and cloud) against their twins on each
+   scene's bounce-0 arguments at naive_tracking, captured from the twin's
+   bounce, every output and every lane's steps bit-equal, timed with their
+   bounds from the steps (Apollo's calls are the kernels line's rows); per
+   flag and scene the bounce entries' options instances against their twin
+   at bounces 0 and DEEP_BOUNCE and ``bounce_window`` against
+   ``run_window_plain`` from the bounce the frame enters it, every lane
+   bit-equal, the census's steps at the flag's naive sites, bounce 0's two
+   kernels timed beside the default instances on the scene's default frame
+   (naive_tracking: the L = 1 estimator's); the naive_tracking path on
+   Apollo under phase 6's gates, every bounce launch the options
+   instances'; s/spp of each flag on Apollo against its default in five
+   alternated rounds; and the paired accelerated-vs-naive_tracking error of
+   the frame mean per channel +- its SE at 320x180 on the three scenes
+   (``paired_parity``; both arms at one wavelength, winsorised at the
+   99.9th percentile; no gate on the error, a non-finite value fails).
 
 The viewer's path (each run with the launch counts set to 0 just before it
 and read just after):
@@ -267,6 +293,7 @@ SM per clock, at the card's largest SM clock). The last line is
 
 import functools
 import json
+import math
 import os
 import subprocess
 import sys
@@ -332,7 +359,8 @@ MAIN_PATH = ("bounce_flight", "bounce_shade", "bounce_window", "compact_lanes", 
              "frame_end", "film_postprocess")
 # kernels whose loops now run inside bounce: none of their own launches on
 # the path tracer's run (held against their twins in their own phase)
-INLINED = ("land_march", "rmo_delta_track", "rmo_ratio_track", "cloud_track")
+INLINED = ("land_march", "rmo_delta_track", "rmo_ratio_track", "cloud_track", "naive_march",
+           "naive_delta_track", "naive_ratio_track")
 OTHER_SCENES = ("config - florida.txt", "config - sunset hurricane.txt")
 # bounce's bytes per live lane: its state read (pos, dir, wavelengths,
 # lambda_pdf, throughput, radiance, w_mis, flags, work class, keys, list
@@ -2261,6 +2289,518 @@ def spp_ratio(torch, default, other):
     return (statistics.median(t[0]), statistics.median(t[1]),
             sorted(b / a for a, b in zip(*t)))
 
+
+# The reference-faithful naive arm (render/params.NAIVE_OPTIONS): each flag
+# alone, with the configuration its s/spp is set against (naive_tracking is
+# single-wavelength: against the L = 1 estimator at its defaults).
+NAIVE_CASES = (("naive_tracking", dict(naive_tracking=True, hero_lambdas=1), dict(hero_lambdas=1)),
+               ("naive_march", dict(naive_march=True), {}),
+               ("naive_cloud_tracking", dict(naive_cloud_tracking=True), {}),
+               ("naive_shadow", dict(naive_shadow=True), {}))
+# the census sites each flag's naive loops run at (CENSUS_SITES order)
+NAIVE_SITES = {"naive_tracking": (0, 1, 2, 4, 5, 6), "naive_march": (0, 3, 4),
+               "naive_cloud_tracking": (1, 5), "naive_shadow": (4,)}
+# Operations of the naive loops (csrc/naive.cuh), counted from the source as
+# the other rows are (an add, multiply, divide, square root, min or max, an
+# expf, logf or atan2f each one; a nearest 4-channel sphere tap 36, the three
+# gas densities 51): the march's warm start (the atmosphere's rsi and the
+# start, 18) and its step (the point 6, the tap 36, the SDF's length and
+# three operations 9, the new distance and the two stop tests 5: 56); a
+# tracker step: the exponential step and the test past t_max (5), the point
+# (7), then the gases' elevation (7), densities (51), terms and total (5)
+# and the test (2): 77, or the cloud's tap (36), radius (6), split-shape
+# density (12), extinction (1) and test (2): 69; a ratio step the same with
+# the transmittance's update and stop test (3) for the test: 79 and 71.
+# Threefry: a tracker step folds its key (a block) and draws its first
+# uniform; delta tracking draws the second on every step that does not end
+# past t_max (counted as every step but a lane's last: a floor, the hit's
+# two draws not counted), ratio tracking none more.
+NAIVE_MARCH_CALL_OPS, NAIVE_MARCH_STEP_OPS = 18, 56
+NAIVE_STEP_OPS = {("delta", "rmo"): 77, ("delta", "cloud"): 69, ("ratio", "rmo"): 79,
+                  ("ratio", "cloud"): 71}
+# bytes per lane of the launchers: the march's pos, dir, active and
+# distance (29; the topography as read once); a tracker's keys, pos, dir,
+# span, (n, 4) extinctions, majorant and active (61) and its event, t and
+# iid (12) or transmittance (4; the cloud map as read once)
+NAIVE_MARCH_LANE_BYTES, NAIVE_TRACK_LANE_BYTES = 29, 61
+# the paired accelerated-vs-naive_tracking measurement (tools/parity_ab.py's
+# design, both arms at one wavelength): its frame, winsorisation percentile
+# (C #5's fireflies), batches per arm and seconds per scene
+PARITY_RES, PARITY_CLIP_PCT, PARITY_BATCHES, PARITY_SECONDS = (320, 180), 99.9, 8, 20.0
+PARITY_LUMINANCE = (0.2126729, 0.7151522, 0.0721750)  # Rec. 709 Y of linear RGB
+# The default bounce instances' SASS instructions as built before the naive
+# arm (cuobjdump -sass, NOPs left out; commit 0584302 built for an NVIDIA
+# H100 80GB HBM3 by nvcc 12.9, chip_smoke.py --sass-counts), which the
+# options instances' new code must leave as they were: {entry<L,
+# template flags>: instructions}, the flags COUNT (flight, shade), RATIO
+# (shade, window) and OPTS (0) in the kernels' template order
+PARENT_DEFAULT_SASS = {
+    "bounce_flight<L=1, 0, 0>": 3957, "bounce_flight<L=1, 1, 0>": 4088,
+    "bounce_flight<L=4, 0, 0>": 3958, "bounce_flight<L=4, 1, 0>": 4089,
+    "bounce_shade<L=1, 0, 0, 0>": 10207, "bounce_shade<L=1, 0, 1, 0>": 10315,
+    "bounce_shade<L=1, 1, 0, 0>": 10278, "bounce_shade<L=1, 1, 1, 0>": 10312,
+    "bounce_shade<L=4, 0, 0, 0>": 11890, "bounce_shade<L=4, 0, 1, 0>": 11944,
+    "bounce_shade<L=4, 1, 0, 0>": 11989, "bounce_shade<L=4, 1, 1, 0>": 11999,
+    "bounce_window<L=1, 0, 0>": 11731, "bounce_window<L=1, 1, 0>": 11836,
+    "bounce_window<L=4, 0, 0>": 13478, "bounce_window<L=4, 1, 0>": 13570,
+}
+
+
+def bounce_instances(funcs):
+    """{mangled name: (entry, template bools, SASS instructions)} of the
+    bounce entries in a ``sass_functions`` map; the last bool is OPTS."""
+    import re
+
+    out = {}
+    for name, ops in funcs.items():
+        m = re.search(r"(bounce_flight|bounce_shade|bounce_window)_kernelILi(\d)E((?:Lb[01]E)+)",
+                      name)
+        if m:
+            bools = tuple(b == "1" for b in re.findall(r"Lb([01])E", m[3]))
+            out[name] = (f"{m[1]}<L={m[2]}, {', '.join(map(str, map(int, bools)))}>", bools,
+                         len(ops))
+    return out
+
+
+def default_sass(kernels):
+    """{entry<L, template flags>: SASS instructions} of every default (OPTS
+    false) instance of the bounce entries in the built library."""
+    funcs = sass_functions(kernels.library()._name)
+    return {entry: n for entry, bools, n in bounce_instances(funcs).values() if not bools[-1]}
+
+
+def sass_counts():
+    """``--sass-counts [DIR]``: the bounce entries' SASS instructions of
+    every instance and the options sources' ptxas registers and spills, for
+    the package imported (DIR's build); one JSON line."""
+    import digital_earth_tpu_torch as pkg
+    from digital_earth_tpu_torch import kernels
+
+    funcs = sass_functions(kernels.library()._name)
+    inst = {entry: n for _, (entry, _, n) in sorted(bounce_instances(funcs).items())}
+    ptxas = {src: ptxas_entries(kernels.ptxas_log.get(src, "")) for src in
+             OPTIONS_SOURCES + ("bounce.cu", "bounce_l1.cu", "bounce_ratio.cu",
+                                "bounce_l1_ratio.cu")}
+    print(json.dumps({"sass_counts": dict(package=os.path.dirname(os.path.abspath(pkg.__file__)),
+                                          card=nvidia_smi_line(), instances=inst,
+                                          default=default_sass(kernels), ptxas=ptxas)}))
+
+
+def check_default_sass(kernels):
+    """The default bounce instances' SASS instruction counts against the
+    parent's (PARENT_DEFAULT_SASS): the naive arm's code lives in the
+    options instances only. Fails on any difference."""
+    now = default_sass(kernels)
+    for entry, n in sorted(now.items()):
+        print(f"SASS default instance {entry}: {n} instructions (before the naive arm "
+              f"{PARENT_DEFAULT_SASS.get(entry)})")
+    if now != PARENT_DEFAULT_SASS:
+        fail("a default bounce instance's SASS differs from its count before the naive arm")
+
+
+def _naive_launcher(torch, name, args, iters=False):
+    """The naive launcher a twin call ``name`` (``tracking_naive``'s wrapper)
+    with ``args`` makes, called directly: (its outputs, with ``iters`` the
+    lanes' (n,) steps)."""
+    from digital_earth_tpu_torch import kernels
+    from digital_earth_tpu_torch.ops import rng
+
+    if name == "intersect_land_naive":
+        topo, pos, d, scale, active, cfg = args
+        return kernels.naive_march(topo, pos, d, active, float(scale), steps=cfg.land_march_steps,
+                                   enable=cfg.enable_land, bilinear=cfg.bilinear_tracking,
+                                   iters=iters)
+    keys, pos, d, t0, t1, ext, max_ext, clouds, species, active, cfg = args
+    n = pos.shape[0]
+    fn = kernels.naive_delta_track if name == "delta_track_naive" else kernels.naive_ratio_track
+    return fn(rng.as_lane_keys(keys, n), pos, d, t0, t1, ext,
+              torch.as_tensor(max_ext, dtype=torch.float32, device=pos.device).expand(n)
+              .contiguous(), active, clouds, species=species, max_steps=cfg.max_tracking_steps,
+              bilinear=cfg.bilinear_tracking, iters=iters)
+
+
+def capture_naive_calls(torch, c, b):
+    """The naive loops' calls (name, arguments) of the plain twin's bounce
+    ``b`` on the captured state ``c`` (its loops launch the naive
+    launchers), in call order."""
+    from digital_earth_tpu_torch.render import pathtracer as pt
+    from digital_earth_tpu_torch.render import tracking_naive as tn
+
+    calls = []
+    originals = {name: getattr(tn, name) for name in
+                 ("intersect_land_naive", "delta_track_naive", "ratio_track_naive")}
+
+    def recorder(name, fn):
+        @functools.wraps(fn)
+        def rec(*args):
+            calls.append((name, tuple(a.clone() if isinstance(a, torch.Tensor) else a
+                                      for a in args)))
+            return fn(*args)
+        return rec
+
+    for name, fn in originals.items():
+        setattr(tn, name, recorder(name, fn))
+    try:
+        pt.run_bounce_plain(c["st"].take(c["idx"].long()), b, *c["args"])
+        torch.cuda.synchronize()
+    finally:
+        for name, fn in originals.items():
+            setattr(tn, name, fn)
+    return calls
+
+
+def naive_ops(torch, name, species, trips, tf):
+    """(other operations, threefry ALU-pipe, FMA-pipe) of a naive launcher
+    whose lanes took the (n,) steps ``trips`` (NAIVE_* counts, a floor)."""
+    t = trips.to(torch.float64)
+    steps, calls = float(t.sum()), float((t > 0).sum())
+    if name == "intersect_land_naive":
+        return (calls * NAIVE_MARCH_CALL_OPS + steps * NAIVE_MARCH_STEP_OPS, 0.0, 0.0)
+    kind = "delta" if name == "delta_track_naive" else "ratio"
+    draws = 2 * steps - calls if kind == "delta" else steps
+    return (steps * NAIVE_STEP_OPS[(kind, species)], *tf_ops(steps, draws, tf))
+
+
+NAIVE_ROWS = {"intersect_land_naive": "naive_march", "delta_track_naive": "naive_delta_track",
+              "ratio_track_naive": "naive_ratio_track"}
+
+
+def check_naive_launchers(torch, calls, label, tf, rows=None):
+    """Each naive launcher call in ``calls`` against its plain twin
+    (``tracking_naive``'s *_plain) on the same arguments: every output
+    bit-equal, the launcher's steps per lane equal to the twin's; both
+    timed. With ``rows``, each launcher's calls add to its JSON row (ms,
+    plain ms, bytes, operations from the steps)."""
+    from digital_earth_tpu_torch.render import tracking_naive as tn
+
+    card = nvidia_smi_line()
+    seen = {}
+    for name, args in calls:
+        species = None if name == "intersect_land_naive" else args[8]
+        tag = f"{NAIVE_ROWS[name]}{'' if species is None else '/' + species}"
+        seen[tag] = seen.get(tag, 0) + 1
+        tag = f"{tag} #{seen[tag]}"
+        n = args[1].shape[0]
+        n_act = int(args[4 if species is None else 9].sum())
+        trips = torch.zeros(n, dtype=torch.int32, device=args[1].device)
+        # one call of the twin (its operations warmed by the bounce's twin),
+        # counting its steps
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        want = getattr(tn, f"{name}_plain")(*args, trips=trips)
+        end.record()
+        torch.cuda.synchronize()
+        plain_ms = start.elapsed_time(end)
+        (got, steps), ms = _time_ms(torch, lambda: _naive_launcher(torch, name, args, iters=True), 3)
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        differ = torch.zeros(n, dtype=torch.bool, device=args[1].device)
+        for g, w in zip(got, want):
+            differ |= g.view(torch.int32) != w.view(torch.int32)
+        same = not bool(differ.any())
+        err = max(float((g.float() - w.float()).abs().max()) if g.numel() else 0.0
+                  for g, w in zip(got, want))
+        same_steps = torch.equal(steps, trips)
+        t = trips[trips > 0].to(torch.float64)
+        simt = simt_efficiency(torch, trips[:, None])[0]
+        other, int_ops, fma_ops = naive_ops(torch, name, species, trips, tf)
+        ops = other + int_ops + fma_ops
+        nbytes = (NAIVE_MARCH_LANE_BYTES * n + args[0].numel() if species is None else
+                  (NAIVE_TRACK_LANE_BYTES + (12 if name == "delta_track_naive" else 4)) * n
+                  + (args[7].numel() if species == "cloud" else 0))
+        b_ms, b_by = bound(nbytes, ops, int_ops=int_ops, fma_ops=fma_ops)
+        print(f"naive {label} {tag}: {n} lanes ({n_act} active, {card}): bit-equal {same} "
+              f"({int(differ.sum())} lanes not), max abs err {err:.3e}, steps equal {same_steps} "
+              f"({int((steps != trips).sum())} lanes not); steps {int(trips.sum())} on "
+              f"{t.numel()} lanes (mean {float(t.mean()) if t.numel() else 0.0:.1f}, max "
+              f"{int(trips.max()) if n else 0}), SIMT eff "
+              f"{'-' if simt is None else f'{simt:.3f}'}; kernel {ms:.3f} ms, bound {b_ms:.5f} ms "
+              f"({b_by}; {ops:.4g} operations), plain {plain_ms:.1f} ms")
+        if not (same and same_steps):
+            fail(f"naive {label} {tag}: the launcher parts from its twin")
+        if rows is not None:
+            row = rows.setdefault(NAIVE_ROWS[name], dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0,
+                                                         bytes=0, ops=0.0, int_ops=0.0,
+                                                         fma_ops=0.0))
+            row["max_abs_err"] = max(row["max_abs_err"], err)
+            row["ms"] += ms
+            row["plain_ms"] += plain_ms
+            row["bytes"] += nbytes
+            row["ops"] += ops
+            row["int_ops"] += int_ops
+            row["fma_ops"] += fma_ops
+
+
+def naive_census_text(torch, trips, sites):
+    """The census's trips at ``sites``: per site the lanes taking steps,
+    their mean and largest steps and the site's SIMT efficiency."""
+    simt = simt_efficiency(torch, trips)
+    parts = []
+    for s in sites:
+        t = trips[:, s]
+        took = t[t > 0].to(torch.float64)
+        parts.append(f"{CENSUS_SITE_NAMES[s]} {took.numel()} lanes, mean "
+                     f"{float(took.mean()) if took.numel() else 0.0:.1f}, max "
+                     f"{int(t.max()) if t.numel() else 0}, SIMT "
+                     f"{'-' if simt[s] is None else f'{simt[s]:.3f}'}")
+    return "; ".join(parts)
+
+
+CENSUS_SITE_NAMES = ("pre_march", "cloud", "rmo", "post_march", "shadow", "nee_cloud", "nee_rmo")
+
+
+def paired_parity(torch, dev, atlas, luts, scene):
+    """The accelerated estimator against naive_tracking, both at one
+    wavelength (tools/parity_ab.py --paired's design) at PARITY_RES on
+    ``scene``: PARITY_BATCHES batches per arm, batch b of both arms from the
+    same seed (common random numbers), as many spp a batch as
+    PARITY_SECONDS allow (set from one timed spp of each arm); the batch
+    frame means winsorised per channel at the pooled PARITY_CLIP_PCT
+    percentile of |value|; the relative error of the frame mean per
+    channel and its SE from the paired differences (B - 1 dof), and the
+    same of the winsorised frames' luminance. Returns (spp a batch, each
+    arm's warm s/spp, the error, its SE, the raw error, the luminance's
+    error and SE), the errors per channel."""
+    from digital_earth_tpu_torch.app.config_io import apply_config, load_config
+    from digital_earth_tpu_torch.render.params import TraceConfig
+    from digital_earth_tpu_torch.render.renderer import Renderer
+
+    arms = (TraceConfig(hero_lambdas=1), TraceConfig(naive_tracking=True, hero_lambdas=1))
+
+    def renderer(cfg, seed):
+        r = Renderer(dev, image_res=PARITY_RES, atlas=atlas, luts=luts, seed=seed, cfg=cfg)
+        apply_config(r, load_config(scene))
+        return r
+
+    per = []
+    for cfg in arms:
+        r = renderer(cfg, 1)
+        r.accumulate()
+        per.append(_spp_seconds(torch, r, 2))
+    spp = max(1, int(PARITY_SECONDS / (PARITY_BATCHES * sum(per))))
+    frames = ([], [])
+    for b in range(PARITY_BATCHES):
+        for arm, cfg in enumerate(arms):
+            r = renderer(cfg, 1000 * (b + 1))
+            for _ in range(spp):
+                r.accumulate()
+            frames[arm].append(r.color_buffer / spp)
+    A, N = (torch.stack(f).to(torch.float64) for f in frames)  # (B, W, H, 3)
+    if not (bool(torch.isfinite(A).all()) and bool(torch.isfinite(N).all())):
+        fail(f"paired parity {scene}: a non-finite value in a batch frame")
+
+    def stats(a, n):
+        am, nm = a.mean((1, 2)), n.mean((1, 2))
+        d = am - nm
+        return (d.mean(0) / nm.mean(0).abs(), d.std(0, unbiased=True) / math.sqrt(d.shape[0])
+                / nm.mean(0).abs())
+
+    raw, _ = stats(A, N)
+    thr = torch.quantile(torch.cat([A, N]).abs().reshape(-1, 3), PARITY_CLIP_PCT / 100.0, dim=0)
+    Ac, Nc = (torch.maximum(torch.minimum(x, thr), -thr) for x in (A, N))
+    err, se = stats(Ac, Nc)
+    # the luminance of the winsorised frames, parity_ab's statistic of most power
+    w = torch.tensor(PARITY_LUMINANCE, dtype=torch.float64, device=dev)
+    lum, lum_se = stats((Ac * w).sum(-1, keepdim=True), (Nc * w).sum(-1, keepdim=True))
+    out = [x.tolist() for x in (err, se, raw, lum, lum_se)]
+    if not all(math.isfinite(v) for x in out for v in x):
+        fail(f"paired parity {scene}: a non-finite error or SE")
+    return (spp, per, *out)
+
+
+def check_naive(torch, dev, atlas, luts, tf):
+    """The naive arm (NAIVE_CASES) at 1920x1080 on ``atlas``: the default
+    bounce instances' SASS against the parent's; the naive launchers against
+    their twins on each scene's bounce-0 arguments at naive_tracking (every
+    output bit-equal, their steps the twin's, timed with their bounds: the
+    JSON rows, Apollo's); per flag and scene, the bounce entries' options
+    instances against their twin at bounces 0 and DEEP_BOUNCE and
+    bounce_window against run_window_plain from the bounce the frame enters
+    it (every lane bit-equal), the census's steps at the flag's naive sites,
+    bounce 0's two kernels timed beside the default instances on the scene's
+    default frame; the naive_tracking path on Apollo under phase 6's gates
+    (every bounce launch the options instances'); s/spp of each flag on
+    Apollo against its default (``spp_ratio``); and the paired
+    accelerated-vs-naive_tracking error of the frame mean on the three
+    scenes (``paired_parity``). Returns the naive launchers' JSON rows."""
+    from digital_earth_tpu_torch import kernels
+    from digital_earth_tpu_torch.app.config_io import load_config
+    from digital_earth_tpu_torch.app.viewer import render_offline
+    from digital_earth_tpu_torch.render import pathtracer as pt
+    from digital_earth_tpu_torch.render.params import TraceConfig
+
+    card = nvidia_smi_line()
+    check_default_sass(kernels)
+    rows = {}
+    nt_cfg = TraceConfig(**NAIVE_CASES[0][1])
+    for scene in (SCENE, FLORIDA, SUNSET):
+        name = os.path.basename(scene)[9:-4]
+        states, _, _ = capture_states(torch, dev, atlas, luts, bounces=(0,), scene=scene,
+                                      cfg=nt_cfg)
+        calls = capture_naive_calls(torch, states[0], 0)
+        kinds = {(c[0], None if c[0] == "intersect_land_naive" else c[1][8]) for c in calls}
+        if len(kinds) != 5:
+            fail(f"naive {name}: the twin's bounce 0 at naive_tracking made the calls {kinds}")
+        check_naive_launchers(torch, calls, f"{name} bounce 0", tf,
+                              rows if scene == SCENE else None)
+        del states, calls
+
+    default_ms = {}
+    for label, options, base in NAIVE_CASES:
+        cfg = TraceConfig(**options)
+        for scene in (SCENE, FLORIDA, SUNSET):
+            name = os.path.basename(scene)[9:-4]
+            key = (scene, tuple(sorted(base.items())))
+            if key not in default_ms:
+                st, _, _ = capture_states(torch, dev, atlas, luts, bounces=(0,), scene=scene,
+                                          cfg=TraceConfig(**base))
+                c = st[0]
+                frame = pt.BounceFrame(c["st"], *c["args"])
+                ka = lambda s, c=c, frame=frame: pt._kernel_args(s, c["idx"], 0, *c["args"],  # noqa: E731
+                                                                 frame)
+                flight = kernels.bounce_flight(*ka(_clone_state(c["st"])))
+                default_ms[key] = (
+                    _bounce_ms(torch, c["st"], lambda s: kernels.bounce_flight(*ka(s))),
+                    _bounce_ms(torch, c["st"], lambda s: kernels.bounce_shade(*ka(s), flight=flight)))
+                del st, c, flight
+            states, _, _ = capture_states(torch, dev, atlas, luts, scene=scene, cfg=cfg)
+            for b in (0, DEEP_BOUNCE):
+                if b not in states:
+                    print(f"naive {label} {name}: no live lane at bounce {b}")
+                    continue
+                c = states[b]
+                got, want, trips, cycles = _bounce_and_twin(torch, c, b)
+                _hold_lanes(torch, got, want, c["st"].work_class[c["idx"].long()],
+                            f"naive {label} {name} bounce {b}", exact=True)
+                print(f"census naive {label} {name} bounce {b}: {c['idx'].numel()} live; "
+                      f"{naive_census_text(torch, trips, NAIVE_SITES[label])}; cycle split "
+                      f"{split_text(cycle_split(torch, cycles))}")
+                if b != 0:
+                    continue
+                idx, st0, args = c["idx"], c["st"], c["args"]
+                frame = pt.BounceFrame(st0, *args)
+                ka = lambda s: pt._kernel_args(s, idx, 0, *args, frame)  # noqa: E731
+                flight = _one_launch(kernels.bounce_flight, options,
+                                     lambda: kernels.bounce_flight(*ka(_clone_state(st0))),
+                                     f"naive {label} {name}")
+                t_f = _bounce_ms(torch, st0, lambda s: kernels.bounce_flight(*ka(s)))
+                t_s = _bounce_ms(torch, st0, lambda s: kernels.bounce_shade(*ka(s), flight=flight))
+                d_f, d_s = default_ms[(scene, tuple(sorted(base.items())))]
+                print(f"naive {label} {name} bounce 0 ({idx.numel()} lanes, {card}): bounce_flight "
+                      f"{t_f:.3f} ms, bounce_shade {t_s:.3f} ms (options instances); the default "
+                      f"instances at {base or 'the default config'} on the same scene {d_f:.3f}, "
+                      f"{d_s:.3f} ms; flight x{t_f / d_f:.2f}, shade x{t_s / d_s:.2f}")
+                del flight
+            bounces = sorted(states)
+            n = states[0]["st"].alive.numel()
+            counts = [states[b]["idx"].numel() for b in bounces] + [0]
+            _, wb = pt.bounce_schedule(n, counts, kernels.window_threshold(dev), 0,
+                                       cfg.max_bounces)
+            if wb is not None and wb in states:
+                c = states[wb]
+                idx, st0, args = c["idx"], c["st"], c["args"]
+                frame = pt.BounceFrame(st0, *args)
+                st = _clone_state(st0)
+                _one_launch(kernels.bounce_window, options,
+                            lambda: pt.run_window(st, idx, wb, cfg.max_bounces, *args, frame),
+                            f"naive {label} {name} bounce_window")
+                twin = _clone_state(st0)
+                t0 = time.time()
+                pt.run_window_plain(twin, idx, wb, cfg.max_bounces, *args)
+                torch.cuda.synchronize()
+                w_plain = (time.time() - t0) * 1e3
+                lanes = idx.long()
+                _hold_lanes(torch, st.take(lanes), twin.take(lanes), st0.work_class[lanes],
+                            f"naive {label} {name} bounce_window from bounce {wb}", exact=True)
+                w_ms = _bounce_ms(torch, st0, lambda s: pt.run_window(s, idx, wb, cfg.max_bounces,
+                                                                        *args, frame))
+                print(f"naive {label} {name} bounce_window from bounce {wb} ({idx.numel()} "
+                      f"lanes, {card}): {w_ms:.3f} ms; twin {w_plain:.1f} ms")
+            else:
+                print(f"naive {label} {name}: the frame does not enter the window (live counts "
+                      f"{counts[:-1]})")
+            del states
+
+    # the naive_tracking path through the public entry point, counts set to
+    # 0 just before it and read just after
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    r = render_offline(load_config(SCENE), dev, spp=1, image_res=RES, out_path=None, atlas=atlas,
+                       luts=luts, cfg=nt_cfg)
+    for _ in range(2):
+        r.accumulate()
+    img = r.fetch_image()
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    check_main_path(torch, counts, r, img, "naive_tracking path on Apollo 11")
+    if any(counts[f"{k}/options"] != counts[k] for k in
+           ("bounce_flight", "bounce_shade", "bounce_window")):
+        fail(f"a bounce launch of the naive_tracking path ran the default instance: {counts}")
+    del r, img
+
+    for label, options, base in NAIVE_CASES:
+        make = lambda o: render_offline(load_config(SCENE), dev, spp=1, image_res=RES,  # noqa: E731
+                                        out_path=None, atlas=atlas, luts=luts,
+                                        cfg=TraceConfig(**o))
+        d, o, ratios = spp_ratio(torch, make(base), make(options))
+        print(f"naive s/spp Apollo 11 {RES[0]}x{RES[1]} {label}: {o:.5f} against "
+              f"{base or 'the default'}'s {d:.5f}, ratio median {ratios[len(ratios) // 2]:.3f} "
+              f"(min-max {ratios[0]:.3f}-{ratios[-1]:.3f} over {len(ratios)} alternated rounds "
+              f"of {SPP_RATIO_STEPS} spp; {card})")
+
+    for scene in (SCENE, FLORIDA, SUNSET):
+        t0 = time.time()
+        spp, per, err, se, raw, lum, lum_se = paired_parity(torch, dev, atlas, luts, scene)
+        fmt = lambda v: ", ".join(f"{100 * x:+.3f}" for x in v)  # noqa: E731
+        print(f"paired parity {os.path.basename(scene)[9:-4]} {PARITY_RES[0]}x{PARITY_RES[1]} "
+              f"(accelerated vs naive_tracking, both hero_lambdas=1; {PARITY_BATCHES} paired "
+              f"batches of {spp} spp per arm, {PARITY_BATCHES * spp} spp per arm; warm spp "
+              f"{per[0]:.4f} s and {per[1]:.4f} s; {time.time() - t0:.1f} s; {card}): per-channel "
+              f"error of the frame mean, {PARITY_CLIP_PCT}% winsorised, % [{fmt(err)}] +- SE "
+              f"[{', '.join(f'{100 * x:.3f}' for x in se)}]; luminance {fmt(lum)} +- "
+              f"{100 * lum_se[0]:.3f}; raw [{fmt(raw)}]")
+    return rows
+
+
+def options_bench(torch, dev):
+    """``--options-bench [DIR]``: the scene and march options' settings of
+    phase 8c (OPTION_CASES, all seven on Apollo, the five on florida) for
+    the package imported from DIR: per setting, bounce 0's bounce_flight and
+    bounce_shade ms (the options instances) and s/spp against its scene's
+    default (``spp_ratio``), so that versions can be alternated in one
+    call. One JSON line."""
+    import digital_earth_tpu_torch as pkg
+    from digital_earth_tpu_torch import kernels
+    from digital_earth_tpu_torch.app.config_io import load_config
+    from digital_earth_tpu_torch.app.viewer import render_offline
+    from digital_earth_tpu_torch.assets.luts import load_spectral_luts
+    from digital_earth_tpu_torch.assets.textures import procedural_texture_atlas
+    from digital_earth_tpu_torch.render import pathtracer as pt
+    from digital_earth_tpu_torch.render.params import TraceConfig
+
+    cache = os.path.join(ROOT, "build", "chip_smoke", "texture_cache")
+    luts = load_spectral_luts(dev)
+    atlas = procedural_texture_atlas(dev, (1024, 2048), seed=7, cache_dir=cache)
+    out = dict(package=os.path.dirname(os.path.abspath(pkg.__file__)), card=nvidia_smi_line())
+    for label, options, scene in OPTION_CASES + ALL_SEVEN_CASES[:1] + FIVE_CASES[:1]:
+        states, _, _ = capture_states(torch, dev, atlas, luts, bounces=(0,), scene=scene,
+                                      cfg=TraceConfig(**options))
+        c = states[0]
+        frame = pt.BounceFrame(c["st"], *c["args"])
+        ka = lambda s: pt._kernel_args(s, c["idx"], 0, *c["args"], frame)  # noqa: E731
+        flight = kernels.bounce_flight(*ka(_clone_state(c["st"])))
+        t_f = _bounce_ms(torch, c["st"], lambda s: kernels.bounce_flight(*ka(s)))
+        t_s = _bounce_ms(torch, c["st"], lambda s: kernels.bounce_shade(*ka(s), flight=flight))
+        del states, c, flight
+        make = lambda o: render_offline(load_config(scene), dev, spp=1, image_res=RES,  # noqa: E731
+                                        out_path=None, atlas=atlas, luts=luts,
+                                        cfg=TraceConfig(**o))
+        d, o, ratios = spp_ratio(torch, make({}), make(options))
+        out[f"{label} {os.path.basename(scene)[9:-4]}"] = dict(
+            flight_ms=round(t_f, 4), shade_ms=round(t_s, 4), s_per_spp=round(o, 5),
+            default_s_per_spp=round(d, 5), ratio_median=round(ratios[len(ratios) // 2], 4),
+            ratios=[round(x, 4) for x in ratios])
+    print(json.dumps({"options_bench": out}))
 
 def check_window(torch, states, table):
     """bounce_window against run_window_plain from the bounce at which the
@@ -4438,9 +4978,12 @@ def main():
     bench = args[:1] == ["--preview-bench"] and len(args) <= 2
     pbench = args[:1] == ["--path-bench"] and len(args) <= 2
     sbench = args[:1] == ["--spp-bench"] and len(args) <= 2
-    if args and not (mesh_only or bench or pbench or sbench):
+    obench = args[:1] == ["--options-bench"] and len(args) <= 2
+    scount = args[:1] == ["--sass-counts"] and len(args) <= 2
+    if args and not (mesh_only or bench or pbench or sbench or obench or scount):
         fail(f"unknown arguments {args} (the options are --mesh-only, --preview-bench [DIR], "
-             "--path-bench [DIR] and --spp-bench [DIR])")
+             "--path-bench [DIR], --spp-bench [DIR], --options-bench [DIR] and "
+             "--sass-counts [DIR])")
     try:
         import torch
     except ImportError:
@@ -4449,7 +4992,7 @@ def main():
         fail("torch.cuda.is_available() is False: this smoke test needs a CUDA card")
     if not os.path.isdir(os.path.join(ROOT, "digital_earth_tpu_torch")):
         fail("run from a checkout: digital_earth_tpu_torch/ is missing beside chip_smoke.py")
-    sys.path.insert(0, os.path.abspath(args[1]) if (bench or pbench or sbench)
+    sys.path.insert(0, os.path.abspath(args[1]) if (bench or pbench or sbench or obench or scount)
                     and len(args) == 2 else ROOT)
     dev = torch.device("cuda:0")
     if bench:
@@ -4460,6 +5003,12 @@ def main():
         return
     if pbench:
         path_bench(torch, dev)
+        return
+    if obench:
+        options_bench(torch, dev)
+        return
+    if scount:
+        sass_counts()
         return
 
     from digital_earth_tpu_torch import kernels
@@ -4576,6 +5125,7 @@ def main():
         fail(f"the options phase measured no row for {sorted(missing)}")
     rows.update(option_rows)
     del captured
+    rows.update(check_naive(torch, dev, atlas, luts, tf))
 
     # --- the viewer's path -------------------------------------------------
     rows["gen_rays"] = check_gen_rays(torch, dev, atlas, luts, tf)
@@ -4662,6 +5212,12 @@ def main():
                             "digital_earth_tpu/render/pathtracer.py:814"),
         "cloud_track": ("cuda", "digital_earth_tpu_torch/csrc/cloud_track.cu",
                         "digital_earth_tpu/render/pathtracer.py:906"),
+        "naive_march": ("cuda", "digital_earth_tpu_torch/csrc/naive_march.cu",
+                        "digital_earth_tpu/render/tracking_naive.py:31"),
+        "naive_delta_track": ("cuda", "digital_earth_tpu_torch/csrc/naive_track.cu",
+                              "digital_earth_tpu/render/tracking_naive.py:72"),
+        "naive_ratio_track": ("cuda", "digital_earth_tpu_torch/csrc/naive_track.cu",
+                              "digital_earth_tpu/render/tracking_naive.py:126"),
         "gen_rays": ("cuda", "digital_earth_tpu_torch/csrc/gen_rays.cu",
                      "digital_earth_tpu/render/renderer.py:160"),
         "atmos_march": ("cuda", "digital_earth_tpu_torch/csrc/atmos_march.cu",

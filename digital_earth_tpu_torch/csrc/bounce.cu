@@ -4,7 +4,7 @@
 // entries compute, what bounds them on the H100 and how they are built: the
 // other instances are in bounce_l1.cu, bounce_ratio.cu and
 // bounce_l1_ratio.cu, and the options instances in their *_opts.cu twins. A
-// launch takes the instance its parameters ask for (ip[0], ip[15], ip[22]).
+// launch takes the instance its parameters ask for (ip[0], ip[15], ip[26]).
 #include "bounce.cuh"
 
 namespace de {
@@ -51,14 +51,22 @@ static int unpack_params(const float* fp, const int* ip, BounceParams& p, Bounce
   o.enable_clouds = ip[16];
   o.mo = MarchOpts{ip[17], ip[18], ip[20], ip[21]};
   o.lazy_march = ip[19];
-  opts = ip[22] != 0;
-  for (int j = 16; j <= 22; ++j) {
+  o.naive_tracking = ip[22];
+  o.naive_march = ip[23];
+  o.naive_cloud_tracking = ip[24];
+  o.naive_shadow = ip[25];
+  opts = ip[26] != 0;
+  for (int j = 16; j <= 26; ++j) {
     if (!is_flag(ip[j])) return (int)cudaErrorInvalidValue;
   }
   // the default instances run the options' defaults only
   const bool defaults = o.enable_clouds == 1 && o.mo.enable == 1 && o.mo.bilinear == 0 &&
-                        o.lazy_march == 1 && o.mo.exact_ocean == 1 && o.mo.ref_phantom == 1;
+                        o.lazy_march == 1 && o.mo.exact_ocean == 1 && o.mo.ref_phantom == 1 &&
+                        o.naive_tracking == 0 && o.naive_march == 0 &&
+                        o.naive_cloud_tracking == 0 && o.naive_shadow == 0;
   if (!opts && !defaults) return (int)cudaErrorInvalidValue;
+  // the naive trackers are single-wavelength
+  if (o.naive_tracking && p.n_lambdas != 1) return (int)cudaErrorInvalidValue;
   return 0;
 }
 
@@ -88,13 +96,15 @@ static int launch_bounce(int entry, const BounceState& s, const BounceParams& p,
 //     light_direction[3], sun_cos_angle, solid_angle (of the sun's cone),
 //     offset_scale (1 + 1e-4 scale / 12000), planck_a, planck_b, planck_k,
 //     the gases' majorant densities[3] (read with ratio tracking)
-// ip (23 ints): n_lambdas (L, 1 or 4), bounce, rr_start, land_march_steps,
+// ip (27 ints): n_lambdas (L, 1 or 4), bounce, rr_start, land_march_steps,
 //     march_k, march_patience, max_tracking_steps, tracking_k,
 //     bilinear_materials, topography H, W, material H, W, clouds H, W,
 //     ratio (1: the gases' sun transmittance by ratio tracking, the
 //     reference's estimator; 0: the closed form); the scene and march
 //     options enable_clouds, enable_land, bilinear_tracking, lazy_march,
-//     march_exact_ocean, march_ref_phantom (each 0 or 1); the instance (1:
+//     march_exact_ocean, march_ref_phantom, and the naive arm's
+//     naive_tracking (L = 1 only), naive_march, naive_cloud_tracking,
+//     naive_shadow (each 0 or 1); the instance (1:
 //     the options instance; 0: the default, which takes the options'
 //     defaults only; every instance takes any march_patience)
 // State (n lanes, read and written in place at the lanes of idx): pos,

@@ -50,6 +50,22 @@
 // site) and caps the flight at the hit, with no march after it and no
 // demotion (pathtracer.py:1582-1591).
 //
+// The options instances also run the reference-faithful naive arm
+// (TraceConfig.naive_tracking, naive_march, naive_cloud_tracking and
+// naive_shadow; the loops in naive.cuh), each flag read where its loop is
+// called, so the default instances' code stays as it was: naive_march the
+// plain sphere march at the three march sites, with no t_cap (march);
+// naive_shadow it at the shadow march alone; naive_cloud_tracking the naive
+// cloud delta pass of the flight and ratio pass of the sun's transmittance
+// (cloud); naive_tracking (L = 1 only; the host refuses it at L = 4) all of
+// these and its own flight (naive_flight_lane: march first, the gases over
+// the whole span, then the cloud where no gas event lies before the slab,
+// the nearer event winning; pathtracer.py:1263-1288). Its sun
+// transmittance of the gases is the ratio instance's tracker at one probe
+// an iteration, which is the reference's one-step loop draw for draw and
+// bit for bit (naive.cuh); the host asks for that instance
+// (render/pathtracer.BounceFrame).
+//
 // Entries, all over the same device functions flight_lane (1-3) and
 // shade_lane (4-7), so every entry gives the same bits. Each is built for
 // a packet of L = 4 wavelengths (the default) or L = 1 (TraceConfig.
@@ -106,6 +122,7 @@
 #include "cloud_track.cuh"
 #include "density_lut.cuh"
 #include "land_march.cuh"
+#include "naive.cuh"
 #include "rmo_track.cuh"
 #include "spectral.cuh"
 #include "surface.cuh"
@@ -139,10 +156,11 @@ struct BounceParams {
 // The scene and march options, which the options instances read: the
 // march's (enable_land, bilinear_tracking, which also filters the cloud
 // trackers' and the origin's taps, march_exact_ocean, march_ref_phantom),
-// enable_clouds and lazy_march.
+// enable_clouds and lazy_march; and the naive arm's four flags.
 struct BounceOptions {
   MarchOpts mo;
   int enable_clouds, lazy_march;
+  int naive_tracking, naive_march, naive_cloud_tracking, naive_shadow;
 };
 
 // An options instance's kernel parameters: the default's, then the
@@ -244,8 +262,44 @@ static __device__ __noinline__ float march_call_o(const uint8_t* __restrict__ to
   return land_march_warp<true>(topo, p, o, d, act, cap, iters, &mo);
 }
 
+// The naive arm's loops (naive.cuh), called by the options instances only.
+static __device__ __noinline__ float naive_march_call(const uint8_t* __restrict__ topo,
+                                                      MarchParams p, bool bilinear, V3 o, V3 d,
+                                                      bool act, int* iters) {
+  return naive_march_lane(topo, p.H, p.W, p.scale, p.steps, bilinear, o, d, act, iters);
+}
+
+struct NaiveEvent {
+  int event, iid;
+  float t;
+};
+
+template <int SPECIES>
+static __device__ __noinline__ NaiveEvent naive_delta_call(Key key, V3 o, V3 d, float t0, float t1,
+                                                           float e0, float e1, float e2,
+                                                           float max_ext,
+                                                           const uint8_t* __restrict__ clouds,
+                                                           int H, int W, bool bilinear, int steps,
+                                                           int* iters) {
+  NaiveEvent out;
+  naive_delta_lane<SPECIES>(key, o, d, t0, t1, e0, e1, e2, max_ext, true, clouds, H, W, bilinear,
+                            steps, out.event, out.t, out.iid, iters);
+  return out;
+}
+
+static __device__ __noinline__ float naive_cloud_ratio_call(Key key, V3 o, V3 d, float t0,
+                                                            float t1, float ew, float max_ext,
+                                                            const uint8_t* __restrict__ clouds,
+                                                            int H, int W, bool bilinear,
+                                                            int steps, int* iters) {
+  return naive_ratio_lane(key, o, d, t0, t1, ew, max_ext, true, clouds, H, W, bilinear, steps,
+                          iters);
+}
+
 // A warp none of whose lanes marches here skips the call: a miss, no trips
-// (and with OPTS every warp where the options ``op`` say no land).
+// (and with OPTS every warp where the options ``op`` say no land). OPTS: the
+// plain sphere march, which takes no cap, under naive_march or
+// naive_tracking, and at the shadow march under naive_shadow.
 template <bool COUNT, bool OPTS>
 __device__ __forceinline__ float march(const uint8_t* __restrict__ topo, const MarchParams& p,
                                        const BounceOptions* op, V3 o, V3 d, bool act, float cap,
@@ -261,6 +315,10 @@ __device__ __forceinline__ float march(const uint8_t* __restrict__ topo, const M
     return -1.0f;
   }
   if constexpr (OPTS) {
+    if (op->naive_march || op->naive_tracking || (site == SITE_SHADOW && op->naive_shadow)) {
+      return naive_march_call(topo, p, op->mo.bilinear != 0, o, d, act,
+                              COUNT && trips ? trips + site : nullptr);
+    }
     return march_call_o(topo, p, op->mo, o, d, act, cap, COUNT && trips ? trips + site : nullptr);
   } else if constexpr (COUNT) {
     return march_call_n(topo, p, o, d, act, cap, trips ? trips + site : nullptr);
@@ -303,12 +361,38 @@ static __device__ __noinline__ CloudOut cloud_call_o(Key key, V3 o, V3 d, float 
   return out;
 }
 
-// OPTS: the options instance's call, its taps as the options ``op`` say.
+// The naive cloud pass at the global majorant ew times the cloud density's
+// (options instances): delta tracking's (event, t) or ratio tracking's
+// transmittance.
+__device__ __forceinline__ CloudOut naive_cloud(Key key, V3 o, V3 d, float t0, float t1, float ew,
+                                                const BounceState& s, const BounceParams& p,
+                                                bool ratio, int* iters, bool bilinear) {
+  const float max_ext = ew * CLOUDS_DENSITY_F;
+  CloudOut out{0, t0, 1.0f};
+  if (ratio) {
+    out.trans = naive_cloud_ratio_call(key, o, d, t0, t1, ew, max_ext, s.clouds, p.clouds_h,
+                                       p.clouds_w, bilinear, p.tracking_steps, iters);
+  } else {
+    const NaiveEvent c = naive_delta_call<NAIVE_CLOUD>(key, o, d, t0, t1, ew, 0.0f, 0.0f, max_ext,
+                                                       s.clouds, p.clouds_h, p.clouds_w, bilinear,
+                                                       p.tracking_steps, iters);
+    out.event = c.event;
+    out.t = c.t;
+  }
+  return out;
+}
+
+// OPTS: the options instance's call, its taps as the options ``op`` say;
+// under naive_cloud_tracking or naive_tracking the naive pass.
 template <bool COUNT, bool OPTS>
 __device__ __forceinline__ CloudOut cloud(Key key, V3 o, V3 d, float t0, float t1, float ew,
                                           const BounceState& s, const BounceParams& p, bool ratio,
                                           int* trips, int site, const BounceOptions* op) {
   if constexpr (OPTS) {
+    if (op->naive_cloud_tracking || op->naive_tracking) {
+      return naive_cloud(key, o, d, t0, t1, ew, s, p, ratio, COUNT ? trips + site : nullptr,
+                         op->mo.bilinear != 0);
+    }
     return cloud_call_o(key, o, d, t0, t1, ew, s.clouds, p.clouds_h, p.clouds_w, p.tracking_steps,
                         p.tracking_k, ratio, COUNT ? trips + site : nullptr,
                         op->mo.bilinear != 0);
@@ -370,18 +454,74 @@ struct Flight {
   float t_int, earth;
 };
 
+// naive_tracking's steps 1-3 (options instances; pathtracer.py:1582-1591,
+// 1263-1288): every live lane marches first (the plain march), then the
+// gases are tracked over the whole span to the hit at their global
+// majorant (models/volume.max_extinction_rmo, summed left to right), the
+// cloud where no gas event lies before the slab, and the nearer event wins;
+// no march after the flight, no demotion. Every thread of the warp calls
+// it, as flight_lane.
+template <bool COUNT>
+__device__ __forceinline__ Flight naive_flight_lane(const BounceState& s, const BounceParams& p,
+                                                    const BounceOptions* op, int bounce, bool act,
+                                                    V3 pos, V3 dir, float wl0, Key kb, int* trips,
+                                                    long long* cyc) {
+  long long c0 = tick<COUNT>();
+  const float earth = march<COUNT, true>(s.topo, march_params(p), op, pos, dir, act,
+                                         __int_as_float(0x7f800000), trips, SITE_PRE_MARCH);
+  tock<COUNT>(cyc, SITE_PRE_MARCH, c0);
+  Flight f{0, 0, 0.0f, earth};
+  if (!act) return f;
+  const float e0 = spectra_extinction_rayleigh(wl0);
+  const float e1 = spectra_extinction_mie(wl0);
+  const float e2 = spectra_extinction_ozone(wl0, s.o3);
+  const Key k_flight = fold(kb, 1u);
+  float a_near, a_far, t_start, t_max;
+  rsi(pos, dir, ATMOS_UPPER_F, a_near, a_far);
+  rmo_span(a_near, a_far, earth, t_start, t_max);
+  c0 = tick<COUNT>();
+  const NaiveEvent g = naive_delta_call<NAIVE_RMO>(
+      fold(k_flight, 1u), pos, dir, t_start, t_max, e0, e1, e2,
+      (e0 * p.max_dens[0] + e1 * p.max_dens[1]) + e2 * p.max_dens[2], nullptr, 0, 0, false,
+      p.tracking_steps, COUNT ? trips + SITE_RMO : nullptr);
+  tock<COUNT>(cyc, SITE_RMO, c0);
+  f.event = g.event;
+  f.t_int = g.t;
+  f.iid = g.iid;
+  if (!op->enable_clouds) return f;
+  float c_start, c_max;
+  cloud_limits(pos, dir, earth, c_start, c_max);
+  if (g.event == 0 || g.t > c_start) {
+    c0 = tick<COUNT>();
+    const CloudOut c = cloud<COUNT, true>(fold(k_flight, 2u), pos, dir, c_start, c_max,
+                                          cloud_ext_w(bounce), s, p, false, trips, SITE_CLOUD, op);
+    tock<COUNT>(cyc, SITE_CLOUD, c0);
+    if (c.event > 0 && (c.t < g.t || g.event == 0)) {
+      f.event = c.event;
+      f.t_int = c.t;
+      f.iid = 3;
+    }
+  }
+  return f;
+}
+
 // Steps 1-3 of one bounce of a lane at pos along dir with hero wavelength
 // wl0 and bounce key kb. Every thread of the warp calls it (the marches
 // need the full warp); act false: no lane (its outcome is not used, and it
 // runs no tracker). OPTS: the options ``op`` (the header's comment); march
 // first (lazy_march false) is the march on demand with every live lane
 // marching at the first site, the flight capped at that hit, and no march
-// after it nor demotion.
+// after it nor demotion; naive_tracking its own flight (naive_flight_lane).
 template <bool COUNT, bool OPTS>
 __device__ __forceinline__ Flight flight_lane(const BounceState& s, const BounceParams& p,
                                               const BounceOptions* op, int bounce, bool act,
                                               V3 pos, V3 dir, float wl0, Key kb, int* trips,
                                               long long* cyc) {
+  if constexpr (OPTS) {
+    if (op->naive_tracking) {
+      return naive_flight_lane<COUNT>(s, p, op, bounce, act, pos, dir, wl0, kb, trips, cyc);
+    }
+  }
   const float inf = __int_as_float(0x7f800000);
   const float ext_w = cloud_ext_w(bounce);
   const float scale = p.scale;

@@ -22,7 +22,10 @@ run time, where the default instance compiles them in at their defaults
 the options instance when any flag it is given differs from its default, or
 when its ``options`` keyword asks for it (a check that
 it gives the default instance's bits at the defaults); such a launch also
-adds one to the wrapper's ``options_launches``.
+adds one to the wrapper's ``options_launches``. The bounce entries' options
+instances also run the reference-faithful naive arm (``BOUNCE_OPTIONS``'
+``naive_*`` flags), whose loops have launchers of their own
+(``naive_march``, ``naive_delta_track``, ``naive_ratio_track``).
 
 Built with ``--fmad=false`` and without fast math, so the kernels round each
 operation as PyTorch's element-wise CUDA ops do (the one fused multiply-add,
@@ -78,6 +81,13 @@ _SIGNATURES = {
     # trans, n, max_steps, k, ratio, the options instance, bilinear, stream
     "de_cloud_track": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P,
                        _I, _I, _I, _I, _I, _I, _P],
+    # topo, H, W, pos, dir, active, out, iters, n, scale, steps, enable_land,
+    # bilinear, stream
+    "de_naive_march": [_P, _I, _I, _P, _P, _P, _P, _P, _I, _F, _I, _I, _I, _P],
+    # keys, pos, dir, t_start, t_max, ext (n, 4), max_ext, active, clouds, H,
+    # W, event, t, iid, trans, iters, n, max_steps, species (0 the gases, 1
+    # the cloud), ratio, bilinear, stream
+    "de_naive_track": [_P] * 9 + [_I, _I] + [_P] * 5 + [_I, _I, _I, _I, _I, _P],
     # pos, dir, t_start, t_max, sun_dir, ext_rmo, scattering, active,
     # in_scatter, trans, n, rayl_k, mie_e, two_pi, log_term, stream
     "de_atmos_march": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _F, _F, _F,
@@ -245,7 +255,8 @@ def _count(fn, n, options=False):
 # the march launcher and the preview's int block take them (the stall
 # patience is a run-time parameter of every instance)
 OPTION_DEFAULTS = dict(enable_clouds=1, enable_land=1, bilinear_tracking=0, lazy_march=1,
-                       march_exact_ocean=1, march_ref_phantom=1)
+                       march_exact_ocean=1, march_ref_phantom=1, naive_tracking=0, naive_march=0,
+                       naive_cloud_tracking=0, naive_shadow=0)
 MARCH_OPTIONS = ("enable_land", "bilinear_tracking", "march_exact_ocean", "march_ref_phantom")
 
 
@@ -391,6 +402,89 @@ def cloud_track(keys, pos, direction, t_start, t_max, ext_w, active, clouds, *,
         )
         _count(cloud_track, 1, opts)
     return trans if ratio else (event, t)
+
+
+def naive_march(topo, pos, direction, active, scale: float, *, steps: int,
+                enable: bool = True, bilinear: bool = False, iters: bool = False):
+    """Launch ``naive_march`` (csrc/naive_march.cu), the reference's plain
+    sphere march: (n,) hit distance, -1 on a miss (every ray without land,
+    ``enable`` False); with ``iters``, (the distances, each lane's (n,)
+    int32 steps)."""
+    dev = pos.device
+    n = pos.shape[0]
+    h, w = topo.shape[:2]
+    _check_tex4("topo", topo, dev)
+    _check("pos", pos, torch.float32, (n, 3), dev)
+    _check("direction", direction, torch.float32, (n, 3), dev)
+    _check("active", active, torch.bool, (n,), dev)
+    out = torch.empty((n,), dtype=torch.float32, device=dev)
+    it = torch.empty((n,), dtype=torch.int32, device=dev) if iters else None
+    if n:
+        _launch("de_naive_march", _ptr(topo), h, w, _ptr(pos), _ptr(direction), _ptr(active),
+                _ptr(out), _ptr_or_null(it), n, scale, steps, int(enable), int(bilinear))
+        _count(naive_march, 1)
+    return (out, it) if iters else out
+
+
+NAIVE_SPECIES = ("rmo", "cloud")
+
+
+def _naive_track(fn, keys, pos, direction, t_start, t_max, ext, max_ext, active, clouds,
+                 species, max_steps, bilinear, iters, ratio):
+    dev = pos.device
+    n = pos.shape[0]
+    if species not in NAIVE_SPECIES:
+        raise ValueError(f"{fn.__name__}: species {species!r}, expected one of {NAIVE_SPECIES}")
+    keys = keys_i32(keys)
+    _check("keys", keys, torch.int32, (n, 2), dev)
+    _check("pos", pos, torch.float32, (n, 3), dev)
+    _check("direction", direction, torch.float32, (n, 3), dev)
+    _check("t_start", t_start, torch.float32, (n,), dev)
+    _check("t_max", t_max, torch.float32, (n,), dev)
+    _check("ext", ext, torch.float32, (n, 4), dev)
+    _check("max_ext", max_ext, torch.float32, (n,), dev)
+    _check("active", active, torch.bool, (n,), dev)
+    cloud = species == "cloud"
+    if cloud:
+        _check_tex4("clouds", clouds, dev)
+    h, w = clouds.shape[:2] if cloud else (0, 0)
+    event = torch.empty((n,), dtype=torch.int32, device=dev)
+    t = torch.empty((n,), dtype=torch.float32, device=dev)
+    iid = torch.empty((n,), dtype=torch.int32, device=dev)
+    trans = torch.empty((n,), dtype=torch.float32, device=dev)
+    it = torch.empty((n,), dtype=torch.int32, device=dev) if iters else None
+    if n:
+        _launch("de_naive_track", _ptr(keys), _ptr(pos), _ptr(direction), _ptr(t_start),
+                _ptr(t_max), _ptr(ext), _ptr(max_ext), _ptr(active),
+                _ptr(clouds) if cloud else None, h, w, _ptr(event), _ptr(t), _ptr(iid),
+                _ptr(trans), _ptr_or_null(it), n, max_steps, int(cloud), int(ratio),
+                int(bilinear))
+        _count(fn, 1)
+    out = trans if ratio else (event, t, iid)
+    return (out, it) if iters else out
+
+
+def naive_delta_track(keys, pos, direction, t_start, t_max, ext, max_ext, active, clouds=None,
+                      *, species: str, max_steps: int, bilinear: bool = False,
+                      iters: bool = False):
+    """Launch ``naive_delta_track`` (csrc/naive_track.cu): one-step Woodcock
+    tracking at the (n,) global majorant ``max_ext`` of ``species`` ("rmo":
+    the gases, channels 0-2 of the (n, 4) extinctions ``ext``; "cloud": the
+    cloud map's density, channel 3, taps bilinear where ``bilinear``):
+    (event int32, t, iid int32); with ``iters``, (that, each lane's (n,)
+    int32 steps)."""
+    return _naive_track(naive_delta_track, keys, pos, direction, t_start, t_max, ext, max_ext,
+                        active, clouds, species, max_steps, bilinear, iters, ratio=False)
+
+
+def naive_ratio_track(keys, pos, direction, t_start, t_max, ext, max_ext, active, clouds=None,
+                      *, species: str, max_steps: int, bilinear: bool = False,
+                      iters: bool = False):
+    """Launch ``naive_ratio_track`` (csrc/naive_track.cu): the (n,)
+    transmittance by one-step ratio tracking (arguments as
+    ``naive_delta_track`` takes them)."""
+    return _naive_track(naive_ratio_track, keys, pos, direction, t_start, t_max, ext, max_ext,
+                        active, clouds, species, max_steps, bilinear, iters, ratio=True)
 
 
 def atmos_phase_constants(mie_e: float):
@@ -702,10 +796,12 @@ def film_postprocess(color_buffer, count, spp: float, exposure_scale: float,
 # wavelengths per lane the bounce entries, gen_rays and the ratio tracker are
 # built for (csrc/bounce.cuh; TraceConfig.hero_lambdas takes these)
 BOUNCE_WIDTHS = (1, 4)
-# the scene and march flags that follow the bounce entries' sixteen ints, in
-# order (the stall patience, int 5, is a run-time parameter of every instance)
+# the scene and march flags, then the naive arm's (render/params.NAIVE_OPTIONS),
+# that follow the bounce entries' sixteen ints, in order (the stall
+# patience, int 5, is a run-time parameter of every instance)
 BOUNCE_OPTIONS = ("enable_clouds", "enable_land", "bilinear_tracking", "lazy_march",
-                  "march_exact_ocean", "march_ref_phantom")
+                  "march_exact_ocean", "march_ref_phantom", "naive_tracking", "naive_march",
+                  "naive_cloud_tracking", "naive_shadow")
 # the bounce entries' parameter blocks as the wrappers take them; the C
 # entries' int block has one more, the instance (csrc/bounce.cu)
 BOUNCE_FLOATS, BOUNCE_INTS = 16, 16 + len(BOUNCE_OPTIONS)
@@ -744,6 +840,9 @@ def _bounce_args(fparams, iparams, pos, direction, wavelength, lambda_pdf, throu
                          f"{' or '.join(map(str, BOUNCE_WIDTHS))}")
     if iparams[15] not in (0, 1):
         raise ValueError(f"bounce: ratio flag {iparams[15]}, expected 0 or 1")
+    if iparams[16 + BOUNCE_OPTIONS.index("naive_tracking")] and L != 1:
+        raise ValueError(f"bounce: naive_tracking at {L} wavelengths per lane, the naive "
+                         "trackers take 1")
     _check_march_k(iparams[4])
     for name, t in (("pos", pos), ("direction", direction)):
         _check(name, t, torch.float32, (n, 3), dev)
@@ -798,7 +897,7 @@ def bounce_flight(*args, n_live=None, trips=None, cycles=None, options=False):
     radiance, w_mis, alive, primary_miss, work_class, keys, idx, topo,
     material, clouds, o3_crossec, srgb2spec, table. ``keys`` are the (N, 2)
     lane keys as int32 (``keys_i32``); ``fparams`` (16 floats) and
-    ``iparams`` (22 ints: the 16 of csrc/bounce.cu, then the options
+    ``iparams`` (26 ints: the 16 of csrc/bounce.cu, then the options
     ``BOUNCE_OPTIONS``) are laid out as csrc/bounce.cu documents
     (render/pathtracer.py builds them). With ``n_live``, the (1,) int32 live
     count on the device, entries of ``idx`` at or past it are skipped
@@ -1145,7 +1244,8 @@ def atmos_march_occupancy():
     return _occupancy("de_atmos_march_occupancy")
 
 
-PATH_KERNELS = (land_march, rmo_delta_track, rmo_ratio_track, cloud_track, gen_rays,
+PATH_KERNELS = (land_march, rmo_delta_track, rmo_ratio_track, cloud_track, naive_march,
+                naive_delta_track, naive_ratio_track, gen_rays,
                 atmos_march, film_postprocess, frame_end, select_tiles, select_tiles_shard,
                 bounce_flight, bounce_shade, bounce_window, compact_lanes, upsample, preview)
 # the kernels with an options instance

@@ -130,12 +130,21 @@ class TraceConfig:
     march_exact_ocean: bool = True
     march_stall_patience: int = 2
     lazy_march: bool = True
+    naive_tracking: bool = False
+    naive_march: bool = False
+    naive_cloud_tracking: bool = False
+    naive_shadow: bool = False
 
     def __post_init__(self):
         if self.hero_lambdas not in HERO_WIDTHS:
             raise ValueError(
                 f"TraceConfig.hero_lambdas={self.hero_lambdas!r}: the port's kernels are built "
                 f"for packets of {' or '.join(map(str, HERO_WIDTHS))} wavelengths"
+            )
+        if self.naive_tracking and self.hero_lambdas != 1:
+            raise ValueError(
+                f"TraceConfig.naive_tracking with hero_lambdas={self.hero_lambdas!r}: the naive "
+                "trackers are single-wavelength (hero_lambdas=1)"
             )
 
     def options(self) -> dict:
@@ -151,3 +160,7 @@ SCENE_OPTIONS = {name: TraceConfig.__dataclass_fields__[name].default for name i
     "enable_clouds", "enable_land", "bilinear_tracking", "lazy_march", "march_exact_ocean",
     "march_ref_phantom", "march_stall_patience")}
 
+# The reference-faithful naive arm's flags with their (the reference's)
+# defaults: at any of them the bounce kernels run their options instances.
+NAIVE_OPTIONS = {name: TraceConfig.__dataclass_fields__[name].default for name in (
+    "naive_tracking", "naive_march", "naive_cloud_tracking", "naive_shadow")}

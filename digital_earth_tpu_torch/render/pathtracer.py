@@ -5,7 +5,12 @@ analytic_transmittance True or False).
 
 The scene and march options of ``TraceConfig`` (``params.SCENE_OPTIONS``)
 run through the twins and, at any of the six flags off its default, the
-kernels' options instances (every instance takes the stall patience).
+kernels' options instances (every instance takes the stall patience). So
+do the naive arm's four flags (``params.NAIVE_OPTIONS``), which swap the
+accelerated loops for the reference-faithful ones of ``tracking_naive``:
+``naive_tracking`` all of them (march first, single-wavelength paths),
+``naive_march`` the three marches, ``naive_cloud_tracking`` the two cloud
+passes and ``naive_shadow`` the surface's shadow march.
 
 One bounce of the reference's ``run_bounces`` body (pathtracer.py:1554-1924)
 is ``run_bounce``: for CUDA tensors the kernels ``bounce_flight`` and
@@ -42,6 +47,7 @@ from ..ops import sampling as smp
 from ..ops import spectral as sp
 from ..ops import texture as tx
 from . import compact
+from . import tracking_naive as tn
 from .params import SceneParams, TraceConfig
 from .tracers import (  # noqa: F401  (re-exported loop entry points)
     ABSORB_EVENT, NULL_EVENT, SCATTER_EVENT, _CLOUD_VALID, _MIP_VALID_COARSE, _MIP_VALID_FINE,
@@ -140,21 +146,77 @@ def _rmo_span(ray_pos, ray_dir, land_isection):
     return t_start, t_max
 
 
+def _naive_ext(ext_rmo=None, ext_w=None):
+    """The naive trackers' (n, 4) extinctions: the gases' hero three, or the
+    cloud's in channel 3."""
+    if ext_rmo is not None:
+        return torch.cat([ext_rmo[:, 0, :], torch.zeros_like(ext_rmo[:, 0, :1])], dim=-1)
+    return torch.cat([torch.zeros((ext_w.shape[0], 3), device=ext_w.device), ext_w[:, None]],
+                     dim=-1)
+
+
+def _naive(fn, args, trips, site):
+    """A naive tracker: the wrapper, or its plain version adding the trips to
+    census column ``site``."""
+    if trips is None:
+        return fn(*args)
+    return getattr(tn, f"{fn.__name__}_plain")(*args, trips=trips[:, site])
+
+
+def _naive_cloud(fn, keys, ray_pos, ray_dir, c_start, c_max, ext_w, atlas, active, cfg, trips,
+                 site):
+    """A naive cloud pass at the cloud's global majorant, ``ext_w`` times the
+    cloud density's."""
+    return _naive(fn, (keys, ray_pos, ray_dir, c_start, c_max, _naive_ext(ext_w=ext_w),
+                       ext_w * C.CLOUDS_DENSITY, atlas.clouds, "cloud", active, cfg), trips, site)
+
+
+def _sample_interaction_naive(k_rmo, k_cloud, ray_pos, ray_dir, land_isection, ext_rmo, ext_w,
+                              atlas, active, cfg, trips):
+    """The naive arm's flight (pathtracer.py:1263-1288): the gases over the
+    whole span, then the cloud where no gas event lies before the slab; the
+    nearer event wins."""
+    t_start, t_max = _rmo_span(ray_pos, ray_dir, land_isection)
+    rmo_event, rmo_t, rmo_id = _naive(tn.delta_track_naive, (
+        k_rmo, ray_pos, ray_dir, t_start, t_max, _naive_ext(ext_rmo=ext_rmo),
+        vol.max_extinction_rmo(ext_rmo), atlas.clouds, "rmo", active, cfg), trips, 2)
+    if not cfg.enable_clouds:
+        return (rmo_event, rmo_t, rmo_id, torch.zeros_like(rmo_event),
+                torch.zeros_like(rmo_t))
+    c_start, c_max = intersect_cloud_limits(ray_pos, ray_dir, land_isection)
+    cloud_active = active & ((rmo_event == NULL_EVENT) | (rmo_t > c_start))
+    c_event, c_t, _ = _naive_cloud(tn.delta_track_naive, k_cloud, ray_pos, ray_dir, c_start,
+                                   c_max, ext_w, atlas, cloud_active, cfg, trips, 1)
+    take = cloud_active & (c_event > NULL_EVENT) & ((c_t < rmo_t) | (rmo_event == NULL_EVENT))
+    event = torch.where(take, c_event, rmo_event)
+    t = torch.where(take, c_t, rmo_t)
+    iid = torch.where(take, C.CLOUD_ID, rmo_id).to(torch.int32)
+    return event, t, iid, torch.where(cloud_active, c_event, 0), c_t
+
+
 def sample_interaction(keys, ray_pos, ray_dir, land_isection, ext_rmo, ext_w,
                        atlas, active, cfg: TraceConfig, trips=None):
     """Cloud pass, then the RMO pass capped at the cloud event; the nearer
     event wins (pathtracer.py:1236). Returns (event, t, iid, c_event, c_t);
     without clouds (``cfg.enable_clouds`` False) the RMO pass alone, with a
-    zero cloud event (:1315). With ``trips`` (n, 7) int32 the plain loops
-    run and add their iterations to the census columns of the two passes."""
+    zero cloud event (:1315). ``cfg.naive_tracking``: the naive arm's order
+    (``_sample_interaction_naive``); ``cfg.naive_cloud_tracking``: the naive
+    cloud pass. With ``trips`` (n, 7) int32 the plain loops run and add
+    their iterations to the census columns of the two passes."""
     k_rmo = rng.fold(keys, _SUB_RMO)
     k_cloud = rng.fold(keys, _SUB_CLOUD)
+    if cfg.naive_tracking:
+        return _sample_interaction_naive(k_rmo, k_cloud, ray_pos, ray_dir, land_isection,
+                                         ext_rmo, ext_w, atlas, active, cfg, trips)
     t_start, t_max = _rmo_span(ray_pos, ray_dir, land_isection)
     if cfg.enable_clouds:
         c_start, c_max = intersect_cloud_limits(ray_pos, ray_dir, land_isection)
         cloud_args = (k_cloud, ray_pos, ray_dir, c_start, c_max, ext_w, atlas.clouds, active,
                       cfg)
-        if trips is None:
+        if cfg.naive_cloud_tracking:
+            c_event, c_t, _ = _naive_cloud(tn.delta_track_naive, k_cloud, ray_pos, ray_dir,
+                                           c_start, c_max, ext_w, atlas, active, cfg, trips, 1)
+        elif trips is None:
             c_event, c_t = track_cloud(*cloud_args, mode="delta")
         else:
             c_event, c_t = track_cloud_plain(*cloud_args, mode="delta", trips=trips[:, 1])
@@ -184,12 +246,20 @@ def sample_transmittance(keys, ray_pos, ray_dir, ext_rmo, ext_w, atlas,
     (pathtracer.py:1326). The gases' term is the exact closed form from the
     density table, or with ``cfg.analytic_transmittance`` False the
     reference's estimator, ratio tracking to space at the packet majorant
-    (:1348-1354); without clouds the gases' term alone (:1355). With
-    ``trips`` (n, 7) int32 the plain loops run and add their iterations to
-    the census columns of the NEE passes."""
+    (:1348-1354); without clouds the gases' term alone (:1355). The naive
+    arm (:1341-1366): ``cfg.naive_tracking`` takes both terms by naive ratio
+    tracking, ``cfg.naive_cloud_tracking`` the cloud's. With ``trips`` (n, 7)
+    int32 the plain loops run and add their iterations to the census columns
+    of the NEE passes."""
     k_cloud = rng.fold(keys, _SUB_CLOUD)
     no_land = torch.full_like(ext_w, -1.0)
-    if cfg.analytic_transmittance:
+    if cfg.naive_tracking:
+        t_start, t_max = _rmo_span(ray_pos, ray_dir, no_land)
+        trans = _naive(tn.ratio_track_naive, (
+            rng.fold(keys, _SUB_RMO), ray_pos, ray_dir, t_start, t_max,
+            _naive_ext(ext_rmo=ext_rmo), vol.max_extinction_rmo(ext_rmo), atlas.clouds, "rmo",
+            active, cfg), trips, 6)[:, None]
+    elif cfg.analytic_transmittance:
         trans = atm.rmo_transmittance_to_space(ext_rmo, ray_pos, ray_dir)
     else:
         t_start, t_max = _rmo_span(ray_pos, ray_dir, no_land)
@@ -203,7 +273,10 @@ def sample_transmittance(keys, ray_pos, ray_dir, ext_rmo, ext_w, atlas,
         return trans
     c_start, c_max = intersect_cloud_limits(ray_pos, ray_dir, no_land)
     cloud_args = (k_cloud, ray_pos, ray_dir, c_start, c_max, ext_w, atlas.clouds, active, cfg)
-    if trips is None:
+    if cfg.naive_tracking or cfg.naive_cloud_tracking:
+        cloud_trans = _naive_cloud(tn.ratio_track_naive, k_cloud, ray_pos, ray_dir, c_start,
+                                   c_max, ext_w, atlas, active, cfg, trips, 5)
+    elif trips is None:
         cloud_trans = track_cloud(*cloud_args, mode="ratio")
     else:
         cloud_trans = track_cloud_plain(*cloud_args, mode="ratio", trips=trips[:, 5])
@@ -280,11 +353,14 @@ def run_bounce_plain(st: TraceState, bounce: int, scene: SceneParams, atlas, lut
     (n, 7) int32 tensor, the loops run as their plain versions (on any
     device) and add each lane's iterations at the seven loop sites
     (``CENSUS_SITES``), as the kernels' census instances count them."""
+    naive_march = cfg.naive_march or cfg.naive_tracking
 
-    def land(*args, site, **kwargs):
+    def land(*args, site, t_cap=None):
+        if naive_march:  # the plain sphere march takes no cap
+            return _naive(tn.intersect_land_naive, args, trips, site)
         if trips is None:
-            return intersect_land(*args, **kwargs)
-        return intersect_land_plain(*args, **kwargs, trips=trips[:, site])
+            return intersect_land(*args, t_cap=t_cap)
+        return intersect_land_plain(*args, t_cap=t_cap, trips=trips[:, site])
 
     pos, direction = st.pos, st.direction
     wavelength, lambda_pdf = st.wavelength, st.lambda_pdf
@@ -319,8 +395,9 @@ def run_bounce_plain(st: TraceState, bounce: int, scene: SceneParams, atlas, lut
     # terrain-free ball; only lanes whose flight leaves it march. March
     # first (``cfg.lazy_march`` False, the reference's order, pathtracer.py:
     # 1582-1591): every live lane marches at the first site, the flight is
-    # capped at its hit, and no lane marches after it nor is demoted.
-    first = not cfg.lazy_march
+    # capped at its hit, and no lane marches after it nor is demoted. The
+    # naive arm always marches first.
+    first = not cfg.lazy_march or cfg.naive_tracking
     tap = tx.sample_sphere_texture(topo, pos, bilinear=cfg.bilinear_tracking)
     r_len = mu.length(pos)
     d_free = torch.maximum(
@@ -414,10 +491,13 @@ def run_bounce_plain(st: TraceState, bounce: int, scene: SceneParams, atlas, lut
         s_trips = None if trips is None else torch.zeros_like(trips[s_idx])
         shadow_args = (topo, s_offset, light_dir[s_idx].contiguous(), scale,
                        torch.ones_like(s_idx, dtype=torch.bool), cfg)
-        if trips is None:
+        if naive_march or cfg.naive_shadow:
+            shadow_hit = _naive(tn.intersect_land_naive, shadow_args, s_trips, 4)
+        elif trips is None:
             shadow_hit = intersect_land(*shadow_args, any_hit=True)
         else:
             shadow_hit = intersect_land_plain(*shadow_args, any_hit=True, trips=s_trips[:, 4])
+        if trips is not None:
             trips[s_idx] += s_trips
         dd, ds, dn = srf.earth_brdf_parts(ocean, bathymetry, -s_dir, normal, light_dir[s_idx])
         s_hemi = smp.sample_hemisphere_cosine_weighted(u_h[0][s_idx], u_h[1][s_idx], normal)
@@ -515,11 +595,16 @@ class BounceFrame:
         self.fparams = [scale_f, step_floor, stall_thresh, atm._O3_ENV_PEAK, *light, cos_angle,
                         solid_angle, offset_scale, *sp.planck_kernel_constants(),
                         *vol.MAX_DENS_RMO]
+        # naive_tracking takes the gases' sun transmittance from the ratio
+        # instances' tracker at one probe an iteration: the naive ratio
+        # tracker's one-step loop, draw for draw (csrc/bounce.cuh); its other
+        # loops read no tracking_k
+        naive = cfg.naive_tracking
         self.iparams = [
             st.wavelength.shape[1], 0, cfg.rr_start, cfg.land_march_steps, cfg.march_k,
-            cfg.march_stall_patience, cfg.max_tracking_steps, cfg.tracking_k,
+            cfg.march_stall_patience, cfg.max_tracking_steps, 1 if naive else cfg.tracking_k,
             int(cfg.bilinear_materials), *topo.shape[:2], *atlas.material.shape[:2],
-            *atlas.clouds.shape[:2], int(not cfg.analytic_transmittance),
+            *atlas.clouds.shape[:2], int(naive or not cfg.analytic_transmittance),
             *(int(getattr(cfg, name)) for name in kernels.BOUNCE_OPTIONS),
         ]
         self.keys = kernels.keys_i32(st.rng)

@@ -309,7 +309,7 @@ def test_scene_params_and_trace_config():
         jparams.TraceConfig(max_bounces=3, compact_tile=512, land_march_steps=64))
     assert got == tparams.TraceConfig(max_bounces=3, land_march_steps=64)
     for knob, value in [("loop_narrow", 256), ("scalar_ray_geom", True),
-                        ("fast_loop_rng", True), ("naive_march", True),
+                        ("fast_loop_rng", True), ("march_certified_floor", True),
                         ("nee_off", True), ("work_bins", 5), ("cloud_rr_keep", 0.5),
                         ("march_floor_frac_secondary", 0.002), ("hero_lambdas", 2),
                         ("flight_newton_iters", 7), ("loop_narrow_after", 5)]:

@@ -1713,3 +1713,93 @@ def test_upsample_launcher_checks_its_inputs(dev):
         kernels.upsample(img[:, ::2], 2, 0.0, 0, 0)
     with pytest.raises(ValueError, match="channels"):
         kernels.upsample(torch.zeros((4, 6, 9), dtype=torch.uint8, device=dev), 2, 0.0, 0, 0)
+
+
+# The naive arm (render/params.NAIVE_OPTIONS): each flag alone, and two of
+# them with options that act on the same loops
+NAIVE_OPTION_CASES = [
+    dict(naive_tracking=True, hero_lambdas=1), dict(naive_march=True),
+    dict(naive_cloud_tracking=True), dict(naive_shadow=True),
+    dict(naive_tracking=True, hero_lambdas=1, analytic_transmittance=False,
+         bilinear_tracking=True),
+    dict(naive_march=True, naive_cloud_tracking=True, bilinear_tracking=True),
+]
+
+
+@pytest.mark.parametrize("bounce", [0, 3])
+@pytest.mark.parametrize("options", NAIVE_OPTION_CASES)
+def test_bounce_options_instance_bit_equal_at_naive_flags(dev, bounce, options):
+    """The bounce entries' options instances at the naive flags, as
+    test_bounce_options_instance_bit_equal holds the scene options."""
+    test_bounce_options_instance_bit_equal(dev, bounce, options)
+
+
+@pytest.mark.parametrize("options", NAIVE_OPTION_CASES)
+def test_bounce_window_options_instance_bit_equal_at_naive_flags(dev, options):
+    test_bounce_window_options_instance_bit_equal(dev, options)
+
+
+def test_bounce_refuses_naive_tracking_at_four_wavelengths(dev):
+    """The naive trackers are single-wavelength: the wrappers refuse a
+    bounce launch at naive_tracking with four wavelengths a lane."""
+    from digital_earth_tpu_torch import kernels
+
+    st, args = _golden_state(dev, 0)
+    idx, n_live = _live(st)
+    frame = pt.BounceFrame(st, *args)
+    ka = list(pt._kernel_args(st, idx[: int(n_live)], 0, *args, frame))
+    ka[1] = list(ka[1])
+    ka[1][16 + kernels.BOUNCE_OPTIONS.index("naive_tracking")] = 1
+    with pytest.raises(ValueError, match="naive_tracking"):
+        kernels.bounce_flight(*ka)
+
+
+@pytest.mark.parametrize("fn,species", [("intersect_land_naive", None),
+                                        ("delta_track_naive", "rmo"),
+                                        ("delta_track_naive", "cloud"),
+                                        ("ratio_track_naive", "rmo"),
+                                        ("ratio_track_naive", "cloud")])
+@pytest.mark.parametrize("bilinear", [False, True])
+def test_naive_launchers_bit_equal(dev, case, fn, species, bilinear):
+    """The naive launchers against their plain twins on the case's lanes:
+    every output bit-equal, each lane's steps the twin's."""
+    from digital_earth_tpu_torch import kernels
+    from digital_earth_tpu_torch.render import tracking_naive as tn
+
+    cfg = TraceConfig(bilinear_tracking=bilinear, max_tracking_steps=2048)
+    topo, clouds = case["atlas"].topography, case["atlas"].clouds
+    pos, dirs, active = case["pos"], case["dirs"], case["active"]
+    trips = torch.zeros(N, dtype=torch.int32, device=dev)
+    if species is None:
+        want = tn.intersect_land_naive_plain(topo, pos, dirs, 7800.0, active, cfg, trips=trips)
+        got, steps = kernels.naive_march(topo, pos, dirs, active, 7800.0,
+                                         steps=cfg.land_march_steps, bilinear=bilinear,
+                                         iters=True)
+        got, want = (got,), (want,)
+    else:
+        no_land = torch.full((N,), -1.0, device=dev)
+        if species == "rmo":
+            t0, t1 = pt._rmo_span(pos, dirs, no_land)
+            ext = torch.cat([case["ext_h"], torch.zeros((N, 1), device=dev)], dim=-1)
+            max_ext = vol.max_extinction_rmo(case["ext"][:, :1, :])
+        else:
+            t0, t1 = pt.intersect_cloud_limits(pos, dirs, no_land)
+            ext = torch.zeros((N, 4), device=dev)
+            ext[:, 3] = C.CLOUDS_EXTINCT
+            max_ext = torch.full((N,), C.CLOUDS_EXTINCT, device=dev) * C.CLOUDS_DENSITY
+        args = (case["keys"], pos, dirs, t0, t1, ext, max_ext, clouds, species, active, cfg)
+        want = getattr(tn, f"{fn}_plain")(*args, trips=trips)
+        launcher = kernels.naive_delta_track if fn == "delta_track_naive" else \
+            kernels.naive_ratio_track
+        before = launcher.launches
+        got, steps = launcher(case["keys"], pos, dirs, t0, t1, ext, max_ext, active, clouds,
+                              species=species, max_steps=cfg.max_tracking_steps,
+                              bilinear=bilinear, iters=True)
+        assert launcher.launches == before + 1
+        assert torch.equal(getattr(tn, fn)(*args)[0] if fn == "delta_track_naive"
+                           else getattr(tn, fn)(*args), got[0] if fn == "delta_track_naive"
+                           else got)
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+    assert all(torch.equal(g.view(torch.int32), w.view(torch.int32)) for g, w in zip(got, want))
+    assert torch.equal(steps, trips) and int(trips.max()) > 1

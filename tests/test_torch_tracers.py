@@ -154,7 +154,8 @@ def _texture_call(wrapper, tex):
                                        material, torch.zeros((h, w, 3), dtype=torch.uint8), o3,
                                        srgb2spec, origin=(0.0, 0.0, 0.0))
     z4 = torch.zeros((n, 4))
-    ip = [4, 0, 0, 8, 4, 2, 8, 4, 0, h, w, h, w, h, w, 0, 1, 1, 0, 1, 1, 1]
+    ip = [4, 0, 0, 8, 4, 2, 8, 4, 0, h, w, h, w, h, w, 0] + [
+        kernels.OPTION_DEFAULTS[name] for name in kernels.BOUNCE_OPTIONS]  # the options' defaults
     args = ([0.0] * 16, ip, z3, z3, z4, z4, z4, z4, z4, act, act.clone(),
             torch.zeros(n, dtype=torch.int32), torch.zeros((n, 2), dtype=torch.int32),
             torch.arange(n, dtype=torch.int32), tex if which == "topo" else good, material,

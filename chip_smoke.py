@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch + CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--mesh-only | --preview-bench [DIR] | --path-bench [DIR]
-                           | --spp-bench [DIR] | --options-bench [DIR] | --sass-counts [DIR]]
+    python3 chip_smoke.py [--mesh-only | --estimator-only | --preview-bench [DIR]
+                           | --path-bench [DIR] | --spp-bench [DIR] | --options-bench [DIR]
+                           | --sass-counts [DIR]]
 
 Run from the root of a checkout on a machine with a CUDA card, ``nvcc`` and
 PyTorch built for CUDA; ``--mesh-only`` runs phases 1-3 and 19 alone (say,
 on a machine with several cards, where phase 19 adds meshes over them);
+``--estimator-only`` runs phases 1-4 and 8e alone;
 ``--preview-bench [DIR]`` prints the preview's end-to-end numbers (frame
 times and kernels per frame on both atlases, input to preview) for the port
 package in DIR (default this checkout), so that two versions of the port can
@@ -24,8 +26,9 @@ wavelengths and the reference estimator's census at bounces 0 and
 DEEP_BOUNCE with its tracking lanes per warp); ``--spp-bench [DIR]``
 the three scenes' s/spp and the bounce kernels' device ms of 3 profiled
 spp each, at the default config and at the reference's estimator;
-``--options-bench [DIR]`` phase 8c's settings (bounce 0's two kernels of
-the options instances, s/spp against the scene's default) and
+``--options-bench [DIR]`` the settings of phases 8c, 8d and 8e that DIR's
+package takes (bounce 0's two kernels of the options or estimator
+instances, s/spp against the setting's base) and
 ``--sass-counts [DIR]`` the bounce entries' SASS sizes and the options
 sources' ptxas report, for the package in DIR. It
 imports nothing of JAX or of the JAX package ``digital_earth_tpu`` (checked
@@ -166,6 +169,21 @@ at the end). Phases, each of which raises on failure (exit code 1):
    the frame mean per channel +- its SE at 320x180 on the three scenes
    (``paired_parity``; both arms at one wavelength, winsorised at the
    99.9th percentile; no gate on the error, a non-finite value fails).
+8e. the estimator options (``check_estimator_knobs``; ESTIMATOR_CASES and
+   ESTIMATOR_EXTRA): the default bounce instances' SASS against
+   PARENT_DEFAULT_SASS and the estimator instances' ptxas; ``flight_analytic``
+   against its twin on phase 4's RMO flight arguments (event, distance,
+   interaction id and each lane's steps bit-equal; timed with its bound) and
+   ``fast_uniform_check`` on edge keys and counters and at the frame's shape
+   (the kernels line's rows); the tracker launchers at fast_loop_rng, each
+   lane bit-equal to the twin on the card or, where the twin's Python
+   divisors part there, to the twin on the CPU, timed beside their threefry
+   instances; per case and scene the estimator instances against their twin
+   at bounces 0 and DEEP_BOUNCE and in the window, every lane bit-equal, with
+   the census (at analytic_flight its Newton steps at the RMO site); the
+   analytic_flight path on Apollo under phase 6's gates; s/spp of each
+   ESTIMATOR_SPP setting on the three scenes against its default; the
+   phase's seconds.
 
 The viewer's path (each run with the launch counts set to 0 just before it
 and read just after):
@@ -360,7 +378,7 @@ MAIN_PATH = ("bounce_flight", "bounce_shade", "bounce_window", "compact_lanes", 
 # kernels whose loops now run inside bounce: none of their own launches on
 # the path tracer's run (held against their twins in their own phase)
 INLINED = ("land_march", "rmo_delta_track", "rmo_ratio_track", "cloud_track", "naive_march",
-           "naive_delta_track", "naive_ratio_track")
+           "naive_delta_track", "naive_ratio_track", "flight_analytic", "fast_uniform_check")
 OTHER_SCENES = ("config - florida.txt", "config - sunset hurricane.txt")
 # bounce's bytes per live lane: its state read (pos, dir, wavelengths,
 # lambda_pdf, throughput, radiance, w_mis, flags, work class, keys, list
@@ -804,9 +822,10 @@ def sass_census(kernels, label="", funcs=None):
               + ", ".join(f"{op} {c}" for op, c in sorted(delta.items(), key=lambda x: -x[1])))
         out[what] = dict(ops=delta, pipes=pipes, total=total)
     out["tf"] = tf
-    for key, pattern in (("threefry_uniform_kernel", "threefry_uniform_kernel"),
-                         ("bounce_flight", "bounce_flight_kernelILi4ELb0ELb0E")):
-        name = next((n for n in funcs if pattern in n), None)
+    for key, patterns in (("threefry_uniform_kernel", ("threefry_uniform_kernel",)),
+                          ("bounce_flight", ("bounce_flight_kernelILi4ELb0ELi0EE",
+                                             "bounce_flight_kernelILi4ELb0ELb0EE"))):
+        name = next((n for n in funcs if any(p in n for p in patterns)), None)
         if name is None:
             continue
         hist, pp = sass_histogram(funcs[name])
@@ -1926,6 +1945,9 @@ ENTRY_SETS = (("L = 4, closed form", {}), ("L = 1, closed form", dict(hero_lambd
               ("L = 1, ratio", dict(hero_lambdas=1, analytic_transmittance=False)))
 # the options instances' sources: the bounce entries' sets, and the march
 # and cloud launchers' and the preview's (beside their default instances)
+# the bounce entries' estimator instances' sources (phase 8e)
+ESTIMATOR_SOURCES = ("bounce_est.cu", "bounce_l1_est.cu", "bounce_ratio_est.cu",
+                     "bounce_l1_ratio_est.cu")
 OPTIONS_SOURCES = ("bounce_opts.cu", "bounce_l1_opts.cu", "bounce_ratio_opts.cu",
                    "bounce_l1_ratio_opts.cu", "land_march.cu", "cloud_track.cu", "preview.cu")
 
@@ -2347,18 +2369,19 @@ PARENT_DEFAULT_SASS = {
 
 
 def bounce_instances(funcs):
-    """{mangled name: (entry, template bools, SASS instructions)} of the
-    bounce entries in a ``sass_functions`` map; the last bool is OPTS."""
+    """{mangled name: (entry, template flags, SASS instructions)} of the
+    bounce entries in a ``sass_functions`` map; the last flag is OPTS (0 the
+    default instance, 1 the options instance, 2 the estimator instance; a
+    bool before the estimator instances came)."""
     import re
 
     out = {}
     for name, ops in funcs.items():
-        m = re.search(r"(bounce_flight|bounce_shade|bounce_window)_kernelILi(\d)E((?:Lb[01]E)+)",
+        m = re.search(r"(bounce_flight|bounce_shade|bounce_window)_kernelILi(\d)E((?:L[bi]\d+E)+)",
                       name)
         if m:
-            bools = tuple(b == "1" for b in re.findall(r"Lb([01])E", m[3]))
-            out[name] = (f"{m[1]}<L={m[2]}, {', '.join(map(str, map(int, bools)))}>", bools,
-                         len(ops))
+            args = tuple(int(b) for b in re.findall(r"L[bi](\d+)E", m[3]))
+            out[name] = (f"{m[1]}<L={m[2]}, {', '.join(map(str, args))}>", args, len(ops))
     return out
 
 
@@ -2366,7 +2389,7 @@ def default_sass(kernels):
     """{entry<L, template flags>: SASS instructions} of every default (OPTS
     false) instance of the bounce entries in the built library."""
     funcs = sass_functions(kernels.library()._name)
-    return {entry: n for entry, bools, n in bounce_instances(funcs).values() if not bools[-1]}
+    return {entry: n for entry, flags, n in bounce_instances(funcs).values() if not flags[-1]}
 
 
 def sass_counts():
@@ -2379,8 +2402,8 @@ def sass_counts():
     funcs = sass_functions(kernels.library()._name)
     inst = {entry: n for _, (entry, _, n) in sorted(bounce_instances(funcs).items())}
     ptxas = {src: ptxas_entries(kernels.ptxas_log.get(src, "")) for src in
-             OPTIONS_SOURCES + ("bounce.cu", "bounce_l1.cu", "bounce_ratio.cu",
-                                "bounce_l1_ratio.cu")}
+             OPTIONS_SOURCES + ESTIMATOR_SOURCES + ("bounce.cu", "bounce_l1.cu",
+                                                     "bounce_ratio.cu", "bounce_l1_ratio.cu")}
     print(json.dumps({"sass_counts": dict(package=os.path.dirname(os.path.abspath(pkg.__file__)),
                                           card=nvidia_smi_line(), instances=inst,
                                           default=default_sass(kernels), ptxas=ptxas)}))
@@ -2392,10 +2415,11 @@ def check_default_sass(kernels):
     options instances only. Fails on any difference."""
     now = default_sass(kernels)
     for entry, n in sorted(now.items()):
-        print(f"SASS default instance {entry}: {n} instructions (before the naive arm "
-              f"{PARENT_DEFAULT_SASS.get(entry)})")
+        print(f"SASS default instance {entry}: {n} instructions (before the naive arm and the "
+              f"estimator options {PARENT_DEFAULT_SASS.get(entry)})")
     if now != PARENT_DEFAULT_SASS:
-        fail("a default bounce instance's SASS differs from its count before the naive arm")
+        fail("a default bounce instance's SASS differs from its count before the naive arm and "
+             "the estimator options")
 
 
 def _naive_launcher(torch, name, args, iters=False):
@@ -2762,12 +2786,393 @@ def check_naive(torch, dev, atlas, luts, tf):
     return rows
 
 
+# Phase 8e, the estimator options (render/params.ESTIMATOR_OPTIONS): each
+# case the bounce entries' options instances are held to their twin at
+# (the roulettes' start bounces set so that they act at bounces 0 and
+# DEEP_BOUNCE: the NEE roulette acts past nee_rr_start, the cloud roulette
+# from cloud_rr_start), and the settings whose s/spp is set against the
+# default's (at the reference's start bounces, 9)
+ESTIMATOR_CASES = (
+    ("analytic_flight", dict(analytic_flight=True)),
+    ("fast_loop_rng", dict(fast_loop_rng=True)),
+    ("nee_rr_prob=0.5", dict(nee_rr_prob=0.5, nee_rr_start=-1)),
+    ("cloud_rr_keep=0.5", dict(cloud_rr_keep=0.5, cloud_rr_start=0)),
+    ("nee_off", dict(nee_off=True)),
+    ("all but nee_off", dict(analytic_flight=True, flight_newton_iters=10, fast_loop_rng=True,
+                             nee_rr_prob=0.5, nee_rr_start=-1, cloud_rr_keep=0.5,
+                             cloud_rr_start=0)),
+)
+# analytic_flight and fast_loop_rng also at the reference's own estimator
+# (the L = 1 ratio instances, whose sun transmittance of the gases is ratio
+# tracking), analytic_flight marching first, and fast_loop_rng beside
+# naive_tracking (whose loops keep threefry)
+ESTIMATOR_EXTRA = (
+    ("analytic_flight, reference estimator", dict(analytic_flight=True, **REF_ESTIMATOR)),
+    ("fast_loop_rng, reference estimator", dict(fast_loop_rng=True, **REF_ESTIMATOR)),
+    ("analytic_flight, lazy_march=False", dict(analytic_flight=True, lazy_march=False)),
+    ("fast_loop_rng, naive_tracking", dict(fast_loop_rng=True, naive_tracking=True,
+                                           hero_lambdas=1)),
+)
+ESTIMATOR_SPP = (("analytic_flight", dict(analytic_flight=True)),
+                 ("fast_loop_rng", dict(fast_loop_rng=True)),
+                 ("nee_rr_prob=0.5", dict(nee_rr_prob=0.5)),
+                 ("cloud_rr_keep=0.5", dict(cloud_rr_keep=0.5)),
+                 ("nee_off", dict(nee_off=True)),
+                 ("all but nee_off", dict(analytic_flight=True, fast_loop_rng=True,
+                                          nee_rr_prob=0.5, cloud_rr_keep=0.5)))
+# Operations of the analytic flight (csrc/flight_analytic.cuh), counted from
+# the source as the other rows are (an add, multiply, divide, square root,
+# min, max, compare or select one; an expf or logf one): a table lookup
+# F(rp, |x|) 133 (the row index 23, two rows 50 each, the lerps 10), tau(t)
+# 151 (the lookup, the sign and clamped differences, the dot); per lane the
+# perigee frame, f0, tau over the span, -ln u and the test: 319; a Newton
+# step: tau, the residual, the radius and its densities (51), sigma, the
+# bracket, the step and its test, the bisection: 231; a colliding lane's
+# clamp, point, densities, species CMF and roulette: 78. Threefry: a draw
+# a lane, two more a colliding lane
+FLIGHT_LANE_OPS, FLIGHT_STEP_OPS, FLIGHT_HIT_OPS = 319, 231, 78
+# bytes per lane of the launcher: keys, pos, dir, span, ext_h, active (53)
+# read, event, t, iid (12) written; the table counted once
+FLIGHT_LANE_BYTES = 65
+# fast_uniform_check's integer work a word, from the source: the counter's
+# and the index's products (2 IMAD), the two xors with the key words, two
+# lowbias32 (each three shift-xors, 6 ALU-pipe instructions, and two
+# multiplies on the FMA pipe): 14 ALU-pipe and 6 FMA-pipe instructions, a
+# conversion and the 2^-32 scale
+FAST_WORD_ALU, FAST_WORD_FMA, FAST_WORD_F32 = 14, 6, 2
+FAST_COUNTERS = (0, 1, 7, 0x7FFFFFFF, 0x80000000, 0xFFFFFFFF)
+FAST_SHAPE = (3, 4)  # a delta tracker's iteration at K = 4: 12 words a lane
+
+
+def check_flight_analytic(torch, captured, tf):
+    """flight_analytic against its twin on the RMO flight arguments phase 4
+    captured at bounce 0 (Apollo 11 1080p): every lane's event, distance and
+    interaction id bit-equal, its steps the twin's census count; timed per
+    call and on the device with its bound. A JSON row."""
+    from digital_earth_tpu_torch import kernels
+    from digital_earth_tpu_torch.models import atmosphere_lut as atm
+    from digital_earth_tpu_torch.render import tracers
+    from digital_earth_tpu_torch.render.params import TraceConfig
+
+    n_act, args, _ = captured[("rmo_delta_track", 0)]
+    keys, pos, d, t0, t1, ext_h, active = args[:7]
+    cfg = TraceConfig(analytic_flight=True)
+    n = pos.shape[0]
+    table = atm.density_table(pos.device)
+    k32 = kernels.keys_i32(keys)
+    launch = lambda: kernels.flight_analytic(k32, pos, d, t0, t1, ext_h, active, table,  # noqa: E731
+                                             n_iter=cfg.flight_newton_iters, iters=True)
+    ((event, t, iid), iters), ms = _time_ms(torch, launch, 5)
+    graph_ms = _graph_ms(torch, lambda: kernels.flight_analytic(
+        k32, pos, d, t0, t1, ext_h, active, table, n_iter=cfg.flight_newton_iters))
+    trips = torch.zeros(n, dtype=torch.int32, device=pos.device)
+    want = tracers.sample_rmo_flight_analytic_plain(keys, pos, d, t0, t1, ext_h, active, cfg,
+                                                    trips=trips)
+    _, plain_ms = _plain_ms(torch, lambda: tracers.sample_rmo_flight_analytic_plain(
+        keys, pos, d, t0, t1, ext_h, active, cfg))
+    parted = int(((event != want[0]) | (t.view(torch.int32) != want[1].view(torch.int32))
+                  | (iid != want[2])).sum())
+    same_iters = torch.equal(iters, trips)
+    hits = int((iters > 0).sum())
+    steps = float(iters.to(torch.float64).sum())
+    alu, fma = tf_ops(0, n + 2 * hits, tf)
+    ops = n * FLIGHT_LANE_OPS + steps * FLIGHT_STEP_OPS + hits * FLIGHT_HIT_OPS + alu + fma
+    nbytes = n * FLIGHT_LANE_BYTES + table.numel() * 4
+    b_ms, b_by = bound(nbytes, ops, int_ops=alu, fma_ops=fma)
+    ok = parted == 0 and same_iters
+    ev = event[active]
+    print(f"flight_analytic Apollo 11 bounce 0 ({n} lanes, {n_act} active, "
+          f"{cfg.flight_newton_iters} Newton steps; {nvidia_smi_line()}): event, t and iid "
+          f"bit-equal to the twin's on all but {parted} lanes, steps equal {same_iters}; "
+          f"{hits} colliding lanes ({int((ev == 2).sum())} scatter, {int((ev == 1).sum())} "
+          f"absorb), {steps:.0f} steps; kernel {ms:.4f} ms per call, {graph_ms:.4f} ms on the "
+          f"device (CUDA graph), plain {plain_ms:.1f} ms; bound {b_ms:.4f} ms ({b_by}; {ops:.4g} "
+          f"operations, {alu:.4g} threefry ALU-pipe, {fma:.4g} FMA-pipe; bytes "
+          f"{nbytes / PEAK_BYTES * 1e3:.4f} ms)  {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("flight_analytic disagrees with its plain twin")
+    return dict(max_abs_err=0.0, ms=ms, graph_ms=graph_ms, plain_ms=plain_ms, bytes=nbytes,
+                ops=ops, int_ops=alu, fma_ops=fma)
+
+
+def check_fast_uniform(torch, dev):
+    """fast_uniform_check bit for bit against ops/rng.fast_uniform on 65,536
+    lanes (threefry's edge keys first) at counters across 2^31 and 2^32 - 1,
+    12 words a lane; then at the frame's shape (2,073,600 lanes, a delta
+    iteration's 12 words) per call and on the device with its bound. A JSON
+    row."""
+    from digital_earth_tpu_torch import kernels
+    from digital_earth_tpu_torch.ops import rng
+
+    words = math.prod(FAST_SHAPE)
+    keys = threefry_keys(torch, dev, 1 << 16)
+    for c in FAST_COUNTERS:
+        got = kernels.fast_uniform_check(keys, c, words)
+        want = rng.fast_uniform(keys, c, (words,))
+        if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+            fail(f"fast_uniform_check disagrees with ops/rng.fast_uniform at counter {c:#x}")
+    n = RES[0] * RES[1]
+    keys = rng.lane_keys(rng.prng_key(7, dev), torch.arange(n, device=dev))
+    k32 = kernels.keys_i32(keys)
+    got, ms = _time_ms(torch, lambda: kernels.fast_uniform_check(k32, 5, words), 20)
+    graph_ms = _graph_ms(torch, lambda: kernels.fast_uniform_check(k32, 5, words))
+    want, plain_ms = _plain_ms(torch, lambda: rng.fast_uniform(keys, 5, (words,)))
+    equal = torch.equal(got.view(torch.int32), want.view(torch.int32))
+    alu, fma = n * words * FAST_WORD_ALU, n * words * FAST_WORD_FMA
+    ops = alu + fma + n * words * FAST_WORD_F32
+    nbytes = n * (8 + 4 * words)
+    b_ms, b_by = bound(nbytes, ops, int_ops=alu, fma_ops=fma)
+    print(f"fast_uniform_check: bit-equal to ops/rng.fast_uniform on 65536 lanes (17 edge keys "
+          f"first), {words} words a lane, at counters {[hex(c) for c in FAST_COUNTERS]}; at "
+          f"{n} lanes x {words} words: bit-equal {equal}  kernel {ms:.4f} ms per call, "
+          f"{graph_ms:.4f} ms on the device (CUDA graph)  plain {plain_ms:.2f} ms  bound "
+          f"{b_ms:.4f} ms ({b_by}; {alu:.4g} ALU-pipe, {fma:.4g} FMA-pipe instructions)  "
+          f"{'ok' if equal else 'FAIL'}")
+    if not equal:
+        fail("fast_uniform_check disagrees with ops/rng.fast_uniform at the frame's shape")
+    return dict(max_abs_err=0.0, ms=ms, graph_ms=graph_ms, plain_ms=plain_ms, bytes=nbytes,
+                ops=ops, int_ops=alu, fma_ops=fma)
+
+
+# lanes of a tracker launcher at fast_loop_rng that may part from the twin on
+# the card and be held to the twin on the CPU instead (the twin's Python
+# divisors round on the card as a multiply by float32(1 / b), ROADMAP C #2:
+# the cloud tracker's slab height over 6000 and its transmittance over
+# 0.05; the kernels divide, as the twin does on the CPU)
+FAST_CPU_LANES = 4096
+
+
+def _hold_to_twins(torch, kind, got, want, plain, args, cfg, kwargs, card, times):
+    """A tracker launcher's outputs ``got`` against its twin's on the card
+    ``want``, lane by lane and bit for bit; the lanes that part are run by
+    the twin on the CPU, whose bits they must have. Fails otherwise."""
+    diff = sum((g.view(torch.int32) != w.view(torch.int32)).reshape(g.shape[0], -1).any(-1)
+               .to(torch.int32) for g, w in zip(got, want))
+    lanes = torch.nonzero(diff).squeeze(1)
+    ok = lanes.numel() <= FAST_CPU_LANES
+    if lanes.numel() and ok:
+        n = diff.shape[0]
+        cpu = [a[lanes].cpu() if isinstance(a, torch.Tensor) and a.shape[:1] == (n,) else
+               a.cpu() if isinstance(a, torch.Tensor) else a for a in args]
+        host = plain(*cpu, cfg, **kwargs)
+        host = host if isinstance(host, tuple) else (host,)
+        ok = all(torch.equal(g[lanes].cpu().view(torch.int32), h.view(torch.int32))
+                 for g, h in zip(got, host))
+    print(f"{kind} at fast_loop_rng, Apollo 11 bounce 0 ({diff.shape[0]} lanes; {card}): "
+          f"bit-equal to the twin's on the card on all but {lanes.numel()} lanes, those "
+          f"bit-equal to the twin's on the CPU; fast_loop_rng instance {times[0]:.4f} ms, the "
+          f"default instance (threefry) {times[1]:.4f} ms  {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"{kind} at fast_loop_rng disagrees with its plain twin")
+
+
+def check_fast_trackers(torch, dev, atlas, luts, captured):
+    """The tracker launchers' options instances at fast_loop_rng against
+    their twins at it: rmo_delta_track and cloud_track (delta and ratio) on
+    phase 4's bounce-0 arguments, rmo_ratio_track on the reference
+    estimator's bounce-0 NEE lanes at L = 4 (Apollo 11 1080p); every lane
+    bit-equal to the twin on the card, or where that twin's Python divisors
+    part from it (FAST_CPU_LANES) to the twin on the CPU (the ratio
+    tracker's iterations equal too); each timed beside its default instance
+    (threefry) on the same arguments. {kind: (ms, default ms)}."""
+    import dataclasses
+
+    from digital_earth_tpu_torch import kernels
+    from digital_earth_tpu_torch.render import tracers
+
+    card = nvidia_smi_line()
+    out = {}
+    for kind in ("rmo_delta_track", "cloud_track/delta", "cloud_track/ratio"):
+        _, args, kwargs = captured[(kind, 0)]
+        fast = dataclasses.replace(args[-1], fast_loop_rng=True)
+        if kind == "rmo_delta_track":
+            plain, wrapper = tracers.delta_track_rmo_plain, tracers.delta_track_rmo
+        else:
+            plain, wrapper = tracers.track_cloud_plain, tracers.track_cloud
+        got, ms = _time_ms(torch, lambda: wrapper(*args[:-1], fast, **kwargs), 5)
+        _, ms_default = _time_ms(torch, lambda: wrapper(*args, **kwargs), 5)
+        want = plain(*args[:-1], fast, **kwargs)
+        got, want = ((got,), (want,)) if kind.endswith("ratio") else (got, want)
+        _hold_to_twins(torch, kind, got, want, plain, args[:-1], fast, kwargs, card,
+                       (ms, ms_default))
+        out[kind] = (ms, ms_default)
+    from digital_earth_tpu_torch.render.params import TraceConfig
+
+    states, _, _ = capture_states(torch, dev, atlas, luts, bounces=(0,),
+                                  cfg=TraceConfig(analytic_transmittance=False))
+    args = capture_ratio_args(torch, states[0], 0)
+    del states
+    keys, pos, d, t0, t1, ext, max_ext, active, cfg = args
+    fast = dataclasses.replace(cfg, fast_loop_rng=True)
+    kw = dict(max_steps=cfg.max_tracking_steps, k=cfg.tracking_k, iters=True)
+    (got, iters), ms = _time_ms(torch, lambda: kernels.rmo_ratio_track(
+        keys, pos, d, t0, t1, ext, max_ext, active, fast_rng=True, **kw), 5)
+    _, ms_default = _time_ms(torch, lambda: kernels.rmo_ratio_track(
+        keys, pos, d, t0, t1, ext, max_ext, active, **kw), 5)
+    trips = torch.zeros(pos.shape[0], dtype=torch.int32, device=pos.device)
+    want = tracers.ratio_track_rmo_plain(*args[:-1], fast, trips=trips)
+    if not torch.equal(iters, trips):
+        fail("rmo_ratio_track at fast_loop_rng: iterations differ from the twin's")
+    print(f"rmo_ratio_track NEE lanes: {int(active.sum())} of {pos.shape[0]}, L = {ext.shape[1]}, "
+          f"iterations equal to the twin's")
+    _hold_to_twins(torch, "rmo_ratio_track", (got,), (want,), tracers.ratio_track_rmo_plain,
+                   args[:-1], fast, {}, card, (ms, ms_default))
+    out["rmo_ratio_track"] = (ms, ms_default)
+    return out
+
+
+def check_estimator_knobs(torch, dev, atlas, luts, captured, tf):
+    """Phase 8e, the estimator options at 1920x1080 on ``atlas``: the
+    default bounce instances' SASS against the parent's; flight_analytic
+    and fast_uniform_check against their twins (the JSON rows); the tracker
+    launchers at fast_loop_rng; per case (ESTIMATOR_CASES, ESTIMATOR_EXTRA)
+    and scene, the bounce entries' options instances against their twin at
+    bounces 0 and DEEP_BOUNCE and bounce_window against run_window_plain
+    from the bounce the frame enters it, every lane bit-equal, with the
+    census (at analytic_flight its Newton steps at the RMO site), bounce 0's
+    two kernels timed beside the default instances; the analytic_flight
+    path on Apollo under phase 6's gates; and s/spp of each ESTIMATOR_SPP
+    setting against its scene's default (``spp_ratio``). Returns the JSON
+    rows."""
+    from digital_earth_tpu_torch import kernels
+    from digital_earth_tpu_torch.app.config_io import load_config
+    from digital_earth_tpu_torch.app.viewer import render_offline
+    from digital_earth_tpu_torch.render import pathtracer as pt
+    from digital_earth_tpu_torch.render.params import TraceConfig
+
+    t_phase = time.time()
+    card = nvidia_smi_line()
+    check_default_sass(kernels)
+    for src in ESTIMATOR_SOURCES:
+        for name, (regs, stores, loads) in sorted(ptxas_entries(
+                kernels.ptxas_log.get(src, "")).items()):
+            print(f"ptxas {src} {name}: {regs} registers, spill stores {stores} B, loads {loads} B")
+    for name in kernels.OCCUPANCY_ENTRIES:
+        o = kernels.bounce_occupancy(name, options=kernels.INST_ESTIMATOR)
+        print(f"occupancy {name}: estimator instance {o['registers']} registers, "
+              f"{o['local_bytes']} B local, {o['warps_per_sm']} warps per SM")
+    rows = {"flight_analytic": check_flight_analytic(torch, captured, tf),
+            "fast_uniform_check": check_fast_uniform(torch, dev)}
+    check_fast_trackers(torch, dev, atlas, luts, captured)
+
+    default_ms = {}
+    for label, options in ESTIMATOR_CASES + ESTIMATOR_EXTRA:
+        cfg = TraceConfig(**options)
+        # the default instances of the same width and sun transmittance
+        base = {k: v for k, v in options.items() if k in REF_ESTIMATOR}
+        for scene in (SCENE, FLORIDA, SUNSET):
+            name = os.path.basename(scene)[9:-4]
+            states, _, _ = capture_states(torch, dev, atlas, luts, scene=scene, cfg=cfg)
+            for b in (0, DEEP_BOUNCE):
+                if b not in states:
+                    print(f"estimator {label} {name}: no live lane at bounce {b}")
+                    continue
+                c = states[b]
+                got, want, trips, cycles = _bounce_and_twin(torch, c, b)
+                _hold_lanes(torch, got, want, c["st"].work_class[c["idx"].long()],
+                            f"estimator {label} {name} bounce {b}", exact=True)
+                rmo = trips[:, 2]
+                if cfg.analytic_flight and not cfg.naive_tracking:
+                    steps = set(torch.unique(rmo).tolist())
+                    if not steps <= {0, cfg.flight_newton_iters}:
+                        fail(f"estimator {label} {name} bounce {b}: the census's RMO column "
+                             f"holds {sorted(steps)}, not 0 or {cfg.flight_newton_iters}")
+                print(f"census estimator {label} {name} bounce {b}: {c['idx'].numel()} live; "
+                      f"{naive_census_text(torch, trips, range(kernels.BOUNCE_SITES))}; cycle "
+                      f"split {split_text(cycle_split(torch, cycles))}")
+                if b != 0 or scene != SCENE:
+                    continue
+                idx, st0, args = c["idx"], c["st"], c["args"]
+                frame = pt.BounceFrame(st0, *args)
+                ka = lambda s: pt._kernel_args(s, idx, 0, *args, frame)  # noqa: E731
+                flight = _one_launch(kernels.bounce_flight, options,
+                                     lambda: kernels.bounce_flight(*ka(_clone_state(st0))),
+                                     f"estimator {label} {name}")
+                t_f = _bounce_ms(torch, st0, lambda s: kernels.bounce_flight(*ka(s)))
+                t_s = _bounce_ms(torch, st0, lambda s: kernels.bounce_shade(*ka(s), flight=flight))
+                key = tuple(sorted(base.items()))
+                if key not in default_ms:
+                    st_d, _, _ = capture_states(torch, dev, atlas, luts, bounces=(0,),
+                                                cfg=TraceConfig(**base))
+                    cd = st_d[0]
+                    fd = pt.BounceFrame(cd["st"], *cd["args"])
+                    kd = lambda s, cd=cd, fd=fd: pt._kernel_args(s, cd["idx"], 0,  # noqa: E731
+                                                                 *cd["args"], fd)
+                    fl = kernels.bounce_flight(*kd(_clone_state(cd["st"])))
+                    default_ms[key] = (
+                        _bounce_ms(torch, cd["st"], lambda s: kernels.bounce_flight(*kd(s))),
+                        _bounce_ms(torch, cd["st"], lambda s: kernels.bounce_shade(*kd(s),
+                                                                                   flight=fl)))
+                    del st_d, cd, fl
+                d_f, d_s = default_ms[key]
+                print(f"estimator {label} {name} bounce 0 ({idx.numel()} lanes, {card}): "
+                      f"bounce_flight {t_f:.3f} ms, bounce_shade {t_s:.3f} ms (estimator "
+                      f"instances); the default instances at {base or 'the default config'} "
+                      f"{d_f:.3f}, {d_s:.3f} ms; flight x{t_f / d_f:.2f}, shade x{t_s / d_s:.2f}")
+                del flight
+            bounces = sorted(states)
+            n = states[0]["st"].alive.numel()
+            counts = [states[b]["idx"].numel() for b in bounces] + [0]
+            _, wb = pt.bounce_schedule(n, counts, kernels.window_threshold(dev), 0,
+                                       cfg.max_bounces)
+            if wb is not None and wb in states:
+                c = states[wb]
+                idx, st0, args = c["idx"], c["st"], c["args"]
+                frame = pt.BounceFrame(st0, *args)
+                st = _clone_state(st0)
+                _one_launch(kernels.bounce_window, options,
+                            lambda: pt.run_window(st, idx, wb, cfg.max_bounces, *args, frame),
+                            f"estimator {label} {name} bounce_window")
+                twin = _clone_state(st0)
+                pt.run_window_plain(twin, idx, wb, cfg.max_bounces, *args)
+                lanes = idx.long()
+                _hold_lanes(torch, st.take(lanes), twin.take(lanes), st0.work_class[lanes],
+                            f"estimator {label} {name} bounce_window from bounce {wb}",
+                            exact=True)
+            else:
+                print(f"estimator {label} {name}: the frame does not enter the window (live "
+                      f"counts {counts[:-1]})")
+            del states
+
+    # the analytic_flight path through the public entry point, counts set to
+    # 0 just before it and read just after
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    r = render_offline(load_config(SCENE), dev, spp=1, image_res=RES, out_path=None, atlas=atlas,
+                       luts=luts, cfg=TraceConfig(analytic_flight=True))
+    for _ in range(2):
+        r.accumulate()
+    img = r.fetch_image()
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    check_main_path(torch, counts, r, img, "analytic_flight path on Apollo 11")
+    if any(counts[f"{k}/options"] != counts[k] for k in
+           ("bounce_flight", "bounce_shade", "bounce_window")):
+        fail(f"a bounce launch of the analytic_flight path ran the default instance: {counts}")
+    del r, img
+
+    for scene in (SCENE, FLORIDA, SUNSET):
+        for label, options in ESTIMATOR_SPP:
+            make = lambda o: render_offline(load_config(scene), dev, spp=1,  # noqa: E731
+                                            image_res=RES, out_path=None, atlas=atlas, luts=luts,
+                                            cfg=TraceConfig(**o))
+            d, o, ratios = spp_ratio(torch, make({}), make(options))
+            print(f"estimator s/spp {os.path.basename(scene)[9:-4]} {RES[0]}x{RES[1]} {label}: "
+                  f"{o:.5f} against the default's {d:.5f}, ratio median "
+                  f"{ratios[len(ratios) // 2]:.3f} (min-max {ratios[0]:.3f}-{ratios[-1]:.3f} "
+                  f"over {len(ratios)} alternated rounds of {SPP_RATIO_STEPS} spp; {card})")
+    print(f"phase 8e (the estimator options): {time.time() - t_phase:.1f} s")
+    return rows
+
+
 def options_bench(torch, dev):
-    """``--options-bench [DIR]``: the scene and march options' settings of
-    phase 8c (OPTION_CASES, all seven on Apollo, the five on florida) for
-    the package imported from DIR: per setting, bounce 0's bounce_flight and
-    bounce_shade ms (the options instances) and s/spp against its scene's
-    default (``spp_ratio``), so that versions can be alternated in one
+    """``--options-bench [DIR]``: the options instances' settings of phases
+    8c, 8d and 8e (OPTION_CASES, all seven on Apollo, the five on florida;
+    NAIVE_CASES and ESTIMATOR_SPP on Apollo) for the package imported from
+    DIR, each setting whose options that package's TraceConfig has: bounce
+    0's bounce_flight and bounce_shade ms (the options instances) and s/spp
+    against its base (the scene's default, naive_tracking's the L = 1
+    estimator; ``spp_ratio``), so that versions can be alternated in one
     call. One JSON line."""
     import digital_earth_tpu_torch as pkg
     from digital_earth_tpu_torch import kernels
@@ -2782,7 +3187,14 @@ def options_bench(torch, dev):
     luts = load_spectral_luts(dev)
     atlas = procedural_texture_atlas(dev, (1024, 2048), seed=7, cache_dir=cache)
     out = dict(package=os.path.dirname(os.path.abspath(pkg.__file__)), card=nvidia_smi_line())
-    for label, options, scene in OPTION_CASES + ALL_SEVEN_CASES[:1] + FIVE_CASES[:1]:
+    settings = [(label, options, {}, scene) for label, options, scene in
+                OPTION_CASES + ALL_SEVEN_CASES[:1] + FIVE_CASES[:1]]
+    settings += [(label, options, base, SCENE) for label, options, base in NAIVE_CASES]
+    settings += [(label, options, {}, SCENE) for label, options in ESTIMATOR_SPP]
+    fields = TraceConfig.__dataclass_fields__
+    for label, options, base, scene in settings:
+        if not set(options) <= set(fields):
+            continue
         states, _, _ = capture_states(torch, dev, atlas, luts, bounces=(0,), scene=scene,
                                       cfg=TraceConfig(**options))
         c = states[0]
@@ -2795,7 +3207,7 @@ def options_bench(torch, dev):
         make = lambda o: render_offline(load_config(scene), dev, spp=1, image_res=RES,  # noqa: E731
                                         out_path=None, atlas=atlas, luts=luts,
                                         cfg=TraceConfig(**o))
-        d, o, ratios = spp_ratio(torch, make({}), make(options))
+        d, o, ratios = spp_ratio(torch, make(base), make(options))
         out[f"{label} {os.path.basename(scene)[9:-4]}"] = dict(
             flight_ms=round(t_f, 4), shade_ms=round(t_s, 4), s_per_spp=round(o, 5),
             default_s_per_spp=round(d, 5), ratio_median=round(ratios[len(ratios) // 2], 4),
@@ -4975,15 +5387,17 @@ def path_bench(torch, dev):
 def main():
     args = sys.argv[1:]
     mesh_only = args == ["--mesh-only"]
+    estimator_only = args == ["--estimator-only"]
     bench = args[:1] == ["--preview-bench"] and len(args) <= 2
     pbench = args[:1] == ["--path-bench"] and len(args) <= 2
     sbench = args[:1] == ["--spp-bench"] and len(args) <= 2
     obench = args[:1] == ["--options-bench"] and len(args) <= 2
     scount = args[:1] == ["--sass-counts"] and len(args) <= 2
-    if args and not (mesh_only or bench or pbench or sbench or obench or scount):
-        fail(f"unknown arguments {args} (the options are --mesh-only, --preview-bench [DIR], "
-             "--path-bench [DIR], --spp-bench [DIR], --options-bench [DIR] and "
-             "--sass-counts [DIR])")
+    if args and not (mesh_only or estimator_only or bench or pbench or sbench or obench
+                     or scount):
+        fail(f"unknown arguments {args} (the options are --mesh-only, --estimator-only, "
+             "--preview-bench [DIR], --path-bench [DIR], --spp-bench [DIR], --options-bench "
+             "[DIR] and --sass-counts [DIR])")
     try:
         import torch
     except ImportError:
@@ -5047,6 +5461,16 @@ def main():
             "count": torch.cuda.device_count()}}))
         return
     captured, states, deepest, lookups, frame_end_whole = capture_inputs(torch, dev, atlas, luts)
+    if estimator_only:
+        # phase 8e alone, on phase 4's capture
+        del states, deepest, lookups, frame_end_whole
+        rows = check_estimator_knobs(torch, dev, atlas, luts, captured, tf)
+        print(json.dumps({"kernels": rows}))
+        print(nvidia_smi_line())
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return
 
     check_golden(torch, dev)
 
@@ -5124,8 +5548,9 @@ def main():
     if missing:
         fail(f"the options phase measured no row for {sorted(missing)}")
     rows.update(option_rows)
-    del captured
     rows.update(check_naive(torch, dev, atlas, luts, tf))
+    rows.update(check_estimator_knobs(torch, dev, atlas, luts, captured, tf))
+    del captured
 
     # --- the viewer's path -------------------------------------------------
     rows["gen_rays"] = check_gen_rays(torch, dev, atlas, luts, tf)
@@ -5218,6 +5643,10 @@ def main():
                               "digital_earth_tpu/render/tracking_naive.py:72"),
         "naive_ratio_track": ("cuda", "digital_earth_tpu_torch/csrc/naive_track.cu",
                               "digital_earth_tpu/render/tracking_naive.py:126"),
+        "flight_analytic": ("cuda", "digital_earth_tpu_torch/csrc/flight_analytic.cu",
+                            "digital_earth_tpu/models/atmosphere_lut.py:357"),
+        "fast_uniform_check": ("cuda", "digital_earth_tpu_torch/csrc/fast_uniform_check.cu",
+                               "digital_earth_tpu/ops/rng.py:66"),
         "gen_rays": ("cuda", "digital_earth_tpu_torch/csrc/gen_rays.cu",
                      "digital_earth_tpu/render/renderer.py:160"),
         "atmos_march": ("cuda", "digital_earth_tpu_torch/csrc/atmos_march.cu",

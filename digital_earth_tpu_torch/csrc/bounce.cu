@@ -3,20 +3,21 @@
 // device code and the launchers are in bounce.cuh, which says what the
 // entries compute, what bounds them on the H100 and how they are built: the
 // other instances are in bounce_l1.cu, bounce_ratio.cu and
-// bounce_l1_ratio.cu, and the options instances in their *_opts.cu twins. A
-// launch takes the instance its parameters ask for (ip[0], ip[15], ip[26]).
+// bounce_l1_ratio.cu, the options instances in their *_opts.cu twins and
+// the estimator instances in their *_est.cu twins. A launch takes the
+// instance its parameters ask for (ip[0], ip[15], ip[32]).
 #include "bounce.cuh"
 
 namespace de {
 
-DE_BOUNCE_INSTANCE(4, false, false);
-template int entry_occupancy<false>(int, int*);
+DE_BOUNCE_INSTANCE(4, false, INST_DEFAULT);
+template int entry_occupancy<INST_DEFAULT>(int, int*);
 
 static bool is_flag(int v) { return v == 0 || v == 1; }
 
-// The parameters, the options and whether the options instance runs.
-static int unpack_params(const float* fp, const int* ip, BounceParams& p, BounceOptions& o,
-                         bool& opts) {
+// The parameters, the options and the instance that runs (INST_*).
+static int unpack_params(const float* fp, const int* ip, BounceParams& p, BounceOptionsEst& o,
+                         int& opts) {
   p.scale = fp[0];
   p.step_floor = fp[1];
   p.stall_thresh = fp[2];
@@ -55,26 +56,49 @@ static int unpack_params(const float* fp, const int* ip, BounceParams& p, Bounce
   o.naive_march = ip[23];
   o.naive_cloud_tracking = ip[24];
   o.naive_shadow = ip[25];
-  opts = ip[26] != 0;
-  for (int j = 16; j <= 26; ++j) {
+  o.analytic_flight = ip[26];
+  o.newton_iters = ip[27];
+  o.fast_loop_rng = ip[28];
+  o.nee_rr_start = ip[29];
+  o.cloud_rr_start = ip[30];
+  o.nee_off = ip[31];
+  o.nee_rr_prob = fp[16];
+  o.nee_w = fp[17];
+  o.cloud_rr_keep = fp[18];
+  o.cloud_w = fp[19];
+  opts = ip[32];
+  static const int flag_slots[] = {16, 17, 18, 19, 20, 21, 22, 23, 24, 25, 26, 28, 31};
+  for (int j : flag_slots) {
     if (!is_flag(ip[j])) return (int)cudaErrorInvalidValue;
   }
-  // the default instances run the options' defaults only
+  if (opts < INST_DEFAULT || opts > INST_ESTIMATOR || o.newton_iters < 0 ||
+      !(o.nee_rr_prob > 0.0f && o.nee_rr_prob <= 1.0f) ||
+      !(o.cloud_rr_keep > 0.0f && o.cloud_rr_keep <= 1.0f)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  // the default instances run the options' defaults only, the options
+  // instances the estimator options' defaults only (the roulettes' start
+  // bounces and the Newton steps act only with their options)
   const bool defaults = o.enable_clouds == 1 && o.mo.enable == 1 && o.mo.bilinear == 0 &&
                         o.lazy_march == 1 && o.mo.exact_ocean == 1 && o.mo.ref_phantom == 1 &&
                         o.naive_tracking == 0 && o.naive_march == 0 &&
                         o.naive_cloud_tracking == 0 && o.naive_shadow == 0;
-  if (!opts && !defaults) return (int)cudaErrorInvalidValue;
+  const bool est_defaults = o.analytic_flight == 0 && o.fast_loop_rng == 0 && o.nee_off == 0 &&
+                            o.nee_rr_prob == 1.0f && o.cloud_rr_keep == 1.0f;
+  if ((opts == INST_DEFAULT && !defaults) || (opts != INST_ESTIMATOR && !est_defaults)) {
+    return (int)cudaErrorInvalidValue;
+  }
   // the naive trackers are single-wavelength
   if (o.naive_tracking && p.n_lambdas != 1) return (int)cudaErrorInvalidValue;
   return 0;
 }
 
 // Launch an entry at the width and transmittance the parameters ask for,
-// its options instance where they ask for it.
-template <bool OPTS>
+// its options or estimator instance where they ask for it.
+template <int OPTS>
 static int launch_bounce(int entry, const BounceState& s, const BounceParams& p,
-                         const BounceOptions& o, void* scratch, int stop, cudaStream_t stream) {
+                         const BounceOptionsEst& o, void* scratch, int stop,
+                         cudaStream_t stream) {
   if (p.n_lambdas == 4) {
     return p.ratio ? launch_entry<4, true, OPTS>(entry, s, p, o, scratch, stop, stream)
                    : launch_entry<4, false, OPTS>(entry, s, p, o, scratch, stop, stream);
@@ -84,19 +108,25 @@ static int launch_bounce(int entry, const BounceState& s, const BounceParams& p,
 }
 
 static int launch_bounce(int entry, const BounceState& s, const BounceParams& p,
-                         const BounceOptions& o, bool opts, void* scratch, int stop,
+                         const BounceOptionsEst& o, int opts, void* scratch, int stop,
                          cudaStream_t stream) {
-  return opts ? launch_bounce<true>(entry, s, p, o, scratch, stop, stream)
-              : launch_bounce<false>(entry, s, p, o, scratch, stop, stream);
+  if (opts == INST_ESTIMATOR) {
+    return launch_bounce<INST_ESTIMATOR>(entry, s, p, o, scratch, stop, stream);
+  }
+  return opts ? launch_bounce<INST_OPTIONS>(entry, s, p, o, scratch, stop, stream)
+              : launch_bounce<INST_DEFAULT>(entry, s, p, o, scratch, stop, stream);
 }
 
 }  // namespace de
 
-// fp (16 floats): scale, step_floor, stall_thresh, o3_env_peak,
+// fp (20 floats): scale, step_floor, stall_thresh, o3_env_peak,
 //     light_direction[3], sun_cos_angle, solid_angle (of the sun's cone),
 //     offset_scale (1 + 1e-4 scale / 12000), planck_a, planck_b, planck_k,
-//     the gases' majorant densities[3] (read with ratio tracking)
-// ip (27 ints): n_lambdas (L, 1 or 4), bounce, rr_start, land_march_steps,
+//     the gases' majorant densities[3] (read with ratio tracking); the
+//     estimator options nee_rr_prob, float32(1 / nee_rr_prob), cloud_rr_keep,
+//     float32(1 / cloud_rr_keep) (each in (0, 1], the reciprocals of the
+//     Python floats)
+// ip (33 ints): n_lambdas (L, 1 or 4), bounce, rr_start, land_march_steps,
 //     march_k, march_patience, max_tracking_steps, tracking_k,
 //     bilinear_materials, topography H, W, material H, W, clouds H, W,
 //     ratio (1: the gases' sun transmittance by ratio tracking, the
@@ -104,9 +134,13 @@ static int launch_bounce(int entry, const BounceState& s, const BounceParams& p,
 //     options enable_clouds, enable_land, bilinear_tracking, lazy_march,
 //     march_exact_ocean, march_ref_phantom, and the naive arm's
 //     naive_tracking (L = 1 only), naive_march, naive_cloud_tracking,
-//     naive_shadow (each 0 or 1); the instance (1:
-//     the options instance; 0: the default, which takes the options'
-//     defaults only; every instance takes any march_patience)
+//     naive_shadow (each 0 or 1); the estimator options analytic_flight,
+//     flight_newton_iters, fast_loop_rng, nee_rr_start, cloud_rr_start,
+//     nee_off; the instance (2: the estimator instance; 1: the options
+//     instance, which takes the estimator options' defaults only; 0: the
+//     default, which takes every option's default only; every instance takes
+//     any march_patience, and the roulettes' start bounces and the Newton
+//     steps, which act only with their options)
 // State (n lanes, read and written in place at the lanes of idx): pos,
 // dir (N, 3); wavelength, lambda_pdf, throughput, radiance, w_mis (N, L);
 // alive, primary_miss (N,) bool; work_class (N,) int32; keys (N, 2) int32.
@@ -137,8 +171,8 @@ static int launch_bounce(int entry, const BounceState& s, const BounceParams& p,
 extern "C" int de_bounce_flight(DE_BOUNCE_ARGS, void* scratch, int32_t* trips, long long* cycles,
                                 void* stream) {
   de::BounceParams p;
-  de::BounceOptions o;
-  bool opts;
+  de::BounceOptionsEst o;
+  int opts;
   if (int rc = de::unpack_params(fp, ip, p, o, opts)) return rc;
   if (m <= 0) return (int)cudaGetLastError();
   p.ratio = 0;  // the flight does not depend on it: one instance per width
@@ -151,8 +185,8 @@ extern "C" int de_bounce_flight(DE_BOUNCE_ARGS, void* scratch, int32_t* trips, l
 extern "C" int de_bounce_shade(DE_BOUNCE_ARGS, const void* scratch, int32_t* trips,
                                long long* cycles, void* stream) {
   de::BounceParams p;
-  de::BounceOptions o;
-  bool opts;
+  de::BounceOptionsEst o;
+  int opts;
   if (int rc = de::unpack_params(fp, ip, p, o, opts)) return rc;
   if (m <= 0) return (int)cudaGetLastError();
   return de::launch_bounce(de::ENTRY_SHADE, DE_BOUNCE_STATE(trips, cycles), p, o, opts,
@@ -162,8 +196,8 @@ extern "C" int de_bounce_shade(DE_BOUNCE_ARGS, const void* scratch, int32_t* tri
 // Bounces [ip[1], stop) of the listed lanes in one launch.
 extern "C" int de_bounce_window(DE_BOUNCE_ARGS, int stop, void* stream) {
   de::BounceParams p;
-  de::BounceOptions o;
-  bool opts;
+  de::BounceOptionsEst o;
+  int opts;
   if (int rc = de::unpack_params(fp, ip, p, o, opts)) return rc;
   if (m <= 0 || stop <= p.bounce) return (int)cudaGetLastError();
   return de::launch_bounce(de::ENTRY_WINDOW, DE_BOUNCE_STATE(nullptr, nullptr), p, o, opts,
@@ -173,9 +207,14 @@ extern "C" int de_bounce_window(DE_BOUNCE_ARGS, int stop, void* stream) {
 // Occupancy of an entry on the current device: out = (resident blocks per
 // SM, threads per block, registers per thread, local memory bytes per
 // thread). which: 0 bounce_flight, 1 bounce_shade, 2 bounce_window, each
-// at L = 4 and the closed-form transmittance: the default instance, or with
-// opts the options instance (bounce_opts.cu).
+// at L = 4 and the closed-form transmittance: the default instance (opts 0),
+// the options instance (1, bounce_opts.cu) or the estimator instance (2,
+// bounce_est.cu).
 extern "C" int de_bounce_occupancy(int which, int opts, int* out) {
-  if (opts != 0 && opts != 1) return (int)cudaErrorInvalidValue;
-  return opts ? de::entry_occupancy<true>(which, out) : de::entry_occupancy<false>(which, out);
+  switch (opts) {
+    case de::INST_DEFAULT: return de::entry_occupancy<de::INST_DEFAULT>(which, out);
+    case de::INST_OPTIONS: return de::entry_occupancy<de::INST_OPTIONS>(which, out);
+    case de::INST_ESTIMATOR: return de::entry_occupancy<de::INST_ESTIMATOR>(which, out);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

@@ -66,17 +66,40 @@
 // bit for bit (naive.cuh); the host asks for that instance
 // (render/pathtracer.BounceFrame).
 //
+// The estimator instances (OPTS = INST_ESTIMATOR), a third set beside the
+// default and options instances, run the options instances' code and the
+// estimator options (TraceConfig.analytic_flight, flight_newton_iters,
+// fast_loop_rng, nee_rr_start, nee_rr_prob, cloud_rr_start, cloud_rr_keep,
+// nee_off), each read inside a helper behind ``if constexpr (OPTS ==
+// INST_ESTIMATOR)``, so the default and options instances' code stays as it
+// was (in one set, the options instances' flight spilled 300 B where it had
+// spilled 212, and the scene options' s/spp grew up to 18%, PERF.md): analytic_flight the gases' flight by inverting their
+// optical depth on the table (flight_analytic.cuh, its steps counted at
+// the RMO census site) in place of delta tracking (rmo_flight);
+// fast_loop_rng the counter hash of fast_rng.cuh in the accelerated
+// trackers (the flight's gases and clouds, the sun's cloud pass and, with
+// RATIO, its gases; not in the naive arm's loops); nee_rr_prob below 1 the
+// NEE roulette past bounce nee_rr_start (site 7: the sun's track kept with
+// that probability, its transmittance times float32(1 / nee_rr_prob);
+// nee_gate, nee_weight); cloud_rr_keep below 1 the cloud roulette from
+// bounce cloud_rr_start (site 8: a cloud-scattered path kept with that
+// probability, its throughput times float32(1 / cloud_rr_keep);
+// cloud_roulette); nee_off no sun NEE (the surface lanes occluded before
+// the shadow march, which no lane runs; no transmittance).
+//
 // Entries, all over the same device functions flight_lane (1-3) and
 // shade_lane (4-7), so every entry gives the same bits. Each is built for
 // a packet of L = 4 wavelengths (the default) or L = 1 (TraceConfig.
 // hero_lambdas), and bounce_shade and bounce_window also for RATIO, so that
 // the default instances keep their code and registers, and each of these
-// (L, RATIO) sets again with OPTS. Each (L, RATIO, OPTS) set of instances
-// is built in a source of its own, which nvcc compiles in parallel with the
-// others: bounce.cu (4, closed form), bounce_l1.cu (1, closed form),
-// bounce_ratio.cu (4, ratio), bounce_l1_ratio.cu (1, ratio), and their
-// options sets bounce_opts.cu, bounce_l1_opts.cu, bounce_ratio_opts.cu and
-// bounce_l1_ratio_opts.cu.
+// (L, RATIO) sets again with OPTS, as options and as estimator instances.
+// Each (L, RATIO, OPTS) set of instances is built in a source of its own,
+// which nvcc compiles in parallel with the others: bounce.cu (4, closed
+// form), bounce_l1.cu (1, closed form), bounce_ratio.cu (4, ratio),
+// bounce_l1_ratio.cu (1, ratio), their options sets bounce_opts.cu,
+// bounce_l1_opts.cu, bounce_ratio_opts.cu and bounce_l1_ratio_opts.cu, and
+// their estimator sets bounce_est.cu, bounce_l1_est.cu, bounce_ratio_est.cu
+// and bounce_l1_ratio_est.cu.
 //   - bounce_flight (steps 1-3, the outcome to a 16 B scratch entry per
 //     list entry) and bounce_shade (steps 4-7): one bounce of the wide
 //     wavefront. Split at the flight's end, the flight's loops run without
@@ -121,6 +144,8 @@
 
 #include "cloud_track.cuh"
 #include "density_lut.cuh"
+#include "fast_rng.cuh"
+#include "flight_analytic.cuh"
 #include "land_march.cuh"
 #include "naive.cuh"
 #include "rmo_track.cuh"
@@ -163,22 +188,47 @@ struct BounceOptions {
   int naive_tracking, naive_march, naive_cloud_tracking, naive_shadow;
 };
 
+// The estimator options, which the estimator instances read beside the
+// others: nee_w and cloud_w are float32(1 / nee_rr_prob) and float32(1 /
+// cloud_rr_keep), the reciprocals of the Python floats.
+struct BounceOptionsEst : BounceOptions {
+  int analytic_flight, newton_iters, fast_loop_rng, nee_rr_start, cloud_rr_start, nee_off;
+  float nee_rr_prob, nee_w, cloud_rr_keep, cloud_w;
+};
+
+// An instance's kind, the template argument OPTS: the default instances
+// (the options at their defaults, compiled in), the options instances (the
+// scene and march options and the naive arm read at run time) and the
+// estimator instances (those and the estimator options).
+enum { INST_DEFAULT = 0, INST_OPTIONS = 1, INST_ESTIMATOR = 2 };
+
 // An options instance's kernel parameters: the default's, then the
-// options. The default instances take BounceParams alone: a larger
-// parameter block changed their SASS (28 B of padding added 6-122
-// instructions to the parent's entries), so they keep its size.
+// options; an estimator instance's, the estimator options too. The default
+// instances take BounceParams alone: a larger parameter block changed their
+// SASS (28 B of padding added 6-122 instructions to the parent's entries),
+// so they keep its size, and the options instances keep theirs.
 struct BounceParamsOpts : BounceParams {
   BounceOptions o;
 };
-template <bool OPTS>
-using EntryParams = std::conditional_t<OPTS, BounceParamsOpts, BounceParams>;
+struct BounceParamsEst : BounceParams {
+  BounceOptionsEst o;
+};
+template <int OPTS>
+using EntryParams = std::conditional_t<
+    OPTS == INST_ESTIMATOR, BounceParamsEst,
+    std::conditional_t<OPTS == INST_OPTIONS, BounceParamsOpts, BounceParams>>;
 
 // The options an entry reads: its parameters' (OPTS), or none (the default
 // instances read no option).
-template <bool OPTS>
+template <int OPTS>
 __device__ __forceinline__ const BounceOptions* entry_options(const EntryParams<OPTS>& p) {
-  if constexpr (OPTS) return &p.o;
+  if constexpr (OPTS != INST_DEFAULT) return &p.o;
   else return nullptr;
+}
+
+// The estimator options of an estimator instance's ``op``.
+__device__ __forceinline__ const BounceOptionsEst* est(const BounceOptions* op) {
+  return static_cast<const BounceOptionsEst*>(op);
 }
 
 struct BounceState {
@@ -297,13 +347,21 @@ static __device__ __noinline__ float naive_cloud_ratio_call(Key key, V3 o, V3 d,
 }
 
 // A warp none of whose lanes marches here skips the call: a miss, no trips
-// (and with OPTS every warp where the options ``op`` say no land). OPTS: the
+// (and with OPTS every warp where the options ``op`` say no land; in the
+// estimator instances at the shadow march under nee_off an occlusion, no
+// trips). OPTS: the
 // plain sphere march, which takes no cap, under naive_march or
 // naive_tracking, and at the shadow march under naive_shadow.
-template <bool COUNT, bool OPTS>
+template <bool COUNT, int OPTS>
 __device__ __forceinline__ float march(const uint8_t* __restrict__ topo, const MarchParams& p,
                                        const BounceOptions* op, V3 o, V3 d, bool act, float cap,
                                        int* trips, int site) {
+  if constexpr (OPTS == INST_ESTIMATOR) {
+    if (site == SITE_SHADOW && est(op)->nee_off) {  // "occluded": no sun NEE
+      if (COUNT && trips) trips[site] = 0;
+      return 1.0f;
+    }
+  }
   if constexpr (OPTS) {
     if (!op->mo.enable) {
       if (COUNT && trips) trips[site] = 0;
@@ -361,6 +419,18 @@ static __device__ __noinline__ CloudOut cloud_call_o(Key key, V3 o, V3 d, float 
   return out;
 }
 
+// The estimator instances' cloud tracker at fast_loop_rng: the counter
+// hash's draws.
+static __device__ __noinline__ CloudOut cloud_call_f(Key key, V3 o, V3 d, float t0, float t1,
+                                                     float ew, const uint8_t* __restrict__ clouds,
+                                                     int H, int W, int steps, int k, bool ratio,
+                                                     int* iters, bool bilinear) {
+  CloudOut out;
+  cloud_track_lane<true, true>(key, o, d, t0, t1, ew, true, clouds, H, W, steps, k, ratio,
+                               out.event, out.t, out.trans, iters, bilinear);
+  return out;
+}
+
 // The naive cloud pass at the global majorant ew times the cloud density's
 // (options instances): delta tracking's (event, t) or ratio tracking's
 // transmittance.
@@ -382,9 +452,10 @@ __device__ __forceinline__ CloudOut naive_cloud(Key key, V3 o, V3 d, float t0, f
   return out;
 }
 
-// OPTS: the options instance's call, its taps as the options ``op`` say;
+// OPTS: the options instance's call, its taps as the options ``op`` say
+// (the estimator instance's draws the counter hash's at fast_loop_rng);
 // under naive_cloud_tracking or naive_tracking the naive pass.
-template <bool COUNT, bool OPTS>
+template <bool COUNT, int OPTS>
 __device__ __forceinline__ CloudOut cloud(Key key, V3 o, V3 d, float t0, float t1, float ew,
                                           const BounceState& s, const BounceParams& p, bool ratio,
                                           int* trips, int site, const BounceOptions* op) {
@@ -392,6 +463,13 @@ __device__ __forceinline__ CloudOut cloud(Key key, V3 o, V3 d, float t0, float t
     if (op->naive_cloud_tracking || op->naive_tracking) {
       return naive_cloud(key, o, d, t0, t1, ew, s, p, ratio, COUNT ? trips + site : nullptr,
                          op->mo.bilinear != 0);
+    }
+    if constexpr (OPTS == INST_ESTIMATOR) {
+      if (est(op)->fast_loop_rng) {
+        return cloud_call_f(key, o, d, t0, t1, ew, s.clouds, p.clouds_h, p.clouds_w,
+                            p.tracking_steps, p.tracking_k, ratio,
+                            COUNT ? trips + site : nullptr, op->mo.bilinear != 0);
+      }
     }
     return cloud_call_o(key, o, d, t0, t1, ew, s.clouds, p.clouds_h, p.clouds_w, p.tracking_steps,
                         p.tracking_k, ratio, COUNT ? trips + site : nullptr,
@@ -402,6 +480,147 @@ __device__ __forceinline__ CloudOut cloud(Key key, V3 o, V3 d, float t0, float t
   } else {
     return cloud_call(key, o, d, t0, t1, ew, s.clouds, p.clouds_h, p.clouds_w, p.tracking_steps,
                       p.tracking_k, ratio);
+  }
+}
+
+// The analytic flight (the estimator instances at analytic_flight).
+static __device__ __noinline__ NaiveEvent flight_analytic_call(const float* __restrict__ table,
+                                                               Key key, V3 o, V3 d, float t0,
+                                                               float t1, float e0, float e1,
+                                                               float e2, int n_iter,
+                                                               int* iters) {
+  NaiveEvent out;
+  flight_analytic_lane(table, key, o, d, t0, t1, e0, e1, e2, true, n_iter, out.event, out.t,
+                       out.iid, iters);
+  return out;
+}
+
+// The estimator instances' delta tracker of the gases at fast_loop_rng, and
+// their sun transmittance of the gases by ratio tracking there (calls: the
+// inlined threefry loops stay as the options instances have them).
+static __device__ __noinline__ NaiveEvent rmo_track_call_f(Key key, V3 o, V3 d, float t0,
+                                                           float t1, float e0, float e1,
+                                                           float e2, int steps, int k,
+                                                           float o3_env_peak, int* iters) {
+  NaiveEvent out;
+  rmo_track_lane<true>(key, o, d, t0, t1, e0, e1, e2, true, steps, k, o3_env_peak, out.event,
+                       out.t, out.iid, iters);
+  return out;
+}
+
+template <int L>
+static __device__ __noinline__ void rmo_ratio_call_f(Key key, V3 o, V3 d, float t0, float t1,
+                                                     const float (&ext)[L][3], float max_ext,
+                                                     int steps, int k, float (&trans)[L],
+                                                     int* iters) {
+  rmo_ratio_lane<L, true>(key, o, d, t0, t1, ext, max_ext, true, steps, k, trans, iters);
+}
+
+// The gases' flight of flight_lane (event, t, iid): delta tracking; the
+// estimator instances at analytic_flight the inversion of their optical
+// depth, at fast_loop_rng delta tracking drawing the counter hash.
+template <bool COUNT, int OPTS>
+__device__ __forceinline__ void rmo_flight(const BounceState& s, const BounceParams& p,
+                                           const BounceOptions* op, Key key, V3 pos, V3 dir,
+                                           float t_start, float rmo_cap, float e0, float e1,
+                                           float e2, int& rmo_event, float& rmo_t, int& rmo_id,
+                                           int* trips) {
+  if constexpr (OPTS == INST_ESTIMATOR) {
+    if (est(op)->analytic_flight) {
+      const NaiveEvent g = flight_analytic_call(s.table, key, pos, dir, t_start, rmo_cap, e0, e1,
+                                                e2, est(op)->newton_iters,
+                                                COUNT ? trips + SITE_RMO : nullptr);
+      rmo_event = g.event;
+      rmo_t = g.t;
+      rmo_id = g.iid;
+      return;
+    }
+    if (est(op)->fast_loop_rng) {
+      const NaiveEvent g = rmo_track_call_f(key, pos, dir, t_start, rmo_cap, e0, e1, e2,
+                                            p.tracking_steps, p.tracking_k, p.o3_env_peak,
+                                            COUNT ? trips + SITE_RMO : nullptr);
+      rmo_event = g.event;
+      rmo_t = g.t;
+      rmo_id = g.iid;
+      return;
+    }
+  }
+  rmo_track_lane(key, pos, dir, t_start, rmo_cap, e0, e1, e2, true, p.tracking_steps,
+                 p.tracking_k, p.o3_env_peak, rmo_event, rmo_t, rmo_id,
+                 COUNT ? trips + SITE_RMO : nullptr);
+}
+
+// The sun's gases by ratio tracking (RATIO): the estimator instances draw
+// the counter hash at fast_loop_rng, but not under naive_tracking, whose
+// one-probe loop is the naive arm's (threefry at every setting).
+template <bool COUNT, int L, int OPTS>
+__device__ __forceinline__ void nee_rmo_ratio(const BounceParams& p, const BounceOptions* op,
+                                              Key key, V3 o, V3 d, float t_start, float tm,
+                                              const float (&ext)[L][3], float max_ext,
+                                              float (&trans)[L], int* trips) {
+  if constexpr (OPTS == INST_ESTIMATOR) {
+    if (est(op)->fast_loop_rng && !op->naive_tracking) {
+      rmo_ratio_call_f<L>(key, o, d, t_start, tm, ext, max_ext, p.tracking_steps, p.tracking_k,
+                          trans, COUNT ? trips + SITE_NEE_RMO : nullptr);
+      return;
+    }
+  }
+  rmo_ratio_lane<L>(key, o, d, t_start, tm, ext, max_ext, true, p.tracking_steps, p.tracking_k,
+                    trans, COUNT ? trips + SITE_NEE_RMO : nullptr);
+}
+
+// The estimator instances: nee_off drops both NEE terms; past bounce
+// nee_rr_start with nee_rr_prob below 1 the sun's track is kept where
+// uniform(fold(kb, 7)) < nee_rr_prob (pathtracer.py:1802-1830). The other
+// instances keep both.
+template <int OPTS>
+__device__ __forceinline__ void nee_gate(const BounceOptions* op, int bounce, Key kb,
+                                         bool& vol_nee, bool& sur_nee) {
+  if constexpr (OPTS == INST_ESTIMATOR) {
+    const BounceOptionsEst* e = est(op);
+    if (e->nee_off) {
+      vol_nee = sur_nee = false;
+    } else if (e->nee_rr_prob < 1.0f && bounce > e->nee_rr_start) {
+      const bool keep = uniform(fold(kb, 7u), 0u) < e->nee_rr_prob;
+      vol_nee = vol_nee && keep;
+      sur_nee = sur_nee && keep;
+    }
+  }
+}
+
+// The estimator instances: a kept track's transmittance times float32(1 /
+// nee_rr_prob) where the NEE roulette acts.
+template <int OPTS, int L>
+__device__ __forceinline__ void nee_weight(const BounceOptions* op, int bounce,
+                                           float (&trans)[L]) {
+  if constexpr (OPTS == INST_ESTIMATOR) {
+    const BounceOptionsEst* e = est(op);
+    if (e->nee_rr_prob < 1.0f && bounce > e->nee_rr_start) {
+#pragma unroll
+      for (int l = 0; l < L; ++l) trans[l] = trans[l] * e->nee_w;
+    }
+  }
+}
+
+// The estimator instances: from bounce cloud_rr_start with cloud_rr_keep
+// below 1, a live cloud-scattered path dies where uniform(fold(kb, 8)) >=
+// cloud_rr_keep and goes on with its throughput times float32(1 /
+// cloud_rr_keep) (pathtracer.py:1884-1895).
+template <int OPTS, int L>
+__device__ __forceinline__ void cloud_roulette(const BounceOptions* op, int bounce, Key kb,
+                                               bool scatter, int iid, bool& alive,
+                                               float (&thr)[L]) {
+  if constexpr (OPTS == INST_ESTIMATOR) {
+    const BounceOptionsEst* e = est(op);
+    if (e->cloud_rr_keep < 1.0f && bounce >= e->cloud_rr_start && alive && scatter &&
+        (iid == 3 || iid == 4)) {
+      if (uniform(fold(kb, 8u), 0u) >= e->cloud_rr_keep) {
+        alive = false;
+      } else {
+#pragma unroll
+        for (int l = 0; l < L; ++l) thr[l] = thr[l] * e->cloud_w;
+      }
+    }
   }
 }
 
@@ -461,13 +680,13 @@ struct Flight {
 // cloud where no gas event lies before the slab, and the nearer event wins;
 // no march after the flight, no demotion. Every thread of the warp calls
 // it, as flight_lane.
-template <bool COUNT>
+template <bool COUNT, int OPTS>
 __device__ __forceinline__ Flight naive_flight_lane(const BounceState& s, const BounceParams& p,
                                                     const BounceOptions* op, int bounce, bool act,
                                                     V3 pos, V3 dir, float wl0, Key kb, int* trips,
                                                     long long* cyc) {
   long long c0 = tick<COUNT>();
-  const float earth = march<COUNT, true>(s.topo, march_params(p), op, pos, dir, act,
+  const float earth = march<COUNT, OPTS>(s.topo, march_params(p), op, pos, dir, act,
                                          __int_as_float(0x7f800000), trips, SITE_PRE_MARCH);
   tock<COUNT>(cyc, SITE_PRE_MARCH, c0);
   Flight f{0, 0, 0.0f, earth};
@@ -493,7 +712,7 @@ __device__ __forceinline__ Flight naive_flight_lane(const BounceState& s, const 
   cloud_limits(pos, dir, earth, c_start, c_max);
   if (g.event == 0 || g.t > c_start) {
     c0 = tick<COUNT>();
-    const CloudOut c = cloud<COUNT, true>(fold(k_flight, 2u), pos, dir, c_start, c_max,
+    const CloudOut c = cloud<COUNT, OPTS>(fold(k_flight, 2u), pos, dir, c_start, c_max,
                                           cloud_ext_w(bounce), s, p, false, trips, SITE_CLOUD, op);
     tock<COUNT>(cyc, SITE_CLOUD, c0);
     if (c.event > 0 && (c.t < g.t || g.event == 0)) {
@@ -512,14 +731,15 @@ __device__ __forceinline__ Flight naive_flight_lane(const BounceState& s, const 
 // first (lazy_march false) is the march on demand with every live lane
 // marching at the first site, the flight capped at that hit, and no march
 // after it nor demotion; naive_tracking its own flight (naive_flight_lane).
-template <bool COUNT, bool OPTS>
+template <bool COUNT, int OPTS>
 __device__ __forceinline__ Flight flight_lane(const BounceState& s, const BounceParams& p,
                                               const BounceOptions* op, int bounce, bool act,
                                               V3 pos, V3 dir, float wl0, Key kb, int* trips,
                                               long long* cyc) {
   if constexpr (OPTS) {
     if (op->naive_tracking) {
-      return naive_flight_lane<COUNT>(s, p, op, bounce, act, pos, dir, wl0, kb, trips, cyc);
+      return naive_flight_lane<COUNT, OPTS>(s, p, op, bounce, act, pos, dir, wl0, kb, trips,
+                                            cyc);
     }
   }
   const float inf = __int_as_float(0x7f800000);
@@ -570,9 +790,8 @@ __device__ __forceinline__ Flight flight_lane(const BounceState& s, const Bounce
     int rmo_event, rmo_id;
     float rmo_t;
     c0 = tick<COUNT>();
-    rmo_track_lane(fold(k_flight, 1u), pos, dir, t_start, rmo_cap, e0, e1, e2, true,
-                   p.tracking_steps, p.tracking_k, p.o3_env_peak, rmo_event, rmo_t, rmo_id,
-                   COUNT ? trips + SITE_RMO : nullptr);
+    rmo_flight<COUNT, OPTS>(s, p, op, fold(k_flight, 1u), pos, dir, t_start, rmo_cap, e0, e1,
+                            e2, rmo_event, rmo_t, rmo_id, trips);
     tock<COUNT>(cyc, SITE_RMO, c0);
     const bool take_cloud = cd.event > 0 && rmo_event == 0;
     f.event = take_cloud ? cd.event : rmo_event;
@@ -646,7 +865,7 @@ __device__ __forceinline__ void store_lane(const BounceState& s, int lane, const
 // act false: no lane, and r is left as it was. RATIO: the gases' sun
 // transmittance by ratio tracking, else the closed form. OPTS: the options
 // ``op``.
-template <bool COUNT, int L, bool RATIO, bool OPTS>
+template <bool COUNT, int L, bool RATIO, int OPTS>
 __device__ __forceinline__ void shade_lane(const BounceState& s, const BounceParams& p,
                                            const BounceOptions* op, int bounce, bool act,
                                            LaneRegs<L>& r, Key kb, Flight f, int* trips,
@@ -706,7 +925,7 @@ __device__ __forceinline__ void shade_lane(const BounceState& s, const BouncePar
   const V3 int_pos = along(pos, scatter ? t_int : 0.0f, dir);
   float pn, planet_far;
   rsi(int_pos, light_dir, PLANET_R_F, pn, planet_far);
-  const bool vol_nee = scatter && !(planet_far > 0.0f);
+  bool vol_nee = scatter && !(planet_far > 0.0f);
 
   V3 offset_pos = pos, hemi_dir{0.0f, 1.0f, 0.0f}, normal{0.0f, 0.0f, 0.0f};
   LandMaterial mat{};
@@ -747,7 +966,8 @@ __device__ __forceinline__ void shade_lane(const BounceState& s, const BouncePar
       b_brdf[l] = albedo * bp.diffuse + bp.specular;
     }
   }
-  const bool sur_nee = surface && sur_vis;
+  bool sur_nee = surface && sur_vis;
+  nee_gate<OPTS>(op, bounce, kb, vol_nee, sur_nee);
 
   // 6. sun transmittance and the radiance terms
   float trans[L];
@@ -769,9 +989,8 @@ __device__ __forceinline__ void shade_lane(const BounceState& s, const BouncePar
       rsi(nee_origin, light_dir, ATMOS_UPPER_F, g_near, g_far);
       rmo_span(g_near, g_far, -1.0f, g_start, g_max);
       const long long c2 = tick<COUNT>();
-      rmo_ratio_lane<L>(fold(k_trans, 1u), nee_origin, light_dir, g_start, g_max, ext, max_ext,
-                        true, p.tracking_steps, p.tracking_k, trans,
-                        COUNT ? trips + SITE_NEE_RMO : nullptr);
+      nee_rmo_ratio<COUNT, L, OPTS>(p, op, fold(k_trans, 1u), nee_origin, light_dir, g_start,
+                                    g_max, ext, max_ext, trans, trips);
       tock<COUNT>(cyc, SITE_NEE_RMO, c2);
     } else {
       rmo_transmittance_to_space<L>(s.table, ext, nee_origin, light_dir, trans);
@@ -786,6 +1005,7 @@ __device__ __forceinline__ void shade_lane(const BounceState& s, const BouncePar
 #pragma unroll
       for (int l = 0; l < L; ++l) trans[l] = trans[l] * ct.trans;
     }
+    nee_weight<OPTS>(op, bounce, trans);
   }
   const bool reduce_peak = bounce > 0;
   const float phase_d = vol_nee ? evaluate_phase(dir, light_dir, iid, reduce_peak) : 0.0f;
@@ -831,6 +1051,7 @@ __device__ __forceinline__ void shade_lane(const BounceState& s, const BouncePar
     }
     alive = alive && !killed;
   }
+  cloud_roulette<OPTS>(op, bounce, kb, scatter, iid, alive, r.thr);
   const bool in_cloud = iid == 3 || iid == 4;
   if (alive) r.wc = scatter && in_cloud ? 0 : (scatter ? 1 : 2);
   r.alive = alive;
@@ -873,7 +1094,7 @@ __device__ __forceinline__ long long* entry_cycles(const BounceState& s, int t, 
 // Steps 1-3 of one bounce: the outcome of list entry t into out[t]
 // (t_int, earth, event, iid as float bits); COUNT: the census instance
 // (sites 0-3); OPTS: the options instance.
-template <int L, bool COUNT, bool OPTS>
+template <int L, bool COUNT, int OPTS>
 __global__ void __launch_bounds__(BOUNCE_BLOCK, FLIGHT_MIN_BLOCKS)
     bounce_flight_kernel(BounceState s, EntryParams<OPTS> p, float4* __restrict__ out) {
   const long long c_all = tick<COUNT>();
@@ -893,7 +1114,7 @@ __global__ void __launch_bounds__(BOUNCE_BLOCK, FLIGHT_MIN_BLOCKS)
 
 // Steps 4-7 of one bounce from bounce_flight's outcome; COUNT: the census
 // instance (sites 4-6); OPTS: the options instance.
-template <int L, bool COUNT, bool RATIO, bool OPTS>
+template <int L, bool COUNT, bool RATIO, int OPTS>
 __global__ void __launch_bounds__(BOUNCE_BLOCK)
     bounce_shade_kernel(BounceState s, EntryParams<OPTS> p, const float4* __restrict__ in) {
   const long long c_all = tick<COUNT>();
@@ -920,7 +1141,7 @@ __global__ void __launch_bounds__(BOUNCE_BLOCK)
 // Bounces [p.bounce, stop) of each listed lane, until it dies; the warp
 // goes on while any of its lanes lives (the marches need the full warp),
 // a dead lane's thread with act false.
-template <int L, bool RATIO, bool OPTS>
+template <int L, bool RATIO, int OPTS>
 __global__ void __launch_bounds__(WINDOW_BLOCK)
     bounce_window_kernel(BounceState s, EntryParams<OPTS> p, int stop) {
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
@@ -958,12 +1179,13 @@ enum { ENTRY_FLIGHT, ENTRY_SHADE, ENTRY_WINDOW };
 // bounce_window (bounces [p.bounce, stop)). Each (L, RATIO, OPTS) set is
 // instantiated in one source (the header's comment names them); the others
 // declare it extern below.
-template <int L, bool RATIO, bool OPTS>
-int launch_entry(int entry, const BounceState& s, const BounceParams& bp, const BounceOptions& o,
-                 void* scratch, int stop, cudaStream_t stream) {
+template <int L, bool RATIO, int OPTS>
+int launch_entry(int entry, const BounceState& s, const BounceParams& bp,
+                 const BounceOptionsEst& o, void* scratch, int stop, cudaStream_t stream) {
   EntryParams<OPTS> p;
   static_cast<BounceParams&>(p) = bp;
-  if constexpr (OPTS) p.o = o;
+  if constexpr (OPTS == INST_OPTIONS) p.o = static_cast<const BounceOptions&>(o);
+  if constexpr (OPTS == INST_ESTIMATOR) p.o = o;
   if (entry == ENTRY_FLIGHT) {
     if constexpr (RATIO) {
       return (int)cudaErrorInvalidValue;
@@ -998,7 +1220,7 @@ int launch_entry(int entry, const BounceState& s, const BounceParams& bp, const 
 // options instance (OPTS), on the current device: out = (resident blocks
 // per SM, threads per block, registers per thread, local memory bytes per
 // thread). Instantiated with that set (bounce.cu, bounce_opts.cu).
-template <bool OPTS>
+template <int OPTS>
 int entry_occupancy(int which, int* out) {
   const void* fns[] = {
       (const void*)bounce_flight_kernel<4, false, OPTS>,
@@ -1019,19 +1241,24 @@ int entry_occupancy(int which, int* out) {
   out[3] = (int)attr.localSizeBytes;
   return 0;
 }
-extern template int entry_occupancy<false>(int, int*);
-extern template int entry_occupancy<true>(int, int*);
+extern template int entry_occupancy<INST_DEFAULT>(int, int*);
+extern template int entry_occupancy<INST_OPTIONS>(int, int*);
+extern template int entry_occupancy<INST_ESTIMATOR>(int, int*);
 
 #define DE_BOUNCE_INSTANCE(L, RATIO, OPTS)                                               \
   template int launch_entry<L, RATIO, OPTS>(int, const BounceState&, const BounceParams&, \
-                                            const BounceOptions&, void*, int, cudaStream_t)
-extern DE_BOUNCE_INSTANCE(4, false, false);
-extern DE_BOUNCE_INSTANCE(1, false, false);
-extern DE_BOUNCE_INSTANCE(4, true, false);
-extern DE_BOUNCE_INSTANCE(1, true, false);
-extern DE_BOUNCE_INSTANCE(4, false, true);
-extern DE_BOUNCE_INSTANCE(1, false, true);
-extern DE_BOUNCE_INSTANCE(4, true, true);
-extern DE_BOUNCE_INSTANCE(1, true, true);
+                                            const BounceOptionsEst&, void*, int, cudaStream_t)
+extern DE_BOUNCE_INSTANCE(4, false, INST_DEFAULT);
+extern DE_BOUNCE_INSTANCE(1, false, INST_DEFAULT);
+extern DE_BOUNCE_INSTANCE(4, true, INST_DEFAULT);
+extern DE_BOUNCE_INSTANCE(1, true, INST_DEFAULT);
+extern DE_BOUNCE_INSTANCE(4, false, INST_OPTIONS);
+extern DE_BOUNCE_INSTANCE(1, false, INST_OPTIONS);
+extern DE_BOUNCE_INSTANCE(4, true, INST_OPTIONS);
+extern DE_BOUNCE_INSTANCE(1, true, INST_OPTIONS);
+extern DE_BOUNCE_INSTANCE(4, false, INST_ESTIMATOR);
+extern DE_BOUNCE_INSTANCE(1, false, INST_ESTIMATOR);
+extern DE_BOUNCE_INSTANCE(4, true, INST_ESTIMATOR);
+extern DE_BOUNCE_INSTANCE(1, true, INST_ESTIMATOR);
 
 }  // namespace de

@@ -7,6 +7,6 @@
 
 namespace de {
 
-DE_BOUNCE_INSTANCE(1, false, false);
+DE_BOUNCE_INSTANCE(1, false, INST_DEFAULT);
 
 }  // namespace de

@@ -6,6 +6,6 @@
 
 namespace de {
 
-DE_BOUNCE_INSTANCE(1, false, true);
+DE_BOUNCE_INSTANCE(1, false, INST_OPTIONS);
 
 }  // namespace de

@@ -6,6 +6,6 @@
 
 namespace de {
 
-DE_BOUNCE_INSTANCE(1, true, false);
+DE_BOUNCE_INSTANCE(1, true, INST_DEFAULT);
 
 }  // namespace de

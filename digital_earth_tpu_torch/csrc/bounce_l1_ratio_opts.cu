@@ -7,6 +7,6 @@
 
 namespace de {
 
-DE_BOUNCE_INSTANCE(1, true, true);
+DE_BOUNCE_INSTANCE(1, true, INST_OPTIONS);
 
 }  // namespace de

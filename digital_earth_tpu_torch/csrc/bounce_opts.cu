@@ -7,7 +7,7 @@
 
 namespace de {
 
-DE_BOUNCE_INSTANCE(4, false, true);
-template int entry_occupancy<true>(int, int*);
+DE_BOUNCE_INSTANCE(4, false, INST_OPTIONS);
+template int entry_occupancy<INST_OPTIONS>(int, int*);
 
 }  // namespace de

@@ -6,6 +6,6 @@
 
 namespace de {
 
-DE_BOUNCE_INSTANCE(4, true, false);
+DE_BOUNCE_INSTANCE(4, true, INST_DEFAULT);
 
 }  // namespace de

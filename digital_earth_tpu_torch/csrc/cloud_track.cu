@@ -12,8 +12,10 @@
 // its slowest lane leaves the slab (up to 8192 iterations for grazing sun
 // chords), so the cost is per-warp worst-lane trip count, not bandwidth.
 //
-// Two instances: the default (nearest taps) and the options instance (OPTS:
-// bilinear taps where asked), as the bounce entries run them.
+// Three instances: the default (nearest taps, threefry draws), the options
+// instance (OPTS: bilinear taps where asked) and its counter-hash twin
+// (FAST: the draws of fast_rng.cuh, TraceConfig.fast_loop_rng), as the
+// bounce entries run them.
 #include <cstdint>
 
 #include <cuda_runtime.h>
@@ -22,7 +24,7 @@
 
 namespace de {
 
-template <bool OPTS>
+template <bool OPTS, bool FAST>
 __global__ void cloud_track_kernel(
     const int32_t* __restrict__ keys, const float* __restrict__ pos,
     const float* __restrict__ dir, const float* __restrict__ t_start,
@@ -34,9 +36,10 @@ __global__ void cloud_track_kernel(
   if (lane >= n) return;
   int event;
   float t, trans;
-  cloud_track_lane<OPTS>(load_key(keys, lane), load3(pos, lane), load3(dir, lane),
-                         t_start[lane], t_max[lane], ext_w[lane], active[lane] != 0, clouds, H,
-                         W, max_steps, k, ratio != 0, event, t, trans, nullptr, bilinear != 0);
+  cloud_track_lane<OPTS, FAST>(load_key(keys, lane), load3(pos, lane), load3(dir, lane),
+                               t_start[lane], t_max[lane], ext_w[lane], active[lane] != 0, clouds,
+                               H, W, max_steps, k, ratio != 0, event, t, trans, nullptr,
+                               bilinear != 0);
   event_out[lane] = event;
   t_out[lane] = t;
   trans_out[lane] = trans;
@@ -50,16 +53,22 @@ extern "C" int de_cloud_track(const int32_t* keys, const float* pos,
                               const uint8_t* active, const uint8_t* clouds,
                               int H, int W, int32_t* event, float* t,
                               float* trans, int n, int max_steps, int k,
-                              int ratio, int opts, int bilinear, void* stream) {
-  if (!opts && bilinear) return (int)cudaErrorInvalidValue;  // the default runs nearest taps
+                              int ratio, int opts, int bilinear, int fast, void* stream) {
+  // the default runs nearest taps and threefry draws
+  if (!opts && (bilinear || fast)) return (int)cudaErrorInvalidValue;
   const int block = 128;
   const int grid = (n + block - 1) / block;
-  if (opts) {
-    de::cloud_track_kernel<true><<<grid, block, 0, (cudaStream_t)stream>>>(
+  cudaStream_t st = (cudaStream_t)stream;
+  if (opts && fast) {
+    de::cloud_track_kernel<true, true><<<grid, block, 0, st>>>(
+        keys, pos, dir, t_start, t_max, ext_w, active, clouds, H, W, event, t, trans, n,
+        max_steps, k, ratio, bilinear);
+  } else if (opts) {
+    de::cloud_track_kernel<true, false><<<grid, block, 0, st>>>(
         keys, pos, dir, t_start, t_max, ext_w, active, clouds, H, W, event, t, trans, n,
         max_steps, k, ratio, bilinear);
   } else {
-    de::cloud_track_kernel<false><<<grid, block, 0, (cudaStream_t)stream>>>(
+    de::cloud_track_kernel<false, false><<<grid, block, 0, st>>>(
         keys, pos, dir, t_start, t_max, ext_w, active, clouds, H, W, event, t, trans, n,
         max_steps, k, ratio, bilinear);
   }

@@ -22,11 +22,13 @@
 // OPTS: the options instance, whose taps are bilinear where ``bilinear``
 // (TraceConfig.bilinear_tracking; the twin's sample_sphere_texture as it
 // rounds on the card, texture.cuh sphere_tap); OPTS false compiles in the
-// nearest taps of the default.
+// nearest taps of the default. FAST: the draws are the counter hash
+// fast_uniform(key, i, (3, K)) (TraceConfig.fast_loop_rng; fast_rng.cuh).
 #pragma once
 #include <cstdint>
 
 #include "atmosphere.cuh"
+#include "fast_rng.cuh"
 #include "texture.cuh"
 #include "threefry.cuh"
 
@@ -43,7 +45,7 @@ __device__ __forceinline__ float shape_density(float tex, float r) {
 // (event, t) in delta mode, the transmittance in ratio mode; an invalid lane
 // keeps (0, t_start, 1). With ``iters`` the loop's iterations are written
 // there.
-template <bool OPTS = false>
+template <bool OPTS = false, bool FAST = false>
 __device__ __forceinline__ void cloud_track_lane(Key key, V3 o, V3 d, float t_start, float tm,
                                                  float ew, bool active,
                                                  const uint8_t* __restrict__ clouds, int H,
@@ -63,7 +65,7 @@ __device__ __forceinline__ void cloud_track_lane(Key key, V3 o, V3 d, float t_st
   for (int i = 0; i < max_steps && !done; ++i) {
     ++it;
     const bool skipping = sig <= 0.0f;
-    const Key ki = skipping ? Key{0u, 0u} : fold(key, (uint32_t)i);
+    const Key ki = skipping ? Key{0u, 0u} : loop_key<FAST>(key, (uint32_t)i);
     const float budget_end = fminf(t_fetch + 8e3f, tm);
     float t_new = t, mf = 0.0f, mc = 0.0f, mw = 0.0f;
     bool stopped = false, wood_real = false;
@@ -95,7 +97,7 @@ __device__ __forceinline__ void cloud_track_lane(Key key, V3 o, V3 d, float t_st
       const float clamp_end = fminf(budget_end, tms);
       float cs = 0.0f;
       for (int j = 0; j < k; ++j) {
-        const float u0 = uniform(ki, (uint32_t)j);
+        const float u0 = loop_uniform<FAST>(ki, (uint32_t)i, (uint32_t)j);
         const float step = -logf(fmaxf(u0, 1e-12f)) / sigc;
         cs = j == 0 ? step : cs + step;
         const float ts = t + cs;
@@ -113,9 +115,9 @@ __device__ __forceinline__ void cloud_track_lane(Key key, V3 o, V3 d, float t_st
         const float ratio_j = ew * shape_density(s[0], length(p)) / sigc;
         if (ratio) {
           block = block * (1.0f - ratio_j);
-        } else if (uniform(ki, (uint32_t)(k + j)) < ratio_j) {
+        } else if (loop_uniform<FAST>(ki, (uint32_t)i, (uint32_t)(k + j)) < ratio_j) {
           wood_real = true;
-          u2_stop = uniform(ki, (uint32_t)(2 * k + j));
+          u2_stop = loop_uniform<FAST>(ki, (uint32_t)i, (uint32_t)(2 * k + j));
           break;
         }
       }
@@ -135,7 +137,7 @@ __device__ __forceinline__ void cloud_track_lane(Key key, V3 o, V3 d, float t_st
         trans = trans * block;
         const float p_cont = fminf(fmaxf(trans / 0.05f, 0.0f), 1.0f);
         if (p_cont < 1.0f) {
-          if (uniform(ki, (uint32_t)(2 * k)) >= p_cont) {
+          if (loop_uniform<FAST>(ki, (uint32_t)i, (uint32_t)(2 * k)) >= p_cont) {
             trans = 0.0f;
             done = true;
           } else {

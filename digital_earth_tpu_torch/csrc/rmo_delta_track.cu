@@ -6,6 +6,10 @@
 // which the bounce kernel calls too. This kernel launches it on its own for
 // the comparison with the plain twin.
 //
+// Two instances: the default (threefry draws) and the options instance
+// (FAST: the counter hash of fast_rng.cuh, TraceConfig.fast_loop_rng), as
+// the bounce entries run them.
+//
 // What bounds it on the H100: latency and divergence. No memory is read in
 // the loop (the densities are analytic); each iteration is ~13 threefry
 // blocks plus K exp/log evaluations, and a warp runs until its slowest lane
@@ -18,6 +22,7 @@
 
 namespace de {
 
+template <bool FAST>
 __global__ void rmo_delta_track_kernel(
     const int32_t* __restrict__ keys, const float* __restrict__ pos,
     const float* __restrict__ dir, const float* __restrict__ t_start,
@@ -29,9 +34,9 @@ __global__ void rmo_delta_track_kernel(
   if (lane >= n) return;
   int event, iid;
   float t;
-  rmo_track_lane(load_key(keys, lane), load3(pos, lane), load3(dir, lane), t_start[lane],
-                 t_max[lane], ext_h[3 * lane], ext_h[3 * lane + 1], ext_h[3 * lane + 2],
-                 active[lane] != 0, max_steps, k, o3_env_peak, event, t, iid);
+  rmo_track_lane<FAST>(load_key(keys, lane), load3(pos, lane), load3(dir, lane), t_start[lane],
+                       t_max[lane], ext_h[3 * lane], ext_h[3 * lane + 1], ext_h[3 * lane + 2],
+                       active[lane] != 0, max_steps, k, o3_env_peak, event, t, iid);
   event_out[lane] = event;
   t_out[lane] = t;
   iid_out[lane] = iid;
@@ -39,15 +44,23 @@ __global__ void rmo_delta_track_kernel(
 
 }  // namespace de
 
+// fast: the options instance (the counter hash's draws).
 extern "C" int de_rmo_delta_track(const int32_t* keys, const float* pos,
                                   const float* dir, const float* t_start,
                                   const float* t_max, const float* ext_h,
                                   const uint8_t* active, int32_t* event,
                                   float* t, int32_t* iid, int n, int max_steps,
-                                  int k, float o3_env_peak, void* stream) {
+                                  int k, float o3_env_peak, int fast, void* stream) {
   const int block = 128;
-  de::rmo_delta_track_kernel<<<(n + block - 1) / block, block, 0, (cudaStream_t)stream>>>(
-      keys, pos, dir, t_start, t_max, ext_h, active, event, t, iid, n,
-      max_steps, k, o3_env_peak);
+  const int grid = (n + block - 1) / block;
+  if (fast) {
+    de::rmo_delta_track_kernel<true><<<grid, block, 0, (cudaStream_t)stream>>>(
+        keys, pos, dir, t_start, t_max, ext_h, active, event, t, iid, n, max_steps, k,
+        o3_env_peak);
+  } else {
+    de::rmo_delta_track_kernel<false><<<grid, block, 0, (cudaStream_t)stream>>>(
+        keys, pos, dir, t_start, t_max, ext_h, active, event, t, iid, n, max_steps, k,
+        o3_env_peak);
+  }
   return (int)cudaGetLastError();
 }

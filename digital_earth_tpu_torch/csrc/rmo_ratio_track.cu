@@ -9,6 +9,10 @@
 // bounce entries call at their sun transmittance; this kernel launches it on
 // its own for the comparison with the plain twin.
 //
+// Two instances a width: the default (threefry draws) and the options
+// instance (FAST: the counter hash of fast_rng.cuh, TraceConfig.
+// fast_loop_rng), as the bounce entries run them.
+//
 // What bounds it on the H100: neither bytes (a lane reads 60 + 12 L B and
 // writes 4 L B) nor its operations, mostly threefry's integer work (a key
 // and K draws per iteration), but the lanes' unequal iteration counts: a
@@ -23,7 +27,7 @@
 
 namespace de {
 
-template <int L>
+template <int L, bool FAST>
 __global__ void rmo_ratio_track_kernel(
     const int32_t* __restrict__ keys, const float* __restrict__ pos,
     const float* __restrict__ dir, const float* __restrict__ t_start,
@@ -37,9 +41,9 @@ __global__ void rmo_ratio_track_kernel(
   for (int l = 0; l < L; ++l)
 #pragma unroll
     for (int c = 0; c < 3; ++c) ext[l][c] = ext_in[(lane * L + l) * 3 + c];
-  rmo_ratio_lane<L>(load_key(keys, lane), load3(pos, lane), load3(dir, lane), t_start[lane],
-                    t_max[lane], ext, max_ext[lane], active[lane] != 0, max_steps, k, trans,
-                    iters ? iters + lane : nullptr);
+  rmo_ratio_lane<L, FAST>(load_key(keys, lane), load3(pos, lane), load3(dir, lane),
+                          t_start[lane], t_max[lane], ext, max_ext[lane], active[lane] != 0,
+                          max_steps, k, trans, iters ? iters + lane : nullptr);
 #pragma unroll
   for (int l = 0; l < L; ++l) trans_out[lane * L + l] = trans[l];
 }
@@ -48,10 +52,17 @@ template <int L>
 int launch_rmo_ratio_track(const int32_t* keys, const float* pos, const float* dir,
                            const float* t_start, const float* t_max, const float* ext,
                            const float* max_ext, const uint8_t* active, float* trans,
-                           int32_t* iters, int n, int max_steps, int k, cudaStream_t stream) {
+                           int32_t* iters, int n, int max_steps, int k, int fast,
+                           cudaStream_t stream) {
   const int block = 128;
-  rmo_ratio_track_kernel<L><<<(n + block - 1) / block, block, 0, stream>>>(
-      keys, pos, dir, t_start, t_max, ext, max_ext, active, trans, iters, n, max_steps, k);
+  const int grid = (n + block - 1) / block;
+  if (fast) {
+    rmo_ratio_track_kernel<L, true><<<grid, block, 0, stream>>>(
+        keys, pos, dir, t_start, t_max, ext, max_ext, active, trans, iters, n, max_steps, k);
+  } else {
+    rmo_ratio_track_kernel<L, false><<<grid, block, 0, stream>>>(
+        keys, pos, dir, t_start, t_max, ext, max_ext, active, trans, iters, n, max_steps, k);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -60,18 +71,19 @@ int launch_rmo_ratio_track(const int32_t* keys, const float* pos, const float* d
 // keys (n, 2) int32; pos, dir (n, 3); t_start, t_max, max_ext (n,); ext
 // (n, L, 3) float32; active (n,) bool; trans (n, L) float32 out; iters
 // (n,) int32 out (the loop's iterations per lane) or null. L is 1 or 4.
+// fast: the options instance (the counter hash's draws).
 extern "C" int de_rmo_ratio_track(const int32_t* keys, const float* pos, const float* dir,
                                   const float* t_start, const float* t_max, const float* ext,
                                   const float* max_ext, const uint8_t* active, float* trans,
                                   int32_t* iters, int n, int n_lambdas, int max_steps, int k,
-                                  void* stream) {
+                                  int fast, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (n <= 0) return (int)cudaGetLastError();
   if (n_lambdas == 4)
     return de::launch_rmo_ratio_track<4>(keys, pos, dir, t_start, t_max, ext, max_ext, active,
-                                         trans, iters, n, max_steps, k, s);
+                                         trans, iters, n, max_steps, k, fast, s);
   if (n_lambdas == 1)
     return de::launch_rmo_ratio_track<1>(keys, pos, dir, t_start, t_max, ext, max_ext, active,
-                                         trans, iters, n, max_steps, k, s);
+                                         trans, iters, n, max_steps, k, fast, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -8,7 +8,8 @@
 //
 // Per lane and iteration i it draws the reference's threefry stream
 // uniform(fold(key, i), (3, K)) (digital_earth_tpu/render/pathtracer.py:631
-// _delta_track_rmo), rebuilds the local hero majorant from the density
+// _delta_track_rmo; with FAST, TraceConfig.fast_loop_rng, the counter hash
+// fast_uniform(key, i, (3, K)) of fast_rng.cuh), rebuilds the local hero majorant from the density
 // envelope at the minimum radius of the remaining segment, takes K
 // exponential steps (prefix sums in the reference's sequential order), and
 // resolves the first probe that is real or past t_max: species by the hero
@@ -18,13 +19,16 @@
 #include <cstdint>
 
 #include "atmosphere.cuh"
+#include "fast_rng.cuh"
 #include "threefry.cuh"
 
 namespace de {
 
 // (event, t, iid) of the flight from t_start toward t_max with the hero
 // extinction (e0, e1, e2); an invalid lane keeps (0, t_start, 0). With
-// ``iters`` the loop's iterations are written there.
+// ``iters`` the loop's iterations are written there. FAST: the counter
+// hash's draws.
+template <bool FAST = false>
 __device__ __forceinline__ void rmo_track_lane(Key key, V3 o, V3 d, float t_start, float tm,
                                                float e0, float e1, float e2, bool active,
                                                int max_steps, int k, float o3_env_peak,
@@ -43,14 +47,14 @@ __device__ __forceinline__ void rmo_track_lane(Key key, V3 o, V3 d, float t_star
   int it = 0;
   for (int i = 0; i < max_steps && !done; ++i) {
     ++it;
-    const Key ki = fold(key, (uint32_t)i);
+    const Key ki = loop_key<FAST>(key, (uint32_t)i);
     const float r_min = segment_min_radius(rp, t + xp, x_end);
     float env[3];
     density_envelope(r_min - PLANET_R_F, o3_env_peak, env);
     const float inv_max = 1.0f / fmaxf(dot3(e0, e1, e2, env[0], env[1], env[2]), 1e-20f);
     float cs = 0.0f, ts = t;
     for (int j = 0; j < k; ++j) {
-      const float u0 = uniform(ki, (uint32_t)j);
+      const float u0 = loop_uniform<FAST>(ki, (uint32_t)i, (uint32_t)j);
       const float step = -logf(fmaxf(u0, 1e-12f)) * inv_max;
       cs = j == 0 ? step : cs + step;
       ts = t + cs;
@@ -59,14 +63,14 @@ __device__ __forceinline__ void rmo_track_lane(Key key, V3 o, V3 d, float t_star
       get_density(sqrtf(dot(p, p)) - PLANET_R_F, dens);
       const float total = dot3(dens[0], dens[1], dens[2], e0, e1, e2);
       const bool over = ts >= tm;
-      const float u1 = uniform(ki, (uint32_t)(k + j));
+      const float u1 = loop_uniform<FAST>(ki, (uint32_t)i, (uint32_t)(k + j));
       if (over || u1 < total * inv_max) {
         if (!over) {
           const float r = u1 / inv_max;
           const float c0 = dens[0] * e0;
           const float c01 = c0 + dens[1] * e1;
           const int id = r < c0 ? 0 : (r < c01 ? 1 : 2);
-          const float u2 = uniform(ki, (uint32_t)(2 * k + j));
+          const float u2 = loop_uniform<FAST>(ki, (uint32_t)i, (uint32_t)(2 * k + j));
           event = u2 < albedo[id] ? 2 : 1;
           iid = id;
         }
@@ -94,7 +98,8 @@ __device__ __forceinline__ void rmo_track_lane(Key key, V3 o, V3 d, float t_star
 // so they are not drawn. A lane also ends once every wavelength's
 // transmittance is below 1e-5, or after max_steps iterations. An invalid
 // lane keeps 1. With ``iters`` the loop's iterations are written there.
-template <int L>
+// FAST: the draws fast_uniform(key, i, (K,)).
+template <int L, bool FAST = false>
 __device__ __forceinline__ void rmo_ratio_lane(Key key, V3 o, V3 d, float t_start, float tm,
                                                const float (&ext)[L][3], float max_ext,
                                                bool active, int max_steps, int k, float (&trans)[L],
@@ -109,13 +114,14 @@ __device__ __forceinline__ void rmo_ratio_lane(Key key, V3 o, V3 d, float t_star
   int it = 0;
   for (int i = 0; i < max_steps && !done; ++i) {
     ++it;
-    const Key ki = fold(key, (uint32_t)i);
+    const Key ki = loop_key<FAST>(key, (uint32_t)i);
     float block[L];
 #pragma unroll
     for (int l = 0; l < L; ++l) block[l] = 1.0f;
     float cs = 0.0f, ts = t;
     for (int j = 0; j < k; ++j) {
-      const float step = -logf(fmaxf(uniform(ki, (uint32_t)j), 1e-12f)) * inv_max;
+      const float step =
+          -logf(fmaxf(loop_uniform<FAST>(ki, (uint32_t)i, (uint32_t)j), 1e-12f)) * inv_max;
       cs = j == 0 ? step : cs + step;
       ts = t + cs;
       if (!(ts < tm)) break;  // this probe and the later ones (ts grows) stay 1

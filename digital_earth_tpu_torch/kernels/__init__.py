@@ -15,7 +15,8 @@ launches from several threads). Nothing here imports or builds anything
 until a kernel is launched; there is no fallback to the plain versions.
 
 The land march, the cloud tracker, the bounce entries and the preview each
-have an options instance, built beside the default one: it reads the scene
+have an options instance, built beside the default one (the bounce entries
+also an estimator instance, below): it reads the scene
 and march options (``render/params.SCENE_OPTIONS``) from its parameters at
 run time, where the default instance compiles them in at their defaults
 (every instance reads the stall patience at run time). A wrapper launches
@@ -25,7 +26,15 @@ it gives the default instance's bits at the defaults); such a launch also
 adds one to the wrapper's ``options_launches``. The bounce entries' options
 instances also run the reference-faithful naive arm (``BOUNCE_OPTIONS``'
 ``naive_*`` flags), whose loops have launchers of their own
-(``naive_march``, ``naive_delta_track``, ``naive_ratio_track``).
+(``naive_march``, ``naive_delta_track``, ``naive_ratio_track``). The
+estimator options (``BOUNCE_ESTIMATOR_INTS`` and ``BOUNCE_ESTIMATOR_FLOATS``:
+the analytic flight, whose launcher is ``flight_analytic``; the
+counter-hash draws, whose launcher is ``fast_uniform_check``; the NEE and
+cloud roulettes; no NEE) run in the bounce entries' estimator instances, a
+set of their own that also takes the other options (counted as options
+launches too). The tracker launchers ``rmo_delta_track``,
+``rmo_ratio_track`` and ``cloud_track`` have instances that draw the
+counter hash (``fast_rng``), counted as their options launches.
 
 Built with ``--fmad=false`` and without fast math, so the kernels round each
 operation as PyTorch's element-wise CUDA ops do (the one fused multiply-add,
@@ -71,16 +80,22 @@ _SIGNATURES = {
     "de_land_march": [_P, _I, _I, _P, _P, _P, _P, _P, _I, _F, _F, _F,
                       _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # keys, pos, dir, t_start, t_max, ext_h, active, event, t, iid, n,
-    # max_steps, k, o3_env_peak, stream
+    # max_steps, k, o3_env_peak, fast (the options instance), stream
     "de_rmo_delta_track": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
-                           _I, _I, _F, _P],
+                           _I, _I, _F, _I, _P],
     # keys, pos, dir, t_start, t_max, ext, max_ext, active, trans, iters, n,
-    # n_lambdas, max_steps, k, stream
-    "de_rmo_ratio_track": [_P] * 10 + [_I, _I, _I, _I, _P],
+    # n_lambdas, max_steps, k, fast (the options instance), stream
+    "de_rmo_ratio_track": [_P] * 10 + [_I, _I, _I, _I, _I, _P],
     # keys, pos, dir, t_start, t_max, ext_w, active, clouds, H, W, event, t,
-    # trans, n, max_steps, k, ratio, the options instance, bilinear, stream
+    # trans, n, max_steps, k, ratio, the options instance, bilinear, fast,
+    # stream
     "de_cloud_track": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P,
-                       _I, _I, _I, _I, _I, _I, _P],
+                       _I, _I, _I, _I, _I, _I, _I, _P],
+    # keys, pos, dir, t_start, t_max, ext_h, active, table, event, t, iid,
+    # iters, n, n_iter, stream
+    "de_flight_analytic": [_P] * 12 + [_I, _I, _P],
+    # keys, n, counter, count, out, stream
+    "de_fast_uniform": [_P, _I, ctypes.c_uint, _I, _P, _P],
     # topo, H, W, pos, dir, active, out, iters, n, scale, steps, enable_land,
     # bilinear, stream
     "de_naive_march": [_P, _I, _I, _P, _P, _P, _P, _P, _I, _F, _I, _I, _I, _P],
@@ -312,9 +327,10 @@ def land_march(topo, pos, direction, active, t_cap, scale: float, *,
 
 
 def rmo_delta_track(keys, pos, direction, t_start, t_max, ext_h, active, *,
-                    max_steps: int, k: int, o3_env_peak: float):
+                    max_steps: int, k: int, o3_env_peak: float, fast_rng: bool = False):
     """Launch ``rmo_delta_track`` (csrc/rmo_delta_track.cu):
-    (event int32, t, iid int32)."""
+    (event int32, t, iid int32). ``fast_rng`` (the counter-hash draws of
+    TraceConfig.fast_loop_rng) launches the options instance."""
     dev = pos.device
     n = pos.shape[0]
     keys = keys_i32(keys)
@@ -332,18 +348,19 @@ def rmo_delta_track(keys, pos, direction, t_start, t_max, ext_h, active, *,
         _launch(
             "de_rmo_delta_track", _ptr(keys), _ptr(pos), _ptr(direction),
             _ptr(t_start), _ptr(t_max), _ptr(ext_h), _ptr(active), _ptr(event),
-            _ptr(t), _ptr(iid), n, max_steps, k, o3_env_peak,
+            _ptr(t), _ptr(iid), n, max_steps, k, o3_env_peak, int(fast_rng),
         )
-        _count(rmo_delta_track, 1)
+        _count(rmo_delta_track, 1, fast_rng)
     return event, t, iid
 
 
 def rmo_ratio_track(keys, pos, direction, t_start, t_max, ext, max_ext, active, *,
-                    max_steps: int, k: int, iters: bool = False):
+                    max_steps: int, k: int, iters: bool = False, fast_rng: bool = False):
     """Launch ``rmo_ratio_track`` (csrc/rmo_ratio_track.cu): the (n, L)
     transmittance of the gases by ratio tracking at the (n,) packet majorant
     ``max_ext``, ``ext`` the (n, L, 3) extinctions, L in ``BOUNCE_WIDTHS``;
-    with ``iters``, (trans, the (n,) int32 iterations of each lane)."""
+    with ``iters``, (trans, the (n,) int32 iterations of each lane).
+    ``fast_rng`` launches the options instance (the counter-hash draws)."""
     dev = pos.device
     n = pos.shape[0]
     L = ext.shape[1] if ext.dim() == 3 else 0
@@ -365,19 +382,20 @@ def rmo_ratio_track(keys, pos, direction, t_start, t_max, ext, max_ext, active, 
         _launch(
             "de_rmo_ratio_track", _ptr(keys), _ptr(pos), _ptr(direction), _ptr(t_start),
             _ptr(t_max), _ptr(ext), _ptr(max_ext), _ptr(active), _ptr(trans), _ptr_or_null(it),
-            n, L, max_steps, k,
+            n, L, max_steps, k, int(fast_rng),
         )
-        _count(rmo_ratio_track, 1)
+        _count(rmo_ratio_track, 1, fast_rng)
     return (trans, it) if iters else trans
 
 
 def cloud_track(keys, pos, direction, t_start, t_max, ext_w, active, clouds, *,
                 max_steps: int, k: int, ratio: bool, bilinear: bool = False,
-                options: bool = False):
+                fast_rng: bool = False, options: bool = False):
     """Launch ``cloud_track`` (csrc/cloud_track.cu): (event int32, t) in
-    delta mode, the (n,) transmittance in ratio mode. ``bilinear`` taps (or
-    ``options``) launch the options instance."""
-    opts = options or bilinear
+    delta mode, the (n,) transmittance in ratio mode. ``bilinear`` taps,
+    ``fast_rng`` draws (or ``options``) launch an options instance (the
+    counter-hash draws one of their own)."""
+    opts = options or bilinear or fast_rng
     dev = pos.device
     n = pos.shape[0]
     h, w = clouds.shape[:2]
@@ -398,10 +416,43 @@ def cloud_track(keys, pos, direction, t_start, t_max, ext_w, active, clouds, *,
             "de_cloud_track", _ptr(keys), _ptr(pos), _ptr(direction),
             _ptr(t_start), _ptr(t_max), _ptr(ext_w), _ptr(active),
             _ptr(clouds), h, w, _ptr(event), _ptr(t), _ptr(trans), n,
-            max_steps, k, int(ratio), int(opts), int(bilinear),
+            max_steps, k, int(ratio), int(opts), int(bilinear), int(fast_rng),
         )
         _count(cloud_track, 1, opts)
     return trans if ratio else (event, t)
+
+
+def flight_analytic(keys, pos, direction, t_start, t_max, ext_h, active, table, *,
+                    n_iter: int, iters: bool = False):
+    """Launch ``flight_analytic`` (csrc/flight_analytic.cu): the gases'
+    free-flight event (event int32, t, iid int32) by inverting their optical
+    depth on the (384, 1024, 3) density ``table`` with ``n_iter`` Newton
+    steps, ``ext_h`` the (n, 3) hero extinction; with ``iters``, (that, the
+    (n,) int32 steps of each lane: ``n_iter`` where it collides, else 0)."""
+    dev = pos.device
+    n = pos.shape[0]
+    if n_iter < 0:
+        raise ValueError(f"flight_analytic: {n_iter} Newton steps")
+    keys = keys_i32(keys)
+    _check("keys", keys, torch.int32, (n, 2), dev)
+    _check("pos", pos, torch.float32, (n, 3), dev)
+    _check("direction", direction, torch.float32, (n, 3), dev)
+    _check("t_start", t_start, torch.float32, (n,), dev)
+    _check("t_max", t_max, torch.float32, (n,), dev)
+    _check("ext_h", ext_h, torch.float32, (n, 3), dev)
+    _check("active", active, torch.bool, (n,), dev)
+    _check("table", table, torch.float32, (384, 1024, 3), dev)
+    event = torch.empty((n,), dtype=torch.int32, device=dev)
+    t = torch.empty((n,), dtype=torch.float32, device=dev)
+    iid = torch.empty((n,), dtype=torch.int32, device=dev)
+    it = torch.empty((n,), dtype=torch.int32, device=dev) if iters else None
+    if n:
+        _launch("de_flight_analytic", _ptr(keys), _ptr(pos), _ptr(direction), _ptr(t_start),
+                _ptr(t_max), _ptr(ext_h), _ptr(active), _ptr(table), _ptr(event), _ptr(t),
+                _ptr(iid), _ptr_or_null(it), n, n_iter)
+        _count(flight_analytic, 1)
+    out = (event, t, iid)
+    return (out, it) if iters else out
 
 
 def naive_march(topo, pos, direction, active, scale: float, *, steps: int,
@@ -802,9 +853,23 @@ BOUNCE_WIDTHS = (1, 4)
 BOUNCE_OPTIONS = ("enable_clouds", "enable_land", "bilinear_tracking", "lazy_march",
                   "march_exact_ocean", "march_ref_phantom", "naive_tracking", "naive_march",
                   "naive_cloud_tracking", "naive_shadow")
+# the estimator options (render/params.ESTIMATOR_OPTIONS) with their
+# defaults: the ints that follow BOUNCE_OPTIONS in the int block (the Newton
+# steps and the roulettes' start bounces act only with their options), and
+# the two probabilities that follow the sixteen floats, each with its
+# reciprocal float32(1 / p) after it
+BOUNCE_ESTIMATOR_INTS = dict(analytic_flight=0, flight_newton_iters=14, fast_loop_rng=0,
+                             nee_rr_start=9, cloud_rr_start=9, nee_off=0)
+BOUNCE_ESTIMATOR_FLOATS = dict(nee_rr_prob=1.0, cloud_rr_keep=1.0)
+_ESTIMATOR_FLAGS = ("analytic_flight", "fast_loop_rng", "nee_off")
+# the bounce entries' instances (csrc/bounce.cuh INST_*): the default, the
+# options instance (the scene and march options, the naive arm) and the
+# estimator instance (those and the estimator options)
+INST_DEFAULT, INST_OPTIONS, INST_ESTIMATOR = 0, 1, 2
 # the bounce entries' parameter blocks as the wrappers take them; the C
 # entries' int block has one more, the instance (csrc/bounce.cu)
-BOUNCE_FLOATS, BOUNCE_INTS = 16, 16 + len(BOUNCE_OPTIONS)
+BOUNCE_FLOATS = 16 + 2 * len(BOUNCE_ESTIMATOR_FLOATS)
+BOUNCE_INTS = 16 + len(BOUNCE_OPTIONS) + len(BOUNCE_ESTIMATOR_INTS)
 BOUNCE_SITES = 7  # the census's loop sites (csrc/bounce.cuh SITE_*)
 # the census's clock64 columns: the seven sites, then bounce_flight's and
 # bounce_shade's whole (csrc/bounce.cuh CYCLE_COLS)
@@ -823,11 +888,39 @@ def _options_instance(iparams, first: int, names, force: bool) -> bool:
     return bool(force or any(v != OPTION_DEFAULTS[name] for name, v in zip(names, flags)))
 
 
+def bounce_estimator_params(cfg):
+    """(the ints, the floats) of the estimator options ``cfg`` (a
+    TraceConfig) gives the bounce entries: the ints of
+    ``BOUNCE_ESTIMATOR_INTS`` in order, and each probability of
+    ``BOUNCE_ESTIMATOR_FLOATS`` with its reciprocal, the Python float's
+    (float32 once in the parameter block)."""
+    ints = [int(getattr(cfg, name)) for name in BOUNCE_ESTIMATOR_INTS]
+    floats = []
+    for name in BOUNCE_ESTIMATOR_FLOATS:
+        p = float(getattr(cfg, name))
+        floats += [p, 1.0 / p]
+    return ints, floats
+
+
+def _estimator_instance(fparams, iparams) -> bool:
+    """Whether the estimator options of a bounce launch's blocks ask for the
+    estimator instance: any of them off its default. Raises on a flag other
+    than 0 or 1, negative Newton steps or a probability outside (0, 1]."""
+    first = 16 + len(BOUNCE_OPTIONS)
+    ints = dict(zip(BOUNCE_ESTIMATOR_INTS, iparams[first:]))
+    probs = dict(zip(BOUNCE_ESTIMATOR_FLOATS, fparams[16::2]))
+    if (any(ints[name] not in (0, 1) for name in _ESTIMATOR_FLAGS)
+            or ints["flight_newton_iters"] < 0 or any(not 0.0 < p <= 1.0 for p in probs.values())):
+        raise ValueError(f"bounce: estimator options {ints}, {probs}")
+    return (any(v != BOUNCE_ESTIMATOR_INTS[name] for name, v in ints.items())
+            or any(p != 1.0 for p in probs.values()))
+
+
 def _bounce_args(fparams, iparams, pos, direction, wavelength, lambda_pdf, throughput, radiance,
                  w_mis, alive, primary_miss, work_class, keys, idx, topo, material, clouds,
                  o3_crossec, srgb2spec, table, n_live, options=False):
     """Check a bounce launch's arguments: (the C arguments up to the tables,
-    the ctypes blocks they point to, whether the options instance runs)."""
+    the ctypes blocks they point to, the instance that runs: ``INST_*``)."""
     dev = pos.device
     n = pos.shape[0]
     m = idx.shape[0]
@@ -866,9 +959,11 @@ def _bounce_args(fparams, iparams, pos, direction, wavelength, lambda_pdf, throu
     _check("o3_crossec", o3_crossec, torch.float32, (441,), dev)
     _check("srgb2spec", srgb2spec, torch.float32, (300, 3), dev)
     _check("table", table, torch.float32, (384, 1024, 3), dev)
-    opts = _options_instance(iparams, 16, BOUNCE_OPTIONS, options)
+    scene = _options_instance(iparams, 16, BOUNCE_OPTIONS, options)
+    opts = (INST_ESTIMATOR if _estimator_instance(fparams, iparams) else
+            INST_OPTIONS if scene else INST_DEFAULT)
     fp = (ctypes.c_float * BOUNCE_FLOATS)(*fparams)
-    ip = (ctypes.c_int * (BOUNCE_INTS + 1))(*iparams, int(opts))
+    ip = (ctypes.c_int * (BOUNCE_INTS + 1))(*iparams, opts)
     return [
         ctypes.cast(fp, ctypes.c_void_p), ctypes.cast(ip, ctypes.c_void_p),
         _ptr(pos), _ptr(direction), _ptr(wavelength), _ptr(lambda_pdf), _ptr(throughput),
@@ -896,9 +991,11 @@ def bounce_flight(*args, n_live=None, trips=None, cycles=None, options=False):
     fparams, iparams, pos, direction, wavelength, lambda_pdf, throughput,
     radiance, w_mis, alive, primary_miss, work_class, keys, idx, topo,
     material, clouds, o3_crossec, srgb2spec, table. ``keys`` are the (N, 2)
-    lane keys as int32 (``keys_i32``); ``fparams`` (16 floats) and
-    ``iparams`` (26 ints: the 16 of csrc/bounce.cu, then the options
-    ``BOUNCE_OPTIONS``) are laid out as csrc/bounce.cu documents
+    lane keys as int32 (``keys_i32``); ``fparams`` (20 floats: the 16 of
+    csrc/bounce.cu, then ``BOUNCE_ESTIMATOR_FLOATS`` each with its
+    reciprocal) and ``iparams`` (32 ints: the 16 of csrc/bounce.cu, then the
+    options ``BOUNCE_OPTIONS`` and ``BOUNCE_ESTIMATOR_INTS``) are laid out as
+    csrc/bounce.cu documents
     (render/pathtracer.py builds them). With ``n_live``, the (1,) int32 live
     count on the device, entries of ``idx`` at or past it are skipped
     (``idx`` is then an upper bound's worth). With ``trips``, an (m, 7)
@@ -908,7 +1005,10 @@ def bounce_flight(*args, n_live=None, trips=None, cycles=None, options=False):
     (column 7). The wavelengths per lane (``iparams[0]``, one of
     ``BOUNCE_WIDTHS``) and the sun transmittance (``iparams[15]``: 1 ratio
     tracking, 0 the closed form) pick the kernels' instance, an option off
-    its default (or ``options``) the options instance of it."""
+    its default (or ``options``) the options instance of it, an estimator
+    option off its default the estimator instance (which also takes the
+    other options). At ``analytic_flight`` the census counts the analytic
+    flight's Newton steps at the RMO column (2)."""
     c_args, _refs, opts = _bounce_args(*args, n_live, options)
     m = args[13].shape[0]
     dev = args[2].device
@@ -949,10 +1049,11 @@ def bounce_window(*args, stop: int, n_live=None, options=False):
         _count(bounce_window, 1, opts)
 
 
-def bounce_occupancy(which: str, options: bool = False) -> dict:
+def bounce_occupancy(which: str, options: int = INST_DEFAULT) -> dict:
     """ptxas's and the occupancy calculator's view of a bounce entry
     (``OCCUPANCY_ENTRIES``; its default instance, L = 4 and the closed form,
-    or with ``options`` its options instance) on the current device:
+    or with ``options`` its options instance, True or ``INST_OPTIONS``, or
+    its estimator instance, ``INST_ESTIMATOR``) on the current device:
     resident blocks and warps per SM, threads per block, registers and local
     bytes per thread."""
     out = (ctypes.c_int * 4)()
@@ -1111,6 +1212,20 @@ def threefry_draw_sum(keys, base: int, count: int):
     return out
 
 
+def fast_uniform_check(keys, counter: int, count: int):
+    """Launch ``fast_uniform_check`` (csrc/fast_uniform_check.cu), the
+    trackers' counter hash: (count, n) draws ``fast_uniform(key, counter,
+    j)``, j < count (the counter mod 2**32); ``ops/rng.fast_uniform(keys,
+    counter, (count,))`` is the plain version."""
+    k32 = _threefry_keys(keys)
+    n = k32.shape[0]
+    out = torch.empty((count, n), dtype=torch.float32, device=keys.device)
+    if n and count > 0:
+        _launch("de_fast_uniform", _ptr(k32), n, counter & 0xFFFFFFFF, count, _ptr(out))
+        _count(fast_uniform_check, 1)
+    return out
+
+
 def threefry_fold(keys, data: int, depth: int):
     """Test launcher of the header's fold (not a path kernel): (n, 2) int32
     words of ``fold`` applied ``depth`` (1 or 2) times with ``data``,
@@ -1245,11 +1360,12 @@ def atmos_march_occupancy():
 
 
 PATH_KERNELS = (land_march, rmo_delta_track, rmo_ratio_track, cloud_track, naive_march,
-                naive_delta_track, naive_ratio_track, gen_rays,
+                naive_delta_track, naive_ratio_track, flight_analytic, fast_uniform_check, gen_rays,
                 atmos_march, film_postprocess, frame_end, select_tiles, select_tiles_shard,
                 bounce_flight, bounce_shade, bounce_window, compact_lanes, upsample, preview)
 # the kernels with an options instance
-OPTIONS_KERNELS = (land_march, cloud_track, bounce_flight, bounce_shade, bounce_window, preview)
+OPTIONS_KERNELS = (land_march, rmo_delta_track, rmo_ratio_track, cloud_track, bounce_flight,
+                   bounce_shade, bounce_window, preview)
 
 
 def reset_launch_counts():

@@ -205,6 +205,54 @@ def rmo_transmittance_to_space(ext_rmo, pos, direction):
     return torch.exp(-tau)
 
 
+def sample_flight_distance_plain(u, pos, direction, t_start, t_max, ext_h, n_iter: int = 14):
+    """The gases' free flight by inverting their optical depth on the table
+    (the reference's ``sample_flight_distance``, atmosphere_lut.py:302):
+    the (n,) distance solving tau(t) = -ln u, from ``n_iter`` safeguarded
+    Newton steps (a step leaving the bracket, or not finite, bisects it) on
+    tau's closed form, whose derivative is the hero extinction ``ext_h``
+    (n, 3) times the analytic densities. Returns (t, collided, tau_total):
+    t the span's end where no collision lies inside the span, ``collided``
+    whether one does, tau_total the span's hero optical depth.
+
+    Only the lanes that collide run the steps: the others' distance is the
+    span's end whatever the steps give (the kernel,
+    csrc/flight_analytic.cuh, does the same)."""
+    table = density_table(pos.device)
+    valid = (t_max >= 0.0) & (t_start < t_max)
+    t_end = torch.where(valid, t_max, t_start)
+    rp, xp = _ray_perigee(pos, direction)
+    x0 = t_start + xp
+    f0 = torch.sign(x0)[..., None] * _f_eval(table, rp, torch.abs(x0))
+
+    def tau_at(t, rp, xp, f0, ext_h):
+        x = t + xp
+        f = torch.sign(x)[..., None] * _f_eval(table, rp, torch.abs(x))
+        return dot(ext_h, torch.clamp(f - f0, min=0.0))
+
+    tau_total = tau_at(t_end, rp, xp, f0, ext_h)
+    target = -torch.log(torch.clamp(u, min=1e-12))
+    collided = valid & (target < tau_total)
+    t_out = t_end.clone()
+    run = torch.nonzero(collided).squeeze(1)
+    if run.numel():
+        rp, xp, f0, e, tg = rp[run], xp[run], f0[run], ext_h[run], target[run]
+        lo, hi = t_start[run], t_end[run]
+        t = 0.5 * (lo + hi)
+        for _ in range(n_iter):
+            f = tau_at(t, rp, xp, f0, e) - tg
+            x = t + xp
+            h = torch.clamp(torch.sqrt(rp * rp + x * x) - C.PLANET_R, min=0.0)
+            sigma = dot(e, vol.get_density(h))
+            lo = torch.where(f <= 0.0, t, lo)
+            hi = torch.where(f > 0.0, t, hi)
+            t_n = t - f / torch.clamp(sigma, min=1e-30)
+            ok = (t_n > lo) & (t_n < hi) & torch.isfinite(t_n)
+            t = torch.where(ok, t_n, 0.5 * (lo + hi))
+        t_out[run] = torch.minimum(torch.maximum(t, t_start[run]), t_end[run])
+    return t_out, collided, tau_total
+
+
 def density_check(pos, direction, t0, t1, ext_rmo):
     """(density_integral_segment over [t0, t1] (n, 3),
     rmo_transmittance_to_space (n, L)): the plain versions above for CPU

@@ -9,6 +9,11 @@ the port and the reference draw the same stream in every lane (common random
 numbers). The CUDA kernels carry the same generator in
 ``csrc/threefry.cuh``.
 
+``fast_uniform`` is the reference's cheap counter hash for the tracking
+loops at ``TraceConfig.fast_loop_rng`` (digital_earth_tpu/ops/rng.py:66-113):
+two rounds of lowbias32 over (key, loop counter, draw index), bit for bit;
+the kernels carry it in ``csrc/fast_rng.cuh``.
+
 Keys are ``(..., 2)`` int64 tensors holding uint32 values: torch's uint32
 support is partial, so the arithmetic runs in int64 masked to 32 bits.
 
@@ -26,6 +31,9 @@ import math
 import torch
 
 M32 = 0xFFFFFFFF
+_COUNTER_MUL = 0x9E3779B9
+_INDEX_MUL = 0x85EBCA6B
+_MIX_MULS = (0x7FEB352D, 0x846CA68B)
 _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
 _PARITY = 0x1BD11BDA
 
@@ -122,3 +130,35 @@ def split(key, n: int):
     """``jax.random.split(key, n)`` of one (2,) key: (n, 2). Under
     jax_threefry_partitionable, key i of the split is ``fold_in(key, i)``."""
     return lane_keys(key, torch.arange(n, dtype=torch.int64, device=key.device))
+
+
+def _mul32(x, c: int):
+    """(x * c) mod 2^32 of int64 tensors holding uint32 values, in two 16-bit
+    halves of ``c`` so that no product leaves int64."""
+    lo = x * (c & 0xFFFF)
+    hi = ((x * (c >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & M32
+
+
+def _lowbias32(x):
+    """Walker's lowbias32 finalizer (the reference's ``_lowbias32``)."""
+    x = x ^ (x >> 16)
+    x = _mul32(x, _MIX_MULS[0])
+    x = x ^ (x >> 15)
+    x = _mul32(x, _MIX_MULS[1])
+    return x ^ (x >> 16)
+
+
+def fast_uniform(keys, data, shape=()):
+    """The reference's ``fast_uniform``: (n, 2) keys and a scalar counter
+    ``data`` -> (*shape, n) draws, element j of flat index j from
+    lowbias32(lowbias32(k1 ^ (c * 0x9E3779B9 + j * 0x85EBCA6B)) ^ k0) as a
+    float32 times 2^-32 (the conversion rounds to nearest, as the
+    reference's ``astype(float32)``)."""
+    total = math.prod(shape)
+    idx = torch.arange(total, dtype=torch.int64, device=keys.device)[:, None]
+    c = _as_u32(data, keys)
+    x = keys[None, :, 1] ^ ((_mul32(c, _COUNTER_MUL) + _mul32(idx, _INDEX_MUL)) & M32)
+    x = _lowbias32(_lowbias32(x) ^ keys[None, :, 0])
+    u = x.to(torch.float32) * 2.0**-32
+    return u.reshape(tuple(shape) + (keys.shape[0],))

@@ -107,6 +107,19 @@ class TraceConfig:
     the six flags off its default the kernels run their options instances;
     every instance takes the stall patience at run time.
 
+    The estimator options (``ESTIMATOR_OPTIONS``) keep the image's
+    expectation and change how it is sampled: ``analytic_flight`` draws the
+    gases' free flight by inverting their optical depth on the density
+    table with ``flight_newton_iters`` safeguarded Newton steps, in place of
+    delta tracking; ``fast_loop_rng`` draws the accelerated trackers'
+    in-loop uniforms from a counter hash in place of threefry;
+    ``nee_rr_prob`` below 1 keeps the sun's shadow track past bounce
+    ``nee_rr_start`` with that probability, and ``cloud_rr_keep`` below 1 a
+    cloud-scattered path from bounce ``cloud_rr_start`` on, each reweighted;
+    ``nee_off`` drops the sun's next-event estimate (a diagnostic: the image
+    darkens). At any of them off its default the bounce kernels run their
+    options instances.
+
     The reference's other fields select TPU experiments, parity-bisection
     paths or TPU scheduling; the port implements each at its default.
     ``convert.trace_config`` carries a reference config across and rejects
@@ -134,6 +147,14 @@ class TraceConfig:
     naive_march: bool = False
     naive_cloud_tracking: bool = False
     naive_shadow: bool = False
+    analytic_flight: bool = False
+    flight_newton_iters: int = 14
+    fast_loop_rng: bool = False
+    nee_rr_start: int = C.MULTISCATTER_BOUNCE
+    nee_rr_prob: float = 1.0
+    cloud_rr_start: int = C.MULTISCATTER_BOUNCE
+    cloud_rr_keep: float = 1.0
+    nee_off: bool = False
 
     def __post_init__(self):
         if self.hero_lambdas not in HERO_WIDTHS:
@@ -146,6 +167,13 @@ class TraceConfig:
                 f"TraceConfig.naive_tracking with hero_lambdas={self.hero_lambdas!r}: the naive "
                 "trackers are single-wavelength (hero_lambdas=1)"
             )
+        for name in ("nee_rr_prob", "cloud_rr_keep"):
+            if not 0.0 < getattr(self, name) <= 1.0:
+                raise ValueError(f"TraceConfig.{name}={getattr(self, name)!r}: a probability in "
+                                 "(0, 1]")
+        if self.flight_newton_iters < 0:
+            raise ValueError(f"TraceConfig.flight_newton_iters={self.flight_newton_iters!r}: "
+                             "a count of steps")
 
     def options(self) -> dict:
         """The scene and march options that differ from their defaults."""
@@ -164,3 +192,9 @@ SCENE_OPTIONS = {name: TraceConfig.__dataclass_fields__[name].default for name i
 # defaults: at any of them the bounce kernels run their options instances.
 NAIVE_OPTIONS = {name: TraceConfig.__dataclass_fields__[name].default for name in (
     "naive_tracking", "naive_march", "naive_cloud_tracking", "naive_shadow")}
+
+# The estimator options with their (the reference's) defaults: at any of
+# them off its default the bounce kernels run their options instances.
+ESTIMATOR_OPTIONS = {name: TraceConfig.__dataclass_fields__[name].default for name in (
+    "analytic_flight", "flight_newton_iters", "fast_loop_rng", "nee_rr_start", "nee_rr_prob",
+    "cloud_rr_start", "cloud_rr_keep", "nee_off")}

@@ -10,7 +10,12 @@ do the naive arm's four flags (``params.NAIVE_OPTIONS``), which swap the
 accelerated loops for the reference-faithful ones of ``tracking_naive``:
 ``naive_tracking`` all of them (march first, single-wavelength paths),
 ``naive_march`` the three marches, ``naive_cloud_tracking`` the two cloud
-passes and ``naive_shadow`` the surface's shadow march.
+passes and ``naive_shadow`` the surface's shadow march. So do the
+estimator options (``params.ESTIMATOR_OPTIONS``): ``analytic_flight`` the
+gases' flight by inverting their optical depth (``tracers.
+sample_rmo_flight_analytic``), ``fast_loop_rng`` the accelerated trackers'
+counter-hash draws, the NEE and cloud Russian roulettes (``nee_rr_*``,
+``cloud_rr_*``, sites 7 and 8) and ``nee_off``.
 
 One bounce of the reference's ``run_bounces`` body (pathtracer.py:1554-1924)
 is ``run_bounce``: for CUDA tensors the kernels ``bounce_flight`` and
@@ -52,7 +57,8 @@ from .params import SceneParams, TraceConfig
 from .tracers import (  # noqa: F401  (re-exported loop entry points)
     ABSORB_EVENT, NULL_EVENT, SCATTER_EVENT, _CLOUD_VALID, _MIP_VALID_COARSE, _MIP_VALID_FINE,
     _march_floor, delta_track_rmo, delta_track_rmo_plain, intersect_land, intersect_land_plain,
-    ratio_track_rmo, ratio_track_rmo_plain, track_cloud, track_cloud_plain,
+    ratio_track_rmo, ratio_track_rmo_plain, sample_rmo_flight_analytic,
+    sample_rmo_flight_analytic_plain, track_cloud, track_cloud_plain,
 )
 
 # RNG site ids (pathtracer.py:62-71): lane key -> bounce -> site -> loop.
@@ -62,6 +68,8 @@ _SITE_TRANS = 3
 _SITE_PHASE = 4
 _SITE_HEMI = 5
 _SITE_RR = 6
+_SITE_NEE_RR = 7
+_SITE_CLOUD_RR = 8
 _SUB_RMO = 1
 _SUB_CLOUD = 2
 
@@ -201,8 +209,9 @@ def sample_interaction(keys, ray_pos, ray_dir, land_isection, ext_rmo, ext_w,
     without clouds (``cfg.enable_clouds`` False) the RMO pass alone, with a
     zero cloud event (:1315). ``cfg.naive_tracking``: the naive arm's order
     (``_sample_interaction_naive``); ``cfg.naive_cloud_tracking``: the naive
-    cloud pass. With ``trips`` (n, 7) int32 the plain loops run and add
-    their iterations to the census columns of the two passes."""
+    cloud pass; ``cfg.analytic_flight``: the gases' flight by inverting
+    their optical depth (:1306). With ``trips`` (n, 7) int32 the plain loops
+    run and add their iterations to the census columns of the two passes."""
     k_rmo = rng.fold(keys, _SUB_RMO)
     k_cloud = rng.fold(keys, _SUB_CLOUD)
     if cfg.naive_tracking:
@@ -226,10 +235,12 @@ def sample_interaction(keys, ray_pos, ray_dir, land_isection, ext_rmo, ext_w,
         rmo_cap = t_max
     rmo_args = (k_rmo, ray_pos, ray_dir, t_start, rmo_cap, ext_rmo[:, 0, :].contiguous(),
                 active, cfg)
+    flight, flight_plain = ((sample_rmo_flight_analytic, sample_rmo_flight_analytic_plain)
+                            if cfg.analytic_flight else (delta_track_rmo, delta_track_rmo_plain))
     if trips is None:
-        rmo_event, rmo_t, rmo_id = delta_track_rmo(*rmo_args)
+        rmo_event, rmo_t, rmo_id = flight(*rmo_args)
     else:
-        rmo_event, rmo_t, rmo_id = delta_track_rmo_plain(*rmo_args, trips=trips[:, 2])
+        rmo_event, rmo_t, rmo_id = flight_plain(*rmo_args, trips=trips[:, 2])
     if not cfg.enable_clouds:
         return (rmo_event, rmo_t, rmo_id, torch.zeros_like(rmo_event),
                 torch.zeros_like(rmo_t))
@@ -491,7 +502,9 @@ def run_bounce_plain(st: TraceState, bounce: int, scene: SceneParams, atlas, lut
         s_trips = None if trips is None else torch.zeros_like(trips[s_idx])
         shadow_args = (topo, s_offset, light_dir[s_idx].contiguous(), scale,
                        torch.ones_like(s_idx, dtype=torch.bool), cfg)
-        if naive_march or cfg.naive_shadow:
+        if cfg.nee_off:  # "occluded": no sun NEE, no shadow march
+            shadow_hit = torch.ones_like(s_offset[:, 0])
+        elif naive_march or cfg.naive_shadow:
             shadow_hit = _naive(tn.intersect_land_naive, shadow_args, s_trips, 4)
         elif trips is None:
             shadow_hit = intersect_land(*shadow_args, any_hit=True)
@@ -512,10 +525,26 @@ def run_bounce_plain(st: TraceState, bounce: int, scene: SceneParams, atlas, lut
 
     nee_origin = torch.where(surface[:, None], offset_pos, int_pos)
     nee_active = vol_nee | sur_nee
-    trans = sample_transmittance(
-        rng.fold(kb, _SITE_TRANS), nee_origin, light_dir.contiguous(), ext_rmo,
-        ext_w, atlas, nee_active, cfg, trips=trips,
-    )
+    # the NEE roulette past nee_rr_start: keep the sun's track with
+    # probability nee_rr_prob, its transmittance reweighted by
+    # float32(1 / nee_rr_prob) (pathtracer.py:1802-1830)
+    nee_rr = cfg.nee_rr_prob < 1.0 and bounce > cfg.nee_rr_start
+    if nee_rr:
+        nee_keep = rng.uniform(rng.fold(kb, _SITE_NEE_RR)) < cfg.nee_rr_prob
+        nee_active = nee_active & nee_keep
+    if cfg.nee_off:  # no sun NEE at all (pathtracer.py:1813-1820)
+        trans = torch.zeros((n, L), device=dev)
+        vol_nee = torch.zeros_like(vol_nee)
+        sur_nee = torch.zeros_like(sur_nee)
+    else:
+        trans = sample_transmittance(
+            rng.fold(kb, _SITE_TRANS), nee_origin, light_dir.contiguous(), ext_rmo,
+            ext_w, atlas, nee_active, cfg, trips=trips,
+        )
+    if nee_rr:
+        trans = trans * torch.where(nee_active, 1.0 / cfg.nee_rr_prob, 0.0)[:, None]
+        vol_nee = vol_nee & nee_keep
+        sur_nee = sur_nee & nee_keep
 
     reduce_peak = bounce > 0
     phase_d = vol.evaluate_phase(direction, light_dir, iid, reduce_peak)
@@ -559,8 +588,20 @@ def run_bounce_plain(st: TraceState, bounce: int, scene: SceneParams, atlas, lut
         )
         alive = alive & ~killed
 
-    # class of the next bounce (pathtracer.py:1918-1919)
+    # the cloud roulette from cloud_rr_start: a cloud-scattered path goes on
+    # with probability cloud_rr_keep, its throughput times float32(1 /
+    # cloud_rr_keep) (pathtracer.py:1884-1895 divide by the Python float,
+    # which PyTorch on the card applies so: the twin is the card's on any
+    # device)
     in_cloud = (iid == C.CLOUD_ID) | (iid == C.ISOTROPIC_CLOUD_ID)
+    if cfg.cloud_rr_keep < 1.0 and bounce >= cfg.cloud_rr_start:
+        crr = alive & scatter & in_cloud
+        ckilled = crr & (rng.uniform(rng.fold(kb, _SITE_CLOUD_RR)) >= cfg.cloud_rr_keep)
+        new_thr = torch.where((crr & ~ckilled)[:, None], new_thr * (1.0 / cfg.cloud_rr_keep),
+                              new_thr)
+        alive = alive & ~ckilled
+
+    # class of the next bounce (pathtracer.py:1918-1919)
     cls = torch.where(scatter & in_cloud, 0, torch.where(scatter, 1, 2)).to(torch.int32)
     return TraceState(
         pos=new_pos, direction=new_dir, wavelength=wavelength,
@@ -584,17 +625,19 @@ def scene_floats(scene: SceneParams):
 class BounceFrame:
     """The bounce kernels' arguments that hold for a whole wavefront: the
     scene's scalars from its host record, the budgets and options of
-    ``cfg`` (the scene and march options after the sixteen ints the
-    default instances read), the lane keys as int32 once, the density
-    table (pathtracer.run_bounces builds one per call)."""
+    ``cfg`` (the scene and march options, then the estimator options' ints,
+    after the sixteen ints the default instances read; the estimator
+    options' probabilities after the sixteen floats), the lane keys as int32
+    once, the density table (pathtracer.run_bounces builds one per call)."""
 
     def __init__(self, st: TraceState, scene: SceneParams, atlas, luts, cfg: TraceConfig):
         topo = atlas.topography
         scale_f, light, cos_angle, solid_angle, offset_scale = scene_floats(scene)
         step_floor, stall_thresh = _march_floor(topo, cfg)
+        est_ints, est_floats = kernels.bounce_estimator_params(cfg)
         self.fparams = [scale_f, step_floor, stall_thresh, atm._O3_ENV_PEAK, *light, cos_angle,
                         solid_angle, offset_scale, *sp.planck_kernel_constants(),
-                        *vol.MAX_DENS_RMO]
+                        *vol.MAX_DENS_RMO, *est_floats]
         # naive_tracking takes the gases' sun transmittance from the ratio
         # instances' tracker at one probe an iteration: the naive ratio
         # tracker's one-step loop, draw for draw (csrc/bounce.cuh); its other
@@ -605,7 +648,7 @@ class BounceFrame:
             cfg.march_stall_patience, cfg.max_tracking_steps, 1 if naive else cfg.tracking_k,
             int(cfg.bilinear_materials), *topo.shape[:2], *atlas.material.shape[:2],
             *atlas.clouds.shape[:2], int(naive or not cfg.analytic_transmittance),
-            *(int(getattr(cfg, name)) for name in kernels.BOUNCE_OPTIONS),
+            *(int(getattr(cfg, name)) for name in kernels.BOUNCE_OPTIONS), *est_ints,
         ]
         self.keys = kernels.keys_i32(st.rng)
         self.tables = (topo, atlas.material, atlas.clouds, luts.o3_crossec, luts.srgb2spec,

@@ -14,7 +14,11 @@ version and a wrapper that launches the hand-written CUDA kernel
   ``TraceConfig.analytic_transmittance`` is False (pathtracer.py:814
   _ratio_track_rmo) -> kernel ``rmo_ratio_track``;
 - ``track_cloud``: space-skipping cloud-slab tracking, delta and ratio modes
-  (pathtracer.py:906 _track_cloud) -> kernel ``cloud_track``.
+  (pathtracer.py:906 _track_cloud) -> kernel ``cloud_track``;
+- ``sample_rmo_flight_analytic``: the gases' free flight by inverting
+  their optical depth on the density table, ``TraceConfig.analytic_flight``
+  (pathtracer.py:749 _sample_rmo_flight_analytic) -> kernel
+  ``flight_analytic``.
 
 The reference runs each as a masked ``lax.while_loop`` that repeats while
 ANY lane is unfinished, drawing K speculative probes per iteration. Every
@@ -23,7 +27,8 @@ plain versions here iterate over the still-live lanes only, and the kernels
 run one thread per lane to its own end. Both keep the K-probe results: the
 same probe positions, the same first-stopping probe, the same threefry draw
 ``uniform(fold(key, i), (3, K))`` (``(K,)`` for the ratio tracker) for
-lane iteration i.
+lane iteration i, or at ``TraceConfig.fast_loop_rng`` the counter hash
+``fast_uniform(key, i, (3, K))`` (``_loop_draw``).
 
 A wrapper takes the plain version only for tensors on the CPU; a CUDA tensor
 launches the kernel (``digital_earth_tpu_torch.kernels``) or raises. On the
@@ -110,6 +115,16 @@ def _cumsum(steps):
     for j in range(1, steps.shape[0]):
         out.append(out[-1] + steps[j])
     return torch.stack(out)
+
+
+def _loop_draw(cfg: TraceConfig):
+    """The accelerated trackers' in-loop draw of iteration i, (keys, i,
+    shape) -> (*shape, n): threefry's ``uniform(fold(key, i), shape)``, or
+    the reference's counter hash at ``cfg.fast_loop_rng`` (pathtracer.py:676,
+    840, 954). The naive twins keep threefry at every setting."""
+    if cfg.fast_loop_rng:
+        return rng.fast_uniform
+    return lambda keys, i, shape: rng.uniform(rng.fold(keys, i), shape)
 
 
 def _march_floor(topo, cfg: TraceConfig):
@@ -315,10 +330,11 @@ def delta_track_rmo_plain(keys, ray_pos, ray_dir, t_start, t_max, ext_h,
     t_max_safe = torch.clamp(t_max, min=0.0)
     rp, xp = atm._ray_perigee(ray_pos, ray_dir)
     albedos = _ALBEDOS.to(dev)
+    draw = _loop_draw(cfg)
 
     def body(i, s, c):
         t = s["t"]
-        u = rng.uniform(rng.fold(c["keys"], i), (3, k))  # (3, k, m)
+        u = draw(c["keys"], i, (3, k))  # (3, k, m)
         r_min = atm.segment_min_radius(c["rp"], t + c["xp"], c["x_end"])
         env = atm.density_envelope(r_min - C.PLANET_R)
         inv_max = 1.0 / torch.clamp(dot(c["ext_h"], env), min=1e-20)
@@ -373,7 +389,50 @@ def delta_track_rmo(keys, ray_pos, ray_dir, t_start, t_max, ext_h, active,
     return kernels.rmo_delta_track(
         keys, ray_pos, ray_dir, t_start, t_max, ext_h, active,
         max_steps=cfg.max_tracking_steps, k=cfg.tracking_k,
-        o3_env_peak=atm._O3_ENV_PEAK,
+        o3_env_peak=atm._O3_ENV_PEAK, fast_rng=cfg.fast_loop_rng,
+    )
+
+
+def sample_rmo_flight_analytic_plain(keys, ray_pos, ray_dir, t_start, t_max, ext_h, active,
+                                     cfg: TraceConfig, trips=None):
+    """Plain PyTorch twin of the ``flight_analytic`` kernel: the gases'
+    free-flight event (event, t, iid) by inverting their optical depth on
+    the density table (pathtracer.py:749 _sample_rmo_flight_analytic), as
+    ``delta_track_rmo`` returns it. One ``uniform(key, (3,))`` a lane: the
+    first inverts tau(t) = -ln u (``atm.sample_flight_distance_plain``,
+    ``cfg.flight_newton_iters`` steps), the second picks the species by the
+    hero extinction's CMF at the collision, the third plays the albedo
+    roulette. ``ext_h`` is the (n, 3) hero extinction; the steps of each
+    lane that runs them are added to ``trips`` (n,) int32 if given."""
+    u = rng.uniform(keys, (3,))
+    t, collided, _ = atm.sample_flight_distance_plain(
+        u[0], ray_pos, ray_dir, t_start, t_max, ext_h, cfg.flight_newton_iters)
+    if trips is not None:
+        trips += collided.to(torch.int32) * cfg.flight_newton_iters
+    collided = collided & active
+    ext_stop = vol.get_density(vol.get_elevation(ray_pos + t[:, None] * ray_dir)) * ext_h
+    c0 = ext_stop[:, 0]
+    c01 = c0 + ext_stop[:, 1]
+    r = u[1] * torch.clamp(c01 + ext_stop[:, 2], min=1e-30)
+    iid = torch.where(r < c0, C.RAYLEIGH_ID, torch.where(r < c01, C.MIE_ID, C.OZONE_ID))
+    scatters = u[2] < _ALBEDOS.to(ray_pos.device)[iid]
+    event = torch.where(collided, torch.where(scatters, SCATTER_EVENT, ABSORB_EVENT),
+                        NULL_EVENT).to(torch.int32)
+    return event, t, torch.where(collided, iid, 0).to(torch.int32)
+
+
+def sample_rmo_flight_analytic(keys, ray_pos, ray_dir, t_start, t_max, ext_h, active,
+                               cfg: TraceConfig):
+    """The gases' free-flight event (event, t, iid) by inverting their
+    optical depth on the density table. CPU tensors: the plain version;
+    CUDA tensors: the ``flight_analytic`` kernel."""
+    if ray_pos.device.type == "cpu":
+        return sample_rmo_flight_analytic_plain(
+            keys, ray_pos, ray_dir, t_start, t_max, ext_h, active, cfg
+        )
+    return kernels.flight_analytic(
+        keys, ray_pos, ray_dir, t_start, t_max, ext_h, active,
+        atm.density_table(ray_pos.device), n_iter=cfg.flight_newton_iters,
     )
 
 
@@ -394,10 +453,11 @@ def ratio_track_rmo_plain(keys, ray_pos, ray_dir, t_start, t_max, ext, max_ext, 
     k = cfg.tracking_k
     valid = active & (t_max >= 0.0) & (t_start < t_max)
     inv_max = 1.0 / max_ext
+    draw = _loop_draw(cfg)
 
     def body(i, s, c):
         t = s["t"]
-        u = rng.uniform(rng.fold(c["keys"], i), (k,))  # (k, m)
+        u = draw(c["keys"], i, (k,))  # (k, m)
         steps = -torch.log(torch.clamp(u, min=1e-12)) * c["inv_max"][None]
         ts = t[None, :] + _cumsum(steps)
         pos = c["pos"][None] + torch.minimum(ts, c["tms"][None])[..., None] * c["dir"][None]
@@ -432,7 +492,7 @@ def ratio_track_rmo(keys, ray_pos, ray_dir, t_start, t_max, ext, max_ext, active
         )
     return kernels.rmo_ratio_track(
         keys, ray_pos, ray_dir, t_start, t_max, ext, max_ext, active,
-        max_steps=cfg.max_tracking_steps, k=cfg.tracking_k,
+        max_steps=cfg.max_tracking_steps, k=cfg.tracking_k, fast_rng=cfg.fast_loop_rng,
     )
 
 
@@ -488,10 +548,12 @@ def track_cloud_plain(keys, ray_pos, ray_dir, t_start, t_max, ext_w, clouds,
             0.0,
         )
 
+    draw = _loop_draw(cfg)
+
     def body(i, s, c):
         t, t_fetch, sig_loc, stride = s["t"], s["t_fetch"], s["sig"], s["stride"]
         ext_w, t_max, tms = c["ext_w"], c["t_max"], c["tms"]
-        u = rng.uniform(rng.fold(c["keys"], i), (3, k))  # (3, k, m)
+        u = draw(c["keys"], i, (3, k))  # (3, k, m)
 
         skipping = sig_loc <= 0.0
         budget_end = torch.minimum(t_fetch + _CLOUD_VALID, t_max)
@@ -662,5 +724,5 @@ def track_cloud(keys, ray_pos, ray_dir, t_start, t_max, ext_w, clouds, active,
     return kernels.cloud_track(
         keys, ray_pos, ray_dir, t_start, t_max, ext_w, active, clouds,
         max_steps=cfg.max_tracking_steps, k=cfg.tracking_k,
-        ratio=mode == "ratio", bilinear=cfg.bilinear_tracking,
+        ratio=mode == "ratio", bilinear=cfg.bilinear_tracking, fast_rng=cfg.fast_loop_rng,
     )

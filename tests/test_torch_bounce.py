@@ -43,6 +43,11 @@ from digital_earth_tpu_torch.assets.textures import build_atlas
 from digital_earth_tpu_torch.render import pathtracer as pt
 from digital_earth_tpu_torch.render.params import TraceConfig
 
+# One intra-op thread a test process: the runner's worker processes share the
+# machine's cores, and torch's OpenMP threads, each pool sized for the whole
+# machine, spin against one another and against XLA's compiles.
+torch.set_num_threads(1)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 KW = dict(max_bounces=1, land_march_steps=64, max_tracking_steps=256)
 FLOORS = {  # (radiance, throughput) share of lanes within rtol 1e-3

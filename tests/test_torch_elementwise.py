@@ -41,6 +41,11 @@ from digital_earth_tpu_torch.ops import texture as ttx
 from digital_earth_tpu_torch.render import camera as tcam
 from digital_earth_tpu_torch.render import params as tparams
 
+# One intra-op thread a test process: the runner's worker processes share the
+# machine's cores, and torch's OpenMP threads, each pool sized for the whole
+# machine, spin against one another and against XLA's compiles.
+torch.set_num_threads(1)
+
 N = 8192
 R = np.random.default_rng(1234)
 
@@ -309,12 +314,15 @@ def test_scene_params_and_trace_config():
         jparams.TraceConfig(max_bounces=3, compact_tile=512, land_march_steps=64))
     assert got == tparams.TraceConfig(max_bounces=3, land_march_steps=64)
     for knob, value in [("loop_narrow", 256), ("scalar_ray_geom", True),
-                        ("fast_loop_rng", True), ("march_certified_floor", True),
-                        ("nee_off", True), ("work_bins", 5), ("cloud_rr_keep", 0.5),
-                        ("march_floor_frac_secondary", 0.002), ("hero_lambdas", 2),
-                        ("flight_newton_iters", 7), ("loop_narrow_after", 5)]:
+                        ("march_certified_floor", True), ("march_uncert_floor_frac", 0.5),
+                        ("work_bins", 5), ("march_floor_frac_secondary", 0.002),
+                        ("hero_lambdas", 2), ("loop_narrow_after", 5)]:
         with pytest.raises(ValueError):
             convert.trace_config(jparams.TraceConfig(**{knob: value}))
+    # the estimator options are carried across (tests/test_torch_estimator.py)
+    for knob, value in [("fast_loop_rng", True), ("nee_off", True), ("cloud_rr_keep", 0.5),
+                        ("flight_newton_iters", 7)]:
+        assert getattr(convert.trace_config(jparams.TraceConfig(**{knob: value})), knob) == value
 
 
 @pytest.mark.parametrize("options", [

@@ -29,6 +29,11 @@ from digital_earth_tpu_torch.render import pathtracer as pt
 from digital_earth_tpu_torch.render import tracers
 from digital_earth_tpu_torch.render.params import TraceConfig
 
+# One intra-op thread a test process: the runner's worker processes share the
+# machine's cores, and torch's OpenMP threads, each pool sized for the whole
+# machine, spin against one another and against XLA's compiles.
+torch.set_num_threads(1)
+
 pytestmark = pytest.mark.cuda
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -1803,3 +1808,129 @@ def test_naive_launchers_bit_equal(dev, case, fn, species, bilinear):
         want = want if isinstance(want, tuple) else (want,)
     assert all(torch.equal(g.view(torch.int32), w.view(torch.int32)) for g, w in zip(got, want))
     assert torch.equal(steps, trips) and int(trips.max()) > 1
+
+
+# The estimator options (render/params.ESTIMATOR_OPTIONS): each alone (the
+# roulettes' start bounces set so that they act at bounces 0 and 3), all
+# but nee_off, and with the reference's estimator, marching first and
+# beside naive_tracking
+ESTIMATOR_OPTION_CASES = [
+    dict(analytic_flight=True), dict(analytic_flight=True, flight_newton_iters=3),
+    dict(fast_loop_rng=True), dict(nee_rr_prob=0.5, nee_rr_start=-1),
+    dict(cloud_rr_keep=0.5, cloud_rr_start=0), dict(nee_off=True),
+    dict(analytic_flight=True, fast_loop_rng=True, nee_rr_prob=0.3, nee_rr_start=-1,
+         cloud_rr_keep=0.7, cloud_rr_start=0),
+    dict(analytic_flight=True, fast_loop_rng=True, hero_lambdas=1, stratify_spp=False,
+         analytic_transmittance=False),
+    dict(analytic_flight=True, lazy_march=False),
+    dict(fast_loop_rng=True, naive_tracking=True, hero_lambdas=1),
+]
+
+
+@pytest.mark.parametrize("bounce", [0, 3])
+@pytest.mark.parametrize("options", ESTIMATOR_OPTION_CASES)
+def test_bounce_options_instance_bit_equal_at_estimator_options(dev, bounce, options):
+    """The bounce entries' options instances at the estimator options, as
+    test_bounce_options_instance_bit_equal holds the scene options (the
+    census's RMO column at analytic_flight its Newton steps)."""
+    test_bounce_options_instance_bit_equal(dev, bounce, options)
+
+
+@pytest.mark.parametrize("options", ESTIMATOR_OPTION_CASES)
+def test_bounce_window_options_instance_bit_equal_at_estimator_options(dev, options):
+    test_bounce_window_options_instance_bit_equal(dev, options)
+
+
+@pytest.mark.parametrize("n_iter", [0, 1, 14, 30])
+def test_flight_analytic_launcher_bit_equal(dev, case, n_iter):
+    """flight_analytic against sample_rmo_flight_analytic_plain on the
+    case's lanes over their spans to the land-free top of the atmosphere:
+    event, distance and interaction id bit-equal, each lane's steps the
+    twin's census count."""
+    from digital_earth_tpu_torch import kernels
+    from digital_earth_tpu_torch.models import atmosphere_lut as atm
+
+    pos, dirs, active = case["pos"], case["dirs"], case["active"]
+    t0, t1 = pt._rmo_span(pos, dirs, torch.full((N,), -1.0, device=dev))
+    cfg = TraceConfig(analytic_flight=True, flight_newton_iters=n_iter)
+    trips = torch.zeros(N, dtype=torch.int32, device=dev)
+    want = tracers.sample_rmo_flight_analytic_plain(case["keys"], pos, dirs, t0, t1,
+                                                    case["ext_h"], active, cfg, trips=trips)
+    before = kernels.flight_analytic.launches
+    got, steps = kernels.flight_analytic(case["keys"], pos, dirs, t0, t1, case["ext_h"], active,
+                                         atm.density_table(dev), n_iter=n_iter, iters=True)
+    assert kernels.flight_analytic.launches == before + 1
+    assert all(torch.equal(g.view(torch.int32), w.view(torch.int32)) for g, w in zip(got, want))
+    assert torch.equal(steps, trips)
+    assert bool((want[0] > 0).any()) and bool((want[0] == 0).any())
+    wrapped = tracers.sample_rmo_flight_analytic(case["keys"], pos, dirs, t0, t1, case["ext_h"],
+                                                 active, cfg)
+    assert all(torch.equal(g, w) for g, w in zip(wrapped, want))
+
+
+@pytest.mark.parametrize("counter", [0, 1, 0x7FFFFFFF, 0x80000000, 0xFFFFFFFF, 2**32 + 5])
+def test_fast_uniform_check_bit_equal(dev, counter):
+    """fast_uniform_check against ops/rng.fast_uniform on edge keys and
+    random keys, 12 words a lane: every bit."""
+    from digital_earth_tpu_torch import kernels
+
+    keys = rng.lane_keys(rng.prng_key(3, dev), torch.arange(4096, device=dev))
+    keys[:6] = torch.tensor([[0, 0], [0xFFFFFFFF, 0xFFFFFFFF], [0x80000000, 1],
+                             [1, 0x80000000], [0xFFFFFFFF, 0], [0, 0xFFFFFFFF]], device=dev)
+    got = kernels.fast_uniform_check(keys, counter, 12)
+    want = rng.fast_uniform(keys, counter, (12,))
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("tracker", ["rmo_delta", "rmo_ratio_1", "rmo_ratio_4", "cloud_delta",
+                                     "cloud_ratio"])
+def test_tracker_launchers_bit_equal_at_fast_loop_rng(dev, case, tracker):
+    """The tracker launchers' options instances at fast_loop_rng against
+    their twins at it on the case's lanes: every output bit-equal; their
+    draws are not threefry's (the default instance's outputs differ)."""
+    from digital_earth_tpu_torch import kernels
+
+    cfg = TraceConfig(fast_loop_rng=True, max_tracking_steps=2048)
+    threefry = TraceConfig(max_tracking_steps=2048)
+    pos, dirs, active = case["pos"], case["dirs"], case["active"]
+    no_land = torch.full((N,), -1.0, device=dev)
+    if tracker.startswith("rmo"):
+        t0, t1 = pt._rmo_span(pos, dirs, no_land)
+    else:
+        t0, t1 = pt.intersect_cloud_limits(pos, dirs, no_land)
+    if tracker == "rmo_delta":
+        args = (case["keys"], pos, dirs, t0, t1, case["ext_h"], active)
+        launcher = kernels.rmo_delta_track
+        run = lambda c: tracers.delta_track_rmo(*args, c)  # noqa: E731
+        want = tracers.delta_track_rmo_plain(*args, cfg)
+    elif tracker.startswith("rmo_ratio"):
+        ext = case["ext"][:, :int(tracker[-1])].contiguous()
+        args = (case["keys"], pos, dirs, t0, t1, ext, vol.max_extinction_rmo(ext), active)
+        launcher = kernels.rmo_ratio_track
+        run = lambda c: (tracers.ratio_track_rmo(*args, c),)  # noqa: E731
+        want = (tracers.ratio_track_rmo_plain(*args, cfg),)
+    else:
+        mode = tracker.split("_")[1]
+        ext_w = torch.full((N,), C.CLOUDS_EXTINCT, device=dev)
+        args = (case["keys"], pos, dirs, t0, t1, ext_w, case["atlas"].clouds, active)
+        launcher = kernels.cloud_track
+        wrap = (lambda x: (x,)) if mode == "ratio" else tuple
+        run = lambda c: wrap(tracers.track_cloud(*args, c, mode))  # noqa: E731
+        want = wrap(tracers.track_cloud_plain(*args, cfg, mode))
+    before = launcher.launches, launcher.options_launches
+    got = run(cfg)
+    assert (launcher.launches, launcher.options_launches) == (before[0] + 1, before[1] + 1)
+    # lanes where the twin on the card parts (its Python divisors round as
+    # a multiply by float32(1 / b) there) hold the twin's bits on the CPU
+    parted = sum((g.view(torch.int32) != w.view(torch.int32)).reshape(N, -1).any(-1)
+                 for g, w in zip(got, want))
+    lanes = torch.nonzero(parted).squeeze(1)
+    assert lanes.numel() <= 16
+    if lanes.numel():
+        cpu = [a[lanes].cpu() if a.shape[:1] == (N,) else a.cpu() for a in args]
+        host = (tracers.delta_track_rmo_plain(*cpu, cfg) if tracker == "rmo_delta" else
+                (tracers.ratio_track_rmo_plain(*cpu, cfg),) if tracker.startswith("rmo") else
+                wrap(tracers.track_cloud_plain(*cpu, cfg, mode)))
+        assert all(torch.equal(g[lanes].cpu().view(torch.int32), h.view(torch.int32))
+                   for g, h in zip(got, host))
+    assert not all(torch.equal(g, d) for g, d in zip(got, run(threefry)))

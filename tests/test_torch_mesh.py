@@ -64,6 +64,11 @@ from digital_earth_tpu_torch.render.renderer import Renderer
 from test_torch_adaptive import _seeded_buffers
 from test_torch_viewer import APOLLO, _serve, _stop
 
+# One intra-op thread a test process: the runner's worker processes share the
+# machine's cores, and torch's OpenMP threads, each pool sized for the whole
+# machine, spin against one another and against XLA's compiles.
+torch.set_num_threads(1)
+
 CFG = dict(max_bounces=4, land_march_steps=64, max_tracking_steps=512)
 POS, LOOK, FOV = (35963490.0, 12765367.0, -42445899.0), (23201393.0, 8394073.0, -26074562.0), 0.127
 CPU = torch.device("cpu")

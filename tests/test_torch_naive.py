@@ -48,6 +48,11 @@ from test_torch_options import _eager, _on, _port_bounce
 from test_torch_options import FLORIDA, SUNSET
 from test_torch_tracers import N, SCALE, T, case  # noqa: F401  (fixture)
 
+# One intra-op thread a test process: the runner's worker processes share the
+# machine's cores, and torch's OpenMP threads, each pool sized for the whole
+# machine, spin against one another and against XLA's compiles.
+torch.set_num_threads(1)
+
 APOLLO = "config - Apollo 11.txt"
 FLAGS = {"naive_tracking": dict(naive_tracking=True, hero_lambdas=1),
          "naive_march": dict(naive_march=True),

@@ -94,6 +94,11 @@ from test_torch_preview import atlases as preview_atlases  # noqa: F401  (fixtur
 from test_torch_preview import luts  # noqa: F401  (fixture)
 from test_torch_tracers import N, SCALE, T, case  # noqa: F401  (fixture)
 
+# One intra-op thread a test process: the runner's worker processes share the
+# machine's cores, and torch's OpenMP threads, each pool sized for the whole
+# machine, spin against one another and against XLA's compiles.
+torch.set_num_threads(1)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SUNSET, FLORIDA = "config - sunset hurricane.txt", "config - florida.txt"
 FIELDS = ("pos", "direction", "wavelength", "lambda_pdf", "throughput", "radiance", "w_mis",

@@ -56,6 +56,11 @@ from digital_earth_tpu_torch.render import params as tparams
 from digital_earth_tpu_torch.render.params import TraceConfig
 from digital_earth_tpu_torch.render.renderer import Renderer
 
+# One intra-op thread a test process: the runner's worker processes share the
+# machine's cores, and torch's OpenMP threads, each pool sized for the whole
+# machine, spin against one another and against XLA's compiles.
+torch.set_num_threads(1)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 APOLLO = os.path.join(ROOT, "scenes", "config - Apollo 11.txt")
 SMALL = dict(max_bounces=3, land_march_steps=64, max_tracking_steps=256)

@@ -40,6 +40,11 @@ from digital_earth_tpu_torch.render.camera import CameraParams, HostCamera, came
 from digital_earth_tpu_torch.render.params import TraceConfig
 from digital_earth_tpu_torch.render.renderer import Renderer, trace_lanes
 
+# One intra-op thread a test process: the runner's worker processes share the
+# machine's cores, and torch's OpenMP threads, each pool sized for the whole
+# machine, spin against one another and against XLA's compiles.
+torch.set_num_threads(1)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCENES = ("config - Apollo 11.txt", "config - florida.txt", "config - sunset hurricane.txt")
 KEY = (0, 3)

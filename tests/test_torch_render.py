@@ -39,6 +39,11 @@ from digital_earth_tpu_torch.render import film
 from digital_earth_tpu_torch.render.params import TraceConfig
 from digital_earth_tpu_torch.render.renderer import Renderer
 
+# One intra-op thread a test process: the runner's worker processes share the
+# machine's cores, and torch's OpenMP threads, each pool sized for the whole
+# machine, spin against one another and against XLA's compiles.
+torch.set_num_threads(1)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOLDEN = os.path.join(ROOT, "tests", "golden")
 SCENES = {

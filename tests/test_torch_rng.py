@@ -10,6 +10,11 @@ import torch
 from digital_earth_tpu.ops import rng as jrng
 from digital_earth_tpu_torch.ops import rng as trng
 
+# One intra-op thread a test process: the runner's worker processes share the
+# machine's cores, and torch's OpenMP threads, each pool sized for the whole
+# machine, spin against one another and against XLA's compiles.
+torch.set_num_threads(1)
+
 N = 4096
 
 

@@ -23,6 +23,11 @@ from digital_earth_tpu_torch.assets import procgen as tproc
 from digital_earth_tpu_torch.assets import textures as ttex
 from digital_earth_tpu_torch.ops import texture as ttx
 
+# One intra-op thread a test process: the runner's worker processes share the
+# machine's cores, and torch's OpenMP threads, each pool sized for the whole
+# machine, spin against one another and against XLA's compiles.
+torch.set_num_threads(1)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 

@@ -30,6 +30,11 @@ from digital_earth_tpu_torch.ops import rng as trng
 from digital_earth_tpu_torch.render import tracers
 from digital_earth_tpu_torch.render.params import TraceConfig
 
+# One intra-op thread a test process: the runner's worker processes share the
+# machine's cores, and torch's OpenMP threads, each pool sized for the whole
+# machine, spin against one another and against XLA's compiles.
+torch.set_num_threads(1)
+
 N = 4096
 SCALE = 7800.0
 
@@ -155,8 +160,10 @@ def _texture_call(wrapper, tex):
                                        srgb2spec, origin=(0.0, 0.0, 0.0))
     z4 = torch.zeros((n, 4))
     ip = [4, 0, 0, 8, 4, 2, 8, 4, 0, h, w, h, w, h, w, 0] + [
-        kernels.OPTION_DEFAULTS[name] for name in kernels.BOUNCE_OPTIONS]  # the options' defaults
-    args = ([0.0] * 16, ip, z3, z3, z4, z4, z4, z4, z4, act, act.clone(),
+        kernels.OPTION_DEFAULTS[name] for name in kernels.BOUNCE_OPTIONS] + list(
+        kernels.BOUNCE_ESTIMATOR_INTS.values())  # the options' defaults
+    fp = [0.0] * 16 + [1.0] * (kernels.BOUNCE_FLOATS - 16)  # the roulettes' defaults
+    args = (fp, ip, z3, z3, z4, z4, z4, z4, z4, act, act.clone(),
             torch.zeros(n, dtype=torch.int32), torch.zeros((n, 2), dtype=torch.int32),
             torch.arange(n, dtype=torch.int32), tex if which == "topo" else good, material,
             tex if which == "clouds" else good, o3, srgb2spec, torch.zeros((384, 1024, 3)))

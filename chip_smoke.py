@@ -1,14 +1,15 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch + CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--mesh-only | --estimator-only | --preview-bench [DIR]
+    python3 chip_smoke.py [--mesh-only | --estimator-only | --floors-only | --preview-bench [DIR]
                            | --path-bench [DIR] | --spp-bench [DIR] | --options-bench [DIR]
                            | --sass-counts [DIR]]
 
 Run from the root of a checkout on a machine with a CUDA card, ``nvcc`` and
 PyTorch built for CUDA; ``--mesh-only`` runs phases 1-3 and 19 alone (say,
 on a machine with several cards, where phase 19 adds meshes over them);
-``--estimator-only`` runs phases 1-4 and 8e alone;
+``--estimator-only`` runs phases 1-4 and 8e alone, ``--floors-only`` phases
+1-4 and 8f;
 ``--preview-bench [DIR]`` prints the preview's end-to-end numbers (frame
 times and kernels per frame on both atlases, input to preview) for the port
 package in DIR (default this checkout), so that two versions of the port can
@@ -183,6 +184,22 @@ at the end). Phases, each of which raises on failure (exit code 1):
    the census (at analytic_flight its Newton steps at the RMO site); the
    analytic_flight path on Apollo under phase 6's gates; s/spp of each
    ESTIMATOR_SPP setting on the three scenes against its default; the
+   phase's seconds.
+8f. the march floors (``check_march_floors``; FLOOR_CASES: the reference's
+   cert_u0, cert_u001, cert25_u0, floor_sec01 and floor_pri05_sec005, and
+   cert_u0 with analytic_flight): the default bounce instances' SASS against
+   PARENT_DEFAULT_SASS, the floor instances', ``land_march``'s and
+   ``preview``'s ptxas; the ``land_march`` launcher at each setting on phase
+   4's arguments (the primary marches at their bounce's floor, the shadow
+   march at its own) against its twin under phase 7's gates (the lanes not
+   bit-equal printed beside the default instance's), timed beside the
+   default instance with its bound; per case and scene the floor
+   instances against their twin at bounces 0 and DEEP_BOUNCE and in the
+   window, every lane bit-equal, bounce 0's two kernels on Apollo timed
+   with their bounds; the 480x270 preview at cert_u0 and cert25_u0 on its
+   floor instance, every lane bit-equal; the cert_u0 path on Apollo under
+   phase 6's gates, every bounce launch the floor instances'; s/spp of
+   the five settings on the three scenes against their default; the
    phase's seconds.
 
 The viewer's path (each run with the launch counts set to 0 just before it
@@ -1946,6 +1963,8 @@ ENTRY_SETS = (("L = 4, closed form", {}), ("L = 1, closed form", dict(hero_lambd
 # the options instances' sources: the bounce entries' sets, and the march
 # and cloud launchers' and the preview's (beside their default instances)
 # the bounce entries' estimator instances' sources (phase 8e)
+FLOOR_SOURCES = ("bounce_floor.cu", "bounce_l1_floor.cu", "bounce_ratio_floor.cu",
+                 "bounce_l1_ratio_floor.cu")
 ESTIMATOR_SOURCES = ("bounce_est.cu", "bounce_l1_est.cu", "bounce_ratio_est.cu",
                      "bounce_l1_ratio_est.cu")
 OPTIONS_SOURCES = ("bounce_opts.cu", "bounce_l1_opts.cu", "bounce_ratio_opts.cu",
@@ -2371,8 +2390,8 @@ PARENT_DEFAULT_SASS = {
 def bounce_instances(funcs):
     """{mangled name: (entry, template flags, SASS instructions)} of the
     bounce entries in a ``sass_functions`` map; the last flag is OPTS (0 the
-    default instance, 1 the options instance, 2 the estimator instance; a
-    bool before the estimator instances came)."""
+    default instance, 1 the options instance, 2 the estimator instance, 3
+    the floor instance; a bool before the estimator instances came)."""
     import re
 
     out = {}
@@ -2402,7 +2421,7 @@ def sass_counts():
     funcs = sass_functions(kernels.library()._name)
     inst = {entry: n for _, (entry, _, n) in sorted(bounce_instances(funcs).items())}
     ptxas = {src: ptxas_entries(kernels.ptxas_log.get(src, "")) for src in
-             OPTIONS_SOURCES + ESTIMATOR_SOURCES + ("bounce.cu", "bounce_l1.cu",
+             OPTIONS_SOURCES + ESTIMATOR_SOURCES + FLOOR_SOURCES + ("bounce.cu", "bounce_l1.cu",
                                                      "bounce_ratio.cu", "bounce_l1_ratio.cu")}
     print(json.dumps({"sass_counts": dict(package=os.path.dirname(os.path.abspath(pkg.__file__)),
                                           card=nvidia_smi_line(), instances=inst,
@@ -3165,10 +3184,239 @@ def check_estimator_knobs(torch, dev, atlas, luts, captured, tf):
     return rows
 
 
+# The march floors (render/params.FLOOR_OPTIONS): the reference's own
+# settings (tools/stage_bench.py) and cert_u0 beside the analytic flight. All
+# run the bounce entries' floor instances; the certified ones run the
+# land_march and preview floor instances too
+CERT_U0 = dict(march_certified_floor=True, march_uncert_floor_frac=1e-6)
+FLOOR_CASES = (
+    ("cert_u0", CERT_U0),
+    ("cert_u001", dict(march_certified_floor=True, march_uncert_floor_frac=0.001)),
+    ("cert25_u0", dict(march_certified_floor=True, march_floor_frac=0.25,
+                       march_uncert_floor_frac=1e-6)),
+    ("floor_sec01", dict(march_floor_frac_secondary=0.01)),
+    ("floor_pri05_sec005", dict(march_floor_frac=0.05, march_floor_frac_secondary=0.005)),
+    ("cert_u0, analytic_flight", dict(analytic_flight=True, **CERT_U0)),
+)
+FLOOR_SETTINGS = FLOOR_CASES[:5]
+
+
+def _bounce_bound(torch, trips, cfg, tf, part, m):
+    """(ms, "bytes" or "operations") of one half of a bounce from its
+    census ``trips``, as the options rows count it: the part's own sites'
+    operations, the lanes' bytes."""
+    other, alu, fma = bounce_ops(torch, trips, cfg.march_k, cfg.tracking_k, tf, part)
+    nbytes = (40 + 16) * m if part == "flight" else (BOUNCE_LANE_BYTES + 16) * m
+    return bound(nbytes, other + alu + fma, int_ops=alu, fma_ops=fma)
+
+
+def check_march_floors(torch, dev, atlas, luts, captured, tf):
+    """Phase 8f, the march floors at 1920x1080 on ``atlas``: the default
+    bounce instances' SASS against the parent's, the floor instances',
+    land_march's and preview's ptxas and occupancy; the land_march launcher
+    at each setting on phase 4's arguments (``captured``; the primary marches
+    at their bounce's floor, the shadow march at its own) against its twin,
+    every lane bit-equal, timed beside the default instance with its bound;
+    per case (FLOOR_CASES) and scene the floor instances against their
+    twin at bounces 0 and DEEP_BOUNCE and bounce_window against
+    run_window_plain from the bounce the frame enters it, every lane
+    bit-equal, bounce 0's two kernels on Apollo timed beside the default
+    instances with their bounds; the 480x270 preview at cert_u0 and at
+    cert25_u0 (phase 11's check on the floor instance: every lane
+    bit-equal); the cert_u0 path on Apollo under phase 6's gates, every
+    bounce launch the floor instances'; s/spp of each FLOOR_SETTINGS
+    setting against its scene's default (``spp_ratio``) on the three
+    scenes."""
+    from digital_earth_tpu_torch import kernels
+    from digital_earth_tpu_torch.app.config_io import load_config
+    from digital_earth_tpu_torch.app.viewer import render_offline
+    from digital_earth_tpu_torch.render import pathtracer as pt
+    from digital_earth_tpu_torch.render import tracers
+    from digital_earth_tpu_torch.render.params import TraceConfig
+
+    t_phase = time.time()
+    card = nvidia_smi_line()
+    check_default_sass(kernels)
+    for src in FLOOR_SOURCES + ("land_march.cu", "preview.cu"):
+        for name, (regs, stores, loads) in sorted(ptxas_entries(
+                kernels.ptxas_log.get(src, "")).items()):
+            print(f"ptxas {src} {name}: {regs} registers, spill stores {stores} B, loads {loads} B")
+    for name in kernels.OCCUPANCY_ENTRIES:
+        o = kernels.bounce_occupancy(name, options=kernels.INST_FLOORS)
+        print(f"occupancy {name}: floor instance {o['registers']} registers, "
+              f"{o['local_bytes']} B local, {o['warps_per_sm']} warps per SM")
+    o = kernels.preview_occupancy(options=2)
+    print(f"occupancy preview: floor instance {o['registers']} registers, {o['local_bytes']} B "
+          f"local, {o['warps_per_sm']} warps per SM")
+
+    # the land_march launcher at each setting on phase 4's arguments, under
+    # phase 7's gates as the default instance (whose twin on the card parts
+    # from it on a few lanes in a million where the texel rounds otherwise,
+    # ROADMAP C #2): the lanes not bit-equal printed beside the default's
+    def parting(got, want):
+        kh, ph = got >= 0, want >= 0
+        ok = (kh == ph) & (~(kh & ph) | _t_close(torch, got, want))
+        return int((got.view(torch.int32) != want.view(torch.int32)).sum()), ok
+
+    for (kind, b), (n_act, args, kwargs) in sorted(captured.items()):
+        if kind.split("/")[0] != "land_march":
+            continue
+        shadow = kind == "land_march/any_hit"
+        base = {k: v for k, v in kwargs.items() if k != "floor"}
+        dflt = tracers.intersect_land(*args, **base)
+        d_bits, _ = parting(dflt, tracers.intersect_land_plain(*args, **base))
+        n = args[1].shape[0]
+        b_ms, b_by = bound(args[0].numel() + 33 * n, None)
+        for label, options in FLOOR_SETTINGS:
+            cfg = TraceConfig(**options)
+            a = args[:5] + (cfg,) + args[6:]
+            kw = dict(base, floor=tracers._march_floor(a[0], cfg, None if shadow else b))
+            fn = kernels.land_march
+            _, d_ms = _time_ms(torch, lambda: tracers.intersect_land(*args, **base), 5)
+            before = fn.launches, fn.options_launches
+            got, ms = _time_ms(torch, lambda: tracers.intersect_land(*a, **kw), 5)
+            if (fn.launches - before[0], fn.options_launches - before[1]) != (
+                    6, 6 * int(cfg.march_certified_floor)):
+                fail(f"{kind} at {label}: not the instance its floors take")
+            want, plain_ms = _plain_ms(torch, lambda: tracers.intersect_land_plain(*a, **kw))
+            bits, lane_ok = parting(got, want)
+            err = float((got - want).abs().max()) if got.numel() else 0.0
+            ok = lane_ok.float().mean().item() >= MIN_LANE_AGREEMENT
+            moved = int((got != dflt).sum())
+            print(f"{kind} at {label}, bounce {b} ({n} lanes, {n_act} active, {card}): "
+                  f"{bits} lanes not bit-equal to the twin (the default instance at the default "
+                  f"{d_bits}), max abs err {err:.3e}, {moved} lanes moved from the default's; "
+                  f"kernel {ms:.3f} ms ({'floor' if cfg.march_certified_floor else 'default'} "
+                  f"instance), the default instance at the default {d_ms:.3f} ms, bound "
+                  f"{b_ms:.4f} ms ({b_by}); plain {plain_ms:.1f} ms  {'ok' if ok else 'FAIL'}")
+            if not ok:
+                fail(f"{kind} at {label} parts from its twin")
+
+    default_ms = {}
+    for label, options in FLOOR_CASES:
+        cfg = TraceConfig(**options)
+        for scene in (SCENE, FLORIDA, SUNSET):
+            name = os.path.basename(scene)[9:-4]
+            states, _, _ = capture_states(torch, dev, atlas, luts, scene=scene, cfg=cfg)
+            for b in (0, DEEP_BOUNCE):
+                if b not in states:
+                    print(f"floors {label} {name}: no live lane at bounce {b}")
+                    continue
+                c = states[b]
+                got, want, trips, cycles = _bounce_and_twin(torch, c, b)
+                _hold_lanes(torch, got, want, c["st"].work_class[c["idx"].long()],
+                            f"floors {label} {name} bounce {b}", exact=True)
+                print(f"census floors {label} {name} bounce {b}: {c['idx'].numel()} live; "
+                      f"{naive_census_text(torch, trips, range(kernels.BOUNCE_SITES))}; cycle "
+                      f"split {split_text(cycle_split(torch, cycles))}")
+                if b != 0 or scene != SCENE:
+                    continue
+                idx, st0, args = c["idx"], c["st"], c["args"]
+                frame = pt.BounceFrame(st0, *args)
+                ka = lambda s: pt._kernel_args(s, idx, 0, *args, frame)  # noqa: E731
+                flight = _one_launch(kernels.bounce_flight, options,
+                                     lambda: kernels.bounce_flight(*ka(_clone_state(st0))),
+                                     f"floors {label} {name}")
+                t_f = _bounce_ms(torch, st0, lambda s: kernels.bounce_flight(*ka(s)))
+                t_s = _bounce_ms(torch, st0, lambda s: kernels.bounce_shade(*ka(s), flight=flight))
+                m = idx.numel()
+                (f_b, f_by), (s_b, s_by) = (_bounce_bound(torch, trips, cfg, tf, part, m)
+                                            for part in ("flight", "shade"))
+                if not default_ms:
+                    st_d, _, _ = capture_states(torch, dev, atlas, luts, bounces=(0,))
+                    cd = st_d[0]
+                    fd = pt.BounceFrame(cd["st"], *cd["args"])
+                    kd = lambda s, cd=cd, fd=fd: pt._kernel_args(s, cd["idx"], 0,  # noqa: E731
+                                                                 *cd["args"], fd)
+                    fl = kernels.bounce_flight(*kd(_clone_state(cd["st"])))
+                    default_ms.update(
+                        flight=_bounce_ms(torch, cd["st"], lambda s: kernels.bounce_flight(*kd(s))),
+                        shade=_bounce_ms(torch, cd["st"],
+                                         lambda s: kernels.bounce_shade(*kd(s), flight=fl)))
+                    del st_d, cd, fl
+                d_f, d_s = default_ms["flight"], default_ms["shade"]
+                print(f"floors {label} {name} bounce 0 ({m} lanes, {card}): bounce_flight "
+                      f"{t_f:.3f} ms (bound {f_b:.4f}, {f_by}), bounce_shade {t_s:.3f} ms (bound "
+                      f"{s_b:.4f}, {s_by}) (floor instances); the default instances at the "
+                      f"default config {d_f:.3f}, {d_s:.3f} ms; flight x{t_f / d_f:.2f}, shade "
+                      f"x{t_s / d_s:.2f}")
+                del flight
+            bounces = sorted(states)
+            n = states[0]["st"].alive.numel()
+            counts = [states[b]["idx"].numel() for b in bounces] + [0]
+            _, wb = pt.bounce_schedule(n, counts, kernels.window_threshold(dev), 0,
+                                       cfg.max_bounces)
+            if wb is not None and wb in states:
+                c = states[wb]
+                idx, st0, args = c["idx"], c["st"], c["args"]
+                frame = pt.BounceFrame(st0, *args)
+                st = _clone_state(st0)
+                _one_launch(kernels.bounce_window, options,
+                            lambda: pt.run_window(st, idx, wb, cfg.max_bounces, *args, frame),
+                            f"floors {label} {name} bounce_window")
+                twin = _clone_state(st0)
+                pt.run_window_plain(twin, idx, wb, cfg.max_bounces, *args)
+                lanes = idx.long()
+                _hold_lanes(torch, st.take(lanes), twin.take(lanes), st0.work_class[lanes],
+                            f"floors {label} {name} bounce_window from bounce {wb}", exact=True)
+                if scene == SCENE:
+                    w_ms = _bounce_ms(torch, st0, lambda s: pt.run_window(
+                        s, idx, wb, cfg.max_bounces, *args, frame))
+                    print(f"floors {label} {name} bounce_window from bounce {wb} "
+                          f"({idx.numel()} lanes, {card}): {w_ms:.3f} ms")
+            else:
+                print(f"floors {label} {name}: the frame does not enter the window (live "
+                      f"counts {counts[:-1]})")
+            del states
+
+    # the preview at the certified floors, phase 11's check on the floor instance
+    for label, options in FLOOR_SETTINGS:
+        if not options.get("march_certified_floor") or label == "cert_u001":
+            continue
+        counts, prow, _ = preview_frame(torch, dev, atlas, luts, f"at {label}",
+                                        cfg=TraceConfig(**options))
+        if counts["preview/options"] != counts["preview"]:
+            fail(f"the preview frame at {label} did not launch the floor instance: {counts}")
+        row = prow["preview"]
+        p_b, p_by = bound(row["bytes"], row["ops"], row.get("sfu"))
+        print(f"preview floor instance at {label} ({card}): {row['ms']:.3f} ms, bound "
+              f"{p_b:.4f} ms ({p_by}), plain {row['plain_ms']:.1f} ms")
+
+    # the cert_u0 path through the public entry point, counts set to 0 just
+    # before it and read just after
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    r = render_offline(load_config(SCENE), dev, spp=1, image_res=RES, out_path=None, atlas=atlas,
+                       luts=luts, cfg=TraceConfig(**CERT_U0))
+    for _ in range(2):
+        r.accumulate()
+    img = r.fetch_image()
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    check_main_path(torch, counts, r, img, "cert_u0 path on Apollo 11")
+    if any(counts[f"{k}/options"] != counts[k] for k in
+           ("bounce_flight", "bounce_shade", "bounce_window")):
+        fail(f"a bounce launch of the cert_u0 path ran the default instance: {counts}")
+    del r, img
+
+    for scene in (SCENE, FLORIDA, SUNSET):
+        for label, options in FLOOR_SETTINGS:
+            make = lambda o: render_offline(load_config(scene), dev, spp=1,  # noqa: E731
+                                            image_res=RES, out_path=None, atlas=atlas, luts=luts,
+                                            cfg=TraceConfig(**o))
+            d, o, ratios = spp_ratio(torch, make({}), make(options))
+            print(f"floors s/spp {os.path.basename(scene)[9:-4]} {RES[0]}x{RES[1]} {label}: "
+                  f"{o:.5f} against the default's {d:.5f}, ratio median "
+                  f"{ratios[len(ratios) // 2]:.3f} (min-max {ratios[0]:.3f}-{ratios[-1]:.3f} "
+                  f"over {len(ratios)} alternated rounds of {SPP_RATIO_STEPS} spp; {card})")
+    print(f"phase 8f (the march floors): {time.time() - t_phase:.1f} s")
+
+
 def options_bench(torch, dev):
     """``--options-bench [DIR]``: the options instances' settings of phases
-    8c, 8d and 8e (OPTION_CASES, all seven on Apollo, the five on florida;
-    NAIVE_CASES and ESTIMATOR_SPP on Apollo) for the package imported from
+    8c, 8d, 8e and 8f (OPTION_CASES, all seven on Apollo, the five on florida;
+    NAIVE_CASES and ESTIMATOR_SPP on Apollo; FLOOR_SETTINGS on Apollo and
+    sunset) for the package imported from
     DIR, each setting whose options that package's TraceConfig has: bounce
     0's bounce_flight and bounce_shade ms (the options instances) and s/spp
     against its base (the scene's default, naive_tracking's the L = 1
@@ -3191,6 +3439,8 @@ def options_bench(torch, dev):
                 OPTION_CASES + ALL_SEVEN_CASES[:1] + FIVE_CASES[:1]]
     settings += [(label, options, base, SCENE) for label, options, base in NAIVE_CASES]
     settings += [(label, options, {}, SCENE) for label, options in ESTIMATOR_SPP]
+    settings += [(label, options, {}, s) for label, options in FLOOR_SETTINGS
+                 for s in (SCENE, SUNSET)]
     fields = TraceConfig.__dataclass_fields__
     for label, options, base, scene in settings:
         if not set(options) <= set(fields):
@@ -3938,7 +4188,7 @@ def check_preview(torch, args, kwargs, launches, where):
         return kernels.preview(
             frame.fparams, frame.iparams, key.tolist(), None, dirs, wl, kw["tile_index"],
             kw["lane"], atlas.topography, atlas.material, atlas.stars, luts.o3_crossec,
-            luts.srgb2spec, origin=pos[0].tolist(), **k)
+            luts.srgb2spec, origin=pos[0].tolist(), cert_floor=frame.cert_floor, **k)
 
     atmos_args, land_args = [], []
     originals = raymarcher.ray_march_atmos, raymarcher.intersect_land
@@ -3962,8 +4212,10 @@ def check_preview(torch, args, kwargs, launches, where):
         fail(f"the twin did not run three bounces: {len(atmos_args)} marches")
     n = want.numel()
     got, ms = _time_ms(torch, launch, 5)
-    options = takes_options(cfg.options())  # the options instance has no census
-    occ = kernels.preview_occupancy(options=options)
+    # the options and floor instances have no census
+    cert = frame.cert_floor is not None
+    options = takes_options(cfg.options()) or cert
+    occ = kernels.preview_occupancy(options=2 if cert else int(options))
     same = torch.equal(got.view(torch.int32), want.view(torch.int32))
     err = (got - want).abs().max().item()
     # the split of the kernel's time, by the test launchers on the same lanes
@@ -3971,14 +4223,15 @@ def check_preview(torch, args, kwargs, launches, where):
                    for a in atmos_args)
     from digital_earth_tpu_torch.render.tracers import _march_floor, march_options
 
-    step_floor, stall = _march_floor(atlas.topography, cfg)
+    step_floor, stall, cert_floor = _march_floor(atlas.topography, cfg)
     no_cap = torch.full((n,), float("inf"), device=dirs.device)
 
     def land_march(a):
         topo, p, d, _, act = a[:5]
         return kernels.land_march(topo, p, d, act, no_cap, frame.fparams[0], step_floor=step_floor,
-                                  stall_thresh=stall, steps=cfg.land_march_steps, k=cfg.march_k,
-                                  any_hit=False, **march_options(cfg))
+                                  stall_thresh=stall, cert_floor=cert_floor,
+                                  steps=cfg.land_march_steps, k=cfg.march_k, any_hit=False,
+                                  **march_options(cfg))
 
     land_ms = sum(_time_ms(torch, lambda a=a: land_march(a), 5)[1] for a, _ in land_args)
     active = [int(a[-1].sum()) for a in atmos_args]
@@ -5388,14 +5641,16 @@ def main():
     args = sys.argv[1:]
     mesh_only = args == ["--mesh-only"]
     estimator_only = args == ["--estimator-only"]
+    floors_only = args == ["--floors-only"]
     bench = args[:1] == ["--preview-bench"] and len(args) <= 2
     pbench = args[:1] == ["--path-bench"] and len(args) <= 2
     sbench = args[:1] == ["--spp-bench"] and len(args) <= 2
     obench = args[:1] == ["--options-bench"] and len(args) <= 2
     scount = args[:1] == ["--sass-counts"] and len(args) <= 2
-    if args and not (mesh_only or estimator_only or bench or pbench or sbench or obench
-                     or scount):
+    if args and not (mesh_only or estimator_only or floors_only or bench or pbench or sbench
+                     or obench or scount):
         fail(f"unknown arguments {args} (the options are --mesh-only, --estimator-only, "
+             "--floors-only, "
              "--preview-bench [DIR], --path-bench [DIR], --spp-bench [DIR], --options-bench "
              "[DIR] and --sass-counts [DIR])")
     try:
@@ -5466,6 +5721,15 @@ def main():
         del states, deepest, lookups, frame_end_whole
         rows = check_estimator_knobs(torch, dev, atlas, luts, captured, tf)
         print(json.dumps({"kernels": rows}))
+        print(nvidia_smi_line())
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return
+    if floors_only:
+        # phase 8f alone, on phase 4's capture
+        del states, deepest, lookups, frame_end_whole
+        check_march_floors(torch, dev, atlas, luts, captured, tf)
         print(nvidia_smi_line())
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -5550,6 +5814,7 @@ def main():
     rows.update(option_rows)
     rows.update(check_naive(torch, dev, atlas, luts, tf))
     rows.update(check_estimator_knobs(torch, dev, atlas, luts, captured, tf))
+    check_march_floors(torch, dev, atlas, luts, captured, tf)
     del captured
 
     # --- the viewer's path -------------------------------------------------

@@ -3,9 +3,10 @@
 // device code and the launchers are in bounce.cuh, which says what the
 // entries compute, what bounds them on the H100 and how they are built: the
 // other instances are in bounce_l1.cu, bounce_ratio.cu and
-// bounce_l1_ratio.cu, the options instances in their *_opts.cu twins and
-// the estimator instances in their *_est.cu twins. A launch takes the
-// instance its parameters ask for (ip[0], ip[15], ip[32]).
+// bounce_l1_ratio.cu, the options instances in their *_opts.cu twins, the
+// estimator instances in their *_est.cu twins and the floor instances in
+// their *_floor.cu twins. A launch takes the instance its parameters ask
+// for (ip[0], ip[15], ip[33]).
 #include "bounce.cuh"
 
 namespace de {
@@ -16,8 +17,8 @@ template int entry_occupancy<INST_DEFAULT>(int, int*);
 static bool is_flag(int v) { return v == 0 || v == 1; }
 
 // The parameters, the options and the instance that runs (INST_*).
-static int unpack_params(const float* fp, const int* ip, BounceParams& p, BounceOptionsEst& o,
-                         int& opts) {
+static int unpack_params(const float* fp, const int* ip, BounceParams& p,
+                         BounceOptionsFloors& o, int& opts) {
   p.scale = fp[0];
   p.step_floor = fp[1];
   p.stall_thresh = fp[2];
@@ -66,26 +67,41 @@ static int unpack_params(const float* fp, const int* ip, BounceParams& p, Bounce
   o.nee_w = fp[17];
   o.cloud_rr_keep = fp[18];
   o.cloud_w = fp[19];
-  opts = ip[32];
-  static const int flag_slots[] = {16, 17, 18, 19, 20, 21, 22, 23, 24, 25, 26, 28, 31};
+  o.cert = ip[32];
+  o.floor_first = fp[20];
+  o.stall_first = fp[21];
+  o.floor_past = fp[22];
+  o.stall_past = fp[23];
+  o.floor_uncert = fp[24];
+  opts = ip[33];
+  static const int flag_slots[] = {16, 17, 18, 19, 20, 21, 22, 23, 24, 25, 26, 28, 31, 32};
   for (int j : flag_slots) {
     if (!is_flag(ip[j])) return (int)cudaErrorInvalidValue;
   }
-  if (opts < INST_DEFAULT || opts > INST_ESTIMATOR || o.newton_iters < 0 ||
+  if (opts < INST_DEFAULT || opts > INST_FLOORS || o.newton_iters < 0 ||
       !(o.nee_rr_prob > 0.0f && o.nee_rr_prob <= 1.0f) ||
-      !(o.cloud_rr_keep > 0.0f && o.cloud_rr_keep <= 1.0f)) {
+      !(o.cloud_rr_keep > 0.0f && o.cloud_rr_keep <= 1.0f) || !(o.floor_first > 0.0f) ||
+      !(o.stall_first > 0.0f) || !(o.floor_past > 0.0f) || !(o.stall_past > 0.0f) ||
+      !(o.floor_uncert > 0.0f)) {
     return (int)cudaErrorInvalidValue;
   }
   // the default instances run the options' defaults only, the options
   // instances the estimator options' defaults only (the roulettes' start
-  // bounces and the Newton steps act only with their options)
+  // bounces and the Newton steps act only with their options), the
+  // estimator instances the march floors' defaults only
   const bool defaults = o.enable_clouds == 1 && o.mo.enable == 1 && o.mo.bilinear == 0 &&
                         o.lazy_march == 1 && o.mo.exact_ocean == 1 && o.mo.ref_phantom == 1 &&
                         o.naive_tracking == 0 && o.naive_march == 0 &&
                         o.naive_cloud_tracking == 0 && o.naive_shadow == 0;
   const bool est_defaults = o.analytic_flight == 0 && o.fast_loop_rng == 0 && o.nee_off == 0 &&
                             o.nee_rr_prob == 1.0f && o.cloud_rr_keep == 1.0f;
-  if ((opts == INST_DEFAULT && !defaults) || (opts != INST_ESTIMATOR && !est_defaults)) {
+  // (the march floors at their defaults: no certified floor, the primary
+  // marches' floor and stall threshold the shadow march's at every bounce)
+  const bool floor_defaults = o.cert == 0 && o.floor_first == p.step_floor &&
+                              o.floor_past == p.step_floor && o.stall_first == p.stall_thresh &&
+                              o.stall_past == p.stall_thresh;
+  if ((opts == INST_DEFAULT && !defaults) || (opts < INST_ESTIMATOR && !est_defaults) ||
+      (opts < INST_FLOORS && !floor_defaults)) {
     return (int)cudaErrorInvalidValue;
   }
   // the naive trackers are single-wavelength
@@ -97,7 +113,7 @@ static int unpack_params(const float* fp, const int* ip, BounceParams& p, Bounce
 // its options or estimator instance where they ask for it.
 template <int OPTS>
 static int launch_bounce(int entry, const BounceState& s, const BounceParams& p,
-                         const BounceOptionsEst& o, void* scratch, int stop,
+                         const BounceOptionsFloors& o, void* scratch, int stop,
                          cudaStream_t stream) {
   if (p.n_lambdas == 4) {
     return p.ratio ? launch_entry<4, true, OPTS>(entry, s, p, o, scratch, stop, stream)
@@ -108,8 +124,11 @@ static int launch_bounce(int entry, const BounceState& s, const BounceParams& p,
 }
 
 static int launch_bounce(int entry, const BounceState& s, const BounceParams& p,
-                         const BounceOptionsEst& o, int opts, void* scratch, int stop,
+                         const BounceOptionsFloors& o, int opts, void* scratch, int stop,
                          cudaStream_t stream) {
+  if (opts == INST_FLOORS) {
+    return launch_bounce<INST_FLOORS>(entry, s, p, o, scratch, stop, stream);
+  }
   if (opts == INST_ESTIMATOR) {
     return launch_bounce<INST_ESTIMATOR>(entry, s, p, o, scratch, stop, stream);
   }
@@ -119,14 +138,17 @@ static int launch_bounce(int entry, const BounceState& s, const BounceParams& p,
 
 }  // namespace de
 
-// fp (20 floats): scale, step_floor, stall_thresh, o3_env_peak,
+// fp (25 floats): scale, step_floor, stall_thresh (the shadow march's, and
+//     at the march floors' defaults every march's), o3_env_peak,
 //     light_direction[3], sun_cos_angle, solid_angle (of the sun's cone),
 //     offset_scale (1 + 1e-4 scale / 12000), planck_a, planck_b, planck_k,
 //     the gases' majorant densities[3] (read with ratio tracking); the
 //     estimator options nee_rr_prob, float32(1 / nee_rr_prob), cloud_rr_keep,
 //     float32(1 / cloud_rr_keep) (each in (0, 1], the reciprocals of the
-//     Python floats)
-// ip (33 ints): n_lambdas (L, 1 or 4), bounce, rr_start, land_march_steps,
+//     Python floats); the march floors: the primary marches' step floor and
+//     stall threshold at bounce 0, then past it, and the uncertified floor
+//     (each above 0)
+// ip (34 ints): n_lambdas (L, 1 or 4), bounce, rr_start, land_march_steps,
 //     march_k, march_patience, max_tracking_steps, tracking_k,
 //     bilinear_materials, topography H, W, material H, W, clouds H, W,
 //     ratio (1: the gases' sun transmittance by ratio tracking, the
@@ -136,8 +158,10 @@ static int launch_bounce(int entry, const BounceState& s, const BounceParams& p,
 //     naive_tracking (L = 1 only), naive_march, naive_cloud_tracking,
 //     naive_shadow (each 0 or 1); the estimator options analytic_flight,
 //     flight_newton_iters, fast_loop_rng, nee_rr_start, cloud_rr_start,
-//     nee_off; the instance (2: the estimator instance; 1: the options
-//     instance, which takes the estimator options' defaults only; 0: the
+//     nee_off; the certified floor march_certified_floor (0 or 1); the
+//     instance (3: the floor instance; 2: the estimator instance, which takes
+//     the march floors' defaults only; 1: the options instance, which
+//     takes the estimator options' and the march floors' defaults only; 0: the
 //     default, which takes every option's default only; every instance takes
 //     any march_patience, and the roulettes' start bounces and the Newton
 //     steps, which act only with their options)
@@ -171,7 +195,7 @@ static int launch_bounce(int entry, const BounceState& s, const BounceParams& p,
 extern "C" int de_bounce_flight(DE_BOUNCE_ARGS, void* scratch, int32_t* trips, long long* cycles,
                                 void* stream) {
   de::BounceParams p;
-  de::BounceOptionsEst o;
+  de::BounceOptionsFloors o;
   int opts;
   if (int rc = de::unpack_params(fp, ip, p, o, opts)) return rc;
   if (m <= 0) return (int)cudaGetLastError();
@@ -185,7 +209,7 @@ extern "C" int de_bounce_flight(DE_BOUNCE_ARGS, void* scratch, int32_t* trips, l
 extern "C" int de_bounce_shade(DE_BOUNCE_ARGS, const void* scratch, int32_t* trips,
                                long long* cycles, void* stream) {
   de::BounceParams p;
-  de::BounceOptionsEst o;
+  de::BounceOptionsFloors o;
   int opts;
   if (int rc = de::unpack_params(fp, ip, p, o, opts)) return rc;
   if (m <= 0) return (int)cudaGetLastError();
@@ -196,7 +220,7 @@ extern "C" int de_bounce_shade(DE_BOUNCE_ARGS, const void* scratch, int32_t* tri
 // Bounces [ip[1], stop) of the listed lanes in one launch.
 extern "C" int de_bounce_window(DE_BOUNCE_ARGS, int stop, void* stream) {
   de::BounceParams p;
-  de::BounceOptionsEst o;
+  de::BounceOptionsFloors o;
   int opts;
   if (int rc = de::unpack_params(fp, ip, p, o, opts)) return rc;
   if (m <= 0 || stop <= p.bounce) return (int)cudaGetLastError();
@@ -208,13 +232,14 @@ extern "C" int de_bounce_window(DE_BOUNCE_ARGS, int stop, void* stream) {
 // SM, threads per block, registers per thread, local memory bytes per
 // thread). which: 0 bounce_flight, 1 bounce_shade, 2 bounce_window, each
 // at L = 4 and the closed-form transmittance: the default instance (opts 0),
-// the options instance (1, bounce_opts.cu) or the estimator instance (2,
-// bounce_est.cu).
+// the options instance (1, bounce_opts.cu), the estimator instance (2,
+// bounce_est.cu) or the floor instance (3, bounce_floor.cu).
 extern "C" int de_bounce_occupancy(int which, int opts, int* out) {
   switch (opts) {
     case de::INST_DEFAULT: return de::entry_occupancy<de::INST_DEFAULT>(which, out);
     case de::INST_OPTIONS: return de::entry_occupancy<de::INST_OPTIONS>(which, out);
     case de::INST_ESTIMATOR: return de::entry_occupancy<de::INST_ESTIMATOR>(which, out);
+    case de::INST_FLOORS: return de::entry_occupancy<de::INST_FLOORS>(which, out);
     default: return (int)cudaErrorInvalidValue;
   }
 }

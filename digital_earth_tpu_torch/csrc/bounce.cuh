@@ -87,19 +87,35 @@
 // cloud_roulette); nee_off no sun NEE (the surface lanes occluded before
 // the shadow march, which no lane runs; no transmittance).
 //
+// The floor instances (OPTS = INST_FLOORS), a fourth set, run the
+// estimator instances' code and the march floors
+// (TraceConfig.march_certified_floor with march_uncert_floor_frac, and
+// march_floor_frac_secondary; pathtracer.py:1568-1578), behind ``if
+// constexpr (OPTS == INST_FLOORS)``, so the other instances' code stays as
+// it was (in the estimator instances the floors added about 1,100 SASS
+// instructions to each entry and slowed their flight about 2%, PERF.md): the
+// primary marches (the pre-march and the march after the flight) take their
+// floor and stall threshold at the bounce from the parameters
+// (primary_march_params: bounce 0's, or those past it), per bounce inside a
+// launch, so bounce_window takes each bounce's; the shadow march keeps
+// BounceParams' floor; and at the certified floor every accelerated march
+// runs land_march_warp's CERT instance (march_call_c) with the uncertified
+// floor. The naive marches have no floor.
+//
 // Entries, all over the same device functions flight_lane (1-3) and
 // shade_lane (4-7), so every entry gives the same bits. Each is built for
 // a packet of L = 4 wavelengths (the default) or L = 1 (TraceConfig.
 // hero_lambdas), and bounce_shade and bounce_window also for RATIO, so that
 // the default instances keep their code and registers, and each of these
-// (L, RATIO) sets again with OPTS, as options and as estimator instances.
-// Each (L, RATIO, OPTS) set of instances is built in a source of its own,
-// which nvcc compiles in parallel with the others: bounce.cu (4, closed
-// form), bounce_l1.cu (1, closed form), bounce_ratio.cu (4, ratio),
+// (L, RATIO) sets again with OPTS, as options, estimator and floor
+// instances. Each (L, RATIO, OPTS) set of instances is built in a source of
+// its own, which nvcc compiles in parallel with the others: bounce.cu (4,
+// closed form), bounce_l1.cu (1, closed form), bounce_ratio.cu (4, ratio),
 // bounce_l1_ratio.cu (1, ratio), their options sets bounce_opts.cu,
-// bounce_l1_opts.cu, bounce_ratio_opts.cu and bounce_l1_ratio_opts.cu, and
-// their estimator sets bounce_est.cu, bounce_l1_est.cu, bounce_ratio_est.cu
-// and bounce_l1_ratio_est.cu.
+// bounce_l1_opts.cu, bounce_ratio_opts.cu and bounce_l1_ratio_opts.cu, their
+// estimator sets bounce_est.cu, bounce_l1_est.cu, bounce_ratio_est.cu and
+// bounce_l1_ratio_est.cu, and their floor sets bounce_floor.cu,
+// bounce_l1_floor.cu, bounce_ratio_floor.cu and bounce_l1_ratio_floor.cu.
 //   - bounce_flight (steps 1-3, the outcome to a 16 B scratch entry per
 //     list entry) and bounce_shade (steps 4-7): one bounce of the wide
 //     wavefront. Split at the flight's end, the flight's loops run without
@@ -196,14 +212,25 @@ struct BounceOptionsEst : BounceOptions {
   float nee_rr_prob, nee_w, cloud_rr_keep, cloud_w;
 };
 
+// The march floors, which the floor instances read beside the others: cert
+// (march_certified_floor), the primary marches' step floor and stall
+// threshold at bounce 0 (first) and past it (past), and the uncertified
+// floor.
+struct BounceOptionsFloors : BounceOptionsEst {
+  int cert;
+  float floor_first, stall_first, floor_past, stall_past, floor_uncert;
+};
+
 // An instance's kind, the template argument OPTS: the default instances
 // (the options at their defaults, compiled in), the options instances (the
-// scene and march options and the naive arm read at run time) and the
-// estimator instances (those and the estimator options).
-enum { INST_DEFAULT = 0, INST_OPTIONS = 1, INST_ESTIMATOR = 2 };
+// scene and march options and the naive arm read at run time), the
+// estimator instances (those and the estimator options) and the floor
+// instances (those and the march floors).
+enum { INST_DEFAULT = 0, INST_OPTIONS = 1, INST_ESTIMATOR = 2, INST_FLOORS = 3 };
 
 // An options instance's kernel parameters: the default's, then the
-// options; an estimator instance's, the estimator options too. The default
+// options; an estimator instance's, the estimator options too; a floor
+// instance's, the march floors too. The default
 // instances take BounceParams alone: a larger parameter block changed their
 // SASS (28 B of padding added 6-122 instructions to the parent's entries),
 // so they keep its size, and the options instances keep theirs.
@@ -213,10 +240,14 @@ struct BounceParamsOpts : BounceParams {
 struct BounceParamsEst : BounceParams {
   BounceOptionsEst o;
 };
+struct BounceParamsFloors : BounceParams {
+  BounceOptionsFloors o;
+};
 template <int OPTS>
 using EntryParams = std::conditional_t<
-    OPTS == INST_ESTIMATOR, BounceParamsEst,
-    std::conditional_t<OPTS == INST_OPTIONS, BounceParamsOpts, BounceParams>>;
+    OPTS == INST_FLOORS, BounceParamsFloors,
+    std::conditional_t<OPTS == INST_ESTIMATOR, BounceParamsEst,
+                       std::conditional_t<OPTS == INST_OPTIONS, BounceParamsOpts, BounceParams>>>;
 
 // The options an entry reads: its parameters' (OPTS), or none (the default
 // instances read no option).
@@ -226,9 +257,14 @@ __device__ __forceinline__ const BounceOptions* entry_options(const EntryParams<
   else return nullptr;
 }
 
-// The estimator options of an estimator instance's ``op``.
+// The estimator options of an estimator or floor instance's ``op``.
 __device__ __forceinline__ const BounceOptionsEst* est(const BounceOptions* op) {
   return static_cast<const BounceOptionsEst*>(op);
+}
+
+// The march floors of a floor instance's ``op``.
+__device__ __forceinline__ const BounceOptionsFloors* floors(const BounceOptions* op) {
+  return static_cast<const BounceOptionsFloors*>(op);
 }
 
 struct BounceState {
@@ -312,6 +348,14 @@ static __device__ __noinline__ float march_call_o(const uint8_t* __restrict__ to
   return land_march_warp<true>(topo, p, o, d, act, cap, iters, &mo);
 }
 
+// The march at the certified floor (land_march.cuh CERT), called by the
+// floor instances only.
+static __device__ __noinline__ float march_call_c(const uint8_t* __restrict__ topo, MarchParams p,
+                                                  MarchOpts mo, float uncert, V3 o, V3 d,
+                                                  bool act, float cap, int* iters) {
+  return land_march_warp<true, true>(topo, p, o, d, act, cap, iters, &mo, uncert);
+}
+
 // The naive arm's loops (naive.cuh), called by the options instances only.
 static __device__ __noinline__ float naive_march_call(const uint8_t* __restrict__ topo,
                                                       MarchParams p, bool bilinear, V3 o, V3 d,
@@ -351,12 +395,13 @@ static __device__ __noinline__ float naive_cloud_ratio_call(Key key, V3 o, V3 d,
 // estimator instances at the shadow march under nee_off an occlusion, no
 // trips). OPTS: the
 // plain sphere march, which takes no cap, under naive_march or
-// naive_tracking, and at the shadow march under naive_shadow.
+// naive_tracking, and at the shadow march under naive_shadow; in the
+// floor instances at the certified floor the CERT march.
 template <bool COUNT, int OPTS>
 __device__ __forceinline__ float march(const uint8_t* __restrict__ topo, const MarchParams& p,
                                        const BounceOptions* op, V3 o, V3 d, bool act, float cap,
                                        int* trips, int site) {
-  if constexpr (OPTS == INST_ESTIMATOR) {
+  if constexpr (OPTS >= INST_ESTIMATOR) {
     if (site == SITE_SHADOW && est(op)->nee_off) {  // "occluded": no sun NEE
       if (COUNT && trips) trips[site] = 0;
       return 1.0f;
@@ -376,6 +421,12 @@ __device__ __forceinline__ float march(const uint8_t* __restrict__ topo, const M
     if (op->naive_march || op->naive_tracking || (site == SITE_SHADOW && op->naive_shadow)) {
       return naive_march_call(topo, p, op->mo.bilinear != 0, o, d, act,
                               COUNT && trips ? trips + site : nullptr);
+    }
+    if constexpr (OPTS == INST_FLOORS) {
+      if (floors(op)->cert) {
+        return march_call_c(topo, p, op->mo, floors(op)->floor_uncert, o, d, act, cap,
+                            COUNT && trips ? trips + site : nullptr);
+      }
     }
     return march_call_o(topo, p, op->mo, o, d, act, cap, COUNT && trips ? trips + site : nullptr);
   } else if constexpr (COUNT) {
@@ -464,7 +515,7 @@ __device__ __forceinline__ CloudOut cloud(Key key, V3 o, V3 d, float t0, float t
       return naive_cloud(key, o, d, t0, t1, ew, s, p, ratio, COUNT ? trips + site : nullptr,
                          op->mo.bilinear != 0);
     }
-    if constexpr (OPTS == INST_ESTIMATOR) {
+    if constexpr (OPTS >= INST_ESTIMATOR) {
       if (est(op)->fast_loop_rng) {
         return cloud_call_f(key, o, d, t0, t1, ew, s.clouds, p.clouds_h, p.clouds_w,
                             p.tracking_steps, p.tracking_k, ratio,
@@ -525,7 +576,7 @@ __device__ __forceinline__ void rmo_flight(const BounceState& s, const BouncePar
                                            float t_start, float rmo_cap, float e0, float e1,
                                            float e2, int& rmo_event, float& rmo_t, int& rmo_id,
                                            int* trips) {
-  if constexpr (OPTS == INST_ESTIMATOR) {
+  if constexpr (OPTS >= INST_ESTIMATOR) {
     if (est(op)->analytic_flight) {
       const NaiveEvent g = flight_analytic_call(s.table, key, pos, dir, t_start, rmo_cap, e0, e1,
                                                 e2, est(op)->newton_iters,
@@ -558,7 +609,7 @@ __device__ __forceinline__ void nee_rmo_ratio(const BounceParams& p, const Bounc
                                               Key key, V3 o, V3 d, float t_start, float tm,
                                               const float (&ext)[L][3], float max_ext,
                                               float (&trans)[L], int* trips) {
-  if constexpr (OPTS == INST_ESTIMATOR) {
+  if constexpr (OPTS >= INST_ESTIMATOR) {
     if (est(op)->fast_loop_rng && !op->naive_tracking) {
       rmo_ratio_call_f<L>(key, o, d, t_start, tm, ext, max_ext, p.tracking_steps, p.tracking_k,
                           trans, COUNT ? trips + SITE_NEE_RMO : nullptr);
@@ -576,7 +627,7 @@ __device__ __forceinline__ void nee_rmo_ratio(const BounceParams& p, const Bounc
 template <int OPTS>
 __device__ __forceinline__ void nee_gate(const BounceOptions* op, int bounce, Key kb,
                                          bool& vol_nee, bool& sur_nee) {
-  if constexpr (OPTS == INST_ESTIMATOR) {
+  if constexpr (OPTS >= INST_ESTIMATOR) {
     const BounceOptionsEst* e = est(op);
     if (e->nee_off) {
       vol_nee = sur_nee = false;
@@ -593,7 +644,7 @@ __device__ __forceinline__ void nee_gate(const BounceOptions* op, int bounce, Ke
 template <int OPTS, int L>
 __device__ __forceinline__ void nee_weight(const BounceOptions* op, int bounce,
                                            float (&trans)[L]) {
-  if constexpr (OPTS == INST_ESTIMATOR) {
+  if constexpr (OPTS >= INST_ESTIMATOR) {
     const BounceOptionsEst* e = est(op);
     if (e->nee_rr_prob < 1.0f && bounce > e->nee_rr_start) {
 #pragma unroll
@@ -610,7 +661,7 @@ template <int OPTS, int L>
 __device__ __forceinline__ void cloud_roulette(const BounceOptions* op, int bounce, Key kb,
                                                bool scatter, int iid, bool& alive,
                                                float (&thr)[L]) {
-  if constexpr (OPTS == INST_ESTIMATOR) {
+  if constexpr (OPTS >= INST_ESTIMATOR) {
     const BounceOptionsEst* e = est(op);
     if (e->cloud_rr_keep < 1.0f && bounce >= e->cloud_rr_start && alive && scatter &&
         (iid == 3 || iid == 4)) {
@@ -660,6 +711,21 @@ __device__ __forceinline__ float clamp_min(float x, float lo) {
 __device__ __forceinline__ MarchParams march_params(const BounceParams& p) {
   return MarchParams{p.topo_h, p.topo_w, p.scale, p.step_floor, p.stall_thresh, p.march_steps,
                      p.march_k, p.patience, 0};
+}
+
+// The primary marches' parameters at ``bounce``: the floor instances take
+// the march floors' step floor and stall threshold at bounce 0 or past it;
+// the others the shadow march's (march_params).
+template <int OPTS>
+__device__ __forceinline__ MarchParams primary_march_params(const BounceParams& p,
+                                                           const BounceOptions* op, int bounce) {
+  MarchParams mp = march_params(p);
+  if constexpr (OPTS == INST_FLOORS) {
+    const BounceOptionsFloors* e = floors(op);
+    mp.step_floor = bounce > 0 ? e->floor_past : e->floor_first;
+    mp.stall_thresh = bounce > 0 ? e->stall_past : e->stall_first;
+  }
+  return mp;
 }
 
 __device__ __forceinline__ float cloud_ext_w(int bounce) {
@@ -745,7 +811,7 @@ __device__ __forceinline__ Flight flight_lane(const BounceState& s, const Bounce
   const float inf = __int_as_float(0x7f800000);
   const float ext_w = cloud_ext_w(bounce);
   const float scale = p.scale;
-  const MarchParams mp = march_params(p);
+  const MarchParams mp = primary_march_params<OPTS>(p, op, bounce);
   const bool first = OPTS && !op->lazy_march;  // uniform over the launch
 
   // 2. march on demand
@@ -1181,11 +1247,12 @@ enum { ENTRY_FLIGHT, ENTRY_SHADE, ENTRY_WINDOW };
 // declare it extern below.
 template <int L, bool RATIO, int OPTS>
 int launch_entry(int entry, const BounceState& s, const BounceParams& bp,
-                 const BounceOptionsEst& o, void* scratch, int stop, cudaStream_t stream) {
+                 const BounceOptionsFloors& o, void* scratch, int stop, cudaStream_t stream) {
   EntryParams<OPTS> p;
   static_cast<BounceParams&>(p) = bp;
   if constexpr (OPTS == INST_OPTIONS) p.o = static_cast<const BounceOptions&>(o);
-  if constexpr (OPTS == INST_ESTIMATOR) p.o = o;
+  if constexpr (OPTS == INST_ESTIMATOR) p.o = static_cast<const BounceOptionsEst&>(o);
+  if constexpr (OPTS == INST_FLOORS) p.o = o;
   if (entry == ENTRY_FLIGHT) {
     if constexpr (RATIO) {
       return (int)cudaErrorInvalidValue;
@@ -1244,10 +1311,11 @@ int entry_occupancy(int which, int* out) {
 extern template int entry_occupancy<INST_DEFAULT>(int, int*);
 extern template int entry_occupancy<INST_OPTIONS>(int, int*);
 extern template int entry_occupancy<INST_ESTIMATOR>(int, int*);
+extern template int entry_occupancy<INST_FLOORS>(int, int*);
 
 #define DE_BOUNCE_INSTANCE(L, RATIO, OPTS)                                               \
   template int launch_entry<L, RATIO, OPTS>(int, const BounceState&, const BounceParams&, \
-                                            const BounceOptionsEst&, void*, int, cudaStream_t)
+                                            const BounceOptionsFloors&, void*, int, cudaStream_t)
 extern DE_BOUNCE_INSTANCE(4, false, INST_DEFAULT);
 extern DE_BOUNCE_INSTANCE(1, false, INST_DEFAULT);
 extern DE_BOUNCE_INSTANCE(4, true, INST_DEFAULT);
@@ -1260,5 +1328,9 @@ extern DE_BOUNCE_INSTANCE(4, false, INST_ESTIMATOR);
 extern DE_BOUNCE_INSTANCE(1, false, INST_ESTIMATOR);
 extern DE_BOUNCE_INSTANCE(4, true, INST_ESTIMATOR);
 extern DE_BOUNCE_INSTANCE(1, true, INST_ESTIMATOR);
+extern DE_BOUNCE_INSTANCE(4, false, INST_FLOORS);
+extern DE_BOUNCE_INSTANCE(1, false, INST_FLOORS);
+extern DE_BOUNCE_INSTANCE(4, true, INST_FLOORS);
+extern DE_BOUNCE_INSTANCE(1, true, INST_FLOORS);
 
 }  // namespace de

@@ -19,6 +19,17 @@
 // patience is MarchParams::patience in both). OPTS false compiles them in at
 // their defaults (land, nearest taps, the ocean root, the phantom crawl), the
 // code of the default instances.
+//
+// CERT (a template parameter beside OPTS): the certified floor
+// (TraceConfig.march_certified_floor, pathtracer.py:381-405). A probe whose
+// hop [ts, ts + step_floor] provably clears one of the three regional bound
+// spheres whose validity radius exceeds the floor (the ray's least radius
+// over the hop from the shared quadratic) steps by the floor; any other by
+// ``uncert`` (march_uncert_floor_frac of a texel arc), which is also the
+// stride's floor. The host passes the stall threshold as a quarter of
+// ``uncert`` and keeps step_floor the initial stride. CERT false compiles
+// none of it: the default and options instances keep their code. Each probe
+// is certified on the thread that takes it.
 #pragma once
 #include <cstdint>
 
@@ -66,12 +77,13 @@ struct Probe {
 
 // OPTS: the options ``mo``: bilinear taps (the twin's sample_sphere_texture
 // as it rounds on the card, texture.cuh sphere_tap) where mo->bilinear, the
-// ocean root only where mo->exact_ocean.
-template <bool OPTS = false>
+// ocean root only where mo->exact_ocean. CERT: the certified floor, with
+// ``uncert`` the uncertified floor.
+template <bool OPTS = false, bool CERT = false>
 __device__ __forceinline__ Probe march_probe(const uint8_t* __restrict__ topo,
                                              const MarchParams& p, V3 o, V3 d, float ts,
                                              float stride, float miss_beyond,
-                                             const MarchOpts* mo = nullptr) {
+                                             const MarchOpts* mo = nullptr, float uncert = 0.0f) {
   const float valid3[3] = {25e3f, 115e3f, 8e3f};
   const V3 ro = along(o, ts, d);
   float s[4];
@@ -91,6 +103,14 @@ __device__ __forceinline__ Probe march_probe(const uint8_t* __restrict__ topo,
   const float p_near = pdisc < 0.0f ? -1.0f : -b - sqrtf(fmaxf(pdisc, 0.0f));
   float s_region = 0.0f;
   bool ocean_hit = false;
+  // CERT: the hop's least squared radius: at its start while ascending, at
+  // its end while descending throughout, the perigee's otherwise
+  float min_r2 = 0.0f;
+  bool cert = false;
+  if constexpr (CERT) {
+    const float b_end = b + p.step_floor;
+    min_r2 = h2b + (b >= 0.0f ? b * b : (b_end <= 0.0f ? b_end * b_end : 0.0f));
+  }
 #pragma unroll
   for (int m = 0; m < 3; ++m) {
     const float mip = s[1 + m];
@@ -104,12 +124,19 @@ __device__ __forceinline__ Probe march_probe(const uint8_t* __restrict__ topo,
                      : (far_ < 0.0f ? valid3[m] : 0.0f);
     s_region = m == 0 ? skip : fmaxf(s_region, skip);
     ocean_hit = ocean_hit || ((mip <= 0.0f) && (p_near > 0.0f) && (p_near <= valid3[m]));
+    if constexpr (CERT) {
+      cert = cert || ((min_r2 > r_bound * r_bound) && (p.step_floor < valid3[m]));
+    }
   }
   if constexpr (OPTS) {
     if (!mo->exact_ocean) ocean_hit = false;
   }
   Probe q;
-  q.step = f < 0.0f ? f : fmaxf(fmaxf(f, s_region), p.step_floor);
+  if constexpr (CERT) {
+    q.step = f < 0.0f ? f : fmaxf(fmaxf(f, s_region), cert ? p.step_floor : uncert);
+  } else {
+    q.step = f < 0.0f ? f : fmaxf(fmaxf(f, s_region), p.step_floor);
+  }
   bool converged = fabsf(f) < ts * 1e-4f;
   float t_conv = converged ? ts : ts + p_near;
   converged = converged || ocean_hit;
@@ -132,11 +159,11 @@ struct MarchState {
 };
 
 // One iteration's update from q, its first stopping probe (any_stop), else
-// its last probe.
+// its last probe; the stride's floor is ``stride_floor``.
 __device__ __forceinline__ void march_advance(MarchState& m, const MarchParams& p, bool any_stop,
-                                              const Probe& q) {
+                                              const Probe& q, float stride_floor) {
   const float t_new = (any_stop && (q.conv || q.out)) ? q.t_stop : q.t_stop + q.step;
-  const float stride_new = fmaxf(q.step, p.step_floor);
+  const float stride_new = fmaxf(q.step, stride_floor);
   const bool newly_done = any_stop && (q.conv || q.out);
   if (any_stop && q.out && !q.conv) m.missed = true;
   const float t_next = newly_done ? q.t_stop : t_new;
@@ -200,12 +227,14 @@ constexpr unsigned MARCH_FULL_WARP = 0xffffffffu;
 // operations on the same operands: a lane's chain shortens from its probes
 // to its iterations where the warp has threads to spare, and a warp of
 // marching lanes only runs one thread per lane as before. The phantom
-// crawl, a serial chain, stays with the lane's own thread.
-template <bool OPTS = false>
+// crawl, a serial chain, stays with the lane's own thread. CERT: the
+// certified floor, ``uncert`` the uncertified floor (the header's comment).
+template <bool OPTS = false, bool CERT = false>
 __device__ __forceinline__ float land_march_warp(const uint8_t* __restrict__ topo,
                                                  const MarchParams& p, V3 o, V3 d, bool act,
                                                  float cap, int* iters = nullptr,
-                                                 const MarchOpts* mo = nullptr) {
+                                                 const MarchOpts* mo = nullptr,
+                                                 float uncert = 0.0f) {
   if constexpr (OPTS) {
     if (!mo->enable) {  // uniform over the launch
       if (iters) *iters = 0;
@@ -241,8 +270,8 @@ __device__ __forceinline__ float land_march_warp(const uint8_t* __restrict__ top
       Probe q{0.0f, 0.0f, false, false, false};
       if (!m.done) {
         for (int j = sub * per; j < (sub + 1) * per; ++j) {
-          q = march_probe<OPTS>(topo, p, so, sd, m.t + (float)j * m.stride, m.stride,
-                                miss_beyond, mo);
+          q = march_probe<OPTS, CERT>(topo, p, so, sd, m.t + (float)j * m.stride, m.stride,
+                                      miss_beyond, mo, uncert);
           if (q.stop) break;
         }
       }
@@ -259,7 +288,7 @@ __device__ __forceinline__ float land_march_warp(const uint8_t* __restrict__ top
       }
       if (!m.done) {
         ++m.it;
-        march_advance(m, p, first.stop, first);
+        march_advance(m, p, first.stop, first, CERT ? uncert : p.step_floor);
       }
     }
     const int back = mine >= 0 ? mine * T : lane;

@@ -51,11 +51,15 @@
 // eager glue's thousands of element-wise launches per frame.
 //
 // Instances: the default (the march's options compiled in at their
-// defaults), its census instance, and the options instance (OPTS), whose
+// defaults), its census instance, the options instance (OPTS), whose
 // land and shadow marches read TraceConfig.enable_land, bilinear_tracking,
 // march_exact_ocean and march_ref_phantom at run time (land_march.cuh; the
-// stall patience is a parameter of every instance).
+// stall patience is a parameter of every instance), and the floor instance
+// (OPTS and CERT), whose marches also take the certified floor
+// (TraceConfig.march_certified_floor; land_march.cuh CERT) with the
+// uncertified floor of its parameters.
 #include <cstdint>
+#include <type_traits>
 
 #include <cuda_runtime.h>
 
@@ -86,6 +90,21 @@ struct PreviewParams {
   MarchOpts mo;  // the options instance's
 };
 
+// The floor instance's parameters: the others', then the uncertified floor
+// (the default and options instances keep their parameters' size).
+struct PreviewParamsCert : PreviewParams {
+  float uncert;
+};
+template <bool CERT>
+using PreviewParamsOf = std::conditional_t<CERT, PreviewParamsCert, PreviewParams>;
+
+// The uncertified floor of an instance's parameters (CERT), else none.
+template <bool CERT>
+__device__ __forceinline__ float uncert_floor(const PreviewParamsOf<CERT>& p) {
+  if constexpr (CERT) return p.uncert;
+  else return 0.0f;
+}
+
 struct PreviewArgs {
   const float* pos;  // null: every lane starts at PreviewParams::origin
   const float* dir;
@@ -112,9 +131,11 @@ __device__ __forceinline__ const MarchOpts* options(const PreviewParams& p) {
 // CENSUS: the census instance, which also writes each lane's clock64 cycles
 // in the land and shadow march calls (which every thread of the warp makes),
 // in the march and in all (a.cycles); the
-// timed instances compile without it. OPTS: the options instance.
-template <bool CENSUS = false, bool OPTS = false>
-__global__ void __launch_bounds__(PREVIEW_BLOCK) preview_kernel(PreviewArgs a, PreviewParams p) {
+// timed instances compile without it. OPTS: the options instance; CERT
+// (with OPTS): the floor instance.
+template <bool CENSUS = false, bool OPTS = false, bool CERT = false>
+__global__ void __launch_bounds__(PREVIEW_BLOCK)
+    preview_kernel(PreviewArgs a, PreviewParamsOf<CERT> p) {
   long long t_land = 0, t_march = 0, t_all = 0, c = 0;
   if constexpr (CENSUS) t_all = clock64();
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
@@ -174,8 +195,9 @@ __global__ void __launch_bounds__(PREVIEW_BLOCK) preview_kernel(PreviewArgs a, P
     }
     // the land march, every thread of the warp (-1 where a lane does not march)
     if constexpr (CENSUS) c = clock64();
-    const float earth =
-        land_march_warp<OPTS>(a.topo, mp, pos, dir, crossing, no_cap, nullptr, options<OPTS>(p));
+    const float earth = land_march_warp<OPTS, CERT>(a.topo, mp, pos, dir, crossing, no_cap,
+                                                    nullptr, options<OPTS>(p),
+                                                    uncert_floor<CERT>(p));
     if constexpr (CENSUS) t_land += clock64() - c;
     if (crossing) t_max = earth > 0.0f ? earth : a_far;
     float in_scatter = 0.0f, trans = 1.0f;
@@ -198,8 +220,9 @@ __global__ void __launch_bounds__(PREVIEW_BLOCK) preview_kernel(PreviewArgs a, P
     }
     // the shadow march, every thread of the warp
     if constexpr (CENSUS) c = clock64();
-    const float shadow = land_march_warp<OPTS>(a.topo, mp, offset_pos, light_dir, surface, no_cap,
-                                               nullptr, options<OPTS>(p));
+    const float shadow = land_march_warp<OPTS, CERT>(a.topo, mp, offset_pos, light_dir, surface,
+                                                     no_cap, nullptr, options<OPTS>(p),
+                                                     uncert_floor<CERT>(p));
     if constexpr (CENSUS) t_land += clock64() - c;
     if (!surface) continue;
 
@@ -242,17 +265,20 @@ __global__ void __launch_bounds__(PREVIEW_BLOCK) preview_kernel(PreviewArgs a, P
 
 }  // namespace de
 
-// fp (22 floats): scale, step_floor, stall_thresh, light_direction[3],
+// fp (23 floats): scale, step_floor, stall_thresh, light_direction[3],
 //     sun_cos_angle, solid_angle (of the sun's cone), offset_scale
 //     (1 + 1e-4 scale / 12000), planck_a, planck_b, planck_k,
 //     sun_temperature, nightlight_temperature, nightlight_scale, stars_scale,
-//     rayleigh_albedo, aerosol_albedo, rayl_k, mie_e, two_pi, log_term
-// ip (16 ints): land_march_steps, march_k, march_patience,
+//     rayleigh_albedo, aerosol_albedo, rayl_k, mie_e, two_pi, log_term,
+//     the uncertified floor (read by the floor instance)
+// ip (17 ints): land_march_steps, march_k, march_patience,
 //     bilinear_materials, tile (lanes per tile), topography H, W, material H,
 //     W, stars H, W; the march options enable_land, bilinear_tracking,
-//     march_exact_ocean, march_ref_phantom (each 0 or 1); the instance (1:
-//     the options instance; 0: the default, which takes the options'
-//     defaults only; every instance takes any march_patience)
+//     march_exact_ocean, march_ref_phantom (each 0 or 1); the certified
+//     floor (0 or 1: with it the floor instance runs, fp[22] the uncertified
+//     floor and step_floor the certified hop); the instance (1: the options
+//     instance; 0: the default, which takes the options' defaults only;
+//     every instance takes any march_patience)
 // cycles: null, or (n, 3) int64 for the census instance: each lane's
 // clock64 cycles in its land and shadow marches, in the march
 // and in all.
@@ -301,10 +327,13 @@ extern "C" int de_preview(const float* fp, const int* ip, uint32_t k0, uint32_t 
   p.stars_w = ip[10];
   p.key = de::Key{k0, k1};
   p.mo = de::MarchOpts{ip[11], ip[12], ip[13], ip[14]};
-  const int opts = ip[15];
-  for (int j = 11; j <= 15; ++j) {
+  const int cert = ip[15];
+  const int opts = ip[16];
+  for (int j = 11; j <= 16; ++j) {
     if (ip[j] != 0 && ip[j] != 1) return (int)cudaErrorInvalidValue;
   }
+  // the floor instance takes the options too, and a floor above 0
+  if (cert && !(opts && fp[22] > 0.0f)) return (int)cudaErrorInvalidValue;
   if (!opts && !(p.mo.enable == 1 && p.mo.bilinear == 0 && p.mo.exact_ocean == 1 &&
                  p.mo.ref_phantom == 1))
     return (int)cudaErrorInvalidValue;  // the default instance runs the defaults only
@@ -315,19 +344,27 @@ extern "C" int de_preview(const float* fp, const int* ip, uint32_t k0, uint32_t 
   if (n > 0) {
     const int blocks = (n + de::PREVIEW_BLOCK - 1) / de::PREVIEW_BLOCK;
     cudaStream_t st = (cudaStream_t)stream;
-    if (cycles) de::preview_kernel<true><<<blocks, de::PREVIEW_BLOCK, 0, st>>>(a, p);
-    else if (opts) de::preview_kernel<false, true><<<blocks, de::PREVIEW_BLOCK, 0, st>>>(a, p);
+    if (cycles) {
+      de::preview_kernel<true><<<blocks, de::PREVIEW_BLOCK, 0, st>>>(a, p);
+    } else if (cert) {
+      de::PreviewParamsCert pc;
+      static_cast<de::PreviewParams&>(pc) = p;
+      pc.uncert = fp[22];
+      de::preview_kernel<false, true, true><<<blocks, de::PREVIEW_BLOCK, 0, st>>>(a, pc);
+    } else if (opts) de::preview_kernel<false, true><<<blocks, de::PREVIEW_BLOCK, 0, st>>>(a, p);
     else de::preview_kernel<><<<blocks, de::PREVIEW_BLOCK, 0, st>>>(a, p);
   }
   return (int)cudaGetLastError();
 }
 
-// Occupancy of the preview kernel, the default instance or with opts the
-// options instance: out = (resident blocks per SM, threads per block,
-// registers per thread, local memory bytes per thread).
+// Occupancy of the preview kernel, the default instance (opts 0), the
+// options instance (1) or the floor instance (2): out = (resident blocks
+// per SM, threads per block, registers per thread, local memory bytes per
+// thread).
 extern "C" int de_preview_occupancy(int opts, int* out) {
-  const void* fn = opts ? (const void*)de::preview_kernel<false, true>
-                        : (const void*)de::preview_kernel<>;
+  const void* fn = opts == 2   ? (const void*)de::preview_kernel<false, true, true>
+                   : opts == 1 ? (const void*)de::preview_kernel<false, true>
+                               : (const void*)de::preview_kernel<>;
   int blocks = 0;
   cudaError_t rc =
       cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, de::PREVIEW_BLOCK, 0);

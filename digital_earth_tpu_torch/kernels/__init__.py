@@ -32,7 +32,11 @@ the analytic flight, whose launcher is ``flight_analytic``; the
 counter-hash draws, whose launcher is ``fast_uniform_check``; the NEE and
 cloud roulettes; no NEE) run in the bounce entries' estimator instances, a
 set of their own that also takes the other options (counted as options
-launches too). The tracker launchers ``rmo_delta_track``,
+launches too). The march floors (the certified floor and a secondary
+floor, ``BOUNCE_FLOOR_FLOATS``) run in a fourth set, the floor instances,
+which also take the estimator options, and ``land_march`` and ``preview``
+take the certified floor in a floor instance of their own (``cert_floor``);
+each counted as an options launch. The tracker launchers ``rmo_delta_track``,
 ``rmo_ratio_track`` and ``cloud_track`` have instances that draw the
 counter hash (``fast_rng``), counted as their options launches.
 
@@ -76,9 +80,10 @@ _BOUNCE_ARGS = [_P] * 15 + [_I, _I] + [_P] * 6
 _SIGNATURES = {
     # topo, H, W, pos, dir, active, t_cap, out, n, scale, step_floor,
     # stall_thresh, steps, k, patience, any_hit, the options instance,
-    # enable_land, bilinear, exact_ocean, ref_phantom, stream
+    # enable_land, bilinear, exact_ocean, ref_phantom, the certified floor,
+    # the uncertified floor, stream
     "de_land_march": [_P, _I, _I, _P, _P, _P, _P, _P, _I, _F, _F, _F,
-                      _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+                      _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
     # keys, pos, dir, t_start, t_max, ext_h, active, event, t, iid, n,
     # max_steps, k, o3_env_peak, fast (the options instance), stream
     "de_rmo_delta_track": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
@@ -297,17 +302,22 @@ def _check_march_k(k: int):
 def land_march(topo, pos, direction, active, t_cap, scale: float, *,
                step_floor: float, stall_thresh: float, steps: int, k: int,
                patience: int, any_hit: bool, enable: bool = True, bilinear: bool = False,
-               exact_ocean: bool = True, ref_phantom: bool = True, options: bool = False):
+               exact_ocean: bool = True, ref_phantom: bool = True, cert_floor: float = None,
+               options: bool = False):
     """Launch ``land_march`` (csrc/land_march.cu): (n,) hit distance, -1 on
     a miss. The march gives each marching lane ``k`` threads of its warp:
     ``k`` must divide 32. The march's options (``enable`` False: no land,
     every ray misses; ``bilinear`` taps; the exact ocean root; the phantom
     crawl) or ``options`` launch the options instance; every instance takes
-    any ``patience``."""
+    any ``patience``. ``cert_floor``, the uncertified floor of
+    TraceConfig.march_certified_floor (``step_floor`` then the certified
+    hop), launches the floor instance, which also takes the options (counted
+    as an options launch)."""
     dev = pos.device
     _check_march_k(k)
     flags = (int(enable), int(bilinear), int(exact_ocean), int(ref_phantom))
-    opts = options or flags != tuple(OPTION_DEFAULTS[name] for name in MARCH_OPTIONS)
+    cert = cert_floor is not None
+    opts = cert or options or flags != tuple(OPTION_DEFAULTS[name] for name in MARCH_OPTIONS)
     n = pos.shape[0]
     h, w = topo.shape[:2]
     _check_tex4("topo", topo, dev)
@@ -320,7 +330,8 @@ def land_march(topo, pos, direction, active, t_cap, scale: float, *,
         _launch(
             "de_land_march", _ptr(topo), h, w, _ptr(pos), _ptr(direction),
             _ptr(active), _ptr(t_cap), _ptr(out), n, scale, step_floor,
-            stall_thresh, steps, k, patience, int(any_hit), int(opts), *flags,
+            stall_thresh, steps, k, patience, int(any_hit), int(opts), *flags, int(cert),
+            cert_floor if cert else 0.0,
         )
         _count(land_march, 1, opts)
     return out
@@ -853,22 +864,29 @@ BOUNCE_WIDTHS = (1, 4)
 BOUNCE_OPTIONS = ("enable_clouds", "enable_land", "bilinear_tracking", "lazy_march",
                   "march_exact_ocean", "march_ref_phantom", "naive_tracking", "naive_march",
                   "naive_cloud_tracking", "naive_shadow")
-# the estimator options (render/params.ESTIMATOR_OPTIONS) with their
-# defaults: the ints that follow BOUNCE_OPTIONS in the int block (the Newton
-# steps and the roulettes' start bounces act only with their options), and
-# the two probabilities that follow the sixteen floats, each with its
-# reciprocal float32(1 / p) after it
+# the estimator options (render/params.ESTIMATOR_OPTIONS) and the certified
+# floor with their defaults: the ints that follow BOUNCE_OPTIONS in the int
+# block (the Newton steps and the roulettes' start bounces act only with
+# their options), and the two probabilities that follow the sixteen floats,
+# each with its reciprocal float32(1 / p) after it
 BOUNCE_ESTIMATOR_INTS = dict(analytic_flight=0, flight_newton_iters=14, fast_loop_rng=0,
-                             nee_rr_start=9, cloud_rr_start=9, nee_off=0)
+                             nee_rr_start=9, cloud_rr_start=9, nee_off=0, march_certified_floor=0)
 BOUNCE_ESTIMATOR_FLOATS = dict(nee_rr_prob=1.0, cloud_rr_keep=1.0)
-_ESTIMATOR_FLAGS = ("analytic_flight", "fast_loop_rng", "nee_off")
+_ESTIMATOR_FLAGS = ("analytic_flight", "fast_loop_rng", "nee_off", "march_certified_floor")
+# the march floors' floats, after the estimator options' probabilities: the
+# primary marches' step floor and stall threshold at bounce 0 and past it
+# (TraceConfig.march_floor_frac_secondary) and the uncertified floor
+# (march_certified_floor); at their defaults the primary marches' are the
+# shadow march's, floats 1 and 2 (render/tracers.MarchFloor)
+BOUNCE_FLOOR_FLOATS = ("floor_first", "stall_first", "floor_past", "stall_past", "floor_uncert")
 # the bounce entries' instances (csrc/bounce.cuh INST_*): the default, the
-# options instance (the scene and march options, the naive arm) and the
-# estimator instance (those and the estimator options)
-INST_DEFAULT, INST_OPTIONS, INST_ESTIMATOR = 0, 1, 2
+# options instance (the scene and march options, the naive arm), the
+# estimator instance (those and the estimator options) and the floor
+# instance (those and the march floors)
+INST_DEFAULT, INST_OPTIONS, INST_ESTIMATOR, INST_FLOORS = 0, 1, 2, 3
 # the bounce entries' parameter blocks as the wrappers take them; the C
 # entries' int block has one more, the instance (csrc/bounce.cu)
-BOUNCE_FLOATS = 16 + 2 * len(BOUNCE_ESTIMATOR_FLOATS)
+BOUNCE_FLOATS = 16 + 2 * len(BOUNCE_ESTIMATOR_FLOATS) + len(BOUNCE_FLOOR_FLOATS)
 BOUNCE_INTS = 16 + len(BOUNCE_OPTIONS) + len(BOUNCE_ESTIMATOR_INTS)
 BOUNCE_SITES = 7  # the census's loop sites (csrc/bounce.cuh SITE_*)
 # the census's clock64 columns: the seven sites, then bounce_flight's and
@@ -902,18 +920,32 @@ def bounce_estimator_params(cfg):
     return ints, floats
 
 
-def _estimator_instance(fparams, iparams) -> bool:
-    """Whether the estimator options of a bounce launch's blocks ask for the
-    estimator instance: any of them off its default. Raises on a flag other
-    than 0 or 1, negative Newton steps or a probability outside (0, 1]."""
+def _knob_instance(fparams, iparams) -> int:
+    """The instance the estimator options and the march floors of a bounce
+    launch's blocks ask for: ``INST_FLOORS`` at a march floor off its
+    default (the certified floor, or a primary march's floor or stall
+    threshold not the shadow march's, floats 1 and 2), else
+    ``INST_ESTIMATOR`` at an estimator option off its default, else 0.
+    Raises on a flag other than 0 or 1, negative Newton steps, a probability
+    outside (0, 1] or a floor not above 0."""
     first = 16 + len(BOUNCE_OPTIONS)
     ints = dict(zip(BOUNCE_ESTIMATOR_INTS, iparams[first:]))
-    probs = dict(zip(BOUNCE_ESTIMATOR_FLOATS, fparams[16::2]))
+    n_probs = 2 * len(BOUNCE_ESTIMATOR_FLOATS)
+    probs = dict(zip(BOUNCE_ESTIMATOR_FLOATS, fparams[16:16 + n_probs:2]))
+    floors = dict(zip(BOUNCE_FLOOR_FLOATS, fparams[16 + n_probs:]))
     if (any(ints[name] not in (0, 1) for name in _ESTIMATOR_FLAGS)
-            or ints["flight_newton_iters"] < 0 or any(not 0.0 < p <= 1.0 for p in probs.values())):
-        raise ValueError(f"bounce: estimator options {ints}, {probs}")
-    return (any(v != BOUNCE_ESTIMATOR_INTS[name] for name, v in ints.items())
-            or any(p != 1.0 for p in probs.values()))
+            or ints["flight_newton_iters"] < 0 or any(not 0.0 < p <= 1.0 for p in probs.values())
+            or any(not f > 0.0 for f in floors.values())):
+        raise ValueError(f"bounce: estimator options {ints}, {probs}, floors {floors}")
+    shadow = list(fparams[1:3])
+    if (ints["march_certified_floor"]
+            or [floors["floor_first"], floors["stall_first"]] != shadow
+            or [floors["floor_past"], floors["stall_past"]] != shadow):
+        return INST_FLOORS
+    if (any(v != BOUNCE_ESTIMATOR_INTS[name] for name, v in ints.items())
+            or any(p != 1.0 for p in probs.values())):
+        return INST_ESTIMATOR
+    return 0
 
 
 def _bounce_args(fparams, iparams, pos, direction, wavelength, lambda_pdf, throughput, radiance,
@@ -960,8 +992,7 @@ def _bounce_args(fparams, iparams, pos, direction, wavelength, lambda_pdf, throu
     _check("srgb2spec", srgb2spec, torch.float32, (300, 3), dev)
     _check("table", table, torch.float32, (384, 1024, 3), dev)
     scene = _options_instance(iparams, 16, BOUNCE_OPTIONS, options)
-    opts = (INST_ESTIMATOR if _estimator_instance(fparams, iparams) else
-            INST_OPTIONS if scene else INST_DEFAULT)
+    opts = _knob_instance(fparams, iparams) or (INST_OPTIONS if scene else INST_DEFAULT)
     fp = (ctypes.c_float * BOUNCE_FLOATS)(*fparams)
     ip = (ctypes.c_int * (BOUNCE_INTS + 1))(*iparams, opts)
     return [
@@ -991,10 +1022,11 @@ def bounce_flight(*args, n_live=None, trips=None, cycles=None, options=False):
     fparams, iparams, pos, direction, wavelength, lambda_pdf, throughput,
     radiance, w_mis, alive, primary_miss, work_class, keys, idx, topo,
     material, clouds, o3_crossec, srgb2spec, table. ``keys`` are the (N, 2)
-    lane keys as int32 (``keys_i32``); ``fparams`` (20 floats: the 16 of
+    lane keys as int32 (``keys_i32``); ``fparams`` (25 floats: the 16 of
     csrc/bounce.cu, then ``BOUNCE_ESTIMATOR_FLOATS`` each with its
-    reciprocal) and ``iparams`` (32 ints: the 16 of csrc/bounce.cu, then the
-    options ``BOUNCE_OPTIONS`` and ``BOUNCE_ESTIMATOR_INTS``) are laid out as
+    reciprocal, then ``BOUNCE_FLOOR_FLOATS``) and ``iparams`` (33 ints: the
+    16 of csrc/bounce.cu, then the options ``BOUNCE_OPTIONS`` and
+    ``BOUNCE_ESTIMATOR_INTS``) are laid out as
     csrc/bounce.cu documents
     (render/pathtracer.py builds them). With ``n_live``, the (1,) int32 live
     count on the device, entries of ``idx`` at or past it are skipped
@@ -1007,7 +1039,8 @@ def bounce_flight(*args, n_live=None, trips=None, cycles=None, options=False):
     tracking, 0 the closed form) pick the kernels' instance, an option off
     its default (or ``options``) the options instance of it, an estimator
     option off its default the estimator instance (which also takes the
-    other options). At ``analytic_flight`` the census counts the analytic
+    other options), a march floor off its default the floor instance (which
+    takes them all). At ``analytic_flight`` the census counts the analytic
     flight's Newton steps at the RMO column (2)."""
     c_args, _refs, opts = _bounce_args(*args, n_live, options)
     m = args[13].shape[0]
@@ -1052,8 +1085,9 @@ def bounce_window(*args, stop: int, n_live=None, options=False):
 def bounce_occupancy(which: str, options: int = INST_DEFAULT) -> dict:
     """ptxas's and the occupancy calculator's view of a bounce entry
     (``OCCUPANCY_ENTRIES``; its default instance, L = 4 and the closed form,
-    or with ``options`` its options instance, True or ``INST_OPTIONS``, or
-    its estimator instance, ``INST_ESTIMATOR``) on the current device:
+    or with ``options`` its options instance, True or ``INST_OPTIONS``, its
+    estimator instance, ``INST_ESTIMATOR``, or its floor instance,
+    ``INST_FLOORS``) on the current device:
     resident blocks and warps per SM, threads per block, registers and local
     bytes per thread."""
     out = (ctypes.c_int * 4)()
@@ -1271,7 +1305,7 @@ PREVIEW_FLOATS, PREVIEW_INTS = 22, 11 + len(MARCH_OPTIONS)
 
 def preview(fparams, iparams, key, pos, direction, wavelength, tile_index, lane_index, topo,
             material, stars, o3_crossec, srgb2spec, *, origin=None, census: bool = False,
-            options: bool = False):
+            cert_floor: float = None, options: bool = False):
     """Launch ``preview`` (csrc/preview.cu): the (n,) preview radiance of
     each lane, the whole of ``march_paths``. ``key`` is (k0, k1): the spp key
     with ``tile_index`` (n,) int64 (the lane's tile key is fold(key, tile
@@ -1282,10 +1316,12 @@ def preview(fparams, iparams, key, pos, direction, wavelength, tile_index, lane_
     (15 ints: de_preview's first 11, then the march options
     ``MARCH_OPTIONS``) are laid out as de_preview documents
     (render/raymarcher.PreviewFrame builds them); an option off its default
-    (or ``options``) runs the options instance. With ``census`` the census
-    instance (of the default) runs and (out, cycles) comes back, cycles (n,
-    3) int64 each lane's clock64 cycles in its land and shadow marches, in
-    the march and in all."""
+    (or ``options``) runs the options instance, ``cert_floor`` (the
+    uncertified floor of TraceConfig.march_certified_floor, or None) the
+    floor instance, which also takes the options (counted as an options
+    launch). With ``census`` the census instance (of the default) runs and
+    (out, cycles) comes back, cycles (n, 3) int64 each lane's clock64 cycles
+    in its land and shadow marches, in the march and in all."""
     dev = direction.device
     n = direction.shape[0]
     if len(fparams) != PREVIEW_FLOATS or len(iparams) != PREVIEW_INTS:
@@ -1314,15 +1350,18 @@ def preview(fparams, iparams, key, pos, direction, wavelength, tile_index, lane_
         raise ValueError("preview: texture sizes disagree with the int parameters")
     _check("o3_crossec", o3_crossec, torch.float32, (441,), dev)
     _check("srgb2spec", srgb2spec, torch.float32, (300, 3), dev)
-    opts = _options_instance(iparams, 11, MARCH_OPTIONS, options)
+    cert = cert_floor is not None
+    opts = _options_instance(iparams, 11, MARCH_OPTIONS, options or cert)
     if census and opts:
         raise ValueError("preview: the census instance is the default instance's; the "
-                         "options instance has none")
+                         "options and floor instances have none")
     out = torch.empty((n,), dtype=torch.float32, device=dev)
     cycles = torch.empty((n, 3), dtype=torch.int64, device=dev) if census else None
     if n:
-        fp = (ctypes.c_float * PREVIEW_FLOATS)(*fparams)
-        ip = (ctypes.c_int * (PREVIEW_INTS + 1))(*iparams, int(opts))
+        # the C entry's blocks: the uncertified floor after the floats, the
+        # certified floor's flag and the instance after the ints
+        fp = (ctypes.c_float * (PREVIEW_FLOATS + 1))(*fparams, cert_floor if cert else 0.0)
+        ip = (ctypes.c_int * (PREVIEW_INTS + 2))(*iparams, int(cert), int(opts))
         org = (ctypes.c_float * 3)(*origin) if origin is not None else None
         _launch(
             "de_preview", ctypes.cast(fp, ctypes.c_void_p), ctypes.cast(ip, ctypes.c_void_p),
@@ -1347,10 +1386,11 @@ def _occupancy(entry, *args):
                 warps_per_sm=blocks * threads // 32)
 
 
-def preview_occupancy(options: bool = False):
+def preview_occupancy(options: int = 0):
     """The ``preview`` kernel's registers per thread, local memory and
     resident blocks and warps per SM on the current device (its default
-    instance, or with ``options`` its options instance)."""
+    instance, with ``options`` 1 (or True) its options instance, with 2 its
+    floor instance)."""
     return _occupancy("de_preview_occupancy", int(options))
 
 

@@ -120,6 +120,18 @@ class TraceConfig:
     darkens). At any of them off its default the bounce kernels run their
     options instances.
 
+    The march floors (``FLOOR_OPTIONS``) change where the land march may
+    step over terrain: ``march_certified_floor`` steps a probe by the floor
+    (``march_floor_frac`` of a texel arc) only where the hop provably clears
+    a regional bound sphere, and by ``march_uncert_floor_frac`` of a texel
+    arc elsewhere; ``march_floor_frac_secondary``, when set, is the floor of
+    the bounce's primary marches past bounce 0 (the shadow march and the
+    preview keep ``march_floor_frac``; the naive marches have no floor). At
+    the certified floor or a secondary floor the bounce kernels run their
+    floor instances (which also take the estimator options), and at the
+    certified floor the march and preview kernels theirs;
+    ``march_uncert_floor_frac`` alone changes nothing.
+
     The reference's other fields select TPU experiments, parity-bisection
     paths or TPU scheduling; the port implements each at its default.
     ``convert.trace_config`` carries a reference config across and rejects
@@ -155,6 +167,9 @@ class TraceConfig:
     cloud_rr_start: int = C.MULTISCATTER_BOUNCE
     cloud_rr_keep: float = 1.0
     nee_off: bool = False
+    march_floor_frac_secondary: "float | None" = None
+    march_certified_floor: bool = False
+    march_uncert_floor_frac: float = 0.005
 
     def __post_init__(self):
         if self.hero_lambdas not in HERO_WIDTHS:
@@ -171,6 +186,10 @@ class TraceConfig:
             if not 0.0 < getattr(self, name) <= 1.0:
                 raise ValueError(f"TraceConfig.{name}={getattr(self, name)!r}: a probability in "
                                  "(0, 1]")
+        for name in ("march_floor_frac", "march_uncert_floor_frac", "march_floor_frac_secondary"):
+            value = getattr(self, name)
+            if value is not None and not value > 0.0:
+                raise ValueError(f"TraceConfig.{name}={value!r}: a fraction of a texel arc above 0")
         if self.flight_newton_iters < 0:
             raise ValueError(f"TraceConfig.flight_newton_iters={self.flight_newton_iters!r}: "
                              "a count of steps")
@@ -198,3 +217,9 @@ NAIVE_OPTIONS = {name: TraceConfig.__dataclass_fields__[name].default for name i
 ESTIMATOR_OPTIONS = {name: TraceConfig.__dataclass_fields__[name].default for name in (
     "analytic_flight", "flight_newton_iters", "fast_loop_rng", "nee_rr_start", "nee_rr_prob",
     "cloud_rr_start", "cloud_rr_keep", "nee_off")}
+
+# The march floors with their (the reference's) defaults: at the certified
+# floor or a secondary floor the bounce kernels run their floor instances,
+# and at the certified floor the march and preview kernels theirs.
+FLOOR_OPTIONS = {name: TraceConfig.__dataclass_fields__[name].default for name in (
+    "march_certified_floor", "march_uncert_floor_frac", "march_floor_frac_secondary")}

@@ -15,7 +15,12 @@ estimator options (``params.ESTIMATOR_OPTIONS``): ``analytic_flight`` the
 gases' flight by inverting their optical depth (``tracers.
 sample_rmo_flight_analytic``), ``fast_loop_rng`` the accelerated trackers'
 counter-hash draws, the NEE and cloud Russian roulettes (``nee_rr_*``,
-``cloud_rr_*``, sites 7 and 8) and ``nee_off``.
+``cloud_rr_*``, sites 7 and 8) and ``nee_off``. So do the march floors
+(``params.FLOOR_OPTIONS``): the certified floor (``march_certified_floor``
+with ``march_uncert_floor_frac``) in every accelerated march, and the
+secondary floor (``march_floor_frac_secondary``) in the primary marches past
+bounce 0, each bounce's floors from ``tracers._march_floor``; the shadow
+march keeps ``march_floor_frac``.
 
 One bounce of the reference's ``run_bounces`` body (pathtracer.py:1554-1924)
 is ``run_bounce``: for CUDA tensors the kernels ``bounce_flight`` and
@@ -365,13 +370,16 @@ def run_bounce_plain(st: TraceState, bounce: int, scene: SceneParams, atlas, lut
     device) and add each lane's iterations at the seven loop sites
     (``CENSUS_SITES``), as the kernels' census instances count them."""
     naive_march = cfg.naive_march or cfg.naive_tracking
+    # the primary marches' floors at this bounce (march_floor_frac_secondary
+    # past bounce 0); the shadow march keeps the march's own
+    floor = _march_floor(atlas.topography, cfg, bounce)
 
     def land(*args, site, t_cap=None):
         if naive_march:  # the plain sphere march takes no cap
             return _naive(tn.intersect_land_naive, args, trips, site)
         if trips is None:
-            return intersect_land(*args, t_cap=t_cap)
-        return intersect_land_plain(*args, t_cap=t_cap, trips=trips[:, site])
+            return intersect_land(*args, t_cap=t_cap, floor=floor)
+        return intersect_land_plain(*args, t_cap=t_cap, trips=trips[:, site], floor=floor)
 
     pos, direction = st.pos, st.direction
     wavelength, lambda_pdf = st.wavelength, st.lambda_pdf
@@ -625,19 +633,24 @@ def scene_floats(scene: SceneParams):
 class BounceFrame:
     """The bounce kernels' arguments that hold for a whole wavefront: the
     scene's scalars from its host record, the budgets and options of
-    ``cfg`` (the scene and march options, then the estimator options' ints,
-    after the sixteen ints the default instances read; the estimator
-    options' probabilities after the sixteen floats), the lane keys as int32
-    once, the density table (pathtracer.run_bounces builds one per call)."""
+    ``cfg`` (the scene and march options, then the estimator options' ints
+    and the certified floor's flag, after the sixteen ints the default
+    instances read; the estimator options' probabilities, then the primary
+    marches' floors and stall thresholds at bounce 0 and past it and the
+    uncertified floor, after the sixteen floats, whose step floor and stall
+    threshold are the shadow march's), the lane keys as int32 once, the
+    density table (pathtracer.run_bounces builds one per call)."""
 
     def __init__(self, st: TraceState, scene: SceneParams, atlas, luts, cfg: TraceConfig):
         topo = atlas.topography
         scale_f, light, cos_angle, solid_angle, offset_scale = scene_floats(scene)
-        step_floor, stall_thresh = _march_floor(topo, cfg)
+        shadow, first, past = (_march_floor(topo, cfg, b) for b in (None, 0, 1))
         est_ints, est_floats = kernels.bounce_estimator_params(cfg)
-        self.fparams = [scale_f, step_floor, stall_thresh, atm._O3_ENV_PEAK, *light, cos_angle,
-                        solid_angle, offset_scale, *sp.planck_kernel_constants(),
-                        *vol.MAX_DENS_RMO, *est_floats]
+        self.fparams = [scale_f, shadow.step_floor, shadow.stall_thresh, atm._O3_ENV_PEAK, *light,
+                        cos_angle, solid_angle, offset_scale, *sp.planck_kernel_constants(),
+                        *vol.MAX_DENS_RMO, *est_floats, first.step_floor, first.stall_thresh,
+                        past.step_floor, past.stall_thresh,
+                        shadow.step_floor if shadow.uncert_floor is None else shadow.uncert_floor]
         # naive_tracking takes the gases' sun transmittance from the ratio
         # instances' tracker at one probe an iteration: the naive ratio
         # tracker's one-step loop, draw for draw (csrc/bounce.cuh); its other

@@ -206,14 +206,16 @@ class PreviewFrame:
     """The ``preview`` kernel's parameter blocks for a frame: the scene's
     scalars (``pathtracer.scene_floats``, the scene's host record), the
     march floor, the Planck and phase constants (floats), the march budget,
-    the lanes per tile, the texture shapes and the march's options (ints). Built from host values
-    only, so it reads nothing from the card; the ``Renderer`` keeps one per
-    scene, atlas, config and tile."""
+    the lanes per tile, the texture shapes and the march's options (ints),
+    and ``cert_floor``, the uncertified floor of the certified floor (or
+    None; ``kernels.preview`` takes it). Built from host values only, so it
+    reads nothing from the card; the ``Renderer`` keeps one per scene,
+    atlas, config and tile."""
 
     def __init__(self, scene: SceneParams, atlas, luts, cfg: TraceConfig, tile: int):
         topo = atlas.topography
         scale_f, light, cos_angle, solid_angle, offset_scale = scene_floats(scene)
-        step_floor, stall_thresh = _march_floor(topo, cfg)
+        step_floor, stall_thresh, self.cert_floor = _march_floor(topo, cfg)
         self.fparams = [
             scale_f, step_floor, stall_thresh, *light, cos_angle, solid_angle, offset_scale,
             *sp.planck_kernel_constants(), C.SUN_TEMPERATURE, C.NIGHTLIGHT_TEMPERATURE,
@@ -247,5 +249,5 @@ def march_paths(key, ray_pos, ray_dir, wavelength, scene: SceneParams, atlas, lu
     return kernels.preview(
         frame.fparams, frame.iparams, key.tolist(), ray_pos, ray_dir, wavelength, tile_index,
         lane, atlas.topography, atlas.material, atlas.stars, luts.o3_crossec, luts.srgb2spec,
-        origin=origin,
+        origin=origin, cert_floor=frame.cert_floor,
     )

@@ -5,7 +5,9 @@ version and a wrapper that launches the hand-written CUDA kernel
 - ``intersect_land``: displaced-sphere march + phantom crawl
   (digital_earth_tpu/render/pathtracer.py:211 intersect_land, :515
   _phantom_crawl) -> kernel ``land_march``; ``TraceConfig.enable_land``
-  False makes every ray miss;
+  False makes every ray miss; the march's floors (``MarchFloor``,
+  ``_march_floor``), with the certified floor in the kernel's floor
+  instance;
 - ``delta_track_rmo``: Woodcock flight through Rayleigh/Mie/ozone with the
   local hero majorant (pathtracer.py:631 _delta_track_rmo) -> kernel
   ``rmo_delta_track``;
@@ -41,7 +43,9 @@ and the bounce's plain twin (``pathtracer.run_bounce_plain``).
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from .. import constants as C
@@ -127,10 +131,47 @@ def _loop_draw(cfg: TraceConfig):
     return lambda keys, i, shape: rng.uniform(rng.fold(keys, i), shape)
 
 
-def _march_floor(topo, cfg: TraceConfig):
+def _f32(x) -> float:
+    """``x`` rounded to float32, as a Python float."""
+    return float(np.float32(x))
+
+
+class MarchFloor(NamedTuple):
+    """A march's floors, each the float32 value the reference's march uses
+    (pathtracer.py:284-288): ``step_floor`` (a probe's least step, its
+    initial stride and, under ``TraceConfig.march_certified_floor``, the hop
+    a certified probe takes), ``stall_thresh`` (a quarter of the stride's
+    floor) and ``uncert_floor``, the step of a probe the certified floor
+    cannot certify and the stride's floor, or None without the certified
+    floor."""
+
+    step_floor: float
+    stall_thresh: float
+    uncert_floor: "float | None" = None
+
+
+def _march_floor(topo, cfg: TraceConfig, bounce=None) -> MarchFloor:
+    """The floors of a march on ``topo`` at ``cfg``: the shadow march's and
+    the preview's (``bounce`` None), or the bounce's primary marches at
+    ``bounce``. The floor is the texel arc times ``march_floor_frac`` in
+    double, rounded once to float32. With ``march_floor_frac_secondary`` set
+    (and neither naive flag that takes over the marches), the primary
+    marches take ``march_floor_frac`` at bounce 0 and the secondary fraction
+    past it, as the reference's float32 fraction (pathtracer.py:1568-1578):
+    the texel arc and the fraction each rounded to float32, their product in
+    float32. The uncertified floor is the texel arc times
+    ``march_uncert_floor_frac`` in double."""
     texel_arc = math.pi * C.PLANET_R / topo.shape[1]
-    step_floor = texel_arc * cfg.march_floor_frac
-    return step_floor, step_floor * 0.25
+    sec = cfg.march_floor_frac_secondary
+    if bounce is None or sec is None or cfg.naive_tracking or cfg.naive_march:
+        step_floor = _f32(texel_arc * cfg.march_floor_frac)
+    else:
+        frac = sec if bounce > 0 else cfg.march_floor_frac
+        step_floor = float(np.float32(texel_arc) * np.float32(frac))
+    if not cfg.march_certified_floor:
+        return MarchFloor(step_floor, step_floor * 0.25)
+    uncert = _f32(texel_arc * cfg.march_uncert_floor_frac)
+    return MarchFloor(step_floor, uncert * 0.25, uncert)
 
 
 # ---------------------------------------------------------------------------
@@ -139,18 +180,27 @@ def _march_floor(topo, cfg: TraceConfig):
 
 
 def intersect_land_plain(topo, pos, direction, scale, active, cfg: TraceConfig,
-                         t_cap=None, any_hit=False, trips=None):
+                         t_cap=None, any_hit=False, trips=None, floor: MarchFloor = None):
     """Plain PyTorch twin of the ``land_march`` kernel: hit distance, -1 on
     a miss. ``trips`` (n,) int32: the march's iterations per lane are added
     there (the phantom crawl's are not). ``cfg``'s march options: no land
     (every ray misses, no trips), bilinear taps, the exact ocean root, the
-    stall patience and the phantom crawl."""
+    stall patience and the phantom crawl. ``floor`` overrides the march's
+    floors (``_march_floor(topo, cfg)``; the bounce passes its primary
+    marches' per bounce); with its ``uncert_floor`` the certified floor
+    (pathtracer.py:381-405): a probe steps by the floor where the ray's
+    least radius over the hop [ts, ts + floor] clears one of the three
+    regional bound spheres whose validity radius exceeds the floor, else by
+    the uncertified floor, which is also the stride's floor."""
     n = pos.shape[0]
     dev = pos.device
     if not cfg.enable_land:
         return torch.full((n,), -1.0, device=dev)
     k = cfg.march_k
-    step_floor, stall_thresh = _march_floor(topo, cfg)
+    if floor is None:
+        floor = _march_floor(topo, cfg)
+    step_floor, stall_thresh, uncert = floor
+    stride_floor = step_floor if uncert is None else uncert
     if t_cap is None:
         t_cap = torch.full((n,), math.inf, device=dev)
 
@@ -193,10 +243,21 @@ def intersect_land_plain(topo, pos, direction, scale, active, cfg: TraceConfig,
             ),
             dim=0,
         )
-        step = torch.where(
-            f < 0.0, f,
-            torch.clamp(torch.maximum(f, s_region), min=step_floor),
-        )
+        if uncert is None:
+            step = torch.where(
+                f < 0.0, f,
+                torch.clamp(torch.maximum(f, s_region), min=step_floor),
+            )
+        else:
+            # the hop's least squared radius from the shared quadratic: at
+            # its start while ascending, at its end while descending
+            # throughout, the perigee's otherwise
+            b_end = b + step_floor
+            min_r2 = h2b + torch.where(
+                b >= 0.0, b * b, torch.where(b_end <= 0.0, b_end * b_end, 0.0))
+            cert = torch.any((min_r2[None] > r_bound * r_bound) & (step_floor < valid3), dim=0)
+            floor_eff = torch.where(cert, step_floor, uncert)
+            step = torch.where(f < 0.0, f, torch.maximum(torch.maximum(f, s_region), floor_eff))
         pdisc = C.PLANET_R * C.PLANET_R - h2b
         p_near = torch.where(
             pdisc < 0.0, -1.0, -b - torch.sqrt(torch.clamp(pdisc, min=0.0))
@@ -223,7 +284,7 @@ def intersect_land_plain(topo, pos, direction, scale, active, cfg: TraceConfig,
         t_stopped = torch.where(conv_stop | out_stop, t_stop, t_stop + step_stop)
         t_new = torch.where(any_stop, t_stopped, ts[-1] + step[-1])
         applied = torch.where(any_stop, step_stop, step[-1])
-        stride_new = torch.clamp(applied, min=step_floor)
+        stride_new = torch.clamp(applied, min=stride_floor)
 
         newly_done = any_stop & (conv_stop | out_stop)
         missed = s["missed"] | (any_stop & out_stop & ~conv_stop)
@@ -284,23 +345,26 @@ def _phantom_crawl(pos, direction, active, result, t_cap, cfg: TraceConfig):
 
 
 def intersect_land(topo, pos, direction, scale, active, cfg: TraceConfig,
-                   t_cap=None, any_hit=False):
+                   t_cap=None, any_hit=False, floor: MarchFloor = None):
     """Land hit distance along each ray (-1 on a miss), with an optional
-    per-lane ``t_cap`` (a volume event truncates the march) and an
-    ``any_hit`` mode for shadow rays. CPU tensors: the plain version; CUDA
-    tensors: the ``land_march`` kernel."""
+    per-lane ``t_cap`` (a volume event truncates the march), an ``any_hit``
+    mode for shadow rays and ``floor`` as ``intersect_land_plain`` takes it.
+    CPU tensors: the plain version; CUDA tensors: the ``land_march``
+    kernel."""
     n = pos.shape[0]
+    if floor is None:
+        floor = _march_floor(topo, cfg)
     if pos.device.type == "cpu":
         return intersect_land_plain(
-            topo, pos, direction, scale, active, cfg, t_cap, any_hit
+            topo, pos, direction, scale, active, cfg, t_cap, any_hit, floor=floor
         )
     if t_cap is None:
         t_cap = torch.full((n,), math.inf, device=pos.device)
-    step_floor, stall_thresh = _march_floor(topo, cfg)
     return kernels.land_march(
         topo, pos, direction, active, t_cap, float(scale),
-        step_floor=step_floor, stall_thresh=stall_thresh,
-        steps=cfg.land_march_steps, k=cfg.march_k, any_hit=any_hit, **march_options(cfg),
+        step_floor=floor.step_floor, stall_thresh=floor.stall_thresh,
+        cert_floor=floor.uncert_floor, steps=cfg.land_march_steps, k=cfg.march_k,
+        any_hit=any_hit, **march_options(cfg),
     )
 
 

@@ -314,11 +314,14 @@ def test_scene_params_and_trace_config():
         jparams.TraceConfig(max_bounces=3, compact_tile=512, land_march_steps=64))
     assert got == tparams.TraceConfig(max_bounces=3, land_march_steps=64)
     for knob, value in [("loop_narrow", 256), ("scalar_ray_geom", True),
-                        ("march_certified_floor", True), ("march_uncert_floor_frac", 0.5),
-                        ("work_bins", 5), ("march_floor_frac_secondary", 0.002),
-                        ("hero_lambdas", 2), ("loop_narrow_after", 5)]:
+                        ("work_bins", 5), ("hero_lambdas", 2), ("loop_narrow_after", 5)]:
         with pytest.raises(ValueError):
             convert.trace_config(jparams.TraceConfig(**{knob: value}))
+    # the march floors are carried across (tests/test_torch_floors.py)
+    for knob, value in [("march_certified_floor", True), ("march_uncert_floor_frac", 0.5),
+                        ("march_floor_frac_secondary", 0.002)]:
+        got = convert.trace_config(jparams.TraceConfig(**{knob: value}))
+        assert getattr(got, knob) == value and got == tparams.TraceConfig(**{knob: value})
     # the estimator options are carried across (tests/test_torch_estimator.py)
     for knob, value in [("fast_loop_rng", True), ("nee_off", True), ("cloud_rr_keep", 0.5),
                         ("flight_newton_iters", 7)]:

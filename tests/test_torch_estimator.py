@@ -3,8 +3,9 @@ flight_newton_iters, fast_loop_rng, nee_rr_start / nee_rr_prob,
 cloud_rr_start / cloud_rr_keep, nee_off) in the port, against the JAX
 package on the CPU.
 
-- ``convert.trace_config`` carries the eight across and still refuses the
-  march floors and the packet widths the kernels are not built for.
+- ``convert.trace_config`` carries the eight across, and the march floors
+  beside them, and still refuses the packet widths the kernels are not
+  built for.
 - ``rng.fast_uniform`` bit for bit against the reference's, at counters
   past 2^31 and 2^32 (mod 2^32) and on edge keys.
 - ``atmosphere_lut.sample_flight_distance_plain`` and
@@ -84,14 +85,20 @@ def test_trace_config_carries_the_estimator_options(knob):
     ("march_certified_floor", True), ("march_uncert_floor_frac", 1e-6),
     ("march_floor_frac_secondary", 0.002), ("hero_lambdas", 2), ("hero_lambdas", 8),
 ])
-def test_trace_config_still_refuses_the_march_floors_and_other_widths(knob, value):
-    """The march floors and the packet widths other than 1 and 4 are not
-    ported: ``convert.trace_config`` raises on each, also beside the
-    estimator options."""
-    with pytest.raises(ValueError):
-        convert.trace_config(JaxConfig(**{knob: value}))
-    with pytest.raises(ValueError):
-        convert.trace_config(JaxConfig(**{knob: value}, **KNOB_VALUES))
+def test_trace_config_carries_the_march_floors_and_refuses_other_widths(knob, value):
+    """The march floors are carried across (test_torch_floors.py holds
+    them), alone and beside the estimator options; the packet widths other
+    than 1 and 4 are not ported: ``convert.trace_config`` raises on each,
+    also beside the estimator options."""
+    if knob == "hero_lambdas":
+        with pytest.raises(ValueError):
+            convert.trace_config(JaxConfig(**{knob: value}))
+        with pytest.raises(ValueError):
+            convert.trace_config(JaxConfig(**{knob: value}, **KNOB_VALUES))
+        return
+    assert getattr(convert.trace_config(JaxConfig(**{knob: value})), knob) == value
+    assert convert.trace_config(JaxConfig(**{knob: value}, **KNOB_VALUES)) == TraceConfig(
+        **{knob: value}, **KNOB_VALUES)
 
 
 @pytest.mark.parametrize("bad", [dict(nee_rr_prob=0.0), dict(cloud_rr_keep=1.5),

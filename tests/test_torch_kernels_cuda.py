@@ -1019,15 +1019,16 @@ def test_select_tiles_shard_step_captured_in_a_cuda_graph(dev):
         assert torch.equal(ids, adaptive.select_tiles_shard_plain(*bufs, tile, k, m_bar))
 
 
-def _mesh_renderers(devices, n_spp=1, res=(320, 180)):
+def _mesh_renderers(devices, n_spp=1, res=(320, 180), trace=TraceConfig()):
     from digital_earth_tpu_torch.app.config_io import apply_config
     from digital_earth_tpu_torch.parallel.mesh import MultiChipRenderer, make_render_mesh
     from digital_earth_tpu_torch.render.renderer import Renderer
 
     atlas = build_atlas(generate_earth_textures((64, 128), seed=3), devices[0])
     cfg = load_config(os.path.join(ROOT, "scenes", "config - Apollo 11.txt"))
-    m = MultiChipRenderer(make_render_mesh(devices, spp_axis=n_spp), res, atlas=atlas, seed=5)
-    s = Renderer(devices[0], res, atlas=atlas, seed=5)
+    m = MultiChipRenderer(make_render_mesh(devices, spp_axis=n_spp), res, atlas=atlas, seed=5,
+                          cfg=trace)
+    s = Renderer(devices[0], res, atlas=atlas, seed=5, cfg=trace)
     for r in (m, s):
         apply_config(r, cfg)
     return m, s
@@ -1323,7 +1324,7 @@ def test_land_march_options_instance(case, options):
         assert (kernels.land_march.launches, kernels.land_march.options_launches) == (
             before[0] + 1, before[1] + _options_launch(options))
         assert _bits_equal(got, tracers.intersect_land_plain(*args, **kw))
-    step_floor, stall = tracers._march_floor(args[0], TraceConfig())
+    step_floor, stall, _ = tracers._march_floor(args[0], TraceConfig())
     cap = torch.full((N,), float("inf"), device=dev)
     launch = lambda **o: kernels.land_march(  # noqa: E731
         args[0], args[1], args[2], args[4], cap, 7800.0, step_floor=step_floor,
@@ -1934,3 +1935,115 @@ def test_tracker_launchers_bit_equal_at_fast_loop_rng(dev, case, tracker):
         assert all(torch.equal(g[lanes].cpu().view(torch.int32), h.view(torch.int32))
                    for g, h in zip(got, host))
     assert not all(torch.equal(g, d) for g, d in zip(got, run(threefry)))
+
+
+# The march floors (render/params.FLOOR_OPTIONS): the reference's settings
+# cert_u0, cert_u001, cert25_u0, floor_sec01 and floor_pri05_sec005
+# (tools/stage_bench.py), cert_u0 with the analytic flight, marching first
+# and with naive_shadow, and floor_pri05_sec005 with naive_march (whose
+# marches have no floor); all run the bounce entries' floor instances
+CERT_U0 = dict(march_certified_floor=True, march_uncert_floor_frac=1e-6)
+PRI05_SEC005 = dict(march_floor_frac=0.05, march_floor_frac_secondary=0.005)
+FLOOR_CASES = [
+    CERT_U0, dict(march_certified_floor=True, march_uncert_floor_frac=0.001),
+    dict(march_certified_floor=True, march_floor_frac=0.25, march_uncert_floor_frac=1e-6),
+    dict(march_floor_frac_secondary=0.01), PRI05_SEC005,
+    dict(analytic_flight=True, **CERT_U0), dict(lazy_march=False, **CERT_U0),
+    dict(naive_shadow=True, **CERT_U0), dict(naive_march=True, **PRI05_SEC005),
+]
+MARCH_FLOOR_CASES = FLOOR_CASES[:5]
+
+
+@pytest.mark.parametrize("bounce", [0, 3])
+@pytest.mark.parametrize("options", FLOOR_CASES)
+def test_bounce_floor_instance_bit_equal_at_march_floors(dev, bounce, options):
+    """The bounce entries' floor instances at the march floors, as
+    test_bounce_options_instance_bit_equal holds the scene options (the
+    census counts the certified marches' iterations)."""
+    test_bounce_options_instance_bit_equal(dev, bounce, options)
+
+
+@pytest.mark.parametrize("options", FLOOR_CASES)
+def test_bounce_window_floor_instance_bit_equal_at_march_floors(dev, options):
+    """bounce_window from bounce 1 at the march floors: each bounce's floor
+    inside the one launch (the secondary floor past bounce 0)."""
+    test_bounce_window_options_instance_bit_equal(dev, options)
+
+
+def test_march_uncert_floor_frac_alone_runs_the_default_instances(dev):
+    """march_uncert_floor_frac without the certified floor changes nothing:
+    the default instances run and give the default config's bits."""
+    from digital_earth_tpu_torch import kernels
+
+    for bounce in (0, 3):
+        st, args = _golden_state(dev, bounce)
+        idx, n_live = _live(st)
+        idx = idx[: int(n_live)]
+        u0 = args[:3] + (TraceConfig(**dict(vars(args[3]), march_uncert_floor_frac=1e-6)),)
+        before = kernels.bounce_flight.options_launches
+        got = _bounce_both(st, idx, bounce, u0, pt.BounceFrame(st, *u0))
+        assert kernels.bounce_flight.options_launches == before
+        assert _same_state(got, _bounce_both(st, idx, bounce, args, pt.BounceFrame(st, *args)))
+
+
+@pytest.mark.parametrize("options", MARCH_FLOOR_CASES)
+def test_land_march_floor_instance(case, options):
+    """land_march at each setting bit-equal to intersect_land_plain, plain,
+    any-hit and capped, at the march's own floor and at the primary
+    marches' floors of bounces 0 and 1 (the certified floor runs the floor
+    instance, counted as an options launch; a secondary floor alone the
+    default instance at that floor)."""
+    from digital_earth_tpu_torch import kernels
+
+    dev = case["pos"].device
+    cfg = TraceConfig(**options)
+    topo = case["atlas"].topography
+    args = (topo, case["pos"], case["dirs"], torch.tensor(7800.0, device=dev), case["active"],
+            cfg)
+    t_cap = torch.rand(N, device=dev) * 3e7 + 1e3
+    for bounce in (None, 0, 1):
+        floor = tracers._march_floor(topo, cfg, bounce)
+        for kw in (dict(), dict(any_hit=True), dict(t_cap=t_cap)):
+            before = kernels.land_march.launches, kernels.land_march.options_launches
+            got = tracers.intersect_land(*args, floor=floor, **kw)
+            assert (kernels.land_march.launches, kernels.land_march.options_launches) == (
+                before[0] + 1, before[1] + int(cfg.march_certified_floor))
+            assert _bits_equal(got, tracers.intersect_land_plain(*args, floor=floor, **kw))
+
+
+@pytest.mark.parametrize("options", [o for o in MARCH_FLOOR_CASES if "march_certified_floor" in o])
+def test_preview_floor_instance(dev, options):
+    """preview's floor instance bit-equal to march_paths_plain on every lane
+    of a 160x90 frame at each certified floor (counted as an options
+    launch)."""
+    from digital_earth_tpu_torch import kernels
+    from digital_earth_tpu_torch.render import raymarcher
+
+    args, kw = _preview_lanes(dev, (160, 90), True)
+    args = args[:7] + (TraceConfig(bilinear_materials=True, **options),)
+    before = kernels.preview.launches, kernels.preview.options_launches
+    got = raymarcher.march_paths(*args, **kw)
+    assert (kernels.preview.launches, kernels.preview.options_launches) == (
+        before[0] + 1, before[1] + 1)
+    assert _bits_equal(got, raymarcher.march_paths_plain(*args, **kw))
+
+
+def test_mesh_on_one_card_at_march_floors_matches_renderer(dev):
+    """A (4, 1) mesh over cuda:0 at the certified and secondary floors
+    bit-equal to the Renderer over 2 spp, every bounce launch of each shard
+    the floor instances'."""
+    from digital_earth_tpu_torch import kernels
+
+    trace = TraceConfig(march_floor_frac_secondary=0.01, **CERT_U0)
+    m, s = _mesh_renderers([torch.device("cuda:0")] * 4, trace=trace)
+    kernels.reset_launch_counts()
+    for _ in range(2):
+        m.accumulate()
+    counts = kernels.launch_counts()
+    # the shards' few lanes may all run in the window
+    assert counts["bounce_flight"] + counts["bounce_window"] > 0 and all(
+        counts[f"{k}/options"] == counts[k] for k in ("bounce_flight", "bounce_shade",
+                                                       "bounce_window"))
+    for _ in range(2):
+        s.accumulate()
+    assert torch.equal(m.color_buffer, s.color_buffer)

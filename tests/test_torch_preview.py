@@ -305,7 +305,7 @@ def test_preview_frame_blocks(luts, atlases, bilinear):
     fp = np.asarray(frame.fparams, dtype=np.float32)  # as ctypes passes them
     assert len(frame.fparams) == kernels.PREVIEW_FLOATS
     scale = scene.land_height_scale
-    step_floor, stall = _march_floor(atlas.topography, cfg)
+    step_floor, stall, _ = _march_floor(atlas.topography, cfg)
     want = [scale, step_floor, stall, *scene.light_direction, scene.sun_cos_angle,
             mu.cone_angle_to_solid_angle(scene.sun_angular_radius),
             1.0 + 0.0001 * scale / 12000.0]

@@ -1,15 +1,16 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch + CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--mesh-only | --estimator-only | --floors-only | --preview-bench [DIR]
-                           | --path-bench [DIR] | --spp-bench [DIR] | --options-bench [DIR]
-                           | --sass-counts [DIR]]
+    python3 chip_smoke.py [--mesh-only | --estimator-only | --floors-only | --widths-only
+                           | --preview-bench [DIR] | --path-bench [DIR] | --spp-bench [DIR]
+                           | --options-bench [DIR] | --sass-counts [DIR]]
 
 Run from the root of a checkout on a machine with a CUDA card, ``nvcc`` and
 PyTorch built for CUDA; ``--mesh-only`` runs phases 1-3 and 19 alone (say,
 on a machine with several cards, where phase 19 adds meshes over them);
 ``--estimator-only`` runs phases 1-4 and 8e alone, ``--floors-only`` phases
-1-4 and 8f;
+1-4 and 8f, ``--widths-only`` phases 1-3 and 8g (with a JSON line of its
+rows);
 ``--preview-bench [DIR]`` prints the preview's end-to-end numbers (frame
 times and kernels per frame on both atlases, input to preview) for the port
 package in DIR (default this checkout), so that two versions of the port can
@@ -201,6 +202,27 @@ at the end). Phases, each of which raises on failure (exit code 1):
    phase 6's gates, every bounce launch the floor instances'; s/spp of
    the five settings on the three scenes against their default; the
    phase's seconds.
+8g. the hero-packet widths other than 1 and 4 (``check_widths``; WIDTHS
+   2, 6 and 16, each from its width library, ``kernels.width_library``):
+   every bounce instance of the main library against PARENT_DEFAULT_SASS
+   and PARENT_SASS (the parent's 64); the width libraries built in one
+   parallel nvcc batch (its seconds, each entry's ptxas registers and
+   spills, the bounce entries' occupancy); per width and scene
+   (WIDTH_SCENES: the three at L = 2 and 6, Apollo at 16) the width
+   library's bounce entries against their twin at bounces 0 and DEEP_BOUNCE
+   and ``bounce_window`` against ``run_window_plain`` from the bounce the
+   frame enters it, ``gen_rays`` on the 1080p path inputs,
+   ``rmo_ratio_track`` on bounce 0's NEE lanes (the twin at
+   analytic_transmittance=False) and ``frame_end`` on the frame's end, every
+   lane bit-equal (frame_end under phase 16's gate, bit-equal in practice);
+   each kernel on Apollo timed with its bound from the L-wide state's bytes;
+   the path at each width on Apollo under phase 6's gates, every bounce
+   launch, ``gen_rays`` and ``frame_end`` counted at the width
+   (``"<kernel>/L<n>"``); s/spp of Apollo at each width and at L = 4
+   forced into its floor instance against L = 4, five alternated rounds;
+   tests/test_hero_packets.py's z-test (|z| < 4, 6 seeds of 3072 paths) at
+   L = 4 and each width against L = 1, the chroma variance (L = 4 under 0.3
+   of L = 1's) and the fireflies at each; the phase's seconds.
 
 The viewer's path (each run with the launch counts set to 0 just before it
 and read just after):
@@ -300,8 +322,10 @@ Last, since a profiler session can slow the launches after it:
     ``film_postprocess``), the device-busy share, ``preview``'s device time.
 
 The line before the last is the card's name and power limit; before it, one
-JSON line lists each kernel, and each options instance as
-``"<kernel>/options"`` (its launches from phase 8c's path with the five on
+JSON line lists each kernel, each width library's kernels as
+``"<kernel>/L<n>"`` (phase 8g: the launches of the width's path, the times
+on Apollo, bounds from the L-wide state's bytes), and each options instance
+as ``"<kernel>/options"`` (its launches from phase 8c's path with the five on
 florida, the preview's from its frame at ``bilinear_tracking``; the bounce
 entries' times with the five on florida, the launchers' and the preview's at
 ``bilinear_tracking``; its bound the default row's bytes and operations,
@@ -783,9 +807,10 @@ def parse_sass(text):
     return funcs
 
 
+@functools.lru_cache(maxsize=None)
 def sass_functions(so):
     """``parse_sass`` of the shared library ``so`` (``cuobjdump -sass``, the
-    tool next to nvcc)."""
+    tool next to nvcc), read once a run."""
     from digital_earth_tpu_torch import kernels
 
     tool = os.path.join(os.path.dirname(kernels.nvcc_path()), "cuobjdump")
@@ -3412,6 +3437,379 @@ def check_march_floors(torch, dev, atlas, luts, captured, tf):
     print(f"phase 8f (the march floors): {time.time() - t_phase:.1f} s")
 
 
+# The hero-packet widths other than 1 and 4 (TraceConfig.hero_lambdas), each
+# from a width library of its own (kernels.width_library): the widths built
+# in one batch, the scenes each is held on
+WIDTHS = (2, 6, 16)
+WIDTH_SCENES = {2: (SCENE, FLORIDA, SUNSET), 6: (SCENE, FLORIDA, SUNSET), 16: (SCENE,)}
+
+
+def bounce_lane_bytes(L):
+    """The bounce's bytes per live lane at L wavelengths (BOUNCE_LANE_BYTES
+    at L = 4): 42 + 20 L read, 30 + 12 L written."""
+    return 72 + 32 * L
+
+
+# BOUNCE_FIXED_OPS counts four wavelengths' extinctions (45 each) and their
+# Planck and radiance terms (37 each); gen_rays' count (GEN_RAYS_OPS) its
+# four wavelengths' rotation, CIE lerp and pdf, 25 each
+BOUNCE_WAVELENGTH_OPS, GEN_RAYS_WAVELENGTH_OPS = 82, 25
+# the hero-packet z-test of tests/test_hero_packets.py: paths per seed,
+# seeds, the bound on |z|; the chroma test's paths, seeds and variance ratio
+PACKET_PATHS, PACKET_SEEDS, PACKET_Z = 3072, 6, 4.0
+CHROMA_PATHS, CHROMA_SEEDS, CHROMA_RATIO = 2048, 4, 0.3
+# The SASS instructions of every bounce instance of the main library (the
+# default, options, estimator and floor sets; cuobjdump -sass, NOPs left
+# out) as built from commit 18b6e19 for an NVIDIA H100 80GB HBM3 by nvcc
+# 12.9 (chip_smoke.py --sass-counts), which the width libraries' build must
+# leave as they were: {entry<L, template flags>: instructions}
+PARENT_SASS = {
+    "bounce_flight<L=1, 0, 0>": 3957, "bounce_flight<L=1, 0, 1>": 7317,
+    "bounce_flight<L=1, 0, 2>": 10647, "bounce_flight<L=1, 0, 3>": 11710,
+    "bounce_flight<L=1, 1, 0>": 4088, "bounce_flight<L=1, 1, 1>": 7534,
+    "bounce_flight<L=1, 1, 2>": 10852, "bounce_flight<L=1, 1, 3>": 11976,
+    "bounce_flight<L=4, 0, 0>": 3958, "bounce_flight<L=4, 0, 1>": 7318,
+    "bounce_flight<L=4, 0, 2>": 10649, "bounce_flight<L=4, 0, 3>": 11711,
+    "bounce_flight<L=4, 1, 0>": 4089, "bounce_flight<L=4, 1, 1>": 7535,
+    "bounce_flight<L=4, 1, 2>": 10853, "bounce_flight<L=4, 1, 3>": 11977,
+    "bounce_shade<L=1, 0, 0, 0>": 10207, "bounce_shade<L=1, 0, 0, 1>": 11920,
+    "bounce_shade<L=1, 0, 0, 2>": 13679, "bounce_shade<L=1, 0, 0, 3>": 14783,
+    "bounce_shade<L=1, 0, 1, 0>": 10315, "bounce_shade<L=1, 0, 1, 1>": 12016,
+    "bounce_shade<L=1, 0, 1, 2>": 14019, "bounce_shade<L=1, 0, 1, 3>": 15130,
+    "bounce_shade<L=1, 1, 0, 0>": 10278, "bounce_shade<L=1, 1, 0, 1>": 11990,
+    "bounce_shade<L=1, 1, 0, 2>": 13807, "bounce_shade<L=1, 1, 0, 3>": 14905,
+    "bounce_shade<L=1, 1, 1, 0>": 10312, "bounce_shade<L=1, 1, 1, 1>": 12032,
+    "bounce_shade<L=1, 1, 1, 2>": 14186, "bounce_shade<L=1, 1, 1, 3>": 15221,
+    "bounce_shade<L=4, 0, 0, 0>": 11890, "bounce_shade<L=4, 0, 0, 1>": 13578,
+    "bounce_shade<L=4, 0, 0, 2>": 15316, "bounce_shade<L=4, 0, 0, 3>": 16430,
+    "bounce_shade<L=4, 0, 1, 0>": 11944, "bounce_shade<L=4, 0, 1, 1>": 13616,
+    "bounce_shade<L=4, 0, 1, 2>": 15708, "bounce_shade<L=4, 0, 1, 3>": 16736,
+    "bounce_shade<L=4, 1, 0, 0>": 11989, "bounce_shade<L=4, 1, 0, 1>": 13672,
+    "bounce_shade<L=4, 1, 0, 2>": 15618, "bounce_shade<L=4, 1, 0, 3>": 16693,
+    "bounce_shade<L=4, 1, 1, 0>": 11999, "bounce_shade<L=4, 1, 1, 1>": 13749,
+    "bounce_shade<L=4, 1, 1, 2>": 15964, "bounce_shade<L=4, 1, 1, 3>": 16931,
+    "bounce_window<L=1, 0, 0>": 11731, "bounce_window<L=1, 0, 1>": 15413,
+    "bounce_window<L=1, 0, 2>": 19103, "bounce_window<L=1, 0, 3>": 20259,
+    "bounce_window<L=1, 1, 0>": 11836, "bounce_window<L=1, 1, 1>": 15460,
+    "bounce_window<L=1, 1, 2>": 19384, "bounce_window<L=1, 1, 3>": 20523,
+    "bounce_window<L=4, 0, 0>": 13478, "bounce_window<L=4, 0, 1>": 17098,
+    "bounce_window<L=4, 0, 2>": 20743, "bounce_window<L=4, 0, 3>": 21896,
+    "bounce_window<L=4, 1, 0>": 13570, "bounce_window<L=4, 1, 1>": 17220,
+    "bounce_window<L=4, 1, 2>": 21101, "bounce_window<L=4, 1, 3>": 22308,
+}
+
+
+def check_parent_sass(kernels):
+    """Every bounce instance of the main library (default, options,
+    estimator and floor sets) against PARENT_SASS: fails on any difference."""
+    funcs = sass_functions(kernels.library()._name)
+    now = {entry: n for entry, _, n in bounce_instances(funcs).values()}
+    same = sum(PARENT_SASS.get(entry) == n for entry, n in now.items())
+    print(f"SASS main library: {len(now)} bounce instances, {same} at the parent's count "
+          f"({len(PARENT_SASS)} recorded)")
+    if now != PARENT_SASS:
+        fail("a bounce instance of the main library differs from the parent's SASS: "
+             + ", ".join(f"{e} {n} (parent {PARENT_SASS.get(e)})" for e, n in sorted(now.items())
+                         if PARENT_SASS.get(e) != n))
+
+
+def _width_bounce_bound(torch, trips, cfg, tf, part, m, L):
+    """(ms, "bytes" or "operations") of one half of a bounce at L, as
+    _bounce_bound counts it, with the L-wide state's bytes and the
+    per-wavelength operations at L."""
+    other, alu, fma = bounce_ops(torch, trips, cfg.march_k, cfg.tracking_k, tf, part)
+    if part == "flight":
+        nbytes = (40 + 16) * m
+    else:
+        nbytes = (bounce_lane_bytes(L) + 16) * m
+        other += m * BOUNCE_WAVELENGTH_OPS * (L - 4)
+    return bound(nbytes, other + alu + fma, int_ops=alu, fma_ops=fma), other + alu + fma, alu, fma
+
+
+def _trace_mean_xyz(torch, dev, atlas, luts, L, n, seed):
+    """tests/test_hero_packets.py's estimator: n paths from the Apollo
+    camera towards seeded points about the planet (3 bounces), the hero by
+    CIE inverse CDF with L - 1 rotations, through ``pathtracer.trace_paths``
+    on the card; each path's XYZ (float64, on the host)."""
+    import numpy as np
+
+    from digital_earth_tpu_torch.ops import rng
+    from digital_earth_tpu_torch.ops import spectral as sp
+    from digital_earth_tpu_torch.render import pathtracer as pt
+    from digital_earth_tpu_torch.render.params import TraceConfig, make_scene_params
+
+    cfg = TraceConfig(max_bounces=3, land_march_steps=64, max_tracking_steps=256,
+                      hero_lambdas=L)
+    g = np.random.default_rng(seed)
+    cam = torch.tensor([35963490.0, 12765367.0, -42445899.0], device=dev)
+    target = torch.from_numpy(g.normal(size=(n, 3)) * 4e6).to(dev, torch.float32)
+    dirs = torch.nn.functional.normalize(target - cam, dim=-1).contiguous()
+    u = torch.from_numpy(g.uniform(size=n).astype(np.float32)).to(dev)
+    wl, resp, pdf = sp.spectrum_sample_hero(u, luts.cie_cdf, luts.cie_response, L)
+    rad = pt.trace_paths(rng.prng_key(seed, dev), cam.expand(n, 3).contiguous(), dirs, wl,
+                         make_scene_params(dev), atlas, luts, cfg, lambda_pdf=pdf)
+    return torch.einsum("nl,nlc->nc", rad, resp).double().cpu().numpy()
+
+
+def packet_ztests(torch, dev, card):
+    """tests/test_hero_packets.py on the card at each width: the multi-seed
+    z-test of the L estimator's mean XYZ against L = 1's (|z| < PACKET_Z),
+    the chroma (X - Y) variance's median over seeds against L = 1's (under
+    CHROMA_RATIO at L = 4, printed at the others) and the fireflies (paths
+    whose Y passes 100 times the mean Y) at each L."""
+    import numpy as np
+
+    from digital_earth_tpu_torch.assets.luts import load_spectral_luts
+    from digital_earth_tpu_torch.assets.procgen import generate_earth_textures
+    from digital_earth_tpu_torch.assets.textures import build_atlas
+
+    atlas = build_atlas(generate_earth_textures((64, 128), seed=3), dev)
+    luts = load_spectral_luts(dev)
+    runs = {L: [_trace_mean_xyz(torch, dev, atlas, luts, L, PACKET_PATHS,
+                                (10 if L == 1 else 50) + s) for s in range(PACKET_SEEDS)]
+            for L in (1, 4) + WIDTHS}
+    means = {L: np.stack([x.mean(0) for x in xs]) for L, xs in runs.items()}
+    a = means[1]
+    for L in (4,) + WIDTHS:
+        b = means[L]
+        sem = np.sqrt(a.var(axis=0) / PACKET_SEEDS + b.var(axis=0) / PACKET_SEEDS)
+        z = (b.mean(0) - a.mean(0)) / (sem + 1e-5 * np.abs(a.mean(0)) + 1e-9)
+        ok = bool((np.abs(z) < PACKET_Z).all())
+        print(f"hero packet z-test L = {L} vs L = 1 ({PACKET_SEEDS} seeds of {PACKET_PATHS} paths, "
+              f"3 bounces; {card}): mean XYZ {b.mean(0).tolist()} vs {a.mean(0).tolist()}, z "
+              f"{[round(float(v), 3) for v in z]}  {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"the L = {L} packet estimator's mean parts from the L = 1 estimator's")
+    chroma = {}
+    for L in (1, 4) + WIDTHS:
+        v = [_trace_mean_xyz(torch, dev, atlas, luts, L, CHROMA_PATHS, 100 * L + s)
+             for s in range(CHROMA_SEEDS)]
+        chroma[L] = float(np.median([(x[:, 0] - x[:, 1]).var() for x in v]))
+        y = np.concatenate([x[:, 1] for x in runs[L]])
+        print(f"hero packet L = {L}: chroma (X - Y) variance, median of {CHROMA_SEEDS} seeds of "
+              f"{CHROMA_PATHS} paths, {chroma[L]:.6g} ({chroma[L] / chroma.get(1, chroma[L]):.4f} "
+              f"of L = 1's); fireflies (Y > 100 x mean Y) {int((y > 100 * y.mean()).sum())} of "
+              f"{y.size} paths, max Y / mean Y {y.max() / y.mean():.1f}")
+    if not chroma[4] < CHROMA_RATIO * chroma[1]:
+        fail(f"the L = 4 packet's chroma variance {chroma[4]} is not under {CHROMA_RATIO} of "
+             f"L = 1's {chroma[1]}")
+
+
+def check_widths(torch, dev, atlas, luts, tf):
+    """Phase 8g, the hero-packet widths other than 1 and 4 at 1920x1080 on
+    ``atlas``: the main library's bounce instances' SASS against the
+    parent's; the width libraries of WIDTHS built in one parallel batch
+    (seconds, ptxas registers and spills, the entries' occupancy); per width
+    and scene (WIDTH_SCENES) the bounce entries against their twin at bounces
+    0 and DEEP_BOUNCE and bounce_window against run_window_plain from the
+    bounce the frame enters it, gen_rays on the path inputs, rmo_ratio_track
+    on bounce 0's NEE lanes (at analytic_transmittance=False) and frame_end
+    on the frame's end, every lane bit-equal (frame_end under phase 16's
+    gate); the path on Apollo at each width under phase 6's gates, every
+    bounce launch, gen_rays and frame_end counted at the width; s/spp of
+    Apollo at each width and at L = 4 forced into its floor instance, against
+    L = 4, in SPP_RATIO_ROUNDS alternated rounds; the hero-packet tests.
+    Rows ``"<kernel>/L<n>"`` for the JSON line (launches from the width's
+    path, times on Apollo)."""
+    from digital_earth_tpu_torch import kernels
+    from digital_earth_tpu_torch.app.config_io import apply_config, load_config
+    from digital_earth_tpu_torch.app.viewer import render_offline
+    from digital_earth_tpu_torch.render import pathtracer as pt
+    from digital_earth_tpu_torch.render.params import TraceConfig
+    from digital_earth_tpu_torch.render.renderer import Renderer
+
+    t_phase = time.time()
+    card = nvidia_smi_line()
+    check_default_sass(kernels)
+    check_parent_sass(kernels)
+    print(f"SASS checks: {time.time() - t_phase:.1f} s")
+    t0 = time.time()
+    kernels.build_width_libraries(WIDTHS)
+    print(f"width libraries L = {', '.join(map(str, WIDTHS))}: built in one parallel batch in "
+          f"{time.time() - t0:.1f} s (nvcc {' '.join(kernels.NVCC_FLAGS)} -DDE_WIDTH=L; {card})")
+    for L in WIDTHS:
+        for src, log in sorted(kernels.width_ptxas_log.get(L, {}).items()):
+            for name, (regs, stores, loads) in sorted(ptxas_entries(log).items()):
+                print(f"ptxas L = {L} {src} {name}: {regs} registers, spill stores {stores} B, "
+                      f"loads {loads} B")
+        for name in kernels.OCCUPANCY_ENTRIES:
+            o = kernels.bounce_occupancy(name, width=L)
+            print(f"occupancy {name} L = {L}: floor instance {o['registers']} registers, "
+                  f"{o['local_bytes']} B local, {o['warps_per_sm']} warps per SM")
+
+    rows = {}
+    for L in WIDTHS:
+        cfg = TraceConfig(hero_lambdas=L)
+        for scene in WIDTH_SCENES[L]:
+            name = os.path.basename(scene)[9:-4]
+            apollo = scene == SCENE
+            t_scene = time.time()
+            states, _, end_args = capture_states(torch, dev, atlas, luts, scene=scene, cfg=cfg)
+            tag = f"L = {L} {name}"
+            # bounce 0's input state is the rays': the ratio tracker's NEE
+            # lanes come from its twin at analytic_transmittance=False there
+            c0 = states[0]
+            ratio_c = dict(c0, args=(*c0["args"][:3], TraceConfig(hero_lambdas=L,
+                                                                  analytic_transmittance=False)))
+            for b in (0, DEEP_BOUNCE):
+                c = states[b]
+                got, want, trips, cycles = _bounce_and_twin(torch, c, b)
+                _hold_lanes(torch, got, want, c["st"].work_class[c["idx"].long()],
+                            f"width {tag} bounce {b}", exact=True)
+                print(f"census width {tag} bounce {b}: {c['idx'].numel()} live; cycle split "
+                      f"{split_text(cycle_split(torch, cycles))}")
+                if b != 0 or not apollo:
+                    continue
+                idx, st0, args = c["idx"], c["st"], c["args"]
+                frame = pt.BounceFrame(st0, *args)
+                ka = lambda s: pt._kernel_args(s, idx, 0, *args, frame)  # noqa: E731
+                flight = kernels.bounce_flight(*ka(_clone_state(st0)))
+                t_f = _bounce_ms(torch, st0, lambda s: kernels.bounce_flight(*ka(s)))
+                t_s = _bounce_ms(torch, st0, lambda s: kernels.bounce_shade(*ka(s), flight=flight))
+                m = idx.numel()
+                for part, ms in (("flight", t_f), ("shade", t_s)):
+                    (b_ms, b_by), ops, alu, fma = _width_bounce_bound(torch, trips, cfg, tf, part,
+                                                                     m, L)
+                    nbytes = (40 + 16) * m if part == "flight" else (bounce_lane_bytes(L) + 16) * m
+                    rows[f"bounce_{part}/L{L}"] = dict(
+                        max_abs_err=0.0, ms=ms, plain_ms=None, bytes=nbytes, ops=ops,
+                        int_ops=alu, fma_ops=fma)
+                    print(f"width {tag} bounce 0 bounce_{part} ({m} lanes, {card}): {ms:.3f} ms, "
+                          f"bound {b_ms:.4f} ms ({b_by})")
+                t0 = time.time()
+                pt.run_bounce_plain(st0.take(idx.long()), 0, *args)
+                torch.cuda.synchronize()
+                plain = (time.time() - t0) * 1e3
+                for part in ("flight", "shade"):
+                    rows[f"bounce_{part}/L{L}"]["plain_ms"] = plain
+                del flight
+            bounces = sorted(states)
+            n = states[0]["st"].alive.numel()
+            counts = [states[b]["idx"].numel() for b in bounces] + [0]
+            _, wb = pt.bounce_schedule(n, counts, kernels.window_threshold(dev), 0,
+                                       cfg.max_bounces)
+            if wb is None or wb not in states:
+                fail(f"width {tag}: the frame does not enter the window ({counts[:-1]})")
+            c = states[wb]
+            idx, st0, args = c["idx"], c["st"], c["args"]
+            frame = pt.BounceFrame(st0, *args)
+            st = _clone_state(st0)
+            pt.run_window(st, idx, wb, cfg.max_bounces, *args, frame)
+            twin = _clone_state(st0)
+            t0 = time.time()
+            pt.run_window_plain(twin, idx, wb, cfg.max_bounces, *args)
+            torch.cuda.synchronize()
+            w_plain = (time.time() - t0) * 1e3
+            lanes = idx.long()
+            _hold_lanes(torch, st.take(lanes), twin.take(lanes), st0.work_class[lanes],
+                        f"width {tag} bounce_window from bounce {wb}", exact=True)
+            if apollo:
+                w_ms = _bounce_ms(torch, st0, lambda s: pt.run_window(
+                    s, idx, wb, cfg.max_bounces, *args, frame))
+                # the window's operations: each bounce's census from wb on
+                ops = alu = fma = 0.0
+                for b in bounces:
+                    if b < wb:
+                        continue
+                    cb = states[b]
+                    trips_b, _, _ = _census(torch, cb["st"], cb["idx"], b, cb["args"],
+                                            pt.BounceFrame(cb["st"], *cb["args"]))
+                    for part in ("flight", "shade"):
+                        _, o, a, f = _width_bounce_bound(torch, trips_b, cfg, tf, part,
+                                                         cb["idx"].numel(), L)
+                        ops, alu, fma = ops + o, alu + a, fma + f
+                nbytes = bounce_lane_bytes(L) * idx.numel()
+                b_ms, b_by = bound(nbytes, ops, int_ops=alu, fma_ops=fma)
+                rows[f"bounce_window/L{L}"] = dict(max_abs_err=0.0, ms=w_ms, plain_ms=w_plain,
+                                                   bytes=nbytes, ops=ops, int_ops=alu, fma_ops=fma)
+                print(f"width {tag} bounce_window from bounce {wb} ({idx.numel()} lanes, {card}): "
+                      f"{w_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}), twin {w_plain:.1f} ms")
+            del states, st, twin
+            erow = check_frame_end(torch, end_args, f"width {tag} {RES[0]}x{RES[1]}")
+            del end_args
+            r = Renderer(dev, image_res=RES, atlas=atlas, luts=luts, cfg=cfg)
+            apply_config(r, load_config(scene))
+            rargs = (r._seed_key, 0, 0, RES[0] * RES[1], RES, (1, RES[1]), r.camera_params("cpu"),
+                     luts, False, None, cfg)
+            _, g_err, g_ms, g_plain, g_dev = _hold_rays(torch, f"width {tag} path "
+                                                        f"{RES[0]}x{RES[1]}", rargs)
+            del r
+            rrow, _ = check_ratio_track(torch, capture_ratio_args(torch, ratio_c, 0),
+                                        f"width {tag} bounce 0 NEE lanes", tf)
+            del ratio_c
+            print(f"width {tag}: {time.time() - t_scene:.1f} s")
+            if apollo:
+                n = RES[0] * RES[1]
+                nbytes = luts.cie_cdf.shape[0] * 16 + n * (16 + 12 + 20 * L + 8)
+                g_alu, g_fma = tf_ops(GEN_RAYS_TF[0] * n, GEN_RAYS_TF[1] * n, tf)
+                g_ops = (GEN_RAYS_OPS + GEN_RAYS_WAVELENGTH_OPS * (L - 4)) * n + g_alu + g_fma
+                rows[f"gen_rays/L{L}"] = dict(max_abs_err=g_err, ms=g_ms, plain_ms=g_plain,
+                                              bytes=nbytes, ops=g_ops, int_ops=g_alu,
+                                              fma_ops=g_fma)
+                rows[f"frame_end/L{L}"] = erow
+                rows[f"rmo_ratio_track/L{L}"] = rrow
+                b_ms, b_by = bound(nbytes, g_ops, int_ops=g_alu, fma_ops=g_fma)
+                print(f"width {tag} gen_rays: device {g_dev:.4f} ms, bound {b_ms:.4f} ms ({b_by}; "
+                      f"{card})")
+
+        # the path at L through the public entry point, counts set to 0
+        # just before it and read just after
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        r = render_offline(load_config(SCENE), dev, spp=1, image_res=RES, out_path=None,
+                           atlas=atlas, luts=luts, cfg=cfg)
+        for _ in range(2):
+            r.accumulate()
+        img = r.fetch_image()
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        check_main_path(torch, counts, r, img, f"L = {L} path on Apollo 11")
+        widths = ("bounce_flight", "bounce_shade", "bounce_window", "gen_rays", "frame_end")
+        if any(counts.get(f"{k}/L{L}", 0) != counts[k] for k in widths):
+            fail(f"a launch of the L = {L} path ran at another width: {counts}")
+        for k in widths + ("rmo_ratio_track",):
+            rows[f"{k}/L{L}"]["launches"] = counts.get(f"{k}/L{L}", 0)
+        del r, img
+
+    # s/spp at each width and at L = 4 forced into its floor instance, each
+    # against L = 4 at its default instance
+    class Forced:
+        """A renderer whose bounce launches take the floor instance."""
+
+        def __init__(self, r):
+            self.r = r
+
+        def accumulate(self):
+            knob = kernels._knob_instance
+            kernels._knob_instance = lambda fp, ip: kernels.INST_FLOORS
+            try:
+                self.r.accumulate()
+            finally:
+                kernels._knob_instance = knob
+
+    make = lambda **kw: render_offline(load_config(SCENE), dev, spp=1,  # noqa: E731
+                                       image_res=RES, out_path=None, atlas=atlas, luts=luts,
+                                       cfg=TraceConfig(**kw))
+    before = kernels.bounce_flight.options_launches
+    forced = Forced(make())
+    forced.accumulate()
+    if kernels.bounce_flight.options_launches == before:
+        fail("L = 4 forced into the floor instance ran no floor instance")
+    for label, other in [(f"L = {L}", make(hero_lambdas=L)) for L in WIDTHS] + [
+            ("L = 4 floor instance", forced)]:
+        d, o, ratios = spp_ratio(torch, make(), other)
+        print(f"widths s/spp Apollo 11 {RES[0]}x{RES[1]} {label}: {o:.5f} against L = 4's "
+              f"{d:.5f}, ratio median {ratios[len(ratios) // 2]:.3f} (min-max {ratios[0]:.3f}-"
+              f"{ratios[-1]:.3f} over {len(ratios)} alternated rounds of {SPP_RATIO_STEPS} spp; "
+              f"{card})")
+        del other
+    t0 = time.time()
+    packet_ztests(torch, dev, card)
+    print(f"hero packet tests: {time.time() - t0:.1f} s")
+    print(f"phase 8g (the hero-packet widths): {time.time() - t_phase:.1f} s")
+    return rows
+
+
 def options_bench(torch, dev):
     """``--options-bench [DIR]``: the options instances' settings of phases
     8c, 8d, 8e and 8f (OPTION_CASES, all seven on Apollo, the five on florida;
@@ -5642,15 +6040,16 @@ def main():
     mesh_only = args == ["--mesh-only"]
     estimator_only = args == ["--estimator-only"]
     floors_only = args == ["--floors-only"]
+    widths_only = args == ["--widths-only"]
     bench = args[:1] == ["--preview-bench"] and len(args) <= 2
     pbench = args[:1] == ["--path-bench"] and len(args) <= 2
     sbench = args[:1] == ["--spp-bench"] and len(args) <= 2
     obench = args[:1] == ["--options-bench"] and len(args) <= 2
     scount = args[:1] == ["--sass-counts"] and len(args) <= 2
-    if args and not (mesh_only or estimator_only or floors_only or bench or pbench or sbench
-                     or obench or scount):
+    if args and not (mesh_only or estimator_only or floors_only or widths_only or bench or pbench
+                     or sbench or obench or scount):
         fail(f"unknown arguments {args} (the options are --mesh-only, --estimator-only, "
-             "--floors-only, "
+             "--floors-only, --widths-only, "
              "--preview-bench [DIR], --path-bench [DIR], --spp-bench [DIR], --options-bench "
              "[DIR] and --sass-counts [DIR])")
     try:
@@ -5707,6 +6106,21 @@ def main():
                                      cache_dir=os.path.join(ROOT, "build", "chip_smoke", "texture_cache"))
     print(f"procedural 1024x2048 atlas: {time.time() - t0:.1f} s")
     luts = load_spectral_luts(dev)
+    if widths_only:
+        # phase 8g alone
+        rows = check_widths(torch, dev, atlas, luts, tf)
+        print(json.dumps({"kernels": [dict(name=name, launches=row.get("launches"),
+                                           max_abs_err=row["max_abs_err"], ms=row["ms"],
+                                           plain_ms=row["plain_ms"],
+                                           bound_ms=bound(row["bytes"], row["ops"],
+                                                          int_ops=row.get("int_ops", 0),
+                                                          fma_ops=row.get("fma_ops", 0))[0])
+                                      for name, row in rows.items()]}))
+        print(nvidia_smi_line())
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return
     if mesh_only:
         # phase 19 alone, e.g. on a machine with several cards
         check_mesh(torch, dev, atlas, luts)
@@ -5816,6 +6230,8 @@ def main():
     rows.update(check_estimator_knobs(torch, dev, atlas, luts, captured, tf))
     check_march_floors(torch, dev, atlas, luts, captured, tf)
     del captured
+    width_rows = check_widths(torch, dev, atlas, luts, tf)
+    rows.update(width_rows)
 
     # --- the viewer's path -------------------------------------------------
     rows["gen_rays"] = check_gen_rays(torch, dev, atlas, luts, tf)
@@ -5945,6 +6361,13 @@ def main():
     for name in ("bounce_flight", "bounce_shade", "bounce_window"):
         sources[f"{name}/options"] = ("cuda", "digital_earth_tpu_torch/csrc/bounce_opts.cu",
                                       sources[name][2])
+    # the width libraries' instances (phase 8g): the bounce entries' floor
+    # instances of csrc/width/, the other kernels' sources built at the width
+    for key in width_rows:
+        name = key.split("/")[0]
+        src = ("digital_earth_tpu_torch/csrc/width/bounce_floor.cu" if name.startswith("bounce")
+               else sources[name][1])
+        sources[key] = ("cuda", src, sources[name][2])
     # launches: the main path's run (0 for the trackers, whose loops run
     # inside bounce there, and for atmos_march, whose loop runs inside
     # preview), or for preview the preview frame's run, for select_tiles the
@@ -5969,7 +6392,8 @@ def main():
         # argsort) and upsample's repeat (expand + reshape; without the
         # jitter on two of the four planes), none the others' functions
         entries.append({"name": name, "route": route, "source": src, "replaces": rep,
-                        "launches": launches[name], "max_abs_err": row["max_abs_err"],
+                        "launches": launches[name] if name in launches else row["launches"],
+                        "max_abs_err": row["max_abs_err"],
                         "ms": row["ms"], "plain_ms": row.get("plain_ms"), "bound_ms": bound_ms,
                         "bound_by": bound_by, "library_ms": row.get("library_ms")})
     line = {"kernels": entries}

@@ -6,13 +6,22 @@
 // bounce_l1_ratio.cu, the options instances in their *_opts.cu twins, the
 // estimator instances in their *_est.cu twins and the floor instances in
 // their *_floor.cu twins. A launch takes the instance its parameters ask
-// for (ip[0], ip[15], ip[33]).
+// for (ip[0], ip[15], ip[33]). Built with -DDE_WIDTH=L, these are a width
+// library's entries (packet_width.cuh): the floor instances of
+// width/bounce_floor.cu and width/bounce_ratio_floor.cu at that width alone.
 #include "bounce.cuh"
+#include "packet_width.cuh"
 
 namespace de {
 
+#ifdef DE_WIDTH
+extern DE_BOUNCE_INSTANCE(DE_WIDTH, false, INST_FLOORS);
+extern DE_BOUNCE_INSTANCE(DE_WIDTH, true, INST_FLOORS);
+extern template int entry_occupancy<INST_FLOORS, DE_WIDTH>(int, int*);
+#else
 DE_BOUNCE_INSTANCE(4, false, INST_DEFAULT);
 template int entry_occupancy<INST_DEFAULT>(int, int*);
+#endif
 
 static bool is_flag(int v) { return v == 0 || v == 1; }
 
@@ -32,7 +41,7 @@ static int unpack_params(const float* fp, const int* ip, BounceParams& p,
   p.planck_k = fp[12];
   for (int j = 0; j < 3; ++j) p.max_dens[j] = fp[13 + j];
   p.n_lambdas = ip[0];
-  if (p.n_lambdas != 1 && p.n_lambdas != 4) return (int)cudaErrorInvalidValue;
+  if (!holds_width(p.n_lambdas)) return (int)cudaErrorInvalidValue;
   p.bounce = ip[1];
   p.rr_start = ip[2];
   p.march_steps = ip[3];
@@ -115,17 +124,21 @@ template <int OPTS>
 static int launch_bounce(int entry, const BounceState& s, const BounceParams& p,
                          const BounceOptionsFloors& o, void* scratch, int stop,
                          cudaStream_t stream) {
-  if (p.n_lambdas == 4) {
-    return p.ratio ? launch_entry<4, true, OPTS>(entry, s, p, o, scratch, stop, stream)
-                   : launch_entry<4, false, OPTS>(entry, s, p, o, scratch, stop, stream);
-  }
-  return p.ratio ? launch_entry<1, true, OPTS>(entry, s, p, o, scratch, stop, stream)
-                 : launch_entry<1, false, OPTS>(entry, s, p, o, scratch, stop, stream);
+  return with_width(p.n_lambdas, [&](auto width) {
+    constexpr int L = decltype(width)::value;
+    return p.ratio ? launch_entry<L, true, OPTS>(entry, s, p, o, scratch, stop, stream)
+                   : launch_entry<L, false, OPTS>(entry, s, p, o, scratch, stop, stream);
+  });
 }
 
 static int launch_bounce(int entry, const BounceState& s, const BounceParams& p,
                          const BounceOptionsFloors& o, int opts, void* scratch, int stop,
                          cudaStream_t stream) {
+#ifdef DE_WIDTH
+  // a width library holds the floor instances alone (they read every option)
+  return opts == INST_FLOORS ? launch_bounce<INST_FLOORS>(entry, s, p, o, scratch, stop, stream)
+                             : (int)cudaErrorInvalidValue;
+#else
   if (opts == INST_FLOORS) {
     return launch_bounce<INST_FLOORS>(entry, s, p, o, scratch, stop, stream);
   }
@@ -134,6 +147,7 @@ static int launch_bounce(int entry, const BounceState& s, const BounceParams& p,
   }
   return opts ? launch_bounce<INST_OPTIONS>(entry, s, p, o, scratch, stop, stream)
               : launch_bounce<INST_DEFAULT>(entry, s, p, o, scratch, stop, stream);
+#endif
 }
 
 }  // namespace de
@@ -148,7 +162,7 @@ static int launch_bounce(int entry, const BounceState& s, const BounceParams& p,
 //     Python floats); the march floors: the primary marches' step floor and
 //     stall threshold at bounce 0, then past it, and the uncertified floor
 //     (each above 0)
-// ip (34 ints): n_lambdas (L, 1 or 4), bounce, rr_start, land_march_steps,
+// ip (34 ints): n_lambdas (L: 1 or 4; a width library's own), bounce, rr_start, land_march_steps,
 //     march_k, march_patience, max_tracking_steps, tracking_k,
 //     bilinear_materials, topography H, W, material H, W, clouds H, W,
 //     ratio (1: the gases' sun transmittance by ratio tracking, the
@@ -164,7 +178,7 @@ static int launch_bounce(int entry, const BounceState& s, const BounceParams& p,
 //     takes the estimator options' and the march floors' defaults only; 0: the
 //     default, which takes every option's default only; every instance takes
 //     any march_patience, and the roulettes' start bounces and the Newton
-//     steps, which act only with their options)
+//     steps, which act only with their options; a width library takes 3 alone)
 // State (n lanes, read and written in place at the lanes of idx): pos,
 // dir (N, 3); wavelength, lambda_pdf, throughput, radiance, w_mis (N, L);
 // alive, primary_miss (N,) bool; work_class (N,) int32; keys (N, 2) int32.
@@ -233,8 +247,13 @@ extern "C" int de_bounce_window(DE_BOUNCE_ARGS, int stop, void* stream) {
 // thread). which: 0 bounce_flight, 1 bounce_shade, 2 bounce_window, each
 // at L = 4 and the closed-form transmittance: the default instance (opts 0),
 // the options instance (1, bounce_opts.cu), the estimator instance (2,
-// bounce_est.cu) or the floor instance (3, bounce_floor.cu).
+// bounce_est.cu) or the floor instance (3, bounce_floor.cu); in a width
+// library, its floor instance (3) at its width.
 extern "C" int de_bounce_occupancy(int which, int opts, int* out) {
+#ifdef DE_WIDTH
+  return opts == de::INST_FLOORS ? de::entry_occupancy<de::INST_FLOORS, DE_WIDTH>(which, out)
+                                 : (int)cudaErrorInvalidValue;
+#else
   switch (opts) {
     case de::INST_DEFAULT: return de::entry_occupancy<de::INST_DEFAULT>(which, out);
     case de::INST_OPTIONS: return de::entry_occupancy<de::INST_OPTIONS>(which, out);
@@ -242,4 +261,5 @@ extern "C" int de_bounce_occupancy(int which, int opts, int* out) {
     case de::INST_FLOORS: return de::entry_occupancy<de::INST_FLOORS>(which, out);
     default: return (int)cudaErrorInvalidValue;
   }
+#endif
 }

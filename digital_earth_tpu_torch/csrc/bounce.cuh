@@ -1283,16 +1283,17 @@ int launch_entry(int entry, const BounceState& s, const BounceParams& bp,
 }
 
 // Occupancy of an entry (which: 0 bounce_flight, 1 bounce_shade, 2
-// bounce_window) at L = 4 and the closed form, the default instance or the
-// options instance (OPTS), on the current device: out = (resident blocks
-// per SM, threads per block, registers per thread, local memory bytes per
-// thread). Instantiated with that set (bounce.cu, bounce_opts.cu).
-template <int OPTS>
+// bounce_window) at L (4 in the main library, a width library's own width)
+// and the closed form, the default instance or the options instance
+// (OPTS), on the current device: out = (resident blocks per SM, threads per
+// block, registers per thread, local memory bytes per thread). Instantiated
+// with that set (bounce.cu, bounce_opts.cu, width/bounce_floor.cu).
+template <int OPTS, int L = 4>
 int entry_occupancy(int which, int* out) {
   const void* fns[] = {
-      (const void*)bounce_flight_kernel<4, false, OPTS>,
-      (const void*)bounce_shade_kernel<4, false, false, OPTS>,
-      (const void*)bounce_window_kernel<4, false, OPTS>,
+      (const void*)bounce_flight_kernel<L, false, OPTS>,
+      (const void*)bounce_shade_kernel<L, false, false, OPTS>,
+      (const void*)bounce_window_kernel<L, false, OPTS>,
   };
   if (which < 0 || which > 2) return (int)cudaErrorInvalidValue;
   const int block = which == 2 ? WINDOW_BLOCK : BOUNCE_BLOCK;

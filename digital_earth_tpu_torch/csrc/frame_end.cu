@@ -38,7 +38,14 @@
 
 namespace de {
 
+// The packet widths the per-wavelength arrays hold: up to 8 in the main
+// library; a width library past 8 (packet_width.cuh) builds this source
+// with its own width, DE_WIDTH.
+#if defined(DE_WIDTH) && DE_WIDTH > 8
+constexpr int MAX_LAMBDAS = DE_WIDTH;
+#else
 constexpr int MAX_LAMBDAS = 8;
+#endif
 
 struct FrameEndParams {
   float planck_a, planck_b, planck_k, sun_temperature, stars_scale;

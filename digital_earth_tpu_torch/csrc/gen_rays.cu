@@ -21,19 +21,22 @@
 //     on the host);
 //   - the CIE inverse CDF: binary search for the first g[i] >= u
 //     (searchsorted side="left"), clipped to [1, res - 1], then the hero
-//     packet's L rotations (L = 4 or 1, TraceConfig.hero_lambdas; the
+//     packet's L rotations (TraceConfig.hero_lambdas: 1 or 4 in the main
+//     library, any other L in that width's library, packet_width.cuh; the
 //     pdf q of each) or the preview's single wavelength (L = 1, 1 / q).
 // Each Python divisor of the plain twin (/ H in cast_dirs, / res in
-// _cie_mid, / L of the rotations) is a multiply by float32(1 / b), the
-// reciprocal taken in double, as PyTorch's CUDA ops apply it; so every
-// field agrees with the twin bit for bit.
+// _cie_mid) is a multiply by float32(1 / b), the reciprocal taken in
+// double, as PyTorch's CUDA ops apply it, and the rotations are l *
+// float32(1 / L), as the twin (ops/spectral.hero_shifts) and the jitted
+// reference take them (ROADMAP C #6); so every field agrees with the twin
+// bit for bit.
 //
 // Design: lane arithmetic in 32 bits (the wrapper keeps lane0 + n < 2^31),
 // the tile map's divisions by per-launch constants as multiply-high
 // divisors; g and the XYZ response (4 res floats) staged in shared memory
 // by each block of 256 lanes for the search and the lerps; keys,
-// wavelengths, responses and pdf written as 16-byte stores (L = 4; L = 1
-// stores each float), the
+// wavelengths, responses and pdf written as 16-byte stores (L = 4; other
+// widths store each float), the
 // block's directions through shared memory as one coalesced run. On the
 // H100 at 1080p one block per 256 lanes beat a grid of 8 resident blocks
 // per SM striding over the lanes (whose table staging it saved), and the
@@ -48,6 +51,7 @@
 #include <cuda_runtime.h>
 
 #include "fast_div.cuh"
+#include "packet_width.cuh"
 #include "threefry.cuh"
 
 namespace de {
@@ -207,8 +211,9 @@ int launch_gen_rays(const float* g, const float* cie_response, int64_t* keys, fl
 // keys (n, 2) int64, dirs (n, 3), wavelengths (n, L), responses (n, L, 3),
 // pdf (n, L), pid (n,) int64; tile_index, lane_index (n,) int64 or null;
 // tile_ids: int32 tile list on the device, or null for consecutive tiles.
-// L is 1 or 4; lane0 + n < 2^31; 4 res floats fit in 48 KiB of shared
-// memory; the outputs are 16-byte aligned (PyTorch's allocations are).
+// L is a width the library holds (packet_width.cuh); lane0 + n < 2^31; 4 res
+// floats fit in 48 KiB of shared memory; the outputs are 16-byte aligned
+// (PyTorch's allocations are).
 extern "C" int de_gen_rays(const float* fp, const int64_t* ip, const float* g,
                            const float* cie_response, int64_t* keys, float* dirs,
                            float* wavelengths, float* responses, float* pdf, int64_t* pid,
@@ -217,7 +222,7 @@ extern "C" int de_gen_rays(const float* fp, const int64_t* ip, const float* g,
   if (n <= 0) return (int)cudaGetLastError();
   const int64_t lane0 = ip[4], h = ip[6], bw = ip[7], bh = ip[8], res = ip[9], L = ip[10];
   if (lane0 < 0 || lane0 + n >= (1ll << 31) || bw <= 0 || bh <= 0 || h % bh != 0 || res < 2 ||
-      4 * res * (int64_t)sizeof(float) > 48 * 1024 || (L != 1 && L != 4) ||
+      4 * res * (int64_t)sizeof(float) > 48 * 1024 || !de::holds_width((int)L) ||
       (tile_index == nullptr) != (lane_index == nullptr))
     return (int)cudaErrorInvalidValue;
   de::RayGenParams p;
@@ -251,9 +256,9 @@ extern "C" int de_gen_rays(const float* fp, const int64_t* ip, const float* g,
   p.preview = (int)ip[11];
   p.stratify = (int)ip[12];
   cudaStream_t s = (cudaStream_t)stream;
-  if (L == 4)
-    return de::launch_gen_rays<4>(g, cie_response, keys, dirs, wavelengths, responses, pdf, pid,
-                                  tile_index, lane_index, tile_ids, p, s);
-  return de::launch_gen_rays<1>(g, cie_response, keys, dirs, wavelengths, responses, pdf, pid,
-                                tile_index, lane_index, tile_ids, p, s);
+  return de::with_width((int)L, [&](auto width) {
+    return de::launch_gen_rays<decltype(width)::value>(g, cie_response, keys, dirs, wavelengths,
+                                                       responses, pdf, pid, tile_index,
+                                                       lane_index, tile_ids, p, s);
+  });
 }

@@ -11,7 +11,8 @@
 //
 // Two instances a width: the default (threefry draws) and the options
 // instance (FAST: the counter hash of fast_rng.cuh, TraceConfig.
-// fast_loop_rng), as the bounce entries run them.
+// fast_loop_rng), as the bounce entries run them; the widths 1 and 4 in
+// the main library, any other in that width's library (packet_width.cuh).
 //
 // What bounds it on the H100: neither bytes (a lane reads 60 + 12 L B and
 // writes 4 L B) nor its operations, mostly threefry's integer work (a key
@@ -23,6 +24,7 @@
 
 #include <cuda_runtime.h>
 
+#include "packet_width.cuh"
 #include "rmo_track.cuh"
 
 namespace de {
@@ -70,7 +72,8 @@ int launch_rmo_ratio_track(const int32_t* keys, const float* pos, const float* d
 
 // keys (n, 2) int32; pos, dir (n, 3); t_start, t_max, max_ext (n,); ext
 // (n, L, 3) float32; active (n,) bool; trans (n, L) float32 out; iters
-// (n,) int32 out (the loop's iterations per lane) or null. L is 1 or 4.
+// (n,) int32 out (the loop's iterations per lane) or null. L is a width the
+// library holds (packet_width.cuh).
 // fast: the options instance (the counter hash's draws).
 extern "C" int de_rmo_ratio_track(const int32_t* keys, const float* pos, const float* dir,
                                   const float* t_start, const float* t_max, const float* ext,
@@ -79,11 +82,9 @@ extern "C" int de_rmo_ratio_track(const int32_t* keys, const float* pos, const f
                                   int fast, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (n <= 0) return (int)cudaGetLastError();
-  if (n_lambdas == 4)
-    return de::launch_rmo_ratio_track<4>(keys, pos, dir, t_start, t_max, ext, max_ext, active,
-                                         trans, iters, n, max_steps, k, fast, s);
-  if (n_lambdas == 1)
-    return de::launch_rmo_ratio_track<1>(keys, pos, dir, t_start, t_max, ext, max_ext, active,
-                                         trans, iters, n, max_steps, k, fast, s);
-  return (int)cudaErrorInvalidValue;
+  return de::with_width(n_lambdas, [&](auto width) {
+    return de::launch_rmo_ratio_track<decltype(width)::value>(
+        keys, pos, dir, t_start, t_max, ext, max_ext, active, trans, iters, n, max_steps, k, fast,
+        s);
+  });
 }

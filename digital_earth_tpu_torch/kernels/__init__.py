@@ -40,6 +40,17 @@ each counted as an options launch. The tracker launchers ``rmo_delta_track``,
 ``rmo_ratio_track`` and ``cloud_track`` have instances that draw the
 counter hash (``fast_rng``), counted as their options launches.
 
+The main library holds the packets of ``BOUNCE_WIDTHS`` (1 and 4
+wavelengths, TraceConfig.hero_lambdas). Every other width L runs from a
+library of its own (``width_library``), built at its first use from the
+same sources with ``-DDE_WIDTH=L`` (csrc/packet_width.cuh) into
+``build/kernels/<hash of the sources and L>/``: the bounce entries as the
+floor instances alone (csrc/width/, which read every option at run time, so
+one set serves every setting), ``gen_rays``, ``rmo_ratio_track`` and, past
+``FRAME_END_MAX_LAMBDAS``, ``frame_end``. A launch at such a width (of any
+library) also adds one to the wrapper's count at that width,
+``launch_counts``' ``"<name>/L<n>"``.
+
 Built with ``--fmad=false`` and without fast math, so the kernels round each
 operation as PyTorch's element-wise CUDA ops do (the one fused multiply-add,
 in the perigee radius, is ``fmaf`` here and a float64 multiply-add in the
@@ -70,10 +81,14 @@ NVCC_FLAGS = [
 ]
 
 _lib = None
-_lock = threading.Lock()  # the build, and the launch counters of worker threads
+_lock = threading.Lock()  # the builds, and the launch counters of worker threads
 build_seconds = None
 # ptxas's report (registers, spills) per source of the last build, by file name
 ptxas_log = {}
+# the width libraries (width_library) by packet width: the loaded library,
+# and ptxas's report per source of the last build (by path under csrc/)
+_width_libs = {}
+width_ptxas_log = {}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _BOUNCE_ARGS = [_P] * 15 + [_I, _I] + [_P] * 6
@@ -180,6 +195,30 @@ def _sources():
     )
 
 
+# the packet widths of the main library (csrc/packet_width.cuh); every other
+# TraceConfig.hero_lambdas runs from its own width library
+BOUNCE_WIDTHS = (1, 4)
+# the widest packet the main library's frame_end takes (csrc/frame_end.cu
+# MAX_LAMBDAS); a wider packet's frame_end runs from its width library
+FRAME_END_MAX_LAMBDAS = 8
+WIDTH_DIR = os.path.join(CSRC, "width")
+# the C entries of a width library: those of the sources of csrc/ it builds
+# with -DDE_WIDTH=L (WIDTH_ENTRIES, and frame_end.cu past
+# FRAME_END_MAX_LAMBDAS), the bounce entries' floor instances in WIDTH_DIR
+WIDTH_ENTRIES = {"bounce.cu": ("de_bounce_flight", "de_bounce_shade", "de_bounce_window",
+                               "de_bounce_occupancy"),
+                 "gen_rays.cu": ("de_gen_rays",), "rmo_ratio_track.cu": ("de_rmo_ratio_track",)}
+
+
+def _width_dir_sources():
+    return sorted(os.path.join(WIDTH_DIR, f) for f in os.listdir(WIDTH_DIR) if f.endswith(".cu"))
+
+
+def _width_sources(L: int):
+    entries = list(WIDTH_ENTRIES) + (["frame_end.cu"] if L > FRAME_END_MAX_LAMBDAS else [])
+    return [os.path.join(CSRC, f) for f in entries] + _width_dir_sources()
+
+
 def library():
     """The loaded kernel library, built on first call (by one thread)."""
     if _lib is not None:
@@ -188,51 +227,113 @@ def library():
         return _lib if _lib is not None else _build()
 
 
-def _build():
-    global _lib, build_seconds
-    srcs = _sources()
+def _library_dir(extra: str = ""):
+    """build/kernels/<hash of every source of csrc/ (the width sources too
+    when ``extra``, the width's define, is given), the flags and ``extra``>."""
     digest = hashlib.sha256()
-    for path in srcs:
+    for path in _sources() + (_width_dir_sources() if extra else []):
         with open(path, "rb") as f:
             digest.update(f.read())
     digest.update(" ".join(NVCC_FLAGS).encode())
-    out_dir = os.path.join(BUILD_ROOT, digest.hexdigest()[:16])
-    so = os.path.join(out_dir, "libde_kernels.so")
-    t0 = time.time()
-    if not os.path.exists(so):
-        nvcc = nvcc_path()
-        os.makedirs(out_dir, exist_ok=True)
-        tag = f"tmp{os.getpid()}"
-        cus = [src for src in srcs if src.endswith(".cu")]
-        objs = [os.path.join(out_dir, os.path.basename(src) + f".{tag}.o") for src in cus]
-        procs = [
-            subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj, src],
-                             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-            for src, obj in zip(cus, objs)
-        ]
-        for src, proc in zip(cus, procs):
+    digest.update(extra.encode())
+    return os.path.join(BUILD_ROOT, digest.hexdigest()[:16])
+
+
+def _nvcc(builds):
+    """Compile and link shared libraries with nvcc, every object of every
+    library at once, in parallel: ``builds`` holds (library path, sources,
+    extra flags, log), each source's ptxas report going into its log by its
+    path under csrc/. Raises on the first failure."""
+    nvcc = nvcc_path()
+    tag = f"tmp{os.getpid()}"
+    jobs = []
+    for so, srcs, flags, log in builds:
+        os.makedirs(os.path.dirname(so), exist_ok=True)
+        for src in srcs:
+            obj = os.path.join(os.path.dirname(so), os.path.basename(src) + f".{tag}.o")
+            proc = subprocess.Popen([nvcc, *NVCC_FLAGS, *flags, "-c", "-o", obj, src],
+                                    stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            jobs.append((so, src, obj, proc, log))
+    try:
+        for so, src, obj, proc, log in jobs:
             out, err = proc.communicate()
             if proc.returncode != 0:
-                for other in procs:
-                    other.kill()
                 raise RuntimeError(f"nvcc failed on {src} ({proc.returncode}):\n{out}\n{err}")
-            ptxas_log[os.path.basename(src)] = out + err
+            log[os.path.relpath(src, CSRC)] = out + err
+    finally:
+        for job in jobs:
+            if job[3].poll() is None:
+                job[3].kill()
+                job[3].wait()
+    for so, *_ in builds:
+        objs = [obj for lib, _, obj, _, _ in jobs if lib == so]
         tmp = f"{so}.{tag}"
-        proc = subprocess.run([nvcc, "-shared", "-o", tmp, *objs],
-                              capture_output=True, text=True)
+        proc = subprocess.run([nvcc, "-shared", "-o", tmp, *objs], capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
         os.replace(tmp, so)
         for obj in objs:
             os.remove(obj)
+
+
+def _load(so, names):
     lib = ctypes.CDLL(so)
-    for name, argtypes in _SIGNATURES.items():
+    for name in names:
         fn = getattr(lib, name)
-        fn.argtypes = argtypes
+        fn.argtypes = _SIGNATURES[name]
         fn.restype = ctypes.c_int
+    return lib
+
+
+def _build():
+    global _lib, build_seconds
+    so = os.path.join(_library_dir(), "libde_kernels.so")
+    t0 = time.time()
+    if not os.path.exists(so):
+        _nvcc([(so, [src for src in _sources() if src.endswith(".cu")], [], ptxas_log)])
+    lib = _load(so, _SIGNATURES)
     build_seconds = time.time() - t0
     _lib = lib
     return lib
+
+
+def _width_names(L: int):
+    names = [name for entries in WIDTH_ENTRIES.values() for name in entries]
+    return names + (["de_frame_end"] if L > FRAME_END_MAX_LAMBDAS else [])
+
+
+def build_width_libraries(widths):
+    """Build (or load, when built before) the width libraries of ``widths``
+    (packet widths outside ``BOUNCE_WIDTHS``) in one parallel nvcc batch,
+    each from the sources' ``-DDE_WIDTH=L`` build, and keep them loaded.
+    Raises if a build fails."""
+    widths = sorted(set(widths))
+    for L in widths:
+        if L in BOUNCE_WIDTHS or L < 1:
+            raise ValueError(f"width library of {L} wavelengths: the main library holds "
+                             f"{BOUNCE_WIDTHS}, a width library any other L >= 1")
+    with _lock:
+        todo = [L for L in widths if L not in _width_libs]
+        sos = {L: os.path.join(_library_dir(f"-DDE_WIDTH={L}"), f"libde_width{L}.so") for L in todo}
+        _nvcc([(sos[L], _width_sources(L), [f"-DDE_WIDTH={L}"], width_ptxas_log.setdefault(L, {}))
+               for L in todo if not os.path.exists(sos[L])])
+        for L in todo:
+            _width_libs[L] = _load(sos[L], _width_names(L))
+
+
+def width_library(L: int):
+    """The loaded library of packet width ``L`` (outside ``BOUNCE_WIDTHS``),
+    built at its first use (by one thread)."""
+    lib = _width_libs.get(L)
+    if lib is None:
+        build_width_libraries([L])
+        lib = _width_libs[L]
+    return lib
+
+
+def _library_of(width):
+    """The library that holds a launch at packet ``width`` (None: the main)."""
+    return library() if width is None or width in BOUNCE_WIDTHS else width_library(width)
 
 
 def _check(name, t, dtype, shape, device):
@@ -255,19 +356,24 @@ def _check_tex4(name, t, device):
                          "as one 32-bit word)")
 
 
-def _launch(fn_name, *args):
-    rc = getattr(library(), fn_name)(
+def _launch(fn_name, *args, width=None):
+    """Call the C entry ``fn_name`` of the library of packet ``width`` (None:
+    the main library) on the current stream; raises on a CUDA error."""
+    rc = getattr(_library_of(width), fn_name)(
         *args, ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
     )
     if rc != 0:
-        raise RuntimeError(f"{fn_name}: CUDA error {rc}")
+        where = "" if width is None or width in BOUNCE_WIDTHS else f" (the L = {width} library)"
+        raise RuntimeError(f"{fn_name}{where}: CUDA error {rc}")
 
 
-def _count(fn, n, options=False):
+def _count(fn, n, options=False, width=None):
     with _lock:
         fn.launches += n
         if options:
             fn.options_launches += n
+        if width is not None and width not in BOUNCE_WIDTHS:
+            fn.width_launches[width] = fn.width_launches.get(width, 0) + n
 
 
 # The scene and march flags' defaults (render/params.SCENE_OPTIONS), at
@@ -369,15 +475,16 @@ def rmo_ratio_track(keys, pos, direction, t_start, t_max, ext, max_ext, active, 
                     max_steps: int, k: int, iters: bool = False, fast_rng: bool = False):
     """Launch ``rmo_ratio_track`` (csrc/rmo_ratio_track.cu): the (n, L)
     transmittance of the gases by ratio tracking at the (n,) packet majorant
-    ``max_ext``, ``ext`` the (n, L, 3) extinctions, L in ``BOUNCE_WIDTHS``;
-    with ``iters``, (trans, the (n,) int32 iterations of each lane).
-    ``fast_rng`` launches the options instance (the counter-hash draws)."""
+    ``max_ext``, ``ext`` the (n, L, 3) extinctions, any L >= 1 (outside
+    ``BOUNCE_WIDTHS`` from L's width library); with ``iters``, (trans, the
+    (n,) int32 iterations of each lane). ``fast_rng`` launches the options
+    instance (the counter-hash draws)."""
     dev = pos.device
     n = pos.shape[0]
     L = ext.shape[1] if ext.dim() == 3 else 0
-    if L not in BOUNCE_WIDTHS:
-        raise ValueError(f"rmo_ratio_track: {L} wavelengths per lane, the kernel takes "
-                         f"{' or '.join(map(str, BOUNCE_WIDTHS))}")
+    if L < 1:
+        raise ValueError(f"rmo_ratio_track: extinctions of shape {tuple(ext.shape)}, expected "
+                         "(n, L, 3) with L >= 1")
     keys = keys_i32(keys)
     _check("keys", keys, torch.int32, (n, 2), dev)
     _check("pos", pos, torch.float32, (n, 3), dev)
@@ -393,9 +500,9 @@ def rmo_ratio_track(keys, pos, direction, t_start, t_max, ext, max_ext, active, 
         _launch(
             "de_rmo_ratio_track", _ptr(keys), _ptr(pos), _ptr(direction), _ptr(t_start),
             _ptr(t_max), _ptr(ext), _ptr(max_ext), _ptr(active), _ptr(trans), _ptr_or_null(it),
-            n, L, max_steps, k, int(fast_rng),
+            n, L, max_steps, k, int(fast_rng), width=L,
         )
-        _count(rmo_ratio_track, 1, fast_rng)
+        _count(rmo_ratio_track, 1, fast_rng, width=L)
     return (trans, it) if iters else trans
 
 
@@ -585,8 +692,9 @@ def atmos_march(pos, direction, t_start, t_max, sun_dir, ext_rmo, scattering,
 
 def gen_rays(fparams, iparams, g, cie_response, n: int, n_lambdas: int, tile_ids=None,
              tile_map: bool = False):
-    """Launch ``gen_rays`` (csrc/gen_rays.cu) for ``n`` lanes: (keys (n, 2)
-    int64, dirs (n, 3), wavelengths (n, L), responses (n, L, 3), pdf (n, L),
+    """Launch ``gen_rays`` (csrc/gen_rays.cu) for ``n`` lanes at ``n_lambdas``
+    = L wavelengths (outside ``BOUNCE_WIDTHS`` from L's width library):
+    (keys (n, 2) int64, dirs (n, 3), wavelengths (n, L), responses (n, L, 3), pdf (n, L),
     pid (n,) int64, and with ``tile_map`` each lane's tile index and in-tile
     lane (n,) int64, else None, None). ``fparams`` (19 floats) and
     ``iparams`` (13 ints; the last is 1 for the stratified primary samples,
@@ -600,8 +708,9 @@ def gen_rays(fparams, iparams, g, cie_response, n: int, n_lambdas: int, tile_ids
         raise ValueError("gen_rays: expected 19 float and 13 int parameters")
     _check("g", g, torch.float32, (res,), dev)
     _check("cie_response", cie_response, torch.float32, (res, 3), dev)
-    if n_lambdas not in BOUNCE_WIDTHS or not 2 <= res <= 3072:
-        raise ValueError(f"gen_rays: {n_lambdas} wavelengths (1 or 4), a table of {res} (2-3072)")
+    if n_lambdas < 1 or not 2 <= res <= 3072:
+        raise ValueError(f"gen_rays: {n_lambdas} wavelengths (at least 1), a table of {res} "
+                         "(2-3072)")
     if iparams[10] != n_lambdas or iparams[12] not in (0, 1):
         raise ValueError(f"gen_rays: {iparams[10]} wavelengths in the parameters for {n_lambdas}, "
                          f"stratify flag {iparams[12]} (0 or 1)")
@@ -628,9 +737,9 @@ def gen_rays(fparams, iparams, g, cie_response, n: int, n_lambdas: int, tile_ids
             "de_gen_rays", ctypes.cast(fp, ctypes.c_void_p), ctypes.cast(ip, ctypes.c_void_p),
             _ptr(g), _ptr(cie_response), _ptr(keys), _ptr(dirs), _ptr(wavelengths),
             _ptr(responses), _ptr(pdf), _ptr(pid), _ptr_or_null(tidx), _ptr_or_null(li),
-            _ptr_or_null(tile_ids), n,
+            _ptr_or_null(tile_ids), n, width=n_lambdas,
         )
-        _count(gen_rays, 1)
+        _count(gen_rays, 1, width=n_lambdas)
     return keys, dirs, wavelengths, responses, pdf, pid, tidx, li
 
 
@@ -644,13 +753,16 @@ def frame_end(fparams, iparams, radiance, responses, pid, color, count=None, lum
     passes ``miss``, the miss-shading inputs (throughput, w_mis, lambda_pdf,
     wavelength, direction, primary_miss, light_direction, sun_cos_angle,
     stars, srgb2spec). ``fparams`` (17 floats) and ``iparams`` (5 ints) are
-    laid out as de_frame_end documents (render/frame_end.py builds them)."""
+    laid out as de_frame_end documents (render/frame_end.py builds them). A
+    packet wider than ``FRAME_END_MAX_LAMBDAS`` runs from its width library."""
     dev = radiance.device
     n = pid.shape[0]
     n_l = iparams[0]
     n_pix = color.shape[0]
     if len(fparams) != 17 or len(iparams) != 5:
         raise ValueError("frame_end: expected 17 float and 5 int parameters")
+    if n_l < 1:
+        raise ValueError(f"frame_end: {n_l} wavelengths per lane")
     if (pdf is None) == (miss is None):
         raise ValueError("frame_end: pass pdf (preview) or miss (path), not both")
     if (count is None) != (lum2 is None):
@@ -682,8 +794,9 @@ def frame_end(fparams, iparams, radiance, responses, pid, color, count=None, lum
             "de_frame_end", ctypes.cast(fp, ctypes.c_void_p), ctypes.cast(ip, ctypes.c_void_p),
             _ptr(radiance), _ptr(responses), *ptrs, _ptr(pid), _ptr(color),
             _ptr_or_null(count), _ptr_or_null(lum2), n,
+            width=n_l if n_l > FRAME_END_MAX_LAMBDAS else None,
         )
-        _count(frame_end, 1)
+        _count(frame_end, 1, width=n_l)
 
 
 SELECT_TILES_STAGES = 2  # kernel launches per call up to SELECT_SORT_MAX tiles
@@ -855,9 +968,6 @@ def film_postprocess(color_buffer, count, spp: float, exposure_scale: float,
     return out
 
 
-# wavelengths per lane the bounce entries, gen_rays and the ratio tracker are
-# built for (csrc/bounce.cuh; TraceConfig.hero_lambdas takes these)
-BOUNCE_WIDTHS = (1, 4)
 # the scene and march flags, then the naive arm's (render/params.NAIVE_OPTIONS),
 # that follow the bounce entries' sixteen ints, in order (the stall
 # patience, int 5, is a run-time parameter of every instance)
@@ -952,7 +1062,10 @@ def _bounce_args(fparams, iparams, pos, direction, wavelength, lambda_pdf, throu
                  w_mis, alive, primary_miss, work_class, keys, idx, topo, material, clouds,
                  o3_crossec, srgb2spec, table, n_live, options=False):
     """Check a bounce launch's arguments: (the C arguments up to the tables,
-    the ctypes blocks they point to, the instance that runs: ``INST_*``)."""
+    the ctypes blocks they point to, the instance the options ask for:
+    ``INST_*``, the packet width). At a width outside ``BOUNCE_WIDTHS`` the
+    C block asks for the floor instance, the one set a width library holds
+    (it reads every option at run time)."""
     dev = pos.device
     n = pos.shape[0]
     m = idx.shape[0]
@@ -960,9 +1073,8 @@ def _bounce_args(fparams, iparams, pos, direction, wavelength, lambda_pdf, throu
         raise ValueError(f"bounce: expected {BOUNCE_FLOATS} float and {BOUNCE_INTS} int "
                          "parameters")
     L = iparams[0]
-    if L not in BOUNCE_WIDTHS:
-        raise ValueError(f"bounce: {L} wavelengths per lane, the kernels take "
-                         f"{' or '.join(map(str, BOUNCE_WIDTHS))}")
+    if L < 1:
+        raise ValueError(f"bounce: {L} wavelengths per lane")
     if iparams[15] not in (0, 1):
         raise ValueError(f"bounce: ratio flag {iparams[15]}, expected 0 or 1")
     if iparams[16 + BOUNCE_OPTIONS.index("naive_tracking")] and L != 1:
@@ -994,14 +1106,15 @@ def _bounce_args(fparams, iparams, pos, direction, wavelength, lambda_pdf, throu
     scene = _options_instance(iparams, 16, BOUNCE_OPTIONS, options)
     opts = _knob_instance(fparams, iparams) or (INST_OPTIONS if scene else INST_DEFAULT)
     fp = (ctypes.c_float * BOUNCE_FLOATS)(*fparams)
-    ip = (ctypes.c_int * (BOUNCE_INTS + 1))(*iparams, opts)
+    inst = opts if L in BOUNCE_WIDTHS else INST_FLOORS
+    ip = (ctypes.c_int * (BOUNCE_INTS + 1))(*iparams, inst)
     return [
         ctypes.cast(fp, ctypes.c_void_p), ctypes.cast(ip, ctypes.c_void_p),
         _ptr(pos), _ptr(direction), _ptr(wavelength), _ptr(lambda_pdf), _ptr(throughput),
         _ptr(radiance), _ptr(w_mis), _ptr(alive), _ptr(primary_miss), _ptr(work_class),
         _ptr(keys), _ptr(idx), _ptr_or_null(n_live), m, n, _ptr(topo), _ptr(material),
         _ptr(clouds), _ptr(o3_crossec), _ptr(srgb2spec), _ptr(table),
-    ], (fp, ip), opts
+    ], (fp, ip), opts, L
 
 
 def _census_args(trips, cycles, m, dev):
@@ -1034,22 +1147,24 @@ def bounce_flight(*args, n_live=None, trips=None, cycles=None, options=False):
     int32 tensor, the census instance also writes each entry's trip count
     at the flight's four loop sites (columns 0-3), and with ``cycles``, an
     (m, 9) int64 tensor, its clock64 cycles there and in the whole kernel
-    (column 7). The wavelengths per lane (``iparams[0]``, one of
-    ``BOUNCE_WIDTHS``) and the sun transmittance (``iparams[15]``: 1 ratio
-    tracking, 0 the closed form) pick the kernels' instance, an option off
-    its default (or ``options``) the options instance of it, an estimator
-    option off its default the estimator instance (which also takes the
-    other options), a march floor off its default the floor instance (which
-    takes them all). At ``analytic_flight`` the census counts the analytic
+    (column 7). The wavelengths per lane (``iparams[0]``) and the sun
+    transmittance (``iparams[15]``: 1 ratio tracking, 0 the closed form)
+    pick the kernels' instance, an option off its default (or ``options``)
+    the options instance of it, an estimator option off its default the
+    estimator instance (which also takes the other options), a march floor
+    off its default the floor instance (which takes them all); at a width
+    outside ``BOUNCE_WIDTHS``, its width library's floor instance at any
+    setting (counted as an options launch where the setting asks for an
+    options instance). At ``analytic_flight`` the census counts the analytic
     flight's Newton steps at the RMO column (2)."""
-    c_args, _refs, opts = _bounce_args(*args, n_live, options)
+    c_args, _refs, opts, L = _bounce_args(*args, n_live, options)
     m = args[13].shape[0]
     dev = args[2].device
     census = _census_args(trips, cycles, m, dev)
     out = torch.empty((m, 4), dtype=torch.float32, device=dev)
     if m:
-        _launch("de_bounce_flight", *c_args, _ptr(out), *census)
-        _count(bounce_flight, 1, opts)
+        _launch("de_bounce_flight", *c_args, _ptr(out), *census, width=L)
+        _count(bounce_flight, 1, opts, width=L)
     return out
 
 
@@ -1061,38 +1176,40 @@ def bounce_shade(*args, flight, n_live=None, trips=None, cycles=None, options=Fa
     shadow march, NEE cloud tracking and NEE RMO ratio tracking (columns
     4-6; column 6 is 0 with the closed form), with ``cycles`` their clock64
     cycles and the whole kernel's (column 8)."""
-    c_args, _refs, opts = _bounce_args(*args, n_live, options)
+    c_args, _refs, opts, L = _bounce_args(*args, n_live, options)
     m = args[13].shape[0]
     dev = args[2].device
     _check("flight", flight, torch.float32, (m, 4), dev)
     census = _census_args(trips, cycles, m, dev)
     if m:
-        _launch("de_bounce_shade", *c_args, _ptr(flight), *census)
-        _count(bounce_shade, 1, opts)
+        _launch("de_bounce_shade", *c_args, _ptr(flight), *census, width=L)
+        _count(bounce_shade, 1, opts, width=L)
 
 
 def bounce_window(*args, stop: int, n_live=None, options=False):
     """Launch ``bounce_window`` (csrc/bounce.cu): bounces iparams[1] .. stop
     - 1 of each listed lane (arguments as ``bounce_flight`` takes them) in one
     launch, each lane until it dies, its state kept in registers."""
-    c_args, _refs, opts = _bounce_args(*args, n_live, options)
+    c_args, _refs, opts, L = _bounce_args(*args, n_live, options)
     m = args[13].shape[0]
     if m and stop > args[1][1]:
-        _launch("de_bounce_window", *c_args, int(stop))
-        _count(bounce_window, 1, opts)
+        _launch("de_bounce_window", *c_args, int(stop), width=L)
+        _count(bounce_window, 1, opts, width=L)
 
 
-def bounce_occupancy(which: str, options: int = INST_DEFAULT) -> dict:
+def bounce_occupancy(which: str, options: int = INST_DEFAULT, width: int = None) -> dict:
     """ptxas's and the occupancy calculator's view of a bounce entry
     (``OCCUPANCY_ENTRIES``; its default instance, L = 4 and the closed form,
     or with ``options`` its options instance, True or ``INST_OPTIONS``, its
     estimator instance, ``INST_ESTIMATOR``, or its floor instance,
-    ``INST_FLOORS``) on the current device:
+    ``INST_FLOORS``; with ``width`` outside ``BOUNCE_WIDTHS``, the floor
+    instance of that width's library) on the current device:
     resident blocks and warps per SM, threads per block, registers and local
     bytes per thread."""
     out = (ctypes.c_int * 4)()
-    rc = library().de_bounce_occupancy(OCCUPANCY_ENTRIES.index(which), int(options),
-                                       ctypes.cast(out, ctypes.c_void_p))
+    lib, opts = (library(), int(options)) if width is None else (width_library(width), INST_FLOORS)
+    rc = lib.de_bounce_occupancy(OCCUPANCY_ENTRIES.index(which), opts,
+                                 ctypes.cast(out, ctypes.c_void_p))
     if rc != 0:
         raise RuntimeError(f"de_bounce_occupancy: CUDA error {rc}")
     blocks, block, regs, local = list(out)
@@ -1406,11 +1523,15 @@ PATH_KERNELS = (land_march, rmo_delta_track, rmo_ratio_track, cloud_track, naive
 # the kernels with an options instance
 OPTIONS_KERNELS = (land_march, rmo_delta_track, rmo_ratio_track, cloud_track, bounce_flight,
                    bounce_shade, bounce_window, preview)
+# the kernels that take a packet of L wavelengths
+WIDTH_KERNELS = (rmo_ratio_track, gen_rays, frame_end, bounce_flight, bounce_shade,
+                 bounce_window)
 
 
 def reset_launch_counts():
     for fn in PATH_KERNELS:
         fn.launches = fn.options_launches = 0
+        fn.width_launches = {}
 
 
 reset_launch_counts()
@@ -1418,7 +1539,10 @@ reset_launch_counts()
 
 def launch_counts() -> dict:
     """Each path kernel's launches (any instance), then as ``"<name>/options"``
-    those of each options instance."""
+    those of each options instance, and as ``"<name>/L<n>"`` those at each
+    packet width n outside ``BOUNCE_WIDTHS`` that launched."""
     counts = {fn.__name__: fn.launches for fn in PATH_KERNELS}
     counts.update({f"{fn.__name__}/options": fn.options_launches for fn in OPTIONS_KERNELS})
+    counts.update({f"{fn.__name__}/L{L}": c for fn in WIDTH_KERNELS
+                   for L, c in sorted(fn.width_launches.items())})
     return counts

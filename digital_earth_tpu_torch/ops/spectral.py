@@ -84,6 +84,16 @@ def spectrum_sample(u, cie_cdf, cie_response):
     return wavelength, response, rcp_pdf
 
 
+def hero_shifts(n_lambdas: int, device=None):
+    """The packet's rotations, ``arange(L) * float32(1 / L)``: the jitted
+    reference's rounding (XLA turns its ``arange(L) / L`` into a multiply by
+    the float32 reciprocal; eager JAX divides, and parts from it by one ulp
+    at L = 6, 7, 12, ...), on every device, as csrc/gen_rays.cu takes it
+    (ROADMAP C #6)."""
+    rcp = float(torch.tensor(1.0, dtype=torch.float32) / n_lambdas)
+    return torch.arange(n_lambdas, dtype=torch.float32, device=device) * rcp
+
+
 def spectrum_sample_hero(u, cie_cdf, cie_response, n_lambdas: int = 4):
     """Hero-wavelength packet (Wilkie et al. 2014): the hero by CIE
     inverse-CDF (``searchsorted`` side="left"), companions at equal spectral
@@ -91,8 +101,7 @@ def spectrum_sample_hero(u, cie_cdf, cie_response, n_lambdas: int = 4):
     lambda_pdf (..., L))."""
     res = cie_cdf.shape[0]
     mid = _cie_mid(u, cie_g(cie_cdf))
-    shifts = torch.arange(n_lambdas, dtype=torch.float32, device=u.device) / n_lambdas
-    mids = torch.remainder(mid[..., None] + shifts, 1.0)
+    mids = torch.remainder(mid[..., None] + hero_shifts(n_lambdas, u.device), 1.0)
     wavelengths = 390.0 + 441.0 * mids
     responses = _cie_response(mids, cie_response)
 

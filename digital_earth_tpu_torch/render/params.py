@@ -8,7 +8,6 @@ from typing import NamedTuple, Tuple
 import torch
 
 from .. import constants as C
-from ..kernels import BOUNCE_WIDTHS as HERO_WIDTHS  # the packets the kernels are built for
 from ..ops import math_utils as mu
 
 
@@ -92,8 +91,10 @@ class TraceConfig:
     1, False and False make up the reference's own estimator: single
     wavelength paths, independent uniform primary samples, and ratio
     tracking of the gases' sun transmittance in place of the closed form.
-    ``hero_lambdas`` takes the packet widths the bounce kernels are built
-    for, ``HERO_WIDTHS``.
+    ``hero_lambdas`` takes any packet width of at least 1, as the reference
+    does: the kernels' main library holds widths 1 and 4, and each other
+    width runs from a library of its own, built at its first use
+    (``kernels.width_library``).
 
     The scene and march options (``SCENE_OPTIONS``) change the image:
     ``enable_clouds`` and ``enable_land`` take the cloud slab and the
@@ -172,10 +173,10 @@ class TraceConfig:
     march_uncert_floor_frac: float = 0.005
 
     def __post_init__(self):
-        if self.hero_lambdas not in HERO_WIDTHS:
+        if int(self.hero_lambdas) != self.hero_lambdas or self.hero_lambdas < 1:
             raise ValueError(
-                f"TraceConfig.hero_lambdas={self.hero_lambdas!r}: the port's kernels are built "
-                f"for packets of {' or '.join(map(str, HERO_WIDTHS))} wavelengths"
+                f"TraceConfig.hero_lambdas={self.hero_lambdas!r}: a packet of at least one "
+                "wavelength"
             )
         if self.naive_tracking and self.hero_lambdas != 1:
             raise ValueError(

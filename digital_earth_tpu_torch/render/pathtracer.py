@@ -836,3 +836,25 @@ def finalize_radiance(st: TraceState):
     """NaN/Inf/negative clamp."""
     r = st.radiance
     return torch.where(torch.isfinite(r) & (r >= 0.0), r, 0.0)
+
+
+def trace_paths(key, ray_pos, ray_dir, wavelength, scene: SceneParams, atlas, luts,
+                cfg: TraceConfig = TraceConfig(), lambda_pdf=None, lane_ids=None):
+    """One spectral path per lane from the given rays (pathtracer.py:2043
+    trace_paths): the lanes' keys fold the (2,) ``key`` with ``lane_ids``
+    (default ``arange(N)``), every bounce runs (the kernels on CUDA tensors),
+    then the primary misses are shaded and the radiance clamped. ``wavelength``
+    (N,) or (N, L), member 0 the hero, ``lambda_pdf`` (N, L) (default 1).
+    Returns the (N,) or (N, L) MIS-weighted radiance (multiply by the CIE
+    responses and sum over L for XYZ)."""
+    squeeze = wavelength.dim() == 1
+    if squeeze:
+        wavelength = wavelength[:, None]
+    if lambda_pdf is None:
+        lambda_pdf = torch.ones_like(wavelength)
+    if lane_ids is None:
+        lane_ids = torch.arange(ray_pos.shape[0], device=ray_pos.device)
+    st = init_state(ray_pos, ray_dir, wavelength, lambda_pdf, rng.lane_keys(key, lane_ids))
+    st = run_bounces(st, scene, atlas, luts, cfg, 0, cfg.max_bounces)
+    radiance = finalize_radiance(shade_primary_miss(st, scene, atlas, luts, cfg))
+    return radiance[:, 0] if squeeze else radiance

@@ -314,9 +314,12 @@ def test_scene_params_and_trace_config():
         jparams.TraceConfig(max_bounces=3, compact_tile=512, land_march_steps=64))
     assert got == tparams.TraceConfig(max_bounces=3, land_march_steps=64)
     for knob, value in [("loop_narrow", 256), ("scalar_ray_geom", True),
-                        ("work_bins", 5), ("hero_lambdas", 2), ("loop_narrow_after", 5)]:
+                        ("work_bins", 5), ("loop_narrow_after", 5)]:
         with pytest.raises(ValueError):
             convert.trace_config(jparams.TraceConfig(**{knob: value}))
+    # every packet width is carried across (tests/test_torch_widths.py)
+    assert convert.trace_config(jparams.TraceConfig(hero_lambdas=2)) == tparams.TraceConfig(
+        hero_lambdas=2)
     # the march floors are carried across (tests/test_torch_floors.py)
     for knob, value in [("march_certified_floor", True), ("march_uncert_floor_frac", 0.5),
                         ("march_floor_frac_secondary", 0.002)]:
@@ -335,14 +338,14 @@ def test_scene_params_and_trace_config():
 ])
 def test_trace_config_carries_the_reference_estimator(options):
     """``convert.trace_config`` carries the reference estimator's three
-    options across (alone and together), and the port's TraceConfig names
-    its packet widths when given another."""
+    options across (alone and together), and the port's TraceConfig refuses
+    a packet of no wavelength."""
     got = convert.trace_config(jparams.TraceConfig(**options))
     assert got == tparams.TraceConfig(**options)
     for name, value in options.items():
         assert getattr(got, name) == value
-    with pytest.raises(ValueError, match="1 or 4"):
-        tparams.TraceConfig(hero_lambdas=3)
+    with pytest.raises(ValueError, match="at least one wavelength"):
+        tparams.TraceConfig(hero_lambdas=0)
 
 
 @pytest.mark.parametrize("option,value", [

@@ -85,17 +85,10 @@ def test_trace_config_carries_the_estimator_options(knob):
     ("march_certified_floor", True), ("march_uncert_floor_frac", 1e-6),
     ("march_floor_frac_secondary", 0.002), ("hero_lambdas", 2), ("hero_lambdas", 8),
 ])
-def test_trace_config_carries_the_march_floors_and_refuses_other_widths(knob, value):
-    """The march floors are carried across (test_torch_floors.py holds
-    them), alone and beside the estimator options; the packet widths other
-    than 1 and 4 are not ported: ``convert.trace_config`` raises on each,
-    also beside the estimator options."""
-    if knob == "hero_lambdas":
-        with pytest.raises(ValueError):
-            convert.trace_config(JaxConfig(**{knob: value}))
-        with pytest.raises(ValueError):
-            convert.trace_config(JaxConfig(**{knob: value}, **KNOB_VALUES))
-        return
+def test_trace_config_carries_the_march_floors_and_the_packet_widths(knob, value):
+    """The march floors and the packet widths other than 1 and 4 are
+    carried across (test_torch_floors.py and test_torch_widths.py hold
+    them), alone and beside the estimator options."""
     assert getattr(convert.trace_config(JaxConfig(**{knob: value})), knob) == value
     assert convert.trace_config(JaxConfig(**{knob: value}, **KNOB_VALUES)) == TraceConfig(
         **{knob: value}, **KNOB_VALUES)

@@ -1607,8 +1607,11 @@ def test_bounce_launchers_check_their_inputs(case):
     iparams = list(frame.iparams)
     with pytest.raises(ValueError, match="dtype"):
         kernels.bounce_flight(frame.fparams, iparams, *fields, idx.long(), *frame.tables)
-    with pytest.raises(ValueError, match="wavelengths"):
+    # a block whose packet is not the state's, and a packet of no wavelength
+    with pytest.raises(ValueError, match="shape"):
         kernels.bounce_flight(frame.fparams, [3] + iparams[1:], *fields, idx, *frame.tables)
+    with pytest.raises(ValueError, match="wavelengths"):
+        kernels.bounce_flight(frame.fparams, [0] + iparams[1:], *fields, idx, *frame.tables)
     with pytest.raises(ValueError, match="contiguous"):
         bad = list(fields)
         bad[0] = st.direction.t().contiguous().t()
@@ -2047,3 +2050,169 @@ def test_mesh_on_one_card_at_march_floors_matches_renderer(dev):
     for _ in range(2):
         s.accumulate()
     assert torch.equal(m.color_buffer, s.color_buffer)
+
+
+# --- the hero-packet widths other than 1 and 4 (the width libraries) -------------
+
+WIDTHS = (2, 6, 16)
+
+
+@pytest.mark.parametrize("bounce", [0, 3])
+@pytest.mark.parametrize("options", [{}, dict(analytic_transmittance=False),
+                                     dict(enable_clouds=False, **CERT_U0)])
+@pytest.mark.parametrize("L", WIDTHS)
+def test_width_bounce_bit_equal(dev, L, options, bounce):
+    """The bounce entries of L's width library (the floor instances) bit-equal
+    to run_bounce_plain on every live lane, at the defaults, with the gases'
+    sun transmittance by ratio tracking, and at an option with the certified
+    floor; each launch counted at its width."""
+    from digital_earth_tpu_torch import kernels
+
+    st, args = _golden_state(dev, bounce, options=dict(hero_lambdas=L, **options))
+    assert st.wavelength.shape[1] == L
+    idx, n_live = _live(st)
+    idx = idx[: int(n_live)]
+    assert idx.numel() > 0
+    before = kernels.launch_counts().get(f"bounce_flight/L{L}", 0)
+    got = _bounce_both(st, idx, bounce, args, pt.BounceFrame(st, *args))
+    assert kernels.launch_counts()[f"bounce_flight/L{L}"] == before + 1
+    assert _same_state(got.take(idx.long()), pt.run_bounce_plain(st.take(idx.long()), bounce,
+                                                                 *args))
+
+
+@pytest.mark.parametrize("L", WIDTHS)
+def test_width_bounce_window_bit_equal(dev, L):
+    """bounce_window of L's width library from bounce 1 to the last against
+    run_window_plain, every lane bit-equal."""
+    st, args = _golden_state(dev, 1, options=dict(hero_lambdas=L))
+    idx, n_live = _live(st)
+    idx = idx[: int(n_live)]
+    got, want = _clone_state(st), _clone_state(st)
+    before = kernels_launches("bounce_window")
+    pt.run_window(got, idx, 1, args[3].max_bounces, *args)
+    assert kernels_launches("bounce_window") == before + 1
+    pt.run_window_plain(want, idx, 1, args[3].max_bounces, *args)
+    assert _same_state(got, want)
+
+
+@pytest.mark.parametrize("L", WIDTHS)
+def test_width_gen_rays_bit_equal(dev, L):
+    """gen_rays of L's width library (its rotations l * float32(1 / L), as
+    the twin's) bit-equal to its twin on a 320x180 path frame."""
+    from digital_earth_tpu_torch.render import raygen
+
+    res = (320, 180)
+    r = _apollo_renderer(dev, res, "path")
+    args = ((0, 3), 5, 0, res[0] * res[1], res, (1, res[1]), r.camera_params(), r.luts, False,
+            None, TraceConfig(hero_lambdas=L))
+    before = kernels_launches("gen_rays")
+    got = raygen.gen_rays(*args)
+    assert kernels_launches("gen_rays") == before + 1 and got.wavelengths.shape[1] == L
+    _rays_equal(got, raygen.gen_rays_plain(*args))
+
+
+@pytest.mark.parametrize("k", [1, 4])
+@pytest.mark.parametrize("L", WIDTHS)
+def test_width_rmo_ratio_track_bit_equal(case, L, k):
+    """rmo_ratio_track of L's width library bit-equal to its twin on every
+    lane, each lane's iterations the twin's."""
+    dev = case["pos"].device
+    wl = torch.rand((N, L), generator=torch.Generator().manual_seed(L)).to(dev) * 441 + 390
+    ext = torch.stack([
+        vol.spectra_extinction_rayleigh(wl), vol.spectra_extinction_mie(wl),
+        vol.spectra_extinction_ozone(wl, load_spectral_luts(dev).o3_crossec),
+    ], dim=-1).contiguous()
+    t0, t1 = pt._rmo_span(case["pos"], case["dirs"], torch.full((N,), -1.0, device=dev))
+    got, iters, want, trips = _ratio_both((case["keys"], case["pos"], case["dirs"], t0, t1, ext,
+                                           vol.max_extinction_rmo(ext), case["active"]), k)
+    assert got.shape == (N, L) and _bits_equal(got, want) and torch.equal(iters, trips)
+
+
+@pytest.mark.parametrize("L", [6, 16])
+def test_width_frame_end_kernel(dev, L):
+    """frame_end at L (16: L's width library, past the main library's 8) on
+    50,000 lanes with counts, against its twin."""
+    from digital_earth_tpu_torch.render import frame_end as fe
+    from digital_earth_tpu_torch.render.params import make_scene_params
+
+    g = torch.Generator().manual_seed(L)
+    n, n_pix = 50000, 80000
+    scene = make_scene_params(dev, 1.0, -0.5)
+    rad = torch.exp(torch.randn((n, L), generator=g) * 2 - 2)
+    rad[torch.rand((n, L), generator=g) < 0.02] = float("nan")
+    fields = dict(
+        pos=torch.zeros((n, 3)),
+        direction=torch.nn.functional.normalize(torch.randn((n, 3), generator=g), dim=-1),
+        wavelength=torch.rand((n, L), generator=g) * 441 + 390,
+        lambda_pdf=torch.rand((n, L), generator=g) * 0.01,
+        throughput=torch.rand((n, L), generator=g) * 1.5, radiance=rad,
+        w_mis=torch.rand((n, L), generator=g) + 0.5, alive=torch.zeros(n, dtype=torch.bool),
+        primary_miss=torch.rand(n, generator=g) < 0.4, rng=torch.zeros((n, 2), dtype=torch.int64),
+        work_class=torch.zeros(n, dtype=torch.int32))
+    st = pt.TraceState(**{k: v.to(dev) for k, v in fields.items()})
+    atlas = build_atlas(generate_earth_textures((64, 128), seed=3), dev)
+    miss = fe.MissShading(st, scene, atlas, load_spectral_luts(dev), TraceConfig(hero_lambdas=L))
+    responses = (torch.rand((n, L, 3), generator=g) * 2).to(dev)
+    pid = torch.randperm(n_pix, generator=g)[:n].to(dev)
+    outs = []
+    for fn in (fe.frame_end, fe.frame_end_plain):
+        color, cnt, l2 = (torch.zeros(s, device=dev) for s in ((n_pix, 3), n_pix, n_pix))
+        before = kernels_launches("frame_end")
+        fn(responses, pid, color, cnt, l2, miss=miss)
+        outs.append((color, cnt, l2, kernels_launches("frame_end") - before))
+    (kc, kn, kl, k_launch), (pc, pn, pl, p_launch) = outs
+    assert (k_launch, p_launch) == (1, 0) and kernels_launches(f"frame_end/L{L}") >= 1
+    assert _rel_close(kc, pc) and torch.equal(kn, pn) and _rel_close(kl, pl)
+
+
+def _trace_mean_xyz(dev, atlas, luts, L, n, seed):
+    """tests/test_hero_packets.py's estimator on the card: n paths from the
+    Apollo camera towards seeded points about the planet (3 bounces), the
+    hero by CIE inverse CDF with L - 1 rotations, through
+    ``pathtracer.trace_paths``; each path's XYZ."""
+    from digital_earth_tpu_torch.ops import spectral as sp
+    from digital_earth_tpu_torch.render.params import make_scene_params
+
+    cfg = TraceConfig(max_bounces=3, land_march_steps=64, max_tracking_steps=256,
+                      hero_lambdas=L)
+    g = np.random.default_rng(seed)
+    cam = torch.tensor([35963490.0, 12765367.0, -42445899.0], device=dev)
+    target = torch.from_numpy(g.normal(size=(n, 3)) * 4e6).to(dev, torch.float32)
+    dirs = torch.nn.functional.normalize(target - cam, dim=-1).contiguous()
+    u = torch.from_numpy(g.uniform(size=n).astype(np.float32)).to(dev)
+    wl, resp, pdf = sp.spectrum_sample_hero(u, luts.cie_cdf, luts.cie_response, L)
+    rad = pt.trace_paths(rng.prng_key(seed, dev), cam.expand(n, 3).contiguous(), dirs, wl,
+                         make_scene_params(dev), atlas, luts, cfg, lambda_pdf=pdf)
+    return torch.einsum("nl,nlc->nc", rad, resp).double().cpu().numpy()
+
+
+@pytest.fixture(scope="module")
+def packet_scene(dev):
+    return build_atlas(generate_earth_textures((64, 128), seed=3), dev), load_spectral_luts(dev)
+
+
+@pytest.mark.parametrize("L", [4, 2, 6, 16])
+def test_packet_estimator_unbiased_vs_single(dev, packet_scene, L):
+    """tests/test_hero_packets.py's multi-seed z-test on the card: the L
+    estimator's mean XYZ agrees with the L = 1 estimator's within
+    Monte-Carlo error (|z| < 4 over 6 seeds of 3072 paths each)."""
+    n, n_seeds = 3072, 6
+    a = np.stack([_trace_mean_xyz(dev, *packet_scene, 1, n, 10 + s).mean(0)
+                  for s in range(n_seeds)])
+    b = np.stack([_trace_mean_xyz(dev, *packet_scene, L, n, 50 + s).mean(0)
+                  for s in range(n_seeds)])
+    sem = np.sqrt(a.var(axis=0) / n_seeds + b.var(axis=0) / n_seeds)
+    z = (b.mean(0) - a.mean(0)) / (sem + 1e-5 * np.abs(a.mean(0)) + 1e-9)
+    assert (np.abs(z) < 4.0).all(), (a.mean(0), b.mean(0), z)
+
+
+def test_packet_reduces_variance(dev, packet_scene):
+    """tests/test_hero_packets.py's chroma test on the card: the median over
+    4 seeds of the X - Y residual variance at L = 4 under 0.3 of L = 1's."""
+    def chroma_var(L, s):
+        xyz = _trace_mean_xyz(dev, *packet_scene, L, 2048, 100 * L + s)
+        return (xyz[:, 0] - xyz[:, 1]).var()
+
+    c1 = float(np.median([chroma_var(1, s) for s in range(4)]))
+    c4 = float(np.median([chroma_var(4, s) for s in range(4)]))
+    assert c4 < c1 * 0.3, (c1, c4)

@@ -218,9 +218,13 @@ def test_host_camera_rounds_as_torch_does():
     (0, 10, 2, "wavelengths"),
 ])
 def test_launcher_checks_lanes_and_packet(luts, lane0, n, n_lambdas, match):
+    """The launcher refuses lanes outside [0, 2^31), and a parameter block
+    whose packet is not the call's (any width is taken: outside 1 and 4 from
+    its width library), before anything is built or launched."""
     g, _ = tluts.ray_tables(luts)
     fparams = [0.0] * 19
-    iparams = [0, 0, 0, 0, lane0, 32, 18, 1, 18, g.shape[0], n_lambdas, 0, 1]
+    block_l = 4 if match == "wavelengths" else n_lambdas
+    iparams = [0, 0, 0, 0, lane0, 32, 18, 1, 18, g.shape[0], block_l, 0, 1]
     with pytest.raises(ValueError, match=match):
         kernels.gen_rays(fparams, iparams, g, luts.cie_response, n, n_lambdas)
 

@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py [--mesh-only | --estimator-only | --floors-only | --widths-only
                            | --preview-bench [DIR] | --path-bench [DIR] | --spp-bench [DIR]
-                           | --options-bench [DIR] | --sass-counts [DIR]]
+                           | --options-bench [DIR] | --sass-counts [DIR]
+                           | --widths-bench [DIR]]
 
 Run from the root of a checkout on a machine with a CUDA card, ``nvcc`` and
 PyTorch built for CUDA; ``--mesh-only`` runs phases 1-3 and 19 alone (say,
@@ -32,7 +33,10 @@ spp each, at the default config and at the reference's estimator;
 package takes (bounce 0's two kernels of the options or estimator
 instances, s/spp against the setting's base) and
 ``--sass-counts [DIR]`` the bounce entries' SASS sizes and the options
-sources' ptxas report, for the package in DIR. It
+sources' ptxas report, and ``--widths-bench [DIR]`` the hero-packet widths
+(the width libraries' build and ptxas report, ``gen_rays`` at L = 1, 2, 4,
+6, 16 and its SASS sizes, bounce 0's two kernels and s/spp against L = 4
+at each width), for the package in DIR. It
 imports nothing of JAX or of the JAX package ``digital_earth_tpu`` (checked
 at the end). Phases, each of which raises on failure (exit code 1):
 
@@ -205,21 +209,32 @@ at the end). Phases, each of which raises on failure (exit code 1):
 8g. the hero-packet widths other than 1 and 4 (``check_widths``; WIDTHS
    2, 6 and 16, each from its width library, ``kernels.width_library``):
    every bounce instance of the main library against PARENT_DEFAULT_SASS
-   and PARENT_SASS (the parent's 64); the width libraries built in one
-   parallel nvcc batch (its seconds, each entry's ptxas registers and
-   spills, the bounce entries' occupancy); per width and scene
+   and PARENT_SASS (the parent's 64); the width libraries (and those of
+   L = 3 and 7, for ``gen_rays``) built in one parallel nvcc batch (its
+   seconds, each entry's ptxas registers and spills, the bounce entries'
+   occupancy in the default and the floor instances); per width and scene
    (WIDTH_SCENES: the three at L = 2 and 6, Apollo at 16) the width
    library's bounce entries against their twin at bounces 0 and DEEP_BOUNCE
    and ``bounce_window`` against ``run_window_plain`` from the bounce the
-   frame enters it, ``gen_rays`` on the 1080p path inputs,
+   frame enters it, each in the default instances (which the default
+   TraceConfig takes) and the floor instances (forced), with the
+   closed-form and the ratio-tracked sun transmittance, ``gen_rays`` on the
+   1080p path inputs,
    ``rmo_ratio_track`` on bounce 0's NEE lanes (the twin at
    analytic_transmittance=False) and ``frame_end`` on the frame's end, every
    lane bit-equal (frame_end under phase 16's gate, bit-equal in practice);
-   each kernel on Apollo timed with its bound from the L-wide state's bytes;
-   the path at each width on Apollo under phase 6's gates, every bounce
-   launch, ``gen_rays`` and ``frame_end`` counted at the width
-   (``"<kernel>/L<n>"``); s/spp of Apollo at each width and at L = 4
-   forced into its floor instance against L = 4, five alternated rounds;
+   each kernel on Apollo timed with its bound from the L-wide state's bytes
+   (the bounce entries also in the floor instances); the path at each width
+   on Apollo under phase 6's gates, every bounce launch, ``gen_rays`` and
+   ``frame_end`` counted at the width (``"<kernel>/L<n>"``), none an options
+   launch; ``gen_rays`` at L = 1, 2, 3, 6, 7 and 16 against its twin on the
+   1080p path frame, a lane range whose last block is partial, a tile list
+   and (L = 1) the preview, at L = 2 and 4 on a 3072-entry table, and
+   ``gen_rays_kernel<L>``'s SASS at L = 1, 2 and 4 against
+   PARENT_GEN_RAYS_SASS; s/spp of
+   Apollo at each width and at L = 4 forced into its floor instance against
+   L = 4, and at each width forced into its floor instances against its
+   default instances, five alternated rounds;
    tests/test_hero_packets.py's z-test (|z| < 4, 6 seeds of 3072 paths) at
    L = 4 and each width against L = 1, the chroma variance (L = 4 under 0.3
    of L = 1's) and the fireflies at each; the phase's seconds.
@@ -350,6 +365,8 @@ SM per clock, at the card's largest SM clock). The last line is
 {"ok": true, "device": {...}}.
 """
 
+import contextlib
+import dataclasses
 import functools
 import json
 import math
@@ -3442,6 +3459,20 @@ def check_march_floors(torch, dev, atlas, luts, captured, tf):
 # in one batch, the scenes each is held on
 WIDTHS = (2, 6, 16)
 WIDTH_SCENES = {2: (SCENE, FLORIDA, SUNSET), 6: (SCENE, FLORIDA, SUNSET), 16: (SCENE,)}
+# gen_rays is also held at L = 1 (the main library's) and at 3 and 7, where a
+# block's runs of packet members end in a scalar tail; TAIL_LANES (lane0, n)
+# leaves the last block 163 lanes; WIDE_TABLE is the widest CIE table the
+# wrapper takes (its 48 KiB of shared memory and the directions' 3 KiB
+# pass the 48 KiB a block takes without opting in)
+RAY_WIDTHS = (1, 2, 3, 6, 7, 16)
+TAIL_LANES = (77, 100003)
+WIDE_TABLE = 3072
+# gen_rays_kernel<L>'s SASS instructions at the widths whose lanes store
+# their own packet (L = 1 and 4 of the main library, 2 of its width
+# library), as built from commit f2cbdd6 for an NVIDIA H100 80GB HBM3 by nvcc
+# 12.9 (chip_smoke.py --widths-bench), which the other widths' packet stores
+# must leave as they were
+PARENT_GEN_RAYS_SASS = {1: 1621, 2: 1695, 4: 1826}
 
 
 def bounce_lane_bytes(L):
@@ -3511,6 +3542,173 @@ def check_parent_sass(kernels):
         fail("a bounce instance of the main library differs from the parent's SASS: "
              + ", ".join(f"{e} {n} (parent {PARENT_SASS.get(e)})" for e, n in sorted(now.items())
                          if PARENT_SASS.get(e) != n))
+
+
+def gen_rays_sass(kernels, widths=()):
+    """{L: SASS instructions of gen_rays_kernel<L>} of the main library (L =
+    1 and 4) and of the width libraries of ``widths``."""
+    import re
+
+    out = {}
+    for lib in [kernels.library()] + [kernels.width_library(L) for L in widths]:
+        for name, ops in sass_functions(lib._name).items():
+            got = re.search(r"gen_rays_kernelILi(\d+)E", name)
+            if got:
+                out[int(got[1])] = len(ops)
+    return out
+
+
+@contextlib.contextmanager
+def forced_floors(kernels):
+    """Every bounce launch inside takes the floor instance (the instance
+    ``kernels._knob_instance`` asks for)."""
+    knob = kernels._knob_instance
+    kernels._knob_instance = lambda fp, ip: kernels.INST_FLOORS
+    try:
+        yield
+    finally:
+        kernels._knob_instance = knob
+
+
+def _ratio_cfg(cfg):
+    """``cfg`` with the gases' sun transmittance by ratio tracking."""
+    return dataclasses.replace(cfg, analytic_transmittance=False)
+
+
+def _hold_width_instances(torch, kernels, c, b, want, tag):
+    """The bounce entries of a width library on the captured state ``c`` of
+    bounce ``b`` against their twin, every lane bit-equal: the floor
+    instances at the state's TraceConfig (``want``: the twin's state, which
+    the default instances were held to), then the default and the floor
+    instances at analytic_transmittance=False; each launch counted as the
+    instance it asks for."""
+    from digital_earth_tpu_torch.render import pathtracer as pt
+
+    idx, st0, (scene, atlas, luts, cfg) = c["idx"], c["st"], c["args"]
+    lanes = idx.long()
+    work = st0.work_class[lanes]
+    for ratio in (False, True):
+        args = (scene, atlas, luts, _ratio_cfg(cfg) if ratio else cfg)
+        if ratio:
+            want = pt.run_bounce_plain(st0.take(lanes), b, *args)
+        for floors in ((False, True) if ratio else (True,)):
+            st = _clone_state(st0)
+            before = kernels.bounce_flight.options_launches
+            with forced_floors(kernels) if floors else contextlib.nullcontext():
+                pt.run_bounce(st, idx, b, *args, pt.BounceFrame(st0, *args))
+            if (kernels.bounce_flight.options_launches > before) != floors:
+                fail(f"width {tag} bounce {b}: the launch took the other instance set")
+            _hold_lanes(torch, st.take(lanes), want, work,
+                        f"width {tag} bounce {b} {'floor' if floors else 'default'} instances"
+                        f"{', ratio tracking' if ratio else ''}", exact=True)
+
+
+def _hold_width_window(torch, kernels, c, wb, stop, twin, tag):
+    """bounce_window of a width library from bounce ``wb`` against
+    run_window_plain, every lane bit-equal: the floor instances at the
+    state's TraceConfig (``twin``: the twin's state, which the default
+    instances were held to), then the default and the floor instances at
+    analytic_transmittance=False."""
+    from digital_earth_tpu_torch.render import pathtracer as pt
+
+    idx, st0, (scene, atlas, luts, cfg) = c["idx"], c["st"], c["args"]
+    lanes = idx.long()
+    for ratio in (False, True):
+        args = (scene, atlas, luts, _ratio_cfg(cfg) if ratio else cfg)
+        if ratio:
+            twin = _clone_state(st0)
+            pt.run_window_plain(twin, idx, wb, stop, *args)
+        for floors in ((False, True) if ratio else (True,)):
+            st = _clone_state(st0)
+            with forced_floors(kernels) if floors else contextlib.nullcontext():
+                pt.run_window(st, idx, wb, stop, *args, pt.BounceFrame(st0, *args))
+            _hold_lanes(torch, st.take(lanes), twin.take(lanes), st0.work_class[lanes],
+                        f"width {tag} bounce_window from bounce {wb}, "
+                        f"{'floor' if floors else 'default'} instances"
+                        f"{', ratio tracking' if ratio else ''}", exact=True)
+
+
+def _wide_luts(torch, luts, res):
+    """``luts`` with the CIE CDF and response tables resampled to ``res``
+    entries (linear in the table index)."""
+    import numpy as np
+
+    x = np.linspace(0.0, 1.0, res)
+    xp = np.linspace(0.0, 1.0, luts.cie_cdf.shape[0])
+    resample = lambda t: torch.tensor(  # noqa: E731
+        np.stack([np.interp(x, xp, col) for col in t.cpu().numpy().T], axis=1),
+        dtype=torch.float32, device=t.device)
+    return luts._replace(cie_cdf=resample(luts.cie_cdf), cie_response=resample(luts.cie_response))
+
+
+def _gen_rays_work(luts, n, L, tf):
+    """(bytes, operations, ALU-pipe and FMA-pipe instructions) of gen_rays
+    on n path lanes at L wavelengths: the tables read once; keys, dirs,
+    wavelengths, responses, pdf and pid written; GEN_RAYS_OPS with L's
+    rotations, and threefry's work at the SASS census ``tf``."""
+    nbytes = luts.cie_cdf.shape[0] * 16 + n * (16 + 12 + 20 * L + 8)
+    alu, fma = tf_ops(GEN_RAYS_TF[0] * n, GEN_RAYS_TF[1] * n, tf)
+    ops = (GEN_RAYS_OPS + GEN_RAYS_WAVELENGTH_OPS * (L - 4)) * n + alu + fma
+    return nbytes, ops, alu, fma
+
+
+def check_width_rays(torch, dev, atlas, luts, card, tf):
+    """gen_rays at RAY_WIDTHS against its twin, every field bit-equal
+    (``_hold_rays``): the Apollo 1920x1080 path frame, TAIL_LANES (the last
+    block partial, and where 163 L is not a multiple of 4 its runs ending in
+    a scalar tail), a quarter of the frame's tiles in a seeded order (an
+    adaptive pass's tile list), at L = 1 the 480x270 preview, and at L = 2
+    and 4 a table of WIDE_TABLE entries; then gen_rays_kernel<L>'s SASS at
+    L = 1, 2 and 4 against PARENT_GEN_RAYS_SASS (fails on a difference). {L:
+    the path frame's device ms}; the path frame's bound printed beside it."""
+    from digital_earth_tpu_torch import kernels
+    from digital_earth_tpu_torch.render.params import TraceConfig
+    from digital_earth_tpu_torch.render.renderer import Renderer
+
+    r = _apollo(Renderer(dev, image_res=RES, atlas=atlas, luts=luts))
+    cam, key = r.camera_params("cpu"), r._seed_key
+    bw, bh = r.block
+    n_tiles = (RES[0] // bw) * (RES[1] // bh)
+    order = torch.randperm(n_tiles, generator=torch.Generator().manual_seed(21))
+    tile_ids = order[: n_tiles // 4].to(torch.int32).to(dev)
+    n = RES[0] * RES[1]
+    lane0, tail_n = TAIL_LANES
+    path_ms = {}
+    for L in RAY_WIDTHS:
+        cfg = TraceConfig(hero_lambdas=L)
+        cases = [("path", (key, 0, 0, n, RES, (1, RES[1]), cam, luts, False, None, cfg)),
+                 (f"lanes [{lane0}, {lane0 + tail_n})",
+                  (key, 1, lane0, tail_n, RES, (1, RES[1]), cam, luts, False, None, cfg)),
+                 (f"tile list of {tile_ids.numel()} {bw}x{bh} tiles",
+                  (key, 2, 0, tile_ids.numel() * bw * bh, RES, (bw, bh), cam, luts, False,
+                   tile_ids, cfg))]
+        if L == 1:
+            p = _apollo(Renderer(dev, image_res=PREVIEW_RES, atlas=atlas, luts=luts,
+                                 mode="preview"))
+            cases.append((f"preview {PREVIEW_RES[0]}x{PREVIEW_RES[1]}",
+                          (p._seed_key, 0, 0, PREVIEW_RES[0] * PREVIEW_RES[1], PREVIEW_RES,
+                           p.block, p.camera_params("cpu"), luts, True, None, cfg)))
+        if L == 2:
+            wide = _wide_luts(torch, luts, WIDE_TABLE)
+            for wl in (2, 4):
+                cases.append((f"a {WIDE_TABLE}-entry table at L = {wl}",
+                              (key, 0, 0, 65536, RES, (1, RES[1]), cam, wide, False, None,
+                               TraceConfig(hero_lambdas=wl))))
+        for label, args in cases:
+            _, _, ms, _, dev_ms = _hold_rays(torch, f"L = {L} {label}", args)
+            if label == "path":
+                path_ms[L] = dev_ms
+                nbytes, ops, alu, fma = _gen_rays_work(luts, n, L, tf)
+                b_ms, b_by = bound(nbytes, ops, int_ops=alu, fma_ops=fma)
+                print(f"gen_rays L = {L} path: bound {b_ms:.4f} ms ({b_by}); the device time is "
+                      f"{b_ms / dev_ms:.2f} of it ({card})")
+    sass = gen_rays_sass(kernels, [L for L in RAY_WIDTHS if L not in kernels.BOUNCE_WIDTHS])
+    print(f"SASS gen_rays_kernel<L>: {sass} (before the packet stores: {PARENT_GEN_RAYS_SASS}; "
+          f"{card})")
+    if any(sass.get(L) != n for L, n in PARENT_GEN_RAYS_SASS.items()):
+        fail(f"gen_rays_kernel<L>'s SASS {sass} is not its parent's {PARENT_GEN_RAYS_SASS} at "
+             f"L = 1, 2 and 4")
+    return path_ms
 
 
 def _width_bounce_bound(torch, trips, cfg, tf, part, m, L):
@@ -3598,19 +3796,25 @@ def packet_ztests(torch, dev, card):
 def check_widths(torch, dev, atlas, luts, tf):
     """Phase 8g, the hero-packet widths other than 1 and 4 at 1920x1080 on
     ``atlas``: the main library's bounce instances' SASS against the
-    parent's; the width libraries of WIDTHS built in one parallel batch
-    (seconds, ptxas registers and spills, the entries' occupancy); per width
-    and scene (WIDTH_SCENES) the bounce entries against their twin at bounces
-    0 and DEEP_BOUNCE and bounce_window against run_window_plain from the
-    bounce the frame enters it, gen_rays on the path inputs, rmo_ratio_track
-    on bounce 0's NEE lanes (at analytic_transmittance=False) and frame_end
-    on the frame's end, every lane bit-equal (frame_end under phase 16's
-    gate); the path on Apollo at each width under phase 6's gates, every
-    bounce launch, gen_rays and frame_end counted at the width; s/spp of
-    Apollo at each width and at L = 4 forced into its floor instance, against
-    L = 4, in SPP_RATIO_ROUNDS alternated rounds; the hero-packet tests.
-    Rows ``"<kernel>/L<n>"`` for the JSON line (launches from the width's
-    path, times on Apollo)."""
+    parent's; the width libraries of WIDTHS and of gen_rays' other
+    RAY_WIDTHS built in one parallel batch (seconds, ptxas registers and
+    spills, the entries' occupancy in both instance sets); per width and
+    scene (WIDTH_SCENES) the bounce entries against their twin at bounces 0
+    and DEEP_BOUNCE and bounce_window against run_window_plain from the
+    bounce the frame enters it, each in the default instances (the default
+    TraceConfig's) and the floor instances (forced), with the closed-form
+    and the ratio-tracked sun transmittance, gen_rays on the path inputs,
+    rmo_ratio_track on bounce 0's NEE lanes (at analytic_transmittance=False)
+    and frame_end on the frame's end, every lane bit-equal (frame_end under
+    phase 16's gate); gen_rays at RAY_WIDTHS (``check_width_rays``); the path
+    on Apollo at each width under phase 6's gates, every bounce launch,
+    gen_rays and frame_end counted at the width, no bounce launch an options
+    one; s/spp of Apollo at each width and at L = 4 forced into its floor
+    instance, against L = 4, and at each width forced into its floor
+    instances against its default instances, in SPP_RATIO_ROUNDS alternated
+    rounds; the hero-packet tests. Rows ``"<kernel>/L<n>"`` for the JSON line
+    (launches from the width's path, times on Apollo in the default
+    instances)."""
     from digital_earth_tpu_torch import kernels
     from digital_earth_tpu_torch.app.config_io import apply_config, load_config
     from digital_earth_tpu_torch.app.viewer import render_offline
@@ -3624,18 +3828,21 @@ def check_widths(torch, dev, atlas, luts, tf):
     check_parent_sass(kernels)
     print(f"SASS checks: {time.time() - t_phase:.1f} s")
     t0 = time.time()
-    kernels.build_width_libraries(WIDTHS)
-    print(f"width libraries L = {', '.join(map(str, WIDTHS))}: built in one parallel batch in "
+    built = sorted(set(WIDTHS) | set(RAY_WIDTHS) - set(kernels.BOUNCE_WIDTHS))
+    kernels.build_width_libraries(built)
+    print(f"width libraries L = {', '.join(map(str, built))}: built in one parallel batch in "
           f"{time.time() - t0:.1f} s (nvcc {' '.join(kernels.NVCC_FLAGS)} -DDE_WIDTH=L; {card})")
-    for L in WIDTHS:
+    for L in built:
         for src, log in sorted(kernels.width_ptxas_log.get(L, {}).items()):
             for name, (regs, stores, loads) in sorted(ptxas_entries(log).items()):
                 print(f"ptxas L = {L} {src} {name}: {regs} registers, spill stores {stores} B, "
                       f"loads {loads} B")
+    for L in WIDTHS:
         for name in kernels.OCCUPANCY_ENTRIES:
-            o = kernels.bounce_occupancy(name, width=L)
-            print(f"occupancy {name} L = {L}: floor instance {o['registers']} registers, "
-                  f"{o['local_bytes']} B local, {o['warps_per_sm']} warps per SM")
+            for label, inst in (("default", kernels.INST_DEFAULT), ("floor", kernels.INST_FLOORS)):
+                o = kernels.bounce_occupancy(name, inst, width=L)
+                print(f"occupancy {name} L = {L}: {label} instance {o['registers']} registers, "
+                      f"{o['local_bytes']} B local, {o['warps_per_sm']} warps per SM")
 
     rows = {}
     for L in WIDTHS:
@@ -3655,9 +3862,11 @@ def check_widths(torch, dev, atlas, luts, tf):
                 c = states[b]
                 got, want, trips, cycles = _bounce_and_twin(torch, c, b)
                 _hold_lanes(torch, got, want, c["st"].work_class[c["idx"].long()],
-                            f"width {tag} bounce {b}", exact=True)
+                            f"width {tag} bounce {b} default instances", exact=True)
                 print(f"census width {tag} bounce {b}: {c['idx'].numel()} live; cycle split "
                       f"{split_text(cycle_split(torch, cycles))}")
+                _hold_width_instances(torch, kernels, c, b, want, tag)
+                del got, want
                 if b != 0 or not apollo:
                     continue
                 idx, st0, args = c["idx"], c["st"], c["args"]
@@ -3676,6 +3885,13 @@ def check_widths(torch, dev, atlas, luts, tf):
                         int_ops=alu, fma_ops=fma)
                     print(f"width {tag} bounce 0 bounce_{part} ({m} lanes, {card}): {ms:.3f} ms, "
                           f"bound {b_ms:.4f} ms ({b_by})")
+                with forced_floors(kernels):
+                    t_ff = _bounce_ms(torch, st0, lambda s: kernels.bounce_flight(*ka(s)))
+                    t_sf = _bounce_ms(torch, st0, lambda s: kernels.bounce_shade(*ka(s),
+                                                                                 flight=flight))
+                print(f"width {tag} bounce 0 floor instances: bounce_flight {t_ff:.3f} ms, "
+                      f"bounce_shade {t_sf:.3f} ms, beside the default instances' {t_f:.3f} + "
+                      f"{t_s:.3f} ({card})")
                 t0 = time.time()
                 pt.run_bounce_plain(st0.take(idx.long()), 0, *args)
                 torch.cuda.synchronize()
@@ -3703,6 +3919,8 @@ def check_widths(torch, dev, atlas, luts, tf):
             lanes = idx.long()
             _hold_lanes(torch, st.take(lanes), twin.take(lanes), st0.work_class[lanes],
                         f"width {tag} bounce_window from bounce {wb}", exact=True)
+            _hold_width_window(torch, kernels, c, wb, cfg.max_bounces, twin, tag)
+            del st, twin
             if apollo:
                 w_ms = _bounce_ms(torch, st0, lambda s: pt.run_window(
                     s, idx, wb, cfg.max_bounces, *args, frame))
@@ -3722,9 +3940,13 @@ def check_widths(torch, dev, atlas, luts, tf):
                 b_ms, b_by = bound(nbytes, ops, int_ops=alu, fma_ops=fma)
                 rows[f"bounce_window/L{L}"] = dict(max_abs_err=0.0, ms=w_ms, plain_ms=w_plain,
                                                    bytes=nbytes, ops=ops, int_ops=alu, fma_ops=fma)
+                with forced_floors(kernels):
+                    w_floor = _bounce_ms(torch, st0, lambda s: pt.run_window(
+                        s, idx, wb, cfg.max_bounces, *args, frame))
                 print(f"width {tag} bounce_window from bounce {wb} ({idx.numel()} lanes, {card}): "
-                      f"{w_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}), twin {w_plain:.1f} ms")
-            del states, st, twin
+                      f"{w_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}), twin {w_plain:.1f} ms; "
+                      f"floor instance {w_floor:.3f} ms")
+            del states
             erow = check_frame_end(torch, end_args, f"width {tag} {RES[0]}x{RES[1]}")
             del end_args
             r = Renderer(dev, image_res=RES, atlas=atlas, luts=luts, cfg=cfg)
@@ -3739,10 +3961,7 @@ def check_widths(torch, dev, atlas, luts, tf):
             del ratio_c
             print(f"width {tag}: {time.time() - t_scene:.1f} s")
             if apollo:
-                n = RES[0] * RES[1]
-                nbytes = luts.cie_cdf.shape[0] * 16 + n * (16 + 12 + 20 * L + 8)
-                g_alu, g_fma = tf_ops(GEN_RAYS_TF[0] * n, GEN_RAYS_TF[1] * n, tf)
-                g_ops = (GEN_RAYS_OPS + GEN_RAYS_WAVELENGTH_OPS * (L - 4)) * n + g_alu + g_fma
+                nbytes, g_ops, g_alu, g_fma = _gen_rays_work(luts, RES[0] * RES[1], L, tf)
                 rows[f"gen_rays/L{L}"] = dict(max_abs_err=g_err, ms=g_ms, plain_ms=g_plain,
                                               bytes=nbytes, ops=g_ops, int_ops=g_alu,
                                               fma_ops=g_fma)
@@ -3767,12 +3986,19 @@ def check_widths(torch, dev, atlas, luts, tf):
         widths = ("bounce_flight", "bounce_shade", "bounce_window", "gen_rays", "frame_end")
         if any(counts.get(f"{k}/L{L}", 0) != counts[k] for k in widths):
             fail(f"a launch of the L = {L} path ran at another width: {counts}")
+        if any(counts.get(f"{k}/options", 0) for k in widths[:3]):
+            fail(f"the L = {L} path at the default TraceConfig ran an options instance: {counts}")
         for k in widths + ("rmo_ratio_track",):
             rows[f"{k}/L{L}"]["launches"] = counts.get(f"{k}/L{L}", 0)
         del r, img
 
+    path_ms = check_width_rays(torch, dev, atlas, luts, card, tf)
+    print(f"gen_rays on the Apollo {RES[0]}x{RES[1]} path frame on the device: "
+          + ", ".join(f"L = {L} {ms:.4f} ms" for L, ms in path_ms.items()) + f" ({card})")
+
     # s/spp at each width and at L = 4 forced into its floor instance, each
-    # against L = 4 at its default instance
+    # against L = 4 at its default instance; each width forced into its
+    # floor instances against its default instances
     class Forced:
         """A renderer whose bounce launches take the floor instance."""
 
@@ -3780,25 +4006,26 @@ def check_widths(torch, dev, atlas, luts, tf):
             self.r = r
 
         def accumulate(self):
-            knob = kernels._knob_instance
-            kernels._knob_instance = lambda fp, ip: kernels.INST_FLOORS
-            try:
+            with forced_floors(kernels):
                 self.r.accumulate()
-            finally:
-                kernels._knob_instance = knob
 
     make = lambda **kw: render_offline(load_config(SCENE), dev, spp=1,  # noqa: E731
                                        image_res=RES, out_path=None, atlas=atlas, luts=luts,
                                        cfg=TraceConfig(**kw))
-    before = kernels.bounce_flight.options_launches
-    forced = Forced(make())
-    forced.accumulate()
-    if kernels.bounce_flight.options_launches == before:
-        fail("L = 4 forced into the floor instance ran no floor instance")
-    for label, other in [(f"L = {L}", make(hero_lambdas=L)) for L in WIDTHS] + [
-            ("L = 4 floor instance", forced)]:
-        d, o, ratios = spp_ratio(torch, make(), other)
-        print(f"widths s/spp Apollo 11 {RES[0]}x{RES[1]} {label}: {o:.5f} against L = 4's "
+    pairs = [(f"L = {L}", "L = 4's", {}, dict(hero_lambdas=L), False) for L in WIDTHS]
+    pairs += [("L = 4 floor instance", "L = 4's", {}, {}, True)]
+    pairs += [(f"L = {L} floor instances", "its default instances'", dict(hero_lambdas=L),
+               dict(hero_lambdas=L), True) for L in WIDTHS]
+    for label, base_label, base, kw, floors in pairs:
+        other = make(**kw)
+        if floors:
+            other = Forced(other)
+            before = kernels.bounce_flight.options_launches
+            other.accumulate()
+            if kernels.bounce_flight.options_launches == before:
+                fail(f"{label}: the forced renderer ran no floor instance")
+        d, o, ratios = spp_ratio(torch, make(**base), other)
+        print(f"widths s/spp Apollo 11 {RES[0]}x{RES[1]} {label}: {o:.5f} against {base_label} "
               f"{d:.5f}, ratio median {ratios[len(ratios) // 2]:.3f} (min-max {ratios[0]:.3f}-"
               f"{ratios[-1]:.3f} over {len(ratios)} alternated rounds of {SPP_RATIO_STEPS} spp; "
               f"{card})")
@@ -3808,6 +4035,92 @@ def check_widths(torch, dev, atlas, luts, tf):
     print(f"hero packet tests: {time.time() - t0:.1f} s")
     print(f"phase 8g (the hero-packet widths): {time.time() - t_phase:.1f} s")
     return rows
+
+
+BENCH_RAY_WIDTHS = (1, 2, 3, 4, 6, 7, 16)
+
+
+def widths_bench(torch, dev):
+    """``--widths-bench [DIR]``: the hero-packet widths of the package
+    imported from DIR, so that versions can be alternated in one call: the
+    main library's and the width libraries' (those of BENCH_RAY_WIDTHS
+    outside the main library, one batch) build seconds (near 0 where built
+    before), ptxas's registers and spills of
+    gen_rays.cu and of each width library's bounce sources,
+    gen_rays_kernel<L>'s SASS instructions, gen_rays per call and on the
+    device (CUDA graph) on the Apollo 1920x1080 path frame at
+    BENCH_RAY_WIDTHS and on the 480x270 preview, bounce 0's bounce_flight and
+    bounce_shade ms at each width and at L = 4 (the instances the default
+    TraceConfig takes), and Apollo's s/spp at each of WIDTHS against L = 4
+    (``spp_ratio``). One JSON line."""
+    import digital_earth_tpu_torch as pkg
+    from digital_earth_tpu_torch import kernels
+    from digital_earth_tpu_torch.app.config_io import load_config
+    from digital_earth_tpu_torch.app.viewer import render_offline
+    from digital_earth_tpu_torch.assets.luts import load_spectral_luts
+    from digital_earth_tpu_torch.assets.textures import procedural_texture_atlas
+    from digital_earth_tpu_torch.render import pathtracer as pt
+    from digital_earth_tpu_torch.render import raygen
+    from digital_earth_tpu_torch.render.params import TraceConfig
+    from digital_earth_tpu_torch.render.renderer import Renderer
+
+    out = dict(package=os.path.dirname(os.path.abspath(pkg.__file__)), card=nvidia_smi_line())
+    t0 = time.time()
+    kernels.library()
+    out["main_build_s"] = round(time.time() - t0, 1)
+    t0 = time.time()
+    built = [L for L in BENCH_RAY_WIDTHS if L not in kernels.BOUNCE_WIDTHS]
+    kernels.build_width_libraries(built)
+    out["width_build_s"] = round(time.time() - t0, 1)
+    ptxas = {f"main {src}": ptxas_entries(log) for src, log in kernels.ptxas_log.items()
+             if src == "gen_rays.cu"}
+    for L in built:
+        for src, log in kernels.width_ptxas_log.get(L, {}).items():
+            if src == "gen_rays.cu" or src.startswith("width"):
+                ptxas[f"L{L} {src}"] = ptxas_entries(log)
+    out["ptxas"] = ptxas
+    out["gen_rays_sass"] = gen_rays_sass(kernels, built)
+    cache = os.path.join(ROOT, "build", "chip_smoke", "texture_cache")
+    luts = load_spectral_luts(dev)
+    atlas = procedural_texture_atlas(dev, (1024, 2048), seed=7, cache_dir=cache)
+    r = _apollo(Renderer(dev, image_res=RES, atlas=atlas, luts=luts))
+    p = _apollo(Renderer(dev, image_res=PREVIEW_RES, atlas=atlas, luts=luts, mode="preview"))
+    cases = [(f"path L{L}", (r._seed_key, 0, 0, RES[0] * RES[1], RES, (1, RES[1]),
+                             r.camera_params("cpu"), luts, False, None,
+                             TraceConfig(hero_lambdas=L))) for L in BENCH_RAY_WIDTHS]
+    cases.append(("preview L1", (p._seed_key, 0, 0, PREVIEW_RES[0] * PREVIEW_RES[1],
+                                 PREVIEW_RES, p.block, p.camera_params("cpu"), luts, True)))
+    rays = {}
+    for label, args in cases:
+        _, ms = _time_ms(torch, lambda: raygen.gen_rays(*args), 20)
+        rays[label] = dict(ms=round(ms, 4),
+                           device_ms=round(_graph_ms(torch, lambda: raygen.gen_rays(*args)), 4))
+    out["gen_rays"] = rays
+    bounce = {}
+    for L in (4,) + WIDTHS:
+        states, _, _ = capture_states(torch, dev, atlas, luts, bounces=(0,), scene=SCENE,
+                                      cfg=TraceConfig(hero_lambdas=L))
+        c = states[0]
+        frame = pt.BounceFrame(c["st"], *c["args"])
+        ka = lambda s: pt._kernel_args(s, c["idx"], 0, *c["args"], frame)  # noqa: E731
+        flight = kernels.bounce_flight(*ka(_clone_state(c["st"])))
+        bounce[f"L{L}"] = dict(
+            flight_ms=round(_bounce_ms(torch, c["st"], lambda s: kernels.bounce_flight(*ka(s))), 4),
+            shade_ms=round(_bounce_ms(torch, c["st"], lambda s: kernels.bounce_shade(
+                *ka(s), flight=flight)), 4))
+        del states, c, flight
+    out["bounce0"] = bounce
+    make = lambda **kw: render_offline(load_config(SCENE), dev, spp=1,  # noqa: E731
+                                       image_res=RES, out_path=None, atlas=atlas, luts=luts,
+                                       cfg=TraceConfig(**kw))
+    spp = {}
+    for L in WIDTHS:
+        d, o, ratios = spp_ratio(torch, make(), make(hero_lambdas=L))
+        spp[f"L{L}"] = dict(s_per_spp=round(o, 5), l4_s_per_spp=round(d, 5),
+                            ratio_median=round(ratios[len(ratios) // 2], 4),
+                            ratios=[round(x, 4) for x in ratios])
+    out["s_per_spp"] = spp
+    print(json.dumps({"widths_bench": out}))
 
 
 def options_bench(torch, dev):
@@ -6046,12 +6359,13 @@ def main():
     sbench = args[:1] == ["--spp-bench"] and len(args) <= 2
     obench = args[:1] == ["--options-bench"] and len(args) <= 2
     scount = args[:1] == ["--sass-counts"] and len(args) <= 2
+    wbench = args[:1] == ["--widths-bench"] and len(args) <= 2
     if args and not (mesh_only or estimator_only or floors_only or widths_only or bench or pbench
-                     or sbench or obench or scount):
+                     or sbench or obench or scount or wbench):
         fail(f"unknown arguments {args} (the options are --mesh-only, --estimator-only, "
              "--floors-only, --widths-only, "
              "--preview-bench [DIR], --path-bench [DIR], --spp-bench [DIR], --options-bench "
-             "[DIR] and --sass-counts [DIR])")
+             "[DIR], --sass-counts [DIR] and --widths-bench [DIR])")
     try:
         import torch
     except ImportError:
@@ -6060,8 +6374,8 @@ def main():
         fail("torch.cuda.is_available() is False: this smoke test needs a CUDA card")
     if not os.path.isdir(os.path.join(ROOT, "digital_earth_tpu_torch")):
         fail("run from a checkout: digital_earth_tpu_torch/ is missing beside chip_smoke.py")
-    sys.path.insert(0, os.path.abspath(args[1]) if (bench or pbench or sbench or obench or scount)
-                    and len(args) == 2 else ROOT)
+    sys.path.insert(0, os.path.abspath(args[1]) if (bench or pbench or sbench or obench or scount
+                                                    or wbench) and len(args) == 2 else ROOT)
     dev = torch.device("cuda:0")
     if bench:
         preview_bench(torch, dev)
@@ -6077,6 +6391,9 @@ def main():
         return
     if scount:
         sass_counts()
+        return
+    if wbench:
+        widths_bench(torch, dev)
         return
 
     from digital_earth_tpu_torch import kernels
@@ -6361,11 +6678,11 @@ def main():
     for name in ("bounce_flight", "bounce_shade", "bounce_window"):
         sources[f"{name}/options"] = ("cuda", "digital_earth_tpu_torch/csrc/bounce_opts.cu",
                                       sources[name][2])
-    # the width libraries' instances (phase 8g): the bounce entries' floor
+    # the width libraries' instances (phase 8g): the bounce entries' default
     # instances of csrc/width/, the other kernels' sources built at the width
     for key in width_rows:
         name = key.split("/")[0]
-        src = ("digital_earth_tpu_torch/csrc/width/bounce_floor.cu" if name.startswith("bounce")
+        src = ("digital_earth_tpu_torch/csrc/width/bounce_default.cu" if name.startswith("bounce")
                else sources[name][1])
         sources[key] = ("cuda", src, sources[name][2])
     # launches: the main path's run (0 for the trackers, whose loops run

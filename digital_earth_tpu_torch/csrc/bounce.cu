@@ -7,16 +7,20 @@
 // estimator instances in their *_est.cu twins and the floor instances in
 // their *_floor.cu twins. A launch takes the instance its parameters ask
 // for (ip[0], ip[15], ip[33]). Built with -DDE_WIDTH=L, these are a width
-// library's entries (packet_width.cuh): the floor instances of
-// width/bounce_floor.cu and width/bounce_ratio_floor.cu at that width alone.
+// library's entries (packet_width.cuh): at that width alone, the default
+// instances of width/bounce_default.cu and width/bounce_ratio_default.cu and
+// the floor instances of width/bounce_floor.cu and width/bounce_ratio_floor.cu.
 #include "bounce.cuh"
 #include "packet_width.cuh"
 
 namespace de {
 
 #ifdef DE_WIDTH
+extern DE_BOUNCE_INSTANCE(DE_WIDTH, false, INST_DEFAULT);
+extern DE_BOUNCE_INSTANCE(DE_WIDTH, true, INST_DEFAULT);
 extern DE_BOUNCE_INSTANCE(DE_WIDTH, false, INST_FLOORS);
 extern DE_BOUNCE_INSTANCE(DE_WIDTH, true, INST_FLOORS);
+extern template int entry_occupancy<INST_DEFAULT, DE_WIDTH>(int, int*);
 extern template int entry_occupancy<INST_FLOORS, DE_WIDTH>(int, int*);
 #else
 DE_BOUNCE_INSTANCE(4, false, INST_DEFAULT);
@@ -135,9 +139,10 @@ static int launch_bounce(int entry, const BounceState& s, const BounceParams& p,
                          const BounceOptionsFloors& o, int opts, void* scratch, int stop,
                          cudaStream_t stream) {
 #ifdef DE_WIDTH
-  // a width library holds the floor instances alone (they read every option)
-  return opts == INST_FLOORS ? launch_bounce<INST_FLOORS>(entry, s, p, o, scratch, stop, stream)
-                             : (int)cudaErrorInvalidValue;
+  // a width library holds the default instances and the floor instances,
+  // which read every option and so run every other instance's settings
+  return opts == INST_DEFAULT ? launch_bounce<INST_DEFAULT>(entry, s, p, o, scratch, stop, stream)
+                              : launch_bounce<INST_FLOORS>(entry, s, p, o, scratch, stop, stream);
 #else
   if (opts == INST_FLOORS) {
     return launch_bounce<INST_FLOORS>(entry, s, p, o, scratch, stop, stream);
@@ -178,7 +183,8 @@ static int launch_bounce(int entry, const BounceState& s, const BounceParams& p,
 //     takes the estimator options' and the march floors' defaults only; 0: the
 //     default, which takes every option's default only; every instance takes
 //     any march_patience, and the roulettes' start bounces and the Newton
-//     steps, which act only with their options; a width library takes 3 alone)
+//     steps, which act only with their options; a width library holds 0 and
+//     3, and runs 1 and 2 as 3)
 // State (n lanes, read and written in place at the lanes of idx): pos,
 // dir (N, 3); wavelength, lambda_pdf, throughput, radiance, w_mis (N, L);
 // alive, primary_miss (N,) bool; work_class (N,) int32; keys (N, 2) int32.
@@ -248,11 +254,14 @@ extern "C" int de_bounce_window(DE_BOUNCE_ARGS, int stop, void* stream) {
 // at L = 4 and the closed-form transmittance: the default instance (opts 0),
 // the options instance (1, bounce_opts.cu), the estimator instance (2,
 // bounce_est.cu) or the floor instance (3, bounce_floor.cu); in a width
-// library, its floor instance (3) at its width.
+// library, its default (0) or floor instance (3) at its width.
 extern "C" int de_bounce_occupancy(int which, int opts, int* out) {
 #ifdef DE_WIDTH
-  return opts == de::INST_FLOORS ? de::entry_occupancy<de::INST_FLOORS, DE_WIDTH>(which, out)
-                                 : (int)cudaErrorInvalidValue;
+  switch (opts) {
+    case de::INST_DEFAULT: return de::entry_occupancy<de::INST_DEFAULT, DE_WIDTH>(which, out);
+    case de::INST_FLOORS: return de::entry_occupancy<de::INST_FLOORS, DE_WIDTH>(which, out);
+    default: return (int)cudaErrorInvalidValue;
+  }
 #else
   switch (opts) {
     case de::INST_DEFAULT: return de::entry_occupancy<de::INST_DEFAULT>(which, out);

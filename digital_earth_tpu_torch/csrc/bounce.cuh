@@ -1287,7 +1287,8 @@ int launch_entry(int entry, const BounceState& s, const BounceParams& bp,
 // and the closed form, the default instance or the options instance
 // (OPTS), on the current device: out = (resident blocks per SM, threads per
 // block, registers per thread, local memory bytes per thread). Instantiated
-// with that set (bounce.cu, bounce_opts.cu, width/bounce_floor.cu).
+// with that set (bounce.cu, bounce_opts.cu, width/bounce_default.cu,
+// width/bounce_floor.cu).
 template <int OPTS, int L = 4>
 int entry_occupancy(int which, int* out) {
   const void* fns[] = {

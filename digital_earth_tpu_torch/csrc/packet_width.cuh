@@ -3,7 +3,8 @@
 // L = 4. A width library (kernels.width_library) holds one other width: it
 // is built with -DDE_WIDTH=L from the entries of bounce.cu, gen_rays.cu,
 // rmo_ratio_track.cu and, past frame_end.cu's MAX_LAMBDAS, frame_end.cu,
-// with the bounce entries' floor instances of width/*.cu, at first use.
+// with the bounce entries' default and floor instances of width/*.cu, at
+// first use.
 #pragma once
 
 #include <type_traits>

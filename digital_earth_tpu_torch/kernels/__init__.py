@@ -44,9 +44,12 @@ The main library holds the packets of ``BOUNCE_WIDTHS`` (1 and 4
 wavelengths, TraceConfig.hero_lambdas). Every other width L runs from a
 library of its own (``width_library``), built at its first use from the
 same sources with ``-DDE_WIDTH=L`` (csrc/packet_width.cuh) into
-``build/kernels/<hash of the sources and L>/``: the bounce entries as the
-floor instances alone (csrc/width/, which read every option at run time, so
-one set serves every setting), ``gen_rays``, ``rmo_ratio_track`` and, past
+``build/kernels/<hash of the sources and L>/``: the bounce entries as two
+instance sets (csrc/width/), the default instances, which compile every
+option in at its default, and the floor instances, which read every option
+at run time; a launch at the default TraceConfig takes the default
+instances, any option, estimator option or march floor off its default the
+floor instances; then ``gen_rays``, ``rmo_ratio_track`` and, past
 ``FRAME_END_MAX_LAMBDAS``, ``frame_end``. A launch at such a width (of any
 library) also adds one to the wrapper's count at that width,
 ``launch_counts``' ``"<name>/L<n>"``.
@@ -204,7 +207,8 @@ FRAME_END_MAX_LAMBDAS = 8
 WIDTH_DIR = os.path.join(CSRC, "width")
 # the C entries of a width library: those of the sources of csrc/ it builds
 # with -DDE_WIDTH=L (WIDTH_ENTRIES, and frame_end.cu past
-# FRAME_END_MAX_LAMBDAS), the bounce entries' floor instances in WIDTH_DIR
+# FRAME_END_MAX_LAMBDAS), the bounce entries' default and floor instances in
+# WIDTH_DIR
 WIDTH_ENTRIES = {"bounce.cu": ("de_bounce_flight", "de_bounce_shade", "de_bounce_window",
                                "de_bounce_occupancy"),
                  "gen_rays.cu": ("de_gen_rays",), "rmo_ratio_track.cu": ("de_rmo_ratio_track",)}
@@ -1058,14 +1062,21 @@ def _knob_instance(fparams, iparams) -> int:
     return 0
 
 
+def _width_instance(opts: int) -> int:
+    """The instance a width library runs for ``opts``: the default instance,
+    or for any other the floor instance (which reads every option)."""
+    return INST_DEFAULT if opts == INST_DEFAULT else INST_FLOORS
+
+
 def _bounce_args(fparams, iparams, pos, direction, wavelength, lambda_pdf, throughput, radiance,
                  w_mis, alive, primary_miss, work_class, keys, idx, topo, material, clouds,
                  o3_crossec, srgb2spec, table, n_live, options=False):
     """Check a bounce launch's arguments: (the C arguments up to the tables,
     the ctypes blocks they point to, the instance the options ask for:
     ``INST_*``, the packet width). At a width outside ``BOUNCE_WIDTHS`` the
-    C block asks for the floor instance, the one set a width library holds
-    (it reads every option at run time)."""
+    C block asks for the width library's default instance where every option
+    is at its default, else for its floor instance (which reads every option
+    at run time)."""
     dev = pos.device
     n = pos.shape[0]
     m = idx.shape[0]
@@ -1106,7 +1117,7 @@ def _bounce_args(fparams, iparams, pos, direction, wavelength, lambda_pdf, throu
     scene = _options_instance(iparams, 16, BOUNCE_OPTIONS, options)
     opts = _knob_instance(fparams, iparams) or (INST_OPTIONS if scene else INST_DEFAULT)
     fp = (ctypes.c_float * BOUNCE_FLOATS)(*fparams)
-    inst = opts if L in BOUNCE_WIDTHS else INST_FLOORS
+    inst = opts if L in BOUNCE_WIDTHS else _width_instance(opts)
     ip = (ctypes.c_int * (BOUNCE_INTS + 1))(*iparams, inst)
     return [
         ctypes.cast(fp, ctypes.c_void_p), ctypes.cast(ip, ctypes.c_void_p),
@@ -1153,9 +1164,9 @@ def bounce_flight(*args, n_live=None, trips=None, cycles=None, options=False):
     the options instance of it, an estimator option off its default the
     estimator instance (which also takes the other options), a march floor
     off its default the floor instance (which takes them all); at a width
-    outside ``BOUNCE_WIDTHS``, its width library's floor instance at any
-    setting (counted as an options launch where the setting asks for an
-    options instance). At ``analytic_flight`` the census counts the analytic
+    outside ``BOUNCE_WIDTHS``, its width library's default instance at the
+    defaults and its floor instance at any other setting (counted as an
+    options launch). At ``analytic_flight`` the census counts the analytic
     flight's Newton steps at the RMO column (2)."""
     c_args, _refs, opts, L = _bounce_args(*args, n_live, options)
     m = args[13].shape[0]
@@ -1202,12 +1213,14 @@ def bounce_occupancy(which: str, options: int = INST_DEFAULT, width: int = None)
     (``OCCUPANCY_ENTRIES``; its default instance, L = 4 and the closed form,
     or with ``options`` its options instance, True or ``INST_OPTIONS``, its
     estimator instance, ``INST_ESTIMATOR``, or its floor instance,
-    ``INST_FLOORS``; with ``width`` outside ``BOUNCE_WIDTHS``, the floor
-    instance of that width's library) on the current device:
+    ``INST_FLOORS``; with ``width`` outside ``BOUNCE_WIDTHS``, the default
+    instance of that width's library, ``INST_DEFAULT``, or any other asks for
+    its floor instance) on the current device:
     resident blocks and warps per SM, threads per block, registers and local
     bytes per thread."""
     out = (ctypes.c_int * 4)()
-    lib, opts = (library(), int(options)) if width is None else (width_library(width), INST_FLOORS)
+    lib, opts = ((library(), int(options)) if width is None
+                 else (width_library(width), _width_instance(int(options))))
     rc = lib.de_bounce_occupancy(OCCUPANCY_ENTRIES.index(which), opts,
                                  ctypes.cast(out, ctypes.c_void_p))
     if rc != 0:

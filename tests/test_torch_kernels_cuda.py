@@ -2062,10 +2062,11 @@ WIDTHS = (2, 6, 16)
                                      dict(enable_clouds=False, **CERT_U0)])
 @pytest.mark.parametrize("L", WIDTHS)
 def test_width_bounce_bit_equal(dev, L, options, bounce):
-    """The bounce entries of L's width library (the floor instances) bit-equal
-    to run_bounce_plain on every live lane, at the defaults, with the gases'
-    sun transmittance by ratio tracking, and at an option with the certified
-    floor; each launch counted at its width."""
+    """The bounce entries of L's width library bit-equal to run_bounce_plain
+    on every live lane: the default instances at the defaults and with the
+    gases' sun transmittance by ratio tracking, the floor instances at an
+    option with the certified floor; each launch counted at its width, as
+    an options launch in the floor instances only."""
     from digital_earth_tpu_torch import kernels
 
     st, args = _golden_state(dev, bounce, options=dict(hero_lambdas=L, **options))
@@ -2074,10 +2075,34 @@ def test_width_bounce_bit_equal(dev, L, options, bounce):
     idx = idx[: int(n_live)]
     assert idx.numel() > 0
     before = kernels.launch_counts().get(f"bounce_flight/L{L}", 0)
+    floors = kernels.bounce_flight.options_launches
     got = _bounce_both(st, idx, bounce, args, pt.BounceFrame(st, *args))
     assert kernels.launch_counts()[f"bounce_flight/L{L}"] == before + 1
+    assert kernels.bounce_flight.options_launches - floors == int("enable_clouds" in options)
     assert _same_state(got.take(idx.long()), pt.run_bounce_plain(st.take(idx.long()), bounce,
                                                                  *args))
+
+
+@pytest.mark.parametrize("bounce", [0, 3])
+@pytest.mark.parametrize("ratio", [False, True])
+@pytest.mark.parametrize("L", WIDTHS)
+def test_width_bounce_floor_instances_bit_equal(dev, L, ratio, bounce):
+    """The floor instances of L's width library, forced at the defaults (and
+    with the ratio-tracked sun transmittance), bit-equal to run_bounce_plain
+    and to the default instances on every live lane."""
+    from digital_earth_tpu_torch import kernels
+
+    options = dict(hero_lambdas=L, analytic_transmittance=not ratio)
+    st, args = _golden_state(dev, bounce, options=options)
+    idx, n_live = _live(st)
+    idx = idx[: int(n_live)]
+    frame = pt.BounceFrame(st, *args)
+    floors = kernels.bounce_flight.options_launches
+    forced = _bounce_both(st, idx, bounce, args, frame, options=True)
+    assert kernels.bounce_flight.options_launches == floors + 1
+    lanes = idx.long()
+    assert _same_state(forced.take(lanes), pt.run_bounce_plain(st.take(lanes), bounce, *args))
+    assert _same_state(forced, _bounce_both(st, idx, bounce, args, frame))
 
 
 @pytest.mark.parametrize("L", WIDTHS)
@@ -2095,6 +2120,40 @@ def test_width_bounce_window_bit_equal(dev, L):
     assert _same_state(got, want)
 
 
+@pytest.mark.parametrize("ratio, floors", [(False, True), (True, False), (True, True)])
+@pytest.mark.parametrize("L", WIDTHS)
+def test_width_bounce_window_instances_bit_equal(dev, monkeypatch, L, ratio, floors):
+    """bounce_window of L's width library from bounce 1 against
+    run_window_plain in the floor instances (forced) and with the
+    ratio-tracked sun transmittance, every lane bit-equal."""
+    from digital_earth_tpu_torch import kernels
+
+    st, args = _golden_state(dev, 1, options=dict(hero_lambdas=L,
+                                                  analytic_transmittance=not ratio))
+    idx, n_live = _live(st)
+    idx = idx[: int(n_live)]
+    got, want = _clone_state(st), _clone_state(st)
+    if floors:
+        monkeypatch.setattr(kernels, "_knob_instance", lambda fp, ip: kernels.INST_FLOORS)
+    before = kernels.bounce_window.options_launches
+    pt.run_window(got, idx, 1, args[3].max_bounces, *args)
+    assert kernels.bounce_window.options_launches == before + int(floors)
+    pt.run_window_plain(want, idx, 1, args[3].max_bounces, *args)
+    assert _same_state(got, want)
+
+
+@pytest.mark.parametrize("L", WIDTHS)
+def test_width_occupancy_of_both_instances(dev, L):
+    """A width library answers the occupancy of its default and its floor
+    instances (registers, resident warps) for each bounce entry."""
+    from digital_earth_tpu_torch import kernels
+
+    for which in kernels.OCCUPANCY_ENTRIES:
+        for inst in (kernels.INST_DEFAULT, kernels.INST_FLOORS):
+            o = kernels.bounce_occupancy(which, inst, width=L)
+            assert 0 < o["registers"] <= 255 and o["warps_per_sm"] > 0
+
+
 @pytest.mark.parametrize("L", WIDTHS)
 def test_width_gen_rays_bit_equal(dev, L):
     """gen_rays of L's width library (its rotations l * float32(1 / L), as
@@ -2109,6 +2168,59 @@ def test_width_gen_rays_bit_equal(dev, L):
     got = raygen.gen_rays(*args)
     assert kernels_launches("gen_rays") == before + 1 and got.wavelengths.shape[1] == L
     _rays_equal(got, raygen.gen_rays_plain(*args))
+
+
+@pytest.mark.parametrize("case", ["tail", "tiles", "preview"])
+@pytest.mark.parametrize("L", [1, 2, 3, 6, 7, 16])
+def test_gen_rays_packet_stores_bit_equal(dev, L, case):
+    """gen_rays' packet stores (every L but 4) bit-equal to its twin on a
+    320x180 Apollo frame: lanes [77, 10080), whose last block of 19 lanes
+    ends its runs in a scalar tail where 19 L is not a multiple of 4; a
+    seeded quarter of the frame's tiles (an adaptive pass's tile list); the
+    preview at L = 1 (its one wavelength and the pdf's reciprocal)."""
+    from digital_earth_tpu_torch.render import raygen
+
+    if case == "preview" and L != 1:
+        pytest.skip("the preview samples one wavelength")
+    res = (320, 180)
+    r = _apollo_renderer(dev, res, "preview" if case == "preview" else "path")
+    cfg = TraceConfig(hero_lambdas=L)
+    if case == "tail":
+        args = ((0, 3), 5, 77, 10003, res, (1, res[1]), r.camera_params(), r.luts, False, None,
+                cfg)
+    elif case == "tiles":
+        bw, bh = r.block
+        n_tiles = (res[0] // bw) * (res[1] // bh)
+        order = torch.randperm(n_tiles, generator=torch.Generator().manual_seed(L))
+        tiles = order[: n_tiles // 4].to(torch.int32).to(dev)
+        args = ((0, 3), 5, 0, tiles.numel() * bw * bh, res, (bw, bh), r.camera_params(), r.luts,
+                False, tiles, cfg)
+    else:
+        args = ((0, 3), 5, 0, res[0] * res[1], res, r.block, r.camera_params(), r.luts, True,
+                None, cfg)
+    got = raygen.gen_rays(*args)
+    assert got.wavelengths.shape[1] == (1 if case == "preview" else L)
+    _rays_equal(got, raygen.gen_rays_plain(*args))
+
+
+@pytest.mark.parametrize("L", [2, 4])
+def test_gen_rays_widest_table(dev, L):
+    """gen_rays on a 3072-entry CIE table, the widest its wrapper takes: the
+    table's 48 KiB and the directions' 3 KiB of shared memory pass a block's
+    48 KiB without opting in, so the launch opts in; bit-equal to its twin."""
+    from digital_earth_tpu_torch.render import raygen
+
+    res = (320, 180)
+    r = _apollo_renderer(dev, res, "path")
+    x, xp = np.linspace(0.0, 1.0, 3072), np.linspace(0.0, 1.0, r.luts.cie_cdf.shape[0])
+    wide = r.luts._replace(**{
+        name: torch.tensor(np.stack([np.interp(x, xp, col) for col in
+                                     getattr(r.luts, name).cpu().numpy().T], axis=1),
+                           dtype=torch.float32, device=dev)
+        for name in ("cie_cdf", "cie_response")})
+    args = ((0, 3), 5, 0, 8192, res, (1, res[1]), r.camera_params(), wide, False, None,
+            TraceConfig(hero_lambdas=L))
+    _rays_equal(raygen.gen_rays(*args), raygen.gen_rays_plain(*args))
 
 
 @pytest.mark.parametrize("k", [1, 4])

@@ -407,34 +407,71 @@ def _bounce_call(L, **cfg_kw):
     return pt._kernel_args(st, idx, 0, scene, atlas, luts, cfg, frame)
 
 
+# A width library's two bounce instance sets: the TraceConfig of each case
+# and the instance its launches ask for (one knob of each set: a scene
+# option, an estimator option, a march floor)
+WIDTH_KNOBS = {
+    "defaults": ({}, kernels.INST_DEFAULT),
+    "scene option": (dict(enable_clouds=False), kernels.INST_FLOORS),
+    "estimator option": (dict(fast_loop_rng=True), kernels.INST_FLOORS),
+    "march floor": (dict(march_floor_frac_secondary=0.01), kernels.INST_FLOORS),
+}
+
+
+@pytest.mark.parametrize("knob", list(WIDTH_KNOBS))
 @pytest.mark.parametrize("L", [2, 6, 16])
-def test_width_launches_go_to_their_library(stubs, L):
+def test_width_launches_go_to_their_library(stubs, L, knob):
     """gen_rays and the bounce entries at L go to L's library, the bounce's
-    int block asking for the floor instance at the defaults and at an
-    option (counted as an options launch there), each launch counted at its
-    width; frame_end goes to L's library past 8 wavelengths only."""
+    int block asking for the default instance at the defaults and for the
+    floor instance at a scene option, an estimator option or a march floor
+    (counted as an options launch there), each launch counted at its width;
+    frame_end goes to L's library past 8 wavelengths only."""
+    cfg_kw, inst = WIDTH_KNOBS[knob]
     g, _ = tluts.ray_tables(tluts.load_spectral_luts("cpu"))
     ip = [0, 0, 0, 0, 0, 4, 2, 1, 2, g.shape[0], L, 0, 1]
     kernels.gen_rays([0.0] * 19, ip, g, tluts.load_spectral_luts("cpu").cie_response, 8, L)
-    for cfg_kw, opts in (({}, 0), (dict(enable_clouds=False), 1)):
-        args = _bounce_call(L, **cfg_kw)
-        kernels.bounce_shade(*args, flight=kernels.bounce_flight(*args))
-        kernels.bounce_window(*args, stop=2)
-        assert kernels.bounce_window.options_launches == opts
-        for name, ints in stubs[L].calls[-3:]:
-            assert ints[0] == L and ints[-1] == kernels.INST_FLOORS, name
+    args = _bounce_call(L, **cfg_kw)
+    kernels.bounce_shade(*args, flight=kernels.bounce_flight(*args))
+    kernels.bounce_window(*args, stop=2)
+    assert kernels.bounce_window.options_launches == int(inst == kernels.INST_FLOORS)
+    for name, ints in stubs[L].calls[-3:]:
+        assert ints[0] == L and ints[-1] == inst, name
     fp, _ = fe.kernel_params(L)
     kernels.frame_end(fp, [L, 1, 1, 0, 0], torch.zeros((8, L)), torch.zeros((8, L, 3)),
                       torch.arange(8), torch.zeros((8, 3)), miss=_miss_inputs(L))
     names = [name for name, _ in stubs[L].calls]
-    assert names == ["de_gen_rays"] + ["de_bounce_flight", "de_bounce_shade",
-                                       "de_bounce_window"] * 2 + (["de_frame_end"] if L > 8 else [])
+    assert names == ["de_gen_rays", "de_bounce_flight", "de_bounce_shade", "de_bounce_window"] + (
+        ["de_frame_end"] if L > 8 else [])
     assert [name for name, _ in stubs["main"].calls] == ([] if L > 8 else ["de_frame_end"])
     counts = kernels.launch_counts()
     assert counts["gen_rays"] == counts[f"gen_rays/L{L}"] == 1
-    assert counts["bounce_flight"] == counts[f"bounce_flight/L{L}"] == 2
+    assert counts["bounce_flight"] == counts[f"bounce_flight/L{L}"] == 1
     assert counts["frame_end"] == counts[f"frame_end/L{L}"] == 1
     assert not any(k.endswith(("/L1", "/L4")) for k in counts)
+
+
+@pytest.mark.parametrize("options, inst", [(kernels.INST_DEFAULT, kernels.INST_DEFAULT),
+                                           (kernels.INST_FLOORS, kernels.INST_FLOORS),
+                                           (True, kernels.INST_FLOORS),
+                                           (kernels.INST_ESTIMATOR, kernels.INST_FLOORS)])
+def test_width_occupancy_asks_for_its_instance(stubs, options, inst):
+    """bounce_occupancy at a width asks L's library for the default instance
+    or, for any other, the floor instance (the two sets a width library
+    holds); without a width the main library for the instance asked."""
+    calls = []
+
+    def occupancy(which, opts, out):
+        calls.append((which, opts))
+        return 0
+
+    for lib in ("main", 6):
+        stubs.setdefault(lib, _StubLib()).de_bounce_occupancy = occupancy
+    for which in kernels.OCCUPANCY_ENTRIES:
+        kernels.bounce_occupancy(which, options, width=6)
+    assert calls == [(i, inst) for i in range(len(kernels.OCCUPANCY_ENTRIES))]
+    calls.clear()
+    kernels.bounce_occupancy("bounce_shade", options)
+    assert calls == [(1, int(options))]
 
 
 def _miss_inputs(L, n=8):
@@ -467,16 +504,17 @@ def test_width_library_failures_raise(stubs, monkeypatch):
 
 def test_width_sources_stay_out_of_the_main_library():
     """The main library builds every .cu of csrc/ and no width source; a
-    width library the entries' sources with its define and the floor
-    instances of csrc/width/ (frame_end past 8 wavelengths), under a hash of
-    its own per width; the main and width widths do not overlap."""
+    width library the entries' sources with its define and the default and
+    floor instances of csrc/width/ (frame_end past 8 wavelengths), under a
+    hash of its own per width; the main and width widths do not overlap."""
     main = kernels._sources()
     assert not any(os.sep + "width" + os.sep in p for p in main)
     for L in (2, 16):
         srcs = [os.path.relpath(p, kernels.CSRC) for p in kernels._width_sources(L)]
         assert srcs == ["bounce.cu", "gen_rays.cu", "rmo_ratio_track.cu"] + (
-            ["frame_end.cu"] if L > 8 else []) + ["width/bounce_floor.cu",
-                                                  "width/bounce_ratio_floor.cu"]
+            ["frame_end.cu"] if L > 8 else []) + [
+                "width/bounce_default.cu", "width/bounce_floor.cu",
+                "width/bounce_ratio_default.cu", "width/bounce_ratio_floor.cu"]
     dirs = {kernels._library_dir(f"-DDE_WIDTH={L}") for L in (2, 6, 16)} | {
         kernels._library_dir()}
     assert len(dirs) == 4

@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--mesh-only | --estimator-only | --floors-only | --widths-only
                            | --preview-bench [DIR] | --path-bench [DIR] | --spp-bench [DIR]
                            | --options-bench [DIR] | --sass-counts [DIR]
-                           | --widths-bench [DIR]]
+                           | --widths-bench [DIR] | --naive-bench [DIR]]
 
 Run from the root of a checkout on a machine with a CUDA card, ``nvcc`` and
 PyTorch built for CUDA; ``--mesh-only`` runs phases 1-3 and 19 alone (say,
@@ -36,7 +36,13 @@ instances, s/spp against the setting's base) and
 sources' ptxas report, and ``--widths-bench [DIR]`` the hero-packet widths
 (the width libraries' build and ptxas report, ``gen_rays`` at L = 1, 2, 4,
 6, 16 and its SASS sizes, bounce 0's two kernels and s/spp against L = 4
-at each width), for the package in DIR. It
+at each width), and ``--naive-bench [DIR]`` the naive trackers' launchers
+(``naive_delta_track``, ``naive_ratio_track``) per call and on the device
+on the three scenes' naive_tracking arguments at bounces 0 and DEEP_BOUNCE
+(captured afresh from the twin's bounce on every run; each call held
+bit-equal to its twin with its steps) and the census of
+bounce 0 under naive_cloud_tracking (each site's warp cycles, the NEE
+cloud pass's iterations), for the package in DIR. It
 imports nothing of JAX or of the JAX package ``digital_earth_tpu`` (checked
 at the end). Phases, each of which raises on failure (exit code 1):
 
@@ -161,8 +167,15 @@ at the end). Phases, each of which raises on failure (exit code 1):
    launchers (``naive_march``, ``naive_delta_track`` and
    ``naive_ratio_track``, gases and cloud) against their twins on each
    scene's bounce-0 arguments at naive_tracking, captured from the twin's
-   bounce, every output and every lane's steps bit-equal, timed with their
-   bounds from the steps (Apollo's calls are the kernels line's rows); per
+   bounce, every output and every lane's steps bit-equal, timed per call and
+   on the device with the trackers' SIMT efficiency one thread a lane and
+   under their warp-cooperative steps (``naive_rounds``); Apollo's calls are
+   the kernels line's rows, with their bounds from the work their data
+   needs (the twin's steps, its density evaluations, cloud taps and draws:
+   ``naive_work``); the trackers' launchers on the round
+   structure's edge cases built from Apollo's calls (``check_naive_edges``:
+   one tracking lane a warp, 32, a step cap inside a round, a stop on a
+   round's last thread), bit-equal with their steps; per
    flag and scene the bounce entries' options instances against their twin
    at bounces 0 and DEEP_BOUNCE and ``bounce_window`` against
    ``run_window_plain`` from the bounce the frame enters it, every lane
@@ -2394,13 +2407,18 @@ NAIVE_SITES = {"naive_tracking": (0, 1, 2, 4, 5, 6), "naive_march": (0, 3, 4),
 # and the test (2): 77, or the cloud's tap (36), radius (6), split-shape
 # density (12), extinction (1) and test (2): 69; a ratio step the same with
 # the transmittance's update and stop test (3) for the test: 79 and 71.
-# Threefry: a tracker step folds its key (a block) and draws its first
-# uniform; delta tracking draws the second on every step that does not end
-# past t_max (counted as every step but a lane's last: a floor, the hit's
-# two draws not counted), ratio tracking none more.
+# Counted as the function needs them (``naive_work``): every step the
+# exponential step and its test (NAIVE_STEP_OPS); a step that does not end
+# past t_max the rest (NAIVE_EVAL_OPS) but the cloud's tap, which only a
+# point inside the slab needs (NAIVE_TAP_OPS: outside it the density is 0
+# whatever the tap). Threefry: every step folds its key (a block) and draws
+# its first uniform; delta tracking draws the second where a step does not
+# end past t_max and its total is above 0 (else no collision can happen),
+# and the third at its collision.
 NAIVE_MARCH_CALL_OPS, NAIVE_MARCH_STEP_OPS = 18, 56
-NAIVE_STEP_OPS = {("delta", "rmo"): 77, ("delta", "cloud"): 69, ("ratio", "rmo"): 79,
-                  ("ratio", "cloud"): 71}
+NAIVE_STEP_OPS, NAIVE_TAP_OPS = 5, 36
+NAIVE_EVAL_OPS = {("delta", "rmo"): 72, ("delta", "cloud"): 28, ("ratio", "rmo"): 74,
+                  ("ratio", "cloud"): 30}
 # bytes per lane of the launchers: the march's pos, dir, active and
 # distance (29; the topography as read once); a tracker's keys, pos, dir,
 # span, (n, 4) extinctions, majorant and active (61) and its event, t and
@@ -2534,20 +2552,102 @@ def capture_naive_calls(torch, c, b):
     return calls
 
 
-def naive_ops(torch, name, species, trips, tf):
+def naive_work(torch, name, args):
+    """The work a tracker call ``name`` (``tracking_naive``'s wrapper) with
+    ``args`` needs, counted on its twin's own steps (``tracking_naive``'s
+    *_plain, its loop body followed step by step): {"steps", "evals" (steps
+    that do not end past t_max, whose density the function needs), "taps"
+    (of those, the cloud's points inside the slab), "draws" (uniforms: the
+    first of every step, delta tracking's second where the total is above 0
+    and third at a collision)}."""
+    from digital_earth_tpu_torch import constants as C
+    from digital_earth_tpu_torch.ops import rng
+    from digital_earth_tpu_torch.ops.math_utils import length
+    from digital_earth_tpu_torch.render import tracking_naive as tn
+
+    species, clouds, cfg = args[8], args[7], args[10]
+    delta = name == "delta_track_naive"
+    dev = args[1].device
+    n = {k: torch.zeros((), dtype=torch.int64, device=dev)
+         for k in ("steps", "evals", "taps", "draws")}
+    run = tn._run_lanes
+
+    def counting(budget, stride, state, ctx, body, trips=None):
+        def step(i, s, c):
+            u = rng.uniform(rng.fold(c["keys"], i), (3,))
+            t_new = s["t"] - torch.log(torch.clamp(u[0], min=1e-12)) * c["inv_max"]
+            ev = t_new < c["t_max"]
+            pos = c["pos"] + torch.minimum(t_new, c["tms"])[:, None] * c["dir"]
+            n["steps"] += ev.numel()
+            n["evals"] += ev.sum()
+            n["draws"] += ev.numel()
+            if species == "cloud":
+                r = length(pos)
+                n["taps"] += (ev & (r > C.CLOUDS_LOWER_LIMIT) & (r < C.CLOUDS_UPPER_LIMIT)).sum()
+            else:
+                n["taps"] += ev.sum()
+            if delta:
+                total, _ = tn._total(species, pos, c["ext"], clouds, cfg.bilinear_tracking)
+                thr = total * c["inv_max"]
+                drawn = ev & (thr > 0.0)
+                n["draws"] += drawn.sum() + (drawn & (u[1] < thr)).sum()
+            return body(i, s, c)
+        return run(budget, stride, state, ctx, step, trips)
+
+    tn._run_lanes = counting
+    try:
+        getattr(tn, f"{name}_plain")(*args)
+    finally:
+        tn._run_lanes = run
+    return {k: int(v) for k, v in n.items()}
+
+
+def naive_ops(torch, name, species, trips, tf, work=None):
     """(other operations, threefry ALU-pipe, FMA-pipe) of a naive launcher
-    whose lanes took the (n,) steps ``trips`` (NAIVE_* counts, a floor)."""
-    t = trips.to(torch.float64)
-    steps, calls = float(t.sum()), float((t > 0).sum())
+    whose lanes took the (n,) steps ``trips``: the march's from its steps,
+    a tracker's from its call's ``work`` (``naive_work``)."""
     if name == "intersect_land_naive":
-        return (calls * NAIVE_MARCH_CALL_OPS + steps * NAIVE_MARCH_STEP_OPS, 0.0, 0.0)
+        t = trips.to(torch.float64)
+        return (float((t > 0).sum()) * NAIVE_MARCH_CALL_OPS
+                + float(t.sum()) * NAIVE_MARCH_STEP_OPS, 0.0, 0.0)
     kind = "delta" if name == "delta_track_naive" else "ratio"
-    draws = 2 * steps - calls if kind == "delta" else steps
-    return (steps * NAIVE_STEP_OPS[(kind, species)], *tf_ops(steps, draws, tf))
+    tap_ops = NAIVE_TAP_OPS if species == "cloud" else 0
+    other = (work["steps"] * NAIVE_STEP_OPS + work["evals"] * NAIVE_EVAL_OPS[(kind, species)]
+             + work["taps"] * tap_ops)
+    return (float(other), *tf_ops(work["steps"], work["draws"], tf))
 
 
 NAIVE_ROWS = {"intersect_land_naive": "naive_march", "delta_track_naive": "naive_delta_track",
               "ratio_track_naive": "naive_ratio_track"}
+# the most warps of an edge case of check_naive_edges
+EDGE_WARPS = 512
+
+
+def naive_rounds(torch, trips, warp=32):
+    """The naive trackers' warp-cooperative rounds (csrc/naive.cuh
+    naive_track_warp) on lanes that took the (n,) ``trips`` in launch order:
+    (their SIMT efficiency, lane steps over the thread-step slots its warps
+    issue; the warps' rounds; the share of them at one thread a lane, c >
+    16). Each round a warp's c tracking lanes take T threads each (the
+    largest power of two with c T <= 32), 32 slots, and each lane advances by
+    T steps (its last round by what is left): the kernel's own rounds, since
+    a lane's steps are the twin's. (None, 0, None) where no lane stepped."""
+    m = trips.shape[0]
+    rem = torch.cat([trips, trips.new_zeros((-m) % warp)]).to(torch.int64).view(-1, warp)
+    work, rounds, solo = int(rem.sum()), 0, 0
+    rem = rem[(rem > 0).any(1)]
+    while rem.numel():
+        c = (rem > 0).sum(1)
+        T = torch.full_like(c, warp)
+        for _ in range(warp.bit_length()):
+            T = torch.where((T > 1) & (c * T > warp), T // 2, T)
+        rounds += rem.shape[0]
+        solo += int((T == 1).sum())
+        rem = torch.clamp(rem - T[:, None], min=0)
+        rem = rem[(rem > 0).any(1)]
+    if work == 0:
+        return None, 0, None
+    return work / (rounds * warp), rounds, solo / rounds
 
 
 def check_naive_launchers(torch, calls, label, tf, rows=None):
@@ -2555,7 +2655,7 @@ def check_naive_launchers(torch, calls, label, tf, rows=None):
     (``tracking_naive``'s *_plain) on the same arguments: every output
     bit-equal, the launcher's steps per lane equal to the twin's; both
     timed. With ``rows``, each launcher's calls add to its JSON row (ms,
-    plain ms, bytes, operations from the steps)."""
+    plain ms, bytes, operations from the work the call needs)."""
     from digital_earth_tpu_torch.render import tracking_naive as tn
 
     card = nvidia_smi_line()
@@ -2577,6 +2677,9 @@ def check_naive_launchers(torch, calls, label, tf, rows=None):
         torch.cuda.synchronize()
         plain_ms = start.elapsed_time(end)
         (got, steps), ms = _time_ms(torch, lambda: _naive_launcher(torch, name, args, iters=True), 3)
+        # the march's scale as a float, so that the capture reads no tensor
+        targs = args if species is not None else (*args[:3], float(args[3]), *args[4:])
+        dev_ms = _graph_ms(torch, lambda: _naive_launcher(torch, name, targs))
         got = got if isinstance(got, tuple) else (got,)
         want = want if isinstance(want, tuple) else (want,)
         differ = torch.zeros(n, dtype=torch.bool, device=args[1].device)
@@ -2588,19 +2691,30 @@ def check_naive_launchers(torch, calls, label, tf, rows=None):
         same_steps = torch.equal(steps, trips)
         t = trips[trips > 0].to(torch.float64)
         simt = simt_efficiency(torch, trips[:, None])[0]
-        other, int_ops, fma_ops = naive_ops(torch, name, species, trips, tf)
-        ops = other + int_ops + fma_ops
-        nbytes = (NAIVE_MARCH_LANE_BYTES * n + args[0].numel() if species is None else
-                  (NAIVE_TRACK_LANE_BYTES + (12 if name == "delta_track_naive" else 4)) * n
-                  + (args[7].numel() if species == "cloud" else 0))
-        b_ms, b_by = bound(nbytes, ops, int_ops=int_ops, fma_ops=fma_ops)
+        warp_simt = (None if name == "intersect_land_naive" or (name, species) == (
+            "ratio_track_naive", "rmo") else naive_rounds(torch, trips)[0])
+        bound_text = ""
+        if rows is not None:
+            # the kernels line's calls (Apollo's): the bound from the work the
+            # call needs, counted on a second run of the twin
+            work = None if species is None else naive_work(torch, name, args)
+            other, int_ops, fma_ops = naive_ops(torch, name, species, trips, tf, work)
+            ops = other + int_ops + fma_ops
+            nbytes = (NAIVE_MARCH_LANE_BYTES * n + args[0].numel() if species is None else
+                      (NAIVE_TRACK_LANE_BYTES + (12 if name == "delta_track_naive" else 4)) * n
+                      + (args[7].numel() if species == "cloud" else 0))
+            b_ms, b_by = bound(nbytes, ops, int_ops=int_ops, fma_ops=fma_ops)
+            bound_text = (f"{'' if work is None else f'; work {work}'}, bound {b_ms:.5f} ms "
+                          f"({b_by}; {ops:.4g} operations)")
         print(f"naive {label} {tag}: {n} lanes ({n_act} active, {card}): bit-equal {same} "
               f"({int(differ.sum())} lanes not), max abs err {err:.3e}, steps equal {same_steps} "
               f"({int((steps != trips).sum())} lanes not); steps {int(trips.sum())} on "
               f"{t.numel()} lanes (mean {float(t.mean()) if t.numel() else 0.0:.1f}, max "
-              f"{int(trips.max()) if n else 0}), SIMT eff "
-              f"{'-' if simt is None else f'{simt:.3f}'}; kernel {ms:.3f} ms, bound {b_ms:.5f} ms "
-              f"({b_by}; {ops:.4g} operations), plain {plain_ms:.1f} ms")
+              f"{int(trips.max()) if n else 0}), SIMT eff one thread a lane "
+              f"{'-' if simt is None else f'{simt:.3f}'}"
+              f"{'' if warp_simt is None else f', warp-cooperative steps {warp_simt:.3f}'}"
+              f"; kernel {ms:.3f} ms per call, {dev_ms:.3f} on the device{bound_text}, plain "
+              f"{plain_ms:.1f} ms")
         if not (same and same_steps):
             fail(f"naive {label} {tag}: the launcher parts from its twin")
         if rows is not None:
@@ -2614,6 +2728,86 @@ def check_naive_launchers(torch, calls, label, tf, rows=None):
             row["ops"] += ops
             row["int_ops"] += int_ops
             row["fma_ops"] += fma_ops
+
+
+def _naive_take(args, idx, n, **cfg):
+    """A tracker call's arguments at the lanes ``idx`` of its ``n`` (every
+    per-lane tensor taken), ``cfg`` replacing fields of its TraceConfig."""
+    import dataclasses
+
+    out = [a[idx] if hasattr(a, "shape") and a.dim() and a.shape[0] == n and i != 7 else a
+           for i, a in enumerate(args)]
+    out[10] = dataclasses.replace(out[10], **cfg)
+    return tuple(out)
+
+
+def check_naive_edges(torch, calls):
+    """The trackers' launchers (delta tracking of both species, the cloud's
+    ratio tracking) against their twins on the round structure's edge cases,
+    built from the tracker calls ``calls`` (Apollo's bounce 0 at
+    naive_tracking; at most EDGE_WARPS warps each): one tracking lane a warp
+    (the lanes with a span, one at the head of each warp, the rest inactive:
+    each round T = 32); 32 tracking lanes a warp (the lanes with a span,
+    packed); a step cap inside a round (the packed lanes at
+    max_tracking_steps 1, 7 and 33); a stop on a round's last thread (one
+    lane a warp whose twin stops after a multiple of 32 steps, its last
+    round's last thread). Every output and every lane's steps bit-equal;
+    fails otherwise."""
+    from digital_earth_tpu_torch.render import tracking_naive as tn
+
+    seen = set()
+    for name, args in calls:
+        if name == "intersect_land_naive" or (name, args[8]) in seen or (
+                name, args[8]) == ("ratio_track_naive", "rmo"):
+            continue
+        species = args[8]
+        seen.add((name, species))
+        n = args[1].shape[0]
+        dev = args[1].device
+        spans = torch.nonzero(args[9] & (args[4] >= 0.0) & (args[3] < args[4])).squeeze(1)
+        packed = spans[: 32 * EDGE_WARPS]
+        # the stops after a multiple of 32 steps, found at four times the
+        # global majorant (its null steps lengthen the tracks)
+        thick = list(args)
+        thick[6] = args[6] * 4.0
+        pool = spans[: 64 * EDGE_WARPS]
+        full = torch.zeros(pool.numel(), dtype=torch.int32, device=dev)
+        getattr(tn, f"{name}_plain")(*_naive_take(thick, pool, n), trips=full)
+        stops = pool[(full % 32 == 0) & (full > 0)
+                     & (full < args[10].max_tracking_steps)][:EDGE_WARPS]
+        cases = []
+        for label, lanes, base in (("one tracking lane a warp", packed[:EDGE_WARPS], args),
+                                   ("a stop on a round's last thread", stops, thick)):
+            m = lanes.numel()
+            idx = torch.repeat_interleave(lanes, 32)  # each lane heads a warp of its copies
+            act = torch.zeros(32 * m, dtype=torch.bool, device=dev)
+            act[::32] = True
+            a = list(_naive_take(base, idx, n))
+            a[9] = act
+            cases.append((label, tuple(a)))
+        cases.append(("32 tracking lanes a warp", _naive_take(args, packed, n)))
+        for k in (1, 7, 33):
+            cases.append((f"max_tracking_steps {k}", _naive_take(args, packed, n,
+                                                                  max_tracking_steps=k)))
+        for label, a in cases:
+            m = a[1].shape[0]
+            trips = torch.zeros(m, dtype=torch.int32, device=dev)
+            want = getattr(tn, f"{name}_plain")(*a, trips=trips)
+            want = want if isinstance(want, tuple) else (want,)
+            got, steps = _naive_launcher(torch, name, a, iters=True)
+            got = got if isinstance(got, tuple) else (got,)
+            same = all(torch.equal(g.view(torch.int32), w.view(torch.int32))
+                       for g, w in zip(got, want)) and torch.equal(steps, trips)
+            t = trips[trips > 0]
+            print(f"naive edge {NAIVE_ROWS[name]}/{species} {label}: {m} lanes, "
+                  f"{int((a[9]).sum())} active, steps {int(t.sum())} (max "
+                  f"{int(t.max()) if t.numel() else 0}); bit-equal with the twin's steps {same}")
+            if not same:
+                fail(f"naive edge {NAIVE_ROWS[name]}/{species} {label}: the launcher parts from "
+                     "its twin")
+            if label == "a stop on a round's last thread" and not (
+                    t.numel() and bool((t % 32 == 0).all())):
+                fail(f"naive edge {name}/{species}: no lane stops after a multiple of 32 steps")
 
 
 def naive_census_text(torch, trips, sites):
@@ -2728,6 +2922,8 @@ def check_naive(torch, dev, atlas, luts, tf):
             fail(f"naive {name}: the twin's bounce 0 at naive_tracking made the calls {kinds}")
         check_naive_launchers(torch, calls, f"{name} bounce 0", tf,
                               rows if scene == SCENE else None)
+        if scene == SCENE:
+            check_naive_edges(torch, calls)
         del states, calls
 
     default_ms = {}
@@ -3493,39 +3689,42 @@ CHROMA_PATHS, CHROMA_SEEDS, CHROMA_RATIO = 2048, 4, 0.3
 # default, options, estimator and floor sets; cuobjdump -sass, NOPs left
 # out) as built from commit 18b6e19 for an NVIDIA H100 80GB HBM3 by nvcc
 # 12.9 (chip_smoke.py --sass-counts), which the width libraries' build must
-# leave as they were: {entry<L, template flags>: instructions}
+# leave as they were: {entry<L, template flags>: instructions}. The options
+# instances' (last flag 1) are those built since their naive trackers run as
+# warp-cooperative steps (csrc/naive.cuh naive_track_warp), the other 48 the
+# commit's.
 PARENT_SASS = {
-    "bounce_flight<L=1, 0, 0>": 3957, "bounce_flight<L=1, 0, 1>": 7317,
+    "bounce_flight<L=1, 0, 0>": 3957, "bounce_flight<L=1, 0, 1>": 7792,
     "bounce_flight<L=1, 0, 2>": 10647, "bounce_flight<L=1, 0, 3>": 11710,
-    "bounce_flight<L=1, 1, 0>": 4088, "bounce_flight<L=1, 1, 1>": 7534,
+    "bounce_flight<L=1, 1, 0>": 4088, "bounce_flight<L=1, 1, 1>": 8001,
     "bounce_flight<L=1, 1, 2>": 10852, "bounce_flight<L=1, 1, 3>": 11976,
-    "bounce_flight<L=4, 0, 0>": 3958, "bounce_flight<L=4, 0, 1>": 7318,
+    "bounce_flight<L=4, 0, 0>": 3958, "bounce_flight<L=4, 0, 1>": 7793,
     "bounce_flight<L=4, 0, 2>": 10649, "bounce_flight<L=4, 0, 3>": 11711,
-    "bounce_flight<L=4, 1, 0>": 4089, "bounce_flight<L=4, 1, 1>": 7535,
+    "bounce_flight<L=4, 1, 0>": 4089, "bounce_flight<L=4, 1, 1>": 8002,
     "bounce_flight<L=4, 1, 2>": 10853, "bounce_flight<L=4, 1, 3>": 11977,
-    "bounce_shade<L=1, 0, 0, 0>": 10207, "bounce_shade<L=1, 0, 0, 1>": 11920,
+    "bounce_shade<L=1, 0, 0, 0>": 10207, "bounce_shade<L=1, 0, 0, 1>": 12449,
     "bounce_shade<L=1, 0, 0, 2>": 13679, "bounce_shade<L=1, 0, 0, 3>": 14783,
-    "bounce_shade<L=1, 0, 1, 0>": 10315, "bounce_shade<L=1, 0, 1, 1>": 12016,
+    "bounce_shade<L=1, 0, 1, 0>": 10315, "bounce_shade<L=1, 0, 1, 1>": 12551,
     "bounce_shade<L=1, 0, 1, 2>": 14019, "bounce_shade<L=1, 0, 1, 3>": 15130,
-    "bounce_shade<L=1, 1, 0, 0>": 10278, "bounce_shade<L=1, 1, 0, 1>": 11990,
+    "bounce_shade<L=1, 1, 0, 0>": 10278, "bounce_shade<L=1, 1, 0, 1>": 12527,
     "bounce_shade<L=1, 1, 0, 2>": 13807, "bounce_shade<L=1, 1, 0, 3>": 14905,
-    "bounce_shade<L=1, 1, 1, 0>": 10312, "bounce_shade<L=1, 1, 1, 1>": 12032,
+    "bounce_shade<L=1, 1, 1, 0>": 10312, "bounce_shade<L=1, 1, 1, 1>": 12600,
     "bounce_shade<L=1, 1, 1, 2>": 14186, "bounce_shade<L=1, 1, 1, 3>": 15221,
-    "bounce_shade<L=4, 0, 0, 0>": 11890, "bounce_shade<L=4, 0, 0, 1>": 13578,
+    "bounce_shade<L=4, 0, 0, 0>": 11890, "bounce_shade<L=4, 0, 0, 1>": 14088,
     "bounce_shade<L=4, 0, 0, 2>": 15316, "bounce_shade<L=4, 0, 0, 3>": 16430,
-    "bounce_shade<L=4, 0, 1, 0>": 11944, "bounce_shade<L=4, 0, 1, 1>": 13616,
+    "bounce_shade<L=4, 0, 1, 0>": 11944, "bounce_shade<L=4, 0, 1, 1>": 14152,
     "bounce_shade<L=4, 0, 1, 2>": 15708, "bounce_shade<L=4, 0, 1, 3>": 16736,
-    "bounce_shade<L=4, 1, 0, 0>": 11989, "bounce_shade<L=4, 1, 0, 1>": 13672,
+    "bounce_shade<L=4, 1, 0, 0>": 11989, "bounce_shade<L=4, 1, 0, 1>": 14298,
     "bounce_shade<L=4, 1, 0, 2>": 15618, "bounce_shade<L=4, 1, 0, 3>": 16693,
-    "bounce_shade<L=4, 1, 1, 0>": 11999, "bounce_shade<L=4, 1, 1, 1>": 13749,
+    "bounce_shade<L=4, 1, 1, 0>": 11999, "bounce_shade<L=4, 1, 1, 1>": 14381,
     "bounce_shade<L=4, 1, 1, 2>": 15964, "bounce_shade<L=4, 1, 1, 3>": 16931,
-    "bounce_window<L=1, 0, 0>": 11731, "bounce_window<L=1, 0, 1>": 15413,
+    "bounce_window<L=1, 0, 0>": 11731, "bounce_window<L=1, 0, 1>": 16659,
     "bounce_window<L=1, 0, 2>": 19103, "bounce_window<L=1, 0, 3>": 20259,
-    "bounce_window<L=1, 1, 0>": 11836, "bounce_window<L=1, 1, 1>": 15460,
+    "bounce_window<L=1, 1, 0>": 11836, "bounce_window<L=1, 1, 1>": 16642,
     "bounce_window<L=1, 1, 2>": 19384, "bounce_window<L=1, 1, 3>": 20523,
-    "bounce_window<L=4, 0, 0>": 13478, "bounce_window<L=4, 0, 1>": 17098,
+    "bounce_window<L=4, 0, 0>": 13478, "bounce_window<L=4, 0, 1>": 18262,
     "bounce_window<L=4, 0, 2>": 20743, "bounce_window<L=4, 0, 3>": 21896,
-    "bounce_window<L=4, 1, 0>": 13570, "bounce_window<L=4, 1, 1>": 17220,
+    "bounce_window<L=4, 1, 0>": 13570, "bounce_window<L=4, 1, 1>": 18373,
     "bounce_window<L=4, 1, 2>": 21101, "bounce_window<L=4, 1, 3>": 22308,
 }
 
@@ -4126,8 +4325,9 @@ def widths_bench(torch, dev):
 def options_bench(torch, dev):
     """``--options-bench [DIR]``: the options instances' settings of phases
     8c, 8d, 8e and 8f (OPTION_CASES, all seven on Apollo, the five on florida;
-    NAIVE_CASES and ESTIMATOR_SPP on Apollo; FLOOR_SETTINGS on Apollo and
-    sunset) for the package imported from
+    NAIVE_CASES and ESTIMATOR_SPP on Apollo, naive_tracking and
+    naive_cloud_tracking on florida and sunset too; FLOOR_SETTINGS on Apollo
+    and sunset) for the package imported from
     DIR, each setting whose options that package's TraceConfig has: bounce
     0's bounce_flight and bounce_shade ms (the options instances) and s/spp
     against its base (the scene's default, naive_tracking's the L = 1
@@ -4149,6 +4349,8 @@ def options_bench(torch, dev):
     settings = [(label, options, {}, scene) for label, options, scene in
                 OPTION_CASES + ALL_SEVEN_CASES[:1] + FIVE_CASES[:1]]
     settings += [(label, options, base, SCENE) for label, options, base in NAIVE_CASES]
+    settings += [(label, options, base, s) for label, options, base in NAIVE_CASES
+                 if label in ("naive_tracking", "naive_cloud_tracking") for s in (FLORIDA, SUNSET)]
     settings += [(label, options, {}, SCENE) for label, options in ESTIMATOR_SPP]
     settings += [(label, options, {}, s) for label, options in FLOOR_SETTINGS
                  for s in (SCENE, SUNSET)]
@@ -4174,6 +4376,87 @@ def options_bench(torch, dev):
             default_s_per_spp=round(d, 5), ratio_median=round(ratios[len(ratios) // 2], 4),
             ratios=[round(x, 4) for x in ratios])
     print(json.dumps({"options_bench": out}))
+
+def naive_bench(torch, dev):
+    """``--naive-bench [DIR]``: the naive trackers' launchers
+    (``naive_delta_track`` of both species, ``naive_ratio_track`` of both) of
+    the package imported from DIR on the tracker calls of the twin's bounce
+    at naive_tracking (``capture_naive_calls``) on the three scenes at
+    bounces 0 and DEEP_BOUNCE: per call ms (three calls back to back), on
+    the device (a CUDA graph of 20) and the lanes' steps, each call held
+    bit-equal to its twin with its steps (fails otherwise); then per scene
+    bounce 0 under naive_cloud_tracking: its two kernels' ms, the census's
+    warp cycles per site (``warp_cycles``) and the NEE cloud pass's steps,
+    its iterations one thread a lane (the sum over warps of the longest
+    lane's steps) and as warp-cooperative rounds (``naive_rounds``), so that
+    versions can be alternated in one call. One JSON line."""
+    import digital_earth_tpu_torch as pkg
+    from digital_earth_tpu_torch.assets.luts import load_spectral_luts
+    from digital_earth_tpu_torch.assets.textures import procedural_texture_atlas
+    from digital_earth_tpu_torch.render import pathtracer as pt
+    from digital_earth_tpu_torch.render import tracking_naive as tn
+    from digital_earth_tpu_torch.render.params import TraceConfig
+
+    cache = os.path.join(ROOT, "build", "chip_smoke", "texture_cache")
+    luts = load_spectral_luts(dev)
+    atlas = procedural_texture_atlas(dev, (1024, 2048), seed=7, cache_dir=cache)
+    from digital_earth_tpu_torch import kernels
+
+    out = dict(package=os.path.dirname(os.path.abspath(pkg.__file__)), card=nvidia_smi_line())
+    cfg = TraceConfig(**NAIVE_CASES[0][1])
+    for scene in (SCENE, FLORIDA, SUNSET):
+        states, _, _ = capture_states(torch, dev, atlas, luts, bounces=(0, DEEP_BOUNCE),
+                                      scene=scene, cfg=cfg)
+        for b in sorted(states):
+            for name, args in capture_naive_calls(torch, states[b], b):
+                if name == "intersect_land_naive":
+                    continue
+                got, steps = _naive_launcher(torch, name, args, iters=True)
+                trips = torch.zeros_like(steps)
+                want = getattr(tn, f"{name}_plain")(*args, trips=trips)
+                got = got if isinstance(got, tuple) else (got,)
+                want = want if isinstance(want, tuple) else (want,)
+                same = all(torch.equal(g.view(torch.int32), w.view(torch.int32))
+                           for g, w in zip(got, want)) and torch.equal(steps, trips)
+                key = f"{os.path.basename(scene)[9:-4]} b{b} {NAIVE_ROWS[name]}/{args[8]}"
+                if not same:
+                    fail(f"naive bench {key}: the launcher parts from its twin")
+                _, ms = _time_ms(torch, lambda: _naive_launcher(torch, name, args), 3)
+                dev_ms = _graph_ms(torch, lambda: _naive_launcher(torch, name, args))
+                t = steps[steps > 0]
+                out[key] = dict(ms=round(ms, 4), device_ms=round(dev_ms, 4), lanes=int(t.numel()),
+                                steps=int(t.sum()), max_steps=int(t.max()) if t.numel() else 0,
+                                bit_equal=same)
+        del states
+    nct = TraceConfig(**NAIVE_CASES[2][1])
+    nee = CENSUS_SITE_NAMES.index("nee_cloud")
+    for scene in (SCENE, FLORIDA, SUNSET):
+        states, _, _ = capture_states(torch, dev, atlas, luts, bounces=(0,), scene=scene, cfg=nct)
+        c = states[0]
+        idx, st0, args = c["idx"], c["st"], c["args"]
+        frame = pt.BounceFrame(st0, *args)
+        ka = lambda s: pt._kernel_args(s, idx, 0, *args, frame)  # noqa: E731
+        flight = kernels.bounce_flight(*ka(_clone_state(st0)))
+        t_f = _bounce_ms(torch, st0, lambda s: kernels.bounce_flight(*ka(s)))
+        t_s = _bounce_ms(torch, st0, lambda s: kernels.bounce_shade(*ka(s), flight=flight))
+        trips, _, cycles = _census(torch, st0, idx, 0, args, frame)
+        wc = warp_cycles(torch, cycles).tolist()
+        nt = trips[:, nee]
+        m = nt.shape[0]
+        per_warp = torch.cat([nt, nt.new_zeros((-m) % 32)]).view(-1, 32).amax(1)
+        simt, rounds, solo = naive_rounds(torch, nt)
+        took = nt[nt > 0]
+        out[f"{os.path.basename(scene)[9:-4]} b0 naive_cloud_tracking census"] = dict(
+            lanes=m, flight_ms=round(t_f, 4), shade_ms=round(t_s, 4),
+            warp_cycles=dict(zip(CENSUS_SITE_NAMES + ("flight", "shade"), wc)),
+            nee_cloud=dict(lanes=int(took.numel()), steps=int(took.sum()),
+                           max_steps=int(nt.max()) if m else 0,
+                           one_thread_iterations=int(per_warp.sum()),
+                           one_thread_simt=simt_efficiency(torch, nt[:, None])[0],
+                           rounds=rounds, rounds_simt=simt, solo_round_share=solo))
+        del states, c, flight
+    print(json.dumps({"naive_bench": out}))
+
 
 def check_window(torch, states, table):
     """bounce_window against run_window_plain from the bounce at which the
@@ -6360,12 +6643,13 @@ def main():
     obench = args[:1] == ["--options-bench"] and len(args) <= 2
     scount = args[:1] == ["--sass-counts"] and len(args) <= 2
     wbench = args[:1] == ["--widths-bench"] and len(args) <= 2
+    nbench = args[:1] == ["--naive-bench"] and len(args) <= 2
     if args and not (mesh_only or estimator_only or floors_only or widths_only or bench or pbench
-                     or sbench or obench or scount or wbench):
+                     or sbench or obench or scount or wbench or nbench):
         fail(f"unknown arguments {args} (the options are --mesh-only, --estimator-only, "
              "--floors-only, --widths-only, "
              "--preview-bench [DIR], --path-bench [DIR], --spp-bench [DIR], --options-bench "
-             "[DIR], --sass-counts [DIR] and --widths-bench [DIR])")
+             "[DIR], --sass-counts [DIR], --widths-bench [DIR] and --naive-bench [DIR])")
     try:
         import torch
     except ImportError:
@@ -6375,7 +6659,8 @@ def main():
     if not os.path.isdir(os.path.join(ROOT, "digital_earth_tpu_torch")):
         fail("run from a checkout: digital_earth_tpu_torch/ is missing beside chip_smoke.py")
     sys.path.insert(0, os.path.abspath(args[1]) if (bench or pbench or sbench or obench or scount
-                                                    or wbench) and len(args) == 2 else ROOT)
+                                                    or wbench or nbench) and len(args) == 2
+                    else ROOT)
     dev = torch.device("cuda:0")
     if bench:
         preview_bench(torch, dev)
@@ -6394,6 +6679,9 @@ def main():
         return
     if wbench:
         widths_bench(torch, dev)
+        return
+    if nbench:
+        naive_bench(torch, dev)
         return
 
     from digital_earth_tpu_torch import kernels

@@ -64,7 +64,13 @@
 // transmittance of the gases is the ratio instance's tracker at one probe
 // an iteration, which is the reference's one-step loop draw for draw and
 // bit for bit (naive.cuh); the host asks for that instance
-// (render/pathtracer.BounceFrame).
+// (render/pathtracer.BounceFrame). The options instances run the naive
+// trackers as warp-cooperative steps (naive.cuh naive_track_warp), which
+// every thread of the warp calls: naive_tracking's flight in
+// naive_flight_warp, and the naive cloud passes of the flight and of the
+// sun's transmittance before the lanes' branches (naive_cloud_warp_on). The
+// estimator and floor instances keep the one-thread loops, so their code
+// stays as it was.
 //
 // The estimator instances (OPTS = INST_ESTIMATOR), a third set beside the
 // default and options instances, run the options instances' code and the
@@ -390,6 +396,31 @@ static __device__ __noinline__ float naive_cloud_ratio_call(Key key, V3 o, V3 d,
                           iters);
 }
 
+// The options instances' naive trackers as warp-cooperative steps
+// (naive.cuh naive_track_warp): every thread of the warp calls them, ``act`` where its lane tracks.
+template <int SPECIES>
+static __device__ __noinline__ NaiveEvent naive_delta_warp_call(Key key, V3 o, V3 d, float t0,
+                                                                float t1, float e0, float e1,
+                                                                float e2, float max_ext, bool act,
+                                                                const uint8_t* __restrict__ clouds,
+                                                                int H, int W, bool bilinear,
+                                                                int steps, int* iters) {
+  const NaiveTrack r = naive_track_warp<SPECIES, false>(key, o, d, t0, t1, e0, e1, e2, max_ext,
+                                                        act, clouds, H, W, bilinear, steps,
+                                                        iters);
+  return NaiveEvent{r.event, r.iid, r.t};
+}
+
+static __device__ __noinline__ float naive_cloud_ratio_warp_call(Key key, V3 o, V3 d, float t0,
+                                                                 float t1, float ew,
+                                                                 float max_ext, bool act,
+                                                                 const uint8_t* __restrict__ clouds,
+                                                                 int H, int W, bool bilinear,
+                                                                 int steps, int* iters) {
+  return naive_track_warp<NAIVE_CLOUD, true>(key, o, d, t0, t1, ew, 0.0f, 0.0f, max_ext, act,
+                                             clouds, H, W, bilinear, steps, iters).trans;
+}
+
 // A warp none of whose lanes marches here skips the call: a miss, no trips
 // (and with OPTS every warp where the options ``op`` say no land; in the
 // estimator instances at the shadow march under nee_off an occlusion, no
@@ -503,14 +534,52 @@ __device__ __forceinline__ CloudOut naive_cloud(Key key, V3 o, V3 d, float t0, f
   return out;
 }
 
+// naive_cloud as the options instances run it: warp-cooperative, every
+// thread of the warp calling it, ``act`` where its lane takes the pass (a
+// lane that does not keeps (0, t0, 1)).
+__device__ __forceinline__ CloudOut naive_cloud_warp(Key key, V3 o, V3 d, float t0, float t1,
+                                                     float ew, const BounceState& s,
+                                                     const BounceParams& p, bool ratio, bool act,
+                                                     int* iters, bool bilinear) {
+  const float max_ext = ew * CLOUDS_DENSITY_F;
+  CloudOut out{0, t0, 1.0f};
+  if (ratio) {
+    out.trans = naive_cloud_ratio_warp_call(key, o, d, t0, t1, ew, max_ext, act, s.clouds,
+                                            p.clouds_h, p.clouds_w, bilinear, p.tracking_steps,
+                                            iters);
+  } else {
+    const NaiveEvent c = naive_delta_warp_call<NAIVE_CLOUD>(key, o, d, t0, t1, ew, 0.0f, 0.0f,
+                                                            max_ext, act, s.clouds, p.clouds_h,
+                                                            p.clouds_w, bilinear,
+                                                            p.tracking_steps, iters);
+    out.event = c.event;
+    out.t = c.t;
+  }
+  return out;
+}
+
+// Whether an options instance's naive cloud passes run: they are
+// warp-cooperative and so run before their lanes' branches (flight_lane,
+// naive_flight_warp, shade_lane); the other instances' run one thread a lane
+// inside cloud.
+__device__ __forceinline__ bool naive_cloud_warp_on(const BounceOptions* op) {
+  return (op->naive_cloud_tracking || op->naive_tracking) && op->enable_clouds;
+}
+
 // OPTS: the options instance's call, its taps as the options ``op`` say
 // (the estimator instance's draws the counter hash's at fast_loop_rng);
-// under naive_cloud_tracking or naive_tracking the naive pass.
+// under naive_cloud_tracking or naive_tracking the estimator and floor
+// instances' naive pass (the options instances' runs before:
+// naive_cloud_warp).
 template <bool COUNT, int OPTS>
 __device__ __forceinline__ CloudOut cloud(Key key, V3 o, V3 d, float t0, float t1, float ew,
                                           const BounceState& s, const BounceParams& p, bool ratio,
                                           int* trips, int site, const BounceOptions* op) {
-  if constexpr (OPTS) {
+  if constexpr (OPTS == INST_OPTIONS) {
+    return cloud_call_o(key, o, d, t0, t1, ew, s.clouds, p.clouds_h, p.clouds_w, p.tracking_steps,
+                        p.tracking_k, ratio, COUNT ? trips + site : nullptr,
+                        op->mo.bilinear != 0);
+  } else if constexpr (OPTS) {
     if (op->naive_cloud_tracking || op->naive_tracking) {
       return naive_cloud(key, o, d, t0, t1, ew, s, p, ratio, COUNT ? trips + site : nullptr,
                          op->mo.bilinear != 0);
@@ -790,13 +859,66 @@ __device__ __forceinline__ Flight naive_flight_lane(const BounceState& s, const 
   return f;
 }
 
+// naive_flight_lane in the options instances, its trackers warp-cooperative
+// (naive_delta_warp_call, naive_cloud_warp): the same flight, with every
+// thread of the warp taking part in each tracker, act (for the cloud, and no
+// gas event before the slab) where its lane tracks. A thread with no lane
+// holds lane 0's ray (the entries) and keeps the outcome (0, 0, 0, earth).
+template <bool COUNT, int OPTS>
+__device__ __forceinline__ Flight naive_flight_warp(const BounceState& s, const BounceParams& p,
+                                                    const BounceOptions* op, int bounce, bool act,
+                                                    V3 pos, V3 dir, float wl0, Key kb, int* trips,
+                                                    long long* cyc) {
+  long long c0 = tick<COUNT>();
+  const float earth = march<COUNT, OPTS>(s.topo, march_params(p), op, pos, dir, act,
+                                         __int_as_float(0x7f800000), trips, SITE_PRE_MARCH);
+  tock<COUNT>(cyc, SITE_PRE_MARCH, c0);
+  Flight f{0, 0, 0.0f, earth};
+  const float e0 = spectra_extinction_rayleigh(wl0);
+  const float e1 = spectra_extinction_mie(wl0);
+  const float e2 = spectra_extinction_ozone(wl0, s.o3);
+  const Key k_flight = fold(kb, 1u);
+  float a_near, a_far, t_start, t_max;
+  rsi(pos, dir, ATMOS_UPPER_F, a_near, a_far);
+  rmo_span(a_near, a_far, earth, t_start, t_max);
+  c0 = tick<COUNT>();
+  const NaiveEvent g = naive_delta_warp_call<NAIVE_RMO>(
+      fold(k_flight, 1u), pos, dir, t_start, t_max, e0, e1, e2,
+      (e0 * p.max_dens[0] + e1 * p.max_dens[1]) + e2 * p.max_dens[2], act, nullptr, 0, 0, false,
+      p.tracking_steps, COUNT && act ? trips + SITE_RMO : nullptr);
+  tock<COUNT>(cyc, SITE_RMO, c0);
+  if (act) {
+    f.event = g.event;
+    f.t_int = g.t;
+    f.iid = g.iid;
+  }
+  if (!op->enable_clouds) return f;  // uniform over the launch
+  float c_start, c_max;
+  cloud_limits(pos, dir, earth, c_start, c_max);
+  const bool go = act && (g.event == 0 || g.t > c_start);
+  c0 = tick<COUNT>();
+  const CloudOut c = naive_cloud_warp(fold(k_flight, 2u), pos, dir, c_start, c_max,
+                                      cloud_ext_w(bounce), s, p, false, go,
+                                      COUNT && act ? trips + SITE_CLOUD : nullptr,
+                                      op->mo.bilinear != 0);
+  tock<COUNT>(go ? cyc : nullptr, SITE_CLOUD, c0);
+  if (go && c.event > 0 && (c.t < g.t || g.event == 0)) {
+    f.event = c.event;
+    f.t_int = c.t;
+    f.iid = 3;
+  }
+  return f;
+}
+
 // Steps 1-3 of one bounce of a lane at pos along dir with hero wavelength
 // wl0 and bounce key kb. Every thread of the warp calls it (the marches
 // need the full warp); act false: no lane (its outcome is not used, and it
 // runs no tracker). OPTS: the options ``op`` (the header's comment); march
 // first (lazy_march false) is the march on demand with every live lane
 // marching at the first site, the flight capped at that hit, and no march
-// after it nor demotion; naive_tracking its own flight (naive_flight_lane).
+// after it nor demotion; naive_tracking its own flight (naive_flight_lane,
+// in the options instances naive_flight_warp); the options instances'
+// naive cloud pass runs before the lane's branch (naive_cloud_warp_on).
 template <bool COUNT, int OPTS>
 __device__ __forceinline__ Flight flight_lane(const BounceState& s, const BounceParams& p,
                                               const BounceOptions* op, int bounce, bool act,
@@ -804,8 +926,13 @@ __device__ __forceinline__ Flight flight_lane(const BounceState& s, const Bounce
                                               long long* cyc) {
   if constexpr (OPTS) {
     if (op->naive_tracking) {
-      return naive_flight_lane<COUNT, OPTS>(s, p, op, bounce, act, pos, dir, wl0, kb, trips,
-                                            cyc);
+      if constexpr (OPTS == INST_OPTIONS) {
+        return naive_flight_warp<COUNT, OPTS>(s, p, op, bounce, act, pos, dir, wl0, kb, trips,
+                                              cyc);
+      } else {
+        return naive_flight_lane<COUNT, OPTS>(s, p, op, bounce, act, pos, dir, wl0, kb, trips,
+                                              cyc);
+      }
     }
   }
   const float inf = __int_as_float(0x7f800000);
@@ -835,6 +962,20 @@ __device__ __forceinline__ Flight flight_lane(const BounceState& s, const Bounce
   // 3. the flight: clouds, then the gases capped at the cloud event
   Flight f{0, 0, 0.0f, -1.0f};
   CloudOut cd{0, 0.0f, 1.0f};
+  // the options instances' naive cloud pass, with every thread of the warp;
+  // the other instances keep their statements as they were (code their warps
+  // never run still moved their SASS, which chip_smoke.py holds to PARENT_SASS)
+  if constexpr (OPTS == INST_OPTIONS) {
+    if (naive_cloud_warp_on(op)) {  // uniform over the launch
+      float c_start, c_max;
+      cloud_limits(pos, dir, land_proxy, c_start, c_max);
+      c0 = tick<COUNT>();
+      cd = naive_cloud_warp(fold(fold(kb, 1u), 2u), pos, dir, c_start, c_max, ext_w, s, p, false,
+                            act, COUNT && act ? trips + SITE_CLOUD : nullptr,
+                            op->mo.bilinear != 0);
+      tock<COUNT>(cyc, SITE_CLOUD, c0);
+    }
+  }
   if (act) {
     const float e0 = spectra_extinction_rayleigh(wl0);
     const float e1 = spectra_extinction_mie(wl0);
@@ -846,7 +987,14 @@ __device__ __forceinline__ Flight flight_lane(const BounceState& s, const Bounce
     rmo_span(a_near, a_far, land_proxy, t_start, t_max);
     float c_start, c_max;
     cloud_limits(pos, dir, land_proxy, c_start, c_max);
-    if (!OPTS || op->enable_clouds) {
+    if constexpr (OPTS == INST_OPTIONS) {
+      if (op->enable_clouds && !naive_cloud_warp_on(op)) {
+        c0 = tick<COUNT>();
+        cd = cloud<COUNT, OPTS>(fold(k_flight, 2u), pos, dir, c_start, c_max, ext_w, s, p, false,
+                                trips, SITE_CLOUD, op);
+        tock<COUNT>(cyc, SITE_CLOUD, c0);
+      }
+    } else if (!OPTS || op->enable_clouds) {
       c0 = tick<COUNT>();
       cd = cloud<COUNT, OPTS>(fold(k_flight, 2u), pos, dir, c_start, c_max, ext_w, s, p, false,
                               trips, SITE_CLOUD, op);
@@ -1013,6 +1161,24 @@ __device__ __forceinline__ void shade_lane(const BounceState& s, const BouncePar
       march<COUNT, OPTS>(s.topo, shadow, op, offset_pos, light_dir, surface, inf, trips,
                          SITE_SHADOW);
   tock<COUNT>(cyc, SITE_SHADOW, c0);
+  // the options instances' naive cloud pass of the sun's transmittance, with
+  // every thread of the warp before those with no lane leave (step 6 takes
+  // it; the other instances' statements as they were, as in flight_lane)
+  [[maybe_unused]] float naive_nee = 1.0f;
+  if constexpr (OPTS == INST_OPTIONS) {
+    if (naive_cloud_warp_on(op)) {  // uniform over the launch
+      const bool go = vol_nee || (surface && shadow_hit < 0.0f);
+      const V3 nee_origin = surface ? offset_pos : int_pos;
+      float n_start, n_max;
+      cloud_limits(nee_origin, light_dir, -1.0f, n_start, n_max);
+      const long long c1 = tick<COUNT>();
+      naive_nee = naive_cloud_warp(fold(fold(kb, 3u), 2u), nee_origin, light_dir, n_start, n_max,
+                                   ext_w, s, p, true, go,
+                                   COUNT && act ? trips + SITE_NEE_CLOUD : nullptr,
+                                   op->mo.bilinear != 0).trans;
+      tock<COUNT>(go ? cyc : nullptr, SITE_NEE_CLOUD, c1);
+    }
+  }
   if (!act) return;
   const bool sur_vis = surface && shadow_hit < 0.0f;
   float emissive = 0.0f, d_term[L], b_brdf[L];
@@ -1061,7 +1227,22 @@ __device__ __forceinline__ void shade_lane(const BounceState& s, const BouncePar
     } else {
       rmo_transmittance_to_space<L>(s.table, ext, nee_origin, light_dir, trans);
     }
-    if (!OPTS || op->enable_clouds) {
+    if constexpr (OPTS == INST_OPTIONS) {
+      if (naive_cloud_warp_on(op)) {
+#pragma unroll
+        for (int l = 0; l < L; ++l) trans[l] = trans[l] * naive_nee;
+      } else if (op->enable_clouds) {
+        float n_start, n_max;
+        cloud_limits(nee_origin, light_dir, -1.0f, n_start, n_max);
+        const long long c1 = tick<COUNT>();
+        const CloudOut ct = cloud<COUNT, OPTS>(fold(k_trans, 2u), nee_origin, light_dir, n_start,
+                                             n_max, ext_w, s, p, true, trips, SITE_NEE_CLOUD,
+                                             op);
+        tock<COUNT>(cyc, SITE_NEE_CLOUD, c1);
+#pragma unroll
+        for (int l = 0; l < L; ++l) trans[l] = trans[l] * ct.trans;
+      }
+    } else if (!OPTS || op->enable_clouds) {
       float n_start, n_max;
       cloud_limits(nee_origin, light_dir, -1.0f, n_start, n_max);
       const long long c1 = tick<COUNT>();

@@ -1,8 +1,10 @@
-// The reference-faithful naive arm as device functions, one thread a lane
-// running the reference renderer's own loop: the body of the naive_march and
-// naive_track launchers (naive_march.cu, naive_track.cu) and of the bounce
-// entries' options instances under TraceConfig.naive_tracking, naive_march,
-// naive_cloud_tracking and naive_shadow (bounce.cuh).
+// The reference-faithful naive arm as device functions: the body of the
+// naive_march and naive_track launchers (naive_march.cu, naive_track.cu) and
+// of the bounce entries' knob instances under TraceConfig.naive_tracking,
+// naive_march, naive_cloud_tracking and naive_shadow (bounce.cuh). The march
+// and the loops below run one thread a lane, the reference renderer's own
+// loop; the trackers also run as warp-cooperative steps (naive_track_warp,
+// at the end), which the launcher and the options instances take.
 //
 // Replaces the TPU loops of digital_earth_tpu/render/tracking_naive.py:
 //   - naive_march_lane   <- :31 intersect_land_naive: an RSI warm start on
@@ -33,8 +35,10 @@
 // cloud species, one dependent texture read; a lane's steps are a dependent
 // chain of up to max_tracking_steps (land_march_steps for the march), the
 // cloud's at the global majorant (345 m a step at bounce 0-9), and a warp
-// runs at its longest lane. These loops are the reference's semantics, kept
-// simple: the accelerated loops are the fast ones.
+// runs at its longest lane: one thread a lane, the launchers kept 0.36-0.37
+// of a warp's step slots busy, its tails 40-65 times a lane's mean steps
+// (PERF.md). naive_track_warp gives a warp's idle threads the steps of its
+// lanes still tracking.
 #pragma once
 #include <cstdint>
 
@@ -174,6 +178,210 @@ __device__ __forceinline__ float naive_ratio_lane(Key key, V3 o, V3 d, float t_s
   }
   if (iters) *iters = it;
   return trans;
+}
+
+// ---------------------------------------------------------------------------
+// The trackers as warp-cooperative steps: naive_track_warp, delta tracking of
+// either species (naive_delta_lane's outputs) and the cloud's ratio tracking
+// (naive_ratio_lane's), bit for bit, each lane's steps counted as the loop
+// counts them.
+//
+// Step i's draws come from fold(key, i) alone, not from the lane's state. So
+// T threads can draw a lane's next T steps, and read their densities, at
+// once. Two chains stay serial: the position t_i = t_{i-1} - logf(fmaxf(u0_i,
+// 1e-12f)) * inv_max and, for ratio tracking, the transmittance trans_i =
+// trans_{i-1} * (1 - total_i * inv_max); each thread computes its own step's
+// term, and the group passes the terms along by shuffles in step order, each
+// link the loop's own operation on its own operands. Each round:
+//   1. the warp ballots its lanes still tracking, c of them, and gives each T
+//      threads, the largest power of two with c T <= 32;
+//   2. group g takes the g-th tracking lane's state by shuffles (c > 16,
+//      T = 1: each lane steps on its own thread, with no shuffle);
+//   3. thread s draws step i + s, forms its position from the chain and reads
+//      its density; the cloud's tap is skipped where the step's radius lies
+//      outside the slab (its density is exactly 0 there), and delta
+//      tracking's second draw where total / majorant is not above 0 (u1 <
+//      it cannot hold);
+//   4. the group's first step in step order past t_max, with an event
+//      (delta) or with the transmittance below 1e-5 (ratio) stops the lane
+//      there (a ballot within the group); steps drawn past it are dropped;
+//   5. the lane's own thread takes the outcome and advances by the steps
+//      the loop would have taken, at most max_steps.
+// The groups are formed anew each round, so a warp's last tracking lane gets
+// all of its threads. Every thread of the warp must call it, ``active`` set
+// where its lane tracks; each gets its own lane's outputs.
+
+constexpr unsigned NAIVE_FULL_WARP = 0xffffffffu;
+
+// A warp-cooperative tracker's outputs of the lane: delta tracking's (event,
+// t, iid), ratio tracking's transmittance.
+struct NaiveTrack {
+  int event, iid;
+  float t, trans;
+};
+
+// Position of the g-th set bit (from 0) of m, which has more than g.
+__device__ __forceinline__ int nth_set_bit(unsigned m, int g) {
+  int p = 0;
+#pragma unroll
+  for (int b = 16; b >= 1; b >>= 1) {
+    const int c = __popc(m & ((1u << b) - 1u));
+    if (g >= c) {
+      g -= c;
+      m >>= b;
+      p += b;
+    }
+  }
+  return p;
+}
+
+// naive_total with the cloud's tap skipped where p's radius lies outside the
+// slab: naive_shape_density is 0 there whatever the tap, so the total is the
+// same bits.
+template <int SPECIES>
+__device__ __forceinline__ float naive_total_skip(V3 p, float e0, float e1, float e2,
+                                                  const uint8_t* __restrict__ clouds, int H,
+                                                  int W, bool bilinear, float c[3]) {
+  if constexpr (SPECIES == NAIVE_RMO) {
+    return naive_total<SPECIES>(p, e0, e1, e2, clouds, H, W, bilinear, c);
+  } else {
+    const float r = length(p);
+    float s[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    if (r > CLOUDS_LOWER_F && r < CLOUDS_UPPER_F) sphere_tap<4>(clouds, H, W, p, bilinear, s);
+    return e0 * naive_shape_density(s[0], r);
+  }
+}
+
+// Delta tracking (RATIO false: event, t, iid of naive_delta_lane<SPECIES>)
+// or the cloud's ratio tracking (RATIO: trans of naive_ratio_lane) over
+// [t_start, tm] at the global majorant max_ext, as warp-cooperative steps;
+// the arguments as those loops take them. With ``iters`` the lane's steps
+// are written there.
+template <int SPECIES, bool RATIO>
+__device__ __forceinline__ NaiveTrack naive_track_warp(Key key, V3 o, V3 d, float t_start,
+                                                       float tm, float e0, float e1, float e2,
+                                                       float max_ext, bool active,
+                                                       const uint8_t* __restrict__ clouds, int H,
+                                                       int W, bool bilinear, int max_steps,
+                                                       int* iters = nullptr) {
+  static_assert(SPECIES == NAIVE_CLOUD || !RATIO,
+                "the gases' ratio tracking is rmo_ratio_lane's loop (rmo_track.cuh)");
+  const float albedo[4] = {1.0f, 0.95f, 0.0f, 0.99f};  // constants.SCATTERING_ALBEDOS
+  const float inv_max = 1.0f / max_ext;
+  const int lane = threadIdx.x & 31;
+  NaiveTrack out{0, 0, t_start, 1.0f};  // the lane's state, on its own thread
+  int it = 0;
+  bool done = !(active && (tm >= 0.0f) && (t_start < tm)) || max_steps <= 0;
+  for (unsigned trk = __ballot_sync(NAIVE_FULL_WARP, !done); trk;
+       trk = __ballot_sync(NAIVE_FULL_WARP, !done)) {
+    // 1. T threads a tracking lane (warp-uniform)
+    const int c = __popc(trk);
+    int T = 32;
+    while (T > 1 && c * T > 32) T >>= 1;
+    const bool grouped = T > 1;
+    const int lg = __ffs(T) - 1, base = lane & ~(T - 1), sub = lane & (T - 1);
+    const unsigned ones = T == 32 ? NAIVE_FULL_WARP : (1u << T) - 1u;
+    // 2. the group's lane: the (lane / T)-th tracking lane, or the thread's own
+    const bool gact = grouped ? (lane >> lg) < c : !done;
+    const int src = grouped && gact ? nth_set_bit(trk, lane >> lg) : lane;
+    const auto sh = [&](auto x) { return grouped ? __shfl_sync(NAIVE_FULL_WARP, x, src) : x; };
+    const Key gk{sh(key.k0), sh(key.k1)};
+    const V3 go{sh(o.x), sh(o.y), sh(o.z)}, gd{sh(d.x), sh(d.y), sh(d.z)};
+    const float gtm = sh(tm), ginv = sh(inv_max), gt = sh(out.t), ge0 = sh(e0);
+    const int gi = sh(it);
+    float ge1 = 0.0f, ge2 = 0.0f, gmax = 0.0f;
+    if constexpr (SPECIES == NAIVE_RMO) {
+      ge1 = sh(e1);
+      ge2 = sh(e2);
+      gmax = sh(max_ext);
+    }
+    const int gnv = gact ? min(T, max_steps - gi) : 0;  // the round's steps of the group
+    // 3. this thread's step, its position from the chain, its density
+    const bool live = sub < gnv;
+    Key kj{0u, 0u};
+    float p = 0.0f;
+    if (live) {
+      kj = fold(gk, (uint32_t)(gi + sub));
+      p = logf(fmaxf(uniform(kj, 0u), 1e-12f)) * ginv;
+    }
+    float tj = gt - p;
+    if (grouped) {
+      float tc = gt;
+      for (int q = 0; q < T; ++q) {
+        tc = tc - __shfl_sync(NAIVE_FULL_WARP, p, base + q);
+        if (q == sub) tj = tc;
+      }
+    }
+    const bool over = tj >= gtm;
+    float total = 0.0f, terms[3] = {0.0f, 0.0f, 0.0f};
+    if (live && !over) {
+      total = naive_total_skip<SPECIES>(along(go, fminf(tj, fmaxf(gtm, 0.0f)), gd), ge0, ge1, ge2,
+                                        clouds, H, W, bilinear, terms);
+    }
+    // 4.-5. the first stop in step order; the lane's thread takes the outcome
+    const int ob = grouped ? __popc(trk & ((1u << lane) - 1u)) << lg : lane;  // its group
+    const int nv = min(T, max_steps - it);
+    if constexpr (RATIO) {
+      const float f = 1.0f - total * ginv;
+      const unsigned overs = __ballot_sync(NAIVE_FULL_WARP, live && over);
+      float tr = sh(out.trans);
+      int stop_at = -1;
+      for (int q = 0; q < T; ++q) {
+        const float fq = grouped ? __shfl_sync(NAIVE_FULL_WARP, f, base + q) : f;
+        if (stop_at < 0 && q < gnv) {
+          if ((overs >> (base + q)) & 1u) {
+            stop_at = q;  // past t_max: the transmittance stays
+          } else {
+            tr = tr * fq;
+            if (tr < 1e-5f) stop_at = q;
+          }
+        }
+      }
+      const int rd = done ? lane : ob, rdt = done ? lane : ob + nv - 1;
+      const float tr_r = grouped ? __shfl_sync(NAIVE_FULL_WARP, tr, rd) : tr;
+      const int at_r = grouped ? __shfl_sync(NAIVE_FULL_WARP, stop_at, rd) : stop_at;
+      const float t_r = grouped ? __shfl_sync(NAIVE_FULL_WARP, tj, rdt) : tj;
+      if (!done) {
+        it += at_r >= 0 ? at_r + 1 : nv;
+        out.trans = tr_r;
+        out.t = t_r;
+        done = at_r >= 0 || it >= max_steps;
+      }
+    } else {
+      const float thr = total * ginv;
+      float u1 = 0.0f;
+      bool hit = false;
+      if (live && !over && thr > 0.0f) {
+        u1 = uniform(kj, 1u);
+        hit = u1 < thr;
+      }
+      const unsigned stops = __ballot_sync(NAIVE_FULL_WARP, live && (over || hit));
+      // the group's first stop draws the event where it is one
+      int pack = 0;  // event | iid << 2
+      if (hit && lane == __ffs(stops & (ones << base)) - 1) {
+        int id = 3;
+        if constexpr (SPECIES == NAIVE_RMO) {
+          const float r = u1 * gmax;
+          const float c01 = terms[0] + terms[1];
+          id = r < terms[0] ? 0 : (r < c01 ? 1 : 2);
+        }
+        pack = (uniform(kj, 2u) < albedo[id] ? 2 : 1) | (id << 2);
+      }
+      const unsigned st = done ? 0u : stops & (ones << ob);
+      const int rd = done ? lane : (st ? __ffs(st) - 1 : ob + nv - 1);
+      const float t_r = grouped ? __shfl_sync(NAIVE_FULL_WARP, tj, rd) : tj;
+      const int pack_r = grouped ? __shfl_sync(NAIVE_FULL_WARP, pack, rd) : pack;
+      if (!done) {
+        it += rd - ob + 1;
+        out.t = t_r;
+        out.event = pack_r & 3;
+        out.iid = pack_r >> 2;
+        done = st != 0u || it >= max_steps;
+      }
+    }
+  }
+  if (iters) *iters = it;
+  return out;
 }
 
 }  // namespace de

@@ -1,20 +1,23 @@
-// naive_track: the reference's one-step trackers at the global majorant, one
-// thread per lane: delta tracking (naive_delta_track) and ratio tracking
-// (naive_ratio_track) of the gases or of the cloud slab.
+// naive_track: the reference's one-step trackers at the global majorant:
+// delta tracking (naive_delta_track) of the gases or of the cloud slab, and
+// ratio tracking (naive_ratio_track) of either.
 //
 // Replaces the TPU loops digital_earth_tpu/render/tracking_naive.py:72
-// delta_track_naive and :126 ratio_track_naive; the per-lane loops are
-// naive_delta_lane and naive_ratio_lane (naive.cuh), and for the gases'
-// ratio tracking rmo_ratio_lane at one wavelength and one probe an
-// iteration (rmo_track.cuh), which the bounce entries' options instances
-// run under naive_tracking and naive_cloud_tracking. This kernel launches
-// them on their own for the bounce's plain twin on the card and for the
-// comparison with render/tracking_naive's plain versions.
+// delta_track_naive and :126 ratio_track_naive. Delta tracking and the
+// cloud's ratio tracking run as warp-cooperative steps (naive.cuh
+// naive_track_warp), the gases' ratio tracking as rmo_ratio_lane at one
+// wavelength and one probe an iteration (rmo_track.cuh), one thread a lane:
+// the loops the bounce entries' options instances run under naive_tracking
+// and naive_cloud_tracking. This kernel launches them on their own for the
+// bounce's plain twin on the card and for the comparison with
+// render/tracking_naive's plain versions.
 //
 // What bounds it on the H100: latency and divergence (naive.cuh): a step is
 // one or three threefry draws, a density (analytic, or one dependent texture
 // read for the cloud) and a few dozen operations, a lane takes up to
-// max_steps of them, and a warp runs at its longest lane.
+// max_steps of them, and one thread a lane a warp runs at its longest lane;
+// the warp-cooperative steps give its idle threads the steps of the lanes
+// still tracking.
 #include <cstdint>
 
 #include <cuda_runtime.h>
@@ -36,8 +39,13 @@ __global__ void naive_track_kernel(const int32_t* __restrict__ keys, const float
                                    int32_t* __restrict__ iid_out, float* __restrict__ trans_out,
                                    int32_t* __restrict__ iters, int n, int max_steps,
                                    int bilinear) {
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= n) return;
+  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
+  // a warp wholly past the lanes leaves; the others stay whole, as
+  // naive_track_warp needs, a thread past the lanes reading the last lane
+  // and writing nothing
+  if ((idx & ~31) >= n) return;
+  const bool in = idx < n;
+  const int lane = in ? idx : n - 1;
   const float* e = ext + 4 * lane;
   // the gases' three extinctions, or the cloud's (channel 3)
   const float e0 = SPECIES == NAIVE_RMO ? e[0] : e[3];
@@ -45,27 +53,26 @@ __global__ void naive_track_kernel(const int32_t* __restrict__ keys, const float
   const float e2 = SPECIES == NAIVE_RMO ? e[2] : 0.0f;
   int it = 0;
   if constexpr (RATIO && SPECIES == NAIVE_RMO) {
+    if (!in) return;
     const float ext1[1][3] = {{e0, e1, e2}};
     float trans[1];
     rmo_ratio_lane<1>(load_key(keys, lane), load3(pos, lane), load3(dir, lane), t_start[lane],
                       t_max[lane], ext1, max_ext[lane], active[lane] != 0, max_steps, 1, trans,
                       &it);
     trans_out[lane] = trans[0];
-  } else if constexpr (RATIO) {
-    trans_out[lane] = naive_ratio_lane(load_key(keys, lane), load3(pos, lane), load3(dir, lane),
-                                       t_start[lane], t_max[lane], e0, max_ext[lane],
-                                       active[lane] != 0, clouds, H, W, bilinear != 0, max_steps,
-                                       &it);
   } else {
-    int event, iid;
-    float t;
-    naive_delta_lane<SPECIES>(load_key(keys, lane), load3(pos, lane), load3(dir, lane),
-                              t_start[lane], t_max[lane], e0, e1, e2, max_ext[lane],
-                              active[lane] != 0, clouds, H, W, bilinear != 0, max_steps, event, t,
-                              iid, &it);
-    event_out[lane] = event;
-    t_out[lane] = t;
-    iid_out[lane] = iid;
+    const NaiveTrack r = naive_track_warp<SPECIES, RATIO>(
+        load_key(keys, lane), load3(pos, lane), load3(dir, lane), t_start[lane], t_max[lane], e0,
+        e1, e2, max_ext[lane], in && active[lane] != 0, clouds, H, W, bilinear != 0, max_steps,
+        &it);
+    if (!in) return;
+    if constexpr (RATIO) {
+      trans_out[lane] = r.trans;
+    } else {
+      event_out[lane] = r.event;
+      t_out[lane] = r.t;
+      iid_out[lane] = r.iid;
+    }
   }
   if (iters) iters[lane] = it;
 }

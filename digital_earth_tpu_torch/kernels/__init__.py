@@ -643,9 +643,9 @@ def naive_delta_track(keys, pos, direction, t_start, t_max, ext, max_ext, active
     """Launch ``naive_delta_track`` (csrc/naive_track.cu): one-step Woodcock
     tracking at the (n,) global majorant ``max_ext`` of ``species`` ("rmo":
     the gases, channels 0-2 of the (n, 4) extinctions ``ext``; "cloud": the
-    cloud map's density, channel 3, taps bilinear where ``bilinear``):
-    (event int32, t, iid int32); with ``iters``, (that, each lane's (n,)
-    int32 steps)."""
+    cloud map's density, channel 3, taps bilinear where ``bilinear``), as
+    warp-cooperative steps: (event int32, t, iid int32); with ``iters``,
+    (that, each lane's (n,) int32 steps)."""
     return _naive_track(naive_delta_track, keys, pos, direction, t_start, t_max, ext, max_ext,
                         active, clouds, species, max_steps, bilinear, iters, ratio=False)
 
@@ -655,7 +655,7 @@ def naive_ratio_track(keys, pos, direction, t_start, t_max, ext, max_ext, active
                       iters: bool = False):
     """Launch ``naive_ratio_track`` (csrc/naive_track.cu): the (n,)
     transmittance by one-step ratio tracking (arguments as
-    ``naive_delta_track`` takes them)."""
+    ``naive_delta_track`` takes them; the gases' one thread a lane)."""
     return _naive_track(naive_ratio_track, keys, pos, direction, t_start, t_max, ext, max_ext,
                         active, clouds, species, max_steps, bilinear, iters, ratio=True)
 

@@ -1814,6 +1814,122 @@ def test_naive_launchers_bit_equal(dev, case, fn, species, bilinear):
     assert torch.equal(steps, trips) and int(trips.max()) > 1
 
 
+# The trackers' warp-cooperative steps (csrc/naive.cuh naive_track_warp) on
+# the edges of their rounds: delta tracking of both species and the cloud's
+# ratio tracking (the gases' is one thread a lane)
+NAIVE_TRACKERS = [("delta_track_naive", "rmo"), ("delta_track_naive", "cloud"),
+                  ("ratio_track_naive", "cloud")]
+NAIVE_EDGE_WARPS = 256
+
+
+def _naive_tracker_args(dev, case, species, max_steps=2048, thick=1.0):
+    """A tracker call's twin arguments on the case's lanes (as
+    test_naive_launchers_bit_equal makes them), the majorant ``thick`` times
+    the global one."""
+    cfg = TraceConfig(max_tracking_steps=max_steps)
+    pos, dirs = case["pos"], case["dirs"]
+    no_land = torch.full((N,), -1.0, device=dev)
+    if species == "rmo":
+        t0, t1 = pt._rmo_span(pos, dirs, no_land)
+        ext = torch.cat([case["ext_h"], torch.zeros((N, 1), device=dev)], dim=-1)
+        max_ext = vol.max_extinction_rmo(case["ext"][:, :1, :])
+    else:
+        t0, t1 = pt.intersect_cloud_limits(pos, dirs, no_land)
+        ext = torch.zeros((N, 4), device=dev)
+        ext[:, 3] = C.CLOUDS_EXTINCT
+        max_ext = torch.full((N,), C.CLOUDS_EXTINCT, device=dev) * C.CLOUDS_DENSITY
+    return [case["keys"], pos, dirs, t0, t1, ext, max_ext * thick, case["atlas"].clouds, species,
+            case["active"], cfg]
+
+
+def _naive_span_lanes(args):
+    """The lanes of a tracker call that track (active, with a span)."""
+    return torch.nonzero(args[9] & (args[4] >= 0.0) & (args[3] < args[4])).squeeze(1)
+
+
+def _naive_take(args, idx, one_a_warp=False):
+    """A tracker call's arguments at the lanes ``idx``; with ``one_a_warp``
+    each lane heads a warp of 32 copies of itself, the other 31 inactive."""
+    if one_a_warp:
+        idx = torch.repeat_interleave(idx, 32)
+    out = [a[idx] if i not in (7, 8, 10) else a for i, a in enumerate(args)]
+    if one_a_warp:
+        out[9] = torch.zeros_like(out[9])
+        out[9][::32] = True
+    return out
+
+
+def _hold_naive_tracker(fn, args):
+    """The tracker's launcher against its twin: every output bit-equal,
+    each lane's steps the twin's; the steps."""
+    from digital_earth_tpu_torch import kernels
+    from digital_earth_tpu_torch.render import tracking_naive as tn
+
+    keys, pos, dirs, t0, t1, ext, max_ext, clouds, species, active, cfg = args
+    trips = torch.zeros(pos.shape[0], dtype=torch.int32, device=pos.device)
+    want = getattr(tn, f"{fn}_plain")(*args, trips=trips)
+    launcher = kernels.naive_delta_track if fn == "delta_track_naive" else \
+        kernels.naive_ratio_track
+    got, steps = launcher(keys, pos, dirs, t0, t1, ext, max_ext, active, clouds, species=species,
+                          max_steps=cfg.max_tracking_steps, iters=True)
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    assert all(torch.equal(g.view(torch.int32), w.view(torch.int32)) for g, w in zip(got, want))
+    assert torch.equal(steps, trips)
+    return trips
+
+
+@pytest.mark.parametrize("fn,species", NAIVE_TRACKERS)
+def test_naive_tracker_one_lane_a_warp(dev, case, fn, species):
+    """One tracking lane a warp: each round the lane takes all 32 threads."""
+    args = _naive_tracker_args(dev, case, species)
+    lanes = _naive_span_lanes(args)[:NAIVE_EDGE_WARPS]
+    trips = _hold_naive_tracker(fn, _naive_take(args, lanes, one_a_warp=True))
+    assert int((trips > 0).sum()) == lanes.numel() and int(trips.max()) > 1
+
+
+@pytest.mark.parametrize("fn,species", NAIVE_TRACKERS)
+def test_naive_tracker_full_warps(dev, case, fn, species):
+    """Every lane of every warp tracking: the first rounds one thread a
+    lane, the groups growing as lanes stop."""
+    args = _naive_tracker_args(dev, case, species)
+    lanes = _naive_span_lanes(args)[: 32 * NAIVE_EDGE_WARPS]
+    trips = _hold_naive_tracker(fn, _naive_take(args, lanes))
+    assert bool((trips > 0).all())
+
+
+@pytest.mark.parametrize("fn,species", NAIVE_TRACKERS)
+@pytest.mark.parametrize("max_steps", [1, 7, 33])
+def test_naive_tracker_step_cap_inside_a_round(dev, case, fn, species, max_steps):
+    """max_tracking_steps 1, 7 and 33, which end a lane inside a round of
+    2 to 32 threads."""
+    args = _naive_tracker_args(dev, case, species, max_steps=max_steps)
+    lanes = _naive_span_lanes(args)
+    for one in (False, True):
+        take = lanes[:NAIVE_EDGE_WARPS] if one else lanes[: 32 * NAIVE_EDGE_WARPS]
+        trips = _hold_naive_tracker(fn, _naive_take(args, take, one_a_warp=one))
+        assert bool((trips == max_steps).any()) and int(trips.max()) == max_steps
+
+
+@pytest.mark.parametrize("fn,species", NAIVE_TRACKERS)
+def test_naive_tracker_stop_on_a_rounds_last_thread(dev, case, fn, species):
+    """One lane a warp whose twin stops after a multiple of 32 steps (at
+    four times the global majorant, whose null steps lengthen the tracks),
+    so that its stop falls on its last round's last thread."""
+    from digital_earth_tpu_torch.render import tracking_naive as tn
+
+    args = _naive_tracker_args(dev, case, species, thick=4.0)
+    lanes = _naive_span_lanes(args)
+    trips = torch.zeros(lanes.numel(), dtype=torch.int32, device=dev)
+    getattr(tn, f"{fn}_plain")(*_naive_take(args, lanes), trips=trips)
+    stops = lanes[(trips % 32 == 0) & (trips > 0)
+                  & (trips < args[10].max_tracking_steps)][:NAIVE_EDGE_WARPS]
+    assert stops.numel() >= 8
+    got = _hold_naive_tracker(fn, _naive_take(args, stops, one_a_warp=True))
+    got = got[got > 0]
+    assert got.numel() == stops.numel() and bool((got % 32 == 0).all())
+
+
 # The estimator options (render/params.ESTIMATOR_OPTIONS): each alone (the
 # roulettes' start bounces set so that they act at bounces 0 and 3), all
 # but nee_off, and with the reference's estimator, marching first and

@@ -188,6 +188,147 @@ def test_ratio_track_naive_matches_jax(case, species):
     assert torch.equal(tn.ratio_track_naive(*args), torch.from_numpy(t))
 
 
+# ---------------------------------------------------------------------------
+# The trackers on the edges of the round structure of their warp-cooperative
+# steps on the card (csrc/naive.cuh naive_track_warp): the twins against the
+# reference, inputs from numpy (seed 11) on test_torch_tracers' lanes
+# ---------------------------------------------------------------------------
+
+EDGES = ("max_steps_1", "max_steps_7", "max_steps_33", "transmittance_floor", "empty_spans",
+         "grazing")
+EDGE_LANES = 1024  # of the case's lanes: half from orbit, half near the ground
+GRAZING_LANES = 64
+# the grazing chords' extinctions and majorants as multiples of the real
+# ones: nearly every step a null collision, so a lane takes over 1000 steps
+GRAZING_EXT = {"rmo": (1e-3, 15.0), "cloud": (1e-4, 1.0)}
+# the thick case's extinctions and majorants, so that transmittances fall
+# below 1e-5
+THICK = {"rmo": 200.0, "cloud": 40.0}
+
+
+def _edge_inputs(case, species, edge):
+    """(lanes of the case, pos, dirs, t_start, t_max, ext4, max_ext, active,
+    max_tracking_steps) of an edge case, as numpy arrays."""
+    r = np.random.default_rng(11)
+    if edge == "grazing":
+        lanes = np.arange(GRAZING_LANES)
+        up = r.normal(size=(GRAZING_LANES, 3))
+        up /= np.linalg.norm(up, axis=1, keepdims=True)
+        tang = np.cross(up, r.normal(size=(GRAZING_LANES, 3)))
+        tang /= np.linalg.norm(tang, axis=1, keepdims=True)
+        # tangent to the sphere halfway through the slab, from 300 km before
+        r_t = C.CLOUDS_LOWER_LIMIT + 0.5 * C.CLOUDS_THICKNESS
+        pos = (up * r_t - tang * 300e3).astype(np.float32)
+        dirs = tang.astype(np.float32)
+        active = np.ones(GRAZING_LANES, bool)
+    else:
+        h = EDGE_LANES // 2
+        lanes = np.concatenate([np.arange(h), N - h + np.arange(h)])
+        pos, dirs, active = case["pos"][lanes], case["dirs"][lanes], case["active"][lanes]
+    n = lanes.size
+    no_land = jnp.full((n,), -1.0)
+    if species == "rmo":
+        ts, tm = (np.asarray(x) for x in jpt._rmo_span(jnp.asarray(pos), jnp.asarray(dirs),
+                                                        no_land))
+        ext = case["ext"][lanes, 0, :]
+        ext4 = np.concatenate([ext, np.zeros((n, 1), np.float32)], axis=-1)
+        max_ext = vol.max_extinction_rmo(T(case["ext"][lanes, :1, :])).numpy()
+    else:
+        ts, tm = (np.asarray(x) for x in jpt.intersect_cloud_limits(
+            jnp.asarray(pos), jnp.asarray(dirs), no_land))
+        ext4 = np.zeros((n, 4), np.float32)
+        ext4[:, 3] = C.CLOUDS_EXTINCT
+        max_ext = (T(ext4[:, 3]) * C.CLOUDS_DENSITY).numpy()
+    ts, tm = ts.astype(np.float32), tm.astype(np.float32)
+    steps = SMALL["max_tracking_steps"]
+    if edge.startswith("max_steps_"):
+        steps = int(edge.rsplit("_", 1)[1])
+    elif edge == "transmittance_floor":
+        ext4 = ext4 * np.float32(THICK[species])
+        max_ext = max_ext * np.float32(THICK[species])
+    elif edge == "empty_spans":
+        # a quarter each: t_start past t_max, t_start at t_max, t_max below
+        # 0, inactive; the rest as they are
+        q = r.permutation(n)
+        k = n // 5
+        ts[q[:k]] = tm[q[:k]] + np.float32(1.0)
+        ts[q[k:2 * k]] = tm[q[k:2 * k]]
+        tm[q[2 * k:3 * k]] = np.float32(-1.0)
+        active = active.copy()
+        active[q[3 * k:4 * k]] = False
+    elif edge == "grazing":
+        ext_f, max_f = GRAZING_EXT[species]
+        ext4 = ext4 * np.float32(ext_f)
+        max_ext = max_ext * np.float32(max_f)
+        steps = 4096
+    return lanes, pos, dirs, ts, tm, ext4, max_ext, active, steps
+
+
+def _edge_trackers(case, species, fn, edge):
+    """The reference's and the twin's tracker ``fn`` on an edge case: (ref,
+    twin's outputs, the twin's steps, the lanes whose span is empty or that
+    are inactive)."""
+    lanes, pos, dirs, ts, tm, ext4, max_ext, active, steps = _edge_inputs(case, species, edge)
+    cfg = dict(SMALL, max_tracking_steps=steps)
+    j = getattr(jtn, fn)(case["jkeys"][lanes], jnp.asarray(pos), jnp.asarray(dirs),
+                         jnp.asarray(ts), jnp.asarray(tm), jnp.asarray(ext4), jnp.asarray(max_ext),
+                         case["jatlas"].clouds, species, jnp.asarray(active), JaxConfig(**cfg))
+    trips = torch.zeros(lanes.size, dtype=torch.int32)
+    t = getattr(tn, f"{fn}_plain")(case["tkeys"][torch.from_numpy(lanes)], T(pos), T(dirs), T(ts),
+                                   T(tm), T(ext4), T(max_ext), case["tatlas"].clouds, species,
+                                   T(active), TraceConfig(**cfg), trips=trips)
+    empty = ~(active & (tm >= 0.0) & (ts < tm))
+    return j, t, trips, empty, ts, steps
+
+
+@pytest.mark.parametrize("edge", EDGES)
+@pytest.mark.parametrize("species", ["rmo", "cloud"])
+def test_delta_track_naive_round_edges_match_jax(case, species, edge):
+    """``delta_track_naive`` on the round structure's edges against the
+    reference's, the same keys: a step cap of 1, 7 or 33 reached mid-run, thick
+    extinctions, empty spans and inactive lanes (no step, the event 0, t at
+    t_start), grazing chords through the slab of over 1000 steps (the gases'
+    1869 at most, the cloud's 1227). Events and ids equal on every lane but a
+    share, distances within rtol 1e-3. Measured: events and ids 1.000 in
+    every case; distances 1.000 but the cloud's thick case, 0.9990; stated
+    0.99."""
+    (je, jt, ji), (te, tt, ti), trips, empty, ts, steps = _edge_trackers(
+        case, species, "delta_track_naive", edge)
+    je, jt, ji = (np.asarray(x) for x in (je, jt, ji))
+    te, tt, ti = (x.numpy() for x in (te, tt, ti))
+    trips = trips.numpy()
+    assert (je == te).mean() >= 0.99 and (ji == ti).mean() >= 0.99
+    assert _share_close(tt, jt) >= 0.99
+    assert not trips[empty].any() and (te[empty] == 0).all() and (tt[empty] == ts[empty]).all()
+    assert int(trips.max()) <= steps
+    if edge.startswith("max_steps_"):
+        assert (trips == steps).any()
+    if edge == "grazing":
+        assert int(trips.max()) > 1000
+
+
+@pytest.mark.parametrize("edge", EDGES)
+@pytest.mark.parametrize("species", ["rmo", "cloud"])
+def test_ratio_track_naive_round_edges_match_jax(case, species, edge):
+    """``ratio_track_naive`` on the round structure's edges against the
+    reference's, the same keys: as the delta tracker's, the thick case's
+    transmittances falling below 1e-5 (on 0.63 of the gases' lanes and 0.19
+    of the cloud's). Transmittances within rtol 1e-3 on every lane but a
+    share. Measured: 1.000 but the gases' step caps, 0.997 (1), 0.998 (7)
+    and 0.999 (33); stated 0.99."""
+    j, t, trips, empty, ts, steps = _edge_trackers(case, species, "ratio_track_naive", edge)
+    j, t, trips = np.asarray(j), t.numpy(), trips.numpy()
+    assert _share_close(t, j) >= 0.99
+    assert not trips[empty].any() and (t[empty] == 1.0).all()
+    assert int(trips.max()) <= steps
+    if edge.startswith("max_steps_"):
+        assert (trips == steps).any()
+    if edge == "transmittance_floor":
+        assert (t < 1e-5).any()
+    if edge == "grazing":
+        assert int(trips.max()) > 1000
+
+
 # (scene, flag) -> (radiance, throughput) floors of the share of bounce-0
 # lanes within rtol 1e-3; the measured shares are in the test's docstring
 BOUNCE_FLOORS = {

@@ -2,16 +2,17 @@
 """Smoke test of the PyTorch + CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py [--mesh-only | --estimator-only | --floors-only | --widths-only
+                           | --naive-only
                            | --preview-bench [DIR] | --path-bench [DIR] | --spp-bench [DIR]
-                           | --options-bench [DIR] | --sass-counts [DIR]
-                           | --widths-bench [DIR] | --naive-bench [DIR]]
+                           | --options-bench [DIR [SETTING ...]] | --sass-counts [DIR]
+                           | --widths-bench [DIR] | --naive-bench [DIR [march]]]
 
 Run from the root of a checkout on a machine with a CUDA card, ``nvcc`` and
 PyTorch built for CUDA; ``--mesh-only`` runs phases 1-3 and 19 alone (say,
 on a machine with several cards, where phase 19 adds meshes over them);
 ``--estimator-only`` runs phases 1-4 and 8e alone, ``--floors-only`` phases
 1-4 and 8f, ``--widths-only`` phases 1-3 and 8g (with a JSON line of its
-rows);
+rows), ``--naive-only`` phases 1-3 and 8d (the same);
 ``--preview-bench [DIR]`` prints the preview's end-to-end numbers (frame
 times and kernels per frame on both atlases, input to preview) for the port
 package in DIR (default this checkout), so that two versions of the port can
@@ -29,20 +30,23 @@ wavelengths and the reference estimator's census at bounces 0 and
 DEEP_BOUNCE with its tracking lanes per warp); ``--spp-bench [DIR]``
 the three scenes' s/spp and the bounce kernels' device ms of 3 profiled
 spp each, at the default config and at the reference's estimator;
-``--options-bench [DIR]`` the settings of phases 8c, 8d and 8e that DIR's
-package takes (bounce 0's two kernels of the options or estimator
-instances, s/spp against the setting's base) and
+``--options-bench [DIR [SETTING ...]]`` the settings of phases 8c, 8d, 8e
+and 8f that DIR's package takes, or those named (bounce 0's two kernels of
+the knob instances, s/spp against the setting's base; the naive flags with an
+estimator option or a march floor, and the default config against itself) and
 ``--sass-counts [DIR]`` the bounce entries' SASS sizes and the options
 sources' ptxas report, and ``--widths-bench [DIR]`` the hero-packet widths
 (the width libraries' build and ptxas report, ``gen_rays`` at L = 1, 2, 4,
 6, 16 and its SASS sizes, bounce 0's two kernels and s/spp against L = 4
-at each width), and ``--naive-bench [DIR]`` the naive trackers' launchers
-(``naive_delta_track``, ``naive_ratio_track``) per call and on the device
-on the three scenes' naive_tracking arguments at bounces 0 and DEEP_BOUNCE
-(captured afresh from the twin's bounce on every run; each call held
-bit-equal to its twin with its steps) and the census of
-bounce 0 under naive_cloud_tracking (each site's warp cycles, the NEE
-cloud pass's iterations), for the package in DIR. It
+at each width), and ``--naive-bench [DIR]`` the naive launchers
+(``naive_march``, ``naive_delta_track``, ``naive_ratio_track``) per call and
+on the device on the three scenes' naive_tracking arguments and the march's
+at naive_march, at bounces 0 and DEEP_BOUNCE (captured afresh from the twin's
+bounce on every run; each call held bit-equal to its twin with its steps;
+the march's block rounds replayed and, where the package has it, the census
+of its steps) and the census of bounce 0 under naive_cloud_tracking (each
+site's warp cycles, the NEE cloud pass's iterations), naive_march and
+naive_shadow (the march sites' steps and SIMT), for the package in DIR. It
 imports nothing of JAX or of the JAX package ``digital_earth_tpu`` (checked
 at the end). Phases, each of which raises on failure (exit code 1):
 
@@ -168,14 +172,20 @@ at the end). Phases, each of which raises on failure (exit code 1):
    ``naive_ratio_track``, gases and cloud) against their twins on each
    scene's bounce-0 arguments at naive_tracking, captured from the twin's
    bounce, every output and every lane's steps bit-equal, timed per call and
-   on the device with the trackers' SIMT efficiency one thread a lane and
-   under their warp-cooperative steps (``naive_rounds``); Apollo's calls are
-   the kernels line's rows, with their bounds from the work their data
-   needs (the twin's steps, its density evaluations, cloud taps and draws:
-   ``naive_work``); the trackers' launchers on the round
-   structure's edge cases built from Apollo's calls (``check_naive_edges``:
-   one tracking lane a warp, 32, a step cap inside a round, a stop on a
-   round's last thread), bit-equal with their steps; per
+   on the device (the march at its three sites) with the trackers' SIMT
+   efficiency one thread a lane and under their warp-cooperative steps
+   (``naive_rounds``), the march's under its block rounds (``march_rounds``)
+   and the census of its steps (``march_step_census``: the one-thread loop's
+   clock64 cycles a step in the point and its divisions, the angles, the
+   tap's read and the rest); Apollo's calls are the kernels line's rows,
+   with their bounds from the work their data needs (the twin's steps, its
+   density evaluations, cloud taps and draws: ``naive_work``; the march's
+   SASS instructions a step at the issue rate, ``naive_step_sass``); the
+   march's launcher on its block rounds' edges and the trackers' on the round
+   structure's edge cases, built from Apollo's calls (``check_naive_edges``:
+   every lane marching, one a block, land_march_steps 1, 7 and 250, a last
+   block of 51 lanes; one tracking lane a warp, 32, a step cap inside a round,
+   a stop on a round's last thread), bit-equal with their steps; per
    flag and scene the bounce entries' options instances against their twin
    at bounces 0 and DEEP_BOUNCE and ``bounce_window`` against
    ``run_window_plain`` from the bounce the frame enters it, every lane
@@ -1447,17 +1457,18 @@ def bounce_registers(kernels):
     (``kernels.bounce_occupancy``), and the spill stores and loads in bytes
     from ptxas's report of bounce.cu (the default instances: L = 4, the
     closed-form transmittance, not the options instance) of
-    ``<entry>_kernel<L>`` with up to three more 0 arguments (not a census
-    instance, ``<L, 1, ...>``, nor an options instance, its last argument
-    1). None where this process did not build the kernels (no report);
-    fails where it did and an entry's spill line is missing."""
+    ``<entry>_kernel<L>`` with up to four more 0 arguments (not a census
+    instance, ``<L, 1, ...>``, nor a knob instance, its OPTS argument not
+    0, nor bounce_shade's BLOCK instance). None where this process did not
+    build the kernels (no report); fails where it did and an entry's spill
+    line is missing."""
     import re
 
     log = kernels.ptxas_log.get("bounce.cu", "")
     entries = ptxas_entries(log)
     spills = {}
     for n in kernels.OCCUPANCY_ENTRIES:
-        name = next((k for k in entries if re.fullmatch(rf"{n}_kernel<\d+(?:,0){{0,3}}>", k)), None)
+        name = next((k for k in entries if re.fullmatch(rf"{n}_kernel<\d+(?:,0){{0,4}}>", k)), None)
         if name is not None and entries[name][1] is not None:
             spills[n] = tuple(entries[name][1:])
     if log and set(spills) != set(kernels.OCCUPANCY_ENTRIES):
@@ -2393,16 +2404,26 @@ NAIVE_CASES = (("naive_tracking", dict(naive_tracking=True, hero_lambdas=1), dic
                ("naive_march", dict(naive_march=True), {}),
                ("naive_cloud_tracking", dict(naive_cloud_tracking=True), {}),
                ("naive_shadow", dict(naive_shadow=True), {}))
+# naive flags with an estimator option or a march floor (the estimator and
+# floor instances' naive sites), each against that option alone
+NAIVE_KNOB_CASES = (
+    ("naive_tracking, fast_loop_rng", dict(naive_tracking=True, hero_lambdas=1, fast_loop_rng=True),
+     dict(hero_lambdas=1, fast_loop_rng=True)),
+    ("naive_cloud_tracking, cert_u0", dict(naive_cloud_tracking=True, march_certified_floor=True,
+                                           march_uncert_floor_frac=1e-6),
+     dict(march_certified_floor=True, march_uncert_floor_frac=1e-6)),
+    ("naive_march, cert_u0", dict(naive_march=True, march_certified_floor=True,
+                                  march_uncert_floor_frac=1e-6),
+     dict(march_certified_floor=True, march_uncert_floor_frac=1e-6)))
 # the census sites each flag's naive loops run at (CENSUS_SITES order)
 NAIVE_SITES = {"naive_tracking": (0, 1, 2, 4, 5, 6), "naive_march": (0, 3, 4),
                "naive_cloud_tracking": (1, 5), "naive_shadow": (4,)}
-# Operations of the naive loops (csrc/naive.cuh), counted from the source as
-# the other rows are (an add, multiply, divide, square root, min or max, an
+# Operations of the naive trackers (csrc/naive.cuh), counted from the source
+# as the other rows are (an add, multiply, divide, square root, min or max, an
 # expf, logf or atan2f each one; a nearest 4-channel sphere tap 36, the three
-# gas densities 51): the march's warm start (the atmosphere's rsi and the
-# start, 18) and its step (the point 6, the tap 36, the SDF's length and
-# three operations 9, the new distance and the two stop tests 5: 56); a
-# tracker step: the exponential step and the test past t_max (5), the point
+# gas densities 51); the march's from the SASS of a step (``naive_step_sass``)
+# at the issue rate. A tracker step: the exponential step and the test past
+# t_max (5), the point
 # (7), then the gases' elevation (7), densities (51), terms and total (5)
 # and the test (2): 77, or the cloud's tap (36), radius (6), split-shape
 # density (12), extinction (1) and test (2): 69; a ratio step the same with
@@ -2415,7 +2436,6 @@ NAIVE_SITES = {"naive_tracking": (0, 1, 2, 4, 5, 6), "naive_march": (0, 3, 4),
 # its first uniform; delta tracking draws the second where a step does not
 # end past t_max and its total is above 0 (else no collision can happen),
 # and the third at its collision.
-NAIVE_MARCH_CALL_OPS, NAIVE_MARCH_STEP_OPS = 18, 56
 NAIVE_STEP_OPS, NAIVE_TAP_OPS = 5, 36
 NAIVE_EVAL_OPS = {("delta", "rmo"): 72, ("delta", "cloud"): 28, ("ratio", "rmo"): 74,
                   ("ratio", "cloud"): 30}
@@ -2449,18 +2469,23 @@ PARENT_DEFAULT_SASS = {
 
 def bounce_instances(funcs):
     """{mangled name: (entry, template flags, SASS instructions)} of the
-    bounce entries in a ``sass_functions`` map; the last flag is OPTS (0 the
-    default instance, 1 the options instance, 2 the estimator instance, 3
-    the floor instance; a bool before the estimator instances came)."""
+    bounce entries in a ``sass_functions`` map (bounce_shade_block: the knob
+    instances' bounce_shade with the naive shadow march block-cooperative,
+    bounce_shade's BLOCK instance, a kernel of its own before it was one);
+    the last flag is OPTS (0 the default instance, 1 the options instance, 2
+    the estimator instance, 3 the floor instance; a bool before the
+    estimator instances came)."""
     import re
 
     out = {}
     for name, ops in funcs.items():
-        m = re.search(r"(bounce_flight|bounce_shade|bounce_window)_kernelILi(\d)E((?:L[bi]\d+E)+)",
-                      name)
+        m = re.search(r"(bounce_flight|bounce_shade_block|bounce_shade|bounce_window)_kernelILi(\d)E"
+                      r"((?:L[bi]\d+E)+)", name)
         if m:
-            args = tuple(int(b) for b in re.findall(r"L[bi](\d+)E", m[3]))
-            out[name] = (f"{m[1]}<L={m[2]}, {', '.join(map(str, args))}>", args, len(ops))
+            entry, args = m[1], tuple(int(b) for b in re.findall(r"L[bi](\d+)E", m[3]))
+            if entry == "bounce_shade" and len(args) == 4:  # COUNT, RATIO, OPTS, BLOCK
+                entry, args = ("bounce_shade_block" if args[3] else entry), args[:3]
+            out[name] = (f"{entry}<L={m[2]}, {', '.join(map(str, args))}>", args, len(ops))
     return out
 
 
@@ -2602,14 +2627,36 @@ def naive_work(torch, name, args):
     return {k: int(v) for k, v in n.items()}
 
 
-def naive_ops(torch, name, species, trips, tf, work=None):
+def naive_step_sass(kernels):
+    """The SASS of one step of the naive march at nearest taps, the loop's
+    statements with its stop tests: the body of the measurement library's
+    ``naive_steps_kernel<2>`` less that of ``<1>``
+    (csrc/bench/naive_march_bench.cu; each up to its EXIT, the IEEE
+    divisions' slow paths after it left out), so that a lane's loads, stores
+    and index, paid once a lane, are not counted. {"instructions": n,
+    "pipes": {pipe: n}, "ops": {opcode: n}}; fails if the build lacks a
+    kernel."""
+    funcs = sass_functions(kernels.bench_library()._name)
+    pair = [next((f for n, f in funcs.items() if f"naive_steps_kernelILi{k}E" in n), None)
+            for k in (1, 2)]
+    if None in pair:
+        fail("the disassembly lacks naive_steps_kernel<1, 2> (csrc/bench/naive_march_bench.cu)")
+    (h1, p1), (h2, p2) = (sass_histogram(sass_main_body(f)) for f in pair)
+    ops = {op: h2.get(op, 0) - h1.get(op, 0) for op in sorted(set(h1) | set(h2))}
+    return dict(instructions=sum(ops.values()), pipes={k: p2[k] - p1[k] for k in p1},
+                ops={op: c for op, c in ops.items() if c})
+
+
+def naive_ops(torch, name, species, trips, tf, work=None, step=None):
     """(other operations, threefry ALU-pipe, FMA-pipe) of a naive launcher
-    whose lanes took the (n,) steps ``trips``: the march's from its steps,
-    a tracker's from its call's ``work`` (``naive_work``)."""
+    whose lanes took the (n,) steps ``trips``: a tracker's from its call's
+    ``work`` (``naive_work``); the march's (SASS instructions, of them on
+    the XU pipe, 0) from its steps and the SASS of a step ``step``
+    (``naive_step_sass``), which ``bound`` takes at the issue rate (its
+    ``sfu`` the XU pipe's)."""
     if name == "intersect_land_naive":
-        t = trips.to(torch.float64)
-        return (float((t > 0).sum()) * NAIVE_MARCH_CALL_OPS
-                + float(t.sum()) * NAIVE_MARCH_STEP_OPS, 0.0, 0.0)
+        t = float(trips.to(torch.float64).sum())
+        return t * step["instructions"], t * step["pipes"]["xu"], 0.0
     kind = "delta" if name == "delta_track_naive" else "ratio"
     tap_ops = NAIVE_TAP_OPS if species == "cloud" else 0
     other = (work["steps"] * NAIVE_STEP_OPS + work["evals"] * NAIVE_EVAL_OPS[(kind, species)]
@@ -2650,12 +2697,76 @@ def naive_rounds(torch, trips, warp=32):
     return work / (rounds * warp), rounds, solo / rounds
 
 
+# csrc/naive.cuh: the naive march's block (a bounce_shade BLOCK block, the
+# launcher's) and its steps a round while more lanes march than a warp holds
+NAIVE_MARCH_BLOCK, NAIVE_MARCH_ROUND = 128, 8
+
+
+def march_rounds(torch, trips, block=NAIVE_MARCH_BLOCK, rnd=NAIVE_MARCH_ROUND, warp=32):
+    """The naive march's block rounds (csrc/naive.cuh naive_march_block) on
+    lanes that took the (n,) ``trips`` in launch order, beside one thread a
+    lane: (the rounds' SIMT efficiency, lane steps over the thread-step
+    slots their warps issue; their warp-steps; one thread a lane's
+    warp-steps, each warp's longest lane). Each round, where that empties a
+    warp, a block packs its lanes still marching, in thread order, onto its
+    first threads; each warp issues its longest lane's steps that round, at
+    most ``rnd`` while more lanes march than a warp holds, else every step
+    left: the kernel's own rounds, since a lane's steps are the twin's.
+    (None, 0, 0) where no lane stepped."""
+    m = trips.shape[0]
+    rem = torch.cat([trips, trips.new_zeros((-m) % block)]).to(torch.int64).view(-1, block)
+    work = int(rem.sum())
+    if work == 0:
+        return None, 0, 0
+    solo = int(rem.view(-1, warp).amax(1).sum())
+    rem = rem[(rem > 0).any(1)]
+    issued = 0
+    while rem.numel():
+        n = (rem > 0).sum(1, keepdim=True)
+        busy = (rem.view(rem.shape[0], -1, warp) > 0).any(2).sum(1, keepdim=True)
+        packed = torch.gather(rem, 1, torch.sort((rem == 0).to(torch.int8), dim=1,
+                                                 stable=True).indices)
+        rem = torch.where((n + warp - 1) // warp < busy, packed, rem)
+        take = torch.where(n > warp, torch.clamp(rem, max=rnd), rem)
+        issued += int(take.view(rem.shape[0], -1, warp).amax(2).sum())
+        rem = rem - take
+        rem = rem[(rem > 0).any(1)]
+    return work / (issued * warp), issued, solo
+
+
+def march_step_census(torch, args, want, trips):
+    """The census of the naive march's steps on a march call's ``args``
+    (``intersect_land_naive``'s, at nearest taps): the measurement launcher's
+    census instance (csrc/bench/naive_march_bench.cu naive_march_loop, the
+    one-thread loop with clock64 between a step's parts) held bit-equal to the twin's
+    distances ``want`` and steps ``trips`` (fails otherwise); {part: cycles a
+    step of a lane's thread} for the point and its divisions, the angles, the
+    tap's read and the rest. None where no lane stepped."""
+    from digital_earth_tpu_torch import kernels
+
+    topo, pos, d, scale, active, cfg = args
+    out, it, cycles = kernels.naive_march_loop(topo, pos, d, active, float(scale),
+                                               steps=cfg.land_march_steps, census=True)
+    if not (torch.equal(out.view(torch.int32), want.view(torch.int32))
+            and torch.equal(it, trips)):
+        fail("naive_march_loop's census parts from the twin")
+    steps = int(trips.sum())
+    if steps == 0:
+        return None
+    per = (cycles.sum(0).to(torch.float64) / steps).tolist()
+    return dict(zip(("point_and_divisions", "angles", "tap_read", "rest"), per))
+
+
 def check_naive_launchers(torch, calls, label, tf, rows=None):
     """Each naive launcher call in ``calls`` against its plain twin
     (``tracking_naive``'s *_plain) on the same arguments: every output
     bit-equal, the launcher's steps per lane equal to the twin's; both
-    timed. With ``rows``, each launcher's calls add to its JSON row (ms,
-    plain ms, bytes, operations from the work the call needs)."""
+    timed; the march's block rounds replayed from the twin's steps
+    (``march_rounds``) and, at nearest taps, the census of its steps
+    (``march_step_census``). With ``rows``, each launcher's calls add to its
+    JSON row (ms, plain ms, bytes, operations from the work the call needs:
+    the march's SASS instructions at the issue rate)."""
+    from digital_earth_tpu_torch import kernels
     from digital_earth_tpu_torch.render import tracking_naive as tn
 
     card = nvidia_smi_line()
@@ -2693,19 +2804,52 @@ def check_naive_launchers(torch, calls, label, tf, rows=None):
         simt = simt_efficiency(torch, trips[:, None])[0]
         warp_simt = (None if name == "intersect_land_naive" or (name, species) == (
             "ratio_track_naive", "rmo") else naive_rounds(torch, trips)[0])
+        march_text = ""
+        if species is None and int(trips.sum()):
+            # the one-thread loop (the design the block's replaced) beside it;
+            # the scale as a float, so that the capture reads no tensor
+            scale = float(args[3])
+            loop = lambda: kernels.naive_march_loop(  # noqa: E731
+                args[0], args[1], args[2], args[4], scale, steps=args[5].land_march_steps,
+                bilinear=args[5].bilinear_tracking)
+            l_out, l_it = loop()
+            if not (torch.equal(l_out.view(torch.int32), want[0].view(torch.int32))
+                    and torch.equal(l_it, trips)):
+                fail(f"naive {label} {tag}: the one-thread loop parts from the twin")
+            march_text = f", one thread a lane {_graph_ms(torch, loop):.3f} ms on the device"
+        if species is None:
+            r_simt, issued, solo = march_rounds(torch, trips)
+            if r_simt is not None:
+                march_text += (f", block rounds {r_simt:.3f} ({issued} warp-steps against {solo} "
+                               f"one thread a lane: x{issued / solo:.3f})")
+            if not args[5].bilinear_tracking:
+                census = march_step_census(torch, args, want[0], trips)
+                if census is not None:
+                    total = sum(census.values())
+                    march_text += (f"; census of a step (one thread a lane), {total:.0f} cycles "
+                                   "of a lane's thread: " + ", ".join(
+                                       f"{k} {v:.0f} ({v / total:.2f})"
+                                       for k, v in census.items()))
         bound_text = ""
+        sfu = None
         if rows is not None:
             # the kernels line's calls (Apollo's): the bound from the work the
             # call needs, counted on a second run of the twin
             work = None if species is None else naive_work(torch, name, args)
-            other, int_ops, fma_ops = naive_ops(torch, name, species, trips, tf, work)
-            ops = other + int_ops + fma_ops
+            step = naive_step_sass(kernels) if species is None else None
+            other, int_ops, fma_ops = naive_ops(torch, name, species, trips, tf, work, step)
+            if species is None:  # SASS instructions at the issue rate, the XU pipe's apart
+                ops, sfu, int_ops = other, int_ops, 0.0
+            else:
+                ops = other + int_ops + fma_ops
             nbytes = (NAIVE_MARCH_LANE_BYTES * n + args[0].numel() if species is None else
                       (NAIVE_TRACK_LANE_BYTES + (12 if name == "delta_track_naive" else 4)) * n
                       + (args[7].numel() if species == "cloud" else 0))
-            b_ms, b_by = bound(nbytes, ops, int_ops=int_ops, fma_ops=fma_ops)
+            b_ms, b_by = bound(nbytes, ops, sfu, int_ops=int_ops, fma_ops=fma_ops)
             bound_text = (f"{'' if work is None else f'; work {work}'}, bound {b_ms:.5f} ms "
-                          f"({b_by}; {ops:.4g} operations)")
+                          f"({b_by}; {ops:.4g} "
+                          f"{'operations' if sfu is None else f'SASS instructions, {sfu:.4g} XU'}"
+                          f"{'' if step is None else f'; a step {step}'})")
         print(f"naive {label} {tag}: {n} lanes ({n_act} active, {card}): bit-equal {same} "
               f"({int(differ.sum())} lanes not), max abs err {err:.3e}, steps equal {same_steps} "
               f"({int((steps != trips).sum())} lanes not); steps {int(trips.sum())} on "
@@ -2713,8 +2857,8 @@ def check_naive_launchers(torch, calls, label, tf, rows=None):
               f"{int(trips.max()) if n else 0}), SIMT eff one thread a lane "
               f"{'-' if simt is None else f'{simt:.3f}'}"
               f"{'' if warp_simt is None else f', warp-cooperative steps {warp_simt:.3f}'}"
-              f"; kernel {ms:.3f} ms per call, {dev_ms:.3f} on the device{bound_text}, plain "
-              f"{plain_ms:.1f} ms")
+              f"{march_text}; kernel {ms:.3f} ms per call, {dev_ms:.3f} on the device"
+              f"{bound_text}, plain {plain_ms:.1f} ms")
         if not (same and same_steps):
             fail(f"naive {label} {tag}: the launcher parts from its twin")
         if rows is not None:
@@ -2728,6 +2872,8 @@ def check_naive_launchers(torch, calls, label, tf, rows=None):
             row["ops"] += ops
             row["int_ops"] += int_ops
             row["fma_ops"] += fma_ops
+            if sfu is not None:
+                row["sfu"] = row.get("sfu", 0.0) + sfu
 
 
 def _naive_take(args, idx, n, **cfg):
@@ -2741,8 +2887,57 @@ def _naive_take(args, idx, n, **cfg):
     return tuple(out)
 
 
+def check_naive_march_edges(torch, calls):
+    """The march's launcher against its twin on its block rounds' edge
+    cases, built from the first march call of ``calls`` with marching lanes
+    (Apollo's bounce-0 pre-march at naive_tracking; 32 EDGE_WARPS of its
+    marching lanes, those of more than 7 steps first, in launch order):
+    every lane marching; one marching lane a block, on its thread 77;
+    land_march_steps 1, 7 and 250; a last block of 51 lanes. Every distance
+    and every lane's steps bit-equal; fails otherwise."""
+    import dataclasses
+
+    from digital_earth_tpu_torch.render import tracking_naive as tn
+
+    march = next((a for name, a in calls if name == "intersect_land_naive" and bool(a[4].any())),
+                 None)
+    if march is None:
+        fail("naive edges: no march call with a marching lane")
+    topo, pos, d, scale, active, cfg = march
+    _, steps = _naive_launcher(torch, "intersect_land_naive",
+                               (topo, pos, d, float(scale), active, cfg), iters=True)
+    marching = torch.nonzero(active).squeeze(1)
+    longer = steps[marching] > 7
+    lanes = torch.cat([marching[longer], marching[~longer]])[: 32 * EDGE_WARPS]
+    m = lanes.numel()
+    one = torch.zeros(m, dtype=torch.bool, device=pos.device)
+    one[77::NAIVE_MARCH_BLOCK] = True
+    cases = [("every lane marching", lanes, None, cfg.land_march_steps),
+             ("one marching lane a block", lanes, one, cfg.land_march_steps)]
+    cases += [(f"land_march_steps {k}", lanes, None, k) for k in (1, 7, 250)]
+    cases.append(("a last block of 51 lanes", lanes[: m - m % NAIVE_MARCH_BLOCK - 77], None,
+                  cfg.land_march_steps))
+    for label, idx, act, steps in cases:
+        n = idx.numel()
+        act = torch.ones(n, dtype=torch.bool, device=pos.device) if act is None else act
+        args = (topo, pos[idx].contiguous(), d[idx].contiguous(), float(scale), act,
+                dataclasses.replace(cfg, land_march_steps=steps))
+        trips = torch.zeros(n, dtype=torch.int32, device=pos.device)
+        want = tn.intersect_land_naive_plain(*args, trips=trips)
+        got, it = _naive_launcher(torch, "intersect_land_naive", args, iters=True)
+        same = torch.equal(got.view(torch.int32), want.view(torch.int32)) and torch.equal(it,
+                                                                                          trips)
+        print(f"naive edge naive_march {label}: {n} lanes, {int(act.sum())} marching, steps "
+              f"{int(trips.sum())} (max {int(trips.max())}, {int((trips == steps).sum())} at the "
+              f"budget, {int(((trips == steps) & (want >= 0)).sum())} of them a hit); bit-equal "
+              f"with the twin's steps {same}")
+        if not same:
+            fail(f"naive edge naive_march {label}: the launcher parts from its twin")
+
+
 def check_naive_edges(torch, calls):
-    """The trackers' launchers (delta tracking of both species, the cloud's
+    """The march's block rounds' edges (``check_naive_march_edges``), then
+    the trackers' launchers (delta tracking of both species, the cloud's
     ratio tracking) against their twins on the round structure's edge cases,
     built from the tracker calls ``calls`` (Apollo's bounce 0 at
     naive_tracking; at most EDGE_WARPS warps each): one tracking lane a warp
@@ -2754,6 +2949,8 @@ def check_naive_edges(torch, calls):
     round's last thread). Every output and every lane's steps bit-equal;
     fails otherwise."""
     from digital_earth_tpu_torch.render import tracking_naive as tn
+
+    check_naive_march_edges(torch, calls)
 
     seen = set()
     for name, args in calls:
@@ -3687,45 +3884,61 @@ PACKET_PATHS, PACKET_SEEDS, PACKET_Z = 3072, 6, 4.0
 CHROMA_PATHS, CHROMA_SEEDS, CHROMA_RATIO = 2048, 4, 0.3
 # The SASS instructions of every bounce instance of the main library (the
 # default, options, estimator and floor sets; cuobjdump -sass, NOPs left
-# out) as built from commit 18b6e19 for an NVIDIA H100 80GB HBM3 by nvcc
-# 12.9 (chip_smoke.py --sass-counts), which the width libraries' build must
-# leave as they were: {entry<L, template flags>: instructions}. The options
-# instances' (last flag 1) are those built since their naive trackers run as
-# warp-cooperative steps (csrc/naive.cuh naive_track_warp), the other 48 the
-# commit's.
+# out) built for an NVIDIA H100 80GB HBM3 by nvcc 12.9 (chip_smoke.py
+# --sass-counts), which the width libraries' build must leave as they were:
+# {entry<L, template flags>: instructions}. The 16 default instances' (last
+# flag 0) are commit 18b6e19's. The 48 knob instances' (options 1, estimator
+# 2, floors 3) were re-recorded once every knob set ran the naive trackers as
+# warp-cooperative steps (csrc/naive.cuh naive_track_warp, in place of the
+# estimator and floor sets' one-thread loops), and the 24 bounce_shade_block
+# instances (the knob sets' bounce_shade with the naive shadow march as
+# block rounds, naive_march_block; bounce_shade_kernel's BLOCK instances)
+# recorded when they came.
 PARENT_SASS = {
-    "bounce_flight<L=1, 0, 0>": 3957, "bounce_flight<L=1, 0, 1>": 7792,
-    "bounce_flight<L=1, 0, 2>": 10647, "bounce_flight<L=1, 0, 3>": 11710,
-    "bounce_flight<L=1, 1, 0>": 4088, "bounce_flight<L=1, 1, 1>": 8001,
-    "bounce_flight<L=1, 1, 2>": 10852, "bounce_flight<L=1, 1, 3>": 11976,
-    "bounce_flight<L=4, 0, 0>": 3958, "bounce_flight<L=4, 0, 1>": 7793,
-    "bounce_flight<L=4, 0, 2>": 10649, "bounce_flight<L=4, 0, 3>": 11711,
-    "bounce_flight<L=4, 1, 0>": 4089, "bounce_flight<L=4, 1, 1>": 8002,
-    "bounce_flight<L=4, 1, 2>": 10853, "bounce_flight<L=4, 1, 3>": 11977,
-    "bounce_shade<L=1, 0, 0, 0>": 10207, "bounce_shade<L=1, 0, 0, 1>": 12449,
-    "bounce_shade<L=1, 0, 0, 2>": 13679, "bounce_shade<L=1, 0, 0, 3>": 14783,
-    "bounce_shade<L=1, 0, 1, 0>": 10315, "bounce_shade<L=1, 0, 1, 1>": 12551,
-    "bounce_shade<L=1, 0, 1, 2>": 14019, "bounce_shade<L=1, 0, 1, 3>": 15130,
-    "bounce_shade<L=1, 1, 0, 0>": 10278, "bounce_shade<L=1, 1, 0, 1>": 12527,
-    "bounce_shade<L=1, 1, 0, 2>": 13807, "bounce_shade<L=1, 1, 0, 3>": 14905,
-    "bounce_shade<L=1, 1, 1, 0>": 10312, "bounce_shade<L=1, 1, 1, 1>": 12600,
-    "bounce_shade<L=1, 1, 1, 2>": 14186, "bounce_shade<L=1, 1, 1, 3>": 15221,
-    "bounce_shade<L=4, 0, 0, 0>": 11890, "bounce_shade<L=4, 0, 0, 1>": 14088,
-    "bounce_shade<L=4, 0, 0, 2>": 15316, "bounce_shade<L=4, 0, 0, 3>": 16430,
-    "bounce_shade<L=4, 0, 1, 0>": 11944, "bounce_shade<L=4, 0, 1, 1>": 14152,
-    "bounce_shade<L=4, 0, 1, 2>": 15708, "bounce_shade<L=4, 0, 1, 3>": 16736,
-    "bounce_shade<L=4, 1, 0, 0>": 11989, "bounce_shade<L=4, 1, 0, 1>": 14298,
-    "bounce_shade<L=4, 1, 0, 2>": 15618, "bounce_shade<L=4, 1, 0, 3>": 16693,
-    "bounce_shade<L=4, 1, 1, 0>": 11999, "bounce_shade<L=4, 1, 1, 1>": 14381,
-    "bounce_shade<L=4, 1, 1, 2>": 15964, "bounce_shade<L=4, 1, 1, 3>": 16931,
-    "bounce_window<L=1, 0, 0>": 11731, "bounce_window<L=1, 0, 1>": 16659,
-    "bounce_window<L=1, 0, 2>": 19103, "bounce_window<L=1, 0, 3>": 20259,
-    "bounce_window<L=1, 1, 0>": 11836, "bounce_window<L=1, 1, 1>": 16642,
-    "bounce_window<L=1, 1, 2>": 19384, "bounce_window<L=1, 1, 3>": 20523,
-    "bounce_window<L=4, 0, 0>": 13478, "bounce_window<L=4, 0, 1>": 18262,
-    "bounce_window<L=4, 0, 2>": 20743, "bounce_window<L=4, 0, 3>": 21896,
-    "bounce_window<L=4, 1, 0>": 13570, "bounce_window<L=4, 1, 1>": 18373,
-    "bounce_window<L=4, 1, 2>": 21101, "bounce_window<L=4, 1, 3>": 22308,
+    "bounce_flight<L=1, 0, 0>": 3957, "bounce_flight<L=1, 0, 1>": 7796,
+    "bounce_flight<L=1, 0, 2>": 10937, "bounce_flight<L=1, 0, 3>": 12065,
+    "bounce_flight<L=1, 1, 0>": 4088, "bounce_flight<L=1, 1, 1>": 8005,
+    "bounce_flight<L=1, 1, 2>": 11157, "bounce_flight<L=1, 1, 3>": 12320,
+    "bounce_flight<L=4, 0, 0>": 3958, "bounce_flight<L=4, 0, 1>": 7797,
+    "bounce_flight<L=4, 0, 2>": 10938, "bounce_flight<L=4, 0, 3>": 12066,
+    "bounce_flight<L=4, 1, 0>": 4089, "bounce_flight<L=4, 1, 1>": 8006,
+    "bounce_flight<L=4, 1, 2>": 11158, "bounce_flight<L=4, 1, 3>": 12321,
+    "bounce_shade<L=1, 0, 0, 0>": 10207, "bounce_shade<L=1, 0, 0, 1>": 12453,
+    "bounce_shade<L=1, 0, 0, 2>": 14439, "bounce_shade<L=1, 0, 0, 3>": 15500,
+    "bounce_shade<L=1, 0, 1, 0>": 10315, "bounce_shade<L=1, 0, 1, 1>": 12555,
+    "bounce_shade<L=1, 0, 1, 2>": 14680, "bounce_shade<L=1, 0, 1, 3>": 15757,
+    "bounce_shade<L=1, 1, 0, 0>": 10278, "bounce_shade<L=1, 1, 0, 1>": 12531,
+    "bounce_shade<L=1, 1, 0, 2>": 14512, "bounce_shade<L=1, 1, 0, 3>": 15587,
+    "bounce_shade<L=1, 1, 1, 0>": 10312, "bounce_shade<L=1, 1, 1, 1>": 12604,
+    "bounce_shade<L=1, 1, 1, 2>": 14891, "bounce_shade<L=1, 1, 1, 3>": 15945,
+    "bounce_shade<L=4, 0, 0, 0>": 11890, "bounce_shade<L=4, 0, 0, 1>": 14092,
+    "bounce_shade<L=4, 0, 0, 2>": 16059, "bounce_shade<L=4, 0, 0, 3>": 17146,
+    "bounce_shade<L=4, 0, 1, 0>": 11944, "bounce_shade<L=4, 0, 1, 1>": 14156,
+    "bounce_shade<L=4, 0, 1, 2>": 16418, "bounce_shade<L=4, 0, 1, 3>": 17614,
+    "bounce_shade<L=4, 1, 0, 0>": 11989, "bounce_shade<L=4, 1, 0, 1>": 14302,
+    "bounce_shade<L=4, 1, 0, 2>": 16251, "bounce_shade<L=4, 1, 0, 3>": 17318,
+    "bounce_shade<L=4, 1, 1, 0>": 11999, "bounce_shade<L=4, 1, 1, 1>": 14385,
+    "bounce_shade<L=4, 1, 1, 2>": 16559, "bounce_shade<L=4, 1, 1, 3>": 17656,
+    "bounce_shade_block<L=1, 0, 0, 1>": 13454, "bounce_shade_block<L=1, 0, 0, 2>": 15397,
+    "bounce_shade_block<L=1, 0, 0, 3>": 16497, "bounce_shade_block<L=1, 0, 1, 1>": 13548,
+    "bounce_shade_block<L=1, 0, 1, 2>": 15689, "bounce_shade_block<L=1, 0, 1, 3>": 16784,
+    "bounce_shade_block<L=1, 1, 0, 1>": 13600, "bounce_shade_block<L=1, 1, 0, 2>": 15553,
+    "bounce_shade_block<L=1, 1, 0, 3>": 16619, "bounce_shade_block<L=1, 1, 1, 1>": 13656,
+    "bounce_shade_block<L=1, 1, 1, 2>": 15879, "bounce_shade_block<L=1, 1, 1, 3>": 16986,
+    "bounce_shade_block<L=4, 0, 0, 1>": 15096, "bounce_shade_block<L=4, 0, 0, 2>": 17084,
+    "bounce_shade_block<L=4, 0, 0, 3>": 18160, "bounce_shade_block<L=4, 0, 1, 1>": 15168,
+    "bounce_shade_block<L=4, 0, 1, 2>": 17408, "bounce_shade_block<L=4, 0, 1, 3>": 18621,
+    "bounce_shade_block<L=4, 1, 0, 1>": 15321, "bounce_shade_block<L=4, 1, 0, 2>": 17314,
+    "bounce_shade_block<L=4, 1, 0, 3>": 18416, "bounce_shade_block<L=4, 1, 1, 1>": 15392,
+    "bounce_shade_block<L=4, 1, 1, 2>": 17596, "bounce_shade_block<L=4, 1, 1, 3>": 18699,
+    "bounce_window<L=1, 0, 0>": 11731, "bounce_window<L=1, 0, 1>": 16663,
+    "bounce_window<L=1, 0, 2>": 20369, "bounce_window<L=1, 0, 3>": 21539,
+    "bounce_window<L=1, 1, 0>": 11836, "bounce_window<L=1, 1, 1>": 16646,
+    "bounce_window<L=1, 1, 2>": 20655, "bounce_window<L=1, 1, 3>": 21848,
+    "bounce_window<L=4, 0, 0>": 13478, "bounce_window<L=4, 0, 1>": 18266,
+    "bounce_window<L=4, 0, 2>": 22032, "bounce_window<L=4, 0, 3>": 23137,
+    "bounce_window<L=4, 1, 0>": 13570, "bounce_window<L=4, 1, 1>": 18377,
+    "bounce_window<L=4, 1, 2>": 22421, "bounce_window<L=4, 1, 3>": 23592,
 }
 
 
@@ -4322,14 +4535,17 @@ def widths_bench(torch, dev):
     print(json.dumps({"widths_bench": out}))
 
 
-def options_bench(torch, dev):
-    """``--options-bench [DIR]``: the options instances' settings of phases
-    8c, 8d, 8e and 8f (OPTION_CASES, all seven on Apollo, the five on florida;
-    NAIVE_CASES and ESTIMATOR_SPP on Apollo, naive_tracking and
-    naive_cloud_tracking on florida and sunset too; FLOOR_SETTINGS on Apollo
-    and sunset) for the package imported from
-    DIR, each setting whose options that package's TraceConfig has: bounce
-    0's bounce_flight and bounce_shade ms (the options instances) and s/spp
+def options_bench(torch, dev, only=()):
+    """``--options-bench [DIR [SETTING ...]]``: the options instances'
+    settings of phases 8c, 8d, 8e and 8f (OPTION_CASES, all seven on Apollo,
+    the five on florida; NAIVE_CASES on the three scenes, ESTIMATOR_SPP on
+    Apollo;
+    FLOOR_SETTINGS on Apollo and sunset; NAIVE_KNOB_CASES and the default
+    config against itself on the three scenes) for the package imported
+    from DIR, each setting whose options that package's TraceConfig has (and
+    whose label, or label and scene as its key in the JSON line, is among the
+    SETTINGs given, if any): bounce 0's
+    bounce_flight and bounce_shade ms (the options instances) and s/spp
     against its base (the scene's default, naive_tracking's the L = 1
     estimator; ``spp_ratio``), so that versions can be alternated in one
     call. One JSON line."""
@@ -4350,13 +4566,17 @@ def options_bench(torch, dev):
                 OPTION_CASES + ALL_SEVEN_CASES[:1] + FIVE_CASES[:1]]
     settings += [(label, options, base, SCENE) for label, options, base in NAIVE_CASES]
     settings += [(label, options, base, s) for label, options, base in NAIVE_CASES
-                 if label in ("naive_tracking", "naive_cloud_tracking") for s in (FLORIDA, SUNSET)]
+                 for s in (FLORIDA, SUNSET)]
     settings += [(label, options, {}, SCENE) for label, options in ESTIMATOR_SPP]
     settings += [(label, options, {}, s) for label, options in FLOOR_SETTINGS
                  for s in (SCENE, SUNSET)]
+    settings += [(label, options, base, s) for label, options, base in NAIVE_KNOB_CASES
+                 for s in (SCENE, FLORIDA, SUNSET)]
+    settings += [("default", {}, {}, s) for s in (SCENE, FLORIDA, SUNSET)]
     fields = TraceConfig.__dataclass_fields__
     for label, options, base, scene in settings:
-        if not set(options) <= set(fields):
+        key = f"{label} {os.path.basename(scene)[9:-4]}"
+        if not set(options) <= set(fields) or (only and label not in only and key not in only):
             continue
         states, _, _ = capture_states(torch, dev, atlas, luts, bounces=(0,), scene=scene,
                                       cfg=TraceConfig(**options))
@@ -4377,19 +4597,23 @@ def options_bench(torch, dev):
             ratios=[round(x, 4) for x in ratios])
     print(json.dumps({"options_bench": out}))
 
-def naive_bench(torch, dev):
-    """``--naive-bench [DIR]``: the naive trackers' launchers
-    (``naive_delta_track`` of both species, ``naive_ratio_track`` of both) of
-    the package imported from DIR on the tracker calls of the twin's bounce
-    at naive_tracking (``capture_naive_calls``) on the three scenes at
-    bounces 0 and DEEP_BOUNCE: per call ms (three calls back to back), on
-    the device (a CUDA graph of 20) and the lanes' steps, each call held
-    bit-equal to its twin with its steps (fails otherwise); then per scene
-    bounce 0 under naive_cloud_tracking: its two kernels' ms, the census's
-    warp cycles per site (``warp_cycles``) and the NEE cloud pass's steps,
-    its iterations one thread a lane (the sum over warps of the longest
-    lane's steps) and as warp-cooperative rounds (``naive_rounds``), so that
-    versions can be alternated in one call. One JSON line."""
+def naive_bench(torch, dev, march_only=False):
+    """``--naive-bench [DIR [march]]``: the naive launchers (``naive_march``,
+    ``naive_delta_track`` of both species, ``naive_ratio_track`` of both) of
+    the package imported from DIR on the calls of the twin's bounce
+    (``capture_naive_calls``) at naive_tracking (every launcher) and at
+    naive_march (the march's three sites) on the three scenes at bounces 0
+    and DEEP_BOUNCE: per call ms (three calls back to back), on the device
+    (a CUDA graph of 20) and the lanes' steps, each call held bit-equal to
+    its twin with its steps (fails otherwise), the march's calls with their
+    block rounds replayed (``march_rounds``); then per scene bounce 0 under
+    naive_cloud_tracking, naive_march and naive_shadow: its two kernels' ms
+    and the census's warp cycles per site (``warp_cycles``), and under
+    naive_cloud_tracking the NEE cloud pass's steps, its iterations one
+    thread a lane (the sum over warps of the longest lane's steps) and as
+    warp-cooperative rounds (``naive_rounds``), so that versions can be
+    alternated in one call; with ``march_only`` (``march`` after DIR) the
+    march's calls and censuses alone. One JSON line."""
     import digital_earth_tpu_torch as pkg
     from digital_earth_tpu_torch.assets.luts import load_spectral_luts
     from digital_earth_tpu_torch.assets.textures import procedural_texture_atlas
@@ -4403,58 +4627,88 @@ def naive_bench(torch, dev):
     from digital_earth_tpu_torch import kernels
 
     out = dict(package=os.path.dirname(os.path.abspath(pkg.__file__)), card=nvidia_smi_line())
-    cfg = TraceConfig(**NAIVE_CASES[0][1])
+    # the census of a march step and its SASS, where the package has them
+    census = hasattr(kernels, "bench_library")
+    if census:
+        out["step_sass"] = naive_step_sass(kernels)
     for scene in (SCENE, FLORIDA, SUNSET):
-        states, _, _ = capture_states(torch, dev, atlas, luts, bounces=(0, DEEP_BOUNCE),
-                                      scene=scene, cfg=cfg)
-        for b in sorted(states):
-            for name, args in capture_naive_calls(torch, states[b], b):
-                if name == "intersect_land_naive":
-                    continue
-                got, steps = _naive_launcher(torch, name, args, iters=True)
-                trips = torch.zeros_like(steps)
-                want = getattr(tn, f"{name}_plain")(*args, trips=trips)
-                got = got if isinstance(got, tuple) else (got,)
-                want = want if isinstance(want, tuple) else (want,)
-                same = all(torch.equal(g.view(torch.int32), w.view(torch.int32))
-                           for g, w in zip(got, want)) and torch.equal(steps, trips)
-                key = f"{os.path.basename(scene)[9:-4]} b{b} {NAIVE_ROWS[name]}/{args[8]}"
-                if not same:
-                    fail(f"naive bench {key}: the launcher parts from its twin")
-                _, ms = _time_ms(torch, lambda: _naive_launcher(torch, name, args), 3)
-                dev_ms = _graph_ms(torch, lambda: _naive_launcher(torch, name, args))
-                t = steps[steps > 0]
-                out[key] = dict(ms=round(ms, 4), device_ms=round(dev_ms, 4), lanes=int(t.numel()),
-                                steps=int(t.sum()), max_steps=int(t.max()) if t.numel() else 0,
-                                bit_equal=same)
-        del states
-    nct = TraceConfig(**NAIVE_CASES[2][1])
+        for label in ("naive_tracking", "naive_march"):
+            cfg = TraceConfig(**dict((c[0], c[1]) for c in NAIVE_CASES)[label])
+            states, _, _ = capture_states(torch, dev, atlas, luts, bounces=(0, DEEP_BOUNCE),
+                                          scene=scene, cfg=cfg)
+            for b in sorted(states):
+                seen = {}
+                for name, args in capture_naive_calls(torch, states[b], b):
+                    march = name == "intersect_land_naive"
+                    if march_only and not march:
+                        continue
+                    got, steps = _naive_launcher(torch, name, args, iters=True)
+                    trips = torch.zeros_like(steps)
+                    want = getattr(tn, f"{name}_plain")(*args, trips=trips)
+                    got = got if isinstance(got, tuple) else (got,)
+                    want = want if isinstance(want, tuple) else (want,)
+                    same = all(torch.equal(g.view(torch.int32), w.view(torch.int32))
+                               for g, w in zip(got, want)) and torch.equal(steps, trips)
+                    tag = f"{NAIVE_ROWS[name]}{'' if march else '/' + args[8]}"
+                    seen[tag] = seen.get(tag, 0) + 1
+                    key = (f"{os.path.basename(scene)[9:-4]} b{b} "
+                           + (f"{label} {tag} #{seen[tag]}" if march else tag))
+                    if not same:
+                        fail(f"naive bench {key}: the launcher parts from its twin")
+                    # the march's scale as a float, so that the capture reads no tensor
+                    targs = (*args[:3], float(args[3]), *args[4:]) if march else args
+                    _, ms = _time_ms(torch, lambda: _naive_launcher(torch, name, targs), 3)
+                    dev_ms = _graph_ms(torch, lambda: _naive_launcher(torch, name, targs))
+                    t = steps[steps > 0]
+                    out[key] = dict(ms=round(ms, 4), device_ms=round(dev_ms, 4),
+                                    lanes=int(t.numel()), steps=int(t.sum()),
+                                    max_steps=int(t.max()) if t.numel() else 0, bit_equal=same)
+                    if march:
+                        r_simt, issued, solo = march_rounds(torch, trips)
+                        out[key].update(one_thread_simt=simt_efficiency(torch, trips[:, None])[0],
+                                        rounds_simt=r_simt, rounds_warp_steps=issued,
+                                        one_thread_warp_steps=solo)
+                        if census and not args[5].bilinear_tracking:
+                            out[key]["step_census"] = march_step_census(torch, args, want[0],
+                                                                        trips)
+            del states
     nee = CENSUS_SITE_NAMES.index("nee_cloud")
     for scene in (SCENE, FLORIDA, SUNSET):
-        states, _, _ = capture_states(torch, dev, atlas, luts, bounces=(0,), scene=scene, cfg=nct)
-        c = states[0]
-        idx, st0, args = c["idx"], c["st"], c["args"]
-        frame = pt.BounceFrame(st0, *args)
-        ka = lambda s: pt._kernel_args(s, idx, 0, *args, frame)  # noqa: E731
-        flight = kernels.bounce_flight(*ka(_clone_state(st0)))
-        t_f = _bounce_ms(torch, st0, lambda s: kernels.bounce_flight(*ka(s)))
-        t_s = _bounce_ms(torch, st0, lambda s: kernels.bounce_shade(*ka(s), flight=flight))
-        trips, _, cycles = _census(torch, st0, idx, 0, args, frame)
-        wc = warp_cycles(torch, cycles).tolist()
-        nt = trips[:, nee]
-        m = nt.shape[0]
-        per_warp = torch.cat([nt, nt.new_zeros((-m) % 32)]).view(-1, 32).amax(1)
-        simt, rounds, solo = naive_rounds(torch, nt)
-        took = nt[nt > 0]
-        out[f"{os.path.basename(scene)[9:-4]} b0 naive_cloud_tracking census"] = dict(
-            lanes=m, flight_ms=round(t_f, 4), shade_ms=round(t_s, 4),
-            warp_cycles=dict(zip(CENSUS_SITE_NAMES + ("flight", "shade"), wc)),
-            nee_cloud=dict(lanes=int(took.numel()), steps=int(took.sum()),
-                           max_steps=int(nt.max()) if m else 0,
-                           one_thread_iterations=int(per_warp.sum()),
-                           one_thread_simt=simt_efficiency(torch, nt[:, None])[0],
-                           rounds=rounds, rounds_simt=simt, solo_round_share=solo))
-        del states, c, flight
+        for label in ("naive_cloud_tracking", "naive_march", "naive_shadow")[int(march_only):]:
+            cfg = TraceConfig(**dict((c[0], c[1]) for c in NAIVE_CASES)[label])
+            states, _, _ = capture_states(torch, dev, atlas, luts, bounces=(0,), scene=scene,
+                                          cfg=cfg)
+            c = states[0]
+            idx, st0, args = c["idx"], c["st"], c["args"]
+            frame = pt.BounceFrame(st0, *args)
+            ka = lambda s: pt._kernel_args(s, idx, 0, *args, frame)  # noqa: E731
+            flight = kernels.bounce_flight(*ka(_clone_state(st0)))
+            t_f = _bounce_ms(torch, st0, lambda s: kernels.bounce_flight(*ka(s)))
+            t_s = _bounce_ms(torch, st0, lambda s: kernels.bounce_shade(*ka(s), flight=flight))
+            trips, _, cycles = _census(torch, st0, idx, 0, args, frame)
+            wc = warp_cycles(torch, cycles).tolist()
+            m = trips.shape[0]
+            entry = dict(lanes=m, flight_ms=round(t_f, 4), shade_ms=round(t_s, 4),
+                         warp_cycles=dict(zip(CENSUS_SITE_NAMES + ("flight", "shade"), wc)))
+            if label == "naive_cloud_tracking":
+                nt = trips[:, nee]
+                per_warp = torch.cat([nt, nt.new_zeros((-m) % 32)]).view(-1, 32).amax(1)
+                simt, rounds, solo = naive_rounds(torch, nt)
+                took = nt[nt > 0]
+                entry["nee_cloud"] = dict(lanes=int(took.numel()), steps=int(took.sum()),
+                                          max_steps=int(nt.max()) if m else 0,
+                                          one_thread_iterations=int(per_warp.sum()),
+                                          one_thread_simt=simt_efficiency(torch, nt[:, None])[0],
+                                          rounds=rounds, rounds_simt=simt,
+                                          solo_round_share=solo)
+            else:
+                entry["march_sites"] = {CENSUS_SITE_NAMES[k]: dict(
+                    steps=int(trips[:, k].sum()),
+                    rounds_simt=march_rounds(torch, trips[:, k])[0],
+                    one_thread_simt=simt_efficiency(torch, trips[:, k:k + 1])[0])
+                    for k in NAIVE_SITES[label]}
+            out[f"{os.path.basename(scene)[9:-4]} b0 {label} census"] = entry
+            del states, c, flight
     print(json.dumps({"naive_bench": out}))
 
 
@@ -6637,19 +6891,21 @@ def main():
     estimator_only = args == ["--estimator-only"]
     floors_only = args == ["--floors-only"]
     widths_only = args == ["--widths-only"]
+    naive_only = args == ["--naive-only"]
     bench = args[:1] == ["--preview-bench"] and len(args) <= 2
     pbench = args[:1] == ["--path-bench"] and len(args) <= 2
     sbench = args[:1] == ["--spp-bench"] and len(args) <= 2
-    obench = args[:1] == ["--options-bench"] and len(args) <= 2
+    obench = args[:1] == ["--options-bench"]
     scount = args[:1] == ["--sass-counts"] and len(args) <= 2
     wbench = args[:1] == ["--widths-bench"] and len(args) <= 2
-    nbench = args[:1] == ["--naive-bench"] and len(args) <= 2
-    if args and not (mesh_only or estimator_only or floors_only or widths_only or bench or pbench
-                     or sbench or obench or scount or wbench or nbench):
+    nbench = args[:1] == ["--naive-bench"] and (len(args) <= 2 or args[2:] == ["march"])
+    if args and not (mesh_only or estimator_only or floors_only or widths_only or naive_only
+                     or bench or pbench or sbench or obench or scount or wbench or nbench):
         fail(f"unknown arguments {args} (the options are --mesh-only, --estimator-only, "
-             "--floors-only, --widths-only, "
+             "--floors-only, --widths-only, --naive-only, "
              "--preview-bench [DIR], --path-bench [DIR], --spp-bench [DIR], --options-bench "
-             "[DIR], --sass-counts [DIR], --widths-bench [DIR] and --naive-bench [DIR])")
+             "[DIR [SETTING ...]], --sass-counts [DIR], --widths-bench [DIR] and --naive-bench "
+             "[DIR])")
     try:
         import torch
     except ImportError:
@@ -6659,7 +6915,7 @@ def main():
     if not os.path.isdir(os.path.join(ROOT, "digital_earth_tpu_torch")):
         fail("run from a checkout: digital_earth_tpu_torch/ is missing beside chip_smoke.py")
     sys.path.insert(0, os.path.abspath(args[1]) if (bench or pbench or sbench or obench or scount
-                                                    or wbench or nbench) and len(args) == 2
+                                                    or wbench or nbench) and len(args) >= 2
                     else ROOT)
     dev = torch.device("cuda:0")
     if bench:
@@ -6672,7 +6928,7 @@ def main():
         path_bench(torch, dev)
         return
     if obench:
-        options_bench(torch, dev)
+        options_bench(torch, dev, tuple(args[2:]))
         return
     if scount:
         sass_counts()
@@ -6681,7 +6937,7 @@ def main():
         widths_bench(torch, dev)
         return
     if nbench:
-        naive_bench(torch, dev)
+        naive_bench(torch, dev, args[2:] == ["march"])
         return
 
     from digital_earth_tpu_torch import kernels
@@ -6711,6 +6967,20 @@ def main():
                                      cache_dir=os.path.join(ROOT, "build", "chip_smoke", "texture_cache"))
     print(f"procedural 1024x2048 atlas: {time.time() - t0:.1f} s")
     luts = load_spectral_luts(dev)
+    if naive_only:
+        # phase 8d alone
+        rows = check_naive(torch, dev, atlas, luts, tf)
+        print(json.dumps({"kernels": [dict(name=name, max_abs_err=row["max_abs_err"], ms=row["ms"],
+                                           plain_ms=row["plain_ms"],
+                                           bound_ms=bound(row["bytes"], row["ops"], row.get("sfu"),
+                                                          row.get("int_ops", 0),
+                                                          row.get("fma_ops", 0))[0])
+                                      for name, row in rows.items()]}))
+        print(nvidia_smi_line())
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return
     if widths_only:
         # phase 8g alone
         rows = check_widths(torch, dev, atlas, luts, tf)

@@ -52,25 +52,31 @@
 //
 // The options instances also run the reference-faithful naive arm
 // (TraceConfig.naive_tracking, naive_march, naive_cloud_tracking and
-// naive_shadow; the loops in naive.cuh), each flag read where its loop is
-// called, so the default instances' code stays as it was: naive_march the
-// plain sphere march at the three march sites, with no t_cap (march);
-// naive_shadow it at the shadow march alone; naive_cloud_tracking the naive
-// cloud delta pass of the flight and ratio pass of the sun's transmittance
-// (cloud); naive_tracking (L = 1 only; the host refuses it at L = 4) all of
-// these and its own flight (naive_flight_lane: march first, the gases over
-// the whole span, then the cloud where no gas event lies before the slab,
-// the nearer event winning; pathtracer.py:1263-1288). Its sun
-// transmittance of the gases is the ratio instance's tracker at one probe
-// an iteration, which is the reference's one-step loop draw for draw and
-// bit for bit (naive.cuh); the host asks for that instance
-// (render/pathtracer.BounceFrame). The options instances run the naive
-// trackers as warp-cooperative steps (naive.cuh naive_track_warp), which
-// every thread of the warp calls: naive_tracking's flight in
-// naive_flight_warp, and the naive cloud passes of the flight and of the
-// sun's transmittance before the lanes' branches (naive_cloud_warp_on). The
-// estimator and floor instances keep the one-thread loops, so their code
-// stays as it was.
+// naive_shadow; naive.cuh), each flag read where its loop is called, so the
+// default instances' code stays as it was: naive_march the plain sphere
+// march at the three march sites, with no t_cap (march); naive_shadow it at
+// the shadow march alone; naive_cloud_tracking the naive cloud delta pass of
+// the flight and ratio pass of the sun's transmittance; naive_tracking (L =
+// 1 only; the host refuses it at L = 4) all of these and its own flight
+// (naive_flight_warp: march first, the gases over the whole span, then the
+// cloud where no gas event lies before the slab, the nearer event winning;
+// pathtracer.py:1263-1288). Its sun transmittance of the gases is the ratio
+// instance's tracker at one probe an iteration, which is the reference's
+// one-step loop draw for draw and bit for bit (naive.cuh); the host asks for
+// that instance (render/pathtracer.BounceFrame). Every knob instance (the
+// options, estimator and floor sets, which run the options instances' code)
+// runs the naive trackers as warp-cooperative steps (naive.cuh
+// naive_track_warp), which every thread of the warp calls: naive_tracking's
+// flight in naive_flight_warp, and the naive cloud passes of the flight and
+// of the sun's transmittance before the lanes' branches
+// (naive_cloud_warp_on). Its plain march runs block-cooperatively at the
+// shadow march under naive_march and naive_shadow (naive.cuh
+// naive_march_block, naive_block_on), in bounce_shade's BLOCK instances,
+// whose every thread stays to the march, so that bounce_shade's other
+// settings run none of its code; one thread a lane at
+// bounce_flight's marches and at the shadow march under naive_tracking,
+// where the block's form measured slower (PERF.md), and in bounce_window,
+// whose warps may be at different bounces.
 //
 // The estimator instances (OPTS = INST_ESTIMATOR), a third set beside the
 // default and options instances, run the options instances' code and the
@@ -362,11 +368,23 @@ static __device__ __noinline__ float march_call_c(const uint8_t* __restrict__ to
   return land_march_warp<true, true>(topo, p, o, d, act, cap, iters, &mo, uncert);
 }
 
-// The naive arm's loops (naive.cuh), called by the options instances only.
+// The naive arm's march (naive.cuh), called by the knob instances only:
+// one thread a lane (bounce_flight's marches, the shadow march under
+// naive_tracking, bounce_window, whose warps may be at different bounces),
+// or with every thread of a BOUNCE_BLOCK block (naive_march_block:
+// bounce_shade's BLOCK instances' shadow march under naive_block_on, launched with
+// naive_march_smem<BOUNCE_BLOCK>() bytes of dynamic shared memory).
 static __device__ __noinline__ float naive_march_call(const uint8_t* __restrict__ topo,
                                                       MarchParams p, bool bilinear, V3 o, V3 d,
                                                       bool act, int* iters) {
   return naive_march_lane(topo, p.H, p.W, p.scale, p.steps, bilinear, o, d, act, iters);
+}
+
+static __device__ __noinline__ float naive_march_block_call(const uint8_t* __restrict__ topo,
+                                                            MarchParams p, bool bilinear, V3 o,
+                                                            V3 d, bool act, int* iters) {
+  return naive_march_block<BOUNCE_BLOCK>(topo, p.H, p.W, p.scale, p.steps, bilinear, o, d, act,
+                                         iters);
 }
 
 struct NaiveEvent {
@@ -374,30 +392,9 @@ struct NaiveEvent {
   float t;
 };
 
-template <int SPECIES>
-static __device__ __noinline__ NaiveEvent naive_delta_call(Key key, V3 o, V3 d, float t0, float t1,
-                                                           float e0, float e1, float e2,
-                                                           float max_ext,
-                                                           const uint8_t* __restrict__ clouds,
-                                                           int H, int W, bool bilinear, int steps,
-                                                           int* iters) {
-  NaiveEvent out;
-  naive_delta_lane<SPECIES>(key, o, d, t0, t1, e0, e1, e2, max_ext, true, clouds, H, W, bilinear,
-                            steps, out.event, out.t, out.iid, iters);
-  return out;
-}
-
-static __device__ __noinline__ float naive_cloud_ratio_call(Key key, V3 o, V3 d, float t0,
-                                                            float t1, float ew, float max_ext,
-                                                            const uint8_t* __restrict__ clouds,
-                                                            int H, int W, bool bilinear,
-                                                            int steps, int* iters) {
-  return naive_ratio_lane(key, o, d, t0, t1, ew, max_ext, true, clouds, H, W, bilinear, steps,
-                          iters);
-}
-
-// The options instances' naive trackers as warp-cooperative steps
-// (naive.cuh naive_track_warp): every thread of the warp calls them, ``act`` where its lane tracks.
+// The knob instances' naive trackers, warp-cooperative steps (naive.cuh
+// naive_track_warp): every thread of the warp calls them, ``act`` where its
+// lane tracks.
 template <int SPECIES>
 static __device__ __noinline__ NaiveEvent naive_delta_warp_call(Key key, V3 o, V3 d, float t0,
                                                                 float t1, float e0, float e1,
@@ -421,14 +418,37 @@ static __device__ __noinline__ float naive_cloud_ratio_warp_call(Key key, V3 o, 
                                              clouds, H, W, bilinear, steps, iters).trans;
 }
 
+// Whether a knob instance's march at ``site`` is the plain sphere march:
+// under naive_march or naive_tracking, and at the shadow march under
+// naive_shadow.
+__device__ __forceinline__ bool naive_march_on(const BounceOptions* op, int site) {
+  return op->naive_march || op->naive_tracking || (site == SITE_SHADOW && op->naive_shadow);
+}
+
+// Whether a knob instance's shadow march is the plain march with every
+// thread of the block (naive_march_block; the host launches bounce_shade's
+// BLOCK instance for it): under naive_march or naive_shadow, but not
+// under naive_tracking, whose shade measured slower with it than one thread
+// a lane (PERF.md).
+__host__ __device__ __forceinline__ bool naive_block_on(const BounceOptions& o) {
+  return !o.naive_tracking && (o.naive_march || o.naive_shadow);
+}
+
+// True in every thread of a block whose threads all lie past the list:
+// bounce_shade's BLOCK instance, whose shadow march takes every thread of
+// the block, returns at once only there.
+__device__ __forceinline__ bool block_past_list(const BounceState& s, int t) {
+  return t - (int)threadIdx.x >= list_size(s);
+}
+
 // A warp none of whose lanes marches here skips the call: a miss, no trips
 // (and with OPTS every warp where the options ``op`` say no land; in the
 // estimator instances at the shadow march under nee_off an occlusion, no
-// trips). OPTS: the
-// plain sphere march, which takes no cap, under naive_march or
-// naive_tracking, and at the shadow march under naive_shadow; in the
-// floor instances at the certified floor the CERT march.
-template <bool COUNT, int OPTS>
+// trips). OPTS: the plain sphere march (naive_march_on), which takes no cap,
+// with BLOCK (bounce_shade's BLOCK instances' shadow march) under naive_block_on
+// block-cooperative, every thread of the block calling it; in the floor
+// instances at the certified floor the CERT march.
+template <bool COUNT, int OPTS, bool BLOCK>
 __device__ __forceinline__ float march(const uint8_t* __restrict__ topo, const MarchParams& p,
                                        const BounceOptions* op, V3 o, V3 d, bool act, float cap,
                                        int* trips, int site) {
@@ -443,13 +463,19 @@ __device__ __forceinline__ float march(const uint8_t* __restrict__ topo, const M
       if (COUNT && trips) trips[site] = 0;
       return -1.0f;
     }
+    if constexpr (BLOCK) {
+      if (naive_block_on(*op)) {  // uniform over the launch
+        return naive_march_block_call(topo, p, op->mo.bilinear != 0, o, d, act,
+                                      COUNT && trips ? trips + site : nullptr);
+      }
+    }
   }
   if (!__any_sync(MARCH_FULL_WARP, act)) {
     if (COUNT && trips) trips[site] = 0;
     return -1.0f;
   }
   if constexpr (OPTS) {
-    if (op->naive_march || op->naive_tracking || (site == SITE_SHADOW && op->naive_shadow)) {
+    if (naive_march_on(op, site)) {
       return naive_march_call(topo, p, op->mo.bilinear != 0, o, d, act,
                               COUNT && trips ? trips + site : nullptr);
     }
@@ -514,29 +540,10 @@ static __device__ __noinline__ CloudOut cloud_call_f(Key key, V3 o, V3 d, float 
 }
 
 // The naive cloud pass at the global majorant ew times the cloud density's
-// (options instances): delta tracking's (event, t) or ratio tracking's
-// transmittance.
-__device__ __forceinline__ CloudOut naive_cloud(Key key, V3 o, V3 d, float t0, float t1, float ew,
-                                                const BounceState& s, const BounceParams& p,
-                                                bool ratio, int* iters, bool bilinear) {
-  const float max_ext = ew * CLOUDS_DENSITY_F;
-  CloudOut out{0, t0, 1.0f};
-  if (ratio) {
-    out.trans = naive_cloud_ratio_call(key, o, d, t0, t1, ew, max_ext, s.clouds, p.clouds_h,
-                                       p.clouds_w, bilinear, p.tracking_steps, iters);
-  } else {
-    const NaiveEvent c = naive_delta_call<NAIVE_CLOUD>(key, o, d, t0, t1, ew, 0.0f, 0.0f, max_ext,
-                                                       s.clouds, p.clouds_h, p.clouds_w, bilinear,
-                                                       p.tracking_steps, iters);
-    out.event = c.event;
-    out.t = c.t;
-  }
-  return out;
-}
-
-// naive_cloud as the options instances run it: warp-cooperative, every
-// thread of the warp calling it, ``act`` where its lane takes the pass (a
-// lane that does not keeps (0, t0, 1)).
+// (knob instances): delta tracking's (event, t) or ratio tracking's
+// transmittance, warp-cooperative, every thread of the warp calling it,
+// ``act`` where its lane takes the pass (a lane that does not keeps (0, t0,
+// 1)).
 __device__ __forceinline__ CloudOut naive_cloud_warp(Key key, V3 o, V3 d, float t0, float t1,
                                                      float ew, const BounceState& s,
                                                      const BounceParams& p, bool ratio, bool act,
@@ -558,32 +565,21 @@ __device__ __forceinline__ CloudOut naive_cloud_warp(Key key, V3 o, V3 d, float 
   return out;
 }
 
-// Whether an options instance's naive cloud passes run: they are
+// Whether a knob instance's naive cloud passes run: they are
 // warp-cooperative and so run before their lanes' branches (flight_lane,
-// naive_flight_warp, shade_lane); the other instances' run one thread a lane
-// inside cloud.
+// naive_flight_warp, shade_lane).
 __device__ __forceinline__ bool naive_cloud_warp_on(const BounceOptions* op) {
   return (op->naive_cloud_tracking || op->naive_tracking) && op->enable_clouds;
 }
 
-// OPTS: the options instance's call, its taps as the options ``op`` say
-// (the estimator instance's draws the counter hash's at fast_loop_rng);
-// under naive_cloud_tracking or naive_tracking the estimator and floor
-// instances' naive pass (the options instances' runs before:
-// naive_cloud_warp).
+// OPTS: the knob instance's call, its taps as the options ``op`` say (the
+// estimator and floor instances' draws the counter hash's at
+// fast_loop_rng); their naive pass runs before (naive_cloud_warp).
 template <bool COUNT, int OPTS>
 __device__ __forceinline__ CloudOut cloud(Key key, V3 o, V3 d, float t0, float t1, float ew,
                                           const BounceState& s, const BounceParams& p, bool ratio,
                                           int* trips, int site, const BounceOptions* op) {
-  if constexpr (OPTS == INST_OPTIONS) {
-    return cloud_call_o(key, o, d, t0, t1, ew, s.clouds, p.clouds_h, p.clouds_w, p.tracking_steps,
-                        p.tracking_k, ratio, COUNT ? trips + site : nullptr,
-                        op->mo.bilinear != 0);
-  } else if constexpr (OPTS) {
-    if (op->naive_cloud_tracking || op->naive_tracking) {
-      return naive_cloud(key, o, d, t0, t1, ew, s, p, ratio, COUNT ? trips + site : nullptr,
-                         op->mo.bilinear != 0);
-    }
+  if constexpr (OPTS) {
     if constexpr (OPTS >= INST_ESTIMATOR) {
       if (est(op)->fast_loop_rng) {
         return cloud_call_f(key, o, d, t0, t1, ew, s.clouds, p.clouds_h, p.clouds_w,
@@ -808,70 +804,26 @@ struct Flight {
   float t_int, earth;
 };
 
-// naive_tracking's steps 1-3 (options instances; pathtracer.py:1582-1591,
+// naive_tracking's steps 1-3 (knob instances; pathtracer.py:1582-1591,
 // 1263-1288): every live lane marches first (the plain march), then the
 // gases are tracked over the whole span to the hit at their global
 // majorant (models/volume.max_extinction_rmo, summed left to right), the
 // cloud where no gas event lies before the slab, and the nearer event wins;
-// no march after the flight, no demotion. Every thread of the warp calls
-// it, as flight_lane.
-template <bool COUNT, int OPTS>
-__device__ __forceinline__ Flight naive_flight_lane(const BounceState& s, const BounceParams& p,
-                                                    const BounceOptions* op, int bounce, bool act,
-                                                    V3 pos, V3 dir, float wl0, Key kb, int* trips,
-                                                    long long* cyc) {
-  long long c0 = tick<COUNT>();
-  const float earth = march<COUNT, OPTS>(s.topo, march_params(p), op, pos, dir, act,
-                                         __int_as_float(0x7f800000), trips, SITE_PRE_MARCH);
-  tock<COUNT>(cyc, SITE_PRE_MARCH, c0);
-  Flight f{0, 0, 0.0f, earth};
-  if (!act) return f;
-  const float e0 = spectra_extinction_rayleigh(wl0);
-  const float e1 = spectra_extinction_mie(wl0);
-  const float e2 = spectra_extinction_ozone(wl0, s.o3);
-  const Key k_flight = fold(kb, 1u);
-  float a_near, a_far, t_start, t_max;
-  rsi(pos, dir, ATMOS_UPPER_F, a_near, a_far);
-  rmo_span(a_near, a_far, earth, t_start, t_max);
-  c0 = tick<COUNT>();
-  const NaiveEvent g = naive_delta_call<NAIVE_RMO>(
-      fold(k_flight, 1u), pos, dir, t_start, t_max, e0, e1, e2,
-      (e0 * p.max_dens[0] + e1 * p.max_dens[1]) + e2 * p.max_dens[2], nullptr, 0, 0, false,
-      p.tracking_steps, COUNT ? trips + SITE_RMO : nullptr);
-  tock<COUNT>(cyc, SITE_RMO, c0);
-  f.event = g.event;
-  f.t_int = g.t;
-  f.iid = g.iid;
-  if (!op->enable_clouds) return f;
-  float c_start, c_max;
-  cloud_limits(pos, dir, earth, c_start, c_max);
-  if (g.event == 0 || g.t > c_start) {
-    c0 = tick<COUNT>();
-    const CloudOut c = cloud<COUNT, OPTS>(fold(k_flight, 2u), pos, dir, c_start, c_max,
-                                          cloud_ext_w(bounce), s, p, false, trips, SITE_CLOUD, op);
-    tock<COUNT>(cyc, SITE_CLOUD, c0);
-    if (c.event > 0 && (c.t < g.t || g.event == 0)) {
-      f.event = c.event;
-      f.t_int = c.t;
-      f.iid = 3;
-    }
-  }
-  return f;
-}
-
-// naive_flight_lane in the options instances, its trackers warp-cooperative
-// (naive_delta_warp_call, naive_cloud_warp): the same flight, with every
-// thread of the warp taking part in each tracker, act (for the cloud, and no
-// gas event before the slab) where its lane tracks. A thread with no lane
-// holds lane 0's ray (the entries) and keeps the outcome (0, 0, 0, earth).
+// no march after the flight, no demotion. The trackers are warp-cooperative
+// (naive_delta_warp_call, naive_cloud_warp): every thread of the warp calls
+// it, as flight_lane, and takes part in each tracker, act (for the cloud,
+// and no gas event before the slab) where its lane tracks. A thread with no
+// lane holds lane 0's ray (the entries) and keeps the outcome (0, 0, 0,
+// earth).
 template <bool COUNT, int OPTS>
 __device__ __forceinline__ Flight naive_flight_warp(const BounceState& s, const BounceParams& p,
                                                     const BounceOptions* op, int bounce, bool act,
                                                     V3 pos, V3 dir, float wl0, Key kb, int* trips,
                                                     long long* cyc) {
   long long c0 = tick<COUNT>();
-  const float earth = march<COUNT, OPTS>(s.topo, march_params(p), op, pos, dir, act,
-                                         __int_as_float(0x7f800000), trips, SITE_PRE_MARCH);
+  const float earth = march<COUNT, OPTS, false>(s.topo, march_params(p), op, pos, dir, act,
+                                                __int_as_float(0x7f800000), trips,
+                                                SITE_PRE_MARCH);
   tock<COUNT>(cyc, SITE_PRE_MARCH, c0);
   Flight f{0, 0, 0.0f, earth};
   const float e0 = spectra_extinction_rayleigh(wl0);
@@ -916,9 +868,9 @@ __device__ __forceinline__ Flight naive_flight_warp(const BounceState& s, const 
 // runs no tracker). OPTS: the options ``op`` (the header's comment); march
 // first (lazy_march false) is the march on demand with every live lane
 // marching at the first site, the flight capped at that hit, and no march
-// after it nor demotion; naive_tracking its own flight (naive_flight_lane,
-// in the options instances naive_flight_warp); the options instances'
-// naive cloud pass runs before the lane's branch (naive_cloud_warp_on).
+// after it nor demotion; naive_tracking its own flight (naive_flight_warp);
+// the knob instances' naive cloud pass runs before the lane's branch
+// (naive_cloud_warp_on).
 template <bool COUNT, int OPTS>
 __device__ __forceinline__ Flight flight_lane(const BounceState& s, const BounceParams& p,
                                               const BounceOptions* op, int bounce, bool act,
@@ -926,13 +878,8 @@ __device__ __forceinline__ Flight flight_lane(const BounceState& s, const Bounce
                                               long long* cyc) {
   if constexpr (OPTS) {
     if (op->naive_tracking) {
-      if constexpr (OPTS == INST_OPTIONS) {
-        return naive_flight_warp<COUNT, OPTS>(s, p, op, bounce, act, pos, dir, wl0, kb, trips,
-                                              cyc);
-      } else {
-        return naive_flight_lane<COUNT, OPTS>(s, p, op, bounce, act, pos, dir, wl0, kb, trips,
-                                              cyc);
-      }
+      return naive_flight_warp<COUNT, OPTS>(s, p, op, bounce, act, pos, dir, wl0, kb, trips,
+                                            cyc);
     }
   }
   const float inf = __int_as_float(0x7f800000);
@@ -954,18 +901,17 @@ __device__ __forceinline__ Flight flight_lane(const BounceState& s, const Bounce
   const float cap_proxy = base_near > 0.0f ? base_near : -1.0f;
   const bool below = r_len < CLOUDS_LOWER_F;
   long long c0 = tick<COUNT>();
-  const float earth_pre = march<COUNT, OPTS>(s.topo, mp, op, pos, dir, act && (first || below),
-                                             inf, trips, SITE_PRE_MARCH);
+  const float earth_pre = march<COUNT, OPTS, false>(s.topo, mp, op, pos, dir,
+                                                    act && (first || below), inf, trips,
+                                                    SITE_PRE_MARCH);
   tock<COUNT>(cyc, SITE_PRE_MARCH, c0);
   const float land_proxy = (first || below) ? earth_pre : cap_proxy;
 
   // 3. the flight: clouds, then the gases capped at the cloud event
   Flight f{0, 0, 0.0f, -1.0f};
   CloudOut cd{0, 0.0f, 1.0f};
-  // the options instances' naive cloud pass, with every thread of the warp;
-  // the other instances keep their statements as they were (code their warps
-  // never run still moved their SASS, which chip_smoke.py holds to PARENT_SASS)
-  if constexpr (OPTS == INST_OPTIONS) {
+  // the knob instances' naive cloud pass, with every thread of the warp
+  if constexpr (OPTS) {
     if (naive_cloud_warp_on(op)) {  // uniform over the launch
       float c_start, c_max;
       cloud_limits(pos, dir, land_proxy, c_start, c_max);
@@ -987,7 +933,7 @@ __device__ __forceinline__ Flight flight_lane(const BounceState& s, const Bounce
     rmo_span(a_near, a_far, land_proxy, t_start, t_max);
     float c_start, c_max;
     cloud_limits(pos, dir, land_proxy, c_start, c_max);
-    if constexpr (OPTS == INST_OPTIONS) {
+    if constexpr (OPTS) {
       if (op->enable_clouds && !naive_cloud_warp_on(op)) {
         c0 = tick<COUNT>();
         cd = cloud<COUNT, OPTS>(fold(k_flight, 2u), pos, dir, c_start, c_max, ext_w, s, p, false,
@@ -1016,9 +962,9 @@ __device__ __forceinline__ Flight flight_lane(const BounceState& s, const Bounce
   const bool need_march = !first && act && !below &&
                           (f.event == 0 || (f.iid != 3 && f.t_int > fmaxf(d_free, 0.0f)));
   c0 = tick<COUNT>();
-  const float earth_post = march<COUNT, OPTS>(s.topo, mp, op, pos, dir, need_march,
-                                              f.event > 0 ? f.t_int : 1e30f, trips,
-                                              SITE_POST_MARCH);
+  const float earth_post = march<COUNT, OPTS, false>(s.topo, mp, op, pos, dir, need_march,
+                                                     f.event > 0 ? f.t_int : 1e30f, trips,
+                                                     SITE_POST_MARCH);
   tock<COUNT>(cyc, SITE_POST_MARCH, c0);
   f.earth = need_march ? earth_post : earth_pre;
   // demote RMO events beyond the land hit; the cloud event takes over
@@ -1078,8 +1024,8 @@ __device__ __forceinline__ void store_lane(const BounceState& s, int lane, const
 // Every thread of the warp calls it (the shadow march needs the full warp);
 // act false: no lane, and r is left as it was. RATIO: the gases' sun
 // transmittance by ratio tracking, else the closed form. OPTS: the options
-// ``op``.
-template <bool COUNT, int L, bool RATIO, int OPTS>
+// ``op``; BLOCK: the shadow march's (march).
+template <bool COUNT, int L, bool RATIO, int OPTS, bool BLOCK>
 __device__ __forceinline__ void shade_lane(const BounceState& s, const BounceParams& p,
                                            const BounceOptions* op, int bounce, bool act,
                                            LaneRegs<L>& r, Key kb, Flight f, int* trips,
@@ -1158,16 +1104,18 @@ __device__ __forceinline__ void shade_lane(const BounceState& s, const BouncePar
   shadow.any_hit = 1;
   const long long c0 = tick<COUNT>();
   const float shadow_hit =
-      march<COUNT, OPTS>(s.topo, shadow, op, offset_pos, light_dir, surface, inf, trips,
-                         SITE_SHADOW);
+      march<COUNT, OPTS, BLOCK>(s.topo, shadow, op, offset_pos, light_dir, surface, inf, trips,
+                                SITE_SHADOW);
   tock<COUNT>(cyc, SITE_SHADOW, c0);
-  // the options instances' naive cloud pass of the sun's transmittance, with
-  // every thread of the warp before those with no lane leave (step 6 takes
-  // it; the other instances' statements as they were, as in flight_lane)
+  // the knob instances' naive cloud pass of the sun's transmittance, with
+  // every thread of the warp before those with no lane leave, on the lanes
+  // step 6 takes past the estimator instances' NEE gates (nee_gate)
   [[maybe_unused]] float naive_nee = 1.0f;
-  if constexpr (OPTS == INST_OPTIONS) {
+  if constexpr (OPTS) {
     if (naive_cloud_warp_on(op)) {  // uniform over the launch
-      const bool go = vol_nee || (surface && shadow_hit < 0.0f);
+      bool vol_go = vol_nee, sur_go = surface && shadow_hit < 0.0f;
+      nee_gate<OPTS>(op, bounce, kb, vol_go, sur_go);
+      const bool go = vol_go || sur_go;
       const V3 nee_origin = surface ? offset_pos : int_pos;
       float n_start, n_max;
       cloud_limits(nee_origin, light_dir, -1.0f, n_start, n_max);
@@ -1227,7 +1175,7 @@ __device__ __forceinline__ void shade_lane(const BounceState& s, const BouncePar
     } else {
       rmo_transmittance_to_space<L>(s.table, ext, nee_origin, light_dir, trans);
     }
-    if constexpr (OPTS == INST_OPTIONS) {
+    if constexpr (OPTS) {
       if (naive_cloud_warp_on(op)) {
 #pragma unroll
         for (int l = 0; l < L; ++l) trans[l] = trans[l] * naive_nee;
@@ -1360,13 +1308,17 @@ __global__ void __launch_bounds__(BOUNCE_BLOCK, FLIGHT_MIN_BLOCKS)
 }
 
 // Steps 4-7 of one bounce from bounce_flight's outcome; COUNT: the census
-// instance (sites 4-6); OPTS: the options instance.
-template <int L, bool COUNT, bool RATIO, int OPTS>
+// instance (sites 4-6); OPTS: the options instance. BLOCK (a knob instance
+// under naive_block_on; naive_march_smem<BOUNCE_BLOCK>() bytes of dynamic
+// shared memory): the naive shadow march block-cooperative, every thread of
+// the block staying to it, a block wholly past the list returning at once.
+template <int L, bool COUNT, bool RATIO, int OPTS, bool BLOCK = false>
 __global__ void __launch_bounds__(BOUNCE_BLOCK)
     bounce_shade_kernel(BounceState s, EntryParams<OPTS> p, const float4* __restrict__ in) {
+  static_assert(!BLOCK || OPTS != INST_DEFAULT, "the default instances run no naive march");
   const long long c_all = tick<COUNT>();
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (warp_past_list(s, t)) return;
+  if (BLOCK ? block_past_list(s, t) : warp_past_list(s, t)) return;
   const int lane = list_lane(s, t);
   const bool act = lane >= 0;
   const int l = act ? lane : 0;  // a thread with no lane reads lane 0 and writes nothing
@@ -1379,8 +1331,8 @@ __global__ void __launch_bounds__(BOUNCE_BLOCK)
   r.dir = load3(s.dir, l);
   r.miss0 = false;
   load_spectral(s, l, r);
-  shade_lane<COUNT, L, RATIO, OPTS>(s, p, entry_options<OPTS>(p), p.bounce, act, r,
-                                    bounce_key<L>(s, l, p.bounce), f, trips, cyc);
+  shade_lane<COUNT, L, RATIO, OPTS, BLOCK>(s, p, entry_options<OPTS>(p), p.bounce, act, r,
+                                           bounce_key<L>(s, l, p.bounce), f, trips, cyc);
   if (act) store_lane(s, lane, r, r.alive);
   tock<COUNT>(cyc, CYC_SHADE, c_all);
 }
@@ -1408,8 +1360,8 @@ __global__ void __launch_bounds__(WINDOW_BLOCK)
     const bool act = r.alive;
     const Flight f = flight_lane<false, OPTS>(s, p, entry_options<OPTS>(p), b, act, r.pos, r.dir,
                                               r.wl[0], kb, nullptr, nullptr);
-    shade_lane<false, L, RATIO, OPTS>(s, p, entry_options<OPTS>(p), b, act, r, kb, f, nullptr,
-                                      nullptr);
+    shade_lane<false, L, RATIO, OPTS, false>(s, p, entry_options<OPTS>(p), b, act, r, kb, f,
+                                             nullptr, nullptr);
     wc_set = wc_set || r.alive;
   }
   if (lane >= 0) store_lane(s, lane, r, wc_set);
@@ -1449,6 +1401,19 @@ int launch_entry(int entry, const BounceState& s, const BounceParams& bp,
     }
   } else if (entry == ENTRY_SHADE) {
     const float4* in = static_cast<const float4*>(scratch);
+    if constexpr (OPTS != INST_DEFAULT) {
+      if (naive_block_on(o)) {  // the naive shadow march block-cooperative
+        const size_t smem = naive_march_smem<BOUNCE_BLOCK>();
+        if (s.trips) {
+          bounce_shade_kernel<L, true, RATIO, OPTS, true>
+              <<<grid_of(s.m, BOUNCE_BLOCK), BOUNCE_BLOCK, smem, stream>>>(s, p, in);
+        } else {
+          bounce_shade_kernel<L, false, RATIO, OPTS, true>
+              <<<grid_of(s.m, BOUNCE_BLOCK), BOUNCE_BLOCK, smem, stream>>>(s, p, in);
+        }
+        return (int)cudaGetLastError();
+      }
+    }
     if (s.trips) {
       bounce_shade_kernel<L, true, RATIO, OPTS>
           <<<grid_of(s.m, BOUNCE_BLOCK), BOUNCE_BLOCK, 0, stream>>>(s, p, in);

@@ -1,26 +1,31 @@
 // The reference-faithful naive arm as device functions: the body of the
 // naive_march and naive_track launchers (naive_march.cu, naive_track.cu) and
-// of the bounce entries' knob instances under TraceConfig.naive_tracking,
-// naive_march, naive_cloud_tracking and naive_shadow (bounce.cuh). The march
-// and the loops below run one thread a lane, the reference renderer's own
-// loop; the trackers also run as warp-cooperative steps (naive_track_warp,
-// at the end), which the launcher and the options instances take.
+// of the bounce entries' knob instances (options, estimator, floors) under
+// TraceConfig.naive_tracking, naive_march, naive_cloud_tracking and
+// naive_shadow (bounce.cuh). The march runs block-cooperatively
+// (naive_march_block: a block's lanes still marching packed onto its first
+// threads between rounds of steps) in the launcher and at the shadow march
+// under naive_march and naive_shadow (bounce_shade's BLOCK instances), one
+// thread a lane (naive_march_lane) at bounce_flight's marches, at the shadow
+// march under naive_tracking and in bounce_window; the trackers run as
+// warp-cooperative steps (naive_track_warp, at the end) everywhere.
 //
 // Replaces the TPU loops of digital_earth_tpu/render/tracking_naive.py:
-//   - naive_march_lane   <- :31 intersect_land_naive: an RSI warm start on
-//     the atmosphere shell, then up to land_march_steps steps of the signed
-//     SDF (length - R - scale h, one tap of the topography's channel 0),
-//     stopping at |dist| < 1e-4 of the distance or past ten planet radii; a
-//     hit if the distance ends under that cap. No cap, any-hit mode, mips,
-//     floor, ocean root, stall patience or phantom crawl;
-//   - naive_delta_lane   <- :72 delta_track_naive: a step at the global
+//   - naive_march_lane / naive_march_block <- :31 intersect_land_naive: an
+//     RSI warm start on the atmosphere shell, then up to land_march_steps
+//     steps of the signed SDF (length - R - scale h, one tap of the
+//     topography's channel 0), stopping at |dist| < 1e-4 of the distance or
+//     past ten planet radii; a hit if the distance ends under that cap. No
+//     cap, any-hit mode, mips, floor, ocean root, stall patience or phantom
+//     crawl;
+//   - naive_track_warp <- :72 delta_track_naive: a step at the global
 //     majorant from the draws uniform(fold(key, i), (3,)), the species'
 //     densities at the step (the gases' analytic profile, or the cloud map's
 //     channel 0 and the split shape), the event by u1 < total / majorant, the
 //     gas by the cumulative terms at r = u1 * majorant and scatter vs absorb
 //     by the albedo table;
-//   - naive_ratio_lane   <- :126 ratio_track_naive for the cloud: one draw
-//     a step, the transmittance times 1 - total / majorant, a stop past t_max
+//   - naive_track_warp <- :126 ratio_track_naive for the cloud: one draw a
+//     step, the transmittance times 1 - total / majorant, a stop past t_max
 //     or below 1e-5. For the gases the same loop is rmo_track.cuh's
 //     rmo_ratio_lane at one wavelength and one probe an iteration (the same
 //     draw, step, density sum and stops, bit for bit), which the launcher
@@ -30,15 +35,19 @@
 // from threefry.cuh bit for bit and taps from texture.cuh (sphere_tap, the
 // twin's sample_sphere_texture). A draw the step does not read is not made.
 //
-// What bounds them on the H100: latency and divergence. A step is a few
-// dozen operations, one threefry block per draw and, for the march and the
-// cloud species, one dependent texture read; a lane's steps are a dependent
-// chain of up to max_tracking_steps (land_march_steps for the march), the
-// cloud's at the global majorant (345 m a step at bounce 0-9), and a warp
-// runs at its longest lane: one thread a lane, the launchers kept 0.36-0.37
-// of a warp's step slots busy, its tails 40-65 times a lane's mean steps
-// (PERF.md). naive_track_warp gives a warp's idle threads the steps of its
-// lanes still tracking.
+// What bounds them on the H100: issue slots lost to divergence and latency.
+// A march step is one nearest tap (its length, three IEEE divisions, atan2f,
+// asinf and one dependent 4-byte read) and the SDF; a tracker step one
+// threefry block per draw and, for the cloud, one tap. A lane's steps are a
+// dependent chain of up to land_march_steps (max_tracking_steps for the
+// trackers), and a warp runs at its longest lane: one thread a lane, the
+// launchers kept 0.36-0.70 of a warp's step slots busy (PERF.md).
+// naive_track_warp gives a warp's idle threads the steps of its lanes still
+// tracking (a tracker's draws come from its step index alone); a march step
+// depends on the last, so naive_march_block moves a block's lanes still
+// marching onto as few warps as hold them between rounds of steps, and the
+// warps left empty wait at the block's barrier and give their issue slots to
+// the SM's other warps.
 #pragma once
 #include <cstdint>
 
@@ -51,28 +60,165 @@ namespace de {
 
 enum { NAIVE_RMO = 0, NAIVE_CLOUD = 1 };
 
-// The plain march's hit distance (-1 on a miss or for an inactive lane);
-// ``iters``, if set, gets the lane's steps.
+// The plain march's warm start: the atmosphere shell's near root, or 0.
+__device__ __forceinline__ float naive_march_start(V3 o, V3 d) {
+  float a_near, a_far;
+  rsi(o, d, ATMOS_UPPER_F, a_near, a_far);
+  return a_near > 0.0f ? a_near : 0.0f;
+}
+
+// One step of the plain march from t: the new distance; ``done`` where it
+// stops there (past ten planet radii, or |dist| < 1e-4 of it).
+__device__ __forceinline__ float naive_march_step(const uint8_t* __restrict__ topo, int H, int W,
+                                                  float scale, bool bilinear, V3 o, V3 d, float t,
+                                                  bool& done) {
+  const V3 ro = along(o, t, d);
+  float s[4];
+  sphere_tap<4>(topo, H, W, ro, bilinear, s);
+  const float dist = (length(ro) - PLANET_R_F) - scale * s[0];
+  const float t_new = t + dist;
+  done = (t_new > MAX_RAY_DIST_F) || (fabsf(dist) < t_new * 1e-4f);
+  return t_new;
+}
+
+// The plain march's hit distance (-1 on a miss or for an inactive lane),
+// one thread a lane; ``iters``, if set, gets the lane's steps.
 __device__ __forceinline__ float naive_march_lane(const uint8_t* __restrict__ topo, int H, int W,
                                                   float scale, int steps, bool bilinear, V3 o,
                                                   V3 d, bool active, int* iters = nullptr) {
-  float a_near, a_far;
-  rsi(o, d, ATMOS_UPPER_F, a_near, a_far);
-  float t = a_near > 0.0f ? a_near : 0.0f;
+  float t = naive_march_start(o, d);
   bool done = !active;
   int it = 0;
   for (int i = 0; i < steps && !done; ++i) {
     ++it;
-    const V3 ro = along(o, t, d);
-    float s[4];
-    sphere_tap<4>(topo, H, W, ro, bilinear, s);
-    const float dist = (length(ro) - PLANET_R_F) - scale * s[0];
-    const float t_new = t + dist;
-    done = (t_new > MAX_RAY_DIST_F) || (fabsf(dist) < t_new * 1e-4f);
-    t = t_new;
+    t = naive_march_step(topo, H, W, scale, bilinear, o, d, t, done);
   }
   if (iters) *iters = it;
   return active && t < MAX_RAY_DIST_F ? t : -1.0f;
+}
+
+// Steps a lane takes in a round of naive_march_block while more lanes march
+// than a warp holds.
+constexpr int NAIVE_MARCH_ROUND = 8;
+
+// The dynamic shared memory naive_march_block<NT> takes: the packed lanes'
+// rays, distances, steps and owners, each thread's outcome and each warp's
+// count.
+template <int NT>
+constexpr int naive_march_smem() {
+  return (11 * NT + NT / 32) * 4;
+}
+
+// A barrier of ``count`` threads (a multiple of 32) on named barrier ``id``,
+// which the threads of a warp may reach diverged.
+__device__ __forceinline__ void naive_bar(int id, int count) {
+  asm volatile("barrier.sync %0, %1;" ::"r"(id), "r"(count) : "memory");
+}
+
+// naive_march_lane's outputs, lane by lane, with the block's NT threads
+// (blockDim.x == NT, naive_march_smem<NT>() bytes of dynamic shared memory)
+// each bringing its lane: every thread of the block must call it, ``active``
+// set where its lane marches. A warp with no marching lane leaves at once;
+// the others go on together (a named barrier of theirs). Each round, where
+// that leaves one of theirs empty, they pack their lanes still marching, in
+// thread order, onto their first threads through shared memory (ray,
+// distance, steps and owning thread); then each takes up to
+// NAIVE_MARCH_ROUND steps, or every step left once they fit in one warp. A
+// lane that stops leaves its distance and steps in its owner's slot; warps
+// that hold no lane wait at the barrier and give their issue slots to the
+// SM's other warps. A lane's chain is naive_march_step's, step by step, so
+// the distance and the steps are the loop's bit for bit.
+template <int NT>
+__device__ __forceinline__ float naive_march_block(const uint8_t* __restrict__ topo, int H, int W,
+                                                   float scale, int steps, bool bilinear, V3 o,
+                                                   V3 d, bool active, int* iters = nullptr) {
+  static_assert(NT % 32 == 0 && NT <= 1024, "a block of whole warps");
+  constexpr int NW = NT / 32;
+  extern __shared__ __align__(16) unsigned char naive_march_shared[];
+  float* q_ray = reinterpret_cast<float*>(naive_march_shared);  // [7][NT]: o, d, t
+  int* q_it = reinterpret_cast<int*>(q_ray + 7 * NT);
+  int* q_owner = q_it + NT;
+  float* r_t = reinterpret_cast<float*>(q_owner + NT);  // each thread's lane's outcome
+  int* r_it = reinterpret_cast<int*>(r_t + NT);
+  int* w_live = r_it + NT;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  float t = naive_march_start(o, d);
+  bool live = active && steps > 0;
+  {
+    const unsigned m = __ballot_sync(0xffffffffu, live);
+    if (lane == 0) w_live[warp] = __popc(m);
+  }
+  __syncthreads();
+  unsigned part = 0;  // the warps that take part: those with a marching lane
+#pragma unroll
+  for (int w = 0; w < NW; ++w) part |= (w_live[w] > 0 ? 1u : 0u) << w;
+  if (!((part >> warp) & 1u)) {  // no marching lane: no step, the start kept
+    if (iters) *iters = 0;
+    return active && t < MAX_RAY_DIST_F ? t : -1.0f;
+  }
+  const int count = 32 * __popc(part);
+  const int rank = __popc(part & ((1u << warp) - 1u));  // the warp's place among them
+  r_t[tid] = t;  // a lane that takes no step keeps its start
+  r_it[tid] = 0;
+  int it = 0, owner = tid;
+  for (bool first = true;; first = false) {
+    const unsigned m = __ballot_sync(0xffffffffu, live);
+    if (lane == 0 && !first) w_live[warp] = __popc(m);  // the first round's are posted
+    naive_bar(1, count);
+    int n = 0, busy = 0, slot = 0;
+#pragma unroll
+    for (int w = 0; w < NW; ++w) {
+      if ((part >> w) & 1u) {
+        const int c = w_live[w];
+        slot += w < warp ? c : 0;
+        n += c;
+        busy += c > 0;
+      }
+    }
+    if (n == 0) break;  // uniform over the warps taking part
+    if ((n + 31) / 32 < busy) {  // packing empties a warp
+      if (live) {
+        slot += __popc(m & ((1u << lane) - 1u));
+        q_ray[slot] = o.x;
+        q_ray[NT + slot] = o.y;
+        q_ray[2 * NT + slot] = o.z;
+        q_ray[3 * NT + slot] = d.x;
+        q_ray[4 * NT + slot] = d.y;
+        q_ray[5 * NT + slot] = d.z;
+        q_ray[6 * NT + slot] = t;
+        q_it[slot] = it;
+        q_owner[slot] = owner;
+      }
+      naive_bar(1, count);
+      const int at = 32 * rank + lane;  // slots in the order of the warps taking part
+      live = at < n;
+      if (live) {
+        o = V3{q_ray[at], q_ray[NT + at], q_ray[2 * NT + at]};
+        d = V3{q_ray[3 * NT + at], q_ray[4 * NT + at], q_ray[5 * NT + at]};
+        t = q_ray[6 * NT + at];
+        it = q_it[at];
+        owner = q_owner[at];
+      }
+    }
+    naive_bar(1, count);  // every count and packed lane read before the next round's
+    if (live) {
+      const int budget = n > 32 ? min(steps, it + NAIVE_MARCH_ROUND) : steps;
+      bool done = false;
+      while (it < budget && !done) {
+        ++it;
+        t = naive_march_step(topo, H, W, scale, bilinear, o, d, t, done);
+      }
+      if (done || it >= steps) {
+        r_t[owner] = t;
+        r_it[owner] = it;
+        live = false;
+      }
+    }
+  }
+  naive_bar(1, count);  // every outcome written
+  if (iters) *iters = r_it[tid];
+  const float t_own = r_t[tid];
+  return active && t_own < MAX_RAY_DIST_F ? t_own : -1.0f;
 }
 
 // The split-shape slab density (render/tracers.cloud_shape_density) as the
@@ -107,84 +253,11 @@ __device__ __forceinline__ float naive_total(V3 p, float e0, float e1, float e2,
   }
 }
 
-// (event, t, iid) of one-step Woodcock tracking over [t_start, tm] at the
-// global majorant max_ext; an invalid lane keeps (0, t_start, 0). The
-// extinctions: the gases' three (SPECIES NAIVE_RMO), or the cloud's in e0.
-template <int SPECIES>
-__device__ __forceinline__ void naive_delta_lane(Key key, V3 o, V3 d, float t_start, float tm,
-                                                 float e0, float e1, float e2, float max_ext,
-                                                 bool active, const uint8_t* __restrict__ clouds,
-                                                 int H, int W, bool bilinear, int max_steps,
-                                                 int& event_out, float& t_out, int& iid_out,
-                                                 int* iters = nullptr) {
-  const float albedo[4] = {1.0f, 0.95f, 0.0f, 0.99f};  // constants.SCATTERING_ALBEDOS
-  const bool valid = active && (tm >= 0.0f) && (t_start < tm);
-  const float inv_max = 1.0f / max_ext;
-  const float tms = fmaxf(tm, 0.0f);
-  float t = t_start;
-  int event = 0, iid = 0, it = 0;
-  bool done = !valid;
-  for (int i = 0; i < max_steps && !done; ++i) {
-    ++it;
-    const Key ki = fold(key, (uint32_t)i);
-    t = t - logf(fmaxf(uniform(ki, 0u), 1e-12f)) * inv_max;
-    if (t >= tm) break;  // over: no event
-    float c[3];
-    const float total = naive_total<SPECIES>(along(o, fminf(t, tms), d), e0, e1, e2, clouds, H,
-                                              W, bilinear, c);
-    const float u1 = uniform(ki, 1u);
-    if (u1 < total * inv_max) {
-      int id = 3;
-      if constexpr (SPECIES == NAIVE_RMO) {
-        const float r = u1 * max_ext;
-        const float c01 = c[0] + c[1];
-        id = r < c[0] ? 0 : (r < c01 ? 1 : 2);
-      }
-      event = uniform(ki, 2u) < albedo[id] ? 2 : 1;
-      iid = id;
-      done = true;
-    }
-  }
-  if (iters) *iters = it;
-  event_out = event;
-  t_out = t;
-  iid_out = iid;
-}
-
-// The cloud's transmittance over [t_start, tm] by one-step ratio tracking at
-// the global majorant max_ext, ew the cloud's extinction; an invalid lane
-// keeps 1.
-__device__ __forceinline__ float naive_ratio_lane(Key key, V3 o, V3 d, float t_start, float tm,
-                                                  float ew, float max_ext, bool active,
-                                                  const uint8_t* __restrict__ clouds, int H,
-                                                  int W, bool bilinear, int max_steps,
-                                                  int* iters = nullptr) {
-  const bool valid = active && (tm >= 0.0f) && (t_start < tm);
-  const float inv_max = 1.0f / max_ext;
-  const float tms = fmaxf(tm, 0.0f);
-  float t = t_start, trans = 1.0f;
-  int it = 0;
-  bool done = !valid;
-  for (int i = 0; i < max_steps && !done; ++i) {
-    ++it;
-    const float t_new = t - logf(fmaxf(uniform(fold(key, (uint32_t)i), 0u), 1e-12f)) * inv_max;
-    if (t_new >= tm) break;  // over: the transmittance stays
-    float c[3];
-    const float total = naive_total<NAIVE_CLOUD>(along(o, fminf(t_new, tms), d), ew, 0.0f, 0.0f,
-                                                  clouds, H, W, bilinear, c);
-    trans = trans * (1.0f - total * inv_max);
-    done = trans < 1e-5f;
-    t = t_new;
-  }
-  if (iters) *iters = it;
-  return trans;
-}
-
 // ---------------------------------------------------------------------------
 // The trackers as warp-cooperative steps: naive_track_warp, delta tracking of
-// either species (naive_delta_lane's outputs) and the cloud's ratio tracking
-// (naive_ratio_lane's), bit for bit, each lane's steps counted as the loop
-// counts them.
+// either species and the cloud's ratio tracking, the outputs of the
+// reference's one-step loops (tracking_naive.py:72, :126) bit for bit, each
+// lane's steps counted as the loop counts them.
 //
 // Step i's draws come from fold(key, i) alone, not from the lane's state. So
 // T threads can draw a lane's next T steps, and read their densities, at
@@ -252,11 +325,12 @@ __device__ __forceinline__ float naive_total_skip(V3 p, float e0, float e1, floa
   }
 }
 
-// Delta tracking (RATIO false: event, t, iid of naive_delta_lane<SPECIES>)
-// or the cloud's ratio tracking (RATIO: trans of naive_ratio_lane) over
-// [t_start, tm] at the global majorant max_ext, as warp-cooperative steps;
-// the arguments as those loops take them. With ``iters`` the lane's steps
-// are written there.
+// Delta tracking (RATIO false: event, t, iid; an invalid lane keeps (0,
+// t_start, 0)) or the cloud's ratio tracking (RATIO: the transmittance; an
+// invalid lane keeps 1) over [t_start, tm] at the global majorant max_ext,
+// as warp-cooperative steps. The extinctions: the gases' three (SPECIES
+// NAIVE_RMO), or the cloud's in e0. With ``iters`` the lane's steps are
+// written there.
 template <int SPECIES, bool RATIO>
 __device__ __forceinline__ NaiveTrack naive_track_warp(Key key, V3 o, V3 d, float t_start,
                                                        float tm, float e0, float e1, float e2,

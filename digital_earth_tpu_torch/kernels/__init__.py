@@ -92,6 +92,8 @@ ptxas_log = {}
 # and ptxas's report per source of the last build (by path under csrc/)
 _width_libs = {}
 width_ptxas_log = {}
+# the measurement library (bench_library), loaded
+_bench_lib = None
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _BOUNCE_ARGS = [_P] * 15 + [_I, _I] + [_P] * 6
@@ -185,6 +187,13 @@ _SIGNATURES = {
     # float params, int params, color buffer, count, response table, out, stream
     "de_film_postprocess": [_P] * 7,
 }
+# the C entries of the measurement library (csrc/bench/): kernels that no
+# render path launches
+_BENCH_SIGNATURES = {
+    # topo, H, W, pos, dir, active, out, iters, cycles, n, scale, steps,
+    # bilinear, stream
+    "de_naive_march_loop": [_P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _F, _I, _I, _P],
+}
 
 
 def nvcc_path() -> str:
@@ -205,6 +214,7 @@ BOUNCE_WIDTHS = (1, 4)
 # MAX_LAMBDAS); a wider packet's frame_end runs from its width library
 FRAME_END_MAX_LAMBDAS = 8
 WIDTH_DIR = os.path.join(CSRC, "width")
+BENCH_DIR = os.path.join(CSRC, "bench")
 # the C entries of a width library: those of the sources of csrc/ it builds
 # with -DDE_WIDTH=L (WIDTH_ENTRIES, and frame_end.cu past
 # FRAME_END_MAX_LAMBDAS), the bounce entries' default and floor instances in
@@ -214,8 +224,12 @@ WIDTH_ENTRIES = {"bounce.cu": ("de_bounce_flight", "de_bounce_shade", "de_bounce
                  "gen_rays.cu": ("de_gen_rays",), "rmo_ratio_track.cu": ("de_rmo_ratio_track",)}
 
 
+def _dir_sources(path):
+    return sorted(os.path.join(path, f) for f in os.listdir(path) if f.endswith(".cu"))
+
+
 def _width_dir_sources():
-    return sorted(os.path.join(WIDTH_DIR, f) for f in os.listdir(WIDTH_DIR) if f.endswith(".cu"))
+    return _dir_sources(WIDTH_DIR)
 
 
 def _width_sources(L: int):
@@ -231,11 +245,13 @@ def library():
         return _lib if _lib is not None else _build()
 
 
-def _library_dir(extra: str = ""):
-    """build/kernels/<hash of every source of csrc/ (the width sources too
-    when ``extra``, the width's define, is given), the flags and ``extra``>."""
+def _library_dir(extra: str = "", more=None):
+    """build/kernels/<hash of every source of csrc/ and of ``more`` (by
+    default the width sources when ``extra``, the width's define, is given),
+    the flags and ``extra``>."""
     digest = hashlib.sha256()
-    for path in _sources() + (_width_dir_sources() if extra else []):
+    more = (_width_dir_sources() if extra else []) if more is None else more
+    for path in _sources() + more:
         with open(path, "rb") as f:
             digest.update(f.read())
     digest.update(" ".join(NVCC_FLAGS).encode())
@@ -280,11 +296,11 @@ def _nvcc(builds):
             os.remove(obj)
 
 
-def _load(so, names):
+def _load(so, names, signatures=_SIGNATURES):
     lib = ctypes.CDLL(so)
     for name in names:
         fn = getattr(lib, name)
-        fn.argtypes = _SIGNATURES[name]
+        fn.argtypes = signatures[name]
         fn.restype = ctypes.c_int
     return lib
 
@@ -325,6 +341,21 @@ def build_width_libraries(widths):
             _width_libs[L] = _load(sos[L], _width_names(L))
 
 
+def bench_library():
+    """The measurement library: the kernels of csrc/bench/, which no render
+    path launches (chip_smoke.py times and disassembles them), built at its
+    first use (by one thread) under a hash of its own."""
+    global _bench_lib
+    with _lock:
+        if _bench_lib is None:
+            srcs = _dir_sources(BENCH_DIR)
+            so = os.path.join(_library_dir("bench", srcs), "libde_bench.so")
+            if not os.path.exists(so):
+                _nvcc([(so, srcs, [], {})])
+            _bench_lib = _load(so, _BENCH_SIGNATURES, _BENCH_SIGNATURES)
+        return _bench_lib
+
+
 def width_library(L: int):
     """The loaded library of packet width ``L`` (outside ``BOUNCE_WIDTHS``),
     built at its first use (by one thread)."""
@@ -362,8 +393,10 @@ def _check_tex4(name, t, device):
 
 def _launch(fn_name, *args, width=None):
     """Call the C entry ``fn_name`` of the library of packet ``width`` (None:
-    the main library) on the current stream; raises on a CUDA error."""
-    rc = getattr(_library_of(width), fn_name)(
+    the main library; the measurement library's entries from it) on the
+    current stream; raises on a CUDA error."""
+    lib = bench_library() if fn_name in _BENCH_SIGNATURES else _library_of(width)
+    rc = getattr(lib, fn_name)(
         *args, ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
     )
     if rc != 0:
@@ -580,7 +613,7 @@ def flight_analytic(keys, pos, direction, t_start, t_max, ext_h, active, table, 
 def naive_march(topo, pos, direction, active, scale: float, *, steps: int,
                 enable: bool = True, bilinear: bool = False, iters: bool = False):
     """Launch ``naive_march`` (csrc/naive_march.cu), the reference's plain
-    sphere march: (n,) hit distance, -1 on a miss (every ray without land,
+    sphere march, block-cooperative: (n,) hit distance, -1 on a miss (every ray without land,
     ``enable`` False); with ``iters``, (the distances, each lane's (n,)
     int32 steps)."""
     dev = pos.device
@@ -597,6 +630,33 @@ def naive_march(topo, pos, direction, active, scale: float, *, steps: int,
                 _ptr(out), _ptr_or_null(it), n, scale, steps, int(enable), int(bilinear))
         _count(naive_march, 1)
     return (out, it) if iters else out
+
+
+def naive_march_loop(topo, pos, direction, active, scale: float, *, steps: int,
+                     bilinear: bool = False, census: bool = False):
+    """Measurement launcher of the plain march (not a path kernel): the
+    one-thread loop, the design ``naive_march``'s block replaced
+    (csrc/bench/naive_march_bench.cu naive_march_loop, in ``bench_library``):
+    (the (n,) hit distances, each lane's (n,) int32 steps); with ``census``
+    (nearest taps only) also each lane's (n, 4) int64 clock64 cycles: the
+    point and its divisions, the angles, the tap's read, the rest."""
+    dev = pos.device
+    n = pos.shape[0]
+    h, w = topo.shape[:2]
+    if census and bilinear:
+        raise ValueError("naive_march_loop: the census takes nearest taps only")
+    _check_tex4("topo", topo, dev)
+    _check("pos", pos, torch.float32, (n, 3), dev)
+    _check("direction", direction, torch.float32, (n, 3), dev)
+    _check("active", active, torch.bool, (n,), dev)
+    out = torch.empty((n,), dtype=torch.float32, device=dev)
+    it = torch.empty((n,), dtype=torch.int32, device=dev)
+    cycles = torch.empty((n, 4), dtype=torch.int64, device=dev) if census else None
+    if n:
+        _launch("de_naive_march_loop", _ptr(topo), h, w, _ptr(pos), _ptr(direction),
+                _ptr(active), _ptr(out), _ptr(it), _ptr_or_null(cycles), n, scale, steps,
+                int(bilinear))
+    return (out, it, cycles) if census else (out, it)
 
 
 NAIVE_SPECIES = ("rmo", "cloud")

@@ -428,6 +428,87 @@ ptxas info    : Used 12 registers, used 0 barriers
                                      "threefry_fold_kernel<2>": [12, 0, 0]}
 
 
+def test_bounce_instances_read_the_block_instances():
+    """chip_smoke.py's names of the bounce instances: bounce_shade's BLOCK
+    instances (its fifth template argument 1) under the name they had as a
+    kernel of their own, bounce_shade_block, which still parses; the
+    default and knob instances by their other flags."""
+    cs = _chip_smoke()
+    args = "EEvNS_11BounceStateENS_11EntryParamsILi1EEEPK6float4"
+    funcs = {
+        "_ZN2de19bounce_shade_kernelILi4ELb0ELb0ELi0ELb0E" + args: ["FADD"] * 3,
+        "_ZN2de19bounce_shade_kernelILi1ELb1ELb0ELi1ELb1E" + args: ["FADD"] * 5,
+        "_ZN2de25bounce_shade_block_kernelILi4ELb0ELb1ELi3E" + args: ["FADD"] * 7,
+        "_ZN2de20bounce_flight_kernelILi4ELb0ELi2EEEvNS_11BounceStateE": ["FADD"] * 2,
+        "_ZN2de20threefry_fold_kernelILi2EEEvPKiijPi": ["FADD"],
+    }
+    got = sorted(cs.bounce_instances(funcs).values())
+    assert got == [("bounce_flight<L=4, 0, 2>", (0, 2), 2),
+                   ("bounce_shade<L=4, 0, 0, 0>", (0, 0, 0), 3),
+                   ("bounce_shade_block<L=1, 1, 0, 1>", (1, 0, 1), 5),
+                   ("bounce_shade_block<L=4, 0, 1, 3>", (0, 1, 3), 7)]
+
+
+def test_bounce_registers_reads_the_five_argument_default():
+    """The timed default bounce_shade has five template arguments (L,
+    COUNT, RATIO, OPTS, BLOCK): its spills are read, a knob or BLOCK
+    instance's are not."""
+    import types
+
+    cs = _chip_smoke()
+    lines = []
+    for kernel, flags, spill in (("19bounce_shade", "ILi4ELb0ELb0ELi0ELb0E", 4),
+                                 ("19bounce_shade", "ILi4ELb0ELb0ELi1ELb1E", 96),
+                                 ("20bounce_flight", "ILi4ELb0ELi0E", 8)):
+        name = f"_ZN2de{kernel}_kernel{flags}EEvNS_11BounceStateE"
+        lines += [f"ptxas info    : Compiling entry function '{name}' for 'sm_90a'",
+                  f"ptxas info    : Function properties for {name}",
+                  f"    0 bytes stack frame, {spill} bytes spill stores, {spill} bytes spill loads",
+                  "ptxas info    : Used 64 registers, used 0 barriers"]
+    name = "_ZN2de20bounce_window_kernelILi4ELb0ELi0EEEvNS_11BounceStateE"
+    lines += [f"ptxas info    : Compiling entry function '{name}' for 'sm_90a'",
+              f"ptxas info    : Function properties for {name}",
+              "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+              "ptxas info    : Used 64 registers, used 0 barriers"]
+    occ = dict(registers=64, local_bytes=0, warps_per_sm=32)
+    kern = types.SimpleNamespace(ptxas_log={"bounce.cu": "\n".join(lines)},
+                                 OCCUPANCY_ENTRIES=("bounce_flight", "bounce_shade",
+                                                    "bounce_window"),
+                                 bounce_occupancy=lambda name: occ)
+    got = cs.bounce_registers(kern)
+    assert {n: (r["spill_stores"], r["spill_loads"]) for n, r in got.items()} == {
+        "bounce_flight": (8, 8), "bounce_shade": (4, 4), "bounce_window": (0, 0)}
+
+
+def test_naive_step_sass_counts_one_step(monkeypatch):
+    """The row-17 bound's step: naive_steps_kernel<2>'s body less <1>'s in
+    the measurement library, so the lane's loads, stores and index, paid
+    once a lane, drop out; the slow paths after EXIT are left out; a build
+    without the pair fails."""
+    import types
+
+    cs = _chip_smoke()
+    frame = ["S2R", "ISETP.GE.AND", "LDG.E", "LDG.E", "IMAD.WIDE"]
+    step = ["FMUL", "MUFU.RCP", "FFMA", "MUFU.RSQ", "LDG.E.CONSTANT", "FADD", "FSETP.GT.AND"]
+    tail = ["STG.E", "EXIT", "CALL.REL.NOINC", "EXIT", "MUFU.RCP", "RET.REL.NODEC", "BRA"]
+    funcs = {"_ZN2de18naive_steps_kernelILi1EEEvPKhiiPKfS3_S3_PfPhif": frame + step + tail,
+             "_ZN2de18naive_steps_kernelILi2EEEvPKhiiPKfS3_S3_PfPhif":
+                 frame + step + step + ["PLOP3.LUT"] + tail}
+    monkeypatch.setattr(cs, "sass_functions", lambda so: funcs)
+    kern = types.SimpleNamespace(bench_library=lambda: types.SimpleNamespace(_name="b.so"))
+    got = cs.naive_step_sass(kern)
+    assert got["instructions"] == len(step) + 1
+    assert got["pipes"]["xu"] == 2 and got["pipes"]["f32"] == 4
+    assert got["ops"]["MUFU.RCP"] == 1 and "S2R" not in got["ops"]
+    trips = torch.tensor([4, 0, 6], dtype=torch.int32)
+    assert cs.naive_ops(torch, "intersect_land_naive", None, trips, None, step=got) == (
+        10.0 * 8, 10.0 * 2, 0.0)
+    monkeypatch.setattr(cs, "sass_functions", lambda so: {
+        n: f for n, f in funcs.items() if "ILi2E" not in n})
+    with pytest.raises(SystemExit):
+        cs.naive_step_sass(kern)
+
+
 def test_sass_tap_bound_counts_the_body_by_pipe():
     """The tap's operations bound reads the kernel's body up to its last
     EXIT before the division's slow-path subroutine (ending in RET), and
@@ -488,3 +569,51 @@ def test_ratio_args_per_warp_moves_the_tracking_lanes():
     assert ((slots % 32) < 4).all()
     assert torch.equal(out[0][slots], keys[lanes]) and torch.equal(out[5][slots], ext[lanes])
     assert all(a.shape[0] == 32 * 12 for a in out)
+
+
+def _block_rounds(trips, block, rnd, warp=32):
+    """The naive march's block rounds written out lane by lane: each round,
+    where that empties a warp, the block's lanes still marching packed in
+    thread order onto its first threads; each warp issues its longest lane's
+    steps that round, at most ``rnd`` while more lanes march than a warp
+    holds."""
+    issued = 0
+    for b0 in range(0, len(trips), block):
+        rem = list(trips[b0:b0 + block]) + [0] * (block - len(trips[b0:b0 + block]))
+        while any(rem):
+            live = [t for t in rem if t > 0]
+            busy = sum(any(rem[w0:w0 + warp]) for w0 in range(0, block, warp))
+            if -(-len(live) // warp) < busy:
+                rem = live + [0] * (block - len(live))
+            budget = rnd if len(live) > warp else max(live)
+            take = [min(t, budget) for t in rem]
+            issued += sum(max(take[w0:w0 + warp]) for w0 in range(0, block, warp))
+            rem = [t - s for t, s in zip(rem, take)]
+    return issued
+
+
+def test_march_rounds_replays_the_block_rounds():
+    """chip_smoke.py's replay of the naive march's block rounds (csrc/naive.cuh
+    naive_march_block) against the rounds written out lane by lane, on
+    ragged lane counts with idle lanes, short and budget-long chains; one
+    thread a lane's warp-steps are each warp's longest lane's; two lanes of
+    a block in two warps are packed into one; no step, no rounds."""
+    cs = _chip_smoke()
+    r = np.random.default_rng(3)
+    for n in (1, 31, 128, 129, 1000):
+        for p0 in (0.0, 0.5, 0.9):
+            trips = r.choice([1, 3, 7, 9, 30, 250], size=n).astype(np.int32)
+            trips[r.random(n) < p0] = 0
+            simt, issued, solo = cs.march_rounds(torch, torch.from_numpy(trips))
+            if not trips.any():
+                assert (simt, issued, solo) == (None, 0, 0)
+                continue
+            assert issued == _block_rounds(trips.tolist(), cs.NAIVE_MARCH_BLOCK,
+                                           cs.NAIVE_MARCH_ROUND)
+            padded = np.concatenate([trips, np.zeros((-n) % 32, np.int32)])
+            assert solo == int(padded.reshape(-1, 32).max(1).sum())
+            assert simt == trips.sum() / (issued * 32)
+    one = torch.zeros(128, dtype=torch.int32)
+    one[5], one[77] = 40, 3
+    assert cs.march_rounds(torch, one)[1:] == (40, 43)
+    assert cs.march_rounds(torch, torch.zeros(256, dtype=torch.int32)) == (None, 0, 0)

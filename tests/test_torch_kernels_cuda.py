@@ -1072,9 +1072,13 @@ def test_mesh_over_distinct_cards_matches_renderer(dev):
 # density_check within 1e-4 relative on at least 99.9% of lanes.
 
 
-def _golden_state(dev, bounce, tracking_k=4, options=None):
-    """The 32x18 golden frame's wavefront of Apollo 11 just before
-    ``bounce``, advanced there by the kernel path (at the TraceConfig
+APOLLO = "config - Apollo 11.txt"
+NAIVE_SCENES = (APOLLO, "config - florida.txt", "config - sunset hurricane.txt")
+
+
+def _golden_state(dev, bounce, tracking_k=4, options=None, scene=APOLLO):
+    """The 32x18 golden frame's wavefront of ``scene`` (Apollo 11) just
+    before ``bounce``, advanced there by the kernel path (at the TraceConfig
     ``options``)."""
     from digital_earth_tpu_torch.app.config_io import apply_config
     from digital_earth_tpu_torch.render import raygen
@@ -1084,7 +1088,7 @@ def _golden_state(dev, bounce, tracking_k=4, options=None):
                       tracking_k=tracking_k, **(options or {}))
     r = Renderer(dev, image_res=(32, 18), cfg=cfg,
                  atlas=build_atlas(generate_earth_textures((64, 128), seed=3), dev))
-    apply_config(r, load_config(os.path.join(ROOT, "scenes", "config - Apollo 11.txt")))
+    apply_config(r, load_config(os.path.join(ROOT, "scenes", scene)))
     n = 32 * 18
     rays = raygen.gen_rays(r._seed_key, 0, 0, n, (32, 18), (1, 18), r.camera_params(), r.luts,
                            False, cfg=cfg)
@@ -1231,9 +1235,14 @@ def test_bounce_options_instance_bit_equal(dev, bounce, options):
     every live lane at each option (the default instance at the stall
     patience alone); the census instance leaves the timed one's state and
     counts the twin's trips."""
+    _hold_bounce_instance(dev, bounce, options)
+
+
+def _hold_bounce_instance(dev, bounce, options, scene=APOLLO):
+    """test_bounce_options_instance_bit_equal's checks on ``scene``."""
     from digital_earth_tpu_torch import kernels
 
-    st, args = _golden_state(dev, bounce, options=options)
+    st, args = _golden_state(dev, bounce, options=options, scene=scene)
     idx, n_live = _live(st)
     idx = idx[: int(n_live)]
     assert idx.numel() > 0
@@ -1259,9 +1268,14 @@ def test_bounce_window_options_instance_bit_equal(dev, options):
     """bounce_window's options instances from bounce 1 to the last against
     run_window_plain, every lane bit-equal (the default instance at the
     stall patience alone)."""
+    _hold_window_instance(dev, options)
+
+
+def _hold_window_instance(dev, options, scene=APOLLO):
+    """test_bounce_window_options_instance_bit_equal's checks on ``scene``."""
     from digital_earth_tpu_torch import kernels
 
-    st, args = _golden_state(dev, 1, options=options)
+    st, args = _golden_state(dev, 1, options=options, scene=scene)
     idx, n_live = _live(st)
     idx = idx[: int(n_live)]
     got, want = _clone_state(st), _clone_state(st)
@@ -1930,6 +1944,100 @@ def test_naive_tracker_stop_on_a_rounds_last_thread(dev, case, fn, species):
     assert got.numel() == stops.numel() and bool((got % 32 == 0).all())
 
 
+# The naive march's block rounds (csrc/naive.cuh naive_march_block: a block's
+# lanes still marching repacked onto its first threads between rounds of
+# steps) on their edges
+MARCH_BLOCK = 128
+
+
+def _hold_naive_march(topo, pos, dirs, active, cfg, scale=7800.0):
+    """The march's launcher against intersect_land_naive_plain: every
+    distance bit-equal, each lane's steps the twin's; (distances, steps)."""
+    from digital_earth_tpu_torch import kernels
+    from digital_earth_tpu_torch.render import tracking_naive as tn
+
+    trips = torch.zeros(pos.shape[0], dtype=torch.int32, device=pos.device)
+    want = tn.intersect_land_naive_plain(topo, pos, dirs, scale, active, cfg, trips=trips)
+    before = kernels.naive_march.launches
+    got, steps = kernels.naive_march(topo, pos, dirs, active, scale, steps=cfg.land_march_steps,
+                                     enable=cfg.enable_land, bilinear=cfg.bilinear_tracking,
+                                     iters=True)
+    assert kernels.naive_march.launches == before + 1
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert torch.equal(steps, trips)
+    return want, trips
+
+
+@pytest.mark.parametrize("steps", [1, 7, 250])
+@pytest.mark.parametrize("bilinear", [False, True])
+def test_naive_march_every_lane_marching(dev, case, steps, bilinear):
+    """Every lane of every block marching, at land_march_steps 1, 7 and
+    250, nearest and bilinear taps."""
+    cfg = TraceConfig(land_march_steps=steps, bilinear_tracking=bilinear)
+    active = torch.ones(N, dtype=torch.bool, device=dev)
+    _, trips = _hold_naive_march(case["atlas"].topography, case["pos"], case["dirs"], active, cfg)
+    assert bool((trips > 0).all()) and int(trips.max()) == steps
+
+
+@pytest.mark.parametrize("steps", [7, 250])
+@pytest.mark.parametrize("thread", [0, 77, 127])
+def test_naive_march_one_lane_a_block(dev, case, steps, thread):
+    """One marching lane a block, on its first, a middle or its last
+    thread: each round it moves to the block's first thread."""
+    cfg = TraceConfig(land_march_steps=steps)
+    active = torch.zeros(N, dtype=torch.bool, device=dev)
+    active[thread::MARCH_BLOCK] = True
+    _, trips = _hold_naive_march(case["atlas"].topography, case["pos"], case["dirs"], active, cfg)
+    assert int((trips > 0).sum()) == N // MARCH_BLOCK and int(trips.max()) > 1
+
+
+def test_naive_march_hit_at_the_budget(dev, case):
+    """Lanes that stop at the step budget short of ten planet radii hit
+    there (the reference's hit at the budget), beside lanes that stop before
+    it."""
+    cfg = TraceConfig(land_march_steps=7)
+    active = torch.ones(N, dtype=torch.bool, device=dev)
+    t, trips = _hold_naive_march(case["atlas"].topography, case["pos"], case["dirs"], active, cfg)
+    assert bool(((trips == 7) & (t >= 0.0)).any()) and bool((trips < 7).any())
+
+
+def test_naive_march_under_the_surface(dev, case):
+    """Rays that start under the terrain (a negative SDF: the first step
+    goes back along the ray), every lane marching to the budget or a stop."""
+    r = np.random.default_rng(11)
+    v = r.normal(size=(N, 3))
+    v /= np.linalg.norm(v, axis=1, keepdims=True)
+    pos = torch.tensor(v * (C.PLANET_R - 500.0), dtype=torch.float32, device=dev)
+    active = torch.ones(N, dtype=torch.bool, device=dev)
+    _, trips = _hold_naive_march(case["atlas"].topography, pos, case["dirs"], active,
+                                 TraceConfig())
+    assert int(trips.max()) > 1
+
+
+def test_naive_march_without_land_and_inactive_lanes(dev, case):
+    """enable_land False: every lane a miss with no step; a random half of
+    the lanes inactive: those a miss with no step, the others as the twin."""
+    topo, pos, dirs = case["atlas"].topography, case["pos"], case["dirs"]
+    active = torch.ones(N, dtype=torch.bool, device=dev)
+    t, trips = _hold_naive_march(topo, pos, dirs, active, TraceConfig(enable_land=False))
+    assert bool((t == -1.0).all()) and not bool(trips.any())
+    half = torch.from_numpy(np.random.default_rng(12).random(N) < 0.5).to(dev)
+    t, trips = _hold_naive_march(topo, pos, dirs, half, TraceConfig())
+    assert bool((t[~half] == -1.0).all()) and not bool(trips[~half].any())
+    assert bool((trips[half] > 0).all())
+
+
+@pytest.mark.parametrize("n", [77, MARCH_BLOCK + 1, N - 77])
+def test_naive_march_last_partial_block(dev, case, n):
+    """A last block of fewer lanes than threads (one block short of a
+    block, one lane past a block, a frame's worth with 51 lanes in its last
+    block): its threads past the lanes take part in the rounds, inactive."""
+    active = case["active"][:n].clone()
+    active[:3] = True
+    _hold_naive_march(case["atlas"].topography, case["pos"][:n].contiguous(),
+                      case["dirs"][:n].contiguous(), active, TraceConfig())
+
+
 # The estimator options (render/params.ESTIMATOR_OPTIONS): each alone (the
 # roulettes' start bounces set so that they act at bounces 0 and 3), all
 # but nee_off, and with the reference's estimator, marching first and
@@ -2444,3 +2552,47 @@ def test_packet_reduces_variance(dev, packet_scene):
     c1 = float(np.median([chroma_var(1, s) for s in range(4)]))
     c4 = float(np.median([chroma_var(4, s) for s in range(4)]))
     assert c4 < c1 * 0.3, (c1, c4)
+
+
+# --- the naive arm in every knob instance set ------------------------------------
+# each naive flag with an estimator option (the estimator instances) and with
+# the certified floor (the floor instances), and two flags in the width
+# libraries' floor instances, on three scenes
+
+NAIVE_FLAGS = [dict(naive_tracking=True, hero_lambdas=1), dict(naive_march=True),
+               dict(naive_cloud_tracking=True), dict(naive_shadow=True)]
+NAIVE_KNOB_CASES = [dict(**flag, **option) for flag in NAIVE_FLAGS for option in (
+    dict(fast_loop_rng=True), dict(nee_off=True), dict(nee_rr_prob=0.5, nee_rr_start=-1),
+    CERT_U0)]
+
+
+@pytest.mark.parametrize("scene", NAIVE_SCENES)
+@pytest.mark.parametrize("bounce", [0, 3])
+@pytest.mark.parametrize("options", NAIVE_KNOB_CASES)
+def test_bounce_knob_instances_bit_equal_at_naive_flags(dev, options, bounce, scene):
+    """The estimator and floor instances at each naive flag, their naive
+    trackers warp-cooperative and their march block-cooperative, bit-equal
+    to run_bounce_plain with the census's trips."""
+    _hold_bounce_instance(dev, bounce, options, scene)
+
+
+@pytest.mark.parametrize("scene", NAIVE_SCENES)
+@pytest.mark.parametrize("options", NAIVE_KNOB_CASES)
+def test_bounce_window_knob_instances_bit_equal_at_naive_flags(dev, options, scene):
+    _hold_window_instance(dev, options, scene)
+
+
+@pytest.mark.parametrize("scene", NAIVE_SCENES)
+@pytest.mark.parametrize("bounce", [0, 3])
+@pytest.mark.parametrize("flag", ["naive_cloud_tracking", "naive_march"])
+@pytest.mark.parametrize("L", (2, 6))
+def test_width_bounce_bit_equal_at_naive_flags(dev, L, flag, bounce, scene):
+    """The width libraries' floor instances at a naive flag."""
+    _hold_bounce_instance(dev, bounce, {"hero_lambdas": L, flag: True}, scene)
+
+
+@pytest.mark.parametrize("scene", NAIVE_SCENES)
+@pytest.mark.parametrize("flag", ["naive_cloud_tracking", "naive_march"])
+@pytest.mark.parametrize("L", (2, 6))
+def test_width_bounce_window_bit_equal_at_naive_flags(dev, L, flag, scene):
+    _hold_window_instance(dev, {"hero_lambdas": L, flag: True}, scene)

@@ -113,6 +113,88 @@ def test_intersect_land_naive_matches_jax(case, bilinear):
     assert bool((none == -1.0).all())
 
 
+# The march's edges: step caps 1, 7 and 250 (at 1 and 7 most lanes stop at
+# the budget short of ten planet radii, a hit there), grazing rays over the
+# terrain's shell (long chains), rays starting under the surface (a negative
+# SDF), half the lanes inactive, and bilinear taps
+MARCH_EDGES = ("steps_1", "steps_7", "steps_250", "grazing", "under_surface", "inactive",
+               "bilinear")
+MARCH_EDGE_LANES = 256
+
+
+def _march_edge_inputs(case, edge):
+    """(pos, dirs, active, land_march_steps, bilinear) of a march edge case,
+    as numpy arrays."""
+    r = np.random.default_rng(13)
+    steps, bilinear = 250, edge == "bilinear"
+    if edge in ("grazing", "under_surface"):
+        m = MARCH_EDGE_LANES
+        up = r.normal(size=(m, 3))
+        up /= np.linalg.norm(up, axis=1, keepdims=True)
+        other = r.normal(size=(m, 3))
+        other /= np.linalg.norm(other, axis=1, keepdims=True)
+        if edge == "grazing":
+            # tangent to the sphere through the terrain's middle height, from
+            # 300 km before the tangent point
+            tang = np.cross(up, other)
+            tang /= np.linalg.norm(tang, axis=1, keepdims=True)
+            pos, dirs = up * (C.PLANET_R + 0.5 * SCALE) - tang * 300e3, tang
+        else:
+            pos, dirs = up * (C.PLANET_R - 500.0), other
+        active = np.ones(m, bool)
+    else:
+        h = EDGE_LANES // 2
+        lanes = np.concatenate([np.arange(h), N - h + np.arange(h)])
+        pos, dirs, active = case["pos"][lanes], case["dirs"][lanes], case["active"][lanes]
+        if edge.startswith("steps_"):
+            steps = int(edge.split("_")[1])
+        elif edge == "inactive":
+            active = active & (r.random(lanes.size) < 0.5)
+    return pos.astype(np.float32), dirs.astype(np.float32), active, steps, bilinear
+
+
+# Floors of the shares of lanes (hit/miss agreement, hits within rtol 1e-3)
+# per edge case; the measured shares are in the test's docstring
+MARCH_EDGE_FLOORS = {"steps_1": (0.99, 0.99), "steps_7": (0.99, 0.99), "steps_250": (0.99, 0.99),
+                     "grazing": (0.99, 0.99), "under_surface": (0.99, 0.99),
+                     "inactive": (0.99, 0.99), "bilinear": (0.99, 0.99)}
+
+
+@pytest.mark.parametrize("edge", MARCH_EDGES)
+def test_intersect_land_naive_edges_match_jax(case, edge):
+    """The plain sphere march on its edges against the reference's
+    ``intersect_land_naive``: hit/miss agreement and the active lanes'
+    distances (a hit's, a miss's -1, the negative end of a march under the
+    surface) within rtol 1e-3 on every lane but a share; an inactive lane a
+    miss with no step; a step cap reached, the lanes that reach it short of
+    ten planet radii a hit. Measured (hit/miss, distances): steps_1 1.000,
+    1.000 (0.93 of the lanes hit at the budget); steps_7 1.000, 1.000 (0.68
+    at the budget); steps_250 1.000, 1.000 (0.66 hit, 0.007 at the budget);
+    grazing 1.000, 0.996 (0.047 hit, each at the budget of 250 steps, one of
+    those 12 hits past rtol 1e-3); under_surface 1.000, 1.000 (every lane
+    ends at a negative distance after 250 steps); inactive 1.000, 1.000;
+    bilinear 1.000, 0.999; stated 0.99 and 0.99."""
+    pos, dirs, active, steps, bilinear = _march_edge_inputs(case, edge)
+    cfg = dict(land_march_steps=steps, bilinear_tracking=bilinear)
+    j = np.asarray(jtn.intersect_land_naive(
+        case["jatlas"].topography, jnp.asarray(pos), jnp.asarray(dirs), jnp.float32(SCALE),
+        jnp.asarray(active), JaxConfig(**cfg)))
+    trips = torch.zeros(pos.shape[0], dtype=torch.int32)
+    t = tn.intersect_land_naive_plain(case["tatlas"].topography, T(pos), T(dirs),
+                                      torch.tensor(SCALE), T(active), TraceConfig(**cfg),
+                                      trips=trips).numpy()
+    trips = trips.numpy()
+    floor_hit, floor_close = MARCH_EDGE_FLOORS[edge]
+    assert ((j >= 0) == (t >= 0)).mean() >= floor_hit
+    assert _share_close(t[active], j[active]) >= floor_close
+    assert (t[~active] == -1.0).all() and not trips[~active].any()
+    assert (trips[active] >= 1).all() and trips.max() <= steps
+    if edge in ("steps_1", "steps_7"):
+        assert ((trips == steps) & (t >= 0.0)).any()
+    if edge == "grazing":
+        assert trips.max() > 50
+
+
 def _spans(case, species):
     pos, dirs = jnp.asarray(case["pos"]), jnp.asarray(case["dirs"])
     no_land = jnp.full((N,), -1.0)
@@ -373,6 +455,36 @@ def test_bounce_at_naive_flag_matches_eager_reference(raw_atlas, scene, flag):  
     port, ref = _on(got["out"], lanes), _on(want, lanes)
     _hold_to_floors({"out": (port.radiance, port.throughput),
                      "class": (port.alive, port.work_class)}, ref, BOUNCE_FLOORS[(scene, flag)])
+
+
+# A naive flag with an estimator option or a march floor (the estimator and
+# floor instances on the card): (radiance, throughput) floors of the share of
+# bounce-0 lanes within rtol 1e-3; the measured shares are in the test's
+# docstring
+KNOB_FLOORS = {
+    "naive_tracking, fast_loop_rng": (dict(naive_tracking=True, hero_lambdas=1,
+                                           fast_loop_rng=True), (0.97, 0.99)),
+    "naive_march, cert_u0": (dict(naive_march=True, march_certified_floor=True,
+                                  march_uncert_floor_frac=1e-6), (0.95, 0.96)),
+}
+
+
+@pytest.mark.parametrize("case_name", sorted(KNOB_FLOORS))
+def test_bounce_at_naive_flag_with_knob_matches_eager_reference(raw_atlas, case_name):  # noqa: F811
+    """Apollo 11's bounce 0 at naive_tracking with fast_loop_rng (the naive
+    trackers draw threefry at every setting) and at naive_march with the
+    certified floor (the naive marches have no floor) against the eager
+    reference's on the same lanes (``_hold_to_floors``). Measured shares
+    (radiance, throughput): naive_tracking with fast_loop_rng 0.984, 0.998;
+    naive_march with cert_u0 0.969, 0.977 (each flag's alone in
+    test_bounce_at_naive_flag_matches_eager_reference)."""
+    options, floors = KNOB_FLOORS[case_name]
+    got = _port_bounce(raw_atlas, APOLLO, options, 0)
+    want = _eager(raw_atlas, APOLLO, got["in"], options, 0)
+    lanes = got["in"]["alive"]
+    port, ref = _on(got["out"], lanes), _on(want, lanes)
+    _hold_to_floors({"out": (port.radiance, port.throughput),
+                     "class": (port.alive, port.work_class)}, ref, floors)
 
 
 SCENES = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "scenes")

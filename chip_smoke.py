@@ -5,7 +5,8 @@
                            | --naive-only
                            | --preview-bench [DIR] | --path-bench [DIR] | --spp-bench [DIR]
                            | --options-bench [DIR [SETTING ...]] | --sass-counts [DIR]
-                           | --widths-bench [DIR] | --naive-bench [DIR [march]]]
+                           | --widths-bench [DIR] | --naive-bench [DIR [march]]
+                           | --tap-bench [DIR] | --tap-forms]
 
 Run from the root of a checkout on a machine with a CUDA card, ``nvcc`` and
 PyTorch built for CUDA; ``--mesh-only`` runs phases 1-3 and 19 alone (say,
@@ -46,8 +47,13 @@ bounce on every run; each call held bit-equal to its twin with its steps;
 the march's block rounds replayed and, where the package has it, the census
 of its steps) and the census of bounce 0 under naive_cloud_tracking (each
 site's warp cycles, the NEE cloud pass's iterations), naive_march and
-naive_shadow (the march sites' steps and SIMT), for the package in DIR. It
-imports nothing of JAX or of the JAX package ``digital_earth_tpu`` (checked
+naive_shadow (the march sites' steps and SIMT), for the package in DIR, and
+``--tap-bench [DIR]`` the texture taps (``check_texture``'s rows, timed on the
+device), the census's split of bounce 0 with the shade's surface branch on
+the three scenes, their s/spp at the default and at bilinear_tracking,
+frame_end and the preview frame, for the package in DIR, and ``--tap-forms``
+the forms of a bilinear tap's texel reads (csrc/bench/tap_forms_bench.cu)
+side by side. It imports nothing of JAX or of the JAX package ``digital_earth_tpu`` (checked
 at the end). Phases, each of which raises on failure (exit code 1):
 
 1. toolchain: torch, CUDA, nvcc, Triton versions and the card
@@ -112,10 +118,15 @@ at the end). Phases, each of which raises on failure (exit code 1):
    CUDA graph of 20 calls, ``torch.argsort(stable=True)`` alike);
    ``density_check`` (the bounce's table
    lookups) against the plain lookups on bounce 0's flight segments and NEE
-   origins, and the bounce's sphere taps against the plain tap at bounce 0's
-   surface points (both through test launchers, timed), the nearest
-   topography tap also at the points of bounce 0's own march probes (timed
-   on the device, its bounds from their distinct texels and its SASS); last,
+   origins, and the bounce's sphere taps and the stars' direction tap
+   against the plain taps (through test launchers; ``check_texture``): at
+   bounce 0's surface points, on the edge sweep of the 8-, 4- and 3-channel
+   textures (u at 0 and 1, the seam, the poles, zero-length, NaN and
+   infinite points), at the points of bounce 0's own march probes and at the
+   frame's primary misses, nearest and bilinear, the bilinear tap bit for
+   bit against the form texture.cuh first had, each timed on the device
+   with its bound (bytes, and the SASS body's operations: the first form's
+   for a bilinear tap); last,
    one 1920x1080
    Apollo spp under the window schedule bit-equal to the same spp with one
    launch per bounce, its launches as ``bounce_schedule`` predicts.
@@ -1581,21 +1592,27 @@ def warp_cycles(torch, cycles, warp=32):
     return c.view(-1, warp, c.shape[1]).amax(1).sum(0).to(torch.float64)
 
 
+CENSUS_SITES = 7  # the census's loop sites (the package's kernels.BOUNCE_SITES)
+
+
 def cycle_split(torch, cycles):
     """The bounce's time by the census's clock64 columns (``warp_cycles``;
-    the sites, then the two kernels' whole): (each site's share of the two
-    kernels' summed warp cycles, bounce_flight's share, bounce_shade's, that
-    sum)."""
+    the seven sites, then the two kernels' whole, then, where the package's
+    census has it, bounce_shade's surface branch): (each site's share of
+    the two kernels' summed warp cycles, the surface branch's after them,
+    bounce_flight's share, bounce_shade's, that sum). A package whose
+    census has six sites (no NEE RMO column) gives six."""
     per_warp = cycles if cycles.dim() == 1 else warp_cycles(torch, cycles)
-    n = per_warp.numel() - 2
+    n = CENSUS_SITES if per_warp.numel() > CENSUS_SITES + 1 else per_warp.numel() - 2
     total = float(per_warp[n] + per_warp[n + 1])
     shares = [float(x) / total for x in per_warp.tolist()]
-    return shares[:n], shares[n], shares[n + 1], total
+    return shares[:n] + shares[n + 2:], shares[n], shares[n + 1], total
 
 
 def split_text(split):
     sites, flight, shade, total = split
-    names = ("pre-march", "cloud", "RMO", "march after", "shadow march", "NEE cloud", "NEE RMO")
+    names = ("pre-march", "cloud", "RMO", "march after", "shadow march", "NEE cloud", "NEE RMO",
+             "surface branch")
     return (f"flight {flight:.3f} (" + ", ".join(f"{n} {x:.3f}" for n, x in zip(names[:4], sites))
             + f", rest {flight - sum(sites[:4]):.3f}), shade {shade:.3f} ("
             + ", ".join(f"{n} {x:.3f}" for n, x in zip(names[4:], sites[4:]))
@@ -2080,20 +2097,18 @@ def options_registers(kernels):
 
 def bilinear_tap_extra(kernels):
     """The SASS instructions a bilinear 4-channel sphere tap adds to a
-    nearest one (the main bodies of the sphere_tap launcher's two
-    instances, csrc/texture_check.cu): the lerps and the three more texels'
-    addresses, counted as operations per bilinear tap."""
-    funcs = sass_functions(kernels.library()._name)
-    body = {}
-    for b in (0, 1):
-        name = next((f for f in funcs if f"sphere_tap_kernelILi4ELb{b}E" in f), None)
-        if name is None:
-            fail(f"the disassembly has no 4-channel sphere_tap instance <4, {b}>")
-        body[b] = sass_main_body(funcs[name])
-    extra = len(body[1]) - len(body[0])
-    print(f"sphere tap SASS: nearest {len(body[0])}, bilinear {len(body[1])} instructions: "
-          f"{extra} more a bilinear tap (counted as operations in the options rows' bounds)")
-    return extra, body
+    nearest one, as the options rows' bounds count them per bilinear tap:
+    FIRST_BILINEAR_TAP_EXTRA, the first form's difference, held whatever
+    the tap now takes; prints the main bodies' difference in this build
+    (the sphere_tap launcher's instances, ``tap_bodies``) and the first
+    form's beside it."""
+    bodies = tap_bodies(kernels)
+    near = len(bodies[("sphere", 4, "nearest")])
+    bil, first = len(bodies[("sphere", 4, "bilinear")]), len(bodies[("sphere", 4, "first")])
+    print(f"sphere tap SASS: nearest {near}, bilinear {bil} instructions: {bil - near} more a "
+          f"bilinear tap (the first form {first - near}); the options rows' bounds count "
+          f"{FIRST_BILINEAR_TAP_EXTRA} more, the first form's as recorded")
+    return FIRST_BILINEAR_TAP_EXTRA
 
 
 def _option_probes(torch, trips, march_k):
@@ -2131,7 +2146,7 @@ def check_options(torch, dev, atlas, luts, captured, tf):
 
     card = nvidia_smi_line()
     options_registers(kernels)
-    extra, _ = bilinear_tap_extra(kernels)
+    extra = bilinear_tap_extra(kernels)
     rows = {}
     # the default instances' times on each scene's default bounce 0, beside
     # the options instances' below
@@ -2449,21 +2464,25 @@ NAIVE_MARCH_LANE_BYTES, NAIVE_TRACK_LANE_BYTES = 29, 61
 # (C #5's fireflies), batches per arm and seconds per scene
 PARITY_RES, PARITY_CLIP_PCT, PARITY_BATCHES, PARITY_SECONDS = (320, 180), 99.9, 8, 20.0
 PARITY_LUMINANCE = (0.2126729, 0.7151522, 0.0721750)  # Rec. 709 Y of linear RGB
-# The default bounce instances' SASS instructions as built before the naive
-# arm (cuobjdump -sass, NOPs left out; commit 0584302 built for an NVIDIA
-# H100 80GB HBM3 by nvcc 12.9, chip_smoke.py --sass-counts), which the
-# options instances' new code must leave as they were: {entry<L,
-# template flags>: instructions}, the flags COUNT (flight, shade), RATIO
-# (shade, window) and OPTS (0) in the kernels' template order
+# The default bounce instances' SASS instructions (cuobjdump -sass, NOPs
+# left out; built for an NVIDIA H100 80GB HBM3 by nvcc 12.9, chip_smoke.py
+# --tap-bench), which the options instances' new code must leave as they
+# were: {entry<L, template flags>: instructions}, the flags COUNT (flight,
+# shade), RATIO (shade, window) and OPTS (0) in the kernels' template order.
+# The four bounce_flight entries, which tap nearest only, are commit
+# 0584302's; the twelve others were re-recorded when texture.cuh's bilinear
+# tap came to read a texel as one word (its bytes turned into floats by a
+# PRMT and an FADD, u wrapped by a compare and a select) and the census
+# instances gained the shade's surface-branch column.
 PARENT_DEFAULT_SASS = {
     "bounce_flight<L=1, 0, 0>": 3957, "bounce_flight<L=1, 1, 0>": 4088,
     "bounce_flight<L=4, 0, 0>": 3958, "bounce_flight<L=4, 1, 0>": 4089,
-    "bounce_shade<L=1, 0, 0, 0>": 10207, "bounce_shade<L=1, 0, 1, 0>": 10315,
-    "bounce_shade<L=1, 1, 0, 0>": 10278, "bounce_shade<L=1, 1, 1, 0>": 10312,
-    "bounce_shade<L=4, 0, 0, 0>": 11890, "bounce_shade<L=4, 0, 1, 0>": 11944,
-    "bounce_shade<L=4, 1, 0, 0>": 11989, "bounce_shade<L=4, 1, 1, 0>": 11999,
-    "bounce_window<L=1, 0, 0>": 11731, "bounce_window<L=1, 1, 0>": 11836,
-    "bounce_window<L=4, 0, 0>": 13478, "bounce_window<L=4, 1, 0>": 13570,
+    "bounce_shade<L=1, 0, 0, 0>": 10068, "bounce_shade<L=1, 0, 1, 0>": 10172,
+    "bounce_shade<L=1, 1, 0, 0>": 10120, "bounce_shade<L=1, 1, 1, 0>": 10214,
+    "bounce_shade<L=4, 0, 0, 0>": 11752, "bounce_shade<L=4, 0, 1, 0>": 11805,
+    "bounce_shade<L=4, 1, 0, 0>": 11842, "bounce_shade<L=4, 1, 1, 0>": 11870,
+    "bounce_window<L=1, 0, 0>": 11616, "bounce_window<L=1, 1, 0>": 11701,
+    "bounce_window<L=4, 0, 0>": 13345, "bounce_window<L=4, 1, 0>": 13438,
 }
 
 
@@ -2515,15 +2534,14 @@ def sass_counts():
 
 def check_default_sass(kernels):
     """The default bounce instances' SASS instruction counts against the
-    parent's (PARENT_DEFAULT_SASS): the naive arm's code lives in the
-    options instances only. Fails on any difference."""
+    recorded ones (PARENT_DEFAULT_SASS): the knob sets' code lives in their
+    own instances only. Fails on any difference."""
     now = default_sass(kernels)
     for entry, n in sorted(now.items()):
-        print(f"SASS default instance {entry}: {n} instructions (before the naive arm and the "
-              f"estimator options {PARENT_DEFAULT_SASS.get(entry)})")
+        print(f"SASS default instance {entry}: {n} instructions (recorded "
+              f"{PARENT_DEFAULT_SASS.get(entry)})")
     if now != PARENT_DEFAULT_SASS:
-        fail("a default bounce instance's SASS differs from its count before the naive arm and "
-             "the estimator options")
+        fail("a default bounce instance's SASS differs from its recorded count")
 
 
 def _naive_launcher(torch, name, args, iters=False):
@@ -3886,59 +3904,62 @@ CHROMA_PATHS, CHROMA_SEEDS, CHROMA_RATIO = 2048, 4, 0.3
 # default, options, estimator and floor sets; cuobjdump -sass, NOPs left
 # out) built for an NVIDIA H100 80GB HBM3 by nvcc 12.9 (chip_smoke.py
 # --sass-counts), which the width libraries' build must leave as they were:
-# {entry<L, template flags>: instructions}. The 16 default instances' (last
-# flag 0) are commit 18b6e19's. The 48 knob instances' (options 1, estimator
-# 2, floors 3) were re-recorded once every knob set ran the naive trackers as
-# warp-cooperative steps (csrc/naive.cuh naive_track_warp, in place of the
-# estimator and floor sets' one-thread loops), and the 24 bounce_shade_block
-# instances (the knob sets' bounce_shade with the naive shadow march as
-# block rounds, naive_march_block; bounce_shade_kernel's BLOCK instances)
-# recorded when they came.
+# {entry<L, template flags>: instructions}. The four default bounce_flight
+# instances (last flag 0), which tap nearest only, are commit 18b6e19's.
+# Every other entry holds a bilinear tap and was re-recorded when
+# texture.cuh's bilinear tap came to read a texel as one word (its bytes
+# turned into floats by a PRMT and an FADD, u wrapped by a compare and a
+# select) and the census instances gained the shade's surface-branch column:
+# the 48 knob instances (options 1, estimator 2, floors 3) as they run the
+# naive trackers as warp-cooperative steps (csrc/naive.cuh naive_track_warp)
+# and the 24 bounce_shade_block instances (the knob sets' bounce_shade with
+# the naive shadow march as block rounds, naive_march_block;
+# bounce_shade_kernel's BLOCK instances).
 PARENT_SASS = {
-    "bounce_flight<L=1, 0, 0>": 3957, "bounce_flight<L=1, 0, 1>": 7796,
-    "bounce_flight<L=1, 0, 2>": 10937, "bounce_flight<L=1, 0, 3>": 12065,
-    "bounce_flight<L=1, 1, 0>": 4088, "bounce_flight<L=1, 1, 1>": 8005,
-    "bounce_flight<L=1, 1, 2>": 11157, "bounce_flight<L=1, 1, 3>": 12320,
-    "bounce_flight<L=4, 0, 0>": 3958, "bounce_flight<L=4, 0, 1>": 7797,
-    "bounce_flight<L=4, 0, 2>": 10938, "bounce_flight<L=4, 0, 3>": 12066,
-    "bounce_flight<L=4, 1, 0>": 4089, "bounce_flight<L=4, 1, 1>": 8006,
-    "bounce_flight<L=4, 1, 2>": 11158, "bounce_flight<L=4, 1, 3>": 12321,
-    "bounce_shade<L=1, 0, 0, 0>": 10207, "bounce_shade<L=1, 0, 0, 1>": 12453,
-    "bounce_shade<L=1, 0, 0, 2>": 14439, "bounce_shade<L=1, 0, 0, 3>": 15500,
-    "bounce_shade<L=1, 0, 1, 0>": 10315, "bounce_shade<L=1, 0, 1, 1>": 12555,
-    "bounce_shade<L=1, 0, 1, 2>": 14680, "bounce_shade<L=1, 0, 1, 3>": 15757,
-    "bounce_shade<L=1, 1, 0, 0>": 10278, "bounce_shade<L=1, 1, 0, 1>": 12531,
-    "bounce_shade<L=1, 1, 0, 2>": 14512, "bounce_shade<L=1, 1, 0, 3>": 15587,
-    "bounce_shade<L=1, 1, 1, 0>": 10312, "bounce_shade<L=1, 1, 1, 1>": 12604,
-    "bounce_shade<L=1, 1, 1, 2>": 14891, "bounce_shade<L=1, 1, 1, 3>": 15945,
-    "bounce_shade<L=4, 0, 0, 0>": 11890, "bounce_shade<L=4, 0, 0, 1>": 14092,
-    "bounce_shade<L=4, 0, 0, 2>": 16059, "bounce_shade<L=4, 0, 0, 3>": 17146,
-    "bounce_shade<L=4, 0, 1, 0>": 11944, "bounce_shade<L=4, 0, 1, 1>": 14156,
-    "bounce_shade<L=4, 0, 1, 2>": 16418, "bounce_shade<L=4, 0, 1, 3>": 17614,
-    "bounce_shade<L=4, 1, 0, 0>": 11989, "bounce_shade<L=4, 1, 0, 1>": 14302,
-    "bounce_shade<L=4, 1, 0, 2>": 16251, "bounce_shade<L=4, 1, 0, 3>": 17318,
-    "bounce_shade<L=4, 1, 1, 0>": 11999, "bounce_shade<L=4, 1, 1, 1>": 14385,
-    "bounce_shade<L=4, 1, 1, 2>": 16559, "bounce_shade<L=4, 1, 1, 3>": 17656,
-    "bounce_shade_block<L=1, 0, 0, 1>": 13454, "bounce_shade_block<L=1, 0, 0, 2>": 15397,
-    "bounce_shade_block<L=1, 0, 0, 3>": 16497, "bounce_shade_block<L=1, 0, 1, 1>": 13548,
-    "bounce_shade_block<L=1, 0, 1, 2>": 15689, "bounce_shade_block<L=1, 0, 1, 3>": 16784,
-    "bounce_shade_block<L=1, 1, 0, 1>": 13600, "bounce_shade_block<L=1, 1, 0, 2>": 15553,
-    "bounce_shade_block<L=1, 1, 0, 3>": 16619, "bounce_shade_block<L=1, 1, 1, 1>": 13656,
-    "bounce_shade_block<L=1, 1, 1, 2>": 15879, "bounce_shade_block<L=1, 1, 1, 3>": 16986,
-    "bounce_shade_block<L=4, 0, 0, 1>": 15096, "bounce_shade_block<L=4, 0, 0, 2>": 17084,
-    "bounce_shade_block<L=4, 0, 0, 3>": 18160, "bounce_shade_block<L=4, 0, 1, 1>": 15168,
-    "bounce_shade_block<L=4, 0, 1, 2>": 17408, "bounce_shade_block<L=4, 0, 1, 3>": 18621,
-    "bounce_shade_block<L=4, 1, 0, 1>": 15321, "bounce_shade_block<L=4, 1, 0, 2>": 17314,
-    "bounce_shade_block<L=4, 1, 0, 3>": 18416, "bounce_shade_block<L=4, 1, 1, 1>": 15392,
-    "bounce_shade_block<L=4, 1, 1, 2>": 17596, "bounce_shade_block<L=4, 1, 1, 3>": 18699,
-    "bounce_window<L=1, 0, 0>": 11731, "bounce_window<L=1, 0, 1>": 16663,
-    "bounce_window<L=1, 0, 2>": 20369, "bounce_window<L=1, 0, 3>": 21539,
-    "bounce_window<L=1, 1, 0>": 11836, "bounce_window<L=1, 1, 1>": 16646,
-    "bounce_window<L=1, 1, 2>": 20655, "bounce_window<L=1, 1, 3>": 21848,
-    "bounce_window<L=4, 0, 0>": 13478, "bounce_window<L=4, 0, 1>": 18266,
-    "bounce_window<L=4, 0, 2>": 22032, "bounce_window<L=4, 0, 3>": 23137,
-    "bounce_window<L=4, 1, 0>": 13570, "bounce_window<L=4, 1, 1>": 18377,
-    "bounce_window<L=4, 1, 2>": 22421, "bounce_window<L=4, 1, 3>": 23592,
+    "bounce_flight<L=1, 0, 0>": 3957, "bounce_flight<L=1, 0, 1>": 7540,
+    "bounce_flight<L=1, 0, 2>": 10619, "bounce_flight<L=1, 0, 3>": 11684,
+    "bounce_flight<L=1, 1, 0>": 4088, "bounce_flight<L=1, 1, 1>": 7755,
+    "bounce_flight<L=1, 1, 2>": 10863, "bounce_flight<L=1, 1, 3>": 11940,
+    "bounce_flight<L=4, 0, 0>": 3958, "bounce_flight<L=4, 0, 1>": 7541,
+    "bounce_flight<L=4, 0, 2>": 10620, "bounce_flight<L=4, 0, 3>": 11685,
+    "bounce_flight<L=4, 1, 0>": 4089, "bounce_flight<L=4, 1, 1>": 7756,
+    "bounce_flight<L=4, 1, 2>": 10864, "bounce_flight<L=4, 1, 3>": 11941,
+    "bounce_shade<L=1, 0, 0, 0>": 10068, "bounce_shade<L=1, 0, 0, 1>": 12159,
+    "bounce_shade<L=1, 0, 0, 2>": 14067, "bounce_shade<L=1, 0, 0, 3>": 15106,
+    "bounce_shade<L=1, 0, 1, 0>": 10172, "bounce_shade<L=1, 0, 1, 1>": 12239,
+    "bounce_shade<L=1, 0, 1, 2>": 14386, "bounce_shade<L=1, 0, 1, 3>": 15451,
+    "bounce_shade<L=1, 1, 0, 0>": 10120, "bounce_shade<L=1, 1, 0, 1>": 12227,
+    "bounce_shade<L=1, 1, 0, 2>": 14160, "bounce_shade<L=1, 1, 0, 3>": 15226,
+    "bounce_shade<L=1, 1, 1, 0>": 10214, "bounce_shade<L=1, 1, 1, 1>": 12328,
+    "bounce_shade<L=1, 1, 1, 2>": 14518, "bounce_shade<L=1, 1, 1, 3>": 15552,
+    "bounce_shade<L=4, 0, 0, 0>": 11752, "bounce_shade<L=4, 0, 0, 1>": 13794,
+    "bounce_shade<L=4, 0, 0, 2>": 15655, "bounce_shade<L=4, 0, 0, 3>": 16736,
+    "bounce_shade<L=4, 0, 1, 0>": 11805, "bounce_shade<L=4, 0, 1, 1>": 13859,
+    "bounce_shade<L=4, 0, 1, 2>": 16030, "bounce_shade<L=4, 0, 1, 3>": 17082,
+    "bounce_shade<L=4, 1, 0, 0>": 11842, "bounce_shade<L=4, 1, 0, 1>": 13994,
+    "bounce_shade<L=4, 1, 0, 2>": 15962, "bounce_shade<L=4, 1, 0, 3>": 16912,
+    "bounce_shade<L=4, 1, 1, 0>": 11870, "bounce_shade<L=4, 1, 1, 1>": 14060,
+    "bounce_shade<L=4, 1, 1, 2>": 16311, "bounce_shade<L=4, 1, 1, 3>": 17308,
+    "bounce_shade_block<L=1, 0, 0, 1>": 13173, "bounce_shade_block<L=1, 0, 0, 2>": 14994,
+    "bounce_shade_block<L=1, 0, 0, 3>": 16123, "bounce_shade_block<L=1, 0, 1, 1>": 13222,
+    "bounce_shade_block<L=1, 0, 1, 2>": 15324, "bounce_shade_block<L=1, 0, 1, 3>": 16423,
+    "bounce_shade_block<L=1, 1, 0, 1>": 13312, "bounce_shade_block<L=1, 1, 0, 2>": 15158,
+    "bounce_shade_block<L=1, 1, 0, 3>": 16215, "bounce_shade_block<L=1, 1, 1, 1>": 13312,
+    "bounce_shade_block<L=1, 1, 1, 2>": 15500, "bounce_shade_block<L=1, 1, 1, 3>": 16539,
+    "bounce_shade_block<L=4, 0, 0, 1>": 14753, "bounce_shade_block<L=4, 0, 0, 2>": 16643,
+    "bounce_shade_block<L=4, 0, 0, 3>": 17880, "bounce_shade_block<L=4, 0, 1, 1>": 14838,
+    "bounce_shade_block<L=4, 0, 1, 2>": 17014, "bounce_shade_block<L=4, 0, 1, 3>": 18060,
+    "bounce_shade_block<L=4, 1, 0, 1>": 14994, "bounce_shade_block<L=4, 1, 0, 2>": 16912,
+    "bounce_shade_block<L=4, 1, 0, 3>": 17971, "bounce_shade_block<L=4, 1, 1, 1>": 15052,
+    "bounce_shade_block<L=4, 1, 1, 2>": 17312, "bounce_shade_block<L=4, 1, 1, 3>": 18398,
+    "bounce_window<L=1, 0, 0>": 11616, "bounce_window<L=1, 0, 1>": 16273,
+    "bounce_window<L=1, 0, 2>": 19873, "bounce_window<L=1, 0, 3>": 21024,
+    "bounce_window<L=1, 1, 0>": 11701, "bounce_window<L=1, 1, 1>": 16269,
+    "bounce_window<L=1, 1, 2>": 20200, "bounce_window<L=1, 1, 3>": 21350,
+    "bounce_window<L=4, 0, 0>": 13345, "bounce_window<L=4, 0, 1>": 17885,
+    "bounce_window<L=4, 0, 2>": 21564, "bounce_window<L=4, 0, 3>": 22632,
+    "bounce_window<L=4, 1, 0>": 13438, "bounce_window<L=4, 1, 1>": 17985,
+    "bounce_window<L=4, 1, 2>": 21989, "bounce_window<L=4, 1, 3>": 23084,
 }
 
 
@@ -4689,7 +4710,8 @@ def naive_bench(torch, dev, march_only=False):
             wc = warp_cycles(torch, cycles).tolist()
             m = trips.shape[0]
             entry = dict(lanes=m, flight_ms=round(t_f, 4), shade_ms=round(t_s, 4),
-                         warp_cycles=dict(zip(CENSUS_SITE_NAMES + ("flight", "shade"), wc)))
+                         warp_cycles=dict(zip(
+                             CENSUS_SITE_NAMES + ("flight", "shade", "surface"), wc)))
             if label == "naive_cloud_tracking":
                 nt = trips[:, nee]
                 per_warp = torch.cat([nt, nt.new_zeros((-m) % 32)]).view(-1, 32).amax(1)
@@ -5043,86 +5065,204 @@ def march_probe_points(torch, marches):
     return torch.cat(points), torch.cat(texels)
 
 
-def check_texture(torch, lookups, atlas, march_probes=0):
-    """The bounce's bilinear sphere taps (texture.cuh, through the
-    sphere_tap test launcher) against ops/texture.sample_sphere_texture at
-    bounce 0's surface points: the material (8 channels) and the
-    topography (4), bilinear and nearest. Then the nearest topography tap
-    (the land march's) at bounce 0's own march probes (``march_probe_points``:
-    its three marches' points, more than the census's floor of
-    ``march_probes``, which counts an iteration's probes up to its first
-    stop), within TAP_ATOL of the twin's taps there, timed per call and on the
-    device alone (a CUDA graph of 20 calls), with two bounds: the tap's own
-    (the distinct texels those probes read, 4 B each, and the operations of
-    the SASS of the launcher's nearest instance: its atan2f, asinf,
-    divisions and conversions, the divisions' slow paths left out) and the
-    launcher's (that and its 12 B point read and 16 B tap written a probe).
-    Then the bilinear tap at the same points (the options instances' march
-    taps at bilinear_tracking), its bound from its four texels a tap (the
-    distinct ones) and its instance's SASS. A dict."""
+# the test launchers' instances (csrc/texture_check.cu) whose SASS bodies
+# check_texture reads: {(tap, C, form): mangled name part}; form "nearest",
+# "bilinear" (texture.cuh's branch) or "first" (the bilinear form texture.cuh
+# first had, kept in the launcher)
+TAP_INSTANCES = {("sphere", 4, "nearest"): "sphere_tap_kernelILi4ELb0E",
+                 ("sphere", 4, "bilinear"): "sphere_tap_kernelILi4ELb1E",
+                 ("sphere", 4, "first"): "sphere_tap_first_kernelILi4E",
+                 ("sphere", 8, "nearest"): "sphere_tap_kernelILi8ELb0E",
+                 ("sphere", 8, "bilinear"): "sphere_tap_kernelILi8ELb1E",
+                 ("sphere", 8, "first"): "sphere_tap_first_kernelILi8E",
+                 ("dir", 3, "nearest"): "dir_tap_kernelILi3ELb0E",
+                 ("dir", 3, "bilinear"): "dir_tap_kernelILi3ELb1E",
+                 ("dir", 3, "first"): "dir_tap_first_kernelILi3E"}
+# The SASS instructions the first bilinear 4-channel sphere tap (a byte load
+# and an I2F a channel, two remainders by W) added to a nearest one: 343 less
+# 232 (the sphere_tap launcher's two instances, nvcc 12.9 for an NVIDIA H100
+# 80GB HBM3; PERF.md row 2o). The options rows' bounds count a bilinear tap
+# as this much more work than a nearest one, whatever form the tap now takes,
+# so that a cheaper tap does not also lower its own yardstick.
+FIRST_BILINEAR_TAP_EXTRA = 111
+
+
+def tap_bodies(kernels):
+    """{(tap, C, form): SASS main body} of the test launchers' instances
+    (TAP_INSTANCES) in the built library; fails where one is missing."""
+    funcs = sass_functions(kernels.library()._name)
+    out = {}
+    for key, part in TAP_INSTANCES.items():
+        name = next((f for f in funcs if part in f), None)
+        if name is None:
+            fail(f"the disassembly has no {key} tap instance ({part})")
+        out[key] = sass_main_body(funcs[name])
+    return out
+
+
+def xu_ops(body):
+    """The XU-pipe opcodes of a SASS body and their counts."""
+    hist, _ = sass_histogram(body)
+    return {op: c for op, c in sorted(hist.items()) if sass_pipe(op) == "xu"}
+
+
+def _same_bits(torch, a, b):
+    """Rows of two (n, C) float32 tensors equal bit for bit (NaN payloads
+    included)."""
+    return (a.view(torch.int32) == b.view(torch.int32)).all(-1)
+
+
+def _twin_rows(torch, got, want, held=None):
+    """(rows equal to the twin's, a NaN equal to a NaN; the largest
+    difference on the ``held`` rows (all by default) finite in both; rows
+    finite in one only)."""
+    same = ((got == want) | (got.isnan() & want.isnan())).all(-1)
+    fin = got.isfinite().all(-1) & want.isfinite().all(-1)
+    if held is not None:
+        fin &= held
+    err = (got[fin] - want[fin]).abs().max().item() if bool(fin.any()) else 0.0
+    return same, err, int((got.isfinite().all(-1) != want.isfinite().all(-1)).sum())
+
+
+def _tap_case(torch, label, tap, twin, n, bodies, key, nbytes, rows, points=None):
+    """One tap's check at one set of points: ``tap(bilinear, first_form)``
+    the launcher, ``twin(bilinear)`` the plain tap. Nearest and bilinear
+    each timed per call and on the device (a CUDA graph of 20 calls), held
+    within TAP_ATOL of the twin on rows finite in both, with their share
+    bit-equal to it; with ``points``, only on the rows whose point has no
+    NaN or infinite component (the kernel's fminf and fmaxf take a NaN as
+    missing, torch.clamp keeps it, so there the two may tap other texels),
+    the others counted apart; the bilinear tap also against the first form (every
+    row bit for bit, else fails), timed in turns with it (first, tap, tap,
+    first). Bounds: ``nbytes`` (the nearest tap's, the bilinear tap's) at
+    the memory rate and the operations of the SASS body (``bodies``, ``key``
+    = (tap, C)), the bilinear tap's from the first form's body (the work it
+    replaced). Fills ``rows[label]``; returns its forms' rows."""
+    out = {}
+    for bilinear in (False, True):
+        form = "bilinear" if bilinear else "nearest"
+        got, ms = _time_ms(torch, lambda: tap(bilinear, False), 5)
+        want, plain_ms = _plain_ms(torch, lambda: twin(bilinear))
+        held = None if points is None else points.isfinite().all(-1)
+        same, err, finite_parts = _twin_rows(torch, got, want, held)
+        share = same.float().mean().item() if n else 1.0
+        row = dict(n=n, ms=ms, plain_ms=plain_ms, share=share, max_abs_err=err,
+                   finite_parts=finite_parts)
+        if held is not None:
+            row["not_held"] = int((~held).sum())
+            row["not_held_parted"] = int((~held & ~same).sum())
+        work = bodies[(*key, "first" if bilinear else "nearest")]
+        ops_ms, per_pipe, count = sass_ops_bound(work, n)
+        row["bound_ms"], row["bound_by"] = max((nbytes[bilinear] / PEAK_BYTES * 1e3, "bytes"),
+                                               (ops_ms, "operations"))
+        _, _, row["pipes"] = sass_ops_bound(bodies[(*key, form)], n)
+        row["body"] = len(bodies[(*key, form)])
+        if bilinear:
+            first = tap(True, True)
+            row["first_bit_equal_rows"] = int(_same_bits(torch, got, first).sum())
+            row["first_share"] = (_twin_rows(torch, first, want)[0].float().mean().item()
+                                  if n else 1.0)
+            row["first_pipes"], row["first_body"] = count, len(work)
+            t = [_graph_ms(torch, lambda: tap(True, f)) for f in (True, False, False, True)]
+            row["first_graph_ms"], row["graph_ms"] = [t[0], t[3]], [t[1], t[2]]
+        else:
+            row["graph_ms"] = [_graph_ms(torch, lambda: tap(False, False))]
+        del got, want
+        out[form] = row
+        ok = err <= TAP_ATOL and (not bilinear or row["first_bit_equal_rows"] == n)
+        print(f"tap {label} {form}: {n} points, bit-equal to the twin on {share:.6f}"
+              + (f" (the first form {row['first_share']:.6f}); bit-equal to the first form on "
+                 f"{row['first_bit_equal_rows']} of {n}" if bilinear else "")
+              + f"; max abs err {err:.3e} where both are finite ({finite_parts} rows finite in "
+              f"one only)"
+              + (f" on the {n - row['not_held']} points of finite components (of the "
+                 f"{row['not_held']} others {row['not_held_parted']} part from the twin)"
+                 if held is not None else "")
+              + f"; {ms:.4f} ms per call, on the device "
+              + ", ".join(f"{x:.4f}" for x in row["graph_ms"])
+              + (" (the first form " + ", ".join(f"{x:.4f}" for x in row["first_graph_ms"])
+                 + ")" if bilinear else "")
+              + f" ms; plain {plain_ms:.2f} ms; bound {row['bound_ms']:.4f} ms "
+              f"({row['bound_by']}; {'the first form' if bilinear else 'its'} body's "
+              f"{len(work)} instructions a tap by pipe {count}); its body {row['body']} by pipe "
+              f"{row['pipes']}  {'ok' if ok else 'FAIL'}")
+        if not ok:
+            bad = ((got - want).abs().amax(-1) > TAP_ATOL) & (held if held is not None else True)
+            rows_bad = bad.nonzero().flatten()[:8].tolist()
+            print(f"tap {label} {form}: rows past TAP_ATOL {rows_bad}"
+                  + (f" at points {points[rows_bad].tolist()}" if points is not None else ""))
+            fail(f"the {form} tap ({label}) disagrees with the twin or with the first form")
+    rows[label] = out
+    return out
+
+
+def check_texture(torch, lookups, atlas, march_probes=0, frame_end_args=None):
+    """The bounce's sphere taps (texture.cuh, through the sphere_tap test
+    launcher) against ops/texture.sample_sphere_texture, and the stars'
+    direction tap (dir_tap, as frame_end and preview take it) against
+    sample_dir_texture (``_tap_case``: nearest and bilinear, the bilinear
+    tap bit for bit against the form texture.cuh first had, each timed on
+    the device): at bounce 0's surface points, the material (8 channels)
+    and the topography (4); on the edge sweep (ops/texture.tap_edge_points)
+    of the material, the topography and the stars (3); at bounce 0's own
+    march probes (``march_probe_points``: its three marches' points, more
+    than the census's floor of ``march_probes``, which counts an
+    iteration's probes up to its first stop), the topography, with the
+    distinct texels those probes read as the bytes of the bound (the
+    nearest tap's one, the bilinear tap's four) and the nearest tap's
+    launcher bound beside (its 12 B point read and 16 B tap written a
+    probe); at the whole frame's primary misses (``frame_end_args``,
+    ``capture_frame_end``), the stars. Prints the bodies' XU-pipe opcodes.
+    A dict."""
     from digital_earth_tpu_torch import kernels
     from digital_earth_tpu_torch.ops import texture as tx
 
+    bodies = tap_bodies(kernels)
+    rows = {}
+    for (tap, c, form), body in sorted(bodies.items()):
+        print(f"tap SASS {tap} C = {c} {form}: {len(body)} instructions, XU {xu_ops(body)}")
+    near = len(bodies[("sphere", 4, "nearest")])
+    rows["extra"] = dict(now=len(bodies[("sphere", 4, "bilinear")]) - near,
+                         first=len(bodies[("sphere", 4, "first")]) - near,
+                         kept=bilinear_tap_extra(kernels))
+
+    def sphere(tex, pos):
+        return (lambda b, f: kernels.sphere_tap(tex, pos, b, first_form=f),
+                lambda b: tx.sample_sphere_texture(tex, pos, bilinear=b))
+
+    def direction(tex, d):
+        return (lambda b, f: kernels.dir_tap(tex, d, b, first_form=f),
+                lambda b: tx.sample_dir_texture(tex, d, bilinear=b))
+
+    # bounce 0's surface points: the pos read, the taps written
     land_pos = lookups["surface"]
     n = land_pos.shape[0]
-    ok = True
     for name, tex in (("material", atlas.material), ("topography", atlas.topography)):
-        for bilinear in (True, False):
-            got, ms = _time_ms(torch, lambda: kernels.sphere_tap(tex, land_pos, bilinear), 5)
-            want, plain_ms = _plain_ms(
-                torch, lambda: tx.sample_sphere_texture(tex, land_pos, bilinear=bilinear))
-            err = (got - want).abs().max().item() if n else 0.0
-            same = (got == want).all(-1).float().mean().item() if n else 1.0
-            this_ok = err <= TAP_ATOL
-            ok = ok and this_ok
-            c = tex.shape[2]
-            # pos read, the taps written; the texels not counted
-            # (BOUNCE_LANE_BYTES)
-            b_ms, b_by = bound(n * (12 + 4 * c), None)
-            print(f"sphere tap {name} {'bilinear' if bilinear else 'nearest'} at bounce 0's "
-                  f"{n} surface points: bit-equal share {same:.6f}, max abs err {err:.3e}  "
-                  f"kernel {ms:.3f} ms  plain {plain_ms:.2f} ms  bound {b_ms:.4f} ms ({b_by})  "
-                  f"{'ok' if this_ok else 'FAIL'}")
-    if not ok:
-        fail("the kernels' sphere tap disagrees with ops/texture.sample_sphere_texture")
+        c = tex.shape[2]
+        _tap_case(torch, f"{name} at bounce 0's surface points", *sphere(tex, land_pos), n,
+                  bodies, ("sphere", c), (n * (12 + 4 * c),) * 2, rows)
+    # the edge sweep
+    for name, tex, kind in (("material", atlas.material, "sphere"),
+                            ("topography", atlas.topography, "sphere"),
+                            ("stars", atlas.stars, "dir")):
+        pts = tx.tap_edge_points(*tex.shape[:2], device=tex.device)
+        c = tex.shape[2]
+        fns = sphere(tex, pts) if kind == "sphere" else direction(tex, pts)
+        _tap_case(torch, f"{name} on the edge sweep", *fns, pts.shape[0], bodies, (kind, c),
+                  (pts.shape[0] * (12 + 4 * c),) * 2, rows, points=pts)
+    # the stars at the frame's primary misses
+    if frame_end_args and frame_end_args["kwargs"].get("miss") is not None:
+        st = frame_end_args["kwargs"]["miss"].st
+        d = st.direction[st.primary_miss.bool()].contiguous()
+        _tap_case(torch, "stars at the frame's primary misses", *direction(atlas.stars, d),
+                  d.shape[0], bodies, ("dir", 3), (d.shape[0] * (12 + 12),) * 2, rows)
+        del d
     if not march_probes or not lookups.get("marches"):
-        return {}
-    funcs = sass_functions(kernels.library()._name)
-    name = next((f for f in funcs if "sphere_tap_kernelILi4ELb0E" in f), None)
-    if name is None:
-        fail("the disassembly has no nearest 4-channel sphere_tap instance")
-    body = sass_main_body(funcs[name])
-    hist, _ = sass_histogram(body)
+        return rows
     tex = atlas.topography
     pos, texels = march_probe_points(torch, lookups["marches"])
     p = pos.shape[0]
-    got, ms = _time_ms(torch, lambda: kernels.sphere_tap(tex, pos, False), 5)
-    graph_ms = _graph_ms(torch, lambda: kernels.sphere_tap(tex, pos, False))
-    want = tx.sample_sphere_texture(tex, pos, bilinear=False)
-    parted = int((got != want).any(-1).sum())
-    err = (got - want).abs().max().item()
     distinct = int(torch.unique(texels).numel())
-    ops_ms, per_pipe, count = sass_ops_bound(body, p)
-    tap_bytes, launcher_bytes = 4 * distinct, 4 * distinct + 28 * p
-    tap_ms, tap_by = max((tap_bytes / PEAK_BYTES * 1e3, "bytes"), (ops_ms, "operations"))
-    launcher_ms = max(launcher_bytes / PEAK_BYTES * 1e3, ops_ms)
-    mufu = {op: c for op, c in hist.items() if sass_pipe(op) == "xu"}
-    print(f"sphere tap topography nearest at bounce 0's own march probes: {p} points of "
-          f"{len(lookups['marches'])} march calls (the census's floor {march_probes}), "
-          f"{distinct} distinct texels; bit-equal to the twin's taps on all but {parted} (max abs "
-          f"err {err:.3e}); "
-          f"{ms:.4f} ms per call, {graph_ms:.4f} ms on the device (CUDA graph); the tap's bound "
-          f"{tap_ms:.4f} ms ({tap_by}; texels {tap_bytes / PEAK_BYTES * 1e3:.5f}, the SASS "
-          f"body's {len(body)} instructions a tap by pipe {count} ("
-          + ", ".join(f"{pp} {t:.4f}" for pp, t in per_pipe.items()) + f" ms); XU {mufu}); "
-          f"the launcher's {launcher_ms:.4f} ms (with its points read and taps written, "
-          f"{launcher_bytes / PEAK_BYTES * 1e3:.4f} ms of bytes)")
-    if not err <= TAP_ATOL:
-        fail("the nearest sphere tap disagrees with the twin at the march's probes")
-    # the bilinear tap (the options instances' march taps) at the same points:
-    # its four texels a tap, the distinct ones read once, and its SASS body
-    bil = sass_main_body(funcs[next((f for f in funcs if "sphere_tap_kernelILi4ELb1E" in f),
-                                    name)])
     corners, fetch = [], tx.fetch_texel
 
     def corner_fetch(tex_, iy, ix):
@@ -5131,28 +5271,26 @@ def check_texture(torch, lookups, atlas, march_probes=0):
 
     tx.fetch_texel = corner_fetch
     try:
-        want_b = tx.sample_sphere_texture(tex, pos, bilinear=True)
+        tx.sample_sphere_texture(tex, pos, bilinear=True)
     finally:
         tx.fetch_texel = fetch
-    got_b, ms_b = _time_ms(torch, lambda: kernels.sphere_tap(tex, pos, True), 5)
-    graph_b = _graph_ms(torch, lambda: kernels.sphere_tap(tex, pos, True))
-    err_b = (got_b - want_b).abs().max().item()
     distinct_b = int(torch.unique(torch.cat(corners)).numel())
-    del corners, want_b, got_b
-    ops_b, per_pipe_b, count_b = sass_ops_bound(bil, p)
-    bil_ms, bil_by = max((4 * distinct_b / PEAK_BYTES * 1e3, "bytes"), (ops_b, "operations"))
-    print(f"sphere tap topography bilinear at the same {p} march probes ({nvidia_smi_line()}): "
-          f"{distinct_b} distinct texels of their four a tap; max abs err {err_b:.3e}; "
-          f"{ms_b:.4f} ms per call, {graph_b:.4f} ms on the device (the nearest tap "
-          f"{graph_ms:.4f}); the tap's bound {bil_ms:.4f} ms ({bil_by}; texels "
-          f"{4 * distinct_b / PEAK_BYTES * 1e3:.5f}, the SASS body's {len(bil)} instructions a "
-          f"tap ({len(bil) - len(body)} more than the nearest's) by pipe {count_b} ("
-          + ", ".join(f"{pp} {t:.4f}" for pp, t in per_pipe_b.items()) + " ms))")
-    if not err_b <= TAP_ATOL:
-        fail("the bilinear sphere tap disagrees with the twin at the march's probes")
-    return dict(probes=p, floor_probes=march_probes, distinct_texels=distinct, ms=ms,
-                graph_ms=graph_ms, bound_ms=tap_ms, bound_by=tap_by, launcher_bound_ms=launcher_ms,
-                pipes=count, body=len(body))
+    del corners
+    # the bytes of each form's bound: the distinct texels its taps read
+    # (nearest one a tap, bilinear four)
+    near = _tap_case(torch, "topography at bounce 0's march probes", *sphere(tex, pos), p, bodies,
+                     ("sphere", 4), (4 * distinct, 4 * distinct_b), rows)["nearest"]
+    launcher_ms = max((4 * distinct + 28 * p) / PEAK_BYTES * 1e3,
+                      sass_ops_bound(bodies[("sphere", 4, "nearest")], p)[0])
+    print(f"march probes ({nvidia_smi_line()}): {p} points of {len(lookups['marches'])} march "
+          f"calls (the census's floor {march_probes}), {distinct} distinct texels (their four a "
+          f"bilinear tap: {distinct_b}); the nearest tap's launcher bound {launcher_ms:.4f} ms "
+          f"(with its points read and taps written)")
+    del pos, texels
+    return dict(rows, probes=p, floor_probes=march_probes, distinct_texels=distinct,
+                distinct_texels_bilinear=distinct_b, ms=near["ms"], graph_ms=near["graph_ms"][0],
+                bound_ms=near["bound_ms"], bound_by=near["bound_by"],
+                launcher_bound_ms=launcher_ms, pipes=near["pipes"], body=near["body"])
 
 
 def profile_spp(torch, r, label, run=None, unit="spp"):
@@ -6617,6 +6755,204 @@ def _bounce_device_ms(by_name):
     return sum(us for k, us in by_name.items() if "bounce" in k) / 1e3
 
 
+def tap_bench(torch, dev):
+    """``--tap-bench [DIR]``: the texture taps of the package in DIR and what
+    they move, so that versions can be alternated in one call:
+    ``check_texture``'s rows (bounce 0's surface points and march probes,
+    the stars at the whole frame's primary misses, the edge sweep; nearest
+    and bilinear, each against its twin, the bilinear tap also against the
+    first form, timed on the device); the census's cycle split of bounce 0
+    on the three scenes (the shade's surface branch apart where the
+    package's census has it); bounce 0's bounce_flight and bounce_shade on
+    the three scenes at the default config (the default instances) and at
+    bilinear_tracking (the options instances); per scene s/spp of the
+    default config and of bilinear_tracking against it (``spp_ratio``); frame_end on the whole
+    frame (per call, back to back); the 480x270 preview frame (2 warm-up
+    and 10 timed frames) and its preview kernel alone (20 calls back to
+    back); the bounce instances' SASS sizes. One JSON line."""
+    import digital_earth_tpu_torch as pkg
+    from digital_earth_tpu_torch import kernels
+    from digital_earth_tpu_torch.app.config_io import load_config
+    from digital_earth_tpu_torch.app.viewer import render_offline
+    from digital_earth_tpu_torch.assets.luts import load_spectral_luts
+    from digital_earth_tpu_torch.assets.textures import procedural_texture_atlas
+    from digital_earth_tpu_torch.render import frame_end as fe
+    from digital_earth_tpu_torch.render import pathtracer as pt
+    from digital_earth_tpu_torch.render import raymarcher
+    from digital_earth_tpu_torch.render.params import TraceConfig
+    from digital_earth_tpu_torch.render.renderer import Renderer
+
+    t0 = time.time()
+    kernels.library()
+    out = dict(package=os.path.dirname(os.path.abspath(pkg.__file__)), card=nvidia_smi_line(),
+               build_s=round(time.time() - t0, 1))
+    cache = os.path.join(ROOT, "build", "chip_smoke", "texture_cache")
+    luts = load_spectral_luts(dev)
+    atlas = procedural_texture_atlas(dev, (1024, 2048), seed=7, cache_dir=cache)
+    _, states, _, lookups, frame_end_args = capture_inputs(torch, dev, atlas, luts)
+    out["census_split"], out["bounce0_ms"] = {}, {}
+    probes = 0
+    for scene in (SCENE, FLORIDA, SUNSET):
+        sts = states if scene == SCENE else capture_states(
+            torch, dev, atlas, luts, bounces=(0,), scene=scene)[0]
+        c = sts[0]
+        name = os.path.basename(scene)[9:-4]
+        for label, cfg in (("default", None), ("bilinear_tracking",
+                                               TraceConfig(bilinear_tracking=True))):
+            cb = c if cfg is None else capture_states(torch, dev, atlas, luts, bounces=(0,),
+                                                      scene=scene, cfg=cfg)[0][0]
+            frame = pt.BounceFrame(cb["st"], *cb["args"])
+            ka = lambda st: pt._kernel_args(st, cb["idx"], 0, *cb["args"], frame)  # noqa: E731
+            flight = kernels.bounce_flight(*ka(_clone_state(cb["st"])))
+            out["bounce0_ms"][f"{label} {name}"] = [
+                round(_bounce_ms(torch, cb["st"], lambda st: kernels.bounce_flight(*ka(st))), 4),
+                round(_bounce_ms(torch, cb["st"],
+                                 lambda st: kernels.bounce_shade(*ka(st), flight=flight)), 4)]
+            del cb, frame, flight
+        trips, _, cycles = _census(torch, c["st"], c["idx"], 0, c["args"],
+                                   pt.BounceFrame(c["st"], *c["args"]))
+        if scene == SCENE:
+            t = trips.to(torch.float64)
+            probes = int(sum(float(site_probes(torch, t[:, j], c["args"][3].march_k).sum())
+                             for j in MARCH_SITES))
+        split = cycle_split(torch, cycles)
+        sites, fl, sh, total = split
+        print(f"census {name} bounce 0: {split_text(split)}")
+        out["census_split"][name] = dict(
+            sites=[round(x, 4) for x in sites], flight=round(fl, 4), shade=round(sh, 4),
+            shade_rest=round(sh - sum(sites[4:]), 4), warp_cycles=total)
+        del sts, c, trips, cycles
+    taps = check_texture(torch, lookups, atlas, probes, frame_end_args)
+    out["taps"] = {k: v for k, v in taps.items() if isinstance(v, dict)}
+    kept = frame_end_args
+    n_pix = kept["n_pix"]
+
+    def frame_end_call():
+        z = lambda *shape: torch.zeros(shape, dtype=torch.float32, device=dev)  # noqa: E731
+        bufs = (z(n_pix, 3), z(n_pix), z(n_pix)) if kept["counts"] else (z(n_pix, 3), None, None)
+        return fe.frame_end(kept["responses"], kept["pid"], *bufs, **kept["kwargs"])
+
+    out["frame_end_ms"] = [round(_time_ms(torch, frame_end_call, 20)[1], 4) for _ in range(3)]
+    del states, lookups, frame_end_args, kept
+    r = _apollo(Renderer(dev, image_res=PREVIEW_RES, atlas=atlas, luts=luts, mode="preview"))
+    times = []
+    for i in range(12):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        r.accumulate()
+        r.fetch_image()
+        torch.cuda.synchronize()
+        if i >= 2:
+            times.append(round((time.time() - t0) * 1e3, 3))
+    out["preview_frame_ms"] = times
+    march, original = {}, raymarcher.march_paths
+
+    def keep(*args, **kwargs):
+        march.update(args=args, kwargs=kwargs)
+        return original(*args, **kwargs)
+
+    raymarcher.march_paths = keep
+    try:
+        r.accumulate()
+    finally:
+        raymarcher.march_paths = original
+    args, kw = march["args"], dict(march["kwargs"])
+    kw.setdefault("frame", raymarcher.PreviewFrame(*args[4:8], kw["tile"]))
+    out["preview_kernel_ms"] = [round(_time_ms(
+        torch, lambda: raymarcher.march_paths(*args, **kw), 20)[1], 4) for _ in range(3)]
+    del r, march, args, kw
+    out["s_per_spp"] = {}
+    for scene in (SCENE, FLORIDA, SUNSET):
+        make = lambda o: render_offline(load_config(scene), dev, spp=1, image_res=RES,  # noqa: E731
+                                        out_path=None, atlas=atlas, luts=luts,
+                                        cfg=TraceConfig(**o))
+        d, o, ratios = spp_ratio(torch, make({}), make(dict(bilinear_tracking=True)))
+        out["s_per_spp"][os.path.basename(scene)[9:-4]] = dict(
+            default=round(d, 5), bilinear_tracking=round(o, 5),
+            ratio_median=round(ratios[len(ratios) // 2], 4), ratios=[round(x, 4) for x in ratios])
+    funcs = sass_functions(kernels.library()._name)
+    out["sass"] = {entry: n for _, (entry, _, n) in sorted(bounce_instances(funcs).items())}
+    out["ptxas"] = {src: ptxas_entries(kernels.ptxas_log.get(src, "")) for src in
+                    ("texture_check.cu", "bounce.cu", "bounce_opts.cu", "preview.cu",
+                     "frame_end.cu")}
+    print(json.dumps({"tap_bench": out}))
+
+
+TAP_FORM_POINTS = (288428, 4270636)  # bounce 0's surface points and march probes (Apollo)
+
+
+def tap_form_points(torch, dev, n, layout, seed=5):
+    """(n, 3) float32 unit directions: "patch", lanes in row order over a
+    60 by 60 degree patch of the sphere (neighbouring lanes on neighbouring
+    texels, as a frame's pixels see the planet), or "random", seeded and
+    uniform over the sphere."""
+    if layout == "random":
+        g = torch.Generator(device=dev).manual_seed(seed)
+        d = torch.randn((n, 3), generator=g, device=dev, dtype=torch.float64)
+        return (d / d.norm(dim=1, keepdim=True)).float().contiguous()
+    side = math.isqrt(n - 1) + 1
+    k = torch.arange(n, device=dev, dtype=torch.float64)
+    lat = ((k // side) / side - 0.5) * (math.pi / 3)
+    lon = ((k % side) / side - 0.5) * (math.pi / 3)
+    return torch.stack([lat.cos() * lon.cos(), lat.sin(), lat.cos() * lon.sin()], -1).float()
+
+
+def tap_forms(torch, dev):
+    """``--tap-forms``: the forms of a bilinear tap's texel reads
+    (csrc/bench/tap_forms_bench.cu, ``kernels.TAP_FORMS``) on seeded
+    1024x2048 textures of 4 and 8 channels, at TAP_FORM_POINTS points in
+    two layouts (``tap_form_points``): per form its SASS body by pipe, its
+    registers (ptxas), every row bit-equal to the sphere tap's (else fails)
+    and its device ms (a CUDA graph of 20 calls; the forms timed in order,
+    then in reverse), writing the C channels and, apart, the sum of a tap's
+    channels (one float a point: the reads and conversions without C
+    strided stores a point). One JSON line."""
+    from digital_earth_tpu_torch import kernels
+
+    lib = kernels.bench_library()
+    funcs = sass_functions(lib._name)
+    regs = ptxas_entries(kernels.bench_ptxas_log.get(os.path.join("bench", "tap_forms_bench.cu"),
+                                                     ""))
+    g = torch.Generator(device=dev).manual_seed(11)
+    out = dict(card=nvidia_smi_line(), forms={k: v[0] for k, v in kernels.TAP_FORMS.items()})
+    for c in (4, 8):
+        tex = torch.randint(0, 256, (1024, 2048, c), generator=g, device=dev, dtype=torch.uint8)
+        forms = [f for f, (_, cs) in kernels.TAP_FORMS.items() if c in cs]
+        for f in forms:
+            name = next((m for m in funcs if f"tap_form_kernelILi{c}ELi{f}ELb0E" in m), None)
+            if name is None:
+                fail(f"the measurement library has no tap_form_kernel<{c}, {f}, false>")
+            _, per_pipe, count = sass_ops_bound(sass_main_body(funcs[name]), 1)
+            out[f"C{c} form {f}"] = dict(body=len(sass_main_body(funcs[name])), pipes=count,
+                                        xu=xu_ops(sass_main_body(funcs[name])),
+                                        registers=regs.get(f"tap_form_kernel<{c},{f},0>"))
+        for layout in ("patch", "random"):
+            for n in TAP_FORM_POINTS:
+                pos = tap_form_points(torch, dev, n, layout)
+                want = kernels.sphere_tap(tex, pos, True)
+                for f in forms:
+                    if not bool(_same_bits(torch, kernels.tap_form(tex, pos, f), want).all()):
+                        fail(f"tap form {f} at C = {c} parts from the sphere tap's bits")
+                times = {f: [] for f in forms}
+                sums = {f"sum {f}": [] for f in forms}
+                for order in (forms, forms[::-1]):
+                    for f in order:
+                        times[f].append(round(_graph_ms(
+                            torch, lambda: kernels.tap_form(tex, pos, f)), 5))
+                        sums[f"sum {f}"].append(round(_graph_ms(
+                            torch, lambda: kernels.tap_form(tex, pos, f, True)), 5))
+                times.update(sums)
+                times["sphere_tap"] = round(_graph_ms(
+                    torch, lambda: kernels.sphere_tap(tex, pos, True)), 5)
+                times["first_form"] = round(_graph_ms(
+                    torch, lambda: kernels.sphere_tap(tex, pos, True, first_form=True)), 5)
+                out[f"C{c} {layout} {n}"] = times
+                print(f"tap forms C = {c}, {layout}, {n} points: " + ", ".join(
+                    f"{k} {v}" for k, v in times.items()))
+                del pos, want
+    print(json.dumps({"tap_forms": out}))
+
+
 def spp_bench(torch, dev, reps=3):
     """``--spp-bench [DIR]``: per scene (``scene_runs``) at the default
     config and at the reference's estimator: s/spp, then ``reps`` profiled
@@ -6899,13 +7235,16 @@ def main():
     scount = args[:1] == ["--sass-counts"] and len(args) <= 2
     wbench = args[:1] == ["--widths-bench"] and len(args) <= 2
     nbench = args[:1] == ["--naive-bench"] and (len(args) <= 2 or args[2:] == ["march"])
+    tbench = args[:1] == ["--tap-bench"] and len(args) <= 2
+    tforms = args == ["--tap-forms"]
     if args and not (mesh_only or estimator_only or floors_only or widths_only or naive_only
-                     or bench or pbench or sbench or obench or scount or wbench or nbench):
+                     or bench or pbench or sbench or obench or scount or wbench or nbench
+                     or tbench or tforms):
         fail(f"unknown arguments {args} (the options are --mesh-only, --estimator-only, "
              "--floors-only, --widths-only, --naive-only, "
              "--preview-bench [DIR], --path-bench [DIR], --spp-bench [DIR], --options-bench "
-             "[DIR [SETTING ...]], --sass-counts [DIR], --widths-bench [DIR] and --naive-bench "
-             "[DIR])")
+             "[DIR [SETTING ...]], --sass-counts [DIR], --widths-bench [DIR], --naive-bench "
+             "[DIR], --tap-bench [DIR] and --tap-forms)")
     try:
         import torch
     except ImportError:
@@ -6915,8 +7254,8 @@ def main():
     if not os.path.isdir(os.path.join(ROOT, "digital_earth_tpu_torch")):
         fail("run from a checkout: digital_earth_tpu_torch/ is missing beside chip_smoke.py")
     sys.path.insert(0, os.path.abspath(args[1]) if (bench or pbench or sbench or obench or scount
-                                                    or wbench or nbench) and len(args) >= 2
-                    else ROOT)
+                                                    or wbench or nbench or tbench)
+                    and len(args) >= 2 else ROOT)
     dev = torch.device("cuda:0")
     if bench:
         preview_bench(torch, dev)
@@ -6938,6 +7277,12 @@ def main():
         return
     if nbench:
         naive_bench(torch, dev, args[2:] == ["march"])
+        return
+    if tbench:
+        tap_bench(torch, dev)
+        return
+    if tforms:
+        tap_forms(torch, dev)
         return
 
     from digital_earth_tpu_torch import kernels
@@ -7089,7 +7434,7 @@ def main():
     trips0 = census[0].to(torch.float64)
     probes = int(sum(float(site_probes(torch, trips0[:, site], march_k).sum())
                      for site in MARCH_SITES))
-    check_texture(torch, lookups, atlas, probes)
+    check_texture(torch, lookups, atlas, probes, frame_end_whole)
     del states, deepest, lookups, census, table
     check_window_spp(torch, dev, atlas, luts, schedule)
     rows["rmo_ratio_track"], _ = check_reference_estimator(torch, dev, atlas, luts, tf)

@@ -140,8 +140,10 @@
 //     march after: bounce_flight; shadow march, NEE cloud ratio tracking,
 //     NEE RMO ratio tracking (RATIO only): bounce_shade) into an (m, 7)
 //     int32 array, as the twin's masked loops count them, and, given an
-//     (m, 9) int64 array, each entry's clock64 cycles at the seven sites
-//     and in each kernel as a whole (columns 7 flight, 8 shade); the timed
+//     (m, 10) int64 array, each entry's clock64 cycles at the seven sites,
+//     in each kernel as a whole (columns 7 flight, 8 shade) and in the
+//     shade's surface branch (column 9: the normal's four topography taps
+//     and the material tap, on the lanes that reach a surface); the timed
 //     instances have no such code;
 //   - bounce_window: each listed lane from the given bounce to max_bounces
 //     or its death, its state in registers, in blocks of 64 threads.
@@ -191,9 +193,10 @@ constexpr int BOUNCE_SITES = 7;
 enum {
   SITE_PRE_MARCH, SITE_CLOUD, SITE_RMO, SITE_POST_MARCH, SITE_SHADOW, SITE_NEE_CLOUD, SITE_NEE_RMO
 };
-// The census's cycle columns: the seven sites, then each kernel's whole.
-constexpr int CYCLE_COLS = BOUNCE_SITES + 2;
-enum { CYC_FLIGHT = BOUNCE_SITES, CYC_SHADE };
+// The census's cycle columns: the seven sites, then each kernel's whole,
+// then the shade's surface branch.
+constexpr int CYCLE_COLS = BOUNCE_SITES + 3;
+enum { CYC_FLIGHT = BOUNCE_SITES, CYC_SHADE, CYC_SURFACE };
 
 struct BounceParams {
   float scale, step_floor, stall_thresh, o3_env_peak;
@@ -1089,6 +1092,7 @@ __device__ __forceinline__ void shade_lane(const BounceState& s, const BouncePar
 
   V3 offset_pos = pos, hemi_dir{0.0f, 1.0f, 0.0f}, normal{0.0f, 0.0f, 0.0f};
   LandMaterial mat{};
+  const long long c_surface = tick<COUNT>();
   if (surface) {
     const TexView topo{s.topo, p.topo_h, p.topo_w};
     const TexView material{s.material, p.mat_h, p.mat_w};
@@ -1099,6 +1103,7 @@ __device__ __forceinline__ void shade_lane(const BounceState& s, const BouncePar
     offset_pos = V3{land_pos.x * p.offset_scale, land_pos.y * p.offset_scale,
                     land_pos.z * p.offset_scale};
   }
+  tock<COUNT>(surface ? cyc : nullptr, CYC_SURFACE, c_surface);
   // the shadow march of the surface lanes, where the whole warp calls it
   MarchParams shadow = march_params(p);
   shadow.any_hit = 1;
@@ -1324,6 +1329,9 @@ __global__ void __launch_bounds__(BOUNCE_BLOCK)
   const int l = act ? lane : 0;  // a thread with no lane reads lane 0 and writes nothing
   int* trips = act ? entry_trips<COUNT>(s, t, SITE_SHADOW, BOUNCE_SITES) : nullptr;
   long long* cyc = act ? entry_cycles<COUNT>(s, t, SITE_SHADOW, BOUNCE_SITES) : nullptr;
+  if constexpr (COUNT) {
+    if (cyc) cyc[CYC_SURFACE] = 0;  // written where the lane reaches a surface
+  }
   const float4 o = act ? in[t] : make_float4(0.0f, -1.0f, 0.0f, 0.0f);
   const Flight f{__float_as_int(o.z), __float_as_int(o.w), o.x, o.y};
   LaneRegs<L> r;

@@ -92,8 +92,10 @@ ptxas_log = {}
 # and ptxas's report per source of the last build (by path under csrc/)
 _width_libs = {}
 width_ptxas_log = {}
-# the measurement library (bench_library), loaded
+# the measurement library (bench_library), loaded, and ptxas's report per
+# source when this process built it
 _bench_lib = None
+bench_ptxas_log = {}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _BOUNCE_ARGS = [_P] * 15 + [_I, _I] + [_P] * 6
@@ -169,6 +171,8 @@ _SIGNATURES = {
     "de_density_check": [_P] * 8 + [_I, _I, _P],
     # tex, H, W, C, pos, n, bilinear, out, stream
     "de_sphere_tap": [_P, _I, _I, _I, _P, _I, _I, _P, _P],
+    # tex, H, W, C, dir, n, bilinear, out, stream
+    "de_dir_tap": [_P, _I, _I, _I, _P, _I, _I, _P, _P],
     # keys, n, data, count, out, stream
     "de_threefry_uniform": [_P, _I, ctypes.c_uint, _I, _P, _P],
     # keys, n, data, depth, out, stream
@@ -193,6 +197,8 @@ _BENCH_SIGNATURES = {
     # topo, H, W, pos, dir, active, out, iters, cycles, n, scale, steps,
     # bilinear, stream
     "de_naive_march_loop": [_P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _F, _I, _I, _P],
+    # tex, H, W, C, pos, n, form, sum, out, stream
+    "de_tap_form": [_P, _I, _I, _I, _P, _I, _I, _I, _P, _P],
 }
 
 
@@ -351,7 +357,7 @@ def bench_library():
             srcs = _dir_sources(BENCH_DIR)
             so = os.path.join(_library_dir("bench", srcs), "libde_bench.so")
             if not os.path.exists(so):
-                _nvcc([(so, srcs, [], {})])
+                _nvcc([(so, srcs, [], bench_ptxas_log)])
             _bench_lib = _load(so, _BENCH_SIGNATURES, _BENCH_SIGNATURES)
         return _bench_lib
 
@@ -389,6 +395,16 @@ def _check_tex4(name, t, device):
     if t.data_ptr() % 4:
         raise ValueError(f"{name}: data not 4-byte aligned (the kernels read a 4-channel texel "
                          "as one 32-bit word)")
+
+
+def _check_tex8(name, t, device):
+    """A uint8 (H, W, 8) texture: the kernels' bilinear taps read a texel as
+    one 64-bit word (csrc/texture.cuh texel8), so its data must be 8-byte
+    aligned."""
+    _check(name, t, torch.uint8, (*t.shape[:2], 8), device)
+    if t.data_ptr() % 8:
+        raise ValueError(f"{name}: data not 8-byte aligned (the kernels read an 8-channel texel "
+                         "as one 64-bit word)")
 
 
 def _launch(fn_name, *args, width=None):
@@ -657,6 +673,37 @@ def naive_march_loop(topo, pos, direction, active, scale: float, *, steps: int,
                 _ptr(active), _ptr(out), _ptr(it), _ptr_or_null(cycles), n, scale, steps,
                 int(bilinear))
     return (out, it, cycles) if census else (out, it)
+
+
+# csrc/bench/tap_forms_bench.cu's forms of a bilinear tap's texel reads:
+# {form: (name, the channel counts it takes)}
+TAP_FORMS = {0: ("bytes, I2F", (4, 8)), 1: ("word, PRMT", (4, 8)), 2: ("word, I2F", (4, 8)),
+             3: ("halves, PRMT", (8,)), 4: ("bytes, FADD", (4, 8)),
+             5: ("words, PRMT, by channel", (4, 8)), 6: ("bytes, I2F, by channel", (4, 8)),
+             7: ("the first form", (4, 8)), 8: ("words, PRMT operands reversed, by channel", (4, 8))}
+
+
+def tap_form(tex, pos, form: int, channel_sum: bool = False):
+    """Measurement launcher (csrc/bench/tap_forms_bench.cu; no render path
+    launches it): the (n, C) bilinear tap of a uint8 (H, W, C) texture, C 4
+    or 8, at the direction of each ``pos`` with its texels read and turned
+    into floats in ``form`` (``TAP_FORMS``; every form gives the sphere
+    tap's bits), or with ``channel_sum`` the (n,) sum of each tap's
+    channels in channel order."""
+    dev = pos.device
+    n = pos.shape[0]
+    h, w, c = tex.shape
+    if form not in TAP_FORMS or c not in TAP_FORMS[form][1]:
+        raise ValueError(f"tap_form: form {form} at {c} channels (TAP_FORMS {TAP_FORMS})")
+    if c == 4:
+        _check_tex4("tex", tex, dev)
+    else:
+        _check_tex8("tex", tex, dev)
+    _check("pos", pos, torch.float32, (n, 3), dev)
+    out = torch.empty((n,) if channel_sum else (n, c), dtype=torch.float32, device=dev)
+    _launch("de_tap_form", _ptr(tex), h, w, c, _ptr(pos), n, int(form), int(channel_sum),
+            _ptr(out))
+    return out
 
 
 NAIVE_SPECIES = ("rmo", "cloud")
@@ -1064,8 +1111,9 @@ BOUNCE_FLOATS = 16 + 2 * len(BOUNCE_ESTIMATOR_FLOATS) + len(BOUNCE_FLOOR_FLOATS)
 BOUNCE_INTS = 16 + len(BOUNCE_OPTIONS) + len(BOUNCE_ESTIMATOR_INTS)
 BOUNCE_SITES = 7  # the census's loop sites (csrc/bounce.cuh SITE_*)
 # the census's clock64 columns: the seven sites, then bounce_flight's and
-# bounce_shade's whole (csrc/bounce.cuh CYCLE_COLS)
-BOUNCE_CYCLE_COLS = BOUNCE_SITES + 2
+# bounce_shade's whole, then the shade's surface branch (the normal's four
+# topography taps and the material tap; csrc/bounce.cuh CYCLE_COLS)
+BOUNCE_CYCLE_COLS = BOUNCE_SITES + 3
 # de_bounce_occupancy's entries
 OCCUPANCY_ENTRIES = ("bounce_flight", "bounce_shade", "bounce_window")
 
@@ -1167,7 +1215,7 @@ def _bounce_args(fparams, iparams, pos, direction, wavelength, lambda_pdf, throu
     if m > n:
         raise ValueError(f"bounce: {m} lane ids for {n} lanes")
     _check_tex4("topo", topo, dev)
-    _check("material", material, torch.uint8, (*material.shape[:2], 8), dev)
+    _check_tex8("material", material, dev)
     _check_tex4("clouds", clouds, dev)
     if tuple(iparams[9:15]) != (*topo.shape[:2], *material.shape[:2], *clouds.shape[:2]):
         raise ValueError("bounce: texture sizes disagree with the int parameters")
@@ -1217,7 +1265,7 @@ def bounce_flight(*args, n_live=None, trips=None, cycles=None, options=False):
     (``idx`` is then an upper bound's worth). With ``trips``, an (m, 7)
     int32 tensor, the census instance also writes each entry's trip count
     at the flight's four loop sites (columns 0-3), and with ``cycles``, an
-    (m, 9) int64 tensor, its clock64 cycles there and in the whole kernel
+    (m, 10) int64 tensor, its clock64 cycles there and in the whole kernel
     (column 7). The wavelengths per lane (``iparams[0]``) and the sun
     transmittance (``iparams[15]``: 1 ratio tracking, 0 the closed form)
     pick the kernels' instance, an option off its default (or ``options``)
@@ -1246,7 +1294,8 @@ def bounce_shade(*args, flight, n_live=None, trips=None, cycles=None, options=Fa
     list. With ``trips``, the census instance writes the trip counts of the
     shadow march, NEE cloud tracking and NEE RMO ratio tracking (columns
     4-6; column 6 is 0 with the closed form), with ``cycles`` their clock64
-    cycles and the whole kernel's (column 8)."""
+    cycles, the whole kernel's (column 8) and the surface branch's, on the
+    lanes that reach a surface (column 9; 0 on the others)."""
     c_args, _refs, opts, L = _bounce_args(*args, n_live, options)
     m = args[13].shape[0]
     dev = args[2].device
@@ -1370,10 +1419,21 @@ def density_check(pos, direction, t0, t1, ext_rmo, table):
     return seg, trans
 
 
-def sphere_tap(tex, pos, bilinear: bool):
+def _tap_mode(bilinear: bool, first_form: bool) -> int:
+    """csrc/texture_check.cu's tap mode: 0 nearest, 1 bilinear, 2 the
+    bilinear form texture.cuh first had."""
+    if first_form and not bilinear:
+        raise ValueError("first_form: the first form is a bilinear tap")
+    return 2 if first_form else int(bilinear)
+
+
+def sphere_tap(tex, pos, bilinear: bool, first_form: bool = False):
     """Test launcher of the kernels' sphere tap (not a path kernel): the
     (n, C) tap of a uint8 (H, W, C) texture, C 4 or 8, at the direction of
-    each ``pos``, computed on the card by csrc/texture_check.cu."""
+    each ``pos``, computed on the card by csrc/texture_check.cu; with
+    ``first_form`` by the bilinear form texture.cuh first had (a byte read
+    and a conversion a channel, two remainders), which the card holds the
+    bilinear tap bit for bit against."""
     dev = pos.device
     n = pos.shape[0]
     h, w, c = tex.shape
@@ -1382,10 +1442,27 @@ def sphere_tap(tex, pos, bilinear: bool):
     if c == 4:
         _check_tex4("tex", tex, dev)
     else:
-        _check("tex", tex, torch.uint8, (h, w, c), dev)
+        _check_tex8("tex", tex, dev)
     _check("pos", pos, torch.float32, (n, 3), dev)
     out = torch.empty((n, c), dtype=torch.float32, device=dev)
-    _launch("de_sphere_tap", _ptr(tex), h, w, c, _ptr(pos), n, int(bilinear), _ptr(out))
+    _launch("de_sphere_tap", _ptr(tex), h, w, c, _ptr(pos), n, _tap_mode(bilinear, first_form),
+            _ptr(out))
+    return out
+
+
+def dir_tap(tex, direction, bilinear: bool, first_form: bool = False):
+    """Test launcher of the kernels' direction tap (not a path kernel): the
+    (n, 3) tap of a uint8 (H, W, 3) texture (the stars) at each unit
+    ``direction``, as ``frame_end`` and ``preview`` take it, computed on the
+    card by csrc/texture_check.cu; ``first_form`` as ``sphere_tap``'s."""
+    dev = direction.device
+    n = direction.shape[0]
+    h, w = tex.shape[:2]
+    _check("tex", tex, torch.uint8, (h, w, 3), dev)
+    _check("direction", direction, torch.float32, (n, 3), dev)
+    out = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    _launch("de_dir_tap", _ptr(tex), h, w, 3, _ptr(direction), n,
+            _tap_mode(bilinear, first_form), _ptr(out))
     return out
 
 
@@ -1534,7 +1611,7 @@ def preview(fparams, iparams, key, pos, direction, wavelength, tile_index, lane_
         _check("tile_index", tile_index, torch.int64, (n,), dev)
         _check("lane_index", lane_index, torch.int64, (n,), dev)
     _check_tex4("topo", topo, dev)
-    _check("material", material, torch.uint8, (*material.shape[:2], 8), dev)
+    _check_tex8("material", material, dev)
     _check("stars", stars, torch.uint8, (*stars.shape[:2], 3), dev)
     if tuple(iparams[5:11]) != (*topo.shape[:2], *material.shape[:2], *stars.shape[:2]):
         raise ValueError("preview: texture sizes disagree with the int parameters")

@@ -282,6 +282,25 @@ def test_bounce_census_arithmetic():
     assert total == 100.0 and (flight, shade) == (0.4, 0.6) and sites == [
         x / 100 for x in range(1, 8)]
 
+
+def test_cycle_split_reads_the_surface_branch():
+    """chip_smoke.py's split of a census with the shade's surface branch
+    (the tenth clock64 column, after the two kernels' whole): its share
+    follows the seven sites', and the shade's straight-line rest leaves it
+    out; a census of six sites (eight columns) and one without the branch
+    (nine) read as before."""
+    cs = _chip_smoke()
+    cycles = torch.tensor([[1, 2, 3, 4, 5, 6, 7, 40, 60, 20],
+                           [0, 0, 0, 0, 0, 0, 0, 0, 0, 0]], dtype=torch.int64)
+    sites, flight, shade, total = cs.cycle_split(torch, cycles)
+    assert total == 100.0 and (flight, shade) == (0.4, 0.6)
+    assert sites == [x / 100 for x in range(1, 8)] + [0.2]
+    text = cs.split_text((sites, flight, shade, total))
+    assert "surface branch 0.200" in text and "rest 0.220)" in text
+    assert cs.cycle_split(torch, cycles[:, :9])[0] == sites[:7]
+    six = torch.tensor([[1, 2, 3, 4, 5, 6, 40, 60]], dtype=torch.int64)
+    assert cs.cycle_split(torch, six)[0] == [x / 100 for x in range(1, 7)]
+
 # ptxas's report of bounce.cu as nvcc 12.9 prints it (sm_90a, BOUNCE_L 4):
 # the timed instances, a census instance and a device function between them
 _PTXAS_BOUNCE = """\

@@ -181,6 +181,28 @@ def test_texture_sampling(atlases, bilinear):
           jtx.sample_dir_texture(jatlas.stars, J(V), bilinear), atol=5e-5)
 
 
+@pytest.mark.parametrize("bilinear", [False, True])
+def test_texture_sampling_at_the_edges(atlases, bilinear):
+    """sample_sphere_texture and sample_dir_texture against the JAX
+    package's at the taps' edge points (ops/texture.tap_edge_points: u at
+    exactly 0 and 1, the seam, both poles and the clamped rows, zero-length,
+    tiny, overflowing, NaN and infinite points) on the 4-, 8- and 3-channel
+    textures: the twin the card holds its taps to. Tighter than
+    test_texture_sampling's 5e-5: nearest taps equal, bilinear ones within
+    2e-6 (the angles' last-bit differences through the lerp: 9.4e-7 at
+    most), NaN where the reference is NaN."""
+    _, jatlas, tatlas = atlases
+    tol = dict(rtol=0.0, atol=2e-6 if bilinear else 0.0)
+    for name in ("topography", "material", "stars"):
+        tex, jtex = getattr(tatlas, name), getattr(jatlas, name)
+        pts = ttx.tap_edge_points(*tex.shape[:2])
+        p = pts.numpy()
+        close(ttx.sample_sphere_texture(tex, pts, bilinear),
+              jtx.sample_sphere_texture(jtex, J(p), bilinear=bilinear), **tol)
+        close(ttx.sample_dir_texture(tex, pts, bilinear),
+              jtx.sample_dir_texture(jtex, J(p), bilinear), **tol)
+
+
 def test_luts_match(luts):
     jl, tl = luts
     for f in tluts.SpectralLUTs._fields:

@@ -1463,7 +1463,9 @@ def test_bounce_census_matches_the_twins_loops(dev, bounce):
 def test_bounce_clock_census_keeps_the_bits(dev, bounce):
     """The census instances with their clock64 columns leave the timed
     instances' state bit for bit and write each entry's cycles: each site's
-    within its kernel's whole."""
+    within its kernel's whole, the shade's surface branch (column 9) within
+    the shade's, and only on the lanes that reach a surface (0 on the
+    others)."""
     from digital_earth_tpu_torch import kernels
 
     st, args = _golden_state(dev, bounce)
@@ -1479,8 +1481,14 @@ def test_bounce_clock_census_keeps_the_bits(dev, bounce):
     flight = kernels.bounce_flight(*ka, trips=trips, cycles=cycles)
     kernels.bounce_shade(*ka, flight=flight, trips=trips, cycles=cycles)
     assert _same_state(timed, census)
-    assert (cycles >= 0).all() and (cycles[:, 7:] > 0).all()
+    assert (cycles >= 0).all() and (cycles[:, 7:9] > 0).all()
     assert (cycles[:, :4] <= cycles[:, 7:8]).all() and (cycles[:, 4:7] <= cycles[:, 8:9]).all()
+    assert (cycles[:, 9] <= cycles[:, 8]).all()
+    outcome = flight[:, 2].view(torch.int32), flight[:, 1]
+    surface = (outcome[0] == 0) & (outcome[1] > 0)
+    assert bool(surface.any()) or bounce > 0
+    assert (cycles[surface, 9] > 0).all()
+    assert (cycles[~surface, 9] == 0).all()
     assert (cycles[:, 6] == 0).all() and (trips[:, 6] == 0).all()  # the closed form: no NEE RMO
     with pytest.raises(ValueError, match="trips"):
         kernels.bounce_flight(*ka, cycles=cycles)
@@ -1656,19 +1664,62 @@ def test_bounce_launchers_check_their_inputs(case):
         kernels.bounce_window(*ka[:13], idx.long(), *ka[14:], stop=3)
 
 
+def _hold_tap(got, want, points, first=None):
+    """A tap within 1e-5 of its twin (the same op-by-op rounding;
+    chip_smoke.py TAP_ATOL) on the rows finite in both whose point has no
+    NaN or infinite component (there the kernel's fminf and fmaxf take a NaN
+    as missing and torch.clamp keeps it, so the two may tap other texels:
+    ROADMAP C #8), and with ``first`` (the first bilinear form's tap) bit for
+    bit on every row, NaN payloads included. Returns the rows bit-equal to
+    the twin (a NaN equal to a NaN)."""
+    assert got.shape == want.shape
+    fin = got.isfinite().all(-1) & want.isfinite().all(-1) & points.isfinite().all(-1)
+    assert fin.float().mean().item() > 0.8
+    assert (got[fin] - want[fin]).abs().max().item() <= 1e-5
+    if first is not None:
+        assert torch.equal(got.view(torch.int32), first.view(torch.int32))
+    return ((got == want) | (got.isnan() & want.isnan())).all(-1)
+
+
 @pytest.mark.parametrize("bilinear", [True, False])
 def test_sphere_tap_kernel(case, bilinear):
     """The bounce's material (8-channel) and topography (4-channel) taps
-    against ops/texture.sample_sphere_texture: within 1e-5 (the same op-by-op
-    rounding; chip_smoke.py TAP_ATOL)."""
+    against ops/texture.sample_sphere_texture at the case's points and on
+    the edge sweep (ops/texture.tap_edge_points: u at 0 and 1, the seam, the
+    poles and clamped rows, zero-length, NaN and infinite points): within
+    1e-5 where both are finite at points of finite components, the bilinear
+    tap bit for bit against the form texture.cuh first had on every point,
+    and at least as often bit-equal to the twin as that form."""
     from digital_earth_tpu_torch import kernels
     from digital_earth_tpu_torch.ops import texture as tx
 
     for tex in (case["atlas"].material, case["atlas"].topography):
-        got = kernels.sphere_tap(tex, case["pos"], bilinear)
-        want = tx.sample_sphere_texture(tex, case["pos"], bilinear=bilinear)
-        assert got.shape == want.shape
-        assert (got - want).abs().max().item() <= 1e-5
+        for pos in (case["pos"], tx.tap_edge_points(*tex.shape[:2], device=tex.device)):
+            got = kernels.sphere_tap(tex, pos, bilinear)
+            want = tx.sample_sphere_texture(tex, pos, bilinear=bilinear)
+            first = kernels.sphere_tap(tex, pos, True, first_form=True) if bilinear else None
+            same = _hold_tap(got, want, pos, first)
+            if bilinear:
+                assert same.sum() >= _hold_tap(first, want, pos).sum()
+
+
+@pytest.mark.parametrize("bilinear", [True, False])
+def test_dir_tap_kernel(case, bilinear):
+    """The stars' 3-channel direction tap (texture.cuh dir_tap, as frame_end
+    and preview take it) against ops/texture.sample_dir_texture at the
+    case's directions and on the edge sweep: as test_sphere_tap_kernel
+    holds the sphere taps."""
+    from digital_earth_tpu_torch import kernels
+    from digital_earth_tpu_torch.ops import texture as tx
+
+    stars = case["atlas"].stars
+    for d in (case["dirs"], tx.tap_edge_points(*stars.shape[:2], device=stars.device)):
+        got = kernels.dir_tap(stars, d, bilinear)
+        want = tx.sample_dir_texture(stars, d, bilinear=bilinear)
+        first = kernels.dir_tap(stars, d, True, first_form=True) if bilinear else None
+        same = _hold_tap(got, want, d, first)
+        if bilinear:
+            assert same.sum() >= _hold_tap(first, want, d).sum()
 
 
 @pytest.mark.parametrize("shape,factor,jitter,channel,seed", [

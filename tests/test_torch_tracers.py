@@ -131,17 +131,27 @@ def _misaligned_texture(h, w):
     return tex
 
 
-def _texture_call(wrapper, tex):
+def _misaligned_material(h, w):
+    """A contiguous uint8 (h, w, 8) texture whose data starts four bytes into
+    its buffer: 4-byte but not 8-byte aligned."""
+    tex = torch.zeros(h * w * 8 + 4, dtype=torch.uint8)[4:].view(h, w, 8)
+    assert tex.is_contiguous() and tex.data_ptr() % 8 == 4
+    return tex
+
+
+def _texture_call(wrapper, tex, material=None):
     """A call of ``wrapper`` (kernels' function, "/texture" naming the one
     it gets where it takes two) on CPU tensors of 4 lanes, ``tex`` in place
-    of its 4-channel texture."""
+    of its 4-channel texture (sphere_tap's texture, of any channels), and
+    ``material`` in place of its 8-channel one where given."""
     from digital_earth_tpu_torch import kernels
 
     n, (h, w) = 4, tex.shape[:2]
     z3, z = torch.zeros((n, 3)), torch.zeros(n)
     act = torch.ones(n, dtype=torch.bool)
     good = torch.zeros((h, w, 4), dtype=torch.uint8)
-    material = torch.zeros((h, w, 8), dtype=torch.uint8)
+    if material is None:
+        material = torch.zeros((h, w, 8), dtype=torch.uint8)
     o3, srgb2spec = torch.zeros(441), torch.zeros((300, 3))
     name, _, which = wrapper.partition("/")
     if name == "cloud_track":
@@ -184,6 +194,40 @@ def test_kernel_wrappers_refuse_a_misaligned_4_channel_texture(wrapper):
     aligned, before any launch."""
     with pytest.raises(ValueError, match="4-byte aligned"):
         _texture_call(wrapper, _misaligned_texture(8, 16))()
+
+
+@pytest.mark.parametrize("wrapper", [
+    "sphere_tap", "preview", "bounce_flight", "bounce_shade", "bounce_window",
+])
+def test_kernel_wrappers_refuse_a_misaligned_8_channel_texture(wrapper):
+    """The kernels' bilinear taps read an 8-channel texel as one 64-bit word
+    (csrc/texture.cuh texel8): every wrapper that passes an 8-channel
+    texture (the material) to a kernel rejects a contiguous one whose data
+    is 4-byte but not 8-byte aligned, before any launch."""
+    material = _misaligned_material(8, 16)
+    good = torch.zeros((8, 16, 4), dtype=torch.uint8)
+    call = (_texture_call(wrapper, material) if wrapper == "sphere_tap"
+            else _texture_call(wrapper, good, material=material))
+    with pytest.raises(ValueError, match="8-byte aligned"):
+        call()
+
+
+def test_tap_launchers_refuse_what_they_do_not_take():
+    """The texture taps' test and measurement launchers refuse, before any
+    launch: the first bilinear form asked for with a nearest tap, a
+    direction tap of other than 3 channels, and a texel-read form at a
+    channel count it has no instance for."""
+    from digital_earth_tpu_torch import kernels
+
+    tex4, z3 = torch.zeros((4, 8, 4), dtype=torch.uint8), torch.zeros((2, 3))
+    with pytest.raises(ValueError, match="first_form"):
+        kernels.sphere_tap(tex4, z3, False, first_form=True)
+    with pytest.raises(ValueError, match="first_form"):
+        kernels.dir_tap(torch.zeros((4, 8, 3), dtype=torch.uint8), z3, False, first_form=True)
+    with pytest.raises(ValueError, match="shape"):
+        kernels.dir_tap(tex4, z3, True)
+    with pytest.raises(ValueError, match="form 3 at 4 channels"):
+        kernels.tap_form(tex4, z3, 3)
 
 
 def _rmo_spans(case):

@@ -6,7 +6,7 @@
                            | --preview-bench [DIR] | --path-bench [DIR] | --spp-bench [DIR]
                            | --options-bench [DIR [SETTING ...]] | --sass-counts [DIR]
                            | --widths-bench [DIR] | --naive-bench [DIR [march]]
-                           | --tap-bench [DIR] | --tap-forms]
+                           | --tap-bench [DIR]]
 
 Run from the root of a checkout on a machine with a CUDA card, ``nvcc`` and
 PyTorch built for CUDA; ``--mesh-only`` runs phases 1-3 and 19 alone (say,
@@ -51,10 +51,9 @@ naive_shadow (the march sites' steps and SIMT), for the package in DIR, and
 ``--tap-bench [DIR]`` the texture taps (``check_texture``'s rows, timed on the
 device), the census's split of bounce 0 with the shade's surface branch on
 the three scenes, their s/spp at the default and at bilinear_tracking,
-frame_end and the preview frame, for the package in DIR, and ``--tap-forms``
-the forms of a bilinear tap's texel reads (csrc/bench/tap_forms_bench.cu)
-side by side. It imports nothing of JAX or of the JAX package ``digital_earth_tpu`` (checked
-at the end). Phases, each of which raises on failure (exit code 1):
+frame_end and the preview frame, for the package in DIR. It imports
+nothing of JAX or of the JAX package ``digital_earth_tpu`` (checked at the
+end). Phases, each of which raises on failure (exit code 1):
 
 1. toolchain: torch, CUDA, nvcc, Triton versions and the card
    (``nvidia-smi --query-gpu=name,power.limit``);
@@ -2098,17 +2097,16 @@ def options_registers(kernels):
 def bilinear_tap_extra(kernels):
     """The SASS instructions a bilinear 4-channel sphere tap adds to a
     nearest one, as the options rows' bounds count them per bilinear tap:
-    FIRST_BILINEAR_TAP_EXTRA, the first form's difference, held whatever
-    the tap now takes; prints the main bodies' difference in this build
-    (the sphere_tap launcher's instances, ``tap_bodies``) and the first
-    form's beside it."""
+    the lower of the main bilinear body's difference and the first form's
+    (the sphere_tap launcher's instances, ``tap_bodies``), both printed."""
     bodies = tap_bodies(kernels)
     near = len(bodies[("sphere", 4, "nearest")])
     bil, first = len(bodies[("sphere", 4, "bilinear")]), len(bodies[("sphere", 4, "first")])
+    extra = min(bil, first) - near
     print(f"sphere tap SASS: nearest {near}, bilinear {bil} instructions: {bil - near} more a "
           f"bilinear tap (the first form {first - near}); the options rows' bounds count "
-          f"{FIRST_BILINEAR_TAP_EXTRA} more, the first form's as recorded")
-    return FIRST_BILINEAR_TAP_EXTRA
+          f"{extra} more")
+    return extra
 
 
 def _option_probes(torch, trips, march_k):
@@ -5034,6 +5032,44 @@ def check_density(torch, lookups):
         fail("density_check disagrees with the plain table lookups")
 
 
+def tap_edge_points(torch, h, w, device="cpu", seed=25):
+    """(n, 3) float32 points at which the taps of an (h, w) texture are held
+    at their edges, as positions (ops/texture.sample_sphere_texture) or
+    directions (sample_dir_texture): u exactly 0 and 1 (atan2 of -0 and +0
+    at -1, at the equator and towards the poles); u within a texel of the seam on
+    either side (x0f = -1 below half a texel; nearest 0.01 texel and more
+    from its rounding edges); both poles and the rows the clamp holds (v
+    within 1.25 texels of 0 and 1); zero-length, tiny and overflowing
+    positions; NaN and infinite components; then 64 seeded unit directions."""
+    rows = []
+    for y in (0.0, 0.5, -0.5, 0.999, -0.999):
+        c = math.sqrt(1.0 - y * y)
+        rows += [(c, y, -0.0), (c, y, 0.0)]
+    for k in (0.01, 0.25, 0.49, 0.51, 0.75, 0.99, 1.25):
+        a = 2.0 * math.pi * k / w  # k texels from the seam: atan2 = -pi + a or pi - a
+        for phi in (-math.pi + a, math.pi - a):
+            for y in (0.0, 0.3):
+                c = math.sqrt(1.0 - y * y)
+                rows.append((-c * math.cos(phi), y, c * math.sin(phi)))
+    for k in (0.0, 0.25, 0.49, 0.51, 0.75, 1.25):
+        b = math.pi * k / h  # k texel rows from a pole
+        for sy in (1.0, -1.0):
+            for phi in (0.4, -2.5):
+                rows.append((-math.sin(b) * math.cos(phi), sy * math.cos(b),
+                             math.sin(b) * math.sin(phi)))
+    nan, inf = math.nan, math.inf
+    rows += [(0.0, 0.0, 0.0), (-0.0, -0.0, -0.0), (1e-30, 0.0, 0.0), (0.0, 1e-45, 0.0),
+             (3e38, 3e38, 3e38), (-3e38, 1.0, 3e38), (nan, 0.0, 0.0), (0.0, nan, 0.0),
+             (0.0, 0.0, nan), (nan, nan, nan), (inf, 0.0, 0.0), (-inf, 0.0, 0.0),
+             (0.0, inf, 0.0), (0.0, -inf, 0.0), (0.0, 0.0, inf), (0.0, 0.0, -inf),
+             (inf, inf, inf), (-inf, inf, -inf), (inf, nan, 1.0)]
+    g = torch.Generator().manual_seed(seed)
+    rnd = torch.randn((64, 3), generator=g, dtype=torch.float64)
+    rnd = rnd / rnd.norm(dim=1, keepdim=True)
+    pts = torch.cat([torch.tensor(rows, dtype=torch.float64), rnd])
+    return pts.to(torch.float32).to(device)
+
+
 def march_probe_points(torch, marches):
     """The points at which the land march's plain twin taps the topography
     in the march calls ``marches`` (bounce 0's, ``capture_inputs``): every
@@ -5078,13 +5114,6 @@ TAP_INSTANCES = {("sphere", 4, "nearest"): "sphere_tap_kernelILi4ELb0E",
                  ("dir", 3, "nearest"): "dir_tap_kernelILi3ELb0E",
                  ("dir", 3, "bilinear"): "dir_tap_kernelILi3ELb1E",
                  ("dir", 3, "first"): "dir_tap_first_kernelILi3E"}
-# The SASS instructions the first bilinear 4-channel sphere tap (a byte load
-# and an I2F a channel, two remainders by W) added to a nearest one: 343 less
-# 232 (the sphere_tap launcher's two instances, nvcc 12.9 for an NVIDIA H100
-# 80GB HBM3; PERF.md row 2o). The options rows' bounds count a bilinear tap
-# as this much more work than a nearest one, whatever form the tap now takes,
-# so that a cheaper tap does not also lower its own yardstick.
-FIRST_BILINEAR_TAP_EXTRA = 111
 
 
 def tap_bodies(kernels):
@@ -5114,68 +5143,74 @@ def _same_bits(torch, a, b):
 
 def _twin_rows(torch, got, want, held=None):
     """(rows equal to the twin's, a NaN equal to a NaN; the largest
-    difference on the ``held`` rows (all by default) finite in both; rows
-    finite in one only)."""
+    difference on the ``held`` rows (all by default) finite in both; the
+    held rows not finite in both)."""
     same = ((got == want) | (got.isnan() & want.isnan())).all(-1)
     fin = got.isfinite().all(-1) & want.isfinite().all(-1)
-    if held is not None:
-        fin &= held
-    err = (got[fin] - want[fin]).abs().max().item() if bool(fin.any()) else 0.0
-    return same, err, int((got.isfinite().all(-1) != want.isfinite().all(-1)).sum())
+    if held is None:
+        held = torch.ones_like(fin)
+    err = (got[fin & held] - want[fin & held]).abs().max().item() if bool((fin & held).any()) \
+        else 0.0
+    return same, err, int((held & ~fin).sum())
 
 
 def _tap_case(torch, label, tap, twin, n, bodies, key, nbytes, rows, points=None):
     """One tap's check at one set of points: ``tap(bilinear, first_form)``
     the launcher, ``twin(bilinear)`` the plain tap. Nearest and bilinear
-    each timed per call and on the device (a CUDA graph of 20 calls), held
-    within TAP_ATOL of the twin on rows finite in both, with their share
-    bit-equal to it; with ``points``, only on the rows whose point has no
-    NaN or infinite component (the kernel's fminf and fmaxf take a NaN as
-    missing, torch.clamp keeps it, so there the two may tap other texels),
-    the others counted apart; the bilinear tap also against the first form (every
-    row bit for bit, else fails), timed in turns with it (first, tap, tap,
-    first). Bounds: ``nbytes`` (the nearest tap's, the bilinear tap's) at
-    the memory rate and the operations of the SASS body (``bodies``, ``key``
-    = (tap, C)), the bilinear tap's from the first form's body (the work it
-    replaced). Fills ``rows[label]``; returns its forms' rows."""
+    each timed per call and on the device (a CUDA graph of 20 calls), every
+    row finite in both and within TAP_ATOL of the twin, with their share
+    bit-equal to it; with ``points`` (the edge sweep), only the rows whose
+    point has no NaN or infinite component (the kernel's fminf and fmaxf
+    take a NaN as missing, torch.clamp keeps it, so there the two may tap
+    other texels: ROADMAP C #8), the others counted apart; the bilinear tap
+    also against the first form (every row bit for bit, else fails), timed
+    in turns with it (first, tap, tap, first). Bounds: ``nbytes`` (the
+    nearest tap's, the bilinear tap's) at the memory rate and the
+    operations of a SASS body (``bodies``, ``key`` = (tap, C)); the
+    bilinear tap's from the lower of its body and the first form's (the
+    work the function needs), the first form's own bound printed beside it.
+    Fills ``rows[label]``; returns its forms' rows."""
     out = {}
     for bilinear in (False, True):
         form = "bilinear" if bilinear else "nearest"
         got, ms = _time_ms(torch, lambda: tap(bilinear, False), 5)
         want, plain_ms = _plain_ms(torch, lambda: twin(bilinear))
         held = None if points is None else points.isfinite().all(-1)
-        same, err, finite_parts = _twin_rows(torch, got, want, held)
+        same, err, nonfinite = _twin_rows(torch, got, want, held)
         share = same.float().mean().item() if n else 1.0
         row = dict(n=n, ms=ms, plain_ms=plain_ms, share=share, max_abs_err=err,
-                   finite_parts=finite_parts)
+                   nonfinite=nonfinite)
         if held is not None:
             row["not_held"] = int((~held).sum())
             row["not_held_parted"] = int((~held & ~same).sum())
-        work = bodies[(*key, "first" if bilinear else "nearest")]
-        ops_ms, per_pipe, count = sass_ops_bound(work, n)
-        row["bound_ms"], row["bound_by"] = max((nbytes[bilinear] / PEAK_BYTES * 1e3, "bytes"),
-                                               (ops_ms, "operations"))
-        _, _, row["pipes"] = sass_ops_bound(bodies[(*key, form)], n)
-        row["body"] = len(bodies[(*key, form)])
+        body = bodies[(*key, form)]
+        ops_ms, _, row["pipes"] = sass_ops_bound(body, n)
+        row["body"] = len(body)
+        bytes_ms = nbytes[bilinear] / PEAK_BYTES * 1e3
+        if bilinear:
+            first_body = bodies[(*key, "first")]
+            first_ops_ms, _, row["first_pipes"] = sass_ops_bound(first_body, n)
+            row["first_body"] = len(first_body)
+            row["first_bound_ms"] = max(bytes_ms, first_ops_ms)
+            ops_ms = min(ops_ms, first_ops_ms)
+        row["bound_ms"], row["bound_by"] = max((bytes_ms, "bytes"), (ops_ms, "operations"))
         if bilinear:
             first = tap(True, True)
             row["first_bit_equal_rows"] = int(_same_bits(torch, got, first).sum())
             row["first_share"] = (_twin_rows(torch, first, want)[0].float().mean().item()
                                   if n else 1.0)
-            row["first_pipes"], row["first_body"] = count, len(work)
             t = [_graph_ms(torch, lambda: tap(True, f)) for f in (True, False, False, True)]
             row["first_graph_ms"], row["graph_ms"] = [t[0], t[3]], [t[1], t[2]]
         else:
             row["graph_ms"] = [_graph_ms(torch, lambda: tap(False, False))]
-        del got, want
         out[form] = row
-        ok = err <= TAP_ATOL and (not bilinear or row["first_bit_equal_rows"] == n)
+        ok = (err <= TAP_ATOL and nonfinite == 0
+              and (not bilinear or row["first_bit_equal_rows"] == n))
         print(f"tap {label} {form}: {n} points, bit-equal to the twin on {share:.6f}"
               + (f" (the first form {row['first_share']:.6f}); bit-equal to the first form on "
                  f"{row['first_bit_equal_rows']} of {n}" if bilinear else "")
-              + f"; max abs err {err:.3e} where both are finite ({finite_parts} rows finite in "
-              f"one only)"
-              + (f" on the {n - row['not_held']} points of finite components (of the "
+              + f"; max abs err {err:.3e}, {nonfinite} rows not finite in both"
+              + (f", on the {n - row['not_held']} points of finite components (of the "
                  f"{row['not_held']} others {row['not_held_parted']} part from the twin)"
                  if held is not None else "")
               + f"; {ms:.4f} ms per call, on the device "
@@ -5183,15 +5218,19 @@ def _tap_case(torch, label, tap, twin, n, bodies, key, nbytes, rows, points=None
               + (" (the first form " + ", ".join(f"{x:.4f}" for x in row["first_graph_ms"])
                  + ")" if bilinear else "")
               + f" ms; plain {plain_ms:.2f} ms; bound {row['bound_ms']:.4f} ms "
-              f"({row['bound_by']}; {'the first form' if bilinear else 'its'} body's "
-              f"{len(work)} instructions a tap by pipe {count}); its body {row['body']} by pipe "
-              f"{row['pipes']}  {'ok' if ok else 'FAIL'}")
+              f"({row['bound_by']}); its body {row['body']} instructions a tap by pipe "
+              f"{row['pipes']}"
+              + (f", the first form's {row['first_body']} by pipe {row['first_pipes']} (its "
+                 f"bound {row['first_bound_ms']:.4f} ms)" if bilinear else "")
+              + f"  {'ok' if ok else 'FAIL'}")
         if not ok:
-            bad = ((got - want).abs().amax(-1) > TAP_ATOL) & (held if held is not None else True)
+            bad = ~(((got - want).abs().amax(-1) <= TAP_ATOL) & got.isfinite().all(-1)
+                    & want.isfinite().all(-1)) & (held if held is not None else True)
             rows_bad = bad.nonzero().flatten()[:8].tolist()
-            print(f"tap {label} {form}: rows past TAP_ATOL {rows_bad}"
+            print(f"tap {label} {form}: rows past TAP_ATOL or not finite {rows_bad}"
                   + (f" at points {points[rows_bad].tolist()}" if points is not None else ""))
             fail(f"the {form} tap ({label}) disagrees with the twin or with the first form")
+        del got, want
     rows[label] = out
     return out
 
@@ -5203,7 +5242,7 @@ def check_texture(torch, lookups, atlas, march_probes=0, frame_end_args=None):
     sample_dir_texture (``_tap_case``: nearest and bilinear, the bilinear
     tap bit for bit against the form texture.cuh first had, each timed on
     the device): at bounce 0's surface points, the material (8 channels)
-    and the topography (4); on the edge sweep (ops/texture.tap_edge_points)
+    and the topography (4); on the edge sweep (``tap_edge_points``)
     of the material, the topography and the stars (3); at bounce 0's own
     march probes (``march_probe_points``: its three marches' points, more
     than the census's floor of ``march_probes``, which counts an
@@ -5224,7 +5263,7 @@ def check_texture(torch, lookups, atlas, march_probes=0, frame_end_args=None):
     near = len(bodies[("sphere", 4, "nearest")])
     rows["extra"] = dict(now=len(bodies[("sphere", 4, "bilinear")]) - near,
                          first=len(bodies[("sphere", 4, "first")]) - near,
-                         kept=bilinear_tap_extra(kernels))
+                         counted=bilinear_tap_extra(kernels))
 
     def sphere(tex, pos):
         return (lambda b, f: kernels.sphere_tap(tex, pos, b, first_form=f),
@@ -5245,7 +5284,7 @@ def check_texture(torch, lookups, atlas, march_probes=0, frame_end_args=None):
     for name, tex, kind in (("material", atlas.material, "sphere"),
                             ("topography", atlas.topography, "sphere"),
                             ("stars", atlas.stars, "dir")):
-        pts = tx.tap_edge_points(*tex.shape[:2], device=tex.device)
+        pts = tap_edge_points(torch, *tex.shape[:2], device=tex.device)
         c = tex.shape[2]
         fns = sphere(tex, pts) if kind == "sphere" else direction(tex, pts)
         _tap_case(torch, f"{name} on the edge sweep", *fns, pts.shape[0], bodies, (kind, c),
@@ -6878,81 +6917,6 @@ def tap_bench(torch, dev):
     print(json.dumps({"tap_bench": out}))
 
 
-TAP_FORM_POINTS = (288428, 4270636)  # bounce 0's surface points and march probes (Apollo)
-
-
-def tap_form_points(torch, dev, n, layout, seed=5):
-    """(n, 3) float32 unit directions: "patch", lanes in row order over a
-    60 by 60 degree patch of the sphere (neighbouring lanes on neighbouring
-    texels, as a frame's pixels see the planet), or "random", seeded and
-    uniform over the sphere."""
-    if layout == "random":
-        g = torch.Generator(device=dev).manual_seed(seed)
-        d = torch.randn((n, 3), generator=g, device=dev, dtype=torch.float64)
-        return (d / d.norm(dim=1, keepdim=True)).float().contiguous()
-    side = math.isqrt(n - 1) + 1
-    k = torch.arange(n, device=dev, dtype=torch.float64)
-    lat = ((k // side) / side - 0.5) * (math.pi / 3)
-    lon = ((k % side) / side - 0.5) * (math.pi / 3)
-    return torch.stack([lat.cos() * lon.cos(), lat.sin(), lat.cos() * lon.sin()], -1).float()
-
-
-def tap_forms(torch, dev):
-    """``--tap-forms``: the forms of a bilinear tap's texel reads
-    (csrc/bench/tap_forms_bench.cu, ``kernels.TAP_FORMS``) on seeded
-    1024x2048 textures of 4 and 8 channels, at TAP_FORM_POINTS points in
-    two layouts (``tap_form_points``): per form its SASS body by pipe, its
-    registers (ptxas), every row bit-equal to the sphere tap's (else fails)
-    and its device ms (a CUDA graph of 20 calls; the forms timed in order,
-    then in reverse), writing the C channels and, apart, the sum of a tap's
-    channels (one float a point: the reads and conversions without C
-    strided stores a point). One JSON line."""
-    from digital_earth_tpu_torch import kernels
-
-    lib = kernels.bench_library()
-    funcs = sass_functions(lib._name)
-    regs = ptxas_entries(kernels.bench_ptxas_log.get(os.path.join("bench", "tap_forms_bench.cu"),
-                                                     ""))
-    g = torch.Generator(device=dev).manual_seed(11)
-    out = dict(card=nvidia_smi_line(), forms={k: v[0] for k, v in kernels.TAP_FORMS.items()})
-    for c in (4, 8):
-        tex = torch.randint(0, 256, (1024, 2048, c), generator=g, device=dev, dtype=torch.uint8)
-        forms = [f for f, (_, cs) in kernels.TAP_FORMS.items() if c in cs]
-        for f in forms:
-            name = next((m for m in funcs if f"tap_form_kernelILi{c}ELi{f}ELb0E" in m), None)
-            if name is None:
-                fail(f"the measurement library has no tap_form_kernel<{c}, {f}, false>")
-            _, per_pipe, count = sass_ops_bound(sass_main_body(funcs[name]), 1)
-            out[f"C{c} form {f}"] = dict(body=len(sass_main_body(funcs[name])), pipes=count,
-                                        xu=xu_ops(sass_main_body(funcs[name])),
-                                        registers=regs.get(f"tap_form_kernel<{c},{f},0>"))
-        for layout in ("patch", "random"):
-            for n in TAP_FORM_POINTS:
-                pos = tap_form_points(torch, dev, n, layout)
-                want = kernels.sphere_tap(tex, pos, True)
-                for f in forms:
-                    if not bool(_same_bits(torch, kernels.tap_form(tex, pos, f), want).all()):
-                        fail(f"tap form {f} at C = {c} parts from the sphere tap's bits")
-                times = {f: [] for f in forms}
-                sums = {f"sum {f}": [] for f in forms}
-                for order in (forms, forms[::-1]):
-                    for f in order:
-                        times[f].append(round(_graph_ms(
-                            torch, lambda: kernels.tap_form(tex, pos, f)), 5))
-                        sums[f"sum {f}"].append(round(_graph_ms(
-                            torch, lambda: kernels.tap_form(tex, pos, f, True)), 5))
-                times.update(sums)
-                times["sphere_tap"] = round(_graph_ms(
-                    torch, lambda: kernels.sphere_tap(tex, pos, True)), 5)
-                times["first_form"] = round(_graph_ms(
-                    torch, lambda: kernels.sphere_tap(tex, pos, True, first_form=True)), 5)
-                out[f"C{c} {layout} {n}"] = times
-                print(f"tap forms C = {c}, {layout}, {n} points: " + ", ".join(
-                    f"{k} {v}" for k, v in times.items()))
-                del pos, want
-    print(json.dumps({"tap_forms": out}))
-
-
 def spp_bench(torch, dev, reps=3):
     """``--spp-bench [DIR]``: per scene (``scene_runs``) at the default
     config and at the reference's estimator: s/spp, then ``reps`` profiled
@@ -7236,15 +7200,14 @@ def main():
     wbench = args[:1] == ["--widths-bench"] and len(args) <= 2
     nbench = args[:1] == ["--naive-bench"] and (len(args) <= 2 or args[2:] == ["march"])
     tbench = args[:1] == ["--tap-bench"] and len(args) <= 2
-    tforms = args == ["--tap-forms"]
     if args and not (mesh_only or estimator_only or floors_only or widths_only or naive_only
                      or bench or pbench or sbench or obench or scount or wbench or nbench
-                     or tbench or tforms):
+                     or tbench):
         fail(f"unknown arguments {args} (the options are --mesh-only, --estimator-only, "
              "--floors-only, --widths-only, --naive-only, "
              "--preview-bench [DIR], --path-bench [DIR], --spp-bench [DIR], --options-bench "
              "[DIR [SETTING ...]], --sass-counts [DIR], --widths-bench [DIR], --naive-bench "
-             "[DIR], --tap-bench [DIR] and --tap-forms)")
+             "[DIR] and --tap-bench [DIR])")
     try:
         import torch
     except ImportError:
@@ -7280,9 +7243,6 @@ def main():
         return
     if tbench:
         tap_bench(torch, dev)
-        return
-    if tforms:
-        tap_forms(torch, dev)
         return
 
     from digital_earth_tpu_torch import kernels

@@ -92,10 +92,8 @@ ptxas_log = {}
 # and ptxas's report per source of the last build (by path under csrc/)
 _width_libs = {}
 width_ptxas_log = {}
-# the measurement library (bench_library), loaded, and ptxas's report per
-# source when this process built it
+# the measurement library (bench_library), loaded
 _bench_lib = None
-bench_ptxas_log = {}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _BOUNCE_ARGS = [_P] * 15 + [_I, _I] + [_P] * 6
@@ -197,8 +195,6 @@ _BENCH_SIGNATURES = {
     # topo, H, W, pos, dir, active, out, iters, cycles, n, scale, steps,
     # bilinear, stream
     "de_naive_march_loop": [_P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _F, _I, _I, _P],
-    # tex, H, W, C, pos, n, form, sum, out, stream
-    "de_tap_form": [_P, _I, _I, _I, _P, _I, _I, _I, _P, _P],
 }
 
 
@@ -357,7 +353,7 @@ def bench_library():
             srcs = _dir_sources(BENCH_DIR)
             so = os.path.join(_library_dir("bench", srcs), "libde_bench.so")
             if not os.path.exists(so):
-                _nvcc([(so, srcs, [], bench_ptxas_log)])
+                _nvcc([(so, srcs, [], {})])
             _bench_lib = _load(so, _BENCH_SIGNATURES, _BENCH_SIGNATURES)
         return _bench_lib
 
@@ -673,37 +669,6 @@ def naive_march_loop(topo, pos, direction, active, scale: float, *, steps: int,
                 _ptr(active), _ptr(out), _ptr(it), _ptr_or_null(cycles), n, scale, steps,
                 int(bilinear))
     return (out, it, cycles) if census else (out, it)
-
-
-# csrc/bench/tap_forms_bench.cu's forms of a bilinear tap's texel reads:
-# {form: (name, the channel counts it takes)}
-TAP_FORMS = {0: ("bytes, I2F", (4, 8)), 1: ("word, PRMT", (4, 8)), 2: ("word, I2F", (4, 8)),
-             3: ("halves, PRMT", (8,)), 4: ("bytes, FADD", (4, 8)),
-             5: ("words, PRMT, by channel", (4, 8)), 6: ("bytes, I2F, by channel", (4, 8)),
-             7: ("the first form", (4, 8)), 8: ("words, PRMT operands reversed, by channel", (4, 8))}
-
-
-def tap_form(tex, pos, form: int, channel_sum: bool = False):
-    """Measurement launcher (csrc/bench/tap_forms_bench.cu; no render path
-    launches it): the (n, C) bilinear tap of a uint8 (H, W, C) texture, C 4
-    or 8, at the direction of each ``pos`` with its texels read and turned
-    into floats in ``form`` (``TAP_FORMS``; every form gives the sphere
-    tap's bits), or with ``channel_sum`` the (n,) sum of each tap's
-    channels in channel order."""
-    dev = pos.device
-    n = pos.shape[0]
-    h, w, c = tex.shape
-    if form not in TAP_FORMS or c not in TAP_FORMS[form][1]:
-        raise ValueError(f"tap_form: form {form} at {c} channels (TAP_FORMS {TAP_FORMS})")
-    if c == 4:
-        _check_tex4("tex", tex, dev)
-    else:
-        _check_tex8("tex", tex, dev)
-    _check("pos", pos, torch.float32, (n, 3), dev)
-    out = torch.empty((n,) if channel_sum else (n, c), dtype=torch.float32, device=dev)
-    _launch("de_tap_form", _ptr(tex), h, w, c, _ptr(pos), n, int(form), int(channel_sum),
-            _ptr(out))
-    return out
 
 
 NAIVE_SPECIES = ("rmo", "cloud")

@@ -119,44 +119,6 @@ def sample_sphere_texture(tex, pos, bilinear: bool = True):
     return sample_equirect(tex, u, v, bilinear=bilinear)
 
 
-def tap_edge_points(h: int, w: int, device="cpu", seed: int = 25):
-    """(n, 3) float32 points at which the taps of an (h, w) texture are held
-    at their edges, as positions (``sample_sphere_texture``) or directions
-    (``sample_dir_texture``): u exactly 0 and 1 (atan2 of -0 and +0 at -1,
-    at the equator and towards the poles); u within a texel of the seam on
-    either side (x0f = -1 below half a texel; nearest 0.01 texel and more
-    from its rounding edges); both poles and the rows the clamp holds (v
-    within 1.25 texels of 0 and 1); zero-length, tiny and overflowing
-    positions; NaN and infinite components; then 64 seeded unit directions."""
-    rows = []
-    for y in (0.0, 0.5, -0.5, 0.999, -0.999):
-        c = math.sqrt(1.0 - y * y)
-        rows += [(c, y, -0.0), (c, y, 0.0)]
-    for k in (0.01, 0.25, 0.49, 0.51, 0.75, 0.99, 1.25):
-        a = 2.0 * math.pi * k / w  # k texels from the seam: atan2 = -pi + a or pi - a
-        for phi in (-math.pi + a, math.pi - a):
-            for y in (0.0, 0.3):
-                c = math.sqrt(1.0 - y * y)
-                rows.append((-c * math.cos(phi), y, c * math.sin(phi)))
-    for k in (0.0, 0.25, 0.49, 0.51, 0.75, 1.25):
-        b = math.pi * k / h  # k texel rows from a pole
-        for sy in (1.0, -1.0):
-            for phi in (0.4, -2.5):
-                rows.append((-math.sin(b) * math.cos(phi), sy * math.cos(b),
-                             math.sin(b) * math.sin(phi)))
-    nan, inf = math.nan, math.inf
-    rows += [(0.0, 0.0, 0.0), (-0.0, -0.0, -0.0), (1e-30, 0.0, 0.0), (0.0, 1e-45, 0.0),
-             (3e38, 3e38, 3e38), (-3e38, 1.0, 3e38), (nan, 0.0, 0.0), (0.0, nan, 0.0),
-             (0.0, 0.0, nan), (nan, nan, nan), (inf, 0.0, 0.0), (-inf, 0.0, 0.0),
-             (0.0, inf, 0.0), (0.0, -inf, 0.0), (0.0, 0.0, inf), (0.0, 0.0, -inf),
-             (inf, inf, inf), (-inf, inf, -inf), (inf, nan, 1.0)]
-    g = torch.Generator().manual_seed(seed)
-    rnd = torch.randn((64, 3), generator=g, dtype=torch.float64)
-    rnd = rnd / rnd.norm(dim=1, keepdim=True)
-    pts = torch.cat([torch.tensor(rows, dtype=torch.float64), rnd])
-    return pts.to(torch.float32).to(device)
-
-
 def sample_dir_texture(tex, direction, bilinear: bool = True):
     """Sample an equirect texture by unit direction (stars background),
     dividing the angles by pi as the reference and the ``frame_end`` kernel

@@ -545,6 +545,79 @@ def test_sass_tap_bound_counts_the_body_by_pipe():
     assert per_pipe["f32"] == 2 * 16 / 128 * 1e-6 * 1e3
 
 
+def _stub_tap_timing(monkeypatch, cs):
+    monkeypatch.setattr(cs, "_time_ms", lambda torch_, fn, reps: (fn(), 0.0))
+    monkeypatch.setattr(cs, "_plain_ms", lambda torch_, fn: (fn(), 0.0))
+    monkeypatch.setattr(cs, "_graph_ms", lambda torch_, fn: 0.0)
+    monkeypatch.setattr(cs, "sm_clock_mhz", lambda: 1000.0)
+
+
+# a nearest, a bilinear and a first-form tap body: the bilinear body the
+# lower of the two bilinear ones (2 XU instructions against the first's 6)
+_TAP_BODIES = {("sphere", 4, "nearest"): ["FFMA"] * 3 + ["MUFU.RCP"] + ["EXIT"],
+               ("sphere", 4, "bilinear"): ["FFMA"] * 6 + ["MUFU.RCP"] * 2 + ["EXIT"],
+               ("sphere", 4, "first"): ["FFMA"] * 5 + ["MUFU.RCP", "I2F.U16"] * 3 + ["EXIT"]}
+
+
+@pytest.mark.parametrize("row,value,held", [
+    (None, 0.0, True), (2, float("nan"), True), (3, float("inf"), True),
+    (1, 2e-5, True), (2, float("nan"), False), (4, 0.5, False)])
+def test_tap_case_holds_every_row_its_points_allow(monkeypatch, row, value, held):
+    """chip_smoke.py's tap check passes only if every held row is finite in
+    both and within TAP_ATOL of the twin: all rows at path points, on the
+    edge sweep the rows whose point has finite components (the others are
+    counted apart); a NaN or infinite tap where the twin is finite fails."""
+    cs = _chip_smoke()
+    _stub_tap_timing(monkeypatch, cs)
+    g = torch.Generator().manual_seed(3)
+    want = torch.rand((6, 4), generator=g)
+    got = want.clone()
+    if row is not None:
+        got[row] = want[row] + value
+    points = None if held else torch.rand((6, 3), generator=g)
+    if points is not None:
+        points[row, 1] = float("nan")
+    rows = {}
+    run = lambda: cs._tap_case(  # noqa: E731
+        torch, "t", lambda b, f: got.clone(), lambda b: want, 6, _TAP_BODIES, ("sphere", 4),
+        (96, 96), rows, points=points)
+    if row is not None and held:
+        with pytest.raises(SystemExit):
+            run()
+        return
+    out = run()
+    for form in ("nearest", "bilinear"):
+        assert out[form]["nonfinite"] == 0 and out[form]["max_abs_err"] <= cs.TAP_ATOL
+        if points is not None:
+            assert out[form]["not_held"] == 1 and out[form]["not_held_parted"] == 1
+
+
+def test_tap_case_bounds_the_bilinear_tap_by_the_lower_body(monkeypatch):
+    """The bilinear tap's bound counts the lower of its body's operations
+    and the first form's (the work the function needs), the first form's
+    own bound kept beside it; the options rows' extra instructions a
+    bilinear tap are the lower body's less the nearest one's."""
+    import types
+
+    cs = _chip_smoke()
+    _stub_tap_timing(monkeypatch, cs)
+    n = 4
+    want = torch.zeros((n, 4))
+    rows = {}
+    out = cs._tap_case(torch, "t", lambda b, f: want.clone(), lambda b: want, n, _TAP_BODIES,
+                       ("sphere", 4), (0, 0), rows)["bilinear"]
+    assert out["bound_by"] == "operations"
+    assert out["bound_ms"] == cs.sass_ops_bound(_TAP_BODIES[("sphere", 4, "bilinear")], n)[0]
+    assert out["first_bound_ms"] == cs.sass_ops_bound(_TAP_BODIES[("sphere", 4, "first")], n)[0]
+    assert out["first_bound_ms"] == pytest.approx(3 * out["bound_ms"])
+    monkeypatch.setattr(cs, "tap_bodies", lambda kernels: _TAP_BODIES)
+    assert cs.bilinear_tap_extra(types.SimpleNamespace()) == 9 - 5
+    slow = dict(_TAP_BODIES)
+    slow[("sphere", 4, "bilinear")] = ["FFMA"] * 20 + ["EXIT"]
+    monkeypatch.setattr(cs, "tap_bodies", lambda kernels: slow)
+    assert cs.bilinear_tap_extra(types.SimpleNamespace()) == 12 - 5
+
+
 def test_lanes_per_warp_counts_the_ratio_trackers_lanes():
     """chip_smoke.py's tracking lanes per warp at the NEE RMO site (column
     6 of the census's trips): warps are 32 consecutive list entries, the

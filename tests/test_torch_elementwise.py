@@ -9,6 +9,7 @@ test's inputs. Chains through a cancellation (the Draine inverse CDF, the
 hero-packet CIE lerp, the GGX specular) get the loosest ones."""
 
 import math
+import os
 
 import jax.numpy as jnp
 import numpy as np
@@ -46,6 +47,7 @@ from digital_earth_tpu_torch.render import params as tparams
 # machine, spin against one another and against XLA's compiles.
 torch.set_num_threads(1)
 
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N = 8192
 R = np.random.default_rng(1234)
 
@@ -181,10 +183,21 @@ def test_texture_sampling(atlases, bilinear):
           jtx.sample_dir_texture(jatlas.stars, J(V), bilinear), atol=5e-5)
 
 
+def _edge_points(h, w, device="cpu"):
+    """chip_smoke.py's tap_edge_points: the points at which the taps of an
+    (h, w) texture are held at their edges, on the CPU and on the card."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    return cs.tap_edge_points(torch, h, w, device=device)
+
+
 @pytest.mark.parametrize("bilinear", [False, True])
 def test_texture_sampling_at_the_edges(atlases, bilinear):
     """sample_sphere_texture and sample_dir_texture against the JAX
-    package's at the taps' edge points (ops/texture.tap_edge_points: u at
+    package's at the taps' edge points (chip_smoke.tap_edge_points: u at
     exactly 0 and 1, the seam, both poles and the clamped rows, zero-length,
     tiny, overflowing, NaN and infinite points) on the 4-, 8- and 3-channel
     textures: the twin the card holds its taps to. Tighter than
@@ -195,7 +208,7 @@ def test_texture_sampling_at_the_edges(atlases, bilinear):
     tol = dict(rtol=0.0, atol=2e-6 if bilinear else 0.0)
     for name in ("topography", "material", "stars"):
         tex, jtex = getattr(tatlas, name), getattr(jatlas, name)
-        pts = ttx.tap_edge_points(*tex.shape[:2])
+        pts = _edge_points(*tex.shape[:2])
         p = pts.numpy()
         close(ttx.sample_sphere_texture(tex, pts, bilinear),
               jtx.sample_sphere_texture(jtex, J(p), bilinear=bilinear), **tol)

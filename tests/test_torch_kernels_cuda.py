@@ -1664,18 +1664,32 @@ def test_bounce_launchers_check_their_inputs(case):
         kernels.bounce_window(*ka[:13], idx.long(), *ka[14:], stop=3)
 
 
-def _hold_tap(got, want, points, first=None):
-    """A tap within 1e-5 of its twin (the same op-by-op rounding;
-    chip_smoke.py TAP_ATOL) on the rows finite in both whose point has no
-    NaN or infinite component (there the kernel's fminf and fmaxf take a NaN
-    as missing and torch.clamp keeps it, so the two may tap other texels:
-    ROADMAP C #8), and with ``first`` (the first bilinear form's tap) bit for
-    bit on every row, NaN payloads included. Returns the rows bit-equal to
-    the twin (a NaN equal to a NaN)."""
+def _edge_points(h, w, device="cpu"):
+    """chip_smoke.py's tap_edge_points: the points at which the taps of an
+    (h, w) texture are held at their edges, on the CPU and on the card."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    return cs.tap_edge_points(torch, h, w, device=device)
+
+
+def _hold_tap(got, want, points=None, first=None):
+    """A tap finite and within 1e-5 of its twin (the same op-by-op rounding;
+    chip_smoke.py TAP_ATOL) on every row; with ``points`` (the edge sweep)
+    on every row whose point has no NaN or infinite component (there the
+    kernel's fminf and fmaxf take a NaN as missing and torch.clamp keeps
+    it, so the two may tap other texels: ROADMAP C #8). With ``first`` (the
+    first bilinear form's tap) bit for bit on every row, NaN payloads
+    included. Returns the rows bit-equal to the twin (a NaN equal to a
+    NaN)."""
     assert got.shape == want.shape
-    fin = got.isfinite().all(-1) & want.isfinite().all(-1) & points.isfinite().all(-1)
-    assert fin.float().mean().item() > 0.8
-    assert (got[fin] - want[fin]).abs().max().item() <= 1e-5
+    held = slice(None) if points is None else points.isfinite().all(-1)
+    g, w = got[held], want[held]
+    assert g.shape[0] > 0
+    assert bool(g.isfinite().all()) and bool(w.isfinite().all())
+    assert (g - w).abs().max().item() <= 1e-5
     if first is not None:
         assert torch.equal(got.view(torch.int32), first.view(torch.int32))
     return ((got == want) | (got.isnan() & want.isnan())).all(-1)
@@ -1684,23 +1698,25 @@ def _hold_tap(got, want, points, first=None):
 @pytest.mark.parametrize("bilinear", [True, False])
 def test_sphere_tap_kernel(case, bilinear):
     """The bounce's material (8-channel) and topography (4-channel) taps
-    against ops/texture.sample_sphere_texture at the case's points and on
-    the edge sweep (ops/texture.tap_edge_points: u at 0 and 1, the seam, the
-    poles and clamped rows, zero-length, NaN and infinite points): within
-    1e-5 where both are finite at points of finite components, the bilinear
-    tap bit for bit against the form texture.cuh first had on every point,
-    and at least as often bit-equal to the twin as that form."""
+    against ops/texture.sample_sphere_texture at the case's points (every
+    row finite and within 1e-5) and on the edge sweep
+    (chip_smoke.tap_edge_points: u at 0 and 1, the seam, the poles and
+    clamped rows, zero-length, NaN and infinite points; the same at the
+    points of finite components), the bilinear tap bit for bit against the
+    form texture.cuh first had on every point, and at least as often
+    bit-equal to the twin as that form."""
     from digital_earth_tpu_torch import kernels
     from digital_earth_tpu_torch.ops import texture as tx
 
     for tex in (case["atlas"].material, case["atlas"].topography):
-        for pos in (case["pos"], tx.tap_edge_points(*tex.shape[:2], device=tex.device)):
+        sweep = _edge_points(*tex.shape[:2], device=tex.device)
+        for pos, points in ((case["pos"], None), (sweep, sweep)):
             got = kernels.sphere_tap(tex, pos, bilinear)
             want = tx.sample_sphere_texture(tex, pos, bilinear=bilinear)
             first = kernels.sphere_tap(tex, pos, True, first_form=True) if bilinear else None
-            same = _hold_tap(got, want, pos, first)
+            same = _hold_tap(got, want, points, first)
             if bilinear:
-                assert same.sum() >= _hold_tap(first, want, pos).sum()
+                assert same.sum() >= _hold_tap(first, want, points).sum()
 
 
 @pytest.mark.parametrize("bilinear", [True, False])
@@ -1713,13 +1729,14 @@ def test_dir_tap_kernel(case, bilinear):
     from digital_earth_tpu_torch.ops import texture as tx
 
     stars = case["atlas"].stars
-    for d in (case["dirs"], tx.tap_edge_points(*stars.shape[:2], device=stars.device)):
+    sweep = _edge_points(*stars.shape[:2], device=stars.device)
+    for d, points in ((case["dirs"], None), (sweep, sweep)):
         got = kernels.dir_tap(stars, d, bilinear)
         want = tx.sample_dir_texture(stars, d, bilinear=bilinear)
         first = kernels.dir_tap(stars, d, True, first_form=True) if bilinear else None
-        same = _hold_tap(got, want, d, first)
+        same = _hold_tap(got, want, points, first)
         if bilinear:
-            assert same.sum() >= _hold_tap(first, want, d).sum()
+            assert same.sum() >= _hold_tap(first, want, points).sum()
 
 
 @pytest.mark.parametrize("shape,factor,jitter,channel,seed", [

@@ -213,10 +213,9 @@ def test_kernel_wrappers_refuse_a_misaligned_8_channel_texture(wrapper):
 
 
 def test_tap_launchers_refuse_what_they_do_not_take():
-    """The texture taps' test and measurement launchers refuse, before any
-    launch: the first bilinear form asked for with a nearest tap, a
-    direction tap of other than 3 channels, and a texel-read form at a
-    channel count it has no instance for."""
+    """The texture taps' test launchers refuse, before any launch: the
+    first bilinear form asked for with a nearest tap, and a direction tap
+    of other than 3 channels."""
     from digital_earth_tpu_torch import kernels
 
     tex4, z3 = torch.zeros((4, 8, 4), dtype=torch.uint8), torch.zeros((2, 3))
@@ -226,8 +225,6 @@ def test_tap_launchers_refuse_what_they_do_not_take():
         kernels.dir_tap(torch.zeros((4, 8, 3), dtype=torch.uint8), z3, False, first_form=True)
     with pytest.raises(ValueError, match="shape"):
         kernels.dir_tap(tex4, z3, True)
-    with pytest.raises(ValueError, match="form 3 at 4 channels"):
-        kernels.tap_form(tex4, z3, 3)
 
 
 def _rmo_spans(case):
